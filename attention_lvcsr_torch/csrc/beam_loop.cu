@@ -1,0 +1,680 @@
+// The whole beam-search decode loop as one persistent launch.
+//
+// Replaces attention_lvcsr_tpu/ops/pallas/beam_loop.py::beam_search_loop
+// for the flagship configuration: conv attention with one filter, the
+// window_around_median or expanding prior, the softmax normalizer, one
+// GRU decoder layer, a tanh post-merge layer, the log-likelihood
+// criterion, optional states-for-readout, patience or
+// optimistic_future_cost stopping, char_discount, round_to_inf and
+// ignore_first_eol.  Per step and utterance it runs what the Pallas body
+// runs: window prior, alignment convolution, state projection, energies,
+// masked softmax, weighted average, merge + tanh + post-merge, log-softmax,
+// K rounds of candidate selection (lowest flat index wins ties), gathers
+// by source row, GRU advance, EOS retirement, the done-set merge (old
+// entries win ties) and the stopping bookkeeping.  Every product is
+// computed here with fmaf dot products; none goes to a library.
+//
+// What bounds it on the card: latency.  A step is a chain of about a
+// dozen dependent phases separated by block barriers, each a small
+// product over K = 10 rows; per step a block also streams about 4 MB of
+// weight tables (merge, fork, distribute, GRU matrices; L2-resident) and
+// its utterance's pre-projected keys and encoder outputs (0.6 MB at the
+// flagship shape).  The grid is one block per utterance, so B = 64 fills
+// 64 of 132 SMs.
+//
+// What the design does about it: the whole decode is one launch, so no
+// per-step launch or host round trip exists (the plain PyTorch version
+// pays dozens of launches per step).  All per-utterance state — states h
+// (K x S), alignment weights (K x L), hypothesis buffers (K x Lout), the
+// done set — lives in shared memory for the whole decode; weights are
+// read from global memory once per step per block, each load serving all
+// K rows (threads own output columns; rows accumulate in registers).
+// Energies are computed only inside the prior's window (outside it the
+// softmax weight is exactly zero), a warp per frame with the frame's
+// keys held in L1.  An utterance that stops leaves the loop at once.
+#include <cuda_runtime.h>
+
+#include <climits>
+
+// Must match the ctypes.Structure in ops/beam_loop.py field for field.
+struct BeamLoopArgs {
+  const float* pre;             // (U, L, M) preprocessed attended
+  const float* attended;        // (U, L, D)
+  const float* att_mask;        // (U, L)
+  const float* conv_taps;       // (n_taps,) the conv filter, true conv
+  const float* state_trans;     // (S, M)
+  const float* handler;         // (M,)
+  const float* v;               // (M,) energy vector
+  const float* merge_k;         // (D, R)
+  const float* merge_b;         // (R,)
+  const float* merge_states_k;  // (S, R) or null
+  const float* post_k;          // (R, V)
+  const float* post_b;          // (V,)
+  const float* embed;           // (Vf, F)
+  const float* fork_in_w;       // (F, S)
+  const float* fork_in_b;       // (S,)
+  const float* fork_gate_w;     // (F, 2S)
+  const float* fork_gate_b;     // (2S,)
+  const float* dist_in_w;       // (D, S)
+  const float* dist_gate_w;     // (D, 2S)
+  const float* wsg;             // (S, 2S)
+  const float* wss;             // (S, S)
+  const float* h0;              // (S,)
+  int* done_out;                // (U, K, Lout)
+  float* done_meta;             // (U, K, 3) [cost, adjusted, length]
+  int* steps;                   // (U,)
+  int U, L, M, D, S, R, V, F, K, Lout, n_taps;
+  int eol, stop_patience, ignore_first_eol, prior_median;
+  float char_discount, round_to_inf, before, after;
+  float initial_begin, initial_end, min_speed, max_speed;
+};
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPrefetch = 8;         // weight rows loaded ahead
+constexpr int kMq = 8;               // energy columns per lane (M <= 256: one pass)
+constexpr float kInf = 1e9f;         // "no hypothesis" cost
+constexpr float kBig = 3e38f;        // taken-candidate marker
+constexpr float kNeg = -1e30f;
+constexpr int kPatience = 30;
+
+// Offsets (in 4-byte words) of the shared-memory buffers.
+struct Layout {
+  // persistent across steps
+  int h, w, aout, dout, acost, dadj, dcost, dlen, newadj, chosen, src, sym,
+      pick, mask, taps, handler, v, begins, ends, red_v, red_i;
+  // wn: attention -> gather; wa: readout -> gather
+  int wn, wa;
+  // attention temporaries
+  int wg, conv, sp;
+  // readout temporaries
+  int act, costs;
+  // gather / GRU temporaries
+  int hs, was, aout2, dout2, fb, gi, it;
+  int total;
+};
+
+__host__ __device__ inline Layout make_layout(const BeamLoopArgs& a) {
+  Layout o;
+  const int K = a.K;
+  int p = 0;
+  o.h = p; p += K * a.S;
+  o.w = p; p += K * a.L;
+  o.aout = p; p += K * a.Lout;
+  o.dout = p; p += K * a.Lout;
+  o.acost = p; p += K;
+  o.dadj = p; p += K;
+  o.dcost = p; p += K;
+  o.dlen = p; p += K;
+  o.newadj = p; p += K;
+  o.chosen = p; p += K;
+  o.src = p; p += K;
+  o.sym = p; p += K;
+  o.pick = p; p += K;
+  o.mask = p; p += a.L;
+  o.taps = p; p += a.n_taps;
+  o.handler = p; p += a.M;
+  o.v = p; p += a.M;
+  o.begins = p; p += K;
+  o.ends = p; p += K;
+  o.red_v = p; p += kWarps + 1;
+  o.red_i = p; p += kWarps + 1;
+  o.wn = p; p += K * a.L;
+  o.wa = p; p += K * a.D;
+  const int scratch = p;
+  // attention phase
+  o.wg = scratch;
+  o.conv = o.wg + K * a.L;
+  o.sp = o.conv + K * a.L;
+  int end_att = o.sp + K * a.M;
+  // readout phase
+  o.act = scratch;
+  o.costs = o.act + K * a.R;
+  int end_read = o.costs + K * a.V;
+  // gather + GRU phase
+  o.hs = scratch;
+  o.was = o.hs + K * a.S;
+  o.aout2 = o.was + K * a.D;
+  o.dout2 = o.aout2 + K * a.Lout;
+  o.fb = o.dout2 + K * a.Lout;
+  o.gi = o.fb + K * a.F;
+  o.it = o.gi + 2 * K * a.S;
+  int end_gru = o.it + K * a.S;
+  int end = end_att > end_read ? end_att : end_read;
+  end = end > end_gru ? end : end_gru;
+  o.total = end;
+  return o;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ void lex_min(float& bv, int& bi, float ov, int oi) {
+  if (ov < bv || (ov == bv && oi < bi)) {
+    bv = ov;
+    bi = oi;
+  }
+}
+
+// out[r, c] (+)= sum_k in[r * ldi + k] * W[k * N + c]  (+ bias[c]),
+// for r < nrows, c < N.  Threads own columns; RB rows accumulate in
+// registers so each weight load from global memory serves every row, and
+// weights are fetched kPrefetch rows of W at a time so that many loads are
+// in flight (the loop is bound by L2 latency, not by arithmetic).  The
+// sum over k runs in order, as in the plain version's reference order.
+template <int RB>
+__device__ void rows_matvec(const float* in, int ldi, int nrows, int Kd,
+                            const float* __restrict__ W, int N,
+                            const float* __restrict__ bias, float* out,
+                            int ldo, bool accumulate) {
+  for (int c = threadIdx.x; c < N; c += blockDim.x) {
+    for (int r0 = 0; r0 < nrows; r0 += RB) {
+      const int nr = min(RB, nrows - r0);
+      const float* x = in + r0 * ldi;
+      float acc[RB];
+#pragma unroll
+      for (int j = 0; j < RB; ++j) acc[j] = 0.f;
+      int k = 0;
+      for (; k + kPrefetch <= Kd; k += kPrefetch) {
+        float w[kPrefetch];
+#pragma unroll
+        for (int q = 0; q < kPrefetch; ++q)
+          w[q] = __ldg(W + (size_t)(k + q) * N + c);
+#pragma unroll
+        for (int q = 0; q < kPrefetch; ++q)
+#pragma unroll
+          for (int j = 0; j < RB; ++j)
+            if (j < nr) acc[j] = fmaf(x[j * ldi + k + q], w[q], acc[j]);
+      }
+      for (; k < Kd; ++k) {
+        const float w = __ldg(W + (size_t)k * N + c);
+#pragma unroll
+        for (int j = 0; j < RB; ++j)
+          if (j < nr) acc[j] = fmaf(x[j * ldi + k], w, acc[j]);
+      }
+      for (int j = 0; j < nr; ++j) {
+        float v = acc[j];
+        if (bias != nullptr) v = v + bias[c];
+        float* o = out + (r0 + j) * ldo + c;
+        *o = accumulate ? *o + v : v;
+      }
+    }
+  }
+}
+
+// Lowest (value, index) among vals[0..n); every thread gets the winner.
+__device__ void block_argmin(const float* vals, int n, float* red_v,
+                             int* red_i, float& out_v, int& out_i) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float bv = __int_as_float(0x7f800000);  // +inf
+  int bi = INT_MAX;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) lex_min(bv, bi, vals[j], j);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    lex_min(bv, bi, __shfl_xor_sync(0xffffffffu, bv, off),
+            __shfl_xor_sync(0xffffffffu, bi, off));
+  if (lane == 0) {
+    red_v[warp] = bv;
+    red_i[warp] = bi;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    bv = lane < kWarps ? red_v[lane] : __int_as_float(0x7f800000);
+    bi = lane < kWarps ? red_i[lane] : INT_MAX;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      lex_min(bv, bi, __shfl_xor_sync(0xffffffffu, bv, off),
+              __shfl_xor_sync(0xffffffffu, bi, off));
+    if (lane == 0) {
+      red_v[kWarps] = bv;
+      red_i[kWarps] = bi;
+    }
+  }
+  __syncthreads();
+  out_v = red_v[kWarps];
+  out_i = red_i[kWarps];
+}
+
+// RB: rows per register pass (>= K for one pass; the launcher picks it).
+template <int RB>
+__global__ void __launch_bounds__(kThreads, 1)
+beam_loop_kernel(BeamLoopArgs a) {
+  extern __shared__ float sm[];
+  const Layout o = make_layout(a);
+  const int u = blockIdx.x;
+  const int K = a.K, L = a.L, M = a.M, D = a.D, S = a.S, R = a.R, V = a.V,
+            F = a.F, Lout = a.Lout, n_taps = a.n_taps;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int conv_n = (n_taps - 1) / 2;
+
+  float* H = sm + o.h;
+  float* Wt = sm + o.w;
+  int* AOUT = reinterpret_cast<int*>(sm + o.aout);
+  int* DOUT = reinterpret_cast<int*>(sm + o.dout);
+  float* ACOST = sm + o.acost;
+  float* DADJ = sm + o.dadj;
+  float* DCOST = sm + o.dcost;
+  float* DLEN = sm + o.dlen;
+  float* NEWADJ = sm + o.newadj;
+  float* CHOSEN = sm + o.chosen;
+  int* SRC = reinterpret_cast<int*>(sm + o.src);
+  int* SYM = reinterpret_cast<int*>(sm + o.sym);
+  int* PICK = reinterpret_cast<int*>(sm + o.pick);
+  float* MASK = sm + o.mask;
+  float* TAPS = sm + o.taps;
+  float* HAND = sm + o.handler;
+  float* VV = sm + o.v;
+  float* BEGINS = sm + o.begins;
+  float* ENDS = sm + o.ends;
+  float* RED_V = sm + o.red_v;
+  int* RED_I = reinterpret_cast<int*>(sm + o.red_i);
+  float* WN = sm + o.wn;
+  float* WA = sm + o.wa;
+  float* WG = sm + o.wg;
+  float* CONV = sm + o.conv;
+  float* SP = sm + o.sp;
+  float* ACT = sm + o.act;
+  float* COSTS = sm + o.costs;
+  float* HS = sm + o.hs;
+  float* WAS = sm + o.was;
+  int* AOUT2 = reinterpret_cast<int*>(sm + o.aout2);
+  int* DOUT2 = reinterpret_cast<int*>(sm + o.dout2);
+  float* FB = sm + o.fb;
+  float* GI = sm + o.gi;
+  float* IT = sm + o.it;
+
+  const float* pre = a.pre + (size_t)u * L * M;
+  const float* att = a.attended + (size_t)u * L * D;
+
+  // ---- init ---------------------------------------------------------
+  float msum = 0.f;
+  for (int l = tid; l < L; l += blockDim.x) {
+    const float m = a.att_mask[(size_t)u * L + l];
+    MASK[l] = m;
+    msum += m;
+  }
+  for (int j = tid; j < n_taps; j += blockDim.x) TAPS[j] = a.conv_taps[j];
+  for (int m = tid; m < M; m += blockDim.x) {
+    HAND[m] = a.handler[m];
+    VV[m] = a.v[m];
+  }
+  for (int i = tid; i < K * S; i += blockDim.x) H[i] = a.h0[i % S];
+  for (int i = tid; i < K * L; i += blockDim.x) Wt[i] = (i % L) == 0 ? 1.f : 0.f;
+  for (int i = tid; i < K * Lout; i += blockDim.x) {
+    AOUT[i] = 0;
+    DOUT[i] = 0;
+  }
+  msum = warp_sum(msum);
+  if (lane == 0) RED_V[warp] = msum;
+  __syncthreads();
+  float total_mask = 0.f;
+  for (int w = 0; w < kWarps; ++w) total_mask += RED_V[w];
+  const bool dead = total_mask == 0.f;
+  for (int k = tid; k < K; k += blockDim.x) {
+    ACOST[k] = (k == 0 && !dead) ? 0.f : kInf;
+    DCOST[k] = kInf;
+    DADJ[k] = kInf;
+    DLEN[k] = 0.f;
+  }
+  __syncthreads();
+
+  int patience = kPatience;
+  float min_cost = 1000.f;
+  bool stopped = dead;
+  int steps = 0;
+  const int max_len = Lout;
+
+  for (int i = 0; i < max_len; ++i) {
+    // ---- stopping bookkeeping (every thread, identical values) ------
+    bool has_done = false, all_valid = true;
+    float best_adj = kBig, kth_adj = -kInf, alive_min = kBig;
+    for (int k = 0; k < K; ++k) {
+      const float d = DADJ[k];
+      const bool valid = d < kInf / 2;
+      has_done = has_done || valid;
+      all_valid = all_valid && valid;
+      best_adj = fminf(best_adj, d);
+      kth_adj = fmaxf(kth_adj, valid ? d : -kInf);
+      alive_min = fminf(alive_min, ACOST[k]);
+    }
+    const bool empty = alive_min >= kInf;
+    bool newly;
+    if (a.stop_patience) {
+      const bool improved = best_adj < min_cost;
+      if (has_done && improved) min_cost = best_adj;
+      if (has_done) patience = improved ? kPatience : patience - 1;
+      newly = patience <= 0;
+    } else {
+      const float optimistic =
+          alive_min - a.char_discount * (float)max_len;
+      newly = all_valid && kth_adj < optimistic;
+    }
+    stopped = stopped || newly || empty;
+    if (stopped) break;
+    steps = i + 1;
+
+    // ---- window prior -------------------------------------------------
+    float gb, ge;
+    if (a.prior_median) {
+      // median of each row's weights: the first frame whose cumulative
+      // weight reaches 0.5, minus one; 0 when no frame switches (the
+      // argmax-of-switches rule of the attention module)
+      for (int r = warp; r < K; r += kWarps) {
+        const float* wr = Wt + r * L;
+        const int chunk = (L + 31) / 32;
+        const int l0 = min(L, lane * chunk), l1 = min(L, l0 + chunk);
+        float part = 0.f;
+        for (int l = l0; l < l1; ++l) part += wr[l];
+        float incl = part;   // inclusive scan of the lane partial sums
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const float y = __shfl_up_sync(0xffffffffu, incl, off);
+          if (lane >= off) incl += y;
+        }
+        float cs = incl - part;
+        int below = 0;
+        for (int l = l0; l < l1; ++l) {
+          cs += wr[l];
+          below += cs < 0.5f ? 1 : 0;
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          below += __shfl_xor_sync(0xffffffffu, below, off);
+        if (lane == 0) {
+          const float expected =
+              (below >= 1 && below <= L - 1) ? (float)(below - 1) : 0.f;
+          BEGINS[r] = floorf(expected - a.before);
+          ENDS[r] = ceilf(expected + a.after);
+        }
+      }
+      __syncthreads();
+      float bmin = kBig, emax = -kBig;
+      for (int k = 0; k < K; ++k) {
+        bmin = fminf(bmin, BEGINS[k]);
+        emax = fmaxf(emax, ENDS[k]);
+      }
+      gb = floorf(fmaxf(0.f, bmin));
+      ge = ceilf(fminf((float)L, emax));
+    } else {
+      const float step0 = (float)i;
+      gb = floorf(fmaxf(0.f, fminf((float)(L - 1),
+                                   a.initial_begin + step0 * a.min_speed)));
+      ge = ceilf(fmaxf(0.f, fminf((float)L,
+                                  a.initial_end + step0 * a.max_speed)));
+    }
+    const int lb = max(0, (int)gb);
+    const int le = max(lb, min(L, (int)ge));
+
+    // windowed weights (the convolution's input)
+    for (int idx = tid; idx < K * L; idx += blockDim.x) {
+      const int l = idx % L;
+      WG[idx] = (l >= lb && l < le) ? Wt[idx] : 0.f;
+    }
+    __syncthreads();
+
+    // ---- convolution (true convolution, trimmed 'full' mode) ----------
+    // conv[r, l] = sum_j wg[r, j] * taps[n + l - j], frames l in window
+    for (int idx = tid; idx < K * (le - lb); idx += blockDim.x) {
+      const int r = idx / (le - lb), l = lb + idx % (le - lb);
+      const int j0 = max(lb, l - conv_n), j1 = min(le - 1, l + conv_n);
+      float acc = 0.f;
+      for (int j = j0; j <= j1; ++j)
+        acc = fmaf(WG[r * L + j], TAPS[conv_n + l - j], acc);
+      CONV[r * L + l] = acc;
+    }
+    // ---- state projection ---------------------------------------------
+    rows_matvec<RB>(H, S, K, S, a.state_trans, M, nullptr, SP, M, false);
+    __syncthreads();
+
+    // ---- energies inside the window (warp per frame) -------------------
+    // a lane keeps its columns of the frame's keys, handler and energy
+    // vector in registers across the K rows
+    for (int l = lb + warp; l < le; l += kWarps) {
+      const float* pl = pre + (size_t)l * M;
+      for (int m0 = 0; m0 < M; m0 += 32 * kMq) {
+        float pv[kMq], hv[kMq], vv[kMq];
+#pragma unroll
+        for (int q = 0; q < kMq; ++q) {
+          const int m = m0 + lane + 32 * q;
+          pv[q] = m < M ? __ldg(pl + m) : 0.f;
+          hv[q] = m < M ? HAND[m] : 0.f;
+          vv[q] = m < M ? VV[m] : 0.f;
+        }
+        for (int r = 0; r < K; ++r) {
+          const float c = CONV[r * L + l];
+          const float* sp = SP + r * M;
+          float part = 0.f;
+#pragma unroll
+          for (int q = 0; q < kMq; ++q) {
+            const int m = m0 + lane + 32 * q;
+            if (m < M)
+              part = fmaf(vv[q], tanhf((pv[q] + sp[m]) + c * hv[q]), part);
+          }
+          part = warp_sum(part);
+          if (lane == 0) WN[r * L + l] = m0 == 0 ? part : WN[r * L + l] + part;
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- masked softmax over the window (warp per row) ----------------
+    for (int r = warp; r < K; r += kWarps) {
+      float* er = WN + r * L;
+      float mx = kNeg;
+      for (int l = lb + lane; l < le; l += 32) mx = fmaxf(mx, er[l]);
+      mx = warp_max(mx);
+      if (!(mx > kNeg / 2)) mx = 0.f;
+      float sum = 0.f, csum = 0.f;
+      for (int l = lane; l < L; l += 32) {
+        float comb = 0.f;
+        if (l >= lb && l < le) {
+          comb = MASK[l];
+          if (a.prior_median)
+            comb = comb * (((float)l > BEGINS[r] && (float)l < ENDS[r])
+                               ? 1.f : 0.f);
+        }
+        const float un = comb != 0.f ? expf(er[l] - mx) * comb : 0.f;
+        er[l] = un;
+        sum += un;
+        csum += comb;
+      }
+      sum = warp_sum(sum);
+      csum = warp_sum(csum);
+      const float denom = sum + (csum == 0.f ? 1.f : 0.f);
+      for (int l = lane; l < L; l += 32) er[l] = er[l] / denom;
+    }
+    __syncthreads();
+
+    // ---- weighted average of the encoder outputs ----------------------
+    rows_matvec<RB>(WN + lb, L, K, le - lb, att + (size_t)lb * D, D, nullptr,
+                WA, D, false);
+    __syncthreads();
+
+    // ---- readout: merge, tanh, post-merge, log-softmax ----------------
+    rows_matvec<RB>(WA, D, K, D, a.merge_k, R, a.merge_b, ACT, R, false);
+    if (a.merge_states_k != nullptr) {
+      __syncthreads();
+      rows_matvec<RB>(H, S, K, S, a.merge_states_k, R, nullptr, ACT, R, true);
+    }
+    __syncthreads();
+    for (int idx = tid; idx < K * R; idx += blockDim.x)
+      ACT[idx] = tanhf(ACT[idx]);
+    __syncthreads();
+    rows_matvec<RB>(ACT, R, K, R, a.post_k, V, a.post_b, COSTS, V, false);
+    __syncthreads();
+    for (int r = warp; r < K; r += kWarps) {
+      float* cr = COSTS + r * V;
+      float mx = -__int_as_float(0x7f800000);
+      for (int c = lane; c < V; c += 32) mx = fmaxf(mx, cr[c]);
+      mx = warp_max(mx);
+      float sum = 0.f;
+      for (int c = lane; c < V; c += 32) sum += expf(cr[c] - mx);
+      sum = warp_sum(sum);
+      const float lse = mx + logf(sum);
+      const float alive = ACOST[r];
+      // candidate cost: alive cost + (lse - logit)
+      for (int c = lane; c < V; c += 32) cr[c] = alive + (lse - cr[c]);
+    }
+    __syncthreads();
+
+    // ---- K selection rounds over the K*V candidates --------------------
+    for (int slot = 0; slot < K; ++slot) {
+      float mv;
+      int mi;
+      block_argmin(COSTS, K * V, RED_V, RED_I, mv, mi);
+      if (tid == 0) {
+        SRC[slot] = mi / V;
+        SYM[slot] = mi % V;
+        CHOSEN[slot] = mv;
+        COSTS[mi] = kBig;
+      }
+      __syncthreads();
+    }
+
+    // ---- gather by source row, record the symbol ------------------------
+    for (int idx = tid; idx < K * S; idx += blockDim.x)
+      HS[idx] = H[SRC[idx / S] * S + idx % S];
+    for (int idx = tid; idx < K * L; idx += blockDim.x)
+      Wt[idx] = WN[SRC[idx / L] * L + idx % L];
+    for (int idx = tid; idx < K * D; idx += blockDim.x)
+      WAS[idx] = WA[SRC[idx / D] * D + idx % D];
+    for (int idx = tid; idx < K * Lout; idx += blockDim.x) {
+      const int k = idx / Lout, j = idx % Lout;
+      AOUT2[idx] = j == i ? SYM[k] : AOUT[SRC[k] * Lout + j];
+    }
+    for (int idx = tid; idx < K * F; idx += blockDim.x)
+      FB[idx] = a.embed[(size_t)SYM[idx / F] * F + idx % F];
+    __syncthreads();
+
+    // ---- GRU advance ------------------------------------------------------
+    rows_matvec<RB>(FB, F, K, F, a.fork_gate_w, 2 * S, a.fork_gate_b, GI, 2 * S,
+                false);
+    rows_matvec<RB>(FB, F, K, F, a.fork_in_w, S, a.fork_in_b, IT, S, false);
+    __syncthreads();
+    rows_matvec<RB>(WAS, D, K, D, a.dist_gate_w, 2 * S, nullptr, GI, 2 * S, true);
+    rows_matvec<RB>(WAS, D, K, D, a.dist_in_w, S, nullptr, IT, S, true);
+    __syncthreads();
+    rows_matvec<RB>(HS, S, K, S, a.wsg, 2 * S, nullptr, GI, 2 * S, true);
+    __syncthreads();
+    // gates = sigmoid(.): update in GI[:, :S], reset * h into GI[:, S:]
+    for (int idx = tid; idx < K * 2 * S; idx += blockDim.x) {
+      const int k = idx / (2 * S), c = idx % (2 * S);
+      const float g = 1.f / (1.f + expf(-GI[idx]));
+      GI[idx] = c < S ? g : HS[k * S + c - S] * g;
+    }
+    __syncthreads();
+    rows_matvec<RB>(GI + S, 2 * S, K, S, a.wss, S, nullptr, IT, S, true);
+    __syncthreads();
+    for (int idx = tid; idx < K * S; idx += blockDim.x) {
+      const int k = idx / S, c = idx % S;
+      const float up = GI[k * 2 * S + c];
+      const float cand = tanhf(IT[idx]);
+      H[idx] = up * cand + (1.f - up) * HS[idx];
+    }
+
+    // ---- EOS retirement ---------------------------------------------------
+    const float alive_len = (float)(i + 1);
+    for (int k = tid; k < K; k += blockDim.x) {
+      const bool is_eos =
+          SYM[k] == a.eol && !(a.ignore_first_eol && i == 0);
+      const float prev = ACOST[SRC[k]];
+      const float step_cost = CHOSEN[k] - prev;
+      const bool finishing =
+          is_eos && step_cost < a.round_to_inf && prev < kInf / 2;
+      const float adjusted = CHOSEN[k] - a.char_discount * (alive_len + 1.f);
+      NEWADJ[k] = finishing ? adjusted : kInf;
+    }
+    __syncthreads();
+
+    // ---- done-set merge: [existing K, new K] -> K, old entries win ties --
+    if (warp == 0) {
+      for (int slot = 0; slot < K; ++slot) {
+        float bv = __int_as_float(0x7f800000);
+        int bi = INT_MAX;
+        for (int j = lane; j < 2 * K; j += 32) {
+          const float x = j < K ? DADJ[j] : NEWADJ[j - K];
+          bool taken = false;
+          for (int s = 0; s < slot; ++s) taken = taken || PICK[s] == j;
+          lex_min(bv, bi, taken ? kBig : x, j);
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          lex_min(bv, bi, __shfl_xor_sync(0xffffffffu, bv, off),
+                  __shfl_xor_sync(0xffffffffu, bi, off));
+        if (lane == 0) PICK[slot] = bi;
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    for (int idx = tid; idx < K * Lout; idx += blockDim.x) {
+      const int k = idx / Lout, j = idx % Lout, p = PICK[k];
+      DOUT2[idx] = p < K ? DOUT[p * Lout + j] : AOUT2[(p - K) * Lout + j];
+    }
+    // new done scalars, held in the registers of threads 0..K-1 until
+    // every thread has read the old ones
+    float nadj = 0.f, ncost = 0.f, nlen = 0.f;
+    if (tid < K) {
+      const int p = PICK[tid];
+      nadj = p < K ? DADJ[p] : NEWADJ[p - K];
+      ncost = p < K ? DCOST[p] : CHOSEN[p - K];
+      nlen = p < K ? DLEN[p] : alive_len;
+    }
+    __syncthreads();
+
+    // ---- commit -------------------------------------------------------
+    if (tid < K) {
+      DADJ[tid] = nadj;
+      DCOST[tid] = ncost;
+      DLEN[tid] = nlen;
+      ACOST[tid] = (SYM[tid] == a.eol && !(a.ignore_first_eol && i == 0))
+                       ? kInf : CHOSEN[tid];
+    }
+    for (int idx = tid; idx < K * Lout; idx += blockDim.x) {
+      AOUT[idx] = AOUT2[idx];
+      DOUT[idx] = DOUT2[idx];
+    }
+    __syncthreads();
+  }
+
+  for (int idx = tid; idx < K * Lout; idx += blockDim.x)
+    a.done_out[(size_t)u * K * Lout + idx] = DOUT[idx];
+  for (int k = tid; k < K; k += blockDim.x) {
+    float* meta = a.done_meta + ((size_t)u * K + k) * 3;
+    meta[0] = DCOST[k];
+    meta[1] = DADJ[k];
+    meta[2] = DLEN[k];
+  }
+  if (tid == 0) a.steps[u] = steps;
+}
+
+}  // namespace
+
+extern "C" int beam_loop_smem_bytes(const BeamLoopArgs* args) {
+  return make_layout(*args).total * (int)sizeof(float);
+}
+
+extern "C" int beam_loop_f32(const BeamLoopArgs* args, void* stream) {
+  const int smem = make_layout(*args).total * (int)sizeof(float);
+  void (*kernel)(BeamLoopArgs) =
+      args->K <= 4 ? beam_loop_kernel<4>
+      : args->K <= 8 ? beam_loop_kernel<8>
+      : args->K <= 10 ? beam_loop_kernel<10> : beam_loop_kernel<16>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<args->U, kThreads, smem, (cudaStream_t)stream>>>(*args);
+  return (int)cudaGetLastError();
+}

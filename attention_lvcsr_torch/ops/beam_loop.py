@@ -1,0 +1,378 @@
+"""The whole beam-search decode loop: the CUDA kernel's wrapper and its
+plain version.
+
+Counterpart of ``attention_lvcsr_tpu/ops/pallas/beam_loop.py::
+beam_search_loop`` for the flagship configuration (see
+``csrc/beam_loop.cu`` for the list).  ``beam_search_loop`` takes the
+plain PyTorch version for tensors on the CPU and launches the kernel for
+tensors on a CUDA device; any other device raises, and so does a
+configuration the kernel does not cover, on either device.
+
+Semantics shared by both versions (and by the TPU kernel):
+
+* candidates are ranked by (cost, flat index k*V + v): the lowest index
+  wins ties, like ``lax.top_k`` of the negated costs — the plain version
+  uses a stable sort, never ``torch.topk``, whose tie order is undefined;
+* the done-set merge ranks [existing K, new K] the same way, so an
+  existing entry wins a tie;
+* the prior's window bounds are taken per utterance over its K rows, so
+  no result depends on which utterances share a batch;
+* the median position is the first frame whose cumulative weight reaches
+  0.5, minus one, and 0 when no frame switches (``attention.py:238-242``);
+* the convolution over the previous weights is a true convolution
+  (filter flipped), trimmed from 'full' mode;
+* a fully masked utterance starts retired; an utterance that stops
+  commits nothing more, and ``steps`` counts the steps it ran.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from attention_lvcsr_torch import _build
+from attention_lvcsr_torch.ops.expressions import conv1d_full
+
+INF = 1e9
+BIG = 3e38
+NEG = -1e30
+PATIENCE = 30
+
+PRIORS = ("expanding", "window_around_median")
+STOP_ON = ("patience", "optimistic_future_cost")
+
+launches = _build.LaunchCounter()
+
+# table name -> shape in terms of the dimension letters below
+_TABLE_SHAPES = {
+    "state_trans": "SM", "handler": "M", "v": "M",
+    "merge_k": "DR", "merge_b": "R", "post_k": "RV", "post_b": "V",
+    "embed": "AF", "fork_in_w": "FS", "fork_in_b": "S",
+    "fork_gate_w": "FG", "fork_gate_b": "G", "dist_in_w": "DS",
+    "dist_gate_w": "DG", "wsg": "SG", "wss": "SS", "h0": "S",
+    "conv_filters": "1T",
+}
+
+
+def _check_config(tables, prior, stop_on):
+    if prior not in PRIORS:
+        raise NotImplementedError(
+            f"beam_search_loop: prior {prior!r} is not ported "
+            f"(supported: {PRIORS})")
+    if stop_on not in STOP_ON:
+        raise ValueError(f"unknown stop_on {stop_on!r}")
+    filters = tables["conv_filters"]
+    if filters.ndim != 2 or filters.shape[0] != 1:
+        raise NotImplementedError(
+            "beam_search_loop: only one conv filter is ported "
+            f"(got conv_filters of shape {tuple(filters.shape)})")
+
+
+def beam_search_loop_reference(pre, attended, att_mask, tables, *, beam,
+                               max_len, eol, stop_on="patience",
+                               ignore_first_eol=False, char_discount=0.0,
+                               round_to_inf=1e9, prior="expanding",
+                               before=0.0, after=0.0, initial_begin=0.0,
+                               initial_end=1e4, min_speed=0.0,
+                               max_speed=0.0):
+    """Plain PyTorch version, vectorized over all U*K hypothesis rows.
+
+    Returns (done_out (U, K, max_len) int32, done_meta (U, K, 3) float32
+    [cost, adjusted, length], steps (U,) int32)."""
+    _check_config(tables, prior, stop_on)
+    f32 = torch.float32
+    dev = pre.device
+    U, L, M = pre.shape
+    D = attended.shape[-1]
+    K = beam
+    R = U * K
+    Lout = int(max_len)
+    t = tables
+    S = t["wss"].shape[0]
+    V = t["post_k"].shape[1]
+    taps = t["conv_filters"]
+    n = (taps.shape[-1] - 1) // 2
+
+    pos = torch.arange(L, device=dev, dtype=f32)
+    rows = torch.arange(R, device=dev)
+    slot = rows % K
+    utt = rows // K
+    dead = att_mask.sum(dim=1) == 0                          # (U,)
+    att_rows = att_mask.repeat_interleave(K, dim=0)          # (R, L)
+
+    h = t["h0"].expand(R, S).clone()
+    w = (pos == 0).to(f32).expand(R, L).clone()
+    aout = torch.zeros(R, Lout, dtype=torch.int32, device=dev)
+    dout = torch.zeros(R, Lout, dtype=torch.int32, device=dev)
+    acost = torch.where((slot == 0) & ~dead[utt],
+                        torch.zeros((), device=dev),
+                        torch.full((), INF, device=dev))
+    dcost = torch.full((R,), INF, device=dev)
+    dadj = torch.full((R,), INF, device=dev)
+    dlen = torch.zeros(R, device=dev)
+    patience = torch.full((U,), PATIENCE, dtype=torch.int32, device=dev)
+    min_cost = torch.full((U,), 1000.0, device=dev)
+    stopped = dead.clone()
+    steps = torch.zeros(U, dtype=torch.int32, device=dev)
+    first = torch.arange(U, device=dev)[:, None] * K
+
+    def merge(done_col, new_col, pick):
+        trail = done_col.shape[1:]
+        stacked = torch.cat([done_col.reshape(U, K, *trail),
+                             new_col.reshape(U, K, *trail)], dim=1)
+        idx = pick.reshape(U, K, *([1] * len(trail))).expand(U, K, *trail)
+        return stacked.gather(1, idx).reshape(R, *trail)
+
+    for i in range(Lout):
+        # ---- stopping bookkeeping ----------------------------------------
+        dadj_g = dadj.view(U, K)
+        valid = dadj_g < INF / 2
+        has_done = valid.any(dim=1)
+        best_adj = dadj_g.min(dim=1).values
+        alive_min = acost.view(U, K).min(dim=1).values
+        empty = alive_min >= INF
+        if stop_on == "patience":
+            improved = best_adj < min_cost
+            min_cost = torch.where(has_done & improved, best_adj, min_cost)
+            patience = torch.where(
+                has_done, torch.where(improved, PATIENCE, patience - 1),
+                patience).to(torch.int32)
+            newly = patience <= 0
+        else:
+            kth_adj = torch.where(valid, dadj_g, -INF).max(dim=1).values
+            optimistic = alive_min - char_discount * float(Lout)
+            newly = valid.all(dim=1) & (kth_adj < optimistic)
+        stopped = stopped | newly | empty
+        if bool(stopped.all()):
+            break
+        steps = torch.where(stopped, steps, i + 1).to(torch.int32)
+        live = ~stopped[utt]                                 # (R,)
+
+        # ---- window prior ------------------------------------------------
+        if prior == "expanding":
+            step0 = torch.tensor(float(i), device=dev)
+            begin = torch.floor(torch.clamp(
+                initial_begin + step0 * min_speed, max=float(L - 1)
+            ).clamp(min=0.0))
+            end = torch.ceil(torch.clamp(
+                initial_end + step0 * max_speed, max=float(L)
+            ).clamp(min=0.0))
+            gmask = ((pos >= begin) & (pos < end)).to(f32).expand(R, L)
+            combined = gmask * att_rows
+        else:
+            below = (torch.cumsum(w, dim=1) < 0.5).sum(dim=1)
+            expected = torch.where((below >= 1) & (below <= L - 1),
+                                   below - 1, 0).to(f32)
+            begins = torch.floor(expected - before)          # (R,)
+            ends = torch.ceil(expected + after)
+            gb = torch.floor(begins.view(U, K).min(dim=1).values
+                             .clamp(min=0.0))
+            ge = torch.ceil(ends.view(U, K).max(dim=1).values
+                            .clamp(max=float(L)))
+            gmask = ((pos >= gb[:, None]) & (pos < ge[:, None])).to(f32)
+            gmask = gmask.repeat_interleave(K, dim=0)        # (R, L)
+            additional = ((pos > begins[:, None])
+                          & (pos < ends[:, None])).to(f32)
+            combined = gmask * additional * att_rows
+
+        # ---- energies ------------------------------------------------------
+        conv = conv1d_full(w * gmask, taps)[:, 0, n:n + L]   # (R, L)
+        sp = h @ t["state_trans"]                            # (R, M)
+        match = torch.tanh(pre[:, None, :, :]
+                           + sp.view(U, K, 1, M)
+                           + conv.view(U, K, L, 1)
+                           * t["handler"].view(1, 1, 1, M))
+        energies = (match * t["v"].view(1, 1, 1, M)).sum(dim=3).view(R, L)
+
+        # ---- masked softmax ----------------------------------------------
+        masked = torch.where(gmask > 0, energies, NEG)
+        mx = masked.max(dim=1, keepdim=True).values
+        mx = torch.where(mx > NEG / 2, mx, 0.0)
+        unnorm = torch.exp(energies - mx) * combined
+        denom = unnorm.sum(dim=1, keepdim=True) + (
+            combined.sum(dim=1, keepdim=True) == 0).to(f32)
+        wnew = unnorm / denom
+
+        # ---- readout -------------------------------------------------------
+        wa = torch.bmm(wnew.view(U, K, L), attended).view(R, D)
+        merged = wa @ t["merge_k"] + t["merge_b"]
+        if "merge_states_k" in t:
+            merged = merged + h @ t["merge_states_k"]
+        logits = torch.tanh(merged) @ t["post_k"] + t["post_b"]
+        lmx = logits.max(dim=1, keepdim=True).values
+        lse = lmx + torch.log(torch.exp(logits - lmx).sum(dim=1,
+                                                           keepdim=True))
+        costs = lse - logits                                 # (R, V)
+
+        # ---- selection: K best of K*V, lowest flat index wins ties -------
+        work = (acost[:, None] + costs).view(U, K * V)
+        order = torch.sort(work, dim=1, stable=True).indices[:, :K]
+        chosen = work.gather(1, order).view(R)
+        symbols = (order % V).view(R)
+        src = (first + order // V).view(R)
+
+        # ---- gather, record ------------------------------------------------
+        prev_costs = acost[src]
+        h_src = h[src]
+        w_src = wnew[src]
+        wa_src = wa[src]
+        aout_col = aout[src].clone()
+        aout_col[:, i] = symbols.to(torch.int32)
+        alive_len = float(i + 1)
+        step_costs = chosen - prev_costs
+
+        # ---- GRU advance ---------------------------------------------------
+        fb = t["embed"][symbols]
+        gate_in = fb @ t["fork_gate_w"] + t["fork_gate_b"] \
+            + wa_src @ t["dist_gate_w"]
+        in_tot = fb @ t["fork_in_w"] + t["fork_in_b"] \
+            + wa_src @ t["dist_in_w"]
+        gates = torch.sigmoid(h_src @ t["wsg"] + gate_in)
+        update, reset = gates[:, :S], gates[:, S:]
+        cand = torch.tanh((h_src * reset) @ t["wss"] + in_tot)
+        h_new = update * cand + (1.0 - update) * h_src
+
+        # ---- EOS retirement ------------------------------------------------
+        is_eos = symbols == eol
+        if ignore_first_eol and i == 0:
+            is_eos = torch.zeros_like(is_eos)
+        finishing = (is_eos & (step_costs < round_to_inf)
+                     & (prev_costs < INF / 2) & live)
+        adjusted = chosen - char_discount * (alive_len + 1.0)
+        new_adj = torch.where(finishing, adjusted, INF)
+
+        # ---- done-set merge: [existing K, new K] -> K ----------------------
+        cand_adj = torch.cat([dadj.view(U, K), new_adj.view(U, K)], dim=1)
+        pick = torch.sort(cand_adj, dim=1, stable=True).indices[:, :K]
+        dadj_new = merge(dadj, new_adj, pick)
+        dcost_new = merge(dcost, chosen, pick)
+        dlen_new = merge(dlen, torch.full_like(dlen, alive_len), pick)
+        dout_new = merge(dout, aout_col, pick)
+
+        # ---- commit (stopped utterances keep everything) ------------------
+        lc = live[:, None]
+        h = torch.where(lc, h_new, h)
+        w = torch.where(lc, w_src, w)
+        aout = torch.where(lc, aout_col, aout)
+        acost = torch.where(live, torch.where(is_eos, INF, chosen), acost)
+        dadj = torch.where(live, dadj_new, dadj)
+        dcost = torch.where(live, dcost_new, dcost)
+        dlen = torch.where(live, dlen_new, dlen)
+        dout = torch.where(lc, dout_new, dout)
+
+    done_meta = torch.stack([dcost, dadj, dlen], dim=-1).view(U, K, 3)
+    return dout.view(U, K, Lout), done_meta, steps
+
+
+class _Args(ctypes.Structure):
+    """Mirror of ``struct BeamLoopArgs`` in csrc/beam_loop.cu."""
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "pre", "attended", "att_mask", "conv_taps", "state_trans",
+            "handler", "v", "merge_k", "merge_b", "merge_states_k",
+            "post_k", "post_b", "embed", "fork_in_w", "fork_in_b",
+            "fork_gate_w", "fork_gate_b", "dist_in_w", "dist_gate_w",
+            "wsg", "wss", "h0", "done_out", "done_meta", "steps")]
+        + [(name, ctypes.c_int) for name in (
+            "U", "L", "M", "D", "S", "R", "V", "F", "K", "Lout", "n_taps",
+            "eol", "stop_patience", "ignore_first_eol", "prior_median")]
+        + [(name, ctypes.c_float) for name in (
+            "char_discount", "round_to_inf", "before", "after",
+            "initial_begin", "initial_end", "min_speed", "max_speed")])
+
+
+def _check_tensor(name, x, shape, device):
+    if x.dtype != torch.float32:
+        raise TypeError(f"beam_search_loop: {name} must be float32, "
+                        f"got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"beam_search_loop: {name} has shape "
+                         f"{tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"beam_search_loop: {name} must be contiguous")
+    if x.device != device:
+        raise ValueError(f"beam_search_loop: {name} is on {x.device}, "
+                         f"expected {device}")
+
+
+def _launch(pre, attended, att_mask, tables, *, beam, max_len, eol,
+            stop_on="patience", ignore_first_eol=False, char_discount=0.0,
+            round_to_inf=1e9, prior="expanding", before=0.0, after=0.0,
+            initial_begin=0.0, initial_end=1e4, min_speed=0.0,
+            max_speed=0.0):
+    _check_config(tables, prior, stop_on)
+    U, L, M = pre.shape
+    D = attended.shape[-1]
+    dims = {"U": U, "L": L, "M": M, "D": D, "1": 1,
+            "S": tables["wss"].shape[0], "R": tables["merge_k"].shape[1],
+            "V": tables["post_k"].shape[1], "A": tables["embed"].shape[0],
+            "F": tables["embed"].shape[1],
+            "T": tables["conv_filters"].shape[-1]}
+    dims["G"] = 2 * dims["S"]
+    dev = pre.device
+    _check_tensor("pre", pre, (U, L, M), dev)
+    _check_tensor("attended", attended, (U, L, D), dev)
+    _check_tensor("att_mask", att_mask, (U, L), dev)
+    for name, letters in _TABLE_SHAPES.items():
+        _check_tensor(name, tables[name], [dims[c] for c in letters], dev)
+    states_k = tables.get("merge_states_k")
+    if states_k is not None:
+        _check_tensor("merge_states_k", states_k, (dims["S"], dims["R"]),
+                      dev)
+    K, Lout = int(beam), int(max_len)
+    done_out = torch.zeros(U, K, Lout, dtype=torch.int32, device=dev)
+    done_meta = torch.zeros(U, K, 3, dtype=torch.float32, device=dev)
+    steps = torch.zeros(U, dtype=torch.int32, device=dev)
+    if U == 0:
+        return done_out, done_meta, steps
+    ptr = lambda name: tables[name].data_ptr()
+    args = _Args(
+        pre=pre.data_ptr(), attended=attended.data_ptr(),
+        att_mask=att_mask.data_ptr(), conv_taps=ptr("conv_filters"),
+        state_trans=ptr("state_trans"), handler=ptr("handler"), v=ptr("v"),
+        merge_k=ptr("merge_k"), merge_b=ptr("merge_b"),
+        merge_states_k=(states_k.data_ptr() if states_k is not None
+                        else None),
+        post_k=ptr("post_k"), post_b=ptr("post_b"), embed=ptr("embed"),
+        fork_in_w=ptr("fork_in_w"), fork_in_b=ptr("fork_in_b"),
+        fork_gate_w=ptr("fork_gate_w"), fork_gate_b=ptr("fork_gate_b"),
+        dist_in_w=ptr("dist_in_w"), dist_gate_w=ptr("dist_gate_w"),
+        wsg=ptr("wsg"), wss=ptr("wss"), h0=ptr("h0"),
+        done_out=done_out.data_ptr(), done_meta=done_meta.data_ptr(),
+        steps=steps.data_ptr(),
+        U=U, L=L, M=M, D=D, S=dims["S"], R=dims["R"], V=dims["V"],
+        F=dims["F"], K=K, Lout=Lout, n_taps=dims["T"], eol=int(eol),
+        stop_patience=int(stop_on == "patience"),
+        ignore_first_eol=int(bool(ignore_first_eol)),
+        prior_median=int(prior == "window_around_median"),
+        char_discount=char_discount, round_to_inf=round_to_inf,
+        before=before, after=after, initial_begin=initial_begin,
+        initial_end=initial_end, min_speed=min_speed, max_speed=max_speed)
+    lib = _build.load().lib
+    lib.beam_loop_smem_bytes.argtypes = [ctypes.POINTER(_Args)]
+    lib.beam_loop_smem_bytes.restype = ctypes.c_int
+    lib.beam_loop_f32.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+    lib.beam_loop_f32.restype = ctypes.c_int
+    smem = lib.beam_loop_smem_bytes(ctypes.byref(args))
+    props = torch.cuda.get_device_properties(dev)
+    limit = getattr(props, "shared_memory_per_block_optin", 232448)
+    if smem > limit:
+        raise NotImplementedError(
+            f"beam_search_loop: beam {K} at L={L}, D={D} needs {smem} bytes "
+            f"of shared memory per utterance (limit {limit})")
+    with torch.cuda.device(dev):
+        status = lib.beam_loop_f32(ctypes.byref(args), _build.stream_of(pre))
+    _build.check(status, "beam_loop_f32")
+    launches.count += 1
+    return done_out, done_meta, steps
+
+
+def beam_search_loop(pre, attended, att_mask, tables, **kwargs):
+    """Run the full decode loop; same arguments as the plain version."""
+    device = pre.device.type
+    if device == "cpu":
+        return beam_search_loop_reference(pre, attended, att_mask, tables,
+                                          **kwargs)
+    if device == "cuda":
+        return _launch(pre, attended, att_mask, tables, **kwargs)
+    raise ValueError(f"beam_search_loop: no kernel for device {pre.device}")

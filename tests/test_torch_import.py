@@ -1,0 +1,126 @@
+"""The PyTorch port imports no JAX, and never falls back silently: a
+tensor on a device without a kernel raises, so does a missing compiler,
+and so do configurations the port does not cover yet."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from attention_lvcsr_torch import _build
+from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+from attention_lvcsr_torch.ops.beam_loop import beam_search_loop
+from attention_lvcsr_torch.ops.gru_scan import gru_scan
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MODULES = [
+    "attention_lvcsr_torch", "attention_lvcsr_torch._build",
+    "attention_lvcsr_torch.models.initializers",
+    "attention_lvcsr_torch.models.params",
+    "attention_lvcsr_torch.models.layers",
+    "attention_lvcsr_torch.models.cells",
+    "attention_lvcsr_torch.models.bottom",
+    "attention_lvcsr_torch.models.encoder",
+    "attention_lvcsr_torch.models.attention",
+    "attention_lvcsr_torch.models.generator",
+    "attention_lvcsr_torch.models.recognizer",
+    "attention_lvcsr_torch.ops.gru_scan",
+    "attention_lvcsr_torch.ops.beam_loop",
+    "attention_lvcsr_torch.ops.expressions",
+    "attention_lvcsr_torch.ops.error_rate",
+    "attention_lvcsr_torch.search.beam",
+    "attention_lvcsr_torch.serve",
+    "attention_lvcsr_torch.cli.run",
+]
+
+TINY = dict(
+    input_dims={"recordings": 5}, input_num_chars={}, eos_label=3,
+    num_phonemes=4, dim_dec=6, dims_bidir=[4], enc_transition="gru",
+    dec_transition="gru", attention_type="content_and_conv", conv_n=1,
+    criterion={"name": "log_likelihood"},
+    bottom={"bottom_class": "speech"}, subsample=[1],
+    post_merge_dims=[6], data_prepend_eos=False)
+
+
+def _imports_leave_out(modules, banned):
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in modules)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              f"{tuple(banned)!r})\n"
+              "print('BAD', bad)\n"
+              "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_imports_no_jax_yaml_or_h5py():
+    _imports_leave_out(MODULES, ("jax", "jaxlib", "flax", "yaml", "h5py"))
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    """Serving on the card loads the port alone: its modules import no
+    module of ``attention_lvcsr_tpu`` (the CLI loads its config and data
+    readers only when it runs)."""
+    _imports_leave_out(MODULES, ("attention_lvcsr_tpu",))
+
+
+def test_cli_path_imports_no_jax():
+    """``run.py serve`` also loads the JAX package's config and data
+    modules (yaml, h5py); they too must leave JAX out."""
+    _imports_leave_out(MODULES + ["attention_lvcsr_tpu.config",
+                                  "attention_lvcsr_tpu.data"],
+                       ("jax", "jaxlib", "flax"))
+
+
+def test_wrappers_raise_on_a_device_without_kernel():
+    meta = lambda *s: torch.empty(*s, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        gru_scan(meta(3, 2, 12), None, (meta(2, 4), meta(4, 4), meta(4, 8)))
+    with pytest.raises(ValueError, match="no kernel"):
+        beam_search_loop(meta(2, 5, 3), meta(2, 5, 4), meta(2, 5), {},
+                         beam=2, max_len=3, eol=0)
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()
+
+
+def test_cuda_recognizer_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises((RuntimeError, AssertionError)):
+        SpeechRecognizer(TINY, device="cuda")
+
+
+@pytest.mark.parametrize("override,piece", [
+    ({"attention_type": "content"}, "content"),
+    ({"conv_num_filters": 3}, "filters"),
+    ({"energy_normalizer": "logistic"}, "normalizer"),
+    ({"dec_stack": 2}, "dec_stack"),
+    ({"post_merge_activation": "maxout:2"}, "post-merge"),
+    ({"criterion": {"name": "mse_gain"}}, "criterion"),
+    ({"lm": {"path": "x.fst"}}, "LM"),
+    ({"prior": {"type": "window_around_mean", "before": 1, "after": 1}},
+     "prior"),
+    ({"enc_transition": "lstm"}, "GRU"),
+])
+def test_unported_variants_raise(override, piece):
+    with pytest.raises(NotImplementedError, match=piece):
+        SpeechRecognizer(dict(TINY, **override))
+
+
+def test_unported_search_options_raise():
+    rec = SpeechRecognizer(TINY)
+    x = np.zeros((4, 5), np.float32)
+    with pytest.raises(NotImplementedError, match="validate_solution"):
+        rec.beam_search(x, validate_solution_function=lambda *a: True)
+    rec = SpeechRecognizer(dict(TINY, compute_dtype="bfloat16"))
+    with pytest.raises(NotImplementedError, match="float32"):
+        rec.beam_search(x, as_arrays=True)

@@ -1,0 +1,224 @@
+#!/usr/bin/env python3
+"""Where the time goes in the port's flagship decode (one NVIDIA GPU).
+
+    python3 tools/torch_profile_decode.py [--out chiprun_out/profile_decode.txt]
+
+Run from the repository root on a machine with a CUDA device and nvcc.
+Drives the decode ``chip_smoke.py`` drives (``FLAGSHIP_NET``, random
+weights from seed 1234, B=64, 800 frames, beam 10) and reports:
+
+1. ``torch.profiler`` over one ``beam_search``: device time per kernel,
+   the device's busy time and the window's wall time, hence its idle
+   share;
+2. cycles per step inside each CUDA kernel, phase by phase.  The tool
+   copies ``csrc/beam_loop.cu`` and ``csrc/gru_scan.cu`` into
+   ``build/profile/``, puts a ``clock64()`` probe (after a
+   ``__syncthreads``) before every ``// ---- <phase>`` comment inside
+   each kernel's step loop and one after the loop, builds the copies into
+   a separate library and runs the kernels from it: the gru_scan probe at
+   the encoder's first layer (T=800, B=64, both directions), the
+   beam_search_loop probe on the decode's own tables.  The probes add
+   barriers, so per-phase shares are what they read; the kernels' times
+   come from part 1.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SLOTS, BLOCKS = 32, 256
+INIT = {"/recognizer": {"weights_init": ["isotropic_gaussian", 0.1],
+                        "biases_init": ["constant", 0.0],
+                        "rec_weights_init": ["orthogonal"]}}
+
+
+def instrument(src, loop_header, tag):
+    """``src`` with a probe before each ``// ---- name`` comment inside the
+    loop that starts at ``loop_header`` and one after that loop; returns
+    (source, phase names)."""
+    lines = src.split("\n")
+    start = next(i for i, ln in enumerate(lines) if loop_header in ln)
+    depth, end = 0, None
+    for i in range(start, len(lines)):
+        depth += lines[i].count("{") - lines[i].count("}")
+        if depth == 0:
+            end = i
+            break
+    names, out = [], []
+    for i, ln in enumerate(lines):
+        m = re.match(r"    // ---- (.*?)[ -]*$", ln)
+        if i == start:
+            out.append("  long long prof_last = 0; int prof_cur = -1;")
+        if m and start < i < end:
+            out.append(f"    PROF_MARK_{tag}({len(names)});")
+            names.append(m.group(1).strip())
+        out.append(ln)
+        if i == end:
+            out.append(f"  PROF_MARK_{tag}({SLOTS - 1});")
+    if not names:
+        raise RuntimeError(f"no '// ---- ' phase comments in the {tag} loop")
+    block = "(blockIdx.y * gridDim.x + blockIdx.x)"
+    header = (
+        f"__device__ unsigned long long prof_{tag}[{BLOCKS * SLOTS}];\n"
+        f"#define PROF_MARK_{tag}(n) do {{ __syncthreads(); "
+        f"if (threadIdx.x == 0 && {block} < {BLOCKS}) {{ "
+        f"long long t_ = clock64(); if (prof_cur >= 0) "
+        f"prof_{tag}[{block} * {SLOTS} + prof_cur] += t_ - prof_last; "
+        f"prof_last = t_; prof_cur = (n); }} }} while (0)\n")
+    footer = (
+        f'\nextern "C" int prof_read_{tag}(void* host) {{ return (int)'
+        f"cudaMemcpyFromSymbol(host, prof_{tag}, sizeof(prof_{tag})); }}\n"
+        f'extern "C" int prof_reset_{tag}() {{ static unsigned long long '
+        f"z[{BLOCKS * SLOTS}]; return (int)cudaMemcpyToSymbol(prof_{tag}, z, "
+        f"sizeof(z)); }}\n")
+    text = "\n".join(out).replace("#include <cuda_runtime.h>\n",
+                                  "#include <cuda_runtime.h>\n" + header, 1)
+    return text + footer, names
+
+
+def phase_table(lib, tag, names, blocks, steps, out):
+    buf = (ctypes.c_ulonglong * (BLOCKS * SLOTS))()
+    if getattr(lib, f"prof_read_{tag}")(buf) != 0:
+        raise RuntimeError(f"reading the {tag} probes failed")
+    cycles = np.array(buf[:], np.float64).reshape(BLOCKS, SLOTS)[:blocks]
+    total = cycles.sum()
+    for i, name in enumerate(names):
+        out(f"  {name[:60]:60s} {cycles[:, i].sum() / total * 100:6.2f} % "
+            f"{cycles[:, i].sum() / blocks / steps:10.0f} cycles/step/block")
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--out", default=None,
+                        help="also write the report to this file")
+    args = parser.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    sys.path.insert(0, ROOT)
+    from __graft_entry__ import FLAGSHIP_NET
+    from attention_lvcsr_torch import _build
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    from torch.profiler import ProfilerActivity, profile
+
+    lines = []
+
+    def out(msg):
+        print(msg, flush=True)
+        lines.append(msg)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,"
+                        "clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                       capture_output=True, text=True).stdout.strip())
+    dev = torch.device("cuda:0")
+    rec = SpeechRecognizer(dict(FLAGSHIP_NET, max_decoded_length_scale=8.0),
+                           init_config=INIT, seed=1234, device=dev)
+    rec.init_beam_search(10)
+    B, T = 64, 800
+    feats = torch.tensor(np.random.RandomState(2).randn(B, T, 123)
+                         .astype(np.float32), device=dev)
+    mask = torch.ones(B, T, device=dev)
+
+    # ---- 1. torch.profiler over one decode ---------------------------------
+    for _ in range(2):
+        rec.beam_search(feats, mask, as_arrays=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = rec.beam_search(feats, mask, as_arrays=True)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        out("torch.profiler saw no device activity: part 1 not measured")
+    else:
+        per_name, spans = {}, []
+        for e in kernels:
+            start, end = e.time_range.start, e.time_range.end
+            ms, count = per_name.get(e.name, (0.0, 0))
+            per_name[e.name] = (ms + (end - start) / 1e3, count + 1)
+            spans.append((start, end))
+        busy, reach = 0.0, -np.inf          # union of the kernel spans
+        for start, end in sorted(spans):
+            busy += max(0.0, end - max(start, reach)) / 1e3
+            reach = max(reach, end)
+        out(f"decode B={B} frames={T} beam=10 steps="
+            f"{int(result['steps'])}: device busy {busy:.3f} ms of a "
+            f"{window_ms:.3f} ms window (idle "
+            f"{100 * (1 - busy / window_ms):.1f} %)")
+        for name, (ms, count) in sorted(per_name.items(),
+                                        key=lambda kv: -kv[1][0])[:12]:
+            out(f"  {ms:9.3f} ms {100 * ms / busy:5.1f} %  x{count:<4d} "
+                f"{name[:70]}")
+
+    # ---- 2. phase probes inside the kernels ---------------------------------
+    with torch.inference_mode():
+        data = rec.net.decode_loop(feats, mask)
+        tables = rec.net.decode_loop_tables()
+    os.makedirs(os.path.join(ROOT, "build", "profile"), exist_ok=True)
+    paths, phases = [], {}
+    for name, header, tag in (
+            ("beam_loop.cu", "for (int i = 0; i < max_len; ++i) {", "beam"),
+            ("gru_scan.cu", "for (int step = 0; step < T; ++step) {", "gru")):
+        src = open(os.path.join(_build.CSRC, name)).read()
+        text, phases[tag] = instrument(src, header, tag)
+        paths.append(os.path.join(ROOT, "build", "profile", name))
+        with open(paths[-1], "w") as f:
+            f.write(text)
+    lib_path = os.path.join(ROOT, "build", "profile", "libprofile.so")
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                           lib_path, *paths], capture_output=True, text=True)
+    if proc.returncode != 0:
+        sys.exit(f"probe build failed:\n{proc.stderr[-4000:]}")
+    # the wrappers launch from whatever library _build has loaded
+    _build._loaded = _build.KernelLibrary(lib_path, 0.0, proc.stderr)
+    lib = _build._loaded.lib
+
+    prior = rec.net.generator.attention.prior_config()
+    lib.prof_reset_beam()
+    with torch.inference_mode():
+        _, _, steps = bl.beam_search_loop(
+            data["pre"], data["attended"], data["attended_mask"], tables,
+            beam=10, max_len=T // 8, eol=rec.eos_label,
+            ignore_first_eol=rec.data_prepend_eos, prior=prior["type"],
+            before=float(prior["before"]), after=float(prior["after"]))
+    torch.cuda.synchronize()
+    n_steps = int(steps.max())
+    out(f"beam_search_loop phases (U={B}, {n_steps} steps):")
+    phase_table(lib, "beam", phases["beam"], B, n_steps, out)
+
+    rng = np.random.RandomState(0)
+    D = 250
+    t = lambda a: torch.tensor(a.astype(np.float32), device=dev)
+    weights = [(t(rng.randn(B, D) * 0.1), t(rng.randn(D, D) / np.sqrt(D)),
+                t(rng.randn(D, 2 * D) / np.sqrt(D))) for _ in range(2)]
+    proj = t(rng.randn(T, B, 6 * D) * 0.5)
+    lib.prof_reset_gru()
+    gs.gru_scan(proj, mask.t().contiguous(), *weights)
+    torch.cuda.synchronize()
+    out(f"gru_scan phases (T={T}, B={B}, D={D}, both directions):")
+    phase_table(lib, "gru", phases["gru"], 2 * 8 * ((B + 15) // 16), T, out)
+
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+if __name__ == "__main__":
+    main()
