@@ -1,10 +1,13 @@
 """Compile the package's CUDA sources with nvcc and load them with ctypes.
 
 All of ``csrc/*.cu`` goes into ONE shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds, not minutes):
+interface (no PyTorch headers, so a build takes seconds, not minutes).
+Each source compiles in its own ``nvcc`` process, all started together,
+and one more links them:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC -Xptxas -v -o libkernels.so csrc/*.cu
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o   (each)
+    nvcc -shared -o libkernels.so *.o
 
 ``--fmad=false`` keeps nvcc from contracting ``a * b + c`` into one fused
 multiply-add outside the explicit ``fmaf`` dot products, so elementwise
@@ -31,8 +34,7 @@ BUILD_ROOT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class LaunchCounter:
@@ -90,15 +92,34 @@ def _build(nvcc):
         log = open(log_path).read() if os.path.exists(log_path) else ""
         return lib_path, 0.0, log
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        stem = os.path.join(out_dir, os.path.basename(src)[:-3])
+        with open(f"{stem}.{tag}.log", "w") as out:
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", src, "-o", f"{stem}.{tag}.o"],
+                stdout=out, stderr=subprocess.STDOUT)
+        jobs.append((src, stem, proc))
+    log, failed = "", []
+    for src, stem, proc in jobs:
+        rc = proc.wait()
+        with open(f"{stem}.{tag}.log") as f:
+            log += f"== {os.path.basename(src)}\n{f.read()}"
+        if rc != 0:
+            failed.append(f"{os.path.basename(src)} (rc={rc})")
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
+    tmp = f"{lib_path}.{tag}"
+    link = subprocess.run([nvcc, "-shared", "-o", tmp,
+                           *[f"{stem}.{tag}.o" for _, stem, _ in jobs]],
+                          capture_output=True, text=True)
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed (rc={link.returncode}):\n"
+                           f"{log}")
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n{log}")
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, lib_path)

@@ -12,7 +12,10 @@
 // K rounds of candidate selection (lowest flat index wins ties), gathers
 // by source row, GRU advance, EOS retirement, the done-set merge (old
 // entries win ties) and the stopping bookkeeping.  Every product is
-// computed here with fmaf dot products; none goes to a library.
+// computed here with fmaf dot products; none goes to a library.  The
+// attention and readout phases are the device functions of
+// decode_step.cuh, which the one-step score kernel (decode_score.cu) runs
+// too.
 //
 // What bounds it on the card: latency.  A step is a chain of about a
 // dozen dependent phases separated by block barriers, each a small
@@ -35,6 +38,8 @@
 #include <cuda_runtime.h>
 
 #include <climits>
+
+#include "decode_step.cuh"
 
 // Must match the ctypes.Structure in ops/beam_loop.py field for field.
 struct BeamLoopArgs {
@@ -73,11 +78,6 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPrefetch = 8;         // weight rows loaded ahead
-constexpr int kMq = 8;               // energy columns per lane (M <= 256: one pass)
-constexpr float kInf = 1e9f;         // "no hypothesis" cost
-constexpr float kBig = 3e38f;        // taken-candidate marker
-constexpr float kNeg = -1e30f;
 constexpr int kPatience = 30;
 
 // Offsets (in 4-byte words) of the shared-memory buffers.
@@ -88,7 +88,7 @@ struct Layout {
   // wn: attention -> gather; wa: readout -> gather
   int wn, wa;
   // attention temporaries
-  int wg, conv, sp;
+  int conv, sp;
   // readout temporaries
   int act, costs;
   // gather / GRU temporaries
@@ -125,8 +125,7 @@ __host__ __device__ inline Layout make_layout(const BeamLoopArgs& a) {
   o.wa = p; p += K * a.D;
   const int scratch = p;
   // attention phase
-  o.wg = scratch;
-  o.conv = o.wg + K * a.L;
+  o.conv = scratch;
   o.sp = o.conv + K * a.L;
   int end_att = o.sp + K * a.M;
   // readout phase
@@ -146,73 +145,6 @@ __host__ __device__ inline Layout make_layout(const BeamLoopArgs& a) {
   end = end > end_gru ? end : end_gru;
   o.total = end;
   return o;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ void lex_min(float& bv, int& bi, float ov, int oi) {
-  if (ov < bv || (ov == bv && oi < bi)) {
-    bv = ov;
-    bi = oi;
-  }
-}
-
-// out[r, c] (+)= sum_k in[r * ldi + k] * W[k * N + c]  (+ bias[c]),
-// for r < nrows, c < N.  Threads own columns; RB rows accumulate in
-// registers so each weight load from global memory serves every row, and
-// weights are fetched kPrefetch rows of W at a time so that many loads are
-// in flight (the loop is bound by L2 latency, not by arithmetic).  The
-// sum over k runs in order, as in the plain version's reference order.
-template <int RB>
-__device__ void rows_matvec(const float* in, int ldi, int nrows, int Kd,
-                            const float* __restrict__ W, int N,
-                            const float* __restrict__ bias, float* out,
-                            int ldo, bool accumulate) {
-  for (int c = threadIdx.x; c < N; c += blockDim.x) {
-    for (int r0 = 0; r0 < nrows; r0 += RB) {
-      const int nr = min(RB, nrows - r0);
-      const float* x = in + r0 * ldi;
-      float acc[RB];
-#pragma unroll
-      for (int j = 0; j < RB; ++j) acc[j] = 0.f;
-      int k = 0;
-      for (; k + kPrefetch <= Kd; k += kPrefetch) {
-        float w[kPrefetch];
-#pragma unroll
-        for (int q = 0; q < kPrefetch; ++q)
-          w[q] = __ldg(W + (size_t)(k + q) * N + c);
-#pragma unroll
-        for (int q = 0; q < kPrefetch; ++q)
-#pragma unroll
-          for (int j = 0; j < RB; ++j)
-            if (j < nr) acc[j] = fmaf(x[j * ldi + k + q], w[q], acc[j]);
-      }
-      for (; k < Kd; ++k) {
-        const float w = __ldg(W + (size_t)k * N + c);
-#pragma unroll
-        for (int j = 0; j < RB; ++j)
-          if (j < nr) acc[j] = fmaf(x[j * ldi + k], w, acc[j]);
-      }
-      for (int j = 0; j < nr; ++j) {
-        float v = acc[j];
-        if (bias != nullptr) v = v + bias[c];
-        float* o = out + (r0 + j) * ldo + c;
-        *o = accumulate ? *o + v : v;
-      }
-    }
-  }
 }
 
 // Lowest (value, index) among vals[0..n); every thread gets the winner.
@@ -258,7 +190,6 @@ beam_loop_kernel(BeamLoopArgs a) {
   const int K = a.K, L = a.L, M = a.M, D = a.D, S = a.S, R = a.R, V = a.V,
             F = a.F, Lout = a.Lout, n_taps = a.n_taps;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int conv_n = (n_taps - 1) / 2;
 
   float* H = sm + o.h;
   float* Wt = sm + o.w;
@@ -283,7 +214,6 @@ beam_loop_kernel(BeamLoopArgs a) {
   int* RED_I = reinterpret_cast<int*>(sm + o.red_i);
   float* WN = sm + o.wn;
   float* WA = sm + o.wa;
-  float* WG = sm + o.wg;
   float* CONV = sm + o.conv;
   float* SP = sm + o.sp;
   float* ACT = sm + o.act;
@@ -367,135 +297,27 @@ beam_loop_kernel(BeamLoopArgs a) {
     steps = i + 1;
 
     // ---- window prior -------------------------------------------------
-    float gb, ge;
+    int lb, le;
     if (a.prior_median) {
-      // median of each row's weights: the first frame whose cumulative
-      // weight reaches 0.5, minus one; 0 when no frame switches (the
-      // argmax-of-switches rule of the attention module)
-      for (int r = warp; r < K; r += kWarps) {
-        const float* wr = Wt + r * L;
-        const int chunk = (L + 31) / 32;
-        const int l0 = min(L, lane * chunk), l1 = min(L, l0 + chunk);
-        float part = 0.f;
-        for (int l = l0; l < l1; ++l) part += wr[l];
-        float incl = part;   // inclusive scan of the lane partial sums
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const float y = __shfl_up_sync(0xffffffffu, incl, off);
-          if (lane >= off) incl += y;
-        }
-        float cs = incl - part;
-        int below = 0;
-        for (int l = l0; l < l1; ++l) {
-          cs += wr[l];
-          below += cs < 0.5f ? 1 : 0;
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          below += __shfl_xor_sync(0xffffffffu, below, off);
-        if (lane == 0) {
-          const float expected =
-              (below >= 1 && below <= L - 1) ? (float)(below - 1) : 0.f;
-          BEGINS[r] = floorf(expected - a.before);
-          ENDS[r] = ceilf(expected + a.after);
-        }
-      }
-      __syncthreads();
-      float bmin = kBig, emax = -kBig;
-      for (int k = 0; k < K; ++k) {
-        bmin = fminf(bmin, BEGINS[k]);
-        emax = fmaxf(emax, ENDS[k]);
-      }
-      gb = floorf(fmaxf(0.f, bmin));
-      ge = ceilf(fminf((float)L, emax));
+      median_bounds(Wt, K, L, a.before, a.after, true, BEGINS, ENDS);
+      union_window(BEGINS, ENDS, K, L, lb, le);
     } else {
-      const float step0 = (float)i;
-      gb = floorf(fmaxf(0.f, fminf((float)(L - 1),
-                                   a.initial_begin + step0 * a.min_speed)));
-      ge = ceilf(fmaxf(0.f, fminf((float)L,
-                                  a.initial_end + step0 * a.max_speed)));
+      expanding_window(i, L, a.initial_begin, a.initial_end, a.min_speed,
+                       a.max_speed, lb, le);
     }
-    const int lb = max(0, (int)gb);
-    const int le = max(lb, min(L, (int)ge));
-
-    // windowed weights (the convolution's input)
-    for (int idx = tid; idx < K * L; idx += blockDim.x) {
-      const int l = idx % L;
-      WG[idx] = (l >= lb && l < le) ? Wt[idx] : 0.f;
-    }
-    __syncthreads();
 
     // ---- convolution (true convolution, trimmed 'full' mode) ----------
-    // conv[r, l] = sum_j wg[r, j] * taps[n + l - j], frames l in window
-    for (int idx = tid; idx < K * (le - lb); idx += blockDim.x) {
-      const int r = idx / (le - lb), l = lb + idx % (le - lb);
-      const int j0 = max(lb, l - conv_n), j1 = min(le - 1, l + conv_n);
-      float acc = 0.f;
-      for (int j = j0; j <= j1; ++j)
-        acc = fmaf(WG[r * L + j], TAPS[conv_n + l - j], acc);
-      CONV[r * L + l] = acc;
-    }
+    window_conv(Wt, TAPS, n_taps, K, L, lb, le, CONV);
     // ---- state projection ---------------------------------------------
     rows_matvec<RB>(H, S, K, S, a.state_trans, M, nullptr, SP, M, false);
     __syncthreads();
 
     // ---- energies inside the window (warp per frame) -------------------
-    // a lane keeps its columns of the frame's keys, handler and energy
-    // vector in registers across the K rows
-    for (int l = lb + warp; l < le; l += kWarps) {
-      const float* pl = pre + (size_t)l * M;
-      for (int m0 = 0; m0 < M; m0 += 32 * kMq) {
-        float pv[kMq], hv[kMq], vv[kMq];
-#pragma unroll
-        for (int q = 0; q < kMq; ++q) {
-          const int m = m0 + lane + 32 * q;
-          pv[q] = m < M ? __ldg(pl + m) : 0.f;
-          hv[q] = m < M ? HAND[m] : 0.f;
-          vv[q] = m < M ? VV[m] : 0.f;
-        }
-        for (int r = 0; r < K; ++r) {
-          const float c = CONV[r * L + l];
-          const float* sp = SP + r * M;
-          float part = 0.f;
-#pragma unroll
-          for (int q = 0; q < kMq; ++q) {
-            const int m = m0 + lane + 32 * q;
-            if (m < M)
-              part = fmaf(vv[q], tanhf((pv[q] + sp[m]) + c * hv[q]), part);
-          }
-          part = warp_sum(part);
-          if (lane == 0) WN[r * L + l] = m0 == 0 ? part : WN[r * L + l] + part;
-        }
-      }
-    }
+    window_energies(pre, M, CONV, SP, HAND, VV, K, L, lb, le, WN);
     __syncthreads();
 
     // ---- masked softmax over the window (warp per row) ----------------
-    for (int r = warp; r < K; r += kWarps) {
-      float* er = WN + r * L;
-      float mx = kNeg;
-      for (int l = lb + lane; l < le; l += 32) mx = fmaxf(mx, er[l]);
-      mx = warp_max(mx);
-      if (!(mx > kNeg / 2)) mx = 0.f;
-      float sum = 0.f, csum = 0.f;
-      for (int l = lane; l < L; l += 32) {
-        float comb = 0.f;
-        if (l >= lb && l < le) {
-          comb = MASK[l];
-          if (a.prior_median)
-            comb = comb * (((float)l > BEGINS[r] && (float)l < ENDS[r])
-                               ? 1.f : 0.f);
-        }
-        const float un = comb != 0.f ? expf(er[l] - mx) * comb : 0.f;
-        er[l] = un;
-        sum += un;
-        csum += comb;
-      }
-      sum = warp_sum(sum);
-      csum = warp_sum(csum);
-      const float denom = sum + (csum == 0.f ? 1.f : 0.f);
-      for (int l = lane; l < L; l += 32) er[l] = er[l] / denom;
-    }
+    window_softmax(WN, MASK, BEGINS, ENDS, a.prior_median, K, L, lb, le);
     __syncthreads();
 
     // ---- weighted average of the encoder outputs ----------------------
@@ -504,30 +326,8 @@ beam_loop_kernel(BeamLoopArgs a) {
     __syncthreads();
 
     // ---- readout: merge, tanh, post-merge, log-softmax ----------------
-    rows_matvec<RB>(WA, D, K, D, a.merge_k, R, a.merge_b, ACT, R, false);
-    if (a.merge_states_k != nullptr) {
-      __syncthreads();
-      rows_matvec<RB>(H, S, K, S, a.merge_states_k, R, nullptr, ACT, R, true);
-    }
-    __syncthreads();
-    for (int idx = tid; idx < K * R; idx += blockDim.x)
-      ACT[idx] = tanhf(ACT[idx]);
-    __syncthreads();
-    rows_matvec<RB>(ACT, R, K, R, a.post_k, V, a.post_b, COSTS, V, false);
-    __syncthreads();
-    for (int r = warp; r < K; r += kWarps) {
-      float* cr = COSTS + r * V;
-      float mx = -__int_as_float(0x7f800000);
-      for (int c = lane; c < V; c += 32) mx = fmaxf(mx, cr[c]);
-      mx = warp_max(mx);
-      float sum = 0.f;
-      for (int c = lane; c < V; c += 32) sum += expf(cr[c] - mx);
-      sum = warp_sum(sum);
-      const float lse = mx + logf(sum);
-      const float alive = ACOST[r];
-      // candidate cost: alive cost + (lse - logit)
-      for (int c = lane; c < V; c += 32) cr[c] = alive + (lse - cr[c]);
-    }
+    readout_costs<RB>(WA, D, H, S, K, a.merge_k, a.merge_b, a.merge_states_k,
+                      a.post_k, a.post_b, R, V, ACOST, ACT, COSTS);
     __syncthreads();
 
     // ---- K selection rounds over the K*V candidates --------------------

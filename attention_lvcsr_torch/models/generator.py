@@ -1,22 +1,33 @@
-"""The attention decoder's parameters and the whole-loop decode tables.
+"""The attention decoder: parameters, decode tables and the decode step.
 
-Counterpart of ``attention_lvcsr_tpu/models/generator.py`` as far as
-``loop_decode_tables`` (``:779-847``) and ``fused_score_tables``
-(``:707-777``) read it: the feedback embedding, the readout (merge of the
-weighted averages and optionally the states, tanh post-merge), the
-decoder GRU with its fork and distribute projections.  The step itself
-runs inside ``ops/beam_loop.py``.  Parameter names are the flax ones
-(``feedback/lookup/embedding``, ``transition_0``, ``fork_0_inputs``, ...).
+Counterpart of ``attention_lvcsr_tpu/models/generator.py`` for one GRU
+decoder layer: the feedback embedding, the readout (merge of the weighted
+averages and optionally the states, tanh post-merge), its shallow-fusion
+variant with an FST language model, and the decoder GRU with its fork and
+distribute projections.  Two decode routes read it:
+
+* the whole-loop kernel (``ops/beam_loop.py``) takes the dense tables of
+  ``loop_decode_tables`` (``:779-847``) and runs the step itself;
+* the module-driven decode (``search/beam.py::BeamSearch._search_core``)
+  calls ``initial_states``, ``score_step`` (glimpses + per-symbol costs,
+  ``:874-897``) and ``advance_states`` (consume the chosen symbols,
+  ``:899-910``); with ``fused_score_tables`` in its contexts the score
+  step is one ``fused_decode_score`` launch (``:849-872``).
+
+Parameter names are the flax ones (``feedback/lookup/embedding``,
+``transition_0``, ``fork_0_inputs``, ...); the language model holds only
+buffers, so it adds no parameter.
 """
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Mapping, Optional, Sequence
 
 import torch
 from torch import nn
 
 from attention_lvcsr_torch.models.cells import GatedRecurrent
 from attention_lvcsr_torch.models.layers import Dense, Embed
+from attention_lvcsr_torch.ops.decode_score import fused_decode_score
 
 
 class LookupFeedback(nn.Module):
@@ -45,6 +56,60 @@ class Readout(nn.Module):
         self.merge_bias = nn.Parameter(torch.zeros(self.merged_dim))
         self.post_merge_0 = Dense(self.merged_dim, readout_dim)
 
+    def forward(self, sources):
+        merged = self.merge_bias
+        for name in self.source_names:
+            merged = merged + getattr(self, f"merge_{name}")(sources[name])
+        return self.post_merge_0(torch.tanh(merged))
+
+
+class ShallowFusionReadout(Readout):
+    """AM/LM shallow fusion (``generator.py:142-166``):
+    ``am_beta * AM + lm_weight * (-lm_add)``, with optional log-softmax
+    normalisation of each term and of the sum.  Same parameters as
+    :class:`Readout`."""
+
+    def __init__(self, source_dims, readout_dim, post_merge_dims,
+                 lm_weight=0.0, normalize_am_weights=True,
+                 normalize_lm_weights=False, normalize_tot_weights=False,
+                 am_beta=1.0):
+        super().__init__(source_dims, readout_dim, post_merge_dims)
+        self.lm_weight = lm_weight
+        self.normalize_am_weights = normalize_am_weights
+        self.normalize_lm_weights = normalize_lm_weights
+        self.normalize_tot_weights = normalize_tot_weights
+        self.am_beta = am_beta
+
+    def forward(self, sources):
+        sources = dict(sources)
+        lm_costs = -sources.pop("lm_add")
+        if self.normalize_lm_weights:
+            lm_costs = torch.log_softmax(lm_costs, dim=-1)
+        am = self.am_beta * super().forward(sources)
+        if self.normalize_am_weights:
+            am = torch.log_softmax(am, dim=-1)
+        x = am + self.lm_weight * lm_costs
+        if self.normalize_tot_weights:
+            x = torch.log_softmax(x, dim=-1)
+        return x
+
+
+class SoftmaxEmitter:
+    """Per-symbol costs of the plain readout: ``-log_softmax``."""
+
+    @staticmethod
+    def costs(readouts):
+        return -torch.log_softmax(readouts, dim=-1)
+
+
+class LMEmitter:
+    """Per-symbol costs of the shallow-fusion readout, which normalises
+    itself: ``-readouts``."""
+
+    @staticmethod
+    def costs(readouts):
+        return -readouts
+
 
 def _unbiased(dense):
     """(kernel, bias) of a Dense as the JAX tables extract them through
@@ -58,7 +123,12 @@ class SequenceGenerator(nn.Module):
 
     def __init__(self, attention, num_outputs: int, dim_dec: int,
                  feedback_dim: int, post_merge_dims: Sequence[int],
-                 use_states_for_readout: bool = False):
+                 use_states_for_readout: bool = False,
+                 language_model: Optional[nn.Module] = None,
+                 fusion: Optional[Mapping] = None):
+        """``language_model`` (``models/lm.py``) with ``fusion``, the
+        keyword arguments of :class:`ShallowFusionReadout`, selects the
+        shallow-fusion readout."""
         super().__init__()
         self.num_outputs = num_outputs
         self.dim_dec = dim_dec
@@ -73,7 +143,14 @@ class SequenceGenerator(nn.Module):
                             Dense(D, d, use_bias=False))
         sources = {"states": dim_dec} if use_states_for_readout else {}
         sources["weighted_averages"] = D
-        self.readout = Readout(sources, num_outputs, post_merge_dims)
+        self.language_model = language_model
+        if language_model is None:
+            self.readout = Readout(sources, num_outputs, post_merge_dims)
+            self.emitter = SoftmaxEmitter
+        else:
+            self.readout = ShallowFusionReadout(
+                sources, num_outputs, post_merge_dims, **dict(fusion or {}))
+            self.emitter = LMEmitter
 
     def loop_decode_tables(self):
         """Dense weight tables of the whole-loop decode kernel; the same
@@ -105,3 +182,88 @@ class SequenceGenerator(nn.Module):
         if self.use_states_for_readout:
             t["merge_states_k"] = readout.merge_states.kernel
         return {k: v.detach().contiguous() for k, v in t.items()}
+
+    # -- the module-driven decode step -------------------------------------
+    def fused_score_supported(self):
+        """Whether ``fused_decode_score`` covers this configuration (the
+        port's other variants already are the kernel's)."""
+        return (not self.use_states_for_readout
+                and self.language_model is None)
+
+    def fused_score_tables(self):
+        """The tables of ``fused_decode_score``: those of the loop kernel
+        it needs, the same values as the JAX ``fused_score_tables`` (the
+        filter taps in place of the Toeplitz band)."""
+        t = self.loop_decode_tables()
+        return {k: t[k] for k in ("state_trans", "handler", "v", "merge_k",
+                                  "merge_b", "post_k", "post_b",
+                                  "conv_filters")}
+
+    def initial_states(self, batch_size, attended):
+        carry = {
+            "states": self.transition_0.initial_states(batch_size)
+            .contiguous(),
+            "glimpses": self.attention.initial_glimpses(batch_size,
+                                                        attended),
+        }
+        if self.language_model is not None:
+            carry["lm"] = self.language_model.initial_states(batch_size)
+        return carry
+
+    def _compute_states(self, states, feedback, weighted_averages):
+        seqs = {seq: getattr(self, f"fork_0_{seq}")(feedback)
+                + getattr(self, f"distribute_0_{seq}")(weighted_averages)
+                for seq in self.transition_0.sequence_names}
+        return self.transition_0.one_step(states, seqs)
+
+    def _readout_sources(self, states, glimpses, lm_state=None):
+        sources = {}
+        if self.use_states_for_readout:
+            sources["states"] = states
+        sources["weighted_averages"] = glimpses["weighted_averages"]
+        if self.language_model is not None and lm_state is not None:
+            sources["lm_add"] = lm_state["add"]
+        return sources
+
+    def _fused_score(self, carry, contexts, beam):
+        p = self.attention.prior_config()
+        g = carry["glimpses"]
+        costs, wnew, energies, wa = fused_decode_score(
+            contexts["preprocessed"], contexts["attended"],
+            contexts["attended_mask"], g["weights"], g["step"],
+            carry["states"], contexts["fused_tables"], beam=beam,
+            prior=p.get("type", "expanding"),
+            before=float(p.get("before", 0.0)),
+            after=float(p.get("after", 0.0)),
+            initial_begin=float(p.get("initial_begin", 0.0)),
+            initial_end=float(p.get("initial_end", 1e4)),
+            min_speed=float(p.get("min_speed", 0.0)),
+            max_speed=float(p.get("max_speed", 0.0)))
+        g_new = {"weighted_averages": wa, "weights": wnew,
+                 "energies": energies, "step": g["step"] + 1}
+        return g_new, costs
+
+    def score_step(self, carry, contexts, beam=1):
+        """Glimpses and per-symbol continuation costs of every hypothesis
+        row: contexts per utterance (U, ...), carry rows per hypothesis
+        (U*beam, ...).  Returns (glimpses, costs (U*beam, V))."""
+        if beam > 1 and "fused_tables" in contexts:
+            return self._fused_score(carry, contexts, beam)
+        g_new = self.attention.take_glimpses(
+            contexts["attended"], contexts["preprocessed"],
+            contexts["attended_mask"], carry["glimpses"],
+            {"states": carry["states"]}, beam=beam)
+        readouts = self.readout(self._readout_sources(
+            carry["states"], g_new, carry.get("lm")))
+        return g_new, self.emitter.costs(readouts)
+
+    def advance_states(self, carry, g_new, chosen_outputs):
+        """Consume the chosen symbols: GRU transition and LM update."""
+        states = self._compute_states(
+            carry["states"], self.feedback(chosen_outputs),
+            g_new["weighted_averages"])
+        new_carry = {"states": states, "glimpses": g_new}
+        if self.language_model is not None:
+            new_carry["lm"] = self.language_model.one_step(carry["lm"],
+                                                           chosen_outputs)
+        return new_carry

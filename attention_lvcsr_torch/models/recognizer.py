@@ -4,7 +4,11 @@ Counterpart of ``attention_lvcsr_tpu/models/recognizer.py``:
 
 * :class:`RecognizerNet` — the network from the ``net`` config section
   (same keys), with ``encode`` (the inference encoder), ``decode_loop``
-  and ``decode_loop_tables`` (what the whole-loop decode consumes);
+  and ``decode_loop_tables`` (what the whole-loop decode consumes), and
+  the step interface of the module-driven decode (``decode_contexts``,
+  ``decode_init``, ``decode_score``, ``decode_advance``); a ``net.lm``
+  section with a ``path`` adds the FST language model and the
+  shallow-fusion readout;
 * :class:`SpeechRecognizer` — parameters, config-driven init, checkpoint
   loading and ``beam_search`` with the same frame and batch padding.
 
@@ -63,7 +67,6 @@ def unported_piece(cfg: Mapping[str, Any]) -> Optional[str]:
          f"the {cfg.get('post_merge_activation')!r} post-merge activation"),
         (criterion.get("name") == "log_likelihood",
          f"the {criterion.get('name')!r} criterion"),
-        (not dict(cfg.get("lm") or {}).get("path"), "LM shallow fusion"),
         (cfg.get("embed_outputs", True), "one-hot (non-embedded) feedback"),
         (prior.get("type", "expanding")
          in ("expanding", "window_around_median"),
@@ -76,9 +79,14 @@ def unported_piece(cfg: Mapping[str, Any]) -> Optional[str]:
 
 
 class RecognizerNet(nn.Module):
-    """Network assembly from the ``net`` config section (JAX field names;
-    ``use_pallas`` and ``dropout`` are accepted and have no effect here:
-    CUDA tensors always take the kernels, and decoding is inference)."""
+    """Network assembly from the ``net`` config section (JAX field names).
+
+    ``use_pallas`` selects routes, not devices: CUDA tensors always take
+    the kernels.  ``"fused"`` (and ``"interpret"``, as in the JAX
+    package's tests) makes the module-driven decode score each step with
+    ``fused_decode_score``; ``"never"`` keeps a decode without LM or
+    constraint off the whole-loop kernel, as in the JAX package.
+    ``dropout`` has no effect: decoding is inference."""
 
     def __init__(self, input_dims: Mapping[str, int], eos_label: int,
                  num_phonemes: int, dim_dec: int, dims_bidir: Sequence[int],
@@ -102,7 +110,7 @@ class RecognizerNet(nn.Module):
             energy_normalizer=energy_normalizer, dec_stack=dec_stack,
             post_merge_dims=post_merge_dims,
             post_merge_activation=post_merge_activation,
-            criterion=criterion, lm=lm, embed_outputs=embed_outputs,
+            criterion=criterion, embed_outputs=embed_outputs,
             prior=prior))
         if piece is not None:
             raise NotImplementedError(f"not ported yet: {piece}")
@@ -115,10 +123,28 @@ class RecognizerNet(nn.Module):
         attention = SequenceContentAndConvAttention(
             ("states",), dim_dec, D, dim_matcher or dim_dec, conv_n,
             prior=prior)
+        self.use_pallas = use_pallas
+        lm_conf = dict(lm or {})
+        language_model = fusion = None
+        if lm_conf.get("path"):
+            from attention_lvcsr_torch.models.lm import make_language_model
+            fusion = {
+                "lm_weight": lm_conf.pop("weight", 0.0),
+                "normalize_am_weights": lm_conf.pop("normalize_am_weights",
+                                                    True),
+                "normalize_lm_weights": lm_conf.pop("normalize_lm_weights",
+                                                    False),
+                "normalize_tot_weights": lm_conf.pop(
+                    "normalize_tot_weights", False),
+                "am_beta": lm_conf.pop("am_beta", 1.0)}
+            lm_conf.pop("type", None)
+            language_model = make_language_model(
+                lm_conf, nn_char_map=dict(character_map or {}))
         self.generator = SequenceGenerator(
             attention, num_phonemes, dim_dec,
             dim_output_embedding or dim_dec, post_merge_dims,
-            use_states_for_readout=use_states_for_readout)
+            use_states_for_readout=use_states_for_readout,
+            language_model=language_model, fusion=fusion)
 
     def encode(self, inputs, inputs_mask):
         """(B, T, F) features, (B, T) mask -> encoded (B, L, D), mask."""
@@ -136,6 +162,33 @@ class RecognizerNet(nn.Module):
 
     def decode_loop_tables(self):
         return self.generator.loop_decode_tables()
+
+    # -- the step interface of the module-driven decode ------------------
+    def decode_contexts(self, inputs, inputs_mask):
+        """Per-utterance contexts: encoder outputs, keys, mask, and the
+        fused score tables when ``use_pallas`` opts into them."""
+        encoded, encoded_mask = self.encode(inputs, inputs_mask)
+        encoded = encoded.contiguous()
+        ctx = {
+            "attended": encoded,
+            "preprocessed": self.generator.attention.preprocess(encoded)
+            .contiguous(),
+            "attended_mask": encoded_mask.contiguous(),
+        }
+        if self.use_pallas in ("fused", "interpret") \
+                and self.generator.fused_score_supported():
+            ctx["fused_tables"] = self.generator.fused_score_tables()
+        return ctx
+
+    def decode_init(self, batch_size, contexts):
+        return self.generator.initial_states(batch_size,
+                                             contexts["attended"])
+
+    def decode_score(self, carry, contexts, beam=1):
+        return self.generator.score_step(carry, contexts, beam=beam)
+
+    def decode_advance(self, carry, g_new, outputs):
+        return self.generator.advance_states(carry, g_new, outputs)
 
 
 class SpeechRecognizer:

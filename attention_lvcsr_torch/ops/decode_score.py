@@ -1,0 +1,216 @@
+"""One fused decode score step: the CUDA kernel's wrapper and its plain
+version.
+
+Counterpart of ``attention_lvcsr_tpu/ops/pallas/decode_score.py::
+fused_decode_score``: for each utterance and its K hypothesis rows, the
+prior's window, the alignment convolution, the energies, the masked
+softmax, the weighted average and the readout with log-softmax costs, in
+one launch (``csrc/decode_score.cu``).  ``fused_decode_score`` takes the
+plain PyTorch version for tensors on the CPU and launches the kernel for
+tensors on a CUDA device; any other device raises.
+
+Semantics of the TPU kernel, which both versions keep:
+
+* the window is taken per utterance over its K rows (the module path of
+  ``models/attention.py`` takes it over the whole batch);
+* the median is ``max(0, #(cumsum < 0.5) - 1)``, which gives L - 1 for a
+  row of zero weights (the module path gives 0);
+* the expanding prior reads the step of each utterance's first row;
+* the Toeplitz band of the TPU kernel is the filter itself here (a true
+  convolution, trimmed 'full' mode), and the cumulative sum a prefix sum.
+
+``tables`` holds ``state_trans`` (S, M), ``handler`` (M,), ``v`` (M,),
+``merge_k`` (D, R), ``merge_b`` (R,), ``post_k`` (R, V), ``post_b`` (V,)
+and ``conv_filters`` (1, 2n+1): ``SequenceGenerator.fused_score_tables``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from attention_lvcsr_torch import _build
+from attention_lvcsr_torch.ops.attention_energy import \
+    beam_attention_energies_reference
+from attention_lvcsr_torch.ops.expressions import conv1d_full
+
+NEG = -1e30
+PRIORS = ("expanding", "window_around_median")
+
+launches = _build.LaunchCounter()
+
+# table name -> shape in terms of the dimension letters of _launch
+_TABLE_SHAPES = {"state_trans": "SM", "handler": "M", "v": "M",
+                 "merge_k": "DR", "merge_b": "R", "post_k": "RV",
+                 "post_b": "V", "conv_filters": "1T"}
+
+
+def _check_prior(prior):
+    if prior not in PRIORS:
+        raise NotImplementedError(
+            f"fused_decode_score: prior {prior!r} is not ported "
+            f"(supported: {PRIORS})")
+
+
+def fused_decode_score_reference(pre, attended, att_mask, weights, step,
+                                 states, tables, *, beam,
+                                 prior="window_around_median", before=100.0,
+                                 after=100.0, initial_begin=0.0,
+                                 initial_end=1e4, min_speed=0.0,
+                                 max_speed=0.0):
+    """Plain version.  pre (U, L, M), attended (U, L, D), att_mask (U, L),
+    weights (U*K, L), step (U*K,) ints, states (U*K, S) -> costs (U*K, V),
+    new weights (U*K, L), windowed energies (U*K, L), weighted averages
+    (U*K, D)."""
+    _check_prior(prior)
+    f32 = torch.float32
+    U, L, M = pre.shape
+    D = attended.shape[-1]
+    K = beam
+    t = tables
+    taps = t["conv_filters"]
+    n = (taps.shape[-1] - 1) // 2
+    pos = torch.arange(L, device=pre.device, dtype=f32)
+    w = weights.view(U, K, L)
+    if prior == "expanding":
+        step0 = step.view(U, K)[:, 0].to(f32)
+        begin = torch.floor(torch.clamp(
+            initial_begin + step0 * min_speed, max=float(L - 1)).clamp(min=0))
+        end = torch.ceil(torch.clamp(
+            initial_end + step0 * max_speed, max=float(L)).clamp(min=0))
+        gmask = ((pos >= begin[:, None]) & (pos < end[:, None])).to(f32)
+        additional = torch.ones(U, K, L, device=pre.device)
+    else:
+        below = (torch.cumsum(w, dim=2) < 0.5).sum(dim=2).to(f32)
+        expected = torch.clamp(below - 1.0, min=0.0)             # (U, K)
+        begins = torch.floor(expected - before)
+        ends = torch.ceil(expected + after)
+        gb = torch.floor(begins.min(dim=1).values.clamp(min=0.0))
+        ge = torch.ceil(ends.max(dim=1).values.clamp(max=float(L)))
+        gmask = ((pos >= gb[:, None]) & (pos < ge[:, None])).to(f32)
+        additional = ((pos > begins[..., None])
+                      & (pos < ends[..., None])).to(f32)
+    combined = (gmask[:, None, :] * additional
+                * att_mask[:, None, :]).view(U * K, L)
+    gmask_rows = gmask.repeat_interleave(K, dim=0)               # (U*K, L)
+
+    conv = conv1d_full(weights * gmask_rows, taps)[:, 0, n:n + L]
+    sp = states @ t["state_trans"]
+    energies = beam_attention_energies_reference(
+        pre, sp, conv, t["handler"], t["v"], 0.0, beam=K)
+
+    masked = torch.where(gmask_rows > 0, energies, NEG)
+    mx = masked.max(dim=1, keepdim=True).values
+    mx = torch.where(mx > NEG / 2, mx, 0.0)
+    unnorm = torch.exp(energies - mx) * combined
+    denom = unnorm.sum(dim=1, keepdim=True) + (
+        combined.sum(dim=1, keepdim=True) == 0).to(f32)
+    wnew = unnorm / denom
+
+    wa = torch.bmm(wnew.view(U, K, L), attended).view(U * K, D)
+    act = torch.tanh(wa @ t["merge_k"] + t["merge_b"])
+    logits = act @ t["post_k"] + t["post_b"]
+    costs = torch.logsumexp(logits, dim=1, keepdim=True) - logits
+    return costs, wnew, energies * gmask_rows, wa
+
+
+class _Args(ctypes.Structure):
+    """Mirror of ``struct DecodeScoreArgs`` in csrc/decode_score.cu."""
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "pre", "attended", "att_mask", "weights", "step", "states",
+            "conv_taps", "state_trans", "handler", "v", "merge_k", "merge_b",
+            "post_k", "post_b", "costs", "wnew", "energies", "wa")]
+        + [(name, ctypes.c_int) for name in (
+            "U", "L", "M", "D", "S", "R", "V", "K", "n_taps",
+            "prior_median")]
+        + [(name, ctypes.c_float) for name in (
+            "before", "after", "initial_begin", "initial_end", "min_speed",
+            "max_speed")])
+
+
+def _check(name, x, shape, device, dtype=torch.float32):
+    if x.dtype != dtype:
+        raise TypeError(f"fused_decode_score: {name} must be {dtype}, got "
+                        f"{x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"fused_decode_score: {name} has shape "
+                         f"{tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"fused_decode_score: {name} must be contiguous")
+    if x.device != device:
+        raise ValueError(f"fused_decode_score: {name} is on {x.device}, "
+                         f"expected {device}")
+
+
+def _launch(pre, attended, att_mask, weights, step, states, tables, *, beam,
+            prior="window_around_median", before=100.0, after=100.0,
+            initial_begin=0.0, initial_end=1e4, min_speed=0.0,
+            max_speed=0.0):
+    _check_prior(prior)
+    dev = pre.device
+    U, L, M = pre.shape
+    K = int(beam)
+    dims = {"U": U, "L": L, "M": M, "D": attended.shape[-1], "1": 1,
+            "S": tables["state_trans"].shape[0],
+            "R": tables["merge_k"].shape[1], "V": tables["post_k"].shape[1],
+            "T": tables["conv_filters"].shape[-1]}
+    D, S, R, V = dims["D"], dims["S"], dims["R"], dims["V"]
+    _check("pre", pre, (U, L, M), dev)
+    _check("attended", attended, (U, L, D), dev)
+    _check("att_mask", att_mask, (U, L), dev)
+    _check("weights", weights, (U * K, L), dev)
+    _check("step", step, (U * K,), dev, torch.int32)
+    _check("states", states, (U * K, S), dev)
+    for name, letters in _TABLE_SHAPES.items():
+        _check(name, tables[name], [dims[c] for c in letters], dev)
+    costs = torch.empty(U * K, V, dtype=torch.float32, device=dev)
+    wnew = torch.empty(U * K, L, dtype=torch.float32, device=dev)
+    energies = torch.empty(U * K, L, dtype=torch.float32, device=dev)
+    wa = torch.empty(U * K, D, dtype=torch.float32, device=dev)
+    if not (U and K):
+        return costs, wnew, energies, wa
+    ptr = lambda name: tables[name].data_ptr()
+    args = _Args(
+        pre=pre.data_ptr(), attended=attended.data_ptr(),
+        att_mask=att_mask.data_ptr(), weights=weights.data_ptr(),
+        step=step.data_ptr(), states=states.data_ptr(),
+        conv_taps=ptr("conv_filters"), state_trans=ptr("state_trans"),
+        handler=ptr("handler"), v=ptr("v"), merge_k=ptr("merge_k"),
+        merge_b=ptr("merge_b"), post_k=ptr("post_k"), post_b=ptr("post_b"),
+        costs=costs.data_ptr(), wnew=wnew.data_ptr(),
+        energies=energies.data_ptr(), wa=wa.data_ptr(),
+        U=U, L=L, M=M, D=D, S=S, R=R, V=V, K=K, n_taps=dims["T"],
+        prior_median=int(prior == "window_around_median"),
+        before=before, after=after, initial_begin=initial_begin,
+        initial_end=initial_end, min_speed=min_speed, max_speed=max_speed)
+    lib = _build.load().lib
+    lib.decode_score_smem_bytes.argtypes = [ctypes.POINTER(_Args)]
+    lib.decode_score_smem_bytes.restype = ctypes.c_int
+    lib.decode_score_f32.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+    lib.decode_score_f32.restype = ctypes.c_int
+    smem = lib.decode_score_smem_bytes(ctypes.byref(args))
+    props = torch.cuda.get_device_properties(dev)
+    limit = getattr(props, "shared_memory_per_block_optin", 232448)
+    if smem > limit:
+        raise NotImplementedError(
+            f"fused_decode_score: beam {K} at L={L}, D={D} needs {smem} "
+            f"bytes of shared memory per utterance (limit {limit})")
+    with torch.cuda.device(dev):
+        status = lib.decode_score_f32(ctypes.byref(args), _build.stream_of(pre))
+    _build.check(status, "decode_score_f32")
+    launches.count += 1
+    return costs, wnew, energies, wa
+
+
+def fused_decode_score(pre, attended, att_mask, weights, step, states,
+                       tables, **kwargs):
+    """One score step; same arguments as the plain version."""
+    device = pre.device.type
+    if device == "cpu":
+        return fused_decode_score_reference(pre, attended, att_mask, weights,
+                                            step, states, tables, **kwargs)
+    if device == "cuda":
+        return _launch(pre, attended, att_mask, weights, step, states,
+                       tables, **kwargs)
+    raise ValueError(f"fused_decode_score: no kernel for device {pre.device}")

@@ -7,8 +7,12 @@ import pytest
 import torch
 
 from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+from attention_lvcsr_torch.ops import attention_energy as ae
 from attention_lvcsr_torch.ops import beam_loop as bl
+from attention_lvcsr_torch.ops import decode_score as ds
+from attention_lvcsr_torch.ops import fst
 from attention_lvcsr_torch.ops import gru_scan as gs
+from attention_lvcsr_torch.search.beam import DecodeConstraint
 
 pytestmark = pytest.mark.cuda
 
@@ -118,3 +122,113 @@ def test_beam_loop_kernel_matches_plain(device, search, states_readout):
     torch.testing.assert_close(meta[:, :, 2], ref_meta[:, :, 2])
     torch.testing.assert_close(meta[:, :, :2], ref_meta[:, :, :2],
                                atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("U,K,L,M", [(3, 4, 23, 9), (2, 1, 7, 300),
+                                     (4, 10, 200, 250), (1, 12, 33, 64)])
+def test_attention_energy_kernel_matches_plain(device, U, K, L, M):
+    rng = np.random.RandomState(U + K + L + M)
+    f = lambda *s: torch.tensor(rng.randn(*s).astype(np.float32),
+                                device=device)
+    args = (f(U, L, M), f(U * K, M), f(U * K, L), f(M) * 0.3, f(M) * 0.3)
+    before = ae.launches.count
+    got = ae.beam_attention_energies(*args, 0.5, beam=K)
+    assert ae.launches.count == before + 1
+    ref = ae.beam_attention_energies_reference(*args, 0.5, beam=K)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("prior", [
+    dict(prior="window_around_median", before=4.0, after=5.0),
+    dict(prior="expanding", initial_begin=1.0, initial_end=6.0,
+         min_speed=1.5, max_speed=2.5)], ids=["median", "expanding"])
+@pytest.mark.parametrize("K", [3, 10, 12])
+def test_decode_score_kernel_matches_plain(device, prior, K):
+    U, L, M, D, S, R, V = 4, 37, 40, 24, 20, 30, 12
+    rng = np.random.RandomState(K)
+    f = lambda *s: rng.randn(*s).astype(np.float32)
+    w = np.abs(f(U * K, L))
+    w /= w.sum(axis=1, keepdims=True)
+    w[1] = 0.0
+    mask = (np.arange(L)[None] < np.array([[L], [30], [11], [2]])
+            ).astype(np.float32)
+    t = lambda a: torch.tensor(a, device=device)
+    tables = {k: t(v) for k, v in dict(
+        state_trans=f(S, M), handler=f(M), v=f(M), merge_k=f(D, R),
+        merge_b=f(R), post_k=f(R, V), post_b=f(V),
+        conv_filters=f(1, 7) * 0.3).items()}
+    args = (t(f(U, L, M)), t(f(U, L, D)), t(mask), t(w),
+            t(rng.randint(0, 5, U * K).astype(np.int32)), t(f(U * K, S)),
+            tables)
+    before = ds.launches.count
+    got = ds.fused_decode_score(*args, beam=K, **prior)
+    assert ds.launches.count == before + 1
+    ref = ds.fused_decode_score_reference(*args, beam=K, **prior)
+    for name, g, r in zip(("costs", "weights", "energies", "wa"), got, ref):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5, msg=name)
+
+
+def _lm_npz(path):
+    rng = np.random.RandomState(11)
+    toks = [f"c{i}" for i in range(5)]
+    uni = {("<s>",): (-99.0, -0.4), ("</s>",): (-1.5, 0.0)}
+    uni.update({(tk,): (float(-1.2 - rng.rand()), -0.5) for tk in toks})
+    bi = {(a, b): (float(-0.3 - rng.rand()), 0.0)
+          for a in toks for b in toks if rng.rand() < 0.5}
+    graph = fst.arpa_to_fst({1: uni, 2: bi},
+                            {tk: i + 1 for i, tk in enumerate(toks)})
+    fst.save_packed(path, fst.pack_fst(graph, {i: i + 1 for i in range(5)},
+                                       5, no_transition_cost=20.0))
+    return path
+
+
+def _decode_on(device, config, kwargs, seed=7):
+    rec = SpeechRecognizer(config, init_config=INIT, seed=seed,
+                           device=device)
+    rec.net.generator.readout.post_merge_0.bias.data[4] += 1.5
+    rng = np.random.RandomState(3)
+    x = rng.randn(5, 30, 6).astype(np.float32)
+    m = (np.arange(30)[None] < np.array(
+        [[30], [25], [0], [11], [30]])).astype(np.float32)
+    rec.init_beam_search(4)
+    return rec.beam_search(x, m, as_arrays=True, **kwargs)
+
+
+def _assert_same_decode(got, ref):
+    valid = ref["done_valid"]
+    assert valid.any()
+    assert int(got["steps"]) == int(ref["steps"])
+    np.testing.assert_array_equal(got["done_valid"], valid)
+    np.testing.assert_array_equal(got["done_out"], ref["done_out"])
+    np.testing.assert_array_equal(got["done_len"], ref["done_len"])
+    np.testing.assert_allclose(got["done_cost"][valid],
+                               ref["done_cost"][valid], atol=1e-4, rtol=1e-5)
+
+
+def test_lm_decode_on_the_card_matches_plain(device, tmp_path):
+    """LM-fused decode: gru_scan and beam_attention_energies launch, the
+    loop kernel does not; the result is the CPU plain versions'."""
+    config = dict(NET_CONFIG, lm={"path": _lm_npz(str(tmp_path / "g.npz")),
+                                  "weight": 0.5,
+                                  "no_transition_cost": 20.0})
+    kwargs = dict(char_discount=0.1)
+    counts = (ae.launches.count, bl.launches.count, gs.launches.count)
+    got = _decode_on(device, config, kwargs)
+    assert ae.launches.count > counts[0]
+    assert bl.launches.count == counts[1]
+    assert gs.launches.count > counts[2]
+    _assert_same_decode(got, _decode_on("cpu", config, kwargs))
+
+
+def test_constrained_fused_decode_on_the_card_matches_plain(device):
+    """``use_pallas: fused`` with a dictionary constraint: every step is
+    one fused_decode_score launch."""
+    config = dict(NET_CONFIG, use_pallas="fused")
+    char_map = {"a": 0, "b": 1, "c": 2, "<spc>": 3, "<eol>": 4}
+    constraint = DecodeConstraint.from_words(["ab", "c", "cab", "ba"],
+                                             char_map, 5)
+    kwargs = dict(char_discount=0.1, validate_solution_function=constraint)
+    before = ds.launches.count
+    got = _decode_on(device, config, kwargs)
+    assert ds.launches.count > before
+    _assert_same_decode(got, _decode_on("cpu", config, kwargs))

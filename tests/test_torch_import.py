@@ -26,9 +26,13 @@ MODULES = [
     "attention_lvcsr_torch.models.encoder",
     "attention_lvcsr_torch.models.attention",
     "attention_lvcsr_torch.models.generator",
+    "attention_lvcsr_torch.models.lm",
     "attention_lvcsr_torch.models.recognizer",
     "attention_lvcsr_torch.ops.gru_scan",
     "attention_lvcsr_torch.ops.beam_loop",
+    "attention_lvcsr_torch.ops.attention_energy",
+    "attention_lvcsr_torch.ops.decode_score",
+    "attention_lvcsr_torch.ops.fst",
     "attention_lvcsr_torch.ops.expressions",
     "attention_lvcsr_torch.ops.error_rate",
     "attention_lvcsr_torch.search.beam",
@@ -106,7 +110,8 @@ def test_cuda_recognizer_without_cuda_raises():
     ({"dec_stack": 2}, "dec_stack"),
     ({"post_merge_activation": "maxout:2"}, "post-merge"),
     ({"criterion": {"name": "mse_gain"}}, "criterion"),
-    ({"lm": {"path": "x.fst"}}, "LM"),
+    ({"energy_normalizer": "logistic", "lm": {"path": "x.fst"}},
+     "normalizer"),
     ({"prior": {"type": "window_around_mean", "before": 1, "after": 1}},
      "prior"),
     ({"enc_transition": "lstm"}, "GRU"),
@@ -117,10 +122,13 @@ def test_unported_variants_raise(override, piece):
 
 
 def test_unported_search_options_raise():
-    rec = SpeechRecognizer(TINY)
+    """bf16 decoding raises on both routes: the loop kernel's and the
+    module-driven decode a validator takes."""
     x = np.zeros((4, 5), np.float32)
-    with pytest.raises(NotImplementedError, match="validate_solution"):
-        rec.beam_search(x, validate_solution_function=lambda *a: True)
     rec = SpeechRecognizer(dict(TINY, compute_dtype="bfloat16"))
     with pytest.raises(NotImplementedError, match="float32"):
         rec.beam_search(x, as_arrays=True)
+    with pytest.raises(NotImplementedError, match="float32"):
+        rec.beam_search(x, validate_solution_function=lambda *a: True)
+    with pytest.raises(TypeError, match="DecodeConstraint"):
+        SpeechRecognizer(TINY).beam_search(x, validate_solution_function=3)

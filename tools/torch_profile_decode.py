@@ -7,9 +7,12 @@ Run from the repository root on a machine with a CUDA device and nvcc.
 Drives the decode ``chip_smoke.py`` drives (``FLAGSHIP_NET``, random
 weights from seed 1234, B=64, 800 frames, beam 10) and reports:
 
-1. ``torch.profiler`` over one ``beam_search``: device time per kernel,
-   the device's busy time and the window's wall time, hence its idle
-   share;
+1. ``torch.profiler`` over one ``beam_search`` of each decode route:
+   the whole-loop kernel (no LM), the LM-fused module-driven decode
+   (``chip_smoke.py``'s trigram, weight 0.5, char_discount 1.0) and the
+   dictionary-constrained decode under ``use_pallas: fused``
+   (``chip_smoke.py`` phase 9): device time per kernel, the device's busy
+   time and the window's wall time, hence its idle share;
 2. cycles per step inside each CUDA kernel, phase by phase.  The tool
    copies ``csrc/beam_loop.cu`` and ``csrc/gru_scan.cu`` into
    ``build/profile/``, puts a ``clock64()`` probe (after a
@@ -29,6 +32,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -123,29 +127,33 @@ def main():
                         "clocks.sm,clocks.max.sm", "--format=csv,noheader"],
                        capture_output=True, text=True).stdout.strip())
     dev = torch.device("cuda:0")
-    rec = SpeechRecognizer(dict(FLAGSHIP_NET, max_decoded_length_scale=8.0),
-                           init_config=INIT, seed=1234, device=dev)
+    net_config = dict(FLAGSHIP_NET, max_decoded_length_scale=8.0)
+    rec = SpeechRecognizer(net_config, init_config=INIT, seed=1234,
+                           device=dev)
     rec.init_beam_search(10)
     B, T = 64, 800
     feats = torch.tensor(np.random.RandomState(2).randn(B, T, 123)
                          .astype(np.float32), device=dev)
     mask = torch.ones(B, T, device=dev)
 
-    # ---- 1. torch.profiler over one decode ---------------------------------
-    for _ in range(2):
-        rec.beam_search(feats, mask, as_arrays=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        result = rec.beam_search(feats, mask, as_arrays=True)
+    # ---- 1. torch.profiler over one decode of each route -------------------
+    def profile_decode(label, recognizer, **kwargs):
+        for _ in range(2):
+            recognizer.beam_search(feats, mask, as_arrays=True, **kwargs)
         torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        out("torch.profiler saw no device activity: part 1 not measured")
-    else:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            result = recognizer.beam_search(feats, mask, as_arrays=True,
+                                            **kwargs)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not kernels:
+            out(f"{label}: torch.profiler saw no device activity: not "
+                f"measured")
+            return
         per_name, spans = {}, []
         for e in kernels:
             start, end = e.time_range.start, e.time_range.end
@@ -156,14 +164,39 @@ def main():
         for start, end in sorted(spans):
             busy += max(0.0, end - max(start, reach)) / 1e3
             reach = max(reach, end)
-        out(f"decode B={B} frames={T} beam=10 steps="
+        out(f"{label} decode B={B} frames={T} beam=10 steps="
             f"{int(result['steps'])}: device busy {busy:.3f} ms of a "
             f"{window_ms:.3f} ms window (idle "
-            f"{100 * (1 - busy / window_ms):.1f} %)")
+            f"{100 * (1 - busy / window_ms):.1f} %), {len(kernels)} kernel "
+            f"launches")
         for name, (ms, count) in sorted(per_name.items(),
                                         key=lambda kv: -kv[1][0])[:12]:
-            out(f"  {ms:9.3f} ms {100 * ms / busy:5.1f} %  x{count:<4d} "
+            out(f"  {ms:9.3f} ms {100 * ms / busy:5.1f} %  x{count:<5d} "
                 f"{name[:70]}")
+
+    from chip_smoke import CHAR_MAP, CHARS, bench_trigram
+    from attention_lvcsr_torch.search.beam import DecodeConstraint
+    profile_decode("loop kernel (no LM)", rec)
+    with tempfile.TemporaryDirectory() as tmp:
+        lm_path = os.path.join(tmp, "lm_trigram.npz")
+        bench_trigram(lm_path)
+        rec_lm = SpeechRecognizer(
+            dict(net_config, lm={"path": lm_path, "weight": 0.5,
+                                 "no_transition_cost": 20.0}),
+            init_config=INIT, seed=1234, device=dev)
+    rec_lm.init_beam_search(10)
+    profile_decode("LM-fused", rec_lm, char_discount=1.0)
+    wrng = np.random.RandomState(9)
+    words = sorted({"".join(wrng.choice(CHARS[:26], size=wrng.randint(2, 8)))
+                    for _ in range(300)})
+    rec_c = SpeechRecognizer(dict(net_config, use_pallas="fused"),
+                             init_config=INIT, seed=1234, device=dev)
+    rec_c.net.generator.readout.post_merge_0.bias.data[rec_c.eos_label] += 1.5
+    rec_c.init_beam_search(10)
+    profile_decode("constrained (fused score, EOS +1.5)", rec_c,
+                   char_discount=1.0,
+                   validate_solution_function=DecodeConstraint.from_words(
+                       words, CHAR_MAP, 32))
 
     # ---- 2. phase probes inside the kernels ---------------------------------
     with torch.inference_mode():
@@ -180,8 +213,9 @@ def main():
         with open(paths[-1], "w") as f:
             f.write(text)
     lib_path = os.path.join(ROOT, "build", "profile", "libprofile.so")
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                           lib_path, *paths], capture_output=True, text=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                           "-I", _build.CSRC, "-o", lib_path, *paths],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         sys.exit(f"probe build failed:\n{proc.stderr[-4000:]}")
     # the wrappers launch from whatever library _build has loaded
