@@ -1,11 +1,13 @@
-"""Command-line front end of the port: the ``serve`` subcommand.
+"""Command-line front end of the port: ``train`` and ``serve``.
 
-Same arguments as ``attention_lvcsr_tpu/cli/run.py serve`` (YAML config
-path, ``--params`` checkpoint, trailing ``path value`` overrides, host,
-port, beam size, micro-batch size and wait), plus ``--device``.  The other
-subcommands (train, search, sample, ...) come with later parts of the
-port.
+Same arguments as ``attention_lvcsr_tpu/cli/run.py train`` (save path,
+YAML config path, ``--params`` checkpoint, trailing ``path value``
+overrides) and ``serve`` (config, ``--params``, overrides, host, port,
+beam size, micro-batch size and wait), plus ``--device``.  The other
+subcommands (search, sample, ...) come with later parts of the port.
 
+    python -m attention_lvcsr_torch.cli.run train model.zip \\
+        tests/configs/toy.yaml training.num_batches 5 --device cpu
     python -m attention_lvcsr_torch.cli.run serve tests/configs/toy.yaml \\
         --params model.zip --port 8000
 """
@@ -32,21 +34,25 @@ def build_parser():
     parser.add_argument("--logging", default="INFO",
                         help="logging level (DEBUG/INFO/WARNING)")
     subparsers = parser.add_subparsers(dest="mode", required=True)
+    tr = subparsers.add_parser("train", help="train a model")
+    tr.add_argument("save_path", help="where to save the model")
     sv = subparsers.add_parser("serve", help="HTTP decode endpoint with "
                                "micro-batching")
-    sv.add_argument("config_path", help="experiment YAML")
-    sv.add_argument("--params", default=None,
-                    help="load parameters from this checkpoint")
-    sv.add_argument("config_changes", nargs="*", action=ParseChanges,
-                    default=[],
-                    help="trailing (dotted.path value) override pairs")
+    for sub in (tr, sv):
+        sub.add_argument("config_path", help="experiment YAML")
+        sub.add_argument("--params", default=None,
+                         help="load parameters from this checkpoint")
+        sub.add_argument("config_changes", nargs="*", action=ParseChanges,
+                         default=[],
+                         help="trailing (dotted.path value) override pairs")
+        sub.add_argument("--device", default="cuda",
+                         help="torch device of the model (cuda runs the "
+                              "kernels)")
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=8000)
     sv.add_argument("--beam-size", type=int, default=None)
     sv.add_argument("--max-batch", type=int, default=8)
     sv.add_argument("--batch-wait-ms", type=float, default=20.0)
-    sv.add_argument("--device", default="cuda",
-                    help="torch device of the model (cuda runs the kernels)")
     return parser
 
 
@@ -55,9 +61,12 @@ def main(argv=None):
     logging.basicConfig(
         level=getattr(logging, args.logging.upper(), logging.INFO),
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    from attention_lvcsr_tpu.config import Configuration   # yaml: CLI only
+    from attention_lvcsr_torch.config import Configuration   # yaml: CLI only
     config = Configuration(args.config_path,
                            config_changes=args.config_changes or [])
+    if args.mode == "train":
+        from attention_lvcsr_torch.train.driver import train
+        return train(config, args.save_path, args.params, device=args.device)
     from attention_lvcsr_torch.serve import serve
     return serve(config, args.params, host=args.host, port=args.port,
                  beam_size=args.beam_size, max_batch=args.max_batch,

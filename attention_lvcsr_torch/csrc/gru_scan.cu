@@ -28,9 +28,9 @@
 // cluster of kCluster blocks serves kGroupRows batch rows of one
 // direction, and block j of the cluster keeps columns [j*n, (j+1)*n) of
 // both recurrent matrices (n = ceil(D / kCluster); 96 KB at D=250) in its
-// shared memory for the whole scan.  Each block holds the full state of
-// its rows (transposed, k-major, so four rows load as one float4); per
-// step it computes its gate columns, broadcasts its slice of r*h into
+// shared memory for the whole scan (gru_cluster.cuh).  Each block holds the
+// full state of its rows (transposed, k-major, so four rows load as one
+// float4); per step it computes its gate columns, broadcasts its slice of r*h into
 // every block of the cluster through distributed shared memory, meets
 // them at a cluster barrier, computes its candidate columns and
 // broadcasts its slice of the new state, and meets them again.  Loads of
@@ -38,8 +38,14 @@
 // latency hides behind them.  Widths whose weight slices do not fit in a
 // block's shared memory (D above about 330) are not covered:
 // gru_scan_supported() says so before a launch.
+//
+// The training forward (ops/gru_train.py) is this kernel with its residual
+// outputs set: the update gate, reset gate and candidate of every step,
+// which the backward scan in gru_train.cu reads.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "gru_cluster.cuh"
 
 // Must match the ctypes.Structures in ops/gru_scan.py field for field.
 struct GruDir {
@@ -49,6 +55,9 @@ struct GruDir {
   const float* w_state;  // (D, D)
   const float* w_gates;  // (D, 2D)
   float* out;            // (t, b, c) at out[(t * B + b) * ldo + c]
+  float* u;              // residuals for training, (T, B, D) each, or null:
+  float* r;              //   update gate, reset gate, candidate
+  float* c;
   int reverse;           // visit t = T-1 .. 0
 };
 
@@ -59,112 +68,6 @@ struct GruArgs {
 };
 
 namespace {
-
-constexpr int kPrefetch = 8;   // k steps loaded ahead per thread
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-constexpr int kCluster = 8;       // blocks per cluster (portable maximum)
-constexpr int kGroupRows = 16;    // batch rows per cluster
-constexpr int kRowsPerThread = 4; // one float4 of the k-major state
-constexpr int kClusterThreads = 512;
-constexpr int kPartFloats = 4 * kClusterThreads;  // partial-sum buffer
-
-struct ClusterLayout {
-  int n, wg, ws, h, rh, z, part, total;   // offsets in floats
-};
-
-// h, rh and part start on 16-byte boundaries (float4 loads)
-__host__ __device__ inline ClusterLayout cluster_layout(int D) {
-  ClusterLayout o;
-  o.n = (D + kCluster - 1) / kCluster;
-  o.wg = 0;                                   // (D, 2n) own gate columns
-  o.ws = o.wg + D * 2 * o.n;                  // (D, n) own state columns
-  o.h = (o.ws + D * o.n + 3) / 4 * 4;         // (D, kGroupRows) state
-  o.rh = o.h + D * kGroupRows;                // (D, kGroupRows) r * state
-  o.z = o.rh + D * kGroupRows;                // (kGroupRows, n) update gate
-  o.part = (o.z + kGroupRows * o.n + 3) / 4 * 4;
-  o.total = o.part + kPartFloats;
-  return o;
-}
-
-// The cluster kernel needs every (4 rows, gate column) product in one pass
-// of the block's threads, and the weight slices in shared memory.
-__host__ inline bool cluster_fits(int D, int max_smem) {
-  const ClusterLayout o = cluster_layout(D);
-  return (kGroupRows / kRowsPerThread) * 2 * o.n <= kClusterThreads
-         && (size_t)o.total * sizeof(float) <= (size_t)max_smem;
-}
-
-// k slices per output column when `cols` columns x 4-row groups share
-// the block's threads
-__device__ __forceinline__ int cluster_slices(int cols, int D) {
-  const int s = kClusterThreads / ((kGroupRows / kRowsPerThread) * cols);
-  return max(1, min(D, s));
-}
-
-// acc[i] = sum_{k0 <= k < k1} x[k * kGroupRows + 4 * rp + i] * w[k * ldw + c]
-// in k order: the k-major state gives four rows per float4 load, and
-// kPrefetch iterations' shared-memory loads are issued before their FMAs.
-__device__ __forceinline__ void kmajor_dot(const float* x, int rp,
-                                           const float* w, int ldw, int c,
-                                           int k0, int k1, float (&acc)[4]) {
-  acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
-  int k = k0;
-  for (; k + kPrefetch <= k1; k += kPrefetch) {
-    float wv[kPrefetch];
-    float4 xv[kPrefetch];
-#pragma unroll
-    for (int q = 0; q < kPrefetch; ++q) {
-      wv[q] = w[(k + q) * ldw + c];
-      xv[q] = *reinterpret_cast<const float4*>(
-          x + (k + q) * kGroupRows + rp * kRowsPerThread);
-    }
-#pragma unroll
-    for (int q = 0; q < kPrefetch; ++q) {
-      acc[0] = fmaf(xv[q].x, wv[q], acc[0]);
-      acc[1] = fmaf(xv[q].y, wv[q], acc[1]);
-      acc[2] = fmaf(xv[q].z, wv[q], acc[2]);
-      acc[3] = fmaf(xv[q].w, wv[q], acc[3]);
-    }
-  }
-  for (; k < k1; ++k) {
-    const float wv = w[k * ldw + c];
-    const float4 xv = *reinterpret_cast<const float4*>(
-        x + k * kGroupRows + rp * kRowsPerThread);
-    acc[0] = fmaf(xv.x, wv, acc[0]);
-    acc[1] = fmaf(xv.y, wv, acc[1]);
-    acc[2] = fmaf(xv.z, wv, acc[2]);
-    acc[3] = fmaf(xv.w, wv, acc[3]);
-  }
-}
-
-// part[(q * kGroupRows + row) * cols + c]: slice q of the product of the
-// k-major rows x with the `cols` weight columns w (row stride ldw).
-__device__ __forceinline__ void cluster_partials(const float* x,
-                                                 const float* w, int ldw,
-                                                 int cols, int slices, int D,
-                                                 float* part) {
-  const int groups = kGroupRows / kRowsPerThread;
-  const int tid = threadIdx.x;
-  if (tid >= slices * groups * cols) return;
-  const int q = tid / (groups * cols), rem = tid % (groups * cols);
-  const int rp = rem / cols, c = rem % cols;
-  float acc[kRowsPerThread];
-  kmajor_dot(x, rp, w, ldw, c, q * D / slices, (q + 1) * D / slices, acc);
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i)
-    part[(q * kGroupRows + rp * kRowsPerThread + i) * cols + c] = acc[i];
-}
-
-__device__ __forceinline__ float cluster_sum(const float* part, int slices,
-                                             int cols, int r, int c) {
-  float s = part[r * cols + c];
-  for (int q = 1; q < slices; ++q) s += part[(q * kGroupRows + r) * cols + c];
-  return s;
-}
 
 __global__ void __cluster_dims__(kCluster, 1, 1)
     __launch_bounds__(kClusterThreads, 1)
@@ -243,7 +146,9 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
                                + gin[e]);
       if (cc < n) {
         z[r * n + cc] = g;
+        if (d.u != nullptr) d.u[(row0 + r) * D + c] = g;
       } else {
+        if (d.r != nullptr) d.r[(row0 + r) * D + c] = g;
         const float v = g * hT[c * kGroupRows + r];
 #pragma unroll
         for (int q = 0; q < kCluster; ++q)
@@ -262,6 +167,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
       if (r >= nrows || c >= D) continue;
       const float cand = tanhf(cluster_sum(part, slices_c, n, r, cc)
                                + xin[e]);
+      if (d.c != nullptr) d.c[(row0 + r) * D + c] = cand;
       const float hold = hT[c * kGroupRows + r];
       const float up = z[r * n + cc];
       float hn = up * cand + (1.f - up) * hold;

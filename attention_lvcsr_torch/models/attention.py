@@ -3,9 +3,11 @@
 Counterpart of ``attention_lvcsr_tpu/models/attention.py::
 SequenceContentAndConvAttention`` for one conv filter and the softmax
 normalizer: parameters, key preprocessing, the whole-loop decode tables
-(the loop kernel, ``ops/beam_loop.py``, runs its own glimpse), and the
-module-driven glimpse of the step-by-step decode (``take_glimpses``),
-whose energies go through ``ops/attention_energy.py``.
+(the loop kernel, ``ops/beam_loop.py``, runs its own glimpse), the tables
+of the teacher-forced decoder scan (``train_tables``), and the
+module-driven glimpse (``take_glimpses``) of the step-by-step decode,
+whose energies go through ``ops/attention_energy.py``, and of the
+teacher-forced module scan, where it is differentiable PyTorch.
 
 The module-driven window is the JAX module's: a static mask over all L
 frames, its bounds taken over EVERY row of the batch (all utterances'
@@ -24,6 +26,7 @@ from torch import nn
 from attention_lvcsr_torch.models.layers import Dense
 from attention_lvcsr_torch.ops.attention_energy import \
     beam_attention_energies
+from attention_lvcsr_torch.ops.decoder_train import toeplitz_band
 from attention_lvcsr_torch.ops.expressions import conv1d_full
 
 
@@ -62,6 +65,19 @@ class SequenceContentAndConvAttention(nn.Module):
 
     def preprocess(self, attended):
         return self.preprocessor(attended)
+
+    def train_tables(self, length):
+        """The attention's tables of ``decoder_scan_train``, taken from the
+        parameters so that autograd reaches them: the Toeplitz band of the
+        conv taps over ``length`` frames, the state transform, the handler
+        row and the energy vector."""
+        (name,) = self.state_names
+        return {
+            "toep": toeplitz_band(self.conv_filters, length),
+            "st": getattr(self, f"state_trans_{name}").kernel,
+            "hand": self.handler.kernel,
+            "v": self.energy_comp.kernel[:, 0].contiguous(),
+        }
 
     def loop_tables(self):
         """Dense tables of the decode kernel's attention step."""
@@ -119,14 +135,20 @@ class SequenceContentAndConvAttention(nn.Module):
         return window[None, :], additional
 
     def compute_energies(self, preprocessed, windowed_weights, states,
-                         beam=1):
+                         beam=1, train=False):
         """Energies (U*beam, L) of per-hypothesis states over the shared
         per-utterance keys (U, L, M), through ``beam_attention_energies``
-        (the CUDA kernel on a CUDA tensor)."""
+        (the CUDA kernel on a CUDA tensor).  ``train`` (the teacher-forced
+        module scan) computes them in plain differentiable PyTorch, as the
+        JAX module does."""
         (name,) = self.state_names
         state_sum = getattr(self, f"state_trans_{name}")(states[name])
         n, L = self.conv_n, windowed_weights.shape[1]
         conv = conv1d_full(windowed_weights, self.conv_filters)[:, 0, n:n + L]
+        if train:
+            match = (preprocessed + state_sum[:, None, :]
+                     + self.handler(conv[:, :, None]))
+            return self.energy_comp(torch.tanh(match))[..., 0]
         return beam_attention_energies(
             preprocessed, state_sum.contiguous(), conv.contiguous(),
             self.handler.kernel[0], self.energy_comp.kernel[:, 0], 0.0,
@@ -145,9 +167,10 @@ class SequenceContentAndConvAttention(nn.Module):
         return unnorm / denom
 
     def take_glimpses(self, attended, preprocessed, attended_mask, glimpses,
-                      states, beam=1):
+                      states, beam=1, train=False):
         """One glimpse of every hypothesis row: contexts per utterance (U,
-        ...), glimpses and states per row (U*beam, ...)."""
+        ...), glimpses and states per row (U*beam, ...); ``train`` as in
+        :meth:`compute_energies`."""
         weights, step = glimpses["weights"], glimpses["step"]
         U, L, D = attended.shape
         global_mask, additional = self._window(weights, step, L)
@@ -155,7 +178,7 @@ class SequenceContentAndConvAttention(nn.Module):
         if additional is not None:
             combined = combined * additional
         energies = self.compute_energies(preprocessed, weights * global_mask,
-                                         states, beam=beam)
+                                         states, beam=beam, train=train)
         new_weights = self._normalize(energies, global_mask, combined)
         weighted = torch.bmm(new_weights.view(U, beam, L), attended)
         return {

@@ -5,8 +5,9 @@ blocks' gate layout (update first, then reset) and update rule
 ``h' = z*tanh((r*h) Wss + x) + (1-z)*h`` with ``[z, r] = sigmoid(h Wsg +
 xg)``; a masked step (mask 0) keeps the state.  Input projections are
 computed by the caller for the whole sequence; ``scan`` runs the
-recurrence through ``ops/gru_scan.py`` (the CUDA kernel on a CUDA tensor);
-the encoder runs both directions of a layer in one ``gru_scan`` call.
+recurrence through ``ops/gru_scan.py`` (inference) or, with ``train``,
+through the differentiable ``ops/gru_train.py`` (the CUDA kernels on a
+CUDA tensor); the encoder runs both directions of a layer in one call.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 from torch import nn
 
 from attention_lvcsr_torch.ops.gru_scan import gru_scan
+from attention_lvcsr_torch.ops.gru_train import gru_scan_train
 
 
 class GatedRecurrent(nn.Module):
@@ -44,14 +46,16 @@ class GatedRecurrent(nn.Module):
         m = mask[..., None]
         return m * new_h + (1.0 - m) * h
 
-    def scan(self, seqs, mask=None, initial_states=None):
+    def scan_weights(self, batch_size):
+        """(h0, state_to_state, state_to_gates) as the scans take them."""
+        return (self.initial_states(batch_size).contiguous(),
+                self.state_to_state.contiguous(),
+                self.state_to_gates.contiguous())
+
+    def scan(self, seqs, mask=None, train=False):
         """seqs: name -> (T, B, d) projections; mask (T, B) or None ->
-        states (T, B, dim)."""
-        batch = seqs["inputs"].shape[1]
-        if initial_states is None:
-            initial_states = self.initial_states(batch)
+        states (T, B, dim).  ``train`` takes the differentiable scan."""
         proj = torch.cat([seqs["inputs"], seqs["gate_inputs"]], dim=-1)
-        return gru_scan(proj, mask.contiguous() if mask is not None else None,
-                        (initial_states.contiguous(),
-                         self.state_to_state.contiguous(),
-                         self.state_to_gates.contiguous()))
+        fn = gru_scan_train if train else gru_scan
+        return fn(proj, mask.contiguous() if mask is not None else None,
+                  self.scan_weights(proj.shape[1]))

@@ -1,14 +1,16 @@
-"""Speech encoder: stacked bidirectional GRUs with temporal subsampling.
+"""Speech encoder: stacked (bi)directional GRUs with temporal subsampling.
 
-Counterpart of ``attention_lvcsr_tpu/models/encoder.py`` (inference
-branch).  Batch-major ``(B, T, F)`` at the API, time-major inside.  Per
-layer, the four input projections (inputs and gates of both directions)
-are one batched matmul over the whole sequence, and both directions'
-recurrences run in one ``gru_scan`` launch, the backward one in
-reverse time.  That is the JAX package's backward direction (flip inputs
-and mask, scan, flip back): padded frames (mask 0) keep the state, so
-the backward scan meets the zero-padded tail first and leaves its
-initial state untouched.
+Counterpart of ``attention_lvcsr_tpu/models/encoder.py``.  Batch-major
+``(B, T, F)`` at the API, time-major inside.  Per layer, the input
+projections (inputs and gates, of both directions) are one batched matmul
+over the whole sequence, and a bidirectional layer runs both directions'
+recurrences in one scan call, the backward one in reverse time.  That is
+the JAX package's backward direction (flip inputs and mask, scan, flip
+back): padded frames (mask 0) keep the state, so the backward scan meets
+the zero-padded tail first and leaves its initial state untouched.
+
+``train`` selects the differentiable scans of the training path
+(``ops/gru_train.py``); inference takes ``ops/gru_scan.py``.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from torch import nn
 from attention_lvcsr_torch.models.cells import GatedRecurrent
 from attention_lvcsr_torch.models.layers import Dense
 from attention_lvcsr_torch.ops.gru_scan import gru_scan
+from attention_lvcsr_torch.ops.gru_train import gru_scan_train
 
 
 class RecurrentWithFork(nn.Module):
@@ -36,11 +39,11 @@ class RecurrentWithFork(nn.Module):
         forks = [getattr(self, f"fork_{n}") for n in self.cell.sequence_names]
         return [f.kernel for f in forks], [f.bias for f in forks]
 
-    def scan_weights(self, batch_size):
-        cell = self.cell
-        return (cell.initial_states(batch_size).contiguous(),
-                cell.state_to_state.contiguous(),
-                cell.state_to_gates.contiguous())
+    def forward(self, x, mask=None, train=False):
+        """One direction alone: x (T, B, F) time-major -> (T, B, dim)."""
+        seqs = {n: getattr(self, f"fork_{n}")(x)
+                for n in self.cell.sequence_names}
+        return self.cell.scan(seqs, mask, train=train)
 
 
 class Bidirectional(nn.Module):
@@ -54,37 +57,45 @@ class Bidirectional(nn.Module):
         self.fwd = RecurrentWithFork(in_dim, dim)
         self.bwd = RecurrentWithFork(in_dim, dim)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, train=False):
         """x (T, B, F) time-major, mask (T, B) -> (T, B, 2*dim)."""
         kf, bf = self.fwd.fork_weights()
         kb, bb = self.bwd.fork_weights()
         proj = x @ torch.cat(kf + kb, dim=1) + torch.cat(bf + bb)
         B = x.shape[1]
-        return gru_scan(proj.contiguous(),
-                        mask.contiguous() if mask is not None else None,
-                        self.fwd.scan_weights(B), self.bwd.scan_weights(B))
+        scan = gru_scan_train if train else gru_scan
+        return scan(proj.contiguous(),
+                    mask.contiguous() if mask is not None else None,
+                    self.fwd.cell.scan_weights(B),
+                    self.bwd.cell.scan_weights(B))
 
 
 class Encoder(nn.Module):
     """``dims`` per layer, ``subsample`` strides applied to each layer's
-    output and mask (``x[:, ::take_each]``)."""
+    output and mask (``x[:, ::take_each]``); ``bidir: false`` stacks
+    one-directional layers (``with_fork{i}``)."""
 
     def __init__(self, in_dim: int, dims: Sequence[int],
-                 subsample: Sequence[int]):
+                 subsample: Sequence[int], bidir: bool = True):
         super().__init__()
         self.subsample = list(subsample)
         for i, dim in enumerate(dims):
-            self.add_module(f"bidir{i}", Bidirectional(in_dim, dim))
-            in_dim = 2 * dim
-        self.dim_encoded = in_dim
-        self.num_layers = len(dims)
+            if bidir:
+                self.add_module(f"bidir{i}", Bidirectional(in_dim, dim))
+            else:
+                self.add_module(f"with_fork{i}",
+                                RecurrentWithFork(in_dim, dim))
+            in_dim = (2 if bidir else 1) * dim
+        self.layer_names = [f"bidir{i}" if bidir else f"with_fork{i}"
+                            for i in range(len(dims))]
+        self.dim_encoded = (2 if bidir else 1) * dims[-1]
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, train=False):
         """x (B, T, F), mask (B, T) or None -> (B, L, D), mask (B, L)."""
         x = x.transpose(0, 1)
         mask = mask.transpose(0, 1) if mask is not None else None
-        for i, take_each in zip(range(self.num_layers), self.subsample):
-            x = getattr(self, f"bidir{i}")(x, mask)[::take_each]
+        for name, take_each in zip(self.layer_names, self.subsample):
+            x = getattr(self, name)(x, mask, train=train)[::take_each]
             if mask is not None:
                 mask = mask[::take_each]
         x = x.transpose(0, 1)

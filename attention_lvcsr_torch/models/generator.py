@@ -14,6 +14,11 @@ distribute projections.  Two decode routes read it:
   ``:899-910``); with ``fused_score_tables`` in its contexts the score
   step is one ``fused_decode_score`` launch (``:849-872``).
 
+``evaluate`` is the teacher-forced pass of the training cost
+(``:380-433``): the whole label loop through ``decoder_scan_train`` (the
+CUDA kernels on a CUDA tensor), or, under ``use_pallas: never``, where the
+JAX package takes its XLA scan, through the plain module scan.
+
 Parameter names are the flax ones (``feedback/lookup/embedding``,
 ``transition_0``, ``fork_0_inputs``, ...); the language model holds only
 buffers, so it adds no parameter.
@@ -28,6 +33,7 @@ from torch import nn
 from attention_lvcsr_torch.models.cells import GatedRecurrent
 from attention_lvcsr_torch.models.layers import Dense, Embed
 from attention_lvcsr_torch.ops.decode_score import fused_decode_score
+from attention_lvcsr_torch.ops.decoder_train import decoder_scan_train
 
 
 class LookupFeedback(nn.Module):
@@ -95,11 +101,17 @@ class ShallowFusionReadout(Readout):
 
 
 class SoftmaxEmitter:
-    """Per-symbol costs of the plain readout: ``-log_softmax``."""
+    """Per-symbol costs of the plain readout: ``-log_softmax``; ``cost``
+    picks the cost of the given outputs (the log-likelihood criterion)."""
 
     @staticmethod
     def costs(readouts):
         return -torch.log_softmax(readouts, dim=-1)
+
+    @staticmethod
+    def cost(readouts, outputs):
+        logp = torch.log_softmax(readouts, dim=-1)
+        return -torch.gather(logp, -1, outputs[..., None])[..., 0]
 
 
 class LMEmitter:
@@ -267,3 +279,97 @@ class SequenceGenerator(nn.Module):
             new_carry["lm"] = self.language_model.one_step(carry["lm"],
                                                            chosen_outputs)
         return new_carry
+
+    # -- the teacher-forced pass -------------------------------------------
+    def evaluate(self, attended, attended_mask, outputs, mask=None,
+                 use_pallas="auto"):
+        """Teacher-forced pass over (T, B) fed labels ``outputs`` (mask
+        (T, B) or None) against attended (B, L, D) and its mask (B, L).
+        Returns ``costs`` (T, B), ``readouts`` (T, B, V), ``weights`` and
+        ``energies`` (T, B, L)."""
+        if self.language_model is not None:
+            raise NotImplementedError(
+                "not ported yet: teacher-forced evaluation with an LM")
+        T, B = outputs.shape
+        preprocessed = self.attention.preprocess(attended)
+        feedback = self.feedback(outputs)                       # (T, B, E)
+        forked = {seq: getattr(self, f"fork_0_{seq}")(feedback)
+                  for seq in self.transition_0.sequence_names}
+        # the port's readouts take no feedback source, so the JAX
+        # package's rolled feedback has no reader here
+        route = (self._evaluate_scan if use_pallas == "never"
+                 else self._evaluate_fused)
+        pre_states, glimpses = route(attended, preprocessed, attended_mask,
+                                     forked, mask, T, B)
+        return self._finish_evaluate(pre_states, glimpses, outputs, mask)
+
+    def _evaluate_fused(self, attended, preprocessed, attended_mask, forked,
+                        mask, T, B):
+        """The label loop as one ``decoder_scan_train`` call, its tables
+        taken from the parameters so that autograd reaches them."""
+        L = attended.shape[1]
+        t = self.attention.train_tables(L)
+        cell = self.transition_0
+        h0 = cell.initial_states(B).contiguous()
+        glimpses = self.attention.initial_glimpses(B, attended)
+        h, w, wa, e = decoder_scan_train(
+            forked["inputs"].contiguous(),
+            forked["gate_inputs"].contiguous(),
+            mask.contiguous() if mask is not None else None,
+            preprocessed.contiguous(), attended.contiguous(),
+            attended_mask.contiguous(), h0, glimpses["weights"],
+            glimpses["weighted_averages"], t["toep"], t["st"], t["hand"],
+            t["v"], cell.state_to_state, cell.state_to_gates,
+            self.distribute_0_inputs.kernel,
+            self.distribute_0_gate_inputs.kernel,
+            prior=self.attention.prior_config())
+        pre_states = torch.cat([h0[None], h[:-1]])
+        return pre_states, {"weights": w, "weighted_averages": wa,
+                            "energies": e}
+
+    def _evaluate_scan(self, attended, preprocessed, attended_mask, forked,
+                       mask, T, B):
+        """The label loop step by step through the modules: glimpse, GRU
+        transition, and the recurrent mask over states and glimpses."""
+        cell = self.transition_0
+        states = cell.initial_states(B)
+        glimpses = self.attention.initial_glimpses(B, attended)
+        pre_states, seq = [], []
+        for t in range(T):
+            g_new = self.attention.take_glimpses(
+                attended, preprocessed, attended_mask, glimpses,
+                {"states": states}, train=True)
+            seqs = {name: forked[name][t]
+                    + getattr(self, f"distribute_0_{name}")(
+                        g_new["weighted_averages"])
+                    for name in cell.sequence_names}
+            new_states = cell.one_step(states, seqs)
+            if mask is not None:
+                live = mask[t] > 0
+                new_states = _mask_mix(live, new_states, states)
+                g_new = {k: _mask_mix(live, v, glimpses[k])
+                         for k, v in g_new.items()}
+            pre_states.append(states)
+            seq.append(g_new)
+            states, glimpses = new_states, g_new
+        return torch.stack(pre_states), {
+            k: torch.stack([g[k] for g in seq])
+            for k in ("weights", "weighted_averages", "energies")}
+
+    def _finish_evaluate(self, pre_states, glimpses, outputs, mask):
+        sources = {"weighted_averages": glimpses["weighted_averages"]}
+        if self.use_states_for_readout:
+            sources["states"] = pre_states
+        readouts = self.readout(sources)                        # (T, B, V)
+        costs = self.emitter.cost(readouts, outputs.long())
+        if mask is not None:
+            costs = costs * mask
+        return {"costs": costs, "readouts": readouts,
+                "weights": glimpses["weights"],
+                "energies": glimpses["energies"]}
+
+
+def _mask_mix(live, new, old):
+    """``new`` where the row is live (a (B,) bool), else ``old``."""
+    return torch.where(live.reshape(live.shape + (1,) * (new.dim() - 1)),
+                       new, old)

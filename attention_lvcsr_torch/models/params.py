@@ -35,6 +35,11 @@ def jax_path(name: str) -> str:
                                    for p in name.split("."))
 
 
+def named_parameters(module: nn.Module) -> Dict[str, nn.Parameter]:
+    """``{'/recognizer/...': parameter}`` in the module's order."""
+    return {jax_path(n): p for n, p in module.named_parameters()}
+
+
 def param_shapes(module: nn.Module) -> Dict[str, tuple]:
     return {jax_path(n): tuple(p.shape) for n, p in module.named_parameters()}
 

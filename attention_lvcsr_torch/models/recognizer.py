@@ -10,7 +10,8 @@ Counterpart of ``attention_lvcsr_tpu/models/recognizer.py``:
   section with a ``path`` adds the FST language model and the
   shallow-fusion readout;
 * :class:`SpeechRecognizer` — parameters, config-driven init, checkpoint
-  loading and ``beam_search`` with the same frame and batch padding.
+  loading and saving, the training cost (``cost_fn``) and
+  ``beam_search`` with the same frame and batch padding.
 
 The port covers the flagship configuration family; anything else raises
 ``NotImplementedError`` naming the piece that is not ported yet.
@@ -31,6 +32,7 @@ from attention_lvcsr_torch.models.generator import SequenceGenerator
 from attention_lvcsr_torch.models.initializers import initialize_params
 from attention_lvcsr_torch.models.params import (load_parameters,
                                                  load_path_dict,
+                                                 named_parameters,
                                                  param_path_dict,
                                                  param_shapes)
 
@@ -51,7 +53,6 @@ def unported_piece(cfg: Mapping[str, Any]) -> Optional[str]:
         (all(_canon(cfg.get(k, "gru")) in ("gru", "GatedRecurrent")
              for k in ("enc_transition", "dec_transition")),
          "a non-GRU transition (LSTM or simple RNN)"),
-        (cfg.get("bidir", True), "a unidirectional encoder"),
         (not cfg.get("dims_top"), "the top MLP (dims_top)"),
         (cfg.get("attention_type", "content") == "content_and_conv",
          f"attention_type {cfg.get('attention_type', 'content')!r} "
@@ -85,8 +86,9 @@ class RecognizerNet(nn.Module):
     the kernels.  ``"fused"`` (and ``"interpret"``, as in the JAX
     package's tests) makes the module-driven decode score each step with
     ``fused_decode_score``; ``"never"`` keeps a decode without LM or
-    constraint off the whole-loop kernel, as in the JAX package.
-    ``dropout`` has no effect: decoding is inference."""
+    constraint off the whole-loop kernel and the training cost's decoder
+    on the plain module scan, as in the JAX package.  ``dropout`` is
+    not ported: a training cost with it raises."""
 
     def __init__(self, input_dims: Mapping[str, int], eos_label: int,
                  num_phonemes: int, dim_dec: int, dims_bidir: Sequence[int],
@@ -118,7 +120,9 @@ class RecognizerNet(nn.Module):
         bottom.pop("bottom_class", None)
         self.bottom = SpeechBottom(input_dims["recordings"], **bottom)
         self.encoder = Encoder(self.bottom.output_dim, dims_bidir,
-                               subsample or [1] * len(dims_bidir))
+                               subsample or [1] * len(dims_bidir),
+                               bidir=bidir)
+        self.dropout = dropout
         D = self.encoder.dim_encoded
         attention = SequenceContentAndConvAttention(
             ("states",), dim_dec, D, dim_matcher or dim_dec, conv_n,
@@ -146,9 +150,28 @@ class RecognizerNet(nn.Module):
             use_states_for_readout=use_states_for_readout,
             language_model=language_model, fusion=fusion)
 
-    def encode(self, inputs, inputs_mask):
-        """(B, T, F) features, (B, T) mask -> encoded (B, L, D), mask."""
-        return self.encoder(self.bottom(inputs), inputs_mask)
+    def encode(self, inputs, inputs_mask, train=False):
+        """(B, T, F) features, (B, T) mask -> encoded (B, L, D), mask.
+        ``train`` runs the differentiable scans of the training path."""
+        return self.encoder(self.bottom(inputs), inputs_mask, train=train)
+
+    def cost(self, inputs, inputs_mask, labels, labels_mask, train=False):
+        """The teacher-forced cost graph (JAX ``RecognizerNet.cost``):
+        batch-major (B, T) labels and masks in, the generator's evaluate
+        dict (``costs`` (T, B), ``weights``, ``energies``, ``readouts``)
+        plus ``encoded``, ``encoded_mask`` and ``bottom_output`` out."""
+        if self.dropout and train:
+            raise NotImplementedError("not ported yet: dropout")
+        bottom_output = self.bottom(inputs)
+        encoded, encoded_mask = self.encoder(bottom_output, inputs_mask,
+                                             train=True)
+        result = self.generator.evaluate(
+            encoded, encoded_mask, labels.T,
+            labels_mask.T if labels_mask is not None else None,
+            use_pallas=self.use_pallas)
+        result.update(encoded=encoded, encoded_mask=encoded_mask,
+                      bottom_output=bottom_output)
+        return result
 
     def decode_loop(self, inputs, inputs_mask):
         """Encoder outputs + preprocessed keys for the decode kernel."""
@@ -214,6 +237,10 @@ class SpeechRecognizer:
         self.init_params(init_config or {}, seed=seed)
 
     # -- parameters --------------------------------------------------------
+    def parameters(self):
+        """``{'/recognizer/...': parameter}``, the JAX package's keys."""
+        return named_parameters(self.net)
+
     def init_params(self, init_config, seed=1234):
         load_path_dict(self.net, initialize_params(
             param_shapes(self.net), init_config, seed=seed))
@@ -229,6 +256,16 @@ class SpeechRecognizer:
 
     def param_path_dict(self):
         return param_path_dict(self.net)
+
+    # -- the training cost -------------------------------------------------
+    def cost_fn(self):
+        """``fn(inputs, inputs_mask, labels, labels_mask)`` -> the cost
+        dict of :meth:`RecognizerNet.cost`, differentiable in the
+        parameters (which then need ``requires_grad``)."""
+        def fn(inputs, inputs_mask, labels, labels_mask, train=False):
+            return self.net.cost(inputs, inputs_mask, labels, labels_mask,
+                                 train=train)
+        return fn
 
     # -- beam search -------------------------------------------------------
     def init_beam_search(self, beam_size, compute_dtype="default"):

@@ -57,7 +57,7 @@ def gru_scan_reference(proj, mask, fwd, bwd=None):
 class _Dir(ctypes.Structure):
     """Mirror of ``struct GruDir`` in csrc/gru_scan.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "x", "g", "h0", "w_state", "w_gates", "out")]
+        "x", "g", "h0", "w_state", "w_gates", "out", "u", "r", "c")]
         + [("reverse", ctypes.c_int)])
 
 
@@ -70,15 +70,14 @@ class _Args(ctypes.Structure):
 
 def _check(name, t, shape, device):
     if t.dtype != torch.float32:
-        raise TypeError(f"gru_scan: {name} must be float32, got {t.dtype}")
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"gru_scan: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"gru_scan: {name} must be contiguous")
+        raise ValueError(f"{name} must be contiguous")
     if t.device != device:
-        raise ValueError(f"gru_scan: {name} is on {t.device}, expected "
-                         f"{device}")
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
 def gru_scan(proj, mask, fwd, bwd=None):
@@ -97,18 +96,39 @@ def gru_scan(proj, mask, fwd, bwd=None):
     if device.type != "cuda":
         raise ValueError(f"gru_scan: no kernel for device {device}")
     dirs = (fwd,) if bwd is None else (fwd, bwd)
-    T, B, width = proj.shape
-    D = fwd[1].shape[0]
-    _check("proj", proj, (T, B, 3 * D * len(dirs)), device)
+    T, B, _ = proj.shape
+    out = torch.empty(T, B, fwd[1].shape[0] * len(dirs), dtype=proj.dtype,
+                      device=device)
+    if launch(proj, mask, dirs, out):
+        launches.count += 1
+    return out
+
+
+def check_operands(name, proj, mask, dirs):
+    """Device, type, shape and contiguity of a scan's operands."""
+    device = proj.device
+    T, B, _ = proj.shape
+    D = dirs[0][1].shape[0]
+    _check(f"{name}: proj", proj, (T, B, 3 * D * len(dirs)), device)
     if mask is not None:
-        _check("mask", mask, (T, B), device)
-    for name, (h0, ws, wg) in zip(("fwd", "bwd"), dirs):
-        _check(f"{name} h0", h0, (B, D), device)
-        _check(f"{name} w_state", ws, (D, D), device)
-        _check(f"{name} w_gates", wg, (D, 2 * D), device)
-    out = torch.empty(T, B, D * len(dirs), dtype=proj.dtype, device=device)
+        _check(f"{name}: mask", mask, (T, B), device)
+    for side, (h0, ws, wg) in zip(("fwd", "bwd"), dirs):
+        _check(f"{name}: {side} h0", h0, (B, D), device)
+        _check(f"{name}: {side} w_state", ws, (D, D), device)
+        _check(f"{name}: {side} w_gates", wg, (D, 2 * D), device)
+
+
+def launch(proj, mask, dirs, out, residuals=None, name="gru_scan"):
+    """Check the operands (errors name ``name``) and launch
+    ``csrc/gru_scan.cu`` into ``out``; ``residuals``: per direction
+    (update, reset, candidate) tensors (T, B, D) to fill, as the training
+    forward does.  Returns False when there is nothing to run."""
+    check_operands(name, proj, mask, dirs)
+    device = proj.device
+    T, B, width = proj.shape
+    D = dirs[0][1].shape[0]
     if not (T and B):
-        return out
+        return False
     lib = _build.load().lib
     lib.gru_scan_supported.argtypes = [ctypes.c_int]
     lib.gru_scan_supported.restype = ctypes.c_int
@@ -126,12 +146,14 @@ def gru_scan(proj, mask, fwd, bwd=None):
         args = _Args(mask=mask.data_ptr() if mask is not None else None,
                      T=T, B=B, D=D, ldx=width, ldg=width, ldo=out.shape[-1])
         for i, (h0, ws, wg) in enumerate(dirs):
+            u, r, c = (t.data_ptr() for t in residuals[i]) \
+                if residuals is not None else (None, None, None)
             args.dir[i] = _Dir(proj[..., 3 * D * i:].data_ptr(),
                                proj[..., 3 * D * i + D:].data_ptr(),
                                h0.data_ptr(), ws.data_ptr(), wg.data_ptr(),
-                               out[..., D * i:].data_ptr(), i)
+                               out[..., D * i:].data_ptr(), u, r, c,
+                               reverse=i)
         status = lib.gru_scan_f32(ctypes.byref(args), len(dirs),
                                   _build.stream_of(proj))
     _build.check(status, "gru_scan_f32")
-    launches.count += 1
-    return out
+    return True

@@ -29,8 +29,6 @@ from typing import List
 
 import numpy as np
 
-from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
-
 # seconds a request waits for its decode; the first decode of a new shape
 # also builds the kernels
 REQUEST_TIMEOUT = 600.0
@@ -253,35 +251,12 @@ def make_server(transcriber: Transcriber, host: str = "127.0.0.1",
     return server
 
 
-def create_model(config, data, load_path=None, device="cuda"):
-    """Build the recognizer from a config and its data manager (the
-    counterpart of ``attention_lvcsr_tpu/train/driver.py::create_model``)
-    and load a checkpoint written by either package."""
-    net_config = dict(config["net"])
-    net_config.pop("input_sources", None)
-    if config.get("regularization", {}).get("dropout"):
-        net_config["dropout"] = True
-    recognizer = SpeechRecognizer(
-        dict(net_config,
-             input_dims={"recordings": data.num_features("recordings")},
-             input_num_chars={},
-             eos_label=data.eos_label,
-             num_phonemes=data.num_labels,
-             character_map=data.character_map("labels"),
-             data_prepend_eos=bool(data.add_bos)),
-        init_config=config.get("initialization", {}),
-        seed=config.get("training", {}).get("seed", 1234),
-        device=device)
-    if load_path:
-        recognizer.load_params(load_path)
-    return recognizer
-
-
 def build_server(config, load_path, host="127.0.0.1", port=8000,
                  beam_size=None, max_batch=8, batch_wait_ms=20.0,
                  device="cuda"):
     """The (not yet started) HTTP server for a config and checkpoint."""
-    from attention_lvcsr_tpu.data import Data      # h5py: CLI path only
+    from attention_lvcsr_torch.data import Data    # h5py: CLI path only
+    from attention_lvcsr_torch.train.driver import create_model
     data = Data(**config["data"])
     recognizer = create_model(config, data, load_path, device=device)
     search_conf = config.get("monitoring", {}).get("search", {})

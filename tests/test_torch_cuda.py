@@ -232,3 +232,103 @@ def test_constrained_fused_decode_on_the_card_matches_plain(device):
     got = _decode_on(device, config, kwargs)
     assert ds.launches.count > before
     _assert_same_decode(got, _decode_on("cpu", config, kwargs))
+
+
+def _grads(fn, leaves, cots):
+    xs = [x.detach().requires_grad_() for x in leaves]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return outs, torch.autograd.grad(outs[:len(cots)], xs, cots)
+
+
+@pytest.mark.parametrize("T,B,D,ndir", [(13, 3, 8, 1), (40, 9, 250, 2),
+                                        (17, 35, 300, 2), (9, 5, 33, 1)])
+def test_gru_scan_train_kernels_match_plain(device, T, B, D, ndir):
+    """Forward (gru_scan.cu with residuals) and backward (gru_train.cu,
+    then outer_sum.cu) vs autograd through the plain scan."""
+    from attention_lvcsr_torch.ops import gru_train as gt
+    rng = np.random.RandomState(T + B + D + ndir)
+    proj, mask, weights = _gru_operands(rng, device, T, B, D, ndir)
+    cot = torch.tensor(rng.randn(T, B, D * ndir).astype(np.float32),
+                       device=device)
+    leaves = [proj] + [w for d in weights for w in d]
+
+    def scan(fn):
+        return lambda p, *w: fn(p, mask, tuple(w[:3]),
+                                tuple(w[3:]) if ndir == 2 else None)
+
+    counter = gt.launches if ndir == 1 else gt.launches_bidir
+    before = counter.count
+    got, ggot = _grads(scan(gt.gru_scan_train), leaves, [cot])
+    assert counter.count == before + 3      # forward, backward, outer_sum
+    _, again = _grads(scan(gt.gru_scan_train), leaves, [cot])
+    assert all(torch.equal(g, h) for g, h in zip(ggot, again))  # bit for bit
+    ref, gref = _grads(scan(gt.gru_scan_train_reference), leaves, [cot])
+    torch.testing.assert_close(got[0], ref[0], atol=1e-5, rtol=1e-5)
+    for g, r in zip(ggot, gref):
+        torch.testing.assert_close(g, r, atol=1e-4 * float(r.abs().max()),
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("prior", [
+    {"type": "expanding", "initial_begin": 0, "initial_end": 6,
+     "min_speed": 1.0, "max_speed": 2.0},
+    {"type": "window_around_median", "before": 3, "after": 4}])
+@pytest.mark.parametrize("T,B,L,M,D,S", [(6, 3, 10, 7, 9, 5),
+                                         (20, 8, 60, 250, 500, 250)])
+def test_decoder_scan_train_kernels_match_plain(device, prior, T, B, L, M,
+                                                D, S):
+    """Forward and backward kernels (then outer_sum.cu) vs autograd
+    through the plain scan, ragged label and frame masks."""
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    rng = np.random.RandomState(T + B + L)
+    f = lambda *s, scale=0.3: torch.tensor(
+        rng.randn(*s).astype(np.float32) * scale, device=device)
+    labels = rng.randint(1, T + 1, size=B)
+    frames = rng.randint(L // 2, L + 1, size=B)
+    labels[0], frames[0] = T, L
+    mask = torch.tensor((np.arange(T)[:, None] < labels[None]).astype("f"),
+                        device=device)
+    amask = torch.tensor((np.arange(L)[None] < frames[:, None]).astype("f"),
+                         device=device)
+    w0 = torch.zeros(B, L, device=device)
+    w0[:, 0] = 1.0
+    # recurrent weights at 1/sqrt(S): larger ones make the 20-step
+    # recurrence chaotic, and then any rounding difference grows
+    leaves = [f(T, B, S), f(T, B, 2 * S), f(B, L, M), f(B, L, D), f(B, S),
+              f(B, D), dt.toeplitz_band(f(1, 7), L), f(S, M, scale=0.1),
+              f(1, M, scale=0.1), f(M, scale=0.1), f(S, S, scale=S ** -0.5),
+              f(S, 2 * S, scale=S ** -0.5), f(D, S, scale=0.05),
+              f(D, 2 * S, scale=0.05)]
+    cots = [f(T, B, S), f(T, B, L), f(T, B, D)]
+
+    def scan(fn):
+        def call(fx, fg, pre, att, h0, wa0, toep, st, hand, v, wss, wsg, dxm,
+                 dgm):
+            return fn(fx, fg, mask, pre, att, amask, h0, w0, wa0, toep, st,
+                      hand, v, wss, wsg, dxm, dgm, prior=prior)
+        return call
+
+    before = dt.launches.count
+    got, ggot = _grads(scan(dt.decoder_scan_train), leaves, cots)
+    assert dt.launches.count == before + 3   # forward, backward, outer_sum
+    _, again = _grads(scan(dt.decoder_scan_train), leaves, cots)
+    assert all(torch.equal(g, h) for g, h in zip(ggot, again))  # bit for bit
+    ref, gref = _grads(scan(dt.decoder_scan_train_reference), leaves, cots)
+    for g, r in zip(list(got) + list(ggot), list(ref) + list(gref)):
+        torch.testing.assert_close(
+            g, r, rtol=1e-4, atol=1e-4 * max(float(r.detach().abs().max()),
+                                             1e-6))
+
+
+def test_decoder_scan_train_kernel_refuses_other_variants(device):
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    z = lambda *s: torch.zeros(*s, device=device)
+    args = (z(2, 1, 4), z(2, 1, 8), None, z(1, 5, 3), z(1, 5, 6), z(1, 5),
+            z(1, 4), z(1, 5), z(1, 6), z(5, 5), z(4, 3), z(1, 3), z(3),
+            z(4, 4), z(4, 8), z(6, 4), z(6, 8))
+    with pytest.raises(NotImplementedError, match="relu"):
+        dt.decoder_scan_train(*args, prior={"type": "expanding"},
+                              normalizer="relu")
+    with pytest.raises(NotImplementedError, match="window_around_mean"):
+        dt.decoder_scan_train(*args, prior={"type": "window_around_mean"})

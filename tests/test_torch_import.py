@@ -1,6 +1,7 @@
 """The PyTorch port imports no JAX, and never falls back silently: a
 tensor on a device without a kernel raises, so does a missing compiler,
 and so do configurations the port does not cover yet."""
+import ast
 import os
 import subprocess
 import sys
@@ -12,7 +13,9 @@ import torch
 from attention_lvcsr_torch import _build
 from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
 from attention_lvcsr_torch.ops.beam_loop import beam_search_loop
+from attention_lvcsr_torch.ops.decoder_train import decoder_scan_train
 from attention_lvcsr_torch.ops.gru_scan import gru_scan
+from attention_lvcsr_torch.ops.gru_train import gru_scan_train
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -35,10 +38,21 @@ MODULES = [
     "attention_lvcsr_torch.ops.fst",
     "attention_lvcsr_torch.ops.expressions",
     "attention_lvcsr_torch.ops.error_rate",
+    "attention_lvcsr_torch.ops.gru_train",
+    "attention_lvcsr_torch.ops.decoder_train",
+    "attention_lvcsr_torch.ops.outer_sum",
     "attention_lvcsr_torch.search.beam",
     "attention_lvcsr_torch.serve",
+    "attention_lvcsr_torch.config",
+    "attention_lvcsr_torch.data",
+    "attention_lvcsr_torch.train.rules",
+    "attention_lvcsr_torch.train.checkpoint",
+    "attention_lvcsr_torch.train.log",
+    "attention_lvcsr_torch.train.loop",
+    "attention_lvcsr_torch.train.driver",
     "attention_lvcsr_torch.cli.run",
 ]
+BANNED_ROOTS = ("attention_lvcsr_tpu", "jax", "jaxlib", "flax")
 
 TINY = dict(
     input_dims={"recordings": 5}, input_num_chars={}, eos_label=3,
@@ -73,17 +87,66 @@ def test_port_imports_nothing_of_the_jax_package():
 
 
 def test_cli_path_imports_no_jax():
-    """``run.py serve`` also loads the JAX package's config and data
-    modules (yaml, h5py); they too must leave JAX out."""
-    _imports_leave_out(MODULES + ["attention_lvcsr_tpu.config",
-                                  "attention_lvcsr_tpu.data"],
-                       ("jax", "jaxlib", "flax"))
+    """``run.py train`` and ``serve`` read configs and datasets with the
+    port's own ``config`` and ``data`` modules: run, they load no JAX and
+    nothing of the JAX package either."""
+    code = ("import sys\n"
+            "from attention_lvcsr_torch.config import Configuration\n"
+            "from attention_lvcsr_torch.data import Data\n"
+            "Configuration('tests/configs/toy.yaml')\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{BANNED_ROOTS!r})\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _package_sources():
+    pkg = os.path.join(ROOT, "attention_lvcsr_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for name in sorted(files):
+            if name.endswith(".py"):
+                yield os.path.relpath(os.path.join(dirpath, name), ROOT)
+
+
+@pytest.mark.parametrize("source", sorted(_package_sources()) + [
+    "chip_smoke.py"])
+def test_no_module_imports_jax_or_the_jax_package(source):
+    """Every module of the port, the CLI and the server included, and the
+    on-card smoke test: no ``import`` or ``from`` of ``jax``, ``flax`` or
+    ``attention_lvcsr_tpu`` anywhere in the file, at any depth (docstrings
+    that name the JAX package's paths are text, not imports)."""
+    with open(os.path.join(ROOT, source)) as f:
+        tree = ast.parse(f.read(), source)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        found += [f"{source}:{node.lineno} {n}" for n in names
+                  if n.split(".")[0] in BANNED_ROOTS]
+    assert not found, found
+
+
+def test_the_import_walk_covers_the_cli_and_the_server():
+    sources = set(_package_sources())
+    assert {os.path.join("attention_lvcsr_torch", "cli", "run.py"),
+            os.path.join("attention_lvcsr_torch", "serve.py")} <= sources
 
 
 def test_wrappers_raise_on_a_device_without_kernel():
     meta = lambda *s: torch.empty(*s, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         gru_scan(meta(3, 2, 12), None, (meta(2, 4), meta(4, 4), meta(4, 8)))
+    with pytest.raises(ValueError, match="no kernel"):
+        gru_scan_train(meta(3, 2, 12), None,
+                       (meta(2, 4), meta(4, 4), meta(4, 8)))
+    with pytest.raises(ValueError, match="no kernel"):
+        decoder_scan_train(*[meta(1)] * 17, prior={})
     with pytest.raises(ValueError, match="no kernel"):
         beam_search_loop(meta(2, 5, 3), meta(2, 5, 4), meta(2, 5), {},
                          beam=2, max_len=3, eol=0)

@@ -19,9 +19,9 @@ INIT = {"/recognizer": {"weights_init": ["isotropic_gaussian", 0.5],
 _CACHE = {}
 
 
-def _recognizers(mode):
-    if mode not in _CACHE:
-        cfg = _tiny_net_config()
+def _recognizers(mode, bidir=True):
+    if (mode, bidir) not in _CACHE:
+        cfg = dict(_tiny_net_config(), bidir=bidir)
         eos = cfg["eos_label"]
         jax_rec = JaxRecognizer(dict(cfg, use_pallas=mode), init_config=INIT,
                                 seed=7)
@@ -29,8 +29,8 @@ def _recognizers(mode):
         p["bias"] = p["bias"].at[eos].add(3.0)
         port = SpeechRecognizer(cfg, init_config=INIT, seed=7)
         port.net.generator.readout.post_merge_0.bias.data[eos] += 3.0
-        _CACHE[mode] = (jax_rec, port)
-    return _CACHE[mode]
+        _CACHE[mode, bidir] = (jax_rec, port)
+    return _CACHE[mode, bidir]
 
 
 def _batch():
@@ -60,6 +60,24 @@ def test_beam_search_matches_jax(mode, search):
     x, m = _batch()
     ref = _finished(jax_rec.beam_search(x, m, as_arrays=True, **search))
     got = _finished(port.beam_search(x, m, as_arrays=True, **search))
+    assert ref, "vacuous: nothing finished"
+    assert sorted(got) == sorted(ref)
+    for key, (tokens, cost) in ref.items():
+        assert got[key][0] == tokens, key
+        np.testing.assert_allclose(got[key][1], cost, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["never", "interpret"])
+def test_unidirectional_beam_search_matches_jax(mode):
+    """``bidir: false``: the encoder's layers run one direction."""
+    jax_rec, port = _recognizers(mode, bidir=False)
+    jax_rec.init_beam_search(4)
+    port.init_beam_search(4)
+    x, m = _batch()
+    ref = _finished(jax_rec.beam_search(x, m, as_arrays=True,
+                                        char_discount=0.1))
+    got = _finished(port.beam_search(x, m, as_arrays=True,
+                                     char_discount=0.1))
     assert ref, "vacuous: nothing finished"
     assert sorted(got) == sorted(ref)
     for key, (tokens, cost) in ref.items():
