@@ -1,13 +1,19 @@
 """attention_lvcsr_torch — the PyTorch/CUDA port of attention_lvcsr_tpu.
 
 The JAX package beside it stays the reference; this package imports
-``torch`` and never ``jax`` or ``flax``.  It runs the flagship serving
-decode (speech bottom -> BiGRU encoder -> beam search with a conv-attention
-GRU decoder) on one NVIDIA H100, with the two TPU kernels of that path
-rewritten by hand for Hopper:
+``torch`` and never ``jax`` or ``flax``.  It serves, decodes and trains
+the recognizer (speech bottom -> BiGRU or BiLSTM encoder -> conv-attention
+GRU decoder) on one NVIDIA H100, with every TPU kernel of the JAX package
+rewritten by hand for Hopper in ``csrc/``:
 
-* ``ops/gru_scan.py`` + ``csrc/gru_scan.cu`` — the encoder's GRU scan;
-* ``ops/beam_loop.py`` + ``csrc/beam_loop.cu`` — the whole beam decode loop.
+* ``ops/gru_scan.py``, ``ops/gru_train.py``, ``ops/lstm_scan.py``,
+  ``ops/lstm_train.py`` — the encoder's scans, inference and training;
+* ``ops/beam_loop.py`` — the whole beam decode loop;
+* ``ops/attention_energy.py``, ``ops/decode_score.py`` — the steps of the
+  module-driven decode (LM fusion, constraints);
+* ``ops/decoder_train.py`` — the teacher-forced decoder of training;
+* ``ops/frontend.py`` — log-mel fbank + deltas for waveform requests;
+* ``ops/outer_sum.py`` — the training scans' weight gradients.
 
 Each kernel has a plain PyTorch version beside it, taken only for tensors
 that lie on the CPU; a CUDA tensor launches the kernel or raises.
@@ -16,11 +22,13 @@ that lie on the CPU; a CUDA tensor launches the kernel or raises.
 Layer map (same names as the JAX package):
 
 * ``models``  — initializers, parameter bridge, cells, bottom, encoder,
-                attention, generator, recognizer.
-* ``ops``     — the two kernels' wrappers, conv1d, edit distance.
-* ``search``  — ``BeamSearch`` over the whole-loop decode kernel.
+                attention, generator, LM, recognizer.
+* ``ops``     — the kernels' wrappers, FST tables, conv1d, edit distance.
+* ``search``  — ``BeamSearch``: the whole-loop kernel or the module loop.
+* ``data``    — datasets, pipeline, the feature frontend.
+* ``train``   — the train step, rule chain, loop, checkpoints.
 * ``serve``   — the HTTP endpoint of the JAX package, over this recognizer.
-* ``cli``     — ``run.py serve``.
+* ``cli``     — ``run.py train`` and ``serve``.
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,6 @@
-// Cluster-GRU building blocks shared by the forward scan (gru_scan.cu)
-// and the training backward scan (gru_train.cu).
+// Cluster building blocks of the recurrent scans: the GRU's forward
+// (gru_scan.cu) and training backward (gru_train.cu), and the LSTM's
+// forward (lstm_scan.cu) and training backward (lstm_train.cu).
 //
 // A thread-block cluster of kCluster blocks serves kGroupRows batch rows
 // of one direction; block j of the cluster owns columns [j*n, (j+1)*n) of
@@ -95,21 +96,24 @@ __device__ __forceinline__ void kmajor_dot(const float* x, int rp,
 }
 
 // part[(q * kGroupRows + row) * cols + c]: slice q of the product of the
-// k-major rows x with the `cols` weight columns w (row stride ldw).
+// k-major rows x with the `cols` weight columns w (row stride ldw).  A
+// thread computes four rows of one column; where there are more (row
+// group, column) pairs than threads (slices == 1), it takes several.
 __device__ __forceinline__ void cluster_partials(const float* x,
                                                  const float* w, int ldw,
                                                  int cols, int slices, int D,
                                                  float* part) {
   const int groups = kGroupRows / kRowsPerThread;
-  const int tid = threadIdx.x;
-  if (tid >= slices * groups * cols) return;
-  const int q = tid / (groups * cols), rem = tid % (groups * cols);
-  const int rp = rem / cols, c = rem % cols;
-  float acc[kRowsPerThread];
-  kmajor_dot(x, rp, w, ldw, c, q * D / slices, (q + 1) * D / slices, acc);
+  for (int item = threadIdx.x; item < slices * groups * cols;
+       item += kClusterThreads) {
+    const int q = item / (groups * cols), rem = item % (groups * cols);
+    const int rp = rem / cols, c = rem % cols;
+    float acc[kRowsPerThread];
+    kmajor_dot(x, rp, w, ldw, c, q * D / slices, (q + 1) * D / slices, acc);
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i)
-    part[(q * kGroupRows + rp * kRowsPerThread + i) * cols + c] = acc[i];
+    for (int i = 0; i < kRowsPerThread; ++i)
+      part[(q * kGroupRows + rp * kRowsPerThread + i) * cols + c] = acc[i];
+  }
 }
 
 __device__ __forceinline__ float cluster_sum(const float* part, int slices,

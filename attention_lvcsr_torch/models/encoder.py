@@ -1,16 +1,20 @@
-"""Speech encoder: stacked (bi)directional GRUs with temporal subsampling.
+"""Speech encoder: stacked (bi)directional GRUs or LSTMs with temporal
+subsampling.
 
 Counterpart of ``attention_lvcsr_tpu/models/encoder.py``.  Batch-major
 ``(B, T, F)`` at the API, time-major inside.  Per layer, the input
-projections (inputs and gates, of both directions) are one batched matmul
-over the whole sequence, and a bidirectional layer runs both directions'
+projections (every fork of both directions) are one batched matmul over
+the whole sequence, and a bidirectional layer runs both directions'
 recurrences in one scan call, the backward one in reverse time.  That is
 the JAX package's backward direction (flip inputs and mask, scan, flip
 back): padded frames (mask 0) keep the state, so the backward scan meets
-the zero-padded tail first and leaves its initial state untouched.
+the zero-padded tail first and leaves its initial state untouched.  An
+LSTM layer's scan also returns its cells; only the states go downstream,
+as in the JAX encoder.
 
 ``train`` selects the differentiable scans of the training path
-(``ops/gru_train.py``); inference takes ``ops/gru_scan.py``.
+(``ops/gru_train.py``, ``ops/lstm_train.py``); inference takes
+``ops/gru_scan.py`` or ``ops/lstm_scan.py`` (the cell's ``scan_fn``).
 """
 from __future__ import annotations
 
@@ -19,19 +23,23 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from attention_lvcsr_torch.models.cells import GatedRecurrent
+from attention_lvcsr_torch.models.cells import make_cell
 from attention_lvcsr_torch.models.layers import Dense
-from attention_lvcsr_torch.ops.gru_scan import gru_scan
-from attention_lvcsr_torch.ops.gru_train import gru_scan_train
+
+
+def _states(out):
+    """The states of a scan's output: the LSTM's scans also return cells."""
+    return out[0] if isinstance(out, tuple) else out
 
 
 class RecurrentWithFork(nn.Module):
-    """A GRU cell with its input fork: ``fork_inputs``, ``fork_gate_inputs``
-    project a layer's input into the cell's two sequences."""
+    """A cell with its input forks, ``fork_<sequence>`` for each sequence
+    the cell reads (the GRU's inputs and gate inputs, the LSTM's four gate
+    inputs in one)."""
 
-    def __init__(self, in_dim: int, dim: int):
+    def __init__(self, in_dim: int, dim: int, transition="gru"):
         super().__init__()
-        self.cell = GatedRecurrent(dim)
+        self.cell = make_cell(transition, dim)
         for name, d in self.cell.sequence_dims().items():
             self.add_module(f"fork_{name}", Dense(in_dim, d))
 
@@ -43,7 +51,7 @@ class RecurrentWithFork(nn.Module):
         """One direction alone: x (T, B, F) time-major -> (T, B, dim)."""
         seqs = {n: getattr(self, f"fork_{n}")(x)
                 for n in self.cell.sequence_names}
-        return self.cell.scan(seqs, mask, train=train)
+        return _states(self.cell.scan(seqs, mask, train=train))
 
 
 class Bidirectional(nn.Module):
@@ -52,10 +60,10 @@ class Bidirectional(nn.Module):
     The submodules are ``fwd``/``bwd`` (``forward``/``backward`` in the
     JAX parameter paths; see models/params.py)."""
 
-    def __init__(self, in_dim: int, dim: int):
+    def __init__(self, in_dim: int, dim: int, transition="gru"):
         super().__init__()
-        self.fwd = RecurrentWithFork(in_dim, dim)
-        self.bwd = RecurrentWithFork(in_dim, dim)
+        self.fwd = RecurrentWithFork(in_dim, dim, transition)
+        self.bwd = RecurrentWithFork(in_dim, dim, transition)
 
     def forward(self, x, mask=None, train=False):
         """x (T, B, F) time-major, mask (T, B) -> (T, B, 2*dim)."""
@@ -63,28 +71,31 @@ class Bidirectional(nn.Module):
         kb, bb = self.bwd.fork_weights()
         proj = x @ torch.cat(kf + kb, dim=1) + torch.cat(bf + bb)
         B = x.shape[1]
-        scan = gru_scan_train if train else gru_scan
-        return scan(proj.contiguous(),
-                    mask.contiguous() if mask is not None else None,
-                    self.fwd.cell.scan_weights(B),
-                    self.bwd.cell.scan_weights(B))
+        scan = self.fwd.cell.scan_fn(train)
+        return _states(scan(proj.contiguous(),
+                            mask.contiguous() if mask is not None else None,
+                            self.fwd.cell.scan_weights(B),
+                            self.bwd.cell.scan_weights(B)))
 
 
 class Encoder(nn.Module):
     """``dims`` per layer, ``subsample`` strides applied to each layer's
     output and mask (``x[:, ::take_each]``); ``bidir: false`` stacks
-    one-directional layers (``with_fork{i}``)."""
+    one-directional layers (``with_fork{i}``); ``transition`` names the
+    cell (GRU or LSTM)."""
 
     def __init__(self, in_dim: int, dims: Sequence[int],
-                 subsample: Sequence[int], bidir: bool = True):
+                 subsample: Sequence[int], bidir: bool = True,
+                 transition="gru"):
         super().__init__()
         self.subsample = list(subsample)
         for i, dim in enumerate(dims):
             if bidir:
-                self.add_module(f"bidir{i}", Bidirectional(in_dim, dim))
+                self.add_module(f"bidir{i}",
+                                Bidirectional(in_dim, dim, transition))
             else:
                 self.add_module(f"with_fork{i}",
-                                RecurrentWithFork(in_dim, dim))
+                                RecurrentWithFork(in_dim, dim, transition))
             in_dim = (2 if bidir else 1) * dim
         self.layer_names = [f"bidir{i}" if bidir else f"with_fork{i}"
                             for i in range(len(dims))]

@@ -1,4 +1,5 @@
-"""The recognizer: speech bottom -> BiGRU encoder -> attention decoder.
+"""The recognizer: speech bottom -> (bi)directional GRU or LSTM encoder ->
+attention GRU decoder.
 
 Counterpart of ``attention_lvcsr_tpu/models/recognizer.py``:
 
@@ -50,9 +51,11 @@ def unported_piece(cfg: Mapping[str, Any]) -> Optional[str]:
     checks = [
         (_canon(bottom.get("bottom_class", "speech"))
          in ("speech", "SpeechBottom"), "a non-speech (lookup) bottom"),
-        (all(_canon(cfg.get(k, "gru")) in ("gru", "GatedRecurrent")
-             for k in ("enc_transition", "dec_transition")),
-         "a non-GRU transition (LSTM or simple RNN)"),
+        (_canon(cfg.get("enc_transition", "gru"))
+         in ("gru", "GatedRecurrent", "lstm", "LSTM"),
+         "a simple-RNN encoder transition (SimpleRecurrent)"),
+        (_canon(cfg.get("dec_transition", "gru")) in ("gru", "GatedRecurrent"),
+         "a non-GRU decoder transition (LSTM or simple RNN)"),
         (not cfg.get("dims_top"), "the top MLP (dims_top)"),
         (cfg.get("attention_type", "content") == "content_and_conv",
          f"attention_type {cfg.get('attention_type', 'content')!r} "
@@ -121,7 +124,7 @@ class RecognizerNet(nn.Module):
         self.bottom = SpeechBottom(input_dims["recordings"], **bottom)
         self.encoder = Encoder(self.bottom.output_dim, dims_bidir,
                                subsample or [1] * len(dims_bidir),
-                               bidir=bidir)
+                               bidir=bidir, transition=enc_transition)
         self.dropout = dropout
         D = self.encoder.dim_encoded
         attention = SequenceContentAndConvAttention(
@@ -215,12 +218,13 @@ class RecognizerNet(nn.Module):
 
 
 class SpeechRecognizer:
-    """Owns the net and its parameters on ``device``; the public surface
-    the serving code (``serve.Transcriber``) uses."""
+    """Owns the net and its parameters on ``device`` (the card unless the
+    caller names another); the public surface the serving code
+    (``serve.Transcriber``) uses."""
 
     def __init__(self, net_config: Mapping[str, Any], *,
                  init_config: Optional[Mapping] = None, seed: int = 1234,
-                 device="cpu"):
+                 device="cuda"):
         self.net_config = dict(net_config)
         self.compute_dtype = self.net_config.pop("compute_dtype", None)
         self.device = torch.device(device)

@@ -1,1 +1,1 @@
-"""Kernels and numeric helpers: gru_scan, beam_loop, conv1d, edit distance."""
+"""The kernels' wrappers with their plain versions, and numeric helpers."""

@@ -18,7 +18,8 @@ average and the GRU transition), same arguments and outputs.
   one GRU layer): a forward kernel, then a reverse-time backward kernel
   that recomputes each step's (B, L, M) match tensor from the previous
   state and weights instead of storing it, then ``csrc/outer_sum.cu`` for
-  the weight gradients (three launches a training step).  Other variants
+  the weight gradients (whose two kernels count on
+  ``outer_sum.launches``).  Other variants
   raise ``NotImplementedError`` naming the variant.
 
 The window of the ``window_around_*`` priors spans the whole batch: its
@@ -41,7 +42,7 @@ from attention_lvcsr_torch import _build
 from attention_lvcsr_torch.ops.outer_sum import outer_sum
 
 NEG = -1e30
-launches = _build.LaunchCounter()   # forward + backward kernels + outer_sum
+launches = _build.LaunchCounter()   # forward + backward; outer_sum has its own
 
 
 def toeplitz_band(filters, length):
@@ -323,6 +324,7 @@ class _DecoderScanTrain(torch.autograd.Function):
                        ddg=zeros(D, 2 * S), dhand=zeros(1, M), dv=zeros(1, M))
         if T and B:
             _launch("decoder_train_bwd_f32", args, fx)
+            launches.count += 1
             h_prev = torch.cat([h0[None], h_out[:-1]])
             ones = fx.new_ones(B, 1)      # the rows' dhand, dv summed over B
             outer_sum([
@@ -334,7 +336,6 @@ class _DecoderScanTrain(torch.autograd.Function):
                 (wa_out, None, g["dfg"], w_grads["ddg"]),
                 (ones, None, g["dhand"], w_grads["dhand"]),
                 (ones, None, g["dv"], w_grads["dv"])], fx)
-            launches.count += 2
         else:
             for k in ("dfx", "dfg", "dh0", "dwa0"):
                 g[k].zero_()

@@ -15,7 +15,7 @@ On a CUDA tensor the scan is a ``torch.autograd.Function``:
 * backward: ``csrc/gru_train.cu`` walks the steps in reverse with the
   state gradient on chip and writes the input-projection gradients, then
   ``csrc/outer_sum.cu`` reduces them into the recurrent-weight gradients
-  (two launches).
+  (its two kernels count on ``outer_sum.launches``).
 
 On the CPU it is the plain version, the forward scan written with PyTorch
 operations (:func:`gru_scan_reference`), whose gradient autograd takes.
@@ -31,7 +31,8 @@ from attention_lvcsr_torch import _build
 from attention_lvcsr_torch.ops import gru_scan as gs
 from attention_lvcsr_torch.ops.outer_sum import outer_sum
 
-launches = _build.LaunchCounter()         # one direction: forward + backward
+# forward + backward kernels (outer_sum counts its own launches)
+launches = _build.LaunchCounter()         # one direction
 launches_bidir = _build.LaunchCounter()   # both directions in one launch
 
 gru_scan_train_reference = gs.gru_scan_reference
@@ -138,6 +139,7 @@ class _GruScanTrain(torch.autograd.Function):
                 status = lib.gru_train_bwd_f32(ctypes.byref(args), ndir,
                                                _build.stream_of(out))
             _build.check(status, "gru_train_bwd_f32")
+            _counter(ndir).count += 1
             jobs = []
             for i, ((h0, _, _), (_, r, _), (_, dws, dwg)) in enumerate(
                     zip(dirs, residuals, grads)):
@@ -148,7 +150,6 @@ class _GruScanTrain(torch.autograd.Function):
                 jobs.append((h_prev, None,
                              dproj[..., 3 * D * i + D:3 * D * (i + 1)], dwg))
             outer_sum(jobs, out)
-            _counter(ndir).count += 2
         else:
             dproj.zero_()
             for dh0, _, _ in grads:

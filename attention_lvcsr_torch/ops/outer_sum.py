@@ -6,9 +6,10 @@ scans: the wrapper of ``csrc/outer_sum.cu``.
 (I, J) gradient of a weight matrix from the (rows, I) inputs it multiplied
 and the (rows, J) output gradients.  ``a``, ``a2`` and ``b`` may be column
 slices of a wider contiguous tensor (their row stride is read from them).
-A launch belongs to the backward of the scan that calls it, which counts
-it; this module keeps no count of its own, and its plain version is the
-scans' own plain backward (autograd through their plain forward).
+
+On CUDA tensors a call starts two kernels, the products and then the
+fixed-order sum of their row splits, and ``launches`` counts both.  On
+CPU tensors it runs :func:`outer_sum_plain`, one matrix product per job.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import torch
 from attention_lvcsr_torch import _build
 
 MAX_JOBS = 8
+
+launches = _build.LaunchCounter()     # two a call: products, then the sum
 
 
 class _Job(ctypes.Structure):
@@ -45,13 +48,26 @@ def _rows(t):
     return rows, width, ld
 
 
+def outer_sum_plain(jobs):
+    """Plain version of :func:`outer_sum`: ``c += (a * a2)^T b`` per job,
+    in PyTorch operations."""
+    for a, a2, b, c in jobs:
+        left = a if a2 is None else a * a2
+        c += left.reshape(-1, left.shape[-1]).T @ b.reshape(-1, b.shape[-1])
+
+
 def outer_sum(jobs, stream_of):
     """Launch ``csrc/outer_sum.cu`` over up to MAX_JOBS jobs on the stream
-    of ``stream_of``.  ``c`` must be contiguous and float32.  The sums are
+    of ``stream_of``, or run the plain version when ``stream_of`` lies on
+    the CPU.  ``c`` must be contiguous and float32.  The kernel's sums are
     taken in an order fixed by the shapes alone, so they repeat bit for
     bit."""
     if not 0 < len(jobs) <= MAX_JOBS:
         raise ValueError(f"outer_sum: 1..{MAX_JOBS} jobs, got {len(jobs)}")
+    if stream_of.device.type == "cpu":
+        return outer_sum_plain(jobs)
+    if stream_of.device.type != "cuda":
+        raise ValueError(f"outer_sum: no kernel for device {stream_of.device}")
     shapes = []
     for k, (a, a2, b, c) in enumerate(jobs):
         rows, I, lda = _rows(a)
@@ -83,3 +99,4 @@ def outer_sum(jobs, stream_of):
         status = lib.outer_sum_f32(ctypes.byref(args), splits,
                                    _build.stream_of(stream_of))
     _build.check(status, "outer_sum_f32")
+    launches.count += 2

@@ -7,8 +7,11 @@ one serve the other:
   (T, F) float matrix) or a ``.npy`` (T, F) body sent as
   ``application/octet-stream``.  The answer is ``{"labels": [...],
   "transcript": "...", "cost": ...}``; ``cost`` is null when no
-  hypothesis finished.  ``{"waveform": ...}`` needs the fbank+delta
-  frontend kernel, which is not ported yet, and is answered 400.
+  hypothesis finished.  ``{"waveform": [...], "sample_rate": 16000}``
+  runs the fbank+delta frontend (``data/features.py::device_frontend``,
+  the CUDA ``fbank_deltas`` kernel on the card) on the recognizer's device
+  in the handler's thread and decodes the features it gives; a waveform
+  shorter than one frame is answered 400.
 * ``GET /healthz``: status, beam size and request counters.
 
 The batcher hands the recognizer up to ``max_batch`` waiting requests of
@@ -28,6 +31,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List
 
 import numpy as np
+import torch
+
+from attention_lvcsr_torch.data.features import device_frontend
+from attention_lvcsr_torch.ops.frontend import frame_geometry
 
 # seconds a request waits for its decode; the first decode of a new shape
 # also builds the kernels
@@ -49,9 +56,26 @@ class Transcriber:
         self.expected_dim = dims.get("recordings")
 
     def features_from_waveform(self, wav, sample_rate: int = 16000):
-        raise NotImplementedError(
-            "waveform requests need the fbank+delta frontend kernel, which "
-            "is not ported yet; send 'features'")
+        """(N,) waveform -> its (T, 123) float32 features, computed on the
+        recognizer's device.  Unlike the JAX package, the waveform is not
+        padded to a power-of-two bucket of seconds (a bound on XLA's
+        compile cache): rows below the true frame count read no padded
+        sample, so the features are the same.  The kernel runs on this
+        thread's current stream, the device's default stream, which the
+        batcher's decodes share; copying the result to the host waits for
+        it before the features are handed over."""
+        frame_length, hop, _ = frame_geometry(sample_rate)
+        wav = np.asarray(wav, np.float32)
+        if wav.ndim != 1:
+            raise ValueError(f"waveform must be a list of samples, got "
+                             f"shape {wav.shape}")
+        if len(wav) < frame_length:
+            raise ValueError(f"waveform too short: {len(wav)} samples < one "
+                             f"{frame_length}-sample frame")
+        feats = device_frontend(
+            torch.tensor(wav, device=self.recognizer.device)[None],
+            sample_rate=sample_rate)
+        return feats[0].cpu().numpy()
 
     def text(self, labels) -> str:
         """Labels -> transcript: EOS and other ``<...>`` symbols dropped,

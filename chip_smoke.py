@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``attention_lvcsr_torch/csrc`` and
 drives the flagship decode (the ``__graft_entry__.FLAGSHIP_NET`` shape:
 4x250 BiGRU encoder, conv-attention GRU decoder, beam 10) with random
 weights made from a seed, without an LM, with the LM and under a
-dictionary constraint.  Phases, each fatal on failure:
+dictionary constraint; trains it; serves it waveforms; and decodes and
+trains it with a 4x250 BiLSTM encoder.  Phases, each fatal on failure:
 
 1. build the kernels (one nvcc per source, sm_90a) and print the time;
 2. ``gru_scan`` kernel vs its plain PyTorch version at the encoder's
@@ -48,7 +49,9 @@ dictionary constraint.  Phases, each fatal on failure:
     (autograd through the plain scan): T=800, B=32, D=250, one direction
     and both, ragged mask, random cotangent; states within 1e-5, every
     gradient (dx_in, dx_gate, dh0, dW_ss, dW_sg) within 1e-4 of its
-    largest value;
+    largest value; then ``outer_sum`` (the weight-gradient reduction of
+    every training backward) vs its plain version on the four jobs of the
+    bidirectional layer's backward, within 1e-5 of the largest value;
 12. ``decoder_scan_train`` forward and backward kernels vs plain at the
     flagship decoder's shapes (T=100, B=32, L=200, M=250, D=500, S=250,
     201 taps), both priors, ragged label and frame masks: outputs and
@@ -61,16 +64,41 @@ dictionary constraint.  Phases, each fatal on failure:
     and total_gradient_norm within 1e-4 relative, the training kernels
     launch, utt/s of both routes, the checkpoint reads back identical, a
     second run of the kernel route repeats its monitors exactly; then two steps with a one-directional encoder (the path of the
-    one-direction kernel), compared the same way.
+    one-direction kernel), compared the same way;
+14. ``fbank_deltas`` kernel vs its plain version: B=64, 8 s of 16 kHz
+    speech-like audio (harmonic tones, envelope and noise from a numpy
+    seed) with ragged true frame counts, then B=1 (one serving request)
+    with 8 s at 16 kHz and at 8 kHz; max abs error over the valid rows
+    <= 1e-3 (log domain); times at B=1 and B=64, 16 kHz;
+15. waveform serving: the flagship model behind ``make_server`` at
+    ``max_batch`` 1 (an answer cannot depend on its batch companions), 8
+    concurrent ``{"waveform": ...}`` requests of 2-8 s, one at 8 kHz: each
+    answer equals the answer to a ``features`` request carrying the
+    frontend kernel's own output for the same waveform, the frontend
+    launches once a request, and a too-short waveform gets 400;
+16. ``lstm_scan`` kernel vs plain at T=800, B=64, D=250, both directions
+    and one alone; ``lstm_scan_train`` forward and backward kernels vs
+    plain (autograd through the plain scan) at T=800, B=32, both
+    directions, ragged mask, random cotangent: states and cells within
+    1e-5, every gradient within 1e-4 of its largest value, a second call's
+    gradients bit for bit;
+17. the flagship network with ``enc_transition: LSTM`` (4x250 BiLSTM,
+    random weights from seed 1234): beam-10 decode at B=64, 800 frames,
+    100-step cap through ``lstm_scan`` + ``beam_search_loop`` vs the plain
+    route (outputs compared as in phase 3), utt/s of both; five training
+    steps at B=32, 800 frames, 100 labels through ``lstm_scan_train`` +
+    ``decoder_scan_train``, two on the plain route compared step by step
+    (train_cost and total_gradient_norm within 1e-4 relative), a second
+    kernel run repeating its monitors bit for bit, utt/s.
 
 Nothing of JAX or of the JAX package is imported; the script checks it.
 
 The second line from the end is a JSON object describing each kernel:
 its times, its bound (``bound_ms``: the larger of its bytes over the
 card's memory rate and its float32 operations over the card's peak,
-computed from this run's shapes) and ``library_ms`` (null: no single
-PyTorch call computes any of these functions); the last is ``{"ok":
-true, "device": {...}}``.  Without a CUDA device, or without the
+computed from this run's shapes) and ``library_ms`` (null where no
+PyTorch call computes the function; for ``outer_sum``, one cuBLAS
+``addmm_`` per job); the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository around it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -85,6 +113,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -379,10 +408,14 @@ def main():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
 
-    decode_phases(t, dev, results, launches, rates)
+    rec = decode_phases(t, dev, results, launches, rates)
     gru_train_phase(t, dev, results)
     decoder_train_phase(t, dev, results)
     train_step_phase(t, dev, launches, rates)
+    frontend_phase(t, dev, results)
+    waveform_serve_phase(dev, rec, launches)
+    lstm_phase(t, dev, results)
+    lstm_model_phase(t, dev, launches, rates)
 
     banned = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "attention_lvcsr_tpu"))
@@ -397,7 +430,13 @@ def main():
         "fused_decode_score": ("decode_score.cu", "decode_score.py:168"),
         "gru_scan_train": ("gru_train.cu", "gru_train.py:291"),
         "gru_scan_train_bidir": ("gru_train.cu", "gru_train.py:570"),
-        "decoder_scan_train": ("decoder_train.cu", "decoder_train.py:839")}
+        "decoder_scan_train": ("decoder_train.cu", "decoder_train.py:839"),
+        "fbank_deltas": ("frontend.cu", "frontend.py:180"),
+        "lstm_scan": ("lstm_scan.cu", "lstm_train.py:324"),
+        "lstm_scan_train": ("lstm_train.cu", "lstm_train.py:374"),
+        # the weight-gradient sums inside the TPU backward kernels; the
+        # flagship's is the bidirectional GRU backward's
+        "outer_sum": ("outer_sum.cu", "gru_train.py:529")}
     kernels = [dict({"name": name, "route": "cuda",
                      "source": f"attention_lvcsr_torch/csrc/{src}",
                      "replaces": pallas + tpu, "launches": launches[name]},
@@ -415,7 +454,7 @@ def decode_phases(t, dev, results, launches, rates):
     import torch
     from __graft_entry__ import FLAGSHIP_NET
     from attention_lvcsr_torch.models import attention as attention_mod
-    from attention_lvcsr_torch.models import encoder as encoder_mod
+    from attention_lvcsr_torch.models import cells as cells_mod
     from attention_lvcsr_torch.models import generator as generator_mod
     from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
     from attention_lvcsr_torch.ops import attention_energy as ae
@@ -531,7 +570,7 @@ def decode_phases(t, dev, results, launches, rates):
     feats_np = np.random.RandomState(2).randn(Bd, Td, 123).astype(np.float32)
     feats = torch.tensor(feats_np, device=dev)
     fmask = torch.ones(Bd, Td, device=dev)
-    plain_encoder = (encoder_mod, "gru_scan", gs.gru_scan_reference)
+    plain_encoder = (cells_mod, "gru_scan", gs.gru_scan_reference)
 
     def decoder(recognizer, **kwargs):
         def decode():
@@ -783,6 +822,7 @@ def decode_phases(t, dev, results, launches, rates):
                 {"beam_search_loop": bl.launches}, max_batch=1)
 
     rates["lm_decode_max_abs_cost_err"] = lm_err
+    return rec
 
 
 def grads_of(fn, leaves, cots):
@@ -888,6 +928,69 @@ def gru_train_phase(t, dev, results):
         log(f"  kernels: forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms; "
             f"plain: forward {plain_fwd:.3f} ms, backward {plain_bwd:.3f} "
             f"ms; bound {results[name]['bound_ms']:.3f} ms")
+    outer_sum_check(t, rng, results, T, B, D)
+
+
+def outer_sum_check(t, rng, results, T, B, D):
+    """Phase 11, last: outer_sum.cu vs its plain version on the four jobs
+    of the flagship bidirectional GRU layer's backward (per direction:
+    dW_ss from h_prev * r and dx_in, dW_sg from h_prev and dx_gate, over
+    T*B rows, dx_in and dx_gate column slices of one (T, B, 6D) tensor),
+    and one cuBLAS ``addmm_`` per job beside them."""
+    import torch
+    from attention_lvcsr_torch.ops import outer_sum as osum
+    dproj = t(rng.randn(T, B, 6 * D))
+    h_prev = [t(rng.randn(T, B, D) * 0.5) for _ in range(2)]
+    r = [t(rng.rand(T, B, D)) for _ in range(2)]
+    zeros = lambda *s: torch.zeros(*s, device=dproj.device)
+
+    def jobs(flat=False):
+        rows = (lambda x: x.view(T * B, x.shape[-1])) if flat else \
+            (lambda x: x)
+        d = dproj.view(T * B, 6 * D) if flat else dproj
+        return [job for i in range(2) for job in (
+            (rows(h_prev[i]), rows(r[i]), d[..., 3 * D * i:3 * D * i + D],
+             zeros(D, D)),
+            (rows(h_prev[i]), None, d[..., 3 * D * i + D:3 * D * (i + 1)],
+             zeros(D, 2 * D)))]
+
+    got, again, ref = jobs(), jobs(), jobs()
+    osum.outer_sum(got, dproj)
+    osum.outer_sum(again, dproj)
+    osum.outer_sum_plain(ref)
+    torch.cuda.synchronize()
+    if any(not torch.equal(g[3], h[3]) for g, h in zip(got, again)):
+        fail("outer_sum: a second call gave other bits")
+    err = max(float((g[3] - p[3]).abs().max()) for g, p in zip(got, ref))
+    rel = max(float((g[3] - p[3]).abs().max() / p[3].abs().max())
+              for g, p in zip(got, ref))
+    log(f"phase 11 outer_sum, 4 jobs over {T * B} rows (D={D}): max abs err "
+        f"{err:.3e}, {rel:.2e} of the largest value; a second call repeats "
+        f"bit for bit")
+    # f32 sums over 25600 rows in another order: 1e-5 of their scale
+    if not rel <= 1e-5:
+        fail(f"outer_sum disagrees with its plain version: {rel}")
+    flat = jobs(flat=True)
+
+    def library():
+        for a, a2, b, c in flat:
+            c.addmm_((a if a2 is None else a * a2).T, b)
+
+    ops = sum(2 * T * B * c.shape[0] * c.shape[1]
+              + (T * B * c.shape[0] if a2 is not None else 0)
+              for _, a2, _, c in got)
+    results["outer_sum"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: osum.outer_sum(got, dproj), 10),
+        "plain_ms": cuda_ms(lambda: osum.outer_sum_plain(ref), 10),
+        # inputs a, a2, b and c read once, c written once
+        **bound(nbytes(*h_prev, *r, dproj) + 2 * nbytes(
+            *[c for *_, c in got]), ops),
+        "library_ms": cuda_ms(library, 10)}
+    log(f"  kernels {results['outer_sum']['ms']:.3f} ms, plain "
+        f"{results['outer_sum']['plain_ms']:.3f} ms, one addmm_ per job "
+        f"{results['outer_sum']['library_ms']:.3f} ms, bound "
+        f"{results['outer_sum']['bound_ms']:.3f} ms")
 
 
 def decoder_operands(t, dev, rng, T=100, B=32, L=200, M=250, D=500, S=250,
@@ -1004,33 +1107,24 @@ def decoder_train_phase(t, dev, results):
         f"(median prior)")
 
 
-def train_step_phase(t, dev, launches, rates):
-    """Phase 13: the flagship training step, five steps of
-    ``make_train_step`` through ``run_training`` with wsj_paper.yaml's rule
-    chain (clip 100, adadelta 0.95 / 1e-8, max_norm 1.0), B=32, 800 frames,
-    100 labels, ragged: on the kernel route and on the plain route from
-    the same parameters and batches; then two steps of the same model with
-    a one-directional encoder (the path of the one-direction kernel)."""
+# wsj_paper.yaml's rule chain: clip 100, adadelta 0.95 / 1e-8, max_norm 1.0
+TRAIN_CONFIG = {"training": {"gradient_threshold": 100.0,
+                             "rules": ["adadelta"], "decay_rate": 0.95,
+                             "epsilon": 1e-8},
+                "regularization": {"max_norm": 1.0}}
+TRAIN_KERNELS = ("gru_scan_train", "gru_scan_train_bidir",
+                 "decoder_scan_train", "lstm_scan_train", "outer_sum")
+
+
+def train_batches(t, dev, n, B=32, T=800, TL=100, seed=13):
+    """``n`` flagship-shaped batches, ragged frames and labels (row 0
+    full)."""
     import torch
     from __graft_entry__ import FLAGSHIP_NET
-    from attention_lvcsr_torch.models import cells as cells_mod
-    from attention_lvcsr_torch.models import encoder as encoder_mod
-    from attention_lvcsr_torch.models import generator as generator_mod
-    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
-    from attention_lvcsr_torch.ops import decoder_train as dt
-    from attention_lvcsr_torch.ops import gru_scan as gs
-    from attention_lvcsr_torch.ops import gru_train as gt
-    from attention_lvcsr_torch.train.checkpoint import load_checkpoint
-    from attention_lvcsr_torch.train.driver import run_training
-    from attention_lvcsr_torch.train.rules import build_optimizer
-
-    config = {"training": {"gradient_threshold": 100.0, "rules": ["adadelta"],
-                           "decay_rate": 0.95, "epsilon": 1e-8},
-              "regularization": {"max_norm": 1.0}}
-    B, T, TL, V = 32, 800, 100, FLAGSHIP_NET["num_phonemes"]
-    rng = np.random.RandomState(13)
+    V = FLAGSHIP_NET["num_phonemes"]
+    rng = np.random.RandomState(seed)
     batches = []
-    for _ in range(5):
+    for _ in range(n):
         frames = rng.randint(T * 3 // 4, T + 1, size=B)
         labels = rng.randint(TL * 3 // 4, TL + 1, size=B)
         frames[0], labels[0] = T, TL
@@ -1040,60 +1134,107 @@ def train_step_phase(t, dev, launches, rates):
             "labels": torch.tensor(rng.randint(0, V - 1, size=(B, TL)),
                                    device=dev),
             "labels_mask": t(np.arange(TL)[None] < labels[:, None])})
-    counters = {"gru_scan_train": gt.launches,
-                "gru_scan_train_bidir": gt.launches_bidir,
-                "decoder_scan_train": dt.launches, "gru_scan": gs.launches}
-    plain = [(encoder_mod, "gru_scan_train", gt.gru_scan_train_reference),
-             (cells_mod, "gru_scan_train", gt.gru_scan_train_reference),
-             (generator_mod, "decoder_scan_train",
-              dt.decoder_scan_train_reference)]
+    return batches
 
-    def train(net, n, save):
-        rec = SpeechRecognizer(net, init_config=FLAGSHIP_INIT, seed=1234,
-                               device=dev)
-        opt = build_optimizer(config["training"], config["regularization"])
-        for c in counters.values():
-            c.reset()
-        loop = run_training(rec, opt, lambda: batches[:n], save, config,
-                            num_batches=n, printing=False)
-        torch.cuda.synchronize()
-        moved = counts(counters)
-        log_ = loop.log
-        return rec, loop, moved, {
-            k: np.array(log_.channel(k)[1]) for k in (
-                "train_cost", "total_gradient_norm", "time_train_this_batch")}
 
-    def train_plain(net, n, save):
-        """``train`` with every training scan swapped for its plain version;
-        fails if a training kernel launched all the same."""
-        with swapped(plain):
-            _, _, pmoved, ref = train(net, n, save)
-        if any(pmoved[k] for k in ("gru_scan_train", "gru_scan_train_bidir",
-                                   "decoder_scan_train")):
-            fail(f"the plain route launched kernels: {pmoved}")
-        return ref
+def train_counters():
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.ops import gru_train as gt
+    from attention_lvcsr_torch.ops import lstm_scan as ls
+    from attention_lvcsr_torch.ops import lstm_train as lt
+    from attention_lvcsr_torch.ops import outer_sum as osum
+    return {"gru_scan_train": gt.launches,
+            "gru_scan_train_bidir": gt.launches_bidir,
+            "decoder_scan_train": dt.launches, "lstm_scan_train": lt.launches,
+            "outer_sum": osum.launches, "gru_scan": gs.launches,
+            "lstm_scan": ls.launches}
 
-    def agree(name, got, ref):
-        """Per step: train_cost and total_gradient_norm within 1e-4
-        relative (f32 in another summation order through the encoder's
-        800-step scans and the decoder's 100, carried over the steps)."""
-        for key in ("train_cost", "total_gradient_norm"):
-            rel = np.abs(got[key] - ref[key]) / np.abs(ref[key])
-            log(f"phase 13 {name}: {key} per step {got[key].tolist()} vs "
-                f"plain {ref[key].tolist()} (max rel err {rel.max():.2e})")
-            if not (np.isfinite(got[key]).all() and rel.max() <= 1e-4):
-                fail(f"{name}: {key} disagrees with the plain route")
 
+def train_steps(dev, net, batches, n, save):
+    """``n`` steps of ``make_train_step`` through ``run_training`` from the
+    seed-1234 parameters: (recognizer, loop, launches, monitors)."""
+    import torch
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.train.driver import run_training
+    from attention_lvcsr_torch.train.rules import build_optimizer
+    counters = train_counters()
+    rec = SpeechRecognizer(net, init_config=FLAGSHIP_INIT, seed=1234,
+                           device=dev)
+    opt = build_optimizer(TRAIN_CONFIG["training"],
+                          TRAIN_CONFIG["regularization"])
+    for c in counters.values():
+        c.reset()
+    loop = run_training(rec, opt, lambda: batches[:n], save, TRAIN_CONFIG,
+                        num_batches=n, printing=False)
+    torch.cuda.synchronize()
+    return rec, loop, counts(counters), {
+        k: np.array(loop.log.channel(k)[1]) for k in (
+            "train_cost", "total_gradient_norm", "time_train_this_batch")}
+
+
+def plain_train_steps(dev, net, batches, n, save):
+    """``train_steps`` with every training scan swapped for its plain
+    version; fails if a training kernel launched all the same."""
+    from attention_lvcsr_torch.models import cells as cells_mod
+    from attention_lvcsr_torch.models import generator as generator_mod
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    from attention_lvcsr_torch.ops import gru_train as gt
+    from attention_lvcsr_torch.ops import lstm_train as lt
+    with swapped([(cells_mod, "gru_scan_train", gt.gru_scan_train_reference),
+                  (cells_mod, "lstm_scan_train",
+                   lt.lstm_scan_train_reference),
+                  (generator_mod, "decoder_scan_train",
+                   dt.decoder_scan_train_reference)]):
+        _, _, moved, ref = train_steps(dev, net, batches, n, save)
+    if any(moved[k] for k in TRAIN_KERNELS):
+        fail(f"the plain route launched kernels: {moved}")
+    return ref
+
+
+def steps_agree(phase, name, got, ref):
+    """Per step of the plain route: train_cost and total_gradient_norm
+    within 1e-4 relative (f32 in another summation order through the
+    encoder's 800-step scans and the decoder's 100, carried over the
+    steps)."""
+    for key in ("train_cost", "total_gradient_norm"):
+        g = got[key][:len(ref[key])]
+        rel = np.abs(g - ref[key]) / np.abs(ref[key])
+        log(f"phase {phase} {name}: {key} per step {got[key].tolist()} vs "
+            f"plain {ref[key].tolist()} (max rel err {rel.max():.2e})")
+        if not (np.isfinite(got[key]).all() and rel.max() <= 1e-4):
+            fail(f"{name}: {key} disagrees with the plain route")
+
+
+def repeats(name, got, again):
+    if any(not np.array_equal(again[k], got[k])
+           for k in ("train_cost", "total_gradient_norm")):
+        fail(f"{name}: a second run of the kernel route gave other monitors")
+
+
+def train_step_phase(t, dev, launches, rates):
+    """Phase 13: the flagship training step, five steps of
+    ``make_train_step`` through ``run_training`` with wsj_paper.yaml's rule
+    chain, B=32, 800 frames, 100 labels, ragged: on the kernel route and
+    on the plain route from the same parameters and batches; then two
+    steps of the same model with a one-directional encoder (the path of
+    the one-direction kernel)."""
+    from __graft_entry__ import FLAGSHIP_NET
+    from attention_lvcsr_torch.train.checkpoint import load_checkpoint
+    B = 32
+    batches = train_batches(t, dev, 5)
     with tempfile.TemporaryDirectory() as tmp:
         save = os.path.join(tmp, "flagship.zip")
-        rec, loop, moved, got = train(dict(FLAGSHIP_NET), 5, save)
+        rec, loop, moved, got = train_steps(dev, dict(FLAGSHIP_NET), batches,
+                                            5, save)
         log(f"phase 13 launches in 5 flagship training steps: {moved}")
-        if min(moved["gru_scan_train_bidir"], moved["decoder_scan_train"]) \
-                < 1 or moved["gru_scan"]:
+        if min(moved["gru_scan_train_bidir"], moved["decoder_scan_train"],
+               moved["outer_sum"]) < 1 or moved["gru_scan"]:
             fail(f"the training step did not run through its kernels: "
                  f"{moved}")
         launches.update(gru_scan_train_bidir=moved["gru_scan_train_bidir"],
-                        decoder_scan_train=moved["decoder_scan_train"])
+                        decoder_scan_train=moved["decoder_scan_train"],
+                        outer_sum=moved["outer_sum"])
         state = load_checkpoint(save)
         same = all(np.array_equal(state["parameters"][k], v)
                    for k, v in rec.param_path_dict().items()) \
@@ -1105,19 +1246,17 @@ def train_step_phase(t, dev, launches, rates):
             for k, v in saved.items())
         if not (same and same_opt and state["meta"]["iterations_done"] == 5):
             fail("the checkpoint does not read back as it was trained")
-        ref = train_plain(dict(FLAGSHIP_NET), 5,
-                          os.path.join(tmp, "plain.zip"))
-        agree("flagship", got, ref)
-        _, _, _, again = train(dict(FLAGSHIP_NET), 5,
-                               os.path.join(tmp, "again.zip"))
-        if any(not np.array_equal(again[k], got[k])
-               for k in ("train_cost", "total_gradient_norm")):
-            fail("a second run of the kernel route gave other monitors")
+        ref = plain_train_steps(dev, dict(FLAGSHIP_NET), batches, 5,
+                                os.path.join(tmp, "plain.zip"))
+        steps_agree(13, "flagship", got, ref)
+        repeats("flagship", got, train_steps(
+            dev, dict(FLAGSHIP_NET), batches, 5,
+            os.path.join(tmp, "again.zip"))[3])
         rates["train_step_utt_per_s"] = B / float(
             np.median(got["time_train_this_batch"]))
         rates["plain_train_step_utt_per_s"] = B / float(
             np.median(ref["time_train_this_batch"]))
-        log(f"phase 13 flagship training step B={B} frames={T} labels={TL}: "
+        log(f"phase 13 flagship training step B={B} frames=800 labels=100: "
             f"kernel route {rates['train_step_utt_per_s']:.2f} utt/s (median "
             f"of 5 steps, "
             f"{[round(float(x), 4) for x in got['time_train_this_batch']]} s), "
@@ -1127,17 +1266,369 @@ def train_step_phase(t, dev, launches, rates):
             f"train_cost and total_gradient_norm bit for bit")
 
         uni = dict(FLAGSHIP_NET, bidir=False)
-        _, _, moved, got = train(uni, 2, os.path.join(tmp, "uni.zip"))
+        _, _, moved, got = train_steps(dev, uni, batches, 2,
+                                       os.path.join(tmp, "uni.zip"))
         log(f"phase 13 launches in 2 one-directional training steps: "
             f"{moved}")
         if moved["gru_scan_train"] < 1 or moved["decoder_scan_train"] < 1:
             fail(f"the one-directional step did not run through its "
                  f"kernels: {moved}")
         launches["gru_scan_train"] = moved["gru_scan_train"]
-        ref = train_plain(uni, 2, os.path.join(tmp, "uni_plain.zip"))
-        agree("one-directional encoder", got, ref)
+        ref = plain_train_steps(dev, uni, batches, 2,
+                                os.path.join(tmp, "uni_plain.zip"))
+        steps_agree(13, "one-directional encoder", got, ref)
         rates["uni_train_step_utt_per_s"] = B / float(
             np.median(got["time_train_this_batch"]))
+
+
+def speech_like(rng, n, sample_rate):
+    """Harmonic tones on a slow envelope plus noise: every mel bin well
+    above the log floor, as in speech."""
+    tt = np.arange(n) / sample_rate
+    f0 = rng.uniform(90, 250)
+    wav = sum(rng.uniform(0.05, 0.3) / k * np.sin(2 * np.pi * k * f0 * tt
+                                                    + rng.uniform(0, 6.3))
+              for k in range(1, 12))
+    wav = wav * (0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(2, 5) * tt))
+    return (wav + rng.uniform(0.01, 0.05) * rng.randn(n)).astype(np.float32)
+
+
+def frontend_phase(t, dev, results):
+    """Phase 14: fbank_deltas kernel vs its plain version at B=64, 8 s of
+    16 kHz audio with ragged true frame counts, then at B=1 with 8 s of
+    16 kHz and of 8 kHz audio (one serving request, the shape phase 15
+    launches it at).  The kernels line gets the B=1, 16 kHz times, the
+    B=64 ones beside them."""
+    import torch
+    from attention_lvcsr_torch.ops import frontend as fe
+    rng = np.random.RandomState(14)
+    worst, timed = 0.0, {}
+    for B, rate in ((64, 16000), (1, 16000), (1, 8000)):
+        N = 8 * rate
+        frame_length, hop, fft_size = fe.frame_geometry(rate)
+        lengths = rng.randint(2 * rate, N + 1, size=B)
+        lengths[0] = N
+        wav_np = np.zeros((B, N), np.float32)
+        for b, n in enumerate(lengths):
+            wav_np[b, :n] = speech_like(rng, n, rate)
+        wav = t(wav_np)
+        counts = torch.tensor(1 + (lengths - frame_length) // hop,
+                              device=dev)
+        got = fe.fbank_deltas(wav, counts, sample_rate=rate)
+        ref = fe.fbank_deltas_plain(wav, counts, sample_rate=rate)
+        torch.cuda.synchronize()
+        T = got.shape[1]
+        valid = torch.arange(T, device=dev)[None] < counts[:, None]
+        err = float((got - ref).abs()[valid].max())
+        worst = max(worst, err)
+        log(f"phase 14 fbank_deltas B={B} {rate} Hz, {N} samples, T={T}, "
+            f"{int(counts.sum())} valid frames: max abs err {err:.3e} over "
+            f"the valid rows (log domain)")
+        if not (err <= 1e-3 and torch.isfinite(got).all()):
+            fail(f"fbank_deltas disagrees with its plain version: {err}")
+        if rate != 16000:
+            continue
+        # per valid frame: the two DFT products and the mel product
+        n_freqs = fft_size // 2 + 1
+        ops = int(counts.sum()) * (2 * frame_length * n_freqs * 2
+                                   + n_freqs * 40 * 2)
+        tables = fe._matrices(rate, 40, fe.FRAME_MS, fe.HOP_MS,
+                              fe.PREEMPHASIS, dev)
+        timed[B] = {
+            "ms": cuda_ms(lambda: fe.fbank_deltas(wav, counts), 10),
+            "plain_ms": cuda_ms(lambda: fe.fbank_deltas_plain(wav, counts),
+                                3),
+            **bound(nbytes(wav, counts, *tables, got), ops)}
+        log(f"  B={B}, 16 kHz: kernel {timed[B]['ms']:.4f} ms, plain "
+            f"{timed[B]['plain_ms']:.4f} ms, bound "
+            f"{timed[B]['bound_ms']:.4f} ms")
+    results["fbank_deltas"] = dict(
+        timed[1], max_abs_err=worst, library_ms=None,
+        **{f"b64_{k}": v for k, v in timed[64].items()})
+
+
+def waveform_serve_phase(dev, rec, launches):
+    """Phase 15: 8 concurrent waveform requests to the flagship server at
+    max_batch 1: each answer equals the answer to a features request
+    carrying the frontend kernel's own output for the same waveform.  The
+    EOS logit is raised by 1.5 for the phase, so that hypotheses finish."""
+    import torch
+    from attention_lvcsr_torch.ops import frontend as fe
+    from attention_lvcsr_torch.serve import Transcriber, make_server
+    post_b = rec.net.generator.readout.post_merge_0.bias
+    with torch.no_grad():              # in place: the loop's tables follow
+        post_b[rec.eos_label] += 1.5
+    server = make_server(Transcriber(rec, char_map=CHAR_MAP, beam_size=10),
+                         "127.0.0.1", 0, max_batch=1, batch_wait_ms=5.0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address
+
+    def post(payload, npy=False):
+        if npy:
+            buf = io.BytesIO()
+            np.save(buf, payload)
+            data, ctype = buf.getvalue(), "application/octet-stream"
+        else:
+            data, ctype = json.dumps(payload).encode(), "application/json"
+        req = urllib.request.Request(f"http://{host}:{port}/decode",
+                                     data=data,
+                                     headers={"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return json.loads(resp.read())
+
+    try:
+        rng = np.random.RandomState(15)
+        rates = [16000] * 7 + [8000]
+        waves = [speech_like(rng, int(rng.uniform(2, 8) * r), r)
+                 for r in rates]
+        answers, errors = {}, []
+
+        def client(i):
+            try:
+                answers[i] = post({"waveform": waves[i].tolist(),
+                                   "sample_rate": rates[i]})
+            except Exception as exc:     # reported below
+                errors.append(f"request {i}: {exc}")
+
+        fe.launches.reset()
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(8)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=300)
+        wall = time.perf_counter() - t0
+        moved = fe.launches.count
+        if errors or len(answers) != 8:
+            fail(f"phase 15: {errors or 'missing answers'}")
+        if moved != 8:
+            fail(f"phase 15: the frontend launched {moved} times for 8 "
+                 f"waveform requests")
+        launches["fbank_deltas"] = moved
+        finished = 0
+        for i, (wav, rate) in enumerate(zip(waves, rates)):
+            feats = fe.fbank_deltas(torch.tensor(wav, device=dev)[None],
+                                    sample_rate=rate)[0].cpu().numpy()
+            direct = post(feats, npy=True)
+            if answers[i] != direct:
+                fail(f"phase 15: waveform request {i} answered "
+                     f"{answers[i]} but its features give {direct}")
+            finished += direct["cost"] is not None
+        if finished < 1:
+            fail("phase 15: no waveform request finished a hypothesis: the "
+                 "comparison is too weak")
+        try:
+            post({"waveform": [0.1] * 399, "sample_rate": 16000})
+            fail("phase 15: a too-short waveform was decoded")
+        except urllib.error.HTTPError as exc:
+            if exc.code != 400:
+                fail(f"phase 15: a too-short waveform got {exc.code}")
+        log(f"phase 15 8 concurrent waveform requests "
+            f"({[round(len(w) / r, 2) for w, r in zip(waves, rates)]} s, "
+            f"one at 8 kHz) answered in {wall:.3f} s, each equal to the "
+            f"features request of the kernel's own features ({finished} "
+            f"with a finished hypothesis); fbank_deltas launches {moved}; a "
+            f"too-short waveform gets 400")
+    finally:
+        server.batcher.close()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        with torch.no_grad():
+            post_b[rec.eos_label] -= 1.5
+
+
+def lstm_step_ops(D):
+    """Operations of one LSTM step of one row: the recurrent product
+    (2 * D * 4D) and about twenty elementwise ones per unit."""
+    return 8 * D * D + 20 * D
+
+
+def lstm_phase(t, dev, results):
+    """Phase 16: lstm_scan at T=800, B=64, D=250 (both directions, and one
+    alone), and lstm_scan_train's forward and backward kernels at T=800,
+    B=32, both directions, vs their plain versions."""
+    import torch
+    from attention_lvcsr_torch.ops import lstm_scan as ls
+    from attention_lvcsr_torch.ops import lstm_train as lt
+    rng = np.random.RandomState(16)
+    D = 250
+
+    def operands(T, B, ndir):
+        lengths = rng.randint(300, T + 1, size=B)
+        lengths[0] = T
+        mask = t((np.arange(T)[:, None] < lengths[None]).astype(np.float32))
+        dirs = [(t(rng.randn(B, D) * 0.1), t(rng.randn(B, D) * 0.1),
+                 t(rng.randn(D, 4 * D) / np.sqrt(D)), t(rng.randn(D) * 0.1),
+                 t(rng.randn(D) * 0.1), t(rng.randn(D) * 0.1))
+                for _ in range(ndir)]
+        return t(rng.randn(T, B, 4 * D * ndir) * 0.5), mask, dirs
+
+    T, B = 800, 64
+    proj, mask, dirs = operands(T, B, 2)
+    got = ls.lstm_scan(proj, mask, *dirs)
+    ref = ls.lstm_scan_reference(proj, mask, *dirs)
+    one = ls.lstm_scan(proj[..., :4 * D].contiguous(), mask, dirs[0])
+    torch.cuda.synchronize()
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    err_one = max(float((g - r[..., :D]).abs().max())
+                  for g, r in zip(one, ref))
+    log(f"phase 16 lstm_scan T={T} B={B} D={D}, both directions: states "
+        f"and cells max abs err {err:.3e} (one direction alone: "
+        f"{err_one:.3e})")
+    if not max(err, err_one) <= 1e-5:
+        fail(f"lstm_scan disagrees with its plain version: {err}, {err_one}")
+    weights = [w for d in dirs for w in d]
+    results["lstm_scan"] = {
+        "max_abs_err": max(err, err_one),
+        "ms": cuda_ms(lambda: ls.lstm_scan(proj, mask, *dirs), 5),
+        "plain_ms": cuda_ms(lambda: ls.lstm_scan_reference(proj, mask,
+                                                           *dirs), 2),
+        **bound(nbytes(proj, mask, *weights, *got),
+                2 * T * B * lstm_step_ops(D)),
+        "library_ms": None}
+    log(f"  kernel {results['lstm_scan']['ms']:.3f} ms, plain "
+        f"{results['lstm_scan']['plain_ms']:.3f} ms, bound "
+        f"{results['lstm_scan']['bound_ms']:.3f} ms")
+
+    B = 32
+    proj, mask, dirs = operands(T, B, 2)
+    cots = [t(rng.randn(T, B, 2 * D))]
+    leaves = [proj] + [w for d in dirs for w in d]
+
+    def scan(fn):
+        return lambda p, *w: fn(p, mask, tuple(w[:6]), tuple(w[6:]))
+
+    (got, cells), ggot = grads_of(scan(lt.lstm_scan_train), leaves, cots)
+    (ref, ref_cells), gref = grads_of(scan(lt.lstm_scan_train_reference),
+                                      leaves, cots)
+    names = ["dx"] + [f"{n}[{i}]" for i in range(2) for n in (
+        "dh0", "dc0", "dW_state", "dpci", "dpcf", "dpco")]
+    errs = relative_errors(dict(zip(names, ggot)), dict(zip(names, gref)))
+    state_err = max(float((got - ref).abs().max()),
+                    float((cells - ref_cells).abs().max()))
+    log(f"phase 16 lstm_scan_train T={T} B={B} D={D}, both directions: "
+        f"states and cells max abs err {state_err:.3e}; gradients, max abs "
+        f"err over max abs value: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    # states: f32 in another summation order, 1e-5 absolute; gradients:
+    # sums over the reverse recurrence and, for the weights, over T*B =
+    # 25600 rows in another order (1e-4 of their scale)
+    if not (state_err <= 1e-5 and max(errs.values()) <= 1e-4):
+        fail("lstm_scan_train disagrees with its plain version")
+    repeat("lstm_scan_train", ggot, grads_of(scan(lt.lstm_scan_train),
+                                             leaves, cots))
+    fwd, plain = scan(lt.lstm_scan_train), scan(lt.lstm_scan_train_reference)
+    fwd_ms = cuda_ms(lambda: fwd(*leaves), 3)
+    bwd_ms = backward_ms(fwd, leaves, cots, 3)
+    plain_fwd = cuda_ms(lambda: plain(*leaves), 1)
+    plain_bwd = backward_ms(plain, leaves, cots, 1)
+    # forward: projections, mask, weights in; states, cells and the four
+    # gates out.  Backward: cotangent, cells, the four gates, states (the
+    # weight gradient's left factor), mask and weights in; the
+    # projections' and weights' gradients out; twice the forward's
+    # products (state gradient, weight gradient)
+    weights = leaves[1:]
+    fwd_bytes = nbytes(proj, mask, *weights) + 2 * nbytes(got) \
+        + 4 * nbytes(got)
+    bwd_bytes = nbytes(*cots) + 6 * nbytes(got) + nbytes(mask, *weights) \
+        + nbytes(proj, *weights)
+    ops = 2 * T * B * lstm_step_ops(D)
+    results["lstm_scan_train"] = {
+        "max_abs_err": max(state_err, *[
+            float((a - b).abs().max()) for a, b in zip(ggot, gref)]),
+        "ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+        "plain_ms": plain_fwd + plain_bwd, "plain_fwd_ms": plain_fwd,
+        "plain_bwd_ms": plain_bwd,
+        **bound(fwd_bytes + bwd_bytes, 3 * ops),
+        "fwd_bound_ms": bound(fwd_bytes, ops)["bound_ms"],
+        "bwd_bound_ms": bound(bwd_bytes, 2 * ops)["bound_ms"],
+        "library_ms": None}
+    log(f"  kernels: forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms; "
+        f"plain: forward {plain_fwd:.3f} ms, backward {plain_bwd:.3f} ms; "
+        f"bound {results['lstm_scan_train']['bound_ms']:.3f} ms")
+
+
+def lstm_model_phase(t, dev, launches, rates):
+    """Phase 17: the flagship network with a 4x250 BiLSTM encoder: the
+    beam-10 decode through lstm_scan + beam_search_loop and five training
+    steps through lstm_scan_train + decoder_scan_train, each against its
+    plain route."""
+    import torch
+    from __graft_entry__ import FLAGSHIP_NET
+    from attention_lvcsr_torch.models import cells as cells_mod
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    from attention_lvcsr_torch.ops import lstm_scan as ls
+    from attention_lvcsr_torch.search import beam as beam_mod
+    net = dict(FLAGSHIP_NET, enc_transition="LSTM")
+    rec = SpeechRecognizer(dict(net, max_decoded_length_scale=8.0),
+                           init_config=FLAGSHIP_INIT, seed=1234, device=dev)
+    rec.init_beam_search(10)
+    Bd, Td = 64, 800
+    feats = t(np.random.RandomState(17).randn(Bd, Td, 123))
+    fmask = torch.ones(Bd, Td, device=dev)
+
+    def decode():
+        out = rec.beam_search(feats, fmask, as_arrays=True)
+        torch.cuda.synchronize()
+        return out
+
+    ls.launches.reset()
+    bl.launches.reset()
+    out = decode()
+    moved = {"lstm_scan": ls.launches.count,
+             "beam_search_loop": bl.launches.count}
+    log(f"phase 17 launches in one LSTM-encoder decode: {moved}")
+    if min(moved.values()) < 1:
+        fail(f"the LSTM decode did not run through its kernels: {moved}")
+    launches["lstm_scan"] = moved["lstm_scan"]
+    if out["done_out"].shape != (Bd, 10, Td // 8) or not np.isfinite(
+            out["done_cost"][out["done_valid"]]).all():
+        fail(f"LSTM decode output has the wrong shape "
+             f"{out['done_out'].shape} or non-finite costs")
+    _, times = timed_decodes(decode, 3)
+    rates["lstm_decode_utt_per_s"] = Bd / statistics.median(times)
+    with swapped([(cells_mod, "lstm_scan", ls.lstm_scan_reference),
+                  (beam_mod, "beam_search_loop",
+                   bl.beam_search_loop_reference)]):
+        out_plain, ptimes = timed_decodes(decode, 1)
+    rates["plain_lstm_decode_utt_per_s"] = Bd / statistics.median(ptimes)
+    err = compare_outputs("LSTM decode", out, out_plain)
+    log(f"phase 17 LSTM-encoder decode B={Bd} frames={Td} beam=10 steps="
+        f"{int(out['steps'])}: kernel path "
+        f"{rates['lstm_decode_utt_per_s']:.2f} utt/s (median of 3, "
+        f"{[round(x, 4) for x in times]} s), plain path "
+        f"{rates['plain_lstm_decode_utt_per_s']:.2f} utt/s; outputs agree "
+        f"(max abs cost err {err:.3e})")
+
+    B = 32
+    batches = train_batches(t, dev, 5, seed=17)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, moved, got = train_steps(dev, net, batches, 5,
+                                       os.path.join(tmp, "lstm.zip"))
+        log(f"phase 17 launches in 5 LSTM-encoder training steps: {moved}")
+        if min(moved["lstm_scan_train"], moved["decoder_scan_train"],
+               moved["outer_sum"]) < 1 or moved["lstm_scan"]:
+            fail(f"the LSTM training step did not run through its kernels: "
+                 f"{moved}")
+        launches["lstm_scan_train"] = moved["lstm_scan_train"]
+        ref = plain_train_steps(dev, net, batches, 2,
+                                os.path.join(tmp, "lstm_plain.zip"))
+        steps_agree(17, "LSTM encoder", got, ref)
+        repeats("LSTM encoder", got, train_steps(
+            dev, net, batches, 5, os.path.join(tmp, "lstm_again.zip"))[3])
+    rates["lstm_train_step_utt_per_s"] = B / float(
+        np.median(got["time_train_this_batch"]))
+    rates["plain_lstm_train_step_utt_per_s"] = B / float(
+        np.median(ref["time_train_this_batch"]))
+    log(f"phase 17 LSTM-encoder training step B={B} frames=800 labels=100: "
+        f"kernel route {rates['lstm_train_step_utt_per_s']:.2f} utt/s "
+        f"(median of 5 steps), plain route "
+        f"{rates['plain_lstm_train_step_utt_per_s']:.2f} utt/s (2 steps); a "
+        f"second kernel run repeats the monitors bit for bit")
 
 
 if __name__ == "__main__":

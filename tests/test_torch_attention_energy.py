@@ -58,7 +58,7 @@ def test_module_glimpse_matches_jax(mode, prior):
     cfg = dict(_tiny_net_config(), prior=prior)
     jax_rec = JaxRecognizer(dict(cfg, use_pallas=mode), init_config=INIT,
                             seed=3)
-    port = SpeechRecognizer(cfg, init_config=INIT, seed=3)
+    port = SpeechRecognizer(cfg, init_config=INIT, seed=3, device="cpu")
     U, K, L = 3, 4, 17
     D = port.net.generator.attention.attended_dim
     x = _glimpse_inputs(np.random.RandomState(1), U, K, L, D, 16)

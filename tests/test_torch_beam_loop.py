@@ -48,7 +48,8 @@ def _pair(prior=None, states_readout=False):
                                 init_config=INIT, seed=7)
         p = jax_rec.params["params"]["generator"]["readout"]["post_merge_0"]
         p["bias"] = p["bias"].at[EOS].add(1.5)
-        port = SpeechRecognizer(cfg, init_config=INIT, seed=7)
+        port = SpeechRecognizer(cfg, init_config=INIT, seed=7,
+                                device="cpu")
         load_path_dict(port.net, param_path_dict(jax_rec.params))
         _CACHE[key] = (jax_rec, port)
     return _CACHE[key]

@@ -41,7 +41,7 @@ def _recognizers(mode):
         p = jax_rec.params["params"]["generator"]["readout"]["post_merge_0"]
         p["bias"] = p["bias"].at[EOS].add(3.0)
         port = SpeechRecognizer(dict(cfg, use_pallas=mode), init_config=INIT,
-                                seed=5)
+                                seed=5, device="cpu")
         port.net.generator.readout.post_merge_0.bias.data[EOS] += 3.0
         _CACHE[mode] = (jax_rec, port)
     return _CACHE[mode]

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card.  Marked ``cuda``: they skip without a CUDA device, and run there
-with ``python -m pytest -m cuda tests/test_torch_cuda.py`` (no JAX
-needed)."""
+with ``python -m pytest -m cuda tests/test_torch_cuda.py --noconftest``
+(no JAX needed)."""
 import numpy as np
 import pytest
 import torch
@@ -12,6 +12,7 @@ from attention_lvcsr_torch.ops import beam_loop as bl
 from attention_lvcsr_torch.ops import decode_score as ds
 from attention_lvcsr_torch.ops import fst
 from attention_lvcsr_torch.ops import gru_scan as gs
+from attention_lvcsr_torch.ops import outer_sum as osum
 from attention_lvcsr_torch.search.beam import DecodeConstraint
 
 pytestmark = pytest.mark.cuda
@@ -258,9 +259,10 @@ def test_gru_scan_train_kernels_match_plain(device, T, B, D, ndir):
                                 tuple(w[3:]) if ndir == 2 else None)
 
     counter = gt.launches if ndir == 1 else gt.launches_bidir
-    before = counter.count
+    before, sums = counter.count, osum.launches.count
     got, ggot = _grads(scan(gt.gru_scan_train), leaves, [cot])
-    assert counter.count == before + 3      # forward, backward, outer_sum
+    assert counter.count == before + 2      # forward, backward
+    assert osum.launches.count == sums + 2  # outer_sum's two kernels
     _, again = _grads(scan(gt.gru_scan_train), leaves, [cot])
     assert all(torch.equal(g, h) for g, h in zip(ggot, again))  # bit for bit
     ref, gref = _grads(scan(gt.gru_scan_train_reference), leaves, [cot])
@@ -309,9 +311,10 @@ def test_decoder_scan_train_kernels_match_plain(device, prior, T, B, L, M,
                       hand, v, wss, wsg, dxm, dgm, prior=prior)
         return call
 
-    before = dt.launches.count
+    before, sums = dt.launches.count, osum.launches.count
     got, ggot = _grads(scan(dt.decoder_scan_train), leaves, cots)
-    assert dt.launches.count == before + 3   # forward, backward, outer_sum
+    assert dt.launches.count == before + 2   # forward, backward
+    assert osum.launches.count == sums + 2   # outer_sum's two kernels
     _, again = _grads(scan(dt.decoder_scan_train), leaves, cots)
     assert all(torch.equal(g, h) for g, h in zip(ggot, again))  # bit for bit
     ref, gref = _grads(scan(dt.decoder_scan_train_reference), leaves, cots)
@@ -332,3 +335,153 @@ def test_decoder_scan_train_kernel_refuses_other_variants(device):
                               normalizer="relu")
     with pytest.raises(NotImplementedError, match="window_around_mean"):
         dt.decoder_scan_train(*args, prior={"type": "window_around_mean"})
+
+
+def _lstm_operands(rng, device, T, B, D, ndir):
+    f = lambda *s, scale=0.5: torch.tensor(
+        rng.randn(*s).astype(np.float32) * scale, device=device)
+    lengths = rng.randint(1, T + 1, size=B)
+    lengths[0] = T
+    mask = torch.tensor((np.arange(T)[:, None] < lengths[None])
+                        .astype(np.float32), device=device)
+    dirs = [(f(B, D, scale=0.3), f(B, D, scale=0.3),
+             f(D, 4 * D, scale=D ** -0.5), f(D, scale=0.3), f(D, scale=0.3),
+             f(D, scale=0.3)) for _ in range(ndir)]
+    return f(T, B, 4 * D * ndir), mask, dirs
+
+
+@pytest.mark.parametrize("T,B,D,ndir", [(13, 3, 8, 1), (40, 9, 250, 2),
+                                        (17, 35, 280, 2), (9, 5, 33, 1)])
+def test_lstm_scan_kernel_matches_plain(device, T, B, D, ndir):
+    """One direction, or both in one launch (the backward in reverse
+    time); states and cells within 1e-5."""
+    from attention_lvcsr_torch.ops import lstm_scan as ls
+    rng = np.random.RandomState(T + B + D + ndir)
+    proj, mask, dirs = _lstm_operands(rng, device, T, B, D, ndir)
+    before = ls.launches.count
+    got = ls.lstm_scan(proj, mask, *dirs)
+    assert ls.launches.count == before + 1
+    ref = ls.lstm_scan_reference(proj, mask, *dirs)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("T,B,D,ndir,cells", [(13, 3, 8, 1, True),
+                                              (40, 9, 250, 2, False),
+                                              (17, 35, 250, 2, True),
+                                              (9, 5, 33, 1, False)])
+def test_lstm_scan_train_kernels_match_plain(device, T, B, D, ndir, cells):
+    """Forward (lstm_scan.cu with residuals) and backward (lstm_train.cu,
+    then outer_sum.cu) vs autograd through the plain scan, with a cells
+    cotangent or without one (the encoder's case)."""
+    from attention_lvcsr_torch.ops import lstm_train as lt
+    rng = np.random.RandomState(T * B + D + ndir)
+    proj, mask, dirs = _lstm_operands(rng, device, T, B, D, ndir)
+    cots = [torch.tensor(rng.randn(T, B, D * ndir).astype(np.float32),
+                         device=device) for _ in range(1 + cells)]
+    leaves = [proj] + [w for d in dirs for w in d]
+
+    def scan(fn):
+        return lambda p, *w: fn(p, mask, tuple(w[:6]),
+                                tuple(w[6:]) if ndir == 2 else None)
+
+    before, sums = lt.launches.count, osum.launches.count
+    got, ggot = _grads(scan(lt.lstm_scan_train), leaves, cots)
+    assert lt.launches.count == before + 2      # forward, backward
+    assert osum.launches.count == sums + 2      # outer_sum's two kernels
+    _, again = _grads(scan(lt.lstm_scan_train), leaves, cots)
+    assert all(torch.equal(g, h) for g, h in zip(ggot, again))  # bit for bit
+    ref, gref = _grads(scan(lt.lstm_scan_train_reference), leaves, cots)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
+    for g, r in zip(ggot, gref):
+        torch.testing.assert_close(g, r, atol=1e-4 * float(r.abs().max()),
+                                   rtol=1e-4)
+
+
+def test_lstm_scans_too_wide_raise(device):
+    """D=320 does not fit the forward cluster's shared memory, D=290 the
+    backward's: no launch, NotImplementedError naming the width."""
+    from attention_lvcsr_torch.ops import lstm_scan as ls
+    from attention_lvcsr_torch.ops import lstm_train as lt
+    rng = np.random.RandomState(0)
+    proj, mask, dirs = _lstm_operands(rng, device, 3, 2, 320, 2)
+    before = ls.launches.count
+    with pytest.raises(NotImplementedError, match="D=320"):
+        ls.lstm_scan(proj, mask, *dirs)
+    assert ls.launches.count == before
+    proj, mask, dirs = _lstm_operands(rng, device, 3, 2, 290, 1)
+    before = lt.launches.count
+    with pytest.raises(NotImplementedError, match="D=290"):
+        lt.lstm_scan_train(proj, mask, *dirs)
+    assert lt.launches.count == before
+
+
+@pytest.mark.parametrize("sample_rate,B,use_energy,order", [
+    (16000, 5, True, 2), (8000, 3, False, 2), (16000, 2, True, 1),
+    (16000, 1, True, 0)])
+def test_fbank_deltas_kernel_matches_plain(device, sample_rate, B,
+                                           use_energy, order):
+    """Ragged true frame counts (one of 3 frames); the log domain within
+    1e-3 over every row (rows past a count are copies of its last)."""
+    from attention_lvcsr_torch.ops import frontend as fe
+    rng = np.random.RandomState(sample_rate + B)
+    N = int(sample_rate * 1.3) + 17
+    t = np.arange(N) / sample_rate
+    wav = torch.tensor((0.3 * np.sin(2 * np.pi * 440 * t)[None]
+                        + 0.05 * rng.randn(B, N)).astype(np.float32),
+                       device=device)
+    T = 1 + (N - fe.frame_geometry(sample_rate)[0]) \
+        // fe.frame_geometry(sample_rate)[1]
+    counts = torch.tensor([T] + [3] * (B > 1) + list(
+        rng.randint(1, T + 1, size=max(B - 2, 0))), device=device)
+    kw = dict(sample_rate=sample_rate, use_energy=use_energy,
+              deltas_order=order)
+    before = fe.launches.count
+    got = fe.fbank_deltas(wav, counts, **kw)
+    assert fe.launches.count == before + 1
+    ref = fe.fbank_deltas_plain(wav, counts, **kw)
+    torch.testing.assert_close(got, ref, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("sample_rate,order,match", [
+    (96000, 2, "96000 Hz"), (16000, 16, "order 16")])
+def test_fbank_deltas_beyond_the_kernel_raises(device, sample_rate, order,
+                                               match):
+    """A 96 kHz tile overflows a block's shared memory; order 16 makes the
+    delta halo half a tile: NotImplementedError naming it, no launch."""
+    from attention_lvcsr_torch.ops import frontend as fe
+    wav = torch.zeros(1, sample_rate // 2, device=device)
+    before = fe.launches.count
+    with pytest.raises(NotImplementedError, match=match):
+        fe.fbank_deltas(wav, sample_rate=sample_rate, deltas_order=order)
+    assert fe.launches.count == before
+
+
+@pytest.mark.parametrize("rows,shapes,gated", [
+    (13, [(8, 24), (8, 16)], True), (25600 // 64, [(250, 1000)], False),
+    (700, [(250, 250), (250, 500), (1, 750)], True)])
+def test_outer_sum_kernel_matches_plain(device, rows, shapes, gated):
+    """Both kernels of outer_sum.cu vs one matrix product per job, on
+    column slices of wider tensors; a second call repeats bit for bit."""
+    rng = np.random.RandomState(rows)
+    f = lambda *s: torch.tensor(rng.randn(*s).astype(np.float32),
+                                device=device)
+    wide = f(rows, sum(J for _, J in shapes))
+    jobs, col = [], 0
+    for k, (I, J) in enumerate(shapes):
+        a2 = f(rows, I) if gated and k == 0 else None
+        jobs.append((f(rows, I), a2, wide[:, col:col + J], f(I, J)))
+        col += J
+    ref = [(a, a2, b, c.clone()) for a, a2, b, c in jobs]
+    got = [(a, a2, b, c.clone()) for a, a2, b, c in jobs]
+    again = [(a, a2, b, c.clone()) for a, a2, b, c in jobs]
+    before = osum.launches.count
+    osum.outer_sum(got, wide)
+    assert osum.launches.count == before + 2
+    osum.outer_sum(again, wide)
+    osum.outer_sum_plain(ref)
+    for (_, _, _, g), (_, _, _, h), (_, _, _, r) in zip(got, again, ref):
+        assert torch.equal(g, h)
+        torch.testing.assert_close(g, r, rtol=1e-5,
+                                   atol=1e-5 * float(r.abs().max()))

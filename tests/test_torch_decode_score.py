@@ -74,7 +74,7 @@ def test_fused_score_tables_match_jax():
                             "biases_init": ["isotropic_gaussian", 0.5],
                             "rec_weights_init": ["orthogonal"]}}
     jax_rec = JaxRecognizer(cfg, init_config=init, seed=9)
-    port = SpeechRecognizer(cfg, init_config=init, seed=9)
+    port = SpeechRecognizer(cfg, init_config=init, seed=9, device="cpu")
     L = 13
     ref = jax_rec.net.apply(
         jax_rec.params, method=lambda net: net.generator.fused_score_tables(

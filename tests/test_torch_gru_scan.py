@@ -111,7 +111,8 @@ def test_encode_matches_jax_on_padded_batch(mode):
     cfg = _tiny_net_config()
     jax_rec = JaxRecognizer(dict(cfg, use_pallas=mode), init_config=INIT,
                             seed=11)
-    port = SpeechRecognizer(cfg, init_config=INIT, seed=11)
+    port = SpeechRecognizer(cfg, init_config=INIT, seed=11,
+                            device="cpu")
     rng = np.random.RandomState(4)
     x = rng.randn(3, 29, 12).astype(np.float32)
     lengths = np.array([29, 17, 6])

@@ -14,8 +14,11 @@ from attention_lvcsr_torch import _build
 from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
 from attention_lvcsr_torch.ops.beam_loop import beam_search_loop
 from attention_lvcsr_torch.ops.decoder_train import decoder_scan_train
+from attention_lvcsr_torch.ops.frontend import fbank_deltas
 from attention_lvcsr_torch.ops.gru_scan import gru_scan
 from attention_lvcsr_torch.ops.gru_train import gru_scan_train
+from attention_lvcsr_torch.ops.lstm_scan import lstm_scan
+from attention_lvcsr_torch.ops.lstm_train import lstm_scan_train
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,6 +44,10 @@ MODULES = [
     "attention_lvcsr_torch.ops.gru_train",
     "attention_lvcsr_torch.ops.decoder_train",
     "attention_lvcsr_torch.ops.outer_sum",
+    "attention_lvcsr_torch.ops.lstm_scan",
+    "attention_lvcsr_torch.ops.lstm_train",
+    "attention_lvcsr_torch.ops.frontend",
+    "attention_lvcsr_torch.data.features",
     "attention_lvcsr_torch.search.beam",
     "attention_lvcsr_torch.serve",
     "attention_lvcsr_torch.config",
@@ -150,6 +157,13 @@ def test_wrappers_raise_on_a_device_without_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         beam_search_loop(meta(2, 5, 3), meta(2, 5, 4), meta(2, 5), {},
                          beam=2, max_len=3, eol=0)
+    lstm = (meta(2, 4), meta(2, 4), meta(4, 16), meta(4), meta(4), meta(4))
+    with pytest.raises(ValueError, match="no kernel"):
+        lstm_scan(meta(3, 2, 16), None, lstm)
+    with pytest.raises(ValueError, match="no kernel"):
+        lstm_scan_train(meta(3, 2, 16), None, lstm)
+    with pytest.raises(ValueError, match="no kernel"):
+        fbank_deltas(meta(2, 800))
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -166,6 +180,15 @@ def test_cuda_recognizer_without_cuda_raises():
         SpeechRecognizer(TINY, device="cuda")
 
 
+def test_recognizer_defaults_to_the_card():
+    """A caller who names no device gets the card: without one it raises,
+    never falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises((RuntimeError, AssertionError)):
+        SpeechRecognizer(TINY)
+
+
 @pytest.mark.parametrize("override,piece", [
     ({"attention_type": "content"}, "content"),
     ({"conv_num_filters": 3}, "filters"),
@@ -177,21 +200,24 @@ def test_cuda_recognizer_without_cuda_raises():
      "normalizer"),
     ({"prior": {"type": "window_around_mean", "before": 1, "after": 1}},
      "prior"),
-    ({"enc_transition": "lstm"}, "GRU"),
+    ({"dec_transition": "lstm"}, "GRU"),
+    ({"enc_transition": "SimpleRecurrent"}, "SimpleRecurrent"),
 ])
 def test_unported_variants_raise(override, piece):
     with pytest.raises(NotImplementedError, match=piece):
-        SpeechRecognizer(dict(TINY, **override))
+        SpeechRecognizer(dict(TINY, **override), device="cpu")
 
 
 def test_unported_search_options_raise():
     """bf16 decoding raises on both routes: the loop kernel's and the
     module-driven decode a validator takes."""
     x = np.zeros((4, 5), np.float32)
-    rec = SpeechRecognizer(dict(TINY, compute_dtype="bfloat16"))
+    rec = SpeechRecognizer(dict(TINY, compute_dtype="bfloat16"),
+                           device="cpu")
     with pytest.raises(NotImplementedError, match="float32"):
         rec.beam_search(x, as_arrays=True)
     with pytest.raises(NotImplementedError, match="float32"):
         rec.beam_search(x, validate_solution_function=lambda *a: True)
     with pytest.raises(TypeError, match="DecodeConstraint"):
-        SpeechRecognizer(TINY).beam_search(x, validate_solution_function=3)
+        SpeechRecognizer(TINY, device="cpu").beam_search(
+            x, validate_solution_function=3)

@@ -164,7 +164,7 @@ def _recognizers(mode, tmp_dir, lm=True):
         p = jax_rec.params["params"]["generator"]["readout"]["post_merge_0"]
         p["bias"] = p["bias"].at[EOS].add(3.0)
         port = SpeechRecognizer(dict(cfg, use_pallas=mode), init_config=INIT,
-                                seed=7)
+                                seed=7, device="cpu")
         port.net.generator.readout.post_merge_0.bias.data[EOS] += 3.0
         _CACHE[key] = (jax_rec, port)
     return _CACHE[key]

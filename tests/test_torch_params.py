@@ -46,7 +46,8 @@ def test_init_bit_identical_to_jax(name, seed):
     cfg, init = _configs()[name]
     jax_params = param_path_dict(
         JaxRecognizer(cfg, init_config=init, seed=seed).params)
-    port = SpeechRecognizer(cfg, init_config=init, seed=seed)
+    port = SpeechRecognizer(cfg, init_config=init, seed=seed,
+                            device="cpu")
     port_params = port.param_path_dict()
     assert sorted(port_params) == sorted(jax_params)
     for key, value in jax_params.items():
@@ -68,7 +69,7 @@ def test_jax_checkpoint_loads_into_port(tmp_path, writer):
                 np.zeros(3, np.float32)}))
     else:
         save_parameters(path, path_dict)
-    port = SpeechRecognizer(cfg, init_config=init, seed=3)
+    port = SpeechRecognizer(cfg, init_config=init, seed=3, device="cpu")
     port.load_params(path)
     loaded = port.param_path_dict()
     assert sorted(loaded) == sorted(path_dict)
@@ -78,7 +79,7 @@ def test_jax_checkpoint_loads_into_port(tmp_path, writer):
 
 def test_load_path_dict_rejects_missing_and_unexpected_keys():
     cfg, init = _configs()["tiny"]
-    port = SpeechRecognizer(cfg, init_config=init)
+    port = SpeechRecognizer(cfg, init_config=init, device="cpu")
     full = port.param_path_dict()
     some_key = sorted(full)[0]
     missing = {k: v for k, v in full.items() if k != some_key}

@@ -51,7 +51,8 @@ def server():
     rec = SpeechRecognizer(NET_CONFIG, init_config={
         "/recognizer": {"weights_init": ["isotropic_gaussian", 0.5],
                         "biases_init": ["constant", 0.0],
-                        "rec_weights_init": ["orthogonal"]}}, seed=7)
+                        "rec_weights_init": ["orthogonal"]}}, seed=7,
+        device="cpu")
     rec.net.generator.readout.post_merge_0.bias.data[EOS] += 1.5
     transcriber = Transcriber(rec, beam_size=3,
                               search_kwargs={"char_discount": 0.1})
@@ -98,13 +99,91 @@ def test_decode_endpoint_matches_direct(server):
     assert finished, "vacuous: nothing finished"
 
 
-def test_waveform_request_is_refused_cleanly(server):
+@pytest.mark.parametrize("payload,message", [
+    ({"waveform": [0.1] * 399, "sample_rate": 16000}, "too short"),
+    ({"waveform": [0.1] * 199, "sample_rate": 8000}, "too short"),
+    ({"waveform": [0.1] * 4000}, "6-dim")])
+def test_waveform_request_is_refused_cleanly(server, payload, message):
+    """A waveform shorter than one frame, or one whose 123-dim features
+    the model does not take, is answered 400."""
     srv, _ = server
     with pytest.raises(urllib.error.HTTPError) as err:
-        _post(srv.server_address, {"waveform": [0.0] * 4000,
-                                   "sample_rate": 16000})
+        _post(srv.server_address, payload)
     assert err.value.code == 400
-    assert "not ported" in json.loads(err.value.read())["error"]
+    assert message in json.loads(err.value.read())["error"]
+
+
+def _speech_like(rng, seconds, sample_rate):
+    t = np.arange(int(seconds * sample_rate)) / sample_rate
+    return (0.3 * np.sin(2 * np.pi * 440 * t)
+            + 0.2 * np.sin(2 * np.pi * 1330 * t)
+            + 0.05 * rng.randn(len(t))).astype(np.float32)
+
+
+def test_waveform_requests_match_the_jax_package():
+    """Waveforms to the port's server on the CPU (its frontend's plain
+    version, then the decode) vs the JAX ``Transcriber`` on the same
+    weights (its device frontend, then its decode): the same labels, the
+    cost within 1e-4 relative (both frontends are f32, with the DFT in
+    another form: matmul vs rFFT).  A too-short waveform gets 400 from
+    both servers."""
+    from attention_lvcsr_tpu.models.recognizer import \
+        SpeechRecognizer as JaxRecognizer
+    from attention_lvcsr_tpu.models.recognizer import param_path_dict
+    from attention_lvcsr_tpu.serve import Transcriber as JaxTranscriber
+    from attention_lvcsr_tpu.serve import make_server as jax_make_server
+    from attention_lvcsr_torch.models.params import load_path_dict
+    cfg = dict(NET_CONFIG, input_dims={"recordings": 123})
+    init = {"/recognizer": {"weights_init": ["isotropic_gaussian", 0.2],
+                            "biases_init": ["constant", 0.0],
+                            "rec_weights_init": ["orthogonal"]}}
+    jax_rec = JaxRecognizer(dict(cfg, input_num_chars={}), init_config=init,
+                            seed=3)
+    post = jax_rec.params["params"]["generator"]["readout"]["post_merge_0"]
+    post["bias"] = post["bias"].at[EOS].add(1.5)
+    port = SpeechRecognizer(cfg, device="cpu")
+    load_path_dict(port.net, param_path_dict(jax_rec.params))
+    search = {"char_discount": 0.1}
+    jax_transcriber = JaxTranscriber(jax_rec, beam_size=3,
+                                     search_kwargs=search)
+    servers = [make_server(Transcriber(port, beam_size=3,
+                                       search_kwargs=search), port=0,
+                           max_batch=1, batch_wait_ms=5),
+               jax_make_server(jax_transcriber, port=0, max_batch=1,
+                               batch_wait_ms=5)]
+    threads = [threading.Thread(target=srv.serve_forever, daemon=True)
+               for srv in servers]
+    for thread in threads:
+        thread.start()
+    try:
+        rng = np.random.RandomState(6)
+        finished = 0
+        for seconds, rate in ((0.45, 16000), (0.3, 8000), (0.62, 16000)):
+            wav = _speech_like(rng, seconds, rate)
+            status, got = _post(servers[0].server_address,
+                                {"waveform": wav.tolist(),
+                                 "sample_rate": rate})
+            feats = jax_transcriber.features_from_waveform(wav, rate)
+            ref = jax_transcriber.transcribe_batch([feats])[0]
+            assert status == 200
+            assert got["labels"] == ref["labels"]
+            assert got["transcript"] == ref["transcript"]
+            if ref["cost"] is not None:
+                finished += 1
+                assert got["cost"] == pytest.approx(ref["cost"], rel=1e-4)
+        assert finished, "vacuous: nothing finished"
+        for srv in servers:
+            with pytest.raises(urllib.error.HTTPError) as err:
+                _post(srv.server_address, {"waveform": [0.1] * 300})
+            assert err.value.code == 400
+            assert "too short" in json.loads(err.value.read())["error"]
+    finally:
+        for srv, thread in zip(servers, threads):
+            srv.batcher.close()
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=30)
+            assert not thread.is_alive()
 
 
 def test_npy_body_decodes_like_json(server):

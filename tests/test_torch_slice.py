@@ -27,7 +27,8 @@ def _recognizers(mode, bidir=True):
                                 seed=7)
         p = jax_rec.params["params"]["generator"]["readout"]["post_merge_0"]
         p["bias"] = p["bias"].at[eos].add(3.0)
-        port = SpeechRecognizer(cfg, init_config=INIT, seed=7)
+        port = SpeechRecognizer(cfg, init_config=INIT, seed=7,
+                                device="cpu")
         port.net.generator.readout.post_merge_0.bias.data[eos] += 3.0
         _CACHE[mode, bidir] = (jax_rec, port)
     return _CACHE[mode, bidir]
