@@ -23,23 +23,47 @@
 // formed here: ops/gru_train.py reduces the dx_in and dx_gate rows this
 // kernel writes with outer_sum.cu after it, off the recurrence's chain.
 //
-// What bounds it on the card: latency, as in the forward: two dependent
-// products per step (D x D, then 2D x D) over 16 batch rows.  The design
-// is the forward's (gru_cluster.cuh): an 8-block cluster serves 16 rows of
-// one direction, block j owns state columns [j*n, (j+1)*n) and keeps the
-// rows of w_state and w_gates that produce them, transposed (3*D*n floats,
-// 96 KB at D=250), in shared memory for the whole scan; the carried state
-// gradient of its columns stays in registers.  Per step a block computes
-// its columns' da and broadcasts it into every block of the cluster
-// (distributed shared memory), meets them at a cluster barrier, computes
-// its columns of dhr and dg and broadcasts dg, meets them again, and
-// finishes its columns of dh_prev.  Widths whose weight slices and gradient
-// buffers do not fit in a block's shared memory (D above about 310) are not
+// What bounds it on the card: latency.  Each step is two dependent
+// products (D x D, then 2D x D) over 16 batch rows, spread over a cluster,
+// with two cluster-wide exchanges between them.  A 16-block cluster (a
+// non-portable size, launched with cudaLaunchKernelEx) serves 16 rows of
+// one direction; block j owns the n state columns [j*n, (j+1)*n) (n =
+// ceil(D/16) rounded up to even, so the cluster covers Dp = 16n >= D
+// columns, the padding zero) and keeps the rows of w_state and w_gates
+// that produce them, transposed (3*Dp*n floats, 48 KB at D=250), in shared
+// memory for the whole scan; the carried state gradient of its columns
+// stays in registers.  Sixteen blocks rather than the forward's eight
+// halve each block's products, which the phase probes show dominate once
+// the exchanges are cheap.  What the design does about the latency:
+//
+// * operands off the chain: the next step's u, r, c, h_prev, dstates and
+//   mask for the block's (row, column) items are copied into a stage with
+//   cp.async while this step's gate path runs; each thread copies exactly
+//   the items it later reads, so the stage needs no barrier.  The copies
+//   are issued after the step's last cluster arrive: a release arrive
+//   waits for the thread's outstanding reads, and these would stall it;
+// * pull, not push: a block writes its da (then dg) slice once, into its
+//   own k-major copy; after the cluster barrier every block pulls the
+//   peers' slices with 16-byte distributed-shared-memory loads (the slice
+//   of block q is the contiguous k range [q*n, (q+1)*n)), instead of 24
+//   scalar remote stores per item;
+// * a split barrier: after writing its dg slice a block arrives, issues
+//   the prefetch and the step's dx_in / dx_gate stores, and only then
+//   waits for the cluster (the da exchange has no such work to overlap);
+// * short k-chains: a thread computes 8 rows x 2 columns (two float4s of
+//   the gradient and one float2 of the weights feed 16 FMAs) over one of
+//   up to 8 k slices (32 and 64 dependent steps at D=250); the slices'
+//   partial sums are added in slice order, so the result repeats bit for
+//   bit.
+//
+// Widths whose weight slices and buffers do not fit in a block's shared
+// memory (D above 384, and the forward's limit, about D=330) are not
 // covered: gru_train_supported() says so before a launch.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "gru_cluster.cuh"
+#include "sm90_async.cuh"
 
 // Must match the ctypes.Structures in ops/gru_train.py field for field.
 struct GruBwdDir {
@@ -65,146 +89,295 @@ struct GruBwdArgs {
 
 namespace {
 
+constexpr int kBwdCluster = 16;    // blocks per cluster (non-portable)
+constexpr int kItems = 2;          // (row, owned column) items per thread
+constexpr int kOperands = 6;       // staged per item: u, r, c, h_prev,
+                                   // dstates, mask
+
+constexpr int kTileRows = 8;       // a product thread's register tile:
+constexpr int kTileCols = 2;       //   8 rows x 2 columns of one k slice
+constexpr int kMaxSlices = 8;      // k slices per product output
+constexpr int kAhead = 4;          // k steps loaded ahead
+
 struct BwdLayout {
-  int n, ws, wg, da, dg, part, total;   // offsets in floats
+  int n, Dp, slices;                       // columns, padded width, slices
+  int ws, wg, da, dg, stage, part, total;  // offsets in floats
 };
 
-// da, dg and part start on 16-byte boundaries (float4 loads)
+// every buffer starts on a 16-byte boundary (float4 pulls and loads)
 __host__ __device__ inline BwdLayout bwd_layout(int D) {
   BwdLayout o;
-  o.n = (D + kCluster - 1) / kCluster;
-  o.ws = 0;                                   // (D, n): w_state[c0 + c][k]
-  o.wg = o.ws + D * o.n;                      // (2D, n): w_gates[c0 + c][k]
-  o.da = (o.wg + 2 * D * o.n + 3) / 4 * 4;    // (D, kGroupRows)
-  o.dg = o.da + D * kGroupRows;               // (2D, kGroupRows)
-  o.part = o.dg + 2 * D * kGroupRows;
-  o.total = o.part + kPartFloats;
+  o.n = ((D + kBwdCluster - 1) / kBwdCluster + 1) / 2 * 2;
+  o.Dp = kBwdCluster * o.n;
+  const int tiles = (kGroupRows / kTileRows) * (o.n / kTileCols);
+  o.slices = max(1, min(kMaxSlices, kClusterThreads / tiles));
+  o.ws = 0;                                 // (Dp, n): w_state[c0 + c][k]
+  o.wg = o.ws + o.Dp * o.n;                 // (2Dp, n): w_gates[c0 + c][.]
+  o.da = o.wg + 2 * o.Dp * o.n;             // (Dp, kGroupRows) da, k-major
+  o.dg = o.da + o.Dp * kGroupRows;          // (2Dp, kGroupRows) [du | dr]
+  o.stage = o.dg + 2 * o.Dp * kGroupRows;   // (kOperands, kGroupRows * n)
+  o.part = o.stage + kOperands * kGroupRows * o.n;
+  o.total = o.part + o.slices * kGroupRows * o.n;
   return o;
 }
 
 __host__ inline bool bwd_fits(int D, int max_smem) {
   const BwdLayout o = bwd_layout(D);
-  return (kGroupRows / kRowsPerThread) * o.n <= kClusterThreads
+  return kGroupRows * o.n <= kItems * kClusterThreads
          && (size_t)o.total * sizeof(float) <= (size_t)max_smem;
 }
 
-__global__ void __cluster_dims__(kCluster, 1, 1)
-    __launch_bounds__(kClusterThreads, 1)
-    gru_bwd_kernel(GruBwdArgs a) {
+// part[(q * kGroupRows + row) * n + c] = sum over k in slice q of `K` of
+// x[k * kGroupRows + row] * w[k * n + c].  A thread takes kTileRows rows x
+// kTileCols columns of one slice: two float4s of x and one float2 of w a k
+// step, with kAhead steps' loads issued before their FMAs.
+__device__ __forceinline__ void tile_partials(const float* x, const float* w,
+                                              int n, int K, int slices,
+                                              float* part) {
+  constexpr int R = kTileRows, C = kTileCols;
+  const int groups = n / C, tiles = (kGroupRows / R) * groups;
+  const int item = threadIdx.x;
+  if (item >= slices * tiles) return;
+  const int q = item / tiles, rem = item % tiles;
+  const int rg = rem / groups, c = (rem % groups) * C;
+  const int k0 = q * K / slices, k1 = (q + 1) * K / slices;
+  const float* xp = x + rg * R;
+  const float* wp = w + c;
+  float acc[R][C];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i][0] = acc[i][1] = 0.f;
+  auto load = [&](int k, float (&xs)[R], float2& ws) {
+    const float4 lo = *reinterpret_cast<const float4*>(xp + k * kGroupRows);
+    const float4 hi = *reinterpret_cast<const float4*>(
+        xp + k * kGroupRows + 4);
+    xs[0] = lo.x;
+    xs[1] = lo.y;
+    xs[2] = lo.z;
+    xs[3] = lo.w;
+    xs[4] = hi.x;
+    xs[5] = hi.y;
+    xs[6] = hi.z;
+    xs[7] = hi.w;
+    ws = *reinterpret_cast<const float2*>(wp + k * n);
+  };
+  auto step = [&](const float (&xs)[R], const float2& ws) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      acc[i][0] = fmaf(xs[i], ws.x, acc[i][0]);
+      acc[i][1] = fmaf(xs[i], ws.y, acc[i][1]);
+    }
+  };
+  int k = k0;
+  for (; k + kAhead <= k1; k += kAhead) {
+    float xs[kAhead][R];
+    float2 ws[kAhead];
+#pragma unroll
+    for (int s = 0; s < kAhead; ++s) load(k + s, xs[s], ws[s]);
+#pragma unroll
+    for (int s = 0; s < kAhead; ++s) step(xs[s], ws[s]);
+  }
+  for (; k < k1; ++k) {
+    float xs[R];
+    float2 ws;
+    load(k, xs, ws);
+    step(xs, ws);
+  }
+  float* out = part + (q * kGroupRows + rg * R) * n + c;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    out[i * n] = acc[i][0];
+    out[i * n + 1] = acc[i][1];
+  }
+}
+
+__device__ __forceinline__ float slice_sum(const float* part, int slices,
+                                           int n, int r, int c) {
+  float s = part[r * n + c];
+  for (int q = 1; q < slices; ++q) s += part[(q * kGroupRows + r) * n + c];
+  return s;
+}
+
+// Copy every peer's slices of the k-major buffer `buf` into ours: `parts`
+// regions Dp rows apart, block q's slice of each the rows [q*n, (q+1)*n).
+// Four 16-byte remote loads are in flight per thread before their stores.
+__device__ __forceinline__ void pull_peers(cooperative_groups::cluster_group&
+                                               cluster,
+                                           float* buf, int n, int Dp,
+                                           int parts, int self) {
+  const int per = n * kGroupRows / 4;             // float4s of one slice
+  const int count = parts * kBwdCluster * per;
+  float4* mine = reinterpret_cast<float4*>(buf);
+  for (int base = threadIdx.x; base < count; base += 4 * kClusterThreads) {
+    float4 v[4];
+    int at[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = base + u * kClusterThreads;
+      const int part = i / (kBwdCluster * per), q = (i / per) % kBwdCluster;
+      at[u] = i < count && q != self ? part * Dp * kGroupRows / 4
+                                           + i % (kBwdCluster * per)
+                                     : -1;
+      if (at[u] >= 0)
+        v[u] = reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(buf, q))[at[u]];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (at[u] >= 0) mine[at[u]] = v[u];
+  }
+}
+
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    gru_bwd_kernel(const __grid_constant__ GruBwdArgs a) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float smem[];
-  const GruBwdDir d = a.dir[blockIdx.y];
-  const int T = a.T, B = a.B, D = a.D, D2 = 2 * a.D;
+  const GruBwdDir& d = a.dir[blockIdx.y];
+  const int T = a.T, B = a.B, D = a.D;
   const BwdLayout o = bwd_layout(D);
-  const int n = o.n;
+  const int n = o.n, Dp = o.Dp, slices = o.slices;
   const int j = (int)cluster.block_rank();
-  const int b0 = (blockIdx.x / kCluster) * kGroupRows;
+  const int b0 = (blockIdx.x / kBwdCluster) * kGroupRows;
   const int nrows = min(kGroupRows, B - b0);
   const int c0 = j * n;                       // first owned column
   float* wsT = smem + o.ws;
   float* wgT = smem + o.wg;
   float* daT = smem + o.da;
   float* dgT = smem + o.dg;
+  float* stage = smem + o.stage;
   float* part = smem + o.part;
   const int tid = threadIdx.x;
-  const int slices_a = cluster_slices(n, D), slices_g = cluster_slices(n, D2);
+  const int items = kGroupRows * n;           // stage stride per operand
 
   // the owned rows of both matrices, transposed (zero past D)
-  for (int i = tid; i < D * n; i += blockDim.x) {
+  for (int i = tid; i < Dp * n; i += blockDim.x) {
     const int k = i / n, c = c0 + i % n;
-    wsT[i] = c < D ? d.w_state[(size_t)c * D + k] : 0.f;
+    wsT[i] = k < D && c < D ? d.w_state[(size_t)c * D + k] : 0.f;
   }
-  for (int i = tid; i < D2 * n; i += blockDim.x) {
-    const int k = i / n, c = c0 + i % n;
-    wgT[i] = c < D ? d.w_gates[(size_t)c * D2 + k] : 0.f;
+  for (int i = tid; i < 2 * Dp * n; i += blockDim.x) {
+    const int g = i / (Dp * n), k = (i / n) % Dp, c = c0 + i % n;
+    wgT[i] = k < D && c < D ? d.w_gates[(size_t)c * 2 * D + g * D + k] : 0.f;
   }
-  for (int i = tid; i < 3 * D * kGroupRows; i += blockDim.x) daT[i] = 0.f;
-  cluster.sync();
+  for (int i = tid; i < 3 * Dp * kGroupRows; i += blockDim.x) daT[i] = 0.f;
 
-  // items tid + e * blockDim: (row, owned column) pairs this thread finishes
-  constexpr int kItems = 2;
-  float dh[kItems] = {0.f, 0.f};
-  for (int step = 0; step < T; ++step) {
+  // the step's operands of this thread's items into the stage
+  auto prefetch = [&](int step) {
     const int t = d.reverse ? step : T - 1 - step;
-    const int tp = d.reverse ? t + 1 : t - 1;      // the forward's step before
+    const int tp = d.reverse ? t + 1 : t - 1;     // the forward's step before
     const size_t row0 = (size_t)t * B + b0;
-    float du[kItems], dhp[kItems], rg[kItems], hp[kItems], ug[kItems];
-    // ---- elementwise: state, update and candidate gradients; broadcast da
 #pragma unroll
     for (int e = 0; e < kItems; ++e) {
       const int item = tid + e * kClusterThreads;
       const int r = item / n, c = c0 + item % n;
-      du[e] = dhp[e] = rg[e] = hp[e] = ug[e] = 0.f;
       if (r >= nrows || c >= D) continue;
       const size_t idx = (row0 + r) * D + c;
-      const float m = a.mask != nullptr ? a.mask[row0 + r] : 1.f;
-      const float u = d.u[idx], cand = d.c[idx];
-      const float h_prev =
-          (tp < 0 || tp >= T)
-              ? d.h0[(size_t)(b0 + r) * D + c]
-              : d.states[((size_t)tp * B + b0 + r) * a.ld_states + c];
-      const float g = dh[e] + d.dout[(row0 + r) * a.ld_dout + c];
+      float* s = stage + item;
+      cp_async<4>(s, d.u + idx, 4);
+      cp_async<4>(s + items, d.r + idx, 4);
+      cp_async<4>(s + 2 * items, d.c + idx, 4);
+      cp_async<4>(s + 3 * items,
+                  tp < 0 || tp >= T
+                      ? d.h0 + (size_t)(b0 + r) * D + c
+                      : d.states + ((size_t)tp * B + b0 + r) * a.ld_states + c,
+                  4);
+      cp_async<4>(s + 4 * items, d.dout + (row0 + r) * a.ld_dout + c, 4);
+      if (a.mask != nullptr) cp_async<4>(s + 5 * items, a.mask + row0 + r, 4);
+    }
+    cp_async_commit();
+  };
+  prefetch(0);
+  // weights and zeroed buffers in place, every block of the cluster running
+  cluster.sync();
+
+  float dh[kItems] = {0.f, 0.f};
+  for (int step = 0; step < T; ++step) {
+    const int t = d.reverse ? step : T - 1 - step;
+    const size_t row0 = (size_t)t * B + b0;
+    float du[kItems], dhp[kItems], rg[kItems], hp[kItems], ug[kItems],
+        dav[kItems], gv[kItems][2];
+    // ---- elementwise: state, update and candidate gradients; own da slice
+    cp_async_wait<0>();
+#pragma unroll
+    for (int e = 0; e < kItems; ++e) {
+      const int item = tid + e * kClusterThreads;
+      const int r = item / n, c = c0 + item % n;
+      du[e] = dhp[e] = rg[e] = hp[e] = ug[e] = dav[e] = 0.f;
+      if (r >= nrows || c >= D) continue;
+      const float* s = stage + item;
+      const float u = s[0], cand = s[2 * items], h_prev = s[3 * items];
+      const float m = a.mask != nullptr ? s[5 * items] : 1.f;
+      const float g = dh[e] + s[4 * items];
       const float draw = g * m;
       float dprev = g * (1.f - m);
       du[e] = draw * (cand - h_prev);
       const float dcand = draw * u;
       dprev = dprev + draw * (1.f - u);
       const float da = dcand * (1.f - cand * cand);
-      d.dx[(row0 + r) * a.ld_dproj + c] = da;
-#pragma unroll
-      for (int q = 0; q < kCluster; ++q)
-        cluster.map_shared_rank(daT, q)[c * kGroupRows + r] = da;
+      daT[c * kGroupRows + r] = da;
+      dav[e] = da;
       dhp[e] = dprev;
-      rg[e] = d.r[idx];
+      rg[e] = s[items];
       hp[e] = h_prev;
       ug[e] = u;
     }
-    // ---- wait for the cluster's da
+    // ---- wait for the cluster's da; pull the peers' slices
     cluster.sync();
-    // ---- reset path: da @ w_state^T; gate gradients; broadcast dg
-    cluster_partials(daT, wsT, n, n, slices_a, D, part);
+    pull_peers(cluster, daT, n, Dp, 1, j);
+    __syncthreads();
+    // ---- reset path: da @ w_state^T; gate gradients; own dg slices
+    tile_partials(daT, wsT, n, Dp, slices, part);
     __syncthreads();
 #pragma unroll
     for (int e = 0; e < kItems; ++e) {
       const int item = tid + e * kClusterThreads;
       const int r = item / n, cc = item % n, c = c0 + cc;
       if (r >= nrows || c >= D) continue;
-      const float dhr = cluster_sum(part, slices_a, n, r, cc);
+      const float dhr = slice_sum(part, slices, n, r, cc);
       dhp[e] = dhp[e] + dhr * rg[e];
       const float dr = dhr * hp[e];
-      const float dgu = du[e] * ug[e] * (1.f - ug[e]);
-      const float dgr = dr * rg[e] * (1.f - rg[e]);
-      float* dg_row = d.dg + (row0 + r) * a.ld_dproj;
-      dg_row[c] = dgu;
-      dg_row[D + c] = dgr;
-#pragma unroll
-      for (int q = 0; q < kCluster; ++q) {
-        float* remote = cluster.map_shared_rank(dgT, q);
-        remote[c * kGroupRows + r] = dgu;
-        remote[(D + c) * kGroupRows + r] = dgr;
-      }
+      gv[e][0] = du[e] * ug[e] * (1.f - ug[e]);
+      gv[e][1] = dr * rg[e] * (1.f - rg[e]);
+      dgT[c * kGroupRows + r] = gv[e][0];
+      dgT[(Dp + c) * kGroupRows + r] = gv[e][1];
     }
-    // ---- wait for the cluster's dg
-    cluster.sync();
+    cluster_arrive();
+    // the next step's operands, then this step's dx_in and dx_gate rows:
+    // issued after the arrive, whose release would otherwise wait for
+    // these reads and writes too
+    if (step + 1 < T) prefetch(step + 1);
+#pragma unroll
+    for (int e = 0; e < kItems; ++e) {
+      const int item = tid + e * kClusterThreads;
+      const int r = item / n, c = c0 + item % n;
+      if (r >= nrows || c >= D) continue;
+      d.dx[(row0 + r) * a.ld_dproj + c] = dav[e];
+      float* dg_row = d.dg + (row0 + r) * a.ld_dproj;
+      dg_row[c] = gv[e][0];
+      dg_row[D + c] = gv[e][1];
+    }
+    // ---- wait for the cluster's dg; pull the peers' slices
+    cluster_wait();
+    pull_peers(cluster, dgT, n, Dp, 2, j);
+    __syncthreads();
     // ---- gate path: dg @ w_gates^T finishes the owned state gradients
-    cluster_partials(dgT, wgT, n, n, slices_g, D2, part);
+    tile_partials(dgT, wgT, n, 2 * Dp, slices, part);
     __syncthreads();
 #pragma unroll
     for (int e = 0; e < kItems; ++e) {
       const int item = tid + e * kClusterThreads;
-      const int r = item / n, cc = item % n, c = c0 + cc;
-      if (r >= nrows || c >= D) continue;
-      dh[e] = dhp[e] + cluster_sum(part, slices_g, n, r, cc);
+      const int r = item / n, cc = item % n;
+      if (r >= nrows || c0 + cc >= D) continue;
+      dh[e] = dhp[e] + slice_sum(part, slices, n, r, cc);
     }
   }
 #pragma unroll
   for (int e = 0; e < kItems; ++e) {
     const int item = tid + e * kClusterThreads;
     const int r = item / n, c = c0 + item % n;
-    if (r < nrows && c < D) d.dh0[(size_t)(b0 + r) * D + c] = dh[e];
+    if (r < nrows && c < D)
+      d.dh0[(size_t)(b0 + r) * D + c] = dh[e];
   }
-  // no block may leave while another can still write into its shared memory
+  // no block may leave while a peer can still read its shared memory
   cluster.sync();
 }
 
@@ -230,9 +403,24 @@ extern "C" int gru_train_bwd_f32(const GruBwdArgs* args, int ndir,
   const size_t smem = (size_t)bwd_layout(args->D).total * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       gru_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        gru_bwd_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
   const int groups = (args->B + kGroupRows - 1) / kGroupRows;
-  const dim3 grid(groups * kCluster, ndir);
-  gru_bwd_kernel<<<grid, kClusterThreads, smem, (cudaStream_t)stream>>>(*args);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(groups * kBwdCluster, ndir);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = kBwdCluster;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, gru_bwd_kernel, *args);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

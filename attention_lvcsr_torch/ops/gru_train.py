@@ -63,10 +63,36 @@ def _supported(lib, D):
     _build.check(max(0, -supported), "gru_train_supported")
     if supported == 0:
         raise NotImplementedError(
-            f"gru_scan_train: width D={D} is not ported yet (the backward "
-            f"kernel keeps each direction's recurrent weights and gradient "
-            f"buffers in one 8-block cluster's shared memory, which holds "
-            f"up to about D=310)")
+            f"gru_scan_train: width D={D} is not ported yet (the forward "
+            f"kernel keeps each direction's recurrent weights in one "
+            f"8-block cluster's shared memory, which holds up to about "
+            f"D=330, the backward's 16-block cluster up to D=384)")
+
+
+def launch_backward(dout, out, mask, dirs, residuals, dproj, dh0s, stream):
+    """Start ``csrc/gru_train.cu`` on ``stream``: from the cotangent
+    ``dout`` and the forward's states ``out`` (T, B, D * ndir) and
+    residuals, write the projections' gradient ``dproj`` (T, B, 3D * ndir)
+    and each direction's ``dh0``."""
+    T, B, width = out.shape
+    ndir = len(dirs)
+    D = width // ndir
+    lib = _build.load().lib
+    lib.gru_train_bwd_f32.argtypes = [ctypes.POINTER(_BwdArgs),
+                                      ctypes.c_int, ctypes.c_void_p]
+    lib.gru_train_bwd_f32.restype = ctypes.c_int
+    args = _BwdArgs(
+        mask=mask.data_ptr() if mask is not None else None, T=T, B=B, D=D,
+        ld_dout=width, ld_states=width, ld_dproj=3 * D * ndir)
+    for i, ((h0, ws, wg), (u, r, c), dh0) in enumerate(
+            zip(dirs, residuals, dh0s)):
+        args.dir[i] = _BwdDir(
+            dout[..., D * i:].data_ptr(), out[..., D * i:].data_ptr(),
+            h0.data_ptr(), u.data_ptr(), r.data_ptr(), c.data_ptr(),
+            ws.data_ptr(), wg.data_ptr(), dproj[..., 3 * D * i:].data_ptr(),
+            dproj[..., 3 * D * i + D:].data_ptr(), dh0.data_ptr(), reverse=i)
+    _build.check(lib.gru_train_bwd_f32(ctypes.byref(args), ndir, stream),
+                 "gru_train_bwd_f32")
 
 
 def _previous_states(states, h0, reverse):
@@ -119,26 +145,10 @@ class _GruScanTrain(torch.autograd.Function):
                   torch.zeros(D, 2 * D, dtype=out.dtype, device=out.device))
                  for _ in range(ndir)]
         if T and B:
-            lib = _build.load().lib
-            lib.gru_train_bwd_f32.argtypes = [ctypes.POINTER(_BwdArgs),
-                                              ctypes.c_int, ctypes.c_void_p]
-            lib.gru_train_bwd_f32.restype = ctypes.c_int
-            args = _BwdArgs(
-                mask=mask.data_ptr() if mask is not None else None, T=T, B=B,
-                D=D, ld_dout=width, ld_states=width, ld_dproj=3 * D * ndir)
-            for i, ((h0, ws, wg), (u, r, c), (dh0, _, _)) in enumerate(
-                    zip(dirs, residuals, grads)):
-                args.dir[i] = _BwdDir(
-                    dout[..., D * i:].data_ptr(), out[..., D * i:].data_ptr(),
-                    h0.data_ptr(), u.data_ptr(), r.data_ptr(), c.data_ptr(),
-                    ws.data_ptr(), wg.data_ptr(),
-                    dproj[..., 3 * D * i:].data_ptr(),
-                    dproj[..., 3 * D * i + D:].data_ptr(), dh0.data_ptr(),
-                    reverse=i)
             with torch.cuda.device(out.device):
-                status = lib.gru_train_bwd_f32(ctypes.byref(args), ndir,
-                                               _build.stream_of(out))
-            _build.check(status, "gru_train_bwd_f32")
+                launch_backward(dout, out, mask, dirs, residuals, dproj,
+                                [dh0 for dh0, _, _ in grads],
+                                _build.stream_of(out))
             _counter(ndir).count += 1
             jobs = []
             for i, ((h0, _, _), (_, r, _), (_, dws, dwg)) in enumerate(

@@ -7,9 +7,10 @@ scans: the wrapper of ``csrc/outer_sum.cu``.
 and the (rows, J) output gradients.  ``a``, ``a2`` and ``b`` may be column
 slices of a wider contiguous tensor (their row stride is read from them).
 
-On CUDA tensors a call starts two kernels, the products and then the
-fixed-order sum of their row splits, and ``launches`` counts both.  On
-CPU tensors it runs :func:`outer_sum_plain`, one matrix product per job.
+On CUDA tensors a call starts two kernels, the products over the blocks of
+:func:`launch_plan` and then the fixed-order sum of their row splits, and
+``launches`` counts both.  On CPU tensors it runs :func:`outer_sum_plain`,
+one matrix product per job.
 """
 from __future__ import annotations
 
@@ -20,20 +21,61 @@ import torch
 from attention_lvcsr_torch import _build
 
 MAX_JOBS = 8
+TILE_I, TILE_J = 128, 256   # C tile of a block (csrc/outer_sum.cu kBM, kBN)
+CHUNK = 16             # split rows are a multiple of this
+# One block fits on each of an H100's 132 SMs: the plan aims at one wave.
+# A constant, not the card's count, so the splits, and with them the bits
+# of every sum, depend on the shapes alone.
+TARGET_BLOCKS = 132
+MIN_SPLIT_ROWS = 64
 
 launches = _build.LaunchCounter()     # two a call: products, then the sum
 
 
 class _Job(ctypes.Structure):
     """Mirror of ``struct OuterJob`` in csrc/outer_sum.cu."""
-    _fields_ = ([(n, ctypes.c_void_p) for n in ("a", "a2", "b", "c", "ws")]
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("a", "a2", "b", "c")]
                 + [(n, ctypes.c_int) for n in (
-                    "rows", "I", "J", "lda", "lda2", "ldb")])
+                    "rows", "I", "J", "lda", "lda2", "ldb", "block0",
+                    "tile0", "tiles_j", "splits", "split_rows")])
 
 
 class _Args(ctypes.Structure):
     """Mirror of ``struct OuterArgs`` in csrc/outer_sum.cu."""
-    _fields_ = [("job", _Job * MAX_JOBS), ("njobs", ctypes.c_int)]
+    _fields_ = [("job", _Job * MAX_JOBS), ("ws", ctypes.c_void_p),
+                ("njobs", ctypes.c_int), ("blocks", ctypes.c_int),
+                ("tiles", ctypes.c_int)]
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def launch_plan(shapes):
+    """The grid of ``csrc/outer_sum.cu`` for jobs of ``(rows, I, J)``.
+
+    Every job gets ceil(I/TILE_I) * ceil(J/TILE_J) tiles, and each tile's
+    rows are cut into ``splits`` runs of ``split_rows`` rows (a multiple of
+    CHUNK; the last run may be shorter), one block each, with about the
+    same rows x tiles in every block of the call.  A tile's splits are
+    consecutive blocks, in row order; the second kernel adds them into C
+    in that order.  Returns (per job: dict of block0, tile0, tiles_j,
+    splits, split_rows; blocks; tiles); the workspace holds one TILE_I x
+    TILE_J partial tile per block."""
+    tiles = [_cdiv(I, TILE_I) * _cdiv(J, TILE_J) for _, I, J in shapes]
+    work = sum(t * rows for t, (rows, _, _) in zip(tiles, shapes))
+    per_block = max(MIN_SPLIT_ROWS, _cdiv(work, TARGET_BLOCKS))
+    plan, block0, tile0 = [], 0, 0
+    for t, (rows, _, J) in zip(tiles, shapes):
+        n = max(rows, 1)
+        split_rows = _cdiv(_cdiv(n, _cdiv(n, per_block)), CHUNK) * CHUNK
+        splits = _cdiv(n, split_rows)
+        plan.append({"block0": block0, "tile0": tile0,
+                     "tiles_j": _cdiv(J, TILE_J), "splits": splits,
+                     "split_rows": split_rows})
+        block0 += t * splits
+        tile0 += t
+    return plan, block0, tile0
 
 
 def _rows(t):
@@ -77,26 +119,43 @@ def outer_sum(jobs, stream_of):
                 or not c.is_contiguous():
             raise ValueError(f"outer_sum: job {k} has mismatched shapes")
         shapes.append((rows, I, J, lda, lda2, ldb))
-    tiles = sum(-(-I // 64) * -(-J // 64) for _, I, J, *_ in shapes)
-    total_rows = max(rows for rows, *_ in shapes)
-    # about four blocks per SM over all jobs, at least 64 rows a block
-    splits = max(1, min(total_rows // 64, -(-528 // max(tiles, 1))))
-    ws = torch.empty(splits * sum(I * J for _, I, J, *_ in shapes),
-                     dtype=torch.float32, device=stream_of.device)
-    args = _Args(njobs=len(jobs))
-    offset = 0
-    for k, ((a, a2, b, c), shape) in enumerate(zip(jobs, shapes)):
+    plan, blocks, tiles = launch_plan([s[:3] for s in shapes])
+    if blocks == 0:             # every C is empty
+        return
+    with torch.cuda.device(stream_of.device):
+        stream = _build.stream_of(stream_of)
+        launch(jobs, shapes, plan,
+               _workspace(stream_of.device, stream.value,
+                          blocks * TILE_I * TILE_J),
+               blocks, tiles, stream)
+    launches.count += 2
+
+
+_workspaces = {}
+
+
+def _workspace(device, stream, numel):
+    """The partial tiles' buffer, kept per (device, stream) and grown when
+    a call needs more: calls on one stream run in order, so they can share
+    it, and the products kernel never waits on an allocation."""
+    key = (device, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws.numel() < numel:
+        ws = _workspaces[key] = torch.empty(numel, dtype=torch.float32,
+                                            device=device)
+    return ws
+
+
+def launch(jobs, shapes, plan, ws, blocks, tiles, stream):
+    """Fill the argument struct and start both kernels on ``stream``."""
+    args = _Args(njobs=len(jobs), ws=ws.data_ptr(), blocks=blocks,
+                 tiles=tiles)
+    for k, ((a, a2, b, c), shape, p) in enumerate(zip(jobs, shapes, plan)):
         args.job[k] = _Job(a.data_ptr(),
                            a2.data_ptr() if a2 is not None else None,
-                           b.data_ptr(), c.data_ptr(),
-                           ws[offset:].data_ptr(), *shape)
-        offset += splits * shape[1] * shape[2]
+                           b.data_ptr(), c.data_ptr(), *shape, **p)
     lib = _build.load().lib
-    lib.outer_sum_f32.argtypes = [ctypes.POINTER(_Args), ctypes.c_int,
-                                  ctypes.c_void_p]
+    lib.outer_sum_f32.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
     lib.outer_sum_f32.restype = ctypes.c_int
-    with torch.cuda.device(stream_of.device):
-        status = lib.outer_sum_f32(ctypes.byref(args), splits,
-                                   _build.stream_of(stream_of))
-    _build.check(status, "outer_sum_f32")
-    launches.count += 2
+    _build.check(lib.outer_sum_f32(ctypes.byref(args), stream),
+                 "outer_sum_f32")

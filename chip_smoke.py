@@ -49,7 +49,9 @@ trains it with a 4x250 BiLSTM encoder.  Phases, each fatal on failure:
     (autograd through the plain scan): T=800, B=32, D=250, one direction
     and both, ragged mask, random cotangent; states within 1e-5, every
     gradient (dx_in, dx_gate, dh0, dW_ss, dW_sg) within 1e-4 of its
-    largest value; then ``outer_sum`` (the weight-gradient reduction of
+    largest value; times of the forward, of the autograd backward and of
+    ``gru_train.cu``'s backward kernel alone (and per step); then
+    ``outer_sum`` (the weight-gradient reduction of
     every training backward) vs its plain version on the four jobs of the
     bidirectional layer's backward, within 1e-5 of the largest value;
 12. ``decoder_scan_train`` forward and backward kernels vs plain at the
@@ -906,6 +908,7 @@ def gru_train_phase(t, dev, results):
         bwd_ms = backward_ms(fwd, leaves, cots, 3)
         plain_fwd = cuda_ms(lambda: plain(*leaves), 1)
         plain_bwd = backward_ms(plain, leaves, cots, 1)
+        kernel_ms = gru_backward_kernel_ms(proj, mask, dirs, cots[0], 3)
         # forward: the projections, mask, weights in; states and the three
         # residuals out.  Backward: cotangent, states, residuals, mask and
         # weights in; the projections' and weights' gradients out; twice
@@ -919,16 +922,40 @@ def gru_train_phase(t, dev, results):
             "max_abs_err": max(state_err, *[
                 float((a - b).abs().max()) for a, b in zip(ggot, gref)]),
             "ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+            "bwd_kernel_ms": kernel_ms,
+            "bwd_kernel_us_per_step": kernel_ms * 1e3 / T,
             "plain_ms": plain_fwd + plain_bwd, "plain_fwd_ms": plain_fwd,
             "plain_bwd_ms": plain_bwd,
             **bound(fwd_bytes + bwd_bytes, 3 * ops),
             "fwd_bound_ms": bound(fwd_bytes, ops)["bound_ms"],
             "bwd_bound_ms": bound(bwd_bytes, 2 * ops)["bound_ms"],
             "library_ms": None}
-        log(f"  kernels: forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms; "
-            f"plain: forward {plain_fwd:.3f} ms, backward {plain_bwd:.3f} "
-            f"ms; bound {results[name]['bound_ms']:.3f} ms")
+        log(f"  kernels: forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms "
+            f"(of which gru_train.cu's kernel {kernel_ms:.3f} ms, "
+            f"{kernel_ms * 1e3 / T:.2f} us a step); plain: forward "
+            f"{plain_fwd:.3f} ms, backward {plain_bwd:.3f} ms; bound "
+            f"{results[name]['bound_ms']:.3f} ms")
     outer_sum_check(t, rng, results, T, B, D)
+
+
+def gru_backward_kernel_ms(proj, mask, dirs, cot, repeats):
+    """Device time of gru_train.cu's backward kernel alone (no outer_sum,
+    no copies), on the forward kernel's states and residuals."""
+    import torch
+    from attention_lvcsr_torch import _build
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.ops import gru_train as gt
+    T, B, _ = proj.shape
+    D, ndir = dirs[0][1].shape[0], len(dirs)
+    out = torch.empty(T, B, D * ndir, device=proj.device)
+    residuals = [tuple(torch.empty(T, B, D, device=proj.device)
+                       for _ in range(3)) for _ in range(ndir)]
+    gs.launch(proj, mask, dirs, out, residuals, "gru_scan_train")
+    dproj = torch.empty(T, B, 3 * D * ndir, device=proj.device)
+    dh0s = [torch.empty(B, D, device=proj.device) for _ in range(ndir)]
+    stream = _build.stream_of(proj)
+    return cuda_ms(lambda: gt.launch_backward(
+        cot, out, mask, dirs, residuals, dproj, dh0s, stream), repeats)
 
 
 def outer_sum_check(t, rng, results, T, B, D):

@@ -247,9 +247,26 @@ def _grads(fn, leaves, cots):
 def test_gru_scan_train_kernels_match_plain(device, T, B, D, ndir):
     """Forward (gru_scan.cu with residuals) and backward (gru_train.cu,
     then outer_sum.cu) vs autograd through the plain scan."""
+    _check_gru_scan_train(device, T, B, D, ndir)
+
+
+@pytest.mark.parametrize("T,B,D,ndir", [(1, 17, 33, 2), (6, 35, 250, 2),
+                                        (1, 16, 300, 1), (11, 17, 250, 1),
+                                        (4, 33, 33, 2), (3, 17, 300, 2)])
+def test_gru_train_backward_edges(device, T, B, D, ndir):
+    """gru_train.cu at its edges: B not a multiple of the cluster's 16
+    rows, D not a multiple of its 8-block column split (33, 250, 300, the
+    last blocks' columns partly padding), one step, and row 0 masked from
+    the first step (its gradients pass straight through)."""
+    _check_gru_scan_train(device, T, B, D, ndir, first_masked=True)
+
+
+def _check_gru_scan_train(device, T, B, D, ndir, first_masked=False):
     from attention_lvcsr_torch.ops import gru_train as gt
     rng = np.random.RandomState(T + B + D + ndir)
     proj, mask, weights = _gru_operands(rng, device, T, B, D, ndir)
+    if first_masked:
+        mask[:, 0] = 0.0
     cot = torch.tensor(rng.randn(T, B, D * ndir).astype(np.float32),
                        device=device)
     leaves = [proj] + [w for d in weights for w in d]
@@ -472,6 +489,43 @@ def test_outer_sum_kernel_matches_plain(device, rows, shapes, gated):
     for k, (I, J) in enumerate(shapes):
         a2 = f(rows, I) if gated and k == 0 else None
         jobs.append((f(rows, I), a2, wide[:, col:col + J], f(I, J)))
+        col += J
+    ref = [(a, a2, b, c.clone()) for a, a2, b, c in jobs]
+    got = [(a, a2, b, c.clone()) for a, a2, b, c in jobs]
+    again = [(a, a2, b, c.clone()) for a, a2, b, c in jobs]
+    before = osum.launches.count
+    osum.outer_sum(got, wide)
+    assert osum.launches.count == before + 2
+    osum.outer_sum(again, wide)
+    osum.outer_sum_plain(ref)
+    for (_, _, _, g), (_, _, _, h), (_, _, _, r) in zip(got, again, ref):
+        assert torch.equal(g, h)
+        torch.testing.assert_close(g, r, rtol=1e-5,
+                                   atol=1e-5 * float(r.abs().max()))
+
+
+@pytest.mark.parametrize("rows,shapes,offset,odd", [
+    (1, [(17, 19)], 0, False),                          # one row
+    (301, [(5, 7), (3, 130), (129, 9)], 1, True),        # 4-byte copies
+    (700, [(250, 250), (250, 500)], 250, False),         # 8-byte copies
+    (2000, [(252, 252), (252, 500)], 1000, False),       # 16-byte copies
+    (97, [(3, 5), (130, 1), (1, 130), (64, 64), (9, 257), (256, 4), (2, 2),
+          (31, 33)], 2, True)])                          # eight jobs
+def test_outer_sum_kernel_edges(device, rows, shapes, offset, odd):
+    """outer_sum.cu at its edges: b a column slice at ``offset`` floats
+    into rows of an odd or even width (so its copies are 16, 8 or 4 bytes
+    wide), a and a2 slices at odd offsets, I and J below the 128-wide tile
+    and not multiples of 4, one row, rows not a multiple of the 16-row
+    chunk, eight jobs in one call; a second call repeats bit for bit."""
+    rng = np.random.RandomState(rows + len(shapes))
+    f = lambda *s: torch.tensor(rng.randn(*s).astype(np.float32),
+                                device=device)
+    wide = f(rows, offset + sum(J for _, J in shapes) + odd)
+    jobs, col = [], offset
+    for k, (I, J) in enumerate(shapes):
+        a = f(rows, I + 3)[:, 1:I + 1] if odd else f(rows, I)
+        a2 = f(rows, I + 1)[:, :I] if k == 0 else None
+        jobs.append((a, a2, wide[:, col:col + J], f(I, J)))
         col += J
     ref = [(a, a2, b, c.clone()) for a, a2, b, c in jobs]
     got = [(a, a2, b, c.clone()) for a, a2, b, c in jobs]

@@ -1,0 +1,106 @@
+"""The ctypes mirrors of the kernels' argument structs match the C structs.
+
+Every ``extern "C"`` launcher in ``attention_lvcsr_torch/csrc/*.cu`` takes
+its arguments as one struct, and its wrapper in ``ops/*.py`` fills a
+``ctypes.Structure`` whose docstring names that struct ("Mirror of
+``struct X`` in csrc/F.cu").  A field left out of step shifts every field
+after it and corrupts a launch without an error, and only the card would
+show it.  Here, on the CPU, each C struct is parsed and compared with its
+mirror field by field: names, order and C types (a pointer is
+``c_void_p``, an ``int`` ``c_int``, a ``float`` ``c_float``, a nested
+struct its own mirror, arrays their length)."""
+import ctypes
+import glob
+import importlib
+import inspect
+import os
+import re
+
+import pytest
+
+import attention_lvcsr_torch
+
+PKG = os.path.dirname(attention_lvcsr_torch.__file__)
+CSRC = os.path.join(PKG, "csrc")
+MIRROR = re.compile(r"Mirror of ``struct (\w+)`` in csrc/(\w+\.cu)")
+SCALARS = {"int": ctypes.c_int, "float": ctypes.c_float,
+           "unsigned": ctypes.c_uint}
+
+
+def _mirrors():
+    """{struct name: (ctypes class, source file)} over ops/*.py."""
+    found = {}
+    for path in sorted(glob.glob(os.path.join(PKG, "ops", "*.py"))):
+        name = os.path.basename(path)[:-3]
+        module = importlib.import_module(f"attention_lvcsr_torch.ops.{name}")
+        for _, cls in inspect.getmembers(module, inspect.isclass):
+            m = MIRROR.search(cls.__doc__ or "")
+            if m and issubclass(cls, ctypes.Structure):
+                found[m.group(1)] = (cls, m.group(2))
+    return found
+
+
+def _c_struct(source, name):
+    """[(field name, C type, is pointer, array length or None)] of
+    ``struct name`` in csrc/source."""
+    text = open(os.path.join(CSRC, source)).read()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (\w+) = (\d+);", text)}
+    body = re.search(r"^struct %s \{(.*?)^\};" % name, text, re.S | re.M)
+    assert body, f"struct {name} not found in {source}"
+    fields = []
+    for decl in re.sub(r"//[^\n]*", "", body.group(1)).split(";"):
+        decl = " ".join(decl.split())
+        if not decl:
+            continue
+        m = re.fullmatch(r"(?:const )?(\w+)\s*(\*?)\s*(.*)", decl)
+        ctype, pointer = m.group(1), bool(m.group(2))
+        for item in m.group(3).split(","):
+            item = item.strip()
+            arr = re.fullmatch(r"(\w+)\[(\w+)\]", item)
+            if arr:
+                item, n = arr.group(1), arr.group(2)
+                length = int(n) if n.isdigit() else consts[n]
+            else:
+                length = None
+            fields.append((item, ctype, pointer, length))
+    return fields
+
+
+def _launcher_structs():
+    """The argument structs of every extern "C" launcher."""
+    found = set()
+    for path in glob.glob(os.path.join(CSRC, "*.cu")):
+        found.update(re.findall(r'extern "C" int \w+\(const (\w+)\* ',
+                                open(path).read()))
+    return sorted(found)
+
+
+MIRRORS = _mirrors()
+
+
+def test_every_launcher_struct_has_a_mirror():
+    structs = _launcher_structs()
+    assert len(structs) >= 10
+    assert sorted(set(structs) - set(MIRRORS)) == []
+
+
+@pytest.mark.parametrize("struct", sorted(MIRRORS))
+def test_mirror_matches_the_c_struct(struct):
+    cls, source = MIRRORS[struct]
+    by_class = {c: s for s, (c, _) in MIRRORS.items()}
+    c_fields = _c_struct(source, struct)
+    assert [f[0] for f in cls._fields_] == [f[0] for f in c_fields], \
+        f"{cls.__qualname__} fields out of step with struct {struct}"
+    for (name, ptype), (_, ctype, pointer, length) in zip(cls._fields_,
+                                                          c_fields):
+        if length is not None:
+            assert issubclass(ptype, ctypes.Array) \
+                and ptype._length_ == length, name
+            ptype = ptype._type_
+        if pointer:
+            assert ptype is ctypes.c_void_p, name
+        elif ctype in SCALARS:
+            assert ptype is SCALARS[ctype], name
+        else:
+            assert by_class.get(ptype) == ctype, name

@@ -37,6 +37,44 @@ def test_outer_sum_plain_matches_numpy(rows, shapes, gated):
                                    atol=1e-5 * np.abs(ref).max())
 
 
+@pytest.mark.parametrize("shapes", [
+    [(25600, 250, 250), (25600, 250, 500)] * 2,     # the flagship layer
+    [(3200, 200, 200), (3200, 250, 250), (3200, 250, 250), (3200, 250, 500),
+     (3200, 500, 250), (3200, 500, 500), (32, 1, 250), (32, 1, 250)],
+    [(1, 17, 19)], [(13, 8, 24), (13, 8, 16)], [(0, 5, 7)],
+    [(301, 5, 7), (301, 3, 130), (301, 129, 9)],
+    [(97, 3, 5), (97, 130, 1), (97, 1, 130), (97, 64, 64), (97, 9, 257),
+     (97, 256, 4), (97, 2, 2), (97, 31, 33)]])
+def test_launch_plan_covers_every_row_once(shapes):
+    """Every (row, tile) of every job falls in exactly one block; a tile's
+    splits are consecutive blocks in row order (the order the second
+    kernel adds them); blocks and tiles are numbered without gaps, and the
+    workspace holds one partial tile per block."""
+    plan, blocks, tiles = osum.launch_plan(shapes)
+    seen = np.zeros(blocks, int)
+    for p, (rows, I, J) in zip(plan, shapes):
+        n_tiles = -(-I // osum.TILE_I) * -(-J // osum.TILE_J)
+        assert p["tiles_j"] == -(-J // osum.TILE_J)
+        assert p["split_rows"] % osum.CHUNK == 0
+        for tile in range(n_tiles):
+            covered = np.zeros(rows, int)
+            for split in range(p["splits"]):
+                block = p["block0"] + tile * p["splits"] + split
+                seen[block] += 1
+                r0 = split * p["split_rows"]
+                assert r0 < max(rows, 1)        # no block without rows
+                covered[r0:r0 + p["split_rows"]] += 1
+            assert (covered == 1).all()
+    assert (seen == 1).all()
+    assert tiles == sum(-(-I // osum.TILE_I) * -(-J // osum.TILE_J)
+                        for _, I, J in shapes)
+    assert [p["tile0"] for p in plan] == list(np.cumsum(
+        [0] + [-(-I // osum.TILE_I) * -(-J // osum.TILE_J)
+               for _, I, J in shapes[:-1]]))
+    if shapes[0][0] == 25600:      # one wave: a block on each of 132 SMs
+        assert blocks == osum.TARGET_BLOCKS
+
+
 def test_outer_sum_checks_its_jobs():
     a, b = torch.zeros(4, 3), torch.zeros(4, 5)
     with pytest.raises(ValueError, match="1..8 jobs"):

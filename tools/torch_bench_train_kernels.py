@@ -1,0 +1,169 @@
+#!/usr/bin/env python3
+"""Times the GRU training backward's two kernels on one NVIDIA GPU, alone.
+
+    python3 tools/torch_bench_train_kernels.py [--root DIR] [--repeats N]
+
+Run from the repository root on a machine with a CUDA device and nvcc.
+At the flagship encoder layer's shapes (T=800, B=32, D=250, ragged mask,
+random weights and cotangent from numpy seeds):
+
+* ``gru_train_bwd_f32`` of ``csrc/gru_train.cu`` (the reverse-time
+  recurrence, CUDA events around the C launcher alone), both directions in
+  one launch and one direction, in ms and in us per step;
+* ``outer_sum`` of ``ops/outer_sum.py`` (``csrc/outer_sum.cu``, both of its
+  kernels) on the bidirectional layer's four weight-gradient jobs over
+  T*B rows, beside one float32 cuBLAS ``addmm_`` per job;
+* the backward kernel's dx_in, dx_gate and dh0 against autograd through
+  the plain scan, as max abs error over the largest value.
+
+``--root DIR`` imports the ``attention_lvcsr_torch`` package found in DIR
+instead of this checkout's, and builds its kernels there: with DIR an
+unpacked copy of another commit (``git archive <commit>
+attention_lvcsr_torch | tar -x -C DIR``), two runs back to back time two
+versions of the kernels on the same card.  The last line is a JSON object
+of the numbers.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--root", default=ROOT,
+                        help="directory holding the attention_lvcsr_torch "
+                             "package to time")
+    parser.add_argument("--repeats", type=int, default=5)
+    args = parser.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from attention_lvcsr_torch import _build
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.ops import gru_train as gt
+    from attention_lvcsr_torch.ops import outer_sum as osum
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(card)
+    print(f"package: {os.path.dirname(gt.__file__)}")
+    lib = _build.load()
+    mine = False            # ptxas lines of the two timed kernels
+    for line in lib.log.splitlines():
+        if "Compiling entry" in line:
+            mine = "gru_bwd" in line or "outer_sum" in line
+        if mine and ("Compiling entry" in line or "Used" in line
+                     or "spill" in line):
+            print(f"  ptxas: {line.strip()}")
+    dev = torch.device("cuda:0")
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    def cuda_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(args.repeats):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / args.repeats
+
+    rng = np.random.RandomState(11)
+    T, B, D = 800, 32, 250
+    lengths = rng.randint(300, T + 1, size=B)
+    lengths[0] = T
+    mask = t((np.arange(T)[:, None] < lengths[None, :]).astype(np.float32))
+    result = {"card": card, "root": os.path.abspath(args.root)}
+    for ndir in (2, 1):
+        proj = t(rng.randn(T, B, 3 * D * ndir) * 0.5)
+        dirs = [(t(rng.randn(B, D) * 0.1), t(rng.randn(D, D) / np.sqrt(D)),
+                 t(rng.randn(D, 2 * D) / np.sqrt(D))) for _ in range(ndir)]
+        cot = t(rng.randn(T, B, D * ndir))
+        out = torch.empty(T, B, D * ndir, device=dev)
+        residuals = [tuple(torch.empty(T, B, D, device=dev)
+                           for _ in range(3)) for _ in range(ndir)]
+        gs.launch(proj, mask, dirs, out, residuals, "bench")
+        dproj = torch.empty(T, B, 3 * D * ndir, device=dev)
+        dh0s = [torch.empty(B, D, device=dev) for _ in range(ndir)]
+        kargs = gt._BwdArgs(mask=mask.data_ptr(), T=T, B=B, D=D,
+                            ld_dout=D * ndir, ld_states=D * ndir,
+                            ld_dproj=3 * D * ndir)
+        for i, ((h0, ws, wg), (u, r, c), dh0) in enumerate(
+                zip(dirs, residuals, dh0s)):
+            kargs.dir[i] = gt._BwdDir(
+                cot[..., D * i:].data_ptr(), out[..., D * i:].data_ptr(),
+                h0.data_ptr(), u.data_ptr(), r.data_ptr(), c.data_ptr(),
+                ws.data_ptr(), wg.data_ptr(),
+                dproj[..., 3 * D * i:].data_ptr(),
+                dproj[..., 3 * D * i + D:].data_ptr(), dh0.data_ptr(),
+                reverse=i)
+        fn = lib.lib.gru_train_bwd_f32
+        fn.argtypes = [ctypes.POINTER(gt._BwdArgs), ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        stream = _build.stream_of(out)
+
+        def backward():
+            _build.check(fn(ctypes.byref(kargs), ndir, stream),
+                         "gru_train_bwd_f32")
+
+        ms = cuda_ms(backward)
+        # the kernel's outputs vs autograd through the plain scan
+        leaves = [x.detach().requires_grad_()
+                  for x in [proj] + [w for d in dirs for w in d]]
+        ref = gt.gru_scan_train_reference(
+            leaves[0], mask, tuple(leaves[1:4]),
+            tuple(leaves[4:7]) if ndir == 2 else None)
+        gref = torch.autograd.grad(ref, leaves, cot)
+        err = max(float((dproj - gref[0]).abs().max() / gref[0].abs().max()),
+                  *[float((dh0 - gref[1 + 3 * i]).abs().max()
+                          / gref[1 + 3 * i].abs().max())
+                    for i, dh0 in enumerate(dh0s)])
+        key = "bidir" if ndir == 2 else "one_direction"
+        result[f"gru_bwd_{key}_ms"] = ms
+        result[f"gru_bwd_{key}_us_per_step"] = ms * 1e3 / T
+        result[f"gru_bwd_{key}_rel_err"] = err
+        print(f"gru_train_bwd_f32 T={T} B={B} D={D} ndir={ndir}: {ms:.3f} ms "
+              f"({ms * 1e3 / T:.2f} us a step); dx/dh0 vs plain {err:.2e} of "
+              f"the largest value")
+
+    dproj = t(rng.randn(T, B, 6 * D))
+    h_prev = [t(rng.randn(T, B, D) * 0.5) for _ in range(2)]
+    r = [t(rng.rand(T, B, D)) for _ in range(2)]
+    jobs = [job for i in range(2) for job in (
+        (h_prev[i], r[i], dproj[..., 3 * D * i:3 * D * i + D],
+         torch.zeros(D, D, device=dev)),
+        (h_prev[i], None, dproj[..., 3 * D * i + D:3 * D * (i + 1)],
+         torch.zeros(D, 2 * D, device=dev)))]
+    flat = [(a.view(T * B, D), None if a2 is None else a2.view(T * B, D),
+             b.reshape(T * B, b.shape[-1]), c) for a, a2, b, c in jobs]
+
+    def library():
+        for a, a2, b, c in flat:
+            c.addmm_((a if a2 is None else a * a2).T, b)
+
+    result["outer_sum_ms"] = cuda_ms(lambda: osum.outer_sum(jobs, dproj))
+    result["addmm_per_job_ms"] = cuda_ms(library)
+    result["outer_sum_again_ms"] = cuda_ms(lambda: osum.outer_sum(jobs, dproj))
+    print(f"outer_sum, 4 jobs over {T * B} rows: {result['outer_sum_ms']:.4f} "
+          f"ms, again {result['outer_sum_again_ms']:.4f} ms; one addmm_ per "
+          f"job {result['addmm_per_job_ms']:.4f} ms")
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

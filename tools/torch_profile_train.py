@@ -151,7 +151,7 @@ def main():
             ("dfwd", "decoder_scan_train forward", B, TL),
             ("dbwd", "decoder_scan_train backward", B, TL),
             ("gbwd", "gru_scan_train backward, both directions, 4 layers",
-             2 * 8 * ((B + 15) // 16), gru_steps)):
+             2 * 16 * ((B + 15) // 16), gru_steps)):
         out(f"{what} phases ({blocks} blocks, {steps} steps a block):")
         phase_table(lib, tag, phases[tag], blocks, steps, out)
 
