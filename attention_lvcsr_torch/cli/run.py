@@ -36,6 +36,9 @@ def build_parser():
     subparsers = parser.add_subparsers(dest="mode", required=True)
     tr = subparsers.add_parser("train", help="train a model")
     tr.add_argument("save_path", help="where to save the model")
+    tr.add_argument("--fast-start", action="store_true",
+                    help="skip the validation and the checkpoint before "
+                         "the first epoch")
     sv = subparsers.add_parser("serve", help="HTTP decode endpoint with "
                                "micro-batching")
     for sub in (tr, sv):
@@ -66,7 +69,8 @@ def main(argv=None):
                            config_changes=args.config_changes or [])
     if args.mode == "train":
         from attention_lvcsr_torch.train.driver import train
-        return train(config, args.save_path, args.params, device=args.device)
+        return train(config, args.save_path, args.params,
+                     fast_start=args.fast_start, device=args.device)
     from attention_lvcsr_torch.serve import serve
     return serve(config, args.params, host=args.host, port=args.port,
                  beam_size=args.beam_size, max_batch=args.max_batch,

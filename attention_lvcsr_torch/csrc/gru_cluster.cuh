@@ -1,6 +1,6 @@
-// Cluster building blocks of the recurrent scans: the GRU's forward
-// (gru_scan.cu) and training backward (gru_train.cu), and the LSTM's
-// forward (lstm_scan.cu) and training backward (lstm_train.cu).
+// Cluster building blocks of the LSTM scans: the forward (lstm_scan.cu)
+// and the training backward (lstm_train.cu).  The GRU scans have their
+// own, of the pull design, in gru_pull.cuh.
 //
 // A thread-block cluster of kCluster blocks serves kGroupRows batch rows
 // of one direction; block j of the cluster owns columns [j*n, (j+1)*n) of
@@ -25,32 +25,6 @@ constexpr int kGroupRows = 16;    // batch rows per cluster
 constexpr int kRowsPerThread = 4; // one float4 of the k-major state
 constexpr int kClusterThreads = 512;
 constexpr int kPartFloats = 4 * kClusterThreads;  // partial-sum buffer
-
-struct ClusterLayout {
-  int n, wg, ws, h, rh, z, part, total;   // offsets in floats
-};
-
-// h, rh and part start on 16-byte boundaries (float4 loads)
-__host__ __device__ inline ClusterLayout cluster_layout(int D) {
-  ClusterLayout o;
-  o.n = (D + kCluster - 1) / kCluster;
-  o.wg = 0;                                   // (D, 2n) own gate columns
-  o.ws = o.wg + D * 2 * o.n;                  // (D, n) own state columns
-  o.h = (o.ws + D * o.n + 3) / 4 * 4;         // (D, kGroupRows) state
-  o.rh = o.h + D * kGroupRows;                // (D, kGroupRows) r * state
-  o.z = o.rh + D * kGroupRows;                // (kGroupRows, n) update gate
-  o.part = (o.z + kGroupRows * o.n + 3) / 4 * 4;
-  o.total = o.part + kPartFloats;
-  return o;
-}
-
-// The cluster kernel needs every (4 rows, gate column) product in one pass
-// of the block's threads, and the weight slices in shared memory.
-__host__ inline bool cluster_fits(int D, int max_smem) {
-  const ClusterLayout o = cluster_layout(D);
-  return (kGroupRows / kRowsPerThread) * 2 * o.n <= kClusterThreads
-         && (size_t)o.total * sizeof(float) <= (size_t)max_smem;
-}
 
 // k slices per output column when `cols` columns x 4-row groups share
 // the block's threads

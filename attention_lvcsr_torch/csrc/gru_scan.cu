@@ -16,36 +16,62 @@
 // products computed outside the kernel (torch.matmul), as the JAX
 // package leaves them to XLA; they are read through a row stride, so the
 // four projections of a bidirectional layer can come from one matmul.
-//
-// What bounds it on the card: latency, not FLOPs or HBM.  The scan is 2*T
-// dependent small products (gates, then candidate) over a few batch rows,
-// and only a few blocks per direction have work, so most SMs idle.  A
-// block that keeps the recurrent matrices in L2 re-reads all of them
-// (3*D*D floats, 750 KB at D=250) every step.
-//
-// What the design does about it: both directions run in the same launch
-// (blockIdx.y), and the kernel removes the L2 stream: a thread-block
-// cluster of kCluster blocks serves kGroupRows batch rows of one
-// direction, and block j of the cluster keeps columns [j*n, (j+1)*n) of
-// both recurrent matrices (n = ceil(D / kCluster); 96 KB at D=250) in its
-// shared memory for the whole scan (gru_cluster.cuh).  Each block holds the
-// full state of its rows (transposed, k-major, so four rows load as one
-// float4); per step it computes its gate columns, broadcasts its slice of r*h into
-// every block of the cluster through distributed shared memory, meets
-// them at a cluster barrier, computes its candidate columns and
-// broadcasts its slice of the new state, and meets them again.  Loads of
-// the step's input projections are issued before the products so their
-// latency hides behind them.  Widths whose weight slices do not fit in a
-// block's shared memory (D above about 330) are not covered:
-// gru_scan_supported() says so before a launch.
-//
 // The training forward (ops/gru_train.py) is this kernel with its residual
 // outputs set: the update gate, reset gate and candidate of every step,
 // which the backward scan in gru_train.cu reads.
+//
+// What bounds it on the card: latency, not FLOPs or HBM.  The scan is 2*T
+// dependent small products (gates, then candidate) over a few batch rows,
+// with an exchange of the product's input between the blocks that share
+// a row group after each.  What the design does about it (gru_pull.cuh):
+//
+// * the weights stay in shared memory: a cluster of kC blocks (16, a
+//   non-portable size launched with cudaLaunchKernelEx, or 8) serves
+//   kGroupRows batch rows of one direction, and block j keeps the n
+//   columns [j*n, (j+1)*n) of w_gates' update and reset halves and of
+//   w_state that it produces (n = ceil(D / kC) rounded up to even; Dp =
+//   kC * n, the padding zero): 3*Dp*n floats, 48 KB at D=250 with 16
+//   blocks.  The launcher picks kC from the number of clusters the launch
+//   needs and cudaOccupancyMaxActiveClusters (ops/gru_scan.py): 16 unless
+//   8 takes fewer waves;
+// * pull, not push: a block writes its slice of r*h, and later of the new
+//   state, once into its own k-major buffer; after the cluster barrier
+//   every block pulls the peers' slices with 16-byte DSMEM loads;
+// * a split barrier: between a block's arrive and its wait go the step's
+//   global stores (out and, in training, the residuals u, r, c) and the
+//   cp.async prefetch of the next step's gate inputs, input projections
+//   and mask into a stage; each thread copies exactly the items it later
+//   reads, so the stage needs no barrier;
+// * short k-chains: a product thread computes 8 rows x 2 columns over one
+//   of up to 8 k slices; the slices' partial sums are added in slice
+//   order, so a second call repeats bit for bit.
+//
+// Buffer hazards (step s; A_s is the barrier after the r*h slices are
+// written, B_s the one after the new state's):
+// * h, own slice: written after A_s's wait.  Peers pull the previous
+//   state's slice after B_{s-1} and before they arrive at A_s, and this
+//   block read all of h (gate product, r*h of its columns) before its own
+//   arrive at A_s: every reader is done.
+// * r*h, own slice: written at step s+1 before A_{s+1}, after B_s's wait.
+//   Peers pull step s's slice after A_s and before they arrive at B_s, and
+//   this block's candidate product read r*h before its arrive at B_s.
+// * h and r*h, the peers' slices: written only by this block's pulls
+//   (after B_s and after A_s), read only by its own products; no peer
+//   reads them.  The product before each pull ended before the barrier.
+// * z, part: written and read inside the block, a barrier between.
+// * the stage: a thread overwrites its own items after it has read them.
+// * exit: the last remote load is the r*h pull of step T-1, before B_{T-1};
+//   the last step skips the state pull, so no block leaves while a peer
+//   can still read its shared memory.
+//
+// Widths whose weight slices and buffers do not fit in a block's shared
+// memory (D above 448; 256 with 8 blocks) are not covered:
+// gru_scan_supported() says so before a launch.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "gru_cluster.cuh"
+#include "gru_pull.cuh"
+#include "sm90_async.cuh"
 
 // Must match the ctypes.Structures in ops/gru_scan.py field for field.
 struct GruDir {
@@ -69,18 +95,21 @@ struct GruArgs {
 
 namespace {
 
-__global__ void __cluster_dims__(kCluster, 1, 1)
-    __launch_bounds__(kClusterThreads, 1)
-    gru_scan_kernel(GruArgs a) {
+constexpr int kGateItems = 2;      // (row, gate column) items per thread
+constexpr int kCandItems = 1;      // (row, state column) items per thread
+
+template <int kC>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    gru_fwd_kernel(const __grid_constant__ GruArgs a) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float smem[];
-  const GruDir d = a.dir[blockIdx.y];
-  const int T = a.T, B = a.B, D = a.D, D2 = 2 * a.D;
-  const ClusterLayout o = cluster_layout(D);
-  const int n = o.n, n2 = 2 * o.n;
+  const GruDir& d = a.dir[blockIdx.y];
+  const int T = a.T, B = a.B, D = a.D;
+  const FwdLayout o = fwd_layout(D, kC);
+  const int n = o.n, n2 = 2 * o.n, Dp = o.Dp;
   const int j = (int)cluster.block_rank();
-  const int b0 = (blockIdx.x / kCluster) * kGroupRows;
+  const int b0 = (blockIdx.x / kC) * kGroupRows;
   const int nrows = min(kGroupRows, B - b0);
   const int c0 = j * n;                       // first owned column
   float* wg = smem + o.wg;
@@ -88,126 +117,229 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   float* hT = smem + o.h;
   float* rhT = smem + o.rh;
   float* z = smem + o.z;
+  float* stage_g = smem + o.stage;            // gate items
+  float* stage_x = stage_g + kGroupRows * n2; // candidate items
+  float* stage_m = stage_x + kGroupRows * n;
   float* part = smem + o.part;
   const int tid = threadIdx.x;
-  const int slices_g = cluster_slices(n2, D), slices_c = cluster_slices(n, D);
 
-  // weights of the owned columns (zero past D), initial state, k-major
-  for (int i = tid; i < D * n2; i += blockDim.x) {
+  // the owned columns of both matrices, k-major (zero past D), and the
+  // initial state of the row group; r * h zero (its padding stays so)
+  for (int i = tid; i < Dp * n2; i += blockDim.x) {
     const int k = i / n2, cc = i % n2;
     const int c = c0 + (cc < n ? cc : cc - n);
-    wg[i] = c < D ? d.w_gates[(size_t)k * D2 + (cc < n ? c : D + c)] : 0.f;
+    wg[i] = k < D && c < D
+                ? d.w_gates[(size_t)k * 2 * D + (cc < n ? c : D + c)] : 0.f;
   }
-  for (int i = tid; i < D * n; i += blockDim.x) {
+  for (int i = tid; i < Dp * n; i += blockDim.x) {
     const int k = i / n, c = c0 + i % n;
-    ws[i] = c < D ? d.w_state[(size_t)k * D + c] : 0.f;
+    ws[i] = k < D && c < D ? d.w_state[(size_t)k * D + c] : 0.f;
   }
-  for (int i = tid; i < D * kGroupRows; i += blockDim.x) {
+  for (int i = tid; i < Dp * kGroupRows; i += blockDim.x) {
     const int k = i / kGroupRows, r = i % kGroupRows;
-    hT[i] = r < nrows ? d.h0[(size_t)(b0 + r) * D + k] : 0.f;
+    hT[i] = k < D && r < nrows ? d.h0[(size_t)(b0 + r) * D + k] : 0.f;
     rhT[i] = 0.f;
   }
+
+  // this thread's items: gate item tid + e * kClusterThreads is (row,
+  // column cc of 2n), candidate item tid is (row, column of n)
+  auto gate_item = [&](int e, int& r, int& cc, int& c) {
+    const int item = tid + e * kClusterThreads;
+    r = item / n2;
+    cc = item % n2;
+    c = c0 + (cc < n ? cc : cc - n);
+    return r < nrows && c < D;
+  };
+  const int cr = tid / n, ccc = tid % n, cc_col = c0 + ccc;
+  const bool cand_ok = cr < nrows && cc_col < D;
+
+  // the step's gate inputs, input projections and mask of this thread's
+  // items into the stage
+  auto prefetch = [&](int step) {
+    const int t = d.reverse ? T - 1 - step : step;
+    const size_t row0 = (size_t)t * B + b0;
+#pragma unroll
+    for (int e = 0; e < kGateItems; ++e) {
+      int r, cc, c;
+      if (gate_item(e, r, cc, c))
+        cp_async<4>(stage_g + tid + e * kClusterThreads,
+                    d.g + (row0 + r) * a.ldg + (cc < n ? c : D + c), 4);
+    }
+    if (cand_ok) {
+      cp_async<4>(stage_x + tid, d.x + (row0 + cr) * a.ldx + cc_col, 4);
+      if (a.mask != nullptr)
+        cp_async<4>(stage_m + tid, a.mask + row0 + cr, 4);
+    }
+    cp_async_commit();
+  };
+  prefetch(0);
+  // weights and state in place, every block of the cluster running
   cluster.sync();
 
-  // outputs this thread finishes: gate items tid + e * blockDim
-  // (row, column of 2n), candidate items tid + e * blockDim (row, of n)
-  constexpr int kGateItems = 4, kCandItems = 2;
   for (int step = 0; step < T; ++step) {
     const int t = d.reverse ? T - 1 - step : step;
     const size_t row0 = (size_t)t * B + b0;
-    // this step's input projections and mask, loaded ahead of the products
-    float gin[kGateItems], xin[kCandItems], mk[kCandItems];
-#pragma unroll
-    for (int e = 0; e < kGateItems; ++e) {
-      const int item = tid + e * kClusterThreads;
-      const int r = item / n2, cc = item % n2;
-      const int c = c0 + (cc < n ? cc : cc - n);
-      gin[e] = r < nrows && c < D
-                   ? d.g[(row0 + r) * a.ldg + (cc < n ? c : D + c)] : 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < kCandItems; ++e) {
-      const int item = tid + e * kClusterThreads;
-      const int r = item / n, c = c0 + item % n;
-      const bool ok = r < nrows && c < D;
-      xin[e] = ok ? d.x[(row0 + r) * a.ldx + c] : 0.f;
-      mk[e] = ok && a.mask != nullptr ? a.mask[row0 + r] : 1.f;
-    }
-    // ---- gates of the owned columns; broadcast r * h into the cluster
-    cluster_partials(hT, wg, n2, n2, slices_g, D, part);
+    float gv[kGateItems];
+    // ---- gates of the owned columns; own slice of r * h
+    tile_partials(hT, wg, n2, Dp, o.slices_g, part);
     __syncthreads();
+    cp_async_wait<0>();
 #pragma unroll
     for (int e = 0; e < kGateItems; ++e) {
-      const int item = tid + e * kClusterThreads;
-      const int r = item / n2, cc = item % n2;
-      const int c = c0 + (cc < n ? cc : cc - n);
-      if (r >= nrows || c >= D) continue;
-      const float g = sigmoidf(cluster_sum(part, slices_g, n2, r, cc)
-                               + gin[e]);
-      if (cc < n) {
-        z[r * n + cc] = g;
-        if (d.u != nullptr) d.u[(row0 + r) * D + c] = g;
-      } else {
-        if (d.r != nullptr) d.r[(row0 + r) * D + c] = g;
-        const float v = g * hT[c * kGroupRows + r];
+      int r, cc, c;
+      gv[e] = 0.f;
+      if (!gate_item(e, r, cc, c)) continue;
+      gv[e] = sigmoidf(slice_sum(part, o.slices_g, n2, r, cc)
+                       + stage_g[tid + e * kClusterThreads]);
+      if (cc < n)
+        z[r * n + cc] = gv[e];
+      else
+        rhT[c * kGroupRows + r] = gv[e] * hT[c * kGroupRows + r];
+    }
+    cluster_arrive();
+    // this step's update and reset gates, for the training backward
+    if (d.u != nullptr) {
 #pragma unroll
-        for (int q = 0; q < kCluster; ++q)
-          cluster.map_shared_rank(rhT, q)[c * kGroupRows + r] = v;
+      for (int e = 0; e < kGateItems; ++e) {
+        int r, cc, c;
+        if (gate_item(e, r, cc, c))
+          (cc < n ? d.u : d.r)[(row0 + r) * D + c] = gv[e];
       }
     }
-    // ---- wait for the cluster's r * h
-    cluster.sync();
-    // ---- candidates of the owned columns; broadcast the new state
-    cluster_partials(rhT, ws, n, n, slices_c, D, part);
+    // ---- wait for the cluster's r * h; pull the peers' slices
+    cluster_wait();
+    pull_peers<kC>(cluster, rhT, n, Dp, 1, j);
     __syncthreads();
-#pragma unroll
-    for (int e = 0; e < kCandItems; ++e) {
-      const int item = tid + e * kClusterThreads;
-      const int r = item / n, cc = item % n, c = c0 + cc;
-      if (r >= nrows || c >= D) continue;
-      const float cand = tanhf(cluster_sum(part, slices_c, n, r, cc)
-                               + xin[e]);
-      if (d.c != nullptr) d.c[(row0 + r) * D + c] = cand;
-      const float hold = hT[c * kGroupRows + r];
-      const float up = z[r * n + cc];
-      float hn = up * cand + (1.f - up) * hold;
-      if (a.mask != nullptr) hn = mk[e] * hn + (1.f - mk[e]) * hold;
-      d.out[(row0 + r) * a.ldo + c] = hn;
-#pragma unroll
-      for (int q = 0; q < kCluster; ++q)
-        cluster.map_shared_rank(hT, q)[c * kGroupRows + r] = hn;
+    // ---- candidates of the owned columns; own slice of the new state
+    tile_partials(rhT, ws, n, Dp, o.slices_c, part);
+    __syncthreads();
+    float cand = 0.f, hn = 0.f;
+    if (cand_ok) {
+      cand = tanhf(slice_sum(part, o.slices_c, n, cr, ccc) + stage_x[tid]);
+      const float hold = hT[cc_col * kGroupRows + cr];
+      const float up = z[cr * n + ccc];
+      hn = up * cand + (1.f - up) * hold;
+      if (a.mask != nullptr) {
+        const float m = stage_m[tid];
+        hn = m * hn + (1.f - m) * hold;
+      }
+      hT[cc_col * kGroupRows + cr] = hn;
     }
-    // ---- wait for the cluster's new state
-    cluster.sync();
+    cluster_arrive();
+    // the next step's operands, then this step's stores: issued after the
+    // arrive, whose release would otherwise wait for them too
+    if (step + 1 < T) prefetch(step + 1);
+    if (cand_ok) {
+      d.out[(row0 + cr) * a.ldo + cc_col] = hn;
+      if (d.c != nullptr) d.c[(row0 + cr) * D + cc_col] = cand;
+    }
+    // ---- wait for the cluster's new state; pull the peers' slices
+    cluster_wait();
+    if (step + 1 < T) {
+      pull_peers<kC>(cluster, hT, n, Dp, 1, j);
+      __syncthreads();
+    }
   }
+}
+
+template <int kC>
+cudaError_t prepare(size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_fwd_kernel<kC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err == cudaSuccess && kC > 8)
+    err = cudaFuncSetAttribute(
+        gru_fwd_kernel<kC>, cudaFuncAttributeNonPortableClusterSizeAllowed,
+        1);
+  return err;
+}
+
+template <int kC>
+cudaLaunchConfig_t launch_config(dim3 grid, size_t smem, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kC;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int kC>
+int max_clusters(int D, int* count) {
+  const size_t smem = (size_t)fwd_layout(D, kC).total * sizeof(float);
+  cudaError_t err = prepare<kC>(smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config<kC>(dim3(kC), smem, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(count, gru_fwd_kernel<kC>, &cfg);
+}
+
+template <int kC>
+int launch(const GruArgs& args, int ndir, cudaStream_t stream) {
+  const size_t smem = (size_t)fwd_layout(args.D, kC).total * sizeof(float);
+  cudaError_t err = prepare<kC>(smem);
+  if (err != cudaSuccess) return (int)err;
+  const int groups = (args.B + kGroupRows - 1) / kGroupRows;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config<kC>(dim3(groups * kC, ndir), smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, gru_fwd_kernel<kC>, args);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+int max_smem_optin(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (int)err;
 }
 
 }  // namespace
 
-// Whether the kernel covers width D on the current device: 1 or 0, or a
-// negative CUDA error code.
-extern "C" int gru_scan_supported(int D) {
-  int max_smem = 0, dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return -(int)err;
-  return cluster_fits(D, max_smem) ? 1 : 0;
+// Whether the kernel covers width D with `cluster` (8 or 16) blocks on the
+// current device: 1 or 0, or a negative CUDA error code.
+extern "C" int gru_scan_fits(int D, int cluster) {
+  int max_smem = 0;
+  const int err = max_smem_optin(&max_smem);
+  if (err != 0) return -err;
+  return (cluster == 8 || cluster == 16) && fwd_fits(D, cluster, max_smem);
 }
 
-extern "C" int gru_scan_f32(const GruArgs* args, int ndir, void* stream) {
-  const int supported = gru_scan_supported(args->D);
-  if (supported < 0) return -supported;
-  if (supported == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)cluster_layout(args->D).total * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int groups = (args->B + kGroupRows - 1) / kGroupRows;
-  const dim3 grid(groups * kCluster, ndir);
-  gru_scan_kernel<<<grid, kClusterThreads, smem, (cudaStream_t)stream>>>(
-      *args);
-  return (int)cudaGetLastError();
+// Whether the kernel covers width D on the current device (with 16-block
+// clusters, the widest layout): 1 or 0, or a negative CUDA error code.
+extern "C" int gru_scan_supported(int D) { return gru_scan_fits(D, 16); }
+
+// The layout's dynamic shared memory in bytes, a block of `cluster`.
+extern "C" int gru_scan_smem_bytes(int D, int cluster) {
+  return fwd_layout(D, cluster).total * (int)sizeof(float);
+}
+
+// How many `cluster`-block clusters of the kernel at width D the current
+// device holds at once (cudaOccupancyMaxActiveClusters) into *count; a
+// CUDA error code.
+extern "C" int gru_scan_max_clusters(int D, int cluster, int* count) {
+  if (gru_scan_fits(D, cluster) != 1) return (int)cudaErrorInvalidValue;
+  return cluster == 8 ? max_clusters<8>(D, count)
+                      : max_clusters<16>(D, count);
+}
+
+// Launch with clusters of `cluster` (8 or 16) blocks; a CUDA error code.
+extern "C" int gru_scan_f32(const GruArgs* args, int ndir, int cluster,
+                            void* stream) {
+  const int fits = gru_scan_fits(args->D, cluster);
+  if (fits < 0) return -fits;
+  if (fits == 0) return (int)cudaErrorInvalidValue;
+  return cluster == 8 ? launch<8>(*args, ndir, (cudaStream_t)stream)
+                      : launch<16>(*args, ndir, (cudaStream_t)stream);
 }

@@ -57,12 +57,13 @@
 //   bit.
 //
 // Widths whose weight slices and buffers do not fit in a block's shared
-// memory (D above 384, and the forward's limit, about D=330) are not
-// covered: gru_train_supported() says so before a launch.
+// memory (D above 384; the forward's limit is D=448) are not covered:
+// gru_train_supported() says so before a launch.  The product tiles, the
+// slice sums and the pulls are gru_pull.cuh's, shared with the forward.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "gru_cluster.cuh"
+#include "gru_pull.cuh"
 #include "sm90_async.cuh"
 
 // Must match the ctypes.Structures in ops/gru_train.py field for field.
@@ -94,11 +95,6 @@ constexpr int kItems = 2;          // (row, owned column) items per thread
 constexpr int kOperands = 6;       // staged per item: u, r, c, h_prev,
                                    // dstates, mask
 
-constexpr int kTileRows = 8;       // a product thread's register tile:
-constexpr int kTileCols = 2;       //   8 rows x 2 columns of one k slice
-constexpr int kMaxSlices = 8;      // k slices per product output
-constexpr int kAhead = 4;          // k steps loaded ahead
-
 struct BwdLayout {
   int n, Dp, slices;                       // columns, padded width, slices
   int ws, wg, da, dg, stage, part, total;  // offsets in floats
@@ -107,10 +103,9 @@ struct BwdLayout {
 // every buffer starts on a 16-byte boundary (float4 pulls and loads)
 __host__ __device__ inline BwdLayout bwd_layout(int D) {
   BwdLayout o;
-  o.n = ((D + kBwdCluster - 1) / kBwdCluster + 1) / 2 * 2;
+  o.n = owned_columns(D, kBwdCluster);
   o.Dp = kBwdCluster * o.n;
-  const int tiles = (kGroupRows / kTileRows) * (o.n / kTileCols);
-  o.slices = max(1, min(kMaxSlices, kClusterThreads / tiles));
+  o.slices = tile_slices(o.n, kMaxSlices);
   o.ws = 0;                                 // (Dp, n): w_state[c0 + c][k]
   o.wg = o.ws + o.Dp * o.n;                 // (2Dp, n): w_gates[c0 + c][.]
   o.da = o.wg + 2 * o.Dp * o.n;             // (Dp, kGroupRows) da, k-major
@@ -125,106 +120,6 @@ __host__ inline bool bwd_fits(int D, int max_smem) {
   const BwdLayout o = bwd_layout(D);
   return kGroupRows * o.n <= kItems * kClusterThreads
          && (size_t)o.total * sizeof(float) <= (size_t)max_smem;
-}
-
-// part[(q * kGroupRows + row) * n + c] = sum over k in slice q of `K` of
-// x[k * kGroupRows + row] * w[k * n + c].  A thread takes kTileRows rows x
-// kTileCols columns of one slice: two float4s of x and one float2 of w a k
-// step, with kAhead steps' loads issued before their FMAs.
-__device__ __forceinline__ void tile_partials(const float* x, const float* w,
-                                              int n, int K, int slices,
-                                              float* part) {
-  constexpr int R = kTileRows, C = kTileCols;
-  const int groups = n / C, tiles = (kGroupRows / R) * groups;
-  const int item = threadIdx.x;
-  if (item >= slices * tiles) return;
-  const int q = item / tiles, rem = item % tiles;
-  const int rg = rem / groups, c = (rem % groups) * C;
-  const int k0 = q * K / slices, k1 = (q + 1) * K / slices;
-  const float* xp = x + rg * R;
-  const float* wp = w + c;
-  float acc[R][C];
-#pragma unroll
-  for (int i = 0; i < R; ++i) acc[i][0] = acc[i][1] = 0.f;
-  auto load = [&](int k, float (&xs)[R], float2& ws) {
-    const float4 lo = *reinterpret_cast<const float4*>(xp + k * kGroupRows);
-    const float4 hi = *reinterpret_cast<const float4*>(
-        xp + k * kGroupRows + 4);
-    xs[0] = lo.x;
-    xs[1] = lo.y;
-    xs[2] = lo.z;
-    xs[3] = lo.w;
-    xs[4] = hi.x;
-    xs[5] = hi.y;
-    xs[6] = hi.z;
-    xs[7] = hi.w;
-    ws = *reinterpret_cast<const float2*>(wp + k * n);
-  };
-  auto step = [&](const float (&xs)[R], const float2& ws) {
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      acc[i][0] = fmaf(xs[i], ws.x, acc[i][0]);
-      acc[i][1] = fmaf(xs[i], ws.y, acc[i][1]);
-    }
-  };
-  int k = k0;
-  for (; k + kAhead <= k1; k += kAhead) {
-    float xs[kAhead][R];
-    float2 ws[kAhead];
-#pragma unroll
-    for (int s = 0; s < kAhead; ++s) load(k + s, xs[s], ws[s]);
-#pragma unroll
-    for (int s = 0; s < kAhead; ++s) step(xs[s], ws[s]);
-  }
-  for (; k < k1; ++k) {
-    float xs[R];
-    float2 ws;
-    load(k, xs, ws);
-    step(xs, ws);
-  }
-  float* out = part + (q * kGroupRows + rg * R) * n + c;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    out[i * n] = acc[i][0];
-    out[i * n + 1] = acc[i][1];
-  }
-}
-
-__device__ __forceinline__ float slice_sum(const float* part, int slices,
-                                           int n, int r, int c) {
-  float s = part[r * n + c];
-  for (int q = 1; q < slices; ++q) s += part[(q * kGroupRows + r) * n + c];
-  return s;
-}
-
-// Copy every peer's slices of the k-major buffer `buf` into ours: `parts`
-// regions Dp rows apart, block q's slice of each the rows [q*n, (q+1)*n).
-// Four 16-byte remote loads are in flight per thread before their stores.
-__device__ __forceinline__ void pull_peers(cooperative_groups::cluster_group&
-                                               cluster,
-                                           float* buf, int n, int Dp,
-                                           int parts, int self) {
-  const int per = n * kGroupRows / 4;             // float4s of one slice
-  const int count = parts * kBwdCluster * per;
-  float4* mine = reinterpret_cast<float4*>(buf);
-  for (int base = threadIdx.x; base < count; base += 4 * kClusterThreads) {
-    float4 v[4];
-    int at[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = base + u * kClusterThreads;
-      const int part = i / (kBwdCluster * per), q = (i / per) % kBwdCluster;
-      at[u] = i < count && q != self ? part * Dp * kGroupRows / 4
-                                           + i % (kBwdCluster * per)
-                                     : -1;
-      if (at[u] >= 0)
-        v[u] = reinterpret_cast<const float4*>(
-            cluster.map_shared_rank(buf, q))[at[u]];
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      if (at[u] >= 0) mine[at[u]] = v[u];
-  }
 }
 
 __global__ void __launch_bounds__(kClusterThreads, 1)
@@ -322,7 +217,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     }
     // ---- wait for the cluster's da; pull the peers' slices
     cluster.sync();
-    pull_peers(cluster, daT, n, Dp, 1, j);
+    pull_peers<kBwdCluster>(cluster, daT, n, Dp, 1, j);
     __syncthreads();
     // ---- reset path: da @ w_state^T; gate gradients; own dg slices
     tile_partials(daT, wsT, n, Dp, slices, part);
@@ -357,7 +252,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     }
     // ---- wait for the cluster's dg; pull the peers' slices
     cluster_wait();
-    pull_peers(cluster, dgT, n, Dp, 2, j);
+    pull_peers<kBwdCluster>(cluster, dgT, n, Dp, 2, j);
     __syncthreads();
     // ---- gate path: dg @ w_gates^T finishes the owned state gradients
     tile_partials(dgT, wgT, n, 2 * Dp, slices, part);
@@ -392,7 +287,7 @@ extern "C" int gru_train_supported(int D) {
     err = cudaDeviceGetAttribute(
         &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return -(int)err;
-  return bwd_fits(D, max_smem) && cluster_fits(D, max_smem) ? 1 : 0;
+  return bwd_fits(D, max_smem) && fwd_fits(D, kBwdCluster, max_smem) ? 1 : 0;
 }
 
 extern "C" int gru_train_bwd_f32(const GruBwdArgs* args, int ndir,

@@ -7,6 +7,12 @@ reverse time.  It takes the plain PyTorch version for tensors on the CPU
 and launches ``csrc/gru_scan.cu`` for tensors on a CUDA device; any
 other device raises, and so does a width the kernel does not cover.
 There is no fallback from one to the other.
+
+The kernel runs each direction's 16-row groups on thread-block clusters of
+16 blocks, or 8 (:func:`choose_cluster`): the size whose clusters the card
+holds in the fewest waves, by ``cudaOccupancyMaxActiveClusters``; 16 on a
+tie.  :func:`fwd_layout` mirrors the kernel's shared-memory layout
+(``csrc/gru_pull.cuh::fwd_layout``).
 """
 from __future__ import annotations
 
@@ -17,6 +23,93 @@ import torch
 from attention_lvcsr_torch import _build
 
 launches = _build.LaunchCounter()
+
+# csrc/gru_pull.cuh's constants
+GROUP_ROWS, THREADS, TILE_ROWS, TILE_COLS, MAX_SLICES = 16, 512, 8, 2, 8
+MAX_SMEM = 232448          # the opt-in shared memory of a block on sm_90
+CLUSTERS = (16, 8)
+
+
+def fwd_layout(D, cluster):
+    """The forward kernel's layout at width D with ``cluster`` blocks a
+    cluster: owned columns ``n``, padded width ``Dp``, the k slices of the
+    gate and candidate products and the shared memory of a block in
+    bytes."""
+    n = ((D + cluster - 1) // cluster + 1) // 2 * 2
+    Dp = cluster * n
+
+    def slices(cols, cap):
+        tiles = (GROUP_ROWS // TILE_ROWS) * (cols // TILE_COLS)
+        return max(1, min(cap, THREADS // tiles))
+
+    # weights (3 Dp n), state and r * state, update gates, stage
+    fixed = 3 * Dp * n + 2 * Dp * GROUP_ROWS + 5 * GROUP_ROWS * n
+    cap = MAX_SLICES
+    while True:
+        sg, sc = slices(2 * n, cap), slices(n, cap)
+        total = fixed + max(2 * sg, sc) * GROUP_ROWS * n
+        if total <= MAX_SMEM // 4 or cap == 1:
+            break
+        cap //= 2
+    return {"n": n, "Dp": Dp, "slices_g": sg, "slices_c": sc,
+            "smem_bytes": 4 * total}
+
+
+def fits(D, cluster, max_smem=MAX_SMEM):
+    """Whether the layout covers width D: one candidate item per thread,
+    two gate items, and the shared memory."""
+    o = fwd_layout(D, cluster)
+    return GROUP_ROWS * o["n"] <= THREADS and o["smem_bytes"] <= max_smem
+
+
+def choose_cluster(clusters, active):
+    """The cluster size for a launch of ``clusters`` clusters, given how
+    many clusters of each size the card holds at once (``active``: {size:
+    count}, 0 where the layout does not fit): the fewest waves, then the
+    larger size."""
+    waves = {size: -(-clusters // count)
+             for size, count in active.items() if count > 0}
+    if not waves:
+        raise NotImplementedError("gru_scan: no cluster size fits")
+    return min(waves, key=lambda size: (waves[size], -size))
+
+
+_active = {}
+
+
+def max_active_clusters(D, device):
+    """{cluster size: clusters the device holds at once} at width D (0
+    where the layout does not fit), queried once per device and width."""
+    key = (device.index, D)
+    if key not in _active:
+        lib = _build.load().lib
+        lib.gru_scan_fits.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.gru_scan_fits.restype = ctypes.c_int
+        lib.gru_scan_max_clusters.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.gru_scan_max_clusters.restype = ctypes.c_int
+        active = {}
+        with torch.cuda.device(device):
+            for size in CLUSTERS:
+                fit = lib.gru_scan_fits(D, size)
+                _build.check(max(0, -fit), "gru_scan_fits")
+                count = ctypes.c_int(0)
+                if fit:
+                    _build.check(lib.gru_scan_max_clusters(
+                        D, size, ctypes.byref(count)),
+                        "gru_scan_max_clusters")
+                active[size] = count.value
+        _active[key] = active
+    return _active[key]
+
+
+def launch_plan(D, B, ndir, device):
+    """The cluster size a launch at width D over B rows and ``ndir``
+    directions takes, the clusters it needs and what the device holds."""
+    clusters = -(-B // GROUP_ROWS) * ndir
+    active = max_active_clusters(D, device)
+    return {"cluster": choose_cluster(clusters, active),
+            "clusters": clusters, "active": active}
 
 
 def _scan_reference(x_proj, gate_proj, mask, h0, w_state, w_gates,
@@ -133,7 +226,7 @@ def launch(proj, mask, dirs, out, residuals=None, name="gru_scan"):
     lib.gru_scan_supported.argtypes = [ctypes.c_int]
     lib.gru_scan_supported.restype = ctypes.c_int
     lib.gru_scan_f32.argtypes = [ctypes.POINTER(_Args), ctypes.c_int,
-                                 ctypes.c_void_p]
+                                 ctypes.c_int, ctypes.c_void_p]
     lib.gru_scan_f32.restype = ctypes.c_int
     with torch.cuda.device(device):
         supported = lib.gru_scan_supported(D)
@@ -141,8 +234,9 @@ def launch(proj, mask, dirs, out, residuals=None, name="gru_scan"):
         if supported == 0:
             raise NotImplementedError(
                 f"gru_scan: width D={D} is not ported yet (the kernel keeps "
-                f"each direction's recurrent weights in one 8-block "
-                f"cluster's shared memory, which holds up to about D=330)")
+                f"each direction's recurrent weights in one 16-block "
+                f"cluster's shared memory, which holds up to D=448)")
+        cluster = launch_plan(D, B, len(dirs), device)["cluster"]
         args = _Args(mask=mask.data_ptr() if mask is not None else None,
                      T=T, B=B, D=D, ldx=width, ldg=width, ldo=out.shape[-1])
         for i, (h0, ws, wg) in enumerate(dirs):
@@ -153,7 +247,7 @@ def launch(proj, mask, dirs, out, residuals=None, name="gru_scan"):
                                h0.data_ptr(), ws.data_ptr(), wg.data_ptr(),
                                out[..., D * i:].data_ptr(), u, r, c,
                                reverse=i)
-        status = lib.gru_scan_f32(ctypes.byref(args), len(dirs),
+        status = lib.gru_scan_f32(ctypes.byref(args), len(dirs), cluster,
                                   _build.stream_of(proj))
     _build.check(status, "gru_scan_f32")
     return True

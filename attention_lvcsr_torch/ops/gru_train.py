@@ -63,10 +63,10 @@ def _supported(lib, D):
     _build.check(max(0, -supported), "gru_train_supported")
     if supported == 0:
         raise NotImplementedError(
-            f"gru_scan_train: width D={D} is not ported yet (the forward "
-            f"kernel keeps each direction's recurrent weights in one "
-            f"8-block cluster's shared memory, which holds up to about "
-            f"D=330, the backward's 16-block cluster up to D=384)")
+            f"gru_scan_train: width D={D} is not ported yet (the kernels "
+            f"keep each direction's recurrent weights in one 16-block "
+            f"cluster's shared memory, which holds up to D=448 for the "
+            f"forward and D=384 for the backward)")
 
 
 def launch_backward(dout, out, mask, dirs, residuals, dproj, dh0s, stream):

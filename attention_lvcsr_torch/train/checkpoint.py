@@ -72,6 +72,12 @@ def save_checkpoint(path: str, parameters: Mapping[str, np.ndarray],
     secure_write(path, writer)
 
 
+def save_parameters(path: str, parameters: Mapping[str, np.ndarray]):
+    """The path-keyed parameters alone, as an npz (the JAX package's
+    ``<root>_params.npz``)."""
+    secure_write(path, lambda f: f.write(_npz_bytes(parameters)))
+
+
 def _member(path, name):
     with tarfile.open(path, "r") as tar:
         try:

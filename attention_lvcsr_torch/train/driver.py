@@ -12,22 +12,32 @@ Counterpart of ``attention_lvcsr_tpu/train/driver.py`` for teacher-forced
   (``_weight_leaf`` :99-102), through ``train/rules.py``'s chain; the
   same monitors, ``total_gradient_norm`` and ``total_step_norm``
   included.  The parameters are updated in place;
-* :func:`run_training` runs the loop over a batch stream: FinishAfter
-  (batches, epochs, a NaN gradient norm), Checkpoint (every n batches and
-  at the end), Timing and Printing;
+* :func:`run_training` runs the loop over a batch stream with the JAX
+  ``initialize_all`` extensions that are ported (JAX :455-559): Timing;
+  with a validation stream, the validation cost (``train/monitoring.py``)
+  before the first epoch and every n epochs or batches and TrackTheBest
+  on ``valid_sequence_total_cost``; FinishAfter (batches, epochs, a NaN
+  gradient norm); Checkpoint before the first epoch, after every epoch
+  and every n batches, with its ``_params.npz`` sidecar, and the
+  ``_best_ll`` copy when the validation cost improves; Printing;
 * :func:`train` is the CLI part: it reads the config's data (``yaml`` and
-  ``h5py`` are imported there only) and calls :func:`run_training`.
+  ``h5py`` are imported there only) and calls :func:`run_training` over
+  the ``train`` part, validating on the ``valid`` part.
 
 Not ported, and refused with ``NotImplementedError`` naming the piece:
 weight noise, adaptive noise, dropout, greedy and mixed exploration, a
-bf16 compute dtype, validation and search during training, and the
-multistage extensions.
+bf16 compute dtype, and multistage configs.  Not ported, and named in one
+``logging`` warning each when a config sets them (:data:`UNPORTED_KEYS`):
+search during training with its ``_best`` checkpoint, Patience,
+``stop_filtering`` and the plot channels; and, for every config, the
+averaged train records (``average_*``).
 """
 from __future__ import annotations
 
+import logging
+import os
 from typing import Any, Callable, Iterable, Mapping, Optional
 
-import numpy as np
 import torch
 
 from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
@@ -35,9 +45,30 @@ from attention_lvcsr_torch.ops.expressions import (entropy,
                                                    monotonicity_penalty)
 from attention_lvcsr_torch.train.loop import (Checkpoint, FinishAfter,
                                               MainLoop, Printing, Timing,
-                                              gradient_norm_is_nan)
+                                              TrackTheBest,
+                                              gradient_norm_is_nan, on_record)
+from attention_lvcsr_torch.train.monitoring import (DataStreamMonitoring,
+                                                    batch_tensors,
+                                                    make_eval_fn)
 from attention_lvcsr_torch.train.rules import (build_optimizer, global_norm,
                                                state_arrays)
+
+logger = logging.getLogger(__name__)
+
+# Keys of a config's monitoring and training sections that the JAX driver
+# honours and the port does not yet: what each stands for, and the
+# ROADMAP item that ports it.
+UNPORTED_KEYS = {
+    "monitoring.search": "beam-search validation during training and the "
+                         "_best checkpoint (ROADMAP Queue 1 item 4)",
+    "training.patience": "early stopping, Patience (ROADMAP Queue 1 item 4)",
+    "training.stop_filtering": "switching off the length filter, "
+                               "SwitchOffLengthFilter (ROADMAP Queue 1 "
+                               "item 4)",
+    "monitoring.plot": "the plot channels (ROADMAP Queue 1 item 9)",
+}
+AVERAGED_RECORDS = ("the averaged train records (average_*, every 10 "
+                    "batches; ROADMAP Queue 1 item 4)")
 
 _DECAYED_LEAVES = ("kernel", "embedding", "state_to_state", "state_to_gates",
                    "W", "W_state", "conv_filters")
@@ -155,11 +186,15 @@ def make_train_step(recognizer: SpeechRecognizer, optimizer, config):
     return step
 
 
+def unported_keys(config):
+    """The keys of :data:`UNPORTED_KEYS` that ``config`` sets."""
+    return [key for key in UNPORTED_KEYS
+            if (config.get(key.split(".")[0]) or {}).get(key.split(".")[1])]
+
+
 class GradientDescent:
     """Owns the optimizer state and the train step; takes numpy or tensor
     batches and returns each step's monitors as Python floats."""
-
-    BATCH_KEYS = ("recordings", "recordings_mask", "labels", "labels_mask")
 
     def __init__(self, recognizer, optimizer, step_fn):
         self.recognizer = recognizer
@@ -169,14 +204,8 @@ class GradientDescent:
             {k: p.detach() for k, p in recognizer.parameters().items()})
 
     def process_batch(self, batch: Mapping[str, Any]):
-        device = self.recognizer.device
-        inputs, inputs_mask, labels, labels_mask = (
-            torch.as_tensor(np.asarray(batch[k]) if not torch.is_tensor(
-                batch[k]) else batch[k], device=device)
-            for k in self.BATCH_KEYS)
         self.opt_state, monitors = self.step_fn(
-            self.opt_state, inputs.float(), inputs_mask.float(),
-            labels.long(), labels_mask.float())
+            self.opt_state, *batch_tensors(batch, self.recognizer.device))
         names = sorted(monitors)
         values = torch.stack([monitors[k] for k in names]).tolist()
         return dict(zip(names, values))
@@ -191,30 +220,59 @@ class GradientDescent:
 def run_training(recognizer: SpeechRecognizer, optimizer,
                  batch_stream: Callable[[], Iterable], save_path: str,
                  config: Optional[Mapping] = None, *, num_batches=None,
-                 num_epochs=None, save_every_n_batches=None, printing=True):
+                 num_epochs=None, save_every_n_batches=None,
+                 valid_stream: Optional[Callable[[], Iterable]] = None,
+                 fast_start=False, printing=True):
     """Train ``recognizer`` with ``optimizer`` over ``batch_stream()``
     (called once per epoch; each batch a mapping with ``recordings``,
-    ``recordings_mask``, ``labels`` and ``labels_mask``), checkpointing
-    to ``save_path`` every ``save_every_n_batches`` and at the end.
-    Returns the finished :class:`MainLoop` (its ``log`` holds every
-    step's monitors)."""
-    step = make_train_step(recognizer, optimizer, dict(config or {}))
+    ``recordings_mask``, ``labels`` and ``labels_mask``), checkpointing to
+    ``save_path`` before the first epoch (unless ``fast_start``), after
+    every epoch and every ``save_every_n_batches``.  With
+    ``valid_stream`` (a factory like ``batch_stream``), the validation
+    cost is taken before the first epoch (unless ``fast_start``) and at
+    the config's ``monitoring.validate_every_epochs`` (default 1) and
+    ``validate_every_batches``, and each epoch that improves it is also
+    saved to ``<root>_best_ll<ext>``.  Returns the finished
+    :class:`MainLoop` (its ``log`` holds every step's monitors)."""
+    config = dict(config or {})
+    mon_conf = config.get("monitoring", {}) or {}
+    step = make_train_step(recognizer, optimizer, config)
     algorithm = GradientDescent(recognizer, optimizer, step)
+    exts = [Timing()]
+    best = None
+    if valid_stream is not None:
+        validation = DataStreamMonitoring(
+            make_eval_fn(recognizer), valid_stream, prefix="valid",
+            before_first_epoch=not fast_start,
+            every_n_epochs=mon_conf.get("validate_every_epochs", 1),
+            every_n_batches=mon_conf.get("validate_every_batches", 0))
+        best = TrackTheBest(validation.record_name("sequence_total_cost"),
+                            before_first_epoch=True, after_epoch=True)
+        exts += [validation, best]
     finish = FinishAfter(after_n_batches=num_batches,
                          after_n_epochs=num_epochs)
     finish.add_condition(["after_batch"], gradient_norm_is_nan)
-    exts = [Timing(), finish,
-            Checkpoint(save_path, every_n_batches=save_every_n_batches,
-                       after_training=True)]
+    checkpoint = Checkpoint(save_path, before_first_epoch=not fast_start,
+                            after_epoch=True,
+                            every_n_batches=save_every_n_batches)
+    if best is not None:
+        root, ext = os.path.splitext(save_path)
+        checkpoint.add_condition(["after_epoch"],
+                                 on_record(best.notification_name),
+                                 arguments=(root + "_best_ll" + ext,))
+    exts += [finish, checkpoint]
     if printing:
         exts.append(Printing(every_n_batches=1))
     loop = MainLoop(algorithm, batch_stream, extensions=exts)
     return loop.run()
 
 
-def train(config, save_path, params_path=None, device="cuda"):
+def train(config, save_path, params_path=None, fast_start=False,
+          device="cuda"):
     """CLI entry (``run.py train``): the config's data, model and rule
-    chain, then :func:`run_training` over the training part."""
+    chain, then :func:`run_training` over the training part, validating
+    on the ``valid`` part.  Warns once for each config key the port does
+    not honour yet."""
     from attention_lvcsr_torch.data import Data      # h5py: CLI path only
     if getattr(config, "multi_stage", False):
         raise NotImplementedError("not ported yet: multistage training")
@@ -222,6 +280,10 @@ def train(config, save_path, params_path=None, device="cuda"):
     piece = unported_training(config)
     if piece is not None:
         raise NotImplementedError(f"not ported yet: {piece}")
+    for key in unported_keys(config):
+        logger.warning("not ported yet, ignored: %s, %s", key,
+                       UNPORTED_KEYS[key])
+    logger.warning("not ported yet: %s", AVERAGED_RECORDS)
     data = Data(**config["data"])
     recognizer = create_model(config, data, params_path, device=device)
     train_conf = config.get("training", {}) or {}
@@ -230,4 +292,6 @@ def train(config, save_path, params_path=None, device="cuda"):
         recognizer, optimizer, lambda: data.get_stream("train"), save_path,
         config, num_batches=train_conf.get("num_batches"),
         num_epochs=train_conf.get("num_epochs"),
-        save_every_n_batches=train_conf.get("save_every_n_batches"))
+        save_every_n_batches=train_conf.get("save_every_n_batches"),
+        valid_stream=lambda: data.get_stream("valid", shuffle=False),
+        fast_start=fast_start)

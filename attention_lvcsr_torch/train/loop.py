@@ -4,8 +4,10 @@ The port's copy of the JAX-free ``attention_lvcsr_tpu/train/loop.py``
 (``MainLoop``: epochs, batches, extension callbacks, SIGINT/SIGTERM
 finishing gracefully) and of the extensions of
 ``attention_lvcsr_tpu/train/extensions.py`` that training needs:
-``FinishAfter`` (batches, epochs, or a predicate such as the NaN
-gradient-norm stop), ``Timing``, ``Printing`` and ``Checkpoint``.
+``SimpleExtension`` with the JAX package's conditions, ``FinishAfter``
+(batches, epochs, or a predicate such as the NaN gradient-norm stop),
+``Timing``, ``Printing``, ``TrackTheBest`` and ``Checkpoint`` (with the
+``_params.npz`` sidecar and the path argument of the ``_best_ll`` copy).
 
 The loop records each step's monitors as Python floats right after the
 step (one device synchronisation per step); the JAX package converts them
@@ -39,18 +41,26 @@ class TrainingExtension:
 class SimpleExtension(TrainingExtension):
     """Condition-triggered extension: subclasses implement ``do``.
 
-    Conditions: ``before_training``, ``after_epoch``, ``after_batch``,
-    ``after_training``, ``on_interrupt`` (True), ``every_n_batches``,
-    ``after_n_batches``, ``after_n_epochs`` (a count); ``add_condition``
-    adds a predicate on the log for a callback."""
+    Conditions (the JAX package's): ``before_training``,
+    ``before_first_epoch``, ``before_epoch``, ``after_epoch``,
+    ``after_batch``, ``after_training``, ``on_interrupt`` (True), and
+    ``every_n_batches``, ``every_n_epochs``, ``after_n_batches``,
+    ``after_n_epochs`` (a count; the ``every_n`` ones skip iteration and
+    epoch 0).  ``add_condition`` adds a predicate on the log for a
+    callback, and its ``arguments`` are passed on to ``do``."""
 
     def __init__(self, **conditions):
-        self._conditions = [(k, v) for k, v in conditions.items() if v]
+        self._conditions: List[tuple] = []
         self._extra_conditions: List[tuple] = []
+        self.set_conditions(**conditions)
 
-    def add_condition(self, callback_names, predicate=None):
+    def set_conditions(self, **conditions):
+        self._conditions = [(k, v) for k, v in conditions.items() if v]
+        return self
+
+    def add_condition(self, callback_names, predicate=None, arguments=()):
         for name in callback_names:
-            self._extra_conditions.append((name, predicate))
+            self._extra_conditions.append((name, predicate, tuple(arguments)))
         return self
 
     def do(self, which_callback, *args):
@@ -58,27 +68,31 @@ class SimpleExtension(TrainingExtension):
 
     def dispatch(self, callback_name, *args):
         status = self.main_loop.log.status
+        iterations, epochs = status["iterations_done"], status["epochs_done"]
         fired = False
         for cond, value in self._conditions:
             if cond == callback_name and value is True:
                 fired = True
+            elif cond == "before_first_epoch":
+                fired = callback_name == "before_epoch" and epochs == 0
             elif cond == "every_n_batches":
-                fired = (callback_name == "after_batch"
-                         and status["iterations_done"] % value == 0)
+                fired = (callback_name == "after_batch" and iterations > 0
+                         and iterations % value == 0)
+            elif cond == "every_n_epochs":
+                fired = (callback_name == "after_epoch" and epochs > 0
+                         and epochs % value == 0)
             elif cond == "after_n_batches":
-                fired = (callback_name == "after_batch"
-                         and status["iterations_done"] >= value)
+                fired = callback_name == "after_batch" and iterations >= value
             elif cond == "after_n_epochs":
-                fired = (callback_name == "after_epoch"
-                         and status["epochs_done"] >= value)
+                fired = callback_name == "after_epoch" and epochs >= value
             if fired:
                 break
         if fired:
             self.do(callback_name, *args)
-        for name, predicate in self._extra_conditions:
+        for name, predicate, arguments in self._extra_conditions:
             if name == callback_name and (predicate is None
                                           or predicate(self.main_loop.log)):
-                self.do(callback_name, *args)
+                self.do(callback_name, *(args + arguments))
 
 
 class FinishAfter(SimpleExtension):
@@ -129,24 +143,65 @@ class Printing(SimpleExtension):
         sys.stdout.flush()
 
 
+class TrackTheBest(SimpleExtension):
+    """Track the minimum of a log record: the new best goes into
+    ``status["best_<record>"]`` and sets ``best_<record>`` in the current
+    row, which other extensions' predicates read."""
+
+    def __init__(self, record_name, choose_best=min, **conditions):
+        self.record_name = record_name
+        self.best_name = "best_" + record_name
+        self.notification_name = self.best_name
+        self.choose_best = choose_best
+        conditions.setdefault("after_epoch", True)
+        super().__init__(**conditions)
+
+    def do(self, which_callback, *args):
+        log = self.main_loop.log
+        value = log.current_row.get(self.record_name)
+        if value is None:
+            value = log.last_value(self.record_name)
+        if value is None:
+            return
+        best = log.status.get(self.best_name)
+        if best is None or self.choose_best(value, best) == value \
+                and value != best:
+            log.status[self.best_name] = value
+            log.current_row[self.notification_name] = True
+
+
+def on_record(name):
+    """Predicate: the current log row has ``name`` set."""
+    def predicate(log):
+        return bool(log.current_row.get(name))
+    return predicate
+
+
 class Checkpoint(SimpleExtension):
     """Parameters (the JAX package's format), optimizer state, log and
-    metadata, written atomically to ``path``."""
+    metadata, written atomically to ``path``, or to the path that an
+    ``add_condition`` passes as its argument (the ``_best_ll`` copy); the
+    parameters also go to ``<root>_params.npz`` beside it, as the JAX
+    package writes them by default."""
 
     def __init__(self, path, **conditions):
         self.path = path
         super().__init__(**conditions)
 
     def do(self, which_callback, *args):
-        from attention_lvcsr_torch.train.checkpoint import save_checkpoint
+        from attention_lvcsr_torch.train.checkpoint import (save_checkpoint,
+                                                            save_parameters)
         loop = self.main_loop
+        path = args[-1] if args and isinstance(args[-1], str) else self.path
         status = loop.log.status
-        save_checkpoint(self.path, loop.algorithm.parameter_dict(),
+        params = loop.algorithm.parameter_dict()
+        save_checkpoint(path, params,
                         opt_state=loop.algorithm.opt_state_arrays(),
                         log_state=loop.log.state_dict(),
                         meta={"iterations_done": status["iterations_done"],
                               "epochs_done": status["epochs_done"]})
-        loop.log.current_row["saved_to"] = os.path.abspath(self.path)
+        save_parameters(os.path.splitext(path)[0] + "_params.npz", params)
+        loop.log.current_row["saved_to"] = os.path.abspath(path)
 
 
 class MainLoop:

@@ -13,7 +13,11 @@ trains it with a 4x250 BiLSTM encoder.  Phases, each fatal on failure:
 1. build the kernels (one nvcc per source, sm_90a) and print the time;
 2. ``gru_scan`` kernel vs its plain PyTorch version at the encoder's
    first layer, T=800, B=64, D=250, both directions in one launch and one
-   direction alone, masked with ragged lengths (max abs error <= 1e-4);
+   direction alone, masked with ragged lengths (max abs error <= 1e-4), a
+   second call bit for bit; the C layout against its Python mirror, the
+   clusters of 16 and of 8 blocks the card holds at once
+   (``cudaOccupancyMaxActiveClusters``), the cluster size the launcher
+   takes at B=32, 64, 128 and 256, and the kernel's time at B=128 and 256;
 3. ``beam_search_loop`` kernel vs its plain version on flagship tables:
    U=8 at 400 frames, then the main path's U=64 at 800 frames, and U=64
    again with the EOS logit raised by 1.5 so that most utterances finish
@@ -65,8 +69,12 @@ trains it with a 4x250 BiLSTM encoder.  Phases, each fatal on failure:
     plain route from the same parameters and batches: per-step train_cost
     and total_gradient_norm within 1e-4 relative, the training kernels
     launch, utt/s of both routes, the checkpoint reads back identical, a
-    second run of the kernel route repeats its monitors exactly; then two steps with a one-directional encoder (the path of the
-    one-direction kernel), compared the same way;
+    second run of the kernel route repeats its monitors exactly; both
+    routes also validate on two more batches, before the first step and
+    after the fifth (``run_training``'s validation, ``net.cost`` under
+    ``torch.no_grad()``): ``valid_sequence_total_cost`` within 1e-4
+    relative; then two steps with a one-directional encoder (the path of
+    the one-direction kernel), compared the same way;
 14. ``fbank_deltas`` kernel vs its plain version: B=64, 8 s of 16 kHz
     speech-like audio (harmonic tones, envelope and noise from a numpy
     seed) with ragged true frame counts, then B=1 (one serving request)
@@ -451,6 +459,44 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def gru_scan_plans(t, dev, rng, T, D, result):
+    """Phase 2, last: the forward kernel's C layout against the Python
+    mirror, the clusters of 8 and 16 blocks the card holds at once, the
+    cluster size the launcher takes, and the kernel's time at the serving
+    sizes B=128 and 256 (both directions, full mask)."""
+    import ctypes
+    import torch
+    from attention_lvcsr_torch import _build
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    lib = _build.load().lib
+    lib.gru_scan_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    for size in gs.CLUSTERS:
+        mirror = gs.fwd_layout(D, size)["smem_bytes"]
+        if lib.gru_scan_smem_bytes(D, size) != mirror:
+            fail(f"gru_scan: the C layout of {size}-block clusters has "
+                 f"{lib.gru_scan_smem_bytes(D, size)} bytes, the mirror "
+                 f"{mirror}")
+    for B in (32, 64, 128, 256):
+        plan = gs.launch_plan(D, B, 2, dev)
+        log(f"phase 2 gru_scan plan B={B} D={D}, both directions: "
+            f"{plan['clusters']} clusters of {plan['cluster']} blocks; the "
+            f"card holds at once {plan['active'][16]} 16-block and "
+            f"{plan['active'][8]} 8-block clusters "
+            f"({gs.fwd_layout(D, 16)['smem_bytes']} and "
+            f"{gs.fwd_layout(D, 8)['smem_bytes']} bytes a block)")
+        result[f"cluster_B{B}"] = plan["cluster"]
+    result["max_active_clusters"] = gs.max_active_clusters(D, dev)
+    for B in (128, 256):
+        proj = t(rng.randn(T, B, 6 * D) * 0.5)
+        mask = torch.ones(T, B, device=dev)
+        weights = [(t(rng.randn(B, D) * 0.1),
+                    t(rng.randn(D, D) / np.sqrt(D)),
+                    t(rng.randn(D, 2 * D) / np.sqrt(D))) for _ in range(2)]
+        result[f"ms_B{B}"] = cuda_ms(
+            lambda: gs.gru_scan(proj, mask, *weights), 3)
+        log(f"  kernel at B={B}: {result[f'ms_B{B}']:.3f} ms")
+
+
 def decode_phases(t, dev, results, launches, rates):
     """Phases 2-10: the serving kernels and the three decodes."""
     import torch
@@ -488,6 +534,8 @@ def decode_phases(t, dev, results, launches, rates):
         f"{err:.3e} (one direction alone: {err_one:.3e})")
     if not max(err, err_one) <= 1e-4:
         fail(f"gru_scan disagrees with its plain version: {err}, {err_one}")
+    if not torch.equal(got, gs.gru_scan(*args)):
+        fail("gru_scan: a second call gave other bits")
     results["gru_scan"] = {
         "max_abs_err": max(err, err_one),
         "ms": cuda_ms(lambda: gs.gru_scan(*args), 5),
@@ -496,7 +544,9 @@ def decode_phases(t, dev, results, launches, rates):
                 2 * T * B * gru_step_ops(D)),
         "library_ms": None}
     log(f"  kernel {results['gru_scan']['ms']:.3f} ms, plain "
-        f"{results['gru_scan']['plain_ms']:.3f} ms")
+        f"{results['gru_scan']['plain_ms']:.3f} ms; a second call repeats "
+        f"bit for bit")
+    gru_scan_plans(t, dev, rng, T, D, results["gru_scan"])
 
     # ---- 3. beam_search_loop ---------------------------------------------
     net_config = dict(FLAGSHIP_NET, max_decoded_length_scale=8.0)
@@ -1178,9 +1228,10 @@ def train_counters():
             "lstm_scan": ls.launches}
 
 
-def train_steps(dev, net, batches, n, save):
+def train_steps(dev, net, batches, n, save, valid=None):
     """``n`` steps of ``make_train_step`` through ``run_training`` from the
-    seed-1234 parameters: (recognizer, loop, launches, monitors)."""
+    seed-1234 parameters, validating on the batches ``valid`` where given:
+    (recognizer, loop, launches, monitors)."""
     import torch
     from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
     from attention_lvcsr_torch.train.driver import run_training
@@ -1193,14 +1244,16 @@ def train_steps(dev, net, batches, n, save):
     for c in counters.values():
         c.reset()
     loop = run_training(rec, opt, lambda: batches[:n], save, TRAIN_CONFIG,
-                        num_batches=n, printing=False)
+                        num_batches=n, printing=False,
+                        valid_stream=(lambda: valid) if valid else None)
     torch.cuda.synchronize()
     return rec, loop, counts(counters), {
         k: np.array(loop.log.channel(k)[1]) for k in (
-            "train_cost", "total_gradient_norm", "time_train_this_batch")}
+            "train_cost", "total_gradient_norm", "time_train_this_batch",
+            "valid_sequence_total_cost")}
 
 
-def plain_train_steps(dev, net, batches, n, save):
+def plain_train_steps(dev, net, batches, n, save, valid=None):
     """``train_steps`` with every training scan swapped for its plain
     version; fails if a training kernel launched all the same."""
     from attention_lvcsr_torch.models import cells as cells_mod
@@ -1213,7 +1266,7 @@ def plain_train_steps(dev, net, batches, n, save):
                    lt.lstm_scan_train_reference),
                   (generator_mod, "decoder_scan_train",
                    dt.decoder_scan_train_reference)]):
-        _, _, moved, ref = train_steps(dev, net, batches, n, save)
+        _, _, moved, ref = train_steps(dev, net, batches, n, save, valid)
     if any(moved[k] for k in TRAIN_KERNELS):
         fail(f"the plain route launched kernels: {moved}")
     return ref
@@ -1233,6 +1286,23 @@ def steps_agree(phase, name, got, ref):
             fail(f"{name}: {key} disagrees with the plain route")
 
 
+def valid_agree(got, ref, loop):
+    """Phase 13's validation passes (before the first step and after the
+    fifth): the kernel route's valid_sequence_total_cost within 1e-4
+    relative of the plain route's, and the _best_ll copy written."""
+    key = "valid_sequence_total_cost"
+    g, r = got[key], ref[key]
+    rel = np.abs(g - r) / np.abs(r)
+    log(f"phase 13 validation on 2 batches at iterations "
+        f"{loop.log.channel(key)[0]}: {key} {g.tolist()} vs plain "
+        f"{r.tolist()} (max rel err {rel.max() if len(r) else 0.0:.2e}); "
+        f"saved to {[os.path.basename(p) for p in loop.log.channel('saved_to')[1]]}")
+    if not (len(g) == len(r) == 2 and np.isfinite(g).all()
+            and rel.max() <= 1e-4):
+        fail(f"the validation cost disagrees with the plain route: {g} vs "
+             f"{r}")
+
+
 def repeats(name, got, again):
     if any(not np.array_equal(again[k], got[k])
            for k in ("train_cost", "total_gradient_norm")):
@@ -1250,10 +1320,11 @@ def train_step_phase(t, dev, launches, rates):
     from attention_lvcsr_torch.train.checkpoint import load_checkpoint
     B = 32
     batches = train_batches(t, dev, 5)
+    valid = train_batches(t, dev, 2, seed=14)
     with tempfile.TemporaryDirectory() as tmp:
         save = os.path.join(tmp, "flagship.zip")
         rec, loop, moved, got = train_steps(dev, dict(FLAGSHIP_NET), batches,
-                                            5, save)
+                                            5, save, valid)
         log(f"phase 13 launches in 5 flagship training steps: {moved}")
         if min(moved["gru_scan_train_bidir"], moved["decoder_scan_train"],
                moved["outer_sum"]) < 1 or moved["gru_scan"]:
@@ -1274,8 +1345,9 @@ def train_step_phase(t, dev, launches, rates):
         if not (same and same_opt and state["meta"]["iterations_done"] == 5):
             fail("the checkpoint does not read back as it was trained")
         ref = plain_train_steps(dev, dict(FLAGSHIP_NET), batches, 5,
-                                os.path.join(tmp, "plain.zip"))
+                                os.path.join(tmp, "plain.zip"), valid)
         steps_agree(13, "flagship", got, ref)
+        valid_agree(got, ref, loop)
         repeats("flagship", got, train_steps(
             dev, dict(FLAGSHIP_NET), batches, 5,
             os.path.join(tmp, "again.zip"))[3])

@@ -131,3 +131,17 @@ def test_cli_train_on_toy_config_writes_a_jax_checkpoint(tmp_path):
     assert params["/recognizer/generator/transition_0/state_to_state"] \
         .shape == (8, 8)
     assert all(np.isfinite(v).all() for v in params.values())
+    # as the JAX driver: validation and a checkpoint before the first
+    # epoch, a checkpoint after it (the stop after 3 batches ends it) with
+    # its _params.npz sidecar; toy.yaml validates every second epoch, so
+    # no epoch improved the validation cost and there is no _best_ll copy
+    sidecar = jax_checkpoint.load_parameters(
+        str(tmp_path / "toy_model_params.npz"))
+    assert set(sidecar) == set(params)
+    for k, v in params.items():
+        np.testing.assert_array_equal(sidecar[k], v)
+    times, costs = loop.log.channel("valid_sequence_total_cost")
+    assert times == [0] and np.isfinite(costs).all()
+    assert loop.log.channel("saved_to")[0] == [0, 3]
+    assert sorted(os.listdir(tmp_path)) == [
+        "toy.h5", "toy.yaml", "toy_model.zip", "toy_model_params.npz"]

@@ -80,6 +80,36 @@ def test_gru_scan_bidir_kernel_matches_plain(device, T, B, D):
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("T,B,D,ndir,cluster", [
+    (9, 35, 300, 2, 16), (9, 35, 250, 2, 8), (9, 35, 250, 2, 16),
+    (1, 17, 33, 2, 8), (5, 16, 448, 1, 16)])
+def test_gru_scan_layout_edges(device, monkeypatch, T, B, D, ndir, cluster):
+    """The forward kernel's padding (D not a multiple of the cluster's
+    columns), its partial row group (B=35), a row masked from the first
+    step, both directions, with the cluster size forced; the C layout
+    equals the Python mirror, and a second call repeats bit for bit."""
+    import ctypes
+    from attention_lvcsr_torch import _build
+    lib = _build.load().lib
+    lib.gru_scan_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    assert lib.gru_scan_smem_bytes(D, cluster) == \
+        gs.fwd_layout(D, cluster)["smem_bytes"]
+    monkeypatch.setattr(gs, "max_active_clusters", lambda D, device: {
+        size: 16 if size == cluster else 0 for size in gs.CLUSTERS})
+    rng = np.random.RandomState(T + B + D)
+    proj, mask, weights = _gru_operands(rng, device, T, B, D, ndir)
+    mask[:, -1] = 0.0
+    got = gs.gru_scan(proj, mask, *weights)
+    again = gs.gru_scan(proj, mask, *weights)
+    ref = gs.gru_scan_reference(proj, mask, *weights)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, again)
+    assert torch.equal(got[:, -1], weights[0][0][-1].expand(T, D)
+                       if ndir == 1 else torch.cat(
+                           [weights[0][0][-1], weights[1][0][-1]])
+                       .expand(T, 2 * D))
+
+
 def test_gru_scan_too_wide_raises(device):
     """D=600 does not fit the cluster's shared memory: no launch."""
     rng = np.random.RandomState(0)

@@ -1,0 +1,228 @@
+"""The port's training services against the JAX package's (CPU).
+
+The loop's trigger conditions fire where the JAX ``SimpleExtension``'s
+fire, on one scripted callback sequence; the validation records of
+``make_eval_fn`` equal the JAX package's on the same weights and batch;
+``run.py train`` on the toy config (its ``monitoring.search`` removed,
+validation every epoch) trains two epochs with both packages from the
+same parameters and writes the same files, the same parameters and the
+same validation records at the same iterations; and it warns once for
+each config key it does not honour."""
+import logging
+import os
+import sys
+
+import numpy as np
+import pytest
+
+from attention_lvcsr_tpu.config import Configuration as JaxConfiguration
+from attention_lvcsr_tpu.data import Data as JaxData
+from attention_lvcsr_tpu.models.recognizer import \
+    SpeechRecognizer as JaxRecognizer
+from attention_lvcsr_tpu.models.recognizer import param_path_dict
+from attention_lvcsr_tpu.train import checkpoint as jax_checkpoint
+from attention_lvcsr_tpu.train import driver as jax_driver
+from attention_lvcsr_tpu.train import extensions as jax_extensions
+from attention_lvcsr_tpu.train.log import TrainingLog as JaxLog
+from attention_lvcsr_torch.cli import run
+from attention_lvcsr_torch.config import Configuration
+from attention_lvcsr_torch.models.params import load_path_dict
+from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+from attention_lvcsr_torch.train import driver, loop
+from attention_lvcsr_torch.train.log import TrainingLog
+from attention_lvcsr_torch.train.monitoring import make_eval_fn
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the tiny widths of test_torch_checkpoint.py's CLI test
+WIDTHS = [("net.dim_dec", "8"), ("net.dims_bidir", "[6]"),
+          ("net.dim_matcher", "8"), ("net.post_merge_dims", "[8]"),
+          ("data.batch_size", "4")]
+
+
+def _script():
+    """(callback, iterations_done, epochs_done, args) of three epochs of
+    four batches, and an after_batch at iteration 0 first (a condition on
+    batches must skip it)."""
+    calls = [("before_training", 0, 0, ()), ("after_batch", 0, 0, ("b0",))]
+    it = 0
+    for epoch in range(3):
+        calls.append(("before_epoch", it, epoch, ()))
+        for _ in range(4):
+            calls.append(("before_batch", it, epoch, (f"b{it}",)))
+            it += 1
+            calls.append(("after_batch", it, epoch, (f"b{it - 1}",)))
+        calls.append(("after_epoch", it, epoch + 1, ()))
+    calls.append(("after_training", it, 3, ()))
+    return calls
+
+
+def _fired(base, log_cls, conditions, extra):
+    """What an extension built on ``base`` does over the script."""
+
+    class Recorder(base):
+        def do(self, which_callback, *args):
+            status = self.main_loop.log.status
+            done.append((which_callback, status["iterations_done"],
+                         status["epochs_done"], args))
+
+    class Loop:
+        log = log_cls()
+
+    done = []
+    ext = Recorder().set_conditions(**conditions)
+    for names, predicate, arguments in extra:
+        ext.add_condition(names, predicate, arguments)
+    ext.main_loop = Loop()
+    for name, it, epoch, args in _script():
+        Loop.log.status.update(iterations_done=it, epochs_done=epoch)
+        ext.dispatch(name, *args)
+    return done
+
+
+def _odd_epoch(log):
+    return log.status["epochs_done"] % 2 == 1
+
+
+@pytest.mark.parametrize("conditions,extra", [
+    ({"before_first_epoch": True}, []),
+    ({"before_epoch": True, "after_training": True}, []),
+    ({"every_n_epochs": 2}, []),
+    ({"every_n_batches": 3}, []),
+    ({"after_n_batches": 10}, []),
+    ({"after_n_epochs": 2, "before_training": True}, []),
+    ({"before_first_epoch": True, "after_epoch": True,
+      "every_n_batches": 4}, []),
+    ({"after_epoch": True},
+     [(["after_epoch"], _odd_epoch, ("model_best_ll.zip",)),
+      (["after_batch"], None, ())]),
+    ({"every_n_epochs": 0, "before_first_epoch": False}, []),
+], ids=["before_first_epoch", "before_epoch+after_training",
+        "every_n_epochs", "every_n_batches", "after_n_batches",
+        "after_n_epochs", "three", "add_condition_arguments", "all_off"])
+def test_conditions_fire_as_in_jax(conditions, extra):
+    ours = _fired(loop.SimpleExtension, TrainingLog, conditions, extra)
+    theirs = _fired(jax_extensions.SimpleExtension, JaxLog, conditions,
+                    extra)
+    assert ours == theirs
+
+
+NET = dict(
+    input_dims={"recordings": 5}, eos_label=4, num_phonemes=5, dim_dec=8,
+    dims_bidir=[6], enc_transition="gru", dec_transition="gru",
+    attention_type="content_and_conv", conv_n=2,
+    criterion={"name": "log_likelihood"}, bottom={"bottom_class": "speech"},
+    subsample=[1], post_merge_dims=[10],
+    prior={"type": "expanding", "initial_begin": 0, "initial_end": 4,
+           "min_speed": 1.0, "max_speed": 2.0})
+INIT = {"/recognizer": {"weights_init": ["isotropic_gaussian", 0.3],
+                        "biases_init": ["isotropic_gaussian", 0.1],
+                        "rec_weights_init": ["orthogonal"]}}
+
+
+def test_eval_fn_records_match_jax():
+    rng = np.random.RandomState(4)
+    B, T, TL = 3, 9, 5
+    batch = {
+        "recordings": rng.randn(B, T, 5).astype(np.float32),
+        "recordings_mask": (np.arange(T)[None] < np.array(
+            [[T], [T - 2], [T - 4]])).astype("f"),
+        "labels": rng.randint(0, 5, size=(B, TL)).astype(np.int32),
+        "labels_mask": (np.arange(TL)[None] < np.array(
+            [[TL], [TL - 1], [2]])).astype("f")}
+    jrec = JaxRecognizer(dict(NET, input_num_chars={}), init_config=INIT,
+                         seed=6)
+    rec = SpeechRecognizer(NET, device="cpu")
+    load_path_dict(rec.net, param_path_dict(jrec.params))
+    theirs = jax_driver.make_eval_fn(jrec, "recordings")(batch)
+    ours = make_eval_fn(rec)(batch)
+    assert set(ours) == set(theirs)
+    # f32 on both sides, as test_torch_train_step.py's TOL (the penalty is
+    # a difference of near-equal sums, about 0 here)
+    for name, (value, weight) in theirs.items():
+        np.testing.assert_allclose(ours[name], (value, weight), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+
+
+@pytest.fixture
+def toy(tmp_path):
+    """The toy dataset and toy.yaml pointing at it; returns the config's
+    path."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from make_toy_dataset import make_toy_dataset
+    make_toy_dataset(str(tmp_path / "toy.h5"), num_examples=20,
+                     num_chars=4, feat_dim=5, max_len=4, seed=5)
+    text = open(os.path.join(ROOT, "tests", "configs", "toy.yaml")).read()
+    path = tmp_path / "toy.yaml"
+    path.write_text(text.replace("/tmp/toy.h5", str(tmp_path / "toy.h5")))
+    return path
+
+
+def test_two_epochs_match_jax(toy, tmp_path):
+    text = toy.read_text()
+    # validation every epoch, and no search (the port does not search
+    # during training yet)
+    (tmp_path / "two.yaml").write_text(
+        text[:text.index("monitoring:")]
+        + "monitoring:\n    validate_every_epochs: 1\n")
+    changes = WIDTHS + [("training.num_epochs", "2")]
+    jconf = JaxConfiguration(str(tmp_path / "two.yaml"),
+                             config_changes=changes)
+    start = str(tmp_path / "start.zip")
+    jrec = jax_driver.create_model(jconf, JaxData(**jconf["data"]))
+    jax_checkpoint.save_checkpoint(start, param_path_dict(jrec.params))
+    for name in ("jax", "port"):
+        (tmp_path / name).mkdir()
+    jloop = jax_driver.train(jconf, str(tmp_path / "jax" / "model.zip"),
+                             start)
+    ploop = driver.train(
+        Configuration(str(tmp_path / "two.yaml"), config_changes=changes),
+        str(tmp_path / "port" / "model.zip"), start, device="cpu")
+    files = sorted(os.listdir(tmp_path / "port"))
+    assert files == sorted(os.listdir(tmp_path / "jax")) == [
+        "model.zip", "model_best_ll.zip", "model_best_ll_params.npz",
+        "model_params.npz"]
+    for name in files:
+        theirs = jax_checkpoint.load_parameters(str(tmp_path / "jax" / name))
+        ours = jax_checkpoint.load_parameters(str(tmp_path / "port" / name))
+        assert set(ours) == set(theirs)
+        for k, v in theirs.items():
+            np.testing.assert_allclose(ours[k], v, rtol=1e-4, atol=1e-6,
+                                       err_msg=f"{name}: {k}")
+    record = "valid_sequence_total_cost"
+    times, values = ploop.log.channel(record)
+    jtimes, jvalues = jloop.log.channel(record)
+    assert times == jtimes == [0, 4, 8]
+    np.testing.assert_allclose(values, jvalues, rtol=1e-5)
+    assert ploop.log.status["best_" + record] == pytest.approx(
+        jloop.log.status["best_" + record], rel=1e-5)
+
+
+@pytest.mark.parametrize("sections,keys", [
+    ({}, []),
+    ({"monitoring": {"validate_every_epochs": 1, "search": {}}}, []),
+    ({"monitoring": {"search": {"beam_size": 3}, "plot": {"path": "p"}},
+      "training": {"patience": {"min_epochs": 2}, "stop_filtering": 10,
+                   "num_epochs": 3}},
+     ["monitoring.search", "training.patience", "training.stop_filtering",
+      "monitoring.plot"]),
+])
+def test_unported_keys_come_from_the_config(sections, keys):
+    assert driver.unported_keys(sections) == keys
+
+
+def test_cli_warns_once_for_each_unported_key(toy, tmp_path, caplog):
+    caplog.set_level(logging.WARNING)
+    loop_ = run.main(["train", str(tmp_path / "m.zip"), str(toy)]
+                     + [x for pair in WIDTHS for x in pair]
+                     + ["training.num_batches", "2", "--fast-start",
+                        "--device", "cpu"])
+    warned = [r.getMessage() for r in caplog.records
+              if r.levelno == logging.WARNING]
+    named = {key: sum(key in msg for msg in warned)
+             for key in driver.UNPORTED_KEYS}
+    assert named == {"monitoring.search": 1, "training.patience": 0,
+                     "training.stop_filtering": 0, "monitoring.plot": 0}
+    assert sum(driver.AVERAGED_RECORDS in msg for msg in warned) == 1
+    # --fast-start: no validation and no checkpoint before the first epoch
+    assert loop_.log.channel("valid_sequence_total_cost") == ([], [])
+    assert loop_.log.channel("saved_to")[0] == [2]

@@ -1,11 +1,20 @@
 #!/usr/bin/env python3
-"""Times the GRU training backward's two kernels on one NVIDIA GPU, alone.
+"""Times the GRU scans' kernels on one NVIDIA GPU, alone.
 
     python3 tools/torch_bench_train_kernels.py [--root DIR] [--repeats N]
 
 Run from the repository root on a machine with a CUDA device and nvcc.
-At the flagship encoder layer's shapes (T=800, B=32, D=250, ragged mask,
-random weights and cotangent from numpy seeds):
+At the flagship encoder layer's shapes (T=800, D=250, ragged mask, random
+weights and cotangent from numpy seeds):
+
+* the forward kernel of ``csrc/gru_scan.cu`` through
+  ``ops/gru_scan.py::launch`` (CUDA events around many launches): the
+  training forward with its residuals at B=32, one direction and both,
+  and the decode's scan, both directions, at B=64, 128 and 256; its states
+  against the plain scan, as max abs error, and the cluster size the
+  launcher chose where it chooses one;
+
+and at B=32:
 
 * ``gru_train_bwd_f32`` of ``csrc/gru_train.cu`` (the reverse-time
   recurrence, CUDA events around the C launcher alone), both directions in
@@ -63,7 +72,8 @@ def main():
     mine = False            # ptxas lines of the two timed kernels
     for line in lib.log.splitlines():
         if "Compiling entry" in line:
-            mine = "gru_bwd" in line or "outer_sum" in line
+            mine = ("gru_bwd" in line or "outer_sum" in line
+                    or "gru_scan" in line or "gru_fwd" in line)
         if mine and ("Compiling entry" in line or "Used" in line
                      or "spill" in line):
             print(f"  ptxas: {line.strip()}")
@@ -82,12 +92,45 @@ def main():
         torch.cuda.synchronize()
         return start.elapsed_time(end) / args.repeats
 
+    T, D = 800, 250
+    result = {"card": card, "root": os.path.abspath(args.root)}
+    frng = np.random.RandomState(17)
+    for B, ndir, train in ((32, 1, True), (32, 2, True), (64, 2, False),
+                           (128, 2, False), (256, 2, False)):
+        lengths = frng.randint(300, T + 1, size=B)
+        lengths[0] = T
+        fmask = t((np.arange(T)[:, None] < lengths[None]).astype(np.float32))
+        proj = t(frng.randn(T, B, 3 * D * ndir) * 0.5)
+        dirs = [(t(frng.randn(B, D) * 0.1),
+                 t(frng.randn(D, D) / np.sqrt(D)),
+                 t(frng.randn(D, 2 * D) / np.sqrt(D))) for _ in range(ndir)]
+        out = torch.empty(T, B, D * ndir, device=dev)
+        residuals = [tuple(torch.empty(T, B, D, device=dev)
+                           for _ in range(3)) for _ in range(ndir)] \
+            if train else None
+        ms = cuda_ms(lambda: gs.launch(proj, fmask, dirs, out, residuals,
+                                       "bench"))
+        ref = gs.gru_scan_reference(proj, fmask, *dirs)
+        err = float((out - ref).abs().max())
+        key = f"gru_fwd_B{B}_{'train' if train else 'decode'}_{ndir}dir"
+        result[f"{key}_ms"] = ms
+        result[f"{key}_err"] = err
+        plan = ""
+        if hasattr(gs, "launch_plan"):
+            p = gs.launch_plan(D, B, ndir, dev)
+            result[f"{key}_cluster"] = p["cluster"]
+            plan = (f"; {p['clusters']} clusters of {p['cluster']} blocks "
+                    f"(co-resident at most: {p['active']})")
+        print(f"gru_scan forward T={T} B={B} D={D} ndir={ndir}"
+              f"{' with residuals' if train else ''}: {ms:.3f} ms "
+              f"({ms * 1e3 / T:.2f} us a step), states vs plain {err:.2e}"
+              f"{plan}")
+
     rng = np.random.RandomState(11)
-    T, B, D = 800, 32, 250
+    B = 32
     lengths = rng.randint(300, T + 1, size=B)
     lengths[0] = T
     mask = t((np.arange(T)[:, None] < lengths[None, :]).astype(np.float32))
-    result = {"card": card, "root": os.path.abspath(args.root)}
     for ndir in (2, 1):
         proj = t(rng.randn(T, B, 3 * D * ndir) * 0.5)
         dirs = [(t(rng.randn(B, D) * 0.1), t(rng.randn(D, D) / np.sqrt(D)),

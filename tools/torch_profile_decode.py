@@ -245,7 +245,10 @@ def main():
     gs.gru_scan(proj, mask.t().contiguous(), *weights)
     torch.cuda.synchronize()
     out(f"gru_scan phases (T={T}, B={B}, D={D}, both directions):")
-    phase_table(lib, "gru", phases["gru"], 2 * 8 * ((B + 15) // 16), T, out)
+    cluster = gs.launch_plan(D, B, 2, dev)["cluster"]
+    out(f"  ({cluster}-block clusters)")
+    phase_table(lib, "gru", phases["gru"], 2 * cluster * ((B + 15) // 16), T,
+                out)
 
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -16,7 +16,8 @@ labels, adadelta with clipping and max-norm) and reports:
    (``clock64()`` after a ``__syncthreads``, as
    ``tools/torch_profile_decode.py`` puts them) before every
    ``// ---- <phase>`` comment of the step loops of ``decoder_train.cu``
-   (forward and backward) and ``gru_train.cu`` (backward), in copies
+   (forward and backward), ``gru_scan.cu`` (the GRU forward) and
+   ``gru_train.cu`` (backward), in copies
    built into a separate library; one more step runs from it.  The probes
    add barriers, so the shares are what they read; the kernels' times
    come from part 1.
@@ -48,6 +49,7 @@ def main():
     from __graft_entry__ import FLAGSHIP_NET
     from attention_lvcsr_torch import _build
     from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import gru_scan as gs
     from attention_lvcsr_torch.train.driver import GradientDescent, \
         make_train_step
     from attention_lvcsr_torch.train.rules import build_optimizer
@@ -123,7 +125,9 @@ def main():
                                   ("for (int t = a.T - 1; t >= 0; --t) {",
                                    "dbwd")),
              "gru_train.cu": (("for (int step = 0; step < T; ++step) {",
-                               "gbwd"),)}
+                               "gbwd"),),
+             "gru_scan.cu": (("for (int step = 0; step < T; ++step) {",
+                              "gfwd"),)}
     paths, phases = [], {}
     for name in ("decoder_train.cu", "gru_train.cu", "gru_scan.cu",
                  "outer_sum.cu"):
@@ -147,11 +151,16 @@ def main():
     algorithm.process_batch(batch)
     torch.cuda.synchronize()
     gru_steps = 3 * T + T // 2          # the four layers: 800/800/800/400
+    groups = (B + 15) // 16
+    cluster = gs.launch_plan(250, B, 2, dev)["cluster"]
     for tag, what, blocks, steps in (
             ("dfwd", "decoder_scan_train forward", B, TL),
             ("dbwd", "decoder_scan_train backward", B, TL),
+            ("gfwd", f"gru_scan_train forward, both directions, 4 layers "
+                     f"({cluster}-block clusters)", 2 * cluster * groups,
+             gru_steps),
             ("gbwd", "gru_scan_train backward, both directions, 4 layers",
-             2 * 16 * ((B + 15) // 16), gru_steps)):
+             2 * 16 * groups, gru_steps)):
         out(f"{what} phases ({blocks} blocks, {steps} steps a block):")
         phase_table(lib, tag, phases[tag], blocks, steps, out)
 
