@@ -29,16 +29,19 @@
 // per-step launch or host round trip exists (the plain PyTorch version
 // pays dozens of launches per step).  All per-utterance state — states h
 // (K x S), alignment weights (K x L), hypothesis buffers (K x Lout), the
-// done set — lives in shared memory for the whole decode; weights are
-// read from global memory once per step per block, each load serving all
-// K rows (threads own output columns; rows accumulate in registers).
-// Energies are computed only inside the prior's window (outside it the
-// softmax weight is exactly zero), a warp per frame with the frame's
-// keys held in L1.  An utterance that stops leaves the loop at once.
+// done set — lives in shared memory for the whole decode.  The eleven
+// products of a step run through beam_products.cuh: a thread keeps a
+// column pair of one row group in registers, so all 512 threads have work
+// at every width, each element the same k-ordered fmaf sum as a plain dot
+// product; weights are read from L2 once per step per block.  Energies
+// are computed only inside the prior's window (outside it the softmax
+// weight is exactly zero), a warp per frame with the frame's keys in
+// registers.  An utterance that stops leaves the loop at once.
 #include <cuda_runtime.h>
 
 #include <climits>
 
+#include "beam_products.cuh"
 #include "decode_step.cuh"
 
 // Must match the ctypes.Structure in ops/beam_loop.py field for field.
@@ -79,8 +82,11 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPatience = 30;
+static_assert(kThreads == kProdThreads, "the products split the whole block");
 
-// Offsets (in 4-byte words) of the shared-memory buffers.
+// Offsets (in 4-byte words) of the shared-memory buffers.  Each starts on
+// a 16-byte boundary, so a product's float2 loads along a row of even
+// pitch are aligned.
 struct Layout {
   // persistent across steps
   int h, w, aout, dout, acost, dadj, dcost, dlen, newadj, chosen, src, sym,
@@ -96,51 +102,60 @@ struct Layout {
   int total;
 };
 
+__host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
+
 __host__ __device__ inline Layout make_layout(const BeamLoopArgs& a) {
   Layout o;
   const int K = a.K;
   int p = 0;
-  o.h = p; p += K * a.S;
-  o.w = p; p += K * a.L;
-  o.aout = p; p += K * a.Lout;
-  o.dout = p; p += K * a.Lout;
-  o.acost = p; p += K;
-  o.dadj = p; p += K;
-  o.dcost = p; p += K;
-  o.dlen = p; p += K;
-  o.newadj = p; p += K;
-  o.chosen = p; p += K;
-  o.src = p; p += K;
-  o.sym = p; p += K;
-  o.pick = p; p += K;
-  o.mask = p; p += a.L;
-  o.taps = p; p += a.n_taps;
-  o.handler = p; p += a.M;
-  o.v = p; p += a.M;
-  o.begins = p; p += K;
-  o.ends = p; p += K;
-  o.red_v = p; p += kWarps + 1;
-  o.red_i = p; p += kWarps + 1;
-  o.wn = p; p += K * a.L;
-  o.wa = p; p += K * a.D;
+  auto take = [&p](int n) {
+    const int at = p;
+    p = align4(p + n);
+    return at;
+  };
+  o.h = take(K * a.S);
+  o.w = take(K * a.L);
+  o.aout = take(K * a.Lout);
+  o.dout = take(K * a.Lout);
+  o.acost = take(K);
+  o.dadj = take(K);
+  o.dcost = take(K);
+  o.dlen = take(K);
+  o.newadj = take(K);
+  o.chosen = take(K);
+  o.src = take(K);
+  o.sym = take(K);
+  o.pick = take(K);
+  o.mask = take(a.L);
+  o.taps = take(a.n_taps);
+  o.handler = take(a.M);
+  o.v = take(a.M);
+  o.begins = take(K);
+  o.ends = take(K);
+  o.red_v = take(kWarps + 1);
+  o.red_i = take(kWarps + 1);
+  o.wn = take(K * a.L);
+  o.wa = take(K * a.D);
   const int scratch = p;
   // attention phase
-  o.conv = scratch;
-  o.sp = o.conv + K * a.L;
-  int end_att = o.sp + K * a.M;
+  o.conv = take(K * a.L);
+  o.sp = take(K * a.M);
+  const int end_att = p;
   // readout phase
-  o.act = scratch;
-  o.costs = o.act + K * a.R;
-  int end_read = o.costs + K * a.V;
+  p = scratch;
+  o.act = take(K * a.R);
+  o.costs = take(K * a.V);
+  const int end_read = p;
   // gather + GRU phase
-  o.hs = scratch;
-  o.was = o.hs + K * a.S;
-  o.aout2 = o.was + K * a.D;
-  o.dout2 = o.aout2 + K * a.Lout;
-  o.fb = o.dout2 + K * a.Lout;
-  o.gi = o.fb + K * a.F;
-  o.it = o.gi + 2 * K * a.S;
-  int end_gru = o.it + K * a.S;
+  p = scratch;
+  o.hs = take(K * a.S);
+  o.was = take(K * a.D);
+  o.aout2 = take(K * a.Lout);
+  o.dout2 = take(K * a.Lout);
+  o.fb = take(K * a.F);
+  o.gi = take(2 * K * a.S);
+  o.it = take(K * a.S);
+  const int end_gru = p;
   int end = end_att > end_read ? end_att : end_read;
   end = end > end_gru ? end : end_gru;
   o.total = end;
@@ -180,8 +195,6 @@ __device__ void block_argmin(const float* vals, int n, float* red_v,
   out_i = red_i[kWarps];
 }
 
-// RB: rows per register pass (>= K for one pass; the launcher picks it).
-template <int RB>
 __global__ void __launch_bounds__(kThreads, 1)
 beam_loop_kernel(BeamLoopArgs a) {
   extern __shared__ float sm[];
@@ -309,7 +322,7 @@ beam_loop_kernel(BeamLoopArgs a) {
     // ---- convolution (true convolution, trimmed 'full' mode) ----------
     window_conv(Wt, TAPS, n_taps, K, L, lb, le, CONV);
     // ---- state projection ---------------------------------------------
-    rows_matvec<RB>(H, S, K, S, a.state_trans, M, nullptr, SP, M, false);
+    run_product({H, S, a.state_trans, S, M, nullptr, SP, M, false}, K);
     __syncthreads();
 
     // ---- energies inside the window (warp per frame) -------------------
@@ -321,13 +334,22 @@ beam_loop_kernel(BeamLoopArgs a) {
     __syncthreads();
 
     // ---- weighted average of the encoder outputs ----------------------
-    rows_matvec<RB>(WN + lb, L, K, le - lb, att + (size_t)lb * D, D, nullptr,
-                WA, D, false);
+    run_product({WN + lb, L, att + (size_t)lb * D, le - lb, D, nullptr, WA, D,
+                 false}, K);
     __syncthreads();
 
     // ---- readout: merge, tanh, post-merge, log-softmax ----------------
-    readout_costs<RB>(WA, D, H, S, K, a.merge_k, a.merge_b, a.merge_states_k,
-                      a.post_k, a.post_b, R, V, ACOST, ACT, COSTS);
+    run_product({WA, D, a.merge_k, D, R, a.merge_b, ACT, R, false}, K);
+    if (a.merge_states_k != nullptr) {
+      __syncthreads();
+      run_product({H, S, a.merge_states_k, S, R, nullptr, ACT, R, true}, K);
+    }
+    __syncthreads();
+    tanh_in_place(ACT, K * R);
+    __syncthreads();
+    run_product({ACT, R, a.post_k, R, V, a.post_b, COSTS, V, false}, K);
+    __syncthreads();
+    log_softmax_costs(COSTS, K, V, ACOST);
     __syncthreads();
 
     // ---- K selection rounds over the K*V candidates --------------------
@@ -360,14 +382,15 @@ beam_loop_kernel(BeamLoopArgs a) {
     __syncthreads();
 
     // ---- GRU advance ------------------------------------------------------
-    rows_matvec<RB>(FB, F, K, F, a.fork_gate_w, 2 * S, a.fork_gate_b, GI, 2 * S,
-                false);
-    rows_matvec<RB>(FB, F, K, F, a.fork_in_w, S, a.fork_in_b, IT, S, false);
+    run_product({FB, F, a.fork_gate_w, F, 2 * S, a.fork_gate_b, GI, 2 * S,
+                 false}, K);
+    run_product({FB, F, a.fork_in_w, F, S, a.fork_in_b, IT, S, false}, K);
     __syncthreads();
-    rows_matvec<RB>(WAS, D, K, D, a.dist_gate_w, 2 * S, nullptr, GI, 2 * S, true);
-    rows_matvec<RB>(WAS, D, K, D, a.dist_in_w, S, nullptr, IT, S, true);
+    run_product({WAS, D, a.dist_gate_w, D, 2 * S, nullptr, GI, 2 * S, true},
+                K);
+    run_product({WAS, D, a.dist_in_w, D, S, nullptr, IT, S, true}, K);
     __syncthreads();
-    rows_matvec<RB>(HS, S, K, S, a.wsg, 2 * S, nullptr, GI, 2 * S, true);
+    run_product({HS, S, a.wsg, S, 2 * S, nullptr, GI, 2 * S, true}, K);
     __syncthreads();
     // gates = sigmoid(.): update in GI[:, :S], reset * h into GI[:, S:]
     for (int idx = tid; idx < K * 2 * S; idx += blockDim.x) {
@@ -376,7 +399,7 @@ beam_loop_kernel(BeamLoopArgs a) {
       GI[idx] = c < S ? g : HS[k * S + c - S] * g;
     }
     __syncthreads();
-    rows_matvec<RB>(GI + S, 2 * S, K, S, a.wss, S, nullptr, IT, S, true);
+    run_product({GI + S, 2 * S, a.wss, S, S, nullptr, IT, S, true}, K);
     __syncthreads();
     for (int idx = tid; idx < K * S; idx += blockDim.x) {
       const int k = idx / S, c = idx % S;
@@ -468,13 +491,9 @@ extern "C" int beam_loop_smem_bytes(const BeamLoopArgs* args) {
 
 extern "C" int beam_loop_f32(const BeamLoopArgs* args, void* stream) {
   const int smem = make_layout(*args).total * (int)sizeof(float);
-  void (*kernel)(BeamLoopArgs) =
-      args->K <= 4 ? beam_loop_kernel<4>
-      : args->K <= 8 ? beam_loop_kernel<8>
-      : args->K <= 10 ? beam_loop_kernel<10> : beam_loop_kernel<16>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      beam_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<args->U, kThreads, smem, (cudaStream_t)stream>>>(*args);
+  beam_loop_kernel<<<args->U, kThreads, smem, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,9 @@
 // separate their passes by, __syncthreads(); the caller separates phases.
 // The window phases cover only frames [lb, le) of the prior's window:
 // outside it the softmax weight is exactly zero, so the convolution and
-// the energies there are never needed.
+// the energies there are never needed.  The products (rows_matvec,
+// readout_costs) are the score kernel's; the whole-loop kernel runs its
+// products through beam_products.cuh, element for element the same sums.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -256,30 +258,18 @@ __device__ void window_softmax(float* E, const float* MASK,
   }
 }
 
-// Readout and costs: act = tanh(wa @ merge_k + merge_b [+ h @ merge_states_k]),
-// logits = act @ post_k + post_b, costs[r, c] = alive[r] + (lse_r - logit)
-// (no alive term when `alive` is null).  ACT holds K x R, COSTS K x V.
-template <int RB>
-__device__ void readout_costs(const float* WA, int D, const float* H, int S,
-                              int K, const float* __restrict__ merge_k,
-                              const float* __restrict__ merge_b,
-                              const float* __restrict__ merge_states_k,
-                              const float* __restrict__ post_k,
-                              const float* __restrict__ post_b, int R, int V,
-                              const float* alive, float* ACT, float* COSTS) {
+// act = tanh(act), in place over n values.
+__device__ void tanh_in_place(float* ACT, int n) {
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x)
+    ACT[idx] = tanhf(ACT[idx]);
+}
+
+// Logits (K x V) into costs, in place: costs[r, c] = alive[r] + (lse_r -
+// logit) (no alive term when `alive` is null).  A warp per row.
+__device__ void log_softmax_costs(float* COSTS, int K, int V,
+                                  const float* alive) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  rows_matvec<RB>(WA, D, K, D, merge_k, R, merge_b, ACT, R, false);
-  if (merge_states_k != nullptr) {
-    __syncthreads();
-    rows_matvec<RB>(H, S, K, S, merge_states_k, R, nullptr, ACT, R, true);
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < K * R; idx += blockDim.x)
-    ACT[idx] = tanhf(ACT[idx]);
-  __syncthreads();
-  rows_matvec<RB>(ACT, R, K, R, post_k, V, post_b, COSTS, V, false);
-  __syncthreads();
   for (int r = warp; r < K; r += nwarps) {
     float* cr = COSTS + r * V;
     float mx = -__int_as_float(0x7f800000);
@@ -296,6 +286,30 @@ __device__ void readout_costs(const float* WA, int D, const float* H, int S,
       for (int c = lane; c < V; c += 32) cr[c] = lse - cr[c];
     }
   }
+}
+
+// Readout and costs: act = tanh(wa @ merge_k + merge_b [+ h @ merge_states_k]),
+// logits = act @ post_k + post_b, costs[r, c] = alive[r] + (lse_r - logit)
+// (no alive term when `alive` is null).  ACT holds K x R, COSTS K x V.
+template <int RB>
+__device__ void readout_costs(const float* WA, int D, const float* H, int S,
+                              int K, const float* __restrict__ merge_k,
+                              const float* __restrict__ merge_b,
+                              const float* __restrict__ merge_states_k,
+                              const float* __restrict__ post_k,
+                              const float* __restrict__ post_b, int R, int V,
+                              const float* alive, float* ACT, float* COSTS) {
+  rows_matvec<RB>(WA, D, K, D, merge_k, R, merge_b, ACT, R, false);
+  if (merge_states_k != nullptr) {
+    __syncthreads();
+    rows_matvec<RB>(H, S, K, S, merge_states_k, R, nullptr, ACT, R, true);
+  }
+  __syncthreads();
+  tanh_in_place(ACT, K * R);
+  __syncthreads();
+  rows_matvec<RB>(ACT, R, K, R, post_k, V, post_b, COSTS, V, false);
+  __syncthreads();
+  log_softmax_costs(COSTS, K, V, alive);
 }
 
 }  // namespace

@@ -264,6 +264,62 @@ def beam_search_loop_reference(pre, attended, att_mask, tables, *, beam,
     return dout.view(U, K, Lout), done_meta, steps
 
 
+# ---- mirror of the kernel's shared-memory layout and of its products'
+# split over the block (csrc/beam_loop.cu, csrc/beam_products.cuh), held
+# to the C code on the card by chip_smoke.py
+THREADS = 512            # kThreads, kProdThreads
+MAX_GROUP_ROWS = 8       # kMaxGroupRows
+SMEM_LIMIT = 232448      # shared memory an H100 block may use
+
+
+def _align4(n):
+    return (n + 3) & ~3
+
+
+def smem_plan(K, L, M, D, S, R, V, F, Lout, n_taps):
+    """``make_layout``: buffer offsets (floats, each 16-byte aligned) and
+    the block's bytes, and whether they fit an H100 block."""
+    offsets, p = {}, 0
+
+    def take(name, n):
+        nonlocal p
+        offsets[name] = p
+        p = _align4(p + n)
+
+    warps = THREADS // 32
+    for name, n in (("h", K * S), ("w", K * L), ("aout", K * Lout),
+                    ("dout", K * Lout), ("acost", K), ("dadj", K),
+                    ("dcost", K), ("dlen", K), ("newadj", K), ("chosen", K),
+                    ("src", K), ("sym", K), ("pick", K), ("mask", L),
+                    ("taps", n_taps), ("handler", M), ("v", M),
+                    ("begins", K), ("ends", K), ("red_v", warps + 1),
+                    ("red_i", warps + 1), ("wn", K * L), ("wa", K * D)):
+        take(name, n)
+    scratch, ends = p, []
+    for phase in ((("conv", K * L), ("sp", K * M)),
+                  (("act", K * R), ("costs", K * V)),
+                  (("hs", K * S), ("was", K * D), ("aout2", K * Lout),
+                   ("dout2", K * Lout), ("fb", K * F), ("gi", 2 * K * S),
+                   ("it", K * S))):
+        p = scratch
+        for name, n in phase:
+            take(name, n)
+        ends.append(p)
+    total = 4 * max(ends)
+    return {"offsets": offsets, "smem_bytes": total,
+            "fits": total <= SMEM_LIMIT}
+
+
+def product_plan(nrows, N):
+    """``product_plan``: a thread owns a column pair and a row group;
+    (units, groups, rows of the largest group, passes over the block)."""
+    units = (N + 1) // 2
+    groups = max(min(THREADS // units, nrows),
+                 -(-nrows // MAX_GROUP_ROWS), 1)
+    rows = -(-nrows // groups)
+    return units, groups, rows, -(-units * groups // THREADS)
+
+
 class _Args(ctypes.Structure):
     """Mirror of ``struct BeamLoopArgs`` in csrc/beam_loop.cu."""
     _fields_ = (

@@ -497,6 +497,25 @@ def gru_scan_plans(t, dev, rng, T, D, result):
         log(f"  kernel at B={B}: {result[f'ms_B{B}']:.3f} ms")
 
 
+def beam_loop_plan(dims):
+    """Phase 3: the loop kernel's C shared-memory layout against its Python
+    mirror at the main path's shape."""
+    import ctypes
+    from attention_lvcsr_torch import _build
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    lib = _build.load().lib
+    lib.beam_loop_smem_bytes.argtypes = [ctypes.POINTER(bl._Args)]
+    lib.beam_loop_smem_bytes.restype = ctypes.c_int
+    c_bytes = lib.beam_loop_smem_bytes(ctypes.byref(bl._Args(U=1, **dims)))
+    plan = bl.smem_plan(**dims)
+    if c_bytes != plan["smem_bytes"] or not plan["fits"]:
+        fail(f"beam_search_loop: the C layout has {c_bytes} bytes, the "
+             f"mirror {plan['smem_bytes']} (fits: {plan['fits']})")
+    log(f"phase 3 beam_loop layout: {c_bytes} bytes a block (C equals the "
+        f"mirror)")
+    return {"smem_bytes": c_bytes}
+
+
 def decode_phases(t, dev, results, launches, rates):
     """Phases 2-10: the serving kernels and the three decodes."""
     import torch
@@ -599,6 +618,10 @@ def decode_phases(t, dev, results, launches, rates):
             S, L = rec.net.generator.dim_dec, data["pre"].shape[1]
             M, D = data["pre"].shape[2], data["attended"].shape[2]
             R, V = 250, rec.num_phonemes
+            plan = beam_loop_plan(dict(
+                K=10, L=L, M=M, D=D, S=S, R=R, V=V,
+                F=tables["embed"].shape[1], Lout=kw["max_len"],
+                n_taps=tables["conv_filters"].shape[-1]))
             row_ops = (attention_step_ops(S, M, L, 2 * 100 + 1, D)
                        + readout_ops(D, R, V) + 2 * (D + S) * 3 * S
                        + gru_step_ops(S) + 3 * V)
@@ -611,7 +634,7 @@ def decode_phases(t, dev, results, launches, rates):
                     1),
                 **bound(nbytes(*loop_args[:3], tables, *loop_out),
                         10 * int(got["steps"].sum()) * row_ops),
-                "library_ms": None}
+                "library_ms": None, **plan}
     results["beam_search_loop"]["max_abs_err"] = loop_err
     log(f"  kernel {results['beam_search_loop']['ms']:.3f} ms, plain "
         f"{results['beam_search_loop']['plain_ms']:.3f} ms (U=64, main "

@@ -29,6 +29,9 @@ NET_CONFIG = dict(
 INIT = {"/recognizer": {"weights_init": ["isotropic_gaussian", 0.5],
                         "biases_init": ["constant", 0.0],
                         "rec_weights_init": ["orthogonal"]}}
+FLAGSHIP_INIT = {"/recognizer": {"weights_init": ["isotropic_gaussian", 0.1],
+                                 "biases_init": ["constant", 0.0],
+                                 "rec_weights_init": ["orthogonal"]}}
 
 
 @pytest.fixture
@@ -153,6 +156,106 @@ def test_beam_loop_kernel_matches_plain(device, search, states_readout):
     torch.testing.assert_close(meta[:, :, 2], ref_meta[:, :, 2])
     torch.testing.assert_close(meta[:, :, :2], ref_meta[:, :, :2],
                                atol=1e-4, rtol=1e-5)
+
+
+def _loop_case(device, config, U, frames, beam, eos_bias, seed, init=INIT):
+    """Loop inputs, tables and keywords of ``config`` with random weights;
+    the EOS logit raised by ``eos_bias``."""
+    rec = SpeechRecognizer(config, init_config=init, seed=seed,
+                           device=device)
+    rng = np.random.RandomState(seed)
+    dims = config["input_dims"]["recordings"]
+    x = torch.tensor(rng.randn(U, frames, dims).astype(np.float32),
+                     device=device)
+    lengths = rng.randint(frames // 2, frames + 1, size=U)
+    lengths[0] = frames
+    m = torch.tensor((np.arange(frames)[None] < lengths[:, None])
+                     .astype(np.float32), device=device)
+    with torch.inference_mode():
+        data = rec.net.decode_loop(x, m)
+        tables = dict(rec.net.decode_loop_tables())
+    tables["post_b"] = tables["post_b"].clone()
+    tables["post_b"][rec.eos_label] += eos_bias
+    prior = rec.net.generator.attention.prior_config()
+    kw = dict(beam=beam, max_len=frames // 8, eol=rec.eos_label,
+              char_discount=0.1, prior=prior["type"],
+              **{k: float(prior[k]) for k in (
+                  "before", "after", "initial_begin", "initial_end",
+                  "min_speed", "max_speed") if k in prior})
+    return (data["pre"], data["attended"], data["attended_mask"], tables), kw
+
+
+def _check_loop(args, kw):
+    """Kernel vs plain, the C layout vs its mirror, a second call's bits."""
+    import ctypes
+    from attention_lvcsr_torch import _build
+    pre, attended, _, tables = args
+    U, L, M = pre.shape
+    S, R, V = (tables["wss"].shape[0], tables["merge_k"].shape[1],
+               tables["post_k"].shape[1])
+    lib = _build.load().lib
+    lib.beam_loop_smem_bytes.argtypes = [ctypes.POINTER(bl._Args)]
+    c_args = bl._Args(U=U, L=L, M=M, D=attended.shape[-1], S=S, R=R, V=V,
+                      F=tables["embed"].shape[1], K=kw["beam"],
+                      Lout=kw["max_len"],
+                      n_taps=tables["conv_filters"].shape[-1])
+    assert lib.beam_loop_smem_bytes(ctypes.byref(c_args)) == bl.smem_plan(
+        kw["beam"], L, M, attended.shape[-1], S, R, V,
+        tables["embed"].shape[1], kw["max_len"],
+        tables["conv_filters"].shape[-1])["smem_bytes"]
+    before = bl.launches.count
+    got = bl.beam_search_loop(*args, **kw)
+    again = bl.beam_search_loop(*args, **kw)
+    assert bl.launches.count == before + 2
+    ref = bl.beam_search_loop_reference(*args, **kw)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    out, meta, steps = got
+    assert (ref[1][:, :, 1] < bl.INF / 2).any()
+    torch.testing.assert_close(out, ref[0], atol=0, rtol=0)
+    torch.testing.assert_close(steps, ref[2], atol=0, rtol=0)
+    torch.testing.assert_close(meta[:, :, 2], ref[1][:, :, 2])
+    torch.testing.assert_close(meta[:, :, :2], ref[1][:, :, :2],
+                               atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("K", [1, 10, 16])
+@pytest.mark.parametrize("states_readout,prior", [
+    (False, {"type": "window_around_median", "before": 3, "after": 3}),
+    (True, {"type": "expanding", "initial_begin": 0, "initial_end": 6,
+            "min_speed": 0.5, "max_speed": 2.0})])
+def test_beam_loop_kernel_odd_widths(device, K, states_readout, prior):
+    """S=33, D=66: odd row pitches and odd table widths take the products'
+    scalar paths; K=1, 10 and 16 take row groups of 1 to 8 rows."""
+    config = dict(NET_CONFIG, dim_dec=33, dims_bidir=[33, 33],
+                  post_merge_dims=[17], num_phonemes=9, eos_label=8,
+                  use_states_for_readout=states_readout, prior=prior)
+    args, kw = _loop_case(device, config, 3, 48, K, 3.0 if K == 1 else 1.5,
+                          seed=K)
+    _check_loop(args, kw)
+
+
+def test_beam_loop_kernel_flagship_widths(device):
+    """The flagship's widths (D=500, S=M=R=F=250, V=32, beam 10) at U=3:
+    row groups of 5 and of 3, 2 rows, the L1 prefetch over long tables."""
+    from __graft_entry__ import FLAGSHIP_NET
+    config = dict(FLAGSHIP_NET, max_decoded_length_scale=8.0)
+    args, kw = _loop_case(device, config, 3, 400, 10, 1.5, seed=5,
+                          init=FLAGSHIP_INIT)
+    _check_loop(args, kw)
+
+
+def test_beam_loop_too_large_raises(device):
+    """Beam 32 at the flagship widths does not fit a block's shared memory:
+    no launch."""
+    from __graft_entry__ import FLAGSHIP_NET
+    config = dict(FLAGSHIP_NET, max_decoded_length_scale=8.0)
+    args, kw = _loop_case(device, config, 1, 64, 32, 0.0, seed=1,
+                          init=FLAGSHIP_INIT)
+    before = bl.launches.count
+    with pytest.raises(NotImplementedError, match="beam 32"):
+        bl.beam_search_loop(*args, **kw)
+    assert bl.launches.count == before
 
 
 @pytest.mark.parametrize("U,K,L,M", [(3, 4, 23, 9), (2, 1, 7, 300),
