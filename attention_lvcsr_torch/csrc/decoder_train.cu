@@ -19,32 +19,57 @@
 //           h_new = u * c + (1 - u) * h
 //   h, w, wa, e*gmask are replaced where mask[t, b] > 0.5 (by selection)
 //
-// The backward walks the steps in reverse with dh, dw, dwa on chip, exactly
-// the TPU kernel's algebra (decoder_train.py:423-585): GRU backward,
-// weighted-average backward, then the attention step recomputed from
-// (h_prev, w_prev) -- the (B, L, M) match tensor is never stored -- and the
-// softmax, energy and convolution backward.  It accumulates dpre and datt
-// of its own row in device memory and its row's dhand, dv across its steps,
-// and writes per-step rows (dfx, dfg, dsp, the windowed weights and dconv)
-// from which ops/decoder_train.py forms the weight gradients (dtoep, dst,
-// dwss, dwsg, ddx, ddg) with outer_sum.cu, which also sums the rows' dhand
-// and dv in a fixed order.  Its products with the transposed weights
-// read transposed copies that the wrapper makes once per call, so that
-// they are column-sliced and coalesced like the forward's.
+// The backward walks the steps in reverse with dh, dw, dwa on chip, the TPU
+// kernel's algebra (decoder_train.py:423-585): GRU backward, the distribute
+// products' backward, the weighted-average backward, then the attention step
+// recomputed from (h_prev, w_prev) -- the (B, L, M) match tensor is never
+// stored -- and the softmax, energy and convolution backward.  It writes
+// dpre once at the end, and per-step rows (dfx, dfg, dsp, dwan, the windowed
+// weights and dconv) from which ops/decoder_train.py forms the weight
+// gradients and datt with outer_sum.cu, which also sums the (row, block)
+// partials of dhand and dv in a fixed order.
 //
-// What bounds it on the card: the per-step dependent chain.  A step is a
-// handful of dependent vector-matrix products (about 0.7 M multiply-adds a
-// row forward, 1.1 M backward, the weights read from L2), 50 K tanh and a
-// few block-wide reductions.  Design: one block per batch row, the row's
-// vectors in shared memory, weights streamed from L2 with coalesced loads;
-// products split their reduction over the block's threads.  The window of
-// the median prior spans the batch, so every forward step needs every
-// row's bounds: blocks publish them and meet at a grid-wide barrier, which
-// is why the forward is a cooperative launch (all B blocks co-resident;
-// B <= 132 rows at the flagship widths).  The forward records each step's
-// [gb, ge) and the backward reads it, so the backward needs no barrier and
-// is the exact gradient of the forward.
+// What bounds it on the card: each step is a chain of dependent
+// vector-matrix products over 2.7 MB (forward) and 3.1 MB (backward) of
+// weights, 50 K tanh a row and a few reductions; the weights do not fit in
+// shared memory, so they stream from L2 every step, and the products wait
+// on L2.  Design (the plan is mirrored in ops/decoder_train.py::plan):
+//
+// * the whole card: a persistent grid of thread-block clusters of C = 4, 8
+//   or 16 blocks; the B rows are spread over as many clusters as the card
+//   holds at once (cudaOccupancyMaxActiveClusters), so a cluster serves R or
+//   R - 1 rows.  The median prior's window spans the batch, so the forward
+//   meets at one grid barrier a step and is a cooperative launch (every
+//   block co-resident or no launch);
+// * block j of a cluster owns frame tile [j*Lt, (j+1)*Lt) of its rows for
+//   the attention (energies, softmax, weighted average and their backward)
+//   and column slice j of every product (sp, the convolution, the GRU's
+//   gates and candidate, the distribute products, their transposes), the
+//   columns the wrapper packs k-major per block (ops/decoder_train.py::
+//   pack), zero-padded to multiples of four floats;
+// * each weight element is read from L2 once per cluster a step, for all
+//   its rows at once: a product thread keeps up to eight rows x four
+//   columns in registers (16-byte loads, eight in flight) over one of up to
+//   32 k slices; the slices' partial sums are added in a fixed order;
+// * the rows' dpre (backward), att and pre tiles stay in shared memory for
+//   the whole scan where they fit, in that order (res_dpre, res_att and
+//   res_pre of the R rows, chosen by the plan); the other rows read theirs
+//   from L2 every step, with their loads batched;
+// * blocks exchange their slices of the vectors a product reads (h, r * h,
+//   sp, w, the gate gradients, dwan, dcv) and the partials of the softmax,
+//   weighted average, dsp and the softmax backward through distributed
+//   shared memory, behind split cluster barriers (five a step each way);
+// * no atomics in any sum: every cross-thread, cross-warp and cross-block
+//   sum is taken in an order fixed by the plan, so a second call repeats
+//   bit for bit.
+//
+// The forward records each step's [gb, ge) and the backward reads it, so
+// the backward needs no grid barrier and is the exact gradient of its
+// forward.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "sm90_async.cuh"
 
 // Must match the ctypes.Structure in ops/decoder_train.py field for field.
 struct DecoderArgs {
@@ -58,14 +83,20 @@ struct DecoderArgs {
   const float* h0;     // (B, S)
   const float* w0;     // (B, L)
   const float* wa0;    // (B, D)
-  const float* toep;   // (L, L) Toeplitz band of the conv taps
-  const float* st;     // (S, M)
   const float* hand;   // (M)
   const float* v;      // (M)
-  const float* wss;    // (S, S)
-  const float* wsg;    // (S, 2S)
-  const float* dxm;    // (D, S)
-  const float* dgm;    // (D, 2S)
+  // each block's column slice of the weights, k-major, (C, K, width) each
+  // (ops/decoder_train.py::pack_forward, pack_backward)
+  const float* p_toep;   // toep by frame tile            (C, L, Lq)
+  const float* p_st;     // st by M slice                 (C, S, Mc)
+  const float* p_gate;   // [dgm; wsg], [u | r] by S slice (C, Dp + Sp, 2Sc)
+  const float* p_dx;     // dxm by S slice                (C, D, Sc)
+  const float* p_ss;     // wss by S slice                (C, S, Sc)
+  const float* p_ssT;    // wss^T by S slice              (C, S, Sc)
+  const float* p_sgT;    // wsg^T, rows [u; r]            (C, 2Sp, Sc)
+  const float* p_dxgT;   // [dxm^T; dgm^T u; dgm^T r]     (C, 3Sp, Dc)
+  const float* p_stT;    // st^T by S slice               (C, M, Sc)
+  const float* p_toepT;  // toep^T by frame tile          (C, L, Lq)
   float* h_out;        // (T, B, S) mask-mixed states
   float* w_out;        // (T, B, L) mask-mixed weights
   float* wa_out;       // (T, B, D) mask-mixed weighted averages
@@ -83,20 +114,19 @@ struct DecoderArgs {
   float* dfg;          // (T, B, 2S)
   float* dh0;          // (B, S)
   float* dwa0;         // (B, D)
-  float* dpre;         // (B, L, M) zeroed, accumulated
-  float* datt;         // (B, L, D) zeroed, accumulated
+  float* dpre;         // (B, L, M)
   float* dsp;          // (T, B, M) gradient of each step's h @ st
   float* wg;           // (T, B, L) windowed previous weights
   float* dconv;        // (T, B, L) gradient of each step's convolution
-  float* dhand;        // (B, M) each row's sum over its steps
-  float* dv;           // (B, M)
-  const float* wss_t;  // transposes of wss, wsg, dxm, dgm, st and toep,
-  const float* wsg_t;  //   which the backward's products read column by
-  const float* dxm_t;  //   column, as the forward reads the matrices
-  const float* dgm_t;
-  const float* st_t;
-  const float* toep_t;
+  float* dwan;         // (T, B, D) gradient of each step's weighted average
+  float* dhand;        // (B, C, M) each (row, block)'s sum over its steps
+  float* dv;           // (B, C, M)
   int T, B, L, M, D, S, prior_median;
+  int cluster;         // blocks a cluster (4, 8 or 16)
+  int clusters;        // clusters of the grid
+  int res_pre;         // rows of a cluster whose pre, att and (backward)
+  int res_att;         //   dpre tiles stay in shared memory; the other
+  int res_dpre;        //   rows' tiles are read from L2
   float before, after, initial_begin, initial_end, min_speed, max_speed;
 };
 
@@ -104,10 +134,139 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxRows = 16;     // rows a cluster (a warp each in row sums)
+constexpr int kRowChunk = 8;     // rows a product thread keeps in registers
+constexpr int kMaxSlices = 32;   // k slices of a product
+constexpr int kAhead = 8;        // 16-byte weight loads in flight a thread
+                                 //   (twice that for up to four rows)
+constexpr int kMaxSmemFloats = 232448 / 4;
 constexpr float kNeg = -1e30f;
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int up4(int n) { return (n + 3) / 4 * 4; }
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
+}
+
+// A plan's slices: frame tile Lt (Lq padded to four), column slices Sc, Mc,
+// Dc (multiples of four) and the padded widths C * slice.
+struct Dims {
+  int C, R, Lt, Lq, L4, Sc, Sp, Mc, Mp, Dc, Dp, M4, Mt, Mch, groups;
+};
+
+__host__ __device__ inline Dims dims(int C, int R, int L, int M, int D,
+                                     int S) {
+  Dims d;
+  d.C = C;
+  d.R = R;
+  d.Lt = cdiv(L, C);
+  d.Lq = up4(d.Lt);
+  d.L4 = up4(L);
+  d.Sc = up4(cdiv(S, C));
+  d.Sp = C * d.Sc;
+  d.Mc = up4(cdiv(M, C));
+  d.Mp = C * d.Mc;
+  d.Dc = up4(cdiv(D, C));
+  d.Dp = C * d.Dc;
+  d.M4 = up4(M);
+  d.Mt = M | 1;          // odd pitch of the pre tiles: no bank conflicts
+  // the backward's energies: warps over (32-column chunk of M, frame group)
+  d.Mch = cdiv(M, 32);
+  d.groups = kWarps / min(d.Mch, kWarps);
+  return d;
+}
+
+// k slices of a product over K rows into `width` columns (four a thread)
+__host__ __device__ inline int slices(int K, int width) {
+  const int groups = width / 4;
+  return max(1, min(min(kMaxSlices, kThreads / groups), K));
+}
+
+__host__ __device__ inline int part_floats(int K, int width, int R) {
+  return slices(K, width) * min(R, kRowChunk) * width;
+}
+
+// Shared-memory layout of a block (offsets in floats, 16-byte aligned);
+// kind 0 forward, 1 backward.  -1: not in this kind's layout.
+struct Layout {
+  int gin, w, wgv, rh, sp, wanp, wa, ek, conv, e, un, comb, xin, gate;
+  int hp, g1, dwan, dspp, dsp, dcv, wn, dwn, dE, dh, dhp, dw, dwa, dcvw,
+      dspg, dvg, dhg;
+  int pout, rs, red, vh, part, pre, att, dpre, total;
+};
+
+__host__ __device__ inline int take(int& at, int n) {
+  const int p = at;
+  at += up4(n);
+  return p;
+}
+
+__host__ __device__ inline Layout layout(int kind, const Dims& d, int L,
+                                         int M, int D, int S, int res_pre,
+                                         int res_att, int res_dpre) {
+  Layout o;
+  int* all = &o.gin;
+  for (int i = 0; i < (int)(sizeof(Layout) / sizeof(int)); ++i) all[i] = -1;
+  const int R = d.R;
+  int at = 0, pmax = 0, part = 0;
+  if (kind == 0) {
+    o.gin = take(at, R * (d.Dp + d.Sp));   // [wan | h] a row
+    o.w = take(at, R * d.L4);
+    o.wgv = take(at, R * d.L4);
+    o.rh = take(at, R * d.Sp);
+    o.sp = take(at, R * d.Mp);
+    o.wanp = take(at, R * d.Dp);
+    o.wa = take(at, R * d.Dc);
+    o.ek = take(at, R * d.Lq);
+    o.conv = take(at, R * d.Lq);
+    o.e = take(at, R * d.Lq);
+    o.un = take(at, R * d.Lq);
+    o.comb = take(at, R * d.Lq);
+    o.xin = take(at, R * d.Sc);
+    o.gate = take(at, R * 2 * d.Sc);
+    pmax = max(max(d.Lq, d.Mc), 2 * d.Sc);
+    part = max(max(part_floats(L, d.Lq, R), part_floats(S, d.Mc, R)),
+               max(part_floats(d.Dp + d.Sp, 2 * d.Sc, R),
+                   max(part_floats(D, d.Sc, R), part_floats(S, d.Sc, R))));
+  } else {
+    o.hp = take(at, R * d.Sp);
+    o.wgv = take(at, R * d.L4);
+    o.g1 = take(at, R * 3 * d.Sp);         // [dca | dga_u | dga_r] a row
+    o.sp = take(at, R * d.Mp);
+    o.dwan = take(at, R * d.Dp);
+    o.dspp = take(at, R * d.Mp);
+    o.dsp = take(at, R * d.Mp);
+    o.dcv = take(at, R * d.L4);
+    o.conv = take(at, R * d.Lq);
+    o.wn = take(at, R * d.Lq);
+    o.dwn = take(at, R * d.Lq);
+    o.dE = take(at, R * d.Lq);
+    o.dh = take(at, R * d.Sc);
+    o.dhp = take(at, R * d.Sc);
+    o.dw = take(at, R * d.Lq);
+    o.dwa = take(at, R * d.Dc);
+    o.dcvw = take(at, d.Mch * R * d.Lq);   // per M chunk: dcv partials
+    o.dspg = take(at, d.groups * R * d.M4);  // per frame group: dsp, and
+    o.dvg = take(at, d.groups * R * d.M4);   //   dv and dhand over the
+    o.dhg = take(at, d.groups * R * d.M4);   //   steps
+    pmax = max(max(d.Lq, d.Mc), max(d.Sc, d.Dc));
+    part = max(max(max(part_floats(S, d.Mc, R), part_floats(L, d.Lq, R)),
+                   max(part_floats(S, d.Sc, R),
+                       part_floats(2 * d.Sp, d.Sc, R))),
+               max(part_floats(3 * d.Sp, d.Dc, R),
+                   part_floats(M, d.Sc, R)));
+  }
+  o.pout = take(at, R * pmax);
+  o.rs = take(at, 8 * R);
+  o.red = take(at, 2 * kWarps);
+  o.vh = take(at, 2 * d.M4);               // v | hand
+  o.part = take(at, part);
+  if (kind == 1 && res_dpre > 0) o.dpre = take(at, res_dpre * d.Lt * d.Mt);
+  if (res_att > 0) o.att = take(at, res_att * d.Lt * D);
+  if (res_pre > 0) o.pre = take(at, res_pre * d.Lt * d.Mt);
+  o.total = at;
+  return o;
 }
 
 enum Reduce { kSum, kMax, kMin };
@@ -116,494 +275,952 @@ __device__ __forceinline__ float combine(float x, float y, Reduce op) {
   return op == kSum ? x + y : op == kMax ? fmaxf(x, y) : fminf(x, y);
 }
 
+__device__ __forceinline__ float warp_reduce(float x, Reduce op) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = combine(x, __shfl_xor_sync(0xffffffffu, x, o), op);
+  return x;
+}
+
 // Block-wide reduction of one value per thread; every thread gets the
 // result.  red: kWarps floats of shared memory.
 __device__ float block_reduce(float x, float* red, Reduce op) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = combine(x, __shfl_xor_sync(0xffffffffu, x, o), op);
+  x = warp_reduce(x, op);
   __syncthreads();
   if (lane == 0) red[warp] = x;
   __syncthreads();
   float r = red[0];
   for (int w = 1; w < kWarps; ++w) r = combine(r, red[w], op);
+  __syncthreads();
   return r;
 }
 
-// out[n] (+)= sum_k x[k] * W[k * ldw + n] for n < N, x in shared memory,
-// W row-major in device memory (coalesced over n).  The k range is split
-// over the threads the N columns leave free; scratch holds the partials.
-__device__ void vecmat(const float* x, const float* __restrict__ W, int ldw,
-                       int K, int N, float* out, float* scratch,
-                       bool accumulate) {
-  const int slices = max(1, min(K, kThreads / N));
-  for (int item = threadIdx.x; item < slices * N; item += kThreads) {
-    const int q = item / N, n = item % N;
-    const int k1 = (q + 1) * K / slices;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int k = q * K / slices; k < k1; ++k)
-      acc = fmaf(x[k], __ldg(W + (size_t)k * ldw + n), acc);
-    scratch[item] = acc;
-  }
-  __syncthreads();
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    float s = scratch[n];
-    for (int q = 1; q < slices; ++q) s += scratch[q * N + n];
-    out[n] = accumulate ? out[n] + s : s;
-  }
-  __syncthreads();
-}
-
-// All blocks of the cooperative grid meet here.  bar[0] counts arrivals,
-// bar[1] is the generation the waiting blocks watch.
-__device__ void grid_barrier(unsigned* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned* gen = bar + 1;
-    const unsigned g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(20);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// Shared-memory layout of one block (offsets in floats, 16-byte aligned).
-struct Layout {
-  int h, w, wa, ek, sp, conv, e, wnew, wan, gm, comb, wgv, gates, xin, rh,
-      cand, hp, dhn, dwn, dwan, dca, dga, dhp, dsp, dcv, tmp, red, scratch,
-      part, total;
-};
-
-__host__ __device__ inline int take(int& at, int n) {
-  const int p = at;
-  at += (n + 3) / 4 * 4;
-  return p;
-}
-
-__host__ __device__ inline Layout layout(int L, int M, int D, int S) {
-  Layout o;
-  int at = 0;
-  const int wide = max(max(2 * S, D), max(L, M));
-  // per-row vectors of the forward ...
-  o.h = take(at, S);       o.w = take(at, L);      o.wa = take(at, D);
-  o.ek = take(at, L);      o.sp = take(at, M);     o.conv = take(at, L);
-  o.e = take(at, L);       o.wnew = take(at, L);   o.wan = take(at, D);
-  o.gm = take(at, L);      o.comb = take(at, L);   o.wgv = take(at, L);
-  o.gates = take(at, 2 * S);  o.xin = take(at, S);  o.rh = take(at, S);
-  o.cand = take(at, S);
-  // ... and of the backward
-  o.hp = take(at, S);      o.dhn = take(at, S);    o.dwn = take(at, L);
-  o.dwan = take(at, D);    o.dca = take(at, S);    o.dga = take(at, 2 * S);
-  o.dhp = take(at, S);     o.dsp = take(at, M);    o.dcv = take(at, L);
-  o.tmp = take(at, wide);  o.red = take(at, kWarps);
-  o.scratch = take(at, max(kThreads, wide));
-  o.part = take(at, 3 * kWarps * M);   // per-warp dsp, dv, dhand partials
-  o.total = at;
-  return o;
-}
-
-// The window of forward step t: fills gm and comb of this row and returns
-// [gb, ge).  Every block calls it (the median prior meets at the barrier).
-__device__ float2 window(const DecoderArgs& a, int t, int b, const float* w,
-                         float* gm, float* comb, float* red) {
-  const int L = a.L;
-  float begin_b = 0.f, end_b = 0.f, gb, ge;
-  if (!a.prior_median) {
-    const float s = (float)a.step0[t];
-    gb = floorf(fmaxf(0.f, fminf((float)(L - 1),
-                                 a.initial_begin + s * a.min_speed)));
-    ge = ceilf(fmaxf(0.f, fminf((float)L, a.initial_end + s * a.max_speed)));
-  } else {
-    // warp 0: running sum of w over contiguous chunks per lane, and the
-    // number of frames whose running sum stays under 0.5
-    __shared__ float below;
-    if (threadIdx.x < 32) {
-      const int lane = threadIdx.x, per = (L + 31) / 32;
-      const int l0 = min(L, lane * per), l1 = min(L, l0 + per);
-      float s = 0.f;
-      for (int l = l0; l < l1; ++l) s += w[l];
-      float incl = s;
+// A lane's fold acc = f(i, x[i], acc) over its elements i = lane + 32k < n
+// of a row x (shared memory or L2), kBatch loads in flight before their
+// uses: a row read from L2 costs one round trip per 32 * kBatch elements.
+template <int kBatch, class F>
+__device__ __forceinline__ float lane_fold(const float* x, int n, F f) {
+  const int lane = threadIdx.x % 32;
+  float acc = 0.f;
+  for (int base = lane; base < n; base += 32 * kBatch) {
+    float xv[kBatch];
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float y = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += y;
-      }
-      float run = incl - s, count = 0.f;
-      for (int l = l0; l < l1; ++l) {
-        run += w[l];
-        count += run < 0.5f ? 1.f : 0.f;
-      }
+    for (int k = 0; k < kBatch; ++k)
+      xv[k] = base + 32 * k < n ? x[base + 32 * k] : 0.f;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        count += __shfl_xor_sync(0xffffffffu, count, o);
-      if (lane == 0) below = count;
-    }
-    __syncthreads();
-    const float expected = fmaxf(0.f, below - 1.f);
-    begin_b = floorf(expected - a.before);
-    end_b = ceilf(expected + a.after);
-    float* slot = a.exch + (t & 1) * 2 * a.B;
-    if (threadIdx.x == 0) {
-      slot[2 * b] = begin_b;
-      slot[2 * b + 1] = end_b;
-    }
-    grid_barrier(a.barrier);
-    float lo = 3.4e38f, hi = -3.4e38f;
-    for (int i = threadIdx.x; i < a.B; i += kThreads) {
-      lo = fminf(lo, __ldcg(slot + 2 * i));
-      hi = fmaxf(hi, __ldcg(slot + 2 * i + 1));
-    }
-    lo = block_reduce(lo, red, kMin);
-    hi = block_reduce(hi, red, kMax);
-    gb = floorf(fmaxf(0.f, lo));
-    ge = ceilf(fminf((float)L, hi));
+    for (int k = 0; k < kBatch; ++k)
+      if (base + 32 * k < n) acc = f(base + 32 * k, xv[k], acc);
   }
-  const float* amask = a.amask + (size_t)b * L;
-  for (int l = threadIdx.x; l < L; l += kThreads) {
-    const float pos = (float)l;
-    const float g = pos >= gb && pos < ge ? 1.f : 0.f;
-    const float add =
-        !a.prior_median || (pos > begin_b && pos < end_b) ? 1.f : 0.f;
-    gm[l] = g;
-    comb[l] = g * add * amask[l];
-  }
-  __syncthreads();
-  return make_float2(gb, ge);
+  return acc;
 }
 
-__global__ void __launch_bounds__(kThreads) decoder_fwd_kernel(DecoderArgs a) {
+// out[r * ldo + c] = sum_k x[r * ldx + k] * P[k * width + c] for r < rows
+// (<= RC), c < width: P is the block's packed column slice, (K, width),
+// width a multiple of four.  Thread (q, g) takes columns [4g, 4g + 4) of k
+// slice q for all rows, so each weight element is loaded once; kAhead (16
+// for at most four rows) 16-byte loads are in flight before their FMAs.
+// The slices' partials are added in four chains of every fourth slice,
+// then the chains in order.
+template <int RC>
+__device__ __noinline__ void product_rows(const float* x, int ldx, int rows,
+                                          int K,
+                                          const float* __restrict__ P,
+                                          int width, float* part, float* out,
+                                          int ldo) {
+  // more loads in flight where fewer rows hold registers
+  constexpr int kA = RC <= 4 ? 2 * kAhead : kAhead;
+  const int G = width / 4, Q = slices(K, width);
+  const float* xr[RC];
+#pragma unroll
+  for (int r = 0; r < RC; ++r) xr[r] = x + min(r, rows - 1) * ldx;
+  for (int item = threadIdx.x; item < Q * G; item += kThreads) {
+    const int q = item / G, g = item % G;
+    const int k0 = q * K / Q, k1 = (q + 1) * K / Q;
+    const float4* wp = reinterpret_cast<const float4*>(P) + g;
+    float acc[RC][4];
+#pragma unroll
+    for (int r = 0; r < RC; ++r)
+      acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+    auto step = [&](int k, const float4& wv) {
+#pragma unroll
+      for (int r = 0; r < RC; ++r) {
+        const float xv = xr[r][k];
+        acc[r][0] = fmaf(xv, wv.x, acc[r][0]);
+        acc[r][1] = fmaf(xv, wv.y, acc[r][1]);
+        acc[r][2] = fmaf(xv, wv.z, acc[r][2]);
+        acc[r][3] = fmaf(xv, wv.w, acc[r][3]);
+      }
+    };
+    int k = k0;
+    for (; k + kA <= k1; k += kA) {
+      float4 wv[kA];
+#pragma unroll
+      for (int s = 0; s < kA; ++s) wv[s] = __ldg(wp + (size_t)(k + s) * G);
+#pragma unroll
+      for (int s = 0; s < kA; ++s) step(k + s, wv[s]);
+    }
+    for (; k < k1; ++k) step(k, __ldg(wp + (size_t)k * G));
+    float* pp = part + q * RC * width + 4 * g;
+#pragma unroll
+    for (int r = 0; r < RC; ++r)
+      *reinterpret_cast<float4*>(pp + r * width) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  }
+  __syncthreads();
+  // four chains over the slices, added in a fixed order
+  for (int o = threadIdx.x; o < rows * width; o += kThreads) {
+    const int r = o / width, c = o % width;
+    const float* p = part + r * width + c;
+    const int step = RC * width;
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+    int q = 0;
+    for (; q + 4 <= Q; q += 4) {
+      s0 += p[q * step];
+      s1 += p[(q + 1) * step];
+      s2 += p[(q + 2) * step];
+      s3 += p[(q + 3) * step];
+    }
+    for (; q < Q; ++q) s0 += p[q * step];
+    out[r * ldo + c] = (s0 + s1) + (s2 + s3);
+  }
+  __syncthreads();
+}
+
+// The product of `rows` rows, kRowChunk rows at a time.
+__device__ void product(const float* x, int ldx, int rows, int K,
+                        const float* P, int width, float* part, float* out,
+                        int ldo) {
+  for (int r0 = 0; r0 < rows; r0 += kRowChunk) {
+    const int n = min(kRowChunk, rows - r0);
+    const float* xs = x + r0 * ldx;
+    float* os = out + r0 * ldo;
+    switch (n) {
+      case 1: product_rows<1>(xs, ldx, n, K, P, width, part, os, ldo); break;
+      case 2: product_rows<2>(xs, ldx, n, K, P, width, part, os, ldo); break;
+      case 3: product_rows<3>(xs, ldx, n, K, P, width, part, os, ldo); break;
+      case 4: product_rows<4>(xs, ldx, n, K, P, width, part, os, ldo); break;
+      case 5: product_rows<5>(xs, ldx, n, K, P, width, part, os, ldo); break;
+      case 6: product_rows<6>(xs, ldx, n, K, P, width, part, os, ldo); break;
+      case 7: product_rows<7>(xs, ldx, n, K, P, width, part, os, ldo); break;
+      default: product_rows<8>(xs, ldx, n, K, P, width, part, os, ldo);
+    }
+  }
+}
+
+// Copy every peer's slice [q * chunk, (q + 1) * chunk) of rows r < rows of
+// buf (row pitch ld) from peer q's shared memory into ours, 16 bytes a load
+// (buf, chunk and ld multiples of four floats).
+__device__ void pull4(cooperative_groups::cluster_group& cluster, float* buf,
+                      int ld, int rows, int chunk, int self, int C) {
+  const int per = chunk / 4, count = rows * C * per;
+  for (int i = threadIdx.x; i < count; i += kThreads) {
+    const int r = i / (C * per), q = (i / per) % C, c = i % per;
+    if (q == self) continue;
+    float4* dst = reinterpret_cast<float4*>(buf + r * ld + q * chunk) + c;
+    *dst = *cluster.map_shared_rank(dst, q);
+  }
+}
+
+// The same for a vector of n floats in slices of `chunk`, 4 bytes a load.
+__device__ void pull1(cooperative_groups::cluster_group& cluster, float* buf,
+                      int ld, int rows, int chunk, int n, int self, int C) {
+  const int count = rows * n;
+  for (int i = threadIdx.x; i < count; i += kThreads) {
+    const int r = i / n, l = i % n, q = l / chunk;
+    if (q == self) continue;
+    float* dst = buf + r * ld + l;
+    *dst = *cluster.map_shared_rank(dst, q);
+  }
+}
+
+// sum over the cluster's blocks of x[i] in rank order, x in each block's
+// shared memory at the same offset (16 bytes)
+__device__ __forceinline__ float4 sum_peers4(
+    cooperative_groups::cluster_group& cluster, float* x, int C) {
+  float4 v[16];
+#pragma unroll
+  for (int q = 0; q < 16; ++q)
+    if (q < C) v[q] = *reinterpret_cast<const float4*>(
+        cluster.map_shared_rank(x, q));
+  float4 s = v[0];
+#pragma unroll
+  for (int q = 1; q < 16; ++q)
+    if (q < C) {
+      s.x += v[q].x;
+      s.y += v[q].y;
+      s.z += v[q].z;
+      s.w += v[q].w;
+    }
+  return s;
+}
+
+// Warp-wide reduction over the cluster's blocks of the float at x (lane q
+// reads block q's), in a fixed tree; every lane gets the result.
+__device__ __forceinline__ float reduce_peers(
+    cooperative_groups::cluster_group& cluster, float* x, int C, Reduce op,
+    float identity) {
+  const int lane = threadIdx.x % 32;
+  const float v = lane < C ? *cluster.map_shared_rank(x, lane) : identity;
+  return warp_reduce(v, op);
+}
+
+// Thread 0 of each block: arrive at the grid barrier (bar[0] counts
+// arrivals, bar[1] is the generation); returns the generation to wait past.
+__device__ unsigned grid_arrive(unsigned* bar) {
+  volatile unsigned* gen = bar + 1;
+  const unsigned g = *gen;
+  __threadfence();
+  if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+    atomicExch(bar, 0u);
+    __threadfence();
+    atomicAdd(bar + 1, 1u);
+  }
+  return g;
+}
+
+__device__ void grid_wait(unsigned* bar, unsigned g) {
+  volatile unsigned* gen = bar + 1;
+  while (*gen == g) __nanosleep(32);
+  __threadfence();
+}
+
+// The rows of cluster c: [b0, b0 + nr), the B rows spread evenly.
+__device__ __forceinline__ void cluster_rows(int B, int clusters, int c,
+                                             int& b0, int& nr) {
+  const int q = B / clusters, rem = B % clusters;
+  b0 = c * q + min(c, rem);
+  nr = q + (c < rem ? 1 : 0);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    decoder_fwd_kernel(const __grid_constant__ DecoderArgs a) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float sm[];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int B = a.B, L = a.L, M = a.M, D = a.D, S = a.S, S2 = 2 * a.S;
-  const Layout o = layout(L, M, D, S);
-  float *h = sm + o.h, *w = sm + o.w, *wa = sm + o.wa, *ek = sm + o.ek;
-  float *sp = sm + o.sp, *conv = sm + o.conv, *e = sm + o.e;
-  float *wnew = sm + o.wnew, *wan = sm + o.wan, *gm = sm + o.gm;
-  float *comb = sm + o.comb, *wgv = sm + o.wgv, *gates = sm + o.gates;
-  float *xin = sm + o.xin, *rh = sm + o.rh, *cand = sm + o.cand;
-  float *tmp = sm + o.tmp, *red = sm + o.red, *scratch = sm + o.scratch;
-  const float* pre = a.pre + (size_t)b * L * M;
-  const float* att = a.att + (size_t)b * L * D;
-  for (int i = tid; i < S; i += kThreads) h[i] = a.h0[(size_t)b * S + i];
-  for (int l = tid; l < L; l += kThreads) {
-    w[l] = a.w0[(size_t)b * L + l];
-    ek[l] = 0.f;
-  }
-  for (int d = tid; d < D; d += kThreads) wa[d] = a.wa0[(size_t)b * D + d];
+  const int T = a.T, B = a.B, L = a.L, M = a.M, D = a.D, S = a.S;
+  const int C = a.cluster, j = (int)cluster.block_rank();
+  int b0, nr;
+  cluster_rows(B, a.clusters, blockIdx.x / C, b0, nr);
+  const Dims d = dims(C, cdiv(B, a.clusters), L, M, D, S);
+  const int rp = min(a.res_pre, d.R), ra = min(a.res_att, d.R);
+  const Layout o = layout(0, d, L, M, D, S, rp, ra, 0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int Lt = d.Lt, Lq = d.Lq, L4 = d.L4, Sc = d.Sc, Sp = d.Sp;
+  const int Mc = d.Mc, Mp = d.Mp, Dc = d.Dc, Dp = d.Dp;
+  const int l0 = j * Lt, nl = max(0, min(L - l0, Lt));
+  const int s0 = j * Sc, ns = max(0, min(S - s0, Sc));
+  const int e0 = j * Dc, nd = max(0, min(D - e0, Dc));
+  const int gp = Dp + Sp;                    // gin pitch: [wan | h]
+  float *gin = sm + o.gin, *h = gin + Dp, *w = sm + o.w, *wgv = sm + o.wgv;
+  float *rh = sm + o.rh, *sp = sm + o.sp, *wanp = sm + o.wanp;
+  float *wa = sm + o.wa, *ek = sm + o.ek, *conv = sm + o.conv, *e = sm + o.e;
+  float *un = sm + o.un, *comb = sm + o.comb, *xin = sm + o.xin;
+  float *gate = sm + o.gate, *pout = sm + o.pout, *rs = sm + o.rs;
+  float *red = sm + o.red, *v = sm + o.vh, *hand = v + d.M4;
+  float* part = sm + o.part;
+  // a row's tiles: resident rows in shared memory, the others in L2
+  auto pre_row = [&](int r) -> const float* {
+    return r < rp ? sm + o.pre + r * Lt * d.Mt
+                  : a.pre + ((size_t)(b0 + r) * L + l0) * M;
+  };
+  auto att_row = [&](int r) -> const float* {
+    return r < ra ? sm + o.att + r * Lt * D
+                  : a.att + ((size_t)(b0 + r) * L + l0) * D;
+  };
+
+  // zero everything (padding stays zero); state, weights, tiles
+  for (int i = tid; i < o.total; i += kThreads) sm[i] = 0.f;
   __syncthreads();
+  for (int i = tid; i < nr * S; i += kThreads)
+    h[(i / S) * gp + i % S] = a.h0[(size_t)b0 * S + i];
+  for (int i = tid; i < nr * L; i += kThreads)
+    w[(i / L) * L4 + i % L] = a.w0[(size_t)b0 * L + i];
+  for (int i = tid; i < nr * nd; i += kThreads)
+    wa[(i / nd) * Dc + i % nd] = a.wa0[(size_t)(b0 + i / nd) * D + e0 + i % nd];
+  for (int m = tid; m < M; m += kThreads) {
+    v[m] = a.v[m];
+    hand[m] = a.hand[m];
+  }
+  for (int i = tid; i < min(rp, nr) * nl * M; i += kThreads) {
+    const int r = i / (nl * M), l = (i / M) % nl, m = i % M;
+    sm[o.pre + (r * Lt + l) * d.Mt + m] =
+        a.pre[((size_t)(b0 + r) * L + l0 + l) * M + m];
+  }
+  for (int i = tid; i < min(ra, nr) * nl * D; i += kThreads) {
+    const int r = i / (nl * D), l = (i / D) % nl, c = i % D;
+    sm[o.att + (r * Lt + l) * D + c] =
+        a.att[((size_t)(b0 + r) * L + l0 + l) * D + c];
+  }
+  // every block of the cluster initialised before any remote access
+  cluster.sync();
 
   for (int t = 0; t < a.T; ++t) {
-    const size_t row = (size_t)t * B + b;
+    const size_t row0 = (size_t)t * B + b0;
+    unsigned gen = 0;
     // ---- window of the prior
-    const float2 win = window(a, t, b, w, gm, comb, red);
-    if (b == 0 && tid == 0) {
-      a.bounds[2 * t] = win.x;
-      a.bounds[2 * t + 1] = win.y;
-    }
-    for (int l = tid; l < L; l += kThreads) wgv[l] = w[l] * gm[l];
-    __syncthreads();
-    // ---- convolution of the windowed weights; the state's keys
-    vecmat(wgv, a.toep, L, L, L, conv, scratch, false);
-    vecmat(h, a.st, M, S, M, sp, scratch, false);
-    // ---- energies: one warp per frame, lanes over the match dimension
-    for (int l = warp; l < L; l += kWarps) {
-      const float* pl = pre + (size_t)l * M;
-      const float cl = conv[l];
-      float acc = 0.f;
-      for (int m = lane; m < M; m += 32)
-        acc = fmaf(__ldg(a.v + m),
-                   tanhf(__ldg(pl + m) + sp[m] + cl * __ldg(a.hand + m)), acc);
+    if (a.prior_median) {
+      // warp r: running sum of row r's w over contiguous chunks per lane,
+      // and the number of frames whose running sum stays under 0.5
+      if (warp < nr) {
+        const float* wr = w + warp * L4;
+        const int per = (L + 31) / 32;
+        const int la = min(L, lane * per), lb = min(L, la + per);
+        float s = 0.f;
+        for (int l = la; l < lb; ++l) s += wr[l];
+        float incl = s;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0) e[l] = acc;
-    }
-    __syncthreads();
-    // ---- softmax over the window
-    float mx = kNeg;
-    for (int l = tid; l < L; l += kThreads)
-      if (gm[l] > 0.f) mx = fmaxf(mx, e[l]);
-    mx = block_reduce(mx, red, kMax);
-    mx = mx > kNeg / 2 ? mx : 0.f;
-    float sum = 0.f, csum = 0.f;
-    for (int l = tid; l < L; l += kThreads) {
-      const float un = expf(e[l] - mx) * comb[l];
-      wnew[l] = un;
-      sum += un;
-      csum += comb[l];
-    }
-    sum = block_reduce(sum, red, kSum);
-    csum = block_reduce(csum, red, kSum);
-    const float denom = sum + (csum == 0.f ? 1.f : 0.f);
-    for (int l = tid; l < L; l += kThreads) wnew[l] = wnew[l] / denom;
-    __syncthreads();
-    // ---- weighted average
-    vecmat(wnew, att, D, L, D, wan, scratch, false);
-    // ---- GRU: gates, then candidate
-    vecmat(wan, a.dgm, S2, D, S2, gates, scratch, false);
-    for (int i = tid; i < S2; i += kThreads)
-      gates[i] = a.fg[row * S2 + i] + gates[i];
-    __syncthreads();
-    vecmat(h, a.wsg, S2, S, S2, tmp, scratch, false);
-    for (int i = tid; i < S2; i += kThreads)
-      gates[i] = sigmoidf(tmp[i] + gates[i]);
-    __syncthreads();
-    vecmat(wan, a.dxm, S, D, S, xin, scratch, false);
-    for (int i = tid; i < S; i += kThreads) {
-      xin[i] = a.fx[row * S + i] + xin[i];
-      rh[i] = h[i] * gates[S + i];
-    }
-    __syncthreads();
-    vecmat(rh, a.wss, S, S, S, tmp, scratch, false);
-    for (int i = tid; i < S; i += kThreads) cand[i] = tanhf(tmp[i] + xin[i]);
-    __syncthreads();
-    // ---- outputs, mask-mixed by selection
-    const bool live = a.mask[row] > 0.5f;
-    for (int i = tid; i < S; i += kThreads) {
-      const float u = gates[i];
-      const float hn = u * cand[i] + (1.f - u) * h[i];
-      if (live) h[i] = hn;
-      a.h_out[row * S + i] = h[i];
-      a.u_out[row * S + i] = u;
-      a.r_out[row * S + i] = gates[S + i];
-      a.c_out[row * S + i] = cand[i];
-    }
-    for (int l = tid; l < L; l += kThreads) {
-      if (live) {
-        w[l] = wnew[l];
-        ek[l] = e[l] * gm[l];
+        for (int off = 1; off < 32; off <<= 1) {
+          const float y = __shfl_up_sync(0xffffffffu, incl, off);
+          if (lane >= off) incl += y;
+        }
+        float run = incl - s, count = 0.f;
+        for (int l = la; l < lb; ++l) {
+          run += wr[l];
+          count += run < 0.5f ? 1.f : 0.f;
+        }
+        count = warp_reduce(count, kSum);
+        const float expected = fmaxf(0.f, count - 1.f);
+        const float begin_b = floorf(expected - a.before);
+        const float end_b = ceilf(expected + a.after);
+        if (lane == 0) {
+          rs[warp * 8 + 5] = begin_b;
+          rs[warp * 8 + 6] = end_b;
+          if (j == 0) {
+            float* slot = a.exch + (t & 1) * 2 * B;
+            slot[2 * (b0 + warp)] = begin_b;
+            slot[2 * (b0 + warp) + 1] = end_b;
+            __threadfence();
+          }
+        }
       }
-      a.w_out[row * L + l] = w[l];
-      a.e_out[row * L + l] = ek[l];
+      __syncthreads();
+      if (tid == 0) gen = grid_arrive(a.barrier);
     }
-    for (int d = tid; d < D; d += kThreads) {
-      if (live) wa[d] = wan[d];
-      a.wa_out[row * D + d] = wa[d];
+    // ---- the state's keys, own M slice (needs no window)
+    product(h, gp, nr, S, a.p_st + (size_t)j * S * Mc, Mc, part, sp + j * Mc,
+            Mp);
+    cluster_arrive();
+    float gb, ge;
+    if (a.prior_median) {
+      if (tid == 0) grid_wait(a.barrier, gen);
+      __syncthreads();
+      const float* slot = a.exch + (t & 1) * 2 * B;
+      float lo = 3.4e38f, hi = -3.4e38f;
+      for (int i = tid; i < B; i += kThreads) {
+        lo = fminf(lo, __ldcg(slot + 2 * i));
+        hi = fmaxf(hi, __ldcg(slot + 2 * i + 1));
+      }
+      lo = block_reduce(lo, red, kMin);
+      hi = block_reduce(hi, red, kMax);
+      gb = floorf(fmaxf(0.f, lo));
+      ge = ceilf(fminf((float)L, hi));
+    } else {
+      const float s = (float)a.step0[t];
+      gb = floorf(fmaxf(0.f, fminf((float)(L - 1),
+                                   a.initial_begin + s * a.min_speed)));
+      ge = ceilf(fmaxf(0.f, fminf((float)L,
+                                  a.initial_end + s * a.max_speed)));
     }
+    if (blockIdx.x == 0 && tid == 0) {
+      a.bounds[2 * t] = gb;
+      a.bounds[2 * t + 1] = ge;
+    }
+    auto inside = [&](int l) { return (float)l >= gb && (float)l < ge; };
+    for (int i = tid; i < nr * L; i += kThreads) {
+      const int r = i / L, l = i % L;
+      wgv[r * L4 + l] = inside(l) ? w[r * L4 + l] : 0.f;
+    }
+    for (int i = tid; i < nr * nl; i += kThreads) {
+      const int r = i / nl, l = i % nl, pos = l0 + l;
+      const float add = !a.prior_median || ((float)pos > rs[r * 8 + 5] &&
+                                            (float)pos < rs[r * 8 + 6])
+                            ? 1.f : 0.f;
+      comb[r * Lq + l] = (inside(pos) ? 1.f : 0.f) * add
+                         * a.amask[(size_t)(b0 + r) * L + pos];
+    }
+    __syncthreads();
+    // ---- convolution of the windowed weights, own frames
+    product(wgv, L4, nr, L, a.p_toep + (size_t)j * L * Lq, Lq, part, conv,
+            Lq);
+    cluster_wait();
+    pull4(cluster, sp, Mp, nr, Mc, j, C);
+    __syncthreads();
+    // ---- energies of own frames: one warp per frame, lanes over M
+    for (int item = warp; item < nr * nl; item += kWarps) {
+      const int r = item / nl, l = item % nl;
+      const float* pl = pre_row(r) + (size_t)l * (r < rp ? d.Mt : M);
+      const float* spr = sp + r * Mp;
+      const float cl = conv[r * Lq + l];
+      float acc = lane_fold<8>(pl, M, [&](int m, float p, float s) {
+        return fmaf(v[m], tanhf(p + spr[m] + cl * hand[m]), s);
+      });
+      acc = warp_reduce(acc, kSum);
+      if (lane == 0) e[r * Lq + l] = acc;
+    }
+    __syncthreads();
+    if (warp < nr) {
+      float mx = kNeg;
+      for (int l = lane; l < nl; l += 32)
+        if (inside(l0 + l)) mx = fmaxf(mx, e[warp * Lq + l]);
+      mx = warp_reduce(mx, kMax);
+      if (lane == 0) rs[warp * 8] = mx;
+    }
+    cluster_arrive();
+    cluster_wait();
+    // ---- softmax over the window: numerators and partial sums of own frames
+    if (warp < nr) {
+      float mx = reduce_peers(cluster, rs + warp * 8, C, kMax, kNeg);
+      mx = mx > kNeg / 2 ? mx : 0.f;
+      float sum = 0.f, csum = 0.f;
+      for (int l = lane; l < nl; l += 32) {
+        const float cb = comb[warp * Lq + l];
+        const float u = expf(e[warp * Lq + l] - mx) * cb;
+        un[warp * Lq + l] = u;
+        sum += u;
+        csum += cb;
+      }
+      sum = warp_reduce(sum, kSum);
+      csum = warp_reduce(csum, kSum);
+      if (lane == 0) {
+        rs[warp * 8 + 1] = sum;
+        rs[warp * 8 + 2] = csum;
+      }
+    }
+    __syncthreads();
+    // ---- weighted average: partial sums of own frames
+    for (int i = tid; i < nr * Dp; i += kThreads) {
+      const int r = i / Dp, c = i % Dp;
+      float acc = 0.f;
+      if (c < D) {
+        const float* ar = att_row(r) + c;
+#pragma unroll 16
+        for (int l = 0; l < nl; ++l)
+          acc = fmaf(un[r * Lq + l], ar[(size_t)l * D], acc);
+      }
+      wanp[i] = acc;
+    }
+    cluster_arrive();
+    cluster_wait();
+    if (warp < nr) {
+      const float sum = reduce_peers(cluster, rs + warp * 8 + 1, C, kSum, 0.f);
+      const float csum = reduce_peers(cluster, rs + warp * 8 + 2, C, kSum,
+                                      0.f);
+      if (lane == 0) {
+        rs[warp * 8 + 4] = sum + (csum == 0.f ? 1.f : 0.f);
+        rs[warp * 8 + 7] = a.mask[row0 + warp] > 0.5f ? 1.f : 0.f;
+      }
+    }
+    for (int i = tid; i < nr * Dp / 4; i += kThreads) {
+      const int r = i / (Dp / 4), c = 4 * (i % (Dp / 4));
+      const float4 s = sum_peers4(cluster, wanp + r * Dp + c, C);
+      float* dst = gin + r * gp + c;
+      dst[0] = s.x;
+      dst[1] = s.y;
+      dst[2] = s.z;
+      dst[3] = s.w;
+    }
+    __syncthreads();
+    for (int i = tid; i < nr * Dp; i += kThreads) {
+      const int r = i / Dp;
+      gin[r * gp + i % Dp] /= rs[r * 8 + 4];
+    }
+    // the new weights of own frames, the averages of own columns
+    for (int i = tid; i < nr * nl; i += kThreads) {
+      const int r = i / nl, l = i % nl;
+      const size_t at = (row0 + r) * L + l0 + l;
+      if (rs[r * 8 + 7] > 0.f) {
+        w[r * L4 + l0 + l] = un[r * Lq + l] / rs[r * 8 + 4];
+        ek[r * Lq + l] = inside(l0 + l) ? e[r * Lq + l] : 0.f;
+      }
+      a.w_out[at] = w[r * L4 + l0 + l];
+      a.e_out[at] = ek[r * Lq + l];
+    }
+    __syncthreads();
+    for (int i = tid; i < nr * nd; i += kThreads) {
+      const int r = i / nd, c = i % nd;
+      if (rs[r * 8 + 7] > 0.f) wa[r * Dc + c] = gin[r * gp + e0 + c];
+      a.wa_out[(row0 + r) * D + e0 + c] = wa[r * Dc + c];
+    }
+    // ---- GRU gates of own units; own slice of r * h
+    product(gin, gp, nr, Dp + Sp, a.p_gate + (size_t)j * (Dp + Sp) * 2 * Sc,
+            2 * Sc, part, gate, 2 * Sc);
+    for (int i = tid; i < nr * ns; i += kThreads) {
+      const int r = i / ns, c = i % ns;
+      const float* fg = a.fg + (row0 + r) * 2 * S;
+      const float u = sigmoidf(gate[r * 2 * Sc + c] + fg[s0 + c]);
+      const float rr = sigmoidf(gate[r * 2 * Sc + Sc + c] + fg[S + s0 + c]);
+      gate[r * 2 * Sc + c] = u;
+      gate[r * 2 * Sc + Sc + c] = rr;
+      rh[r * Sp + s0 + c] = rr * h[r * gp + s0 + c];
+    }
+    cluster_arrive();
+    // the averages' share of the candidates (needs no r * h)
+    product(gin, gp, nr, D, a.p_dx + (size_t)j * D * Sc, Sc, part, xin, Sc);
+    cluster_wait();
+    pull4(cluster, rh, Sp, nr, Sc, j, C);
+    pull1(cluster, w, L4, nr, Lt, L, j, C);
+    __syncthreads();
+    // ---- candidates and the new state of own units
+    product(rh, Sp, nr, S, a.p_ss + (size_t)j * S * Sc, Sc, part, pout, Sc);
+    for (int i = tid; i < nr * ns; i += kThreads) {
+      const int r = i / ns, c = i % ns;
+      const float cand = tanhf(
+          pout[r * Sc + c] + (a.fx[(row0 + r) * S + s0 + c] + xin[r * Sc + c]));
+      const float u = gate[r * 2 * Sc + c];
+      const float hold = h[r * gp + s0 + c];
+      const float hn = u * cand + (1.f - u) * hold;
+      if (rs[r * 8 + 7] > 0.f) h[r * gp + s0 + c] = hn;
+      pout[r * Sc + c] = cand;
+    }
+    cluster_arrive();
+    // this step's stores, issued after the arrive
+    for (int i = tid; i < nr * ns; i += kThreads) {
+      const int r = i / ns, c = i % ns;
+      const size_t at = (row0 + r) * S + s0 + c;
+      a.h_out[at] = h[r * gp + s0 + c];
+      a.u_out[at] = gate[r * 2 * Sc + c];
+      a.r_out[at] = gate[r * 2 * Sc + Sc + c];
+      a.c_out[at] = pout[r * Sc + c];
+    }
+    // ---- wait for the cluster's new state; pull the peers' slices
+    cluster_wait();
+    if (t + 1 < T) pull4(cluster, h, gp, nr, Sc, j, C);
     __syncthreads();
   }
+  // no block leaves while a peer may still read its shared memory
+  cluster.sync();
 }
 
-__global__ void __launch_bounds__(kThreads) decoder_bwd_kernel(DecoderArgs a) {
+__global__ void __launch_bounds__(kThreads, 1)
+    decoder_bwd_kernel(const __grid_constant__ DecoderArgs a) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float sm[];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int B = a.B, L = a.L, M = a.M, D = a.D, S = a.S, S2 = 2 * a.S;
-  const Layout o = layout(L, M, D, S);
-  // carried gradients (dh, dw, dwa) live in h, w, wa
-  float *dh = sm + o.h, *dw = sm + o.w, *dwa = sm + o.wa;
-  float *sp = sm + o.sp, *conv = sm + o.conv, *dE = sm + o.e;
-  float *wnew = sm + o.wnew, *wan = sm + o.wan, *gm = sm + o.gm;
-  float *wgv = sm + o.wgv, *hp = sm + o.hp, *dhn = sm + o.dhn;
-  float *dwn = sm + o.dwn, *dwan = sm + o.dwan, *dca = sm + o.dca;
-  float *dga = sm + o.dga, *dhp = sm + o.dhp, *dsp = sm + o.dsp;
-  float *dcv = sm + o.dcv, *tmp = sm + o.tmp, *red = sm + o.red;
-  float *scratch = sm + o.scratch, *wsp = sm + o.part;
-  float *wdv = wsp + kWarps * M, *whd = wdv + kWarps * M;
-  const float* pre = a.pre + (size_t)b * L * M;
-  const float* att = a.att + (size_t)b * L * D;
-  float* dpre = a.dpre + (size_t)b * L * M;
-  float* datt = a.datt + (size_t)b * L * D;
-  for (int i = tid; i < S; i += kThreads) dh[i] = 0.f;
-  for (int l = tid; l < L; l += kThreads) dw[l] = 0.f;
-  for (int d = tid; d < D; d += kThreads) dwa[d] = 0.f;
-  for (int i = tid; i < 2 * kWarps * M; i += kThreads) wdv[i] = 0.f;
+  const int B = a.B, L = a.L, M = a.M, D = a.D, S = a.S;
+  const int C = a.cluster, j = (int)cluster.block_rank();
+  int b0, nr;
+  cluster_rows(B, a.clusters, blockIdx.x / C, b0, nr);
+  const Dims d = dims(C, cdiv(B, a.clusters), L, M, D, S);
+  const int R = d.R, rp = min(a.res_pre, R), ra = min(a.res_att, R);
+  const int rd = min(a.res_dpre, R);
+  const Layout o = layout(1, d, L, M, D, S, rp, ra, rd);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int Lt = d.Lt, Lq = d.Lq, L4 = d.L4, Sc = d.Sc, Sp = d.Sp;
+  const int Mc = d.Mc, Mp = d.Mp, Dc = d.Dc, Dp = d.Dp, M4 = d.M4;
+  const int l0 = j * Lt, nl = max(0, min(L - l0, Lt));
+  const int s0 = j * Sc, ns = max(0, min(S - s0, Sc));
+  const int m0 = j * Mc, nm = max(0, min(M - m0, Mc));
+  const int e0 = j * Dc, nd = max(0, min(D - e0, Dc));
+  const int gp = 3 * Sp;                     // g1 pitch: [dca | dga_u | dga_r]
+  float *hp = sm + o.hp, *wgv = sm + o.wgv, *g1 = sm + o.g1, *sp = sm + o.sp;
+  float *dwan = sm + o.dwan, *dspp = sm + o.dspp, *dsp = sm + o.dsp;
+  float *dcv = sm + o.dcv, *conv = sm + o.conv, *wn = sm + o.wn;
+  float *dwn = sm + o.dwn, *dE = sm + o.dE, *dh = sm + o.dh, *dhp = sm + o.dhp;
+  float *dw = sm + o.dw, *dwa = sm + o.dwa, *dcvw = sm + o.dcvw;
+  float *dspg = sm + o.dspg, *dvg = sm + o.dvg, *dhg = sm + o.dhg;
+  float *pout = sm + o.pout, *rs = sm + o.rs;
+  float *v = sm + o.vh, *hand = v + M4, *part = sm + o.part;
+  auto pre_row = [&](int r) -> const float* {
+    return r < rp ? sm + o.pre + r * Lt * d.Mt
+                  : a.pre + ((size_t)(b0 + r) * L + l0) * M;
+  };
+  auto att_row = [&](int r) -> const float* {
+    return r < ra ? sm + o.att + r * Lt * D
+                  : a.att + ((size_t)(b0 + r) * L + l0) * D;
+  };
+  auto dpre_row = [&](int r) -> float* {
+    return r < rd ? sm + o.dpre + r * Lt * d.Mt
+                  : a.dpre + ((size_t)(b0 + r) * L + l0) * M;
+  };
+
+  for (int i = tid; i < o.total; i += kThreads) sm[i] = 0.f;
+  for (int i = tid; i < nr * nl * M; i += kThreads) {
+    const int r = i / (nl * M);
+    if (r >= rd) a.dpre[((size_t)(b0 + r) * L + l0) * M + i % (nl * M)] = 0.f;
+  }
   __syncthreads();
+  for (int m = tid; m < M; m += kThreads) {
+    v[m] = a.v[m];
+    hand[m] = a.hand[m];
+  }
+  for (int i = tid; i < min(rp, nr) * nl * M; i += kThreads) {
+    const int r = i / (nl * M), l = (i / M) % nl, m = i % M;
+    sm[o.pre + (r * Lt + l) * d.Mt + m] =
+        a.pre[((size_t)(b0 + r) * L + l0 + l) * M + m];
+  }
+  for (int i = tid; i < min(ra, nr) * nl * D; i += kThreads) {
+    const int r = i / (nl * D), l = (i / D) % nl, c = i % D;
+    sm[o.att + (r * Lt + l) * D + c] =
+        a.att[((size_t)(b0 + r) * L + l0 + l) * D + c];
+  }
+  cluster.sync();
 
   for (int t = a.T - 1; t >= 0; --t) {
-    const size_t row = (size_t)t * B + b, prev = row - B;
-    const float m = a.mask[row];
-    // ---- step inputs: previous state and weights, cotangents split by mask
-    for (int i = tid; i < S; i += kThreads) {
-      hp[i] = t > 0 ? a.h_out[prev * S + i] : a.h0[(size_t)b * S + i];
-      const float g = dh[i] + a.dh[row * S + i];
-      dhn[i] = g * m;
-      dh[i] = g * (1.f - m);
-    }
-    for (int l = tid; l < L; l += kThreads) {
-      const float wp = t > 0 ? a.w_out[prev * L + l] : a.w0[(size_t)b * L + l];
-      wgv[l] = wp;
-      wnew[l] = a.w_out[row * L + l];
-      const float g = dw[l] + a.dw[row * L + l];
-      dwn[l] = g * m;
-      dw[l] = g * (1.f - m);
-    }
-    for (int d = tid; d < D; d += kThreads) {
-      wan[d] = a.wa_out[row * D + d];
-      const float g = dwa[d] + a.dwa[row * D + d];
-      dwan[d] = g * m;
-      dwa[d] = g * (1.f - m);
-    }
-    __syncthreads();
-    // ---- GRU backward
-    for (int i = tid; i < S; i += kThreads) {
-      const float u = a.u_out[row * S + i], c = a.c_out[row * S + i];
-      const float du = dhn[i] * (c - hp[i]);
-      const float dcand = dhn[i] * u;
-      dhp[i] = dhn[i] * (1.f - u);
-      dca[i] = dcand * (1.f - c * c);
-      a.dfx[row * S + i] = dca[i];
-      dga[i] = du * u * (1.f - u);
-    }
-    __syncthreads();
-    vecmat(dca, a.wss_t, S, S, S, tmp, scratch, false);   // dca @ wss^T
-    for (int i = tid; i < S; i += kThreads) {
-      const float r = a.r_out[row * S + i];
-      dhp[i] = dhp[i] + tmp[i] * r;
-      dga[S + i] = tmp[i] * hp[i] * r * (1.f - r);
-    }
-    __syncthreads();
-    for (int i = tid; i < S2; i += kThreads) a.dfg[row * S2 + i] = dga[i];
-    vecmat(dga, a.wsg_t, S, S2, S, dhp, scratch, true);   // += dga @ wsg^T
-    vecmat(dca, a.dxm_t, D, S, D, tmp, scratch, false);
-    vecmat(dga, a.dgm_t, D, S2, D, tmp, scratch, true);
-    for (int d = tid; d < D; d += kThreads) dwan[d] = dwan[d] + tmp[d];
-    __syncthreads();
-    // ---- weighted-average backward: one warp per frame, lanes over D
-    for (int l = warp; l < L; l += kWarps) {
-      const float* al = att + (size_t)l * D;
-      float* dal = datt + (size_t)l * D;
-      const float wl = wnew[l];
-      float acc = 0.f;
-      for (int d = lane; d < D; d += 32) {
-        const float g = dwan[d];
-        acc = fmaf(__ldg(al + d), g, acc);
-        dal[d] += wl * g;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0) dwn[l] = dwn[l] + acc;
-    }
-    __syncthreads();
-    // ---- the attention step recomputed from (h_prev, w_prev)
+    const size_t row0 = (size_t)t * B + b0, prev = row0 - B;
     const float gb = a.bounds[2 * t], ge = a.bounds[2 * t + 1];
-    for (int l = tid; l < L; l += kThreads) {
-      const float pos = (float)l;
-      gm[l] = pos >= gb && pos < ge ? 1.f : 0.f;
-      wgv[l] = wgv[l] * gm[l];
-      a.wg[row * L + l] = wgv[l];
+    auto inside = [&](int l) { return (float)l >= gb && (float)l < ge; };
+    // ---- step inputs: previous state and weights, this step's weights
+    for (int i = tid; i < nr * S; i += kThreads) {
+      const int r = i / S, k = i % S;
+      hp[r * Sp + k] = t > 0 ? a.h_out[(prev + r) * S + k]
+                             : a.h0[(size_t)(b0 + r) * S + k];
     }
+    for (int i = tid; i < nr * L; i += kThreads) {
+      const int r = i / L, l = i % L;
+      const float wp = t > 0 ? a.w_out[(prev + r) * L + l]
+                             : a.w0[(size_t)(b0 + r) * L + l];
+      wgv[r * L4 + l] = inside(l) ? wp : 0.f;
+    }
+    for (int i = tid; i < nr * nl; i += kThreads) {
+      const int r = i / nl, l = i % nl;
+      wn[r * Lq + l] = a.w_out[(row0 + r) * L + l0 + l];
+    }
+    for (int r = tid; r < nr; r += kThreads) rs[r * 8 + 2] = a.mask[row0 + r];
     __syncthreads();
-    vecmat(hp, a.st, M, S, M, sp, scratch, false);
-    vecmat(wgv, a.toep, L, L, L, conv, scratch, false);
-    // ---- softmax backward (the max shift cancels)
-    float srow = 0.f;
-    for (int l = tid; l < L; l += kThreads) srow += dwn[l] * wnew[l];
-    srow = block_reduce(srow, red, kSum);
-    for (int l = tid; l < L; l += kThreads) dE[l] = wnew[l] * (dwn[l] - srow);
-    for (int i = tid; i < kWarps * M; i += kThreads) wsp[i] = 0.f;
+    // ---- GRU backward of own units
+    for (int i = tid; i < nr * ns; i += kThreads) {
+      const int r = i / ns, c = i % ns;
+      const size_t at = (row0 + r) * S + s0 + c;
+      const float m = rs[r * 8 + 2];
+      const float g = dh[r * Sc + c] + a.dh[at];
+      const float dhn = g * m;
+      dh[r * Sc + c] = g * (1.f - m);
+      const float u = a.u_out[at], cc = a.c_out[at];
+      const float du = dhn * (cc - hp[r * Sp + s0 + c]);
+      const float dcand = dhn * u;
+      dhp[r * Sc + c] = dhn * (1.f - u);
+      const float dca = dcand * (1.f - cc * cc);
+      const float dgu = du * u * (1.f - u);
+      g1[r * gp + s0 + c] = dca;
+      g1[r * gp + Sp + s0 + c] = dgu;
+      a.dfx[at] = dca;
+      a.dfg[(row0 + r) * 2 * S + s0 + c] = dgu;
+    }
+    // the recomputed state's keys, own M slice
+    product(hp, Sp, nr, S, a.p_st + (size_t)j * S * Mc, Mc, part,
+            sp + j * Mc, Mp);
+    cluster_arrive();
+    cluster_wait();
+    pull4(cluster, g1, gp, nr, Sc, j, C);
+    pull4(cluster, g1 + Sp, gp, nr, Sc, j, C);
+    pull4(cluster, sp, Mp, nr, Mc, j, C);
     __syncthreads();
-    // ---- energies backward over the recomputed match tensor
-    for (int l = warp; l < L; l += kWarps) {
-      const float* pl = pre + (size_t)l * M;
-      float* dpl = dpre + (size_t)l * M;
-      const float el = dE[l], cl = conv[l];
-      float dc = 0.f;
-      for (int mm = lane; mm < M; mm += 32) {
-        const float hand = __ldg(a.hand + mm);
-        const float mt = tanhf(__ldg(pl + mm) + sp[mm] + cl * hand);
-        const float dmt = el * __ldg(a.v + mm) * (1.f - mt * mt);
-        dpl[mm] += dmt;
-        wsp[warp * M + mm] += dmt;
-        wdv[warp * M + mm] += mt * el;
-        whd[warp * M + mm] += dmt * cl;
-        dc += dmt * hand;
+    // ---- reset path: dca @ wss^T; own slice of the reset gradients
+    product(g1, gp, nr, S, a.p_ssT + (size_t)j * S * Sc, Sc, part, pout, Sc);
+    for (int i = tid; i < nr * ns; i += kThreads) {
+      const int r = i / ns, c = i % ns;
+      const float tmp = pout[r * Sc + c];
+      const float rr = a.r_out[(row0 + r) * S + s0 + c];
+      dhp[r * Sc + c] = dhp[r * Sc + c] + tmp * rr;
+      const float dgr = tmp * hp[r * Sp + s0 + c] * rr * (1.f - rr);
+      g1[r * gp + 2 * Sp + s0 + c] = dgr;
+      a.dfg[(row0 + r) * 2 * S + S + s0 + c] = dgr;
+    }
+    cluster_arrive();
+    // the recomputed convolution of own frames (needs no gradient)
+    product(wgv, L4, nr, L, a.p_toep + (size_t)j * L * Lq, Lq, part, conv,
+            Lq);
+    cluster_wait();
+    pull4(cluster, g1 + 2 * Sp, gp, nr, Sc, j, C);
+    __syncthreads();
+    // ---- gate path and the distribute products' backward
+    product(g1 + Sp, gp, nr, 2 * Sp, a.p_sgT + (size_t)j * 2 * Sp * Sc, Sc,
+            part, pout, Sc);
+    for (int i = tid; i < nr * ns; i += kThreads) {
+      const int r = i / ns, c = i % ns;
+      dhp[r * Sc + c] = dhp[r * Sc + c] + pout[r * Sc + c];
+    }
+    product(g1, gp, nr, 3 * Sp, a.p_dxgT + (size_t)j * 3 * Sp * Dc, Dc, part,
+            pout, Dc);
+    for (int i = tid; i < nr * nd; i += kThreads) {
+      const int r = i / nd, c = i % nd;
+      const size_t at = (row0 + r) * D + e0 + c;
+      const float m = rs[r * 8 + 2];
+      const float g = dwa[r * Dc + c] + a.dwa[at];
+      const float dn = g * m + pout[r * Dc + c];
+      dwa[r * Dc + c] = g * (1.f - m);
+      dwan[r * Dp + e0 + c] = dn;
+      a.dwan[at] = dn;
+    }
+    cluster_arrive();
+    cluster_wait();
+    pull4(cluster, dwan, Dp, nr, Dc, j, C);
+    __syncthreads();
+    // ---- weighted-average backward of own frames: a warp a frame
+    for (int item = warp; item < nr * nl; item += kWarps) {
+      const int r = item / nl, l = item % nl;
+      const float* al = att_row(r) + (size_t)l * D;
+      const float* gr = dwan + r * Dp;
+      float acc = lane_fold<16>(al, D, [&](int c, float x, float s) {
+        return fmaf(x, gr[c], s);
+      });
+      acc = warp_reduce(acc, kSum);
+      if (lane == 0) {
+        const float m = rs[r * 8 + 2];
+        const float g = dw[r * Lq + l] + a.dw[(row0 + r) * L + l0 + l];
+        dwn[r * Lq + l] = g * m + acc;
+        dw[r * Lq + l] = g * (1.f - m);
       }
+    }
+    __syncthreads();
+    if (warp < nr) {
+      float s = 0.f;
+      for (int l = lane; l < nl; l += 32)
+        s += dwn[warp * Lq + l] * wn[warp * Lq + l];
+      s = warp_reduce(s, kSum);
+      if (lane == 0) rs[warp * 8] = s;
+    }
+    cluster_arrive();
+    cluster_wait();
+    // ---- softmax backward (the max shift cancels)
+    if (warp < nr) {
+      const float srow = reduce_peers(cluster, rs + warp * 8, C, kSum, 0.f);
+      for (int l = lane; l < nl; l += 32) {
+        const int i = warp * Lq + l;
+        dE[i] = wn[i] * (dwn[i] - srow);
+        a.wg[(row0 + warp) * L + l0 + l] = wgv[warp * L4 + l0 + l];
+      }
+    }
+    __syncthreads();
+    // ---- energies backward over the recomputed match: warp (c, g) takes
+    // the 32 columns of M chunk c over frame group g, lanes over columns
+    if (warp / min(d.Mch, kWarps) < d.groups) {
+      const int nch = min(d.Mch, kWarps), g = warp / nch;
+      for (int r = 0; r < nr; ++r) {
+        const float* pr = pre_row(r);
+        float* dpr = dpre_row(r);
+        const int pp = r < rp ? d.Mt : M, dp = r < rd ? d.Mt : M;
+        const float* cr = conv + r * Lq;
+        const float* er = dE + r * Lq;
+        for (int c = warp % nch; c < d.Mch; c += nch) {
+          const int mm = c * 32 + lane;
+          const bool ok = mm < M;
+          const float spm = ok ? sp[r * Mp + mm] : 0.f;
+          const float vm = ok ? v[mm] : 0.f, hm = ok ? hand[mm] : 0.f;
+          float dsa = 0.f, dva = 0.f, dha = 0.f;
+          // kBatch frames' keys and dpre loaded before their uses
+          constexpr int kBatch = 8;
+          const int stride = kBatch * d.groups;
+          for (int lb = g; lb < nl; lb += stride) {
+            float pk[kBatch], dk[kBatch];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        dc += __shfl_xor_sync(0xffffffffu, dc, off);
-      if (lane == 0) dcv[l] = dc;
+            for (int k = 0; k < kBatch; ++k) {
+              const int l = lb + k * d.groups;
+              const bool in = ok && l < nl;
+              pk[k] = in ? pr[(size_t)l * pp + mm] : 0.f;
+              dk[k] = in ? dpr[(size_t)l * dp + mm] : 0.f;
+            }
+#pragma unroll
+            for (int k = 0; k < kBatch; ++k) {
+              const int l = lb + k * d.groups;
+              if (l >= nl) break;
+              const float cl = cr[l], el = er[l];
+              float mt = 0.f, dmt = 0.f;
+              if (ok) {
+                mt = tanhf(pk[k] + spm + cl * hm);
+                dmt = el * vm * (1.f - mt * mt);
+                dpr[(size_t)l * dp + mm] = dk[k] + dmt;
+              }
+              dsa += dmt;
+              dva += mt * el;
+              dha += dmt * cl;
+              const float dc = warp_reduce(dmt * hm, kSum);
+              if (lane == 0) dcvw[(c * R + r) * Lq + l] = dc;
+            }
+          }
+          if (ok) {
+            const int at = (g * R + r) * M4 + mm;
+            dspg[at] = dsa;
+            dvg[at] += dva;
+            dhg[at] += dha;
+          }
+        }
+      }
     }
     __syncthreads();
-    for (int mm = tid; mm < M; mm += kThreads) {
-      float s = wsp[mm];
-      for (int q = 1; q < kWarps; ++q) s += wsp[q * M + mm];
-      dsp[mm] = s;
-      a.dsp[row * M + mm] = s;
+    for (int i = tid; i < nr * nl; i += kThreads) {
+      const int r = i / nl, l = i % nl;
+      float s = 0.f;
+      for (int c = 0; c < d.Mch; ++c) s += dcvw[(c * R + r) * Lq + l];
+      dcv[r * L4 + l0 + l] = s;
+      a.dconv[(row0 + r) * L + l0 + l] = s;
     }
-    for (int l = tid; l < L; l += kThreads) a.dconv[row * L + l] = dcv[l];
+    for (int i = tid; i < nr * M; i += kThreads) {
+      const int r = i / M, m = i % M;
+      float s = dspg[r * M4 + m];
+      for (int g = 1; g < d.groups; ++g) s += dspg[(g * R + r) * M4 + m];
+      dspp[r * Mp + m] = s;
+    }
+    cluster_arrive();
+    cluster_wait();
+    for (int i = tid; i < nr * Mp / 4; i += kThreads) {
+      const int r = i / (Mp / 4), c = 4 * (i % (Mp / 4));
+      const float4 s = sum_peers4(cluster, dspp + r * Mp + c, C);
+      *reinterpret_cast<float4*>(dsp + r * Mp + c) = s;
+    }
+    pull1(cluster, dcv, L4, nr, Lt, L, j, C);
     __syncthreads();
+    for (int i = tid; i < nr * nm; i += kThreads) {
+      const int r = i / nm, c = i % nm;
+      a.dsp[(row0 + r) * M + m0 + c] = dsp[r * Mp + m0 + c];
+    }
     // ---- state and convolution backward; carry to the step before
-    vecmat(dsp, a.st_t, S, M, S, dhp, scratch, true);     // += dsp @ st^T
-    vecmat(dcv, a.toep_t, L, L, L, tmp, scratch, false);  // dconv @ toep^T
-    for (int l = tid; l < L; l += kThreads) dw[l] = tmp[l] * gm[l] + dw[l];
-    for (int i = tid; i < S; i += kThreads) dh[i] = dhp[i] + dh[i];
+    product(dsp, Mp, nr, M, a.p_stT + (size_t)j * M * Sc, Sc, part, pout, Sc);
+    for (int i = tid; i < nr * ns; i += kThreads) {
+      const int r = i / ns, c = i % ns;
+      dh[r * Sc + c] = (dhp[r * Sc + c] + pout[r * Sc + c]) + dh[r * Sc + c];
+    }
+    product(dcv, L4, nr, L, a.p_toepT + (size_t)j * L * Lq, Lq, part, pout,
+            Lq);
+    for (int i = tid; i < nr * nl; i += kThreads) {
+      const int r = i / nl, l = i % nl;
+      dw[r * Lq + l] = pout[r * Lq + l] * (inside(l0 + l) ? 1.f : 0.f)
+                       + dw[r * Lq + l];
+    }
     __syncthreads();
   }
-  for (int i = tid; i < S; i += kThreads) a.dh0[(size_t)b * S + i] = dh[i];
-  for (int d = tid; d < D; d += kThreads) a.dwa0[(size_t)b * D + d] = dwa[d];
-  for (int mm = tid; mm < M; mm += kThreads) {
-    float sv = 0.f, sh = 0.f;
-    for (int q = 0; q < kWarps; ++q) {
-      sv += wdv[q * M + mm];
-      sh += whd[q * M + mm];
+  // no block leaves while a peer may still read its shared memory
+  cluster.sync();
+  for (int i = tid; i < nr * ns; i += kThreads) {
+    const int r = i / ns, c = i % ns;
+    a.dh0[(size_t)(b0 + r) * S + s0 + c] = dh[r * Sc + c];
+  }
+  for (int i = tid; i < nr * nd; i += kThreads) {
+    const int r = i / nd, c = i % nd;
+    a.dwa0[(size_t)(b0 + r) * D + e0 + c] = dwa[r * Dc + c];
+  }
+  for (int i = tid; i < nr * M; i += kThreads) {
+    const int r = i / M, m = i % M;
+    float sv = dvg[r * M4 + m], sh = dhg[r * M4 + m];
+    for (int g = 1; g < d.groups; ++g) {
+      sv += dvg[(g * R + r) * M4 + m];
+      sh += dhg[(g * R + r) * M4 + m];
     }
-    a.dv[(size_t)b * M + mm] = sv;
-    a.dhand[(size_t)b * M + mm] = sh;
+    const size_t at = ((size_t)(b0 + r) * C + j) * M + m;
+    a.dv[at] = sv;
+    a.dhand[at] = sh;
+  }
+  for (int i = tid; i < min(rd, nr) * nl * M; i += kThreads) {
+    const int r = i / (nl * M), l = (i / M) % nl, m = i % M;
+    a.dpre[((size_t)(b0 + r) * L + l0 + l) * M + m] =
+        sm[o.dpre + (r * Lt + l) * d.Mt + m];
   }
 }
 
-// -1 when the launch is not covered (shared memory or co-residency), else
-// a CUDA error code (0: launched).
-int prepare(const void* kernel, const DecoderArgs* args, size_t* smem,
-            bool cooperative) {
-  const Layout o = layout(args->L, args->M, args->D, args->S);
-  *smem = (size_t)o.total * sizeof(float);
-  int dev = 0, max_smem = 0, sms = 0, per_sm = 0;
+const void* kernel_of(int kind) {
+  return kind == 0 ? (const void*)decoder_fwd_kernel
+                   : (const void*)decoder_bwd_kernel;
+}
+
+int smem_bytes(int kind, const DecoderArgs& a) {
+  const Dims d = dims(a.cluster, cdiv(a.B, a.clusters), a.L, a.M, a.D, a.S);
+  return layout(kind, d, a.L, a.M, a.D, a.S, min(a.res_pre, d.R),
+                min(a.res_att, d.R), kind == 1 ? min(a.res_dpre, d.R) : 0)
+             .total
+         * (int)sizeof(float);
+}
+
+cudaError_t set_attributes(const void* kernel, int cluster, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+int max_smem_optin(int* bytes) {
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(
-        &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (*smem > (size_t)max_smem) return -1;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)*smem);
-  if (err != cudaSuccess) return (int)err;
-  if (cooperative) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                         kThreads, *smem);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm * sms < args->B) return -1;
+        bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (int)err;
+}
+
+bool plan_valid(const DecoderArgs& a) {
+  return (a.cluster == 4 || a.cluster == 8 || a.cluster == 16)
+         && a.clusters >= 1 && a.clusters <= a.B
+         && cdiv(a.B, a.clusters) <= kMaxRows && a.res_pre >= 0
+         && a.res_att >= 0 && a.res_dpre >= 0;
+}
+
+// -1 when the plan is not covered (its layout exceeds a block's shared
+// memory, or, forward, its clusters cannot all be co-resident), else a CUDA
+// error code (0: launched).
+int launch(int kind, const DecoderArgs* args, cudaStream_t stream) {
+  if (!plan_valid(*args)) return -1;
+  const int smem = smem_bytes(kind, *args);
+  int max_smem = 0;
+  int err = max_smem_optin(&max_smem);
+  if (err != 0) return err;
+  if (smem > max_smem) return -1;
+  const void* kernel = kernel_of(kind);
+  cudaError_t e = set_attributes(kernel, args->cluster, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(args->clusters * args->cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = args->cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  // the forward's grid barrier needs every block resident at once
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kind == 0 ? 2 : 1;
+  void* params[] = {const_cast<DecoderArgs*>(args)};
+  e = cudaLaunchKernelExC(&cfg, kernel, params);
+  if (e == cudaErrorCooperativeLaunchTooLarge) {
+    cudaGetLastError();
+    return -1;
   }
-  return 0;
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The layout's dynamic shared memory in bytes (kind 0 forward, 1
+// backward) for the plan in *args (cluster, clusters, res_pre, res_att,
+// res_dpre).
+extern "C" int decoder_train_smem_bytes(int kind, const DecoderArgs* args) {
+  return smem_bytes(kind, *args);
+}
+
+// How many `cluster`-block clusters of the kernel (kind 0 forward, 1
+// backward) the current device holds at once at the most shared memory a
+// block may take, into *count; a CUDA error code.
+extern "C" int decoder_train_max_clusters(int kind, int cluster, int* count) {
+  int smem = 0;
+  int err = max_smem_optin(&smem);
+  if (err != 0) return err;
+  const void* kernel = kernel_of(kind);
+  cudaError_t e = set_attributes(kernel, cluster, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
+}
+
 extern "C" int decoder_train_fwd_f32(const DecoderArgs* args, void* stream) {
-  size_t smem = 0;
-  const int ready = prepare((const void*)decoder_fwd_kernel, args, &smem,
-                            true);
-  if (ready != 0) return ready;
-  DecoderArgs copy = *args;
-  void* params[] = {&copy};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)decoder_fwd_kernel, dim3(args->B), dim3(kThreads), params,
-      smem, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch(0, args, (cudaStream_t)stream);
 }
 
 extern "C" int decoder_train_bwd_f32(const DecoderArgs* args, void* stream) {
-  size_t smem = 0;
-  const int ready = prepare((const void*)decoder_bwd_kernel, args, &smem,
-                            false);
-  if (ready != 0) return ready;
-  decoder_bwd_kernel<<<args->B, kThreads, smem, (cudaStream_t)stream>>>(
-      *args);
-  return (int)cudaGetLastError();
+  return launch(1, args, (cudaStream_t)stream);
 }

@@ -18,9 +18,17 @@ average and the GRU transition), same arguments and outputs.
   one GRU layer): a forward kernel, then a reverse-time backward kernel
   that recomputes each step's (B, L, M) match tensor from the previous
   state and weights instead of storing it, then ``csrc/outer_sum.cu`` for
-  the weight gradients (whose two kernels count on
-  ``outer_sum.launches``).  Other variants
+  the weight gradients and for datt, one job a batch row (its two kernels
+  a call count on ``outer_sum.launches``).  Other variants
   raise ``NotImplementedError`` naming the variant.
+* Each kernel runs the launch plan of :func:`plan`, which mirrors the
+  kernels' own: thread-block clusters of 4, 8 or 16 blocks over as many
+  clusters as the card holds at once, the rows spread over them, block j
+  of a cluster owning a frame tile of the attention and a column slice of
+  every product (the weights packed per block by :func:`pack_forward` and
+  :func:`pack_backward`), and the tiles that stay in shared memory
+  (:func:`layout`).  A shape no plan covers raises ``NotImplementedError``
+  naming it.
 
 The window of the ``window_around_*`` priors spans the whole batch: its
 bounds are the min / max of every row's bounds, as in the JAX package's
@@ -39,7 +47,7 @@ import ctypes
 import torch
 
 from attention_lvcsr_torch import _build
-from attention_lvcsr_torch.ops.outer_sum import outer_sum
+from attention_lvcsr_torch.ops.outer_sum import MAX_JOBS, outer_sum
 
 NEG = -1e30
 launches = _build.LaunchCounter()   # forward + backward; outer_sum has its own
@@ -187,22 +195,255 @@ def decoder_scan_train_reference(fx, fg, mask, pre, attended, att_mask, h0,
 
 
 # --------------------------------------------------------------------------
-# the CUDA route
+# the CUDA route: the launch plan (a mirror of csrc/decoder_train.cu's)
 # --------------------------------------------------------------------------
+
+# csrc/decoder_train.cu's constants
+THREADS, WARPS, MAX_ROWS, ROW_CHUNK, MAX_SLICES = 512, 16, 16, 8, 32
+MAX_SMEM = 232448          # the opt-in shared memory of a block on sm_90
+CLUSTERS = (16, 8, 4)
+KINDS = ("forward", "backward")
+# the tiles a kind keeps on chip where they fit, in the order they are kept
+TILES = {"forward": ("att", "pre"), "backward": ("dpre", "att", "pre")}
+# the cost of a cluster's row apart from its share of the block's work
+# (the plan's score: R / C + R * ROW_COST), fitted to the kernels' times at
+# B=1, 32 and 64 with C = 4, 8 and 16 on an H100 (PERF.md section 6)
+ROW_COST = 1 / 8
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _up4(n):
+    return _cdiv(n, 4) * 4
+
+
+def dims(C, R, L, M, D, S):
+    """A plan's slices: block j of a ``C``-block cluster owns frames
+    ``[j*Lt, (j+1)*Lt)`` (``Lq`` padded to four) and columns ``[j*Xc,
+    (j+1)*Xc)`` of the S, M and D wide products (multiples of four; ``Xp =
+    C * Xc``); ``R`` rows a cluster at most."""
+    Lt = _cdiv(L, C)
+    Sc, Mc, Dc = (_up4(_cdiv(n, C)) for n in (S, M, D))
+    Mch = _cdiv(M, 32)
+    return dict(C=C, R=R, Lt=Lt, Lq=_up4(Lt), L4=_up4(L), Sc=Sc, Sp=C * Sc,
+                Mc=Mc, Mp=C * Mc, Dc=Dc, Dp=C * Dc, M4=_up4(M), Mt=M | 1,
+                Mch=Mch, groups=WARPS // min(Mch, WARPS))
+
+
+def slices(K, width):
+    """k slices of a product over K rows into ``width`` columns."""
+    return max(1, min(MAX_SLICES, THREADS // (width // 4), K))
+
+
+def products(kind, d, L, M, D, S):
+    """{name: (K, width)} of a kind's products, each block's packed slice
+    of a weight being (K, width)."""
+    if kind == "forward":
+        return {"toep": (L, d["Lq"]), "st": (S, d["Mc"]),
+                "gate": (d["Dp"] + d["Sp"], 2 * d["Sc"]),
+                "dx": (D, d["Sc"]), "ss": (S, d["Sc"])}
+    return {"st": (S, d["Mc"]), "toep": (L, d["Lq"]),
+            "ssT": (S, d["Sc"]), "sgT": (2 * d["Sp"], d["Sc"]),
+            "dxgT": (3 * d["Sp"], d["Dc"]), "stT": (M, d["Sc"]),
+            "toepT": (L, d["Lq"])}
+
+
+def layout(kind, C, R, L, M, D, S, res):
+    """The kernel's shared memory (``csrc/decoder_train.cu::layout``):
+    {buffer: (offset, floats)} in floats, every buffer on 16 bytes, and
+    the bytes of a block.  ``res``: {"pre", "att", "dpre"} rows whose tiles
+    stay in shared memory (dpre in the backward only)."""
+    d = dims(C, R, L, M, D, S)
+    Lq, L4, Sc, Sp, Mp, Dp = (d[k] for k in ("Lq", "L4", "Sc", "Sp", "Mp",
+                                             "Dp"))
+    if kind == "forward":
+        sizes = [("gin", R * (Dp + Sp)), ("w", R * L4), ("wgv", R * L4),
+                 ("rh", R * Sp), ("sp", R * Mp), ("wanp", R * Dp),
+                 ("wa", R * d["Dc"])] \
+            + [(n, R * Lq) for n in ("ek", "conv", "e", "un", "comb")] \
+            + [("xin", R * Sc), ("gate", R * 2 * Sc)]
+        pmax = max(Lq, d["Mc"], 2 * Sc)
+    else:
+        sizes = [("hp", R * Sp), ("wgv", R * L4), ("g1", R * 3 * Sp),
+                 ("sp", R * Mp), ("dwan", R * Dp), ("dspp", R * Mp),
+                 ("dsp", R * Mp), ("dcv", R * L4)] \
+            + [(n, R * Lq) for n in ("conv", "wn", "dwn", "dE")] \
+            + [("dh", R * Sc), ("dhp", R * Sc), ("dw", R * Lq),
+               ("dwa", R * d["Dc"]), ("dcvw", d["Mch"] * R * Lq)] \
+            + [(n, d["groups"] * R * d["M4"]) for n in ("dspg", "dvg", "dhg")]
+        pmax = max(Lq, d["Mc"], Sc, d["Dc"])
+    part = max(slices(K, w) * min(R, ROW_CHUNK) * w
+               for K, w in products(kind, d, L, M, D, S).values())
+    sizes += [("pout", R * pmax), ("rs", 8 * R), ("red", 2 * WARPS),
+              ("vh", 2 * d["M4"]), ("part", part)]
+    tiles = {"dpre": d["Lt"] * d["Mt"], "pre": d["Lt"] * d["Mt"],
+             "att": d["Lt"] * D}
+    for name in TILES[kind]:
+        if res.get(name, 0) > 0:
+            sizes.append((name, res[name] * tiles[name]))
+    out, at = {}, 0
+    for name, n in sizes:
+        out[name] = (at, n)
+        at += _up4(n)
+    return {"buffers": out, "floats": at, "smem_bytes": 4 * at, **d}
+
+
+def cluster_rows(B, clusters):
+    """[(first row, rows)] of each cluster: the B rows spread evenly, the
+    first ``B % clusters`` clusters one row more."""
+    q, rem = divmod(B, clusters)
+    return [(c * q + min(c, rem), q + (c < rem)) for c in range(clusters)]
+
+
+def residency(kind, C, R, L, M, D, S):
+    """{tile: rows kept in shared memory} of a plan: per tile in the kind's
+    order (TILES), as many of the R rows as fit beside the tiles before it,
+    or None when not even the vectors fit."""
+    res = {name: 0 for name in TILES[kind]}
+    if layout(kind, C, R, L, M, D, S, res)["smem_bytes"] > MAX_SMEM:
+        return None
+    for name in TILES[kind]:
+        while res[name] < R:
+            res[name] += 1
+            if layout(kind, C, R, L, M, D, S, res)["smem_bytes"] > MAX_SMEM:
+                res[name] -= 1
+                break
+    return res
+
+
+def plan(kind, B, L, M, D, S, active, cluster=None, clusters=None):
+    """The launch plan of a kind's kernel over B rows, given how many
+    clusters of each size the card holds at once (``active``: {size:
+    count}).  Per size: the rows spread over as many clusters as the card
+    holds (at most B), R = ceil(B / clusters) rows a cluster, and as many
+    rows as fit keeping their tiles in shared memory (``residency``).  The
+    size with the least time a step wins: R / C rows of work a block plus
+    R * ROW_COST for the exchanges and reductions of each row; on a tie
+    the one with fewer tile bytes streamed from L2 a step, then the
+    larger.  ``cluster`` and ``clusters`` force a size and a number of
+    clusters (a timing tool's choice).  Raises NotImplementedError naming
+    the shape when no size fits."""
+    options = []
+    for C in (CLUSTERS if cluster is None else (cluster,)):
+        count = active.get(C, 0) if clusters is None else clusters
+        n = min(count, B)
+        if n <= 0 or (clusters is not None and clusters > active.get(C, 0)):
+            continue
+        R = _cdiv(B, n)
+        if R > MAX_ROWS:
+            continue
+        res = residency(kind, C, R, L, M, D, S)
+        if res is None:
+            continue
+        streamed = sum((R - res[name]) * size for name, size in
+                       (("pre", M), ("att", D), ("dpre", 2 * M))
+                       if name in res)
+        options.append(((R / C + R * ROW_COST, streamed / C, -C),
+                        dict(cluster=C, clusters=n, rows=R, blocks=n * C,
+                             **{f"res_{k}": v for k, v in res.items()})))
+    if not options:
+        raise NotImplementedError(
+            f"decoder_scan_train: no {kind} launch plan covers a batch of "
+            f"{B} rows at L={L}, M={M}, D={D}, S={S} (clusters of "
+            f"{'/'.join(map(str, CLUSTERS))} blocks, the card holding "
+            f"{active} at once, at most {MAX_ROWS} rows a cluster, "
+            f"{MAX_SMEM} bytes of shared memory a block)")
+    best = min(options, key=lambda o: o[0])[1]
+    best["smem_bytes"] = layout(
+        kind, best["cluster"], best["rows"], L, M, D, S,
+        {k: best[f"res_{k}"] for k in TILES[kind]})["smem_bytes"]
+    return best
+
+
+# --------------------------------------------------------------------------
+# the weights' column slices, packed for the kernels
+# --------------------------------------------------------------------------
+
+def _slice_columns(N, chunk, C, width):
+    """Source column of each (block, column) of a slice ``chunk`` wide
+    padded to ``width``, -1 past N: (C * width,)."""
+    j = torch.arange(C)[:, None]
+    c = torch.arange(width)[None, :]
+    col = j * chunk + c
+    return torch.where((c < chunk) & (col < N), col, -1).reshape(-1)
+
+
+def _segments(parts):
+    """Source rows of [(first row, rows, padded rows)]: -1 for padding."""
+    out = []
+    for first, n, padded in parts:
+        out += list(range(first, first + n)) + [-1] * (padded - n)
+    return torch.tensor(out)
+
+
+def pack(w, rows, cols, C):
+    """``w``'s rows ``rows`` and columns ``cols`` (-1: zero) as a (C, K,
+    width) tensor, block j's slice k-major: the layout the kernels read."""
+    ext = torch.nn.functional.pad(w, (0, 1, 0, 1))     # a zero row, column
+    K, width = rows.numel(), cols.numel() // C
+    r = torch.where(rows < 0, w.shape[0], rows).to(w.device)
+    c = torch.where(cols < 0, w.shape[1], cols).to(w.device)
+    return ext[r][:, c].reshape(K, C, width).permute(1, 0, 2).contiguous()
+
+
+def pack_forward(d, toep, st, wss, wsg, dxm, dgm):
+    """The forward kernel's packed weights for the slices ``d``."""
+    C, S, L = d["C"], wss.shape[0], toep.shape[0]
+    M, D = st.shape[1], dxm.shape[0]
+    Sc = d["Sc"]
+    s_cols = _slice_columns(S, Sc, C, Sc)
+    gate_cols = torch.cat([s_cols.reshape(C, Sc),
+                           torch.where(s_cols >= 0, s_cols + S, -1)
+                           .reshape(C, Sc)], dim=1).reshape(-1)
+    ident = lambda n: torch.arange(n)
+    return {
+        "p_toep": pack(toep, ident(L), _slice_columns(L, d["Lt"], C, d["Lq"]),
+                       C),
+        "p_st": pack(st, ident(S), _slice_columns(M, d["Mc"], C, d["Mc"]), C),
+        "p_gate": pack(torch.cat([dgm, wsg]),
+                       _segments([(0, D, d["Dp"]), (D, S, d["Sp"])]),
+                       gate_cols, C),
+        "p_dx": pack(dxm, ident(D), s_cols, C),
+        "p_ss": pack(wss, ident(S), s_cols, C)}
+
+
+def pack_backward(d, toep, st, wss, wsg, dxm, dgm):
+    """The backward kernel's packed weights (transposes included)."""
+    C, S, L = d["C"], wss.shape[0], toep.shape[0]
+    M, D = st.shape[1], dxm.shape[0]
+    Sc, Sp = d["Sc"], d["Sp"]
+    s_cols = _slice_columns(S, Sc, C, Sc)
+    l_cols = _slice_columns(L, d["Lt"], C, d["Lq"])
+    ident = lambda n: torch.arange(n)
+    return {
+        "p_st": pack(st, ident(S), _slice_columns(M, d["Mc"], C, d["Mc"]), C),
+        "p_toep": pack(toep, ident(L), l_cols, C),
+        "p_ssT": pack(wss.t(), ident(S), s_cols, C),
+        "p_sgT": pack(wsg.t(), _segments([(0, S, Sp), (S, S, Sp)]), s_cols,
+                      C),
+        "p_dxgT": pack(torch.cat([dxm.t(), dgm.t()]),
+                       _segments([(0, S, Sp), (S, S, Sp), (2 * S, S, Sp)]),
+                       _slice_columns(D, d["Dc"], C, d["Dc"]), C),
+        "p_stT": pack(st.t(), ident(M), s_cols, C),
+        "p_toepT": pack(toep.t(), ident(L), l_cols, C)}
+
 
 class _Args(ctypes.Structure):
     """Mirror of ``struct DecoderArgs`` in csrc/decoder_train.cu."""
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
             "fx", "fg", "mask", "step0", "pre", "att", "amask", "h0", "w0",
-            "wa0", "toep", "st", "hand", "v", "wss", "wsg", "dxm", "dgm",
+            "wa0", "hand", "v", "p_toep", "p_st", "p_gate", "p_dx", "p_ss",
+            "p_ssT", "p_sgT", "p_dxgT", "p_stT", "p_toepT",
             "h_out", "w_out", "wa_out", "e_out", "u_out", "r_out", "c_out",
             "bounds", "exch", "barrier",
-            "dh", "dw", "dwa", "dfx", "dfg", "dh0", "dwa0", "dpre", "datt",
-            "dsp", "wg", "dconv", "dhand", "dv", "wss_t", "wsg_t", "dxm_t",
-            "dgm_t", "st_t", "toep_t")]
+            "dh", "dw", "dwa", "dfx", "dfg", "dh0", "dwa0", "dpre", "dsp",
+            "wg", "dconv", "dwan", "dhand", "dv")]
         + [(name, ctypes.c_int) for name in (
-            "T", "B", "L", "M", "D", "S", "prior_median")]
+            "T", "B", "L", "M", "D", "S", "prior_median", "cluster",
+            "clusters", "res_pre", "res_att", "res_dpre")]
         + [(name, ctypes.c_float) for name in (
             "before", "after", "initial_begin", "initial_end", "min_speed",
             "max_speed")])
@@ -236,6 +477,37 @@ def _check(name, t, shape, device, dtype=torch.float32):
                          f"expected {device}")
 
 
+_active = {}
+
+
+def max_active_clusters(kind, device):
+    """{cluster size: clusters of the kind's kernel the device holds at
+    once} (``cudaOccupancyMaxActiveClusters`` at a block's most shared
+    memory), queried once per device."""
+    key = (device.index, kind)
+    if key not in _active:
+        lib = _build.load().lib
+        lib.decoder_train_max_clusters.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.decoder_train_max_clusters.restype = ctypes.c_int
+        active = {}
+        with torch.cuda.device(device):
+            for size in CLUSTERS:
+                count = ctypes.c_int(0)
+                _build.check(lib.decoder_train_max_clusters(
+                    KINDS.index(kind), size, ctypes.byref(count)),
+                    "decoder_train_max_clusters")
+                active[size] = count.value
+        _active[key] = active
+    return _active[key]
+
+
+def launch_plan(kind, B, L, M, D, S, device, **force):
+    """The plan a launch of the kind's kernel takes on ``device``."""
+    return plan(kind, B, L, M, D, S, max_active_clusters(kind, device),
+                **force)
+
+
 def _launch(name, args, stream_of):
     lib = _build.load().lib
     fn = getattr(lib, name)
@@ -246,14 +518,23 @@ def _launch(name, args, stream_of):
     if status == -1:
         raise NotImplementedError(
             f"decoder_scan_train: a batch of {args.B} rows at L={args.L}, "
-            f"M={args.M}, D={args.D}, S={args.S} does not fit one "
-            f"co-resident wave of blocks (one block per row), or its "
-            f"buffers exceed a block's shared memory")
+            f"M={args.M}, D={args.D}, S={args.S} does not fit the plan of "
+            f"{args.clusters} co-resident clusters of {args.cluster} blocks "
+            f"in a block's shared memory")
     _build.check(status, name)
 
 
 def _ptr(t):
     return t.data_ptr() if t is not None else None
+
+
+_PRIOR = ("before", "after", "initial_begin", "initial_end", "min_speed",
+          "max_speed")
+
+
+def _plan_args(kind, B, L, M, D, S, device):
+    p = launch_plan(kind, B, L, M, D, S, device)
+    return p, dims(p["cluster"], p["rows"], L, M, D, S)
 
 
 class _DecoderScanTrain(torch.autograd.Function):
@@ -269,21 +550,25 @@ class _DecoderScanTrain(torch.autograd.Function):
                     u_out=new(T, B, S), r_out=new(T, B, S),
                     c_out=new(T, B, S), bounds=new(max(T, 1), 2),
                     exch=new(2, 2 * B))
-        barrier = torch.zeros(2, dtype=torch.int32, device=fx.device)
         ins = dict(fx=fx, fg=fg, mask=mask, step0=step0, pre=pre, att=att,
-                   amask=amask, h0=h0, w0=w0, wa0=wa0, toep=toep, st=st,
-                   hand=hand, v=v, wss=wss, wsg=wsg, dxm=dxm, dgm=dgm)
-        args = _Args(**{k: _ptr(t) for k, t in {**ins, **outs}.items()},
-                     barrier=barrier.data_ptr(), T=T, B=B, L=L, M=M, D=D,
-                     S=S, prior_median=int(cfg["prior"] != "expanding"),
-                     **{k: cfg[k] for k in (
-                         "before", "after", "initial_begin", "initial_end",
-                         "min_speed", "max_speed")})
+                   amask=amask, h0=h0, w0=w0, wa0=wa0, hand=hand, v=v)
         if T and B:
+            p, d = _plan_args("forward", B, L, M, D, S, fx.device)
+            packed = pack_forward(d, toep, st, wss, wsg, dxm, dgm)
+            barrier = torch.zeros(2, dtype=torch.int32, device=fx.device)
+            args = _Args(**{k: _ptr(t) for k, t in
+                            {**ins, **outs, **packed}.items()},
+                         barrier=barrier.data_ptr(), T=T, B=B, L=L, M=M, D=D,
+                         S=S, prior_median=int(cfg["prior"] != "expanding"),
+                         cluster=p["cluster"], clusters=p["clusters"],
+                         res_pre=p["res_pre"], res_att=p["res_att"],
+                         **{k: cfg[k] for k in _PRIOR})
             _launch("decoder_train_fwd_f32", args, fx)
             launches.count += 1
         ctx.cfg = cfg
-        ctx.save_for_backward(*ins.values(), *outs.values())
+        ctx.save_for_backward(fx, fg, mask, step0, pre, att, amask, h0, w0,
+                              wa0, toep, st, hand, v, wss, wsg, dxm, dgm,
+                              *outs.values())
         return (outs["h_out"], outs["w_out"], outs["wa_out"], outs["e_out"])
 
     @staticmethod
@@ -301,32 +586,34 @@ class _DecoderScanTrain(torch.autograd.Function):
         cot = lambda g, *s: g.contiguous() if g is not None else zeros(*s)
         dh, dw, dwa = cot(dh, T, B, S), cot(dw, T, B, L), cot(dwa, T, B, D)
         g = dict(dfx=new(T, B, S), dfg=new(T, B, 2 * S), dh0=new(B, S),
-                 dwa0=new(B, D), dpre=zeros(B, L, M), datt=zeros(B, L, D),
-                 dsp=new(T, B, M), wg=new(T, B, L), dconv=new(T, B, L),
-                 dhand=new(B, M), dv=new(B, M))
-        ins = dict(fx=fx, fg=fg, mask=mask, step0=step0, pre=pre, att=att,
-                   amask=amask, h0=h0, w0=w0, wa0=wa0, toep=toep, st=st,
-                   hand=hand, v=v, wss=wss, wsg=wsg, dxm=dxm, dgm=dgm,
-                   h_out=h_out, w_out=w_out, wa_out=wa_out, e_out=e_out,
-                   u_out=u_out, r_out=r_out, c_out=c_out, bounds=bounds,
-                   dh=dh, dw=dw, dwa=dwa,
-                   **{f"{k}_t": w.t().contiguous() for k, w in (
-                       ("wss", wss), ("wsg", wsg), ("dxm", dxm),
-                       ("dgm", dgm), ("st", st), ("toep", toep))})
-        args = _Args(**{k: _ptr(t) for k, t in {**ins, **g}.items()},
-                     T=T, B=B, L=L, M=M, D=D, S=S,
-                     prior_median=int(cfg["prior"] != "expanding"),
-                     **{k: cfg[k] for k in (
-                         "before", "after", "initial_begin", "initial_end",
-                         "min_speed", "max_speed")})
+                 dwa0=new(B, D), dpre=new(B, L, M), dsp=new(T, B, M),
+                 wg=new(T, B, L), dconv=new(T, B, L), dwan=new(T, B, D))
         w_grads = dict(dtoep=zeros(L, L), dst=zeros(S, M), dwss=zeros(S, S),
                        dwsg=zeros(S, 2 * S), ddx=zeros(D, S),
-                       ddg=zeros(D, 2 * S), dhand=zeros(1, M), dv=zeros(1, M))
+                       ddg=zeros(D, 2 * S), dhand=zeros(1, M), dv=zeros(1, M),
+                       datt=zeros(B, L, D))
         if T and B:
+            p, d = _plan_args("backward", B, L, M, D, S, fx.device)
+            C = p["cluster"]
+            g.update(dhand=new(B * C, M), dv=new(B * C, M))
+            packed = pack_backward(d, toep, st, wss, wsg, dxm, dgm)
+            ins = dict(fx=fx, fg=fg, mask=mask, step0=step0, pre=pre, att=att,
+                       amask=amask, h0=h0, w0=w0, wa0=wa0, hand=hand, v=v,
+                       h_out=h_out, w_out=w_out, wa_out=wa_out, e_out=e_out,
+                       u_out=u_out, r_out=r_out, c_out=c_out, bounds=bounds,
+                       dh=dh, dw=dw, dwa=dwa)
+            args = _Args(**{k: _ptr(t) for k, t in
+                            {**ins, **g, **packed}.items()},
+                         T=T, B=B, L=L, M=M, D=D, S=S,
+                         prior_median=int(cfg["prior"] != "expanding"),
+                         cluster=C, clusters=p["clusters"],
+                         res_pre=p["res_pre"], res_att=p["res_att"],
+                         res_dpre=p["res_dpre"],
+                         **{k: cfg[k] for k in _PRIOR})
             _launch("decoder_train_bwd_f32", args, fx)
             launches.count += 1
             h_prev = torch.cat([h0[None], h_out[:-1]])
-            ones = fx.new_ones(B, 1)      # the rows' dhand, dv summed over B
+            ones = fx.new_ones(B * C, 1)  # the (row, block) dhand, dv sums
             outer_sum([
                 (g["wg"], None, g["dconv"], w_grads["dtoep"]),
                 (h_prev, None, g["dsp"], w_grads["dst"]),
@@ -336,14 +623,19 @@ class _DecoderScanTrain(torch.autograd.Function):
                 (wa_out, None, g["dfg"], w_grads["ddg"]),
                 (ones, None, g["dhand"], w_grads["dhand"]),
                 (ones, None, g["dv"], w_grads["dv"])], fx)
+            # datt[b] = sum_t w_t[b]^T dwan_t[b]: one job a batch row
+            for b0 in range(0, B, MAX_JOBS):
+                outer_sum([(w_out[:, b], None, g["dwan"][:, b],
+                            w_grads["datt"][b])
+                           for b in range(b0, min(B, b0 + MAX_JOBS))], fx)
         else:
-            for k in ("dfx", "dfg", "dh0", "dwa0"):
+            for k in ("dfx", "dfg", "dh0", "dwa0", "dpre"):
                 g[k].zero_()
-        return (None, g["dfx"], g["dfg"], None, None, g["dpre"], g["datt"],
-                None, g["dh0"], None, g["dwa0"], w_grads["dtoep"],
-                w_grads["dst"], w_grads["dhand"], w_grads["dv"].view(M),
-                w_grads["dwss"], w_grads["dwsg"], w_grads["ddx"],
-                w_grads["ddg"])
+        return (None, g["dfx"], g["dfg"], None, None, g["dpre"],
+                w_grads["datt"], None, g["dh0"], None, g["dwa0"],
+                w_grads["dtoep"], w_grads["dst"], w_grads["dhand"],
+                w_grads["dv"].view(M), w_grads["dwss"], w_grads["dwsg"],
+                w_grads["ddx"], w_grads["ddg"])
 
 
 def decoder_scan_train(fx, fg, mask, pre, attended, att_mask, h0, w0, wa0,

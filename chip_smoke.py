@@ -63,6 +63,10 @@ trains it with a 4x250 BiLSTM encoder.  Phases, each fatal on failure:
     201 taps), both priors, ragged label and frame masks: outputs and
     every gradient within 1e-4 of their largest value;
     in both phases a second call's gradients equal the first's bit for bit;
+    the kernels' C shared-memory layout against its Python mirror, their
+    launch plans at B=32 and 64 (clusters, blocks, rows a cluster, rows
+    with resident tiles), and each kernel's time alone beside the forward
+    and the autograd backward, at B=32 and B=64;
 13. the flagship training step: five steps of ``make_train_step`` through
     ``run_training`` (B=32, 800 frames, 100 labels, wsj_paper.yaml's clip
     100, adadelta 0.95/1e-8, max_norm 1.0) on the kernel route and on the
@@ -1124,22 +1128,111 @@ def decoder_operands(t, dev, rng, T=100, B=32, L=200, M=250, D=500, S=250,
     return ops, fixed, cots
 
 
+@contextlib.contextmanager
+def timed_launches(module, repeats, times):
+    """Inside the block, every launch through ``module._launch`` runs
+    ``repeats`` more times between CUDA events, on the same operands, and
+    ``times[name]`` gets its mean device time: a kernel's time alone (the
+    launch counters count the wrapper's calls, not these)."""
+    import torch
+    launch = module._launch
+
+    def timed(name, args, stream_of):
+        launch(name, args, stream_of)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(repeats):
+            launch(name, args, stream_of)
+        end.record()
+        torch.cuda.synchronize()
+        times[name] = start.elapsed_time(end) / repeats
+
+    module._launch = timed
+    try:
+        yield times
+    finally:
+        module._launch = launch
+
+
+def decoder_plans(dev, dims):
+    """Phase 12, first: the two kernels' launch plans at B=32 and 64 (the
+    clusters the card holds at once, the clusters, rows a cluster, rows
+    whose tiles stay in shared memory) and the C layout against its Python
+    mirror over a spread of shapes and plans."""
+    import ctypes
+    from attention_lvcsr_torch import _build
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    lib = _build.load().lib
+    lib.decoder_train_smem_bytes.argtypes = [ctypes.c_int,
+                                             ctypes.POINTER(dt._Args)]
+    lib.decoder_train_smem_bytes.restype = ctypes.c_int
+    checked = 0
+    for kind in dt.KINDS:
+        for B, L, M, D, S in ((32, 200, 250, 500, 250), (64, 200, 250, 500,
+                                                         250),
+                              (3, 199, 33, 17, 33), (132, 10, 7, 9, 5)):
+            for C in dt.CLUSTERS:
+                for n in {1, min(B, 7)}:
+                    R = -(-B // n)
+                    for res in ((0, 0, 0), (R, R, R), (1, 0, R), (0, R, 1),
+                                (R // 2, 1, 0)):
+                        res = dict(zip(("pre", "att", "dpre"), res))
+                        args = dt._Args(B=B, L=L, M=M, D=D, S=S, cluster=C,
+                                        clusters=n, **{f"res_{k}": v for k, v
+                                                       in res.items()})
+                        got = lib.decoder_train_smem_bytes(
+                            dt.KINDS.index(kind), ctypes.byref(args))
+                        if kind == "forward":
+                            res["dpre"] = 0
+                        want = dt.layout(kind, C, R, L, M, D, S,
+                                         res)["smem_bytes"]
+                        if got != want:
+                            fail(f"decoder_scan_train: the C {kind} layout "
+                                 f"of B={B} L={L} M={M} D={D} S={S}, {n} "
+                                 f"clusters of {C}, resident rows {res} has "
+                                 f"{got} bytes, the mirror {want}")
+                        checked += 1
+    log(f"phase 12 decoder_train layout: C equals the mirror in {checked} "
+        f"plans")
+    plans = {}
+    for kind in dt.KINDS:
+        active = dt.max_active_clusters(kind, dev)
+        for B in (32, 64):
+            p = dt.launch_plan(kind, B, *dims, dev)
+            plans[f"{kind}_B{B}"] = p
+            log(f"phase 12 decoder_scan_train {kind} plan B={B}: "
+                f"{p['clusters']} clusters of {p['cluster']} blocks = "
+                f"{p['blocks']} blocks, {p['rows']} rows a cluster at most, "
+                f"rows with tiles in shared memory "
+                f"{ {k: p[f'res_{k}'] for k in dt.TILES[kind]} }, "
+                f"{p['smem_bytes']} bytes a block; the card holds at once "
+                f"{active}")
+    return plans
+
+
 def decoder_train_phase(t, dev, results):
     """Phase 12: decoder_scan_train's forward and backward kernels vs the
     plain version at the flagship decoder's shapes (T=100 labels, B=32,
     L=200 frames, M=250, D=500, S=250, 201 taps), both priors, ragged
-    label and frame masks: the outputs and every gradient."""
+    label and frame masks: the outputs and every gradient; then the
+    launch plans, and the kernels' times alone and through autograd at
+    B=32 and B=64."""
     from attention_lvcsr_torch.ops import decoder_train as dt
     rng = np.random.RandomState(12)
     ops, fixed, cots = decoder_operands(t, dev, rng)
     names = list(ops)
+    T, B, S = ops["fx"].shape
+    L, M, D = ops["pre"].shape[1], ops["pre"].shape[2], \
+        ops["attended"].shape[2]
+    plans = decoder_plans(dev, (L, M, D, S))
     priors = {"expanding": {"type": "expanding", "initial_begin": 0,
                             "initial_end": 40, "min_speed": 1.2,
                             "max_speed": 2.2},
               "window_around_median": {"type": "window_around_median",
                                        "before": 100, "after": 100}}
 
-    def scan(fn, prior):
+    def scan(fn, prior, fixed):
         def call(*xs):
             d = dict(zip(names, xs))
             return fn(d["fx"], d["fg"], fixed["mask"], d["pre"],
@@ -1151,10 +1244,10 @@ def decoder_train_phase(t, dev, results):
     leaves = [ops[n] for n in names]
     worst, abs_err = 0.0, 0.0
     for pname, prior in priors.items():
-        got, ggot = grads_of(scan(dt.decoder_scan_train, prior), leaves,
-                             cots)
-        ref, gref = grads_of(scan(dt.decoder_scan_train_reference, prior),
+        got, ggot = grads_of(scan(dt.decoder_scan_train, prior, fixed),
                              leaves, cots)
+        ref, gref = grads_of(scan(dt.decoder_scan_train_reference, prior,
+                                  fixed), leaves, cots)
         outs = ("h", "weights", "wa", "energies")
         errs = relative_errors(
             dict(zip(outs, got), **{f"d{n}": g for n, g in zip(names, ggot)}),
@@ -1167,21 +1260,22 @@ def decoder_train_phase(t, dev, results):
             fail(f"decoder_scan_train disagrees with its plain version "
                  f"({pname})")
         repeat(f"decoder_scan_train ({pname})", ggot,
-               grads_of(scan(dt.decoder_scan_train, prior), leaves, cots))
+               grads_of(scan(dt.decoder_scan_train, prior, fixed), leaves,
+                        cots))
         worst = max(worst, *errs.values())
         abs_err = max(abs_err, *[float((a - b).abs().max()) for a, b in
                                  zip(list(got) + list(ggot),
                                      list(ref) + list(gref))])
     prior = priors["window_around_median"]
-    fwd = scan(dt.decoder_scan_train, prior)
-    plain = scan(dt.decoder_scan_train_reference, prior)
+    fwd = scan(dt.decoder_scan_train, prior, fixed)
+    plain = scan(dt.decoder_scan_train_reference, prior, fixed)
     fwd_ms = cuda_ms(lambda: fwd(*leaves), 3)
     bwd_ms = backward_ms(fwd, leaves, cots, 3)
     plain_fwd = cuda_ms(lambda: plain(*leaves), 1)
     plain_bwd = backward_ms(plain, leaves, cots, 1)
-    T, B, S = ops["fx"].shape
-    L, M, D = ops["pre"].shape[1], ops["pre"].shape[2], \
-        ops["attended"].shape[2]
+    alone = {}
+    with timed_launches(dt, 5, alone):
+        grads_of(fwd, leaves, cots)
     # one step of one row: the attention step with its Toeplitz band
     # (2L^2), the distribute products (2 * D * 3S) and the GRU step; the
     # backward recomputes the attention step and does twice the products
@@ -1192,19 +1286,40 @@ def decoder_train_phase(t, dev, results):
         + 3 * nbytes(got[0])
     bwd_bytes = nbytes(*leaves, *fixed.values(), *cots, *got) \
         + 3 * nbytes(got[0]) + nbytes(*gref)
-    results["decoder_scan_train"] = {
+    result = results["decoder_scan_train"] = {
         "max_abs_err": abs_err, "max_rel_err": worst,
         "ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+        "fwd_kernel_ms": alone["decoder_train_fwd_f32"],
+        "bwd_kernel_ms": alone["decoder_train_bwd_f32"],
         "plain_ms": plain_fwd + plain_bwd, "plain_fwd_ms": plain_fwd,
         "plain_bwd_ms": plain_bwd,
         **bound(fwd_bytes + bwd_bytes, 4 * n_ops),
         "fwd_bound_ms": bound(fwd_bytes, n_ops)["bound_ms"],
         "bwd_bound_ms": bound(bwd_bytes, 3 * n_ops)["bound_ms"],
-        "library_ms": None}
-    log(f"  kernels: forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms; "
-        f"plain: forward {plain_fwd:.3f} ms, backward {plain_bwd:.3f} ms; "
-        f"bound {results['decoder_scan_train']['bound_ms']:.3f} ms "
-        f"(median prior)")
+        "library_ms": None,
+        **{f"{k}_blocks": p["blocks"] for k, p in plans.items()}}
+    log(f"  B={B}: forward {fwd_ms:.3f} ms (kernel alone "
+        f"{result['fwd_kernel_ms']:.3f}), autograd backward {bwd_ms:.3f} "
+        f"ms (kernel alone {result['bwd_kernel_ms']:.3f}); plain: forward "
+        f"{plain_fwd:.3f} ms, backward {plain_bwd:.3f} ms; bound "
+        f"{result['bound_ms']:.3f} ms (forward {result['fwd_bound_ms']:.3f}, "
+        f"backward {result['bwd_bound_ms']:.3f}; median prior)")
+    # B=64: the kernels alone and through autograd, on the kernel route
+    ops64, fixed64, cots64 = decoder_operands(t, dev, rng, B=64)
+    leaves64 = [ops64[n] for n in names]
+    fwd64 = scan(dt.decoder_scan_train, prior, fixed64)
+    alone = {}
+    with timed_launches(dt, 5, alone):
+        grads_of(fwd64, leaves64, cots64)
+    result.update(
+        B64_fwd_ms=cuda_ms(lambda: fwd64(*leaves64), 3),
+        B64_bwd_ms=backward_ms(fwd64, leaves64, cots64, 3),
+        B64_fwd_kernel_ms=alone["decoder_train_fwd_f32"],
+        B64_bwd_kernel_ms=alone["decoder_train_bwd_f32"])
+    log(f"  B=64: forward {result['B64_fwd_ms']:.3f} ms (kernel alone "
+        f"{result['B64_fwd_kernel_ms']:.3f}), autograd backward "
+        f"{result['B64_bwd_ms']:.3f} ms (kernel alone "
+        f"{result['B64_bwd_kernel_ms']:.3f})")
 
 
 # wsj_paper.yaml's rule chain: clip 100, adadelta 0.95 / 1e-8, max_norm 1.0

@@ -422,16 +422,15 @@ def _check_gru_scan_train(device, T, B, D, ndir, first_masked=False):
                                    rtol=1e-4)
 
 
-@pytest.mark.parametrize("prior", [
-    {"type": "expanding", "initial_begin": 0, "initial_end": 6,
-     "min_speed": 1.0, "max_speed": 2.0},
-    {"type": "window_around_median", "before": 3, "after": 4}])
-@pytest.mark.parametrize("T,B,L,M,D,S", [(6, 3, 10, 7, 9, 5),
-                                         (20, 8, 60, 250, 500, 250)])
-def test_decoder_scan_train_kernels_match_plain(device, prior, T, B, L, M,
-                                                D, S):
-    """Forward and backward kernels (then outer_sum.cu) vs autograd
-    through the plain scan, ragged label and frame masks."""
+EXPANDING = {"type": "expanding", "initial_begin": 0, "initial_end": 6,
+             "min_speed": 1.0, "max_speed": 2.0}
+MEDIAN = {"type": "window_around_median", "before": 3, "after": 4}
+
+
+def _check_decoder_scan_train(device, prior, T, B, L, M, D, S, taps=7):
+    """Forward and backward kernels (then outer_sum.cu) vs autograd through
+    the plain scan, ragged label and frame masks; a second call's
+    gradients bit for bit."""
     from attention_lvcsr_torch.ops import decoder_train as dt
     rng = np.random.RandomState(T + B + L)
     f = lambda *s, scale=0.3: torch.tensor(
@@ -448,7 +447,7 @@ def test_decoder_scan_train_kernels_match_plain(device, prior, T, B, L, M,
     # recurrent weights at 1/sqrt(S): larger ones make the 20-step
     # recurrence chaotic, and then any rounding difference grows
     leaves = [f(T, B, S), f(T, B, 2 * S), f(B, L, M), f(B, L, D), f(B, S),
-              f(B, D), dt.toeplitz_band(f(1, 7), L), f(S, M, scale=0.1),
+              f(B, D), dt.toeplitz_band(f(1, taps), L), f(S, M, scale=0.1),
               f(1, M, scale=0.1), f(M, scale=0.1), f(S, S, scale=S ** -0.5),
               f(S, 2 * S, scale=S ** -0.5), f(D, S, scale=0.05),
               f(D, 2 * S, scale=0.05)]
@@ -464,7 +463,9 @@ def test_decoder_scan_train_kernels_match_plain(device, prior, T, B, L, M,
     before, sums = dt.launches.count, osum.launches.count
     got, ggot = _grads(scan(dt.decoder_scan_train), leaves, cots)
     assert dt.launches.count == before + 2   # forward, backward
-    assert osum.launches.count == sums + 2   # outer_sum's two kernels
+    # outer_sum's two kernels: the weight gradients, then datt in calls of
+    # up to MAX_JOBS batch rows
+    assert osum.launches.count == sums + 2 * (1 + -(-B // osum.MAX_JOBS))
     _, again = _grads(scan(dt.decoder_scan_train), leaves, cots)
     assert all(torch.equal(g, h) for g, h in zip(ggot, again))  # bit for bit
     ref, gref = _grads(scan(dt.decoder_scan_train_reference), leaves, cots)
@@ -472,6 +473,37 @@ def test_decoder_scan_train_kernels_match_plain(device, prior, T, B, L, M,
         torch.testing.assert_close(
             g, r, rtol=1e-4, atol=1e-4 * max(float(r.detach().abs().max()),
                                              1e-6))
+
+
+@pytest.mark.parametrize("prior", [EXPANDING, MEDIAN])
+@pytest.mark.parametrize("T,B,L,M,D,S", [(6, 3, 10, 7, 9, 5),
+                                         (20, 8, 60, 250, 500, 250)])
+def test_decoder_scan_train_kernels_match_plain(device, prior, T, B, L, M,
+                                                D, S):
+    _check_decoder_scan_train(device, prior, T, B, L, M, D, S)
+
+
+@pytest.mark.parametrize("B", [1, 32, 132])
+def test_decoder_scan_train_flagship_widths(device, B):
+    """The flagship decoder's widths (L=200, M=250, D=500, S=250, 201
+    taps) from one row to 132: every batch size runs on the kernels."""
+    _check_decoder_scan_train(device, MEDIAN, 6, B, 200, 250, 500, 250,
+                              taps=201)
+
+
+@pytest.mark.parametrize("prior", [EXPANDING, MEDIAN])
+def test_decoder_scan_train_odd_shape(device, prior):
+    """Odd widths and a frame count no cluster size divides."""
+    _check_decoder_scan_train(device, prior, 8, 5, 199, 33, 17, 33)
+
+
+def test_decoder_scan_train_plan_fills_the_card(device):
+    """At B=32 and the flagship widths both kernels' plans spread over at
+    least 120 blocks, one a streaming multiprocessor."""
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    for kind in dt.KINDS:
+        plan = dt.launch_plan(kind, 32, 200, 250, 500, 250, device)
+        assert plan["blocks"] >= 120, (kind, plan)
 
 
 def test_decoder_scan_train_kernel_refuses_other_variants(device):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times the GRU scans' kernels on one NVIDIA GPU, alone.
+"""Times the training scans' kernels on one NVIDIA GPU, alone.
 
     python3 tools/torch_bench_train_kernels.py [--root DIR] [--repeats N]
+        [--only decoder|gru] [--decoder-plans]
 
 Run from the repository root on a machine with a CUDA device and nvcc.
 At the flagship encoder layer's shapes (T=800, D=250, ragged mask, random
@@ -23,7 +24,17 @@ and at B=32:
   kernels) on the bidirectional layer's four weight-gradient jobs over
   T*B rows, beside one float32 cuBLAS ``addmm_`` per job;
 * the backward kernel's dx_in, dx_gate and dh0 against autograd through
-  the plain scan, as max abs error over the largest value.
+  the plain scan, as max abs error over the largest value;
+
+and the teacher-forced decoder's two kernels of ``csrc/decoder_train.cu``
+at the flagship decoder's shapes (T=100, L=200, M=250, D=500, S=250, 201
+taps, the median prior, ragged masks) at B=32 and B=64 (``--decoder-batches``
+to change them): each launch made
+through ``ops/decoder_train.py::_launch`` repeated between CUDA events (the
+kernel alone), the forward and the autograd backward around them, and the
+outputs against the plain version at B=32.  With ``--decoder-plans`` the
+package's launch plan is also forced to each cluster size in turn (where
+the package has plans).
 
 ``--root DIR`` imports the ``attention_lvcsr_torch`` package found in DIR
 instead of this checkout's, and builds its kernels there: with DIR an
@@ -52,15 +63,17 @@ def main():
                         help="directory holding the attention_lvcsr_torch "
                              "package to time")
     parser.add_argument("--repeats", type=int, default=5)
+    parser.add_argument("--only", choices=("decoder", "gru"), default=None)
+    parser.add_argument("--decoder-plans", action="store_true")
+    parser.add_argument("--decoder-batches", default="32,64",
+                        help="batch sizes of the decoder kernels' timings")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     sys.path.insert(0, os.path.abspath(args.root))
     from attention_lvcsr_torch import _build
-    from attention_lvcsr_torch.ops import gru_scan as gs
     from attention_lvcsr_torch.ops import gru_train as gt
-    from attention_lvcsr_torch.ops import outer_sum as osum
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -69,11 +82,11 @@ def main():
     print(card)
     print(f"package: {os.path.dirname(gt.__file__)}")
     lib = _build.load()
-    mine = False            # ptxas lines of the two timed kernels
+    mine = False            # ptxas lines of the timed kernels
     for line in lib.log.splitlines():
         if "Compiling entry" in line:
-            mine = ("gru_bwd" in line or "outer_sum" in line
-                    or "gru_scan" in line or "gru_fwd" in line)
+            mine = any(k in line for k in ("gru_bwd", "outer_sum", "gru_scan",
+                                           "gru_fwd", "decoder_"))
         if mine and ("Compiling entry" in line or "Used" in line
                      or "spill" in line):
             print(f"  ptxas: {line.strip()}")
@@ -92,8 +105,22 @@ def main():
         torch.cuda.synchronize()
         return start.elapsed_time(end) / args.repeats
 
-    T, D = 800, 250
     result = {"card": card, "root": os.path.abspath(args.root)}
+    if args.only != "gru":
+        decoder_kernels(t, dev, args, result)
+    if args.only != "decoder":
+        gru_kernels(t, dev, args, lib, result, cuda_ms)
+    print(json.dumps(result))
+
+
+def gru_kernels(t, dev, args, lib, result, cuda_ms):
+    """The GRU forward and backward kernels and outer_sum."""
+    import torch
+    from attention_lvcsr_torch import _build
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.ops import gru_train as gt
+    from attention_lvcsr_torch.ops import outer_sum as osum
+    T, D = 800, 250
     frng = np.random.RandomState(17)
     for B, ndir, train in ((32, 1, True), (32, 2, True), (64, 2, False),
                            (128, 2, False), (256, 2, False)):
@@ -205,7 +232,130 @@ def main():
     print(f"outer_sum, 4 jobs over {T * B} rows: {result['outer_sum_ms']:.4f} "
           f"ms, again {result['outer_sum_again_ms']:.4f} ms; one addmm_ per "
           f"job {result['addmm_per_job_ms']:.4f} ms")
-    print(json.dumps(result))
+
+
+def decoder_kernels(t, dev, args, result):
+    """decoder_train.cu's forward and backward kernels alone, at B=32 and
+    B=64, and through the autograd Function."""
+    import torch
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    T, L, M, D, S, taps = 100, 200, 250, 500, 250, 201
+    prior = {"type": "window_around_median", "before": 100, "after": 100}
+    launch, plan_of = dt._launch, getattr(dt, "launch_plan", None)
+    times = {}
+
+    def timed(name, kargs, stream_of):
+        launch(name, kargs, stream_of)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(args.repeats):
+            launch(name, kargs, stream_of)
+        end.record()
+        torch.cuda.synchronize()
+        times[name] = start.elapsed_time(end) / args.repeats
+
+    def events_ms(fn, repeats=3):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(repeats):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / repeats
+
+    for B in map(int, args.decoder_batches.split(",")):
+        plans = [None]
+        if args.decoder_plans and hasattr(dt, "plan"):
+            # each cluster size over all the clusters the card holds, and
+            # 8-block clusters over as few as take the same rows a cluster
+            active = dt.max_active_clusters("forward", dev)
+            plans += [{"cluster": C} for C in dt.CLUSTERS]
+            plans.append({"cluster": 8,
+                          "clusters": -(-B // -(-B // active[8]))})
+        rng = np.random.RandomState(12)
+        f = lambda *s, scale=1.0: t(rng.randn(*s) * scale)
+        labels = rng.randint(T // 2, T + 1, size=B)
+        frames = rng.randint(L // 2, L + 1, size=B)
+        labels[0], frames[0] = T, L
+        mask = t((np.arange(T)[:, None] < labels[None]).astype(np.float32))
+        amask = t((np.arange(L)[None] < frames[:, None]).astype(np.float32))
+        w0 = torch.zeros(B, L, device=dev)
+        w0[:, 0] = 1.0
+        leaves = [f(T, B, S), f(T, B, 2 * S), f(B, L, M, scale=0.5),
+                  f(B, L, D, scale=0.5), f(B, S, scale=0.1),
+                  torch.zeros(B, D, device=dev),
+                  dt.toeplitz_band(f(1, taps, scale=0.1), L),
+                  f(S, M, scale=0.1), f(1, M, scale=0.1), f(M, scale=0.1),
+                  f(S, S, scale=1 / np.sqrt(S)),
+                  f(S, 2 * S, scale=1 / np.sqrt(S)), f(D, S, scale=0.05),
+                  f(D, 2 * S, scale=0.05)]
+        cots = [f(T, B, S), f(T, B, L), f(T, B, D)]
+
+        def scan(fn):
+            return lambda fx, fg, pre, att, h0, wa0, *w: fn(
+                fx, fg, mask, pre, att, amask, h0, w0, wa0, *w, prior=prior)
+
+        def run(fn):
+            xs = [x.detach().requires_grad_() for x in leaves]
+            outs = fn(*xs)
+            return outs, xs, torch.autograd.grad(outs[:3], xs, cots,
+                                                 retain_graph=True)
+
+        for force in plans:
+            tag = "" if force is None else f"_C{force['cluster']}" + (
+                f"x{force['clusters']}" if "clusters" in force else "")
+            if force is not None:         # every launch takes this plan
+                dt.launch_plan = lambda *a, **k: plan_of(*a, **k, **force)
+            try:
+                dt._launch = timed
+                times.clear()
+                outs, xs, grads = run(scan(dt.decoder_scan_train))
+            except NotImplementedError as exc:
+                print(f"decoder B={B} plan {force}: refused ({exc})")
+                continue
+            finally:
+                dt._launch = launch
+                if force is not None:
+                    dt.launch_plan = plan_of
+            key = f"decoder_B{B}{tag}"
+            result[f"{key}_fwd_kernel_ms"] = times["decoder_train_fwd_f32"]
+            result[f"{key}_bwd_kernel_ms"] = times["decoder_train_bwd_f32"]
+            plan = ""
+            if hasattr(dt, "launch_plan"):
+                p = {k: dt.launch_plan(k, B, L, M, D, S, dev, **(force or {}))
+                     for k in dt.KINDS}
+                result[f"{key}_plan"] = p
+                plan = "; plans " + ", ".join(
+                    f"{k}: {q['clusters']} clusters of {q['cluster']} "
+                    f"({q['blocks']} blocks, {q['rows']} rows, "
+                    f"resident {({t: q[f'res_{t}'] for t in dt.TILES[k]})})"
+                    for k, q in p.items())
+            if force is None:
+                fwd = scan(dt.decoder_scan_train)
+                result[f"{key}_fwd_ms"] = events_ms(lambda: fwd(*leaves))
+                result[f"{key}_bwd_ms"] = events_ms(
+                    lambda: torch.autograd.grad(outs[:3], xs, cots,
+                                                retain_graph=True))
+            err = ""
+            if B == 32:
+                ref, _, gref = run(scan(dt.decoder_scan_train_reference))
+                rel = max(float((a - b).abs().max() / b.abs().max())
+                          for a, b in zip([o.detach() for o in outs[:4]]
+                                          + list(grads),
+                                          [o.detach() for o in ref[:4]]
+                                          + list(gref)))
+                result[f"{key}_rel_err"] = rel
+                err = f"; outputs and gradients vs plain {rel:.2e}"
+            print(f"decoder_scan_train T={T} B={B}{tag}: forward kernel "
+                  f"{result[f'{key}_fwd_kernel_ms']:.3f} ms, backward kernel "
+                  f"{result[f'{key}_bwd_kernel_ms']:.3f} ms"
+                  + (f"; forward {result[f'{key}_fwd_ms']:.3f} ms, autograd "
+                     f"backward {result[f'{key}_bwd_ms']:.3f} ms"
+                     if force is None else "") + plan + err, flush=True)
 
 
 if __name__ == "__main__":

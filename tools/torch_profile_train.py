@@ -49,6 +49,7 @@ def main():
     from __graft_entry__ import FLAGSHIP_NET
     from attention_lvcsr_torch import _build
     from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import decoder_train as dt
     from attention_lvcsr_torch.ops import gru_scan as gs
     from attention_lvcsr_torch.train.driver import GradientDescent, \
         make_train_step
@@ -153,9 +154,14 @@ def main():
     gru_steps = 3 * T + T // 2          # the four layers: 800/800/800/400
     groups = (B + 15) // 16
     cluster = gs.launch_plan(250, B, 2, dev)["cluster"]
+    decoder = {kind: B for kind in ("forward", "backward")}
+    if hasattr(dt, "launch_plan"):      # the grid of each decoder kernel
+        decoder = {kind: dt.launch_plan(kind, B, T // 4, 250, 500, 250,
+                                        dev)["blocks"] for kind in dt.KINDS}
     for tag, what, blocks, steps in (
-            ("dfwd", "decoder_scan_train forward", B, TL),
-            ("dbwd", "decoder_scan_train backward", B, TL),
+            ("dfwd", "decoder_scan_train forward", decoder["forward"], TL),
+            ("dbwd", "decoder_scan_train backward", decoder["backward"],
+             TL),
             ("gfwd", f"gru_scan_train forward, both directions, 4 layers "
                      f"({cluster}-block clusters)", 2 * cluster * groups,
              gru_steps),
