@@ -1,6 +1,7 @@
-// Cluster building blocks of the GRU scans of the pull design: the forward
-// (gru_scan.cu, decode and training) and the training backward
-// (gru_train.cu).  The LSTM scans keep their own in gru_cluster.cuh.
+// Cluster building blocks of the recurrent scans of the pull design: the
+// GRU forward (gru_scan.cu, decode and training) and training backward
+// (gru_train.cu), and the LSTM forward (lstm_scan.cu) and training backward
+// (lstm_train.cu).
 //
 // A thread-block cluster of 8 or 16 blocks serves kGroupRows batch rows of
 // one direction; block j owns n state columns [j*n, (j+1)*n) (n even), so
@@ -140,6 +141,50 @@ __device__ __forceinline__ void pull_peers(cooperative_groups::cluster_group&
     for (int u = 0; u < 4; ++u)
       if (at[u] >= 0) mine[at[u]] = v[u];
   }
+}
+
+// The opt-in shared memory of a block on the current device, into *bytes;
+// a CUDA error code.
+inline int max_smem_optin(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (int)err;
+}
+
+// Let `kernel` take `smem` bytes of dynamic shared memory and, in clusters
+// of more than 8 blocks, a non-portable cluster size.
+template <typename Kernel>
+cudaError_t prepare_cluster_kernel(Kernel kernel, int cluster, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+// A launch of `grid` blocks of kClusterThreads threads in clusters of
+// `cluster` blocks along x, `smem` bytes of dynamic shared memory each
+// (cudaLaunchKernelEx, cudaOccupancyMaxActiveClusters); *attr holds the
+// cluster's shape and must outlive the configuration.
+inline cudaLaunchConfig_t cluster_launch(dim3 grid, int cluster, size_t smem,
+                                         cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 // The forward's shared memory (gru_scan.cu), offsets in floats, every

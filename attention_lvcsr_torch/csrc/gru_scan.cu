@@ -243,66 +243,28 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
 }
 
 template <int kC>
-cudaError_t prepare(size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_fwd_kernel<kC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err == cudaSuccess && kC > 8)
-    err = cudaFuncSetAttribute(
-        gru_fwd_kernel<kC>, cudaFuncAttributeNonPortableClusterSizeAllowed,
-        1);
-  return err;
-}
-
-template <int kC>
-cudaLaunchConfig_t launch_config(dim3 grid, size_t smem, cudaStream_t stream,
-                                 cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kC;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-template <int kC>
 int max_clusters(int D, int* count) {
   const size_t smem = (size_t)fwd_layout(D, kC).total * sizeof(float);
-  cudaError_t err = prepare<kC>(smem);
+  cudaError_t err = prepare_cluster_kernel(gru_fwd_kernel<kC>, kC, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      launch_config<kC>(dim3(kC), smem, nullptr, &attr);
+      cluster_launch(dim3(kC), kC, smem, nullptr, &attr);
   return (int)cudaOccupancyMaxActiveClusters(count, gru_fwd_kernel<kC>, &cfg);
 }
 
 template <int kC>
 int launch(const GruArgs& args, int ndir, cudaStream_t stream) {
   const size_t smem = (size_t)fwd_layout(args.D, kC).total * sizeof(float);
-  cudaError_t err = prepare<kC>(smem);
+  cudaError_t err = prepare_cluster_kernel(gru_fwd_kernel<kC>, kC, smem);
   if (err != cudaSuccess) return (int)err;
   const int groups = (args.B + kGroupRows - 1) / kGroupRows;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      launch_config<kC>(dim3(groups * kC, ndir), smem, stream, &attr);
+      cluster_launch(dim3(groups * kC, ndir), kC, smem, stream, &attr);
   err = cudaLaunchKernelEx(&cfg, gru_fwd_kernel<kC>, args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
-}
-
-int max_smem_optin(int* bytes) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return (int)err;
 }
 
 }  // namespace

@@ -281,12 +281,9 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
 // Whether the kernel covers width D on the current device: 1 or 0, or a
 // negative CUDA error code.
 extern "C" int gru_train_supported(int D) {
-  int max_smem = 0, dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return -(int)err;
+  int max_smem = 0;
+  const int err = max_smem_optin(&max_smem);
+  if (err != 0) return -err;
   return bwd_fits(D, max_smem) && fwd_fits(D, kBwdCluster, max_smem) ? 1 : 0;
 }
 
@@ -296,25 +293,13 @@ extern "C" int gru_train_bwd_f32(const GruBwdArgs* args, int ndir,
   if (supported < 0) return -supported;
   if (supported == 0) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)bwd_layout(args->D).total * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(
-        gru_bwd_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaError_t err = prepare_cluster_kernel(gru_bwd_kernel, kBwdCluster, smem);
   if (err != cudaSuccess) return (int)err;
   const int groups = (args->B + kGroupRows - 1) / kGroupRows;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(groups * kBwdCluster, ndir);
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = kBwdCluster;
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = 1;
-  cfg.attrs = cluster;
-  cfg.numAttrs = 1;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_launch(dim3(groups * kBwdCluster, ndir), kBwdCluster, smem,
+                     (cudaStream_t)stream, &attr);
   err = cudaLaunchKernelEx(&cfg, gru_bwd_kernel, *args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

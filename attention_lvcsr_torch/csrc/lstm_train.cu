@@ -29,23 +29,57 @@
 // for bit.
 //
 // What bounds it on the card: latency, as in the forward: one dependent
-// (16 x 4D) x (4D x D) product a step per cluster.  The design is the
-// forward's (gru_cluster.cuh): an 8-block cluster serves 16 rows of one
-// direction, block j owns state columns [j*n, (j+1)*n) and keeps the rows
-// of w_state that produce them, transposed (4*D*n floats, 128 KB at
-// D=250), in shared memory for the whole scan; the carried gradients of
-// its columns stay in registers.  Per step a block computes its columns'
-// four gate gradients and broadcasts them into every block of the cluster
-// (distributed shared memory), meets them at a cluster barrier, computes
-// its columns of da @ w_state^T, and meets them again before the next
-// step's broadcast overwrites the buffer (a second buffer of 4D x 16
-// floats would not fit beside the weights).  Widths whose weight slice and
-// gradient buffer do not fit in a block's shared memory (D above about
-// 275) are not covered: lstm_train_supported() says so before a launch.
+// (16 x 4D) x (4D x D) product a step per cluster and one exchange.  The
+// design is the GRU backward's (gru_train.cu, on gru_pull.cuh): a 16-block
+// cluster (a non-portable size, launched with cudaLaunchKernelEx) serves
+// 16 rows of one direction; block j owns the n state columns [j*n,
+// (j+1)*n) (n = ceil(D/16) rounded up to even, Dp = 16n, the padding zero)
+// and the 4n gate columns that belong to them; the carried gradients and
+// peephole sums of its one (row, column) item a thread stay in registers.
+// What the design does about the latency:
+//
+// * the product split by k, not by output: block j multiplies its own gate
+//   gradients (16 rows x 4n) by the rows of w_state^T they meet (4n x Dp,
+//   kept in shared memory for the whole scan, 64 KB at D=250), a partial
+//   sum of every state column's gradient.  Each block then needs only the
+//   sixteen partials of its own n columns: 16 KB a step come over
+//   distributed shared memory where gathering every block's gate
+//   gradients (the da @ w_state^T split by output) moved 64 KB, and the
+//   probes put that gather at half of a step;
+// * pull, not push: a block writes its partial once, into its own send
+//   buffer; after the cluster barrier each thread loads its item's sixteen
+//   partials from the peers with DSMEM loads, all in flight at once, and
+//   adds them in block order, so the sum repeats bit for bit;
+// * one split barrier a step: the send buffer is double-buffered (step s
+//   writes buffer s % 2), so no second barrier has to keep a partial alive
+//   until every peer has read it; the step's dx stores and the cp.async
+//   prefetch of the next step's four gates, c_prev, dstates, dcells and
+//   mask go between the arrive and the wait (a release arrive waits for
+//   the thread's outstanding reads, and these would stall it); each
+//   thread copies exactly the items it later reads, so the stage needs no
+//   barrier;
+// * short k-chains: a product thread computes 8 rows x 2 columns over one
+//   of at most 8 k slices of the 4n-long sum (32 steps at D=250); the
+//   slices' partial sums are added in slice order.
+//
+// Buffer hazards (step s; S_s is its barrier):
+// * send buffer s % 2: written at step s before the arrive at S_s; every
+//   block reads it after S_s and uses the values before its arrive at
+//   S_{s+1}; it is written again at step s+2, after this block's wait at
+//   S_{s+1}.
+// * da, part: written and read inside the block, a barrier between.
+// * the stage: a thread overwrites its own items after it has read them.
+// * exit: a final cluster barrier, so no block leaves while a peer can
+//   still read its send buffer.
+//
+// Widths whose weight slice and buffers do not fit in a block's shared
+// memory (D above 352) are not covered: lstm_train_supported() says so
+// before a launch.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "gru_cluster.cuh"
+#include "gru_pull.cuh"
+#include "sm90_async.cuh"
 
 // Must match the ctypes.Structures in ops/lstm_train.py field for field.
 struct LstmBwdDir {
@@ -77,168 +111,216 @@ struct LstmBwdArgs {
 
 namespace {
 
+constexpr int kBwdCluster = 16;    // blocks per cluster (non-portable)
+constexpr int kBwdOperands = 8;    // staged per item: the four gates,
+                                   // c_prev, dstates, dcells, mask
+
+// The backward's shared memory, offsets in floats, every buffer on a
+// 16-byte boundary:
+//   wt    (4n, Dp)  w_state[c][g*D + c0 + k] at row g*n + k, column c
+//   da    (4n, kGroupRows) the block's own gate gradients, k-major
+//   send  2 x (kGroupRows, Dp) the block's partial of every column's
+//         state gradient
+//   stage (kBwdOperands, kGroupRows * n) the next step's operands
+//   part  the product's slice partial sums
+// The slices are capped at kMaxSlices, halved while the layout does not
+// fit in kMaxSmemFloats.
 struct BwdLayout {
-  int n, wt, da, part, total;   // offsets in floats
+  int n, Dp, slices;
+  int wt, da, send, stage, part, total;
 };
 
-// da and part start on 16-byte boundaries (float4 loads)
 __host__ __device__ inline BwdLayout bwd_layout(int D) {
   BwdLayout o;
-  o.n = (D + kCluster - 1) / kCluster;
-  o.wt = 0;                                   // (4D, n): w_state[c0 + c][k]
-  o.da = (4 * D * o.n + 3) / 4 * 4;           // (4D, kGroupRows)
-  o.part = o.da + 4 * D * kGroupRows;
-  o.total = o.part + kPartFloats;
+  o.n = owned_columns(D, kBwdCluster);
+  o.Dp = kBwdCluster * o.n;
+  o.wt = 0;
+  o.da = o.wt + 4 * o.n * o.Dp;
+  o.send = o.da + 4 * o.n * kGroupRows;
+  o.stage = o.send + 2 * kGroupRows * o.Dp;
+  o.part = o.stage + kBwdOperands * kGroupRows * o.n;
+  for (int cap = kMaxSlices;; cap /= 2) {
+    o.slices = tile_slices(o.Dp, cap);
+    o.total = o.part + o.slices * kGroupRows * o.Dp;
+    if (o.total <= kMaxSmemFloats || cap == 1) break;
+  }
   return o;
 }
 
-constexpr int kItems = 2;   // (row, owned column) pairs per thread
-
 __host__ inline bool bwd_fits(int D, int max_smem) {
   const BwdLayout o = bwd_layout(D);
-  return (kGroupRows / kRowsPerThread) * o.n <= kClusterThreads
-         && kGroupRows * o.n <= kItems * kClusterThreads
+  return kGroupRows * o.n <= kClusterThreads
          && (size_t)o.total * sizeof(float) <= (size_t)max_smem;
 }
 
 // The arguments stay in the constant bank (__grid_constant__) and the
-// direction's pointers are read from there where they are used: a copy of
-// the 16 pointers in registers spilled at the 128-register limit.
-__global__ void __cluster_dims__(kCluster, 1, 1)
-    __launch_bounds__(kClusterThreads, 1)
+// direction's pointers are read from there where they are used.
+__global__ void __launch_bounds__(kClusterThreads, 1)
     lstm_bwd_kernel(const __grid_constant__ LstmBwdArgs a) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float smem[];
   const LstmBwdDir& d = a.dir[blockIdx.y];
-  const int T = a.T, B = a.B, D = a.D, D4 = 4 * a.D;
+  const int T = a.T, B = a.B, D = a.D;
   const BwdLayout o = bwd_layout(D);
-  const int n = o.n;
+  const int n = o.n, Dp = o.Dp;
   const int j = (int)cluster.block_rank();
-  const int b0 = (blockIdx.x / kCluster) * kGroupRows;
+  const int b0 = (blockIdx.x / kBwdCluster) * kGroupRows;
   const int nrows = min(kGroupRows, B - b0);
   const int c0 = j * n;                       // first owned column
   float* wt = smem + o.wt;
   float* daT = smem + o.da;
+  float* send = smem + o.send;
+  float* stage = smem + o.stage;
   float* part = smem + o.part;
   const int tid = threadIdx.x;
-  const int slices = cluster_slices(n, D4);
+  const int items = kGroupRows * n;           // stage stride per operand
 
-  // the owned rows of w_state, transposed (zero past D)
-  for (int i = tid; i < D4 * n; i += blockDim.x) {
-    const int k = i / n, c = c0 + i % n;
-    wt[i] = c < D ? d.w_state[(size_t)c * D4 + k] : 0.f;
+  // the columns of w_state that the owned gate columns meet, transposed
+  // (zero past D); da zero (the padding's entries stay so)
+  for (int i = tid; i < 4 * n * Dp; i += blockDim.x) {
+    const int k = i / Dp, col = i % Dp;
+    const int g = k / n, c = c0 + k % n;
+    wt[i] = col < D && c < D ? d.w_state[(size_t)col * 4 * D + g * D + c]
+                             : 0.f;
   }
-  for (int i = tid; i < D4 * kGroupRows; i += blockDim.x) daT[i] = 0.f;
-  float dh[kItems], dc[kItems], pi[kItems], pf[kItems], po[kItems];
-  float spi[kItems], spf[kItems], spo[kItems];
-#pragma unroll
-  for (int e = 0; e < kItems; ++e) {
-    const int item = tid + e * kClusterThreads;
-    const int r = item / n, c = c0 + item % n;
-    const bool ok = r < nrows && c < D;
-    dh[e] = dc[e] = spi[e] = spf[e] = spo[e] = 0.f;
-    pi[e] = ok ? d.pci[c] : 0.f;
-    pf[e] = ok ? d.pcf[c] : 0.f;
-    po[e] = ok ? d.pco[c] : 0.f;
-  }
+  for (int i = tid; i < 4 * n * kGroupRows; i += blockDim.x) daT[i] = 0.f;
+  // this thread's item (row r, owned column cc); its carried gradients and
+  // peephole sums stay in registers
+  const int r = tid / n, cc = tid % n, c = c0 + cc;
+  const bool ok = r < nrows && c < D;
+  const float pi = ok ? d.pci[c] : 0.f;
+  const float pf = ok ? d.pcf[c] : 0.f;
+  const float po = ok ? d.pco[c] : 0.f;
+  float dh = 0.f, dc = 0.f, spi = 0.f, spf = 0.f, spo = 0.f;
+
+  // the step's operands of this thread's item into the stage
+  auto prefetch = [&](int step) {
+    const int t = d.reverse ? step : T - 1 - step;
+    const int tp = d.reverse ? t + 1 : t - 1;     // the forward's step before
+    if (ok) {
+      const size_t idx = (size_t)t * B + b0 + r;
+      const size_t ridx = idx * D + c;
+      float* s = stage + tid;
+      cp_async<4>(s, d.gi + ridx, 4);
+      cp_async<4>(s + items, d.gf + ridx, 4);
+      cp_async<4>(s + 2 * items, d.gz + ridx, 4);
+      cp_async<4>(s + 3 * items, d.go + ridx, 4);
+      cp_async<4>(s + 4 * items,
+                  tp < 0 || tp >= T
+                      ? d.c0 + (size_t)(b0 + r) * D + c
+                      : d.cs + ((size_t)tp * B + b0 + r) * a.ld_states + c,
+                  4);
+      cp_async<4>(s + 5 * items, d.dh + idx * a.ld_dout + c, 4);
+      if (d.dc != nullptr)
+        cp_async<4>(s + 6 * items, d.dc + idx * a.ld_dout + c, 4);
+      if (a.mask != nullptr) cp_async<4>(s + 7 * items, a.mask + idx, 4);
+    }
+    cp_async_commit();
+  };
+  prefetch(0);
+  // weights and zeroed buffers in place, every block of the cluster running
   cluster.sync();
 
   for (int step = 0; step < T; ++step) {
     const int t = d.reverse ? step : T - 1 - step;
-    const int tp = d.reverse ? t + 1 : t - 1;      // the forward's step before
-    const size_t row0 = (size_t)t * B + b0;
-    float dh_keep[kItems];
-    // ---- elementwise: cell and gate gradients; broadcast da
-#pragma unroll
-    for (int e = 0; e < kItems; ++e) {
-      const int item = tid + e * kClusterThreads;
-      const int r = item / n, c = c0 + item % n;
-      dh_keep[e] = 0.f;
-      if (r >= nrows || c >= D) continue;
-      const size_t idx = row0 + r;
-      const float g_h = dh[e] + d.dh[idx * a.ld_dout + c];
-      const float g_c =
-          d.dc != nullptr ? dc[e] + d.dc[idx * a.ld_dout + c] : dc[e];
-      float da_i = 0.f, da_f = 0.f, da_z = 0.f, da_o = 0.f;
-      if (a.mask == nullptr || a.mask[idx] != 0.f) {
-        const float cp =
-            (tp < 0 || tp >= T)
-                ? d.c0[(size_t)(b0 + r) * D + c]
-                : d.cs[((size_t)tp * B + b0 + r) * a.ld_states + c];
-        const size_t ridx = idx * D + c;
-        const float ig = d.gi[ridx], fg = d.gf[ridx];
-        const float zg = d.gz[ridx], og = d.go[ridx];
+    float* mine = send + (step & 1) * kGroupRows * Dp;
+    float da[4] = {0.f, 0.f, 0.f, 0.f};
+    float dh_keep = 0.f;
+    // ---- elementwise: cell and gate gradients of the owned columns
+    cp_async_wait<0>();
+    if (ok) {
+      const float* s = stage + tid;
+      const float ig = s[0], fg = s[items], zg = s[2 * items];
+      const float og = s[3 * items], cp = s[4 * items];
+      const float g_h = dh + s[5 * items];
+      const float g_c = d.dc != nullptr ? dc + s[6 * items] : dc;
+      if (a.mask == nullptr || s[7 * items] != 0.f) {
         const float cn = fg * cp + ig * zg;
         const float hc = tanhf(cn);
-        da_o = g_h * hc * og * (1.f - og);
-        const float dcn = g_h * og * (1.f - hc * hc) + da_o * po[e] + g_c;
-        da_f = dcn * cp * fg * (1.f - fg);
-        da_i = dcn * zg * ig * (1.f - ig);
-        da_z = dcn * ig * (1.f - zg * zg);
-        dc[e] = dcn * fg + da_f * pf[e] + da_i * pi[e];
-        spi[e] += da_i * cp;
-        spf[e] += da_f * cp;
-        spo[e] += da_o * cn;
+        da[3] = g_h * hc * og * (1.f - og);
+        const float dcn = g_h * og * (1.f - hc * hc) + da[3] * po + g_c;
+        da[1] = dcn * cp * fg * (1.f - fg);
+        da[0] = dcn * zg * ig * (1.f - ig);
+        da[2] = dcn * ig * (1.f - zg * zg);
+        dc = dcn * fg + da[1] * pf + da[0] * pi;
+        spi += da[0] * cp;
+        spf += da[1] * cp;
+        spo += da[3] * cn;
       } else {
-        dh_keep[e] = g_h;
-        dc[e] = g_c;
+        dh_keep = g_h;
+        dc = g_c;
       }
-      float* dx_row = d.dx + idx * a.ld_dx;
-      dx_row[c] = da_i;
-      dx_row[D + c] = da_f;
-      dx_row[2 * D + c] = da_z;
-      dx_row[3 * D + c] = da_o;
 #pragma unroll
-      for (int q = 0; q < kCluster; ++q) {
-        float* remote = cluster.map_shared_rank(daT, q);
-        remote[c * kGroupRows + r] = da_i;
-        remote[(D + c) * kGroupRows + r] = da_f;
-        remote[(2 * D + c) * kGroupRows + r] = da_z;
-        remote[(3 * D + c) * kGroupRows + r] = da_o;
-      }
+      for (int g = 0; g < 4; ++g)
+        daT[(g * n + cc) * kGroupRows + r] = da[g];
     }
-    // ---- wait for the cluster's da
-    cluster.sync();
-    // ---- state gradient of the owned columns: da @ w_state^T
-    cluster_partials(daT, wt, n, n, slices, D4, part);
     __syncthreads();
-#pragma unroll
-    for (int e = 0; e < kItems; ++e) {
-      const int item = tid + e * kClusterThreads;
-      const int r = item / n, cc = item % n, c = c0 + cc;
-      if (r >= nrows || c >= D) continue;
-      dh[e] = dh_keep[e] + cluster_sum(part, slices, n, r, cc);
+    // ---- own partial of every column's state gradient: da @ w_state^T
+    tile_partials(daT, wt, Dp, 4 * n, o.slices, part);
+    __syncthreads();
+    // the slices' sums, four outputs at a time, in slice order
+    for (int i = tid; i < kGroupRows * Dp / 4; i += blockDim.x) {
+      float4 sum = reinterpret_cast<const float4*>(part)[i];
+      for (int q = 1; q < o.slices; ++q) {
+        const float4 v = reinterpret_cast<const float4*>(
+            part + q * kGroupRows * Dp)[i];
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+      reinterpret_cast<float4*>(mine)[i] = sum;
     }
-    // ---- every block has read da before the next step overwrites it
-    cluster.sync();
-  }
+    cluster_arrive();
+    // the next step's operands, then this step's dx row: issued after the
+    // arrive, whose release would otherwise wait for them too
+    if (step + 1 < T) prefetch(step + 1);
+    if (ok) {
+      float* dx_row = d.dx + ((size_t)t * B + b0 + r) * a.ld_dx;
 #pragma unroll
-  for (int e = 0; e < kItems; ++e) {
-    const int item = tid + e * kClusterThreads;
-    const int r = item / n, c = c0 + item % n;
-    if (r >= nrows || c >= D) continue;
-    const size_t row = (size_t)(b0 + r);
-    d.dh0[row * D + c] = dh[e];
-    d.dc0[row * D + c] = dc[e];
-    d.dpeep[row * 3 * D + c] = spi[e];
-    d.dpeep[row * 3 * D + D + c] = spf[e];
-    d.dpeep[row * 3 * D + 2 * D + c] = spo[e];
+      for (int g = 0; g < 4; ++g) dx_row[g * D + c] = da[g];
+    }
+    // ---- wait for the cluster's partials; add the owned columns'
+    cluster_wait();
+    if (ok) {
+      float v[kBwdCluster];
+#pragma unroll
+      for (int q = 0; q < kBwdCluster; ++q)
+        v[q] = cluster.map_shared_rank(mine, q)[r * Dp + c];
+      float sum = v[0];
+#pragma unroll
+      for (int q = 1; q < kBwdCluster; ++q) sum += v[q];
+      dh = dh_keep + sum;
+    }
   }
+  if (ok) {
+    const size_t row = (size_t)(b0 + r);
+    d.dh0[row * D + c] = dh;
+    d.dc0[row * D + c] = dc;
+    d.dpeep[row * 3 * D + c] = spi;
+    d.dpeep[row * 3 * D + D + c] = spf;
+    d.dpeep[row * 3 * D + 2 * D + c] = spo;
+  }
+  // no block may leave while a peer can still read its shared memory
+  cluster.sync();
 }
 
 }  // namespace
 
-// Whether the backward kernel covers width D on the current device: 1 or
-// 0, or a negative CUDA error code.
+// Whether the backward kernel covers width D on the current device (the
+// forward covers every width it does): 1 or 0, or a negative CUDA error
+// code.
 extern "C" int lstm_train_supported(int D) {
-  int max_smem = 0, dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return -(int)err;
+  int max_smem = 0;
+  const int err = max_smem_optin(&max_smem);
+  if (err != 0) return -err;
   return bwd_fits(D, max_smem) ? 1 : 0;
+}
+
+// The backward layout's dynamic shared memory in bytes, a block.
+extern "C" int lstm_train_smem_bytes(int D) {
+  return bwd_layout(D).total * (int)sizeof(float);
 }
 
 extern "C" int lstm_train_bwd_f32(const LstmBwdArgs* args, int ndir,
@@ -247,12 +329,15 @@ extern "C" int lstm_train_bwd_f32(const LstmBwdArgs* args, int ndir,
   if (supported < 0) return -supported;
   if (supported == 0) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)bwd_layout(args->D).total * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      prepare_cluster_kernel(lstm_bwd_kernel, kBwdCluster, smem);
   if (err != cudaSuccess) return (int)err;
   const int groups = (args->B + kGroupRows - 1) / kGroupRows;
-  const dim3 grid(groups * kCluster, ndir);
-  lstm_bwd_kernel<<<grid, kClusterThreads, smem, (cudaStream_t)stream>>>(
-      *args);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_launch(dim3(groups * kBwdCluster, ndir), kBwdCluster, smem,
+                     (cudaStream_t)stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, lstm_bwd_kernel, *args);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

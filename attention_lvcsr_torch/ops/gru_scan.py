@@ -30,23 +30,31 @@ MAX_SMEM = 232448          # the opt-in shared memory of a block on sm_90
 CLUSTERS = (16, 8)
 
 
+def owned_columns(D, cluster):
+    """The state columns a block of a ``cluster``-block cluster owns at
+    width D (``gru_pull.cuh::owned_columns``)."""
+    return ((D + cluster - 1) // cluster + 1) // 2 * 2
+
+
+def tile_slices(cols, cap):
+    """The k slices of a product of ``cols`` columns, at most ``cap``
+    (``gru_pull.cuh::tile_slices``)."""
+    tiles = (GROUP_ROWS // TILE_ROWS) * (cols // TILE_COLS)
+    return max(1, min(cap, THREADS // tiles))
+
+
 def fwd_layout(D, cluster):
     """The forward kernel's layout at width D with ``cluster`` blocks a
     cluster: owned columns ``n``, padded width ``Dp``, the k slices of the
     gate and candidate products and the shared memory of a block in
     bytes."""
-    n = ((D + cluster - 1) // cluster + 1) // 2 * 2
+    n = owned_columns(D, cluster)
     Dp = cluster * n
-
-    def slices(cols, cap):
-        tiles = (GROUP_ROWS // TILE_ROWS) * (cols // TILE_COLS)
-        return max(1, min(cap, THREADS // tiles))
-
     # weights (3 Dp n), state and r * state, update gates, stage
     fixed = 3 * Dp * n + 2 * Dp * GROUP_ROWS + 5 * GROUP_ROWS * n
     cap = MAX_SLICES
     while True:
-        sg, sc = slices(2 * n, cap), slices(n, cap)
+        sg, sc = tile_slices(2 * n, cap), tile_slices(n, cap)
         total = fixed + max(2 * sg, sc) * GROUP_ROWS * n
         if total <= MAX_SMEM // 4 or cap == 1:
             break
@@ -62,7 +70,7 @@ def fits(D, cluster, max_smem=MAX_SMEM):
     return GROUP_ROWS * o["n"] <= THREADS and o["smem_bytes"] <= max_smem
 
 
-def choose_cluster(clusters, active):
+def choose_cluster(clusters, active, name="gru_scan"):
     """The cluster size for a launch of ``clusters`` clusters, given how
     many clusters of each size the card holds at once (``active``: {size:
     count}, 0 where the layout does not fit): the fewest waves, then the
@@ -70,37 +78,46 @@ def choose_cluster(clusters, active):
     waves = {size: -(-clusters // count)
              for size, count in active.items() if count > 0}
     if not waves:
-        raise NotImplementedError("gru_scan: no cluster size fits")
+        raise NotImplementedError(f"{name}: no cluster size fits")
     return min(waves, key=lambda size: (waves[size], -size))
 
 
 _active = {}
 
 
-def max_active_clusters(D, device):
-    """{cluster size: clusters the device holds at once} at width D (0
-    where the layout does not fit), queried once per device and width."""
-    key = (device.index, D)
+def query_active_clusters(kernel, D, device):
+    """{cluster size: clusters the device holds at once} of the kernel
+    whose C entry points are ``<kernel>_fits`` and
+    ``<kernel>_max_clusters``, at width D (0 where the layout does not
+    fit), queried once per kernel, device and width."""
+    key = (kernel, device.index, D)
     if key not in _active:
         lib = _build.load().lib
-        lib.gru_scan_fits.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.gru_scan_fits.restype = ctypes.c_int
-        lib.gru_scan_max_clusters.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        lib.gru_scan_max_clusters.restype = ctypes.c_int
+        fits_fn = getattr(lib, f"{kernel}_fits")
+        fits_fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fits_fn.restype = ctypes.c_int
+        count_fn = getattr(lib, f"{kernel}_max_clusters")
+        count_fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_int)]
+        count_fn.restype = ctypes.c_int
         active = {}
         with torch.cuda.device(device):
             for size in CLUSTERS:
-                fit = lib.gru_scan_fits(D, size)
-                _build.check(max(0, -fit), "gru_scan_fits")
+                fit = fits_fn(D, size)
+                _build.check(max(0, -fit), f"{kernel}_fits")
                 count = ctypes.c_int(0)
                 if fit:
-                    _build.check(lib.gru_scan_max_clusters(
-                        D, size, ctypes.byref(count)),
-                        "gru_scan_max_clusters")
+                    _build.check(count_fn(D, size, ctypes.byref(count)),
+                                 f"{kernel}_max_clusters")
                 active[size] = count.value
         _active[key] = active
     return _active[key]
+
+
+def max_active_clusters(D, device):
+    """{cluster size: clusters of this kernel the device holds at once}
+    at width D (:func:`query_active_clusters`)."""
+    return query_active_clusters("gru_scan", D, device)
 
 
 def launch_plan(D, B, ndir, device):

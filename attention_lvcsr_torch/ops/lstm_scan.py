@@ -9,6 +9,12 @@ launch, the backward one in reverse time, with the interface of
 PyTorch version for tensors on the CPU and launches ``csrc/lstm_scan.cu``
 for tensors on a CUDA device; any other device raises, and so does a width
 the kernel does not cover.  There is no fallback from one to the other.
+
+The kernel runs each direction's 16-row groups on thread-block clusters of
+16 blocks, or 8 (:func:`launch_plan`), chosen as the GRU forward chooses
+them (:func:`~attention_lvcsr_torch.ops.gru_scan.choose_cluster`);
+:func:`fwd_layout` mirrors its shared-memory layout
+(``csrc/lstm_scan.cu::lstm_layout``).
 """
 from __future__ import annotations
 
@@ -17,9 +23,63 @@ import ctypes
 import torch
 
 from attention_lvcsr_torch import _build
-from attention_lvcsr_torch.ops.gru_scan import _check
+from attention_lvcsr_torch.ops import gru_scan as gs
+from attention_lvcsr_torch.ops.gru_scan import GROUP_ROWS, MAX_SLICES, \
+    MAX_SMEM, THREADS, _check
 
 launches = _build.LaunchCounter()
+
+OPERANDS = 5        # csrc/lstm_scan.cu's kOperands: staged per item
+
+
+def fwd_layout(D, cluster):
+    """The forward kernel's layout at width D with ``cluster`` blocks a
+    cluster: owned columns ``n``, padded width ``Dp``, the k slices of the
+    gate product and the shared memory of a block in bytes."""
+    n = gs.owned_columns(D, cluster)
+    Dp = cluster * n
+    # weights (4 Dp n), the double-buffered state, the stage
+    fixed = 4 * Dp * n + 2 * Dp * GROUP_ROWS + OPERANDS * GROUP_ROWS * n
+    cap = MAX_SLICES
+    while True:
+        slices = gs.tile_slices(4 * n, cap)
+        total = fixed + slices * GROUP_ROWS * 4 * n
+        if total <= MAX_SMEM // 4 or cap == 1:
+            break
+        cap //= 2
+    return {"n": n, "Dp": Dp, "slices": slices, "smem_bytes": 4 * total}
+
+
+def fits(D, cluster, max_smem=MAX_SMEM):
+    """Whether the forward layout covers width D: one item per thread and
+    the shared memory."""
+    o = fwd_layout(D, cluster)
+    return GROUP_ROWS * o["n"] <= THREADS and o["smem_bytes"] <= max_smem
+
+
+def widest(covers):
+    """The widest width D that ``covers(D)`` accepts, with every narrower
+    one."""
+    D = 1
+    while covers(D + 1):
+        D += 1
+    return D
+
+
+def max_active_clusters(D, device):
+    """{cluster size: clusters of the forward kernel the device holds at
+    once} at width D (0 where the layout does not fit)."""
+    return gs.query_active_clusters("lstm_scan", D, device)
+
+
+def launch_plan(D, B, ndir, device):
+    """The cluster size a forward launch at width D over B rows and
+    ``ndir`` directions takes, the clusters it needs and what the device
+    holds."""
+    clusters = -(-B // GROUP_ROWS) * ndir
+    active = max_active_clusters(D, device)
+    return {"cluster": gs.choose_cluster(clusters, active, "lstm_scan"),
+            "clusters": clusters, "active": active}
 
 
 def _scan_reference(x_proj, mask, h0, c0, w_state, pci, pcf, pco, reverse):
@@ -118,10 +178,11 @@ def check_operands(name, proj, mask, dirs):
             _check(f"{name}: {side} {pname}", p, (D,), device)
 
 
-def require_width(lib, query, name, D, most):
-    """Raise NotImplementedError naming ``name`` and the width when
-    ``lib.<query>(D)`` says the kernel does not cover D on the current
-    device (``most``: about the widest it covers on an H100)."""
+def require_width(lib, query, name, D, covers):
+    """Raise NotImplementedError naming ``name``, the width and the widest
+    width covered when ``lib.<query>(D)`` says the kernel does not cover D
+    on the current device (``covers``: the layout mirror's test of a width
+    in an H100's 227 KB of shared memory a block)."""
     fn = getattr(lib, query)
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
@@ -130,8 +191,9 @@ def require_width(lib, query, name, D, most):
     if status == 0:
         raise NotImplementedError(
             f"{name}: width D={D} is not ported yet (the kernel keeps each "
-            f"direction's recurrent weights in one 8-block cluster's shared "
-            f"memory, which holds up to about D={most})")
+            f"direction's recurrent weights, sliced over a 16-block "
+            f"cluster, and its exchange buffers in the blocks' shared "
+            f"memory, which holds them up to D={widest(covers)})")
 
 
 def launch(proj, mask, dirs, states, cells, residuals=None,
@@ -148,10 +210,12 @@ def launch(proj, mask, dirs, states, cells, residuals=None,
         return False
     lib = _build.load().lib
     lib.lstm_scan_f32.argtypes = [ctypes.POINTER(_Args), ctypes.c_int,
-                                  ctypes.c_void_p]
+                                  ctypes.c_int, ctypes.c_void_p]
     lib.lstm_scan_f32.restype = ctypes.c_int
     with torch.cuda.device(proj.device):
-        require_width(lib, "lstm_scan_supported", name, D, 300)
+        require_width(lib, "lstm_scan_supported", name, D,
+                      lambda w: fits(w, 16))
+        cluster = launch_plan(D, B, len(dirs), proj.device)["cluster"]
         args = _Args(mask=mask.data_ptr() if mask is not None else None,
                      T=T, B=B, D=D, ldx=width, ldo=states.shape[-1])
         for i, weights in enumerate(dirs):
@@ -162,7 +226,7 @@ def launch(proj, mask, dirs, states, cells, residuals=None,
                                states[..., D * i:].data_ptr(),
                                cells[..., D * i:].data_ptr(), *gates,
                                reverse=i)
-        status = lib.lstm_scan_f32(ctypes.byref(args), len(dirs),
+        status = lib.lstm_scan_f32(ctypes.byref(args), len(dirs), cluster,
                                    _build.stream_of(proj))
     _build.check(status, "lstm_scan_f32")
     return True

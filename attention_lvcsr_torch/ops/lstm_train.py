@@ -25,6 +25,9 @@ On the CPU it is the plain version, the forward scan written with PyTorch
 operations (:func:`lstm_scan_train_reference`), whose gradient autograd
 takes.  The mask gets no gradient; a masked step passes the state and cell
 gradients through.
+
+The backward kernel runs 16-block clusters; :func:`bwd_layout` mirrors its
+shared-memory layout (``csrc/lstm_train.cu::bwd_layout``).
 """
 from __future__ import annotations
 
@@ -33,7 +36,10 @@ import ctypes
 import torch
 
 from attention_lvcsr_torch import _build
+from attention_lvcsr_torch.ops import gru_scan as gs
 from attention_lvcsr_torch.ops import lstm_scan as ls
+from attention_lvcsr_torch.ops.gru_scan import GROUP_ROWS, MAX_SLICES, \
+    MAX_SMEM, THREADS
 from attention_lvcsr_torch.ops.gru_train import _previous_states
 from attention_lvcsr_torch.ops.outer_sum import outer_sum
 
@@ -42,6 +48,36 @@ launches = _build.LaunchCounter()   # forward + backward; outer_sum has its own
 lstm_scan_train_reference = ls.lstm_scan_reference
 
 _WEIGHTS = 6          # h0, c0, w_state, pci, pcf, pco per direction
+
+# csrc/lstm_train.cu's constants: blocks a cluster, operands staged per item
+BWD_CLUSTER, BWD_OPERANDS = 16, 8
+
+
+def bwd_layout(D):
+    """The backward kernel's layout at width D: owned columns ``n``, padded
+    width ``Dp``, the k slices of its product and the shared memory of a
+    block in bytes."""
+    n = gs.owned_columns(D, BWD_CLUSTER)
+    Dp = BWD_CLUSTER * n
+    # transposed weights (4n x Dp), own da (4n rows), the double-buffered
+    # partials (16 x Dp), the stage
+    fixed = (4 * n * Dp + 4 * n * GROUP_ROWS + 2 * GROUP_ROWS * Dp
+             + BWD_OPERANDS * GROUP_ROWS * n)
+    cap = MAX_SLICES
+    while True:
+        slices = gs.tile_slices(Dp, cap)
+        total = fixed + slices * GROUP_ROWS * Dp
+        if total <= MAX_SMEM // 4 or cap == 1:
+            break
+        cap //= 2
+    return {"n": n, "Dp": Dp, "slices": slices, "smem_bytes": 4 * total}
+
+
+def bwd_fits(D, max_smem=MAX_SMEM):
+    """Whether the backward layout covers width D: one item per thread and
+    the shared memory."""
+    o = bwd_layout(D)
+    return GROUP_ROWS * o["n"] <= THREADS and o["smem_bytes"] <= max_smem
 
 
 class _BwdDir(ctypes.Structure):
@@ -57,6 +93,36 @@ class _BwdArgs(ctypes.Structure):
     _fields_ = ([("dir", _BwdDir * 2), ("mask", ctypes.c_void_p)]
                 + [(n, ctypes.c_int) for n in (
                     "T", "B", "D", "ld_dout", "ld_states", "ld_dx")])
+
+
+def launch_backward(dstates, dcells, cells, mask, dirs, residuals, dproj,
+                    grads, dpeep, stream):
+    """Start ``csrc/lstm_train.cu`` on ``stream``: from the cotangents
+    ``dstates`` and ``dcells`` (or None), the forward's ``cells`` (T, B,
+    D * ndir) and gate residuals, write the projections' gradient ``dproj``
+    (T, B, 4D * ndir), each direction's dh0 and dc0 (``grads[i][0:2]``)
+    and its per-row peephole sums ``dpeep[i]`` (B, 3D)."""
+    T, B, width = cells.shape
+    ndir = len(dirs)
+    D = width // ndir
+    lib = _build.load().lib
+    lib.lstm_train_bwd_f32.argtypes = [ctypes.POINTER(_BwdArgs),
+                                       ctypes.c_int, ctypes.c_void_p]
+    lib.lstm_train_bwd_f32.restype = ctypes.c_int
+    args = _BwdArgs(mask=mask.data_ptr() if mask is not None else None,
+                    T=T, B=B, D=D, ld_dout=width, ld_states=width,
+                    ld_dx=4 * D * ndir)
+    for i, ((_, c0, ws, pci, pcf, pco), gates, g, pp) in enumerate(
+            zip(dirs, residuals, grads, dpeep)):
+        args.dir[i] = _BwdDir(
+            dstates[..., D * i:].data_ptr(),
+            dcells[..., D * i:].data_ptr() if dcells is not None else None,
+            cells[..., D * i:].data_ptr(), c0.data_ptr(),
+            *(r.data_ptr() for r in gates), ws.data_ptr(), pci.data_ptr(),
+            pcf.data_ptr(), pco.data_ptr(), dproj[..., 4 * D * i:].data_ptr(),
+            g[0].data_ptr(), g[1].data_ptr(), pp.data_ptr(), reverse=i)
+    _build.check(lib.lstm_train_bwd_f32(ctypes.byref(args), ndir, stream),
+                 "lstm_train_bwd_f32")
 
 
 def _directions(weights, ndir):
@@ -75,7 +141,7 @@ class _LstmScanTrain(torch.autograd.Function):
         lib = _build.load().lib
         with torch.cuda.device(proj.device):
             ls.require_width(lib, "lstm_train_supported", "lstm_scan_train",
-                             D, 275)
+                             D, bwd_fits)
         new = lambda *s: torch.empty(*s, dtype=proj.dtype, device=proj.device)
         states, cells = new(T, B, D * ndir), new(T, B, D * ndir)
         residuals = [tuple(new(T, B, D) for _ in range(4))
@@ -110,28 +176,9 @@ class _LstmScanTrain(torch.autograd.Function):
                    else torch.zeros_like(states))
         dcells = dcells.contiguous() if dcells is not None else None
         dpeep = [new(B, 3 * D) for _ in range(ndir)]
-        lib = _build.load().lib
-        lib.lstm_train_bwd_f32.argtypes = [ctypes.POINTER(_BwdArgs),
-                                           ctypes.c_int, ctypes.c_void_p]
-        lib.lstm_train_bwd_f32.restype = ctypes.c_int
-        args = _BwdArgs(mask=mask.data_ptr() if mask is not None else None,
-                        T=T, B=B, D=D, ld_dout=width, ld_states=width,
-                        ld_dx=4 * D * ndir)
-        for i, ((_, c0, ws, pci, pcf, pco), gates, g, pp) in enumerate(
-                zip(dirs, residuals, grads, dpeep)):
-            args.dir[i] = _BwdDir(
-                dstates[..., D * i:].data_ptr(),
-                dcells[..., D * i:].data_ptr() if dcells is not None
-                else None,
-                cells[..., D * i:].data_ptr(), c0.data_ptr(),
-                *(r.data_ptr() for r in gates), ws.data_ptr(),
-                pci.data_ptr(), pcf.data_ptr(), pco.data_ptr(),
-                dproj[..., 4 * D * i:].data_ptr(), g[0].data_ptr(),
-                g[1].data_ptr(), pp.data_ptr(), reverse=i)
         with torch.cuda.device(states.device):
-            status = lib.lstm_train_bwd_f32(ctypes.byref(args), ndir,
-                                            _build.stream_of(states))
-        _build.check(status, "lstm_train_bwd_f32")
+            launch_backward(dstates, dcells, cells, mask, dirs, residuals,
+                            dproj, grads, dpeep, _build.stream_of(states))
         launches.count += 1
         ones = states.new_ones(B, 1)        # the rows' peephole sums over B
         jobs, peeps = [], []

@@ -91,11 +91,14 @@ trains it with a 4x250 BiLSTM encoder.  Phases, each fatal on failure:
     frontend kernel's own output for the same waveform, the frontend
     launches once a request, and a too-short waveform gets 400;
 16. ``lstm_scan`` kernel vs plain at T=800, B=64, D=250, both directions
-    and one alone; ``lstm_scan_train`` forward and backward kernels vs
-    plain (autograd through the plain scan) at T=800, B=32, both
-    directions, ragged mask, random cotangent: states and cells within
-    1e-5, every gradient within 1e-4 of its largest value, a second call's
-    gradients bit for bit;
+    and one alone, a second call bit for bit; ``lstm_scan_train`` forward
+    and backward kernels vs plain (autograd through the plain scan) at
+    T=800, B=32, both directions and one alone, ragged mask, random
+    cotangent: states and cells within 1e-5, every gradient within 1e-4 of
+    its largest value, a second call's gradients bit for bit; the C
+    layouts of both kernels against their Python mirrors, the forward's
+    cluster plan at B=32 and 64, and the times of the forward, of the
+    autograd backward and of ``lstm_train.cu``'s backward kernel alone;
 17. the flagship network with ``enc_transition: LSTM`` (4x250 BiLSTM,
     random weights from seed 1234): beam-10 decode at B=64, 800 frames,
     100-step cap through ``lstm_scan`` + ``beam_search_loop`` vs the plain
@@ -1703,11 +1706,13 @@ def lstm_phase(t, dev, results):
                 for _ in range(ndir)]
         return t(rng.randn(T, B, 4 * D * ndir) * 0.5), mask, dirs
 
+    plans = lstm_plans(dev, D)
     T, B = 800, 64
     proj, mask, dirs = operands(T, B, 2)
     got = ls.lstm_scan(proj, mask, *dirs)
     ref = ls.lstm_scan_reference(proj, mask, *dirs)
     one = ls.lstm_scan(proj[..., :4 * D].contiguous(), mask, dirs[0])
+    again = ls.lstm_scan(proj, mask, *dirs)
     torch.cuda.synchronize()
     err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
     err_one = max(float((g - r[..., :D]).abs().max())
@@ -1717,9 +1722,11 @@ def lstm_phase(t, dev, results):
         f"{err_one:.3e})")
     if not max(err, err_one) <= 1e-5:
         fail(f"lstm_scan disagrees with its plain version: {err}, {err_one}")
+    if not all(torch.equal(g, h) for g, h in zip(got, again)):
+        fail("lstm_scan: a second call gave other states")
     weights = [w for d in dirs for w in d]
     results["lstm_scan"] = {
-        "max_abs_err": max(err, err_one),
+        "max_abs_err": max(err, err_one), **plans,
         "ms": cuda_ms(lambda: ls.lstm_scan(proj, mask, *dirs), 5),
         "plain_ms": cuda_ms(lambda: ls.lstm_scan_reference(proj, mask,
                                                            *dirs), 2),
@@ -1730,38 +1737,47 @@ def lstm_phase(t, dev, results):
         f"{results['lstm_scan']['plain_ms']:.3f} ms, bound "
         f"{results['lstm_scan']['bound_ms']:.3f} ms")
 
-    B = 32
-    proj, mask, dirs = operands(T, B, 2)
-    cots = [t(rng.randn(T, B, 2 * D))]
-    leaves = [proj] + [w for d in dirs for w in d]
+    B, max_err = 32, 0.0
+    for ndir in (1, 2):    # the timings below take the last: both
+        proj, mask, dirs = operands(T, B, ndir)
+        cots = [t(rng.randn(T, B, D * ndir))]
+        leaves = [proj] + [w for d in dirs for w in d]
 
-    def scan(fn):
-        return lambda p, *w: fn(p, mask, tuple(w[:6]), tuple(w[6:]))
+        def scan(fn):
+            return lambda p, *w: fn(p, mask, tuple(w[:6]),
+                                    tuple(w[6:]) if ndir == 2 else None)
 
-    (got, cells), ggot = grads_of(scan(lt.lstm_scan_train), leaves, cots)
-    (ref, ref_cells), gref = grads_of(scan(lt.lstm_scan_train_reference),
-                                      leaves, cots)
-    names = ["dx"] + [f"{n}[{i}]" for i in range(2) for n in (
-        "dh0", "dc0", "dW_state", "dpci", "dpcf", "dpco")]
-    errs = relative_errors(dict(zip(names, ggot)), dict(zip(names, gref)))
-    state_err = max(float((got - ref).abs().max()),
-                    float((cells - ref_cells).abs().max()))
-    log(f"phase 16 lstm_scan_train T={T} B={B} D={D}, both directions: "
-        f"states and cells max abs err {state_err:.3e}; gradients, max abs "
-        f"err over max abs value: "
-        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
-    # states: f32 in another summation order, 1e-5 absolute; gradients:
-    # sums over the reverse recurrence and, for the weights, over T*B =
-    # 25600 rows in another order (1e-4 of their scale)
-    if not (state_err <= 1e-5 and max(errs.values()) <= 1e-4):
-        fail("lstm_scan_train disagrees with its plain version")
-    repeat("lstm_scan_train", ggot, grads_of(scan(lt.lstm_scan_train),
-                                             leaves, cots))
+        (got, cells), ggot = grads_of(scan(lt.lstm_scan_train), leaves,
+                                      cots)
+        (ref, ref_cells), gref = grads_of(
+            scan(lt.lstm_scan_train_reference), leaves, cots)
+        names = ["dx"] + [f"{n}[{i}]" for i in range(ndir) for n in (
+            "dh0", "dc0", "dW_state", "dpci", "dpcf", "dpco")]
+        errs = relative_errors(dict(zip(names, ggot)),
+                               dict(zip(names, gref)))
+        state_err = max(float((got - ref).abs().max()),
+                        float((cells - ref_cells).abs().max()))
+        log(f"phase 16 lstm_scan_train T={T} B={B} D={D}, "
+            f"{'both directions' if ndir == 2 else 'one direction'}: "
+            f"states and cells max abs err {state_err:.3e}; gradients, max "
+            f"abs err over max abs value: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        # states: f32 in another summation order, 1e-5 absolute;
+        # gradients: sums over the reverse recurrence and, for the
+        # weights, over T*B = 25600 rows in another order (1e-4 of their
+        # scale)
+        if not (state_err <= 1e-5 and max(errs.values()) <= 1e-4):
+            fail("lstm_scan_train disagrees with its plain version")
+        repeat("lstm_scan_train", ggot, grads_of(scan(lt.lstm_scan_train),
+                                                 leaves, cots))
+        max_err = max(max_err, state_err, *[
+            float((a - b).abs().max()) for a, b in zip(ggot, gref)])
     fwd, plain = scan(lt.lstm_scan_train), scan(lt.lstm_scan_train_reference)
     fwd_ms = cuda_ms(lambda: fwd(*leaves), 3)
     bwd_ms = backward_ms(fwd, leaves, cots, 3)
     plain_fwd = cuda_ms(lambda: plain(*leaves), 1)
     plain_bwd = backward_ms(plain, leaves, cots, 1)
+    kernel_ms = lstm_backward_kernel_ms(proj, mask, dirs, cots[0], 3)
     # forward: projections, mask, weights in; states, cells and the four
     # gates out.  Backward: cotangent, cells, the four gates, states (the
     # weight gradient's left factor), mask and weights in; the
@@ -1774,18 +1790,82 @@ def lstm_phase(t, dev, results):
         + nbytes(proj, *weights)
     ops = 2 * T * B * lstm_step_ops(D)
     results["lstm_scan_train"] = {
-        "max_abs_err": max(state_err, *[
-            float((a - b).abs().max()) for a, b in zip(ggot, gref)]),
+        "max_abs_err": max_err,
         "ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+        "bwd_kernel_ms": kernel_ms,
+        "bwd_kernel_us_per_step": kernel_ms * 1e3 / T,
         "plain_ms": plain_fwd + plain_bwd, "plain_fwd_ms": plain_fwd,
         "plain_bwd_ms": plain_bwd,
         **bound(fwd_bytes + bwd_bytes, 3 * ops),
         "fwd_bound_ms": bound(fwd_bytes, ops)["bound_ms"],
         "bwd_bound_ms": bound(bwd_bytes, 2 * ops)["bound_ms"],
         "library_ms": None}
-    log(f"  kernels: forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms; "
-        f"plain: forward {plain_fwd:.3f} ms, backward {plain_bwd:.3f} ms; "
-        f"bound {results['lstm_scan_train']['bound_ms']:.3f} ms")
+    log(f"  kernels: forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms "
+        f"(of which lstm_train.cu's kernel {kernel_ms:.3f} ms, "
+        f"{kernel_ms * 1e3 / T:.2f} us a step); plain: forward "
+        f"{plain_fwd:.3f} ms, backward {plain_bwd:.3f} ms; bound "
+        f"{results['lstm_scan_train']['bound_ms']:.3f} ms")
+
+
+def lstm_plans(dev, D):
+    """Phase 16, first: both LSTM kernels' C shared-memory layouts against
+    their Python mirrors, and the forward's cluster plan at the training
+    forward's B=32 and the decode's B=64 (both directions)."""
+    import ctypes
+    from attention_lvcsr_torch import _build
+    from attention_lvcsr_torch.ops import lstm_scan as ls
+    from attention_lvcsr_torch.ops import lstm_train as lt
+    lib = _build.load().lib
+    lib.lstm_scan_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.lstm_train_smem_bytes.argtypes = [ctypes.c_int]
+    for width in (D, 275, 300, 352, 384):
+        for size in (16, 8):
+            mirror = ls.fwd_layout(width, size)["smem_bytes"]
+            if lib.lstm_scan_smem_bytes(width, size) != mirror:
+                fail(f"lstm_scan: the C layout at D={width} with {size}-block "
+                     f"clusters has {lib.lstm_scan_smem_bytes(width, size)} "
+                     f"bytes, the mirror {mirror}")
+        mirror = lt.bwd_layout(width)["smem_bytes"]
+        if lib.lstm_train_smem_bytes(width) != mirror:
+            fail(f"lstm_train: the C layout at D={width} has "
+                 f"{lib.lstm_train_smem_bytes(width)} bytes, the mirror "
+                 f"{mirror}")
+    result = {}
+    for B in (32, 64):
+        plan = ls.launch_plan(D, B, 2, dev)
+        log(f"phase 16 lstm_scan plan B={B} D={D}, both directions: "
+            f"{plan['clusters']} clusters of {plan['cluster']} blocks; the "
+            f"card holds at once {plan['active'][16]} 16-block and "
+            f"{plan['active'][8]} 8-block clusters "
+            f"({ls.fwd_layout(D, 16)['smem_bytes']} and "
+            f"{ls.fwd_layout(D, 8)['smem_bytes']} bytes a block)")
+        result[f"cluster_B{B}"] = plan["cluster"]
+    log(f"phase 16 lstm_train.cu: {lt.BWD_CLUSTER}-block clusters, "
+        f"{lt.bwd_layout(D)['smem_bytes']} bytes a block; C layouts equal "
+        f"the mirrors at D={D}, 275, 300, 352, 384")
+    return result
+
+
+def lstm_backward_kernel_ms(proj, mask, dirs, cot, repeats):
+    """Device time of lstm_train.cu's backward kernel alone (no outer_sum,
+    no copies), on the forward kernel's cells and gate residuals."""
+    import torch
+    from attention_lvcsr_torch import _build
+    from attention_lvcsr_torch.ops import lstm_scan as ls
+    from attention_lvcsr_torch.ops import lstm_train as lt
+    T, B, _ = proj.shape
+    D, ndir = dirs[0][0].shape[1], len(dirs)
+    new = lambda *s: torch.empty(*s, device=proj.device)
+    states, cells = new(T, B, D * ndir), new(T, B, D * ndir)
+    residuals = [tuple(new(T, B, D) for _ in range(4)) for _ in range(ndir)]
+    ls.launch(proj, mask, dirs, states, cells, residuals, "lstm_scan_train")
+    dproj = new(T, B, 4 * D * ndir)
+    grads = [(new(B, D), new(B, D)) for _ in range(ndir)]
+    dpeep = [new(B, 3 * D) for _ in range(ndir)]
+    stream = _build.stream_of(proj)
+    return cuda_ms(lambda: lt.launch_backward(
+        cot, None, cells, mask, dirs, residuals, dproj, grads, dpeep,
+        stream), repeats)
 
 
 def lstm_model_phase(t, dev, launches, rates):

@@ -519,13 +519,14 @@ def test_decoder_scan_train_kernel_refuses_other_variants(device):
         dt.decoder_scan_train(*args, prior={"type": "window_around_mean"})
 
 
-def _lstm_operands(rng, device, T, B, D, ndir):
+def _lstm_operands(rng, device, T, B, D, ndir, masked=True):
     f = lambda *s, scale=0.5: torch.tensor(
         rng.randn(*s).astype(np.float32) * scale, device=device)
     lengths = rng.randint(1, T + 1, size=B)
     lengths[0] = T
     mask = torch.tensor((np.arange(T)[:, None] < lengths[None])
-                        .astype(np.float32), device=device)
+                        .astype(np.float32), device=device) \
+        if masked else None
     dirs = [(f(B, D, scale=0.3), f(B, D, scale=0.3),
              f(D, 4 * D, scale=D ** -0.5), f(D, scale=0.3), f(D, scale=0.3),
              f(D, scale=0.3)) for _ in range(ndir)]
@@ -556,9 +557,73 @@ def test_lstm_scan_train_kernels_match_plain(device, T, B, D, ndir, cells):
     """Forward (lstm_scan.cu with residuals) and backward (lstm_train.cu,
     then outer_sum.cu) vs autograd through the plain scan, with a cells
     cotangent or without one (the encoder's case)."""
+    _check_lstm_scan_train(device, T, B, D, ndir, cells)
+
+
+@pytest.mark.parametrize("T,B,D,ndir,cluster,masked", [
+    (9, 35, 250, 2, 16, True), (9, 35, 250, 2, 8, True),
+    (5, 17, 384, 1, 16, True), (1, 17, 33, 2, 8, False),
+    (4, 16, 256, 2, 8, True), (6, 33, 301, 1, 16, False)])
+def test_lstm_scan_layout_edges(device, monkeypatch, T, B, D, ndir, cluster,
+                                masked):
+    """The forward kernel's padding (D not a multiple of the cluster's
+    columns), its partial row group (B=17, 33, 35), the widest width of
+    each cluster size (384 with 16 blocks, 256 with 8), with and without a
+    mask, a row masked from the first step (it keeps h0 and c0), with the
+    cluster size forced; the C layout equals the Python mirror, and a
+    second call repeats bit for bit."""
+    import ctypes
+    from attention_lvcsr_torch import _build
+    from attention_lvcsr_torch.ops import lstm_scan as ls
+    lib = _build.load().lib
+    lib.lstm_scan_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    assert lib.lstm_scan_smem_bytes(D, cluster) == \
+        ls.fwd_layout(D, cluster)["smem_bytes"]
+    monkeypatch.setattr(ls, "max_active_clusters", lambda D, device: {
+        size: 16 if size == cluster else 0 for size in (16, 8)})
+    rng = np.random.RandomState(T + B + D + cluster)
+    proj, mask, dirs = _lstm_operands(rng, device, T, B, D, ndir, masked)
+    if masked:
+        mask[:, -1] = 0.0
+    got = ls.lstm_scan(proj, mask, *dirs)
+    again = ls.lstm_scan(proj, mask, *dirs)
+    ref = ls.lstm_scan_reference(proj, mask, *dirs)
+    for g, h, r in zip(got, again, ref):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
+        assert torch.equal(g, h)
+    if masked:
+        for out, k in zip(got, (0, 1)):       # states keep h0, cells c0
+            assert torch.equal(out[:, -1], torch.cat(
+                [d[k][-1] for d in dirs]).expand(T, D * ndir))
+
+
+@pytest.mark.parametrize("T,B,D,ndir,cells,masked", [
+    (1, 17, 33, 2, True, True), (6, 35, 250, 2, False, False),
+    (3, 17, 352, 1, False, True), (5, 33, 275, 2, True, True),
+    (11, 16, 301, 1, True, False)])
+def test_lstm_train_backward_edges(device, T, B, D, ndir, cells, masked):
+    """lstm_train.cu at its edges: B not a multiple of the cluster's 16
+    rows, D not a multiple of its 16-block column split, the widest width
+    (352), one step, one direction alone, no mask, no cells cotangent, and
+    row 0 masked from the first step (its gradients pass straight
+    through); the C layout equals the Python mirror."""
+    import ctypes
+    from attention_lvcsr_torch import _build
+    from attention_lvcsr_torch.ops import lstm_train as lt
+    lib = _build.load().lib
+    lib.lstm_train_smem_bytes.argtypes = [ctypes.c_int]
+    assert lib.lstm_train_smem_bytes(D) == lt.bwd_layout(D)["smem_bytes"]
+    _check_lstm_scan_train(device, T, B, D, ndir, cells, masked,
+                           first_masked=masked)
+
+
+def _check_lstm_scan_train(device, T, B, D, ndir, cells, masked=True,
+                           first_masked=False):
     from attention_lvcsr_torch.ops import lstm_train as lt
     rng = np.random.RandomState(T * B + D + ndir)
-    proj, mask, dirs = _lstm_operands(rng, device, T, B, D, ndir)
+    proj, mask, dirs = _lstm_operands(rng, device, T, B, D, ndir, masked)
+    if first_masked:
+        mask[:, 0] = 0.0
     cots = [torch.tensor(rng.randn(T, B, D * ndir).astype(np.float32),
                          device=device) for _ in range(1 + cells)]
     leaves = [proj] + [w for d in dirs for w in d]
@@ -582,19 +647,20 @@ def test_lstm_scan_train_kernels_match_plain(device, T, B, D, ndir, cells):
 
 
 def test_lstm_scans_too_wide_raise(device):
-    """D=320 does not fit the forward cluster's shared memory, D=290 the
-    backward's: no launch, NotImplementedError naming the width."""
+    """D=385 does not fit the forward cluster's shared memory, D=353 the
+    backward's: no launch, NotImplementedError naming the width and the
+    widest one covered."""
     from attention_lvcsr_torch.ops import lstm_scan as ls
     from attention_lvcsr_torch.ops import lstm_train as lt
     rng = np.random.RandomState(0)
-    proj, mask, dirs = _lstm_operands(rng, device, 3, 2, 320, 2)
+    proj, mask, dirs = _lstm_operands(rng, device, 3, 2, 385, 2)
     before = ls.launches.count
-    with pytest.raises(NotImplementedError, match="D=320"):
+    with pytest.raises(NotImplementedError, match="D=385.*up to D=384"):
         ls.lstm_scan(proj, mask, *dirs)
     assert ls.launches.count == before
-    proj, mask, dirs = _lstm_operands(rng, device, 3, 2, 290, 1)
+    proj, mask, dirs = _lstm_operands(rng, device, 3, 2, 353, 1)
     before = lt.launches.count
-    with pytest.raises(NotImplementedError, match="D=290"):
+    with pytest.raises(NotImplementedError, match="D=353.*up to D=352"):
         lt.lstm_scan_train(proj, mask, *dirs)
     assert lt.launches.count == before
 

@@ -2,7 +2,7 @@
 """Times the training scans' kernels on one NVIDIA GPU, alone.
 
     python3 tools/torch_bench_train_kernels.py [--root DIR] [--repeats N]
-        [--only decoder|gru] [--decoder-plans]
+        [--only decoder|gru|lstm] [--decoder-plans]
 
 Run from the repository root on a machine with a CUDA device and nvcc.
 At the flagship encoder layer's shapes (T=800, D=250, ragged mask, random
@@ -25,6 +25,15 @@ and at B=32:
   T*B rows, beside one float32 cuBLAS ``addmm_`` per job;
 * the backward kernel's dx_in, dx_gate and dh0 against autograd through
   the plain scan, as max abs error over the largest value;
+
+the LSTM encoder's kernels at the same shapes: the forward of
+``csrc/lstm_scan.cu`` through ``ops/lstm_scan.py::launch``, both
+directions, at the training forward's B=32 (with the gate residuals) and
+the decode's B=64, and ``lstm_train_bwd_f32`` of ``csrc/lstm_train.cu``
+alone at B=32, both directions and one, each against the plain scan (the
+forward's states and cells as max abs error, the backward's dx, dh0 and
+dc0 against autograd as max abs error over the largest value), with the
+cluster size the launcher chose where it chooses one;
 
 and the teacher-forced decoder's two kernels of ``csrc/decoder_train.cu``
 at the flagship decoder's shapes (T=100, L=200, M=250, D=500, S=250, 201
@@ -63,7 +72,8 @@ def main():
                         help="directory holding the attention_lvcsr_torch "
                              "package to time")
     parser.add_argument("--repeats", type=int, default=5)
-    parser.add_argument("--only", choices=("decoder", "gru"), default=None)
+    parser.add_argument("--only", choices=("decoder", "gru", "lstm"),
+                        default=None)
     parser.add_argument("--decoder-plans", action="store_true")
     parser.add_argument("--decoder-batches", default="32,64",
                         help="batch sizes of the decoder kernels' timings")
@@ -86,7 +96,7 @@ def main():
     for line in lib.log.splitlines():
         if "Compiling entry" in line:
             mine = any(k in line for k in ("gru_bwd", "outer_sum", "gru_scan",
-                                           "gru_fwd", "decoder_"))
+                                           "gru_fwd", "decoder_", "lstm_"))
         if mine and ("Compiling entry" in line or "Used" in line
                      or "spill" in line):
             print(f"  ptxas: {line.strip()}")
@@ -106,10 +116,12 @@ def main():
         return start.elapsed_time(end) / args.repeats
 
     result = {"card": card, "root": os.path.abspath(args.root)}
-    if args.only != "gru":
+    if args.only in (None, "decoder"):
         decoder_kernels(t, dev, args, result)
-    if args.only != "decoder":
+    if args.only in (None, "gru"):
         gru_kernels(t, dev, args, lib, result, cuda_ms)
+    if args.only in (None, "lstm"):
+        lstm_kernels(t, dev, lib, result, cuda_ms)
     print(json.dumps(result))
 
 
@@ -232,6 +244,109 @@ def gru_kernels(t, dev, args, lib, result, cuda_ms):
     print(f"outer_sum, 4 jobs over {T * B} rows: {result['outer_sum_ms']:.4f} "
           f"ms, again {result['outer_sum_again_ms']:.4f} ms; one addmm_ per "
           f"job {result['addmm_per_job_ms']:.4f} ms")
+
+
+def lstm_kernels(t, dev, lib, result, cuda_ms):
+    """The LSTM forward kernel at B=32 (training) and B=64 (decode) and the
+    backward kernel alone at B=32."""
+    import torch
+    from attention_lvcsr_torch import _build
+    from attention_lvcsr_torch.ops import lstm_scan as ls
+    from attention_lvcsr_torch.ops import lstm_train as lt
+    T, D = 800, 250
+    rng = np.random.RandomState(16)
+
+    def operands(B, ndir):
+        lengths = rng.randint(300, T + 1, size=B)
+        lengths[0] = T
+        mask = t((np.arange(T)[:, None] < lengths[None]).astype(np.float32))
+        dirs = [(t(rng.randn(B, D) * 0.1), t(rng.randn(B, D) * 0.1),
+                 t(rng.randn(D, 4 * D) / np.sqrt(D)), t(rng.randn(D) * 0.1),
+                 t(rng.randn(D) * 0.1), t(rng.randn(D) * 0.1))
+                for _ in range(ndir)]
+        return t(rng.randn(T, B, 4 * D * ndir) * 0.5), mask, dirs
+
+    def forward(proj, mask, dirs, train):
+        B, ndir = proj.shape[1], len(dirs)
+        states = torch.empty(T, B, D * ndir, device=dev)
+        cells = torch.empty_like(states)
+        residuals = [tuple(torch.empty(T, B, D, device=dev)
+                           for _ in range(4)) for _ in range(ndir)] \
+            if train else None
+        run = lambda: ls.launch(proj, mask, dirs, states, cells, residuals,
+                                "bench")
+        return run, states, cells, residuals
+
+    for B, train in ((32, True), (64, False)):
+        proj, mask, dirs = operands(B, 2)
+        run, states, cells, _ = forward(proj, mask, dirs, train)
+        ms = cuda_ms(run)
+        ref = ls.lstm_scan_reference(proj, mask, *dirs)
+        err = max(float((states - ref[0]).abs().max()),
+                  float((cells - ref[1]).abs().max()))
+        key = f"lstm_fwd_B{B}_{'train' if train else 'decode'}_2dir"
+        result[f"{key}_ms"] = ms
+        result[f"{key}_err"] = err
+        plan = ""
+        if hasattr(ls, "launch_plan"):
+            p = ls.launch_plan(D, B, 2, dev)
+            result[f"{key}_cluster"] = p["cluster"]
+            plan = (f"; {p['clusters']} clusters of {p['cluster']} blocks "
+                    f"(co-resident at most: {p['active']})")
+        print(f"lstm_scan forward T={T} B={B} D={D} ndir=2"
+              f"{' with residuals' if train else ''}: {ms:.3f} ms "
+              f"({ms * 1e3 / T:.2f} us a step), states and cells vs plain "
+              f"{err:.2e}{plan}", flush=True)
+
+    B = 32
+    fn = lib.lib.lstm_train_bwd_f32
+    fn.argtypes = [ctypes.POINTER(lt._BwdArgs), ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    for ndir in (2, 1):
+        proj, mask, dirs = operands(B, ndir)
+        run, states, cells, residuals = forward(proj, mask, dirs, True)
+        run()
+        cot = t(rng.randn(T, B, D * ndir))
+        dproj = torch.empty(T, B, 4 * D * ndir, device=dev)
+        dh0s = [torch.empty(B, D, device=dev) for _ in range(ndir)]
+        dc0s = [torch.empty(B, D, device=dev) for _ in range(ndir)]
+        dpeep = [torch.empty(B, 3 * D, device=dev) for _ in range(ndir)]
+        kargs = lt._BwdArgs(mask=mask.data_ptr(), T=T, B=B, D=D,
+                            ld_dout=D * ndir, ld_states=D * ndir,
+                            ld_dx=4 * D * ndir)
+        for i, ((_, c0, ws, pci, pcf, pco), gates) in enumerate(
+                zip(dirs, residuals)):
+            kargs.dir[i] = lt._BwdDir(
+                cot[..., D * i:].data_ptr(), None,
+                cells[..., D * i:].data_ptr(), c0.data_ptr(),
+                *(g.data_ptr() for g in gates), ws.data_ptr(),
+                pci.data_ptr(), pcf.data_ptr(), pco.data_ptr(),
+                dproj[..., 4 * D * i:].data_ptr(), dh0s[i].data_ptr(),
+                dc0s[i].data_ptr(), dpeep[i].data_ptr(), reverse=i)
+        stream = _build.stream_of(states)
+
+        def backward():
+            _build.check(fn(ctypes.byref(kargs), ndir, stream),
+                         "lstm_train_bwd_f32")
+
+        ms = cuda_ms(backward)
+        leaves = [x.detach().requires_grad_()
+                  for x in [proj] + [w for d in dirs for w in d]]
+        ref = lt.lstm_scan_train_reference(
+            leaves[0], mask, tuple(leaves[1:7]),
+            tuple(leaves[7:]) if ndir == 2 else None)
+        gref = torch.autograd.grad(ref[0], leaves, cot)
+        rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+        err = max(rel(dproj, gref[0]),
+                  *[rel(g, gref[1 + 6 * i + k]) for i in range(ndir)
+                    for k, g in enumerate((dh0s[i], dc0s[i]))])
+        key = "bidir" if ndir == 2 else "one_direction"
+        result[f"lstm_bwd_{key}_ms"] = ms
+        result[f"lstm_bwd_{key}_us_per_step"] = ms * 1e3 / T
+        result[f"lstm_bwd_{key}_rel_err"] = err
+        print(f"lstm_train_bwd_f32 T={T} B={B} D={D} ndir={ndir}: {ms:.3f} "
+              f"ms ({ms * 1e3 / T:.2f} us a step); dx/dh0/dc0 vs plain "
+              f"{err:.2e} of the largest value", flush=True)
 
 
 def decoder_kernels(t, dev, args, result):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's flagship decode (one NVIDIA GPU).
 
-    python3 tools/torch_profile_decode.py [--out chiprun_out/profile_decode.txt]
+    python3 tools/torch_profile_decode.py [--net gru|lstm]
+        [--out profile_decode.txt]
 
 Run from the repository root on a machine with a CUDA device and nvcc.
 Drives the decode ``chip_smoke.py`` drives (``FLAGSHIP_NET``, random
@@ -12,13 +13,16 @@ weights from seed 1234, B=64, 800 frames, beam 10) and reports:
    (``chip_smoke.py``'s trigram, weight 0.5, char_discount 1.0) and the
    dictionary-constrained decode under ``use_pallas: fused``
    (``chip_smoke.py`` phase 9): device time per kernel, the device's busy
-   time and the window's wall time, hence its idle share;
+   time and the window's wall time, hence its idle share.  With ``--net
+   lstm`` the network has a 4x250 BiLSTM encoder and only the no-LM route
+   runs (``chip_smoke.py`` phase 17's decode);
 2. cycles per step inside each CUDA kernel, phase by phase.  The tool
-   copies ``csrc/beam_loop.cu`` and ``csrc/gru_scan.cu`` into
+   copies ``csrc/beam_loop.cu`` and the encoder's scan,
+   ``csrc/gru_scan.cu`` (or ``csrc/lstm_scan.cu``), into
    ``build/profile/``, puts a ``clock64()`` probe (after a
    ``__syncthreads``) before every ``// ---- <phase>`` comment inside
    each kernel's step loop and one after the loop, builds the copies into
-   a separate library and runs the kernels from it: the gru_scan probe at
+   a separate library and runs the kernels from it: the scan's probe at
    the encoder's first layer (T=800, B=64, both directions), the
    beam_search_loop probe on the decode's own tables.  The probes add
    barriers, so per-phase shares are what they read; the kernels' times
@@ -101,6 +105,8 @@ def phase_table(lib, tag, names, blocks, steps, out):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--net", choices=("gru", "lstm"), default="gru",
+                        help="the encoder's transition")
     parser.add_argument("--out", default=None,
                         help="also write the report to this file")
     args = parser.parse_args()
@@ -113,6 +119,7 @@ def main():
     from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
     from attention_lvcsr_torch.ops import beam_loop as bl
     from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.ops import lstm_scan as ls
     from torch.profiler import ProfilerActivity, profile
 
     lines = []
@@ -127,7 +134,9 @@ def main():
                         "clocks.sm,clocks.max.sm", "--format=csv,noheader"],
                        capture_output=True, text=True).stdout.strip())
     dev = torch.device("cuda:0")
-    net_config = dict(FLAGSHIP_NET, max_decoded_length_scale=8.0)
+    lstm = args.net == "lstm"
+    net_config = dict(FLAGSHIP_NET, max_decoded_length_scale=8.0,
+                      **({"enc_transition": "LSTM"} if lstm else {}))
     rec = SpeechRecognizer(net_config, init_config=INIT, seed=1234,
                            device=dev)
     rec.init_beam_search(10)
@@ -176,27 +185,30 @@ def main():
 
     from chip_smoke import CHAR_MAP, CHARS, bench_trigram
     from attention_lvcsr_torch.search.beam import DecodeConstraint
-    profile_decode("loop kernel (no LM)", rec)
-    with tempfile.TemporaryDirectory() as tmp:
-        lm_path = os.path.join(tmp, "lm_trigram.npz")
-        bench_trigram(lm_path)
-        rec_lm = SpeechRecognizer(
-            dict(net_config, lm={"path": lm_path, "weight": 0.5,
-                                 "no_transition_cost": 20.0}),
-            init_config=INIT, seed=1234, device=dev)
-    rec_lm.init_beam_search(10)
-    profile_decode("LM-fused", rec_lm, char_discount=1.0)
-    wrng = np.random.RandomState(9)
-    words = sorted({"".join(wrng.choice(CHARS[:26], size=wrng.randint(2, 8)))
-                    for _ in range(300)})
-    rec_c = SpeechRecognizer(dict(net_config, use_pallas="fused"),
-                             init_config=INIT, seed=1234, device=dev)
-    rec_c.net.generator.readout.post_merge_0.bias.data[rec_c.eos_label] += 1.5
-    rec_c.init_beam_search(10)
-    profile_decode("constrained (fused score, EOS +1.5)", rec_c,
-                   char_discount=1.0,
-                   validate_solution_function=DecodeConstraint.from_words(
-                       words, CHAR_MAP, 32))
+    profile_decode(f"{args.net} encoder, loop kernel (no LM)", rec)
+    if not lstm:
+        with tempfile.TemporaryDirectory() as tmp:
+            lm_path = os.path.join(tmp, "lm_trigram.npz")
+            bench_trigram(lm_path)
+            rec_lm = SpeechRecognizer(
+                dict(net_config, lm={"path": lm_path, "weight": 0.5,
+                                     "no_transition_cost": 20.0}),
+                init_config=INIT, seed=1234, device=dev)
+        rec_lm.init_beam_search(10)
+        profile_decode("LM-fused", rec_lm, char_discount=1.0)
+        wrng = np.random.RandomState(9)
+        words = sorted({"".join(wrng.choice(CHARS[:26],
+                                            size=wrng.randint(2, 8)))
+                        for _ in range(300)})
+        rec_c = SpeechRecognizer(dict(net_config, use_pallas="fused"),
+                                 init_config=INIT, seed=1234, device=dev)
+        rec_c.net.generator.readout.post_merge_0.bias.data[
+            rec_c.eos_label] += 1.5
+        rec_c.init_beam_search(10)
+        profile_decode("constrained (fused score, EOS +1.5)", rec_c,
+                       char_discount=1.0,
+                       validate_solution_function=DecodeConstraint.from_words(
+                           words, CHAR_MAP, 32))
 
     # ---- 2. phase probes inside the kernels ---------------------------------
     with torch.inference_mode():
@@ -204,9 +216,10 @@ def main():
         tables = rec.net.decode_loop_tables()
     os.makedirs(os.path.join(ROOT, "build", "profile"), exist_ok=True)
     paths, phases = [], {}
+    scan_src = "lstm_scan.cu" if lstm else "gru_scan.cu"
     for name, header, tag in (
             ("beam_loop.cu", "for (int i = 0; i < max_len; ++i) {", "beam"),
-            ("gru_scan.cu", "for (int step = 0; step < T; ++step) {", "gru")):
+            (scan_src, "for (int step = 0; step < T; ++step) {", "scan")):
         src = open(os.path.join(_build.CSRC, name)).read()
         text, phases[tag] = instrument(src, header, tag)
         paths.append(os.path.join(ROOT, "build", "profile", name))
@@ -238,17 +251,28 @@ def main():
     rng = np.random.RandomState(0)
     D = 250
     t = lambda a: torch.tensor(a.astype(np.float32), device=dev)
-    weights = [(t(rng.randn(B, D) * 0.1), t(rng.randn(D, D) / np.sqrt(D)),
-                t(rng.randn(D, 2 * D) / np.sqrt(D))) for _ in range(2)]
-    proj = t(rng.randn(T, B, 6 * D) * 0.5)
-    lib.prof_reset_gru()
-    gs.gru_scan(proj, mask.t().contiguous(), *weights)
+    if lstm:
+        weights = [(t(rng.randn(B, D) * 0.1), t(rng.randn(B, D) * 0.1),
+                    t(rng.randn(D, 4 * D) / np.sqrt(D)), t(rng.randn(D) * 0.1),
+                    t(rng.randn(D) * 0.1), t(rng.randn(D) * 0.1))
+                   for _ in range(2)]
+        proj = t(rng.randn(T, B, 8 * D) * 0.5)
+        scan, module = ls.lstm_scan, ls
+    else:
+        weights = [(t(rng.randn(B, D) * 0.1),
+                    t(rng.randn(D, D) / np.sqrt(D)),
+                    t(rng.randn(D, 2 * D) / np.sqrt(D))) for _ in range(2)]
+        proj = t(rng.randn(T, B, 6 * D) * 0.5)
+        scan, module = gs.gru_scan, gs
+    lib.prof_reset_scan()
+    scan(proj, mask.t().contiguous(), *weights)
     torch.cuda.synchronize()
-    out(f"gru_scan phases (T={T}, B={B}, D={D}, both directions):")
-    cluster = gs.launch_plan(D, B, 2, dev)["cluster"]
+    name = scan.__name__
+    out(f"{name} phases (T={T}, B={B}, D={D}, both directions):")
+    cluster = module.launch_plan(D, B, 2, dev)["cluster"]
     out(f"  ({cluster}-block clusters)")
-    phase_table(lib, "gru", phases["gru"], 2 * cluster * ((B + 15) // 16), T,
-                out)
+    phase_table(lib, "scan", phases["scan"],
+                2 * cluster * ((B + 15) // 16), T, out)
 
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -2,12 +2,14 @@
 """Where the time goes in the port's flagship training step (one NVIDIA
 GPU).
 
-    python3 tools/torch_profile_train.py [--out profile_train.txt]
+    python3 tools/torch_profile_train.py [--net gru|lstm]
+        [--out profile_train.txt]
 
 Run from the repository root on a machine with a CUDA device and nvcc.
 Drives the training step ``chip_smoke.py`` phase 13 drives
 (``FLAGSHIP_NET``, random weights from seed 1234, B=32, 800 frames, 100
-labels, adadelta with clipping and max-norm) and reports:
+labels, adadelta with clipping and max-norm), or with ``--net lstm``
+phase 17's (the same network with a 4x250 BiLSTM encoder), and reports:
 
 1. ``torch.profiler`` over one step after two warm-up steps: device time
    per kernel, the device's busy time and the step's wall time, hence its
@@ -16,10 +18,10 @@ labels, adadelta with clipping and max-norm) and reports:
    (``clock64()`` after a ``__syncthreads``, as
    ``tools/torch_profile_decode.py`` puts them) before every
    ``// ---- <phase>`` comment of the step loops of ``decoder_train.cu``
-   (forward and backward), ``gru_scan.cu`` (the GRU forward) and
-   ``gru_train.cu`` (backward), in copies
-   built into a separate library; one more step runs from it.  The probes
-   add barriers, so the shares are what they read; the kernels' times
+   (forward and backward) and of the encoder's scans, ``gru_scan.cu``
+   and ``gru_train.cu`` (or ``lstm_scan.cu`` and ``lstm_train.cu``), in
+   copies built into a separate library; one more step runs from it.
+   The probes add barriers, so the shares are what they read; the kernels' times
    come from part 1.
 """
 from __future__ import annotations
@@ -39,6 +41,8 @@ from torch_profile_decode import INIT, instrument, phase_table  # noqa: E402
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--net", choices=("gru", "lstm"), default="gru",
+                        help="the encoder's transition")
     parser.add_argument("--out", default=None,
                         help="also write the report to this file")
     args = parser.parse_args()
@@ -51,6 +55,8 @@ def main():
     from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
     from attention_lvcsr_torch.ops import decoder_train as dt
     from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.ops import lstm_scan as ls
+    from attention_lvcsr_torch.ops import lstm_train as lt
     from attention_lvcsr_torch.train.driver import GradientDescent, \
         make_train_step
     from attention_lvcsr_torch.train.rules import build_optimizer
@@ -71,8 +77,9 @@ def main():
     config = {"training": {"gradient_threshold": 100.0, "rules": ["adadelta"],
                            "decay_rate": 0.95, "epsilon": 1e-8},
               "regularization": {"max_norm": 1.0}}
-    rec = SpeechRecognizer(FLAGSHIP_NET, init_config=INIT, seed=1234,
-                           device=dev)
+    lstm = args.net == "lstm"
+    net = dict(FLAGSHIP_NET, enc_transition="LSTM") if lstm else FLAGSHIP_NET
+    rec = SpeechRecognizer(net, init_config=INIT, seed=1234, device=dev)
     optimizer = build_optimizer(config["training"], config["regularization"])
     algorithm = GradientDescent(rec, optimizer,
                                 make_train_step(rec, optimizer, config))
@@ -111,8 +118,8 @@ def main():
         for start, end in sorted(spans):
             busy += max(0.0, end - max(start, reach)) / 1e3
             reach = max(reach, end)
-        out(f"training step B={B} frames={T} labels={TL}: device busy "
-            f"{busy:.3f} ms of a {window_ms:.3f} ms window (idle "
+        out(f"{args.net} training step B={B} frames={T} labels={TL}: device "
+            f"busy {busy:.3f} ms of a {window_ms:.3f} ms window (idle "
             f"{100 * (1 - busy / window_ms):.1f} %), {len(kernels)} kernel "
             f"launches")
         for name, (ms, count) in sorted(per_name.items(),
@@ -122,16 +129,15 @@ def main():
 
     # ---- 2. phase probes inside the training kernels -------------------------
     os.makedirs(os.path.join(ROOT, "build", "profile"), exist_ok=True)
+    step_loop = "for (int step = 0; step < T; ++step) {"
+    enc_fwd, enc_bwd = ("lstm_scan.cu", "lstm_train.cu") if lstm \
+        else ("gru_scan.cu", "gru_train.cu")
     loops = {"decoder_train.cu": (("for (int t = 0; t < a.T; ++t) {", "dfwd"),
                                   ("for (int t = a.T - 1; t >= 0; --t) {",
                                    "dbwd")),
-             "gru_train.cu": (("for (int step = 0; step < T; ++step) {",
-                               "gbwd"),),
-             "gru_scan.cu": (("for (int step = 0; step < T; ++step) {",
-                              "gfwd"),)}
+             enc_fwd: ((step_loop, "efwd"),), enc_bwd: ((step_loop, "ebwd"),)}
     paths, phases = [], {}
-    for name in ("decoder_train.cu", "gru_train.cu", "gru_scan.cu",
-                 "outer_sum.cu"):
+    for name in ("decoder_train.cu", enc_fwd, enc_bwd, "outer_sum.cu"):
         text = open(os.path.join(_build.CSRC, name)).read()
         for header, tag in loops.get(name, ()):
             text, phases[tag] = instrument(text, header, tag)
@@ -151,9 +157,11 @@ def main():
         getattr(lib, f"prof_reset_{tag}")()
     algorithm.process_batch(batch)
     torch.cuda.synchronize()
-    gru_steps = 3 * T + T // 2          # the four layers: 800/800/800/400
+    enc_steps = 3 * T + T // 2          # the four layers: 800/800/800/400
     groups = (B + 15) // 16
-    cluster = gs.launch_plan(250, B, 2, dev)["cluster"]
+    cluster = (ls if lstm else gs).launch_plan(250, B, 2, dev)["cluster"]
+    bwd_cluster = lt.BWD_CLUSTER if lstm else 16
+    scan = "lstm_scan_train" if lstm else "gru_scan_train"
     decoder = {kind: B for kind in ("forward", "backward")}
     if hasattr(dt, "launch_plan"):      # the grid of each decoder kernel
         decoder = {kind: dt.launch_plan(kind, B, T // 4, 250, 500, 250,
@@ -162,11 +170,12 @@ def main():
             ("dfwd", "decoder_scan_train forward", decoder["forward"], TL),
             ("dbwd", "decoder_scan_train backward", decoder["backward"],
              TL),
-            ("gfwd", f"gru_scan_train forward, both directions, 4 layers "
+            ("efwd", f"{scan} forward, both directions, 4 layers "
                      f"({cluster}-block clusters)", 2 * cluster * groups,
-             gru_steps),
-            ("gbwd", "gru_scan_train backward, both directions, 4 layers",
-             2 * 16 * groups, gru_steps)):
+             enc_steps),
+            ("ebwd", f"{scan} backward, both directions, 4 layers "
+                     f"({bwd_cluster}-block clusters)",
+             2 * bwd_cluster * groups, enc_steps)):
         out(f"{what} phases ({blocks} blocks, {steps} steps a block):")
         phase_table(lib, tag, phases[tag], blocks, steps, out)
 
