@@ -8,9 +8,9 @@
 // separate their passes by, __syncthreads(); the caller separates phases.
 // The window phases cover only frames [lb, le) of the prior's window:
 // outside it the softmax weight is exactly zero, so the convolution and
-// the energies there are never needed.  The products (rows_matvec,
-// readout_costs) are the score kernel's; the whole-loop kernel runs its
-// products through beam_products.cuh, element for element the same sums.
+// the energies there are never needed.  The products are each kernel's
+// own: beam_products.cuh for the whole-loop kernel, decode_score.cu's for
+// the score kernel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,7 +19,6 @@
 
 namespace {
 
-constexpr int kPrefetch = 8;         // weight rows loaded ahead
 constexpr int kMq = 8;               // energy columns per lane and pass
 constexpr float kInf = 1e9f;         // "no hypothesis" cost
 constexpr float kBig = 3e38f;        // taken-candidate marker
@@ -43,52 +42,6 @@ __device__ __forceinline__ void lex_min(float& bv, int& bi, float ov, int oi) {
   if (ov < bv || (ov == bv && oi < bi)) {
     bv = ov;
     bi = oi;
-  }
-}
-
-// out[r, c] (+)= sum_k in[r * ldi + k] * W[k * N + c]  (+ bias[c]),
-// for r < nrows, c < N.  Threads own columns; RB rows accumulate in
-// registers so each weight load from global memory serves every row, and
-// weights are fetched kPrefetch rows of W at a time so that many loads are
-// in flight (the loop is bound by L2 latency, not by arithmetic).  The
-// sum over k runs in order, as in the plain version's reference order.
-template <int RB>
-__device__ void rows_matvec(const float* in, int ldi, int nrows, int Kd,
-                            const float* __restrict__ W, int N,
-                            const float* __restrict__ bias, float* out,
-                            int ldo, bool accumulate) {
-  for (int c = threadIdx.x; c < N; c += blockDim.x) {
-    for (int r0 = 0; r0 < nrows; r0 += RB) {
-      const int nr = min(RB, nrows - r0);
-      const float* x = in + r0 * ldi;
-      float acc[RB];
-#pragma unroll
-      for (int j = 0; j < RB; ++j) acc[j] = 0.f;
-      int k = 0;
-      for (; k + kPrefetch <= Kd; k += kPrefetch) {
-        float w[kPrefetch];
-#pragma unroll
-        for (int q = 0; q < kPrefetch; ++q)
-          w[q] = __ldg(W + (size_t)(k + q) * N + c);
-#pragma unroll
-        for (int q = 0; q < kPrefetch; ++q)
-#pragma unroll
-          for (int j = 0; j < RB; ++j)
-            if (j < nr) acc[j] = fmaf(x[j * ldi + k + q], w[q], acc[j]);
-      }
-      for (; k < Kd; ++k) {
-        const float w = __ldg(W + (size_t)k * N + c);
-#pragma unroll
-        for (int j = 0; j < RB; ++j)
-          if (j < nr) acc[j] = fmaf(x[j * ldi + k], w, acc[j]);
-      }
-      for (int j = 0; j < nr; ++j) {
-        float v = acc[j];
-        if (bias != nullptr) v = v + bias[c];
-        float* o = out + (r0 + j) * ldo + c;
-        *o = accumulate ? *o + v : v;
-      }
-    }
   }
 }
 
@@ -286,30 +239,6 @@ __device__ void log_softmax_costs(float* COSTS, int K, int V,
       for (int c = lane; c < V; c += 32) cr[c] = lse - cr[c];
     }
   }
-}
-
-// Readout and costs: act = tanh(wa @ merge_k + merge_b [+ h @ merge_states_k]),
-// logits = act @ post_k + post_b, costs[r, c] = alive[r] + (lse_r - logit)
-// (no alive term when `alive` is null).  ACT holds K x R, COSTS K x V.
-template <int RB>
-__device__ void readout_costs(const float* WA, int D, const float* H, int S,
-                              int K, const float* __restrict__ merge_k,
-                              const float* __restrict__ merge_b,
-                              const float* __restrict__ merge_states_k,
-                              const float* __restrict__ post_k,
-                              const float* __restrict__ post_b, int R, int V,
-                              const float* alive, float* ACT, float* COSTS) {
-  rows_matvec<RB>(WA, D, K, D, merge_k, R, merge_b, ACT, R, false);
-  if (merge_states_k != nullptr) {
-    __syncthreads();
-    rows_matvec<RB>(H, S, K, S, merge_states_k, R, nullptr, ACT, R, true);
-  }
-  __syncthreads();
-  tanh_in_place(ACT, K * R);
-  __syncthreads();
-  rows_matvec<RB>(ACT, R, K, R, post_k, V, post_b, COSTS, V, false);
-  __syncthreads();
-  log_softmax_costs(COSTS, K, V, alive);
 }
 
 }  // namespace

@@ -12,6 +12,10 @@ the plain PyTorch version for tensors on the CPU and launches
 ``csrc/attention_energy.cu`` for tensors on a CUDA device; any other
 device raises.  Float32 in, float32 math, as the module path of the JAX
 package computes it.
+
+The kernel runs a block per utterance and tile of frames; :func:`plan`
+picks the tile so that the blocks spread over the card's SMs in balanced
+waves, and mirrors the kernel's thread and shared-memory layout.
 """
 from __future__ import annotations
 
@@ -22,6 +26,56 @@ import torch
 from attention_lvcsr_torch import _build
 
 launches = _build.LaunchCounter()
+
+# csrc/attention_energy.cu's constants
+MAX_THREADS = 256
+MAX_SLICES = 8
+MAX_SMEM = 232448          # the opt-in shared memory of a block on sm_90
+TILES = tuple(range(2, 33, 2))
+
+
+def plan(U, K, L, M, sms, max_smem=MAX_SMEM):
+    """The launch of the kernel for U utterances, beam K, L frames and M
+    match columns on a card of ``sms`` SMs: frames a block (``tile``), M
+    slices a thread tile takes (``slices``), threads and shared memory of
+    a block, blocks.  A thread owns 2 rows (1 at K=1) x 2 frames; the
+    tile is the one whose blocks give the least work to the busiest SM,
+    ``ceil(blocks / sms) * (tile + 1)`` (a block's staging and sums
+    count about one frame), the larger on a tie."""
+    rk = 1 if K == 1 else 2
+    groups = -(-K // rk)
+    Mp = M | 1
+    best = None
+    for tile in sorted({min(t, L + L % 2) for t in TILES}):
+        tiles = groups * -(-min(tile, L) // 2)
+        if tiles > MAX_THREADS:
+            continue
+        slices = max(1, min(MAX_SLICES, MAX_THREADS // tiles, M))
+        smem = 4 * ((tile + K + 2) * Mp + slices * K * tile)
+        if smem > max_smem:
+            continue
+        blocks = U * -(-L // tile)
+        cost = (-(-blocks // sms) * (tile + 1), -tile)
+        if best is None or cost < best[0]:
+            best = (cost, {"tile": tile, "slices": slices,
+                           "threads": -(-tiles * slices // 32) * 32,
+                           "blocks": blocks, "smem_bytes": smem})
+    if best is None:
+        raise NotImplementedError(
+            f"beam_attention_energies: beam {K} at M={M} does not fit a "
+            f"block's shared memory ({max_smem} bytes)")
+    return best[1]
+
+
+_sms = {}
+
+
+def launch_plan(U, K, L, M, device):
+    """:func:`plan` on the device's SM count (queried once a device)."""
+    if device.index not in _sms:
+        _sms[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return plan(U, K, L, M, _sms[device.index])
 
 
 def beam_attention_energies_reference(pre, state_sum, conv, handler, v, bias,
@@ -39,7 +93,22 @@ class _Args(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "pre", "state_sum", "conv", "handler", "v", "out")]
         + [("bias", ctypes.c_float)]
-        + [(n, ctypes.c_int) for n in ("U", "K", "L", "M")])
+        + [(n, ctypes.c_int) for n in ("U", "K", "L", "M", "tile",
+                                       "slices")])
+
+
+_entry = None
+
+
+def _kernel():
+    """The C entry point, its ctypes signature set once."""
+    global _entry
+    if _entry is None:
+        fn = _build.load().lib.attention_energy_f32
+        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _entry = fn
+    return _entry
 
 
 def _check(name, t, shape, device):
@@ -69,14 +138,12 @@ def _launch(pre, state_sum, conv, handler, v, bias, beam):
     out = torch.empty(U * K, L, dtype=torch.float32, device=device)
     if not (U and K and L):
         return out
-    lib = _build.load().lib
-    fn = lib.attention_energy_f32
-    fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    p = launch_plan(U, K, L, M, device)
+    fn = _kernel()
     args = _Args(pre=pre.data_ptr(), state_sum=state_sum.data_ptr(),
                  conv=conv.data_ptr(), handler=handler.data_ptr(),
                  v=v.data_ptr(), out=out.data_ptr(), bias=float(bias),
-                 U=U, K=K, L=L, M=M)
+                 U=U, K=K, L=L, M=M, tile=p["tile"], slices=p["slices"])
     with torch.cuda.device(device):
         status = fn(ctypes.byref(args), _build.stream_of(pre))
     _build.check(status, "attention_energy_f32")

@@ -9,6 +9,14 @@ one launch (``csrc/decode_score.cu``).  ``fused_decode_score`` takes the
 plain PyTorch version for tensors on the CPU and launches the kernel for
 tensors on a CUDA device; any other device raises.
 
+The kernel runs each utterance on a thread-block cluster of 1, 2, 4 or 8
+blocks that split the columns of the state projection, the energies, the
+weighted average and the merge layer.  :func:`launch_plan` takes the size
+whose clusters the card holds in the fewest waves
+(``cudaOccupancyMaxActiveClusters``), the larger on a tie, among those
+whose layout fits a block's shared memory; :func:`smem_layout` mirrors
+that layout.
+
 Semantics of the TPU kernel, which both versions keep:
 
 * the window is taken per utterance over its K rows (the module path of
@@ -33,11 +41,17 @@ from attention_lvcsr_torch import _build
 from attention_lvcsr_torch.ops.attention_energy import \
     beam_attention_energies_reference
 from attention_lvcsr_torch.ops.expressions import conv1d_full
+from attention_lvcsr_torch.ops.gru_scan import choose_cluster
 
 NEG = -1e30
 PRIORS = ("expanding", "window_around_median")
 
 launches = _build.LaunchCounter()
+
+# csrc/decode_score.cu's constants
+ZONE = 10240               # floats: a product's slices' partial sums, at most
+CLUSTERS = (8, 4, 2, 1)
+MAX_SMEM = 232448          # the opt-in shared memory of a block on sm_90
 
 # table name -> shape in terms of the dimension letters of _launch
 _TABLE_SHAPES = {"state_trans": "SM", "handler": "M", "v": "M",
@@ -114,6 +128,127 @@ def fused_decode_score_reference(pre, attended, att_mask, weights, step,
     return costs, wnew, energies * gmask_rows, wa
 
 
+def plan(U, active):
+    """The cluster size of a launch over U utterances, given how many
+    clusters of each size the card holds at once (``active``: {size:
+    count}, 0 where the layout does not fit): the fewest waves, then the
+    larger size (``gru_scan.choose_cluster``)."""
+    return choose_cluster(U, active, "fused_decode_score")
+
+
+def _round4(x):
+    return (x + 3) // 4 * 4
+
+
+def rows_block(K):
+    """Rows a product of the kernel keeps in registers
+    (``decode_score.cu::rows_block``)."""
+    return 4 if K <= 4 else 8 if K <= 8 else 10 if K <= 10 else \
+        16 if K <= 16 else 8
+
+
+def smem_layout(K, L, M, D, S, R, V, n_taps, cluster):
+    """The kernel's shared memory (``decode_score.cu::score_layout``):
+    offsets in floats of its buffers, each on a 16-byte boundary, the
+    early ones (until the energies) and the late ones sharing memory;
+    ``zone``'s floats, ``ZONE`` or what a block's shared memory has left,
+    as ``zone_floats``; and ``bytes``."""
+    # the widest share of the M and D columns (shares start on
+    # multiples of 4)
+    mc = 4 * -(-(-(-M // 4)) // cluster)
+    dc = 4 * -(-(-(-D // 4)) // cluster)
+    lde, ldh, ldsp, ldwa, ldact = (_round4(L), _round4(S), mc | 1, dc,
+                                   _round4(R))
+    kp = rows_block(K) * -(-K // rows_block(K))   # whole row blocks
+
+    def place(nzone):
+        whole = ([("mask", L), ("taps", n_taps), ("hand", M), ("v", M),
+                  ("begins", K), ("ends", K)]
+                 + ([("pe", K * L)] if cluster > 1 else [])
+                 + [("mp", K * R), ("e", K * L), ("zone", nzone)])
+        early = [("wx", kp * lde), ("h", kp * ldh), ("conv", K * L),
+                 ("sp", K * ldsp)]
+        late = [("wt", kp * lde), ("wa", kp * ldwa), ("act", kp * ldact),
+                ("costs", K * V)]
+        out, at = {}, 0
+        for name, n in whole:
+            out[name] = at
+            at += _round4(n)
+        ends = []
+        for region in (early, late):
+            end = at
+            for name, n in region:
+                out[name] = end
+                end += _round4(n)
+            ends.append(end)
+        out["pe"] = out.get("pe", out["e"])      # one block: e itself
+        out["w"] = out["conv"]                   # until wx is made
+        out["zone_floats"] = nzone
+        out["bytes"] = 4 * max(ends)
+        return out
+
+    rest = place(0)["bytes"] // 4
+    return place(max(0, min(ZONE, (MAX_SMEM // 4 - rest) & ~3)))
+
+
+_smem_limits = {}
+
+
+def _smem_limit(device):
+    """The opt-in shared memory of a block on the device, queried once."""
+    if device.index not in _smem_limits:
+        props = torch.cuda.get_device_properties(device)
+        _smem_limits[device.index] = getattr(
+            props, "shared_memory_per_block_optin", MAX_SMEM)
+    return _smem_limits[device.index]
+
+
+def check_fits(K, L, M, D, S, R, V, n_taps, limit=MAX_SMEM):
+    """The cluster sizes whose layout fits a block's shared memory; raise
+    when none does."""
+    sizes = {c: smem_layout(K, L, M, D, S, R, V, n_taps, c)["bytes"]
+             for c in CLUSTERS}
+    fit = [c for c in CLUSTERS if sizes[c] <= limit]
+    if not fit:
+        raise NotImplementedError(
+            f"fused_decode_score: beam {K} at L={L}, D={D} needs "
+            f"{min(sizes.values())} bytes of shared memory per utterance "
+            f"(limit {limit})")
+    return fit
+
+
+_active = {}
+
+
+def active_clusters(shape, device):
+    """{cluster size: clusters of the kernel the device holds at once} at
+    ``shape`` (K, L, M, D, S, R, V, n_taps), 0 where the layout does not
+    fit; raises where none fits.  Queried once per device and shape."""
+    key = (device.index, tuple(sorted(shape.items())))
+    if key not in _active:
+        fit = check_fits(**shape, limit=_smem_limit(device))
+        fn = _entry_points()[1]
+        active = {}
+        with torch.cuda.device(device):
+            for size in CLUSTERS:
+                count = ctypes.c_int(0)
+                if size in fit:
+                    args = _Args(U=1, cluster=size, **shape)
+                    _build.check(fn(ctypes.byref(args), ctypes.byref(count)),
+                                 "decode_score_max_clusters")
+                active[size] = count.value
+        _active[key] = active
+    return _active[key]
+
+
+def launch_plan(U, shape, device):
+    """The cluster size and blocks of a launch over U utterances at
+    ``shape`` on the device, and what the device holds at once."""
+    active = active_clusters(shape, device)
+    cluster = plan(U, active)
+    return {"cluster": cluster, "blocks": U * cluster, "active": active}
+
+
 class _Args(ctypes.Structure):
     """Mirror of ``struct DecodeScoreArgs`` in csrc/decode_score.cu."""
     _fields_ = (
@@ -126,7 +261,25 @@ class _Args(ctypes.Structure):
             "prior_median")]
         + [(name, ctypes.c_float) for name in (
             "before", "after", "initial_begin", "initial_end", "min_speed",
-            "max_speed")])
+            "max_speed")]
+        + [("cluster", ctypes.c_int)])
+
+
+_entries = None
+
+
+def _entry_points():
+    """The C entry points (the launch, the occupancy query), their ctypes
+    signatures set once."""
+    global _entries
+    if _entries is None:
+        lib = _build.load().lib
+        launch, count = lib.decode_score_f32, lib.decode_score_max_clusters
+        launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+        count.argtypes = [ctypes.POINTER(_Args), ctypes.POINTER(ctypes.c_int)]
+        launch.restype = count.restype = ctypes.c_int
+        _entries = launch, count
+    return _entries
 
 
 def _check(name, x, shape, device, dtype=torch.float32):
@@ -170,6 +323,8 @@ def _launch(pre, attended, att_mask, weights, step, states, tables, *, beam,
     wa = torch.empty(U * K, D, dtype=torch.float32, device=dev)
     if not (U and K):
         return costs, wnew, energies, wa
+    shape = dict(K=K, L=L, M=M, D=D, S=S, R=R, V=V, n_taps=dims["T"])
+    cluster = launch_plan(U, shape, dev)["cluster"]
     ptr = lambda name: tables[name].data_ptr()
     args = _Args(
         pre=pre.data_ptr(), attended=attended.data_ptr(),
@@ -183,21 +338,11 @@ def _launch(pre, attended, att_mask, weights, step, states, tables, *, beam,
         U=U, L=L, M=M, D=D, S=S, R=R, V=V, K=K, n_taps=dims["T"],
         prior_median=int(prior == "window_around_median"),
         before=before, after=after, initial_begin=initial_begin,
-        initial_end=initial_end, min_speed=min_speed, max_speed=max_speed)
-    lib = _build.load().lib
-    lib.decode_score_smem_bytes.argtypes = [ctypes.POINTER(_Args)]
-    lib.decode_score_smem_bytes.restype = ctypes.c_int
-    lib.decode_score_f32.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-    lib.decode_score_f32.restype = ctypes.c_int
-    smem = lib.decode_score_smem_bytes(ctypes.byref(args))
-    props = torch.cuda.get_device_properties(dev)
-    limit = getattr(props, "shared_memory_per_block_optin", 232448)
-    if smem > limit:
-        raise NotImplementedError(
-            f"fused_decode_score: beam {K} at L={L}, D={D} needs {smem} "
-            f"bytes of shared memory per utterance (limit {limit})")
+        initial_end=initial_end, min_speed=min_speed, max_speed=max_speed,
+        cluster=cluster)
+    fn = _entry_points()[0]
     with torch.cuda.device(dev):
-        status = lib.decode_score_f32(ctypes.byref(args), _build.stream_of(pre))
+        status = fn(ctypes.byref(args), _build.stream_of(pre))
     _build.check(status, "decode_score_f32")
     launches.count += 1
     return costs, wnew, energies, wa

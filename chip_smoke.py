@@ -30,12 +30,19 @@ trains it with a 4x250 BiLSTM encoder.  Phases, each fatal on failure:
    in phase 3;
 5. serving: 8 concurrent ``/decode`` requests against the port's
    ``make_server`` and ``Transcriber`` equal the direct results;
-6. ``beam_attention_energies`` kernel vs plain at U=64, K=10, L=200,
-   M=250 (max abs error <= 1e-4);
+6. ``beam_attention_energies`` kernel vs plain at U=64 (the LM decode's
+   shape), 128 and 256, K=10, L=200, M=250 (max abs error <= 1e-4), a
+   second call bit for bit; the launch plan and the kernel's time at each U
+   (phases 6 and 7 time their kernels as CUDA graphs of 50 launches);
 7. ``fused_decode_score`` kernel vs plain on the flagship tables and
    encoder outputs, U=64, for both priors, from the initial glimpses and
    from a later step with softmax-normalised random weights: costs,
-   weights, energies and weighted averages within 1e-4;
+   weights, energies and weighted averages within 1e-4, a second call bit
+   for bit; the C layout against its Python mirror, the clusters of each
+   size the card holds at once (``cudaOccupancyMaxActiveClusters``) and
+   the size the launcher takes at U=1-256; at U=1, 16, 64, 128 and 256
+   the same checks from a later step under both priors, the launch plan
+   and the kernel's time;
 8. LM-fused decode: the character trigram of ``bench.py`` (seed 11, 32
    symbols, no_transition_cost 20) built with the port's ``ops/fst.py``,
    weight 0.5, B=64, 800 frames, beam 10, char_discount 1.0, 100-step
@@ -158,6 +165,34 @@ def cuda_ms(fn, repeats):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / repeats
+
+
+def graph_ms(fn, repeats):
+    """Device time of one call of ``fn``: ``repeats`` calls captured in a
+    CUDA graph and replayed, timed with CUDA events, so that the wrapper's
+    host time between launches is not counted (a kernel of tens of
+    microseconds launches faster than its Python wrapper returns)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(repeats):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * repeats)
 
 
 @contextlib.contextmanager
@@ -523,6 +558,49 @@ def beam_loop_plan(dims):
     return {"smem_bytes": c_bytes}
 
 
+def score_layouts(dev):
+    """Phase 7: the score kernel's C layout (``decode_score_smem_bytes``)
+    against its Python mirror at the flagship widths on clusters of 1, 2,
+    4 and 8 blocks, and at other beams and widths (up to the widest window
+    one block holds); the clusters of each size the card holds at once and
+    the size the launcher takes at U=1-256."""
+    import ctypes
+    from attention_lvcsr_torch import _build
+    from attention_lvcsr_torch.ops import decode_score as ds
+    fn = _build.load().lib.decode_score_smem_bytes
+    fn.argtypes = [ctypes.POINTER(ds._Args)]
+    fn.restype = ctypes.c_int
+    checked = 0
+    for K, L, M, D, S, R, V, taps in ((10, 200, 250, 500, 250, 250, 32, 201),
+                                      (3, 37, 40, 24, 20, 30, 12, 7),
+                                      (12, 201, 251, 502, 253, 249, 33, 9),
+                                      (1, 5, 7, 9, 3, 2, 5, 3),
+                                      (16, 400, 250, 500, 250, 250, 32, 201),
+                                      (10, 1437, 250, 500, 250, 250, 32, 201),
+                                      (10, 1606, 250, 500, 250, 250, 32, 201),
+                                      (36, 200, 250, 500, 250, 250, 32, 201)
+                                      ):
+        for cluster in (1, 2, 4, 8):
+            args = ds._Args(L=L, M=M, D=D, S=S, R=R, V=V, K=K, n_taps=taps,
+                            cluster=cluster)
+            mirror = ds.smem_layout(K, L, M, D, S, R, V, taps,
+                                    cluster)["bytes"]
+            if fn(ctypes.byref(args)) != mirror:
+                fail(f"decode_score layout: C gives {fn(ctypes.byref(args))}"
+                     f" bytes, the mirror {mirror} (K={K} L={L} M={M} D={D} "
+                     f"cluster={cluster})")
+            checked += 1
+    shape = dict(K=10, L=200, M=250, D=500, S=250, R=250, V=32, n_taps=201)
+    flagship = [ds.smem_layout(cluster=c, **shape)["bytes"]
+                for c in (1, 2, 4, 8)]
+    sizes = {u: ds.launch_plan(u, shape, dev)["cluster"]
+             for u in (1, 8, 16, 17, 32, 33, 64, 66, 67, 128, 256)}
+    log(f"phase 7 decode_score layout: C equals the mirror in {checked} "
+        f"shapes; flagship bytes a block on clusters of 1, 2, 4, 8: "
+        f"{flagship}; clusters the card holds at once "
+        f"{ds.active_clusters(shape, dev)}; cluster size at U: {sizes}")
+
+
 def decode_phases(t, dev, results, launches, rates):
     """Phases 2-10: the serving kernels and the three decodes."""
     import torch
@@ -694,30 +772,41 @@ def decode_phases(t, dev, results, launches, rates):
                 {})
 
     # ---- 6. beam_attention_energies ----------------------------------------
+    # the LM decode's shape at U=64, then U=128 and 256
     U, K, L, M = 64, 10, 200, 250
-    erng = np.random.RandomState(6)
-    eargs = (t(erng.randn(U, L, M)), t(erng.randn(U * K, M)),
-             t(erng.randn(U * K, L) * 0.1), t(erng.randn(M) * 0.1),
-             t(erng.randn(M) * 0.1))
-    got = ae.beam_attention_energies(*eargs, 0.0, beam=K)
-    ref = ae.beam_attention_energies_reference(*eargs, 0.0, beam=K)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    log(f"phase 6 beam_attention_energies U={U} K={K} L={L} M={M}: max abs "
-        f"err {err:.3e}")
-    if not err <= 1e-4:
-        fail(f"beam_attention_energies disagrees with its plain version: "
-             f"{err}")
-    results["beam_attention_energies"] = {
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: ae.beam_attention_energies(*eargs, 0.0,
-                                                         beam=K), 50),
-        "plain_ms": cuda_ms(lambda: ae.beam_attention_energies_reference(
-            *eargs, 0.0, beam=K), 10),
-        **bound(nbytes(*eargs, got), 6 * U * K * L * M),
-        "library_ms": None}
-    log(f"  kernel {results['beam_attention_energies']['ms']:.4f} ms, plain "
-        f"{results['beam_attention_energies']['plain_ms']:.4f} ms")
+    energy = {}
+    for Ue in (64, 128, 256):
+        erng = np.random.RandomState(6)
+        eargs = (t(erng.randn(Ue, L, M)), t(erng.randn(Ue * K, M)),
+                 t(erng.randn(Ue * K, L) * 0.1), t(erng.randn(M) * 0.1),
+                 t(erng.randn(M) * 0.1))
+        got = ae.beam_attention_energies(*eargs, 0.0, beam=K)
+        ref = ae.beam_attention_energies_reference(*eargs, 0.0, beam=K)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if not err <= 1e-4:
+            fail(f"beam_attention_energies disagrees with its plain version "
+                 f"at U={Ue}: {err}")
+        if not torch.equal(got, ae.beam_attention_energies(*eargs, 0.0,
+                                                           beam=K)):
+            fail(f"beam_attention_energies: a second call at U={Ue} gave "
+                 f"other bits")
+        energy[Ue] = {
+            "max_abs_err": err,
+            "ms": graph_ms(lambda: ae.beam_attention_energies(
+                *eargs, 0.0, beam=K), 50),
+            "plain_ms": cuda_ms(lambda: ae.beam_attention_energies_reference(
+                *eargs, 0.0, beam=K), 10),
+            **bound(nbytes(*eargs, got), 6 * Ue * K * L * M),
+            "library_ms": None}
+        log(f"phase 6 beam_attention_energies U={Ue} K={K} L={L} M={M}: "
+            f"plan {ae.launch_plan(Ue, K, L, M, dev)}; max abs err "
+            f"{err:.3e}, a second call repeats its bits; kernel "
+            f"{energy[Ue]['ms']:.4f} ms, plain {energy[Ue]['plain_ms']:.4f} "
+            f"ms, bound {energy[Ue]['bound_ms']:.5f} ms")
+    results["beam_attention_energies"] = dict(
+        energy[64], max_abs_err=max(e["max_abs_err"]
+                                    for e in energy.values()))
 
     # ---- 7. fused_decode_score ----------------------------------------------
     srng = np.random.RandomState(7)
@@ -759,28 +848,79 @@ def decode_phases(t, dev, results, launches, rates):
             if not max(errs.values()) <= 1e-4:
                 fail(f"fused_decode_score disagrees with its plain version: "
                      f"{pname} {sname} {errs}")
+            if not all(torch.equal(g, a) for g, a in zip(
+                    got, ds.fused_decode_score(*sargs, **kw))):
+                fail(f"fused_decode_score: a second call gave other bits "
+                     f"({pname}, {sname})")
             score_err = max(score_err, *errs.values())
-    sargs = (ctx["preprocessed"], ctx["attended"], ctx["attended_mask"],
-             t(later_w), states_later["later"][1], states_later["later"][2],
-             tables)
+    score_layouts(dev)
     skw = dict(beam=K, prior="window_around_median",
                before=float(prior["before"]), after=float(prior["after"]))
-    results["fused_decode_score"] = {
-        "max_abs_err": score_err,
-        "ms": cuda_ms(lambda: ds.fused_decode_score(*sargs, **skw), 50),
-        "plain_ms": cuda_ms(lambda: ds.fused_decode_score_reference(
-            *sargs, **skw), 10),
-        **bound(nbytes(*sargs[:6], tables,
-                       *ds.fused_decode_score(*sargs, **skw)),
-                U * K * (attention_step_ops(
-                    rec.net.generator.dim_dec, ctx["preprocessed"].shape[2],
-                    L, 2 * 100 + 1, ctx["attended"].shape[2])
-                    + readout_ops(ctx["attended"].shape[2], 250,
-                                  rec.num_phonemes))),
-        "library_ms": None}
-    log(f"  kernel {results['fused_decode_score']['ms']:.4f} ms, plain "
-        f"{results['fused_decode_score']['plain_ms']:.4f} ms (U=64, later "
-        f"step, median prior)")
+    ekw = dict(beam=K, prior="expanding",
+               **{k: float(v) for k, v in priors["expanding"].items()})
+    score = {}
+    for Us in (1, 16, 64, 128, 256):
+        if Us == U:
+            sctx, w_s = ctx, later_w
+            steps_s, h_s = states_later["later"][1], states_later["later"][2]
+        else:
+            urng = np.random.RandomState(Us)
+            ulen = urng.randint(400, Td + 1, size=Us)
+            umask = t((np.arange(Td)[None] < ulen[:, None]).astype(
+                np.float32))
+            with torch.inference_mode():
+                sctx = rec.net.decode_contexts(
+                    t(urng.randn(Us, Td, 123)), umask)
+            ul = urng.randn(Us * K, L) * 3.0
+            w_s = np.exp(ul - ul.max(axis=1, keepdims=True))
+            w_s /= w_s.sum(axis=1, keepdims=True)
+            steps_s = torch.full((Us * K,), 37, dtype=torch.int32,
+                                 device=dev)
+            h_s = t(np.tanh(urng.randn(Us * K, rec.net.generator.dim_dec)))
+        sargs = (sctx["preprocessed"], sctx["attended"],
+                 sctx["attended_mask"], t(w_s), steps_s, h_s, tables)
+        for kw in (skw, ekw):
+            got = ds.fused_decode_score(*sargs, **kw)
+            ref = ds.fused_decode_score_reference(*sargs, **kw)
+            torch.cuda.synchronize()
+            err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+            if not err <= 1e-4:
+                fail(f"fused_decode_score disagrees with its plain version "
+                     f"at U={Us} ({kw['prior']}): {err}")
+            if not all(torch.equal(g, a) for g, a in zip(
+                    got, ds.fused_decode_score(*sargs, **kw))):
+                fail(f"fused_decode_score: a second call at U={Us} gave "
+                     f"other bits ({kw['prior']})")
+            score_err = max(score_err, err)
+        out = ds.fused_decode_score(*sargs, **skw)
+        score[Us] = {
+            "max_abs_err": score_err,
+            "ms": graph_ms(lambda: ds.fused_decode_score(*sargs, **skw), 50),
+            "plain_ms": cuda_ms(lambda: ds.fused_decode_score_reference(
+                *sargs, **skw), 10),
+            **bound(nbytes(*sargs[:6], tables, *out),
+                    Us * K * (attention_step_ops(
+                        rec.net.generator.dim_dec,
+                        sctx["preprocessed"].shape[2], L, 2 * 100 + 1,
+                        sctx["attended"].shape[2])
+                        + readout_ops(sctx["attended"].shape[2], 250,
+                                      rec.num_phonemes))),
+            "library_ms": None}
+        expanding_ms = graph_ms(lambda: ds.fused_decode_score(*sargs,
+                                                              **ekw), 50)
+        plan = ds.launch_plan(Us, dict(
+            K=K, L=L, M=sargs[0].shape[2], D=sargs[1].shape[2],
+            S=rec.net.generator.dim_dec, R=tables["merge_k"].shape[1],
+            V=tables["post_k"].shape[1],
+            n_taps=tables["conv_filters"].shape[-1]), dev)
+        log(f"phase 7 fused_decode_score U={Us} K={K} L={L}: plan "
+            f"{plan}; both priors agree with the plain "
+            f"version and repeat their bits; kernel "
+            f"{score[Us]['ms']:.4f} ms (median prior, a later step; "
+            f"expanding {expanding_ms:.4f} ms), plain "
+            f"{score[Us]['plain_ms']:.4f} ms, bound "
+            f"{score[Us]['bound_ms']:.5f} ms")
+    results["fused_decode_score"] = dict(score[64], max_abs_err=score_err)
 
     # ---- 8. LM-fused decode --------------------------------------------------
     counters = {"gru_scan": gs.launches, "beam_search_loop": bl.launches,

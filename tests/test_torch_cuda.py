@@ -258,9 +258,18 @@ def test_beam_loop_too_large_raises(device):
     assert bl.launches.count == before
 
 
-@pytest.mark.parametrize("U,K,L,M", [(3, 4, 23, 9), (2, 1, 7, 300),
-                                     (4, 10, 200, 250), (1, 12, 33, 64)])
+@pytest.mark.parametrize("U,K,L,M", [
+    (3, 4, 23, 9), (2, 1, 7, 300), (4, 10, 200, 250), (1, 12, 33, 64),
+    # the LM decode's flagship shape at U=64 and 128
+    (64, 10, 200, 250), (128, 10, 200, 250),
+    # M not a multiple of 4 or 32, L under one frame tile, K = 1, 3, 12
+    (5, 3, 5, 33), (2, 1, 200, 251), (7, 12, 13, 130), (1, 10, 1, 250),
+    (3, 3, 41, 7),
+    # beam 32: more than 48 KB of shared memory a block
+    (3, 32, 40, 250)])
 def test_attention_energy_kernel_matches_plain(device, U, K, L, M):
+    """Within 1e-5 of the plain version (the sums run in another order),
+    and a second call repeats the first bit for bit."""
     rng = np.random.RandomState(U + K + L + M)
     f = lambda *s: torch.tensor(rng.randn(*s).astype(np.float32),
                                 device=device)
@@ -270,36 +279,130 @@ def test_attention_energy_kernel_matches_plain(device, U, K, L, M):
     assert ae.launches.count == before + 1
     ref = ae.beam_attention_energies_reference(*args, 0.5, beam=K)
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, ae.beam_attention_energies(*args, 0.5, beam=K))
 
 
-@pytest.mark.parametrize("prior", [
-    dict(prior="window_around_median", before=4.0, after=5.0),
-    dict(prior="expanding", initial_begin=1.0, initial_end=6.0,
-         min_speed=1.5, max_speed=2.5)], ids=["median", "expanding"])
-@pytest.mark.parametrize("K", [3, 10, 12])
-def test_decode_score_kernel_matches_plain(device, prior, K):
-    U, L, M, D, S, R, V = 4, 37, 40, 24, 20, 30, 12
-    rng = np.random.RandomState(K)
+# U, L, M, D, S, R, V, taps and the scale of the tables: a small shape
+# (clusters of 8 blocks, some of whose blocks get no column of D), odd
+# widths (M, D, S, R, V not multiples of 4 or 32, L = 5), and the flagship
+# widths at U=64 and U=128 (clusters of 2 and of 1 block on an H100).  The
+# new shapes take tables at the flagship's initial scale (0.1, the
+# isotropic_gaussian of FLAGSHIP_INIT): unit tables at widths of 250-500
+# give logits near 100, whose float32 rounding alone exceeds the
+# tolerance.
+SCORE_SHAPES = {"small": (4, 37, 40, 24, 20, 30, 12, 7, 1.0),
+                "odd": (3, 5, 41, 27, 19, 33, 13, 5, 0.1),
+                "flagship64": (64, 200, 250, 500, 250, 250, 32, 201, 0.1),
+                "flagship128": (128, 200, 250, 500, 250, 250, 32, 201, 0.1)}
+
+
+def _score_args(device, K, U, L, M, D, S, R, V, taps, scale, seed,
+                exact_sums=False):
+    """Operands of a score step: ragged masks (the first utterance whole),
+    a row of zero weights, tables at ``scale``.  ``exact_sums`` rounds the
+    weights to multiples of 2**-20, whose partial sums float32 holds
+    exactly in any order."""
+    rng = np.random.RandomState(seed)
     f = lambda *s: rng.randn(*s).astype(np.float32)
     w = np.abs(f(U * K, L))
     w /= w.sum(axis=1, keepdims=True)
-    w[1] = 0.0
-    mask = (np.arange(L)[None] < np.array([[L], [30], [11], [2]])
-            ).astype(np.float32)
+    if exact_sums:
+        w = (np.round(w * 2.0 ** 20) / 2.0 ** 20).astype(np.float32)
+    w[min(1, U * K - 1)] = 0.0
+    lengths = rng.randint(1, L + 1, size=U)
+    lengths[0] = L
+    mask = (np.arange(L)[None] < lengths[:, None]).astype(np.float32)
     t = lambda a: torch.tensor(a, device=device)
     tables = {k: t(v) for k, v in dict(
-        state_trans=f(S, M), handler=f(M), v=f(M), merge_k=f(D, R),
-        merge_b=f(R), post_k=f(R, V), post_b=f(V),
-        conv_filters=f(1, 7) * 0.3).items()}
-    args = (t(f(U, L, M)), t(f(U, L, D)), t(mask), t(w),
+        state_trans=f(S, M) * scale, handler=f(M) * scale, v=f(M) * scale,
+        merge_k=f(D, R) * scale, merge_b=f(R) * scale,
+        post_k=f(R, V) * scale, post_b=f(V) * scale,
+        conv_filters=f(1, taps) * 0.3).items()}
+    return (t(f(U, L, M)), t(f(U, L, D)), t(mask), t(w),
             t(rng.randint(0, 5, U * K).astype(np.int32)), t(f(U * K, S)),
             tables)
+
+
+def _score_matches_plain(args, K, prior):
     before = ds.launches.count
     got = ds.fused_decode_score(*args, beam=K, **prior)
     assert ds.launches.count == before + 1
     ref = ds.fused_decode_score_reference(*args, beam=K, **prior)
     for name, g, r in zip(("costs", "weights", "energies", "wa"), got, ref):
         torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5, msg=name)
+    again = ds.fused_decode_score(*args, beam=K, **prior)
+    for name, g, a in zip(("costs", "weights", "energies", "wa"), got, again):
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.parametrize("shape", sorted(SCORE_SHAPES))
+@pytest.mark.parametrize("prior", [
+    dict(prior="window_around_median", before=4.0, after=5.0),
+    dict(prior="expanding", initial_begin=1.0, initial_end=6.0,
+         min_speed=1.5, max_speed=2.5)], ids=["median", "expanding"])
+@pytest.mark.parametrize("K", [1, 3, 10, 12, 20])
+def test_decode_score_kernel_matches_plain(device, prior, K, shape):
+    """Within 1e-5 of the plain version, with a row of zero weights,
+    ragged masks and windows clipped at both ends; a second call repeats
+    the first bit for bit."""
+    _score_matches_plain(_score_args(device, K, *SCORE_SHAPES[shape],
+                                     seed=K), K, prior)
+
+
+@pytest.mark.parametrize("U,L", [(67, 777), (67, 1437), (128, 1244),
+                                 (64, 1606)])
+@pytest.mark.parametrize("prior", [
+    dict(prior="window_around_median", before=100.0, after=100.0),
+    dict(prior="expanding", initial_begin=0.0, initial_end=1e4,
+         min_speed=0.0, max_speed=0.0)], ids=["median", "whole"])
+def test_decode_score_long_windows(device, prior, U, L):
+    """Windows of up to 1606 frames at the flagship widths, beam 10, on
+    whichever cluster size holds them (the zone shrunk to what a block
+    has left; the expanding prior's window spans every frame).  The
+    median compares a cumulative sum with 0.5, which the kernel and the
+    plain version add in different orders: over hundreds of frames a row
+    passing 0.5 within float32 rounding (seed 1244 at U=128 has one, 3.6e-8
+    short of it) moves its median by a frame, so the weights here have
+    exact partial sums."""
+    _score_matches_plain(_score_args(device, 10, U, L, 250, 500, 250, 250,
+                                     32, 201, 0.1, seed=L, exact_sums=True),
+                         10, prior)
+
+
+@pytest.mark.parametrize("size", ds.CLUSTERS)
+def test_decode_score_every_cluster_size(device, monkeypatch, size):
+    """The flagship widths at U=3 with each cluster size forced."""
+    monkeypatch.setattr(ds, "active_clusters", lambda shape, device: {
+        c: 16 if c == size else 0 for c in ds.CLUSTERS})
+    args = _score_args(device, 10, 3, 200, 250, 500, 250, 250, 32, 201, 0.1,
+                       seed=size)
+    assert ds.launch_plan(3, {}, device)["cluster"] == size
+    _score_matches_plain(args, 10, dict(prior="window_around_median",
+                                        before=30.0, after=30.0))
+
+
+def test_decode_kernels_launch_on_every_device(device):
+    """Both module-path kernels launch on each device in turn, each with
+    more than 48 KB of dynamic shared memory (an attribute of each
+    device's context)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    for index in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", index)
+        rng = np.random.RandomState(index)
+        f = lambda *s: torch.tensor(rng.randn(*s).astype(np.float32),
+                                    device=dev)
+        eargs = (f(3, 40, 500), f(3 * 32, 500), f(3 * 32, 40), f(500) * 0.3,
+                 f(500) * 0.3)
+        assert ae.launch_plan(3, 32, 40, 500, dev)["smem_bytes"] > 49152
+        torch.testing.assert_close(
+            ae.beam_attention_energies(*eargs, 0.5, beam=32),
+            ae.beam_attention_energies_reference(*eargs, 0.5, beam=32),
+            atol=1e-5, rtol=1e-5)
+        _score_matches_plain(_score_args(dev, 10, 4, 200, 250, 500, 250,
+                                         250, 32, 201, 0.1, seed=index),
+                             10, dict(prior="window_around_median",
+                                      before=100.0, after=100.0))
 
 
 def _lm_npz(path):

@@ -104,3 +104,17 @@ def test_mirror_matches_the_c_struct(struct):
             assert ptype is SCALARS[ctype], name
         else:
             assert by_class.get(ptype) == ctype, name
+
+
+@pytest.mark.parametrize("struct,fields", [
+    ("AttentionEnergyArgs", ("tile", "slices")),
+    ("DecodeScoreArgs", ("cluster",))])
+def test_launch_plans_travel_in_the_structs(struct, fields):
+    """The module path's kernels take their launch plan in their argument
+    struct (the energy kernel's frame tile and M slices, the score
+    kernel's cluster size), as its last fields, on both sides."""
+    cls, source = MIRRORS[struct]
+    names = [f[0] for f in _c_struct(source, struct)]
+    assert tuple(names[-len(fields):]) == fields
+    assert tuple(n for n, _ in cls._fields_[-len(fields):]) == fields
+    assert all(t is ctypes.c_int for _, t in cls._fields_[-len(fields):])

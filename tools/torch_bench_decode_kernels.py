@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Times the whole-loop decode kernel on one NVIDIA GPU, alone, and keeps
-its outputs for a bit-for-bit comparison with another commit's.
+"""Times the decode kernels on one NVIDIA GPU, each alone, and keeps the
+whole-loop kernel's outputs for a bit-for-bit comparison with another
+commit's.
 
     python3 tools/torch_bench_decode_kernels.py [--root DIR] [--out F.npz]
                                                 [--repeats N]
+                                                [--only loop|energy|score]
     python3 tools/torch_bench_decode_kernels.py --compare A.npz B.npz
 
 Run from the repository root on a machine with a CUDA device and nvcc.
@@ -17,6 +19,21 @@ raised by 1.5, so that most hypotheses finish, and calls the kernel a
 second time to check that it repeats its bits.  ``--out`` writes each
 run's ``done_out``, ``done_meta`` and ``steps`` to an ``.npz``.
 
+``--only energy`` times the module path's energy kernel
+(``beam_attention_energies``, ``csrc/attention_energy.cu``) at K=10,
+L=200, M=250 on numpy-seeded operands, at U = 64, 128 and 256, and
+``--only score`` the fused score step (``fused_decode_score``,
+``csrc/decode_score.cu``) on the flagship network's encoder outputs and
+tables, from a later step's softmax-normalised random weights, under both
+priors, at U = 1, 8, 16, 33, 64, 128 and 256: on the size of cluster its
+launch plan takes and, where the package has a plan, on each other size
+forced; each with CUDA events around a CUDA graph of ``--repeats``
+launches (100 unless given; the graph, ``chip_smoke.graph_ms``, keeps the
+wrapper's host time out of a kernel of tens of microseconds), its max abs
+error against the plain version and whether a second call repeats its
+bits.  ``--only`` takes a comma-separated list;
+``loop`` is the default.
+
 ``--root DIR`` imports the ``attention_lvcsr_torch`` package found in DIR
 instead of this checkout's and builds its kernels there: with DIR an
 unpacked copy of another commit (``git archive <commit>
@@ -28,6 +45,7 @@ of the numbers.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -62,14 +80,25 @@ def main():
                              "package to time")
     parser.add_argument("--out", default=None,
                         help="write the decodes' outputs to this .npz")
-    parser.add_argument("--repeats", type=int, default=3)
+    parser.add_argument("--repeats", type=int, default=None,
+                        help="launches timed (default 3 for the loop, 100 "
+                             "for the energy and score kernels)")
+    parser.add_argument("--only", default="loop",
+                        help="comma-separated kernels to time: loop, "
+                             "energy, score")
     parser.add_argument("--compare", nargs=2, metavar="NPZ")
     args = parser.parse_args()
     if args.compare:
         sys.exit(0 if compare(*args.compare) else 1)
+    only = args.only.split(",")
+    unknown = sorted(set(only) - {"loop", "energy", "score"})
+    if unknown:
+        sys.exit(f"--only: unknown kernels {unknown}")
     import torch
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
+    sys.path.insert(0, ROOT)
+    from chip_smoke import graph_ms
     sys.path.insert(0, os.path.abspath(args.root))
     from __graft_entry__ import FLAGSHIP_NET
     from attention_lvcsr_torch import _build
@@ -84,26 +113,30 @@ def main():
     print(card)
     print(f"package: {os.path.dirname(bl.__file__)}")
     lib = _build.load()
-    mine = False            # ptxas lines of the loop kernel
+    names = {"loop": ("beam_loop", "product_rows"),
+             "energy": ("attention_energy",), "score": ("decode_score",)}
+    names = [n for key in only for n in names[key]]
+    mine = False            # ptxas lines of the timed kernels
     for line in lib.log.splitlines():
         if "Compiling entry" in line:
-            mine = "beam_loop" in line or "product_rows" in line
+            mine = any(n in line for n in names)
         if mine and ("Compiling entry" in line or "Used" in line
                      or "spill" in line):
             print(f"  ptxas: {line.strip()}")
     dev = torch.device("cuda:0")
 
-    def cuda_ms(fn):
-        fn()
+    def cuda_ms(fn, repeats):
+        for _ in range(max(1, min(20, repeats))):    # warm up the clocks
+            fn()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(args.repeats):
+        for _ in range(repeats):
             fn()
         end.record()
         torch.cuda.synchronize()
-        return start.elapsed_time(end) / args.repeats
+        return start.elapsed_time(end) / repeats
 
     rec = SpeechRecognizer(dict(FLAGSHIP_NET, max_decoded_length_scale=8.0),
                            init_config=INIT, seed=1234, device=dev)
@@ -114,6 +147,19 @@ def main():
               ignore_first_eol=rec.data_prepend_eos, prior=prior["type"],
               before=float(prior["before"]), after=float(prior["after"]))
     result = {"card": card, "root": os.path.abspath(args.root)}
+    if "energy" in only:
+        bench_energy(dev, graph_ms, args.repeats or 100, result)
+    if "score" in only:
+        bench_score(rec, dev, graph_ms, args.repeats or 100, result)
+    if "loop" in only:
+        bench_loop(rec, dev, cuda_ms, args.repeats or 3, kw, frames, result,
+                   args.out)
+    print(json.dumps(result))
+
+
+def bench_loop(rec, dev, cuda_ms, n_repeats, kw, frames, result, out_path):
+    import torch
+    from attention_lvcsr_torch.ops import beam_loop as bl
     arrays = {}
     for U in (64, 128, 256):
         feats = torch.tensor(np.random.RandomState(1).randn(U, frames, 123)
@@ -139,7 +185,7 @@ def main():
                     x.tobytes() == y.tobytes() for x, y in zip(out, again))
             if eos_bias == 0.0:
                 ms = cuda_ms(lambda: bl.beam_search_loop(*loop_args, tab,
-                                                         **kw))
+                                                         **kw), n_repeats)
                 result[f"beam_search_loop_U{U}_ms"] = ms
                 steps = out[2]
                 print(f"beam_search_loop U={U} frames={frames} beam=10: "
@@ -152,10 +198,116 @@ def main():
                   f"finished" + ("" if repeats is None else
                                  f"; a second call repeats its bits: "
                                  f"{repeats}"))
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        np.savez(args.out, **arrays)
-    print(json.dumps(result))
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        np.savez(out_path, **arrays)
+
+
+def bench_energy(dev, cuda_ms, repeats, result):
+    """``beam_attention_energies`` alone at U = 64, 128, 256 (phase 6's
+    operands at each U)."""
+    import torch
+    from attention_lvcsr_torch.ops import attention_energy as ae
+    K, L, M = 10, 200, 250
+    for U in (64, 128, 256):
+        rng = np.random.RandomState(6)
+        t = lambda a: torch.tensor(a.astype(np.float32), device=dev)
+        eargs = (t(rng.randn(U, L, M)), t(rng.randn(U * K, M)),
+                 t(rng.randn(U * K, L) * 0.1), t(rng.randn(M) * 0.1),
+                 t(rng.randn(M) * 0.1))
+        got = ae.beam_attention_energies(*eargs, 0.0, beam=K)
+        again = ae.beam_attention_energies(*eargs, 0.0, beam=K)
+        ref = ae.beam_attention_energies_reference(*eargs, 0.0, beam=K)
+        err = float((got - ref).abs().max())
+        same = bool(torch.equal(got, again))
+        ms = cuda_ms(lambda: ae.beam_attention_energies(*eargs, 0.0, beam=K),
+                     repeats)
+        plan = getattr(ae, "launch_plan", None)
+        plan = plan(U, K, L, M, dev) if plan else None
+        result[f"attention_energy_U{U}_ms"] = ms
+        print(f"beam_attention_energies U={U} K={K} L={L} M={M}: {ms:.4f} ms"
+              f", max abs err {err:.3e}, a second call repeats its bits: "
+              f"{same}" + (f", plan {plan}" if plan else ""))
+
+
+@contextlib.contextmanager
+def forced_cluster(ds, size):
+    """Within the block, the score kernel's launcher takes clusters of
+    ``size`` blocks (its occupancy query answered as if the card held no
+    other size); ``None`` leaves its plan alone."""
+    if size is None:
+        yield
+        return
+    queried = ds.active_clusters
+    ds.active_clusters = lambda shape, device: {
+        c: 1024 if c == size else 0 for c in ds.CLUSTERS}
+    try:
+        yield
+    finally:
+        ds.active_clusters = queried
+
+
+def bench_score(rec, dev, cuda_ms, repeats, result):
+    """``fused_decode_score`` alone at U = 1-256 on the flagship network's
+    contexts and tables, from a later step (phase 7's), on its plan's
+    cluster size and on each other size forced."""
+    import torch
+    from attention_lvcsr_torch.ops import decode_score as ds
+    K, frames = 10, 800
+    prior = rec.net.generator.attention.prior_config()
+    priors = {"median": dict(prior="window_around_median",
+                             before=float(prior["before"]),
+                             after=float(prior["after"])),
+              "expanding": dict(prior="expanding", initial_begin=10.0,
+                                initial_end=120.0, min_speed=0.5,
+                                max_speed=1.5)}
+    tables = rec.net.generator.fused_score_tables()
+    planned = hasattr(ds, "launch_plan")
+    for U in (1, 8, 16, 33, 64, 128, 256):
+        rng = np.random.RandomState(7)
+        t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+        feats = t(np.random.RandomState(1).randn(U, frames, 123))
+        slen = rng.randint(400, frames + 1, size=U)
+        smask = t((np.arange(frames)[None] < slen[:, None]))
+        with torch.inference_mode():
+            ctx = rec.net.decode_contexts(feats, smask)
+        L = ctx["attended"].shape[1]
+        logits = rng.randn(U * K, L) * 3.0
+        w = np.exp(logits - logits.max(axis=1, keepdims=True))
+        w /= w.sum(axis=1, keepdims=True)
+        sargs = (ctx["preprocessed"], ctx["attended"], ctx["attended_mask"],
+                 t(w), torch.full((U * K,), 37, dtype=torch.int32,
+                                  device=dev),
+                 t(np.tanh(rng.randn(U * K, rec.net.generator.dim_dec))),
+                 tables)
+        shape = dict(K=K, L=L, M=sargs[0].shape[2], D=sargs[1].shape[2],
+                     S=sargs[5].shape[1], R=tables["merge_k"].shape[1],
+                     V=tables["post_k"].shape[1],
+                     n_taps=tables["conv_filters"].shape[-1])
+        plan = ds.launch_plan(U, shape, dev) if planned else None
+        sizes = [None] + ([c for c in ds.CLUSTERS if c != plan["cluster"]]
+                          if planned else [])
+        for size in sizes:
+            with forced_cluster(ds, size):
+                for pname, kw in priors.items():
+                    got = ds.fused_decode_score(*sargs, beam=K, **kw)
+                    again = ds.fused_decode_score(*sargs, beam=K, **kw)
+                    ref = ds.fused_decode_score_reference(*sargs, beam=K,
+                                                          **kw)
+                    err = max(float((g - r).abs().max())
+                              for g, r in zip(got, ref))
+                    same = all(torch.equal(g, a) for g, a in zip(got, again))
+                    ms = cuda_ms(lambda: ds.fused_decode_score(
+                        *sargs, beam=K, **kw), repeats)
+                    on = (f"cluster {size} (forced)" if size else
+                          f"plan {plan}" if plan else "")
+                    key = f"decode_score_{pname}_U{U}" + (
+                        f"_C{size}" if size else "")
+                    result[f"{key}_ms"] = ms
+                    print(f"fused_decode_score {pname} U={U} K={K} L={L}: "
+                          f"{ms:.4f} ms, max abs err {err:.3e}, a second "
+                          f"call repeats its bits: {same}"
+                          + (f", {on}" if on else ""))
 
 
 if __name__ == "__main__":

@@ -48,10 +48,12 @@ INIT = {"/recognizer": {"weights_init": ["isotropic_gaussian", 0.1],
                         "rec_weights_init": ["orthogonal"]}}
 
 
-def instrument(src, loop_header, tag):
+def instrument(src, loop_header, tag, body=False):
     """``src`` with a probe before each ``// ---- name`` comment inside the
     loop that starts at ``loop_header`` and one after that loop; returns
-    (source, phase names)."""
+    (source, phase names).  With ``body``, ``loop_header`` opens a
+    kernel's body instead, whose phase comments sit at its top level, and
+    the last probe goes before the body's end."""
     lines = src.split("\n")
     start = next(i for i, ln in enumerate(lines) if loop_header in ln)
     depth, end = 0, None
@@ -60,16 +62,21 @@ def instrument(src, loop_header, tag):
         if depth == 0:
             end = i
             break
+    indent = "  " if body else "    "
     names, out = [], []
     for i, ln in enumerate(lines):
-        m = re.match(r"    // ---- (.*?)[ -]*$", ln)
-        if i == start:
+        m = re.match(indent + r"// ---- (.*?)[ -]*$", ln)
+        if i == start and not body:
             out.append("  long long prof_last = 0; int prof_cur = -1;")
         if m and start < i < end:
-            out.append(f"    PROF_MARK_{tag}({len(names)});")
+            out.append(f"{indent}PROF_MARK_{tag}({len(names)});")
             names.append(m.group(1).strip())
+        if i == end and body:
+            out.append(f"  PROF_MARK_{tag}({SLOTS - 1});")
         out.append(ln)
-        if i == end:
+        if i == start and body:
+            out.append("  long long prof_last = 0; int prof_cur = -1;")
+        if i == end and not body:
             out.append(f"  PROF_MARK_{tag}({SLOTS - 1});")
     if not names:
         raise RuntimeError(f"no '// ---- ' phase comments in the {tag} loop")
@@ -118,6 +125,7 @@ def main():
     from attention_lvcsr_torch import _build
     from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
     from attention_lvcsr_torch.ops import beam_loop as bl
+    from attention_lvcsr_torch.ops import decode_score as ds
     from attention_lvcsr_torch.ops import gru_scan as gs
     from attention_lvcsr_torch.ops import lstm_scan as ls
     from torch.profiler import ProfilerActivity, profile
@@ -219,9 +227,11 @@ def main():
     scan_src = "lstm_scan.cu" if lstm else "gru_scan.cu"
     for name, header, tag in (
             ("beam_loop.cu", "for (int i = 0; i < max_len; ++i) {", "beam"),
-            (scan_src, "for (int step = 0; step < T; ++step) {", "scan")):
+            (scan_src, "for (int step = 0; step < T; ++step) {", "scan"),
+            ("decode_score.cu", "decode_score_kernel(DecodeScoreArgs a) {",
+             "score")):
         src = open(os.path.join(_build.CSRC, name)).read()
-        text, phases[tag] = instrument(src, header, tag)
+        text, phases[tag] = instrument(src, header, tag, tag == "score")
         paths.append(os.path.join(ROOT, "build", "profile", name))
         with open(paths[-1], "w") as f:
             f.write(text)
@@ -233,6 +243,8 @@ def main():
         sys.exit(f"probe build failed:\n{proc.stderr[-4000:]}")
     # the wrappers launch from whatever library _build has loaded
     _build._loaded = _build.KernelLibrary(lib_path, 0.0, proc.stderr)
+    ds._entries = None
+    ds._active.clear()
     lib = _build._loaded.lib
 
     prior = rec.net.generator.attention.prior_config()
@@ -274,11 +286,56 @@ def main():
     phase_table(lib, "scan", phases["scan"],
                 2 * cluster * ((B + 15) // 16), T, out)
 
+    if not lstm:
+        score_phases(rec, dev, lib, phases["score"], T, out)
+
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")
+
+
+def score_phases(rec, dev, lib, names, frames, out):
+    """Cycles of each phase of one ``fused_decode_score`` launch (the
+    constrained decode's step) at U=64 and 128, from a later step: random
+    softmax-normalised weights at step 37 and random states, the median
+    prior, on the flagship's encoder outputs and tables."""
+    import torch
+    from attention_lvcsr_torch.ops import decode_score as ds
+    K = 10
+    prior = rec.net.generator.attention.prior_config()
+    tables = rec.net.generator.fused_score_tables()
+    for U in (64, 128):
+        rng = np.random.RandomState(7)
+        t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+        lengths = rng.randint(400, frames + 1, size=U)
+        with torch.inference_mode():
+            ctx = rec.net.decode_contexts(
+                t(rng.randn(U, frames, 123)),
+                t(np.arange(frames)[None] < lengths[:, None]))
+        L = ctx["attended"].shape[1]
+        logits = rng.randn(U * K, L) * 3.0
+        w = np.exp(logits - logits.max(axis=1, keepdims=True))
+        w /= w.sum(axis=1, keepdims=True)
+        args = (ctx["preprocessed"], ctx["attended"], ctx["attended_mask"],
+                t(w), torch.full((U * K,), 37, dtype=torch.int32, device=dev),
+                t(np.tanh(rng.randn(U * K, rec.net.generator.dim_dec))),
+                tables)
+        kw = dict(beam=K, prior="window_around_median",
+                  before=float(prior["before"]), after=float(prior["after"]))
+        ds.fused_decode_score(*args, **kw)
+        lib.prof_reset_score()
+        ds.fused_decode_score(*args, **kw)
+        torch.cuda.synchronize()
+        cluster = ds.launch_plan(U, dict(
+            K=K, L=L, M=args[0].shape[2], D=args[1].shape[2],
+            S=args[5].shape[1], R=tables["merge_k"].shape[1],
+            V=tables["post_k"].shape[1],
+            n_taps=tables["conv_filters"].shape[-1]), dev)["cluster"]
+        out(f"decode_score phases (U={U}, K={K}, L={L}, median prior, a "
+            f"later step; {cluster}-block clusters), one launch:")
+        phase_table(lib, "score", names, U * cluster, 1, out)
 
 
 if __name__ == "__main__":
