@@ -89,8 +89,11 @@ trains it with a 4x250 BiLSTM encoder.  Phases, each fatal on failure:
 14. ``fbank_deltas`` kernel vs its plain version: B=64, 8 s of 16 kHz
     speech-like audio (harmonic tones, envelope and noise from a numpy
     seed) with ragged true frame counts, then B=1 (one serving request)
-    with 8 s at 16 kHz and at 8 kHz; max abs error over the valid rows
-    <= 1e-3 (log domain); times at B=1 and B=64, 16 kHz;
+    with 8 s at 16, 8, 22.05, 44.1 and 48 kHz; max abs error over the
+    valid rows <= 1e-3 (log domain); the launch plan (a single request
+    gets a block per SM) and the C layout against its mirror; times at
+    B=1 and B=64, 16 kHz, as CUDA graphs of launches, the bound from the
+    FFT route's operations, torch.fft.rfft of the same frames logged;
 15. waveform serving: the flagship model behind ``make_server`` at
     ``max_batch`` 1 (an answer cannot depend on its batch companions), 8
     concurrent ``{"waveform": ...}`` requests of 2-8 s, one at 8 kHz: each
@@ -1673,17 +1676,48 @@ def speech_like(rng, n, sample_rate):
     return (wav + rng.uniform(0.01, 0.05) * rng.randn(n)).astype(np.float32)
 
 
+def frontend_ops(rate, frames, num_bins=40, order=2):
+    """Float32 operations of ``frames`` frames of the frontend as
+    ``csrc/frontend.cu`` computes them: preemphasis and window (3 a
+    sample of the frame), the N = n / 2 point complex FFT (5 N log2 N),
+    the real split and power (17 a bin), the mel sums (2 a nonzero
+    weight), the energy (2 a sample), the log of each base feature and
+    the delta passes (7 a value and pass); and, for comparison, the DFT
+    products the TPU kernel's design computes instead (2 products of
+    frame_length x n_freqs MACs and the dense mel product)."""
+    from attention_lvcsr_torch.ops import frontend as fe
+    frame_length = fe.frame_geometry(rate)[0]
+    n, _, _, N = fe.fft_geometry(rate)
+    nnz = int(np.count_nonzero(fe.mel_schedule(rate, num_bins)["w"]))
+    d0 = num_bins + 1
+    fft = (3 * frame_length + 5 * N * int(np.log2(N)) + 17 * (N + 1)
+           + 2 * nnz + 2 * frame_length + d0 + 7 * d0 * order)
+    dft = 2 * frame_length * (N + 1) * 2 + (N + 1) * num_bins * 2
+    return frames * fft, frames * dft
+
+
 def frontend_phase(t, dev, results):
     """Phase 14: fbank_deltas kernel vs its plain version at B=64, 8 s of
-    16 kHz audio with ragged true frame counts, then at B=1 with 8 s of
-    16 kHz and of 8 kHz audio (one serving request, the shape phase 15
-    launches it at).  The kernels line gets the B=1, 16 kHz times, the
-    B=64 ones beside them."""
+    16 kHz audio with ragged true frame counts, then at B=1 with 8 s at
+    16, 8, 22.05, 44.1 and 48 kHz (one serving request, the shape phase
+    15 launches it at): the launch plan, the C layout against its mirror,
+    the error in the log domain.  At 16 kHz, B=1 and B=64, the times of
+    the kernel and of the plain version as CUDA graphs of launches, the
+    bound from the operations of the FFT route (the DFT route's count
+    logged beside it), and torch.fft.rfft on the same windowed frames
+    (informational).  The kernels line gets the B=1 times, the B=64 ones
+    beside them."""
+    import ctypes
     import torch
+    from attention_lvcsr_torch import _build
     from attention_lvcsr_torch.ops import frontend as fe
+    lib = _build.load().lib
+    lib.frontend_smem_bytes.argtypes = [ctypes.POINTER(fe._Args)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.RandomState(14)
     worst, timed = 0.0, {}
-    for B, rate in ((64, 16000), (1, 16000), (1, 8000)):
+    for B, rate in ((64, 16000), (1, 16000), (1, 8000), (1, 22050),
+                    (1, 44100), (1, 48000)):
         N = 8 * rate
         frame_length, hop, fft_size = fe.frame_geometry(rate)
         lengths = rng.randint(2 * rate, N + 1, size=B)
@@ -1701,27 +1735,47 @@ def frontend_phase(t, dev, results):
         valid = torch.arange(T, device=dev)[None] < counts[:, None]
         err = float((got - ref).abs()[valid].max())
         worst = max(worst, err)
+        plan = fe.plan(B, T, rate, sms=sms)
+        host = fe.host_tables(rate, 40)
+        c_bytes = lib.frontend_smem_bytes(ctypes.byref(fe._Args(
+            B=B, N=N, T=T, frame_length=frame_length, hop=hop,
+            log2n=fe.fft_geometry(rate)[1], num_bins=40,
+            mel_emits=host["emits"], mel_slots=host["slots"], use_energy=1,
+            order=2, rows=plan["rows"])))
         log(f"phase 14 fbank_deltas B={B} {rate} Hz, {N} samples, T={T}, "
             f"{int(counts.sum())} valid frames: max abs err {err:.3e} over "
-            f"the valid rows (log domain)")
+            f"the valid rows (log domain); plan {plan}, C layout {c_bytes} "
+            f"bytes")
         if not (err <= 1e-3 and torch.isfinite(got).all()):
             fail(f"fbank_deltas disagrees with its plain version: {err}")
+        if c_bytes != plan["smem_bytes"]:
+            fail(f"fbank_deltas: the C layout has {c_bytes} bytes, the "
+                 f"mirror {plan['smem_bytes']}")
+        if B == 1 and plan["blocks"] < min(sms, T):
+            fail(f"fbank_deltas: one request got {plan['blocks']} blocks "
+                 f"on {sms} SMs")
         if rate != 16000:
             continue
-        # per valid frame: the two DFT products and the mel product
-        n_freqs = fft_size // 2 + 1
-        ops = int(counts.sum()) * (2 * frame_length * n_freqs * 2
-                                   + n_freqs * 40 * 2)
-        tables = fe._matrices(rate, 40, fe.FRAME_MS, fe.HOP_MS,
-                              fe.PREEMPHASIS, dev)
+        ops, dft_ops = frontend_ops(rate, int(counts.sum()))
+        tables, ints = fe._tables(rate, 40, dev)
         timed[B] = {
-            "ms": cuda_ms(lambda: fe.fbank_deltas(wav, counts), 10),
-            "plain_ms": cuda_ms(lambda: fe.fbank_deltas_plain(wav, counts),
-                                3),
-            **bound(nbytes(wav, counts, *tables, got), ops)}
+            "ms": graph_ms(lambda: fe.fbank_deltas(wav, counts), 50),
+            "plain_ms": graph_ms(lambda: fe.fbank_deltas_plain(wav, counts),
+                                 5),
+            **bound(nbytes(wav, counts, tables, ints, got), ops)}
+        # torch.fft.rfft of the same preemphasised, windowed frames
+        frames = wav.unfold(1, frame_length, hop)
+        pre = frames - fe.PREEMPHASIS * torch.cat(
+            [frames[..., :1], frames[..., :-1]], dim=-1)
+        windowed = pre * torch.hamming_window(
+            frame_length, periodic=False, device=dev)
+        rfft_ms = cuda_ms(lambda: torch.fft.rfft(windowed, n=fft_size), 20)
         log(f"  B={B}, 16 kHz: kernel {timed[B]['ms']:.4f} ms, plain "
-            f"{timed[B]['plain_ms']:.4f} ms, bound "
-            f"{timed[B]['bound_ms']:.4f} ms")
+            f"{timed[B]['plain_ms']:.4f} ms (CUDA graphs), bound "
+            f"{timed[B]['bound_ms']:.4f} ms ({timed[B]['bound_by']}; "
+            f"{ops} operations of the FFT route, which the bound counts, "
+            f"against {dft_ops} of the DFT products); torch.fft.rfft of "
+            f"the windowed frames alone {rfft_ms:.4f} ms (informational)")
     results["fbank_deltas"] = dict(
         timed[1], max_abs_err=worst, library_ms=None,
         **{f"b64_{k}": v for k, v in timed[64].items()})

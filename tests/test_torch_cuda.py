@@ -770,11 +770,13 @@ def test_lstm_scans_too_wide_raise(device):
 
 @pytest.mark.parametrize("sample_rate,B,use_energy,order", [
     (16000, 5, True, 2), (8000, 3, False, 2), (16000, 2, True, 1),
-    (16000, 1, True, 0)])
+    (16000, 1, True, 0), (22050, 2, True, 2), (44100, 1, True, 2),
+    (48000, 3, False, 1)])
 def test_fbank_deltas_kernel_matches_plain(device, sample_rate, B,
                                            use_energy, order):
     """Ragged true frame counts (one of 3 frames); the log domain within
-    1e-3 over every row (rows past a count are copies of its last)."""
+    1e-3 over every row (rows past a count are copies of its last); a
+    second call repeats the first's bits."""
     from attention_lvcsr_torch.ops import frontend as fe
     rng = np.random.RandomState(sample_rate + B)
     N = int(sample_rate * 1.3) + 17
@@ -793,6 +795,21 @@ def test_fbank_deltas_kernel_matches_plain(device, sample_rate, B,
     assert fe.launches.count == before + 1
     ref = fe.fbank_deltas_plain(wav, counts, **kw)
     torch.testing.assert_close(got, ref, atol=1e-3, rtol=0)
+    assert torch.equal(fe.fbank_deltas(wav, counts, **kw), got)
+
+
+@pytest.mark.parametrize("sample_rate", [8000, 16000, 48000])
+def test_fbank_deltas_of_silence_is_the_log_floor(device, sample_rate):
+    """An all-zero waveform: every base feature is log(1e-10) exactly on
+    both routes, and the two routes agree bit for bit."""
+    from attention_lvcsr_torch.ops import frontend as fe
+    wav = torch.zeros(2, sample_rate // 4, device=device)
+    got = fe.fbank_deltas(wav, sample_rate=sample_rate)
+    ref = fe.fbank_deltas_plain(wav, sample_rate=sample_rate)
+    floor = torch.log(torch.tensor(1e-10, device=device))
+    assert torch.equal(got[..., :41], floor.expand_as(got[..., :41]))
+    assert torch.equal(ref[..., :41], floor.expand_as(ref[..., :41]))
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("sample_rate,order,match", [

@@ -5,7 +5,9 @@ commit's.
 
     python3 tools/torch_bench_decode_kernels.py [--root DIR] [--out F.npz]
                                                 [--repeats N]
-                                                [--only loop|energy|score]
+                                                [--only loop|energy|score|
+                                                        frontend]
+                                                [--frontend-rows R,R]
     python3 tools/torch_bench_decode_kernels.py --compare A.npz B.npz
 
 Run from the repository root on a machine with a CUDA device and nvcc.
@@ -31,8 +33,12 @@ forced; each with CUDA events around a CUDA graph of ``--repeats``
 launches (100 unless given; the graph, ``chip_smoke.graph_ms``, keeps the
 wrapper's host time out of a kernel of tens of microseconds), its max abs
 error against the plain version and whether a second call repeats its
-bits.  ``--only`` takes a comma-separated list;
-``loop`` is the default.
+bits.  ``--only frontend`` times the waveform frontend (``fbank_deltas``,
+``csrc/frontend.cu``) the same way at B=1 and B=64 rows of 8 s at 16 and
+8 kHz (phase 14's speech-like audio, ragged true frame counts), with its
+launch plan where the package has one, and with ``--frontend-rows`` on
+each tile of output frames listed as well.  ``--only`` takes a
+comma-separated list; ``loop`` is the default.
 
 ``--root DIR`` imports the ``attention_lvcsr_torch`` package found in DIR
 instead of this checkout's and builds its kernels there: with DIR an
@@ -82,23 +88,27 @@ def main():
                         help="write the decodes' outputs to this .npz")
     parser.add_argument("--repeats", type=int, default=None,
                         help="launches timed (default 3 for the loop, 100 "
-                             "for the energy and score kernels)")
+                             "for the energy, score and frontend kernels)")
     parser.add_argument("--only", default="loop",
                         help="comma-separated kernels to time: loop, "
-                             "energy, score")
+                             "energy, score, frontend")
+    parser.add_argument("--frontend-rows", default=None,
+                        help="comma-separated tiles (output frames a "
+                             "block) to force on the frontend kernel, "
+                             "beside its plan's")
     parser.add_argument("--compare", nargs=2, metavar="NPZ")
     args = parser.parse_args()
     if args.compare:
         sys.exit(0 if compare(*args.compare) else 1)
     only = args.only.split(",")
-    unknown = sorted(set(only) - {"loop", "energy", "score"})
+    unknown = sorted(set(only) - {"loop", "energy", "score", "frontend"})
     if unknown:
         sys.exit(f"--only: unknown kernels {unknown}")
     import torch
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     sys.path.insert(0, ROOT)
-    from chip_smoke import graph_ms
+    from chip_smoke import graph_ms, speech_like
     sys.path.insert(0, os.path.abspath(args.root))
     from __graft_entry__ import FLAGSHIP_NET
     from attention_lvcsr_torch import _build
@@ -114,7 +124,8 @@ def main():
     print(f"package: {os.path.dirname(bl.__file__)}")
     lib = _build.load()
     names = {"loop": ("beam_loop", "product_rows"),
-             "energy": ("attention_energy",), "score": ("decode_score",)}
+             "energy": ("attention_energy",), "score": ("decode_score",),
+             "frontend": ("frontend",)}
     names = [n for key in only for n in names[key]]
     mine = False            # ptxas lines of the timed kernels
     for line in lib.log.splitlines():
@@ -124,6 +135,15 @@ def main():
                      or "spill" in line):
             print(f"  ptxas: {line.strip()}")
     dev = torch.device("cuda:0")
+    result = {"card": card, "root": os.path.abspath(args.root)}
+    if "frontend" in only:
+        forced = [int(r) for r in args.frontend_rows.split(",")] \
+            if args.frontend_rows else []
+        bench_frontend(dev, graph_ms, speech_like, args.repeats or 100,
+                       result, forced)
+        if only == ["frontend"]:           # no network to build
+            print(json.dumps(result))
+            return
 
     def cuda_ms(fn, repeats):
         for _ in range(max(1, min(20, repeats))):    # warm up the clocks
@@ -146,7 +166,6 @@ def main():
     kw = dict(beam=10, max_len=frames // 8, eol=rec.eos_label,
               ignore_first_eol=rec.data_prepend_eos, prior=prior["type"],
               before=float(prior["before"]), after=float(prior["after"]))
-    result = {"card": card, "root": os.path.abspath(args.root)}
     if "energy" in only:
         bench_energy(dev, graph_ms, args.repeats or 100, result)
     if "score" in only:
@@ -228,6 +247,71 @@ def bench_energy(dev, cuda_ms, repeats, result):
         print(f"beam_attention_energies U={U} K={K} L={L} M={M}: {ms:.4f} ms"
               f", max abs err {err:.3e}, a second call repeats its bits: "
               f"{same}" + (f", plan {plan}" if plan else ""))
+
+
+@contextlib.contextmanager
+def forced_rows(fe, rows):
+    """Within the block, the frontend's launches take tiles of ``rows``
+    output frames (at most what a block holds); ``None`` leaves its plan
+    alone."""
+    if rows is None:
+        yield
+        return
+    planned = fe.plan
+
+    def plan(B, T, sample_rate, num_bins=40, use_energy=True, order=2,
+             sms=132, limit=fe.MAX_SMEM):
+        r = min(rows, fe.max_rows(sample_rate, num_bins, use_energy, order,
+                                  limit))
+        return {"rows": r, "frames": r + 2 * order * fe.DELTA_WINDOW,
+                "blocks": B * -(-T // r),
+                "smem_bytes": fe.layout(sample_rate, num_bins, use_energy,
+                                        order, r)["bytes"]}
+    fe.plan = plan
+    try:
+        yield
+    finally:
+        fe.plan = planned
+
+
+def bench_frontend(dev, cuda_ms, speech_like, repeats, result, forced=()):
+    """``fbank_deltas`` alone at B = 1 and 64 rows of 8 s, 16 and 8 kHz,
+    on its plan's tiles and on each tile of ``forced``."""
+    import torch
+    from attention_lvcsr_torch.ops import frontend as fe
+    planned = hasattr(fe, "plan")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for rate in (16000, 8000):
+        for B in (1, 64):
+            rng = np.random.RandomState(14)
+            N = 8 * rate
+            frame_length, hop, _ = fe.frame_geometry(rate)
+            T = 1 + (N - frame_length) // hop
+            lengths = rng.randint(2 * rate, N + 1, size=B)
+            lengths[0] = N
+            wav_np = np.zeros((B, N), np.float32)
+            for b, n in enumerate(lengths):
+                wav_np[b, :n] = speech_like(rng, n, rate)
+            wav = torch.tensor(wav_np, device=dev)
+            counts = torch.tensor(1 + (lengths - frame_length) // hop,
+                                  device=dev)
+            run = lambda: fe.fbank_deltas(wav, counts, sample_rate=rate)
+            ref = fe.fbank_deltas_plain(wav, counts, sample_rate=rate)
+            valid = torch.arange(T, device=dev)[None] < counts[:, None]
+            for rows in [None, *(forced if planned else ())]:
+                with forced_rows(fe, rows):
+                    got, again = run(), run()
+                    ms = cuda_ms(run, repeats)
+                    plan = fe.plan(B, T, rate, sms=sms) if planned else None
+                err = float((got - ref).abs()[valid].max())
+                same = bool(torch.equal(got, again))
+                result[f"fbank_deltas_{rate}_B{B}"
+                       + (f"_rows{rows}" if rows else "") + "_ms"] = ms
+                print(f"fbank_deltas {rate} Hz B={B} T={T}: {ms:.4f} ms, "
+                      f"max abs err {err:.3e} (log domain, valid rows), a "
+                      f"second call repeats its bits: {same}"
+                      + (f", plan {plan}" if plan else "")
+                      + (" (forced)" if rows else ""))
 
 
 @contextlib.contextmanager
