@@ -1,13 +1,17 @@
-"""Command-line front end of the port: ``train`` and ``serve``.
+"""Command-line front end of the port: ``train``, ``test``,
+``init_norm``, ``search``, ``sample``, ``show_data`` and ``serve``.
 
-Same arguments as ``attention_lvcsr_tpu/cli/run.py train`` (save path,
-YAML config path, ``--params`` checkpoint, trailing ``path value``
-overrides) and ``serve`` (config, ``--params``, overrides, host, port,
-beam size, micro-batch size and wait), plus ``--device``.  The other
-subcommands (search, sample, ...) come with later parts of the port.
+The subcommands and arguments of ``attention_lvcsr_tpu/cli/run.py`` (a
+YAML config path, trailing ``path value`` overrides, ``--params`` where
+the JAX parser has it), plus ``--device`` (default ``cuda``, where the
+kernels run) on each subcommand that builds a model; they dispatch into
+:mod:`attention_lvcsr_torch.train.driver` and
+:mod:`attention_lvcsr_torch.serve`.
 
     python -m attention_lvcsr_torch.cli.run train model.zip \\
         tests/configs/toy.yaml training.num_batches 5 --device cpu
+    python -m attention_lvcsr_torch.cli.run search tests/configs/toy.yaml \\
+        --params model.zip --report report --device cpu
     python -m attention_lvcsr_torch.cli.run serve tests/configs/toy.yaml \\
         --params model.zip --port 8000
 """
@@ -34,23 +38,57 @@ def build_parser():
     parser.add_argument("--logging", default="INFO",
                         help="logging level (DEBUG/INFO/WARNING)")
     subparsers = parser.add_subparsers(dest="mode", required=True)
-    tr = subparsers.add_parser("train", help="train a model")
-    tr.add_argument("save_path", help="where to save the model")
-    tr.add_argument("--fast-start", action="store_true",
-                    help="skip the validation and the checkpoint before "
-                         "the first epoch")
-    sv = subparsers.add_parser("serve", help="HTTP decode endpoint with "
-                               "micro-batching")
-    for sub in (tr, sv):
+
+    def add_common(sub, with_save=False, with_params=True, with_device=True):
+        if with_save:
+            sub.add_argument("save_path", help="where to save the model")
         sub.add_argument("config_path", help="experiment YAML")
-        sub.add_argument("--params", default=None,
-                         help="load parameters from this checkpoint")
+        if with_params:
+            sub.add_argument("--params", default=None,
+                             help="load parameters from this checkpoint")
         sub.add_argument("config_changes", nargs="*", action=ParseChanges,
                          default=[],
                          help="trailing (dotted.path value) override pairs")
-        sub.add_argument("--device", default="cuda",
-                         help="torch device of the model (cuda runs the "
-                              "kernels)")
+        if with_device:
+            sub.add_argument("--device", default="cuda",
+                             help="torch device of the model (cuda runs the "
+                                  "kernels)")
+
+    tr = subparsers.add_parser("train", help="train a model")
+    add_common(tr, with_save=True)
+    tr.add_argument("--fast-start", action="store_true",
+                    help="skip the validation, the search and the "
+                         "checkpoint before the first epoch")
+
+    te = subparsers.add_parser("test", help="evaluate on the test set")
+    add_common(te, with_device=False)
+
+    n = subparsers.add_parser("init_norm",
+                              help="estimate feature normalization")
+    add_common(n, with_save=True, with_params=False, with_device=False)
+
+    s = subparsers.add_parser("search", help="beam-search decode")
+    add_common(s)
+    s.add_argument("--part", default="valid")
+    s.add_argument("--report", default=None,
+                   help="directory for report.txt + alignment plots")
+    s.add_argument("--decoded-save", default=None)
+    s.add_argument("--decode-only", default=None,
+                   help="python expression for utterance numbers")
+    s.add_argument("--nll-only", action="store_true")
+    s.add_argument("--seed", type=int, default=None)
+
+    sa = subparsers.add_parser("sample", help="sample from the model")
+    add_common(sa)
+    sa.add_argument("--part", default="valid")
+
+    sd = subparsers.add_parser("show_data",
+                               help="print a batch of training data")
+    add_common(sd, with_params=False, with_device=False)
+
+    sv = subparsers.add_parser("serve", help="HTTP decode endpoint with "
+                               "micro-batching")
+    add_common(sv)
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=8000)
     sv.add_argument("--beam-size", type=int, default=None)
@@ -67,14 +105,31 @@ def main(argv=None):
     from attention_lvcsr_torch.config import Configuration   # yaml: CLI only
     config = Configuration(args.config_path,
                            config_changes=args.config_changes or [])
+    if args.mode == "serve":
+        from attention_lvcsr_torch.serve import serve
+        return serve(config, args.params, host=args.host, port=args.port,
+                     beam_size=args.beam_size, max_batch=args.max_batch,
+                     batch_wait_ms=args.batch_wait_ms, device=args.device)
+    from attention_lvcsr_torch.train import driver
     if args.mode == "train":
-        from attention_lvcsr_torch.train.driver import train
-        return train(config, args.save_path, args.params,
-                     fast_start=args.fast_start, device=args.device)
-    from attention_lvcsr_torch.serve import serve
-    return serve(config, args.params, host=args.host, port=args.port,
-                 beam_size=args.beam_size, max_batch=args.max_batch,
-                 batch_wait_ms=args.batch_wait_ms, device=args.device)
+        return driver.train(config, args.save_path, args.params,
+                            fast_start=args.fast_start, device=args.device)
+    if args.mode == "test":
+        return driver.test(config)
+    if args.mode == "init_norm":
+        return driver.init_norm(config, args.save_path)
+    if args.mode == "search":
+        decode_only = eval(args.decode_only) if args.decode_only else None
+        return driver.search(
+            config, args.params, part=args.part, decode_only=decode_only,
+            report=args.report, decoded_save=args.decoded_save,
+            nll_only=args.nll_only, seed=args.seed, device=args.device)
+    if args.mode == "sample":
+        return driver.sample(config, args.params, part=args.part,
+                             device=args.device)
+    if args.mode == "show_data":
+        return driver.show_data(config)
+    raise ValueError(args.mode)
 
 
 if __name__ == "__main__":

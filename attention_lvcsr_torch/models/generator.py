@@ -17,7 +17,11 @@ distribute projections.  Two decode routes read it:
 ``evaluate`` is the teacher-forced pass of the training cost
 (``:380-433``): the whole label loop through ``decoder_scan_train`` (the
 CUDA kernels on a CUDA tensor), or, under ``use_pallas: never``, where the
-JAX package takes its XLA scan, through the plain module scan.
+JAX package takes its XLA scan, through the plain module scan; with an LM
+the readout also reads the LM's teacher-forced costs (``lm.evaluate``).
+``generate`` samples (``:912-942``): ``n_steps`` of the module step's
+score, the emitter's draw (categorical, or argmax with an LM) and the
+advance.
 
 Parameter names are the flax ones (``feedback/lookup/embedding``,
 ``transition_0``, ``fork_0_inputs``, ...); the language model holds only
@@ -101,8 +105,17 @@ class ShallowFusionReadout(Readout):
 
 
 class SoftmaxEmitter:
-    """Per-symbol costs of the plain readout: ``-log_softmax``; ``cost``
-    picks the cost of the given outputs (the log-likelihood criterion)."""
+    """The categorical emitter of the plain readout: per-symbol costs
+    ``-log_softmax``; ``cost`` picks the cost of the given outputs (the
+    log-likelihood criterion); ``emit`` draws from ``softmax(readouts)``
+    with an explicit ``torch.Generator``."""
+
+    def __init__(self, initial_output=0):
+        self.initial_output = initial_output
+
+    def emit(self, readouts, generator=None):
+        probs = torch.softmax(readouts, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
     @staticmethod
     def costs(readouts):
@@ -113,14 +126,25 @@ class SoftmaxEmitter:
         logp = torch.log_softmax(readouts, dim=-1)
         return -torch.gather(logp, -1, outputs[..., None])[..., 0]
 
+    def initial_outputs(self, batch_size, device=None):
+        return torch.full((batch_size,), self.initial_output,
+                          dtype=torch.long, device=device)
 
-class LMEmitter:
-    """Per-symbol costs of the shallow-fusion readout, which normalises
-    itself: ``-readouts``."""
+
+class LMEmitter(SoftmaxEmitter):
+    """The emitter of the shallow-fusion readout, which normalises
+    itself: costs ``-readouts``, emission by argmax."""
+
+    def emit(self, readouts, generator=None):
+        return torch.argmax(readouts, dim=-1)
 
     @staticmethod
     def costs(readouts):
         return -readouts
+
+    @staticmethod
+    def cost(readouts, outputs):
+        return -torch.gather(readouts, -1, outputs[..., None])[..., 0]
 
 
 def _unbiased(dense):
@@ -158,11 +182,11 @@ class SequenceGenerator(nn.Module):
         self.language_model = language_model
         if language_model is None:
             self.readout = Readout(sources, num_outputs, post_merge_dims)
-            self.emitter = SoftmaxEmitter
+            self.emitter = SoftmaxEmitter(initial_output=num_outputs)
         else:
             self.readout = ShallowFusionReadout(
                 sources, num_outputs, post_merge_dims, **dict(fusion or {}))
-            self.emitter = LMEmitter
+            self.emitter = LMEmitter(initial_output=num_outputs)
 
     def loop_decode_tables(self):
         """Dense weight tables of the whole-loop decode kernel; the same
@@ -255,18 +279,23 @@ class SequenceGenerator(nn.Module):
                  "energies": energies, "step": g["step"] + 1}
         return g_new, costs
 
-    def score_step(self, carry, contexts, beam=1):
-        """Glimpses and per-symbol continuation costs of every hypothesis
-        row: contexts per utterance (U, ...), carry rows per hypothesis
-        (U*beam, ...).  Returns (glimpses, costs (U*beam, V))."""
-        if beam > 1 and "fused_tables" in contexts:
-            return self._fused_score(carry, contexts, beam)
+    def _glimpse_and_readouts(self, carry, contexts, beam):
+        """The module step's glimpses and readouts (U*beam, V)."""
         g_new = self.attention.take_glimpses(
             contexts["attended"], contexts["preprocessed"],
             contexts["attended_mask"], carry["glimpses"],
             {"states": carry["states"]}, beam=beam)
         readouts = self.readout(self._readout_sources(
             carry["states"], g_new, carry.get("lm")))
+        return g_new, readouts
+
+    def score_step(self, carry, contexts, beam=1):
+        """Glimpses and per-symbol continuation costs of every hypothesis
+        row: contexts per utterance (U, ...), carry rows per hypothesis
+        (U*beam, ...).  Returns (glimpses, costs (U*beam, V))."""
+        if beam > 1 and "fused_tables" in contexts:
+            return self._fused_score(carry, contexts, beam)
+        g_new, readouts = self._glimpse_and_readouts(carry, contexts, beam)
         return g_new, self.emitter.costs(readouts)
 
     def advance_states(self, carry, g_new, chosen_outputs):
@@ -280,6 +309,35 @@ class SequenceGenerator(nn.Module):
                                                            chosen_outputs)
         return new_carry
 
+    # -- sampling -----------------------------------------------------------
+    def generate_step(self, carry, contexts, generator=None):
+        """Score, emit and advance one step of every row (JAX
+        ``generate_step``): returns the new carry and the step's
+        ``outputs``, ``costs``, ``weights`` and ``readouts``."""
+        g_new, readouts = self._glimpse_and_readouts(carry, contexts, 1)
+        outputs = self.emitter.emit(readouts, generator)
+        costs = self.emitter.cost(readouts, outputs)
+        carry = self.advance_states(carry, g_new, outputs)
+        return carry, {"outputs": outputs, "costs": costs,
+                       "weights": g_new["weights"], "readouts": readouts}
+
+    def generate(self, attended, attended_mask, n_steps, generator=None):
+        """``n_steps`` of :meth:`generate_step` from the initial states
+        over attended (B, L, D): each of ``outputs``, ``costs``,
+        ``weights`` and ``readouts`` stacked time-major (n_steps, B, ...).
+        No row stops at EOS, as in the JAX package."""
+        B = attended.shape[0]
+        contexts = {"attended": attended,
+                    "preprocessed": self.attention.preprocess(attended),
+                    "attended_mask": attended_mask}
+        carry = self.initial_states(B, attended)
+        steps = []
+        for _ in range(n_steps):
+            carry, out = self.generate_step(carry, contexts, generator)
+            steps.append(out)
+        return {k: torch.stack([out[k] for out in steps])
+                for k in ("outputs", "costs", "weights", "readouts")}
+
     # -- the teacher-forced pass -------------------------------------------
     def evaluate(self, attended, attended_mask, outputs, mask=None,
                  use_pallas="auto"):
@@ -287,9 +345,6 @@ class SequenceGenerator(nn.Module):
         (T, B) or None) against attended (B, L, D) and its mask (B, L).
         Returns ``costs`` (T, B), ``readouts`` (T, B, V), ``weights`` and
         ``energies`` (T, B, L)."""
-        if self.language_model is not None:
-            raise NotImplementedError(
-                "not ported yet: teacher-forced evaluation with an LM")
         T, B = outputs.shape
         preprocessed = self.attention.preprocess(attended)
         feedback = self.feedback(outputs)                       # (T, B, E)
@@ -301,7 +356,12 @@ class SequenceGenerator(nn.Module):
                  else self._evaluate_fused)
         pre_states, glimpses = route(attended, preprocessed, attended_mask,
                                      forked, mask, T, B)
-        return self._finish_evaluate(pre_states, glimpses, outputs, mask)
+        lm_add = None
+        if self.language_model is not None:
+            # the LM changes only the readout's sources
+            lm_add = self.language_model.evaluate(outputs, mask)["add"]
+        return self._finish_evaluate(pre_states, glimpses, outputs, mask,
+                                     lm_add)
 
     def _evaluate_fused(self, attended, preprocessed, attended_mask, forked,
                         mask, T, B):
@@ -356,10 +416,12 @@ class SequenceGenerator(nn.Module):
             k: torch.stack([g[k] for g in seq])
             for k in ("weights", "weighted_averages", "energies")}
 
-    def _finish_evaluate(self, pre_states, glimpses, outputs, mask):
+    def _finish_evaluate(self, pre_states, glimpses, outputs, mask, lm_add):
         sources = {"weighted_averages": glimpses["weighted_averages"]}
         if self.use_states_for_readout:
             sources["states"] = pre_states
+        if lm_add is not None:
+            sources["lm_add"] = lm_add
         readouts = self.readout(sources)                        # (T, B, V)
         costs = self.emitter.cost(readouts, outputs.long())
         if mask is not None:

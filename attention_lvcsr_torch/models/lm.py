@@ -12,7 +12,10 @@ one step is gathers and masked log-sum-exps:
   (an (N, N) equality mask, the first occurrence kept) and keeps the best
   M, ties to the lowest index (a stable sort, never ``torch.topk``);
 * the per-symbol cost vector ``add`` is
-  ``-logsumexp_m(-(w_m + total_weight[s_m, :])) - total``.
+  ``-logsumexp_m(-(w_m + total_weight[s_m, :])) - total``;
+* ``evaluate`` runs the steps over a teacher-forced label sequence and
+  returns the ``add`` each step's readout sees (before it consumes its
+  label), as the training cost and ``analyze`` read it.
 
 Three runtimes, chosen as the JAX package chooses them: dense tables; a
 CSR graph densified at load when its dense tables fit the byte budget
@@ -171,8 +174,9 @@ class FSTLanguageModel(nn.Module):
         return {"states": states, "weights": weights,
                 "add": self._costs(states, weights)}
 
-    def one_step(self, carry, symbols):
-        """Consume ``symbols`` (B,) ints; returns the new carry."""
+    def one_step(self, carry, symbols, mask=None):
+        """Consume ``symbols`` (B,) ints; returns the new carry.  Rows
+        whose ``mask`` (B,) is 0 keep their states and weights."""
         states, weights = carry["states"], carry["weights"]
         B, M = states.shape
         valid = states != NOT_STATE
@@ -200,8 +204,25 @@ class FSTLanguageModel(nn.Module):
         dead = ~torch.isfinite(new_weights)
         new_states = torch.where(dead, NOT_STATE, new_states)
         new_weights = torch.where(dead, 0.0, new_weights)
+        if mask is not None:
+            live = mask[:, None] > 0
+            new_states = torch.where(live, new_states, states)
+            new_weights = torch.where(live, new_weights, weights)
         return {"states": new_states, "weights": new_weights,
                 "add": self._costs(new_states, new_weights)}
+
+    def evaluate(self, outputs, mask=None):
+        """The teacher-forced pass over ``outputs`` (T, B): ``{"add": (T,
+        B, V)}``, the costs each step's readout sees, taken BEFORE the
+        step consumes ``outputs[t]``.  Masked steps ((T, B) ``mask`` 0)
+        carry the states and weights unchanged."""
+        carry = self.initial_states(outputs.shape[1])
+        adds = []
+        for t in range(outputs.shape[0]):
+            adds.append(carry["add"])
+            carry = self.one_step(carry, outputs[t],
+                                  mask=None if mask is None else mask[t])
+        return {"add": torch.stack(adds)}
 
 
 def make_language_model(lm_conf: Mapping[str, Any],

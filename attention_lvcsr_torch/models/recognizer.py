@@ -11,7 +11,8 @@ Counterpart of ``attention_lvcsr_tpu/models/recognizer.py``:
   section with a ``path`` adds the FST language model and the
   shallow-fusion readout;
 * :class:`SpeechRecognizer` — parameters, config-driven init, checkpoint
-  loading and saving, the training cost (``cost_fn``) and
+  loading and saving, the training cost (``cost_fn``), ``analyze`` (the
+  cost and alignment the search driver prints), ``sample`` and
   ``beam_search`` with the same frame and batch padding.
 
 The port covers the flagship configuration family; anything else raises
@@ -176,6 +177,15 @@ class RecognizerNet(nn.Module):
                       bottom_output=bottom_output)
         return result
 
+    def generate(self, inputs, inputs_mask, n_steps, generator=None):
+        """Sample ``n_steps`` outputs per utterance (JAX
+        ``RecognizerNet.generate``) through the inference encoder and the
+        module step; see :meth:`SequenceGenerator.generate`."""
+        encoded, encoded_mask = self.encode(inputs, inputs_mask)
+        return self.generator.generate(encoded.contiguous(),
+                                       encoded_mask.contiguous(), n_steps,
+                                       generator)
+
     def decode_loop(self, inputs, inputs_mask):
         """Encoder outputs + preprocessed keys for the decode kernel."""
         encoded, encoded_mask = self.encode(inputs, inputs_mask)
@@ -271,6 +281,45 @@ class SpeechRecognizer:
                                  train=train)
         return fn
 
+    def _tensor(self, x, dtype=torch.float32):
+        """An array or tensor as a ``dtype`` tensor on the model's
+        device."""
+        return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
+                               dtype=dtype, device=self.device)
+
+    def analyze(self, inputs, inputs_mask, labels, labels_mask):
+        """The teacher-forced cost and alignment of batch-major labels
+        (JAX ``SpeechRecognizer.analyze``): ``costs`` (T, B), ``weights``
+        and ``energies`` (T, B, L) as numpy, through :meth:`RecognizerNet.
+        cost` under ``torch.no_grad()``."""
+        with torch.no_grad():
+            out = self.net.cost(self._tensor(inputs),
+                                self._tensor(inputs_mask),
+                                self._tensor(labels, torch.long),
+                                self._tensor(labels_mask))
+            return {k: out[k].cpu().numpy()
+                    for k in ("costs", "weights", "energies")}
+
+    def sample(self, inputs, inputs_mask=None, n_steps=None, generator=None):
+        """Sample from the model (JAX ``SpeechRecognizer.sample``): one
+        (T, F) utterance or a (B, T, F) batch; ``n_steps`` defaults to T
+        divided by ``max_decoded_length_scale``, ``generator`` to a
+        ``torch.Generator`` on the model's device seeded with 0.  Returns
+        ``outputs``, ``costs``, ``weights`` and ``readouts`` as numpy,
+        time-major (n_steps, B, ...)."""
+        inputs = self._tensor(inputs)
+        if inputs.ndim == 2:
+            inputs = inputs[None]
+        mask = (torch.ones(inputs.shape[:2], device=self.device)
+                if inputs_mask is None else self._tensor(inputs_mask))
+        if n_steps is None:
+            n_steps = int(inputs.shape[1] / self.max_decoded_length_scale)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        with torch.no_grad():
+            out = self.net.generate(inputs, mask, n_steps, generator)
+            return {k: v.cpu().numpy() for k, v in out.items()}
+
     # -- beam search -------------------------------------------------------
     def init_beam_search(self, beam_size, compute_dtype="default"):
         from attention_lvcsr_torch.search.beam import BeamSearch
@@ -292,18 +341,11 @@ class SpeechRecognizer:
         utterance stays single) with zero mask, like the JAX package; the
         decode-length cap comes from the unpadded T."""
         self.init_beam_search(self.beam_size or 10)
-        inputs = torch.as_tensor(np.asarray(inputs, np.float32)
-                                 if not torch.is_tensor(inputs) else inputs,
-                                 dtype=torch.float32, device=self.device)
+        inputs = self._tensor(inputs)
         if inputs.ndim == 2:
             inputs = inputs[None]
-        if inputs_mask is None:
-            mask = torch.ones(inputs.shape[:2], device=self.device)
-        else:
-            mask = torch.as_tensor(
-                np.asarray(inputs_mask, np.float32)
-                if not torch.is_tensor(inputs_mask) else inputs_mask,
-                dtype=torch.float32, device=self.device)
+        mask = (torch.ones(inputs.shape[:2], device=self.device)
+                if inputs_mask is None else self._tensor(inputs_mask))
         B, T = inputs.shape[:2]
         max_length = int(T / self.max_decoded_length_scale)
 

@@ -4,7 +4,8 @@ Counterpart of ``attention_lvcsr_tpu/ops/expressions.py``: ``conv1d`` in
 'full' mode (``torch.nn.functional.conv1d`` computes a cross-correlation,
 so the filter is flipped, as the JAX version flips it for XLA), and the
 attention diagnostics ``monotonicity_penalty`` and ``entropy`` over
-time-major ``(T_out, B, L)`` weights.
+time-major ``(T_out, B, L)`` weights, and ``weights_std``, the spread of
+the attention that the search driver prints for each alignment.
 """
 from __future__ import annotations
 
@@ -35,3 +36,20 @@ def entropy(weights, mask_x):
     batch."""
     entropies = (weights * torch.log(weights + 1e-7)).sum(dim=2)
     return (entropies * mask_x).sum()
+
+
+def weights_std(weights, mask_outputs=None):
+    """Std of the attention position distribution, summed over steps and
+    divided by their number.  ``weights``: (T_out, B, L) time-major
+    attention weights (a tensor or an array); ``mask_outputs`` (T_out,
+    B) or None."""
+    weights = torch.as_tensor(weights)
+    positions = torch.arange(weights.shape[2], dtype=weights.dtype,
+                             device=weights.device)
+    expected = (weights * positions).sum(dim=2)
+    expected2 = (weights * positions ** 2).sum(dim=2)
+    result = torch.sqrt(torch.clamp(expected2 - expected ** 2, min=0.0))
+    if mask_outputs is not None:
+        result = result * torch.as_tensor(mask_outputs, dtype=result.dtype,
+                                          device=result.device)
+    return result.sum() / weights.shape[0]

@@ -1,4 +1,5 @@
-"""The training driver: model construction, the train step, the loop.
+"""The driver: model construction, the train step, the loop, and the
+search, sampling and data entries of ``run.py``.
 
 Counterpart of ``attention_lvcsr_tpu/train/driver.py`` for teacher-forced
 (``exploration: imitative``) training:
@@ -19,35 +20,54 @@ Counterpart of ``attention_lvcsr_tpu/train/driver.py`` for teacher-forced
   on ``valid_sequence_total_cost``; FinishAfter (batches, epochs, a NaN
   gradient norm); Checkpoint before the first epoch, after every epoch
   and every n batches, with its ``_params.npz`` sidecar, and the
-  ``_best_ll`` copy when the validation cost improves; Printing;
+  ``_best_ll`` copy when the validation cost improves; Printing.
+  With ``monitoring.search`` it also decodes the validation stream with
+  the beam search (``BeamSearchErrorRate``, before the first epoch and at
+  ``search_every_epochs``/``search_every_batches``), tracks the best
+  ``valid_per`` and saves each epoch that improves it to
+  ``<root>_best<ext>``;
 * :func:`train` is the CLI part: it reads the config's data (``yaml`` and
   ``h5py`` are imported there only) and calls :func:`run_training` over
-  the ``train`` part, validating on the ``valid`` part.
+  the ``train`` part, validating on the ``valid`` part;
+* :func:`run_search` decodes and scores examples (JAX ``search``
+  :671-826): per utterance the groundtruth's teacher-forced cost and
+  alignment (``SpeechRecognizer.analyze``), the beam search, one at a time
+  or in chunks of ``monitoring.search.decode_batch``
+  (:func:`_batched_decode_iter`), the recognized hypothesis's cost, its
+  CER (and WER with a vocabulary), with the JAX package's report lines;
+  :func:`search` is its CLI part over a dataset part;
+* :func:`sample`, :func:`show_data`, :func:`init_norm` and :func:`test`
+  are the other entries of the JAX ``run.py`` (:829-881).
 
 Not ported, and refused with ``NotImplementedError`` naming the piece:
 weight noise, adaptive noise, dropout, greedy and mixed exploration, a
 bf16 compute dtype, and multistage configs.  Not ported, and named in one
 ``logging`` warning each when a config sets them (:data:`UNPORTED_KEYS`):
-search during training with its ``_best`` checkpoint, Patience,
-``stop_filtering`` and the plot channels; and, for every config, the
-averaged train records (``average_*``).
+Patience, ``stop_filtering`` and the plot channels; and, for every
+config, the averaged train records (``average_*``).
 """
 from __future__ import annotations
 
 import logging
 import os
+import sys
+import time
 from typing import Any, Callable, Iterable, Mapping, Optional
 
+import numpy as np
 import torch
 
 from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+from attention_lvcsr_torch.ops.error_rate import wer
 from attention_lvcsr_torch.ops.expressions import (entropy,
-                                                   monotonicity_penalty)
+                                                   monotonicity_penalty,
+                                                   weights_std)
 from attention_lvcsr_torch.train.loop import (Checkpoint, FinishAfter,
                                               MainLoop, Printing, Timing,
                                               TrackTheBest,
                                               gradient_norm_is_nan, on_record)
-from attention_lvcsr_torch.train.monitoring import (DataStreamMonitoring,
+from attention_lvcsr_torch.train.monitoring import (BeamSearchErrorRate,
+                                                    DataStreamMonitoring,
                                                     batch_tensors,
                                                     make_eval_fn)
 from attention_lvcsr_torch.train.rules import (build_optimizer, global_norm,
@@ -59,8 +79,6 @@ logger = logging.getLogger(__name__)
 # honours and the port does not yet: what each stands for, and the
 # ROADMAP item that ports it.
 UNPORTED_KEYS = {
-    "monitoring.search": "beam-search validation during training and the "
-                         "_best checkpoint (ROADMAP Queue 1 item 4)",
     "training.patience": "early stopping, Patience (ROADMAP Queue 1 item 4)",
     "training.stop_filtering": "switching off the length filter, "
                                "SwitchOffLengthFilter (ROADMAP Queue 1 "
@@ -222,7 +240,7 @@ def run_training(recognizer: SpeechRecognizer, optimizer,
                  config: Optional[Mapping] = None, *, num_batches=None,
                  num_epochs=None, save_every_n_batches=None,
                  valid_stream: Optional[Callable[[], Iterable]] = None,
-                 fast_start=False, printing=True):
+                 search_data=None, fast_start=False, printing=True):
     """Train ``recognizer`` with ``optimizer`` over ``batch_stream()``
     (called once per epoch; each batch a mapping with ``recordings``,
     ``recordings_mask``, ``labels`` and ``labels_mask``), checkpointing to
@@ -232,31 +250,61 @@ def run_training(recognizer: SpeechRecognizer, optimizer,
     cost is taken before the first epoch (unless ``fast_start``) and at
     the config's ``monitoring.validate_every_epochs`` (default 1) and
     ``validate_every_batches``, and each epoch that improves it is also
-    saved to ``<root>_best_ll<ext>``.  Returns the finished
-    :class:`MainLoop` (its ``log`` holds every step's monitors)."""
+    saved to ``<root>_best_ll<ext>``.  With the config's
+    ``monitoring.search`` section as well, the beam search's error rate
+    on ``valid_stream`` (``valid_per``) is taken before the first epoch
+    (unless ``fast_start``) and at ``monitoring.search_every_epochs``
+    (default 1) and ``search_every_batches``, the characters coming from
+    ``search_data.decode``, and each epoch that improves it is saved to
+    ``<root>_best<ext>``.  Returns the finished :class:`MainLoop` (its
+    ``log`` holds every step's monitors)."""
     config = dict(config or {})
     mon_conf = config.get("monitoring", {}) or {}
+    search_conf = mon_conf.get("search") or {}
     step = make_train_step(recognizer, optimizer, config)
     algorithm = GradientDescent(recognizer, optimizer, step)
     exts = [Timing()]
-    best = None
+    best = best_per = None
     if valid_stream is not None:
         validation = DataStreamMonitoring(
             make_eval_fn(recognizer), valid_stream, prefix="valid",
             before_first_epoch=not fast_start,
             every_n_epochs=mon_conf.get("validate_every_epochs", 1),
             every_n_batches=mon_conf.get("validate_every_batches", 0))
+        exts.append(validation)
+        if search_conf:
+            if search_data is None:
+                raise ValueError("monitoring.search needs search_data, the "
+                                 "object whose decode() gives the "
+                                 "characters of label ids")
+            per = BeamSearchErrorRate(
+                recognizer, search_data, valid_stream,
+                beam_size=search_conf.get("beam_size", 10),
+                char_discount=search_conf.get("char_discount"),
+                round_to_inf=search_conf.get("round_to_inf"),
+                stop_on=search_conf.get("stop_on"),
+                before_first_epoch=not fast_start,
+                every_n_epochs=mon_conf.get("search_every_epochs", 1),
+                every_n_batches=mon_conf.get("search_every_batches", 0))
+            best_per = TrackTheBest(per.record_name,
+                                    before_first_epoch=True,
+                                    after_epoch=True)
+            exts += [per, best_per]
         best = TrackTheBest(validation.record_name("sequence_total_cost"),
                             before_first_epoch=True, after_epoch=True)
-        exts += [validation, best]
+        exts.append(best)
     finish = FinishAfter(after_n_batches=num_batches,
                          after_n_epochs=num_epochs)
     finish.add_condition(["after_batch"], gradient_norm_is_nan)
     checkpoint = Checkpoint(save_path, before_first_epoch=not fast_start,
                             after_epoch=True,
                             every_n_batches=save_every_n_batches)
+    root, ext = os.path.splitext(save_path)
+    if best_per is not None:
+        checkpoint.add_condition(["after_epoch"],
+                                 on_record(best_per.notification_name),
+                                 arguments=(root + "_best" + ext,))
     if best is not None:
-        root, ext = os.path.splitext(save_path)
         checkpoint.add_condition(["after_epoch"],
                                  on_record(best.notification_name),
                                  arguments=(root + "_best_ll" + ext,))
@@ -294,4 +342,305 @@ def train(config, save_path, params_path=None, fast_start=False,
         num_epochs=train_conf.get("num_epochs"),
         save_every_n_batches=train_conf.get("save_every_n_batches"),
         valid_stream=lambda: data.get_stream("valid", shuffle=False),
-        fast_start=fast_start)
+        search_data=data, fast_start=fast_start)
+
+
+def _input_key(recognizer):
+    return ("recordings" if "recordings" in recognizer.net_config["input_dims"]
+            else "inputs")
+
+
+def _batched_decode_iter(stream, recognizer, input_key, decode_batch,
+                         search_kwargs, decode_only):
+    """Decode the stream's examples in chunks of ``decode_batch``, one
+    batched beam search a chunk (zero-padded to its longest utterance);
+    yields (number, example, best-first outputs, costs, seconds per
+    utterance).  The decode-length cap comes from the chunk's longest
+    utterance."""
+    chunk = []
+
+    def flush():
+        if not chunk:
+            return
+        B = len(chunk)
+        arrs = [np.asarray(ex[input_key]) for _, ex in chunk]
+        max_t = max(len(a) for a in arrs)
+        batch = np.zeros((B, max_t) + arrs[0].shape[1:], arrs[0].dtype)
+        mask = np.zeros((B, max_t), np.float32)
+        for i, a in enumerate(arrs):
+            batch[i, :len(a)] = a
+            mask[i, :len(a)] = 1.0
+        before = time.time()
+        out = recognizer.beam_search(batch, mask, as_arrays=True,
+                                     **search_kwargs)
+        took = (time.time() - before) / B
+        for i, (number, ex) in enumerate(chunk):
+            valid = out["done_valid"][i]
+            if not valid.any():
+                yield number, ex, [[]], [np.nan], took
+                continue
+            order = [k for k in np.argsort(out["done_adjusted"][i])
+                     if valid[k]]
+            outputs = [list(out["done_out"][i, k, :out["done_len"][i, k]])
+                       for k in order]
+            costs = [float(out["done_cost"][i, k]) for k in order]
+            yield number, ex, outputs, costs, took
+        chunk.clear()
+
+    for number, example in enumerate(stream):
+        if decode_only is not None and number not in decode_only:
+            continue
+        chunk.append((number, example))
+        if len(chunk) >= decode_batch:
+            yield from flush()
+    yield from flush()
+
+
+def _analyze_one(recognizer, inputs, labels):
+    """The teacher-forced costs (T,) and weights (T, L) of one
+    utterance's labels."""
+    out = recognizer.analyze(inputs[None], np.ones((1, len(inputs))),
+                             np.asarray(labels, np.int64)[None],
+                             np.ones((1, len(labels))))
+    return out["costs"], out["weights"][:, 0, :]
+
+
+def _std(weights):
+    return float(weights_std(weights[:, None, :],
+                             np.ones((len(weights), 1), "f")))
+
+
+def run_search(recognizer, examples, dataset, search_conf, *,
+               vocabulary=None, decode_only=None, nll_only=False,
+               report=None, decoded_save=None,
+               validate_solution_function=None, print_to=None):
+    """Decode and score ``examples`` (an iterable of example dicts with
+    the input features, ``labels`` and optionally ``uttids``), printing
+    the JAX package's report lines to ``print_to`` (standard output by
+    default; with ``report``, to ``<report>/report.txt``, with alignment
+    plots in ``<report>/alignments``).  ``dataset`` gives ``decode(labels)`` (the
+    characters scored) and ``pretty_print(labels, example)``;
+    ``search_conf`` is the config's ``monitoring.search`` section
+    (``beam_size``, ``char_discount``, ``round_to_inf``, ``stop_on``,
+    ``decode_batch``); ``vocabulary`` maps words to words for the WER;
+    ``decode_only`` holds the numbers of the examples to decode;
+    ``nll_only`` prints the groundtruth costs alone; ``decoded_save``
+    receives one ``<uttid> <characters>`` line per decoded example.
+    Returns the totals (``num_examples``, ``total_nll``,
+    ``total_errors``, ``total_length``, ``total_wer_errors``,
+    ``total_word_length``)."""
+    from attention_lvcsr_torch.search.beam import CandidateNotFoundError
+    print_to = print_to or sys.stdout
+    recognizer.init_beam_search(search_conf.get("beam_size", 10))
+    input_key = _input_key(recognizer)
+
+    def to_words(chars):
+        return [vocabulary.get(word, vocabulary.get("<UNK>", "<UNK>"))
+                for word in chars.split()]
+
+    report_file = decoded_file = None
+    if report:
+        os.makedirs(os.path.join(report, "alignments"), exist_ok=True)
+        print_to = report_file = open(os.path.join(report, "report.txt"),
+                                      "w")
+    if decoded_save:
+        decoded_file = open(decoded_save, "w")
+
+    stats = dict(num_examples=0, total_nll=0.0, total_errors=0.0,
+                 total_length=0.0, total_wer_errors=0.0,
+                 total_word_length=0.0)
+    search_kwargs = {k: v for k, v in dict(
+        char_discount=search_conf.get("char_discount"),
+        round_to_inf=search_conf.get("round_to_inf"),
+        stop_on=search_conf.get("stop_on"),
+        validate_solution_function=validate_solution_function).items() if v}
+    decode_batch = int(search_conf.get("decode_batch", 1) or 1)
+    if decode_batch > 1 and not nll_only:
+        example_iter = _batched_decode_iter(
+            examples, recognizer, input_key, decode_batch, search_kwargs,
+            decode_only)
+    else:
+        example_iter = ((n, ex, None, None, None)
+                        for n, ex in enumerate(examples)
+                        if decode_only is None or n in decode_only)
+    try:
+        for number, example, pre_out, pre_costs, pre_took in example_iter:
+            uttids = example.pop("uttids", None)
+            raw_groundtruth = np.asarray(example["labels"], np.int64)
+            inputs = np.asarray(example[input_key], np.float32)
+            print(f"Utterance {number} ({uttids})", file=print_to)
+            groundtruth = dataset.decode(raw_groundtruth)
+            groundtruth_text = dataset.pretty_print(raw_groundtruth, example)
+
+            costs_gt, weights_gt = _analyze_one(recognizer, inputs,
+                                                raw_groundtruth)
+            nll = float(costs_gt.sum())
+            stats["total_nll"] += nll
+            stats["num_examples"] += 1
+            print("Groundtruth:", groundtruth_text, file=print_to)
+            print("Groundtruth cost:", nll, file=print_to)
+            print("Groundtruth weight std:", _std(weights_gt), file=print_to)
+            print("Average groundtruth cost: {}".format(
+                stats["total_nll"] / stats["num_examples"]), file=print_to)
+            if nll_only:
+                print_to.flush()
+                continue
+
+            if pre_out is not None:
+                outputs, search_costs, took = pre_out, pre_costs, pre_took
+            else:
+                before = time.time()
+                try:
+                    outputs, search_costs = recognizer.beam_search(
+                        inputs, **search_kwargs)
+                except CandidateNotFoundError:
+                    outputs, search_costs = [[]], [np.nan]
+                took = time.time() - before
+
+            recognized = dataset.decode(outputs[0])
+            recognized_text = dataset.pretty_print(outputs[0], example)
+            error = min(1, wer(groundtruth, recognized)) if recognized else 1
+            stats["total_errors"] += len(groundtruth) * error
+            stats["total_length"] += len(groundtruth)
+
+            costs_recognized = weights_recognized = None
+            if recognized:
+                costs_rec, weights_recognized = _analyze_one(
+                    recognizer, inputs, outputs[0])
+                costs_recognized = float(costs_rec.sum())
+
+            if vocabulary is not None:
+                wer_error = min(1, wer(to_words(groundtruth_text),
+                                       to_words(recognized_text)))
+                stats["total_wer_errors"] += len(groundtruth) * wer_error
+                stats["total_word_length"] += len(groundtruth)
+
+            if report and recognized:
+                from attention_lvcsr_torch.utils.plots import save_alignment
+                save_alignment(weights_gt, groundtruth, os.path.join(
+                    report, "alignments", f"{number}.groundtruth.png"))
+                save_alignment(weights_recognized, recognized, os.path.join(
+                    report, "alignments", f"{number}.recognized.png"))
+
+            if decoded_file is not None:
+                print("{} {}".format(uttids, " ".join(recognized)),
+                      file=decoded_file)
+
+            print("Decoding took:", took, file=print_to)
+            print("Beam search cost:", search_costs[0], file=print_to)
+            print("Recognized:", recognized_text, file=print_to)
+            if costs_recognized is not None:
+                print("Recognized cost:", costs_recognized, file=print_to)
+                print("Recognized weight std:", _std(weights_recognized),
+                      file=print_to)
+            print("CER:", error, file=print_to)
+            print("Average CER:",
+                  stats["total_errors"] / stats["total_length"],
+                  file=print_to)
+            if vocabulary is not None:
+                print("WER:", wer_error, file=print_to)
+                print("Average WER:", stats["total_wer_errors"]
+                      / stats["total_word_length"], file=print_to)
+            print_to.flush()
+    finally:
+        for f in (report_file, decoded_file):
+            if f is not None:
+                f.close()
+    return stats
+
+
+def read_vocabulary(path):
+    """``{word: word}`` of the first two columns of each line."""
+    vocabulary = {}
+    with open(os.path.expandvars(path)) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) >= 2:
+                vocabulary[parts[0]] = parts[1]
+    return vocabulary
+
+
+def search(config, load_path, part="valid", decode_only=None, report=None,
+           decoded_save=None, nll_only=False, seed=None, device="cuda",
+           print_to=None):
+    """CLI entry (``run.py search``): decode and score a dataset part with
+    the config's ``monitoring.search`` settings, as the JAX ``search``
+    reads them; see :func:`run_search`."""
+    from attention_lvcsr_torch.data import Data      # h5py: CLI path only
+    data = Data(**config["data"])
+    search_conf = config.get("monitoring", {}).get("search", {})
+    recognizer = create_model(config, data, load_path, device=device)
+    add_sources = ("uttids",) if "uttids" in data.sources_map else ()
+    dataset = data.get_dataset(part, add_sources=add_sources)
+    stream = data.get_stream(part, batches=False, shuffle=part == "train",
+                             add_sources=add_sources,
+                             num_examples=(500 if part == "train" else None),
+                             seed=seed)
+    vocabulary = (read_vocabulary(config["vocabulary"])
+                  if config.get("vocabulary") else None)
+    return run_search(
+        recognizer, stream, dataset, search_conf, vocabulary=vocabulary,
+        decode_only=decode_only, nll_only=nll_only, report=report,
+        decoded_save=decoded_save,
+        validate_solution_function=getattr(data.info_dataset,
+                                           "validate_solution", None),
+        print_to=print_to)
+
+
+def sample(config, load_path, part="valid", device="cuda", print_to=None):
+    """CLI entry (``run.py sample``): the groundtruth and a sample of the
+    model for each example of a dataset part."""
+    from attention_lvcsr_torch.data import Data
+    print_to = print_to or sys.stdout
+    data = Data(**config["data"])
+    recognizer = create_model(config, data, load_path, device=device)
+    dataset = data.get_dataset(part)
+    input_key = _input_key(recognizer)
+    for number, example in enumerate(
+            data.get_stream(part, batches=False, shuffle=False)):
+        raw_groundtruth = example["labels"]
+        print(f"Utterance {number}", file=print_to)
+        print("Groundtruth:",
+              dataset.pretty_print(raw_groundtruth, example), file=print_to)
+        result = recognizer.sample(
+            np.asarray(example[input_key], np.float32))
+        outputs = result["outputs"][:, 0]
+        print("Recognized:", dataset.pretty_print(outputs, example),
+              file=print_to)
+
+
+def show_data(config):
+    """CLI entry (``run.py show_data``): the shape and dtype of each
+    source of the first training batch, and the mean and std of the
+    float ones."""
+    from attention_lvcsr_torch.data import Data
+    data = Data(**config["data"])
+    batch = next(iter(data.get_stream("train")))
+    for key, value in batch.items():
+        arr = np.asarray(value)
+        print(f"{key}: shape={arr.shape} dtype={arr.dtype}")
+        if arr.dtype.kind == "f":
+            print(f"  mean={arr.mean():.4f} std={arr.std():.4f}")
+    return batch
+
+
+def init_norm(config, save_path):
+    """CLI entry (``run.py init_norm``): the feature mean and std of the
+    training part (without the config's own normalization), saved to
+    ``save_path``."""
+    from attention_lvcsr_torch.data import Data
+    from attention_lvcsr_torch.data.preprocessing import Normalization
+    data_conf = dict(config["data"])
+    data_conf.pop("normalization", None)
+    data = Data(**data_conf)
+    norm = Normalization.compute(
+        data.get_stream("train", batches=False, shuffle=False),
+        source="recordings")
+    norm.save(save_path)
+    print(f"saved normalization to {save_path}")
+    return norm
+
+
+def test(config, **kwargs):
+    raise NotImplementedError("the reference's 'test' entry is also "
+                              "unimplemented (lvsr/main.py:925-926)")

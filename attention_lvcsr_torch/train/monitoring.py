@@ -1,12 +1,17 @@
-"""Validation during training: the cost over a stream, weighted means.
+"""Validation during training: the cost over a stream, weighted means,
+and the error rate of a beam search.
 
-Counterparts of ``DataStreamMonitoring`` (``attention_lvcsr_tpu/train/
-monitoring.py:91-124``) and ``make_eval_fn`` (``attention_lvcsr_tpu/train/
-driver.py:383-416``).  ``make_eval_fn`` runs the port's ``net.cost`` under
-``torch.no_grad()`` (on a CUDA device: the encoder's and the decoder's
-training forward kernels) and returns the JAX package's four weighted
-records; ``DataStreamMonitoring`` sums them over the stream and writes
-``<prefix>_<record>`` into the log.
+Counterparts of ``DataStreamMonitoring`` and ``BeamSearchErrorRate``
+(``attention_lvcsr_tpu/train/monitoring.py:91-214``) and ``make_eval_fn``
+(``attention_lvcsr_tpu/train/driver.py:383-416``).  ``make_eval_fn`` runs
+the port's ``net.cost`` under ``torch.no_grad()`` (on a CUDA device: the
+encoder's and the decoder's training forward kernels) and returns the JAX
+package's four weighted records; ``DataStreamMonitoring`` sums them over
+the stream and writes ``<prefix>_<record>`` into the log;
+``BeamSearchErrorRate`` decodes the stream's batches with the
+recognizer's beam search (on a CUDA device: the encoder and the whole-loop
+decode kernel) and writes the mean character error rate,
+``<prefix>_per``.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from attention_lvcsr_torch.ops.error_rate import wer
 from attention_lvcsr_torch.ops.expressions import (entropy,
                                                    monotonicity_penalty)
 from attention_lvcsr_torch.train.loop import SimpleExtension
@@ -88,3 +94,81 @@ class DataStreamMonitoring(SimpleExtension):
         for name in sums:
             row[self.record_name(name)] = sums[name] / max(weights[name],
                                                            1e-12)
+
+
+class BeamSearchErrorRate(SimpleExtension):
+    """The validation CER of a batched beam search (the JAX
+    ``BeamSearchErrorRate``): a hypothesis that fails to decode counts as
+    error 1, and after more than 10 examples at a mean error above 0.8 the
+    pass stops and records 1 (an untrained model).  ``data`` turns label
+    ids into characters (``decode``); a ``validate_solution`` of its
+    ``info_dataset`` (or of itself) constrains the search.  The record is
+    ``valid_per``."""
+
+    record_name = "valid_per"
+
+    def __init__(self, recognizer, data, stream_factory, beam_size,
+                 char_discount=None, round_to_inf=None, stop_on=None,
+                 **conditions):
+        self.recognizer = recognizer
+        self.data = data
+        self.stream_factory = stream_factory
+        self.beam_size = beam_size
+        self.search_kwargs = {}
+        if char_discount is not None:
+            self.search_kwargs["char_discount"] = char_discount
+        if round_to_inf is not None:
+            self.search_kwargs["round_to_inf"] = round_to_inf
+        if stop_on is not None:
+            self.search_kwargs["stop_on"] = stop_on
+        validate = getattr(getattr(data, "info_dataset", data),
+                           "validate_solution", None)
+        if validate is not None:
+            self.search_kwargs["validate_solution_function"] = validate
+        super().__init__(**conditions)
+
+    def do(self, which_callback, *args):
+        from attention_lvcsr_torch.search.beam import CandidateNotFoundError
+        self.recognizer.init_beam_search(self.beam_size)
+        total_errors = total_length = 0.0
+        num_examples = 0
+        for batch in self.stream_factory():
+            inputs = batch["recordings"] if "recordings" in batch \
+                else batch["inputs"]
+            mask_key = ("recordings_mask" if "recordings_mask" in batch
+                        else "inputs_mask")
+            try:
+                out = self.recognizer.beam_search(
+                    inputs, batch[mask_key], as_arrays=True,
+                    **self.search_kwargs)
+                best = np.where(out["done_valid"].any(axis=1),
+                                np.argmin(out["done_adjusted"], axis=1), -1)
+            except CandidateNotFoundError:
+                best = None
+            labels = _numpy(batch["labels"])
+            labels_mask = batch.get("labels_mask")
+            for b in range(inputs.shape[0]):
+                L = (int(_numpy(labels_mask[b]).sum())
+                     if labels_mask is not None else labels.shape[1])
+                groundtruth = self.data.decode(labels[b, :L])
+                if not groundtruth:
+                    continue
+                error = 1.0
+                if best is not None and best[b] >= 0:
+                    k = int(best[b])
+                    n = int(out["done_len"][b, k])
+                    recognized = self.data.decode(out["done_out"][b, k, :n])
+                    error = min(1.0, wer(groundtruth, recognized))
+                total_errors += error * len(groundtruth)
+                total_length += len(groundtruth)
+                num_examples += 1
+            if num_examples > 10 and \
+                    total_errors / max(total_length, 1) > 0.8:
+                total_errors, total_length = 1.0, 1.0
+                break
+        self.main_loop.log.current_row[self.record_name] = (
+            total_errors / max(total_length, 1e-12))
+
+
+def _numpy(x):
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)

@@ -7,8 +7,9 @@ Builds the port's CUDA kernels from ``attention_lvcsr_torch/csrc`` and
 drives the flagship decode (the ``__graft_entry__.FLAGSHIP_NET`` shape:
 4x250 BiGRU encoder, conv-attention GRU decoder, beam 10) with random
 weights made from a seed, without an LM, with the LM and under a
-dictionary constraint; trains it; serves it waveforms; and decodes and
-trains it with a 4x250 BiLSTM encoder.  Phases, each fatal on failure:
+dictionary constraint; trains it; serves it waveforms; decodes and
+trains it with a 4x250 BiLSTM encoder; and decodes, scores and samples it
+through the search driver.  Phases, each fatal on failure:
 
 1. build the kernels (one nvcc per source, sm_90a) and print the time;
 2. ``gru_scan`` kernel vs its plain PyTorch version at the encoder's
@@ -116,7 +117,34 @@ trains it with a 4x250 BiLSTM encoder.  Phases, each fatal on failure:
     steps at B=32, 800 frames, 100 labels through ``lstm_scan_train`` +
     ``decoder_scan_train``, two on the plain route compared step by step
     (train_cost and total_gradient_norm within 1e-4 relative), a second
-    kernel run repeating its monitors bit for bit, utt/s.
+    kernel run repeating its monitors bit for bit, utt/s;
+18. the search driver on the flagship network (random weights from seed
+    1234, the EOS logit raised by 1.5, saved with ``save_checkpoint`` and
+    loaded through ``create_model``) over 16 in-memory utterances (numpy
+    seed 18, 300-800 frames, 20-80 labels, the flagship's character map):
+    ``run_search`` (a) one utterance at a time over 4 of them
+    (char_discount 3.0: below it the random model's best hypothesis is
+    empty; ``beam_search_loop`` at U=1, ``analyze`` at B=1 through
+    ``gru_scan_train_bidir`` and ``decoder_scan_train`` forward, twice an
+    utterance), (b) in one chunk of 16 (the loop kernel at U=16), (c)
+    with phase 8's trigram fused in, weight 0.5, char_discount 1.0, in
+    one chunk of 16 (``beam_attention_energies``, the LM's teacher-forced
+    pass in ``analyze``); (d) ``sample`` of 4 utterances
+    (``beam_attention_energies`` at U=1).  Each runs again on the plain
+    route (b's on 8 of the 16, the longest among them, as one chunk):
+    the same hypotheses (at most one near tie), groundtruth and
+    recognized costs within 1e-4 relative, the same CER and totals where
+    the hypotheses agree, the same draws, and each sample's per-step costs
+    within 1e-4 relative of its own teacher-forced ``analyze``; the kernels
+    of each path launch and no other; utt/s of both routes and the
+    shares of (a)'s wall time in ``analyze`` and in the beam search.  Then
+    ``run_training``, 2 steps (adadelta epsilon 1e-10, no max-norm) with
+    ``monitoring.search`` (beam 10, every batch) on 2 validation batches
+    of 4 (300-400 frames) labelled with the loaded model's own
+    hypotheses: in each of the 8 searches the same hypotheses on both
+    routes and beam costs within 1e-5 relative, costs moved by more than
+    1e-3 relative after a step, and the same ``valid_per`` records, 0
+    before the steps and below 1 after them; the phase's seconds.
 
 Nothing of JAX or of the JAX package is imported; the script checks it.
 
@@ -125,7 +153,8 @@ its times, its bound (``bound_ms``: the larger of its bytes over the
 card's memory rate and its float32 operations over the card's peak,
 computed from this run's shapes) and ``library_ms`` (null where no
 PyTorch call computes the function; for ``outer_sum``, one cuBLAS
-``addmm_`` per job); the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+``addmm_`` per job; ``search_launches``, the launches of phase 18's paths
+a-d that run the kernel); the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository around it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -134,6 +163,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -471,6 +501,9 @@ def main():
     waveform_serve_phase(dev, rec, launches)
     lstm_phase(t, dev, results)
     lstm_model_phase(t, dev, launches, rates)
+    t0 = time.perf_counter()
+    search_launches = search_phase(t, dev, launches, rates)
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s")
 
     banned = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "attention_lvcsr_tpu"))
@@ -497,6 +530,11 @@ def main():
                      "replaces": pallas + tpu, "launches": launches[name]},
                     **results[name])
                for name, (src, tpu) in sources.items()]
+    for k in kernels:
+        # phase 18's launches, per search path (a-d) that runs the kernel
+        k["search_launches"] = {
+            path.split(":")[0]: n for path, n in search_launches.items()
+            if path.split(":")[1] == k["name"]}
     log(json.dumps(dict(rates, build_s=lib.build_seconds)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -1473,6 +1511,7 @@ TRAIN_CONFIG = {"training": {"gradient_threshold": 100.0,
                              "rules": ["adadelta"], "decay_rate": 0.95,
                              "epsilon": 1e-8},
                 "regularization": {"max_norm": 1.0}}
+SEARCH_TRAIN_EPSILON = 1e-10     # phase 18's training steps, see there
 TRAIN_KERNELS = ("gru_scan_train", "gru_scan_train_bidir",
                  "decoder_scan_train", "lstm_scan_train", "outer_sum")
 
@@ -2140,6 +2179,431 @@ def lstm_model_phase(t, dev, launches, rates):
         f"(median of 5 steps), plain route "
         f"{rates['plain_lstm_train_step_utt_per_s']:.2f} utt/s (2 steps); a "
         f"second kernel run repeats the monitors bit for bit")
+
+
+class SmokeData:
+    """What the search driver needs of a dataset, over the flagship's
+    character map: ``decode`` (ids to characters, EOS and BOS dropped),
+    ``pretty_print``, and what ``create_model`` reads of a data manager."""
+    eos_label = CHAR_MAP["<eol>"]
+    bos_label = CHAR_MAP["<bol>"]
+    num_labels = len(CHARS)
+    add_bos = 1             # as wsj_paper.yaml: the first EOS is ignored
+
+    @staticmethod
+    def num_features(source):
+        return 123
+
+    @staticmethod
+    def character_map(source):
+        return dict(CHAR_MAP)
+
+    def decode(self, labels):
+        return [CHARS[int(x)] for x in labels
+                if int(x) not in (self.eos_label, self.bos_label)]
+
+    def pretty_print(self, labels, example=None):
+        return "".join(" " if c == "<spc>" else c
+                       for c in self.decode(labels))
+
+
+def search_examples(n=16, seed=18):
+    """``n`` utterances of 300-800 frames with 20-80 labels from the
+    alphabet, BOS before and EOS after them as the data pipeline adds
+    them under ``add_bos: 1``."""
+    rng = np.random.RandomState(seed)
+    examples = []
+    for i in range(n):
+        frames, labels = rng.randint(300, 801), rng.randint(20, 81)
+        examples.append({
+            "recordings": rng.randn(frames, 123).astype(np.float32),
+            "labels": np.concatenate([
+                [CHAR_MAP["<bol>"]],
+                rng.randint(0, CHAR_MAP["<bol>"], size=labels),
+                [CHAR_MAP["<eol>"]]]).astype(np.int64),
+            "uttids": f"utt{i:02d}"})
+    return examples
+
+
+def parse_report(text):
+    """Per utterance of a search report: {line label: value}."""
+    utts = []
+    for line in text.splitlines():
+        label, _, value = line.partition(":")
+        if line.startswith("Utterance "):
+            utts.append({"Utterance": line})
+        elif utts:
+            utts[-1][label] = value.strip()
+    return utts
+
+
+def reports_agree(name, got, ref, numbers, stats=None, ref_stats=None):
+    """The kernel route's search report against the plain route's on the
+    utterances ``numbers`` (the plain route may have decoded only those):
+    the same hypotheses (at most one near tie, beam search costs within
+    1e-3 relative), groundtruth and recognized costs within 1e-4
+    relative, and the same CER where the hypotheses are equal.  Where both
+    routes decoded the same utterances, ``stats`` and ``ref_stats`` are
+    their totals, equal where the hypotheses are (total_nll within 1e-4
+    relative).  Returns the max relative cost error."""
+    g, r = ({int(u["Utterance"].split()[1]): u for u in parse_report(text)}
+            for text in (got, ref))
+    if not set(numbers) <= set(g) & set(r):
+        fail(f"{name}: utterances {sorted(g)} and {sorted(r)} in the "
+             f"reports, expected {numbers} in both")
+    differ, err = [], 0.0
+    for u in numbers:
+        a, b = g[u], r[u]
+        costs = [("Groundtruth cost", True)]
+        if a.get("Recognized") != b.get("Recognized"):
+            ca, cb = (float(x["Beam search cost"]) for x in (a, b))
+            if abs(ca - cb) > 1e-3 * max(abs(cb), 1.0):
+                fail(f"{name}: utterance {u} recognized "
+                     f"{a.get('Recognized')!r} ({ca}) but the plain route "
+                     f"{b.get('Recognized')!r} ({cb})")
+            differ.append(u)
+            log(f"{name}: near tie at utterance {u}: {ca} vs {cb}")
+        else:
+            costs.append(("Recognized cost", "Recognized cost" in b))
+            if a["CER"] != b["CER"]:
+                fail(f"{name}: utterance {u} CER {a['CER']} vs plain "
+                     f"{b['CER']}")
+        for key, present in costs:
+            if not present:
+                continue
+            x, y = float(a[key]), float(b[key])
+            rel = abs(x - y) / max(abs(y), 1e-30)
+            err = max(err, rel)
+            if not (np.isfinite(x) and rel <= 1e-4):
+                fail(f"{name}: utterance {u} {key} {x} vs plain {y}")
+    if len(differ) > 1:
+        fail(f"{name}: {len(differ)} utterances differ: {differ}")
+    if stats is None:
+        return err
+    for key in ("num_examples", "total_length"):
+        if stats[key] != ref_stats[key]:
+            fail(f"{name}: {key} {stats[key]} vs plain {ref_stats[key]}")
+    if not differ and stats["total_errors"] != ref_stats["total_errors"]:
+        fail(f"{name}: total_errors {stats['total_errors']} vs plain "
+             f"{ref_stats['total_errors']}")
+    nll_rel = abs(stats["total_nll"] - ref_stats["total_nll"]) / abs(
+        ref_stats["total_nll"])
+    if nll_rel > 1e-4:
+        fail(f"{name}: total_nll {stats['total_nll']} vs plain "
+             f"{ref_stats['total_nll']}")
+    return err
+
+
+def search_phase(t, dev, launches, rates):
+    """Phase 18: the search driver (``run_search``) and sampling on the
+    flagship network, each on the kernel route and the plain route; then
+    ``run_training`` with ``monitoring.search``."""
+    import torch
+    from __graft_entry__ import FLAGSHIP_NET
+    from attention_lvcsr_torch.models import attention as attention_mod
+    from attention_lvcsr_torch.models import cells as cells_mod
+    from attention_lvcsr_torch.models import generator as generator_mod
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import attention_energy as ae
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.ops import gru_train as gt
+    from attention_lvcsr_torch.search import beam as beam_mod
+    from attention_lvcsr_torch.train.checkpoint import save_checkpoint
+    from attention_lvcsr_torch.train.driver import (create_model,
+                                                    run_search,
+                                                    run_training)
+    from attention_lvcsr_torch.train.rules import build_optimizer
+
+    counters = {"gru_scan": gs.launches, "beam_search_loop": bl.launches,
+                "beam_attention_energies": ae.launches,
+                "gru_scan_train_bidir": gt.launches_bidir,
+                "decoder_scan_train": dt.launches}
+    plain = [(cells_mod, "gru_scan", gs.gru_scan_reference),
+             (beam_mod, "beam_search_loop", bl.beam_search_loop_reference),
+             (attention_mod, "beam_attention_energies",
+              ae.beam_attention_energies_reference),
+             (cells_mod, "gru_scan_train", gt.gru_scan_train_reference),
+             (generator_mod, "decoder_scan_train",
+              dt.decoder_scan_train_reference)]
+    net = {k: v for k, v in FLAGSHIP_NET.items()
+           if k not in ("input_dims", "input_num_chars", "eos_label",
+                        "num_phonemes")}
+    data = SmokeData()
+    tmp = tempfile.mkdtemp()
+    try:
+        ckpt = os.path.join(tmp, "flagship.zip")
+        rec = SpeechRecognizer(FLAGSHIP_NET, init_config=FLAGSHIP_INIT,
+                               seed=1234, device=dev)
+        rec.net.generator.readout.post_merge_0.bias.data[
+            rec.eos_label] += 1.5
+        save_checkpoint(ckpt, rec.param_path_dict())
+        lm_path = os.path.join(tmp, "lm_trigram.npz")
+        bench_trigram(lm_path)
+        models = {
+            "no LM": create_model({"net": net}, data, ckpt, device=dev),
+            "LM": create_model({"net": dict(net, lm={
+                "path": lm_path, "weight": 0.5,
+                "no_transition_cost": 20.0})}, data, ckpt, device=dev)}
+    finally:
+        shutil.rmtree(tmp)
+    loaded = models["no LM"].net.generator.readout.post_merge_0.bias
+    if not torch.equal(loaded, rec.net.generator.readout.post_merge_0.bias):
+        fail("phase 18: the checkpoint did not read back the weights")
+    examples = search_examples()
+
+    def drive(rec_, n, conf, decode_only=None):
+        """run_search over the first ``n`` examples (those of them in
+        ``decode_only``): (report, stats, seconds, launches, seconds in
+        analyze, seconds in beam search)."""
+        spent = {"analyze": 0.0, "beam_search": 0.0}
+
+        def timed(name):
+            fn = getattr(rec_, name)
+
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                spent[name] += time.perf_counter() - t0
+                return out
+            return call
+
+        rec_.analyze, rec_.beam_search = (timed("analyze"),
+                                          timed("beam_search"))
+        try:
+            buf = io.StringIO()
+            for c in counters.values():
+                c.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = run_search(rec_, [dict(ex) for ex in examples[:n]],
+                               data, conf, decode_only=decode_only,
+                               print_to=buf)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            del rec_.analyze, rec_.beam_search
+        return (buf.getvalue(), stats, wall, counts(counters),
+                spent["analyze"], spent["beam_search"])
+
+    # without an LM the random model's best hypothesis is empty (the EOS
+    # raised by 1.5 wins) below a character discount of about 3
+    no_lm = {"beam_size": 10, "char_discount": 3.0}
+    # b's plain route decodes 8 of the 16 in one chunk: the longest and the
+    # first 7 others, so the chunk has the same padding and decode cap (a
+    # no-LM decode of one utterance does not depend on the others); c's
+    # LM decode does (the module path's window spans the chunk), so its
+    # plain route decodes all 16
+    longest = int(np.argmax([len(ex["recordings"]) for ex in examples]))
+    b_plain = sorted({longest, *range(7 if longest >= 7 else 8)})
+    runs = [("a", "no LM", 4, dict(no_lm, decode_batch=1),
+             ("gru_scan", "beam_search_loop", "gru_scan_train_bidir",
+              "decoder_scan_train"), ("beam_attention_energies",), None),
+            ("b", "no LM", 16, dict(no_lm, decode_batch=16),
+             ("gru_scan", "beam_search_loop", "gru_scan_train_bidir",
+              "decoder_scan_train"), ("beam_attention_energies",), b_plain),
+            ("c", "LM", 16, {"beam_size": 10, "decode_batch": 16,
+                             "char_discount": 1.0},
+             ("gru_scan", "beam_attention_energies", "gru_scan_train_bidir",
+              "decoder_scan_train"), ("beam_search_loop",), None)]
+    search_launches = {}
+    for tag, model, n, conf, used, unused, subset in runs:
+        name = f"phase 18{tag} search, {model}, decode_batch " \
+               f"{conf['decode_batch']}"
+        report, stats, wall, moved, t_an, t_bs = drive(models[model], n,
+                                                       conf)
+        if min(moved[k] for k in used) < 1 or any(moved[k] for k in unused):
+            fail(f"{name}: launches {moved}, expected each of {used} and "
+                 f"none of {unused}")
+        with swapped(plain):
+            ref, ref_stats, ref_wall, ref_moved, _, _ = drive(
+                models[model], n, conf, decode_only=subset)
+        if any(ref_moved.values()):
+            fail(f"{name}: the plain route launched kernels: {ref_moved}")
+        if subset is None:
+            err = reports_agree(name, report, ref, list(range(n)), stats,
+                                ref_stats)
+        else:
+            err = reports_agree(name, report, ref, subset)
+        nonempty = sum(bool(u.get("Recognized"))
+                       for u in parse_report(report))
+        if nonempty < 1:
+            fail(f"{name}: no utterance recognized anything: the comparison "
+                 f"is too weak")
+        n_ref = n if subset is None else len(subset)
+        rates[f"search_{tag}_utt_per_s"] = n / wall
+        rates[f"plain_search_{tag}_utt_per_s"] = n_ref / ref_wall
+        for k in used:
+            search_launches[f"{tag}:{k}"] = moved[k]
+        log(f"{name}: {n} utterances, {nonempty} non-empty hypotheses, "
+            f"average CER {stats['total_errors'] / stats['total_length']:.4f}"
+            f", agree with the plain route on "
+            f"{'all' if subset is None else subset} (max rel cost err "
+            f"{err:.2e}); kernel route {n / wall:.2f} utt/s, plain "
+            f"{n_ref / ref_wall:.2f} utt/s ({n_ref} utterances); analyze "
+            f"{t_an:.3f} s and beam search {t_bs:.3f} s of {wall:.3f} s "
+            f"({100 * t_an / wall:.1f} % and {100 * t_bs / wall:.1f} %); "
+            f"launches {moved}")
+        if tag == "a":
+            rates["search_a_analyze_share"] = t_an / wall
+            rates["search_a_beam_search_share"] = t_bs / wall
+
+    # ---- d. sampling ----------------------------------------------------
+    rec_s = models["no LM"]
+
+    def sample_all(gen_seed=0):
+        outs = []
+        for ex in examples[:4]:
+            g = torch.Generator(device=dev).manual_seed(gen_seed)
+            outs.append(rec_s.sample(ex["recordings"], generator=g))
+        torch.cuda.synchronize()
+        return outs
+
+    for c in counters.values():
+        c.reset()
+    samples = sample_all()
+    moved = counts(counters)
+    if min(moved["gru_scan"], moved["beam_attention_energies"]) < 1 or \
+            moved["beam_search_loop"] or moved["decoder_scan_train"]:
+        fail(f"phase 18d sample: launches {moved}")
+    search_launches["d:gru_scan"] = moved["gru_scan"]
+    search_launches["d:beam_attention_energies"] = moved[
+        "beam_attention_energies"]
+    with swapped(plain):
+        ref_samples = sample_all()
+    worst = 0.0
+    for u, (got, ref, ex) in enumerate(zip(samples, ref_samples,
+                                           examples)):
+        if not np.array_equal(got["outputs"], ref["outputs"]):
+            fail(f"phase 18d: sample {u} drew other symbols on the plain "
+                 f"route")
+        labels = got["outputs"].T
+        ana = rec_s.analyze(ex["recordings"][None],
+                            np.ones((1, len(ex["recordings"]))), labels,
+                            np.ones(labels.shape))
+        for other, what in ((ref["costs"], "the plain route's sample"),
+                            (ana["costs"], "its own analyze")):
+            rel = float(np.abs(got["costs"] - other).max()
+                        / np.abs(other).max())
+            worst = max(worst, rel)
+            if not (np.isfinite(got["costs"]).all() and rel <= 1e-4):
+                fail(f"phase 18d: sample {u}'s per-step costs differ from "
+                     f"{what} by {rel:.2e} relative")
+    log(f"phase 18d sample: 4 utterances of "
+        f"{[s['outputs'].shape[0] for s in samples]} steps at U=1, the same "
+        f"draws on the plain route; per-step costs agree with the plain "
+        f"route and with each sample's teacher-forced analyze (max rel err "
+        f"{worst:.2e}); launches {moved}")
+
+    # ---- run_training with monitoring.search ----------------------------
+    # 2 validation batches of 4: under the 10 utterances after which a
+    # mean error above 0.8 records the bail-out's 1; 300-400 frames, since
+    # the random model's hypotheses run to the decode cap (a third of the
+    # frames) and the plain route's search is paced by its steps
+    valid = train_batches(t, dev, 2, B=4, T=400, seed=19)
+    rec_v = models["no LM"]
+    rec_v.init_beam_search(10)
+    for batch in valid:
+        # the labels the loaded model decodes: its valid_per starts at 0
+        out = rec_v.beam_search(batch["recordings"],
+                                batch["recordings_mask"], as_arrays=True,
+                                char_discount=no_lm["char_discount"])
+        hyps = [list(h) or [CHAR_MAP["<eol>"]]
+                for h, _ in best_hypotheses(out)[:4]]
+        TL = max(len(h) for h in hyps)
+        labels = np.zeros((4, TL), np.int64)
+        lmask = np.zeros((4, TL), np.float32)
+        for b, hyp in enumerate(hyps):
+            labels[b, :len(hyp)] = hyp
+            lmask[b, :len(hyp)] = 1.0
+        batch["labels"] = torch.tensor(labels, device=dev)
+        batch["labels_mask"] = t(lmask)
+    train = train_batches(t, dev, 2, B=8, seed=20)
+    # adadelta's first steps move each weight by about sqrt(epsilon) /
+    # rms(gradient) * gradient.  Phase 13's max-norm constraint would
+    # rescale the random weights (column norms near 1.6) on the first step
+    # and change every hypothesis; without it, at SEARCH_TRAIN_EPSILON the
+    # beam costs move but valid_per stays below the clipped 1
+    config = dict(TRAIN_CONFIG, regularization={}, monitoring={
+        "search": no_lm, "search_every_batches": 1})
+    train_conf = dict(TRAIN_CONFIG["training"], epsilon=SEARCH_TRAIN_EPSILON)
+
+    def train_with_search():
+        rec_t = create_model({"net": net}, data, ckpt_again, device=dev)
+        searched, search = [], rec_t.beam_search
+
+        def recorded(*args, **kwargs):
+            out = search(*args, **kwargs)
+            searched.append(best_hypotheses(out)[:len(args[0])])
+            return out
+        rec_t.beam_search = recorded
+        opt = build_optimizer(train_conf)
+        with tempfile.TemporaryDirectory() as out_dir:
+            loop = run_training(rec_t, opt, lambda: train, os.path.join(
+                out_dir, "model.zip"), config, num_batches=2,
+                valid_stream=lambda: valid, search_data=data,
+                printing=False)
+            files = sorted(os.listdir(out_dir))
+        return loop.log.channel("valid_per"), files, searched
+
+    with tempfile.TemporaryDirectory() as tmp2:
+        ckpt_again = os.path.join(tmp2, "flagship.zip")
+        save_checkpoint(ckpt_again, rec.param_path_dict())
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        per, files, searched = train_with_search()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        moved = counts(counters)
+        with swapped(plain):
+            ref_per, ref_files, ref_searched = train_with_search()
+        t2 = time.perf_counter()
+    if min(moved["beam_search_loop"], moved["gru_scan"]) < 1:
+        fail(f"phase 18 training: the search did not launch its kernels: "
+             f"{moved}")
+    if len(searched) != 8 or len(ref_searched) != 8:
+        fail(f"phase 18 training: {len(searched)} and {len(ref_searched)} "
+             f"searches, expected 4 passes of 2 batches (before the first "
+             f"epoch, after each step, after the epoch)")
+    # each search of the kernel route against the plain route's: the same
+    # hypotheses, beam costs within 1e-5 relative; after a step the costs
+    # must have moved by 100 times that from those before it, so a search
+    # on stale weights cannot pass
+    worst, step_moved = 0.0, []
+    for i, (got, ref) in enumerate(zip(searched, ref_searched)):
+        for u, ((h, c), (rh, rc)) in enumerate(zip(got, ref)):
+            if h != rh or (c is None) != (rc is None):
+                fail(f"phase 18 training: search {i} (pass {i // 2}) "
+                     f"utterance {u}: {h} ({c}) vs the plain route's {rh} "
+                     f"({rc})")
+            if c is not None:
+                worst = max(worst, abs(c - rc) / abs(rc))
+        if i >= 2:
+            step_moved.append(max(
+                (abs(c - c0) / abs(c0) for (_, c), (_, c0)
+                 in zip(got, searched[i % 2]) if c is not None
+                 and c0 is not None), default=0.0))
+    if worst > 1e-5 or min(step_moved) <= 1e-3:
+        fail(f"phase 18 training: beam costs within {worst:.2e} of the "
+             f"plain route's, moved by {step_moved} after a step")
+    if per != ref_per or files != ref_files or len(per[0]) != 3 or \
+            per[1][0] != 0.0 or max(per[1][1:]) >= 1.0:
+        fail(f"phase 18 training: valid_per {per} and files {files} vs the "
+             f"plain route's {ref_per} and {ref_files}")
+    log(f"phase 18 run_training, 2 steps (B=8, 800 frames, adadelta epsilon "
+        f"{SEARCH_TRAIN_EPSILON}) with monitoring.search (beam 10, every "
+        f"batch) on 2 validation batches of 4 (300-400 frames), kernel route "
+        f"{t1 - t0:.1f} s, plain {t2 - t1:.1f} s: valid_per {per[1]} at "
+        f"iterations {per[0]} on both routes, the same hypotheses in all 8 "
+        f"searches, beam costs within {worst:.2e} relative, moved by "
+        f"{[f'{m:.2e}' for m in step_moved]} after the steps; files {files}; "
+        f"launches {moved}")
+    log(f"phase 18 launches on the search paths: {search_launches}")
+    return search_launches
 
 
 if __name__ == "__main__":

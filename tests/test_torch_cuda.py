@@ -890,3 +890,127 @@ def test_outer_sum_kernel_edges(device, rows, shapes, offset, odd):
         assert torch.equal(g, h)
         torch.testing.assert_close(g, r, rtol=1e-5,
                                    atol=1e-5 * float(r.abs().max()))
+
+
+def _plain_training_scans(monkeypatch):
+    """The training forward's plain versions in place of the kernels."""
+    from attention_lvcsr_torch.models import cells as cells_mod
+    from attention_lvcsr_torch.models import generator as generator_mod
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    from attention_lvcsr_torch.ops import gru_train as gt
+    monkeypatch.setattr(cells_mod, "gru_scan_train",
+                        gt.gru_scan_train_reference)
+    monkeypatch.setattr(generator_mod, "decoder_scan_train",
+                        dt.decoder_scan_train_reference)
+
+
+@pytest.mark.parametrize("flagship,prior", [
+    (False, "median"), (False, "expanding"), (True, "median")])
+def test_analyze_one_utterance_matches_plain(device, monkeypatch, flagship,
+                                             prior):
+    """``analyze`` at B=1, as the search driver calls it: the training
+    forward kernels (``gru_scan_train_bidir``, ``decoder_scan_train``)
+    under ``torch.no_grad()`` against the plain route; costs within 1e-4
+    relative, weights within 1e-5."""
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    from attention_lvcsr_torch.ops import gru_train as gt
+    if flagship:
+        from __graft_entry__ import FLAGSHIP_NET
+        config, init, T, TL = FLAGSHIP_NET, FLAGSHIP_INIT, 640, 61
+    else:
+        config, init, T, TL = NET_CONFIG, INIT, 29, 9
+    if prior == "expanding":
+        config = dict(config, prior={"type": "expanding", "initial_begin": 0,
+                                     "initial_end": 6, "min_speed": 0.5,
+                                     "max_speed": 2.0})
+    rec = SpeechRecognizer(config, init_config=init, seed=11, device=device)
+    rng = np.random.RandomState(T)
+    F = config["input_dims"]["recordings"]
+    x = rng.randn(1, T, F).astype(np.float32)
+    y = rng.randint(0, config["num_phonemes"], size=(1, TL))
+    ones = (np.ones((1, T)), np.ones((1, TL)))
+    before = (gt.launches_bidir.count, dt.launches.count)
+    got = rec.analyze(x, ones[0], y, ones[1])
+    assert gt.launches_bidir.count - before[0] == len(config["dims_bidir"])
+    assert dt.launches.count - before[1] == 1
+    _plain_training_scans(monkeypatch)
+    ref = rec.analyze(x, ones[0], y, ones[1])
+    assert got["costs"].shape == (TL, 1) and np.isfinite(got["costs"]).all()
+    np.testing.assert_allclose(got["costs"], ref["costs"], rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(got["weights"], ref["weights"], atol=1e-5)
+
+
+class _Chars:
+    """decode / pretty_print over NET_CONFIG's four characters and EOS."""
+
+    def decode(self, labels):
+        return ["abcd"[int(x)] for x in labels if int(x) != 4]
+
+    def pretty_print(self, labels, example=None):
+        return "".join(self.decode(labels))
+
+
+def _report(text):
+    """Per line: (label, value) with the value a float where it is one."""
+    lines = []
+    for line in text.splitlines():
+        label, _, value = line.partition(":")
+        try:
+            value = float(value)
+        except ValueError:
+            value = value.strip()
+        lines.append((label, value))
+    return lines
+
+
+def test_run_search_matches_plain(device, monkeypatch):
+    """``run_search`` at ``decode_batch`` 4 over 10 utterances (the last
+    chunk of 2): the encoder, loop and training forward kernels launch,
+    and the report equals the plain route's line for line (costs within
+    1e-4 relative, ``Decoding took`` apart), the totals too."""
+    import io
+
+    from attention_lvcsr_torch.models import cells as cells_mod
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    from attention_lvcsr_torch.ops import gru_train as gt
+    from attention_lvcsr_torch.search import beam as beam_mod
+    from attention_lvcsr_torch.train.driver import run_search
+    rec = SpeechRecognizer(NET_CONFIG, init_config=INIT, seed=7,
+                           device=device)
+    rec.net.generator.readout.post_merge_0.bias.data[4] += 1.5
+    rng = np.random.RandomState(4)
+    examples = [{"recordings": rng.randn(n, 6).astype(np.float32),
+                 "labels": np.append(rng.randint(0, 4, size=n // 4), 4)}
+                for n in rng.randint(16, 41, size=10)]
+    conf = {"beam_size": 4, "decode_batch": 4, "char_discount": 2.0}
+
+    def search():
+        out = io.StringIO()
+        stats = run_search(rec, [dict(ex) for ex in examples], _Chars(),
+                           conf, print_to=out)
+        return _report(out.getvalue()), stats
+
+    before = (gs.launches.count, bl.launches.count,
+              gt.launches_bidir.count, dt.launches.count)
+    got, stats = search()
+    moved = [c.count - b for c, b in zip(
+        (gs.launches, bl.launches, gt.launches_bidir, dt.launches), before)]
+    assert moved[1] == 3 and min(moved) >= 1, moved
+    _plain_training_scans(monkeypatch)
+    monkeypatch.setattr(cells_mod, "gru_scan", gs.gru_scan_reference)
+    monkeypatch.setattr(beam_mod, "beam_search_loop",
+                        bl.beam_search_loop_reference)
+    ref, ref_stats = search()
+    assert len(got) == len(ref)
+    assert sum(1 for label, v in got if label == "Recognized" and v) >= 3
+    for (label, a), (label_ref, b) in zip(got, ref):
+        assert label == label_ref
+        if isinstance(b, float) and label != "Decoding took":
+            assert a == pytest.approx(b, rel=1e-4, abs=1e-5), label
+        elif label != "Decoding took":
+            assert a == b, label
+    assert stats["num_examples"] == ref_stats["num_examples"] == 10
+    assert stats["total_errors"] == ref_stats["total_errors"]
+    assert stats["total_nll"] == pytest.approx(ref_stats["total_nll"],
+                                               rel=1e-4)

@@ -56,7 +56,9 @@ MODULES = [
     "attention_lvcsr_torch.train.checkpoint",
     "attention_lvcsr_torch.train.log",
     "attention_lvcsr_torch.train.loop",
+    "attention_lvcsr_torch.train.monitoring",
     "attention_lvcsr_torch.train.driver",
+    "attention_lvcsr_torch.utils.plots",
     "attention_lvcsr_torch.cli.run",
 ]
 BANNED_ROOTS = ("attention_lvcsr_tpu", "jax", "jaxlib", "flax")

@@ -1,6 +1,7 @@
 """LM shallow fusion in the port against the JAX package: the packed FST
 tables, the FST language model in its three runtimes (dense, CSR
-densified at load, windowed CSR), the LM-fused beam search on a padded
+densified at load, windowed CSR) step by step and teacher-forced over
+ragged masks, the LM-fused beam search on a padded
 batch through both JAX routes (``use_pallas`` "never" and "interpret"),
 and ``run.py serve`` with an ``net.lm`` section."""
 import io
@@ -121,6 +122,51 @@ def test_language_model_matches_jax(kind, budget, runtime, tmp_path,
                            method=ref_lm.one_step)
         got = lm.one_step(got, torch.tensor(symbols))
     assert (got["states"] >= 0).any(), "vacuous: every live set died"
+
+
+@pytest.mark.parametrize("kind,budget,runtime", [
+    ("dense", None, "dense"), ("csr", None, "densified"),
+    ("csr", "0", "windowed")])
+def test_language_model_evaluate_matches_jax(kind, budget, runtime, tmp_path,
+                                             monkeypatch):
+    """The teacher-forced pass over ragged label masks: the pre-update
+    ``add`` sequence within 1e-5, and the masked steps of ``one_step``
+    keep states identical to JAX's (weights within 1e-5)."""
+    if budget is not None:
+        monkeypatch.setenv("LVSR_LM_DENSIFY_BUDGET", budget)
+    conf = {"path": _lm_npz(str(tmp_path), kind), "no_transition_cost": 20.0}
+    ref_lm = jax_lm.make_language_model(conf, {}, name="lm")
+    B, T = 4, 6
+    variables = ref_lm.init(jax.random.PRNGKey(0), B,
+                            method=ref_lm.initial_states)
+    lm = port_lm.make_language_model(conf, {})
+    assert lm.runtime == runtime
+    rng = np.random.RandomState(1)
+    outputs = rng.randint(0, 32, size=(T, B)).astype(np.int32)
+    mask = (np.arange(T)[:, None] < np.array([[6, 4, 1, 0]])).astype("f")
+    mask[2, 0] = 0.0                      # a hole inside a live row
+    ref = ref_lm.apply(variables, jnp.asarray(outputs), jnp.asarray(mask),
+                       method=ref_lm.evaluate)
+    got = lm.evaluate(torch.tensor(outputs), torch.tensor(mask))
+    assert got["add"].shape == (T, B, 32)
+    np.testing.assert_allclose(got["add"].numpy(), np.asarray(ref["add"]),
+                               rtol=1e-5, atol=1e-5)
+    ref_c = ref_lm.apply(variables, B, method=ref_lm.initial_states)
+    got_c = lm.initial_states(B)
+    for t in range(T):
+        ref_c = ref_lm.apply(variables, ref_c, jnp.asarray(outputs[t]),
+                             jnp.asarray(mask[t]), method=ref_lm.one_step)
+        got_c = lm.one_step(got_c, torch.tensor(outputs[t]),
+                            mask=torch.tensor(mask[t]))
+        np.testing.assert_array_equal(got_c["states"].numpy(),
+                                      np.asarray(ref_c["states"]))
+        np.testing.assert_allclose(got_c["weights"].numpy(),
+                                   np.asarray(ref_c["weights"]), rtol=1e-5,
+                                   atol=1e-5)
+    start = lm.initial_states(B)
+    # the row masked throughout keeps its start state; the others moved
+    np.testing.assert_array_equal(got_c["states"][3], start["states"][3])
+    assert not torch.equal(got_c["states"][0], start["states"][0])
 
 
 def test_text_fst_lm_matches_jax(tmp_path):

@@ -6,8 +6,10 @@ fire, on one scripted callback sequence; the validation records of
 ``run.py train`` on the toy config (its ``monitoring.search`` removed,
 validation every epoch) trains two epochs with both packages from the
 same parameters and writes the same files, the same parameters and the
-same validation records at the same iterations; and it warns once for
-each config key it does not honour."""
+same validation records at the same iterations; with its
+``monitoring.search`` kept, it writes the same beam-search error rates and
+the same ``_best`` checkpoints; and it warns once for each config key it
+does not honour."""
 import logging
 import os
 import sys
@@ -159,8 +161,7 @@ def toy(tmp_path):
 
 def test_two_epochs_match_jax(toy, tmp_path):
     text = toy.read_text()
-    # validation every epoch, and no search (the port does not search
-    # during training yet)
+    # validation every epoch, and no search (the test below keeps it)
     (tmp_path / "two.yaml").write_text(
         text[:text.index("monitoring:")]
         + "monitoring:\n    validate_every_epochs: 1\n")
@@ -197,14 +198,61 @@ def test_two_epochs_match_jax(toy, tmp_path):
         jloop.log.status["best_" + record], rel=1e-5)
 
 
+def test_search_during_training_matches_jax(toy, tmp_path):
+    """``monitoring.search`` kept (beam 3), searched before the first
+    epoch and after each of two, from a model the JAX package trained for
+    12 epochs (a random model gets every validation utterance wrong; this
+    one gets them half right after two more): the same ``valid_per``
+    records as the JAX package's, ``model_best.zip`` and its sidecar
+    written at the same epochs, the same file set and parameters."""
+    (tmp_path / "pre").mkdir()
+    jax_driver.train(
+        JaxConfiguration(str(toy), config_changes=WIDTHS + [
+            ("training.num_epochs", "12"),
+            ("monitoring.validate_every_epochs", "0"),
+            ("monitoring.search_every_epochs", "0")]),
+        str(tmp_path / "pre" / "start.zip"), fast_start=True)
+    start = str(tmp_path / "pre" / "start.zip")
+    changes = WIDTHS + [("training.num_epochs", "2"),
+                        ("monitoring.validate_every_epochs", "1"),
+                        ("monitoring.search_every_epochs", "1")]
+    jconf = JaxConfiguration(str(toy), config_changes=changes)
+    for name in ("jax", "port"):
+        (tmp_path / name).mkdir()
+    jloop = jax_driver.train(jconf, str(tmp_path / "jax" / "model.zip"),
+                             start)
+    ploop = driver.train(Configuration(str(toy), config_changes=changes),
+                         str(tmp_path / "port" / "model.zip"), start,
+                         device="cpu")
+    files = sorted(os.listdir(tmp_path / "port"))
+    assert files == sorted(os.listdir(tmp_path / "jax"))
+    assert {"model_best.zip", "model_best_params.npz"} <= set(files)
+    for name in files:
+        theirs = jax_checkpoint.load_parameters(str(tmp_path / "jax" / name))
+        ours = jax_checkpoint.load_parameters(str(tmp_path / "port" / name))
+        assert set(ours) == set(theirs)
+        for k, v in theirs.items():
+            np.testing.assert_allclose(ours[k], v, rtol=1e-4, atol=1e-6,
+                                       err_msg=f"{name}: {k}")
+    # CERs of identical hypotheses: equal to float rounding
+    times, values = ploop.log.channel("valid_per")
+    jtimes, jvalues = jloop.log.channel("valid_per")
+    assert times == jtimes == [0, 4, 8]
+    np.testing.assert_allclose(values, jvalues, rtol=1e-12)
+    assert 0 < min(values) < 1, "vacuous: every hypothesis wrong"
+    # the rows where valid_per improved: those epochs wrote model_best.zip
+    improved = ploop.log.channel("best_valid_per")[0]
+    assert improved == jloop.log.channel("best_valid_per")[0]
+    assert any(t > 0 for t in improved), "vacuous: no epoch improved"
+
+
 @pytest.mark.parametrize("sections,keys", [
     ({}, []),
     ({"monitoring": {"validate_every_epochs": 1, "search": {}}}, []),
     ({"monitoring": {"search": {"beam_size": 3}, "plot": {"path": "p"}},
       "training": {"patience": {"min_epochs": 2}, "stop_filtering": 10,
                    "num_epochs": 3}},
-     ["monitoring.search", "training.patience", "training.stop_filtering",
-      "monitoring.plot"]),
+     ["training.patience", "training.stop_filtering", "monitoring.plot"]),
 ])
 def test_unported_keys_come_from_the_config(sections, keys):
     assert driver.unported_keys(sections) == keys
@@ -220,8 +268,9 @@ def test_cli_warns_once_for_each_unported_key(toy, tmp_path, caplog):
               if r.levelno == logging.WARNING]
     named = {key: sum(key in msg for msg in warned)
              for key in driver.UNPORTED_KEYS}
-    assert named == {"monitoring.search": 1, "training.patience": 0,
-                     "training.stop_filtering": 0, "monitoring.plot": 0}
+    # the toy config's monitoring.search is honoured now: no warning
+    assert named == {"training.patience": 0, "training.stop_filtering": 0,
+                     "monitoring.plot": 0}
     assert sum(driver.AVERAGED_RECORDS in msg for msg in warned) == 1
     # --fast-start: no validation and no checkpoint before the first epoch
     assert loop_.log.channel("valid_sequence_total_cost") == ([], [])
