@@ -10,6 +10,9 @@ kernels run) on each subcommand that builds a model; they dispatch into
 
     python -m attention_lvcsr_torch.cli.run train model.zip \\
         tests/configs/toy.yaml training.num_batches 5 --device cpu
+    python -m attention_lvcsr_torch.cli.run train run_dir \\
+        exp/wsj/configs/wsj_paper.yaml --start-stage main \\
+        --params run_dir/pretraining_best_ll.zip --use-load-ext
     python -m attention_lvcsr_torch.cli.run search tests/configs/toy.yaml \\
         --params model.zip --report report --device cpu
     python -m attention_lvcsr_torch.cli.run serve tests/configs/toy.yaml \\
@@ -59,6 +62,17 @@ def build_parser():
     tr.add_argument("--fast-start", action="store_true",
                     help="skip the validation, the search and the "
                          "checkpoint before the first epoch")
+    tr.add_argument("--use-load-ext", action="store_true",
+                    help="resume the parameters, the optimizer state and "
+                         "the log of --params (of each stage's start)")
+    tr.add_argument("--load-log", action="store_true",
+                    help="load only the log from --params")
+    tr.add_argument("--start-stage", default=None,
+                    help="the stage of a multistage config to start at")
+    tr.add_argument("--final-stage", default=None,
+                    help="the stage of a multistage config to stop after")
+    tr.add_argument("--profile", action="store_true",
+                    help="print the training loop's host times at the end")
 
     te = subparsers.add_parser("test", help="evaluate on the test set")
     add_common(te, with_device=False)
@@ -112,8 +126,12 @@ def main(argv=None):
                      batch_wait_ms=args.batch_wait_ms, device=args.device)
     from attention_lvcsr_torch.train import driver
     if args.mode == "train":
-        return driver.train(config, args.save_path, args.params,
-                            fast_start=args.fast_start, device=args.device)
+        return driver.train_multistage(
+            config, args.save_path, params_path=args.params,
+            start_stage=args.start_stage, final_stage=args.final_stage,
+            fast_start=args.fast_start, use_load_ext=args.use_load_ext,
+            load_log=args.load_log, profile=args.profile,
+            device=args.device)
     if args.mode == "test":
         return driver.test(config)
     if args.mode == "init_norm":

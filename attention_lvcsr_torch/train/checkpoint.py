@@ -7,7 +7,12 @@ path-keyed parameters (``/recognizer/...``), so the JAX package's
 metadata are the same members (``_log.pkl``, ``_meta.json``).  The
 optimizer state goes in a member of the port's own,
 ``_torch_opt_state.npz``, flattened by ``train/rules.py::state_arrays``.
-Writes go to a temporary file that is renamed into place.
+A checkpoint the JAX package wrote holds its optax state in
+``_opt_state.pkl`` instead, which is read with the port's stand-ins for
+the optax state types (:class:`OptaxStateUnpickler`), importing neither
+``jax``, ``optax`` nor the JAX package, and flattened to the port's keys
+(:func:`optax_state_arrays`).  Writes go to a temporary file that is
+renamed into place.
 """
 from __future__ import annotations
 
@@ -17,14 +22,16 @@ import os
 import pickle
 import tarfile
 import tempfile
+from collections import namedtuple
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 
-from attention_lvcsr_torch.models.params import (PARAMETERS_MEMBER,
+from attention_lvcsr_torch.models.params import (PARAMETERS_MEMBER, PREFIX,
                                                  load_parameters)
 
 OPT_STATE_MEMBER = "_torch_opt_state.npz"
+JAX_OPT_STATE_MEMBER = "_opt_state.pkl"
 LOG_MEMBER = "_log.pkl"
 META_MEMBER = "_meta.json"
 
@@ -87,9 +94,86 @@ def _member(path, name):
         return f.read() if f is not None else None
 
 
+# The state types of the JAX package's rule chain, by class name (optax's
+# and its ``train/rules.py``'s NamedTuples), with their fields in order
+# (pickle rebuilds a NamedTuple from its values by position): each field
+# is the port's state key of the same name.
+OPTAX_STATES = {
+    name: namedtuple(name, fields) for name, fields in (
+        ("EmptyState", ()),
+        ("TraceState", ("trace",)),
+        ("ScaleByAdaDeltaState", ("e_g", "e_x")),
+        ("ScaleByRmsState", ("nu",)),
+        ("ScaleByAdamState", ("count", "mu", "nu")),
+        ("ScaleByRssState", ("sum_of_squares",)),
+        ("ScaleByScheduleState", ("count",)),
+        ("BurnInState", ("count",)))}
+
+
+class OptaxStateUnpickler(pickle.Unpickler):
+    """Reads the JAX package's pickled optax state: its state types by
+    class name as :data:`OPTAX_STATES` and numpy's arrays (dicts and
+    tuples need no class).  Any other class raises
+    ``NotImplementedError`` naming it."""
+
+    _NUMPY = ("_reconstruct", "ndarray", "dtype", "scalar")
+
+    def find_class(self, module, name):
+        root = module.split(".")[0]
+        if root in ("optax", "attention_lvcsr_tpu") and name in OPTAX_STATES:
+            return OPTAX_STATES[name]
+        if root == "numpy" and name in self._NUMPY:
+            return super().find_class(module, name)
+        raise NotImplementedError(
+            f"optimizer state type {module}.{name} is not ported: the "
+            f"checkpoint's optimizer state cannot be read")
+
+
+def _rule_states(node):
+    """The rule states of a (nested) optax chain state, in order."""
+    if type(node) in OPTAX_STATES.values():
+        return [node]
+    if isinstance(node, (tuple, list)):
+        return [s for child in node for s in _rule_states(child)]
+    raise TypeError(f"not an optax chain state: {type(node).__name__}")
+
+
+def _path_arrays(tree, prefix):
+    """``{prefix + '/a/b/leaf': array}`` of a nested dict of arrays."""
+    if isinstance(tree, Mapping):
+        out = {}
+        for key, value in tree.items():
+            out.update(_path_arrays(value, f"{prefix}/{key}"))
+        return out
+    return {prefix: np.asarray(tree)}
+
+
+def optax_state_arrays(state) -> Dict[str, np.ndarray]:
+    """The flat arrays of ``rules.state_arrays`` of a JAX-package optax
+    state (read with :data:`OPTAX_STATES`): the i-th rule state of the
+    chain, flattened, is the i-th rule of the port's chain, and its field
+    ``f`` of the parameter collection ``params`` becomes
+    ``i/f/recognizer/...`` (the parameters' own path keys)."""
+    out = {}
+    for i, rule in enumerate(_rule_states(state)):
+        for field, value in rule._asdict().items():
+            if isinstance(value, Mapping):
+                if set(value) != {"params"}:
+                    raise NotImplementedError(
+                        f"optimizer state of the parameter collections "
+                        f"{sorted(value)}: the port trains 'params' alone")
+                out.update(_path_arrays(value["params"],
+                                        f"{i}/{field}{PREFIX}"))
+            else:
+                out[f"{i}/{field}"] = np.asarray(value)
+    return out
+
+
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """``parameters``, ``opt_state`` (flattened, or None), ``log_state``
-    and ``meta`` of a checkpoint tar (or parameters alone from an npz)."""
+    """``parameters``, ``opt_state`` (flattened as by
+    ``rules.state_arrays``, from either package's member, or None),
+    ``log_state`` and ``meta`` of a checkpoint tar (or parameters alone
+    from an npz)."""
     out: Dict[str, Any] = {"parameters": load_parameters(path),
                            "opt_state": None, "log_state": None, "meta": {}}
     if tarfile.is_tarfile(path):
@@ -97,6 +181,11 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
         if opt is not None:
             with np.load(io.BytesIO(opt)) as npz:
                 out["opt_state"] = {k: npz[k] for k in npz.files}
+        else:
+            opt = _member(path, JAX_OPT_STATE_MEMBER)
+            if opt is not None:
+                out["opt_state"] = optax_state_arrays(
+                    OptaxStateUnpickler(io.BytesIO(opt)).load())
         log = _member(path, LOG_MEMBER)
         out["log_state"] = pickle.loads(log) if log else None
         meta = _member(path, META_MEMBER)

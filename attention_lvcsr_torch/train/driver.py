@@ -14,21 +14,26 @@ Counterpart of ``attention_lvcsr_tpu/train/driver.py`` for teacher-forced
   same monitors, ``total_gradient_norm`` and ``total_step_norm``
   included.  The parameters are updated in place;
 * :func:`run_training` runs the loop over a batch stream with the JAX
-  ``initialize_all`` extensions that are ported (JAX :455-559): Timing;
-  with a validation stream, the validation cost (``train/monitoring.py``)
-  before the first epoch and every n epochs or batches and TrackTheBest
-  on ``valid_sequence_total_cost``; FinishAfter (batches, epochs, a NaN
+  ``initialize_all`` extensions (JAX :419-559), in its order: with a
+  checkpoint to resume from, Load (parameters, optimizer state and log)
+  or LoadLog (the log alone); Timing; the averaged train records
+  (``average_*`` of :data:`PRIMARY_OBSERVABLES`, every 10 batches); with a
+  validation stream, the validation cost (``train/monitoring.py``) before
+  the first epoch and every n epochs or batches, with ``monitoring.search``
+  the beam search's error rate (``BeamSearchErrorRate``, ``valid_per``),
+  and TrackTheBest on each; SwitchOffLengthFilter after
+  ``training.stop_filtering`` batches; FinishAfter (batches, epochs, a NaN
   gradient norm); Checkpoint before the first epoch, after every epoch
-  and every n batches, with its ``_params.npz`` sidecar, and the
-  ``_best_ll`` copy when the validation cost improves; Printing.
-  With ``monitoring.search`` it also decodes the validation stream with
-  the beam search (``BeamSearchErrorRate``, before the first epoch and at
-  ``search_every_epochs``/``search_every_batches``), tracks the best
-  ``valid_per`` and saves each epoch that improves it to
-  ``<root>_best<ext>``;
-* :func:`train` is the CLI part: it reads the config's data (``yaml`` and
-  ``h5py`` are imported there only) and calls :func:`run_training` over
-  the ``train`` part, validating on the ``valid`` part;
+  and every n batches, with its ``_params.npz`` sidecar, the ``_best``
+  copy when ``valid_per`` improves and the ``_best_ll`` copy when the
+  validation cost does; Patience with ``training.patience``; Printing;
+* :func:`run_multistage` chains the stages of a multistage config (JAX
+  ``train_multistage`` :593-621): each stage builds its model and rule
+  chain from its own config and writes ``<stage>.zip`` in a directory, a
+  later stage starts from ``<previous stage><restart_from>.zip``;
+* :func:`train` and :func:`train_multistage` are the CLI part: they read
+  the config's data (``yaml`` and ``h5py`` are imported there only) and
+  run the ``train`` part, validating on the ``valid`` part;
 * :func:`run_search` decodes and scores examples (JAX ``search``
   :671-826): per utterance the groundtruth's teacher-forced cost and
   alignment (``SpeechRecognizer.analyze``), the beam search, one at a time
@@ -40,16 +45,15 @@ Counterpart of ``attention_lvcsr_tpu/train/driver.py`` for teacher-forced
   are the other entries of the JAX ``run.py`` (:829-881).
 
 Not ported, and refused with ``NotImplementedError`` naming the piece:
-weight noise, adaptive noise, dropout, greedy and mixed exploration, a
-bf16 compute dtype, and multistage configs.  Not ported, and named in one
-``logging`` warning each when a config sets them (:data:`UNPORTED_KEYS`):
-Patience, ``stop_filtering`` and the plot channels; and, for every
-config, the averaged train records (``average_*``).
+weight noise, adaptive noise, dropout, greedy and mixed exploration, and
+a bf16 compute dtype.  Not ported, and named in a ``logging`` warning
+when a config sets them (:data:`UNPORTED_KEYS`): the plot channels.
 """
 from __future__ import annotations
 
 import logging
 import os
+import pprint
 import sys
 import time
 from typing import Any, Callable, Iterable, Mapping, Optional
@@ -57,20 +61,25 @@ from typing import Any, Callable, Iterable, Mapping, Optional
 import numpy as np
 import torch
 
+from attention_lvcsr_torch.models.params import load_path_dict
 from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
 from attention_lvcsr_torch.ops.error_rate import wer
 from attention_lvcsr_torch.ops.expressions import (entropy,
                                                    monotonicity_penalty,
                                                    weights_std)
-from attention_lvcsr_torch.train.loop import (Checkpoint, FinishAfter,
-                                              MainLoop, Printing, Timing,
-                                              TrackTheBest,
+from attention_lvcsr_torch.train.log import TrainingLog
+from attention_lvcsr_torch.train.loop import (Checkpoint, FinishAfter, Load,
+                                              LoadLog, MainLoop, Patience,
+                                              Printing, SwitchOffLengthFilter,
+                                              Timing, TrackTheBest,
                                               gradient_norm_is_nan, on_record)
-from attention_lvcsr_torch.train.monitoring import (BeamSearchErrorRate,
+from attention_lvcsr_torch.train.monitoring import (AveragedTrainMonitoring,
+                                                    BeamSearchErrorRate,
                                                     DataStreamMonitoring,
                                                     batch_tensors,
                                                     make_eval_fn)
 from attention_lvcsr_torch.train.rules import (build_optimizer, global_norm,
+                                               load_state_arrays,
                                                state_arrays)
 
 logger = logging.getLogger(__name__)
@@ -79,14 +88,14 @@ logger = logging.getLogger(__name__)
 # honours and the port does not yet: what each stands for, and the
 # ROADMAP item that ports it.
 UNPORTED_KEYS = {
-    "training.patience": "early stopping, Patience (ROADMAP Queue 1 item 4)",
-    "training.stop_filtering": "switching off the length filter, "
-                               "SwitchOffLengthFilter (ROADMAP Queue 1 "
-                               "item 4)",
     "monitoring.plot": "the plot channels (ROADMAP Queue 1 item 9)",
 }
-AVERAGED_RECORDS = ("the averaged train records (average_*, every 10 "
-                    "batches; ROADMAP Queue 1 item 4)")
+
+# the train step's monitors averaged into the average_* records
+PRIMARY_OBSERVABLES = (
+    "train_cost", "total_gradient_norm", "total_step_norm",
+    "max_recording_length", "max_attended_length", "max_num_phonemes",
+    "weights_entropy_per_label", "weights_penalty_per_recording")
 
 _DECAYED_LEAVES = ("kernel", "embedding", "state_to_state", "state_to_gates",
                    "W", "W_state", "conv_filters")
@@ -218,8 +227,7 @@ class GradientDescent:
         self.recognizer = recognizer
         self.optimizer = optimizer
         self.step_fn = step_fn
-        self.opt_state = optimizer.init(
-            {k: p.detach() for k, p in recognizer.parameters().items()})
+        self.opt_state = self._init_opt_state()
 
     def process_batch(self, batch: Mapping[str, Any]):
         self.opt_state, monitors = self.step_fn(
@@ -228,11 +236,28 @@ class GradientDescent:
         values = torch.stack([monitors[k] for k in names]).tolist()
         return dict(zip(names, values))
 
+    def _init_opt_state(self):
+        return self.optimizer.init(
+            {k: p.detach() for k, p in self.recognizer.parameters().items()})
+
     def parameter_dict(self):
         return self.recognizer.param_path_dict()
 
     def opt_state_arrays(self):
         return state_arrays(self.opt_state)
+
+    def set_parameters(self, path_dict):
+        """Load ``{'/recognizer/...': array}`` (keys outside
+        ``/recognizer`` skipped) and start the optimizer state afresh."""
+        load_path_dict(self.recognizer.net, {
+            k: v for k, v in path_dict.items()
+            if k.startswith("/recognizer/")})
+        self.opt_state = self._init_opt_state()
+
+    def set_opt_state(self, opt_state):
+        """The flat optimizer state of a checkpoint of either package
+        (``checkpoint.load_checkpoint``'s ``opt_state``)."""
+        self.opt_state = load_state_arrays(self.opt_state, opt_state)
 
 
 def run_training(recognizer: SpeechRecognizer, optimizer,
@@ -240,7 +265,9 @@ def run_training(recognizer: SpeechRecognizer, optimizer,
                  config: Optional[Mapping] = None, *, num_batches=None,
                  num_epochs=None, save_every_n_batches=None,
                  valid_stream: Optional[Callable[[], Iterable]] = None,
-                 search_data=None, fast_start=False, printing=True):
+                 search_data=None, length_filter=None, fast_start=False,
+                 load_path=None, use_load_ext=False, load_log=False,
+                 profile=False, printing=True):
     """Train ``recognizer`` with ``optimizer`` over ``batch_stream()``
     (called once per epoch; each batch a mapping with ``recordings``,
     ``recordings_mask``, ``labels`` and ``labels_mask``), checkpointing to
@@ -256,14 +283,31 @@ def run_training(recognizer: SpeechRecognizer, optimizer,
     (unless ``fast_start``) and at ``monitoring.search_every_epochs``
     (default 1) and ``search_every_batches``, the characters coming from
     ``search_data.decode``, and each epoch that improves it is saved to
-    ``<root>_best<ext>``.  Returns the finished :class:`MainLoop` (its
-    ``log`` holds every step's monitors)."""
+    ``<root>_best<ext>``.  ``training.stop_filtering`` clears
+    ``length_filter.max_length`` (the data's ``LengthFilter``) after that
+    many batches; ``training.patience`` (``min_iterations`` or
+    ``min_epochs``, ``patience_factor``) stops early, counting an
+    improvement of ``valid_per`` or of the validation cost.
+
+    ``load_path`` is a checkpoint of either package to resume from: with
+    ``use_load_ext`` its parameters, optimizer state and log (the epochs
+    and batches then count on from it), with ``load_log`` its log alone.
+    ``profile`` prints the loop's host times at the end.  Returns the
+    finished :class:`MainLoop` (its ``log`` holds every step's
+    monitors)."""
     config = dict(config or {})
+    train_conf = config.get("training", {}) or {}
     mon_conf = config.get("monitoring", {}) or {}
     search_conf = mon_conf.get("search") or {}
     step = make_train_step(recognizer, optimizer, config)
     algorithm = GradientDescent(recognizer, optimizer, step)
-    exts = [Timing()]
+    exts = []
+    if use_load_ext and load_path:
+        exts.append(Load(load_path))
+    if load_log and load_path:
+        exts.append(LoadLog(load_path))
+    exts += [Timing(), AveragedTrainMonitoring(PRIMARY_OBSERVABLES,
+                                               every_n_batches=10)]
     best = best_per = None
     if valid_stream is not None:
         validation = DataStreamMonitoring(
@@ -293,6 +337,13 @@ def run_training(recognizer: SpeechRecognizer, optimizer,
         best = TrackTheBest(validation.record_name("sequence_total_cost"),
                             before_first_epoch=True, after_epoch=True)
         exts.append(best)
+    stop_filtering = train_conf.get("stop_filtering")
+    if length_filter is not None:
+        exts.append(SwitchOffLengthFilter(length_filter,
+                                          after_n_batches=stop_filtering))
+    elif stop_filtering:
+        raise ValueError("training.stop_filtering needs length_filter, the "
+                         "data's LengthFilter")
     finish = FinishAfter(after_n_batches=num_batches,
                          after_n_epochs=num_epochs)
     finish.add_condition(["after_batch"], gradient_norm_is_nan)
@@ -309,40 +360,129 @@ def run_training(recognizer: SpeechRecognizer, optimizer,
                                  on_record(best.notification_name),
                                  arguments=(root + "_best_ll" + ext,))
     exts += [finish, checkpoint]
+    if train_conf.get("patience"):
+        patience_conf = dict(train_conf["patience"])
+        if not patience_conf.get("notification_names"):
+            patience_conf["notification_names"] = [
+                t.notification_name for t in (best_per, best)
+                if t is not None]
+        exts.append(Patience(**patience_conf))
     if printing:
         exts.append(Printing(every_n_batches=1))
-    loop = MainLoop(algorithm, batch_stream, extensions=exts)
+    log = TrainingLog()
+    log.status["_config"] = repr(config)
+    loop = MainLoop(algorithm, batch_stream, log=log, extensions=exts,
+                    profile_enabled=profile)
     return loop.run()
 
 
-def train(config, save_path, params_path=None, fast_start=False,
-          device="cuda"):
-    """CLI entry (``run.py train``): the config's data, model and rule
-    chain, then :func:`run_training` over the training part, validating
-    on the ``valid`` part.  Warns once for each config key the port does
-    not honour yet."""
-    from attention_lvcsr_torch.data import Data      # h5py: CLI path only
-    if getattr(config, "multi_stage", False):
-        raise NotImplementedError("not ported yet: multistage training")
-    config = dict(config)
+def run_stage(config, save_path, make_stage, params_path=None,
+              fast_start=False, use_load_ext=False, load_log=False,
+              profile=False, printing=True):
+    """One training run of ``config`` (a dict) to ``save_path``:
+    ``make_stage(config, load_path)`` builds the recognizer (with the
+    parameters of ``load_path`` when it is not None) and the streams, a
+    dict of :func:`run_training`'s ``recognizer``, ``batch_stream``,
+    ``valid_stream``, ``search_data`` and ``length_filter``; the rule
+    chain comes from the config.  With ``use_load_ext`` the recognizer is
+    built without ``params_path``, and ``Load`` restores it with the
+    optimizer state and the log.  Warns once for each config key the
+    port does not honour yet."""
     piece = unported_training(config)
     if piece is not None:
         raise NotImplementedError(f"not ported yet: {piece}")
     for key in unported_keys(config):
         logger.warning("not ported yet, ignored: %s, %s", key,
                        UNPORTED_KEYS[key])
-    logger.warning("not ported yet: %s", AVERAGED_RECORDS)
-    data = Data(**config["data"])
-    recognizer = create_model(config, data, params_path, device=device)
     train_conf = config.get("training", {}) or {}
+    made = make_stage(config, None if use_load_ext else params_path)
     optimizer = build_optimizer(train_conf, config.get("regularization", {}))
     return run_training(
-        recognizer, optimizer, lambda: data.get_stream("train"), save_path,
+        made["recognizer"], optimizer, made["batch_stream"], save_path,
         config, num_batches=train_conf.get("num_batches"),
         num_epochs=train_conf.get("num_epochs"),
         save_every_n_batches=train_conf.get("save_every_n_batches"),
-        valid_stream=lambda: data.get_stream("valid", shuffle=False),
-        search_data=data, fast_start=fast_start)
+        valid_stream=made.get("valid_stream"),
+        search_data=made.get("search_data"),
+        length_filter=made.get("length_filter"), fast_start=fast_start,
+        load_path=params_path, use_load_ext=use_load_ext,
+        load_log=load_log, profile=profile, printing=printing)
+
+
+def run_multistage(stages, save_path, make_stage, params_path=None,
+                   start_stage=None, final_stage=None, **kwargs):
+    """The stages of a multistage config, in order: ``stages`` holds
+    (name, config dict) pairs, ``make_stage`` is :func:`run_stage`'s.
+    ``save_path`` is a directory; each stage writes ``<name>.zip`` there
+    and starts from ``params_path`` if it is the first stage run, else
+    from ``<previous stage><restart_from>.zip`` (``training.restart_from``
+    of the stage, such as ``_best_ll``).  The run starts at
+    ``start_stage`` and stops after ``final_stage``.  ``kwargs`` go to
+    :func:`run_stage` (``fast_start``, ``use_load_ext``, ``load_log``,
+    ``profile``, ``printing``).  Returns the stages' main loops."""
+    os.makedirs(save_path, exist_ok=True)
+    stages = list(stages)
+    names = [name for name, _ in stages]
+    start = names.index(start_stage) if start_stage else 0
+    loops = []
+    for number in range(start, len(stages)):
+        name, stage_config = stages[number]
+        if kwargs.get("printing", True):
+            print(f"Stage '{name}' config:\n"
+                  + pprint.pformat(stage_config, width=100))
+        if number and not params_path:
+            restart_from = (stage_config.get("training", {}) or {}).get(
+                "restart_from", "")
+            stage_params = os.path.join(
+                save_path, f"{names[number - 1]}{restart_from}.zip")
+        else:
+            stage_params, params_path = params_path, None
+        loops.append(run_stage(stage_config,
+                               os.path.join(save_path, f"{name}.zip"),
+                               make_stage, stage_params, **kwargs))
+        if final_stage is not None and name == final_stage:
+            break
+    return loops
+
+
+def data_stage(device="cuda"):
+    """:func:`run_stage`'s ``make_stage`` over the config's data manager
+    (``h5py``): the ``train`` part, validated on the ``valid`` part."""
+    from attention_lvcsr_torch.data import Data      # h5py: CLI path only
+
+    def make_stage(config, load_path):
+        data = Data(**config["data"])
+        return dict(
+            recognizer=create_model(config, data, load_path, device=device),
+            batch_stream=lambda: data.get_stream("train"),
+            valid_stream=lambda: data.get_stream("valid", shuffle=False),
+            search_data=data, length_filter=data.length_filter)
+
+    return make_stage
+
+
+def train(config, save_path, params_path=None, fast_start=False,
+          use_load_ext=False, load_log=False, profile=False, device="cuda"):
+    """CLI entry for a config without stages: :func:`run_stage` over the
+    config's data."""
+    return run_stage(dict(config), save_path, data_stage(device), params_path,
+                     fast_start=fast_start, use_load_ext=use_load_ext,
+                     load_log=load_log, profile=profile)
+
+
+def train_multistage(config, save_path, params_path=None, start_stage=None,
+                     final_stage=None, fast_start=False, use_load_ext=False,
+                     load_log=False, profile=False, device="cuda"):
+    """CLI entry (``run.py train``): :func:`run_multistage` over
+    ``config.ordered_stages`` and the config's data, or :func:`train` for a
+    config without stages."""
+    kwargs = dict(fast_start=fast_start, use_load_ext=use_load_ext,
+                  load_log=load_log, profile=profile)
+    if not getattr(config, "multi_stage", False):
+        return train(config, save_path, params_path, device=device, **kwargs)
+    return run_multistage(list(config.ordered_stages.items()), save_path,
+                          data_stage(device), params_path, start_stage,
+                          final_stage, **kwargs)
 
 
 def _input_key(recognizer):

@@ -3,7 +3,8 @@
 The port's copy of ``attention_lvcsr_tpu/train/log.py`` (which imports no
 JAX), without the pandas and sqlite exports: rows keyed by iteration
 number, per-channel storage (two aligned lists: times and values), and a
-``status`` dict for the loop's state.
+``status`` dict for the loop's state.  The ``state_dict`` is the JAX
+package's, so each package reads the other's ``_log.pkl``.
 """
 from __future__ import annotations
 
@@ -64,6 +65,7 @@ class TrainingLog:
             "iterations_done": 0,
             "epochs_done": 0,
             "_epoch_ends": [],
+            "resumed_from": None,
             "training_started": False,
             "epoch_started": False,
         }
@@ -74,6 +76,9 @@ class TrainingLog:
     @property
     def current_row(self) -> _RowView:
         return _RowView(self, self.status["iterations_done"])
+
+    def __getitem__(self, time: int) -> _RowView:
+        return _RowView(self, time)
 
     def last_value(self, name, default=None):
         col = self.columns.get(name)
@@ -89,3 +94,15 @@ class TrainingLog:
             "columns": {name: (col.times, col.values)
                         for name, col in self.columns.items()},
         }
+
+    @classmethod
+    def from_state_dict(cls, state):
+        """The log of a ``state_dict`` written by either package."""
+        log = cls()
+        log.status.update(state["status"])
+        for name, (times, values) in state["columns"].items():
+            col = _Column()
+            col.times = list(times)
+            col.values = list(values)
+            log.columns[name] = col
+        return log

@@ -2,12 +2,14 @@
 
 The port's copy of the JAX-free ``attention_lvcsr_tpu/train/loop.py``
 (``MainLoop``: epochs, batches, extension callbacks, SIGINT/SIGTERM
-finishing gracefully) and of the extensions of
-``attention_lvcsr_tpu/train/extensions.py`` that training needs:
-``SimpleExtension`` with the JAX package's conditions, ``FinishAfter``
-(batches, epochs, or a predicate such as the NaN gradient-norm stop),
-``Timing``, ``Printing``, ``TrackTheBest`` and ``Checkpoint`` (with the
-``_params.npz`` sidecar and the path argument of the ``_best_ll`` copy).
+finishing gracefully, resumption from a loaded log, the host ``Profile``)
+and of the extensions of ``attention_lvcsr_tpu/train/extensions.py`` that
+training needs: ``SimpleExtension`` with the JAX package's conditions,
+``FinishAfter`` (batches, epochs, or a predicate such as the NaN
+gradient-norm stop), ``Patience``, ``SwitchOffLengthFilter``, ``Timing``,
+``Printing``, ``TrackTheBest``, ``Checkpoint`` (with the ``_params.npz``
+sidecar and the path argument of the ``_best_ll`` copy), and ``Load`` and
+``LoadLog``, which resume from a checkpoint of either package.
 
 The loop records each step's monitors as Python floats right after the
 step (one device synchronisation per step); the JAX package converts them
@@ -21,6 +23,7 @@ import signal
 import sys
 import time
 import traceback
+from collections import defaultdict
 from typing import Callable, Iterable, List, Optional
 
 from attention_lvcsr_torch.train.log import TrainingLog
@@ -100,6 +103,65 @@ class FinishAfter(SimpleExtension):
 
     def do(self, which_callback, *args):
         self.main_loop.log.current_row["training_finish_requested"] = True
+
+
+class Patience(FinishAfter):
+    """Early stopping with multiplicative patience: finish once
+    ``patience_factor`` times the iteration (``min_iterations`` mode) or
+    epoch (``min_epochs`` mode) of the last improvement has passed, and not
+    before the minimum.  An improvement is a row with one of
+    ``notification_names`` set.  The patience goes into the current row
+    as ``patience`` after every batch and epoch; in ``min_epochs`` mode
+    only an epoch's end finishes."""
+
+    def __init__(self, min_iterations=None, min_epochs=None,
+                 patience_factor=1.5, notification_names=None, **conditions):
+        if (min_iterations is None) == (min_epochs is None):
+            raise ValueError("provide exactly one of min_iterations, "
+                             "min_epochs")
+        self.min_iterations = min_iterations
+        self.min_epochs = min_epochs
+        self.patience_factor = patience_factor
+        self.notification_names = list(notification_names or [])
+        self.last_best_iter = 0
+        self.last_best_epoch = 0
+        conditions.setdefault("after_batch", True)
+        conditions.setdefault("after_epoch", True)
+        super().__init__(**conditions)
+
+    def do(self, which_callback, *args):
+        log = self.main_loop.log
+        status = log.status
+        if any(log.current_row.get(name)
+               for name in self.notification_names):
+            self.last_best_iter = status["iterations_done"]
+            self.last_best_epoch = status["epochs_done"]
+        if self.min_iterations is not None:
+            patience = max(self.min_iterations,
+                           int(self.last_best_iter * self.patience_factor))
+            done = status["iterations_done"] >= patience
+        else:
+            patience = max(self.min_epochs, int(math.ceil(
+                self.last_best_epoch * self.patience_factor)))
+            done = (status["epochs_done"] >= patience
+                    and which_callback == "after_epoch")
+        log.current_row["patience"] = patience
+        if done:
+            super().do(which_callback, *args)
+
+
+class SwitchOffLengthFilter(SimpleExtension):
+    """Clear the data's maximum input length (a ``LengthFilter``), so that
+    the streams read after it admit long utterances, and record
+    ``length_filter_switched``."""
+
+    def __init__(self, length_filter, **conditions):
+        self.length_filter = length_filter
+        super().__init__(**conditions)
+
+    def do(self, which_callback, *args):
+        self.length_filter.max_length = None
+        self.main_loop.log.current_row["length_filter_switched"] = True
 
 
 def gradient_norm_is_nan(log):
@@ -204,20 +266,106 @@ class Checkpoint(SimpleExtension):
         loop.log.current_row["saved_to"] = os.path.abspath(path)
 
 
+def _read_checkpoint(name, path):
+    """The checkpoint at ``path``, or None (and a message) if there is no
+    file."""
+    if not os.path.exists(path):
+        print(f"{name}: no checkpoint at {path}", file=sys.stderr)
+        return None
+    from attention_lvcsr_torch.train.checkpoint import load_checkpoint
+    return load_checkpoint(path)
+
+
+def _take_log(loop, log_state, resumed_from):
+    loop.log = TrainingLog.from_state_dict(log_state)
+    loop.log.status["resumed_from"] = resumed_from
+    loop.log.status["epoch_started"] = False
+
+
+class Load(TrainingExtension):
+    """Before training, the parameters, the optimizer state (when the
+    checkpoint holds one) and the log of a checkpoint of either package;
+    the loop then resumes from the log (``resumed_from`` set to the
+    path)."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def before_training(self):
+        state = _read_checkpoint("Load", self.path)
+        if state is None:
+            return
+        algorithm = self.main_loop.algorithm
+        algorithm.set_parameters(state["parameters"])
+        if state["opt_state"] is not None:
+            algorithm.set_opt_state(state["opt_state"])
+        if state["log_state"] is not None:
+            _take_log(self.main_loop, state["log_state"], self.path)
+
+
+class LoadLog(TrainingExtension):
+    """Before training, the log of a checkpoint alone (``resumed_from``
+    stays None)."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def before_training(self):
+        state = _read_checkpoint("LoadLog", self.path)
+        if state is not None and state["log_state"]:
+            _take_log(self.main_loop, state["log_state"], None)
+
+
+class Profile:
+    """Host wall time of the loop's parts (``time.perf_counter`` around
+    each, no device synchronisation), summed by nested name."""
+
+    def __init__(self):
+        self.total = defaultdict(float)
+        self.stack = []
+
+    def enter(self, name):
+        self.stack.append((name, time.perf_counter()))
+
+    def exit(self):
+        name, t0 = self.stack.pop()
+        key = "/".join([n for n, _ in self.stack] + [name])
+        self.total[key] += time.perf_counter() - t0
+
+    def report(self, file=None):
+        file = file or sys.stderr
+        print("Training profile:", file=file)
+        for key in sorted(self.total):
+            print(f"  {key:50s} {self.total[key]:10.3f}s", file=file)
+
+
 class MainLoop:
     """Drives ``algorithm.process_batch`` over the batches of a data
-    stream, epoch after epoch, until an extension asks it to finish."""
+    stream, epoch after epoch, until an extension asks it to finish.
+    With ``profile_enabled`` it times the extensions of each callback,
+    the epochs, the reading of batches and the steps, and prints the
+    sums at the end."""
 
     def __init__(self, algorithm,
                  data_stream_factory: Callable[[], Iterable],
-                 log: Optional[TrainingLog] = None, extensions=()):
+                 log: Optional[TrainingLog] = None, extensions=(),
+                 profile_enabled=False):
         self.algorithm = algorithm
         self.data_stream_factory = data_stream_factory
         self.log = log or TrainingLog()
         self.extensions = list(extensions)
+        self.profile = Profile() if profile_enabled else None
         for ext in self.extensions:
             ext.main_loop = self
         self._old_handlers = {}
+
+    def _enter(self, name):
+        if self.profile is not None:
+            self.profile.enter(name)
+
+    def _exit(self):
+        if self.profile is not None:
+            self.profile.exit()
 
     def _install_signal_handlers(self):
         def handler(signum, frame):
@@ -234,8 +382,10 @@ class MainLoop:
                 pass                # not the main thread
 
     def _run_extensions(self, callback_name, *args):
+        self._enter(f"extensions/{callback_name}")
         for ext in self.extensions:
             ext.dispatch(callback_name, *args)
+        self._exit()
 
     def _finish_requested(self):
         return bool(self.log.current_row.get("training_finish_requested"))
@@ -246,6 +396,11 @@ class MainLoop:
         error = None
         try:
             self._run_extensions("before_training")
+            if self.log.status.get("resumed_from"):
+                self._run_extensions("on_resumption")
+            # a resumed log carries the finish flag of the run that wrote it
+            self.log.record(self.log.status["iterations_done"],
+                            "training_finish_requested", False)
             while not self._finish_requested():
                 self._run_epoch()
         except KeyboardInterrupt:
@@ -261,6 +416,8 @@ class MainLoop:
                 self._run_extensions("after_training")
             for sig, old in self._old_handlers.items():
                 signal.signal(sig, old)
+            if self.profile is not None:
+                self.profile.report()
         if error is not None:
             raise error
         return self
@@ -268,15 +425,25 @@ class MainLoop:
     def _run_epoch(self):
         self.log.status["epoch_started"] = True
         self._run_extensions("before_epoch")
-        for batch in self.data_stream_factory():
+        self._enter("epoch")
+        iterator = iter(self.data_stream_factory())
+        while True:
+            self._enter("read_data")
+            batch = next(iterator, None)
+            self._exit()
+            if batch is None:
+                break
             self._run_extensions("before_batch", batch)
+            self._enter("train")
             monitors = self.algorithm.process_batch(batch)
+            self._exit()
             self.log.status["iterations_done"] += 1
             for name, value in monitors.items():
                 self.log.current_row[name] = value
             self._run_extensions("after_batch", batch)
             if self._finish_requested():
                 break
+        self._exit()
         self.log.status["epoch_started"] = False
         self.log.status["epochs_done"] += 1
         self.log.status["_epoch_ends"].append(

@@ -1,8 +1,10 @@
-"""Validation during training: the cost over a stream, weighted means,
-and the error rate of a beam search.
+"""Monitoring during training: the averaged train records, the
+validation cost over a stream, weighted means, and the error rate of a
+beam search.
 
-Counterparts of ``DataStreamMonitoring`` and ``BeamSearchErrorRate``
-(``attention_lvcsr_tpu/train/monitoring.py:91-214``) and ``make_eval_fn``
+Counterparts of ``AveragedTrainMonitoring``, ``DataStreamMonitoring`` and
+``BeamSearchErrorRate`` (``attention_lvcsr_tpu/train/monitoring.py``) and
+``make_eval_fn``
 (``attention_lvcsr_tpu/train/driver.py:383-416``).  ``make_eval_fn`` runs
 the port's ``net.cost`` under ``torch.no_grad()`` (on a CUDA device: the
 encoder's and the decoder's training forward kernels) and returns the JAX
@@ -37,6 +39,48 @@ def batch_tensors(batch, device):
         for k in BATCH_KEYS)
     return (inputs.float(), inputs_mask.float(), labels.long(),
             labels_mask.float())
+
+
+class AveragedTrainMonitoring(SimpleExtension):
+    """The mean of each of ``record_names`` over the batches since the last
+    fire, written into the fire's row as ``average_<name>``.
+
+    The loop records a batch's monitors before its ``after_batch``; the
+    JAX extension reads each row one batch late, and the windows here are
+    the rows it takes: those after the last row taken, up to the fire's
+    own, where each ``after_batch`` first takes the row before it.  So
+    the first window after a resumption also holds the last row of the
+    run resumed from."""
+
+    def __init__(self, record_names, **conditions):
+        self.record_names = list(record_names)
+        self._values: Dict[str, list] = {}
+        self._last_time = 0          # the last row taken
+        super().__init__(**conditions)
+
+    def _take(self, time):
+        if time <= self._last_time:
+            return
+        row = self.main_loop.log[time]
+        for name in self.record_names:
+            value = row.get(name)
+            if isinstance(value, (int, float, np.floating, np.integer)):
+                self._values.setdefault(name, []).append(float(value))
+        self._last_time = time
+
+    def dispatch(self, callback_name, *args):
+        if callback_name == "after_batch":
+            self._take(self.main_loop.log.status["iterations_done"] - 1)
+        super().dispatch(callback_name, *args)
+
+    def do(self, which_callback, *args):
+        log = self.main_loop.log
+        self._take(log.status["iterations_done"])
+        row = log.current_row
+        for name, values in self._values.items():
+            if values:
+                row[f"average_{name}"] = float(np.mean(values))
+        self._values = {}
 
 
 def make_eval_fn(recognizer):

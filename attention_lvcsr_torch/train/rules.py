@@ -317,11 +317,15 @@ def state_arrays(state, prefix="") -> Dict[str, np.ndarray]:
 
 def load_state_arrays(template, arrays: Mapping[str, np.ndarray]):
     """The state of ``template``'s structure (an ``init`` result, on the
-    device it is to live on) with the values of ``arrays``."""
+    device it is to live on) with the values of ``arrays``, the flat
+    arrays of :func:`state_arrays`; a key missing or unexpected (a rule
+    chain of another length or order) raises ``KeyError``."""
     flat = state_arrays(template)
     missing = sorted(set(flat) - set(arrays))
-    if missing:
-        raise KeyError(f"optimizer state lacks {missing[:5]}")
+    unexpected = sorted(set(arrays) - set(flat))
+    if missing or unexpected:
+        raise KeyError(f"optimizer state lacks {missing[:5]}, has "
+                       f"unexpected {unexpected[:5]}")
 
     def fill(node, prefix):
         out = {}

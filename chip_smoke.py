@@ -144,7 +144,25 @@ through the search driver.  Phases, each fatal on failure:
     hypotheses: in each of the 8 searches the same hypotheses on both
     routes and beam costs within 1e-5 relative, costs moved by more than
     1e-3 relative after a step, and the same ``valid_per`` records, 0
-    before the steps and below 1 after them; the phase's seconds.
+    before the steps and below 1 after them; the phase's seconds;
+19. multistage training of the paper's recipe: the stages of
+    ``exp/wsj/configs/wsj_paper.yaml`` written out as dicts (no YAML),
+    ``pretraining`` (expanding prior, 1 epoch) -> ``main`` (restarted
+    from ``pretraining_best_ll.zip``, 2 epochs of its 10) ->
+    ``annealing`` (epsilon 1e-10, from ``main_best_ll.zip``, 1 epoch of
+    its 3), through ``run_multistage`` at the flagship's widths from
+    phase 18's start (seed 1234, EOS logit +1.5, char_discount 3.0 in
+    place of the recipe's 0.1, below which the random model's best
+    hypothesis is empty): 2 in-memory training batches of 16 (300-500
+    frames, 30-60 labels) an epoch, validation and search (beam 10) on 4
+    of their utterances before each stage and after each epoch; on the
+    kernels and on the plain route: the same files, per-step train_cost
+    and total_gradient_norm and the validation costs within 1e-4
+    relative, the same hypotheses in every search (beam costs within
+    1e-4 relative) and the same ``valid_per``; every kernel of the path
+    launches; each stage's wall time and utt/s; then ``main`` on the
+    kernels stopped after its first epoch and resumed from its
+    checkpoint (``use_load_ext``) writes the bits of the straight run.
 
 Nothing of JAX or of the JAX package is imported; the script checks it.
 
@@ -154,12 +172,14 @@ card's memory rate and its float32 operations over the card's peak,
 computed from this run's shapes) and ``library_ms`` (null where no
 PyTorch call computes the function; for ``outer_sum``, one cuBLAS
 ``addmm_`` per job; ``search_launches``, the launches of phase 18's paths
-a-d that run the kernel); the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+a-d that run the kernel; ``multistage_launches``, phase 19's kernel-route
+run of the three stages); the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository around it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -504,6 +524,9 @@ def main():
     t0 = time.perf_counter()
     search_launches = search_phase(t, dev, launches, rates)
     log(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    stage_launches = multistage_phase(t, dev, rates)
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s")
 
     banned = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "attention_lvcsr_tpu"))
@@ -535,6 +558,8 @@ def main():
         k["search_launches"] = {
             path.split(":")[0]: n for path, n in search_launches.items()
             if path.split(":")[1] == k["name"]}
+        if k["name"] in stage_launches:
+            k["multistage_launches"] = stage_launches[k["name"]]
     log(json.dumps(dict(rates, build_s=lib.build_seconds)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -2604,6 +2629,243 @@ def search_phase(t, dev, launches, rates):
         f"launches {moved}")
     log(f"phase 18 launches on the search paths: {search_launches}")
     return search_launches
+
+
+# exp/wsj/configs/wsj_paper.yaml's sections (net: the flagship's, as
+# __graft_entry__.FLAGSHIP_NET holds it) and its stages' deltas
+WSJ_PAPER = {
+    "regularization": {"max_norm": 1.0},
+    "training": {"gradient_threshold": 100.0, "rules": ["adadelta"],
+                 "decay_rate": 0.95, "epsilon": 1e-8, "seed": 1},
+    "monitoring": {"validate_every_epochs": 1, "search_every_epochs": 1,
+                   "search": {"beam_size": 10, "char_discount": 0.1,
+                              "stop_on": "optimistic_future_cost"}}}
+WSJ_PAPER_STAGES = (
+    ("pretraining", {"net": {"prior": {
+        "type": "expanding", "initial_begin": 0, "initial_end": 40,
+        "min_speed": 1.2, "max_speed": 2.2}},
+        "training": {"num_epochs": 1}}),
+    ("main", {"training": {"restart_from": "_best_ll", "num_epochs": 10}}),
+    ("annealing", {"training": {"epsilon": 1e-10, "restart_from": "_best_ll",
+                                "num_epochs": 3}}))
+
+
+def paper_stages(net, main_epochs=2, annealing_epochs=1):
+    """(name, config) of wsj_paper.yaml's stages over ``net``, merged as
+    ``Configuration.ordered_stages`` merges them, with main and annealing
+    cut to ``main_epochs`` and ``annealing_epochs`` and char_discount 3.0
+    (see phase 18: below it the random model's best hypothesis is
+    empty)."""
+    from attention_lvcsr_torch.config import merge_recursively
+    base = copy.deepcopy(dict(WSJ_PAPER, net=net,
+                              initialization=FLAGSHIP_INIT))
+    base["monitoring"]["search"]["char_discount"] = 3.0
+    cuts = {"main": main_epochs, "annealing": annealing_epochs}
+    stages = []
+    for name, delta in WSJ_PAPER_STAGES:
+        stage = copy.deepcopy(base)
+        merge_recursively(stage, copy.deepcopy(delta))
+        if name in cuts:
+            stage["training"]["num_epochs"] = cuts[name]
+        stages.append((name, stage))
+    return stages
+
+
+def stage_batches(t, dev, n, B, seed):
+    """``n`` batches of ``B`` utterances of 300-500 frames and 30-60
+    labels (row 0 the longest in both)."""
+    import torch
+    V = len(CHARS)
+    rng = np.random.RandomState(seed)
+    batches = []
+    for _ in range(n):
+        frames, labels = rng.randint(300, 501, size=B), rng.randint(
+            30, 61, size=B)
+        frames[0], labels[0] = 500, 60
+        batches.append({
+            "recordings": t(rng.randn(B, 500, 123)),
+            "recordings_mask": t(np.arange(500)[None] < frames[:, None]),
+            "labels": torch.tensor(rng.randint(0, V - 1, size=(B, 60)),
+                                   device=dev),
+            "labels_mask": t(np.arange(60)[None] < labels[:, None])})
+    return batches
+
+
+def multistage_phase(t, dev, rates):
+    """Phase 19: the three stages of wsj_paper.yaml through
+    ``run_multistage`` on the kernels and on the plain route, then the
+    kernel route's ``main`` resumed after its first epoch.  Returns the
+    kernel route's launches."""
+    import torch
+    from __graft_entry__ import FLAGSHIP_NET
+    from attention_lvcsr_torch.models import cells as cells_mod
+    from attention_lvcsr_torch.models import generator as generator_mod
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.ops import gru_train as gt
+    from attention_lvcsr_torch.ops import outer_sum as osum
+    from attention_lvcsr_torch.search import beam as beam_mod
+    from attention_lvcsr_torch.train.checkpoint import (load_checkpoint,
+                                                        save_checkpoint)
+    from attention_lvcsr_torch.train.driver import (create_model,
+                                                    run_multistage)
+
+    counters = {"gru_scan": gs.launches, "beam_search_loop": bl.launches,
+                "gru_scan_train_bidir": gt.launches_bidir,
+                "decoder_scan_train": dt.launches, "outer_sum": osum.launches}
+    plain = [(cells_mod, "gru_scan", gs.gru_scan_reference),
+             (beam_mod, "beam_search_loop", bl.beam_search_loop_reference),
+             (cells_mod, "gru_scan_train", gt.gru_scan_train_reference),
+             (generator_mod, "decoder_scan_train",
+              dt.decoder_scan_train_reference)]
+    net = {k: v for k, v in FLAGSHIP_NET.items()
+           if k not in ("input_dims", "input_num_chars", "eos_label",
+                        "num_phonemes")}
+    stages = paper_stages(net)
+    data = SmokeData()
+    B = 16
+    train = stage_batches(t, dev, 2, B, seed=21)
+    # validation on 4 of the training utterances: the steps lower their
+    # cost, so that each stage writes the _best_ll checkpoint the next
+    # one restarts from
+    valid = [{k: v[:4] for k, v in train[0].items()}]
+
+    def run(out_dir, start, searches, stage_list=stages, **kwargs):
+        """run_multistage into ``out_dir``; each stage's search appends its
+        best hypotheses to ``searches``.  Returns (loops, [(stage, start
+        time)], end time)."""
+        marks = []
+
+        def make_stage(config, load_path):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            rec = create_model(config, data, load_path, device=dev)
+            search = rec.beam_search
+
+            def recorded(*args, **kw):
+                out = search(*args, **kw)
+                searches.append(best_hypotheses(out)[:len(args[0])])
+                return out
+            rec.beam_search = recorded
+            return dict(recognizer=rec, batch_stream=lambda: train,
+                        valid_stream=lambda: valid, search_data=data)
+
+        loops = run_multistage(stage_list, out_dir, make_stage, start,
+                               printing=False, **kwargs)
+        torch.cuda.synchronize()
+        return loops, marks + [time.perf_counter()]
+
+    monitors = ("train_cost", "total_gradient_norm",
+                "valid_sequence_total_cost")
+    tmp = tempfile.mkdtemp()
+    try:
+        start = os.path.join(tmp, "start.zip")
+        rec = SpeechRecognizer(FLAGSHIP_NET, init_config=FLAGSHIP_INIT,
+                               seed=1234, device=dev)
+        rec.net.generator.readout.post_merge_0.bias.data[
+            rec.eos_label] += 1.5
+        save_checkpoint(start, rec.param_path_dict())
+        del rec
+        routes = {}
+        for route in ("kernels", "plain"):
+            searches = []
+            out_dir = os.path.join(tmp, route)
+            for c in counters.values():
+                c.reset()
+            with swapped(plain if route == "plain" else []):
+                loops, marks = run(out_dir, start, searches)
+            routes[route] = (loops, marks, searches, counts(counters),
+                             sorted(os.listdir(out_dir)))
+        (loops, marks, searches, moved, files), (ref_loops, ref_marks,
+                                                 ref_searches, ref_moved,
+                                                 ref_files) = (
+            routes["kernels"], routes["plain"])
+        if min(moved.values()) < 1 or any(ref_moved.values()):
+            fail(f"phase 19: launches {moved} on the kernels, {ref_moved} "
+                 f"on the plain route")
+        expected = {f"{name}{suffix}" for name, _ in stages for suffix in (
+            ".zip", "_params.npz", "_best_ll.zip", "_best_ll_params.npz")}
+        if files != ref_files or not expected <= set(files):
+            fail(f"phase 19: files {files} vs the plain route's {ref_files}")
+        for (name, _), lp, lr in zip(stages, loops, ref_loops):
+            for key in monitors:
+                (tg, g), (tr, r) = lp.log.channel(key), lr.log.channel(key)
+                rel = np.abs(np.subtract(g, r)) / np.abs(r)
+                if tg != tr or not tg or not (np.isfinite(g).all()
+                                              and rel.max() <= 1e-4):
+                    fail(f"phase 19 {name}: {key} {g} at {tg} vs plain {r} "
+                         f"at {tr}")
+            if lp.log.channel("valid_per") != lr.log.channel("valid_per"):
+                fail(f"phase 19 {name}: valid_per "
+                     f"{lp.log.channel('valid_per')} vs plain "
+                     f"{lr.log.channel('valid_per')}")
+        if len(searches) != len(ref_searches) or not searches:
+            fail(f"phase 19: {len(searches)} searches vs "
+                 f"{len(ref_searches)} on the plain route")
+        worst = 0.0
+        for i, (got, ref) in enumerate(zip(searches, ref_searches)):
+            for u, ((h, c), (rh, rc)) in enumerate(zip(got, ref)):
+                if h != rh or (c is None) != (rc is None):
+                    fail(f"phase 19: search {i} utterance {u}: {h} ({c}) vs "
+                         f"the plain route's {rh} ({rc})")
+                if c is not None:
+                    worst = max(worst, abs(c - rc) / abs(rc))
+        if worst > 1e-4:
+            fail(f"phase 19: beam costs within {worst:.2e} of the plain "
+                 f"route's")
+        nonempty = sum(bool(h) for got in searches for h, _ in got)
+        for route, (lps, mks, _, _, _) in routes.items():
+            for (name, _), lp, t0, t1 in zip(stages, lps, mks, mks[1:]):
+                steps = lp.log.status["iterations_done"]
+                wall = t1 - t0
+                step_s = float(np.median(
+                    lp.log.channel("time_train_this_batch")[1]))
+                rates[f"multistage_{route}_{name}_utt_per_s"] = \
+                    B * steps / wall
+                log(f"phase 19 {route} {name}: {wall:.2f} s for {steps} "
+                    f"steps of B={B} ({lp.log.status['epochs_done']} epochs,"
+                    f" validated and searched at iterations "
+                    f"{lp.log.channel('valid_per')[0]}), "
+                    f"{B * steps / wall:.2f} utt/s with validation and "
+                    f"search, {B / step_s:.2f} utt/s in the steps (median "
+                    f"{step_s:.4f} s); valid_per "
+                    f"{[round(v, 4) for v in lp.log.channel('valid_per')[1]]}")
+        log(f"phase 19 files: {files}, the same on both routes; "
+            f"{len(searches)} searches with the same hypotheses ({nonempty} "
+            f"of {sum(len(g) for g in searches)} non-empty), beam costs "
+            f"within {worst:.2e} relative; launches {moved}")
+
+        # main stopped after its first epoch, then resumed
+        main = dict(stages)["main"]
+        first, resumed = os.path.join(tmp, "first"), os.path.join(
+            tmp, "kernels")
+        best = os.path.join(tmp, "kernels", "pretraining_best_ll.zip")
+        main_first = copy.deepcopy(main)
+        main_first["training"]["num_epochs"] = 1
+        run(first, best, [], [("main", main_first)])
+        again, _ = run(first, os.path.join(first, "main.zip"), [],
+                       [("main", main)], use_load_ext=True)
+        straight = load_checkpoint(os.path.join(resumed, "main.zip"))
+        back = load_checkpoint(os.path.join(first, "main.zip"))
+        same = set(back["parameters"]) == set(straight["parameters"]) and all(
+            np.array_equal(back["parameters"][k], v)
+            for k, v in straight["parameters"].items()) and all(
+            np.array_equal(back["opt_state"][k], v)
+            for k, v in straight["opt_state"].items())
+        if not same or again[0].log.channel("train_cost") != \
+                loops[1].log.channel("train_cost"):
+            fail("phase 19: main resumed after its first epoch does not "
+                 "give the bits of the straight run")
+        log(f"phase 19 main stopped after epoch 1 and resumed "
+            f"(use_load_ext, from {again[0].log.status['resumed_from']!r}"
+            f"): parameters, optimizer state and train_cost at "
+            f"{again[0].log.channel('train_cost')[0]} equal the straight "
+            f"run's bit for bit")
+    finally:
+        shutil.rmtree(tmp)
+    return moved
 
 
 if __name__ == "__main__":

@@ -25,13 +25,17 @@ from attention_lvcsr_tpu.models.recognizer import param_path_dict
 from attention_lvcsr_tpu.train import checkpoint as jax_checkpoint
 from attention_lvcsr_tpu.train import driver as jax_driver
 from attention_lvcsr_tpu.train import extensions as jax_extensions
+from attention_lvcsr_tpu.data.pipeline import LengthFilter as JaxLengthFilter
+from attention_lvcsr_tpu.train import monitoring as jax_monitoring
 from attention_lvcsr_tpu.train.log import TrainingLog as JaxLog
 from attention_lvcsr_torch.cli import run
 from attention_lvcsr_torch.config import Configuration
+from attention_lvcsr_torch.data.pipeline import LengthFilter
 from attention_lvcsr_torch.models.params import load_path_dict
 from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
 from attention_lvcsr_torch.train import driver, loop
 from attention_lvcsr_torch.train.log import TrainingLog
+from attention_lvcsr_torch.train import monitoring
 from attention_lvcsr_torch.train.monitoring import make_eval_fn
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -106,6 +110,135 @@ def test_conditions_fire_as_in_jax(conditions, extra):
     theirs = _fired(jax_extensions.SimpleExtension, JaxLog, conditions,
                     extra)
     assert ours == theirs
+
+
+def _monitors(it):
+    """The synthetic monitors of batch ``it``."""
+    return {"train_cost": 10.0 / it + 0.1 * (it % 3),
+            "total_gradient_norm": float(it % 5), "batch_size": 2.0}
+
+
+def _driven(ext, log, resume_at=0, epochs=3, batches=4, best=(4, 6, 12)):
+    """The log after ``ext`` saw ``epochs`` epochs of ``batches`` batches
+    on a loop whose log gets each batch's monitors before its
+    ``after_batch``, and ``best_x`` set at the iterations ``best`` (by an
+    extension before it, as TrackTheBest's notification); with
+    ``resume_at``, from a log that holds that many batches (one epoch)
+    already."""
+
+    class Loop:
+        pass
+
+    Loop.log = log
+    ext.main_loop = Loop()
+    it = resume_at
+    for t in range(1, resume_at + 1):
+        for name, value in _monitors(t).items():
+            log.record(t, name, value)
+    log.status.update(iterations_done=it, epochs_done=int(resume_at > 0))
+    ext.dispatch("before_training")
+    for _ in range(epochs):
+        ext.dispatch("before_epoch")
+        for _ in range(batches):
+            ext.dispatch("before_batch", None)
+            it += 1
+            log.status["iterations_done"] = it
+            for name, value in _monitors(it).items():
+                log.record(it, name, value)
+            if it in best and it % batches:
+                log.record(it, "best_x", True)
+            ext.dispatch("after_batch", None)
+        log.status["epochs_done"] += 1
+        if it in best:
+            log.record(it, "best_x", True)
+        ext.dispatch("after_epoch")
+    ext.dispatch("after_training")
+    return {name: log.channel(name) for name in log.columns}
+
+
+@pytest.mark.parametrize("kind,kwargs,resume_at", [
+    ("patience", {"min_iterations": 5, "patience_factor": 1.5,
+                  "notification_names": ["best_x"]}, 0),
+    ("patience", {"min_epochs": 2, "patience_factor": 1.5,
+                  "notification_names": ["best_x"]}, 0),
+    ("patience", {"min_epochs": 1, "patience_factor": 2.0,
+                  "notification_names": ["best_x"]}, 4),
+    ("length_filter", {"after_n_batches": 6}, 0),
+    ("averaged", {"every_n_batches": 3}, 0),
+    ("averaged", {"every_n_batches": 10}, 0),
+    ("averaged", {"every_n_batches": 3}, 4),
+], ids=["patience_min_iterations", "patience_min_epochs",
+        "patience_resumed", "switch_off_length_filter", "averaged_every_3",
+        "averaged_every_10", "averaged_resumed"])
+def test_training_services_record_as_in_jax(kind, kwargs, resume_at):
+    """Patience (both modes), SwitchOffLengthFilter and
+    AveragedTrainMonitoring driven over the same synthetic run, the port's
+    and the JAX package's: the same records at the same iterations (and
+    the finish requests), and the length filter cleared in both."""
+    filters = (LengthFilter("recordings", 9),
+               JaxLengthFilter("recordings", 9))
+    made = []
+    for package, log_cls in (("port", TrainingLog), ("jax", JaxLog)):
+        if kind == "patience":
+            cls = loop.Patience if package == "port" else \
+                jax_extensions.Patience
+            ext = cls(**kwargs)
+        elif kind == "length_filter":
+            cls = loop.SwitchOffLengthFilter if package == "port" else \
+                jax_extensions.SwitchOffLengthFilter
+            ext = cls(filters[package == "jax"], **kwargs)
+        else:
+            cls = monitoring.AveragedTrainMonitoring if package == "port" \
+                else jax_monitoring.AveragedTrainMonitoring
+            ext = cls(["train_cost", "total_gradient_norm"], **kwargs)
+        made.append(_driven(ext, log_cls(), resume_at=resume_at))
+    ours, theirs = made
+    assert ours == theirs
+    recorded = {"patience": "patience",
+                "length_filter": "length_filter_switched",
+                "averaged": "average_train_cost"}[kind]
+    assert ours[recorded][0], "vacuous: nothing recorded"
+    if kind == "length_filter":
+        assert filters[0].max_length is filters[1].max_length is None
+        assert ours[recorded][0] == list(range(6, 13))
+    if kind == "patience" and "min_iterations" in kwargs:
+        assert ours["training_finish_requested"][0][0] == 9
+
+
+class _Counting:
+    """An algorithm whose step returns the batch number as its cost."""
+
+    def process_batch(self, batch):
+        return {"train_cost": float(batch)}
+
+
+def test_resumed_loop_clears_the_finish_flag_and_profiles(capsys):
+    """A log resumed from a finished run (its last row asks to finish)
+    trains on: the loop records ``training_finish_requested`` False at
+    the resumed iteration and dispatches ``on_resumption``; with
+    ``profile_enabled`` it prints the host times of its parts."""
+    log = TrainingLog()
+    log.status.update(iterations_done=3, epochs_done=1,
+                      resumed_from="model.zip")
+    log.record(3, "training_finish_requested", True)
+    seen = []
+
+    class Seen(loop.TrainingExtension):
+        def on_resumption(self):
+            seen.append(self.main_loop.log.status["iterations_done"])
+
+    main = loop.MainLoop(_Counting(), lambda: [1, 2], log=log,
+                         extensions=[Seen(), loop.FinishAfter(
+                             after_n_epochs=2)], profile_enabled=True)
+    main.run()
+    assert seen == [3]
+    assert log.channel("train_cost") == ([4, 5], [1.0, 2.0])
+    assert log.channel("training_finish_requested") == ([3, 5],
+                                                       [False, True])
+    report = capsys.readouterr().err
+    for part in ("Training profile:", "epoch/read_data", "epoch/train",
+                 "extensions/after_batch", "extensions/before_training"):
+        assert part in report
 
 
 NET = dict(
@@ -252,7 +385,7 @@ def test_search_during_training_matches_jax(toy, tmp_path):
     ({"monitoring": {"search": {"beam_size": 3}, "plot": {"path": "p"}},
       "training": {"patience": {"min_epochs": 2}, "stop_filtering": 10,
                    "num_epochs": 3}},
-     ["training.patience", "training.stop_filtering", "monitoring.plot"]),
+     ["monitoring.plot"]),
 ])
 def test_unported_keys_come_from_the_config(sections, keys):
     assert driver.unported_keys(sections) == keys
@@ -268,10 +401,11 @@ def test_cli_warns_once_for_each_unported_key(toy, tmp_path, caplog):
               if r.levelno == logging.WARNING]
     named = {key: sum(key in msg for msg in warned)
              for key in driver.UNPORTED_KEYS}
-    # the toy config's monitoring.search is honoured now: no warning
-    assert named == {"training.patience": 0, "training.stop_filtering": 0,
-                     "monitoring.plot": 0}
-    assert sum(driver.AVERAGED_RECORDS in msg for msg in warned) == 1
+    # the toy config's monitoring.search is honoured, and so are the
+    # averaged train records, Patience and the length filter's switch: no
+    # warning
+    assert named == {"monitoring.plot": 0}
+    assert not any("not ported" in msg for msg in warned)
     # --fast-start: no validation and no checkpoint before the first epoch
     assert loop_.log.channel("valid_sequence_total_cost") == ([], [])
     assert loop_.log.channel("saved_to")[0] == [2]
