@@ -1,8 +1,11 @@
 // The whole beam-search decode loop as one persistent launch.
 //
 // Replaces attention_lvcsr_tpu/ops/pallas/beam_loop.py::beam_search_loop
-// for the flagship configuration: conv attention with one filter, the
-// window_around_median or expanding prior, the softmax normalizer, one
+// for the flagship configuration: conv attention with one filter, or
+// content-only attention (content_attention=True there, content here: no
+// convolution and no handler term, the caller's expanding window over
+// every frame), the window_around_median or expanding prior, the softmax
+// normalizer, one
 // GRU decoder layer, a tanh post-merge layer, the log-likelihood
 // criterion, optional states-for-readout, patience or
 // optimistic_future_cost stopping, char_discount, round_to_inf and
@@ -73,6 +76,7 @@ struct BeamLoopArgs {
   int* steps;                   // (U,)
   int U, L, M, D, S, R, V, F, K, Lout, n_taps;
   int eol, stop_patience, ignore_first_eol, prior_median;
+  int content;                  // 1: content-only attention (no conv term)
   float char_discount, round_to_inf, before, after;
   float initial_begin, initial_end, min_speed, max_speed;
 };
@@ -128,7 +132,7 @@ __host__ __device__ inline Layout make_layout(const BeamLoopArgs& a) {
   o.pick = take(K);
   o.mask = take(a.L);
   o.taps = take(a.n_taps);
-  o.handler = take(a.M);
+  o.handler = take(a.content ? 0 : a.M);
   o.v = take(a.M);
   o.begins = take(K);
   o.ends = take(K);
@@ -138,7 +142,7 @@ __host__ __device__ inline Layout make_layout(const BeamLoopArgs& a) {
   o.wa = take(K * a.D);
   const int scratch = p;
   // attention phase
-  o.conv = take(K * a.L);
+  o.conv = take(a.content ? 0 : K * a.L);
   o.sp = take(K * a.M);
   const int end_att = p;
   // readout phase
@@ -251,7 +255,7 @@ beam_loop_kernel(BeamLoopArgs a) {
   }
   for (int j = tid; j < n_taps; j += blockDim.x) TAPS[j] = a.conv_taps[j];
   for (int m = tid; m < M; m += blockDim.x) {
-    HAND[m] = a.handler[m];
+    if (!a.content) HAND[m] = a.handler[m];
     VV[m] = a.v[m];
   }
   for (int i = tid; i < K * S; i += blockDim.x) H[i] = a.h0[i % S];
@@ -320,13 +324,17 @@ beam_loop_kernel(BeamLoopArgs a) {
     }
 
     // ---- convolution (true convolution, trimmed 'full' mode) ----------
-    window_conv(Wt, TAPS, n_taps, K, L, lb, le, CONV);
+    if (!a.content) window_conv(Wt, TAPS, n_taps, K, L, lb, le, CONV);
     // ---- state projection ---------------------------------------------
     run_product({H, S, a.state_trans, S, M, nullptr, SP, M, false}, K);
     __syncthreads();
 
     // ---- energies inside the window (warp per frame) -------------------
-    window_energies(pre, M, CONV, SP, HAND, VV, K, L, lb, le, WN);
+    if (a.content)
+      window_energies<false>(pre, M, nullptr, SP, nullptr, VV, K, L, lb, le,
+                             WN);
+    else
+      window_energies<true>(pre, M, CONV, SP, HAND, VV, K, L, lb, le, WN);
     __syncthreads();
 
     // ---- masked softmax over the window (warp per row) ----------------

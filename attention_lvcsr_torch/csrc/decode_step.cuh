@@ -137,8 +137,10 @@ __device__ void window_conv(const float* W, const float* TAPS, int n_taps,
 }
 
 // e[r, l] = v . tanh(pre[l] + sp[r] + conv[r, l] * handler) inside the
-// window.  A warp per frame: a lane keeps its columns of the frame's keys,
-// handler and energy vector in registers across the K rows.
+// window; without kConv (content-only attention) v . tanh(pre[l] + sp[r]),
+// CONV and HAND unread.  A warp per frame: a lane keeps its columns of the
+// frame's keys, handler and energy vector in registers across the K rows.
+template <bool kConv>
 __device__ void window_energies(const float* __restrict__ pre, int M,
                                 const float* CONV, const float* SP,
                                 const float* HAND, const float* VV, int K,
@@ -153,18 +155,21 @@ __device__ void window_energies(const float* __restrict__ pre, int M,
       for (int q = 0; q < kMq; ++q) {
         const int m = m0 + lane + 32 * q;
         pv[q] = m < M ? __ldg(pl + m) : 0.f;
-        hv[q] = m < M ? HAND[m] : 0.f;
+        hv[q] = kConv && m < M ? HAND[m] : 0.f;
         vv[q] = m < M ? VV[m] : 0.f;
       }
       for (int r = 0; r < K; ++r) {
-        const float c = CONV[r * L + l];
+        const float c = kConv ? CONV[r * L + l] : 0.f;
         const float* sp = SP + r * M;
         float part = 0.f;
 #pragma unroll
         for (int q = 0; q < kMq; ++q) {
           const int m = m0 + lane + 32 * q;
           if (m < M)
-            part = fmaf(vv[q], tanhf((pv[q] + sp[m]) + c * hv[q]), part);
+            part = fmaf(vv[q],
+                        tanhf(kConv ? (pv[q] + sp[m]) + c * hv[q]
+                                    : pv[q] + sp[m]),
+                        part);
         }
         part = warp_sum(part);
         if (lane == 0) E[r * L + l] = m0 == 0 ? part : E[r * L + l] + part;

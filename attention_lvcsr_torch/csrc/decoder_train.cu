@@ -5,7 +5,10 @@
 // decoder_scan_train (:839; forward _fwd_kernel :225, backward _bwd_kernel
 // :339, custom VJP :601-836) for the flagship variant: one conv filter, the
 // softmax normalizer, the expanding or window_around_median prior, one GRU
-// layer.  Per step t and batch row b (forward):
+// layer; and for content-only attention (n_filters = 0 there, content = 1
+// here): no convolution and no conv[l] * hand[m] term, so the weights do not
+// feed the energies (decoder_train.py:580-582) and the backward forms no
+// band or handler gradient.  Per step t and batch row b (forward):
 //
 //   window  [gb, ge) from the prior (median: each row's running-sum median
 //           of w, bounds taken over the whole batch); combined =
@@ -122,6 +125,7 @@ struct DecoderArgs {
   float* dhand;        // (B, C, M) each (row, block)'s sum over its steps
   float* dv;           // (B, C, M)
   int T, B, L, M, D, S, prior_median;
+  int content;         // 1: content-only attention (no conv term)
   int cluster;         // blocks a cluster (4, 8 or 16)
   int clusters;        // clusters of the grid
   int res_pre;         // rows of a cluster whose pre, att and (backward)
@@ -188,7 +192,9 @@ __host__ __device__ inline int part_floats(int K, int width, int R) {
 }
 
 // Shared-memory layout of a block (offsets in floats, 16-byte aligned);
-// kind 0 forward, 1 backward.  -1: not in this kind's layout.
+// kind 0 forward, 1 backward.  -1: not in this kind's layout.  Without the
+// conv term the convolution's buffers (wgv, conv; backward also dcv, dcvw)
+// hold nothing and no band product needs room in `part`.
 struct Layout {
   int gin, w, wgv, rh, sp, wanp, wa, ek, conv, e, un, comb, xin, gate;
   int hp, g1, dwan, dspp, dsp, dcv, wn, dwn, dE, dh, dhp, dw, dwa, dcvw,
@@ -204,7 +210,8 @@ __host__ __device__ inline int take(int& at, int n) {
 
 __host__ __device__ inline Layout layout(int kind, const Dims& d, int L,
                                          int M, int D, int S, int res_pre,
-                                         int res_att, int res_dpre) {
+                                         int res_att, int res_dpre,
+                                         int conv) {
   Layout o;
   int* all = &o.gin;
   for (int i = 0; i < (int)(sizeof(Layout) / sizeof(int)); ++i) all[i] = -1;
@@ -213,32 +220,33 @@ __host__ __device__ inline Layout layout(int kind, const Dims& d, int L,
   if (kind == 0) {
     o.gin = take(at, R * (d.Dp + d.Sp));   // [wan | h] a row
     o.w = take(at, R * d.L4);
-    o.wgv = take(at, R * d.L4);
+    o.wgv = take(at, conv ? R * d.L4 : 0);
     o.rh = take(at, R * d.Sp);
     o.sp = take(at, R * d.Mp);
     o.wanp = take(at, R * d.Dp);
     o.wa = take(at, R * d.Dc);
     o.ek = take(at, R * d.Lq);
-    o.conv = take(at, R * d.Lq);
+    o.conv = take(at, conv ? R * d.Lq : 0);
     o.e = take(at, R * d.Lq);
     o.un = take(at, R * d.Lq);
     o.comb = take(at, R * d.Lq);
     o.xin = take(at, R * d.Sc);
     o.gate = take(at, R * 2 * d.Sc);
     pmax = max(max(d.Lq, d.Mc), 2 * d.Sc);
-    part = max(max(part_floats(L, d.Lq, R), part_floats(S, d.Mc, R)),
+    part = max(max(conv ? part_floats(L, d.Lq, R) : 0,
+                   part_floats(S, d.Mc, R)),
                max(part_floats(d.Dp + d.Sp, 2 * d.Sc, R),
                    max(part_floats(D, d.Sc, R), part_floats(S, d.Sc, R))));
   } else {
     o.hp = take(at, R * d.Sp);
-    o.wgv = take(at, R * d.L4);
+    o.wgv = take(at, conv ? R * d.L4 : 0);
     o.g1 = take(at, R * 3 * d.Sp);         // [dca | dga_u | dga_r] a row
     o.sp = take(at, R * d.Mp);
     o.dwan = take(at, R * d.Dp);
     o.dspp = take(at, R * d.Mp);
     o.dsp = take(at, R * d.Mp);
-    o.dcv = take(at, R * d.L4);
-    o.conv = take(at, R * d.Lq);
+    o.dcv = take(at, conv ? R * d.L4 : 0);
+    o.conv = take(at, conv ? R * d.Lq : 0);
     o.wn = take(at, R * d.Lq);
     o.dwn = take(at, R * d.Lq);
     o.dE = take(at, R * d.Lq);
@@ -246,12 +254,13 @@ __host__ __device__ inline Layout layout(int kind, const Dims& d, int L,
     o.dhp = take(at, R * d.Sc);
     o.dw = take(at, R * d.Lq);
     o.dwa = take(at, R * d.Dc);
-    o.dcvw = take(at, d.Mch * R * d.Lq);   // per M chunk: dcv partials
+    o.dcvw = take(at, conv ? d.Mch * R * d.Lq : 0);  // per M chunk: dcv
     o.dspg = take(at, d.groups * R * d.M4);  // per frame group: dsp, and
     o.dvg = take(at, d.groups * R * d.M4);   //   dv and dhand over the
     o.dhg = take(at, d.groups * R * d.M4);   //   steps
     pmax = max(max(d.Lq, d.Mc), max(d.Sc, d.Dc));
-    part = max(max(max(part_floats(S, d.Mc, R), part_floats(L, d.Lq, R)),
+    part = max(max(max(part_floats(S, d.Mc, R),
+                       conv ? part_floats(L, d.Lq, R) : 0),
                    max(part_floats(S, d.Sc, R),
                        part_floats(2 * d.Sp, d.Sc, R))),
                max(part_floats(3 * d.Sp, d.Dc, R),
@@ -493,6 +502,9 @@ __device__ __forceinline__ void cluster_rows(int B, int clusters, int c,
   nr = q + (c < rem ? 1 : 0);
 }
 
+// kContent: the content branch, compiled apart so that the conv route
+// keeps no run-time test of it in its loops
+template <bool kContent>
 __global__ void __launch_bounds__(kThreads, 1)
     decoder_fwd_kernel(const __grid_constant__ DecoderArgs a) {
   namespace cg = cooperative_groups;
@@ -504,7 +516,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster_rows(B, a.clusters, blockIdx.x / C, b0, nr);
   const Dims d = dims(C, cdiv(B, a.clusters), L, M, D, S);
   const int rp = min(a.res_pre, d.R), ra = min(a.res_att, d.R);
-  const Layout o = layout(0, d, L, M, D, S, rp, ra, 0);
+  const Layout o = layout(0, d, L, M, D, S, rp, ra, 0, !kContent);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int Lt = d.Lt, Lq = d.Lq, L4 = d.L4, Sc = d.Sc, Sp = d.Sp;
   const int Mc = d.Mc, Mp = d.Mp, Dc = d.Dc, Dp = d.Dp;
@@ -627,7 +639,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       a.bounds[2 * t + 1] = ge;
     }
     auto inside = [&](int l) { return (float)l >= gb && (float)l < ge; };
-    for (int i = tid; i < nr * L; i += kThreads) {
+    for (int i = tid; !kContent && i < nr * L; i += kThreads) {
       const int r = i / L, l = i % L;
       wgv[r * L4 + l] = inside(l) ? w[r * L4 + l] : 0.f;
     }
@@ -641,8 +653,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();
     // ---- convolution of the windowed weights, own frames
-    product(wgv, L4, nr, L, a.p_toep + (size_t)j * L * Lq, Lq, part, conv,
-            Lq);
+    if (!kContent)
+      product(wgv, L4, nr, L, a.p_toep + (size_t)j * L * Lq, Lq, part, conv,
+              Lq);
     cluster_wait();
     pull4(cluster, sp, Mp, nr, Mc, j, C);
     __syncthreads();
@@ -651,10 +664,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int r = item / nl, l = item % nl;
       const float* pl = pre_row(r) + (size_t)l * (r < rp ? d.Mt : M);
       const float* spr = sp + r * Mp;
-      const float cl = conv[r * Lq + l];
-      float acc = lane_fold<8>(pl, M, [&](int m, float p, float s) {
-        return fmaf(v[m], tanhf(p + spr[m] + cl * hand[m]), s);
-      });
+      float acc;
+      if (!kContent) {
+        const float cl = conv[r * Lq + l];
+        acc = lane_fold<8>(pl, M, [&](int m, float p, float s) {
+          return fmaf(v[m], tanhf(p + spr[m] + cl * hand[m]), s);
+        });
+      } else {
+        acc = lane_fold<8>(pl, M, [&](int m, float p, float s) {
+          return fmaf(v[m], tanhf(p + spr[m]), s);
+        });
+      }
       acc = warp_reduce(acc, kSum);
       if (lane == 0) e[r * Lq + l] = acc;
     }
@@ -759,7 +779,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     product(gin, gp, nr, D, a.p_dx + (size_t)j * D * Sc, Sc, part, xin, Sc);
     cluster_wait();
     pull4(cluster, rh, Sp, nr, Sc, j, C);
-    pull1(cluster, w, L4, nr, Lt, L, j, C);
+    // the whole rows of w feed the convolution and the median
+    if (!kContent || a.prior_median) pull1(cluster, w, L4, nr, Lt, L, j, C);
     __syncthreads();
     // ---- candidates and the new state of own units
     product(rh, Sp, nr, S, a.p_ss + (size_t)j * S * Sc, Sc, part, pout, Sc);
@@ -792,6 +813,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster.sync();
 }
 
+template <bool kContent>
 __global__ void __launch_bounds__(kThreads, 1)
     decoder_bwd_kernel(const __grid_constant__ DecoderArgs a) {
   namespace cg = cooperative_groups;
@@ -804,7 +826,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Dims d = dims(C, cdiv(B, a.clusters), L, M, D, S);
   const int R = d.R, rp = min(a.res_pre, R), ra = min(a.res_att, R);
   const int rd = min(a.res_dpre, R);
-  const Layout o = layout(1, d, L, M, D, S, rp, ra, rd);
+  const Layout o = layout(1, d, L, M, D, S, rp, ra, rd, !kContent);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int Lt = d.Lt, Lq = d.Lq, L4 = d.L4, Sc = d.Sc, Sp = d.Sp;
   const int Mc = d.Mc, Mp = d.Mp, Dc = d.Dc, Dp = d.Dp, M4 = d.M4;
@@ -866,7 +888,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       hp[r * Sp + k] = t > 0 ? a.h_out[(prev + r) * S + k]
                              : a.h0[(size_t)(b0 + r) * S + k];
     }
-    for (int i = tid; i < nr * L; i += kThreads) {
+    for (int i = tid; !kContent && i < nr * L; i += kThreads) {
       const int r = i / L, l = i % L;
       const float wp = t > 0 ? a.w_out[(prev + r) * L + l]
                              : a.w0[(size_t)(b0 + r) * L + l];
@@ -919,8 +941,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     cluster_arrive();
     // the recomputed convolution of own frames (needs no gradient)
-    product(wgv, L4, nr, L, a.p_toep + (size_t)j * L * Lq, Lq, part, conv,
-            Lq);
+    if (!kContent)
+      product(wgv, L4, nr, L, a.p_toep + (size_t)j * L * Lq, Lq, part, conv,
+              Lq);
     cluster_wait();
     pull4(cluster, g1 + 2 * Sp, gp, nr, Sc, j, C);
     __syncthreads();
@@ -979,7 +1002,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int l = lane; l < nl; l += 32) {
         const int i = warp * Lq + l;
         dE[i] = wn[i] * (dwn[i] - srow);
-        a.wg[(row0 + warp) * L + l0 + l] = wgv[warp * L4 + l0 + l];
+        if (!kContent)
+          a.wg[(row0 + warp) * L + l0 + l] = wgv[warp * L4 + l0 + l];
       }
     }
     __syncthreads();
@@ -1015,18 +1039,21 @@ __global__ void __launch_bounds__(kThreads, 1)
             for (int k = 0; k < kBatch; ++k) {
               const int l = lb + k * d.groups;
               if (l >= nl) break;
-              const float cl = cr[l], el = er[l];
+              const float cl = kContent ? 0.f : cr[l], el = er[l];
               float mt = 0.f, dmt = 0.f;
               if (ok) {
-                mt = tanhf(pk[k] + spm + cl * hm);
+                mt = kContent ? tanhf(pk[k] + spm)
+                               : tanhf(pk[k] + spm + cl * hm);
                 dmt = el * vm * (1.f - mt * mt);
                 dpr[(size_t)l * dp + mm] = dk[k] + dmt;
               }
               dsa += dmt;
               dva += mt * el;
-              dha += dmt * cl;
-              const float dc = warp_reduce(dmt * hm, kSum);
-              if (lane == 0) dcvw[(c * R + r) * Lq + l] = dc;
+              if (!kContent) {
+                dha += dmt * cl;
+                const float dc = warp_reduce(dmt * hm, kSum);
+                if (lane == 0) dcvw[(c * R + r) * Lq + l] = dc;
+              }
             }
           }
           if (ok) {
@@ -1039,7 +1066,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     __syncthreads();
-    for (int i = tid; i < nr * nl; i += kThreads) {
+    for (int i = tid; !kContent && i < nr * nl; i += kThreads) {
       const int r = i / nl, l = i % nl;
       float s = 0.f;
       for (int c = 0; c < d.Mch; ++c) s += dcvw[(c * R + r) * Lq + l];
@@ -1059,7 +1086,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float4 s = sum_peers4(cluster, dspp + r * Mp + c, C);
       *reinterpret_cast<float4*>(dsp + r * Mp + c) = s;
     }
-    pull1(cluster, dcv, L4, nr, Lt, L, j, C);
+    if (!kContent) pull1(cluster, dcv, L4, nr, Lt, L, j, C);
     __syncthreads();
     for (int i = tid; i < nr * nm; i += kThreads) {
       const int r = i / nm, c = i % nm;
@@ -1071,12 +1098,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int r = i / ns, c = i % ns;
       dh[r * Sc + c] = (dhp[r * Sc + c] + pout[r * Sc + c]) + dh[r * Sc + c];
     }
-    product(dcv, L4, nr, L, a.p_toepT + (size_t)j * L * Lq, Lq, part, pout,
-            Lq);
-    for (int i = tid; i < nr * nl; i += kThreads) {
-      const int r = i / nl, l = i % nl;
-      dw[r * Lq + l] = pout[r * Lq + l] * (inside(l0 + l) ? 1.f : 0.f)
-                       + dw[r * Lq + l];
+    if (!kContent) {
+      product(dcv, L4, nr, L, a.p_toepT + (size_t)j * L * Lq, Lq, part, pout,
+              Lq);
+      for (int i = tid; i < nr * nl; i += kThreads) {
+        const int r = i / nl, l = i % nl;
+        dw[r * Lq + l] = pout[r * Lq + l] * (inside(l0 + l) ? 1.f : 0.f)
+                         + dw[r * Lq + l];
+      }
     }
     __syncthreads();
   }
@@ -1099,7 +1128,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     const size_t at = ((size_t)(b0 + r) * C + j) * M + m;
     a.dv[at] = sv;
-    a.dhand[at] = sh;
+    if (!kContent) a.dhand[at] = sh;
   }
   for (int i = tid; i < min(rd, nr) * nl * M; i += kThreads) {
     const int r = i / (nl * M), l = (i / M) % nl, m = i % M;
@@ -1108,15 +1137,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-const void* kernel_of(int kind) {
-  return kind == 0 ? (const void*)decoder_fwd_kernel
-                   : (const void*)decoder_bwd_kernel;
+const void* kernel_of(int kind, int content) {
+  if (kind == 0)
+    return content ? (const void*)decoder_fwd_kernel<true>
+                   : (const void*)decoder_fwd_kernel<false>;
+  return content ? (const void*)decoder_bwd_kernel<true>
+                 : (const void*)decoder_bwd_kernel<false>;
 }
 
 int smem_bytes(int kind, const DecoderArgs& a) {
   const Dims d = dims(a.cluster, cdiv(a.B, a.clusters), a.L, a.M, a.D, a.S);
   return layout(kind, d, a.L, a.M, a.D, a.S, min(a.res_pre, d.R),
-                min(a.res_att, d.R), kind == 1 ? min(a.res_dpre, d.R) : 0)
+                min(a.res_att, d.R), kind == 1 ? min(a.res_dpre, d.R) : 0,
+                !a.content)
              .total
          * (int)sizeof(float);
 }
@@ -1156,7 +1189,7 @@ int launch(int kind, const DecoderArgs* args, cudaStream_t stream) {
   int err = max_smem_optin(&max_smem);
   if (err != 0) return err;
   if (smem > max_smem) return -1;
-  const void* kernel = kernel_of(kind);
+  const void* kernel = kernel_of(kind, args->content);
   cudaError_t e = set_attributes(kernel, args->cluster, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
@@ -1194,13 +1227,15 @@ extern "C" int decoder_train_smem_bytes(int kind, const DecoderArgs* args) {
 }
 
 // How many `cluster`-block clusters of the kernel (kind 0 forward, 1
-// backward) the current device holds at once at the most shared memory a
-// block may take, into *count; a CUDA error code.
-extern "C" int decoder_train_max_clusters(int kind, int cluster, int* count) {
+// backward; content 0 the conv branch, 1 the content branch) the current
+// device holds at once at the most shared memory a block may take, into
+// *count; a CUDA error code.
+extern "C" int decoder_train_max_clusters(int kind, int content, int cluster,
+                                          int* count) {
   int smem = 0;
   int err = max_smem_optin(&smem);
   if (err != 0) return err;
-  const void* kernel = kernel_of(kind);
+  const void* kernel = kernel_of(kind, content);
   cudaError_t e = set_attributes(kernel, cluster, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};

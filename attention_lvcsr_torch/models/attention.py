@@ -1,10 +1,16 @@
-"""Content + convolutional attention with a windowed prior.
+"""Content attention, and content + convolutional attention with a
+windowed prior.
 
-Counterpart of ``attention_lvcsr_tpu/models/attention.py::
-SequenceContentAndConvAttention`` for one conv filter and the softmax
-normalizer: parameters, key preprocessing, the whole-loop decode tables
-(the loop kernel, ``ops/beam_loop.py``, runs its own glimpse), the tables
-of the teacher-forced decoder scan (``train_tables``), and the
+:class:`SequenceContentAttention` is the counterpart of
+``attention_lvcsr_tpu/models/attention.py::SequenceContentAttention``
+(Bahdanau content attention, no window, no convolution; its energies are
+plain PyTorch on every device, as the JAX module computes them outside
+any Pallas kernel).  :class:`SequenceContentAndConvAttention` is the
+counterpart of ``SequenceContentAndConvAttention`` for one conv filter and
+the softmax normalizer: parameters, key preprocessing, the whole-loop
+decode tables (the loop kernel, ``ops/beam_loop.py``, runs its own
+glimpse), the tables of the teacher-forced decoder scan
+(``train_tables``), and the
 module-driven glimpse (``take_glimpses``) of the step-by-step decode,
 whose energies go through ``ops/attention_energy.py``, and of the
 teacher-forced module scan, where it is differentiable PyTorch.
@@ -30,6 +36,90 @@ from attention_lvcsr_torch.ops.decoder_train import toeplitz_band
 from attention_lvcsr_torch.ops.expressions import conv1d_full
 
 
+class SequenceContentAttention(nn.Module):
+    """Bahdanau content attention: ``e = v^T tanh(Wa a + Ws s)`` over all
+    frames.  Its glimpses are ``weights`` (zeros at first) and
+    ``weighted_averages``, with no energies and no step.  The kernels'
+    tables (``train_tables``, ``loop_tables``) carry no conv term:
+    ``conv`` is False."""
+    conv = False
+
+    def __init__(self, state_names: Sequence[str], state_dim: int,
+                 attended_dim: int, match_dim: int):
+        super().__init__()
+        self.state_names = tuple(state_names)
+        self.attended_dim = attended_dim
+        self.match_dim = match_dim
+        for name in self.state_names:
+            self.add_module(f"state_trans_{name}",
+                            Dense(state_dim, match_dim, use_bias=False))
+        self.preprocessor = Dense(attended_dim, match_dim)
+        self.energy_comp = Dense(match_dim, 1, use_bias=False)
+
+    def prior_config(self, length=None):
+        """The synthetic prior of the kernels: an expanding window over
+        every frame (``initial_end`` the length, or 1e4 without one)."""
+        return dict(type="expanding", initial_begin=0,
+                    initial_end=float(length) if length else 1e4,
+                    min_speed=0, max_speed=0)
+
+    def preprocess(self, attended):
+        return self.preprocessor(attended)
+
+    def train_tables(self, length):
+        """The tables of ``decoder_scan_train`` with ``n_filters=0``, as the
+        JAX package passes them: zero Toeplitz band and handler."""
+        (name,) = self.state_names
+        M = self.match_dim
+        v = self.energy_comp.kernel
+        return {"toep": v.new_zeros(length, length),
+                "st": getattr(self, f"state_trans_{name}").kernel,
+                "hand": v.new_zeros(1, M), "v": v[:, 0].contiguous()}
+
+    def loop_tables(self):
+        """Dense tables of the decode kernel's attention step (no handler,
+        no taps)."""
+        (name,) = self.state_names
+        return {"state_trans": getattr(self, f"state_trans_{name}").kernel,
+                "v": self.energy_comp.kernel[:, 0]}
+
+    def initial_glimpses(self, batch_size, attended):
+        return {"weighted_averages": attended.new_zeros(batch_size,
+                                                        self.attended_dim),
+                "weights": attended.new_zeros(batch_size, attended.shape[1])}
+
+    def compute_energies(self, preprocessed, states, beam=1):
+        """Energies (U*beam, L) of per-hypothesis states over the shared
+        per-utterance keys (U, L, M)."""
+        state_sum = 0.0
+        for name in self.state_names:
+            state_sum = state_sum + getattr(self, f"state_trans_{name}")(
+                states[name])
+        U, L, M = preprocessed.shape
+        match = preprocessed[:, None] + state_sum.view(U, beam, 1, M)
+        return self.energy_comp(torch.tanh(match))[..., 0].reshape(
+            U * beam, L)
+
+    def take_glimpses(self, attended, preprocessed, attended_mask, glimpses,
+                      states, beam=1, train=False):
+        """One glimpse of every hypothesis row: contexts per utterance (U,
+        ...), states per row (U*beam, ...); differentiable on every
+        route (``train`` changes nothing).  The softmax runs over every
+        frame, with the reference's all-masked guard
+        (``blocks/bricks/attention.py:229-235``)."""
+        energies = self.compute_energies(preprocessed, states, beam=beam)
+        U, L, D = attended.shape
+        mask = attended_mask.repeat_interleave(beam, dim=0)
+        m = energies.max(dim=1, keepdim=True).values
+        unnorm = torch.exp(energies - m) * mask
+        denom = unnorm.sum(dim=1, keepdim=True) + (
+            mask == 0).all(dim=1, keepdim=True).to(energies.dtype)
+        weights = unnorm / denom
+        weighted = torch.bmm(weights.view(U, beam, L), attended)
+        return {"weighted_averages": weighted.view(U * beam, D),
+                "weights": weights}
+
+
 class SequenceContentAndConvAttention(nn.Module):
     """One conv filter and the softmax normalizer (so the energy has no
     bias), the configuration the decode kernel covers.
@@ -39,6 +129,7 @@ class SequenceContentAndConvAttention(nn.Module):
     "before", "after"}``; None means an expanding window over everything.
     The preprocessing layer is ``preprocessor`` here and ``preprocess`` in
     the JAX parameter paths (models/params.py)."""
+    conv = True
 
     def __init__(self, state_names: Sequence[str], state_dim: int,
                  attended_dim: int, match_dim: int, conv_n: int,
@@ -57,7 +148,9 @@ class SequenceContentAndConvAttention(nn.Module):
         self.handler = Dense(1, match_dim, use_bias=False)
         self.conv_filters = nn.Parameter(torch.zeros(1, 2 * conv_n + 1))
 
-    def prior_config(self):
+    def prior_config(self, length=None):
+        """The configured window (``length`` is not used: this prior does
+        not depend on the number of frames)."""
         if self.prior:
             return dict(self.prior)
         return dict(type="expanding", initial_begin=0, initial_end=10000,
@@ -187,3 +280,17 @@ class SequenceContentAndConvAttention(nn.Module):
             "energies": energies * global_mask,
             "step": step + 1,
         }
+
+
+def make_attention(attention_type, state_names, state_dim, attended_dim,
+                   match_dim, conv_n=None, prior=None):
+    """The attention of a net config's ``attention_type`` (JAX
+    ``make_attention``)."""
+    if attention_type == "content":
+        return SequenceContentAttention(state_names, state_dim, attended_dim,
+                                        match_dim)
+    if attention_type == "content_and_conv":
+        return SequenceContentAndConvAttention(
+            state_names, state_dim, attended_dim, match_dim, conv_n,
+            prior=prior)
+    raise ValueError(f"Unknown attention type {attention_type}")

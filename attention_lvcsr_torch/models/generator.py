@@ -221,9 +221,11 @@ class SequenceGenerator(nn.Module):
 
     # -- the module-driven decode step -------------------------------------
     def fused_score_supported(self):
-        """Whether ``fused_decode_score`` covers this configuration (the
-        port's other variants already are the kernel's)."""
-        return (not self.use_states_for_readout
+        """Whether ``fused_decode_score`` covers this configuration: conv
+        attention (the port's other variants already are the kernel's),
+        as JAX ``fused_score_supported``."""
+        return (self.attention.conv
+                and not self.use_states_for_readout
                 and self.language_model is None)
 
     def fused_score_tables(self):
@@ -344,7 +346,8 @@ class SequenceGenerator(nn.Module):
         """Teacher-forced pass over (T, B) fed labels ``outputs`` (mask
         (T, B) or None) against attended (B, L, D) and its mask (B, L).
         Returns ``costs`` (T, B), ``readouts`` (T, B, V), ``weights`` and
-        ``energies`` (T, B, L)."""
+        ``energies`` (T, B, L; None for content attention, whose glimpses
+        have none)."""
         T, B = outputs.shape
         preprocessed = self.attention.preprocess(attended)
         feedback = self.feedback(outputs)                       # (T, B, E)
@@ -372,6 +375,8 @@ class SequenceGenerator(nn.Module):
         cell = self.transition_0
         h0 = cell.initial_states(B).contiguous()
         glimpses = self.attention.initial_glimpses(B, attended)
+        # content attention: no conv term, and a window over all L frames
+        conv = self.attention.conv
         h, w, wa, e = decoder_scan_train(
             forked["inputs"].contiguous(),
             forked["gate_inputs"].contiguous(),
@@ -382,10 +387,12 @@ class SequenceGenerator(nn.Module):
             t["v"], cell.state_to_state, cell.state_to_gates,
             self.distribute_0_inputs.kernel,
             self.distribute_0_gate_inputs.kernel,
-            prior=self.attention.prior_config())
+            prior=self.attention.prior_config(L), n_filters=int(conv))
         pre_states = torch.cat([h0[None], h[:-1]])
-        return pre_states, {"weights": w, "weighted_averages": wa,
-                            "energies": e}
+        glimpses = {"weights": w, "weighted_averages": wa}
+        if conv:
+            glimpses["energies"] = e
+        return pre_states, glimpses
 
     def _evaluate_scan(self, attended, preprocessed, attended_mask, forked,
                        mask, T, B):
@@ -414,7 +421,8 @@ class SequenceGenerator(nn.Module):
             states, glimpses = new_states, g_new
         return torch.stack(pre_states), {
             k: torch.stack([g[k] for g in seq])
-            for k in ("weights", "weighted_averages", "energies")}
+            for k in ("weights", "weighted_averages", "energies")
+            if k in seq[0]}
 
     def _finish_evaluate(self, pre_states, glimpses, outputs, mask, lm_add):
         sources = {"weighted_averages": glimpses["weighted_averages"]}
@@ -428,7 +436,7 @@ class SequenceGenerator(nn.Module):
             costs = costs * mask
         return {"costs": costs, "readouts": readouts,
                 "weights": glimpses["weights"],
-                "energies": glimpses["energies"]}
+                "energies": glimpses.get("energies")}
 
 
 def _mask_mix(live, new, old):

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 PREFIX = "/recognizer"
+NOISE_PREFIX = "/adaptive_noise"   # the adaptive weight noise's collection
 PARAMETERS_MEMBER = "_parameters.npz"
 # torch module name -> JAX module name
 _JAX_NAMES = {"fwd": "forward", "bwd": "backward",

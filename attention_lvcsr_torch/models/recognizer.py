@@ -26,13 +26,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from attention_lvcsr_torch.models.attention import \
-    SequenceContentAndConvAttention
+from attention_lvcsr_torch.models.attention import make_attention
 from attention_lvcsr_torch.models.bottom import SpeechBottom
 from attention_lvcsr_torch.models.encoder import Encoder
 from attention_lvcsr_torch.models.generator import SequenceGenerator
 from attention_lvcsr_torch.models.initializers import initialize_params
-from attention_lvcsr_torch.models.params import (load_parameters,
+from attention_lvcsr_torch.models.params import (NOISE_PREFIX, PREFIX,
+                                                 load_parameters,
                                                  load_path_dict,
                                                  named_parameters,
                                                  param_path_dict,
@@ -58,9 +58,9 @@ def unported_piece(cfg: Mapping[str, Any]) -> Optional[str]:
         (_canon(cfg.get("dec_transition", "gru")) in ("gru", "GatedRecurrent"),
          "a non-GRU decoder transition (LSTM or simple RNN)"),
         (not cfg.get("dims_top"), "the top MLP (dims_top)"),
-        (cfg.get("attention_type", "content") == "content_and_conv",
-         f"attention_type {cfg.get('attention_type', 'content')!r} "
-         "(content-only attention)"),
+        (cfg.get("attention_type", "content") in ("content",
+                                                  "content_and_conv"),
+         f"attention_type {cfg.get('attention_type')!r}"),
         ((cfg.get("conv_num_filters") or 1) == 1, "multiple conv filters"),
         ((cfg.get("energy_normalizer") or "softmax") == "softmax",
          f"the {cfg.get('energy_normalizer')!r} energy normalizer"),
@@ -128,9 +128,9 @@ class RecognizerNet(nn.Module):
                                bidir=bidir, transition=enc_transition)
         self.dropout = dropout
         D = self.encoder.dim_encoded
-        attention = SequenceContentAndConvAttention(
-            ("states",), dim_dec, D, dim_matcher or dim_dec, conv_n,
-            prior=prior)
+        attention = make_attention(attention_type, ("states",), dim_dec, D,
+                                   dim_matcher or dim_dec, conv_n=conv_n,
+                                   prior=prior)
         self.use_pallas = use_pallas
         lm_conf = dict(lm or {})
         language_model = fusion = None
@@ -230,7 +230,14 @@ class RecognizerNet(nn.Module):
 class SpeechRecognizer:
     """Owns the net and its parameters on ``device`` (the card unless the
     caller names another); the public surface the serving code
-    (``serve.Transcriber``) uses."""
+    (``serve.Transcriber``) uses.
+
+    ``noise`` is the adaptive weight noise's collection when training
+    with it (``train/driver.py::init_adaptive_noise_params``), else None:
+    ``{'/adaptive_noise/...': log-variance}``, one tensor of each
+    parameter's shape under the parameter's path with ``/adaptive_noise``
+    in place of ``/recognizer`` (the JAX package's ``noise`` collection
+    and checkpoint keys)."""
 
     def __init__(self, net_config: Mapping[str, Any], *,
                  init_config: Optional[Mapping] = None, seed: int = 1234,
@@ -248,6 +255,7 @@ class SpeechRecognizer:
             "max_decoded_length_scale", 1.0)
         self._beam_search = None
         self.beam_size = None
+        self.noise = None
         self.init_params(init_config or {}, seed=seed)
 
     # -- parameters --------------------------------------------------------
@@ -259,17 +267,38 @@ class SpeechRecognizer:
         load_path_dict(self.net, initialize_params(
             param_shapes(self.net), init_config, seed=seed))
 
+    def optimized(self):
+        """``{path: tensor}`` the optimizer updates: the parameters
+        (detached) and, with adaptive noise, the log-variances."""
+        out = {k: p.detach() for k, p in self.parameters().items()}
+        out.update(self.noise or {})
+        return out
+
     def load_params(self, path):
-        """Load a JAX-package checkpoint (tar or npz).  Keys outside
-        ``/recognizer`` (the adaptive-noise variances) are not model
-        parameters and are skipped, as the JAX ``load_params`` skips
-        them."""
-        params = {k: v for k, v in load_parameters(path).items()
-                  if k.startswith("/recognizer/")}
-        load_path_dict(self.net, params)
+        """Load a checkpoint of either package (tar or npz): the
+        ``/recognizer`` keys, and the ``/adaptive_noise`` keys into the
+        noise collection when the recognizer has one.  Other keys are
+        skipped, as the JAX ``load_params`` skips them."""
+        self.load_path_dict(load_parameters(path))
+
+    def load_path_dict(self, path_dict):
+        load_path_dict(self.net, {k: v for k, v in path_dict.items()
+                                  if k.startswith(PREFIX + "/")})
+        if self.noise is not None:
+            with torch.no_grad():
+                for key, value in path_dict.items():
+                    if key.startswith(NOISE_PREFIX + "/"):
+                        if key not in self.noise:
+                            raise KeyError(f"unexpected noise key {key}")
+                        self.noise[key].copy_(torch.as_tensor(value))
 
     def param_path_dict(self):
-        return param_path_dict(self.net)
+        """The checkpoint's path-keyed arrays: the parameters and, with
+        adaptive noise, the log-variances."""
+        out = param_path_dict(self.net)
+        out.update({k: v.detach().cpu().numpy()
+                    for k, v in (self.noise or {}).items()})
+        return out
 
     # -- the training cost -------------------------------------------------
     def cost_fn(self):
@@ -290,14 +319,15 @@ class SpeechRecognizer:
     def analyze(self, inputs, inputs_mask, labels, labels_mask):
         """The teacher-forced cost and alignment of batch-major labels
         (JAX ``SpeechRecognizer.analyze``): ``costs`` (T, B), ``weights``
-        and ``energies`` (T, B, L) as numpy, through :meth:`RecognizerNet.
-        cost` under ``torch.no_grad()``."""
+        and ``energies`` (T, B, L; None for content attention, which has
+        none) as numpy, through :meth:`RecognizerNet.cost` under
+        ``torch.no_grad()``."""
         with torch.no_grad():
             out = self.net.cost(self._tensor(inputs),
                                 self._tensor(inputs_mask),
                                 self._tensor(labels, torch.long),
                                 self._tensor(labels_mask))
-            return {k: out[k].cpu().numpy()
+            return {k: out[k].cpu().numpy() if out[k] is not None else None
                     for k in ("costs", "weights", "energies")}
 
     def sample(self, inputs, inputs_mask=None, n_steps=None, generator=None):

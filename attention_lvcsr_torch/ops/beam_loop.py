@@ -2,11 +2,13 @@
 plain version.
 
 Counterpart of ``attention_lvcsr_tpu/ops/pallas/beam_loop.py::
-beam_search_loop`` for the flagship configuration (see
-``csrc/beam_loop.cu`` for the list).  ``beam_search_loop`` takes the
-plain PyTorch version for tensors on the CPU and launches the kernel for
-tensors on a CUDA device; any other device raises, and so does a
-configuration the kernel does not cover, on either device.
+beam_search_loop`` for the flagship configuration and for content-only
+attention (``content_attention=True``: no conv term, the caller's window
+spanning every frame; see ``csrc/beam_loop.cu`` for the list).
+``beam_search_loop`` takes the plain PyTorch version for tensors on the
+CPU and launches the kernel for tensors on a CUDA device; any other
+device raises, and so does a configuration the kernel does not cover, on
+either device.
 
 Semantics shared by both versions (and by the TPU kernel):
 
@@ -20,7 +22,8 @@ Semantics shared by both versions (and by the TPU kernel):
 * the median position is the first frame whose cumulative weight reaches
   0.5, minus one, and 0 when no frame switches (``attention.py:238-242``);
 * the convolution over the previous weights is a true convolution
-  (filter flipped), trimmed from 'full' mode;
+  (filter flipped), trimmed from 'full' mode; content-only attention has
+  none, and its tables need no ``handler`` and no ``conv_filters``;
 * a fully masked utterance starts retired; an utterance that stops
   commits nothing more, and ``steps`` counts the steps it ran.
 """
@@ -45,22 +48,25 @@ launches = _build.LaunchCounter()
 
 # table name -> shape in terms of the dimension letters below
 _TABLE_SHAPES = {
-    "state_trans": "SM", "handler": "M", "v": "M",
+    "state_trans": "SM", "v": "M",
     "merge_k": "DR", "merge_b": "R", "post_k": "RV", "post_b": "V",
     "embed": "AF", "fork_in_w": "FS", "fork_in_b": "S",
     "fork_gate_w": "FG", "fork_gate_b": "G", "dist_in_w": "DS",
     "dist_gate_w": "DG", "wsg": "SG", "wss": "SS", "h0": "S",
-    "conv_filters": "1T",
 }
+# the conv attention's tables besides
+_CONV_TABLE_SHAPES = {"handler": "M", "conv_filters": "1T"}
 
 
-def _check_config(tables, prior, stop_on):
+def _check_config(tables, prior, stop_on, content_attention):
     if prior not in PRIORS:
         raise NotImplementedError(
             f"beam_search_loop: prior {prior!r} is not ported "
             f"(supported: {PRIORS})")
     if stop_on not in STOP_ON:
         raise ValueError(f"unknown stop_on {stop_on!r}")
+    if content_attention:
+        return
     filters = tables["conv_filters"]
     if filters.ndim != 2 or filters.shape[0] != 1:
         raise NotImplementedError(
@@ -74,12 +80,12 @@ def beam_search_loop_reference(pre, attended, att_mask, tables, *, beam,
                                round_to_inf=1e9, prior="expanding",
                                before=0.0, after=0.0, initial_begin=0.0,
                                initial_end=1e4, min_speed=0.0,
-                               max_speed=0.0):
+                               max_speed=0.0, content_attention=False):
     """Plain PyTorch version, vectorized over all U*K hypothesis rows.
 
     Returns (done_out (U, K, max_len) int32, done_meta (U, K, 3) float32
     [cost, adjusted, length], steps (U,) int32)."""
-    _check_config(tables, prior, stop_on)
+    _check_config(tables, prior, stop_on, content_attention)
     f32 = torch.float32
     dev = pre.device
     U, L, M = pre.shape
@@ -90,8 +96,7 @@ def beam_search_loop_reference(pre, attended, att_mask, tables, *, beam,
     t = tables
     S = t["wss"].shape[0]
     V = t["post_k"].shape[1]
-    taps = t["conv_filters"]
-    n = (taps.shape[-1] - 1) // 2
+    taps = t.get("conv_filters")
 
     pos = torch.arange(L, device=dev, dtype=f32)
     rows = torch.arange(R, device=dev)
@@ -176,12 +181,14 @@ def beam_search_loop_reference(pre, attended, att_mask, tables, *, beam,
             combined = gmask * additional * att_rows
 
         # ---- energies ------------------------------------------------------
-        conv = conv1d_full(w * gmask, taps)[:, 0, n:n + L]   # (R, L)
         sp = h @ t["state_trans"]                            # (R, M)
-        match = torch.tanh(pre[:, None, :, :]
-                           + sp.view(U, K, 1, M)
-                           + conv.view(U, K, L, 1)
-                           * t["handler"].view(1, 1, 1, M))
+        match = pre[:, None, :, :] + sp.view(U, K, 1, M)
+        if not content_attention:
+            n = (taps.shape[-1] - 1) // 2
+            conv = conv1d_full(w * gmask, taps)[:, 0, n:n + L]   # (R, L)
+            match = match + conv.view(U, K, L, 1) * t["handler"].view(
+                1, 1, 1, M)
+        match = torch.tanh(match)
         energies = (match * t["v"].view(1, 1, 1, M)).sum(dim=3).view(R, L)
 
         # ---- masked softmax ----------------------------------------------
@@ -276,9 +283,12 @@ def _align4(n):
     return (n + 3) & ~3
 
 
-def smem_plan(K, L, M, D, S, R, V, F, Lout, n_taps):
+def smem_plan(K, L, M, D, S, R, V, F, Lout, n_taps, content=False):
     """``make_layout``: buffer offsets (floats, each 16-byte aligned) and
-    the block's bytes, and whether they fit an H100 block."""
+    the block's bytes, and whether they fit an H100 block.  Content-only
+    attention keeps no taps, handler or convolution."""
+    if content:
+        n_taps = 0
     offsets, p = {}, 0
 
     def take(name, n):
@@ -291,12 +301,13 @@ def smem_plan(K, L, M, D, S, R, V, F, Lout, n_taps):
                     ("dout", K * Lout), ("acost", K), ("dadj", K),
                     ("dcost", K), ("dlen", K), ("newadj", K), ("chosen", K),
                     ("src", K), ("sym", K), ("pick", K), ("mask", L),
-                    ("taps", n_taps), ("handler", M), ("v", M),
+                    ("taps", n_taps), ("handler", 0 if content else M),
+                    ("v", M),
                     ("begins", K), ("ends", K), ("red_v", warps + 1),
                     ("red_i", warps + 1), ("wn", K * L), ("wa", K * D)):
         take(name, n)
     scratch, ends = p, []
-    for phase in ((("conv", K * L), ("sp", K * M)),
+    for phase in ((("conv", 0 if content else K * L), ("sp", K * M)),
                   (("act", K * R), ("costs", K * V)),
                   (("hs", K * S), ("was", K * D), ("aout2", K * Lout),
                    ("dout2", K * Lout), ("fb", K * F), ("gi", 2 * K * S),
@@ -331,7 +342,8 @@ class _Args(ctypes.Structure):
             "wsg", "wss", "h0", "done_out", "done_meta", "steps")]
         + [(name, ctypes.c_int) for name in (
             "U", "L", "M", "D", "S", "R", "V", "F", "K", "Lout", "n_taps",
-            "eol", "stop_patience", "ignore_first_eol", "prior_median")]
+            "eol", "stop_patience", "ignore_first_eol", "prior_median",
+            "content")]
         + [(name, ctypes.c_float) for name in (
             "char_discount", "round_to_inf", "before", "after",
             "initial_begin", "initial_end", "min_speed", "max_speed")])
@@ -355,21 +367,24 @@ def _launch(pre, attended, att_mask, tables, *, beam, max_len, eol,
             stop_on="patience", ignore_first_eol=False, char_discount=0.0,
             round_to_inf=1e9, prior="expanding", before=0.0, after=0.0,
             initial_begin=0.0, initial_end=1e4, min_speed=0.0,
-            max_speed=0.0):
-    _check_config(tables, prior, stop_on)
+            max_speed=0.0, content_attention=False):
+    _check_config(tables, prior, stop_on, content_attention)
     U, L, M = pre.shape
     D = attended.shape[-1]
     dims = {"U": U, "L": L, "M": M, "D": D, "1": 1,
             "S": tables["wss"].shape[0], "R": tables["merge_k"].shape[1],
             "V": tables["post_k"].shape[1], "A": tables["embed"].shape[0],
             "F": tables["embed"].shape[1],
-            "T": tables["conv_filters"].shape[-1]}
+            "T": (0 if content_attention
+                  else tables["conv_filters"].shape[-1])}
     dims["G"] = 2 * dims["S"]
     dev = pre.device
     _check_tensor("pre", pre, (U, L, M), dev)
     _check_tensor("attended", attended, (U, L, D), dev)
     _check_tensor("att_mask", att_mask, (U, L), dev)
-    for name, letters in _TABLE_SHAPES.items():
+    shapes = dict(_TABLE_SHAPES,
+                  **({} if content_attention else _CONV_TABLE_SHAPES))
+    for name, letters in shapes.items():
         _check_tensor(name, tables[name], [dims[c] for c in letters], dev)
     states_k = tables.get("merge_states_k")
     if states_k is not None:
@@ -381,7 +396,8 @@ def _launch(pre, attended, att_mask, tables, *, beam, max_len, eol,
     steps = torch.zeros(U, dtype=torch.int32, device=dev)
     if U == 0:
         return done_out, done_meta, steps
-    ptr = lambda name: tables[name].data_ptr()
+    ptr = lambda name: (tables[name].data_ptr() if name in shapes
+                        else None)
     args = _Args(
         pre=pre.data_ptr(), attended=attended.data_ptr(),
         att_mask=att_mask.data_ptr(), conv_taps=ptr("conv_filters"),
@@ -401,7 +417,8 @@ def _launch(pre, attended, att_mask, tables, *, beam, max_len, eol,
         stop_patience=int(stop_on == "patience"),
         ignore_first_eol=int(bool(ignore_first_eol)),
         prior_median=int(prior == "window_around_median"),
-        char_discount=char_discount, round_to_inf=round_to_inf,
+        content=int(bool(content_attention)), char_discount=char_discount,
+        round_to_inf=round_to_inf,
         before=before, after=after, initial_begin=initial_begin,
         initial_end=initial_end, min_speed=min_speed, max_speed=max_speed)
     lib = _build.load().lib

@@ -15,7 +15,10 @@ average and the GRU transition), same arguments and outputs.
 * On a CUDA tensor :func:`decoder_scan_train` is a
   ``torch.autograd.Function`` over ``csrc/decoder_train.cu`` for the
   flagship variant (one conv filter, softmax, expanding or median prior,
-  one GRU layer): a forward kernel, then a reverse-time backward kernel
+  one GRU layer) and for content-only attention (``n_filters=0``: no
+  convolution and no handler term, so the previous weights do not feed
+  the energies, and the Toeplitz band and handler get no gradient): a
+  forward kernel, then a reverse-time backward kernel
   that recomputes each step's (B, L, M) match tensor from the previous
   state and weights instead of storing it, then ``csrc/outer_sum.cu`` for
   the weight gradients and for datt, one job a batch row (its two kernels
@@ -237,24 +240,36 @@ def slices(K, width):
     return max(1, min(MAX_SLICES, THREADS // (width // 4), K))
 
 
-def products(kind, d, L, M, D, S):
+def products(kind, d, L, M, D, S, conv=True):
     """{name: (K, width)} of a kind's products, each block's packed slice
-    of a weight being (K, width)."""
+    of a weight being (K, width); without ``conv`` (content-only
+    attention) no convolution and no transposed one."""
     if kind == "forward":
-        return {"toep": (L, d["Lq"]), "st": (S, d["Mc"]),
-                "gate": (d["Dp"] + d["Sp"], 2 * d["Sc"]),
-                "dx": (D, d["Sc"]), "ss": (S, d["Sc"])}
-    return {"st": (S, d["Mc"]), "toep": (L, d["Lq"]),
-            "ssT": (S, d["Sc"]), "sgT": (2 * d["Sp"], d["Sc"]),
-            "dxgT": (3 * d["Sp"], d["Dc"]), "stT": (M, d["Sc"]),
-            "toepT": (L, d["Lq"])}
+        out = {"toep": (L, d["Lq"]), "st": (S, d["Mc"]),
+               "gate": (d["Dp"] + d["Sp"], 2 * d["Sc"]),
+               "dx": (D, d["Sc"]), "ss": (S, d["Sc"])}
+    else:
+        out = {"st": (S, d["Mc"]), "toep": (L, d["Lq"]),
+               "ssT": (S, d["Sc"]), "sgT": (2 * d["Sp"], d["Sc"]),
+               "dxgT": (3 * d["Sp"], d["Dc"]), "stT": (M, d["Sc"]),
+               "toepT": (L, d["Lq"])}
+    if not conv:
+        out.pop("toep")
+        out.pop("toepT", None)
+    return out
 
 
-def layout(kind, C, R, L, M, D, S, res):
+# the buffers of the conv term, empty without it
+CONV_BUFFERS = {"forward": ("wgv", "conv"),
+                "backward": ("wgv", "dcv", "conv", "dcvw")}
+
+
+def layout(kind, C, R, L, M, D, S, res, conv=True):
     """The kernel's shared memory (``csrc/decoder_train.cu::layout``):
     {buffer: (offset, floats)} in floats, every buffer on 16 bytes, and
     the bytes of a block.  ``res``: {"pre", "att", "dpre"} rows whose tiles
-    stay in shared memory (dpre in the backward only)."""
+    stay in shared memory (dpre in the backward only).  Without ``conv``
+    the buffers of :data:`CONV_BUFFERS` hold nothing."""
     d = dims(C, R, L, M, D, S)
     Lq, L4, Sc, Sp, Mp, Dp = (d[k] for k in ("Lq", "L4", "Sc", "Sp", "Mp",
                                              "Dp"))
@@ -274,8 +289,10 @@ def layout(kind, C, R, L, M, D, S, res):
                ("dwa", R * d["Dc"]), ("dcvw", d["Mch"] * R * Lq)] \
             + [(n, d["groups"] * R * d["M4"]) for n in ("dspg", "dvg", "dhg")]
         pmax = max(Lq, d["Mc"], Sc, d["Dc"])
+    if not conv:
+        sizes = [(n, 0 if n in CONV_BUFFERS[kind] else k) for n, k in sizes]
     part = max(slices(K, w) * min(R, ROW_CHUNK) * w
-               for K, w in products(kind, d, L, M, D, S).values())
+               for K, w in products(kind, d, L, M, D, S, conv).values())
     sizes += [("pout", R * pmax), ("rs", 8 * R), ("red", 2 * WARPS),
               ("vh", 2 * d["M4"]), ("part", part)]
     tiles = {"dpre": d["Lt"] * d["Mt"], "pre": d["Lt"] * d["Mt"],
@@ -297,23 +314,26 @@ def cluster_rows(B, clusters):
     return [(c * q + min(c, rem), q + (c < rem)) for c in range(clusters)]
 
 
-def residency(kind, C, R, L, M, D, S):
+def residency(kind, C, R, L, M, D, S, conv=True):
     """{tile: rows kept in shared memory} of a plan: per tile in the kind's
     order (TILES), as many of the R rows as fit beside the tiles before it,
     or None when not even the vectors fit."""
     res = {name: 0 for name in TILES[kind]}
-    if layout(kind, C, R, L, M, D, S, res)["smem_bytes"] > MAX_SMEM:
+    fits = lambda: layout(kind, C, R, L, M, D, S, res,
+                          conv)["smem_bytes"] <= MAX_SMEM
+    if not fits():
         return None
     for name in TILES[kind]:
         while res[name] < R:
             res[name] += 1
-            if layout(kind, C, R, L, M, D, S, res)["smem_bytes"] > MAX_SMEM:
+            if not fits():
                 res[name] -= 1
                 break
     return res
 
 
-def plan(kind, B, L, M, D, S, active, cluster=None, clusters=None):
+def plan(kind, B, L, M, D, S, active, cluster=None, clusters=None,
+         conv=True):
     """The launch plan of a kind's kernel over B rows, given how many
     clusters of each size the card holds at once (``active``: {size:
     count}).  Per size: the rows spread over as many clusters as the card
@@ -323,8 +343,9 @@ def plan(kind, B, L, M, D, S, active, cluster=None, clusters=None):
     R * ROW_COST for the exchanges and reductions of each row; on a tie
     the one with fewer tile bytes streamed from L2 a step, then the
     larger.  ``cluster`` and ``clusters`` force a size and a number of
-    clusters (a timing tool's choice).  Raises NotImplementedError naming
-    the shape when no size fits."""
+    clusters (a timing tool's choice).  ``conv`` False plans the content
+    branch, whose layout has no conv buffers.  Raises NotImplementedError
+    naming the shape when no size fits."""
     options = []
     for C in (CLUSTERS if cluster is None else (cluster,)):
         count = active.get(C, 0) if clusters is None else clusters
@@ -334,7 +355,7 @@ def plan(kind, B, L, M, D, S, active, cluster=None, clusters=None):
         R = _cdiv(B, n)
         if R > MAX_ROWS:
             continue
-        res = residency(kind, C, R, L, M, D, S)
+        res = residency(kind, C, R, L, M, D, S, conv)
         if res is None:
             continue
         streamed = sum((R - res[name]) * size for name, size in
@@ -353,7 +374,7 @@ def plan(kind, B, L, M, D, S, active, cluster=None, clusters=None):
     best = min(options, key=lambda o: o[0])[1]
     best["smem_bytes"] = layout(
         kind, best["cluster"], best["rows"], L, M, D, S,
-        {k: best[f"res_{k}"] for k in TILES[kind]})["smem_bytes"]
+        {k: best[f"res_{k}"] for k in TILES[kind]}, conv)["smem_bytes"]
     return best
 
 
@@ -389,8 +410,9 @@ def pack(w, rows, cols, C):
 
 
 def pack_forward(d, toep, st, wss, wsg, dxm, dgm):
-    """The forward kernel's packed weights for the slices ``d``."""
-    C, S, L = d["C"], wss.shape[0], toep.shape[0]
+    """The forward kernel's packed weights for the slices ``d``; no
+    Toeplitz band when ``toep`` is None (the content branch)."""
+    C, S = d["C"], wss.shape[0]
     M, D = st.shape[1], dxm.shape[0]
     Sc = d["Sc"]
     s_cols = _slice_columns(S, Sc, C, Sc)
@@ -398,36 +420,43 @@ def pack_forward(d, toep, st, wss, wsg, dxm, dgm):
                            torch.where(s_cols >= 0, s_cols + S, -1)
                            .reshape(C, Sc)], dim=1).reshape(-1)
     ident = lambda n: torch.arange(n)
-    return {
-        "p_toep": pack(toep, ident(L), _slice_columns(L, d["Lt"], C, d["Lq"]),
-                       C),
+    out = {
         "p_st": pack(st, ident(S), _slice_columns(M, d["Mc"], C, d["Mc"]), C),
         "p_gate": pack(torch.cat([dgm, wsg]),
                        _segments([(0, D, d["Dp"]), (D, S, d["Sp"])]),
                        gate_cols, C),
         "p_dx": pack(dxm, ident(D), s_cols, C),
         "p_ss": pack(wss, ident(S), s_cols, C)}
+    if toep is not None:
+        L = toep.shape[0]
+        out["p_toep"] = pack(toep, ident(L),
+                             _slice_columns(L, d["Lt"], C, d["Lq"]), C)
+    return out
 
 
 def pack_backward(d, toep, st, wss, wsg, dxm, dgm):
-    """The backward kernel's packed weights (transposes included)."""
-    C, S, L = d["C"], wss.shape[0], toep.shape[0]
+    """The backward kernel's packed weights (transposes included); no
+    Toeplitz bands when ``toep`` is None (the content branch)."""
+    C, S = d["C"], wss.shape[0]
     M, D = st.shape[1], dxm.shape[0]
     Sc, Sp = d["Sc"], d["Sp"]
     s_cols = _slice_columns(S, Sc, C, Sc)
-    l_cols = _slice_columns(L, d["Lt"], C, d["Lq"])
     ident = lambda n: torch.arange(n)
-    return {
+    out = {
         "p_st": pack(st, ident(S), _slice_columns(M, d["Mc"], C, d["Mc"]), C),
-        "p_toep": pack(toep, ident(L), l_cols, C),
         "p_ssT": pack(wss.t(), ident(S), s_cols, C),
         "p_sgT": pack(wsg.t(), _segments([(0, S, Sp), (S, S, Sp)]), s_cols,
                       C),
         "p_dxgT": pack(torch.cat([dxm.t(), dgm.t()]),
                        _segments([(0, S, Sp), (S, S, Sp), (2 * S, S, Sp)]),
                        _slice_columns(D, d["Dc"], C, d["Dc"]), C),
-        "p_stT": pack(st.t(), ident(M), s_cols, C),
-        "p_toepT": pack(toep.t(), ident(L), l_cols, C)}
+        "p_stT": pack(st.t(), ident(M), s_cols, C)}
+    if toep is not None:
+        L = toep.shape[0]
+        l_cols = _slice_columns(L, d["Lt"], C, d["Lq"])
+        out["p_toep"] = pack(toep, ident(L), l_cols, C)
+        out["p_toepT"] = pack(toep.t(), ident(L), l_cols, C)
+    return out
 
 
 class _Args(ctypes.Structure):
@@ -442,7 +471,8 @@ class _Args(ctypes.Structure):
             "dh", "dw", "dwa", "dfx", "dfg", "dh0", "dwa0", "dpre", "dsp",
             "wg", "dconv", "dwan", "dhand", "dv")]
         + [(name, ctypes.c_int) for name in (
-            "T", "B", "L", "M", "D", "S", "prior_median", "cluster",
+            "T", "B", "L", "M", "D", "S", "prior_median", "content",
+            "cluster",
             "clusters", "res_pre", "res_att", "res_dpre")]
         + [(name, ctypes.c_float) for name in (
             "before", "after", "initial_begin", "initial_end", "min_speed",
@@ -453,7 +483,7 @@ def unported_variant(normalizer, n_filters, dec_stack, prior_type):
     """The first piece of a decoder variant the CUDA kernel does not cover,
     or None."""
     for ok, piece in (
-            (int(n_filters) == 1, f"{n_filters} conv filters"),
+            (int(n_filters) in (0, 1), f"{n_filters} conv filters"),
             (normalizer == "softmax", f"the {normalizer!r} normalizer"),
             (int(dec_stack) == 1, f"dec_stack={dec_stack}"),
             (prior_type in ("expanding", "window_around_median"),
@@ -480,31 +510,35 @@ def _check(name, t, shape, device, dtype=torch.float32):
 _active = {}
 
 
-def max_active_clusters(kind, device):
-    """{cluster size: clusters of the kind's kernel the device holds at
-    once} (``cudaOccupancyMaxActiveClusters`` at a block's most shared
-    memory), queried once per device."""
-    key = (device.index, kind)
+def max_active_clusters(kind, device, conv=True):
+    """{cluster size: clusters of the kind's kernel (the conv or the
+    content branch) the device holds at once}
+    (``cudaOccupancyMaxActiveClusters`` at a block's most shared memory),
+    queried once per device."""
+    key = (device.index, kind, conv)
     if key not in _active:
         lib = _build.load().lib
         lib.decoder_train_max_clusters.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int)]
         lib.decoder_train_max_clusters.restype = ctypes.c_int
         active = {}
         with torch.cuda.device(device):
             for size in CLUSTERS:
                 count = ctypes.c_int(0)
                 _build.check(lib.decoder_train_max_clusters(
-                    KINDS.index(kind), size, ctypes.byref(count)),
+                    KINDS.index(kind), int(not conv), size,
+                    ctypes.byref(count)),
                     "decoder_train_max_clusters")
                 active[size] = count.value
         _active[key] = active
     return _active[key]
 
 
-def launch_plan(kind, B, L, M, D, S, device, **force):
+def launch_plan(kind, B, L, M, D, S, device, conv=True, **force):
     """The plan a launch of the kind's kernel takes on ``device``."""
-    return plan(kind, B, L, M, D, S, max_active_clusters(kind, device),
+    return plan(kind, B, L, M, D, S,
+                max_active_clusters(kind, device, conv=conv), conv=conv,
                 **force)
 
 
@@ -532,8 +566,8 @@ _PRIOR = ("before", "after", "initial_begin", "initial_end", "min_speed",
           "max_speed")
 
 
-def _plan_args(kind, B, L, M, D, S, device):
-    p = launch_plan(kind, B, L, M, D, S, device)
+def _plan_args(kind, B, L, M, D, S, device, conv):
+    p = launch_plan(kind, B, L, M, D, S, device, conv=conv)
     return p, dims(p["cluster"], p["rows"], L, M, D, S)
 
 
@@ -552,15 +586,18 @@ class _DecoderScanTrain(torch.autograd.Function):
                     exch=new(2, 2 * B))
         ins = dict(fx=fx, fg=fg, mask=mask, step0=step0, pre=pre, att=att,
                    amask=amask, h0=h0, w0=w0, wa0=wa0, hand=hand, v=v)
+        conv = cfg["n_filters"] == 1
         if T and B:
-            p, d = _plan_args("forward", B, L, M, D, S, fx.device)
-            packed = pack_forward(d, toep, st, wss, wsg, dxm, dgm)
+            p, d = _plan_args("forward", B, L, M, D, S, fx.device, conv)
+            packed = pack_forward(d, toep if conv else None, st, wss, wsg,
+                                  dxm, dgm)
             barrier = torch.zeros(2, dtype=torch.int32, device=fx.device)
             args = _Args(**{k: _ptr(t) for k, t in
                             {**ins, **outs, **packed}.items()},
                          barrier=barrier.data_ptr(), T=T, B=B, L=L, M=M, D=D,
                          S=S, prior_median=int(cfg["prior"] != "expanding"),
-                         cluster=p["cluster"], clusters=p["clusters"],
+                         content=int(not conv), cluster=p["cluster"],
+                         clusters=p["clusters"],
                          res_pre=p["res_pre"], res_att=p["res_att"],
                          **{k: cfg[k] for k in _PRIOR})
             _launch("decoder_train_fwd_f32", args, fx)
@@ -585,18 +622,26 @@ class _DecoderScanTrain(torch.autograd.Function):
         zeros = lambda *s: torch.zeros(*s, dtype=fx.dtype, device=fx.device)
         cot = lambda g, *s: g.contiguous() if g is not None else zeros(*s)
         dh, dw, dwa = cot(dh, T, B, S), cot(dw, T, B, L), cot(dwa, T, B, D)
+        conv = cfg["n_filters"] == 1
         g = dict(dfx=new(T, B, S), dfg=new(T, B, 2 * S), dh0=new(B, S),
                  dwa0=new(B, D), dpre=new(B, L, M), dsp=new(T, B, M),
-                 wg=new(T, B, L), dconv=new(T, B, L), dwan=new(T, B, D))
+                 dwan=new(T, B, D))
+        if conv:
+            g.update(wg=new(T, B, L), dconv=new(T, B, L))
+        # the content branch: the band and the handler feed nothing, so
+        # their gradients stay zero and no outer_sum job forms them
         w_grads = dict(dtoep=zeros(L, L), dst=zeros(S, M), dwss=zeros(S, S),
                        dwsg=zeros(S, 2 * S), ddx=zeros(D, S),
                        ddg=zeros(D, 2 * S), dhand=zeros(1, M), dv=zeros(1, M),
                        datt=zeros(B, L, D))
         if T and B:
-            p, d = _plan_args("backward", B, L, M, D, S, fx.device)
+            p, d = _plan_args("backward", B, L, M, D, S, fx.device, conv)
             C = p["cluster"]
-            g.update(dhand=new(B * C, M), dv=new(B * C, M))
-            packed = pack_backward(d, toep, st, wss, wsg, dxm, dgm)
+            g.update(dv=new(B * C, M))
+            if conv:
+                g.update(dhand=new(B * C, M))
+            packed = pack_backward(d, toep if conv else None, st, wss, wsg,
+                                   dxm, dgm)
             ins = dict(fx=fx, fg=fg, mask=mask, step0=step0, pre=pre, att=att,
                        amask=amask, h0=h0, w0=w0, wa0=wa0, hand=hand, v=v,
                        h_out=h_out, w_out=w_out, wa_out=wa_out, e_out=e_out,
@@ -606,7 +651,8 @@ class _DecoderScanTrain(torch.autograd.Function):
                             {**ins, **g, **packed}.items()},
                          T=T, B=B, L=L, M=M, D=D, S=S,
                          prior_median=int(cfg["prior"] != "expanding"),
-                         cluster=C, clusters=p["clusters"],
+                         content=int(not conv), cluster=C,
+                         clusters=p["clusters"],
                          res_pre=p["res_pre"], res_att=p["res_att"],
                          res_dpre=p["res_dpre"],
                          **{k: cfg[k] for k in _PRIOR})
@@ -614,15 +660,17 @@ class _DecoderScanTrain(torch.autograd.Function):
             launches.count += 1
             h_prev = torch.cat([h0[None], h_out[:-1]])
             ones = fx.new_ones(B * C, 1)  # the (row, block) dhand, dv sums
-            outer_sum([
-                (g["wg"], None, g["dconv"], w_grads["dtoep"]),
-                (h_prev, None, g["dsp"], w_grads["dst"]),
-                (h_prev, r_out, g["dfx"], w_grads["dwss"]),
-                (h_prev, None, g["dfg"], w_grads["dwsg"]),
-                (wa_out, None, g["dfx"], w_grads["ddx"]),
-                (wa_out, None, g["dfg"], w_grads["ddg"]),
-                (ones, None, g["dhand"], w_grads["dhand"]),
-                (ones, None, g["dv"], w_grads["dv"])], fx)
+            jobs = [(h_prev, None, g["dsp"], w_grads["dst"]),
+                    (h_prev, r_out, g["dfx"], w_grads["dwss"]),
+                    (h_prev, None, g["dfg"], w_grads["dwsg"]),
+                    (wa_out, None, g["dfx"], w_grads["ddx"]),
+                    (wa_out, None, g["dfg"], w_grads["ddg"]),
+                    (ones, None, g["dv"], w_grads["dv"])]
+            if conv:
+                jobs = [(g["wg"], None, g["dconv"], w_grads["dtoep"])] \
+                    + jobs[:5] \
+                    + [(ones, None, g["dhand"], w_grads["dhand"]), jobs[5]]
+            outer_sum(jobs, fx)
             # datt[b] = sum_t w_t[b]^T dwan_t[b]: one job a batch row
             for b0 in range(0, B, MAX_JOBS):
                 outer_sum([(w_out[:, b], None, g["dwan"][:, b],
@@ -664,7 +712,7 @@ def decoder_scan_train(fx, fg, mask, pre, attended, att_mask, h0, w0, wa0,
             inter_in=inter_in, inter_gate=inter_gate)
     if device.type != "cuda":
         raise ValueError(f"decoder_scan_train: no kernel for device {device}")
-    cfg = prior_config(prior)
+    cfg = dict(prior_config(prior), n_filters=int(n_filters))
     piece = unported_variant(normalizer, n_filters, dec_stack, cfg["prior"])
     if piece is not None:
         raise NotImplementedError(

@@ -201,7 +201,11 @@ class BeamSearch:
                      ignore_first_eol, char_discount, round_to_inf):
         """Encoder + the whole-loop decode kernel."""
         data = self.net.decode_loop(inputs, inputs_mask)
-        prior = self.net.generator.attention.prior_config()
+        attention = self.net.generator.attention
+        # the conv attention's prior ignores the length; content
+        # attention's window expands over every frame and one more (JAX
+        # search/beam.py:411-414)
+        prior = attention.prior_config(data["attended"].shape[1] + 1)
         done_out, done_meta, steps = beam_search_loop(
             data["pre"], data["attended"], data["attended_mask"],
             self._loop_tables(), beam=self.beam_size, max_len=max_len,
@@ -213,7 +217,8 @@ class BeamSearch:
             initial_begin=float(prior.get("initial_begin", 0.0)),
             initial_end=float(prior.get("initial_end", 1e4)),
             min_speed=float(prior.get("min_speed", 0.0)),
-            max_speed=float(prior.get("max_speed", 0.0)))
+            max_speed=float(prior.get("max_speed", 0.0)),
+            content_attention=not attention.conv)
         meta = done_meta.cpu().numpy()
         return {
             "done_out": done_out.cpu().numpy(),

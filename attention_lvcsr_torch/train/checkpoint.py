@@ -6,7 +6,9 @@ path-keyed parameters (``/recognizer/...``), so the JAX package's
 ``load_parameters`` reads a checkpoint the port trained; the log and the
 metadata are the same members (``_log.pkl``, ``_meta.json``).  The
 optimizer state goes in a member of the port's own,
-``_torch_opt_state.npz``, flattened by ``train/rules.py::state_arrays``.
+``_torch_opt_state.npz``, flattened by ``train/rules.py::state_arrays``
+(the adaptive noise's log-variances under their ``/adaptive_noise`` keys
+beside the parameters').
 A checkpoint the JAX package wrote holds its optax state in
 ``_opt_state.pkl`` instead, which is read with the port's stand-ins for
 the optax state types (:class:`OptaxStateUnpickler`), importing neither
@@ -27,7 +29,8 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 
-from attention_lvcsr_torch.models.params import (PARAMETERS_MEMBER, PREFIX,
+from attention_lvcsr_torch.models.params import (NOISE_PREFIX,
+                                                 PARAMETERS_MEMBER, PREFIX,
                                                  load_parameters)
 
 OPT_STATE_MEMBER = "_torch_opt_state.npz"
@@ -148,22 +151,29 @@ def _path_arrays(tree, prefix):
     return {prefix: np.asarray(tree)}
 
 
+# the JAX package's trained collections and their checkpoint prefixes
+_COLLECTIONS = {"params": PREFIX, "noise": NOISE_PREFIX}
+
+
 def optax_state_arrays(state) -> Dict[str, np.ndarray]:
     """The flat arrays of ``rules.state_arrays`` of a JAX-package optax
     state (read with :data:`OPTAX_STATES`): the i-th rule state of the
     chain, flattened, is the i-th rule of the port's chain, and its field
     ``f`` of the parameter collection ``params`` becomes
-    ``i/f/recognizer/...`` (the parameters' own path keys)."""
+    ``i/f/recognizer/...`` (the parameters' own path keys), of the
+    adaptive noise's ``noise`` ``i/f/adaptive_noise/...``."""
     out = {}
     for i, rule in enumerate(_rule_states(state)):
         for field, value in rule._asdict().items():
             if isinstance(value, Mapping):
-                if set(value) != {"params"}:
+                if not {"params"} <= set(value) <= set(_COLLECTIONS):
                     raise NotImplementedError(
                         f"optimizer state of the parameter collections "
-                        f"{sorted(value)}: the port trains 'params' alone")
-                out.update(_path_arrays(value["params"],
-                                        f"{i}/{field}{PREFIX}"))
+                        f"{sorted(value)}: the port trains 'params' and "
+                        f"'noise'")
+                for name, tree in value.items():
+                    out.update(_path_arrays(
+                        tree, f"{i}/{field}{_COLLECTIONS[name]}"))
             else:
                 out[f"{i}/{field}"] = np.asarray(value)
     return out

@@ -12,9 +12,15 @@ Counterpart of ``attention_lvcsr_tpu/train/driver.py`` for teacher-forced
   recording and ``decay`` times the squared norm of the weight leaves
   (``_weight_leaf`` :99-102), through ``train/rules.py``'s chain; the
   same monitors, ``total_gradient_norm`` and ``total_step_norm``
-  included.  The parameters are updated in place;
+  included; with ``regularization.adaptive_noise`` it is
+  :func:`make_adaptive_noise_train_step` (JAX :263-380), Graves' adaptive
+  weight noise over the recognizer's noise collection.  The parameters
+  are updated in place;
 * :func:`run_training` runs the loop over a batch stream with the JAX
-  ``initialize_all`` extensions (JAX :419-559), in its order: with a
+  ``initialize_all`` extensions (JAX :419-559), in its order, after the
+  adaptive noise's log-variances (when the config has an
+  ``adaptive_noise`` section, even an empty one; ``num_examples``
+  defaulting to the training set's size): with a
   checkpoint to resume from, Load (parameters, optimizer state and log)
   or LoadLog (the log alone); Timing; the averaged train records
   (``average_*`` of :data:`PRIMARY_OBSERVABLES`, every 10 batches); with a
@@ -45,8 +51,8 @@ Counterpart of ``attention_lvcsr_tpu/train/driver.py`` for teacher-forced
   are the other entries of the JAX ``run.py`` (:829-881).
 
 Not ported, and refused with ``NotImplementedError`` naming the piece:
-weight noise, adaptive noise, dropout, greedy and mixed exploration, and
-a bf16 compute dtype.  Not ported, and named in a ``logging`` warning
+additive weight noise, dropout, greedy and mixed exploration, and a bf16
+compute dtype.  Not ported, and named in a ``logging`` warning
 when a config sets them (:data:`UNPORTED_KEYS`): the plot channels.
 """
 from __future__ import annotations
@@ -61,7 +67,7 @@ from typing import Any, Callable, Iterable, Mapping, Optional
 import numpy as np
 import torch
 
-from attention_lvcsr_torch.models.params import load_path_dict
+from attention_lvcsr_torch.models.params import NOISE_PREFIX, PREFIX
 from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
 from attention_lvcsr_torch.ops.error_rate import wer
 from attention_lvcsr_torch.ops.expressions import (entropy,
@@ -134,7 +140,6 @@ def unported_training(config) -> Optional[str]:
     reg = config.get("regularization", {}) or {}
     train_conf = config.get("training", {}) or {}
     checks = [
-        (not reg.get("adaptive_noise"), "adaptive weight noise"),
         (not float(reg.get("noise", 0.0) or 0.0), "weight noise"),
         (not reg.get("dropout"), "dropout"),
         (train_conf.get("exploration", "imitative") == "imitative",
@@ -149,21 +154,29 @@ def unported_training(config) -> Optional[str]:
 
 
 def make_train_step(recognizer: SpeechRecognizer, optimizer, config):
-    """``step(opt_state, inputs, inputs_mask, labels, labels_mask) ->
-    (opt_state, monitors)``: one teacher-forced training step on
-    batch-major tensors, the parameters updated in place; ``monitors`` is
-    a dict of 0-d tensors."""
+    """``step(opt_state, inputs, inputs_mask, labels, labels_mask, *,
+    generator=None) -> (opt_state, monitors)``: one teacher-forced
+    training step on batch-major tensors, the parameters updated in place;
+    ``monitors`` is a dict of 0-d tensors; ``generator`` is the noise
+    steps' source of draws, which this step does not use.  A non-empty
+    ``regularization.adaptive_noise`` section gives
+    :func:`make_adaptive_noise_train_step`'s step (an empty one is off
+    here, as in the JAX ``make_train_step``; ``run_training`` fills it
+    in)."""
     piece = unported_training(config)
     if piece is not None:
         raise NotImplementedError(f"not ported yet: {piece}")
     reg = config.get("regularization", {}) or {}
+    if reg.get("adaptive_noise"):
+        return make_adaptive_noise_train_step(recognizer, optimizer, config)
     decay = float(reg.get("decay", 0.0) or 0.0)
     penalty_coof = float(reg.get("penalty_coof", 0.0) or 0.0)
     net = recognizer.net
     params = recognizer.parameters()
     decayed = [p for path, p in params.items() if weight_leaf(path)]
 
-    def step(opt_state, inputs, inputs_mask, labels, labels_mask):
+    def step(opt_state, inputs, inputs_mask, labels, labels_mask, *,
+             generator=None):
         B, TL = labels.shape
         net.requires_grad_(True)
         out = net.cost(inputs, inputs_mask, labels, labels_mask, train=True)
@@ -203,8 +216,141 @@ def make_train_step(recognizer: SpeechRecognizer, optimizer, config):
                 "mask_density": lm.mean(),
                 "mean_attended": out["encoded"].abs().mean(),
                 "mean_bottom_output": out["bottom_output"].abs().mean(),
-                "min_energy": out["energies"].min(),
-                "max_energy": out["energies"].max(),
+                "total_gradient_norm": global_norm(grads),
+                "total_step_norm": global_norm(updates),
+            }
+            if out["energies"] is not None:
+                monitors["min_energy"] = out["energies"].min()
+                monitors["max_energy"] = out["energies"].max()
+        return opt_state, {k: v.detach() for k, v in monitors.items()}
+
+    return step
+
+
+# the log-variances are ls2 = log(sigma^2) / LOG_SIGMA_SCALE
+LOG_SIGMA_SCALE = 2048.0
+
+
+def noise_path(path: str) -> str:
+    """'/recognizer/a/b' -> '/adaptive_noise/a/b'."""
+    return NOISE_PREFIX + path[len(PREFIX):]
+
+
+def init_adaptive_noise_params(recognizer, init_sigma=1e-6):
+    """Give the recognizer its noise collection (JAX
+    ``init_adaptive_noise_params``): every parameter's log-variance
+    ``2 log(init_sigma) / LOG_SIGMA_SCALE``."""
+    init_val = float(np.log(init_sigma) * 2.0 / LOG_SIGMA_SCALE)
+    recognizer.noise = {
+        noise_path(k): torch.full(p.shape, init_val, dtype=torch.float32,
+                                  device=p.device)
+        for k, p in recognizer.parameters().items()}
+    return recognizer.noise
+
+
+def noise_generator(device, seed, iteration):
+    """The ``torch.Generator`` of one step's draws: seeded from the
+    training seed and the iteration, so a resumed run draws what the
+    straight run drew at the same iteration."""
+    return torch.Generator(device=device).manual_seed(
+        int(seed) * 2 ** 32 + int(iteration))
+
+
+def make_adaptive_noise_train_step(recognizer, optimizer, config):
+    """Graves' adaptive (variational) weight noise step (JAX
+    ``make_adaptive_noise_train_step``, the reference's
+    ``lvsr/graph.py:71-251``): each parameter is a Gaussian of mean the
+    parameter and variance ``exp(LOG_SIGMA_SCALE * ls2)``; the cost graph
+    runs on sampled weights, the model cost against the empirical
+    Gaussian prior of all the parameters is added, and the means and
+    log-variances get the reference's gradients, the log-variances' with
+    the task gradient squared (a diagonal Hessian estimate for a batch of
+    one).  Options of ``regularization.adaptive_noise``: ``init_sigma``
+    (1e-6), ``model_cost_coefficient`` (1), ``num_examples`` (1).
+
+    ``step(opt_state, inputs, inputs_mask, labels, labels_mask, *,
+    generator=None, noise=None)``: the standard normal draws come from
+    ``noise`` (``{'/recognizer/...': tensor}``, e.g. another package's
+    draws) or else from ``generator`` (a ``torch.Generator`` on the
+    model's device; a fresh one seeded 0 when None).  Parameters and
+    log-variances are updated in place; the monitors are the JAX step's.
+    The recognizer gets its noise collection here if it has none."""
+    reg = config.get("regularization", {}) or {}
+    conf = dict(reg.get("adaptive_noise") or {})
+    init_sigma = float(conf.get("init_sigma", 1e-6))
+    coeff = float(conf.get("model_cost_coefficient", 1.0))
+    num_examples = int(conf.get("num_examples", 1))
+    if recognizer.noise is None:
+        init_adaptive_noise_params(recognizer, init_sigma)
+    net = recognizer.net
+    params = recognizer.parameters()
+    ls2 = {k: recognizer.noise[noise_path(k)] for k in params}
+    total_count = sum(p.numel() for p in params.values())
+
+    def step(opt_state, inputs, inputs_mask, labels, labels_mask, *,
+             generator=None, noise=None):
+        B = labels.shape[0]
+        dev = labels.device
+        with torch.no_grad():
+            s2 = {k: torch.exp(l * LOG_SIGMA_SCALE) for k, l in ls2.items()}
+            if noise is None:
+                if generator is None:
+                    generator = torch.Generator(device=dev).manual_seed(0)
+                noise = {k: torch.randn(p.shape, generator=generator,
+                                        device=dev)
+                         for k, p in params.items()}
+            sampled = {k: noise[k] * torch.sqrt(s2[k]) for k in params}
+            # the empirical prior over all noisy parameters
+            # (graph.py:185-198), a constant of the gradients
+            prior_u = sum(p.sum() for p in params.values()) / total_count
+            prior_s2 = (sum(v.sum() for v in s2.values())
+                        + sum(((p - prior_u) ** 2).sum()
+                              for p in params.values())) / total_count
+            means = {k: p.detach().clone() for k, p in params.items()}
+            for k, p in params.items():
+                p.copy_(p + sampled[k])
+        net.requires_grad_(True)
+        try:
+            out = net.cost(inputs, inputs_mask, labels, labels_mask,
+                           train=True)
+            task_cost = out["costs"].sum() / B
+            g = dict(zip(params, torch.autograd.grad(
+                task_cost, list(params.values()))))
+        finally:
+            net.requires_grad_(False)
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(means[k])
+        with torch.no_grad():
+            lm = labels_mask.T
+            # the model cost (graph.py:206-214)
+            model_cost = sum(
+                0.5 * (torch.log(prior_s2) - ls2[k] * LOG_SIGMA_SCALE).sum()
+                + (1.0 / (2.0 * prior_s2))
+                * (((p - prior_u) ** 2) + s2[k] - prior_s2).sum()
+                for k, p in params.items())
+            model_cost = model_cost / num_examples * coeff
+            # the custom gradients (graph.py:236-249)
+            grads = {k: g[k] + coeff * (p - prior_u)
+                     / (num_examples * prior_s2) for k, p in params.items()}
+            grads.update({
+                noise_path(k): (coeff * 0.5 / num_examples
+                                * LOG_SIGMA_SCALE) * (s2[k] / prior_s2 - 1.0)
+                + 0.5 * LOG_SIGMA_SCALE * s2[k] * g[k] ** 2
+                for k in params})
+            current = recognizer.optimized()
+            updates, opt_state = optimizer.update(grads, opt_state, current)
+            for k, u in updates.items():
+                current[k].add_(u)
+            monitors = {
+                "sequence_total_cost": task_cost,
+                "batch_size": torch.tensor(float(B), device=dev),
+                "weights_entropy": entropy(out["weights"], lm),
+                "weights_penalty": monotonicity_penalty(out["weights"], lm),
+                "train_cost": task_cost + model_cost,
+                "model_cost": model_cost,
+                "model_prior_mean": prior_u,
+                "model_prior_variance": prior_s2,
                 "total_gradient_norm": global_norm(grads),
                 "total_step_norm": global_norm(updates),
             }
@@ -221,24 +367,35 @@ def unported_keys(config):
 
 class GradientDescent:
     """Owns the optimizer state and the train step; takes numpy or tensor
-    batches and returns each step's monitors as Python floats."""
+    batches and returns each step's monitors as Python floats.  Each step
+    gets :func:`noise_generator` of ``seed`` and ``iteration()``, the
+    iterations done before it (by default the batches this object has
+    processed; ``run_training`` reads the loop's log, which a resumed run
+    restores); a step without noise ignores it."""
 
-    def __init__(self, recognizer, optimizer, step_fn):
+    def __init__(self, recognizer, optimizer, step_fn, seed=1234,
+                 iteration: Optional[Callable[[], int]] = None):
         self.recognizer = recognizer
         self.optimizer = optimizer
         self.step_fn = step_fn
+        self.seed = seed
+        self.processed = 0
+        self.iteration = iteration or (lambda: self.processed)
         self.opt_state = self._init_opt_state()
 
     def process_batch(self, batch: Mapping[str, Any]):
+        generator = noise_generator(self.recognizer.device, self.seed,
+                                    self.iteration())
         self.opt_state, monitors = self.step_fn(
-            self.opt_state, *batch_tensors(batch, self.recognizer.device))
+            self.opt_state, *batch_tensors(batch, self.recognizer.device),
+            generator=generator)
+        self.processed += 1
         names = sorted(monitors)
         values = torch.stack([monitors[k] for k in names]).tolist()
         return dict(zip(names, values))
 
     def _init_opt_state(self):
-        return self.optimizer.init(
-            {k: p.detach() for k, p in self.recognizer.parameters().items()})
+        return self.optimizer.init(self.recognizer.optimized())
 
     def parameter_dict(self):
         return self.recognizer.param_path_dict()
@@ -247,11 +404,10 @@ class GradientDescent:
         return state_arrays(self.opt_state)
 
     def set_parameters(self, path_dict):
-        """Load ``{'/recognizer/...': array}`` (keys outside
-        ``/recognizer`` skipped) and start the optimizer state afresh."""
-        load_path_dict(self.recognizer.net, {
-            k: v for k, v in path_dict.items()
-            if k.startswith("/recognizer/")})
+        """Load ``{'/recognizer/...': array}`` and, with adaptive noise,
+        the ``/adaptive_noise`` log-variances (other keys skipped), and
+        start the optimizer state afresh."""
+        self.recognizer.load_path_dict(path_dict)
         self.opt_state = self._init_opt_state()
 
     def set_opt_state(self, opt_state):
@@ -267,7 +423,7 @@ def run_training(recognizer: SpeechRecognizer, optimizer,
                  valid_stream: Optional[Callable[[], Iterable]] = None,
                  search_data=None, length_filter=None, fast_start=False,
                  load_path=None, use_load_ext=False, load_log=False,
-                 profile=False, printing=True):
+                 profile=False, printing=True, num_examples=None):
     """Train ``recognizer`` with ``optimizer`` over ``batch_stream()``
     (called once per epoch; each batch a mapping with ``recordings``,
     ``recordings_mask``, ``labels`` and ``labels_mask``), checkpointing to
@@ -292,15 +448,35 @@ def run_training(recognizer: SpeechRecognizer, optimizer,
     ``load_path`` is a checkpoint of either package to resume from: with
     ``use_load_ext`` its parameters, optimizer state and log (the epochs
     and batches then count on from it), with ``load_log`` its log alone.
-    ``profile`` prints the loop's host times at the end.  Returns the
-    finished :class:`MainLoop` (its ``log`` holds every step's
-    monitors)."""
+    ``profile`` prints the loop's host times at the end.
+
+    A ``regularization.adaptive_noise`` section (an empty one too) trains
+    with adaptive weight noise: the log-variances are made here, after
+    ``recognizer``'s checkpoint has loaded (a ``Load`` resume then takes
+    the checkpoint's), and the section's ``num_examples`` defaults to
+    ``num_examples``, the training set's size.  Returns the finished
+    :class:`MainLoop` (its ``log`` holds every step's monitors)."""
     config = dict(config or {})
     train_conf = config.get("training", {}) or {}
     mon_conf = config.get("monitoring", {}) or {}
     search_conf = mon_conf.get("search") or {}
+    reg = config.get("regularization", {}) or {}
+    adaptive = reg.get("adaptive_noise")
+    if adaptive is not None and adaptive is not False:
+        adaptive = dict(adaptive or {})
+        if "num_examples" not in adaptive:
+            if num_examples is None:
+                raise ValueError("adaptive noise needs num_examples, the "
+                                 "training set's size")
+            adaptive["num_examples"] = int(num_examples)
+        config["regularization"] = dict(reg, adaptive_noise=adaptive)
+        init_adaptive_noise_params(recognizer,
+                                   float(adaptive.get("init_sigma", 1e-6)))
     step = make_train_step(recognizer, optimizer, config)
-    algorithm = GradientDescent(recognizer, optimizer, step)
+    loop = None     # the step's iteration is read from the loop's log
+    algorithm = GradientDescent(
+        recognizer, optimizer, step, seed=train_conf.get("seed", 1234),
+        iteration=lambda: loop.log.status["iterations_done"])
     exts = []
     if use_load_ext and load_path:
         exts.append(Load(load_path))
@@ -383,7 +559,8 @@ def run_stage(config, save_path, make_stage, params_path=None,
     ``make_stage(config, load_path)`` builds the recognizer (with the
     parameters of ``load_path`` when it is not None) and the streams, a
     dict of :func:`run_training`'s ``recognizer``, ``batch_stream``,
-    ``valid_stream``, ``search_data`` and ``length_filter``; the rule
+    ``valid_stream``, ``search_data``, ``length_filter`` and
+    ``num_examples``; the rule
     chain comes from the config.  With ``use_load_ext`` the recognizer is
     built without ``params_path``, and ``Load`` restores it with the
     optimizer state and the log.  Warns once for each config key the
@@ -406,7 +583,8 @@ def run_stage(config, save_path, make_stage, params_path=None,
         search_data=made.get("search_data"),
         length_filter=made.get("length_filter"), fast_start=fast_start,
         load_path=params_path, use_load_ext=use_load_ext,
-        load_log=load_log, profile=profile, printing=printing)
+        load_log=load_log, profile=profile, printing=printing,
+        num_examples=made.get("num_examples"))
 
 
 def run_multistage(stages, save_path, make_stage, params_path=None,
@@ -456,7 +634,8 @@ def data_stage(device="cuda"):
             recognizer=create_model(config, data, load_path, device=device),
             batch_stream=lambda: data.get_stream("train"),
             valid_stream=lambda: data.get_stream("valid", shuffle=False),
-            search_data=data, length_filter=data.length_filter)
+            search_data=data, length_filter=data.length_filter,
+            num_examples=data.get_dataset("train").num_examples)
 
     return make_stage
 

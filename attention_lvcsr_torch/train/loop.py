@@ -174,7 +174,12 @@ def gradient_norm_is_nan(log):
 
 
 class Timing(TrainingExtension):
-    """Wall time of each batch (its step ends in a device sync)."""
+    """Wall time of each batch (its step ends in a device sync) and of
+    each epoch, the JAX package's ``time_train_this_batch`` and
+    ``time_train_this_epoch`` records."""
+
+    def before_epoch(self):
+        self._epoch_start = time.perf_counter()
 
     def before_batch(self, batch):
         self._start = time.perf_counter()
@@ -182,6 +187,10 @@ class Timing(TrainingExtension):
     def after_batch(self, batch):
         self.log.current_row["time_train_this_batch"] = (
             time.perf_counter() - self._start)
+
+    def after_epoch(self):
+        self.log.current_row["time_train_this_epoch"] = (
+            time.perf_counter() - self._epoch_start)
 
 
 class Printing(SimpleExtension):

@@ -8,8 +8,10 @@ drives the flagship decode (the ``__graft_entry__.FLAGSHIP_NET`` shape:
 4x250 BiGRU encoder, conv-attention GRU decoder, beam 10) with random
 weights made from a seed, without an LM, with the LM and under a
 dictionary constraint; trains it; serves it waveforms; decodes and
-trains it with a 4x250 BiLSTM encoder; and decodes, scores and samples it
-through the search driver.  Phases, each fatal on failure:
+trains it with a 4x250 BiLSTM encoder; decodes, scores and samples it
+through the search driver; trains the paper's WSJ stages; and trains,
+decodes and scores the TIMIT recipe's content-attention model with
+adaptive weight noise.  Phases, each fatal on failure:
 
 1. build the kernels (one nvcc per source, sm_90a) and print the time;
 2. ``gru_scan`` kernel vs its plain PyTorch version at the encoder's
@@ -162,7 +164,37 @@ through the search driver.  Phases, each fatal on failure:
     1e-4 relative) and the same ``valid_per``; every kernel of the path
     launches; each stage's wall time and utt/s; then ``main`` on the
     kernels stopped after its first epoch and resumed from its
-    checkpoint (``use_load_ext``) writes the bits of the straight run.
+    checkpoint (``use_load_ext``) writes the bits of the straight run;
+20. the TIMIT recipe, ``exp/timit/configs/nips_baseline.yaml`` at its
+    widths (123 features, SpeechBottom [100] relu, 3x250 BiGRU
+    subsampled 1, 2, 2, content attention, 250-unit decoder, one
+    post-merge layer of 250, 63 phones), random weights from seed 1234:
+    (a) ``decoder_scan_train``'s content branch (``n_filters=0``, the
+    full-window prior) forward and backward vs plain at B=16, T=75 labels,
+    L=175 frames, M=250, D=500, S=250, phase 12's tolerance, a second
+    call's gradients bit for bit, the C layouts of both branches against
+    the mirror (phase 12's check), the kernels' times alone and through
+    autograd; (b) ``beam_search_loop``'s content branch vs plain at U=16
+    and 64, beam 10, L=175, the recipe's optimistic stop and 3.0-fold
+    cap, char_discount 1.0 (at 3.0 the random model's hypotheses repeat
+    one symbol to the cap and its done sets hold cost ties within float32
+    rounding), EOS logit +1.5 (3/4 of the utterances must finish),
+    compared as in phase 3, its C layout against the mirror, both timed;
+    (c) the three stages (``pretraining`` B=8 with max-norm, ``main`` and
+    ``annealing`` with adaptive noise from the stage before's
+    ``_best_ll``) through ``run_multistage``, 2 in-memory batches of
+    300-700 frames and 20-75 labels an epoch, 1 epoch a stage,
+    validation and search (beam 10 at U=4) before each stage and after
+    each epoch, on the kernels and on the plain route: the same files
+    (the log-variances in the noisy stages'), per-step train_cost,
+    total_gradient_norm, model_cost and validation costs within 1e-4
+    relative, the same hypotheses and ``valid_per``, at least half the
+    hypotheses non-empty and one ``valid_per`` below 1; then ``main`` for
+    two epochs straight and stopped after one and resumed (no
+    validation), bit for bit; (d) ``run_search`` at decode_batch 4 over 8
+    utterances on ``annealing``'s model, kernels vs plain as phase 18
+    compares them, at least 6 hypotheses non-empty; the seconds of a-b, c
+    and d.
 
 Nothing of JAX or of the JAX package is imported; the script checks it.
 
@@ -173,7 +205,10 @@ computed from this run's shapes) and ``library_ms`` (null where no
 PyTorch call computes the function; for ``outer_sum``, one cuBLAS
 ``addmm_`` per job; ``search_launches``, the launches of phase 18's paths
 a-d that run the kernel; ``multistage_launches``, phase 19's kernel-route
-run of the three stages); the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+run of the three stages; ``timit_launches``, phase 20c-d's kernel route;
+``content``, for ``beam_search_loop`` and ``decoder_scan_train``, the
+content branch's times, bound and errors at phase 20's shapes); the last
+is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository around it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -391,9 +426,11 @@ def gru_step_ops(D):
 def attention_step_ops(S, M, L, conv, D):
     """Operations of one attention step of one row: the state's keys
     (2SM), the convolution (2 * L * conv, conv = taps or L for a Toeplitz
-    band), the match (add, handler, tanh, energy: 6LM), the softmax (4L)
-    and the weighted average (2LD)."""
-    return 2 * S * M + 2 * L * conv + 6 * L * M + 4 * L + 2 * L * D
+    band), the match (add, handler, tanh, energy: 6LM; content attention,
+    conv = 0, has no handler term: 4LM), the softmax (4L) and the weighted
+    average (2LD)."""
+    match = (6 if conv else 4) * L * M
+    return 2 * S * M + 2 * L * conv + match + 4 * L + 2 * L * D
 
 
 def readout_ops(D, R, V):
@@ -527,6 +564,9 @@ def main():
     t0 = time.perf_counter()
     stage_launches = multistage_phase(t, dev, rates)
     log(f"phase 19: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    timit_launches = timit_phase(t, dev, results, rates)
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s")
 
     banned = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "attention_lvcsr_tpu"))
@@ -560,6 +600,8 @@ def main():
             if path.split(":")[1] == k["name"]}
         if k["name"] in stage_launches:
             k["multistage_launches"] = stage_launches[k["name"]]
+        # phase 20c-d's kernel route: the TIMIT recipe's stages and search
+        k["timit_launches"] = timit_launches.get(k["name"], 0)
     log(json.dumps(dict(rates, build_s=lib.build_seconds)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -605,9 +647,10 @@ def gru_scan_plans(t, dev, rng, T, D, result):
         log(f"  kernel at B={B}: {result[f'ms_B{B}']:.3f} ms")
 
 
-def beam_loop_plan(dims):
-    """Phase 3: the loop kernel's C shared-memory layout against its Python
-    mirror at the main path's shape."""
+def beam_loop_plan(dims, content=False):
+    """Phases 3 and 20b: the loop kernel's C shared-memory layout against
+    its Python mirror at the main path's shape (``dims`` carries the C
+    struct's ``content`` flag for the content branch)."""
     import ctypes
     from attention_lvcsr_torch import _build
     from attention_lvcsr_torch.ops import beam_loop as bl
@@ -615,12 +658,14 @@ def beam_loop_plan(dims):
     lib.beam_loop_smem_bytes.argtypes = [ctypes.POINTER(bl._Args)]
     lib.beam_loop_smem_bytes.restype = ctypes.c_int
     c_bytes = lib.beam_loop_smem_bytes(ctypes.byref(bl._Args(U=1, **dims)))
-    plan = bl.smem_plan(**dims)
+    plan = bl.smem_plan(**{k: v for k, v in dims.items() if k != "content"},
+                        content=content)
     if c_bytes != plan["smem_bytes"] or not plan["fits"]:
         fail(f"beam_search_loop: the C layout has {c_bytes} bytes, the "
-             f"mirror {plan['smem_bytes']} (fits: {plan['fits']})")
-    log(f"phase 3 beam_loop layout: {c_bytes} bytes a block (C equals the "
-        f"mirror)")
+             f"mirror {plan['smem_bytes']} (fits: {plan['fits']}; content "
+             f"{content})")
+    log(f"phase {'20b' if content else '3'} beam_loop layout: {c_bytes} "
+        f"bytes a block (C equals the mirror)")
     return {"smem_bytes": c_bytes}
 
 
@@ -1377,9 +1422,10 @@ def decoder_plans(dev, dims):
                                              ctypes.POINTER(dt._Args)]
     lib.decoder_train_smem_bytes.restype = ctypes.c_int
     checked = 0
-    for kind in dt.KINDS:
+    for kind, content in ((k, c) for k in dt.KINDS for c in (0, 1)):
         for B, L, M, D, S in ((32, 200, 250, 500, 250), (64, 200, 250, 500,
                                                          250),
+                              (16, 175, 250, 500, 250),
                               (3, 199, 33, 17, 33), (132, 10, 7, 9, 5)):
             for C in dt.CLUSTERS:
                 for n in {1, min(B, 7)}:
@@ -1388,22 +1434,24 @@ def decoder_plans(dev, dims):
                                 (R // 2, 1, 0)):
                         res = dict(zip(("pre", "att", "dpre"), res))
                         args = dt._Args(B=B, L=L, M=M, D=D, S=S, cluster=C,
-                                        clusters=n, **{f"res_{k}": v for k, v
-                                                       in res.items()})
+                                        clusters=n, content=content,
+                                        **{f"res_{k}": v for k, v in
+                                           res.items()})
                         got = lib.decoder_train_smem_bytes(
                             dt.KINDS.index(kind), ctypes.byref(args))
                         if kind == "forward":
                             res["dpre"] = 0
-                        want = dt.layout(kind, C, R, L, M, D, S,
-                                         res)["smem_bytes"]
+                        want = dt.layout(kind, C, R, L, M, D, S, res,
+                                         conv=not content)["smem_bytes"]
                         if got != want:
                             fail(f"decoder_scan_train: the C {kind} layout "
                                  f"of B={B} L={L} M={M} D={D} S={S}, {n} "
-                                 f"clusters of {C}, resident rows {res} has "
-                                 f"{got} bytes, the mirror {want}")
+                                 f"clusters of {C}, resident rows {res}, "
+                                 f"content {content} has {got} bytes, the "
+                                 f"mirror {want}")
                         checked += 1
     log(f"phase 12 decoder_train layout: C equals the mirror in {checked} "
-        f"plans")
+        f"plans (conv and content branches)")
     plans = {}
     for kind in dt.KINDS:
         active = dt.max_active_clusters(kind, dev)
@@ -2867,6 +2915,544 @@ def multistage_phase(t, dev, rates):
         shutil.rmtree(tmp)
     return moved
 
+
+
+# The TIMIT recipe: exp/timit/configs/nips_baseline.yaml over
+# attention_lvcsr_tpu/config/prototypes/prototype_speech.yaml, written out
+# as dicts (no YAML): 123 fbank+deltas features, SpeechBottom [100] relu,
+# a 3x250 BiGRU subsampled 1, 2, 2, content attention (match dim 250), a
+# 250-unit GRU decoder without states in the readout, one post-merge
+# layer of 250, the 61 TIMIT phones with BOS and EOS.
+TIMIT_NET = {
+    "bottom": {"bottom_class": "SpeechBottom", "dims": [100],
+               "activation": "relu"},
+    "enc_transition": "GatedRecurrent", "dec_transition": "GatedRecurrent",
+    "dim_dec": 250, "dims_bidir": [250, 250, 250], "subsample": [1, 2, 2],
+    "attention_type": "content", "use_states_for_readout": False,
+    "post_merge_dims": [250], "max_decoded_length_scale": 3.0,
+    "criterion": {"name": "log_likelihood"}, "lm": {}}
+NIPS_BASELINE = {
+    "regularization": {"dropout": False},
+    "initialization": FLAGSHIP_INIT,
+    "training": {"gradient_threshold": 100.0, "rules": ["adadelta"],
+                 "decay_rate": 0.95, "epsilon": 1e-8, "scale": 0.01,
+                 "momentum": 0.0},
+    "monitoring": {"validate_every_epochs": 1, "search_every_epochs": 1,
+                   "search": {"beam_size": 10, "char_discount": 0.0,
+                              "round_to_inf": 1e9,
+                              "stop_on": "optimistic_future_cost"}}}
+NOISE = {"model_cost_coefficient": 0.1, "init_sigma": 1e-12}
+NIPS_STAGES = (
+    ("pretraining", {"data": {"batch_size": 8},
+                     "regularization": {"max_norm": 1.0},
+                     "training": {"num_epochs": 50}}),
+    ("main", {"regularization": {"adaptive_noise": dict(NOISE)},
+              "training": {"restart_from": "_best_ll", "num_epochs": 500}}),
+    ("annealing", {"regularization": {"adaptive_noise": dict(NOISE)},
+                   "training": {"epsilon": 1e-10, "restart_from": "_best_ll",
+                                "num_epochs": 500}}))
+TIMIT_TRAIN_UTTERANCES = 3696       # the training set's size (num_examples)
+
+
+class TimitData(SmokeData):
+    """SmokeData over the TIMIT phones; ``decode`` folds them to the
+    39-phone scoring set, as the port's ``H5AudioDatasetTimit``."""
+
+    def __init__(self):
+        from attention_lvcsr_torch.data.h5 import TIMIT_61_TO_39
+        self.fold = TIMIT_61_TO_39
+        self.chars = sorted(TIMIT_61_TO_39) + ["<bol>", "<eol>"]
+        self.char_map = {c: i for i, c in enumerate(self.chars)}
+        self.bos_label = self.char_map["<bol>"]
+        self.eos_label = self.char_map["<eol>"]
+        self.num_labels = len(self.chars)
+
+    def character_map(self, source):
+        return dict(self.char_map)
+
+    def decode(self, labels):
+        out = []
+        for x in labels:
+            if int(x) in (self.eos_label, self.bos_label):
+                continue
+            phone = self.fold[self.chars[int(x)]]
+            if phone:
+                out.append(phone)
+        return out
+
+    def pretty_print(self, labels, example=None):
+        return " ".join(self.decode(labels))
+
+
+def nips_stages(epochs=1):
+    """(name, config) of nips_baseline.yaml's stages over TIMIT_NET, merged
+    as ``Configuration.ordered_stages`` merges them, each cut to
+    ``epochs`` epochs, with char_discount 1.0 in place of the recipe's 0.0
+    (below it the random model's best hypothesis is empty; at 3.0 its
+    beams run to the decode cap and finish none: phase 20b)."""
+    from attention_lvcsr_torch.config import merge_recursively
+    base = copy.deepcopy(dict(NIPS_BASELINE, net=TIMIT_NET,
+                              data={"batch_size": 16}))
+    base["monitoring"]["search"]["char_discount"] = 1.0
+    stages = []
+    for name, delta in NIPS_STAGES:
+        stage = copy.deepcopy(base)
+        merge_recursively(stage, copy.deepcopy(delta))
+        stage["training"]["num_epochs"] = epochs
+        stages.append((name, stage))
+    return stages
+
+
+def timit_batches(t, dev, n, B, seed, V):
+    """``n`` batches of ``B`` utterances of 300-700 frames and 20-75
+    labels (row 0 the longest in both), each ending with the EOS label
+    ``V - 1`` as the data streams end them."""
+    import torch
+    rng = np.random.RandomState(seed)
+    batches = []
+    for _ in range(n):
+        frames, labels = rng.randint(300, 701, size=B), rng.randint(
+            20, 76, size=B)
+        frames[0], labels[0] = 700, 75
+        symbols = rng.randint(0, V - 2, size=(B, 75))
+        symbols[np.arange(B), labels - 1] = V - 1
+        batches.append({
+            "recordings": t(rng.randn(B, 700, 123)),
+            "recordings_mask": t(np.arange(700)[None] < frames[:, None]),
+            "labels": torch.tensor(symbols, device=dev),
+            "labels_mask": t(np.arange(75)[None] < labels[:, None])})
+    return batches
+
+
+def timit_kernels(t, dev, results, data):
+    """Phase 20a-b: the content branches of decoder_scan_train (forward
+    and backward) and beam_search_loop against their plain versions at
+    the recipe's shapes, with their layouts and times."""
+    import torch
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    from attention_lvcsr_torch.ops import decoder_train as dt
+
+    # ---- a. the training decoder: B=16, T=75, L=175 (700 frames / 4)
+    rng = np.random.RandomState(20)
+    T, B, L, M, D, S = 75, 16, 175, 250, 500, 250
+    ops, fixed, cots = decoder_operands(t, dev, rng, T=T, B=B, L=L, M=M,
+                                        D=D, S=S)
+    # no conv term: the band and the handler are zeros that feed nothing
+    del ops["toep"], ops["hand"]
+    fixed.update(toep=torch.zeros(L, L, device=dev),
+                 hand=torch.zeros(1, M, device=dev),
+                 w0=torch.zeros(B, L, device=dev))     # content glimpses
+    names = list(ops)
+    prior = {"type": "expanding", "initial_begin": 0, "initial_end": float(L),
+             "min_speed": 0, "max_speed": 0}
+
+    def scan(fn):
+        def call(*xs):
+            d = dict(zip(names, xs))
+            return fn(d["fx"], d["fg"], fixed["mask"], d["pre"],
+                      d["attended"], fixed["att_mask"], d["h0"], fixed["w0"],
+                      d["wa0"], fixed["toep"], d["st"], fixed["hand"],
+                      d["v"], d["wss"], d["wsg"], d["dxm"], d["dgm"],
+                      prior=prior, n_filters=0)
+        return call
+
+    leaves = [ops[n] for n in names]
+    dt.launches.reset()
+    got, ggot = grads_of(scan(dt.decoder_scan_train), leaves, cots)
+    if dt.launches.count != 2:
+        fail(f"decoder_scan_train content branch: {dt.launches.count} "
+             f"launches, expected a forward and a backward")
+    ref, gref = grads_of(scan(dt.decoder_scan_train_reference), leaves, cots)
+    outs = ("h", "weights", "wa", "energies")
+    errs = relative_errors(
+        dict(zip(outs, got), **{f"d{n}": g for n, g in zip(names, ggot)}),
+        dict(zip(outs, ref), **{f"d{n}": g for n, g in zip(names, gref)}))
+    log(f"phase 20a decoder_scan_train content branch T={T} B={B} L={L}: "
+        f"max abs err over max abs value: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if not max(errs.values()) <= 1e-4:     # phase 12's tolerance
+        fail("decoder_scan_train's content branch disagrees with its plain "
+             "version")
+    repeat("decoder_scan_train (content)", ggot,
+           grads_of(scan(dt.decoder_scan_train), leaves, cots))
+    abs_err = max(float((a - b).abs().max()) for a, b in
+                  zip(list(got) + list(ggot), list(ref) + list(gref)))
+    fwd, plain = scan(dt.decoder_scan_train), scan(
+        dt.decoder_scan_train_reference)
+    fwd_ms = cuda_ms(lambda: fwd(*leaves), 3)
+    bwd_ms = backward_ms(fwd, leaves, cots, 3)
+    plain_fwd = cuda_ms(lambda: plain(*leaves), 1)
+    plain_bwd = backward_ms(plain, leaves, cots, 1)
+    alone = {}
+    with timed_launches(dt, 5, alone):
+        grads_of(fwd, leaves, cots)
+    row_ops = attention_step_ops(S, M, L, 0, D) + 2 * D * 3 * S \
+        + gru_step_ops(S)
+    n_ops = T * B * row_ops
+    inputs = [fixed[n] for n in ("mask", "att_mask", "w0")]
+    fwd_bytes = nbytes(*leaves, *inputs) + nbytes(*got) + 3 * nbytes(got[0])
+    bwd_bytes = nbytes(*leaves, *inputs, *cots, *got) \
+        + 3 * nbytes(got[0]) + nbytes(*gref)
+    plans = {kind: dt.launch_plan(kind, B, L, M, D, S, dev, conv=False)
+             for kind in dt.KINDS}
+    results["decoder_scan_train"]["content"] = {
+        "B": B, "T": T, "L": L, "max_abs_err": abs_err,
+        "max_rel_err": max(errs.values()), "ms": fwd_ms + bwd_ms,
+        "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+        "fwd_kernel_ms": alone["decoder_train_fwd_f32"],
+        "bwd_kernel_ms": alone["decoder_train_bwd_f32"],
+        "plain_ms": plain_fwd + plain_bwd, "plain_fwd_ms": plain_fwd,
+        "plain_bwd_ms": plain_bwd, **bound(fwd_bytes + bwd_bytes, 4 * n_ops),
+        "library_ms": None,
+        **{f"{k}_blocks": p["blocks"] for k, p in plans.items()},
+        **{f"{k}_smem_bytes": p["smem_bytes"] for k, p in plans.items()}}
+    r = results["decoder_scan_train"]["content"]
+    log(f"  forward {fwd_ms:.3f} ms (kernel alone {r['fwd_kernel_ms']:.3f}),"
+        f" autograd backward {bwd_ms:.3f} ms (kernel alone "
+        f"{r['bwd_kernel_ms']:.3f}); plain {plain_fwd:.3f} + "
+        f"{plain_bwd:.3f} ms; bound {r['bound_ms']:.3f} ms; plans "
+        + "; ".join(f"{k}: {p['clusters']} clusters of {p['cluster']}, "
+                    f"{p['smem_bytes']} bytes a block, the card holds at "
+                    f"once {dt.max_active_clusters(k, dev, conv=False)}"
+                    for k, p in plans.items()))
+
+    # ---- b. the whole-loop decode: beam 10 at U=16 and 64, L=175, with
+    # char_discount 1.0: at 3.0 every hypothesis of the random content
+    # model runs to the cap repeating one symbol, and the done sets hold
+    # costs within float32 rounding of each other (inputs and tables
+    # scaled by 1 + 1e-6 noise change 6 of 64 utterances' done sets in the
+    # plain version itself); at 1.0 they change none, and the searches
+    # still run 100-130 steps
+    net = dict(TIMIT_NET, input_dims={"recordings": 123},
+               eos_label=data.eos_label, num_phonemes=data.num_labels,
+               character_map=data.character_map("labels"))
+    rec = SpeechRecognizer(net, init_config=FLAGSHIP_INIT, seed=1234,
+                           device=dev)
+    loop_err = 0.0
+    for U in (16, 64):
+        feats = t(np.random.RandomState(U).randn(U, 700, 123))
+        frames = np.random.RandomState(U + 1).randint(300, 701, size=U)
+        frames[0] = 700
+        fmask = t(np.arange(700)[None] < frames[:, None])
+        with torch.inference_mode():
+            d = rec.net.decode_loop(feats, fmask)
+            tables = dict(rec.net.decode_loop_tables())
+        tables["post_b"] = tables["post_b"].clone()
+        tables["post_b"][data.eos_label] += 1.5
+        Lu = d["pre"].shape[1]
+        kw = dict(beam=10, max_len=int(700 / 3.0), eol=data.eos_label,
+                  ignore_first_eol=True, stop_on="optimistic_future_cost",
+                  char_discount=1.0, prior="expanding",
+                  initial_end=float(Lu) + 1.0, content_attention=True)
+        loop_args = (d["pre"], d["attended"], d["attended_mask"], tables)
+
+        def as_out(res):
+            out, meta, steps = (x.cpu().numpy() for x in res)
+            return {"done_out": out, "done_cost": meta[:, :, 0],
+                    "done_adjusted": meta[:, :, 1],
+                    "done_len": meta[:, :, 2].astype(np.int32),
+                    "done_valid": meta[:, :, 1] < bl.INF / 2,
+                    "steps": steps}
+
+        bl.launches.reset()
+        got = as_out(bl.beam_search_loop(*loop_args, **kw))
+        if bl.launches.count != 1:
+            fail("beam_search_loop content branch: no launch")
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        ref = as_out(bl.beam_search_loop_reference(*loop_args, **kw))
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        name = f"beam_search_loop content U={U}"
+        err = compare_outputs(name, got, ref)
+        loop_err = max(loop_err, err)
+        finished = int(got["done_valid"].any(axis=1).sum())
+        ms = cuda_ms(lambda: bl.beam_search_loop(*loop_args, **kw), 3)
+        log(f"phase 20b {name} L={Lu}: outputs agree; {finished}/{U} "
+            f"utterances finished, steps {int(got['steps'].min())}.."
+            f"{int(got['steps'].max())}, max abs cost err {err:.3e}; kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+        if finished < U * 3 // 4:
+            fail(f"{name}: only {finished}/{U} utterances finished: the "
+                 f"comparison is too weak")
+        if U == 64:
+            R, V = 250, data.num_labels
+            plan = beam_loop_plan(dict(
+                K=10, L=Lu, M=M, D=D, S=S, R=R, V=V,
+                F=tables["embed"].shape[1], Lout=kw["max_len"], n_taps=0,
+                content=1), content=True)
+            row_ops = (attention_step_ops(S, M, Lu, 0, D)
+                       + readout_ops(D, R, V) + 2 * (D + S) * 3 * S
+                       + gru_step_ops(S) + 3 * V)
+            loop_out = bl.beam_search_loop(*loop_args, **kw)
+            results["beam_search_loop"]["content"] = {
+                "U": U, "L": Lu, "ms": ms, "plain_ms": plain_ms,
+                **bound(nbytes(*loop_args[:3], tables, *loop_out),
+                        10 * int(got["steps"].sum()) * row_ops),
+                "library_ms": None, **plan}
+    results["beam_search_loop"]["content"]["max_abs_err"] = loop_err
+
+
+def timit_phase(t, dev, results, rates):
+    """Phase 20: the TIMIT recipe (nips_baseline.yaml) at its full widths:
+    the content branches of the two kernels (a, b), its three stages
+    through ``run_multistage`` on the kernels and on the plain route and
+    ``main`` resumed after an epoch (c), and ``run_search`` on the result
+    (d).  Returns the kernel route's launches in c and d."""
+    import torch
+    from attention_lvcsr_torch.models import cells as cells_mod
+    from attention_lvcsr_torch.models import generator as generator_mod
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.ops import gru_train as gt
+    from attention_lvcsr_torch.ops import outer_sum as osum
+    from attention_lvcsr_torch.search import beam as beam_mod
+    from attention_lvcsr_torch.train.checkpoint import (load_checkpoint,
+                                                        save_checkpoint)
+    from attention_lvcsr_torch.train.driver import (create_model,
+                                                    run_multistage,
+                                                    run_search)
+
+    data = TimitData()
+    t0 = time.perf_counter()
+    timit_kernels(t, dev, results, data)
+    log(f"phase 20a-b: {time.perf_counter() - t0:.1f} s")
+
+    # ---- c. the three stages ---------------------------------------------
+    t0 = time.perf_counter()
+    counters = {"gru_scan": gs.launches, "beam_search_loop": bl.launches,
+                "gru_scan_train_bidir": gt.launches_bidir,
+                "decoder_scan_train": dt.launches, "outer_sum": osum.launches}
+    plain = [(cells_mod, "gru_scan", gs.gru_scan_reference),
+             (beam_mod, "beam_search_loop", bl.beam_search_loop_reference),
+             (cells_mod, "gru_scan_train", gt.gru_scan_train_reference),
+             (generator_mod, "decoder_scan_train",
+              dt.decoder_scan_train_reference)]
+    stages = nips_stages()
+    sizes = {name: stage["data"]["batch_size"] for name, stage in stages}
+    batches = {B: timit_batches(t, dev, 2, B, 20 + B, data.num_labels)
+               for B in set(sizes.values())}
+    valid = [{k: v[:4] for k, v in batches[16][0].items()}]
+
+    def run(out_dir, start, searches, stage_list=stages, validate=True,
+            **kwargs):
+        marks = []
+
+        def make_stage(config, load_path):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            rec = create_model(config, data, load_path, device=dev)
+            search = rec.beam_search
+
+            def recorded(*args, **kw):
+                out = search(*args, **kw)
+                searches.append(best_hypotheses(out)[:len(args[0])])
+                return out
+            rec.beam_search = recorded
+            train = batches[config["data"]["batch_size"]]
+            return dict(recognizer=rec, batch_stream=lambda: train,
+                        valid_stream=(lambda: valid) if validate else None,
+                        search_data=data,
+                        num_examples=TIMIT_TRAIN_UTTERANCES)
+
+        loops = run_multistage(stage_list, out_dir, make_stage, start,
+                               printing=False, **kwargs)
+        torch.cuda.synchronize()
+        return loops, marks + [time.perf_counter()]
+
+    tmp = tempfile.mkdtemp()
+    try:
+        start = os.path.join(tmp, "start.zip")
+        rec = SpeechRecognizer(
+            dict(TIMIT_NET, input_dims={"recordings": 123},
+                 eos_label=data.eos_label, num_phonemes=data.num_labels,
+                 character_map=data.character_map("labels")),
+            init_config=FLAGSHIP_INIT, seed=1234, device=dev)
+        rec.net.generator.readout.post_merge_0.bias.data[
+            data.eos_label] += 1.5
+        save_checkpoint(start, rec.param_path_dict())
+        del rec
+        routes = {}
+        for route in ("kernels", "plain"):
+            searches = []
+            for c in counters.values():
+                c.reset()
+            with swapped(plain if route == "plain" else []):
+                loops, marks = run(os.path.join(tmp, route), start, searches)
+            routes[route] = (loops, marks, searches, counts(counters),
+                             sorted(os.listdir(os.path.join(tmp, route))))
+        (loops, marks, searches, moved, files), (ref_loops, _, ref_searches,
+                                                 ref_moved, ref_files) = (
+            routes["kernels"], routes["plain"])
+        if min(moved.values()) < 1 or any(ref_moved.values()):
+            fail(f"phase 20c: launches {moved} on the kernels, {ref_moved} "
+                 f"on the plain route")
+        expected = {f"{name}{suffix}" for name, _ in stages for suffix in (
+            ".zip", "_params.npz")}
+        if files != ref_files or not expected <= set(files):
+            fail(f"phase 20c: files {files} vs the plain route's "
+                 f"{ref_files}")
+        for name in files:
+            if not name.endswith(".zip"):
+                continue
+            a, b = (load_checkpoint(os.path.join(tmp, r, name))["parameters"]
+                    for r in ("kernels", "plain"))
+            noisy = any(k.startswith("/adaptive_noise/") for k in b)
+            if set(a) != set(b) or noisy == name.startswith("pretraining"):
+                fail(f"phase 20c {name}: keys differ or the noise is "
+                     f"{'present' if noisy else 'missing'}")
+        for (name, _), lp, lr in zip(stages, loops, ref_loops):
+            keys = ("train_cost", "total_gradient_norm",
+                    "valid_sequence_total_cost")
+            if name != "pretraining":
+                keys += ("model_cost",)
+            for key in keys:
+                (tg, g), (tr, r) = lp.log.channel(key), lr.log.channel(key)
+                rel = np.abs(np.subtract(g, r)) / np.abs(r)
+                if tg != tr or not tg or not (np.isfinite(g).all()
+                                              and rel.max() <= 1e-4):
+                    fail(f"phase 20c {name}: {key} {g} at {tg} vs plain {r} "
+                         f"at {tr}")
+            if lp.log.channel("valid_per") != lr.log.channel("valid_per"):
+                fail(f"phase 20c {name}: valid_per "
+                     f"{lp.log.channel('valid_per')} vs plain "
+                     f"{lr.log.channel('valid_per')}")
+        if len(searches) != len(ref_searches) or not searches:
+            fail(f"phase 20c: {len(searches)} searches vs "
+                 f"{len(ref_searches)} on the plain route")
+        worst = 0.0
+        for i, (got, ref) in enumerate(zip(searches, ref_searches)):
+            for u, ((h, c), (rh, rc)) in enumerate(zip(got, ref)):
+                if h != rh or (c is None) != (rc is None):
+                    fail(f"phase 20c: search {i} utterance {u}: {h} ({c}) "
+                         f"vs the plain route's {rh} ({rc})")
+                if c is not None:
+                    worst = max(worst, abs(c - rc) / abs(rc))
+        if worst > 1e-4:
+            fail(f"phase 20c: beam costs within {worst:.2e} of the plain "
+                 f"route's")
+        for route, (lps, mks, _, _, _) in routes.items():
+            for (name, _), lp, s0, s1 in zip(stages, lps, mks, mks[1:]):
+                steps, B = lp.log.status["iterations_done"], sizes[name]
+                step_s = float(np.median(
+                    lp.log.channel("time_train_this_batch")[1]))
+                rates[f"timit_{route}_{name}_utt_per_s"] = \
+                    B * steps / (s1 - s0)
+                log(f"phase 20c {route} {name}: {s1 - s0:.2f} s for {steps} "
+                    f"steps of B={B}, {B * steps / (s1 - s0):.2f} utt/s "
+                    f"with validation and search, {B / step_s:.2f} utt/s in "
+                    f"the steps (median {step_s:.4f} s); valid_per "
+                    f"{[round(v, 4) for v in lp.log.channel('valid_per')[1]]}"
+                    f"; model_cost "
+                    f"{lp.log.channel('model_cost')[1][-1:] or None}")
+        nonempty = sum(bool(h) for got in searches for h, _ in got)
+        searched = sum(len(g) for g in searches)
+        pers = [p for lp in loops for p in lp.log.channel("valid_per")[1]]
+        # the random model finds nothing after pretraining's max-norm
+        # step, and its first restart (main's first search) starts there
+        if nonempty < searched // 2 or min(pers) >= 1.0:
+            fail(f"phase 20c: {nonempty} of {searched} hypotheses non-empty, "
+                 f"valid_per {pers}: the comparison is too weak")
+        log(f"phase 20c files {files}, the same on both routes; "
+            f"{len(searches)} searches with the same hypotheses ({nonempty} "
+            f"of {searched} non-empty), beam costs within {worst:.2e} "
+            f"relative; launches {moved}")
+
+        # main straight for two epochs, and stopped after one and resumed
+        # (without validation and search, which the stages compared above)
+        main = copy.deepcopy(dict(stages)["main"])
+        main["training"]["num_epochs"] = 2
+        best = os.path.join(tmp, "kernels", "pretraining_best_ll.zip")
+        straight_dir, first = (os.path.join(tmp, n) for n in ("straight",
+                                                              "first"))
+        straight, _ = run(straight_dir, best, [], [("main", main)],
+                          validate=False)
+        main_first = copy.deepcopy(main)
+        main_first["training"]["num_epochs"] = 1
+        run(first, best, [], [("main", main_first)], validate=False)
+        again, _ = run(first, os.path.join(first, "main.zip"), [],
+                       [("main", main)], validate=False, use_load_ext=True)
+        a = load_checkpoint(os.path.join(straight_dir, "main.zip"))
+        b = load_checkpoint(os.path.join(first, "main.zip"))
+        same = set(a["parameters"]) == set(b["parameters"]) and all(
+            np.array_equal(b["parameters"][k], v)
+            for k, v in a["parameters"].items()) and all(
+            np.array_equal(b["opt_state"][k], v)
+            for k, v in a["opt_state"].items())
+        for key in ("train_cost", "model_cost"):
+            same = same and again[0].log.channel(key) == \
+                straight[0].log.channel(key)
+        if not same:
+            fail("phase 20c: main resumed after its first epoch does not "
+                 "give the bits of the straight run")
+        log(f"phase 20c main stopped after epoch 1 and resumed: parameters, "
+            f"log-variances, optimizer state, train_cost and model_cost at "
+            f"{again[0].log.channel('train_cost')[0]} equal the straight "
+            f"run's bit for bit")
+        log(f"phase 20c: {time.perf_counter() - t0:.1f} s")
+
+        # ---- d. run_search on the last stage's model ---------------------
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(20)
+        examples = []
+        for i in range(8):
+            n, k = rng.randint(300, 701), rng.randint(20, 76)
+            examples.append({
+                "recordings": rng.randn(n, 123).astype(np.float32),
+                "labels": np.concatenate([
+                    [data.bos_label], rng.randint(0, data.bos_label, size=k),
+                    [data.eos_label]]).astype(np.int64),
+                "uttids": f"utt{i:02d}"})
+        search_conf = dict(stages[2][1]["monitoring"]["search"],
+                           decode_batch=4)
+        model = os.path.join(tmp, "kernels", "annealing.zip")
+        reports = {}
+        for route in ("kernels", "plain"):
+            for c in counters.values():
+                c.reset()
+            with swapped(plain if route == "plain" else []):
+                rec = create_model(stages[2][1], data, model, device=dev)
+                out = io.StringIO()
+                torch.cuda.synchronize()
+                s0 = time.perf_counter()
+                stats = run_search(rec, examples, data, search_conf,
+                                   print_to=out)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - s0
+            reports[route] = (out.getvalue(), stats, counts(counters), wall)
+            rates[f"timit_search_{route}_utt_per_s"] = len(examples) / wall
+        (text, stats, search_moved, wall), (ref_text, ref_stats, ref_sm,
+                                            ref_wall) = (reports["kernels"],
+                                                         reports["plain"])
+        if min(search_moved[k] for k in ("gru_scan", "beam_search_loop",
+                                         "gru_scan_train_bidir",
+                                         "decoder_scan_train")) < 1 \
+                or any(ref_sm.values()):
+            fail(f"phase 20d: launches {search_moved} on the kernels, "
+                 f"{ref_sm} on the plain route")
+        err = reports_agree("phase 20d run_search", text, ref_text,
+                            list(range(len(examples))), stats, ref_stats)
+        recognized = sum(bool(u.get("Recognized"))
+                         for u in parse_report(text))
+        if recognized < len(examples) * 3 // 4:
+            fail(f"phase 20d: {recognized} of {len(examples)} hypotheses "
+                 f"non-empty: the comparison is too weak")
+        log(f"phase 20d run_search decode_batch 4 over {len(examples)} "
+            f"utterances: the same report on both routes ({recognized} "
+            f"non-empty hypotheses, costs within "
+            f"{err:.2e} relative, CER {stats['total_errors']}/"
+            f"{stats['total_length']}); {len(examples) / wall:.2f} utt/s on "
+            f"the kernels, {len(examples) / ref_wall:.2f} on the plain "
+            f"route; launches {search_moved}; {time.perf_counter() - t0:.1f}"
+            f" s")
+    finally:
+        shutil.rmtree(tmp)
+    return {k: moved.get(k, 0) + search_moved.get(k, 0)
+            for k in set(moved) | set(search_moved)}
 
 if __name__ == "__main__":
     main()

@@ -193,16 +193,17 @@ def _check_loop(args, kw):
     U, L, M = pre.shape
     S, R, V = (tables["wss"].shape[0], tables["merge_k"].shape[1],
                tables["post_k"].shape[1])
+    content = kw.get("content_attention", False)
+    taps = 0 if content else tables["conv_filters"].shape[-1]
     lib = _build.load().lib
     lib.beam_loop_smem_bytes.argtypes = [ctypes.POINTER(bl._Args)]
     c_args = bl._Args(U=U, L=L, M=M, D=attended.shape[-1], S=S, R=R, V=V,
                       F=tables["embed"].shape[1], K=kw["beam"],
-                      Lout=kw["max_len"],
-                      n_taps=tables["conv_filters"].shape[-1])
+                      Lout=kw["max_len"], n_taps=taps, content=int(content))
     assert lib.beam_loop_smem_bytes(ctypes.byref(c_args)) == bl.smem_plan(
         kw["beam"], L, M, attended.shape[-1], S, R, V,
-        tables["embed"].shape[1], kw["max_len"],
-        tables["conv_filters"].shape[-1])["smem_bytes"]
+        tables["embed"].shape[1], kw["max_len"], taps,
+        content=content)["smem_bytes"]
     before = bl.launches.count
     got = bl.beam_search_loop(*args, **kw)
     again = bl.beam_search_loop(*args, **kw)
@@ -242,6 +243,45 @@ def test_beam_loop_kernel_flagship_widths(device):
     config = dict(FLAGSHIP_NET, max_decoded_length_scale=8.0)
     args, kw = _loop_case(device, config, 3, 400, 10, 1.5, seed=5,
                           init=FLAGSHIP_INIT)
+    _check_loop(args, kw)
+
+
+CONTENT_CONFIG = {k: v for k, v in NET_CONFIG.items()
+                  if k not in ("conv_n", "prior")}
+CONTENT_CONFIG["attention_type"] = "content"
+
+
+@pytest.mark.parametrize("K", [1, 10])
+@pytest.mark.parametrize("states_readout", [False, True])
+def test_beam_loop_content_branch_matches_plain(device, K, states_readout):
+    """Content-only attention (no convolution, no handler term) over the
+    window search/beam.py gives it, every frame: the kernel's content
+    branch vs the plain version, odd widths and the tables without
+    ``handler`` and ``conv_filters``."""
+    config = dict(CONTENT_CONFIG, dim_dec=33, dims_bidir=[33, 33],
+                  post_merge_dims=[17], num_phonemes=9, eos_label=8,
+                  use_states_for_readout=states_readout)
+    args, kw = _loop_case(device, config, 3, 48, K, 3.0 if K == 1 else 1.5,
+                          seed=K)
+    assert "conv_filters" not in args[3] and "handler" not in args[3]
+    kw.update(initial_end=float(args[0].shape[1]) + 1.0,
+              content_attention=True)
+    _check_loop(args, kw)
+
+
+def test_beam_loop_content_branch_recipe_widths(device):
+    """The TIMIT recipe's widths (nips_baseline.yaml: D=500, S=M=R=250, 63
+    phones with BOS and EOS, 3x250 BiGRU subsampled 1, 2, 2) at U=3."""
+    config = dict(CONTENT_CONFIG, input_dims={"recordings": 123},
+                  dim_dec=250, dims_bidir=[250, 250, 250],
+                  subsample=[1, 2, 2], post_merge_dims=[250],
+                  num_phonemes=63, eos_label=62,
+                  bottom={"bottom_class": "speech", "dims": [100],
+                          "activation": "relu"})
+    args, kw = _loop_case(device, config, 3, 400, 10, 1.5, seed=5,
+                          init=FLAGSHIP_INIT)
+    kw.update(initial_end=float(args[0].shape[1]) + 1.0,
+              content_attention=True)
     _check_loop(args, kw)
 
 
@@ -530,10 +570,13 @@ EXPANDING = {"type": "expanding", "initial_begin": 0, "initial_end": 6,
 MEDIAN = {"type": "window_around_median", "before": 3, "after": 4}
 
 
-def _check_decoder_scan_train(device, prior, T, B, L, M, D, S, taps=7):
+def _check_decoder_scan_train(device, prior, T, B, L, M, D, S, taps=7,
+                              content=False):
     """Forward and backward kernels (then outer_sum.cu) vs autograd through
     the plain scan, ragged label and frame masks; a second call's
-    gradients bit for bit."""
+    gradients bit for bit.  ``content``: the content branch (no filter,
+    zero initial weights, the band and handler zeros that get no
+    gradient)."""
     from attention_lvcsr_torch.ops import decoder_train as dt
     rng = np.random.RandomState(T + B + L)
     f = lambda *s, scale=0.3: torch.tensor(
@@ -546,7 +589,7 @@ def _check_decoder_scan_train(device, prior, T, B, L, M, D, S, taps=7):
     amask = torch.tensor((np.arange(L)[None] < frames[:, None]).astype("f"),
                          device=device)
     w0 = torch.zeros(B, L, device=device)
-    w0[:, 0] = 1.0
+    w0[:, 0] = 0.0 if content else 1.0
     # recurrent weights at 1/sqrt(S): larger ones make the 20-step
     # recurrence chaotic, and then any rounding difference grows
     leaves = [f(T, B, S), f(T, B, 2 * S), f(B, L, M), f(B, L, D), f(B, S),
@@ -555,12 +598,20 @@ def _check_decoder_scan_train(device, prior, T, B, L, M, D, S, taps=7):
               f(S, 2 * S, scale=S ** -0.5), f(D, S, scale=0.05),
               f(D, 2 * S, scale=0.05)]
     cots = [f(T, B, S), f(T, B, L), f(T, B, D)]
+    band = (torch.zeros(L, L, device=device),
+            torch.zeros(1, M, device=device))
+    if content:
+        del leaves[8], leaves[6]        # the band and the handler
 
     def scan(fn):
-        def call(fx, fg, pre, att, h0, wa0, toep, st, hand, v, wss, wsg, dxm,
-                 dgm):
+        def call(fx, fg, pre, att, h0, wa0, *rest):
+            if content:
+                (st, v, wss, wsg, dxm, dgm), (toep, hand) = rest, band
+            else:
+                toep, st, hand, v, wss, wsg, dxm, dgm = rest
             return fn(fx, fg, mask, pre, att, amask, h0, w0, wa0, toep, st,
-                      hand, v, wss, wsg, dxm, dgm, prior=prior)
+                      hand, v, wss, wsg, dxm, dgm, prior=prior,
+                      n_filters=0 if content else 1)
         return call
 
     before, sums = dt.launches.count, osum.launches.count
@@ -598,6 +649,22 @@ def test_decoder_scan_train_flagship_widths(device, B):
 def test_decoder_scan_train_odd_shape(device, prior):
     """Odd widths and a frame count no cluster size divides."""
     _check_decoder_scan_train(device, prior, 8, 5, 199, 33, 17, 33)
+
+
+CONTENT_PRIOR = {"type": "expanding", "initial_begin": 0, "initial_end": 1e4,
+                 "min_speed": 0, "max_speed": 0}
+
+
+@pytest.mark.parametrize("T,B,L,M,D,S", [(6, 3, 10, 7, 9, 5),
+                                         (20, 8, 60, 250, 500, 250),
+                                         (8, 5, 199, 33, 17, 33),
+                                         (5, 16, 175, 250, 500, 250)])
+def test_decoder_scan_train_content_branch_matches_plain(device, T, B, L, M,
+                                                         D, S):
+    """The content branch (``n_filters=0``, the full-window prior) at
+    small, odd, flagship and TIMIT-recipe widths."""
+    _check_decoder_scan_train(device, CONTENT_PRIOR, T, B, L, M, D, S,
+                              content=True)
 
 
 def test_decoder_scan_train_plan_fills_the_card(device):

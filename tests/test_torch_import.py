@@ -192,7 +192,6 @@ def test_recognizer_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("override,piece", [
-    ({"attention_type": "content"}, "content"),
     ({"conv_num_filters": 3}, "filters"),
     ({"energy_normalizer": "logistic"}, "normalizer"),
     ({"dec_stack": 2}, "dec_stack"),

@@ -118,3 +118,16 @@ def test_launch_plans_travel_in_the_structs(struct, fields):
     assert tuple(names[-len(fields):]) == fields
     assert tuple(n for n, _ in cls._fields_[-len(fields):]) == fields
     assert all(t is ctypes.c_int for _, t in cls._fields_[-len(fields):])
+
+
+@pytest.mark.parametrize("struct", ["BeamLoopArgs", "DecoderArgs"])
+def test_content_flag_travels_in_the_structs(struct):
+    """The content-only attention branch of the loop decode and of the
+    training decoder is an ``int content`` of the argument struct on both
+    sides, zero by default: a struct filled without it runs the conv
+    attention the kernels ran before the branch."""
+    cls, source = MIRRORS[struct]
+    c_fields = {f[0]: f for f in _c_struct(source, struct)}
+    assert c_fields["content"][1:] == ("int", False, None)
+    assert dict(cls._fields_)["content"] is ctypes.c_int
+    assert cls().content == 0

@@ -157,7 +157,7 @@ def test_weight_decay_leaves(path, decayed):
 @pytest.mark.parametrize("reg,train,piece", [
     ({"noise": 0.1}, {}, "weight noise"),
     ({"adaptive_noise": {}}, {}, None),        # an empty section is off
-    ({"adaptive_noise": {"init_sigma": 1e-6}}, {}, "adaptive weight noise"),
+    ({"adaptive_noise": {"init_sigma": 1e-6}}, {}, None),   # ported
     ({}, {"exploration": "greedy"}, "exploration 'greedy'"),
     ({}, {"compute_dtype": "bfloat16"}, "compute_dtype 'bfloat16'"),
 ])
@@ -166,7 +166,12 @@ def test_unported_training_pieces_raise(reg, train, piece):
     config = {"regularization": reg, "training": train}
     opt = build_optimizer({}, {})
     if piece is None:
-        make_train_step(rec, opt, config)
+        step = make_train_step(rec, opt, config)
+        # a non-empty adaptive_noise section builds the noise step
+        assert step.__qualname__.startswith(
+            "make_adaptive_noise_train_step") == bool(
+            reg.get("adaptive_noise"))
+        assert (rec.noise is not None) == bool(reg.get("adaptive_noise"))
         return
     with pytest.raises(NotImplementedError, match=piece):
         make_train_step(rec, opt, config)
