@@ -4,21 +4,25 @@
 // for the flagship configuration: conv attention with one filter, or
 // content-only attention (content_attention=True there, content here: no
 // convolution and no handler term, the caller's expanding window over
-// every frame), the window_around_median or expanding prior, the softmax
-// normalizer, one
-// GRU decoder layer, a tanh post-merge layer, the log-likelihood
-// criterion, optional states-for-readout, patience or
+// every frame), the window_around_median or expanding prior, the softmax,
+// logistic or relu normalizer (the last two with the energy bias; under
+// relu a row whose weights are all zero over a live window gets zero
+// weights and its candidates lose the selection), one GRU decoder layer, a
+// tanh post-merge layer, the log-likelihood criterion or the task loss's
+// (mse_cost: costs = -logits), optional states-for-readout, patience or
 // optimistic_future_cost stopping, char_discount, round_to_inf and
 // ignore_first_eol.  Per step and utterance it runs what the Pallas body
 // runs: window prior, alignment convolution, state projection, energies,
-// masked softmax, weighted average, merge + tanh + post-merge, log-softmax,
+// masked normalization, weighted average, merge + tanh + post-merge, costs,
 // K rounds of candidate selection (lowest flat index wins ties), gathers
 // by source row, GRU advance, EOS retirement, the done-set merge (old
 // entries win ties) and the stopping bookkeeping.  Every product is
 // computed here with fmaf dot products; none goes to a library.  The
 // attention and readout phases are the device functions of
 // decode_step.cuh, which the one-step score kernel (decode_score.cu) runs
-// too.
+// too.  The normalizer and the cost mode are template parameters: each
+// combination is its own instance, so the softmax and log-likelihood route
+// keeps no run-time test of them in its loop.
 //
 // What bounds it on the card: latency.  A step is a chain of about a
 // dozen dependent phases separated by block barriers, each a small
@@ -77,6 +81,9 @@ struct BeamLoopArgs {
   int U, L, M, D, S, R, V, F, K, Lout, n_taps;
   int eol, stop_patience, ignore_first_eol, prior_median;
   int content;                  // 1: content-only attention (no conv term)
+  int normalizer;               // 0 softmax, 1 logistic, 2 relu
+  int mse_cost;                 // 1: costs = -logits (task loss)
+  float energy_b;               // energy bias (logistic, relu)
   float char_discount, round_to_inf, before, after;
   float initial_begin, initial_end, min_speed, max_speed;
 };
@@ -94,7 +101,7 @@ static_assert(kThreads == kProdThreads, "the products split the whole block");
 struct Layout {
   // persistent across steps
   int h, w, aout, dout, acost, dadj, dcost, dlen, newadj, chosen, src, sym,
-      pick, mask, taps, handler, v, begins, ends, red_v, red_i;
+      pick, mask, taps, handler, v, begins, ends, bad, red_v, red_i;
   // wn: attention -> gather; wa: readout -> gather
   int wn, wa;
   // attention temporaries
@@ -136,6 +143,7 @@ __host__ __device__ inline Layout make_layout(const BeamLoopArgs& a) {
   o.v = take(a.M);
   o.begins = take(K);
   o.ends = take(K);
+  o.bad = take(a.normalizer == 2 ? K : 0);
   o.red_v = take(kWarps + 1);
   o.red_i = take(kWarps + 1);
   o.wn = take(K * a.L);
@@ -199,6 +207,21 @@ __device__ void block_argmin(const float* vals, int n, float* red_v,
   out_i = red_i[kWarps];
 }
 
+// The costs of the task loss's readout, in place: costs[r, c] = alive[r] +
+// (-logit) (the reward-regression emitter's costs).
+__device__ void negated_costs(float* COSTS, int K, int V, const float* alive) {
+  for (int idx = threadIdx.x; idx < K * V; idx += blockDim.x)
+    COSTS[idx] = alive[idx / V] + (-COSTS[idx]);
+}
+
+// Rows flagged by the relu normalizer lose every candidate.
+__device__ void drop_bad_rows(float* COSTS, int K, int V, const float* BAD) {
+  for (int idx = threadIdx.x; idx < K * V; idx += blockDim.x)
+    if (BAD[idx / V] != 0.f) COSTS[idx] = kBig;
+}
+
+// kNorm: 0 softmax, 1 logistic, 2 relu; kMse: the task loss's costs.
+template <int kNorm, bool kMse>
 __global__ void __launch_bounds__(kThreads, 1)
 beam_loop_kernel(BeamLoopArgs a) {
   extern __shared__ float sm[];
@@ -227,6 +250,7 @@ beam_loop_kernel(BeamLoopArgs a) {
   float* VV = sm + o.v;
   float* BEGINS = sm + o.begins;
   float* ENDS = sm + o.ends;
+  float* BAD = sm + o.bad;
   float* RED_V = sm + o.red_v;
   int* RED_I = reinterpret_cast<int*>(sm + o.red_i);
   float* WN = sm + o.wn;
@@ -337,8 +361,9 @@ beam_loop_kernel(BeamLoopArgs a) {
       window_energies<true>(pre, M, CONV, SP, HAND, VV, K, L, lb, le, WN);
     __syncthreads();
 
-    // ---- masked softmax over the window (warp per row) ----------------
-    window_softmax(WN, MASK, BEGINS, ENDS, a.prior_median, K, L, lb, le);
+    // ---- masked normalization over the window (warp per row) ----------
+    window_softmax<kNorm>(WN, MASK, BEGINS, ENDS, a.prior_median, K, L, lb,
+                          le, a.energy_b, BAD);
     __syncthreads();
 
     // ---- weighted average of the encoder outputs ----------------------
@@ -357,7 +382,14 @@ beam_loop_kernel(BeamLoopArgs a) {
     __syncthreads();
     run_product({ACT, R, a.post_k, R, V, a.post_b, COSTS, V, false}, K);
     __syncthreads();
-    log_softmax_costs(COSTS, K, V, ACOST);
+    if (kMse)
+      negated_costs(COSTS, K, V, ACOST);
+    else
+      log_softmax_costs(COSTS, K, V, ACOST);
+    if (kNorm == 2) {
+      __syncthreads();
+      drop_bad_rows(COSTS, K, V, BAD);
+    }
     __syncthreads();
 
     // ---- K selection rounds over the K*V candidates --------------------
@@ -497,11 +529,37 @@ extern "C" int beam_loop_smem_bytes(const BeamLoopArgs* args) {
   return make_layout(*args).total * (int)sizeof(float);
 }
 
+namespace {
+
+template <int kNorm, bool kMse>
+int launch_loop(const BeamLoopArgs* args, int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      beam_loop_kernel<kNorm, kMse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  beam_loop_kernel<kNorm, kMse><<<args->U, kThreads, smem, stream>>>(*args);
+  return (int)cudaGetLastError();
+}
+
+template <int kNorm>
+int launch_cost(const BeamLoopArgs* args, int smem, cudaStream_t stream) {
+  return args->mse_cost ? launch_loop<kNorm, true>(args, smem, stream)
+                        : launch_loop<kNorm, false>(args, smem, stream);
+}
+
+}  // namespace
+
 extern "C" int beam_loop_f32(const BeamLoopArgs* args, void* stream) {
   const int smem = make_layout(*args).total * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      beam_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  beam_loop_kernel<<<args->U, kThreads, smem, (cudaStream_t)stream>>>(*args);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (args->normalizer) {
+    case 0:
+      return launch_cost<0>(args, smem, s);
+    case 1:
+      return launch_cost<1>(args, smem, s);
+    case 2:
+      return launch_cost<2>(args, smem, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

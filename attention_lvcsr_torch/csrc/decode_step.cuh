@@ -178,23 +178,32 @@ __device__ void window_energies(const float* __restrict__ pre, int M,
   }
 }
 
-// Masked softmax of each row's energies, in place, into its new weights.
-// The stabilising max runs over the window only; the weight of frame l is
-// exp(e - max) * combined[l], with combined = window * mask, times the
-// row's own bounds (strict) under the median prior; a row whose combined
-// mask is all zero gets zero weights.  A warp per row.
+// Masked normalization of each row's energies, in place, into its new
+// weights.  kNorm 0 (softmax): the stabilising max runs over the window
+// only, and the weight of frame l is exp(e - max) * combined[l], with
+// combined = window * mask, times the row's own bounds (strict) under the
+// median prior.  kNorm 1 (logistic) and 2 (relu): sigmoid(e + ebias) and
+// max((e + ebias) / 1000, 0) times combined[l].  A row whose combined
+// mask is all zero gets zero weights; under relu a row whose numerators
+// are all zero over a non-empty mask gets zero weights too, and BAD[r] = 1
+// (else 0).  A warp per row.
+template <int kNorm = 0>
 __device__ void window_softmax(float* E, const float* MASK,
                                const float* BEGINS, const float* ENDS,
                                bool prior_median, int K, int L, int lb,
-                               int le) {
+                               int le, float ebias = 0.f,
+                               float* BAD = nullptr) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   for (int r = warp; r < K; r += nwarps) {
     float* er = E + r * L;
-    float mx = kNeg;
-    for (int l = lb + lane; l < le; l += 32) mx = fmaxf(mx, er[l]);
-    mx = warp_max(mx);
-    if (!(mx > kNeg / 2)) mx = 0.f;
+    float mx = 0.f;
+    if (kNorm == 0) {
+      mx = kNeg;
+      for (int l = lb + lane; l < le; l += 32) mx = fmaxf(mx, er[l]);
+      mx = warp_max(mx);
+      if (!(mx > kNeg / 2)) mx = 0.f;
+    }
     float sum = 0.f, csum = 0.f;
     for (int l = lane; l < L; l += 32) {
       float comb = 0.f;
@@ -204,14 +213,28 @@ __device__ void window_softmax(float* E, const float* MASK,
           comb = comb * (((float)l > BEGINS[r] && (float)l < ENDS[r])
                              ? 1.f : 0.f);
       }
-      const float un = comb != 0.f ? expf(er[l] - mx) * comb : 0.f;
+      float un = 0.f;
+      if (comb != 0.f) {
+        if (kNorm == 0) {
+          un = expf(er[l] - mx) * comb;
+        } else {
+          const float e = er[l] + ebias;
+          const float g = kNorm == 1 ? 1.f / (1.f + expf(-e))
+                                     : fmaxf(e / 1000.f, 0.f);
+          un = g * comb;
+        }
+      }
       er[l] = un;
       sum += un;
       csum += comb;
     }
     sum = warp_sum(sum);
     csum = warp_sum(csum);
-    const float denom = sum + (csum == 0.f ? 1.f : 0.f);
+    float denom = sum + (csum == 0.f ? 1.f : 0.f);
+    if (kNorm == 2) {
+      if (lane == 0) BAD[r] = denom == 0.f ? 1.f : 0.f;
+      denom += denom == 0.f ? 1.f : 0.f;
+    }
     for (int l = lane; l < L; l += 32) er[l] = er[l] / denom;
   }
 }

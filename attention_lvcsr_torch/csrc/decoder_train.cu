@@ -4,8 +4,9 @@
 // Replaces attention_lvcsr_tpu/ops/pallas/decoder_train.py::
 // decoder_scan_train (:839; forward _fwd_kernel :225, backward _bwd_kernel
 // :339, custom VJP :601-836) for the flagship variant: one conv filter, the
-// softmax normalizer, the expanding or window_around_median prior, one GRU
-// layer; and for content-only attention (n_filters = 0 there, content = 1
+// softmax, logistic or relu normalizer (normalizer 0, 1, 2; the last two
+// with the energy bias), the expanding or window_around_median prior, one
+// GRU layer; and for content-only attention (n_filters = 0 there, content = 1
 // here): no convolution and no conv[l] * hand[m] term, so the weights do not
 // feed the energies (decoder_train.py:580-582) and the backward forms no
 // band or handler gradient.  Per step t and batch row b (forward):
@@ -15,7 +16,10 @@
 //           gmask * (begin_b < l < end_b) * att_mask
 //   conv    = (w * gmask) @ toep;  sp = h @ st
 //   e[l]    = sum_m v[m] tanh(pre[b,l,m] + sp[m] + conv[l] * hand[m])
-//   wnew    = softmax of e over the window, times combined, normalised
+//             (+ e_bias under logistic and relu)
+//   wnew    = g(e) * combined / (its sum, or 1 where combined is all zero),
+//             g = exp(e - max over the window) (softmax), sigmoid(e)
+//             (logistic) or max(e / 1000, 0) (relu)
 //   wa_new  = wnew @ att[b]
 //   GRU     [u, r] = sigmoid(h @ wsg + fg[t] + wa_new @ dgm)
 //           c = tanh((h * r) @ wss + fx[t] + wa_new @ dxm)
@@ -26,7 +30,10 @@
 // kernel's algebra (decoder_train.py:423-585): GRU backward, the distribute
 // products' backward, the weighted-average backward, then the attention step
 // recomputed from (h_prev, w_prev) -- the (B, L, M) match tensor is never
-// stored -- and the softmax, energy and convolution backward.  It writes
+// stored -- and the normalizer, energy and convolution backward (under
+// logistic and relu from each frame's g'(e) * combined / denominator, which
+// the forward stores in gsc; the bias's gradient, the sum of the energies'
+// gradients, goes to an extra column of dv).  It writes
 // dpre once at the end, and per-step rows (dfx, dfg, dsp, dwan, the windowed
 // weights and dconv) from which ops/decoder_train.py forms the weight
 // gradients and datt with outer_sum.cu, which also sums the (row, block)
@@ -64,7 +71,10 @@
 //   shared memory, behind split cluster barriers (five a step each way);
 // * no atomics in any sum: every cross-thread, cross-warp and cross-block
 //   sum is taken in an order fixed by the plan, so a second call repeats
-//   bit for bit.
+//   bit for bit;
+// * the normalizer and the content branch are template parameters, one
+//   instance each, so the conv softmax route keeps no run-time test of
+//   them in its loops.
 //
 // The forward records each step's [gb, ge) and the backward reads it, so
 // the backward needs no grid barrier and is the exact gradient of its
@@ -123,9 +133,13 @@ struct DecoderArgs {
   float* dconv;        // (T, B, L) gradient of each step's convolution
   float* dwan;         // (T, B, D) gradient of each step's weighted average
   float* dhand;        // (B, C, M) each (row, block)'s sum over its steps
-  float* dv;           // (B, C, M)
+  float* dv;           // (B, C, M), (B, C, M + 1) with the bias's gradient
+  const float* e_bias; // (1,) energy bias (logistic, relu)
+  float* gsc;          // (T, B, L) g'(e) * combined / denominator (logistic,
+                       //   relu): written forward, read backward
   int T, B, L, M, D, S, prior_median;
   int content;         // 1: content-only attention (no conv term)
+  int normalizer;      // 0 softmax, 1 logistic, 2 relu
   int cluster;         // blocks a cluster (4, 8 or 16)
   int clusters;        // clusters of the grid
   int res_pre;         // rows of a cluster whose pre, att and (backward)
@@ -502,9 +516,24 @@ __device__ __forceinline__ void cluster_rows(int B, int clusters, int c,
   nr = q + (c < rem ? 1 : 0);
 }
 
-// kContent: the content branch, compiled apart so that the conv route
-// keeps no run-time test of it in its loops
-template <bool kContent>
+// g(e) of a normalizer other than softmax, and its derivative g'(e)
+template <int kNorm>
+__device__ __forceinline__ float numerator(float e) {
+  return kNorm == 1 ? sigmoidf(e) : fmaxf(e / 1000.f, 0.f);
+}
+template <int kNorm>
+__device__ __forceinline__ float numerator_grad(float e) {
+  if (kNorm == 1) {
+    const float s = sigmoidf(e);
+    return s * (1.f - s);
+  }
+  return (e > 0.f ? 1.f : 0.f) / 1000.f;
+}
+
+// kContent: the content branch; kNorm: 0 softmax, 1 logistic, 2 relu;
+// each compiled apart so that the conv softmax route keeps no run-time
+// test of them in its loops
+template <bool kContent, int kNorm>
 __global__ void __launch_bounds__(kThreads, 1)
     decoder_fwd_kernel(const __grid_constant__ DecoderArgs a) {
   namespace cg = cooperative_groups;
@@ -531,6 +560,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float *gate = sm + o.gate, *pout = sm + o.pout, *rs = sm + o.rs;
   float *red = sm + o.red, *v = sm + o.vh, *hand = v + d.M4;
   float* part = sm + o.part;
+  const float ebias = kNorm != 0 ? a.e_bias[0] : 0.f;
   // a row's tiles: resident rows in shared memory, the others in L2
   auto pre_row = [&](int r) -> const float* {
     return r < rp ? sm + o.pre + r * Lt * d.Mt
@@ -676,7 +706,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         });
       }
       acc = warp_reduce(acc, kSum);
-      if (lane == 0) e[r * Lq + l] = acc;
+      if (lane == 0) e[r * Lq + l] = kNorm != 0 ? acc + ebias : acc;
     }
     __syncthreads();
     if (warp < nr) {
@@ -688,14 +718,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     cluster_arrive();
     cluster_wait();
-    // ---- softmax over the window: numerators and partial sums of own frames
+    // ---- normalizer over the window: numerators and partial sums of own
+    // frames (the max shift is softmax's alone)
     if (warp < nr) {
       float mx = reduce_peers(cluster, rs + warp * 8, C, kMax, kNeg);
       mx = mx > kNeg / 2 ? mx : 0.f;
       float sum = 0.f, csum = 0.f;
       for (int l = lane; l < nl; l += 32) {
         const float cb = comb[warp * Lq + l];
-        const float u = expf(e[warp * Lq + l] - mx) * cb;
+        const float u = kNorm == 0 ? expf(e[warp * Lq + l] - mx) * cb
+                                   : numerator<kNorm>(e[warp * Lq + l]) * cb;
         un[warp * Lq + l] = u;
         sum += u;
         csum += cb;
@@ -755,6 +787,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       a.w_out[at] = w[r * L4 + l0 + l];
       a.e_out[at] = ek[r * Lq + l];
+      if (kNorm != 0)
+        a.gsc[at] = numerator_grad<kNorm>(e[r * Lq + l]) * comb[r * Lq + l]
+                    / rs[r * 8 + 4];
     }
     __syncthreads();
     for (int i = tid; i < nr * nd; i += kThreads) {
@@ -813,7 +848,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster.sync();
 }
 
-template <bool kContent>
+template <bool kContent, int kNorm>
 __global__ void __launch_bounds__(kThreads, 1)
     decoder_bwd_kernel(const __grid_constant__ DecoderArgs a) {
   namespace cg = cooperative_groups;
@@ -996,14 +1031,26 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     cluster_arrive();
     cluster_wait();
-    // ---- softmax backward (the max shift cancels)
+    // ---- normalizer backward: softmax's max shift cancels, and
+    // dE = w * (dw - sum(dw * w)); else dE = (dw - sum(dw * w)) * g'(e) *
+    // combined / denominator, whose sum is the bias's gradient
     if (warp < nr) {
       const float srow = reduce_peers(cluster, rs + warp * 8, C, kSum, 0.f);
+      float deb = 0.f;
       for (int l = lane; l < nl; l += 32) {
         const int i = warp * Lq + l;
-        dE[i] = wn[i] * (dwn[i] - srow);
+        if (kNorm == 0) {
+          dE[i] = wn[i] * (dwn[i] - srow);
+        } else {
+          dE[i] = (dwn[i] - srow) * a.gsc[(row0 + warp) * L + l0 + l];
+          deb += dE[i];
+        }
         if (!kContent)
           a.wg[(row0 + warp) * L + l0 + l] = wgv[warp * L4 + l0 + l];
+      }
+      if (kNorm != 0) {
+        deb = warp_reduce(deb, kSum);
+        if (lane == 0) rs[warp * 8 + 4] += deb;
       }
     }
     __syncthreads();
@@ -1127,9 +1174,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       sh += dhg[(g * R + r) * M4 + m];
     }
     const size_t at = ((size_t)(b0 + r) * C + j) * M + m;
-    a.dv[at] = sv;
+    a.dv[kNorm != 0 ? at + (b0 + r) * C + j : at] = sv;
     if (!kContent) a.dhand[at] = sh;
   }
+  // the bias's gradient: the (row, block)'s sum over its steps, in the
+  // last column of its dv row
+  for (int r = tid; kNorm != 0 && r < nr; r += kThreads)
+    a.dv[((size_t)(b0 + r) * C + j) * (M + 1) + M] = rs[r * 8 + 4];
   for (int i = tid; i < min(rd, nr) * nl * M; i += kThreads) {
     const int r = i / (nl * M), l = (i / M) % nl, m = i % M;
     a.dpre[((size_t)(b0 + r) * L + l0 + l) * M + m] =
@@ -1137,12 +1188,26 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-const void* kernel_of(int kind, int content) {
-  if (kind == 0)
-    return content ? (const void*)decoder_fwd_kernel<true>
-                   : (const void*)decoder_fwd_kernel<false>;
-  return content ? (const void*)decoder_bwd_kernel<true>
-                 : (const void*)decoder_bwd_kernel<false>;
+// The kernel of a kind (0 forward, 1 backward) and a variant: the content
+// branch (softmax), or the conv branch with normalizer 0, 1 or 2; nullptr
+// for a normalizer out of range.
+const void* kernel_of(int kind, int content, int normalizer) {
+  if (content)
+    return kind == 0 ? (const void*)decoder_fwd_kernel<true, 0>
+                     : (const void*)decoder_bwd_kernel<true, 0>;
+  switch (normalizer) {
+    case 0:
+      return kind == 0 ? (const void*)decoder_fwd_kernel<false, 0>
+                       : (const void*)decoder_bwd_kernel<false, 0>;
+    case 1:
+      return kind == 0 ? (const void*)decoder_fwd_kernel<false, 1>
+                       : (const void*)decoder_bwd_kernel<false, 1>;
+    case 2:
+      return kind == 0 ? (const void*)decoder_fwd_kernel<false, 2>
+                       : (const void*)decoder_bwd_kernel<false, 2>;
+    default:
+      return nullptr;
+  }
 }
 
 int smem_bytes(int kind, const DecoderArgs& a) {
@@ -1189,7 +1254,8 @@ int launch(int kind, const DecoderArgs* args, cudaStream_t stream) {
   int err = max_smem_optin(&max_smem);
   if (err != 0) return err;
   if (smem > max_smem) return -1;
-  const void* kernel = kernel_of(kind, args->content);
+  const void* kernel = kernel_of(kind, args->content, args->normalizer);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t e = set_attributes(kernel, args->cluster, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
@@ -1235,7 +1301,9 @@ extern "C" int decoder_train_max_clusters(int kind, int content, int cluster,
   int smem = 0;
   int err = max_smem_optin(&smem);
   if (err != 0) return err;
-  const void* kernel = kernel_of(kind, content);
+  // every variant of a kind takes the same shared memory and block, so
+  // the conv softmax instance stands for the conv branch's three
+  const void* kernel = kernel_of(kind, content, 0);
   cudaError_t e = set_attributes(kernel, cluster, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};

@@ -7,7 +7,9 @@ windowed prior.
 plain PyTorch on every device, as the JAX module computes them outside
 any Pallas kernel).  :class:`SequenceContentAndConvAttention` is the
 counterpart of ``SequenceContentAndConvAttention`` for one conv filter and
-the softmax normalizer: parameters, key preprocessing, the whole-loop
+the softmax, logistic or relu energy normalizer (the last two with a
+biased energy projection, JAX ``attention.py:189``, ``_normalize``
+:316-333): parameters, key preprocessing, the whole-loop
 decode tables (the loop kernel, ``ops/beam_loop.py``, runs its own
 glimpse), the tables of the teacher-forced decoder scan
 (``train_tables``), and the
@@ -121,30 +123,37 @@ class SequenceContentAttention(nn.Module):
 
 
 class SequenceContentAndConvAttention(nn.Module):
-    """One conv filter and the softmax normalizer (so the energy has no
-    bias), the configuration the decode kernel covers.
+    """One conv filter, the configuration the decode kernels cover.
 
     ``prior``: ``{"type": "expanding", "initial_begin", "initial_end",
     "min_speed", "max_speed"}`` or ``{"type": "window_around_median",
     "before", "after"}``; None means an expanding window over everything.
+    ``energy_normalizer``: ``softmax`` (the energy has no bias),
+    ``logistic`` or ``relu`` (it has one, ``energy_comp/bias``).
     The preprocessing layer is ``preprocessor`` here and ``preprocess`` in
     the JAX parameter paths (models/params.py)."""
     conv = True
 
     def __init__(self, state_names: Sequence[str], state_dim: int,
                  attended_dim: int, match_dim: int, conv_n: int,
-                 prior: Optional[Mapping[str, Any]] = None):
+                 prior: Optional[Mapping[str, Any]] = None,
+                 energy_normalizer: str = "softmax"):
         super().__init__()
+        if energy_normalizer not in ("softmax", "logistic", "relu"):
+            raise ValueError(
+                f"Unknown energy_normalizer: {energy_normalizer}")
         self.state_names = tuple(state_names)
         self.attended_dim = attended_dim
         self.match_dim = match_dim
         self.conv_n = conv_n
         self.prior = dict(prior) if prior else None
+        self.energy_normalizer = energy_normalizer
         for name in self.state_names:
             self.add_module(f"state_trans_{name}",
                             Dense(state_dim, match_dim, use_bias=False))
         self.preprocessor = Dense(attended_dim, match_dim)
-        self.energy_comp = Dense(match_dim, 1, use_bias=False)
+        self.energy_comp = Dense(match_dim, 1,
+                                 use_bias=energy_normalizer != "softmax")
         self.handler = Dense(1, match_dim, use_bias=False)
         self.conv_filters = nn.Parameter(torch.zeros(1, 2 * conv_n + 1))
 
@@ -159,28 +168,44 @@ class SequenceContentAndConvAttention(nn.Module):
     def preprocess(self, attended):
         return self.preprocessor(attended)
 
+    def energy_vector(self):
+        """(v (M,), bias (1,) or None): the energy projection as the JAX
+        tables extract it through identity inputs, ``energy(I) -
+        energy(0) = (kernel + bias) - bias`` with a bias, so the two
+        packages' tables hold the same bits; differentiable."""
+        e = self.energy_comp
+        if e.bias is None:
+            return e.kernel[:, 0], None
+        return (e.kernel[:, 0] + e.bias) - e.bias, e.bias
+
     def train_tables(self, length):
         """The attention's tables of ``decoder_scan_train``, taken from the
         parameters so that autograd reaches them: the Toeplitz band of the
         conv taps over ``length`` frames, the state transform, the handler
-        row and the energy vector."""
+        row, the energy vector and (logistic, relu) the energy bias."""
         (name,) = self.state_names
+        v, bias = self.energy_vector()
         return {
             "toep": toeplitz_band(self.conv_filters, length),
             "st": getattr(self, f"state_trans_{name}").kernel,
             "hand": self.handler.kernel,
-            "v": self.energy_comp.kernel[:, 0].contiguous(),
+            "v": v.contiguous(), "e_b": bias,
         }
 
     def loop_tables(self):
-        """Dense tables of the decode kernel's attention step."""
+        """Dense tables of the decode kernel's attention step; with a
+        biased energy its bias as ``energy_b``."""
         (name,) = self.state_names
-        return {
+        v, bias = self.energy_vector()
+        t = {
             "state_trans": getattr(self, f"state_trans_{name}").kernel,
             "handler": self.handler.kernel[0],
-            "v": self.energy_comp.kernel[:, 0],
+            "v": v,
             "conv_filters": self.conv_filters,
         }
+        if bias is not None:
+            t["energy_b"] = bias
+        return t
 
     # -- the module-driven glimpse ----------------------------------------
     def initial_glimpses(self, batch_size, attended):
@@ -242,19 +267,27 @@ class SequenceContentAndConvAttention(nn.Module):
             match = (preprocessed + state_sum[:, None, :]
                      + self.handler(conv[:, :, None]))
             return self.energy_comp(torch.tanh(match))[..., 0]
+        v, bias = self.energy_vector()
         return beam_attention_energies(
             preprocessed, state_sum.contiguous(), conv.contiguous(),
-            self.handler.kernel[0], self.energy_comp.kernel[:, 0], 0.0,
-            beam=beam)
+            self.handler.kernel[0], v.contiguous(),
+            0.0 if bias is None else float(bias), beam=beam)
 
-    @staticmethod
-    def _normalize(energies, global_mask, combined):
-        """The softmax normalizer; its max runs over the window only."""
-        masked = torch.where(global_mask > 0, energies,
-                             torch.finfo(energies.dtype).min)
-        m = masked.max(dim=1, keepdim=True).values
-        m = torch.where(torch.isfinite(m), m, 0.0)
-        unnorm = torch.exp(energies - m) * combined
+    def _normalize(self, energies, global_mask, combined):
+        """The configured normalizer (JAX ``_normalize``); softmax's max
+        runs over the window only.  A relu row whose numerators are all
+        zero over a non-empty mask divides 0 by 0, as in the JAX module."""
+        if self.energy_normalizer == "softmax":
+            masked = torch.where(global_mask > 0, energies,
+                                 torch.finfo(energies.dtype).min)
+            m = masked.max(dim=1, keepdim=True).values
+            m = torch.where(torch.isfinite(m), m, 0.0)
+            unnorm = torch.exp(energies - m)
+        elif self.energy_normalizer == "logistic":
+            unnorm = torch.sigmoid(energies)
+        else:
+            unnorm = torch.clamp(energies / 1000.0, min=0.0)
+        unnorm = unnorm * combined
         denom = unnorm.sum(dim=1, keepdim=True) + (
             combined == 0).all(dim=1, keepdim=True).to(energies.dtype)
         return unnorm / denom
@@ -283,14 +316,15 @@ class SequenceContentAndConvAttention(nn.Module):
 
 
 def make_attention(attention_type, state_names, state_dim, attended_dim,
-                   match_dim, conv_n=None, prior=None):
+                   match_dim, conv_n=None, prior=None,
+                   energy_normalizer=None):
     """The attention of a net config's ``attention_type`` (JAX
-    ``make_attention``)."""
+    ``make_attention``); content attention is softmax only, as there."""
     if attention_type == "content":
         return SequenceContentAttention(state_names, state_dim, attended_dim,
                                         match_dim)
     if attention_type == "content_and_conv":
         return SequenceContentAndConvAttention(
             state_names, state_dim, attended_dim, match_dim, conv_n,
-            prior=prior)
+            prior=prior, energy_normalizer=energy_normalizer or "softmax")
     raise ValueError(f"Unknown attention type {attention_type}")

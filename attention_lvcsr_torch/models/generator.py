@@ -3,8 +3,11 @@
 Counterpart of ``attention_lvcsr_tpu/models/generator.py`` for one GRU
 decoder layer: the feedback embedding, the readout (merge of the weighted
 averages and optionally the states, tanh post-merge), its shallow-fusion
-variant with an FST language model, and the decoder GRU with its fork and
-distribute projections.  Two decode routes read it:
+variant with an FST language model, the decoder GRU with its fork and
+distribute projections, and the criterion: the log-likelihood, or the
+task loss's ``mse_gain`` / ``mse_reward`` (arXiv:1511.06456), whose
+readouts regress the edit-distance gains and rewards of
+``ops/reward_op.py``.  Two decode routes read it:
 
 * the whole-loop kernel (``ops/beam_loop.py``) takes the dense tables of
   ``loop_decode_tables`` (``:779-847``) and runs the step itself;
@@ -15,13 +18,19 @@ distribute projections.  Two decode routes read it:
   step is one ``fused_decode_score`` launch (``:849-872``).
 
 ``evaluate`` is the teacher-forced pass of the training cost
-(``:380-433``): the whole label loop through ``decoder_scan_train`` (the
+(``:380-433``, the mse criteria ``_mse_costs`` :658-686): the whole label
+loop through ``decoder_scan_train`` (the
 CUDA kernels on a CUDA tensor), or, under ``use_pallas: never``, where the
 JAX package takes its XLA scan, through the plain module scan; with an LM
 the readout also reads the LM's teacher-forced costs (``lm.evaluate``).
 ``generate`` samples (``:912-942``): ``n_steps`` of the module step's
-score, the emitter's draw (categorical, or argmax with an LM) and the
-advance.
+score, the emitter's draw (categorical, or argmax with an LM or a task
+loss criterion) and the advance.
+
+The first step's feedback symbol (the emitter's ``initial_output``: 0
+for the task loss, ``num_outputs`` otherwise) reaches JAX's readout only
+through a ``feedback`` source; the port's readouts read the weighted
+averages and optionally the states, so no route here reads it.
 
 Parameter names are the flax ones (``feedback/lookup/embedding``,
 ``transition_0``, ``fork_0_inputs``, ...); the language model holds only
@@ -38,6 +47,7 @@ from attention_lvcsr_torch.models.cells import GatedRecurrent
 from attention_lvcsr_torch.models.layers import Dense, Embed
 from attention_lvcsr_torch.ops.decode_score import fused_decode_score
 from attention_lvcsr_torch.ops.decoder_train import decoder_scan_train
+from attention_lvcsr_torch.ops.reward_op import reward_and_gain
 
 
 class LookupFeedback(nn.Module):
@@ -147,6 +157,27 @@ class LMEmitter(SoftmaxEmitter):
         return -torch.gather(readouts, -1, outputs[..., None])[..., 0]
 
 
+class RewardRegressionEmitter(SoftmaxEmitter):
+    """The emitter of the task loss (JAX ``RewardRegressionEmitter``,
+    ``generator.py:214-235``): the readouts are predicted gains, emission
+    is their argmax, ``cost`` the readout of the given outputs and
+    ``costs`` the negated readouts.  Its initial output is 0."""
+
+    def __init__(self):
+        super().__init__(initial_output=0)
+
+    def emit(self, readouts, generator=None):
+        return torch.argmax(readouts, dim=-1)
+
+    @staticmethod
+    def costs(readouts):
+        return -readouts
+
+    @staticmethod
+    def cost(readouts, outputs):
+        return torch.gather(readouts, -1, outputs[..., None])[..., 0]
+
+
 def _unbiased(dense):
     """(kernel, bias) of a Dense as the JAX tables extract them through
     identity inputs: ``dense(I) - dense(0) = (kernel + bias) - bias``.
@@ -161,11 +192,16 @@ class SequenceGenerator(nn.Module):
                  feedback_dim: int, post_merge_dims: Sequence[int],
                  use_states_for_readout: bool = False,
                  language_model: Optional[nn.Module] = None,
-                 fusion: Optional[Mapping] = None):
+                 fusion: Optional[Mapping] = None,
+                 criterion: str = "log_likelihood", min_reward: float = -1.0):
         """``language_model`` (``models/lm.py``) with ``fusion``, the
         keyword arguments of :class:`ShallowFusionReadout`, selects the
-        shallow-fusion readout."""
+        shallow-fusion readout.  ``criterion``: ``log_likelihood``,
+        ``mse_gain`` or ``mse_reward``; ``min_reward`` clamps the gains of
+        the mse criteria from below."""
         super().__init__()
+        self.criterion = criterion
+        self.min_reward = float(min_reward)
         self.num_outputs = num_outputs
         self.dim_dec = dim_dec
         self.use_states_for_readout = use_states_for_readout
@@ -182,11 +218,21 @@ class SequenceGenerator(nn.Module):
         self.language_model = language_model
         if language_model is None:
             self.readout = Readout(sources, num_outputs, post_merge_dims)
-            self.emitter = SoftmaxEmitter(initial_output=num_outputs)
         else:
             self.readout = ShallowFusionReadout(
                 sources, num_outputs, post_merge_dims, **dict(fusion or {}))
+        # the emitter choice of JAX's ``emitter`` (:338-343)
+        if self.mse:
+            self.emitter = RewardRegressionEmitter()
+        elif language_model is None:
+            self.emitter = SoftmaxEmitter(initial_output=num_outputs)
+        else:
             self.emitter = LMEmitter(initial_output=num_outputs)
+
+    @property
+    def mse(self):
+        """Whether the criterion is one of the task loss's."""
+        return self.criterion.startswith("mse")
 
     def loop_decode_tables(self):
         """Dense weight tables of the whole-loop decode kernel; the same
@@ -222,9 +268,10 @@ class SequenceGenerator(nn.Module):
     # -- the module-driven decode step -------------------------------------
     def fused_score_supported(self):
         """Whether ``fused_decode_score`` covers this configuration: conv
-        attention (the port's other variants already are the kernel's),
-        as JAX ``fused_score_supported``."""
+        attention with the softmax normalizer (the port's other variants
+        already are the kernel's), as JAX ``fused_score_supported``."""
         return (self.attention.conv
+                and self.attention.energy_normalizer == "softmax"
                 and not self.use_states_for_readout
                 and self.language_model is None)
 
@@ -342,12 +389,15 @@ class SequenceGenerator(nn.Module):
 
     # -- the teacher-forced pass -------------------------------------------
     def evaluate(self, attended, attended_mask, outputs, mask=None,
-                 use_pallas="auto"):
+                 use_pallas="auto", groundtruth=None):
         """Teacher-forced pass over (T, B) fed labels ``outputs`` (mask
         (T, B) or None) against attended (B, L, D) and its mask (B, L).
         Returns ``costs`` (T, B), ``readouts`` (T, B, V), ``weights`` and
         ``energies`` (T, B, L; None for content attention, whose glimpses
-        have none)."""
+        have none); under an mse criterion also ``gain_mse_loss``,
+        ``reward_mse_loss``, ``gain_matrix`` and ``reward_matrix``, the
+        targets computed against ``groundtruth`` (T', B) (``outputs``
+        when None)."""
         T, B = outputs.shape
         preprocessed = self.attention.preprocess(attended)
         feedback = self.feedback(outputs)                       # (T, B, E)
@@ -364,7 +414,7 @@ class SequenceGenerator(nn.Module):
             # the LM changes only the readout's sources
             lm_add = self.language_model.evaluate(outputs, mask)["add"]
         return self._finish_evaluate(pre_states, glimpses, outputs, mask,
-                                     lm_add)
+                                     lm_add, groundtruth)
 
     def _evaluate_fused(self, attended, preprocessed, attended_mask, forked,
                         mask, T, B):
@@ -377,6 +427,7 @@ class SequenceGenerator(nn.Module):
         glimpses = self.attention.initial_glimpses(B, attended)
         # content attention: no conv term, and a window over all L frames
         conv = self.attention.conv
+        normalizer = self.attention.energy_normalizer if conv else "softmax"
         h, w, wa, e = decoder_scan_train(
             forked["inputs"].contiguous(),
             forked["gate_inputs"].contiguous(),
@@ -387,7 +438,8 @@ class SequenceGenerator(nn.Module):
             t["v"], cell.state_to_state, cell.state_to_gates,
             self.distribute_0_inputs.kernel,
             self.distribute_0_gate_inputs.kernel,
-            prior=self.attention.prior_config(L), n_filters=int(conv))
+            prior=self.attention.prior_config(L), n_filters=int(conv),
+            e_bias=t.get("e_b"), normalizer=normalizer)
         pre_states = torch.cat([h0[None], h[:-1]])
         glimpses = {"weights": w, "weighted_averages": wa}
         if conv:
@@ -424,19 +476,48 @@ class SequenceGenerator(nn.Module):
             for k in ("weights", "weighted_averages", "energies")
             if k in seq[0]}
 
-    def _finish_evaluate(self, pre_states, glimpses, outputs, mask, lm_add):
+    def _finish_evaluate(self, pre_states, glimpses, outputs, mask, lm_add,
+                         groundtruth=None):
         sources = {"weighted_averages": glimpses["weighted_averages"]}
         if self.use_states_for_readout:
             sources["states"] = pre_states
         if lm_add is not None:
             sources["lm_add"] = lm_add
         readouts = self.readout(sources)                        # (T, B, V)
-        costs = self.emitter.cost(readouts, outputs.long())
+        aux = {}
+        if self.mse:
+            costs, aux = self._mse_costs(readouts, outputs.long(), groundtruth)
+        else:
+            costs = self.emitter.cost(readouts, outputs.long())
         if mask is not None:
             costs = costs * mask
-        return {"costs": costs, "readouts": readouts,
-                "weights": glimpses["weights"],
-                "energies": glimpses.get("energies")}
+        return dict({"costs": costs, "readouts": readouts,
+                     "weights": glimpses["weights"],
+                     "energies": glimpses.get("energies")}, **aux)
+
+    def _mse_costs(self, readouts, outputs, groundtruth):
+        """The task loss's criteria (JAX ``_mse_costs``, the reference's
+        ``lvsr/bricks/__init__.py:134-182``): the readouts regress the
+        gains of the fed outputs against the groundtruth, clamped below at
+        ``min_reward`` (``mse_gain``), or the rewards they add up to
+        (``mse_reward``).  Returns the (T, B) costs and the aux outputs."""
+        if groundtruth is None:
+            groundtruth = outputs
+        rewards, gains = reward_and_gain(groundtruth, outputs,
+                                         self.num_outputs)
+        gains = torch.clamp(gains.to(readouts.dtype), min=self.min_reward)
+        rewards = rewards.to(readouts.dtype)
+        predicted = torch.gather(readouts, -1, outputs[..., None])[..., 0]
+        predicted = torch.cat([torch.zeros_like(predicted[:1]),
+                               predicted[1:]])
+        predicted_rewards = readouts + torch.cumsum(predicted,
+                                                    dim=0)[..., None]
+        gain_mse = ((readouts - gains) ** 2).sum(dim=-1)
+        reward_mse = ((predicted_rewards - rewards) ** 2).sum(dim=-1)
+        aux = {"gain_mse_loss": gain_mse.sum(),
+               "reward_mse_loss": reward_mse.sum(),
+               "gain_matrix": gains, "reward_matrix": rewards}
+        return (gain_mse if self.criterion == "mse_gain" else reward_mse), aux
 
 
 def _mask_mix(live, new, old):

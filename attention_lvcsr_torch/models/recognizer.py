@@ -62,7 +62,8 @@ def unported_piece(cfg: Mapping[str, Any]) -> Optional[str]:
                                                   "content_and_conv"),
          f"attention_type {cfg.get('attention_type')!r}"),
         ((cfg.get("conv_num_filters") or 1) == 1, "multiple conv filters"),
-        ((cfg.get("energy_normalizer") or "softmax") == "softmax",
+        ((cfg.get("energy_normalizer") or "softmax")
+         in ("softmax", "logistic", "relu"),
          f"the {cfg.get('energy_normalizer')!r} energy normalizer"),
         ((cfg.get("dec_stack") or 1) == 1, "a stacked decoder (dec_stack > 1)"),
         (cfg.get("post_merge_dims") is not None
@@ -70,7 +71,8 @@ def unported_piece(cfg: Mapping[str, Any]) -> Optional[str]:
          "a readout without exactly one post-merge layer"),
         ((cfg.get("post_merge_activation") or "tanh") == "tanh",
          f"the {cfg.get('post_merge_activation')!r} post-merge activation"),
-        (criterion.get("name") == "log_likelihood",
+        (criterion.get("name") in ("log_likelihood", "mse_gain",
+                                   "mse_reward"),
          f"the {criterion.get('name')!r} criterion"),
         (cfg.get("embed_outputs", True), "one-hot (non-embedded) feedback"),
         (prior.get("type", "expanding")
@@ -130,7 +132,9 @@ class RecognizerNet(nn.Module):
         D = self.encoder.dim_encoded
         attention = make_attention(attention_type, ("states",), dim_dec, D,
                                    dim_matcher or dim_dec, conv_n=conv_n,
-                                   prior=prior)
+                                   prior=prior,
+                                   energy_normalizer=energy_normalizer)
+        criterion = dict(criterion or {"name": "log_likelihood"})
         self.use_pallas = use_pallas
         lm_conf = dict(lm or {})
         language_model = fusion = None
@@ -152,27 +156,36 @@ class RecognizerNet(nn.Module):
             attention, num_phonemes, dim_dec,
             dim_output_embedding or dim_dec, post_merge_dims,
             use_states_for_readout=use_states_for_readout,
-            language_model=language_model, fusion=fusion)
+            language_model=language_model, fusion=fusion,
+            criterion=criterion["name"],
+            min_reward=float(criterion.get("min_reward", -1.0)))
 
     def encode(self, inputs, inputs_mask, train=False):
         """(B, T, F) features, (B, T) mask -> encoded (B, L, D), mask.
         ``train`` runs the differentiable scans of the training path."""
         return self.encoder(self.bottom(inputs), inputs_mask, train=train)
 
-    def cost(self, inputs, inputs_mask, labels, labels_mask, train=False):
+    def cost(self, inputs, inputs_mask, labels, labels_mask, prediction=None,
+             prediction_mask=None, train=False):
         """The teacher-forced cost graph (JAX ``RecognizerNet.cost``):
         batch-major (B, T) labels and masks in, the generator's evaluate
-        dict (``costs`` (T, B), ``weights``, ``energies``, ``readouts``)
-        plus ``encoded``, ``encoded_mask`` and ``bottom_output`` out."""
+        dict (``costs`` (T, B), ``weights``, ``energies``, ``readouts``,
+        the mse criteria's aux outputs) plus ``encoded``, ``encoded_mask``
+        and ``bottom_output`` out.  ``prediction`` (B, T') and its mask,
+        the exploration's outputs, are fed in place of the labels, which
+        stay the groundtruth of the mse criteria."""
         if self.dropout and train:
             raise NotImplementedError("not ported yet: dropout")
         bottom_output = self.bottom(inputs)
         encoded, encoded_mask = self.encoder(bottom_output, inputs_mask,
                                              train=True)
+        fed = prediction if prediction is not None else labels
+        fed_mask = (prediction_mask if prediction_mask is not None
+                    else labels_mask)
         result = self.generator.evaluate(
-            encoded, encoded_mask, labels.T,
-            labels_mask.T if labels_mask is not None else None,
-            use_pallas=self.use_pallas)
+            encoded, encoded_mask, fed.T,
+            fed_mask.T if fed_mask is not None else None,
+            use_pallas=self.use_pallas, groundtruth=labels.T)
         result.update(encoded=encoded, encoded_mask=encoded_mask,
                       bottom_output=bottom_output)
         return result

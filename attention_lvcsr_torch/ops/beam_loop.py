@@ -4,7 +4,9 @@ plain version.
 Counterpart of ``attention_lvcsr_tpu/ops/pallas/beam_loop.py::
 beam_search_loop`` for the flagship configuration and for content-only
 attention (``content_attention=True``: no conv term, the caller's window
-spanning every frame; see ``csrc/beam_loop.cu`` for the list).
+spanning every frame; see ``csrc/beam_loop.cu`` for the list), with the
+softmax, logistic or relu normalizer (``normalizer``) and the
+log-likelihood or the task loss's costs (``mse_cost``).
 ``beam_search_loop`` takes the plain PyTorch version for tensors on the
 CPU and launches the kernel for tensors on a CUDA device; any other
 device raises, and so does a configuration the kernel does not cover, on
@@ -25,7 +27,11 @@ Semantics shared by both versions (and by the TPU kernel):
   (filter flipped), trimmed from 'full' mode; content-only attention has
   none, and its tables need no ``handler`` and no ``conv_filters``;
 * a fully masked utterance starts retired; an utterance that stops
-  commits nothing more, and ``steps`` counts the steps it ran.
+  commits nothing more, and ``steps`` counts the steps it ran;
+* under relu, a row whose unnormalized weights are all zero over a
+  non-empty window gets zero weights and its candidates cost ``BIG``, so
+  they lose the selection (where the module path divides 0 by 0 and its
+  NaN candidates are never picked).
 """
 from __future__ import annotations
 
@@ -43,6 +49,9 @@ PATIENCE = 30
 
 PRIORS = ("expanding", "window_around_median")
 STOP_ON = ("patience", "optimistic_future_cost")
+# the attention's energy normalizers, in the order of the kernel's
+# ``normalizer`` field (0, a zeroed field, is softmax)
+NORMALIZERS = ("softmax", "logistic", "relu")
 
 launches = _build.LaunchCounter()
 
@@ -58,20 +67,36 @@ _TABLE_SHAPES = {
 _CONV_TABLE_SHAPES = {"handler": "M", "conv_filters": "1T"}
 
 
-def _check_config(tables, prior, stop_on, content_attention):
+def unported_loop(prior, n_filters, normalizer, content_attention):
+    """The first piece of a decode configuration the loop kernel does not
+    cover, or None: the search's router asks it before any launch, and
+    :func:`beam_search_loop` refuses what it names."""
     if prior not in PRIORS:
-        raise NotImplementedError(
-            f"beam_search_loop: prior {prior!r} is not ported "
-            f"(supported: {PRIORS})")
+        return f"prior {prior!r} (supported: {PRIORS})"
+    if normalizer not in NORMALIZERS:
+        return f"the {normalizer!r} normalizer"
+    if content_attention:
+        if normalizer != "softmax":
+            return f"the {normalizer!r} normalizer of content attention"
+        return None
+    if n_filters != 1:
+        return f"{n_filters} conv filters (only one is ported)"
+    return None
+
+
+def _check_config(tables, prior, stop_on, content_attention, normalizer):
     if stop_on not in STOP_ON:
         raise ValueError(f"unknown stop_on {stop_on!r}")
-    if content_attention:
-        return
-    filters = tables["conv_filters"]
-    if filters.ndim != 2 or filters.shape[0] != 1:
-        raise NotImplementedError(
-            "beam_search_loop: only one conv filter is ported "
-            f"(got conv_filters of shape {tuple(filters.shape)})")
+    n_filters = 0
+    if not content_attention:
+        filters = tables["conv_filters"]
+        n_filters = filters.shape[0] if filters.ndim == 2 else -1
+    piece = unported_loop(prior, n_filters, normalizer, content_attention)
+    if piece is not None:
+        raise NotImplementedError(f"beam_search_loop: {piece} is not ported")
+    if normalizer != "softmax" and "energy_b" not in tables:
+        raise ValueError(f"beam_search_loop: the {normalizer!r} normalizer "
+                         "needs the energy bias (table 'energy_b')")
 
 
 def beam_search_loop_reference(pre, attended, att_mask, tables, *, beam,
@@ -80,12 +105,17 @@ def beam_search_loop_reference(pre, attended, att_mask, tables, *, beam,
                                round_to_inf=1e9, prior="expanding",
                                before=0.0, after=0.0, initial_begin=0.0,
                                initial_end=1e4, min_speed=0.0,
-                               max_speed=0.0, content_attention=False):
+                               max_speed=0.0, content_attention=False,
+                               normalizer="softmax", mse_cost=False):
     """Plain PyTorch version, vectorized over all U*K hypothesis rows.
 
-    Returns (done_out (U, K, max_len) int32, done_meta (U, K, 3) float32
-    [cost, adjusted, length], steps (U,) int32)."""
-    _check_config(tables, prior, stop_on, content_attention)
+    ``normalizer``: the energies' normalizer (logistic and relu add the
+    energy bias, ``tables["energy_b"]``); ``mse_cost``: the costs are the
+    negated logits (the task loss's reward regression) in place of their
+    negated log-softmax.  Returns (done_out (U, K, max_len) int32,
+    done_meta (U, K, 3) float32 [cost, adjusted, length], steps (U,)
+    int32)."""
+    _check_config(tables, prior, stop_on, content_attention, normalizer)
     f32 = torch.float32
     dev = pre.device
     U, L, M = pre.shape
@@ -191,13 +221,26 @@ def beam_search_loop_reference(pre, attended, att_mask, tables, *, beam,
         match = torch.tanh(match)
         energies = (match * t["v"].view(1, 1, 1, M)).sum(dim=3).view(R, L)
 
-        # ---- masked softmax ----------------------------------------------
-        masked = torch.where(gmask > 0, energies, NEG)
-        mx = masked.max(dim=1, keepdim=True).values
-        mx = torch.where(mx > NEG / 2, mx, 0.0)
-        unnorm = torch.exp(energies - mx) * combined
+        # ---- masked normalization ------------------------------------------
+        bad = None
+        if normalizer == "softmax":
+            masked = torch.where(gmask > 0, energies, NEG)
+            mx = masked.max(dim=1, keepdim=True).values
+            mx = torch.where(mx > NEG / 2, mx, 0.0)
+            unnorm = torch.exp(energies - mx) * combined
+        else:
+            energies = energies + t["energy_b"].reshape(())
+            if normalizer == "logistic":
+                unnorm = torch.sigmoid(energies) * combined
+            else:
+                unnorm = torch.clamp(energies / 1000.0, min=0.0) * combined
         denom = unnorm.sum(dim=1, keepdim=True) + (
             combined.sum(dim=1, keepdim=True) == 0).to(f32)
+        if normalizer == "relu":
+            # all-zero weights over a live window: zero weights, and the
+            # row's candidates lose the selection (JAX beam_loop.py:353)
+            bad = denom == 0.0
+            denom = denom + bad.to(f32)
         wnew = unnorm / denom
 
         # ---- readout -------------------------------------------------------
@@ -206,10 +249,15 @@ def beam_search_loop_reference(pre, attended, att_mask, tables, *, beam,
         if "merge_states_k" in t:
             merged = merged + h @ t["merge_states_k"]
         logits = torch.tanh(merged) @ t["post_k"] + t["post_b"]
-        lmx = logits.max(dim=1, keepdim=True).values
-        lse = lmx + torch.log(torch.exp(logits - lmx).sum(dim=1,
-                                                           keepdim=True))
-        costs = lse - logits                                 # (R, V)
+        if mse_cost:
+            costs = -logits
+        else:
+            lmx = logits.max(dim=1, keepdim=True).values
+            lse = lmx + torch.log(torch.exp(logits - lmx).sum(
+                dim=1, keepdim=True))
+            costs = lse - logits                             # (R, V)
+        if bad is not None:
+            costs = torch.where(bad, BIG, costs)
 
         # ---- selection: K best of K*V, lowest flat index wins ties -------
         work = (acost[:, None] + costs).view(U, K * V)
@@ -283,10 +331,12 @@ def _align4(n):
     return (n + 3) & ~3
 
 
-def smem_plan(K, L, M, D, S, R, V, F, Lout, n_taps, content=False):
+def smem_plan(K, L, M, D, S, R, V, F, Lout, n_taps, content=False,
+              normalizer="softmax"):
     """``make_layout``: buffer offsets (floats, each 16-byte aligned) and
     the block's bytes, and whether they fit an H100 block.  Content-only
-    attention keeps no taps, handler or convolution."""
+    attention keeps no taps, handler or convolution; only the relu
+    normalizer keeps its rows' all-zero flags."""
     if content:
         n_taps = 0
     offsets, p = {}, 0
@@ -297,14 +347,16 @@ def smem_plan(K, L, M, D, S, R, V, F, Lout, n_taps, content=False):
         p = _align4(p + n)
 
     warps = THREADS // 32
+    # relu's row flags take no room under the other normalizers
+    bad = (("bad", K),) if normalizer == "relu" else ()
     for name, n in (("h", K * S), ("w", K * L), ("aout", K * Lout),
                     ("dout", K * Lout), ("acost", K), ("dadj", K),
                     ("dcost", K), ("dlen", K), ("newadj", K), ("chosen", K),
                     ("src", K), ("sym", K), ("pick", K), ("mask", L),
                     ("taps", n_taps), ("handler", 0 if content else M),
-                    ("v", M),
-                    ("begins", K), ("ends", K), ("red_v", warps + 1),
-                    ("red_i", warps + 1), ("wn", K * L), ("wa", K * D)):
+                    ("v", M), ("begins", K), ("ends", K), *bad,
+                    ("red_v", warps + 1), ("red_i", warps + 1),
+                    ("wn", K * L), ("wa", K * D)):
         take(name, n)
     scratch, ends = p, []
     for phase in ((("conv", 0 if content else K * L), ("sp", K * M)),
@@ -343,9 +395,9 @@ class _Args(ctypes.Structure):
         + [(name, ctypes.c_int) for name in (
             "U", "L", "M", "D", "S", "R", "V", "F", "K", "Lout", "n_taps",
             "eol", "stop_patience", "ignore_first_eol", "prior_median",
-            "content")]
+            "content", "normalizer", "mse_cost")]
         + [(name, ctypes.c_float) for name in (
-            "char_discount", "round_to_inf", "before", "after",
+            "energy_b", "char_discount", "round_to_inf", "before", "after",
             "initial_begin", "initial_end", "min_speed", "max_speed")])
 
 
@@ -367,8 +419,9 @@ def _launch(pre, attended, att_mask, tables, *, beam, max_len, eol,
             stop_on="patience", ignore_first_eol=False, char_discount=0.0,
             round_to_inf=1e9, prior="expanding", before=0.0, after=0.0,
             initial_begin=0.0, initial_end=1e4, min_speed=0.0,
-            max_speed=0.0, content_attention=False):
-    _check_config(tables, prior, stop_on, content_attention)
+            max_speed=0.0, content_attention=False, normalizer="softmax",
+            mse_cost=False):
+    _check_config(tables, prior, stop_on, content_attention, normalizer)
     U, L, M = pre.shape
     D = attended.shape[-1]
     dims = {"U": U, "L": L, "M": M, "D": D, "1": 1,
@@ -417,7 +470,11 @@ def _launch(pre, attended, att_mask, tables, *, beam, max_len, eol,
         stop_patience=int(stop_on == "patience"),
         ignore_first_eol=int(bool(ignore_first_eol)),
         prior_median=int(prior == "window_around_median"),
-        content=int(bool(content_attention)), char_discount=char_discount,
+        content=int(bool(content_attention)),
+        normalizer=NORMALIZERS.index(normalizer), mse_cost=int(bool(mse_cost)),
+        energy_b=(float(tables["energy_b"]) if normalizer != "softmax"
+                  else 0.0),
+        char_discount=char_discount,
         round_to_inf=round_to_inf,
         before=before, after=after, initial_begin=initial_begin,
         initial_end=initial_end, min_speed=min_speed, max_speed=max_speed)

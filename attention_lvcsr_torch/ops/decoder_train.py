@@ -14,8 +14,10 @@ average and the GRU transition), same arguments and outputs.
   GRU decoders (``dec_stack`` up to 4).  Autograd takes its gradient.
 * On a CUDA tensor :func:`decoder_scan_train` is a
   ``torch.autograd.Function`` over ``csrc/decoder_train.cu`` for the
-  flagship variant (one conv filter, softmax, expanding or median prior,
-  one GRU layer) and for content-only attention (``n_filters=0``: no
+  flagship variant (one conv filter, the softmax, logistic or relu
+  normalizer, expanding or median prior, one GRU layer; logistic and relu
+  with the energy bias ``e_bias``, which gets its gradient) and for
+  content-only attention (``n_filters=0``: no
   convolution and no handler term, so the previous weights do not feed
   the energies, and the Toeplitz band and handler get no gradient): a
   forward kernel, then a reverse-time backward kernel
@@ -50,6 +52,8 @@ import ctypes
 import torch
 
 from attention_lvcsr_torch import _build
+# the normalizers in the order of the kernels' ``normalizer`` field
+from attention_lvcsr_torch.ops.beam_loop import NORMALIZERS
 from attention_lvcsr_torch.ops.outer_sum import MAX_JOBS, outer_sum
 
 NEG = -1e30
@@ -469,10 +473,10 @@ class _Args(ctypes.Structure):
             "h_out", "w_out", "wa_out", "e_out", "u_out", "r_out", "c_out",
             "bounds", "exch", "barrier",
             "dh", "dw", "dwa", "dfx", "dfg", "dh0", "dwa0", "dpre", "dsp",
-            "wg", "dconv", "dwan", "dhand", "dv")]
+            "wg", "dconv", "dwan", "dhand", "dv", "e_bias", "gsc")]
         + [(name, ctypes.c_int) for name in (
             "T", "B", "L", "M", "D", "S", "prior_median", "content",
-            "cluster",
+            "normalizer", "cluster",
             "clusters", "res_pre", "res_att", "res_dpre")]
         + [(name, ctypes.c_float) for name in (
             "before", "after", "initial_begin", "initial_end", "min_speed",
@@ -484,7 +488,10 @@ def unported_variant(normalizer, n_filters, dec_stack, prior_type):
     or None."""
     for ok, piece in (
             (int(n_filters) in (0, 1), f"{n_filters} conv filters"),
-            (normalizer == "softmax", f"the {normalizer!r} normalizer"),
+            (normalizer == "softmax" or (int(n_filters) == 1
+                                         and normalizer in NORMALIZERS),
+             f"the {normalizer!r} normalizer"
+             + (" of content attention" if int(n_filters) == 0 else "")),
             (int(dec_stack) == 1, f"dec_stack={dec_stack}"),
             (prior_type in ("expanding", "window_around_median"),
              f"the {prior_type!r} prior")):
@@ -575,17 +582,20 @@ class _DecoderScanTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cfg, fx, fg, mask, step0, pre, att, amask, h0, w0, wa0,
-                toep, st, hand, v, wss, wsg, dxm, dgm):
+                toep, st, hand, v, wss, wsg, dxm, dgm, e_bias):
         T, B, S = fx.shape
         L, M, D = pre.shape[1], pre.shape[2], att.shape[2]
         new = lambda *s: torch.empty(*s, dtype=fx.dtype, device=fx.device)
+        norm = NORMALIZERS.index(cfg["normalizer"])
         outs = dict(h_out=new(T, B, S), w_out=new(T, B, L),
                     wa_out=new(T, B, D), e_out=new(T, B, L),
                     u_out=new(T, B, S), r_out=new(T, B, S),
                     c_out=new(T, B, S), bounds=new(max(T, 1), 2),
-                    exch=new(2, 2 * B))
+                    exch=new(2, 2 * B),
+                    gsc=new(T, B, L) if norm else new(0))
         ins = dict(fx=fx, fg=fg, mask=mask, step0=step0, pre=pre, att=att,
-                   amask=amask, h0=h0, w0=w0, wa0=wa0, hand=hand, v=v)
+                   amask=amask, h0=h0, w0=w0, wa0=wa0, hand=hand, v=v,
+                   e_bias=e_bias)
         conv = cfg["n_filters"] == 1
         if T and B:
             p, d = _plan_args("forward", B, L, M, D, S, fx.device, conv)
@@ -596,8 +606,8 @@ class _DecoderScanTrain(torch.autograd.Function):
                             {**ins, **outs, **packed}.items()},
                          barrier=barrier.data_ptr(), T=T, B=B, L=L, M=M, D=D,
                          S=S, prior_median=int(cfg["prior"] != "expanding"),
-                         content=int(not conv), cluster=p["cluster"],
-                         clusters=p["clusters"],
+                         content=int(not conv), normalizer=norm,
+                         cluster=p["cluster"], clusters=p["clusters"],
                          res_pre=p["res_pre"], res_att=p["res_att"],
                          **{k: cfg[k] for k in _PRIOR})
             _launch("decoder_train_fwd_f32", args, fx)
@@ -605,17 +615,19 @@ class _DecoderScanTrain(torch.autograd.Function):
         ctx.cfg = cfg
         ctx.save_for_backward(fx, fg, mask, step0, pre, att, amask, h0, w0,
                               wa0, toep, st, hand, v, wss, wsg, dxm, dgm,
-                              *outs.values())
+                              e_bias, *outs.values())
         return (outs["h_out"], outs["w_out"], outs["wa_out"], outs["e_out"])
 
     @staticmethod
     def backward(ctx, dh, dw, dwa, _de):
         saved = ctx.saved_tensors
         (fx, fg, mask, step0, pre, att, amask, h0, w0, wa0, toep, st, hand,
-         v, wss, wsg, dxm, dgm) = saved[:18]
+         v, wss, wsg, dxm, dgm, e_bias) = saved[:19]
         (h_out, w_out, wa_out, e_out, u_out, r_out, c_out, bounds,
-         exch) = saved[18:]
+         exch, gsc) = saved[19:]
         cfg = ctx.cfg
+        # logistic and relu: dv's rows carry the bias's gradient last
+        nb = int(cfg["normalizer"] != "softmax")
         T, B, S = fx.shape
         L, M, D = pre.shape[1], pre.shape[2], att.shape[2]
         new = lambda *s: torch.empty(*s, dtype=fx.dtype, device=fx.device)
@@ -632,12 +644,12 @@ class _DecoderScanTrain(torch.autograd.Function):
         # their gradients stay zero and no outer_sum job forms them
         w_grads = dict(dtoep=zeros(L, L), dst=zeros(S, M), dwss=zeros(S, S),
                        dwsg=zeros(S, 2 * S), ddx=zeros(D, S),
-                       ddg=zeros(D, 2 * S), dhand=zeros(1, M), dv=zeros(1, M),
-                       datt=zeros(B, L, D))
+                       ddg=zeros(D, 2 * S), dhand=zeros(1, M),
+                       dv=zeros(1, M + nb), datt=zeros(B, L, D))
         if T and B:
             p, d = _plan_args("backward", B, L, M, D, S, fx.device, conv)
             C = p["cluster"]
-            g.update(dv=new(B * C, M))
+            g.update(dv=new(B * C, M + nb))
             if conv:
                 g.update(dhand=new(B * C, M))
             packed = pack_backward(d, toep if conv else None, st, wss, wsg,
@@ -646,12 +658,14 @@ class _DecoderScanTrain(torch.autograd.Function):
                        amask=amask, h0=h0, w0=w0, wa0=wa0, hand=hand, v=v,
                        h_out=h_out, w_out=w_out, wa_out=wa_out, e_out=e_out,
                        u_out=u_out, r_out=r_out, c_out=c_out, bounds=bounds,
-                       dh=dh, dw=dw, dwa=dwa)
+                       dh=dh, dw=dw, dwa=dwa, e_bias=e_bias, gsc=gsc)
             args = _Args(**{k: _ptr(t) for k, t in
                             {**ins, **g, **packed}.items()},
                          T=T, B=B, L=L, M=M, D=D, S=S,
                          prior_median=int(cfg["prior"] != "expanding"),
-                         content=int(not conv), cluster=C,
+                         content=int(not conv),
+                         normalizer=NORMALIZERS.index(cfg["normalizer"]),
+                         cluster=C,
                          clusters=p["clusters"],
                          res_pre=p["res_pre"], res_att=p["res_att"],
                          res_dpre=p["res_dpre"],
@@ -679,11 +693,13 @@ class _DecoderScanTrain(torch.autograd.Function):
         else:
             for k in ("dfx", "dfg", "dh0", "dwa0", "dpre"):
                 g[k].zero_()
+        dv = w_grads["dv"][0]
         return (None, g["dfx"], g["dfg"], None, None, g["dpre"],
                 w_grads["datt"], None, g["dh0"], None, g["dwa0"],
                 w_grads["dtoep"], w_grads["dst"], w_grads["dhand"],
-                w_grads["dv"].view(M), w_grads["dwss"], w_grads["dwsg"],
-                w_grads["ddx"], w_grads["ddg"])
+                dv[:M], w_grads["dwss"], w_grads["dwsg"],
+                w_grads["ddx"], w_grads["ddg"],
+                dv[M:].reshape(e_bias.shape) if nb else None)
 
 
 def decoder_scan_train(fx, fg, mask, pre, attended, att_mask, h0, w0, wa0,
@@ -712,7 +728,8 @@ def decoder_scan_train(fx, fg, mask, pre, attended, att_mask, h0, w0, wa0,
             inter_in=inter_in, inter_gate=inter_gate)
     if device.type != "cuda":
         raise ValueError(f"decoder_scan_train: no kernel for device {device}")
-    cfg = dict(prior_config(prior), n_filters=int(n_filters))
+    cfg = dict(prior_config(prior), n_filters=int(n_filters),
+               normalizer=normalizer)
     piece = unported_variant(normalizer, n_filters, dec_stack, cfg["prior"])
     if piece is not None:
         raise NotImplementedError(
@@ -733,6 +750,11 @@ def decoder_scan_train(fx, fg, mask, pre, attended, att_mask, h0, w0, wa0,
             ("wss", wss, (S, S)), ("wsg", wsg, (S, 2 * S)),
             ("dxm", dxm, (D, S)), ("dgm", dgm, (D, 2 * S))):
         _check(name, t, shape, device)
+    if normalizer != "softmax":
+        e_bias = e_bias.reshape(1).contiguous()
+        _check("e_bias", e_bias, (1,), device)
+    else:
+        e_bias = None
     return _DecoderScanTrain.apply(
         cfg, fx, fg, mask, step_zero(mask), pre, attended, att_mask, h0, w0,
-        wa0, toep, st, hand.reshape(1, M), v, wss, wsg, dxm, dgm)
+        wa0, toep, st, hand.reshape(1, M), v, wss, wsg, dxm, dgm, e_bias)

@@ -4,9 +4,11 @@ decode.
 Counterpart of ``attention_lvcsr_tpu/search/beam.py``.  ``search`` routes
 as the JAX package does on its accelerator:
 
-* no language model, no constraint, no validator (and ``use_pallas`` not
-  ``"never"``): encoder + one ``beam_search_loop`` launch per batch
-  (``_search_loop``, the JAX ``_search_loop_kernel``);
+* no language model, no constraint, no validator, ``use_pallas`` not
+  ``"never"``, and a decode the loop kernel holds (:func:`loop_route`,
+  decided from the config and the shapes before anything runs, as JAX's
+  ``_loop_kernel_mode``): encoder + one ``beam_search_loop`` launch per
+  batch (``_search_loop``, the JAX ``_search_loop_kernel``);
 * otherwise the module-driven decode ``_search_core``: a PyTorch loop on
   the model's device whose step is the recognizer's ``decode_score`` (the
   attention energies through ``beam_attention_energies``, or the whole
@@ -46,11 +48,49 @@ import numpy as np
 import torch
 
 from attention_lvcsr_torch.ops.beam_loop import INF as LOOP_INF
-from attention_lvcsr_torch.ops.beam_loop import beam_search_loop
+from attention_lvcsr_torch.ops.beam_loop import (beam_search_loop,
+                                                 smem_plan, unported_loop)
 
 INF = 1e9
 PATIENCE = 30
 NOT_STATE = -1
+MAX_LOOP_BEAM = 512     # JAX BeamSearch.MAX_LOOP_BEAM
+
+
+def loop_route(net_config, beam, num_frames, max_len):
+    """Whether a decode without constraint or validator takes the
+    whole-loop kernel: a pure function of the recognizer's net config
+    (``RecognizerNet``'s keyword arguments), the beam, the input frames
+    and the decode cap.  False (the module-driven ``_search_core``) with
+    an LM, under ``use_pallas: never``, above ``MAX_LOOP_BEAM``, for a
+    configuration the kernel does not cover (``ops/beam_loop.py::
+    unported_loop``) and when one utterance's state does not fit a
+    block's shared memory (``smem_plan``), the cases where JAX's
+    ``_loop_kernel_mode`` (``search/beam.py:283-344``) leaves the
+    kernel."""
+    c = dict(net_config)
+    if (c.get("lm") or {}).get("path") or c.get("use_pallas") == "never" \
+            or beam > MAX_LOOP_BEAM:
+        return False
+    content = c.get("attention_type", "content") == "content"
+    prior = dict(c.get("prior") or {}).get("type", "expanding")
+    normalizer = c.get("energy_normalizer") or "softmax"
+    if unported_loop("expanding" if content else prior,
+                     0 if content else c.get("conv_num_filters") or 1,
+                     "softmax" if content else normalizer, content):
+        return False
+    L = int(num_frames)
+    for s in c.get("subsample") or [1] * len(c["dims_bidir"]):
+        L = -(-L // int(s))
+    dim_dec = c["dim_dec"]
+    plan = smem_plan(
+        K=beam, L=L, M=c.get("dim_matcher") or dim_dec,
+        D=(2 if c.get("bidir", True) else 1) * c["dims_bidir"][-1],
+        S=dim_dec, R=c["post_merge_dims"][0], V=c["num_phonemes"],
+        F=c.get("dim_output_embedding") or dim_dec, Lout=max(1, max_len),
+        n_taps=0 if content else 2 * c["conv_n"] + 1, content=content,
+        normalizer="softmax" if content else normalizer)
+    return plan["fits"]
 
 
 class CandidateNotFoundError(Exception):
@@ -172,8 +212,8 @@ class BeamSearch:
                   char_discount=float(char_discount),
                   round_to_inf=float(round_to_inf))
         if (constraint is None and post_filter is None
-                and self.net.generator.language_model is None
-                and self.net.use_pallas != "never"):
+                and loop_route(self.recognizer.net_config, self.beam_size,
+                               inputs.shape[1], int(max_length))):
             out = self._search_loop(inputs, inputs_mask,
                                     max_len=max(1, int(max_length)), **kw)
         else:
@@ -218,7 +258,10 @@ class BeamSearch:
             initial_end=float(prior.get("initial_end", 1e4)),
             min_speed=float(prior.get("min_speed", 0.0)),
             max_speed=float(prior.get("max_speed", 0.0)),
-            content_attention=not attention.conv)
+            content_attention=not attention.conv,
+            normalizer=(attention.energy_normalizer if attention.conv
+                        else "softmax"),
+            mse_cost=self.net.generator.mse)
         meta = done_meta.cpu().numpy()
         return {
             "done_out": done_out.cpu().numpy(),

@@ -1,8 +1,7 @@
 """The driver: model construction, the train step, the loop, and the
 search, sampling and data entries of ``run.py``.
 
-Counterpart of ``attention_lvcsr_tpu/train/driver.py`` for teacher-forced
-(``exploration: imitative``) training:
+Counterpart of ``attention_lvcsr_tpu/train/driver.py``:
 
 * :func:`create_model` builds the recognizer from a config and its data
   manager and loads a checkpoint of either package;
@@ -12,7 +11,9 @@ Counterpart of ``attention_lvcsr_tpu/train/driver.py`` for teacher-forced
   recording and ``decay`` times the squared norm of the weight leaves
   (``_weight_leaf`` :99-102), through ``train/rules.py``'s chain; the
   same monitors, ``total_gradient_norm`` and ``total_step_norm``
-  included; with ``regularization.adaptive_noise`` it is
+  included; with ``training.exploration`` ``greedy`` or ``mixed`` (JAX
+  :128-172, the task loss's) the decoder is fed the model's own outputs
+  (:func:`explore`); with ``regularization.adaptive_noise`` it is
   :func:`make_adaptive_noise_train_step` (JAX :263-380), Graves' adaptive
   weight noise over the recognizer's noise collection.  The parameters
   are updated in place;
@@ -51,8 +52,7 @@ Counterpart of ``attention_lvcsr_tpu/train/driver.py`` for teacher-forced
   are the other entries of the JAX ``run.py`` (:829-881).
 
 Not ported, and refused with ``NotImplementedError`` naming the piece:
-additive weight noise, dropout, greedy and mixed exploration, and a bf16
-compute dtype.  Not ported, and named in a ``logging`` warning
+additive weight noise, dropout, and a bf16 compute dtype.  Not ported, and named in a ``logging`` warning
 when a config sets them (:data:`UNPORTED_KEYS`): the plot channels.
 """
 from __future__ import annotations
@@ -142,7 +142,8 @@ def unported_training(config) -> Optional[str]:
     checks = [
         (not float(reg.get("noise", 0.0) or 0.0), "weight noise"),
         (not reg.get("dropout"), "dropout"),
-        (train_conf.get("exploration", "imitative") == "imitative",
+        (train_conf.get("exploration", "imitative")
+         in ("imitative", "greedy", "mixed"),
          f"exploration {train_conf.get('exploration')!r}"),
         (not train_conf.get("compute_dtype"),
          f"compute_dtype {train_conf.get('compute_dtype')!r}"),
@@ -153,13 +154,50 @@ def unported_training(config) -> Optional[str]:
     return None
 
 
+def explore(net, exploration, eos_label, inputs, inputs_mask, labels,
+            labels_mask, generator=None, coin=None):
+    """The fed outputs of a greedy or mixed exploration step (JAX
+    ``make_train_step`` :144-165, the reference's ``lvsr/main.py:245-283``):
+    ``TL + 10`` steps of the model's own outputs (``net.generate``: the
+    argmax of a task-loss model, a draw from ``generator`` of a
+    log-likelihood one), masked after the first EOS (the mask rolled by
+    one, so the EOS step still counts); for ``mixed``, each row keeps them
+    or takes the labels (padded to ``TL + 10``) by a coin of probability
+    0.5, ``coin`` (B,) bool or, when None, drawn from ``generator``.
+    Returns batch-major (prediction, prediction_mask), without gradient."""
+    B, TL = labels.shape
+    n_steps = TL + 10
+    with torch.no_grad():
+        pred = net.generate(inputs, inputs_mask, n_steps,
+                            generator)["outputs"]          # (T', B)
+        pmask = (torch.cumsum((pred == eos_label).to(torch.int32), dim=0)
+                 < 1).to(torch.float32)
+        pmask = torch.roll(pmask, 1, dims=0)
+        pmask[0] = 1.0
+        if exploration == "mixed":
+            pad = n_steps - TL
+            targets = torch.cat([labels.T.to(pred.dtype),
+                                 pred.new_zeros(pad, B)])
+            tmask = torch.cat([labels_mask.T, pmask.new_zeros(pad, B)])
+            if coin is None:
+                coin = torch.rand(B, generator=generator,
+                                  device=pred.device) < 0.5
+            coin = coin.to(pred.device)[None, :]
+            pred = torch.where(coin, pred, targets)
+            pmask = torch.where(coin, pmask, tmask)
+    return pred.T.contiguous(), pmask.T.contiguous()
+
+
 def make_train_step(recognizer: SpeechRecognizer, optimizer, config):
     """``step(opt_state, inputs, inputs_mask, labels, labels_mask, *,
-    generator=None) -> (opt_state, monitors)``: one teacher-forced
-    training step on batch-major tensors, the parameters updated in place;
-    ``monitors`` is a dict of 0-d tensors; ``generator`` is the noise
-    steps' source of draws, which this step does not use.  A non-empty
-    ``regularization.adaptive_noise`` section gives
+    generator=None, coin=None) -> (opt_state, monitors)``: one training
+    step on batch-major tensors, the parameters updated in place;
+    ``monitors`` is a dict of 0-d tensors.  Under ``training.exploration``
+    ``imitative`` the labels are fed (teacher forcing); under ``greedy``
+    and ``mixed`` the outputs of :func:`explore`, ``generator`` (a
+    ``torch.Generator`` on the model's device; a fresh one seeded 0 when
+    None) giving its draws and ``coin`` fixing the mixed one.  A
+    non-empty ``regularization.adaptive_noise`` section gives
     :func:`make_adaptive_noise_train_step`'s step (an empty one is off
     here, as in the JAX ``make_train_step``; ``run_training`` fills it
     in)."""
@@ -171,18 +209,30 @@ def make_train_step(recognizer: SpeechRecognizer, optimizer, config):
         return make_adaptive_noise_train_step(recognizer, optimizer, config)
     decay = float(reg.get("decay", 0.0) or 0.0)
     penalty_coof = float(reg.get("penalty_coof", 0.0) or 0.0)
+    exploration = (config.get("training", {}) or {}).get("exploration",
+                                                         "imitative")
     net = recognizer.net
     params = recognizer.parameters()
     decayed = [p for path, p in params.items() if weight_leaf(path)]
 
     def step(opt_state, inputs, inputs_mask, labels, labels_mask, *,
-             generator=None):
+             generator=None, coin=None):
         B, TL = labels.shape
+        prediction = prediction_mask = None
+        if exploration != "imitative":
+            if generator is None:
+                generator = torch.Generator(
+                    device=labels.device).manual_seed(0)
+            prediction, prediction_mask = explore(
+                net, exploration, recognizer.eos_label, inputs, inputs_mask,
+                labels, labels_mask, generator, coin)
         net.requires_grad_(True)
-        out = net.cost(inputs, inputs_mask, labels, labels_mask, train=True)
+        out = net.cost(inputs, inputs_mask, labels, labels_mask,
+                       prediction, prediction_mask, train=True)
         batch_cost = out["costs"].sum()
         cost = batch_cost / B
-        lm = labels_mask.T
+        lm = (prediction_mask if prediction_mask is not None
+              else labels_mask).T
         w_penalty = monotonicity_penalty(out["weights"], lm)
         w_entropy = entropy(out["weights"], lm)
         train_cost = cost

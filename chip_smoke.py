@@ -11,7 +11,9 @@ dictionary constraint; trains it; serves it waveforms; decodes and
 trains it with a 4x250 BiLSTM encoder; decodes, scores and samples it
 through the search driver; trains the paper's WSJ stages; and trains,
 decodes and scores the TIMIT recipe's content-attention model with
-adaptive weight noise.  Phases, each fatal on failure:
+adaptive weight noise; and trains the task-loss recipe with greedy
+exploration, its kernel branches held to their plain versions.  Phases,
+each fatal on failure:
 
 1. build the kernels (one nvcc per source, sm_90a) and print the time;
 2. ``gru_scan`` kernel vs its plain PyTorch version at the encoder's
@@ -194,7 +196,31 @@ adaptive weight noise.  Phases, each fatal on failure:
     validation), bit for bit; (d) ``run_search`` at decode_batch 4 over 8
     utterances on ``annealing``'s model, kernels vs plain as phase 18
     compares them, at least 6 hypotheses non-empty; the seconds of a-b, c
-    and d.
+    and d;
+21. the task loss (``exp/timit/configs/iclr_reward.yaml``: nips_smooth's
+    conv attention with the logistic normalizer, ``mse_gain``, greedy
+    exploration): (a) the flagship at beam 20, U=16, 800 frames, whose
+    loop state does not fit a block: ``search`` takes the module route
+    (no ``beam_search_loop`` launch) and finds the plain loop's best
+    hypotheses; (b) ``beam_search_loop``'s ``mse_cost`` + logistic branch
+    (the recipe's initialization) and its relu branch against their plain
+    versions at U=64, L=175, beam 10, compared as in phase 3, with their
+    C layouts and times; (c) ``decoder_scan_train``'s logistic and relu
+    branches, forward and backward with the energy bias, against the
+    plain version at B=16, T=75, L=175, 201 taps: states within 1e-5 and
+    every gradient within 1e-4 of its largest value, a second call bit
+    for bit, times; (d) the device reward/gain DP against the host numpy
+    DP on a B=16 batch (equal integers), its time and device launches;
+    (e) the recipe's ``pretraining`` (max-norm, ``min_reward`` -1) and
+    ``pretraining2`` (from ``pretraining_best_ll.zip``) stages, one epoch
+    of 2 batches of 8 each with validation and search (beam 10, U=4), on
+    the kernels and on the plain route: train_cost, total_gradient_norm
+    and validation costs within 1e-4 relative, the same hypotheses (more
+    than half non-empty), utt/s of the steps and the stages; then
+    ``pretraining2`` stopped after an epoch and resumed, bit for bit;
+    (f) one ``wsj_reward3.yaml`` (greedy) and one
+    ``wsj_reward_mixed.yaml`` step at the flagship widths (B=32, 800
+    frames, 100 labels) on both routes, within 1e-4 relative.
 
 Nothing of JAX or of the JAX package is imported; the script checks it.
 
@@ -207,7 +233,11 @@ PyTorch call computes the function; for ``outer_sum``, one cuBLAS
 a-d that run the kernel; ``multistage_launches``, phase 19's kernel-route
 run of the three stages; ``timit_launches``, phase 20c-d's kernel route;
 ``content``, for ``beam_search_loop`` and ``decoder_scan_train``, the
-content branch's times, bound and errors at phase 20's shapes); the last
+content branch's times, bound and errors at phase 20's shapes;
+``mse_logistic`` and ``relu`` for the loop, ``logistic`` and ``relu`` for
+the decoder, phase 21's branches; ``task_loss_launches``, phase 21e's
+kernel route); the line before it holds the rates, phase 21d's reward DP
+time and launches among them; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository around it, the script exits non-zero and prints no result.
 """
@@ -567,6 +597,9 @@ def main():
     t0 = time.perf_counter()
     timit_launches = timit_phase(t, dev, results, rates)
     log(f"phase 20: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    task_loss_launches = task_loss_phase(t, dev, results, rates)
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s")
 
     banned = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "attention_lvcsr_tpu"))
@@ -602,6 +635,8 @@ def main():
             k["multistage_launches"] = stage_launches[k["name"]]
         # phase 20c-d's kernel route: the TIMIT recipe's stages and search
         k["timit_launches"] = timit_launches.get(k["name"], 0)
+        # phase 21e's kernel route: iclr_reward.yaml's two stages
+        k["task_loss_launches"] = task_loss_launches.get(k["name"], 0)
     log(json.dumps(dict(rates, build_s=lib.build_seconds)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -647,25 +682,26 @@ def gru_scan_plans(t, dev, rng, T, D, result):
         log(f"  kernel at B={B}: {result[f'ms_B{B}']:.3f} ms")
 
 
-def beam_loop_plan(dims, content=False):
-    """Phases 3 and 20b: the loop kernel's C shared-memory layout against
-    its Python mirror at the main path's shape (``dims`` carries the C
-    struct's ``content`` flag for the content branch)."""
+def beam_loop_plan(dims, content=False, normalizer="softmax", phase=None):
+    """Phases 3, 20b and 21b: the loop kernel's C shared-memory layout
+    against its Python mirror at the main path's shape (``dims`` carries
+    the C struct's ``content`` flag for the content branch)."""
     import ctypes
     from attention_lvcsr_torch import _build
     from attention_lvcsr_torch.ops import beam_loop as bl
     lib = _build.load().lib
     lib.beam_loop_smem_bytes.argtypes = [ctypes.POINTER(bl._Args)]
     lib.beam_loop_smem_bytes.restype = ctypes.c_int
-    c_bytes = lib.beam_loop_smem_bytes(ctypes.byref(bl._Args(U=1, **dims)))
+    c_bytes = lib.beam_loop_smem_bytes(ctypes.byref(bl._Args(
+        U=1, normalizer=bl.NORMALIZERS.index(normalizer), **dims)))
     plan = bl.smem_plan(**{k: v for k, v in dims.items() if k != "content"},
-                        content=content)
+                        content=content, normalizer=normalizer)
     if c_bytes != plan["smem_bytes"] or not plan["fits"]:
         fail(f"beam_search_loop: the C layout has {c_bytes} bytes, the "
              f"mirror {plan['smem_bytes']} (fits: {plan['fits']}; content "
-             f"{content})")
-    log(f"phase {'20b' if content else '3'} beam_loop layout: {c_bytes} "
-        f"bytes a block (C equals the mirror)")
+             f"{content}, {normalizer})")
+    log(f"phase {phase or ('20b' if content else '3')} beam_loop layout "
+        f"({normalizer}): {c_bytes} bytes a block (C equals the mirror)")
     return {"smem_bytes": c_bytes}
 
 
@@ -3453,6 +3489,621 @@ def timit_phase(t, dev, results, rates):
         shutil.rmtree(tmp)
     return {k: moved.get(k, 0) + search_moved.get(k, 0)
             for k in set(moved) | set(search_moved)}
+
+
+# ---- phase 21: the task loss ----------------------------------------------
+
+ICLR_NET = dict(TIMIT_NET, attention_type="content_and_conv", conv_n=100,
+                conv_num_filters=1, energy_normalizer="logistic",
+                criterion={"name": "mse_gain", "min_reward": -5})
+ICLR = {
+    "regularization": {"dropout": False},
+    "initialization": dict(FLAGSHIP_INIT, **{
+        "/recognizer/generator/readout": {"biases_init": ["Constant",
+                                                          -1.0]}}),
+    "training": {"gradient_threshold": 100.0, "rules": ["adadelta"],
+                 "decay_rate": 0.95, "epsilon": 1e-8, "scale": 0.01,
+                 "momentum": 0.0, "exploration": "greedy"},
+    "monitoring": {"validate_every_epochs": 1, "search_every_epochs": 1,
+                   "search": {"beam_size": 10, "char_discount": 0.0,
+                              "round_to_inf": 4.5, "stop_on": "patience"}}}
+ICLR_STAGES = (
+    ("pretraining", {"data": {"batch_size": 8},
+                     "regularization": {"max_norm": 1.0},
+                     "training": {"num_epochs": 30},
+                     "net": {"criterion": {"min_reward": -1}}}),
+    ("pretraining2", {"data": {"batch_size": 8},
+                      "training": {"num_epochs": 30,
+                                   "restart_from": "_best_ll"}}))
+# wsj_reward1.yaml over wsj_paper1.yaml: the gain-MSE criterion, uniform
+# weights and a pessimistic post-merge bias, the rule's scale 0.01
+WSJ_REWARD_INIT = {
+    "/recognizer": {"weights_init": ["uniform", 0.0, 0.1],
+                    "biases_init": ["constant", 0.0],
+                    "rec_weights_init": ["orthogonal"]},
+    "/recognizer/generator/readout/post_merge_0": {
+        "biases_init": ["constant", -1.0]}}
+
+
+def iclr_stages(epochs=1):
+    """(name, config) of iclr_reward.yaml's first two stages over
+    ICLR_NET, merged as ``Configuration.ordered_stages`` merges them, each
+    cut to ``epochs`` epochs."""
+    from attention_lvcsr_torch.config import merge_recursively
+    base = copy.deepcopy(dict(ICLR, net=ICLR_NET, data={"batch_size": 16}))
+    stages = []
+    for name, delta in ICLR_STAGES:
+        stage = copy.deepcopy(base)
+        merge_recursively(stage, copy.deepcopy(delta))
+        stage["training"]["num_epochs"] = epochs
+        stages.append((name, stage))
+    return stages
+
+
+def routing_check(t, dev):
+    """Phase 21a: a no-LM decode the loop kernel cannot hold (the flagship
+    at beam 20) runs the module route, and finds the plain loop's
+    hypotheses."""
+    import torch
+    from __graft_entry__ import FLAGSHIP_NET
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import attention_energy as ae
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    from attention_lvcsr_torch.search import beam as beam_mod
+    U, frames, K = 16, 800, 20
+    rec = SpeechRecognizer(dict(FLAGSHIP_NET, max_decoded_length_scale=8.0),
+                           init_config=FLAGSHIP_INIT, seed=1234, device=dev)
+    rec.net.generator.readout.post_merge_0.bias.data[rec.eos_label] += 1.5
+    max_len = int(frames / 8.0)
+    if beam_mod.loop_route(rec.net_config, K, frames, max_len) \
+            or not beam_mod.loop_route(rec.net_config, 10, frames, max_len):
+        fail("phase 21a: the routing predicate does not leave the loop "
+             "kernel at beam 20 and keep it at beam 10")
+    rng = np.random.RandomState(21)
+    lengths = rng.randint(600, frames + 1, size=U)
+    lengths[0] = frames
+    feats = t(rng.randn(U, frames, 123))
+    fmask = t(np.arange(frames)[None] < lengths[:, None])
+    rec.init_beam_search(K)
+    bl.launches.reset()
+    ae.launches.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = rec.beam_search(feats, fmask, as_arrays=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if bl.launches.count or not ae.launches.count \
+            or np.ndim(got["steps"]) != 0:
+        fail(f"phase 21a: beam 20 launched beam_search_loop "
+             f"{bl.launches.count} times and beam_attention_energies "
+             f"{ae.launches.count} times: not the module route")
+    prior = rec.net.generator.attention.prior_config()
+    with torch.inference_mode():
+        data = rec.net.decode_loop(feats, fmask)
+        ref = bl.beam_search_loop_reference(
+            data["pre"], data["attended"], data["attended_mask"],
+            rec.net.decode_loop_tables(), beam=K, max_len=max_len,
+            eol=rec.eos_label, ignore_first_eol=rec.data_prepend_eos,
+            prior=prior["type"], before=float(prior["before"]),
+            after=float(prior["after"]))
+    out, meta, steps = (x.cpu().numpy() for x in ref)
+    ref = {"done_out": out, "done_cost": meta[:, :, 0],
+           "done_adjusted": meta[:, :, 1],
+           "done_len": meta[:, :, 2].astype(np.int32),
+           "done_valid": meta[:, :, 1] < bl.INF / 2}
+    best_g, best_r = best_hypotheses(got), best_hypotheses(ref)
+    differ, worst = [], 0.0
+    for u, ((h, c), (rh, rc)) in enumerate(zip(best_g, best_r)):
+        if h == rh and (c is None) == (rc is None) and (
+                c is None or abs(c - rc) <= 1e-4 * max(abs(rc), 1.0)):
+            worst = max(worst, 0.0 if c is None else abs(c - rc))
+            continue
+        if c is None or rc is None or abs(c - rc) > 1e-3 * max(abs(rc), 1):
+            fail(f"phase 21a: utterance {u}: {h} ({c}) on the module route "
+                 f"vs {rh} ({rc}) on the plain loop")
+        differ.append(u)
+    found = sum(c is not None for _, c in best_r)
+    if len(differ) > 1 or found < U * 3 // 4:
+        fail(f"phase 21a: {len(differ)} near ties, {found}/{U} utterances "
+             f"finished")
+    log(f"phase 21a beam {K} at U={U}, {frames} frames: the module route "
+        f"(no loop launch, {ae.launches.count} energy launches, "
+        f"{int(got['steps'])} steps) in {wall:.2f} s; best hypotheses equal "
+        f"the plain loop's ({found}/{U} finished, near ties {differ}, "
+        f"costs within {worst:.2e})")
+    return wall
+
+
+def loop_branches(t, dev, results, data):
+    """Phase 21b: beam_loop.cu's mse_cost + logistic branch and its relu
+    branch against their plain versions at the TIMIT widths, U=64,
+    L=175, beam 10."""
+    import torch
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    U, frames, K = 64, 700, 10
+    feats = t(np.random.RandomState(U).randn(U, frames, 123))
+    lengths = np.random.RandomState(U + 1).randint(300, frames + 1, size=U)
+    lengths[0] = frames
+    fmask = t(np.arange(frames)[None] < lengths[:, None])
+    # the mse model's costs are its negated readouts: where a symbol's
+    # readout is above 0 every step lowers a hypothesis's cost, the
+    # random model's beams run to the cap, and its done sets hold costs
+    # within float32 rounding of each other (near 500 a float32 step is
+    # 3e-5: on an H100 the kernel and the plain version ordered 9 of 64
+    # utterances' done sets differently); lowering every readout but
+    # EOS's by 4 makes each step cost ~5 and the searches stop on
+    # patience
+    cases = {"mse_logistic": (dict(energy_normalizer="logistic"),
+                              ICLR["initialization"], 4.0),
+             "relu": (dict(energy_normalizer="relu",
+                           criterion={"name": "log_likelihood"}),
+                      FLAGSHIP_INIT, 0.0)}
+    for name, (over, init, lower) in cases.items():
+        net = dict(ICLR_NET, input_dims={"recordings": 123},
+                   eos_label=data.eos_label, num_phonemes=data.num_labels,
+                   character_map=data.character_map("labels"), **over)
+        rec = SpeechRecognizer(net, init_config=init, seed=1234,
+                               device=dev)
+        normalizer = net["energy_normalizer"]
+        mse = rec.net.generator.mse
+        with torch.inference_mode():
+            d = rec.net.decode_loop(feats, fmask)
+            tables = dict(rec.net.decode_loop_tables())
+        tables["post_b"] = tables["post_b"] - lower
+        tables["post_b"][data.eos_label] += lower + 1.5
+        L = d["pre"].shape[1]
+        kw = dict(beam=K, max_len=int(frames / 3.0), eol=data.eos_label,
+                  ignore_first_eol=True, stop_on="patience",
+                  char_discount=0.0 if mse else 1.0, round_to_inf=4.5,
+                  normalizer=normalizer, mse_cost=mse)
+        loop_args = (d["pre"], d["attended"], d["attended_mask"], tables)
+
+        def as_out(res):
+            out, meta, steps = (x.cpu().numpy() for x in res)
+            return {"done_out": out, "done_cost": meta[:, :, 0],
+                    "done_adjusted": meta[:, :, 1],
+                    "done_len": meta[:, :, 2].astype(np.int32),
+                    "done_valid": meta[:, :, 1] < bl.INF / 2,
+                    "steps": steps}
+
+        bl.launches.reset()
+        got = as_out(bl.beam_search_loop(*loop_args, **kw))
+        if bl.launches.count != 1:
+            fail(f"beam_search_loop {name}: no launch")
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        ref = as_out(bl.beam_search_loop_reference(*loop_args, **kw))
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        err = compare_outputs(f"beam_search_loop {name}", got, ref)
+        finished = int(got["done_valid"].any(axis=1).sum())
+        if finished < U * 3 // 4:
+            fail(f"beam_search_loop {name}: only {finished}/{U} utterances "
+                 f"finished: the comparison is too weak")
+        ms = cuda_ms(lambda: bl.beam_search_loop(*loop_args, **kw), 3)
+        S, M, D, R, V = 250, 250, 500, 250, data.num_labels
+        plan = beam_loop_plan(dict(
+            K=K, L=L, M=M, D=D, S=S, R=R, V=V, F=tables["embed"].shape[1],
+            Lout=kw["max_len"], n_taps=tables["conv_filters"].shape[-1]),
+            normalizer=normalizer, phase="21b")
+        row_ops = (attention_step_ops(S, M, L, 201, D)
+                   + readout_ops(D, R, V) + 2 * (D + S) * 3 * S
+                   + gru_step_ops(S) + 3 * V)
+        out = bl.beam_search_loop(*loop_args, **kw)
+        results["beam_search_loop"][name] = {
+            "U": U, "L": L, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms,
+            **bound(nbytes(*loop_args[:3], tables, *out),
+                    K * int(got["steps"].sum()) * row_ops),
+            "library_ms": None, **plan}
+        r = results["beam_search_loop"][name]
+        log(f"phase 21b beam_search_loop {name} U={U} L={L}: outputs agree; "
+            f"{finished}/{U} finished, steps {int(got['steps'].min())}.."
+            f"{int(got['steps'].max())}, max abs cost err {err:.3e}; kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms")
+
+
+def decoder_branches(t, dev, results):
+    """Phase 21c: decoder_train.cu's logistic and relu branches, forward
+    and backward, against the plain version at B=16, T=75, L=175 (the
+    TIMIT decoder, 201 taps, the full-window prior of nips_conv.yaml)."""
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    rng = np.random.RandomState(21)
+    T, B, L, M, D, S = 75, 16, 175, 250, 500, 250
+    ops, fixed, cots = decoder_operands(t, dev, rng, T=T, B=B, L=L, M=M,
+                                        D=D, S=S)
+    prior = {"type": "expanding", "initial_begin": 0, "initial_end": 10000,
+             "min_speed": 0, "max_speed": 0}
+    # the operands' states saturate, so a row's energies move together
+    # (about 1.3 apart between rows); relu's bias keeps every row's
+    # numerators above zero, where a row of zeros divides 0 by 0 (NaN) in
+    # both versions, as in the JAX package
+    for normalizer, bias in (("logistic", -0.3), ("relu", 6.0)):
+        ops["e_bias"] = t([bias])
+        names = list(ops)
+
+        def scan(fn):
+            def call(*xs):
+                d = dict(zip(names, xs))
+                return fn(d["fx"], d["fg"], fixed["mask"], d["pre"],
+                          d["attended"], fixed["att_mask"], d["h0"],
+                          fixed["w0"], d["wa0"], d["toep"], d["st"],
+                          d["hand"], d["v"], d["wss"], d["wsg"], d["dxm"],
+                          d["dgm"], prior=prior, e_bias=d["e_bias"],
+                          normalizer=normalizer)
+            return call
+
+        leaves = [ops[n] for n in names]
+        dt.launches.reset()
+        got, ggot = grads_of(scan(dt.decoder_scan_train), leaves, cots)
+        if dt.launches.count != 2:
+            fail(f"decoder_scan_train {normalizer}: {dt.launches.count} "
+                 f"launches, expected a forward and a backward")
+        ref, gref = grads_of(scan(dt.decoder_scan_train_reference), leaves,
+                             cots)
+        outs = ("h", "weights", "wa", "energies")
+        state_errs = relative_errors(dict(zip(outs, got)),
+                                     dict(zip(outs, ref)))
+        grad_errs = relative_errors(
+            {f"d{n}": g for n, g in zip(names, ggot)},
+            {f"d{n}": g for n, g in zip(names, gref)})
+        log(f"phase 21c decoder_scan_train {normalizer} T={T} B={B} L={L}: "
+            f"max abs err over max abs value: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in
+                        {**state_errs, **grad_errs}.items()))
+        if not (max(state_errs.values()) <= 1e-5
+                and max(grad_errs.values()) <= 1e-4):
+            fail(f"decoder_scan_train's {normalizer} branch disagrees with "
+                 f"its plain version")
+        repeat(f"decoder_scan_train ({normalizer})", ggot,
+               grads_of(scan(dt.decoder_scan_train), leaves, cots))
+        abs_err = max(float((a - b).abs().max()) for a, b in
+                      zip(list(got) + list(ggot), list(ref) + list(gref)))
+        fwd, plain = scan(dt.decoder_scan_train), scan(
+            dt.decoder_scan_train_reference)
+        fwd_ms = cuda_ms(lambda: fwd(*leaves), 3)
+        bwd_ms = backward_ms(fwd, leaves, cots, 3)
+        plain_fwd = cuda_ms(lambda: plain(*leaves), 1)
+        plain_bwd = backward_ms(plain, leaves, cots, 1)
+        alone = {}
+        with timed_launches(dt, 5, alone):
+            grads_of(fwd, leaves, cots)
+        n_ops = T * B * (attention_step_ops(S, M, L, L, D) + 2 * D * 3 * S
+                         + gru_step_ops(S))
+        fwd_bytes = nbytes(*leaves, *fixed.values()) + nbytes(*got) \
+            + 4 * nbytes(got[0])
+        bwd_bytes = nbytes(*leaves, *fixed.values(), *cots, *got) \
+            + 4 * nbytes(got[0]) + nbytes(*gref)
+        results["decoder_scan_train"][normalizer] = {
+            "B": B, "T": T, "L": L, "max_abs_err": abs_err,
+            "max_rel_err_states": max(state_errs.values()),
+            "max_rel_err_grads": max(grad_errs.values()),
+            "ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+            "fwd_kernel_ms": alone["decoder_train_fwd_f32"],
+            "bwd_kernel_ms": alone["decoder_train_bwd_f32"],
+            "plain_ms": plain_fwd + plain_bwd, "plain_fwd_ms": plain_fwd,
+            "plain_bwd_ms": plain_bwd,
+            **bound(fwd_bytes + bwd_bytes, 4 * n_ops), "library_ms": None}
+        r = results["decoder_scan_train"][normalizer]
+        log(f"  forward {fwd_ms:.3f} ms (kernel alone "
+            f"{r['fwd_kernel_ms']:.3f}), autograd backward {bwd_ms:.3f} ms "
+            f"(kernel alone {r['bwd_kernel_ms']:.3f}); plain "
+            f"{plain_fwd:.3f} + {plain_bwd:.3f} ms; bound "
+            f"{r['bound_ms']:.3f} ms")
+
+
+def reward_check(dev, rates):
+    """Phase 21d: the device reward/gain DP against the host numpy DP on
+    a B=16 batch of random hypotheses (TIMIT's 63 symbols, 75-step
+    groundtruths, 85-step hypotheses): equal integers; its time and its
+    device launches (torch.profiler)."""
+    import torch
+    from attention_lvcsr_torch.ops.error_rate import batch_reward_and_gain
+    from attention_lvcsr_torch.ops.reward_op import reward_and_gain
+    rng = np.random.RandomState(21)
+    B, T_g, T_r, A = 16, 75, 85, 63
+    gt = rng.randint(0, A - 1, size=(T_g, B))
+    gt[rng.randint(20, T_g, size=B), np.arange(B)] = A - 1
+    rec = rng.randint(0, A, size=(T_r, B))
+    rec[rng.randint(0, T_r, size=B // 2), np.arange(B // 2)] = A - 1
+    ref = batch_reward_and_gain(gt, rec, A, A - 1)
+    g, r = (torch.tensor(x, device=dev) for x in (gt, rec))
+    got = reward_and_gain(g, r, A)
+    if not all(np.array_equal(a.cpu().numpy(), b) for a, b in zip(got, ref)):
+        fail("phase 21d: the device reward/gain DP differs from the host DP")
+    ms = cuda_ms(lambda: reward_and_gain(g, r, A), 5)
+    t0 = time.perf_counter()
+    batch_reward_and_gain(gt, rec, A, A - 1)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    kernels = None
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        reward_and_gain(g, r, A)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if events:
+        kernels = len(events)
+    rates["reward_dp_ms"] = ms
+    rates["reward_dp_launches"] = kernels
+    log(f"phase 21d reward_and_gain B={B} T_g={T_g} T_r={T_r} A={A}: equal "
+        f"to the host DP; {ms:.3f} ms on the card ({kernels} device "
+        f"launches by torch.profiler), host numpy {host_ms:.1f} ms")
+
+
+def run_stages(dev, data, stages, batches, valid, out_dir, start, searches,
+               **kwargs):
+    """``run_multistage`` over in-memory batches, recording every search's
+    best hypotheses: (loops, stage start and end times)."""
+    import torch
+    from attention_lvcsr_torch.train.driver import (create_model,
+                                                    run_multistage)
+    marks = []
+
+    def make_stage(config, load_path):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        rec = create_model(config, data, load_path, device=dev)
+        search = rec.beam_search
+
+        def recorded(*args, **kw):
+            out = search(*args, **kw)
+            searches.append(best_hypotheses(out)[:len(args[0])])
+            return out
+        rec.beam_search = recorded
+        train = batches[config["data"]["batch_size"]]
+        return dict(recognizer=rec, batch_stream=lambda: train,
+                    valid_stream=(lambda: valid) if valid else None,
+                    search_data=data,
+                    num_examples=TIMIT_TRAIN_UTTERANCES)
+
+    loops = run_multistage(stages, out_dir, make_stage, start,
+                           printing=False, **kwargs)
+    torch.cuda.synchronize()
+    return loops, marks + [time.perf_counter()]
+
+
+def iclr_stages_check(t, dev, rates, data):
+    """Phase 21e: iclr_reward.yaml's two pretraining stages with greedy
+    exploration on the kernels and on the plain route, then pretraining2
+    resumed after an epoch.  Returns the kernel route's launches."""
+    from attention_lvcsr_torch.models import attention as attention_mod
+    from attention_lvcsr_torch.models import cells as cells_mod
+    from attention_lvcsr_torch.models import generator as generator_mod
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import attention_energy as ae
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.ops import gru_train as gt
+    from attention_lvcsr_torch.ops import outer_sum as osum
+    from attention_lvcsr_torch.search import beam as beam_mod
+    from attention_lvcsr_torch.train.checkpoint import (load_checkpoint,
+                                                        save_checkpoint)
+    counters = {"gru_scan": gs.launches, "beam_search_loop": bl.launches,
+                "beam_attention_energies": ae.launches,
+                "gru_scan_train_bidir": gt.launches_bidir,
+                "decoder_scan_train": dt.launches, "outer_sum": osum.launches}
+    plain = [(cells_mod, "gru_scan", gs.gru_scan_reference),
+             (beam_mod, "beam_search_loop", bl.beam_search_loop_reference),
+             (attention_mod, "beam_attention_energies",
+              ae.beam_attention_energies_reference),
+             (cells_mod, "gru_scan_train", gt.gru_scan_train_reference),
+             (generator_mod, "decoder_scan_train",
+              dt.decoder_scan_train_reference)]
+    stages = iclr_stages()
+    batches = {8: timit_batches(t, dev, 2, 8, 21, data.num_labels)}
+    valid = [{k: v[:4] for k, v in batches[8][0].items()}]
+    tmp = tempfile.mkdtemp()
+    try:
+        start = os.path.join(tmp, "start.zip")
+        rec = SpeechRecognizer(
+            dict(ICLR_NET, input_dims={"recordings": 123},
+                 eos_label=data.eos_label, num_phonemes=data.num_labels,
+                 character_map=data.character_map("labels")),
+            init_config=ICLR["initialization"], seed=1234, device=dev)
+        rec.net.generator.readout.post_merge_0.bias.data[
+            data.eos_label] += 1.5
+        save_checkpoint(start, rec.param_path_dict())
+        del rec
+        routes = {}
+        for route in ("kernels", "plain"):
+            searches = []
+            for c in counters.values():
+                c.reset()
+            with swapped(plain if route == "plain" else []):
+                loops, marks = run_stages(dev, data, stages, batches, valid,
+                                          os.path.join(tmp, route), start,
+                                          searches)
+            routes[route] = (loops, marks, searches, counts(counters))
+        (loops, marks, searches, moved), (ref_loops, _, ref_searches,
+                                          ref_moved) = (routes["kernels"],
+                                                        routes["plain"])
+        if min(moved.values()) < 1 or any(ref_moved.values()):
+            fail(f"phase 21e: launches {moved} on the kernels, {ref_moved} "
+                 f"on the plain route")
+        for (name, _), lp, lr in zip(stages, loops, ref_loops):
+            for key in ("train_cost", "total_gradient_norm",
+                        "valid_sequence_total_cost"):
+                (tg, g), (tr, r) = lp.log.channel(key), lr.log.channel(key)
+                rel = np.abs(np.subtract(g, r)) / np.abs(r)
+                log(f"phase 21e {name}: {key} {g} vs plain {r} (max rel err "
+                    f"{rel.max() if len(r) else 0:.2e})")
+                if tg != tr or not tg or not (np.isfinite(g).all()
+                                              and rel.max() <= 1e-4):
+                    fail(f"phase 21e {name}: {key} disagrees with the plain "
+                         f"route")
+            if lp.log.channel("valid_per") != lr.log.channel("valid_per"):
+                fail(f"phase 21e {name}: valid_per differs")
+        if len(searches) != len(ref_searches) or not searches:
+            fail(f"phase 21e: {len(searches)} searches vs "
+                 f"{len(ref_searches)} on the plain route")
+        worst = 0.0
+        for i, (got, ref) in enumerate(zip(searches, ref_searches)):
+            for u, ((h, c), (rh, rc)) in enumerate(zip(got, ref)):
+                if h != rh or (c is None) != (rc is None):
+                    fail(f"phase 21e: search {i} utterance {u}: {h} ({c}) "
+                         f"vs the plain route's {rh} ({rc})")
+                if c is not None:
+                    worst = max(worst, abs(c - rc) / max(abs(rc), 1e-6))
+        if worst > 1e-4:
+            fail(f"phase 21e: beam costs within {worst:.2e} of the plain "
+                 f"route's")
+        nonempty = sum(bool(h) for got in searches for h, _ in got)
+        searched = sum(len(g) for g in searches)
+        if nonempty <= searched // 2:
+            fail(f"phase 21e: {nonempty} of {searched} hypotheses non-empty: "
+                 f"the comparison is too weak")
+        for route, (lps, mks, _, _) in routes.items():
+            for (name, stage), lp, s0, s1 in zip(stages, lps, mks, mks[1:]):
+                steps = lp.log.status["iterations_done"]
+                B = stage["data"]["batch_size"]
+                step_s = float(np.median(
+                    lp.log.channel("time_train_this_batch")[1]))
+                rates[f"iclr_{route}_{name}_utt_per_s"] = \
+                    B * steps / (s1 - s0)
+                rates[f"iclr_{route}_{name}_step_utt_per_s"] = B / step_s
+                log(f"phase 21e {route} {name}: {s1 - s0:.2f} s for {steps} "
+                    f"steps of B={B}, {B * steps / (s1 - s0):.2f} utt/s with "
+                    f"validation and search, {B / step_s:.2f} utt/s in the "
+                    f"steps (median {step_s:.4f} s); valid_per "
+                    f"{[round(v, 4) for v in lp.log.channel('valid_per')[1]]}")
+        log(f"phase 21e: {len(searches)} searches with the same hypotheses "
+            f"({nonempty} of {searched} non-empty), beam costs within "
+            f"{worst:.2e} relative; launches {moved}")
+
+        # pretraining2 straight for two epochs, and stopped after one and
+        # resumed, without validation
+        second = copy.deepcopy(dict(stages)["pretraining2"])
+        second["training"]["num_epochs"] = 2
+        best = os.path.join(tmp, "kernels", "pretraining_best_ll.zip")
+        straight_dir, first = (os.path.join(tmp, n) for n in ("straight",
+                                                              "first"))
+        straight, _ = run_stages(dev, data, [("pretraining2", second)],
+                                 batches, None, straight_dir, best, [])
+        cut = copy.deepcopy(second)
+        cut["training"]["num_epochs"] = 1
+        run_stages(dev, data, [("pretraining2", cut)], batches, None, first,
+                   best, [])
+        again, _ = run_stages(dev, data, [("pretraining2", second)],
+                              batches, None, first,
+                              os.path.join(first, "pretraining2.zip"), [],
+                              use_load_ext=True)
+        a = load_checkpoint(os.path.join(straight_dir, "pretraining2.zip"))
+        b = load_checkpoint(os.path.join(first, "pretraining2.zip"))
+        same = all(np.array_equal(b["parameters"][k], v)
+                   for k, v in a["parameters"].items()) and all(
+            np.array_equal(b["opt_state"][k], v)
+            for k, v in a["opt_state"].items()) and \
+            again[0].log.channel("train_cost") == \
+            straight[0].log.channel("train_cost")
+        if not same:
+            fail("phase 21e: pretraining2 resumed after its first epoch "
+                 "does not give the bits of the straight run")
+        log("phase 21e pretraining2 stopped after epoch 1 and resumed: "
+            "parameters, optimizer state and train_cost equal the straight "
+            "run's bit for bit")
+    finally:
+        shutil.rmtree(tmp)
+    return moved
+
+
+def wsj_reward_steps(t, dev, rates):
+    """Phase 21f: one wsj_reward3.yaml step (greedy) and one
+    wsj_reward_mixed.yaml step at the flagship widths, B=32, 800 frames,
+    100 labels, on the kernels and on the plain route."""
+    import torch
+    from __graft_entry__ import FLAGSHIP_NET
+    from attention_lvcsr_torch.models import attention as attention_mod
+    from attention_lvcsr_torch.models import cells as cells_mod
+    from attention_lvcsr_torch.models import generator as generator_mod
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import attention_energy as ae
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.ops import gru_train as gt
+    from attention_lvcsr_torch.train.driver import (GradientDescent,
+                                                    make_train_step)
+    from attention_lvcsr_torch.train.rules import build_optimizer
+    counters = {"gru_scan": gs.launches, "beam_attention_energies":
+                ae.launches, "gru_scan_train_bidir": gt.launches_bidir,
+                "decoder_scan_train": dt.launches}
+    plain = [(cells_mod, "gru_scan", gs.gru_scan_reference),
+             (attention_mod, "beam_attention_energies",
+              ae.beam_attention_energies_reference),
+             (cells_mod, "gru_scan_train", gt.gru_scan_train_reference),
+             (generator_mod, "decoder_scan_train",
+              dt.decoder_scan_train_reference)]
+    batch = train_batches(t, dev, 1, seed=21)[0]
+    V = FLAGSHIP_NET["num_phonemes"]
+    # rows end with EOS, as the data streams end them
+    last = (batch["labels_mask"].sum(1) - 1).long()
+    batch["labels"][torch.arange(last.shape[0], device=dev), last] = V - 1
+    net = dict(FLAGSHIP_NET, criterion={"name": "mse_gain",
+                                        "min_reward": -5})
+    for exploration in ("greedy", "mixed"):
+        config = {"net": net, "regularization": {"max_norm": 1.0},
+                  "training": {"gradient_threshold": 100.0,
+                               "rules": ["adadelta"], "decay_rate": 0.95,
+                               "epsilon": 1e-8, "scale": 0.01,
+                               "exploration": exploration}}
+        out = {}
+        for route in ("kernels", "plain"):
+            for c in counters.values():
+                c.reset()
+            with swapped(plain if route == "plain" else []):
+                rec = SpeechRecognizer(net, init_config=WSJ_REWARD_INIT,
+                                       seed=1234, device=dev)
+                opt = build_optimizer(config["training"],
+                                      config["regularization"])
+                gd = GradientDescent(rec, opt,
+                                     make_train_step(rec, opt, config))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mon = gd.process_batch(batch)
+                torch.cuda.synchronize()
+                out[route] = (mon, time.perf_counter() - t0,
+                              counts(counters))
+        (mon, wall, moved), (ref, ref_wall, ref_moved) = (out["kernels"],
+                                                          out["plain"])
+        if min(moved.values()) < 1 or any(ref_moved.values()):
+            fail(f"phase 21f {exploration}: launches {moved} on the "
+                 f"kernels, {ref_moved} on the plain route")
+        for key in ("train_cost", "total_gradient_norm", "mask_density"):
+            rel = abs(mon[key] - ref[key]) / abs(ref[key])
+            if not (np.isfinite(mon[key]) and rel <= 1e-4):
+                fail(f"phase 21f {exploration}: {key} {mon[key]} vs plain "
+                     f"{ref[key]}")
+        rates[f"wsj_reward_{exploration}_step_s"] = wall
+        log(f"phase 21f wsj_reward {exploration} step B=32: train_cost "
+            f"{mon['train_cost']:.6g} vs plain {ref['train_cost']:.6g}, "
+            f"total_gradient_norm {mon['total_gradient_norm']:.6g} vs "
+            f"{ref['total_gradient_norm']:.6g}, mask_density "
+            f"{mon['mask_density']:.4f}; {wall:.2f} s on the kernels, "
+            f"{ref_wall:.2f} s plain; launches {moved}")
+
+
+def task_loss_phase(t, dev, results, rates):
+    """Phase 21: the task loss.  Returns the kernel route's launches in
+    21e."""
+    t0 = time.perf_counter()
+    data = TimitData()
+    routing_check(t, dev)
+    loop_branches(t, dev, results, data)
+    decoder_branches(t, dev, results)
+    reward_check(dev, rates)
+    log(f"phase 21a-d: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moved = iclr_stages_check(t, dev, rates, data)
+    log(f"phase 21e: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    wsj_reward_steps(t, dev, rates)
+    log(f"phase 21f: {time.perf_counter() - t0:.1f} s")
+    return moved
+
 
 if __name__ == "__main__":
     main()

@@ -684,7 +684,7 @@ def test_decoder_scan_train_kernel_refuses_other_variants(device):
             z(4, 4), z(4, 8), z(6, 4), z(6, 8))
     with pytest.raises(NotImplementedError, match="relu"):
         dt.decoder_scan_train(*args, prior={"type": "expanding"},
-                              normalizer="relu")
+                              normalizer="relu", n_filters=0)
     with pytest.raises(NotImplementedError, match="window_around_mean"):
         dt.decoder_scan_train(*args, prior={"type": "window_around_mean"})
 

@@ -150,7 +150,7 @@ def test_toeplitz_band_matches_jax_and_reaches_the_taps():
           prior_type="expanding"), None),
     (dict(normalizer="softmax", n_filters=0, dec_stack=1,
           prior_type="expanding"), None),
-    (dict(normalizer="relu", n_filters=1, dec_stack=1,
+    (dict(normalizer="relu", n_filters=0, dec_stack=1,
           prior_type="expanding"), "the 'relu' normalizer"),
     (dict(normalizer="softmax", n_filters=3, dec_stack=1,
           prior_type="expanding"), "3 conv filters"),
@@ -160,7 +160,8 @@ def test_toeplitz_band_matches_jax_and_reaches_the_taps():
           prior_type="window_around_mean"), "'window_around_mean' prior"),
 ])
 def test_kernel_variant_gate(kw, piece):
-    """The CUDA route covers the flagship variant and content-only
-    attention (no filter) and names any other."""
+    """The CUDA route covers the flagship variant (softmax, logistic or
+    relu) and content-only attention (no filter, softmax) and names any
+    other."""
     got = unported_variant(**kw)
     assert got == piece or (piece is not None and piece in got)

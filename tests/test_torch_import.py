@@ -193,11 +193,11 @@ def test_recognizer_defaults_to_the_card():
 
 @pytest.mark.parametrize("override,piece", [
     ({"conv_num_filters": 3}, "filters"),
-    ({"energy_normalizer": "logistic"}, "normalizer"),
+    ({"energy_normalizer": "softplus"}, "normalizer"),
     ({"dec_stack": 2}, "dec_stack"),
     ({"post_merge_activation": "maxout:2"}, "post-merge"),
-    ({"criterion": {"name": "mse_gain"}}, "criterion"),
-    ({"energy_normalizer": "logistic", "lm": {"path": "x.fst"}},
+    ({"criterion": {"name": "hinge"}}, "criterion"),
+    ({"energy_normalizer": "softplus", "lm": {"path": "x.fst"}},
      "normalizer"),
     ({"prior": {"type": "window_around_mean", "before": 1, "after": 1}},
      "prior"),

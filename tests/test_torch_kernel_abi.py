@@ -131,3 +131,37 @@ def test_content_flag_travels_in_the_structs(struct):
     assert c_fields["content"][1:] == ("int", False, None)
     assert dict(cls._fields_)["content"] is ctypes.c_int
     assert cls().content == 0
+
+
+@pytest.mark.parametrize("struct,fields", [
+    ("BeamLoopArgs", (("normalizer", "int"), ("mse_cost", "int"),
+                      ("energy_b", "float"))),
+    ("DecoderArgs", (("normalizer", "int"),))])
+def test_normalizer_and_cost_fields_travel_in_the_structs(struct, fields):
+    """The logistic/relu normalizers (``normalizer`` 1, 2) and the task
+    loss's costs (``mse_cost``) are fields of the argument structs on both
+    sides, right after ``content``, zero by default: a struct filled
+    without them runs softmax and the log-likelihood."""
+    cls, source = MIRRORS[struct]
+    names = [f[0] for f in _c_struct(source, struct)]
+    at = names.index("content") + 1
+    assert tuple(names[at:at + len(fields)]) == tuple(n for n, _ in fields)
+    c_fields = {f[0]: f for f in _c_struct(source, struct)}
+    mirror = dict(cls._fields_)
+    for name, ctype in fields:
+        assert c_fields[name][1:] == (ctype, False, None)
+        assert mirror[name] is SCALARS[ctype]
+        assert getattr(cls(), name) == 0
+
+
+def test_decoder_bias_and_scale_buffers_travel_in_the_struct():
+    """The training decoder's energy bias (read) and its normalizer's
+    per-frame scales (written forward, read backward) are pointers of
+    ``DecoderArgs`` on both sides, after the weight-gradient partials."""
+    cls, source = MIRRORS["DecoderArgs"]
+    names = [f[0] for f in _c_struct(source, "DecoderArgs")]
+    assert names[names.index("dv") + 1:names.index("dv") + 3] == [
+        "e_bias", "gsc"]
+    mirror = dict(cls._fields_)
+    assert mirror["e_bias"] is ctypes.c_void_p
+    assert mirror["gsc"] is ctypes.c_void_p

@@ -158,7 +158,8 @@ def test_weight_decay_leaves(path, decayed):
     ({"noise": 0.1}, {}, "weight noise"),
     ({"adaptive_noise": {}}, {}, None),        # an empty section is off
     ({"adaptive_noise": {"init_sigma": 1e-6}}, {}, None),   # ported
-    ({}, {"exploration": "greedy"}, "exploration 'greedy'"),
+    ({}, {"exploration": "greedy"}, None),      # ported
+    ({}, {"exploration": "sampled"}, "exploration 'sampled'"),
     ({}, {"compute_dtype": "bfloat16"}, "compute_dtype 'bfloat16'"),
 ])
 def test_unported_training_pieces_raise(reg, train, piece):

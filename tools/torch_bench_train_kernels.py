@@ -40,8 +40,10 @@ at the flagship decoder's shapes (T=100, L=200, M=250, D=500, S=250, 201
 taps, the median prior, ragged masks) at B=32 and B=64 (``--decoder-batches``
 to change them): each launch made
 through ``ops/decoder_train.py::_launch`` repeated between CUDA events (the
-kernel alone), the forward and the autograd backward around them, and the
-outputs against the plain version at B=32.  With ``--decoder-plans`` the
+kernel alone), the forward and the autograd backward around them, the
+SHA-256 of the outputs' and gradients' bits (two commits' runs compute the
+same numbers when they print the same digest), and the outputs against
+the plain version at B=32.  With ``--decoder-plans`` the
 package's launch plan is also forced to each cluster size in turn (where
 the package has plans).
 
@@ -56,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import os
 import subprocess
@@ -450,6 +453,13 @@ def decoder_kernels(t, dev, args, result):
                     f"resident {({t: q[f'res_{t}'] for t in dt.TILES[k]})})"
                     for k, q in p.items())
             if force is None:
+                # the bits of the outputs and every gradient, so that two
+                # commits' runs say whether they compute the same numbers
+                digest = hashlib.sha256()
+                for x in [o.detach() for o in outs[:4]] + list(grads):
+                    digest.update(x.cpu().numpy().tobytes())
+                result[f"{key}_sha256"] = digest.hexdigest()
+                plan += f"; bits {digest.hexdigest()[:16]}"
                 fwd = scan(dt.decoder_scan_train)
                 result[f"{key}_fwd_ms"] = events_ms(lambda: fwd(*leaves))
                 result[f"{key}_bwd_ms"] = events_ms(
