@@ -1,28 +1,35 @@
 // The whole beam-search decode loop as one persistent launch.
 //
 // Replaces attention_lvcsr_tpu/ops/pallas/beam_loop.py::beam_search_loop
-// for the flagship configuration: conv attention with one filter, or
-// content-only attention (content_attention=True there, content here: no
-// convolution and no handler term, the caller's expanding window over
-// every frame), the window_around_median or expanding prior, the softmax,
-// logistic or relu normalizer (the last two with the energy bias; under
-// relu a row whose weights are all zero over a live window gets zero
-// weights and its candidates lose the selection), one GRU decoder layer, a
-// tanh post-merge layer, the log-likelihood criterion or the task loss's
-// (mse_cost: costs = -logits), optional states-for-readout, patience or
+// for conv attention with 1-16 filters (n_filters; each filter's
+// convolution, and the handler term summed over the filters in their
+// order, :303-321), or content-only attention (content_attention=True
+// there, content here: no convolution and no handler term, the caller's
+// expanding window over every frame), the expanding, window_around_median
+// or window_around_mean prior, the softmax, logistic or relu normalizer
+// (the last two with the energy bias; under relu a row whose weights are
+// all zero over a live window gets zero weights and its candidates lose
+// the selection), one GRU decoder layer, one post-merge layer after the
+// tanh, relu, sigmoid, identity or maxout activation (post_act, maxout;
+// :386-408), the log-likelihood criterion or the task loss's (mse_cost:
+// costs = -logits; one filter), optional states-for-readout, patience or
 // optimistic_future_cost stopping, char_discount, round_to_inf and
 // ignore_first_eol.  Per step and utterance it runs what the Pallas body
 // runs: window prior, alignment convolution, state projection, energies,
-// masked normalization, weighted average, merge + tanh + post-merge, costs,
+// masked normalization, weighted average, merge + activation + post-merge,
+// costs,
 // K rounds of candidate selection (lowest flat index wins ties), gathers
 // by source row, GRU advance, EOS retirement, the done-set merge (old
 // entries win ties) and the stopping bookkeeping.  Every product is
 // computed here with fmaf dot products; none goes to a library.  The
 // attention and readout phases are the device functions of
 // decode_step.cuh, which the one-step score kernel (decode_score.cu) runs
-// too.  The normalizer and the cost mode are template parameters: each
-// combination is its own instance, so the softmax and log-likelihood route
-// keeps no run-time test of them in its loop.
+// too.  The normalizer, the cost mode and the WSJ recipes' variants
+// (filters, the mean prior, activations besides tanh) are template
+// parameters: each combination a config uses is its own instance, so the
+// routes of earlier slices compile none of the variants' code.  Inside the
+// variant instance the prior and the activation, run once a step over
+// K x L and K x R values, switch at run time.
 //
 // What bounds it on the card: latency.  A step is a chain of about a
 // dozen dependent phases separated by block barriers, each a small
@@ -56,14 +63,14 @@ struct BeamLoopArgs {
   const float* pre;             // (U, L, M) preprocessed attended
   const float* attended;        // (U, L, D)
   const float* att_mask;        // (U, L)
-  const float* conv_taps;       // (n_taps,) the conv filter, true conv
+  const float* conv_taps;       // (n_filters, n_taps) the filters, true conv
   const float* state_trans;     // (S, M)
-  const float* handler;         // (M,)
+  const float* handler;         // (n_filters, M)
   const float* v;               // (M,) energy vector
   const float* merge_k;         // (D, R)
   const float* merge_b;         // (R,)
   const float* merge_states_k;  // (S, R) or null
-  const float* post_k;          // (R, V)
+  const float* post_k;          // (R, V); maxout (R / maxout, V)
   const float* post_b;          // (V,)
   const float* embed;           // (Vf, F)
   const float* fork_in_w;       // (F, S)
@@ -86,6 +93,11 @@ struct BeamLoopArgs {
   float energy_b;               // energy bias (logistic, relu)
   float char_discount, round_to_inf, before, after;
   float initial_begin, initial_end, min_speed, max_speed;
+  int n_filters;                // conv filters (0 read as 1)
+  int post_act;                 // 0 tanh, 1 relu, 2 sigmoid, 3 identity,
+                                //   4 maxout
+  int maxout;                   // maxout's pieces
+  int prior_mean;               // 1: window_around_mean
 };
 
 namespace {
@@ -115,9 +127,21 @@ struct Layout {
 
 __host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
 
+// Whether a launch takes the variant instance (kVariant): more than one
+// conv filter, the mean prior or an activation besides tanh.
+__host__ __device__ inline bool is_variant(const BeamLoopArgs& a) {
+  return (!a.content && a.n_filters > 1) || a.post_act != 0 || a.prior_mean;
+}
+
+// The layout of an instance; the variant's sizes the taps, handler rows and
+// convolutions by the filters and keeps a maxout readout's grouped units
+// after the merged ones, and equals the other instances' where it runs
+// what they run.
+template <bool kVariant>
 __host__ __device__ inline Layout make_layout(const BeamLoopArgs& a) {
   Layout o;
   const int K = a.K;
+  const int nf = a.content ? 0 : max(a.n_filters, 1);   // kVariant's
   int p = 0;
   auto take = [&p](int n) {
     const int at = p;
@@ -138,8 +162,8 @@ __host__ __device__ inline Layout make_layout(const BeamLoopArgs& a) {
   o.sym = take(K);
   o.pick = take(K);
   o.mask = take(a.L);
-  o.taps = take(a.n_taps);
-  o.handler = take(a.content ? 0 : a.M);
+  o.taps = take(kVariant ? nf * a.n_taps : a.n_taps);
+  o.handler = take(kVariant ? nf * a.M : (a.content ? 0 : a.M));
   o.v = take(a.M);
   o.begins = take(K);
   o.ends = take(K);
@@ -150,12 +174,14 @@ __host__ __device__ inline Layout make_layout(const BeamLoopArgs& a) {
   o.wa = take(K * a.D);
   const int scratch = p;
   // attention phase
-  o.conv = take(a.content ? 0 : K * a.L);
+  o.conv = take(kVariant ? nf * K * a.L : (a.content ? 0 : K * a.L));
   o.sp = take(K * a.M);
   const int end_att = p;
   // readout phase
   p = scratch;
-  o.act = take(K * a.R);
+  // a maxout readout's grouped units after the merged ones
+  o.act = take(kVariant && a.post_act == 4 ? K * a.R + K * a.R / a.maxout
+                                           : K * a.R);
   o.costs = take(K * a.V);
   const int end_read = p;
   // gather + GRU phase
@@ -220,15 +246,19 @@ __device__ void drop_bad_rows(float* COSTS, int K, int V, const float* BAD) {
     if (BAD[idx / V] != 0.f) COSTS[idx] = kBig;
 }
 
-// kNorm: 0 softmax, 1 logistic, 2 relu; kMse: the task loss's costs.
-template <int kNorm, bool kMse>
+// kNorm: 0 softmax, 1 logistic, 2 relu; kMse: the task loss's costs;
+// kVariant: the WSJ recipes' variants, 1-16 conv filters, the mean prior
+// and the post-merge activations besides tanh (instantiated for the
+// log-likelihood): the other instances compile none of it.
+template <int kNorm, bool kMse, bool kVariant>
 __global__ void __launch_bounds__(kThreads, 1)
 beam_loop_kernel(BeamLoopArgs a) {
   extern __shared__ float sm[];
-  const Layout o = make_layout(a);
+  const Layout o = make_layout<kVariant>(a);
   const int u = blockIdx.x;
   const int K = a.K, L = a.L, M = a.M, D = a.D, S = a.S, R = a.R, V = a.V,
             F = a.F, Lout = a.Lout, n_taps = a.n_taps;
+  const int nf = kVariant ? max(a.n_filters, 1) : 1;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   float* H = sm + o.h;
@@ -277,11 +307,14 @@ beam_loop_kernel(BeamLoopArgs a) {
     MASK[l] = m;
     msum += m;
   }
-  for (int j = tid; j < n_taps; j += blockDim.x) TAPS[j] = a.conv_taps[j];
+  for (int j = tid; j < nf * n_taps; j += blockDim.x)
+    TAPS[j] = a.conv_taps[j];
   for (int m = tid; m < M; m += blockDim.x) {
     if (!a.content) HAND[m] = a.handler[m];
     VV[m] = a.v[m];
   }
+  for (int m = M + tid; kVariant && m < nf * M; m += blockDim.x)
+    HAND[m] = a.handler[m];
   for (int i = tid; i < K * S; i += blockDim.x) H[i] = a.h0[i % S];
   for (int i = tid; i < K * L; i += blockDim.x) Wt[i] = (i % L) == 0 ? 1.f : 0.f;
   for (int i = tid; i < K * Lout; i += blockDim.x) {
@@ -342,13 +375,19 @@ beam_loop_kernel(BeamLoopArgs a) {
     if (a.prior_median) {
       median_bounds(Wt, K, L, a.before, a.after, true, BEGINS, ENDS);
       union_window(BEGINS, ENDS, K, L, lb, le);
+    } else if (kVariant && a.prior_mean) {
+      mean_bounds(Wt, K, L, a.before, a.after, BEGINS, ENDS);
+      union_window(BEGINS, ENDS, K, L, lb, le);
     } else {
       expanding_window(i, L, a.initial_begin, a.initial_end, a.min_speed,
                        a.max_speed, lb, le);
     }
 
     // ---- convolution (true convolution, trimmed 'full' mode) ----------
-    if (!a.content) window_conv(Wt, TAPS, n_taps, K, L, lb, le, CONV);
+    if (kVariant && !a.content)
+      window_conv_filters(Wt, TAPS, n_taps, nf, K, L, lb, le, CONV);
+    else if (!a.content)
+      window_conv(Wt, TAPS, n_taps, K, L, lb, le, CONV);
     // ---- state projection ---------------------------------------------
     run_product({H, S, a.state_trans, S, M, nullptr, SP, M, false}, K);
     __syncthreads();
@@ -357,13 +396,17 @@ beam_loop_kernel(BeamLoopArgs a) {
     if (a.content)
       window_energies<false>(pre, M, nullptr, SP, nullptr, VV, K, L, lb, le,
                              WN);
+    else if (kVariant)
+      window_energies_filters(pre, M, CONV, SP, HAND, VV, nf, K, L, lb, le,
+                              WN);
     else
       window_energies<true>(pre, M, CONV, SP, HAND, VV, K, L, lb, le, WN);
     __syncthreads();
 
     // ---- masked normalization over the window (warp per row) ----------
-    window_softmax<kNorm>(WN, MASK, BEGINS, ENDS, a.prior_median, K, L, lb,
-                          le, a.energy_b, BAD);
+    window_softmax<kNorm>(WN, MASK, BEGINS, ENDS,
+                          a.prior_median || (kVariant && a.prior_mean), K, L,
+                          lb, le, a.energy_b, BAD);
     __syncthreads();
 
     // ---- weighted average of the encoder outputs ----------------------
@@ -371,16 +414,24 @@ beam_loop_kernel(BeamLoopArgs a) {
                  false}, K);
     __syncthreads();
 
-    // ---- readout: merge, tanh, post-merge, log-softmax ----------------
+    // ---- readout: merge, activation, post-merge, log-softmax ----------
     run_product({WA, D, a.merge_k, D, R, a.merge_b, ACT, R, false}, K);
     if (a.merge_states_k != nullptr) {
       __syncthreads();
       run_product({H, S, a.merge_states_k, S, R, nullptr, ACT, R, true}, K);
     }
     __syncthreads();
-    tanh_in_place(ACT, K * R);
-    __syncthreads();
-    run_product({ACT, R, a.post_k, R, V, a.post_b, COSTS, V, false}, K);
+    if (kVariant) {
+      const float* X =
+          post_merge_act(ACT, K, R, a.post_act, a.maxout, ACT + K * R);
+      const int Rx = a.post_act == 4 ? R / a.maxout : R;
+      __syncthreads();
+      run_product({X, Rx, a.post_k, Rx, V, a.post_b, COSTS, V, false}, K);
+    } else {
+      tanh_in_place(ACT, K * R);
+      __syncthreads();
+      run_product({ACT, R, a.post_k, R, V, a.post_b, COSTS, V, false}, K);
+    }
     __syncthreads();
     if (kMse)
       negated_costs(COSTS, K, V, ACOST);
@@ -526,31 +577,40 @@ beam_loop_kernel(BeamLoopArgs a) {
 }  // namespace
 
 extern "C" int beam_loop_smem_bytes(const BeamLoopArgs* args) {
-  return make_layout(*args).total * (int)sizeof(float);
+  const BeamLoopArgs& a = *args;
+  return (is_variant(a) ? make_layout<true>(a) : make_layout<false>(a))
+             .total * (int)sizeof(float);
 }
 
 namespace {
 
-template <int kNorm, bool kMse>
+template <int kNorm, bool kMse, bool kVariant>
 int launch_loop(const BeamLoopArgs* args, int smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      beam_loop_kernel<kNorm, kMse>,
+      beam_loop_kernel<kNorm, kMse, kVariant>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  beam_loop_kernel<kNorm, kMse><<<args->U, kThreads, smem, stream>>>(*args);
+  beam_loop_kernel<kNorm, kMse, kVariant>
+      <<<args->U, kThreads, smem, stream>>>(*args);
   return (int)cudaGetLastError();
 }
 
+// the instances configs use: the variants under the log-likelihood alone
+// (ops/beam_loop.py::unported_loop)
 template <int kNorm>
 int launch_cost(const BeamLoopArgs* args, int smem, cudaStream_t stream) {
-  return args->mse_cost ? launch_loop<kNorm, true>(args, smem, stream)
-                        : launch_loop<kNorm, false>(args, smem, stream);
+  if (is_variant(*args))
+    return args->mse_cost ? (int)cudaErrorInvalidValue
+                          : launch_loop<kNorm, false, true>(args, smem,
+                                                             stream);
+  return args->mse_cost ? launch_loop<kNorm, true, false>(args, smem, stream)
+                        : launch_loop<kNorm, false, false>(args, smem, stream);
 }
 
 }  // namespace
 
 extern "C" int beam_loop_f32(const BeamLoopArgs* args, void* stream) {
-  const int smem = make_layout(*args).total * (int)sizeof(float);
+  const int smem = beam_loop_smem_bytes(args);
   const cudaStream_t s = (cudaStream_t)stream;
   switch (args->normalizer) {
     case 0:

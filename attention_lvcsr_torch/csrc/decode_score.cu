@@ -7,7 +7,8 @@
 // SequenceGenerator.fused_score_supported admits).  Per utterance and its
 // K rows it runs the phases of the Pallas body in its order: the prior's
 // window (window_around_median with the TPU kernel's median rule
-// max(0, #(cumsum < 0.5) - 1), or expanding at the row's step), the
+// max(0, #(cumsum < 0.5) - 1), window_around_mean around sum_l w[l] * l
+// (:76-77), or expanding at the row's step), the
 // alignment convolution, the state projection, the energies, the masked
 // softmax, the weighted average and the readout with log-softmax costs.
 // Outputs: costs (U*K, V), the new weights and the windowed energies
@@ -78,6 +79,7 @@ struct DecodeScoreArgs {
   float* wa;                 // (U*K, D)
   int U, L, M, D, S, R, V, K, n_taps, prior_median;
   float before, after, initial_begin, initial_end, min_speed, max_speed;
+  int prior_mean;            // 1: window_around_mean
   int cluster;               // blocks an utterance: 1, 2, 4 or 8
 };
 
@@ -465,8 +467,11 @@ decode_score_kernel(DecodeScoreArgs a) {
 
   // ---- window prior ---------------------------------------------------
   int lb, le;
-  if (a.prior_median) {
-    median_bounds(W, K, L, a.before, a.after, false, BEGINS, ENDS);
+  if (a.prior_median || a.prior_mean) {
+    if (a.prior_mean)
+      mean_bounds(W, K, L, a.before, a.after, BEGINS, ENDS);
+    else
+      median_bounds(W, K, L, a.before, a.after, false, BEGINS, ENDS);
     union_window(BEGINS, ENDS, K, L, lb, le);
   } else {
     expanding_window(a.step[row0], L, a.initial_begin, a.initial_end,
@@ -514,7 +519,8 @@ decode_score_kernel(DecodeScoreArgs a) {
   __syncthreads();
 
   // ---- masked softmax ------------------------------------------------
-  window_softmax(E, MASK, BEGINS, ENDS, a.prior_median, K, L, lb, le);
+  window_softmax(E, MASK, BEGINS, ENDS, a.prior_median || a.prior_mean, K,
+                 L, lb, le);
   __syncthreads();
   {
     const int i0 = (int)((long long)K * L * rank / C);

@@ -91,6 +91,26 @@ __device__ void median_bounds(const float* W, int K, int L, float before,
   __syncthreads();
 }
 
+// window_around_mean: each row's bounds [floor(e - before), ceil(e +
+// after)) around its mean position e = sum_l w[l] * l.  A warp per row:
+// lane partial sums, then a butterfly sum.
+__device__ void mean_bounds(const float* W, int K, int L, float before,
+                            float after, float* BEGINS, float* ENDS) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int r = warp; r < K; r += nwarps) {
+    const float* wr = W + r * L;
+    float part = 0.f;
+    for (int l = lane; l < L; l += 32) part += wr[l] * (float)l;
+    const float expected = warp_sum(part);
+    if (lane == 0) {
+      BEGINS[r] = floorf(expected - before);
+      ENDS[r] = ceilf(expected + after);
+    }
+  }
+  __syncthreads();
+}
+
 // The window of the utterance: the union of its rows' bounds, clipped to
 // [0, L).  Every thread gets the same [lb, le).
 __device__ __forceinline__ void union_window(const float* BEGINS,
@@ -178,6 +198,68 @@ __device__ void window_energies(const float* __restrict__ pre, int M,
   }
 }
 
+// The convolutions of nf filters (taps filter after filter) over the
+// windowed previous weights, for frames in the window: conv[r, f, l] =
+// sum_j w[r, j] * taps[f, n + l - j] over j in [lb, le), CONV rows (r, f)
+// of pitch L.  window_conv's arithmetic, filter by filter.
+__device__ void window_conv_filters(const float* W, const float* TAPS,
+                                    int n_taps, int nf, int K, int L, int lb,
+                                    int le, float* CONV) {
+  const int conv_n = (n_taps - 1) / 2, width = le - lb;
+  for (int idx = threadIdx.x; idx < K * nf * width; idx += blockDim.x) {
+    const int rf = idx / width, l = lb + idx % width;
+    const float* wr = W + (rf / nf) * L;
+    const float* taps = TAPS + (rf % nf) * n_taps;
+    const int j0 = max(lb, l - conv_n), j1 = min(le - 1, l + conv_n);
+    float acc = 0.f;
+    for (int j = j0; j <= j1; ++j)
+      acc = fmaf(wr[j], taps[conv_n + l - j], acc);
+    CONV[rf * L + l] = acc;
+  }
+}
+
+// e[r, l] = v . tanh(pre[l] + sp[r] + sum_f conv[r, f, l] * hand[f]) inside
+// the window, the handler term summed in filter order (CONV as
+// window_conv_filters writes it, HAND nf rows of pitch M).  A warp per
+// frame, as window_energies; the handler rows are read from shared memory.
+__device__ void window_energies_filters(const float* __restrict__ pre, int M,
+                                        const float* CONV, const float* SP,
+                                        const float* HAND, const float* VV,
+                                        int nf, int K, int L, int lb, int le,
+                                        float* E) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int l = lb + warp; l < le; l += nwarps) {
+    const float* pl = pre + (size_t)l * M;
+    for (int m0 = 0; m0 < M; m0 += 32 * kMq) {
+      float pv[kMq], vv[kMq];
+#pragma unroll
+      for (int q = 0; q < kMq; ++q) {
+        const int m = m0 + lane + 32 * q;
+        pv[q] = m < M ? __ldg(pl + m) : 0.f;
+        vv[q] = m < M ? VV[m] : 0.f;
+      }
+      for (int r = 0; r < K; ++r) {
+        const float* cr = CONV + (size_t)r * nf * L + l;
+        const float* sp = SP + r * M;
+        float part = 0.f;
+#pragma unroll
+        for (int q = 0; q < kMq; ++q) {
+          const int m = m0 + lane + 32 * q;
+          if (m < M) {
+            float term = cr[0] * HAND[m];
+            for (int f = 1; f < nf; ++f)
+              term = term + cr[f * L] * HAND[f * M + m];
+            part = fmaf(vv[q], tanhf((pv[q] + sp[m]) + term), part);
+          }
+        }
+        part = warp_sum(part);
+        if (lane == 0) E[r * L + l] = m0 == 0 ? part : E[r * L + l] + part;
+      }
+    }
+  }
+}
+
 // Masked normalization of each row's energies, in place, into its new
 // weights.  kNorm 0 (softmax): the stabilising max runs over the window
 // only, and the weight of frame l is exp(e - max) * combined[l], with
@@ -243,6 +325,32 @@ __device__ void window_softmax(float* E, const float* MASK,
 __device__ void tanh_in_place(float* ACT, int n) {
   for (int idx = threadIdx.x; idx < n; idx += blockDim.x)
     ACT[idx] = tanhf(ACT[idx]);
+}
+
+// The readout's post-merge activation of K rows of R merged units
+// (post_act 0 tanh, 1 relu, 2 sigmoid, 3 identity: in place; 4 maxout: the
+// max of each group of `pieces` consecutive units of a row into OUT, K
+// rows of R / pieces).  Returns the rows the post-merge product reads.
+__device__ float* post_merge_act(float* ACT, int K, int R, int post_act,
+                                 int pieces, float* OUT) {
+  if (post_act == 4) {
+    const int Rm = R / pieces;
+    for (int idx = threadIdx.x; idx < K * Rm; idx += blockDim.x) {
+      const float* g = ACT + (idx / Rm) * R + (idx % Rm) * pieces;
+      float mx = g[0];
+      for (int p = 1; p < pieces; ++p) mx = fmaxf(mx, g[p]);
+      OUT[idx] = mx;
+    }
+    return OUT;
+  }
+  for (int idx = threadIdx.x; idx < K * R; idx += blockDim.x) {
+    const float x = ACT[idx];
+    ACT[idx] = post_act == 0   ? tanhf(x)
+               : post_act == 1 ? fmaxf(x, 0.f)
+               : post_act == 2 ? 1.f / (1.f + expf(-x))
+                               : x;
+  }
+  return ACT;
 }
 
 // Logits (K x V) into costs, in place: costs[r, c] = alive[r] + (lse_r -

@@ -3,20 +3,22 @@
 //
 // Replaces attention_lvcsr_tpu/ops/pallas/decoder_train.py::
 // decoder_scan_train (:839; forward _fwd_kernel :225, backward _bwd_kernel
-// :339, custom VJP :601-836) for the flagship variant: one conv filter, the
-// softmax, logistic or relu normalizer (normalizer 0, 1, 2; the last two
-// with the energy bias), the expanding or window_around_median prior, one
-// GRU layer; and for content-only attention (n_filters = 0 there, content = 1
-// here): no convolution and no conv[l] * hand[m] term, so the weights do not
-// feed the energies (decoder_train.py:580-582) and the backward forms no
-// band or handler gradient.  Per step t and batch row b (forward):
+// :339, custom VJP :601-836) for conv attention with 1-16 filters
+// (n_filters), the softmax, logistic or relu normalizer (normalizer 0, 1, 2;
+// the last two with the energy bias), the expanding, window_around_median or
+// window_around_mean prior, one GRU layer; and for content-only attention
+// (n_filters = 0 there, content = 1 here): no convolution and no conv[l] *
+// hand[m] term, so the weights do not feed the energies
+// (decoder_train.py:580-582) and the backward forms no band or handler
+// gradient.  Per step t and batch row b (forward):
 //
 //   window  [gb, ge) from the prior (median: each row's running-sum median
-//           of w, bounds taken over the whole batch); combined =
-//           gmask * (begin_b < l < end_b) * att_mask
-//   conv    = (w * gmask) @ toep;  sp = h @ st
-//   e[l]    = sum_m v[m] tanh(pre[b,l,m] + sp[m] + conv[l] * hand[m])
-//             (+ e_bias under logistic and relu)
+//           of w; mean: sum_l w[l] * l; bounds taken over the whole batch);
+//           combined = gmask * (begin_b < l < end_b) * att_mask
+//   conv    = (w * gmask) @ toep, filter by filter (toep (L, F * L));
+//           sp = h @ st
+//   e[l]    = sum_m v[m] tanh(pre[b,l,m] + sp[m] + sum_f conv_f[l] *
+//             hand[f,m]) (+ e_bias under logistic and relu)
 //   wnew    = g(e) * combined / (its sum, or 1 where combined is all zero),
 //             g = exp(e - max over the window) (softmax), sigmoid(e)
 //             (logistic) or max(e / 1000, 0) (relu)
@@ -72,9 +74,14 @@
 // * no atomics in any sum: every cross-thread, cross-warp and cross-block
 //   sum is taken in an order fixed by the plan, so a second call repeats
 //   bit for bit;
-// * the normalizer and the content branch are template parameters, one
-//   instance each, so the conv softmax route keeps no run-time test of
-//   them in its loops.
+// * the normalizer and the attention branch (content, one filter, more
+//   filters) are template parameters, one instance each, so the
+//   one-filter softmax route keeps no run-time test of them in its loops.
+//   With F > 1 filters the backward takes a block's rows one after
+//   another through the energies' backward, so the per-filter partials of
+//   dconv need room for one row, and sums the handler's gradient over its
+//   rows as well as its steps (one (cluster, block) partial, dhand (C *
+//   clusters, F, M)).
 //
 // The forward records each step's [gb, ge) and the backward reads it, so
 // the backward needs no grid barrier and is the exact gradient of its
@@ -96,11 +103,12 @@ struct DecoderArgs {
   const float* h0;     // (B, S)
   const float* w0;     // (B, L)
   const float* wa0;    // (B, D)
-  const float* hand;   // (M)
+  const float* hand;   // (F, M) handler rows
   const float* v;      // (M)
   // each block's column slice of the weights, k-major, (C, K, width) each
   // (ops/decoder_train.py::pack_forward, pack_backward)
-  const float* p_toep;   // toep by frame tile            (C, L, Lq)
+  const float* p_toep;   // toep by frame tile, filter by filter
+                         //                               (C, L, F * Lq)
   const float* p_st;     // st by M slice                 (C, S, Mc)
   const float* p_gate;   // [dgm; wsg], [u | r] by S slice (C, Dp + Sp, 2Sc)
   const float* p_dx;     // dxm by S slice                (C, D, Sc)
@@ -109,7 +117,8 @@ struct DecoderArgs {
   const float* p_sgT;    // wsg^T, rows [u; r]            (C, 2Sp, Sc)
   const float* p_dxgT;   // [dxm^T; dgm^T u; dgm^T r]     (C, 3Sp, Dc)
   const float* p_stT;    // st^T by S slice               (C, M, Sc)
-  const float* p_toepT;  // toep^T by frame tile          (C, L, Lq)
+  const float* p_toepT;  // toep^T by frame tile, the F bands' rows
+                         //   each padded to L4           (C, F * L4, Lq)
   float* h_out;        // (T, B, S) mask-mixed states
   float* w_out;        // (T, B, L) mask-mixed weights
   float* wa_out;       // (T, B, D) mask-mixed weighted averages
@@ -130,9 +139,11 @@ struct DecoderArgs {
   float* dpre;         // (B, L, M)
   float* dsp;          // (T, B, M) gradient of each step's h @ st
   float* wg;           // (T, B, L) windowed previous weights
-  float* dconv;        // (T, B, L) gradient of each step's convolution
+  float* dconv;        // (T, B, F, L) gradient of each step's convolutions
   float* dwan;         // (T, B, D) gradient of each step's weighted average
-  float* dhand;        // (B, C, M) each (row, block)'s sum over its steps
+  float* dhand;        // (B, C, M) each (row, block)'s sum over its steps;
+                       //   F > 1: (clusters, C, F, M) each (cluster,
+                       //   block)'s sum over its rows and steps
   float* dv;           // (B, C, M), (B, C, M + 1) with the bias's gradient
   const float* e_bias; // (1,) energy bias (logistic, relu)
   float* gsc;          // (T, B, L) g'(e) * combined / denominator (logistic,
@@ -146,6 +157,8 @@ struct DecoderArgs {
   int res_att;         //   dpre tiles stay in shared memory; the other
   int res_dpre;        //   rows' tiles are read from L2
   float before, after, initial_begin, initial_end, min_speed, max_speed;
+  int n_filters;       // conv filters (0 read as 1)
+  int prior_mean;      // 1: window_around_mean
 };
 
 namespace {
@@ -206,9 +219,11 @@ __host__ __device__ inline int part_floats(int K, int width, int R) {
 }
 
 // Shared-memory layout of a block (offsets in floats, 16-byte aligned);
-// kind 0 forward, 1 backward.  -1: not in this kind's layout.  Without the
-// conv term the convolution's buffers (wgv, conv; backward also dcv, dcvw)
-// hold nothing and no band product needs room in `part`.
+// kind 0 forward, 1 backward.  -1: not in this kind's layout.  nf: the
+// conv filters, 0 without the conv term, whose buffers (wgv, conv;
+// backward also dcv, dcvw) then hold nothing and whose band products need
+// no room in `part`.  With nf > 1 the backward's dcvw holds one row's
+// partials and dhg a block's (rows summed).
 struct Layout {
   int gin, w, wgv, rh, sp, wanp, wa, ek, conv, e, un, comb, xin, gate;
   int hp, g1, dwan, dspp, dsp, dcv, wn, dwn, dE, dh, dhp, dw, dwa, dcvw,
@@ -225,8 +240,10 @@ __host__ __device__ inline int take(int& at, int n) {
 __host__ __device__ inline Layout layout(int kind, const Dims& d, int L,
                                          int M, int D, int S, int res_pre,
                                          int res_att, int res_dpre,
-                                         int conv) {
+                                         int nf) {
   Layout o;
+  const bool conv = nf > 0;
+  const int hands = nf > 1 ? nf : 1;
   int* all = &o.gin;
   for (int i = 0; i < (int)(sizeof(Layout) / sizeof(int)); ++i) all[i] = -1;
   const int R = d.R;
@@ -240,14 +257,14 @@ __host__ __device__ inline Layout layout(int kind, const Dims& d, int L,
     o.wanp = take(at, R * d.Dp);
     o.wa = take(at, R * d.Dc);
     o.ek = take(at, R * d.Lq);
-    o.conv = take(at, conv ? R * d.Lq : 0);
+    o.conv = take(at, R * nf * d.Lq);
     o.e = take(at, R * d.Lq);
     o.un = take(at, R * d.Lq);
     o.comb = take(at, R * d.Lq);
     o.xin = take(at, R * d.Sc);
     o.gate = take(at, R * 2 * d.Sc);
     pmax = max(max(d.Lq, d.Mc), 2 * d.Sc);
-    part = max(max(conv ? part_floats(L, d.Lq, R) : 0,
+    part = max(max(conv ? part_floats(L, nf * d.Lq, R) : 0,
                    part_floats(S, d.Mc, R)),
                max(part_floats(d.Dp + d.Sp, 2 * d.Sc, R),
                    max(part_floats(D, d.Sc, R), part_floats(S, d.Sc, R))));
@@ -259,8 +276,8 @@ __host__ __device__ inline Layout layout(int kind, const Dims& d, int L,
     o.dwan = take(at, R * d.Dp);
     o.dspp = take(at, R * d.Mp);
     o.dsp = take(at, R * d.Mp);
-    o.dcv = take(at, conv ? R * d.L4 : 0);
-    o.conv = take(at, conv ? R * d.Lq : 0);
+    o.dcv = take(at, R * nf * d.L4);
+    o.conv = take(at, R * nf * d.Lq);
     o.wn = take(at, R * d.Lq);
     o.dwn = take(at, R * d.Lq);
     o.dE = take(at, R * d.Lq);
@@ -268,13 +285,18 @@ __host__ __device__ inline Layout layout(int kind, const Dims& d, int L,
     o.dhp = take(at, R * d.Sc);
     o.dw = take(at, R * d.Lq);
     o.dwa = take(at, R * d.Dc);
-    o.dcvw = take(at, conv ? d.Mch * R * d.Lq : 0);  // per M chunk: dcv
+    // per M chunk: dcv (nf > 1: one row's, filter by filter)
+    o.dcvw = take(at, nf > 1 ? nf * d.Mch * d.Lq : nf * d.Mch * R * d.Lq);
     o.dspg = take(at, d.groups * R * d.M4);  // per frame group: dsp, and
     o.dvg = take(at, d.groups * R * d.M4);   //   dv and dhand over the
-    o.dhg = take(at, d.groups * R * d.M4);   //   steps
+    // steps (nf > 1: dhand a filter, over the rows too)
+    o.dhg = take(at, nf > 1 ? nf * d.groups * d.M4 : d.groups * R * d.M4);
     pmax = max(max(d.Lq, d.Mc), max(d.Sc, d.Dc));
     part = max(max(max(part_floats(S, d.Mc, R),
-                       conv ? part_floats(L, d.Lq, R) : 0),
+                       conv ? max(part_floats(L, nf * d.Lq, R),
+                                  part_floats(nf > 1 ? nf * d.L4 : L, d.Lq,
+                                              R))
+                            : 0),
                    max(part_floats(S, d.Sc, R),
                        part_floats(2 * d.Sp, d.Sc, R))),
                max(part_floats(3 * d.Sp, d.Dc, R),
@@ -283,7 +305,7 @@ __host__ __device__ inline Layout layout(int kind, const Dims& d, int L,
   o.pout = take(at, R * pmax);
   o.rs = take(at, 8 * R);
   o.red = take(at, 2 * kWarps);
-  o.vh = take(at, 2 * d.M4);               // v | hand
+  o.vh = take(at, (1 + hands) * d.M4);     // v | hand rows
   o.part = take(at, part);
   if (kind == 1 && res_dpre > 0) o.dpre = take(at, res_dpre * d.Lt * d.Mt);
   if (res_att > 0) o.att = take(at, res_att * d.Lt * D);
@@ -530,22 +552,61 @@ __device__ __forceinline__ float numerator_grad(float e) {
   return (e > 0.f ? 1.f : 0.f) / 1000.f;
 }
 
-// kContent: the content branch; kNorm: 0 softmax, 1 logistic, 2 relu;
-// each compiled apart so that the conv softmax route keeps no run-time
-// test of them in its loops
-template <bool kContent, int kNorm>
+// The conv filters of an instance: 0 for the content branch (kConv 0), one
+// (kConv 1), or the struct's n_filters (kConv 2).
+template <int kConv>
+__device__ __forceinline__ int filters_of(const DecoderArgs& a) {
+  return kConv == 0 ? 0 : kConv == 1 ? 1 : a.n_filters;
+}
+
+// window_around_mean: each row's bounds [floor(e - before), ceil(e +
+// after)) around the mean position e = sum_l w[l] * l of its weights w
+// (warp r, row r of pitch L4), into rs[r * 8 + 5], rs[r * 8 + 6], and
+// (block 0 of the cluster) into this step's exchange slot for the grid's
+// union, as the median's bounds go (out of line: the median route keeps
+// its code).
+__device__ __noinline__ void mean_bounds(const DecoderArgs& a,
+                                         const float* w, int L4, int nr,
+                                         int b0, int j, int t, float* rs) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= nr) return;
+  const float* wr = w + warp * L4;
+  float s = 0.f;
+  for (int l = lane; l < a.L; l += 32) s += wr[l] * (float)l;
+  const float expected = warp_reduce(s, kSum);
+  const float begin_b = floorf(expected - a.before);
+  const float end_b = ceilf(expected + a.after);
+  if (lane == 0) {
+    rs[warp * 8 + 5] = begin_b;
+    rs[warp * 8 + 6] = end_b;
+    if (j == 0) {
+      float* slot = a.exch + (t & 1) * 2 * a.B;
+      slot[2 * (b0 + warp)] = begin_b;
+      slot[2 * (b0 + warp) + 1] = end_b;
+      __threadfence();
+    }
+  }
+}
+
+// kConv: 0 the content branch, 1 one conv filter, 2 more filters; kNorm:
+// 0 softmax, 1 logistic, 2 relu; each compiled apart so that the
+// one-filter softmax route keeps no run-time test of them in its loops
+template <int kConv, int kNorm>
 __global__ void __launch_bounds__(kThreads, 1)
     decoder_fwd_kernel(const __grid_constant__ DecoderArgs a) {
   namespace cg = cooperative_groups;
+  constexpr bool kContent = kConv == 0, kMulti = kConv == 2;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float sm[];
   const int T = a.T, B = a.B, L = a.L, M = a.M, D = a.D, S = a.S;
   const int C = a.cluster, j = (int)cluster.block_rank();
+  const int nf = filters_of<kConv>(a);
+  const bool windowed = a.prior_median || a.prior_mean;
   int b0, nr;
   cluster_rows(B, a.clusters, blockIdx.x / C, b0, nr);
   const Dims d = dims(C, cdiv(B, a.clusters), L, M, D, S);
   const int rp = min(a.res_pre, d.R), ra = min(a.res_att, d.R);
-  const Layout o = layout(0, d, L, M, D, S, rp, ra, 0, !kContent);
+  const Layout o = layout(0, d, L, M, D, S, rp, ra, 0, nf);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int Lt = d.Lt, Lq = d.Lq, L4 = d.L4, Sc = d.Sc, Sp = d.Sp;
   const int Mc = d.Mc, Mp = d.Mp, Dc = d.Dc, Dp = d.Dp;
@@ -560,6 +621,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float *gate = sm + o.gate, *pout = sm + o.pout, *rs = sm + o.rs;
   float *red = sm + o.red, *v = sm + o.vh, *hand = v + d.M4;
   float* part = sm + o.part;
+  const int cq = nf * Lq;                    // conv pitch: F frame tiles
   const float ebias = kNorm != 0 ? a.e_bias[0] : 0.f;
   // a row's tiles: resident rows in shared memory, the others in L2
   auto pre_row = [&](int r) -> const float* {
@@ -584,6 +646,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     v[m] = a.v[m];
     hand[m] = a.hand[m];
   }
+  for (int i = M + tid; kMulti && i < nf * M; i += kThreads)
+    hand[(i / M) * d.M4 + i % M] = a.hand[i];
   for (int i = tid; i < min(rp, nr) * nl * M; i += kThreads) {
     const int r = i / (nl * M), l = (i / M) % nl, m = i % M;
     sm[o.pre + (r * Lt + l) * d.Mt + m] =
@@ -601,10 +665,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     const size_t row0 = (size_t)t * B + b0;
     unsigned gen = 0;
     // ---- window of the prior
-    if (a.prior_median) {
-      // warp r: running sum of row r's w over contiguous chunks per lane,
-      // and the number of frames whose running sum stays under 0.5
-      if (warp < nr) {
+    if (windowed) {
+      if (a.prior_mean) {
+        mean_bounds(a, w, L4, nr, b0, j, t, rs);
+      } else if (warp < nr) {
+        // warp r: running sum of row r's w over contiguous chunks per
+        // lane, and the number of frames whose running sum stays under 0.5
         const float* wr = w + warp * L4;
         const int per = (L + 31) / 32;
         const int la = min(L, lane * per), lb = min(L, la + per);
@@ -644,7 +710,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             Mp);
     cluster_arrive();
     float gb, ge;
-    if (a.prior_median) {
+    if (windowed) {
       if (tid == 0) grid_wait(a.barrier, gen);
       __syncthreads();
       const float* slot = a.exch + (t & 1) * 2 * B;
@@ -675,17 +741,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     for (int i = tid; i < nr * nl; i += kThreads) {
       const int r = i / nl, l = i % nl, pos = l0 + l;
-      const float add = !a.prior_median || ((float)pos > rs[r * 8 + 5] &&
-                                            (float)pos < rs[r * 8 + 6])
+      const float add = !windowed || ((float)pos > rs[r * 8 + 5] &&
+                                      (float)pos < rs[r * 8 + 6])
                             ? 1.f : 0.f;
       comb[r * Lq + l] = (inside(pos) ? 1.f : 0.f) * add
                          * a.amask[(size_t)(b0 + r) * L + pos];
     }
     __syncthreads();
-    // ---- convolution of the windowed weights, own frames
+    // ---- convolution of the windowed weights, own frames, each filter
     if (!kContent)
-      product(wgv, L4, nr, L, a.p_toep + (size_t)j * L * Lq, Lq, part, conv,
-              Lq);
+      product(wgv, L4, nr, L, a.p_toep + (size_t)j * L * cq, cq, part, conv,
+              cq);
     cluster_wait();
     pull4(cluster, sp, Mp, nr, Mc, j, C);
     __syncthreads();
@@ -695,7 +761,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float* pl = pre_row(r) + (size_t)l * (r < rp ? d.Mt : M);
       const float* spr = sp + r * Mp;
       float acc;
-      if (!kContent) {
+      if (kMulti) {
+        const float* cr = conv + r * cq + l;
+        acc = lane_fold<8>(pl, M, [&](int m, float p, float s) {
+          float x = p + spr[m];
+          for (int f = 0; f < nf; ++f) x = x + cr[f * Lq] * hand[f * d.M4 + m];
+          return fmaf(v[m], tanhf(x), s);
+        });
+      } else if (!kContent) {
         const float cl = conv[r * Lq + l];
         acc = lane_fold<8>(pl, M, [&](int m, float p, float s) {
           return fmaf(v[m], tanhf(p + spr[m] + cl * hand[m]), s);
@@ -814,8 +887,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     product(gin, gp, nr, D, a.p_dx + (size_t)j * D * Sc, Sc, part, xin, Sc);
     cluster_wait();
     pull4(cluster, rh, Sp, nr, Sc, j, C);
-    // the whole rows of w feed the convolution and the median
-    if (!kContent || a.prior_median) pull1(cluster, w, L4, nr, Lt, L, j, C);
+    // the whole rows of w feed the convolution and the median or mean
+    if (!kContent || windowed) pull1(cluster, w, L4, nr, Lt, L, j, C);
     __syncthreads();
     // ---- candidates and the new state of own units
     product(rh, Sp, nr, S, a.p_ss + (size_t)j * S * Sc, Sc, part, pout, Sc);
@@ -848,20 +921,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster.sync();
 }
 
-template <bool kContent, int kNorm>
+template <int kConv, int kNorm>
 __global__ void __launch_bounds__(kThreads, 1)
     decoder_bwd_kernel(const __grid_constant__ DecoderArgs a) {
   namespace cg = cooperative_groups;
+  constexpr bool kContent = kConv == 0, kMulti = kConv == 2;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float sm[];
   const int B = a.B, L = a.L, M = a.M, D = a.D, S = a.S;
   const int C = a.cluster, j = (int)cluster.block_rank();
+  const int nf = filters_of<kConv>(a);
   int b0, nr;
   cluster_rows(B, a.clusters, blockIdx.x / C, b0, nr);
   const Dims d = dims(C, cdiv(B, a.clusters), L, M, D, S);
   const int R = d.R, rp = min(a.res_pre, R), ra = min(a.res_att, R);
   const int rd = min(a.res_dpre, R);
-  const Layout o = layout(1, d, L, M, D, S, rp, ra, rd, !kContent);
+  const Layout o = layout(1, d, L, M, D, S, rp, ra, rd, nf);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int Lt = d.Lt, Lq = d.Lq, L4 = d.L4, Sc = d.Sc, Sp = d.Sp;
   const int Mc = d.Mc, Mp = d.Mp, Dc = d.Dc, Dp = d.Dp, M4 = d.M4;
@@ -878,6 +953,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float *dspg = sm + o.dspg, *dvg = sm + o.dvg, *dhg = sm + o.dhg;
   float *pout = sm + o.pout, *rs = sm + o.rs;
   float *v = sm + o.vh, *hand = v + M4, *part = sm + o.part;
+  const int cq = nf * Lq, cl4 = nf * L4;     // conv, dcv pitches
   auto pre_row = [&](int r) -> const float* {
     return r < rp ? sm + o.pre + r * Lt * d.Mt
                   : a.pre + ((size_t)(b0 + r) * L + l0) * M;
@@ -901,6 +977,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     v[m] = a.v[m];
     hand[m] = a.hand[m];
   }
+  for (int i = M + tid; kMulti && i < nf * M; i += kThreads)
+    hand[(i / M) * M4 + i % M] = a.hand[i];
   for (int i = tid; i < min(rp, nr) * nl * M; i += kThreads) {
     const int r = i / (nl * M), l = (i / M) % nl, m = i % M;
     sm[o.pre + (r * Lt + l) * d.Mt + m] =
@@ -975,10 +1053,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       a.dfg[(row0 + r) * 2 * S + S + s0 + c] = dgr;
     }
     cluster_arrive();
-    // the recomputed convolution of own frames (needs no gradient)
+    // the recomputed convolutions of own frames (need no gradient)
     if (!kContent)
-      product(wgv, L4, nr, L, a.p_toep + (size_t)j * L * Lq, Lq, part, conv,
-              Lq);
+      product(wgv, L4, nr, L, a.p_toep + (size_t)j * L * cq, cq, part, conv,
+              cq);
     cluster_wait();
     pull4(cluster, g1 + 2 * Sp, gp, nr, Sc, j, C);
     __syncthreads();
@@ -1055,8 +1133,63 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();
     // ---- energies backward over the recomputed match: warp (c, g) takes
-    // the 32 columns of M chunk c over frame group g, lanes over columns
-    if (warp / min(d.Mch, kWarps) < d.groups) {
+    // the 32 columns of M chunk c over frame group g, lanes over columns.
+    // More filters: the rows one after another, each row's per-chunk
+    // partials of every filter's dconv summed before the next
+    if (kMulti) {
+      const int nch = min(d.Mch, kWarps), g = warp / nch;
+      for (int r = 0; r < nr; ++r) {
+        if (g < d.groups) {
+          const float* pr = pre_row(r);
+          float* dpr = dpre_row(r);
+          const int pp = r < rp ? d.Mt : M, dp = r < rd ? d.Mt : M;
+          const float* cr = conv + r * cq;
+          const float* er = dE + r * Lq;
+          for (int c = warp % nch; c < d.Mch; c += nch) {
+            const int mm = c * 32 + lane;
+            const bool ok = mm < M;
+            const float spm = ok ? sp[r * Mp + mm] : 0.f;
+            const float vm = ok ? v[mm] : 0.f;
+            float dsa = 0.f, dva = 0.f;
+            for (int l = g; l < nl; l += d.groups) {
+              const float el = er[l];
+              float mt = 0.f, dmt = 0.f;
+              if (ok) {
+                float x = pr[(size_t)l * pp + mm] + spm;
+                for (int f = 0; f < nf; ++f)
+                  x = x + cr[f * Lq + l] * hand[f * M4 + mm];
+                mt = tanhf(x);
+                dmt = el * vm * (1.f - mt * mt);
+                dpr[(size_t)l * dp + mm] += dmt;
+                for (int f = 0; f < nf; ++f)
+                  dhg[(f * d.groups + g) * M4 + mm] += dmt * cr[f * Lq + l];
+              }
+              dsa += dmt;
+              dva += mt * el;
+              for (int f = 0; f < nf; ++f) {
+                const float dc =
+                    warp_reduce(ok ? dmt * hand[f * M4 + mm] : 0.f, kSum);
+                if (lane == 0) dcvw[(f * d.Mch + c) * Lq + l] = dc;
+              }
+            }
+            if (ok) {
+              const int at = (g * R + r) * M4 + mm;
+              dspg[at] = dsa;
+              dvg[at] += dva;
+            }
+          }
+        }
+        __syncthreads();
+        for (int i = tid; i < nf * nl; i += kThreads) {
+          const int f = i / nl, l = i % nl;
+          float sum = 0.f;
+          for (int c = 0; c < d.Mch; ++c) sum += dcvw[(f * d.Mch + c) * Lq + l];
+          dcv[r * cl4 + f * L4 + l0 + l] = sum;
+          a.dconv[((row0 + r) * nf + f) * L + l0 + l] = sum;
+        }
+        __syncthreads();
+      }
+    } else if (warp / min(d.Mch, kWarps) < d.groups) {
       const int nch = min(d.Mch, kWarps), g = warp / nch;
       for (int r = 0; r < nr; ++r) {
         const float* pr = pre_row(r);
@@ -1113,7 +1246,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     __syncthreads();
-    for (int i = tid; !kContent && i < nr * nl; i += kThreads) {
+    for (int i = tid; !kContent && !kMulti && i < nr * nl; i += kThreads) {
       const int r = i / nl, l = i % nl;
       float s = 0.f;
       for (int c = 0; c < d.Mch; ++c) s += dcvw[(c * R + r) * Lq + l];
@@ -1133,7 +1266,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float4 s = sum_peers4(cluster, dspp + r * Mp + c, C);
       *reinterpret_cast<float4*>(dsp + r * Mp + c) = s;
     }
-    if (!kContent) pull1(cluster, dcv, L4, nr, Lt, L, j, C);
+    for (int f = 0; f < nf; ++f)
+      pull1(cluster, dcv + f * L4, cl4, nr, Lt, L, j, C);
     __syncthreads();
     for (int i = tid; i < nr * nm; i += kThreads) {
       const int r = i / nm, c = i % nm;
@@ -1146,8 +1280,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       dh[r * Sc + c] = (dhp[r * Sc + c] + pout[r * Sc + c]) + dh[r * Sc + c];
     }
     if (!kContent) {
-      product(dcv, L4, nr, L, a.p_toepT + (size_t)j * L * Lq, Lq, part, pout,
-              Lq);
+      // the F bands' rows each padded to L4 (one band: L rows)
+      const int kd = kMulti ? cl4 : L;
+      product(dcv, cl4, nr, kd, a.p_toepT + (size_t)j * kd * Lq, Lq, part,
+              pout, Lq);
       for (int i = tid; i < nr * nl; i += kThreads) {
         const int r = i / nl, l = i % nl;
         dw[r * Lq + l] = pout[r * Lq + l] * (inside(l0 + l) ? 1.f : 0.f)
@@ -1168,14 +1304,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   for (int i = tid; i < nr * M; i += kThreads) {
     const int r = i / M, m = i % M;
-    float sv = dvg[r * M4 + m], sh = dhg[r * M4 + m];
+    float sv = dvg[r * M4 + m], sh = kMulti ? 0.f : dhg[r * M4 + m];
     for (int g = 1; g < d.groups; ++g) {
       sv += dvg[(g * R + r) * M4 + m];
-      sh += dhg[(g * R + r) * M4 + m];
+      if (!kMulti) sh += dhg[(g * R + r) * M4 + m];
     }
     const size_t at = ((size_t)(b0 + r) * C + j) * M + m;
     a.dv[kNorm != 0 ? at + (b0 + r) * C + j : at] = sv;
-    if (!kContent) a.dhand[at] = sh;
+    if (!kContent && !kMulti) a.dhand[at] = sh;
+  }
+  // more filters: the block's handler gradient, over its rows and steps
+  for (int i = tid; kMulti && i < nf * M; i += kThreads) {
+    const int f = i / M, m = i % M;
+    float sh = dhg[f * d.groups * M4 + m];
+    for (int g = 1; g < d.groups; ++g) sh += dhg[(f * d.groups + g) * M4 + m];
+    a.dhand[(size_t)blockIdx.x * nf * M + i] = sh;
   }
   // the bias's gradient: the (row, block)'s sum over its steps, in the
   // last column of its dv row
@@ -1188,33 +1331,45 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// The kernel of a kind (0 forward, 1 backward) and a variant: the content
-// branch (softmax), or the conv branch with normalizer 0, 1 or 2; nullptr
-// for a normalizer out of range.
-const void* kernel_of(int kind, int content, int normalizer) {
-  if (content)
-    return kind == 0 ? (const void*)decoder_fwd_kernel<true, 0>
-                     : (const void*)decoder_bwd_kernel<true, 0>;
+template <int kConv>
+const void* kernel_by_norm(int kind, int normalizer) {
   switch (normalizer) {
     case 0:
-      return kind == 0 ? (const void*)decoder_fwd_kernel<false, 0>
-                       : (const void*)decoder_bwd_kernel<false, 0>;
+      return kind == 0 ? (const void*)decoder_fwd_kernel<kConv, 0>
+                       : (const void*)decoder_bwd_kernel<kConv, 0>;
     case 1:
-      return kind == 0 ? (const void*)decoder_fwd_kernel<false, 1>
-                       : (const void*)decoder_bwd_kernel<false, 1>;
+      return kind == 0 ? (const void*)decoder_fwd_kernel<kConv, 1>
+                       : (const void*)decoder_bwd_kernel<kConv, 1>;
     case 2:
-      return kind == 0 ? (const void*)decoder_fwd_kernel<false, 2>
-                       : (const void*)decoder_bwd_kernel<false, 2>;
+      return kind == 0 ? (const void*)decoder_fwd_kernel<kConv, 2>
+                       : (const void*)decoder_bwd_kernel<kConv, 2>;
     default:
       return nullptr;
   }
+}
+
+// The conv filters a struct asks for: 0 for the content branch, else
+// n_filters (0 read as 1).
+int filters(const DecoderArgs& a) {
+  return a.content ? 0 : max(a.n_filters, 1);
+}
+
+// The kernel of a kind (0 forward, 1 backward) and a variant: the content
+// branch (softmax), or the conv branch with one filter or more and
+// normalizer 0, 1 or 2; nullptr for a normalizer out of range.
+const void* kernel_of(int kind, int nf, int normalizer) {
+  if (nf == 0)
+    return kind == 0 ? (const void*)decoder_fwd_kernel<0, 0>
+                     : (const void*)decoder_bwd_kernel<0, 0>;
+  return nf == 1 ? kernel_by_norm<1>(kind, normalizer)
+                 : kernel_by_norm<2>(kind, normalizer);
 }
 
 int smem_bytes(int kind, const DecoderArgs& a) {
   const Dims d = dims(a.cluster, cdiv(a.B, a.clusters), a.L, a.M, a.D, a.S);
   return layout(kind, d, a.L, a.M, a.D, a.S, min(a.res_pre, d.R),
                 min(a.res_att, d.R), kind == 1 ? min(a.res_dpre, d.R) : 0,
-                !a.content)
+                filters(a))
              .total
          * (int)sizeof(float);
 }
@@ -1254,7 +1409,7 @@ int launch(int kind, const DecoderArgs* args, cudaStream_t stream) {
   int err = max_smem_optin(&max_smem);
   if (err != 0) return err;
   if (smem > max_smem) return -1;
-  const void* kernel = kernel_of(kind, args->content, args->normalizer);
+  const void* kernel = kernel_of(kind, filters(*args), args->normalizer);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t e = set_attributes(kernel, args->cluster, smem);
   if (e != cudaSuccess) return (int)e;
@@ -1293,17 +1448,18 @@ extern "C" int decoder_train_smem_bytes(int kind, const DecoderArgs* args) {
 }
 
 // How many `cluster`-block clusters of the kernel (kind 0 forward, 1
-// backward; content 0 the conv branch, 1 the content branch) the current
-// device holds at once at the most shared memory a block may take, into
-// *count; a CUDA error code.
-extern "C" int decoder_train_max_clusters(int kind, int content, int cluster,
-                                          int* count) {
+// backward; n_filters 0 the content branch, 1 the conv branch with one
+// filter, more the conv branch with more filters) the current device holds
+// at once at the most shared memory a block may take, into *count; a CUDA
+// error code.
+extern "C" int decoder_train_max_clusters(int kind, int n_filters,
+                                          int cluster, int* count) {
   int smem = 0;
   int err = max_smem_optin(&smem);
   if (err != 0) return err;
   // every variant of a kind takes the same shared memory and block, so
-  // the conv softmax instance stands for the conv branch's three
-  const void* kernel = kernel_of(kind, content, 0);
+  // the softmax instance of a branch stands for its three normalizers
+  const void* kernel = kernel_of(kind, n_filters, 0);
   cudaError_t e = set_attributes(kernel, cluster, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};

@@ -6,21 +6,24 @@ windowed prior.
 (Bahdanau content attention, no window, no convolution; its energies are
 plain PyTorch on every device, as the JAX module computes them outside
 any Pallas kernel).  :class:`SequenceContentAndConvAttention` is the
-counterpart of ``SequenceContentAndConvAttention`` for one conv filter and
-the softmax, logistic or relu energy normalizer (the last two with a
-biased energy projection, JAX ``attention.py:189``, ``_normalize``
-:316-333): parameters, key preprocessing, the whole-loop
-decode tables (the loop kernel, ``ops/beam_loop.py``, runs its own
-glimpse), the tables of the teacher-forced decoder scan
-(``train_tables``), and the
-module-driven glimpse (``take_glimpses``) of the step-by-step decode,
-whose energies go through ``ops/attention_energy.py``, and of the
-teacher-forced module scan, where it is differentiable PyTorch.
+counterpart of ``SequenceContentAndConvAttention`` for any number of conv
+filters (``conv_num_filters``), the expanding, ``window_around_median``
+and ``window_around_mean`` priors and the softmax, logistic or relu
+energy normalizer (the last two with a biased energy projection, JAX
+``attention.py:189``, ``_normalize`` :316-333): parameters, key
+preprocessing, the whole-loop decode tables (the loop kernel,
+``ops/beam_loop.py``, runs its own glimpse), the tables of the
+teacher-forced decoder scan (``train_tables``), and the module-driven
+glimpse (``take_glimpses``) of the step-by-step decode, whose energies
+go through ``ops/attention_energy.py`` with one filter and are plain
+PyTorch with more (JAX ``attention.py:269-275``), and of the
+teacher-forced module scan, where they are differentiable PyTorch.
 
 The module-driven window is the JAX module's: a static mask over all L
 frames, its bounds taken over EVERY row of the batch (all utterances'
-hypotheses, padding rows included), with the argmax-of-switches median
-(0 when no frame switches).  The loop kernel and the fused score kernel
+hypotheses, padding rows included), around the argmax-of-switches median
+(0 when no frame switches) or the mean position of the previous
+weights.  The loop kernel and the fused score kernel
 take the bounds per utterance instead; the three agree when each
 utterance decodes alone.
 """
@@ -123,11 +126,13 @@ class SequenceContentAttention(nn.Module):
 
 
 class SequenceContentAndConvAttention(nn.Module):
-    """One conv filter, the configuration the decode kernels cover.
+    """Content + convolutional attention with ``conv_num_filters`` filters
+    (``conv_filters`` (F, 2n+1), ``handler`` Dense(F -> M)).
 
     ``prior``: ``{"type": "expanding", "initial_begin", "initial_end",
-    "min_speed", "max_speed"}`` or ``{"type": "window_around_median",
-    "before", "after"}``; None means an expanding window over everything.
+    "min_speed", "max_speed"}`` or ``{"type": "window_around_median" |
+    "window_around_mean", "before", "after"}``; None means an expanding
+    window over everything.
     ``energy_normalizer``: ``softmax`` (the energy has no bias),
     ``logistic`` or ``relu`` (it has one, ``energy_comp/bias``).
     The preprocessing layer is ``preprocessor`` here and ``preprocess`` in
@@ -136,6 +141,7 @@ class SequenceContentAndConvAttention(nn.Module):
 
     def __init__(self, state_names: Sequence[str], state_dim: int,
                  attended_dim: int, match_dim: int, conv_n: int,
+                 conv_num_filters: int = 1,
                  prior: Optional[Mapping[str, Any]] = None,
                  energy_normalizer: str = "softmax"):
         super().__init__()
@@ -146,6 +152,7 @@ class SequenceContentAndConvAttention(nn.Module):
         self.attended_dim = attended_dim
         self.match_dim = match_dim
         self.conv_n = conv_n
+        self.conv_num_filters = int(conv_num_filters)
         self.prior = dict(prior) if prior else None
         self.energy_normalizer = energy_normalizer
         for name in self.state_names:
@@ -154,8 +161,10 @@ class SequenceContentAndConvAttention(nn.Module):
         self.preprocessor = Dense(attended_dim, match_dim)
         self.energy_comp = Dense(match_dim, 1,
                                  use_bias=energy_normalizer != "softmax")
-        self.handler = Dense(1, match_dim, use_bias=False)
-        self.conv_filters = nn.Parameter(torch.zeros(1, 2 * conv_n + 1))
+        self.handler = Dense(self.conv_num_filters, match_dim,
+                             use_bias=False)
+        self.conv_filters = nn.Parameter(
+            torch.zeros(self.conv_num_filters, 2 * conv_n + 1))
 
     def prior_config(self, length=None):
         """The configured window (``length`` is not used: this prior does
@@ -180,26 +189,34 @@ class SequenceContentAndConvAttention(nn.Module):
 
     def train_tables(self, length):
         """The attention's tables of ``decoder_scan_train``, taken from the
-        parameters so that autograd reaches them: the Toeplitz band of the
-        conv taps over ``length`` frames, the state transform, the handler
-        row, the energy vector and (logistic, relu) the energy bias."""
+        parameters so that autograd reaches them: the Toeplitz bands of the
+        conv filters over ``length`` frames, (L, F*L) filter-major as JAX
+        ``generator.py:516-523`` stacks them, the state transform, the
+        handler rows (F, M), the energy vector and (logistic, relu) the
+        energy bias."""
         (name,) = self.state_names
         v, bias = self.energy_vector()
+        filters = self.conv_filters
+        toep = (toeplitz_band(filters, length) if len(filters) == 1
+                else torch.cat([toeplitz_band(f, length) for f in filters],
+                               dim=1))
         return {
-            "toep": toeplitz_band(self.conv_filters, length),
+            "toep": toep,
             "st": getattr(self, f"state_trans_{name}").kernel,
             "hand": self.handler.kernel,
             "v": v.contiguous(), "e_b": bias,
         }
 
     def loop_tables(self):
-        """Dense tables of the decode kernel's attention step; with a
-        biased energy its bias as ``energy_b``."""
+        """Dense tables of the decode kernel's attention step: the handler
+        row (M,) of one filter or the rows (F, M) of more, the taps (F,
+        2n+1); with a biased energy its bias as ``energy_b``."""
         (name,) = self.state_names
         v, bias = self.energy_vector()
+        hand = self.handler.kernel
         t = {
             "state_trans": getattr(self, f"state_trans_{name}").kernel,
-            "handler": self.handler.kernel[0],
+            "handler": hand[0] if len(hand) == 1 else hand,
             "v": v,
             "conv_filters": self.conv_filters,
         }
@@ -235,14 +252,20 @@ class SequenceContentAndConvAttention(nn.Module):
             end = torch.ceil(end.clamp(max=length).clamp(min=0))
             window = (positions >= begin) & (positions < end)
             return window.to(f32)[None, :], None
-        # window_around_median: the first frame whose cumulative weight
-        # reaches 0.5, minus one (argmax of the switches; 0 without one)
-        above_half = (torch.cumsum(weights, dim=1) - 0.5 >= 0).to(torch.int32)
-        switches = above_half[:, 1:] - above_half[:, :-1]
-        if switches.shape[1]:
-            expected = torch.argmax(switches, dim=1).to(f32)
+        if p["type"] == "window_around_mean":
+            expected = (weights * positions[None, :]).sum(dim=1)
+        elif p["type"] == "window_around_median":
+            # the first frame whose cumulative weight reaches 0.5, minus
+            # one (argmax of the switches; 0 without one)
+            above_half = (torch.cumsum(weights, dim=1) - 0.5 >= 0).to(
+                torch.int32)
+            switches = above_half[:, 1:] - above_half[:, :-1]
+            if switches.shape[1]:
+                expected = torch.argmax(switches, dim=1).to(f32)
+            else:
+                expected = weights.new_zeros(weights.shape[0])
         else:
-            expected = weights.new_zeros(weights.shape[0])
+            raise ValueError(f"Unknown prior type: {p['type']}")
         begins = torch.floor(expected - p["before"])
         ends = torch.ceil(expected + p["after"])
         begin = torch.floor(begins.min().clamp(min=0))
@@ -255,21 +278,27 @@ class SequenceContentAndConvAttention(nn.Module):
     def compute_energies(self, preprocessed, windowed_weights, states,
                          beam=1, train=False):
         """Energies (U*beam, L) of per-hypothesis states over the shared
-        per-utterance keys (U, L, M), through ``beam_attention_energies``
-        (the CUDA kernel on a CUDA tensor).  ``train`` (the teacher-forced
-        module scan) computes them in plain differentiable PyTorch, as the
-        JAX module does."""
+        per-utterance keys (U, L, M): with one filter through
+        ``beam_attention_energies`` (the CUDA kernel on a CUDA tensor),
+        with more in plain PyTorch, as the JAX module computes them
+        (``attention.py:269-275``).  ``train`` (the teacher-forced module
+        scan) computes them in plain differentiable PyTorch, as the JAX
+        module does."""
         (name,) = self.state_names
         state_sum = getattr(self, f"state_trans_{name}")(states[name])
         n, L = self.conv_n, windowed_weights.shape[1]
-        conv = conv1d_full(windowed_weights, self.conv_filters)[:, 0, n:n + L]
-        if train:
-            match = (preprocessed + state_sum[:, None, :]
-                     + self.handler(conv[:, :, None]))
-            return self.energy_comp(torch.tanh(match))[..., 0]
+        conv = conv1d_full(windowed_weights,
+                           self.conv_filters)[:, :, n:n + L]     # (B, F, L)
+        if train or self.conv_num_filters > 1:
+            conv_proj = self.handler(conv.transpose(1, 2))       # (B, L, M)
+            U, L, M = preprocessed.shape
+            match = (preprocessed[:, None] + state_sum.view(U, beam, 1, M)
+                     + conv_proj.view(U, beam, L, M))
+            return self.energy_comp(torch.tanh(match))[..., 0].reshape(
+                U * beam, L)
         v, bias = self.energy_vector()
         return beam_attention_energies(
-            preprocessed, state_sum.contiguous(), conv.contiguous(),
+            preprocessed, state_sum.contiguous(), conv[:, 0].contiguous(),
             self.handler.kernel[0], v.contiguous(),
             0.0 if bias is None else float(bias), beam=beam)
 
@@ -316,7 +345,7 @@ class SequenceContentAndConvAttention(nn.Module):
 
 
 def make_attention(attention_type, state_names, state_dim, attended_dim,
-                   match_dim, conv_n=None, prior=None,
+                   match_dim, conv_n=None, conv_num_filters=1, prior=None,
                    energy_normalizer=None):
     """The attention of a net config's ``attention_type`` (JAX
     ``make_attention``); content attention is softmax only, as there."""
@@ -326,5 +355,6 @@ def make_attention(attention_type, state_names, state_dim, attended_dim,
     if attention_type == "content_and_conv":
         return SequenceContentAndConvAttention(
             state_names, state_dim, attended_dim, match_dim, conv_n,
-            prior=prior, energy_normalizer=energy_normalizer or "softmax")
+            conv_num_filters=conv_num_filters or 1, prior=prior,
+            energy_normalizer=energy_normalizer or "softmax")
     raise ValueError(f"Unknown attention type {attention_type}")

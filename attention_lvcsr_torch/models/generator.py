@@ -2,7 +2,9 @@
 
 Counterpart of ``attention_lvcsr_tpu/models/generator.py`` for one GRU
 decoder layer: the feedback embedding, the readout (merge of the weighted
-averages and optionally the states, tanh post-merge), its shallow-fusion
+averages and optionally the states, then no post-merge layer or one or
+more with the tanh, rectifier, sigmoid, identity or maxout activation),
+its shallow-fusion
 variant with an FST language model, the decoder GRU with its fork and
 distribute projections, and the criterion: the log-likelihood, or the
 task loss's ``mse_gain`` / ``mse_reward`` (arXiv:1511.06456), whose
@@ -20,8 +22,9 @@ readouts regress the edit-distance gains and rewards of
 ``evaluate`` is the teacher-forced pass of the training cost
 (``:380-433``, the mse criteria ``_mse_costs`` :658-686): the whole label
 loop through ``decoder_scan_train`` (the
-CUDA kernels on a CUDA tensor), or, under ``use_pallas: never``, where the
-JAX package takes its XLA scan, through the plain module scan; with an LM
+CUDA kernels on a CUDA tensor), or, under ``use_pallas: never`` and above
+16 conv filters, where the JAX package takes its XLA scan, through the
+plain module scan; with an LM
 the readout also reads the LM's teacher-forced costs (``lm.evaluate``).
 ``generate`` samples (``:912-942``): ``n_steps`` of the module step's
 score, the emitter's draw (categorical, or argmax with an LM or a task
@@ -46,7 +49,11 @@ from torch import nn
 from attention_lvcsr_torch.models.cells import GatedRecurrent
 from attention_lvcsr_torch.models.layers import Dense, Embed
 from attention_lvcsr_torch.ops.decode_score import fused_decode_score
-from attention_lvcsr_torch.ops.decoder_train import decoder_scan_train
+from attention_lvcsr_torch.ops.decoder_train import (MAX_FILTERS,
+                                                      decoder_scan_train)
+from attention_lvcsr_torch.ops.expressions import (ACTIVATIONS,
+                                                   maxout_pieces,
+                                                   post_merge_activation)
 from attention_lvcsr_torch.ops.reward_op import reward_and_gain
 
 
@@ -63,24 +70,47 @@ class LookupFeedback(nn.Module):
 
 class Readout(nn.Module):
     """Per-source bias-free merge into ``merged_dim``, summed, plus
-    ``merge_bias``; then tanh and one post-merge layer to the logits."""
+    ``merge_bias``; then, with ``post_merge_dims`` set, the activation and
+    the post-merge layers (``post_merge_0`` ...) to the logits, the
+    activation between them; without it the merged vector is the logits
+    (``merged_dim`` the readout's width), as JAX ``Readout``."""
 
     def __init__(self, source_dims: Mapping[str, int], readout_dim: int,
-                 post_merge_dims: Sequence[int]):
+                 post_merge_dims: Optional[Sequence[int]] = None,
+                 post_merge_activation: str = "tanh"):
         super().__init__()
+        if post_merge_activation not in ACTIVATIONS \
+                and not maxout_pieces(post_merge_activation):
+            raise ValueError(post_merge_activation)
         self.source_names = tuple(source_dims)
-        self.merged_dim = post_merge_dims[0]
+        self.activation = post_merge_activation
+        dims = list(post_merge_dims or [])
+        self.merged_dim = dims[0] if dims else readout_dim
         for name, dim in source_dims.items():
             self.add_module(f"merge_{name}",
                             Dense(dim, self.merged_dim, use_bias=False))
         self.merge_bias = nn.Parameter(torch.zeros(self.merged_dim))
-        self.post_merge_0 = Dense(self.merged_dim, readout_dim)
+        pieces = maxout_pieces(post_merge_activation) or 1
+        self.num_post_merge = len(dims)
+        for i, (d_in, d_out) in enumerate(zip(dims, dims[1:]
+                                              + [readout_dim])):
+            if d_in % pieces:
+                raise ValueError(
+                    f"maxout: last dim {d_in} not divisible by {pieces}")
+            self.add_module(f"post_merge_{i}", Dense(d_in // pieces, d_out))
 
     def forward(self, sources):
         merged = self.merge_bias
         for name in self.source_names:
             merged = merged + getattr(self, f"merge_{name}")(sources[name])
-        return self.post_merge_0(torch.tanh(merged))
+        if not self.num_post_merge:
+            return merged
+        x = post_merge_activation(merged, self.activation)
+        for i in range(self.num_post_merge):
+            x = getattr(self, f"post_merge_{i}")(x)
+            if i < self.num_post_merge - 1:
+                x = post_merge_activation(x, self.activation)
+        return x
 
 
 class ShallowFusionReadout(Readout):
@@ -90,10 +120,11 @@ class ShallowFusionReadout(Readout):
     :class:`Readout`."""
 
     def __init__(self, source_dims, readout_dim, post_merge_dims,
-                 lm_weight=0.0, normalize_am_weights=True,
-                 normalize_lm_weights=False, normalize_tot_weights=False,
-                 am_beta=1.0):
-        super().__init__(source_dims, readout_dim, post_merge_dims)
+                 post_merge_activation="tanh", lm_weight=0.0,
+                 normalize_am_weights=True, normalize_lm_weights=False,
+                 normalize_tot_weights=False, am_beta=1.0):
+        super().__init__(source_dims, readout_dim, post_merge_dims,
+                         post_merge_activation)
         self.lm_weight = lm_weight
         self.normalize_am_weights = normalize_am_weights
         self.normalize_lm_weights = normalize_lm_weights
@@ -189,7 +220,8 @@ class SequenceGenerator(nn.Module):
     """One GRU decoder layer + attention + readout (``dec_stack`` 1)."""
 
     def __init__(self, attention, num_outputs: int, dim_dec: int,
-                 feedback_dim: int, post_merge_dims: Sequence[int],
+                 feedback_dim: int, post_merge_dims: Optional[Sequence[int]],
+                 post_merge_activation: str = "tanh",
                  use_states_for_readout: bool = False,
                  language_model: Optional[nn.Module] = None,
                  fusion: Optional[Mapping] = None,
@@ -217,10 +249,12 @@ class SequenceGenerator(nn.Module):
         sources["weighted_averages"] = D
         self.language_model = language_model
         if language_model is None:
-            self.readout = Readout(sources, num_outputs, post_merge_dims)
+            self.readout = Readout(sources, num_outputs, post_merge_dims,
+                                   post_merge_activation)
         else:
             self.readout = ShallowFusionReadout(
-                sources, num_outputs, post_merge_dims, **dict(fusion or {}))
+                sources, num_outputs, post_merge_dims, post_merge_activation,
+                **dict(fusion or {}))
         # the emitter choice of JAX's ``emitter`` (:338-343)
         if self.mse:
             self.emitter = RewardRegressionEmitter()
@@ -237,10 +271,15 @@ class SequenceGenerator(nn.Module):
     def loop_decode_tables(self):
         """Dense weight tables of the whole-loop decode kernel; the same
         values as the JAX ``loop_decode_tables`` for one decoder layer
-        (the Toeplitz band of the TPU kernel is replaced by the filter
-        taps themselves)."""
+        and one post-merge layer (the Toeplitz band of the TPU kernel is
+        replaced by the filter taps themselves; a maxout readout's
+        ``post_k`` has ``merged_dim / k`` rows)."""
         t = self.attention.loop_tables()
         readout = self.readout
+        if readout.num_post_merge != 1:
+            raise NotImplementedError(
+                "the decode kernels' tables need exactly one post-merge "
+                f"layer, not {readout.num_post_merge}")
         post_k, post_b = _unbiased(readout.post_merge_0)
         fin_w, fin_b = _unbiased(self.fork_0_inputs)
         fgate_w, fgate_b = _unbiased(self.fork_0_gate_inputs)
@@ -267,13 +306,18 @@ class SequenceGenerator(nn.Module):
 
     # -- the module-driven decode step -------------------------------------
     def fused_score_supported(self):
-        """Whether ``fused_decode_score`` covers this configuration: conv
-        attention with the softmax normalizer (the port's other variants
-        already are the kernel's), as JAX ``fused_score_supported``."""
-        return (self.attention.conv
-                and self.attention.energy_normalizer == "softmax"
+        """Whether ``fused_decode_score`` covers this configuration, as JAX
+        ``fused_score_supported`` (:689-705): conv attention with one
+        filter and the softmax normalizer, a readout of the weighted
+        averages alone through exactly one post-merge layer after tanh,
+        and no language model."""
+        att, readout = self.attention, self.readout
+        return (att.conv and att.conv_num_filters == 1
+                and att.energy_normalizer == "softmax"
                 and not self.use_states_for_readout
-                and self.language_model is None)
+                and self.language_model is None
+                and readout.num_post_merge == 1
+                and readout.activation == "tanh")
 
     def fused_score_tables(self):
         """The tables of ``fused_decode_score``: those of the loop kernel
@@ -405,7 +449,12 @@ class SequenceGenerator(nn.Module):
                   for seq in self.transition_0.sequence_names}
         # the port's readouts take no feedback source, so the JAX
         # package's rolled feedback has no reader here
-        route = (self._evaluate_scan if use_pallas == "never"
+        # as JAX's ``_train_kernel_mode``: the XLA scan under ``never``
+        # and above the kernels' filters
+        att = self.attention
+        route = (self._evaluate_scan
+                 if use_pallas == "never"
+                 or (att.conv and att.conv_num_filters > MAX_FILTERS)
                  else self._evaluate_fused)
         pre_states, glimpses = route(attended, preprocessed, attended_mask,
                                      forked, mask, T, B)
@@ -438,7 +487,8 @@ class SequenceGenerator(nn.Module):
             t["v"], cell.state_to_state, cell.state_to_gates,
             self.distribute_0_inputs.kernel,
             self.distribute_0_gate_inputs.kernel,
-            prior=self.attention.prior_config(L), n_filters=int(conv),
+            prior=self.attention.prior_config(L),
+            n_filters=self.attention.conv_num_filters if conv else 0,
             e_bias=t.get("e_b"), normalizer=normalizer)
         pre_states = torch.cat([h0[None], h[:-1]])
         glimpses = {"weights": w, "weighted_averages": wa}

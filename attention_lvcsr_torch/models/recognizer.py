@@ -61,22 +61,16 @@ def unported_piece(cfg: Mapping[str, Any]) -> Optional[str]:
         (cfg.get("attention_type", "content") in ("content",
                                                   "content_and_conv"),
          f"attention_type {cfg.get('attention_type')!r}"),
-        ((cfg.get("conv_num_filters") or 1) == 1, "multiple conv filters"),
         ((cfg.get("energy_normalizer") or "softmax")
          in ("softmax", "logistic", "relu"),
          f"the {cfg.get('energy_normalizer')!r} energy normalizer"),
         ((cfg.get("dec_stack") or 1) == 1, "a stacked decoder (dec_stack > 1)"),
-        (cfg.get("post_merge_dims") is not None
-         and len(cfg["post_merge_dims"]) == 1,
-         "a readout without exactly one post-merge layer"),
-        ((cfg.get("post_merge_activation") or "tanh") == "tanh",
-         f"the {cfg.get('post_merge_activation')!r} post-merge activation"),
         (criterion.get("name") in ("log_likelihood", "mse_gain",
                                    "mse_reward"),
          f"the {criterion.get('name')!r} criterion"),
         (cfg.get("embed_outputs", True), "one-hot (non-embedded) feedback"),
         (prior.get("type", "expanding")
-         in ("expanding", "window_around_median"),
+         in ("expanding", "window_around_median", "window_around_mean"),
          f"the {prior.get('type')!r} attention prior"),
     ]
     for ok, piece in checks:
@@ -114,10 +108,7 @@ class RecognizerNet(nn.Module):
             bottom=bottom, enc_transition=enc_transition,
             dec_transition=dec_transition, bidir=bidir, dims_top=dims_top,
             attention_type=attention_type,
-            conv_num_filters=conv_num_filters,
             energy_normalizer=energy_normalizer, dec_stack=dec_stack,
-            post_merge_dims=post_merge_dims,
-            post_merge_activation=post_merge_activation,
             criterion=criterion, embed_outputs=embed_outputs,
             prior=prior))
         if piece is not None:
@@ -132,6 +123,7 @@ class RecognizerNet(nn.Module):
         D = self.encoder.dim_encoded
         attention = make_attention(attention_type, ("states",), dim_dec, D,
                                    dim_matcher or dim_dec, conv_n=conv_n,
+                                   conv_num_filters=conv_num_filters,
                                    prior=prior,
                                    energy_normalizer=energy_normalizer)
         criterion = dict(criterion or {"name": "log_likelihood"})
@@ -155,6 +147,7 @@ class RecognizerNet(nn.Module):
         self.generator = SequenceGenerator(
             attention, num_phonemes, dim_dec,
             dim_output_embedding or dim_dec, post_merge_dims,
+            post_merge_activation=post_merge_activation or "tanh",
             use_states_for_readout=use_states_for_readout,
             language_model=language_model, fusion=fusion,
             criterion=criterion["name"],

@@ -2,11 +2,14 @@
 plain version.
 
 Counterpart of ``attention_lvcsr_tpu/ops/pallas/beam_loop.py::
-beam_search_loop`` for the flagship configuration and for content-only
-attention (``content_attention=True``: no conv term, the caller's window
-spanning every frame; see ``csrc/beam_loop.cu`` for the list), with the
-softmax, logistic or relu normalizer (``normalizer``) and the
-log-likelihood or the task loss's costs (``mse_cost``).
+beam_search_loop`` for conv attention with 1-16 filters and for
+content-only attention (``content_attention=True``: no conv term, the
+caller's window spanning every frame; see ``csrc/beam_loop.cu`` for the
+list), with the expanding, ``window_around_median`` or
+``window_around_mean`` prior, the softmax, logistic or relu normalizer
+(``normalizer``), the tanh, rectifier, sigmoid, identity or maxout
+post-merge activation (``post_act``) and the log-likelihood or the task
+loss's costs (``mse_cost``).
 ``beam_search_loop`` takes the plain PyTorch version for tensors on the
 CPU and launches the kernel for tensors on a CUDA device; any other
 device raises, and so does a configuration the kernel does not cover, on
@@ -23,9 +26,15 @@ Semantics shared by both versions (and by the TPU kernel):
   no result depends on which utterances share a batch;
 * the median position is the first frame whose cumulative weight reaches
   0.5, minus one, and 0 when no frame switches (``attention.py:238-242``);
+  the mean position is the weights' sum of frame indices;
 * the convolution over the previous weights is a true convolution
-  (filter flipped), trimmed from 'full' mode; content-only attention has
-  none, and its tables need no ``handler`` and no ``conv_filters``;
+  (filter flipped), trimmed from 'full' mode; with F filters the handler
+  term is the sum over the filters in their order of each filter's
+  convolution times its handler row (JAX ``beam_loop.py:311-318``);
+  content-only attention has none, and its tables need no ``handler`` and
+  no ``conv_filters``;
+* a maxout readout keeps the max of each group of k merged units, and its
+  ``post_k`` has ``R / k`` rows;
 * a fully masked utterance starts retired; an utterance that stops
   commits nothing more, and ``steps`` counts the steps it ran;
 * under relu, a row whose unnormalized weights are all zero over a
@@ -40,58 +49,94 @@ import ctypes
 import torch
 
 from attention_lvcsr_torch import _build
-from attention_lvcsr_torch.ops.expressions import conv1d_full
+from attention_lvcsr_torch.ops.expressions import (ACTIVATIONS, conv1d_full,
+                                                   maxout_pieces,
+                                                   post_merge_activation)
 
 INF = 1e9
 BIG = 3e38
 NEG = -1e30
 PATIENCE = 30
 
-PRIORS = ("expanding", "window_around_median")
+PRIORS = ("expanding", "window_around_median", "window_around_mean")
+MAX_FILTERS = 16
 STOP_ON = ("patience", "optimistic_future_cost")
 # the attention's energy normalizers, in the order of the kernel's
 # ``normalizer`` field (0, a zeroed field, is softmax)
 NORMALIZERS = ("softmax", "logistic", "relu")
+# the post-merge activations in the order of the kernel's ``post_act``
+# field (0, a zeroed field, is tanh); maxout is 4 with its pieces in
+# ``maxout``
+POST_ACTS = ("tanh", "relu", "sigmoid", "identity", "maxout")
+_POST_ACT_ALIASES = {"rectifier": "relu", "logistic": "sigmoid"}
 
 launches = _build.LaunchCounter()
 
 # table name -> shape in terms of the dimension letters below
 _TABLE_SHAPES = {
     "state_trans": "SM", "v": "M",
-    "merge_k": "DR", "merge_b": "R", "post_k": "RV", "post_b": "V",
+    "merge_k": "DR", "merge_b": "R", "post_k": "PV", "post_b": "V",
     "embed": "AF", "fork_in_w": "FS", "fork_in_b": "S",
     "fork_gate_w": "FG", "fork_gate_b": "G", "dist_in_w": "DS",
     "dist_gate_w": "DG", "wsg": "SG", "wss": "SS", "h0": "S",
 }
-# the conv attention's tables besides
-_CONV_TABLE_SHAPES = {"handler": "M", "conv_filters": "1T"}
+# the conv attention's tables besides (N filters, handler rows (N, M); one
+# filter's row (M,))
+_CONV_TABLE_SHAPES = {"handler": "NM", "conv_filters": "NT"}
 
 
-def unported_loop(prior, n_filters, normalizer, content_attention):
+def post_act_code(post_act):
+    """(``post_act`` field, ``maxout`` pieces) of a post-merge activation,
+    or None for one the kernel does not know."""
+    pieces = maxout_pieces(post_act)
+    if pieces:
+        return POST_ACTS.index("maxout"), pieces
+    if post_act not in ACTIVATIONS:
+        return None
+    return POST_ACTS.index(_POST_ACT_ALIASES.get(post_act, post_act)), 0
+
+
+def unported_loop(prior, n_filters, normalizer, content_attention,
+                  post_act="tanh", mse_cost=False):
     """The first piece of a decode configuration the loop kernel does not
     cover, or None: the search's router asks it before any launch, and
-    :func:`beam_search_loop` refuses what it names."""
+    :func:`beam_search_loop` refuses what it names.  More than one filter,
+    the mean prior and an activation besides tanh run under the
+    log-likelihood alone: the kernel instantiates what the configs under
+    ``exp/`` use."""
     if prior not in PRIORS:
         return f"prior {prior!r} (supported: {PRIORS})"
     if normalizer not in NORMALIZERS:
         return f"the {normalizer!r} normalizer"
+    if post_act_code(post_act) is None:
+        return f"the {post_act!r} post-merge activation"
+    if mse_cost and (n_filters > 1 or post_act != "tanh"
+                     or prior == "window_around_mean"):
+        return (f"the task loss's costs with {n_filters} conv filters, "
+                f"the {post_act!r} activation and the {prior!r} prior")
     if content_attention:
         if normalizer != "softmax":
             return f"the {normalizer!r} normalizer of content attention"
         return None
-    if n_filters != 1:
-        return f"{n_filters} conv filters (only one is ported)"
+    if not 1 <= n_filters <= MAX_FILTERS:
+        return f"{n_filters} conv filters (1-{MAX_FILTERS} are ported)"
     return None
 
 
-def _check_config(tables, prior, stop_on, content_attention, normalizer):
+def _n_filters(tables, content_attention):
+    """The conv filters of the tables (0 for content attention)."""
+    if content_attention:
+        return 0
+    filters = tables["conv_filters"]
+    return filters.shape[0] if filters.ndim == 2 else -1
+
+
+def _check_config(tables, prior, stop_on, content_attention, normalizer,
+                  post_act, mse_cost):
     if stop_on not in STOP_ON:
         raise ValueError(f"unknown stop_on {stop_on!r}")
-    n_filters = 0
-    if not content_attention:
-        filters = tables["conv_filters"]
-        n_filters = filters.shape[0] if filters.ndim == 2 else -1
-    piece = unported_loop(prior, n_filters, normalizer, content_attention)
+    piece = unported_loop(prior, _n_filters(tables, content_attention),
+                          normalizer, content_attention, post_act, mse_cost)
     if piece is not None:
         raise NotImplementedError(f"beam_search_loop: {piece} is not ported")
     if normalizer != "softmax" and "energy_b" not in tables:
@@ -106,16 +151,21 @@ def beam_search_loop_reference(pre, attended, att_mask, tables, *, beam,
                                before=0.0, after=0.0, initial_begin=0.0,
                                initial_end=1e4, min_speed=0.0,
                                max_speed=0.0, content_attention=False,
-                               normalizer="softmax", mse_cost=False):
+                               normalizer="softmax", mse_cost=False,
+                               post_act="tanh", window_widths=None):
     """Plain PyTorch version, vectorized over all U*K hypothesis rows.
 
     ``normalizer``: the energies' normalizer (logistic and relu add the
     energy bias, ``tables["energy_b"]``); ``mse_cost``: the costs are the
     negated logits (the task loss's reward regression) in place of their
-    negated log-softmax.  Returns (done_out (U, K, max_len) int32,
-    done_meta (U, K, 3) float32 [cost, adjusted, length], steps (U,)
-    int32)."""
-    _check_config(tables, prior, stop_on, content_attention, normalizer)
+    negated log-softmax; ``post_act``: the readout's activation;
+    ``window_widths``: a list that gets each step's (U,) frames inside
+    the window prior's (the kernel's) window, for counting the work of a
+    decode.  Returns
+    (done_out (U, K, max_len) int32, done_meta (U, K, 3) float32 [cost,
+    adjusted, length], steps (U,) int32)."""
+    _check_config(tables, prior, stop_on, content_attention, normalizer,
+                  post_act, mse_cost)
     f32 = torch.float32
     dev = pre.device
     U, L, M = pre.shape
@@ -195,9 +245,12 @@ def beam_search_loop_reference(pre, attended, att_mask, tables, *, beam,
             gmask = ((pos >= begin) & (pos < end)).to(f32).expand(R, L)
             combined = gmask * att_rows
         else:
-            below = (torch.cumsum(w, dim=1) < 0.5).sum(dim=1)
-            expected = torch.where((below >= 1) & (below <= L - 1),
-                                   below - 1, 0).to(f32)
+            if prior == "window_around_mean":
+                expected = (w * pos).sum(dim=1)
+            else:
+                below = (torch.cumsum(w, dim=1) < 0.5).sum(dim=1)
+                expected = torch.where((below >= 1) & (below <= L - 1),
+                                       below - 1, 0).to(f32)
             begins = torch.floor(expected - before)          # (R,)
             ends = torch.ceil(expected + after)
             gb = torch.floor(begins.view(U, K).min(dim=1).values
@@ -210,14 +263,21 @@ def beam_search_loop_reference(pre, attended, att_mask, tables, *, beam,
                           & (pos < ends[:, None])).to(f32)
             combined = gmask * additional * att_rows
 
+        if window_widths is not None:
+            window_widths.append(gmask.reshape(U, K, L)[:, 0].sum(dim=1))
+
         # ---- energies ------------------------------------------------------
         sp = h @ t["state_trans"]                            # (R, M)
         match = pre[:, None, :, :] + sp.view(U, K, 1, M)
         if not content_attention:
             n = (taps.shape[-1] - 1) // 2
-            conv = conv1d_full(w * gmask, taps)[:, 0, n:n + L]   # (R, L)
-            match = match + conv.view(U, K, L, 1) * t["handler"].view(
-                1, 1, 1, M)
+            conv = conv1d_full(w * gmask, taps)[:, :, n:n + L]   # (R, F, L)
+            hand = t["handler"].reshape(-1, M)
+            # the filters' rank-1 terms summed in filter order
+            term = conv[:, 0, :, None] * hand[0]
+            for f in range(1, len(hand)):
+                term = term + conv[:, f, :, None] * hand[f]
+            match = match + term.view(U, K, L, M)
         match = torch.tanh(match)
         energies = (match * t["v"].view(1, 1, 1, M)).sum(dim=3).view(R, L)
 
@@ -248,7 +308,8 @@ def beam_search_loop_reference(pre, attended, att_mask, tables, *, beam,
         merged = wa @ t["merge_k"] + t["merge_b"]
         if "merge_states_k" in t:
             merged = merged + h @ t["merge_states_k"]
-        logits = torch.tanh(merged) @ t["post_k"] + t["post_b"]
+        logits = post_merge_activation(merged, post_act) @ t["post_k"] \
+            + t["post_b"]
         if mse_cost:
             costs = -logits
         else:
@@ -332,13 +393,15 @@ def _align4(n):
 
 
 def smem_plan(K, L, M, D, S, R, V, F, Lout, n_taps, content=False,
-              normalizer="softmax"):
+              normalizer="softmax", n_filters=1, maxout=0):
     """``make_layout``: buffer offsets (floats, each 16-byte aligned) and
-    the block's bytes, and whether they fit an H100 block.  Content-only
-    attention keeps no taps, handler or convolution; only the relu
-    normalizer keeps its rows' all-zero flags."""
+    the block's bytes, and whether they fit an H100 block.  ``F`` is the
+    feedback width; ``n_filters`` conv filters keep their taps, handler
+    rows and convolutions, content-only attention none; only the relu
+    normalizer keeps its rows' all-zero flags, and only a maxout readout
+    (``maxout`` pieces) its grouped activation."""
     if content:
-        n_taps = 0
+        n_taps = n_filters = 0
     offsets, p = {}, 0
 
     def take(name, n):
@@ -353,14 +416,16 @@ def smem_plan(K, L, M, D, S, R, V, F, Lout, n_taps, content=False,
                     ("dout", K * Lout), ("acost", K), ("dadj", K),
                     ("dcost", K), ("dlen", K), ("newadj", K), ("chosen", K),
                     ("src", K), ("sym", K), ("pick", K), ("mask", L),
-                    ("taps", n_taps), ("handler", 0 if content else M),
+                    ("taps", n_filters * n_taps), ("handler", n_filters * M),
                     ("v", M), ("begins", K), ("ends", K), *bad,
                     ("red_v", warps + 1), ("red_i", warps + 1),
                     ("wn", K * L), ("wa", K * D)):
         take(name, n)
     scratch, ends = p, []
-    for phase in ((("conv", 0 if content else K * L), ("sp", K * M)),
-                  (("act", K * R), ("costs", K * V)),
+    for phase in ((("conv", n_filters * K * L), ("sp", K * M)),
+                  # a maxout readout's grouped units after the merged
+                  (("act", K * R + (K * R // maxout if maxout else 0)),
+                   ("costs", K * V)),
                   (("hs", K * S), ("was", K * D), ("aout2", K * Lout),
                    ("dout2", K * Lout), ("fb", K * F), ("gi", 2 * K * S),
                    ("it", K * S))):
@@ -398,7 +463,9 @@ class _Args(ctypes.Structure):
             "content", "normalizer", "mse_cost")]
         + [(name, ctypes.c_float) for name in (
             "energy_b", "char_discount", "round_to_inf", "before", "after",
-            "initial_begin", "initial_end", "min_speed", "max_speed")])
+            "initial_begin", "initial_end", "min_speed", "max_speed")]
+        + [(name, ctypes.c_int) for name in (
+            "n_filters", "post_act", "maxout", "prior_mean")])
 
 
 def _check_tensor(name, x, shape, device):
@@ -420,12 +487,20 @@ def _launch(pre, attended, att_mask, tables, *, beam, max_len, eol,
             round_to_inf=1e9, prior="expanding", before=0.0, after=0.0,
             initial_begin=0.0, initial_end=1e4, min_speed=0.0,
             max_speed=0.0, content_attention=False, normalizer="softmax",
-            mse_cost=False):
-    _check_config(tables, prior, stop_on, content_attention, normalizer)
+            mse_cost=False, post_act="tanh"):
+    _check_config(tables, prior, stop_on, content_attention, normalizer,
+                  post_act, mse_cost)
+    act, pieces = post_act_code(post_act)
+    n_filters = _n_filters(tables, content_attention)
     U, L, M = pre.shape
     D = attended.shape[-1]
-    dims = {"U": U, "L": L, "M": M, "D": D, "1": 1,
-            "S": tables["wss"].shape[0], "R": tables["merge_k"].shape[1],
+    R = tables["merge_k"].shape[1]
+    if pieces and R % pieces:
+        raise ValueError(f"beam_search_loop: maxout:{pieces} of {R} "
+                         "merged units")
+    dims = {"U": U, "L": L, "M": M, "D": D, "1": 1, "R": R,
+            "P": R // (pieces or 1), "N": n_filters,
+            "S": tables["wss"].shape[0],
             "V": tables["post_k"].shape[1], "A": tables["embed"].shape[0],
             "F": tables["embed"].shape[1],
             "T": (0 if content_attention
@@ -438,6 +513,8 @@ def _launch(pre, attended, att_mask, tables, *, beam, max_len, eol,
     shapes = dict(_TABLE_SHAPES,
                   **({} if content_attention else _CONV_TABLE_SHAPES))
     for name, letters in shapes.items():
+        if name == "handler" and n_filters == 1:
+            letters = "M"
         _check_tensor(name, tables[name], [dims[c] for c in letters], dev)
     states_k = tables.get("merge_states_k")
     if states_k is not None:
@@ -472,6 +549,8 @@ def _launch(pre, attended, att_mask, tables, *, beam, max_len, eol,
         prior_median=int(prior == "window_around_median"),
         content=int(bool(content_attention)),
         normalizer=NORMALIZERS.index(normalizer), mse_cost=int(bool(mse_cost)),
+        n_filters=n_filters, post_act=act, maxout=pieces,
+        prior_mean=int(prior == "window_around_mean"),
         energy_b=(float(tables["energy_b"]) if normalizer != "softmax"
                   else 0.0),
         char_discount=char_discount,

@@ -22,7 +22,8 @@ Semantics of the TPU kernel, which both versions keep:
 * the window is taken per utterance over its K rows (the module path of
   ``models/attention.py`` takes it over the whole batch);
 * the median is ``max(0, #(cumsum < 0.5) - 1)``, which gives L - 1 for a
-  row of zero weights (the module path gives 0);
+  row of zero weights (the module path gives 0); the mean is the weights'
+  sum of frame indices;
 * the expanding prior reads the step of each utterance's first row;
 * the Toeplitz band of the TPU kernel is the filter itself here (a true
   convolution, trimmed 'full' mode), and the cumulative sum a prefix sum.
@@ -44,7 +45,7 @@ from attention_lvcsr_torch.ops.expressions import conv1d_full
 from attention_lvcsr_torch.ops.gru_scan import choose_cluster
 
 NEG = -1e30
-PRIORS = ("expanding", "window_around_median")
+PRIORS = ("expanding", "window_around_median", "window_around_mean")
 
 launches = _build.LaunchCounter()
 
@@ -95,8 +96,11 @@ def fused_decode_score_reference(pre, attended, att_mask, weights, step,
         gmask = ((pos >= begin[:, None]) & (pos < end[:, None])).to(f32)
         additional = torch.ones(U, K, L, device=pre.device)
     else:
-        below = (torch.cumsum(w, dim=2) < 0.5).sum(dim=2).to(f32)
-        expected = torch.clamp(below - 1.0, min=0.0)             # (U, K)
+        if prior == "window_around_mean":
+            expected = (w * pos).sum(dim=2)                       # (U, K)
+        else:
+            below = (torch.cumsum(w, dim=2) < 0.5).sum(dim=2).to(f32)
+            expected = torch.clamp(below - 1.0, min=0.0)
         begins = torch.floor(expected - before)
         ends = torch.ceil(expected + after)
         gb = torch.floor(begins.min(dim=1).values.clamp(min=0.0))
@@ -262,7 +266,7 @@ class _Args(ctypes.Structure):
         + [(name, ctypes.c_float) for name in (
             "before", "after", "initial_begin", "initial_end", "min_speed",
             "max_speed")]
-        + [("cluster", ctypes.c_int)])
+        + [(name, ctypes.c_int) for name in ("prior_mean", "cluster")])
 
 
 _entries = None
@@ -337,9 +341,9 @@ def _launch(pre, attended, att_mask, weights, step, states, tables, *, beam,
         energies=energies.data_ptr(), wa=wa.data_ptr(),
         U=U, L=L, M=M, D=D, S=S, R=R, V=V, K=K, n_taps=dims["T"],
         prior_median=int(prior == "window_around_median"),
-        before=before, after=after, initial_begin=initial_begin,
-        initial_end=initial_end, min_speed=min_speed, max_speed=max_speed,
-        cluster=cluster)
+        prior_mean=int(prior == "window_around_mean"), before=before,
+        after=after, initial_begin=initial_begin, initial_end=initial_end,
+        min_speed=min_speed, max_speed=max_speed, cluster=cluster)
     fn = _entry_points()[0]
     with torch.cuda.device(dev):
         status = fn(ctypes.byref(args), _build.stream_of(pre))

@@ -13,10 +13,10 @@ average and the GRU transition), same arguments and outputs.
   ``window_around_mean`` and ``window_around_median`` priors and stacked
   GRU decoders (``dec_stack`` up to 4).  Autograd takes its gradient.
 * On a CUDA tensor :func:`decoder_scan_train` is a
-  ``torch.autograd.Function`` over ``csrc/decoder_train.cu`` for the
-  flagship variant (one conv filter, the softmax, logistic or relu
-  normalizer, expanding or median prior, one GRU layer; logistic and relu
-  with the energy bias ``e_bias``, which gets its gradient) and for
+  ``torch.autograd.Function`` over ``csrc/decoder_train.cu`` for conv
+  attention (1-16 filters, the softmax, logistic or relu normalizer, the
+  expanding, median or mean prior, one GRU layer; logistic and relu with
+  the energy bias ``e_bias``, which gets its gradient) and for
   content-only attention (``n_filters=0``: no
   convolution and no handler term, so the previous weights do not feed
   the energies, and the Toeplitz band and handler get no gradient): a
@@ -24,8 +24,11 @@ average and the GRU transition), same arguments and outputs.
   that recomputes each step's (B, L, M) match tensor from the previous
   state and weights instead of storing it, then ``csrc/outer_sum.cu`` for
   the weight gradients and for datt, one job a batch row (its two kernels
-  a call count on ``outer_sum.launches``).  Other variants
-  raise ``NotImplementedError`` naming the variant.
+  a call count on ``outer_sum.launches``); with F filters the backward
+  writes dconv (T, B, F, L), from which the Toeplitz bands' gradient (L,
+  F * L) is one job, and the handler's (F, M) a job over the blocks'
+  partials.  Other variants raise ``NotImplementedError`` naming the
+  variant.
 * Each kernel runs the launch plan of :func:`plan`, which mirrors the
   kernels' own: thread-block clusters of 4, 8 or 16 blocks over as many
   clusters as the card holds at once, the rows spread over them, block j
@@ -52,8 +55,10 @@ import ctypes
 import torch
 
 from attention_lvcsr_torch import _build
-# the normalizers in the order of the kernels' ``normalizer`` field
-from attention_lvcsr_torch.ops.beam_loop import NORMALIZERS
+# the normalizers in the order of the kernels' ``normalizer`` field, the
+# priors and the most conv filters the kernels take
+from attention_lvcsr_torch.ops.beam_loop import (MAX_FILTERS, NORMALIZERS,
+                                                 PRIORS)
 from attention_lvcsr_torch.ops.outer_sum import MAX_JOBS, outer_sum
 
 NEG = -1e30
@@ -244,20 +249,23 @@ def slices(K, width):
     return max(1, min(MAX_SLICES, THREADS // (width // 4), K))
 
 
-def products(kind, d, L, M, D, S, conv=True):
+def products(kind, d, L, M, D, S, n_filters=1):
     """{name: (K, width)} of a kind's products, each block's packed slice
-    of a weight being (K, width); without ``conv`` (content-only
-    attention) no convolution and no transposed one."""
+    of a weight being (K, width); with ``n_filters`` 0 (content-only
+    attention) no convolution and no transposed one.  ``n_filters``
+    bands side by side widen the convolution, and their transposes, each
+    padded to ``L4`` rows, lengthen the transposed one."""
+    nf = n_filters
     if kind == "forward":
-        out = {"toep": (L, d["Lq"]), "st": (S, d["Mc"]),
+        out = {"toep": (L, nf * d["Lq"]), "st": (S, d["Mc"]),
                "gate": (d["Dp"] + d["Sp"], 2 * d["Sc"]),
                "dx": (D, d["Sc"]), "ss": (S, d["Sc"])}
     else:
-        out = {"st": (S, d["Mc"]), "toep": (L, d["Lq"]),
+        out = {"st": (S, d["Mc"]), "toep": (L, nf * d["Lq"]),
                "ssT": (S, d["Sc"]), "sgT": (2 * d["Sp"], d["Sc"]),
                "dxgT": (3 * d["Sp"], d["Dc"]), "stT": (M, d["Sc"]),
-               "toepT": (L, d["Lq"])}
-    if not conv:
+               "toepT": (nf * d["L4"] if nf > 1 else L, d["Lq"])}
+    if not nf:
         out.pop("toep")
         out.pop("toepT", None)
     return out
@@ -268,37 +276,44 @@ CONV_BUFFERS = {"forward": ("wgv", "conv"),
                 "backward": ("wgv", "dcv", "conv", "dcvw")}
 
 
-def layout(kind, C, R, L, M, D, S, res, conv=True):
+def layout(kind, C, R, L, M, D, S, res, n_filters=1):
     """The kernel's shared memory (``csrc/decoder_train.cu::layout``):
     {buffer: (offset, floats)} in floats, every buffer on 16 bytes, and
     the bytes of a block.  ``res``: {"pre", "att", "dpre"} rows whose tiles
-    stay in shared memory (dpre in the backward only).  Without ``conv``
-    the buffers of :data:`CONV_BUFFERS` hold nothing."""
+    stay in shared memory (dpre in the backward only).  With ``n_filters``
+    0 (content-only attention) the buffers of :data:`CONV_BUFFERS` hold
+    nothing; ``n_filters`` > 1 widens the convolutions and their
+    gradients, and the backward then keeps one row's dconv partials
+    (``dcvw``) and the handler's gradient a block (``dhg``)."""
+    nf = n_filters
     d = dims(C, R, L, M, D, S)
     Lq, L4, Sc, Sp, Mp, Dp = (d[k] for k in ("Lq", "L4", "Sc", "Sp", "Mp",
                                              "Dp"))
     if kind == "forward":
         sizes = [("gin", R * (Dp + Sp)), ("w", R * L4), ("wgv", R * L4),
                  ("rh", R * Sp), ("sp", R * Mp), ("wanp", R * Dp),
-                 ("wa", R * d["Dc"])] \
-            + [(n, R * Lq) for n in ("ek", "conv", "e", "un", "comb")] \
+                 ("wa", R * d["Dc"]), ("ek", R * Lq), ("conv", R * nf * Lq)] \
+            + [(n, R * Lq) for n in ("e", "un", "comb")] \
             + [("xin", R * Sc), ("gate", R * 2 * Sc)]
         pmax = max(Lq, d["Mc"], 2 * Sc)
     else:
         sizes = [("hp", R * Sp), ("wgv", R * L4), ("g1", R * 3 * Sp),
                  ("sp", R * Mp), ("dwan", R * Dp), ("dspp", R * Mp),
-                 ("dsp", R * Mp), ("dcv", R * L4)] \
-            + [(n, R * Lq) for n in ("conv", "wn", "dwn", "dE")] \
+                 ("dsp", R * Mp), ("dcv", R * nf * L4),
+                 ("conv", R * nf * Lq)] \
+            + [(n, R * Lq) for n in ("wn", "dwn", "dE")] \
             + [("dh", R * Sc), ("dhp", R * Sc), ("dw", R * Lq),
-               ("dwa", R * d["Dc"]), ("dcvw", d["Mch"] * R * Lq)] \
-            + [(n, d["groups"] * R * d["M4"]) for n in ("dspg", "dvg", "dhg")]
+               ("dwa", R * d["Dc"]),
+               ("dcvw", nf * d["Mch"] * (Lq if nf > 1 else R * Lq))] \
+            + [(n, d["groups"] * R * d["M4"]) for n in ("dspg", "dvg")] \
+            + [("dhg", d["groups"] * d["M4"] * (nf if nf > 1 else R))]
         pmax = max(Lq, d["Mc"], Sc, d["Dc"])
-    if not conv:
+    if not nf:
         sizes = [(n, 0 if n in CONV_BUFFERS[kind] else k) for n, k in sizes]
     part = max(slices(K, w) * min(R, ROW_CHUNK) * w
-               for K, w in products(kind, d, L, M, D, S, conv).values())
+               for K, w in products(kind, d, L, M, D, S, nf).values())
     sizes += [("pout", R * pmax), ("rs", 8 * R), ("red", 2 * WARPS),
-              ("vh", 2 * d["M4"]), ("part", part)]
+              ("vh", (1 + max(nf, 1)) * d["M4"]), ("part", part)]
     tiles = {"dpre": d["Lt"] * d["Mt"], "pre": d["Lt"] * d["Mt"],
              "att": d["Lt"] * D}
     for name in TILES[kind]:
@@ -318,13 +333,13 @@ def cluster_rows(B, clusters):
     return [(c * q + min(c, rem), q + (c < rem)) for c in range(clusters)]
 
 
-def residency(kind, C, R, L, M, D, S, conv=True):
+def residency(kind, C, R, L, M, D, S, n_filters=1):
     """{tile: rows kept in shared memory} of a plan: per tile in the kind's
     order (TILES), as many of the R rows as fit beside the tiles before it,
     or None when not even the vectors fit."""
     res = {name: 0 for name in TILES[kind]}
     fits = lambda: layout(kind, C, R, L, M, D, S, res,
-                          conv)["smem_bytes"] <= MAX_SMEM
+                          n_filters)["smem_bytes"] <= MAX_SMEM
     if not fits():
         return None
     for name in TILES[kind]:
@@ -337,7 +352,7 @@ def residency(kind, C, R, L, M, D, S, conv=True):
 
 
 def plan(kind, B, L, M, D, S, active, cluster=None, clusters=None,
-         conv=True):
+         n_filters=1):
     """The launch plan of a kind's kernel over B rows, given how many
     clusters of each size the card holds at once (``active``: {size:
     count}).  Per size: the rows spread over as many clusters as the card
@@ -347,9 +362,9 @@ def plan(kind, B, L, M, D, S, active, cluster=None, clusters=None,
     R * ROW_COST for the exchanges and reductions of each row; on a tie
     the one with fewer tile bytes streamed from L2 a step, then the
     larger.  ``cluster`` and ``clusters`` force a size and a number of
-    clusters (a timing tool's choice).  ``conv`` False plans the content
-    branch, whose layout has no conv buffers.  Raises NotImplementedError
-    naming the shape when no size fits."""
+    clusters (a timing tool's choice).  ``n_filters``: the conv branch's
+    filters, 0 the content branch, whose layout has no conv buffers.  Raises NotImplementedError naming the shape when no
+    size fits."""
     options = []
     for C in (CLUSTERS if cluster is None else (cluster,)):
         count = active.get(C, 0) if clusters is None else clusters
@@ -359,7 +374,7 @@ def plan(kind, B, L, M, D, S, active, cluster=None, clusters=None,
         R = _cdiv(B, n)
         if R > MAX_ROWS:
             continue
-        res = residency(kind, C, R, L, M, D, S, conv)
+        res = residency(kind, C, R, L, M, D, S, n_filters)
         if res is None:
             continue
         streamed = sum((R - res[name]) * size for name, size in
@@ -371,14 +386,16 @@ def plan(kind, B, L, M, D, S, active, cluster=None, clusters=None,
     if not options:
         raise NotImplementedError(
             f"decoder_scan_train: no {kind} launch plan covers a batch of "
-            f"{B} rows at L={L}, M={M}, D={D}, S={S} (clusters of "
+            f"{B} rows at L={L}, M={M}, D={D}, S={S}"
+            + (f", {n_filters} filters" if n_filters > 1 else "")
+            + " (clusters of "
             f"{'/'.join(map(str, CLUSTERS))} blocks, the card holding "
             f"{active} at once, at most {MAX_ROWS} rows a cluster, "
             f"{MAX_SMEM} bytes of shared memory a block)")
     best = min(options, key=lambda o: o[0])[1]
     best["smem_bytes"] = layout(
         kind, best["cluster"], best["rows"], L, M, D, S,
-        {k: best[f"res_{k}"] for k in TILES[kind]}, conv)["smem_bytes"]
+        {k: best[f"res_{k}"] for k in TILES[kind]}, n_filters)["smem_bytes"]
     return best
 
 
@@ -413,6 +430,14 @@ def pack(w, rows, cols, C):
     return ext[r][:, c].reshape(K, C, width).permute(1, 0, 2).contiguous()
 
 
+def _band_columns(L, d, C, n_filters):
+    """Source column of each (block, column) of the (L, F * L) bands: a
+    block's frame tile of each filter's band, one after another."""
+    tile = _slice_columns(L, d["Lt"], C, d["Lq"]).reshape(C, d["Lq"])
+    return torch.cat([torch.where(tile >= 0, tile + f * L, -1)
+                      for f in range(n_filters)], dim=1).reshape(-1)
+
+
 def pack_forward(d, toep, st, wss, wsg, dxm, dgm):
     """The forward kernel's packed weights for the slices ``d``; no
     Toeplitz band when ``toep`` is None (the content branch)."""
@@ -434,7 +459,7 @@ def pack_forward(d, toep, st, wss, wsg, dxm, dgm):
     if toep is not None:
         L = toep.shape[0]
         out["p_toep"] = pack(toep, ident(L),
-                             _slice_columns(L, d["Lt"], C, d["Lq"]), C)
+                             _band_columns(L, d, C, toep.shape[1] // L), C)
     return out
 
 
@@ -457,9 +482,13 @@ def pack_backward(d, toep, st, wss, wsg, dxm, dgm):
         "p_stT": pack(st.t(), ident(M), s_cols, C)}
     if toep is not None:
         L = toep.shape[0]
-        l_cols = _slice_columns(L, d["Lt"], C, d["Lq"])
-        out["p_toep"] = pack(toep, ident(L), l_cols, C)
-        out["p_toepT"] = pack(toep.t(), ident(L), l_cols, C)
+        nf = toep.shape[1] // L
+        out["p_toep"] = pack(toep, ident(L), _band_columns(L, d, C, nf), C)
+        # the bands' transposes, each padded to L4 rows past one band
+        rows = (ident(L) if nf == 1 else
+                _segments([(f * L, L, d["L4"]) for f in range(nf)]))
+        out["p_toepT"] = pack(toep.t(), rows,
+                              _slice_columns(L, d["Lt"], C, d["Lq"]), C)
     return out
 
 
@@ -480,21 +509,21 @@ class _Args(ctypes.Structure):
             "clusters", "res_pre", "res_att", "res_dpre")]
         + [(name, ctypes.c_float) for name in (
             "before", "after", "initial_begin", "initial_end", "min_speed",
-            "max_speed")])
+            "max_speed")]
+        + [(name, ctypes.c_int) for name in ("n_filters", "prior_mean")])
 
 
 def unported_variant(normalizer, n_filters, dec_stack, prior_type):
     """The first piece of a decoder variant the CUDA kernel does not cover,
     or None."""
     for ok, piece in (
-            (int(n_filters) in (0, 1), f"{n_filters} conv filters"),
-            (normalizer == "softmax" or (int(n_filters) == 1
+            (0 <= int(n_filters) <= MAX_FILTERS, f"{n_filters} conv filters"),
+            (normalizer == "softmax" or (int(n_filters) >= 1
                                          and normalizer in NORMALIZERS),
              f"the {normalizer!r} normalizer"
              + (" of content attention" if int(n_filters) == 0 else "")),
             (int(dec_stack) == 1, f"dec_stack={dec_stack}"),
-            (prior_type in ("expanding", "window_around_median"),
-             f"the {prior_type!r} prior")):
+            (prior_type in PRIORS, f"the {prior_type!r} prior")):
         if not ok:
             return piece
     return None
@@ -517,12 +546,13 @@ def _check(name, t, shape, device, dtype=torch.float32):
 _active = {}
 
 
-def max_active_clusters(kind, device, conv=True):
-    """{cluster size: clusters of the kind's kernel (the conv or the
-    content branch) the device holds at once}
-    (``cudaOccupancyMaxActiveClusters`` at a block's most shared memory),
-    queried once per device."""
-    key = (device.index, kind, conv)
+def max_active_clusters(kind, device, n_filters=1):
+    """{cluster size: clusters of the kind's kernel (the conv branch with
+    one filter or more, or the content branch, ``n_filters`` 0) the
+    device holds at once} (``cudaOccupancyMaxActiveClusters`` at a block's
+    most shared memory), queried once per device and branch."""
+    # every filter count above one shares an instance
+    key = (device.index, kind, min(int(n_filters), 2))
     if key not in _active:
         lib = _build.load().lib
         lib.decoder_train_max_clusters.argtypes = [
@@ -534,19 +564,18 @@ def max_active_clusters(kind, device, conv=True):
             for size in CLUSTERS:
                 count = ctypes.c_int(0)
                 _build.check(lib.decoder_train_max_clusters(
-                    KINDS.index(kind), int(not conv), size,
-                    ctypes.byref(count)),
+                    KINDS.index(kind), key[2], size, ctypes.byref(count)),
                     "decoder_train_max_clusters")
                 active[size] = count.value
         _active[key] = active
     return _active[key]
 
 
-def launch_plan(kind, B, L, M, D, S, device, conv=True, **force):
+def launch_plan(kind, B, L, M, D, S, device, n_filters=1, **force):
     """The plan a launch of the kind's kernel takes on ``device``."""
     return plan(kind, B, L, M, D, S,
-                max_active_clusters(kind, device, conv=conv), conv=conv,
-                **force)
+                max_active_clusters(kind, device, n_filters),
+                n_filters=n_filters, **force)
 
 
 def _launch(name, args, stream_of):
@@ -573,9 +602,15 @@ _PRIOR = ("before", "after", "initial_begin", "initial_end", "min_speed",
           "max_speed")
 
 
-def _plan_args(kind, B, L, M, D, S, device, conv):
-    p = launch_plan(kind, B, L, M, D, S, device, conv=conv)
+def _plan_args(kind, B, L, M, D, S, device, n_filters):
+    p = launch_plan(kind, B, L, M, D, S, device, n_filters=n_filters)
     return p, dims(p["cluster"], p["rows"], L, M, D, S)
+
+
+def _prior_fields(cfg):
+    return dict(prior_median=int(cfg["prior"] == "window_around_median"),
+                prior_mean=int(cfg["prior"] == "window_around_mean"),
+                **{k: cfg[k] for k in _PRIOR})
 
 
 class _DecoderScanTrain(torch.autograd.Function):
@@ -596,20 +631,19 @@ class _DecoderScanTrain(torch.autograd.Function):
         ins = dict(fx=fx, fg=fg, mask=mask, step0=step0, pre=pre, att=att,
                    amask=amask, h0=h0, w0=w0, wa0=wa0, hand=hand, v=v,
                    e_bias=e_bias)
-        conv = cfg["n_filters"] == 1
+        nf = cfg["n_filters"]
         if T and B:
-            p, d = _plan_args("forward", B, L, M, D, S, fx.device, conv)
-            packed = pack_forward(d, toep if conv else None, st, wss, wsg,
+            p, d = _plan_args("forward", B, L, M, D, S, fx.device, nf)
+            packed = pack_forward(d, toep if nf else None, st, wss, wsg,
                                   dxm, dgm)
             barrier = torch.zeros(2, dtype=torch.int32, device=fx.device)
             args = _Args(**{k: _ptr(t) for k, t in
                             {**ins, **outs, **packed}.items()},
                          barrier=barrier.data_ptr(), T=T, B=B, L=L, M=M, D=D,
-                         S=S, prior_median=int(cfg["prior"] != "expanding"),
-                         content=int(not conv), normalizer=norm,
-                         cluster=p["cluster"], clusters=p["clusters"],
-                         res_pre=p["res_pre"], res_att=p["res_att"],
-                         **{k: cfg[k] for k in _PRIOR})
+                         S=S, content=int(nf == 0), normalizer=norm,
+                         n_filters=nf, cluster=p["cluster"],
+                         clusters=p["clusters"], res_pre=p["res_pre"],
+                         res_att=p["res_att"], **_prior_fields(cfg))
             _launch("decoder_train_fwd_f32", args, fx)
             launches.count += 1
         ctx.cfg = cfg
@@ -634,25 +668,30 @@ class _DecoderScanTrain(torch.autograd.Function):
         zeros = lambda *s: torch.zeros(*s, dtype=fx.dtype, device=fx.device)
         cot = lambda g, *s: g.contiguous() if g is not None else zeros(*s)
         dh, dw, dwa = cot(dh, T, B, S), cot(dw, T, B, L), cot(dwa, T, B, D)
-        conv = cfg["n_filters"] == 1
+        nf = cfg["n_filters"]
+        nh = max(nf, 1)
         g = dict(dfx=new(T, B, S), dfg=new(T, B, 2 * S), dh0=new(B, S),
                  dwa0=new(B, D), dpre=new(B, L, M), dsp=new(T, B, M),
                  dwan=new(T, B, D))
-        if conv:
-            g.update(wg=new(T, B, L), dconv=new(T, B, L))
+        if nf:
+            g.update(wg=new(T, B, L), dconv=new(T, B, nf * L))
         # the content branch: the band and the handler feed nothing, so
         # their gradients stay zero and no outer_sum job forms them
-        w_grads = dict(dtoep=zeros(L, L), dst=zeros(S, M), dwss=zeros(S, S),
-                       dwsg=zeros(S, 2 * S), ddx=zeros(D, S),
-                       ddg=zeros(D, 2 * S), dhand=zeros(1, M),
-                       dv=zeros(1, M + nb), datt=zeros(B, L, D))
+        w_grads = dict(dtoep=zeros(L, nh * L), dst=zeros(S, M),
+                       dwss=zeros(S, S), dwsg=zeros(S, 2 * S),
+                       ddx=zeros(D, S), ddg=zeros(D, 2 * S),
+                       dhand=zeros(1, nh * M), dv=zeros(1, M + nb),
+                       datt=zeros(B, L, D))
         if T and B:
-            p, d = _plan_args("backward", B, L, M, D, S, fx.device, conv)
+            p, d = _plan_args("backward", B, L, M, D, S, fx.device, nf)
             C = p["cluster"]
             g.update(dv=new(B * C, M + nb))
-            if conv:
-                g.update(dhand=new(B * C, M))
-            packed = pack_backward(d, toep if conv else None, st, wss, wsg,
+            # the handler's partials: a (row, block)'s, or with more
+            # filters a (cluster, block)'s
+            hand_rows = B * C if nf == 1 else p["clusters"] * C
+            if nf:
+                g.update(dhand=new(hand_rows, nf * M))
+            packed = pack_backward(d, toep if nf else None, st, wss, wsg,
                                    dxm, dgm)
             ins = dict(fx=fx, fg=fg, mask=mask, step0=step0, pre=pre, att=att,
                        amask=amask, h0=h0, w0=w0, wa0=wa0, hand=hand, v=v,
@@ -662,14 +701,11 @@ class _DecoderScanTrain(torch.autograd.Function):
             args = _Args(**{k: _ptr(t) for k, t in
                             {**ins, **g, **packed}.items()},
                          T=T, B=B, L=L, M=M, D=D, S=S,
-                         prior_median=int(cfg["prior"] != "expanding"),
-                         content=int(not conv),
+                         content=int(nf == 0),
                          normalizer=NORMALIZERS.index(cfg["normalizer"]),
-                         cluster=C,
-                         clusters=p["clusters"],
+                         n_filters=nf, cluster=C, clusters=p["clusters"],
                          res_pre=p["res_pre"], res_att=p["res_att"],
-                         res_dpre=p["res_dpre"],
-                         **{k: cfg[k] for k in _PRIOR})
+                         res_dpre=p["res_dpre"], **_prior_fields(cfg))
             _launch("decoder_train_bwd_f32", args, fx)
             launches.count += 1
             h_prev = torch.cat([h0[None], h_out[:-1]])
@@ -680,10 +716,11 @@ class _DecoderScanTrain(torch.autograd.Function):
                     (wa_out, None, g["dfx"], w_grads["ddx"]),
                     (wa_out, None, g["dfg"], w_grads["ddg"]),
                     (ones, None, g["dv"], w_grads["dv"])]
-            if conv:
+            if nf:
                 jobs = [(g["wg"], None, g["dconv"], w_grads["dtoep"])] \
                     + jobs[:5] \
-                    + [(ones, None, g["dhand"], w_grads["dhand"]), jobs[5]]
+                    + [(fx.new_ones(hand_rows, 1), None, g["dhand"],
+                        w_grads["dhand"]), jobs[5]]
             outer_sum(jobs, fx)
             # datt[b] = sum_t w_t[b]^T dwan_t[b]: one job a batch row
             for b0 in range(0, B, MAX_JOBS):
@@ -696,7 +733,8 @@ class _DecoderScanTrain(torch.autograd.Function):
         dv = w_grads["dv"][0]
         return (None, g["dfx"], g["dfg"], None, None, g["dpre"],
                 w_grads["datt"], None, g["dh0"], None, g["dwa0"],
-                w_grads["dtoep"], w_grads["dst"], w_grads["dhand"],
+                w_grads["dtoep"], w_grads["dst"],
+                w_grads["dhand"].view(nh, M),
                 dv[:M], w_grads["dwss"], w_grads["dwsg"],
                 w_grads["ddx"], w_grads["ddg"],
                 dv[M:].reshape(e_bias.shape) if nb else None)
@@ -738,6 +776,7 @@ def decoder_scan_train(fx, fg, mask, pre, attended, att_mask, h0, w0, wa0,
     T, B, S = fx.shape
     L, M = pre.shape[1], pre.shape[2]
     D = attended.shape[2]
+    nh = max(int(n_filters), 1)
     if mask is None:
         mask = fx.new_ones(T, B)
     for name, t, shape in (
@@ -745,8 +784,8 @@ def decoder_scan_train(fx, fg, mask, pre, attended, att_mask, h0, w0, wa0,
             ("mask", mask, (T, B)), ("pre", pre, (B, L, M)),
             ("attended", attended, (B, L, D)), ("att_mask", att_mask, (B, L)),
             ("h0", h0, (B, S)), ("w0", w0, (B, L)), ("wa0", wa0, (B, D)),
-            ("toep", toep, (L, L)), ("st", st, (S, M)),
-            ("hand", hand.reshape(1, -1), (1, M)), ("v", v, (M,)),
+            ("toep", toep, (L, nh * L)), ("st", st, (S, M)),
+            ("hand", hand.reshape(nh, -1), (nh, M)), ("v", v, (M,)),
             ("wss", wss, (S, S)), ("wsg", wsg, (S, 2 * S)),
             ("dxm", dxm, (D, S)), ("dgm", dgm, (D, 2 * S))):
         _check(name, t, shape, device)
@@ -757,4 +796,4 @@ def decoder_scan_train(fx, fg, mask, pre, attended, att_mask, h0, w0, wa0,
         e_bias = None
     return _DecoderScanTrain.apply(
         cfg, fx, fg, mask, step_zero(mask), pre, attended, att_mask, h0, w0,
-        wa0, toep, st, hand.reshape(1, M), v, wss, wsg, dxm, dgm, e_bias)
+        wa0, toep, st, hand.reshape(nh, M), v, wss, wsg, dxm, dgm, e_bias)

@@ -4,8 +4,10 @@ Counterpart of ``attention_lvcsr_tpu/ops/expressions.py``: ``conv1d`` in
 'full' mode (``torch.nn.functional.conv1d`` computes a cross-correlation,
 so the filter is flipped, as the JAX version flips it for XLA), and the
 attention diagnostics ``monotonicity_penalty`` and ``entropy`` over
-time-major ``(T_out, B, L)`` weights, and ``weights_std``, the spread of
-the attention that the search driver prints for each alignment.
+time-major ``(T_out, B, L)`` weights, ``weights_std``, the spread of
+the attention that the search driver prints for each alignment, and the
+readout's post-merge activations (JAX ``generator.py::Readout.
+_activation``), which the plain decode loop applies too.
 """
 from __future__ import annotations
 
@@ -53,3 +55,36 @@ def weights_std(weights, mask_outputs=None):
         result = result * torch.as_tensor(mask_outputs, dtype=result.dtype,
                                           device=result.device)
     return result.sum() / weights.shape[0]
+
+
+# the post-merge activations of JAX ``Readout._activation`` (:104-125);
+# ``maxout[:k]`` besides, the max over groups of k consecutive units
+ACTIVATIONS = ("tanh", "relu", "rectifier", "sigmoid", "logistic",
+               "identity")
+
+
+def maxout_pieces(activation):
+    """k of a ``maxout[:k]`` activation (2 without ``:k``), else 0."""
+    if not activation.startswith("maxout"):
+        return 0
+    return int(activation.split(":")[1]) if ":" in activation else 2
+
+
+def post_merge_activation(x, activation):
+    """The readout's activation of ``x``'s last dimension; maxout shrinks
+    it k times and raises on a width that k does not divide."""
+    if activation == "tanh":
+        return torch.tanh(x)
+    if activation in ("relu", "rectifier"):
+        return torch.relu(x)
+    if activation in ("sigmoid", "logistic"):
+        return torch.sigmoid(x)
+    if activation == "identity":
+        return x
+    pieces = maxout_pieces(activation)
+    if not pieces:
+        raise ValueError(activation)
+    d = x.shape[-1]
+    if d % pieces:
+        raise ValueError(f"maxout: last dim {d} not divisible by {pieces}")
+    return x.reshape(x.shape[:-1] + (d // pieces, pieces)).amax(dim=-1)

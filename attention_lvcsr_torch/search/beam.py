@@ -50,6 +50,7 @@ import torch
 from attention_lvcsr_torch.ops.beam_loop import INF as LOOP_INF
 from attention_lvcsr_torch.ops.beam_loop import (beam_search_loop,
                                                  smem_plan, unported_loop)
+from attention_lvcsr_torch.ops.expressions import maxout_pieces
 
 INF = 1e9
 PATIENCE = 30
@@ -63,21 +64,28 @@ def loop_route(net_config, beam, num_frames, max_len):
     (``RecognizerNet``'s keyword arguments), the beam, the input frames
     and the decode cap.  False (the module-driven ``_search_core``) with
     an LM, under ``use_pallas: never``, above ``MAX_LOOP_BEAM``, for a
-    configuration the kernel does not cover (``ops/beam_loop.py::
-    unported_loop``) and when one utterance's state does not fit a
-    block's shared memory (``smem_plan``), the cases where JAX's
+    readout without exactly one post-merge layer, for a configuration the
+    kernel does not cover (``ops/beam_loop.py::unported_loop``: above 16
+    filters, an unknown activation, the task loss's costs with the WSJ
+    variants, which no config runs) and when one utterance's state does
+    not fit a block's shared memory (``smem_plan``), the cases where JAX's
     ``_loop_kernel_mode`` (``search/beam.py:283-344``) leaves the
     kernel."""
     c = dict(net_config)
     if (c.get("lm") or {}).get("path") or c.get("use_pallas") == "never" \
-            or beam > MAX_LOOP_BEAM:
+            or beam > MAX_LOOP_BEAM \
+            or len(c.get("post_merge_dims") or ()) != 1:
         return False
     content = c.get("attention_type", "content") == "content"
     prior = dict(c.get("prior") or {}).get("type", "expanding")
     normalizer = c.get("energy_normalizer") or "softmax"
-    if unported_loop("expanding" if content else prior,
-                     0 if content else c.get("conv_num_filters") or 1,
-                     "softmax" if content else normalizer, content):
+    n_filters = 0 if content else c.get("conv_num_filters") or 1
+    act = c.get("post_merge_activation") or "tanh"
+    mse = dict(c.get("criterion") or {}).get(
+        "name", "log_likelihood").startswith("mse")
+    if unported_loop("expanding" if content else prior, n_filters,
+                     "softmax" if content else normalizer, content, act,
+                     mse):
         return False
     L = int(num_frames)
     for s in c.get("subsample") or [1] * len(c["dims_bidir"]):
@@ -89,7 +97,8 @@ def loop_route(net_config, beam, num_frames, max_len):
         S=dim_dec, R=c["post_merge_dims"][0], V=c["num_phonemes"],
         F=c.get("dim_output_embedding") or dim_dec, Lout=max(1, max_len),
         n_taps=0 if content else 2 * c["conv_n"] + 1, content=content,
-        normalizer="softmax" if content else normalizer)
+        normalizer="softmax" if content else normalizer,
+        n_filters=n_filters, maxout=maxout_pieces(act))
     return plan["fits"]
 
 
@@ -261,7 +270,8 @@ class BeamSearch:
             content_attention=not attention.conv,
             normalizer=(attention.energy_normalizer if attention.conv
                         else "softmax"),
-            mse_cost=self.net.generator.mse)
+            mse_cost=self.net.generator.mse,
+            post_act=self.net.generator.readout.activation)
         meta = done_meta.cpu().numpy()
         return {
             "done_out": done_out.cpu().numpy(),

@@ -12,8 +12,10 @@ trains it with a 4x250 BiLSTM encoder; decodes, scores and samples it
 through the search driver; trains the paper's WSJ stages; and trains,
 decodes and scores the TIMIT recipe's content-attention model with
 adaptive weight noise; and trains the task-loss recipe with greedy
-exploration, its kernel branches held to their plain versions.  Phases,
-each fatal on failure:
+exploration, its kernel branches held to their plain versions; and
+trains and decodes the WSJ recipes' readout and attention variants (ten
+filters, maxout, the mean window, rectifier and no post-merge layer).
+Phases, each fatal on failure:
 
 1. build the kernels (one nvcc per source, sm_90a) and print the time;
 2. ``gru_scan`` kernel vs its plain PyTorch version at the encoder's
@@ -220,7 +222,29 @@ each fatal on failure:
     ``pretraining2`` stopped after an epoch and resumed, bit for bit;
     (f) one ``wsj_reward3.yaml`` (greedy) and one
     ``wsj_reward_mixed.yaml`` step at the flagship widths (B=32, 800
-    frames, 100 labels) on both routes, within 1e-4 relative.
+    frames, 100 labels) on both routes, within 1e-4 relative;
+22. the readout and attention variants of the WSJ recipes: (a)
+    ``beam_search_loop``'s ten filters + maxout:2 + states readout at
+    ``wsj_mean_maxout.yaml``'s widths under the mean and the expanding
+    prior, and its rectifier, sigmoid and identity post-merge activations
+    at ``wsj_bhd4.yaml``'s, against the plain loop at U=64, 800 frames,
+    beam 10, 100 steps, EOS logit +1.5, compared as in phase 3 (3/4 of the
+    utterances must finish), a second launch bit for bit, the C layouts,
+    the times; (b) ``decoder_scan_train``'s ten filters under the mean
+    prior, forward and backward, against the plain scan at T=100, L=200,
+    M=512, D=512, S=256, 201 taps, B=10 and 32: states within 1e-5 and
+    every gradient (the taps' and the handler's included) within 1e-4 of
+    its largest value, a second call bit for bit, the launch plans and C
+    layouts, the times; (c) ``fused_decode_score``'s mean prior against
+    its plain version at U=64, K=10, L=200 within 1e-4, the time; (d)
+    ``wsj_mean_maxout.yaml``'s ``pretraining`` (expanding) and ``main``
+    (mean, from ``pretraining_best_ll.zip``) stages and one stage each of
+    ``wsj_bhd4.yaml`` and ``wsj_good.yaml`` (no subsampling, no post-merge
+    layer: the module route), 2 batches of 10 an epoch with validation and
+    search (beam 10, U=4), on the kernels and on the plain route:
+    train_cost, total_gradient_norm and validation costs within 1e-4
+    relative, the same hypotheses (more than half non-empty), each
+    recipe's decode route and launches, utt/s.
 
 Nothing of JAX or of the JAX package is imported; the script checks it.
 
@@ -236,8 +260,12 @@ run of the three stages; ``timit_launches``, phase 20c-d's kernel route;
 content branch's times, bound and errors at phase 20's shapes;
 ``mse_logistic`` and ``relu`` for the loop, ``logistic`` and ``relu`` for
 the decoder, phase 21's branches; ``task_loss_launches``, phase 21e's
-kernel route); the line before it holds the rates, phase 21d's reward DP
-time and launches among them; the last
+kernel route; ``maxout10_mean``, ``maxout10_expanding``, ``rectifier``,
+``sigmoid`` and ``identity`` for the loop, ``filters10_mean_B10`` and
+``_B32`` for the decoder and ``mean`` for the score step, phase 22a-c's
+branches; ``variant_launches``, phase 22d's kernel route per recipe);
+the line before it holds the rates, phase 21d's reward DP time and
+launches among them; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository around it, the script exits non-zero and prints no result.
 """
@@ -600,6 +628,9 @@ def main():
     t0 = time.perf_counter()
     task_loss_launches = task_loss_phase(t, dev, results, rates)
     log(f"phase 21: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    variant_launches = wsj_variants_phase(t, dev, results, rates)
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s")
 
     banned = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "attention_lvcsr_tpu"))
@@ -637,6 +668,10 @@ def main():
         k["timit_launches"] = timit_launches.get(k["name"], 0)
         # phase 21e's kernel route: iclr_reward.yaml's two stages
         k["task_loss_launches"] = task_loss_launches.get(k["name"], 0)
+        # phase 22d's kernel route, per recipe
+        k["variant_launches"] = {recipe: moved.get(k["name"], 0)
+                                 for recipe, moved in
+                                 variant_launches.items()}
     log(json.dumps(dict(rates, build_s=lib.build_seconds)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -682,10 +717,12 @@ def gru_scan_plans(t, dev, rng, T, D, result):
         log(f"  kernel at B={B}: {result[f'ms_B{B}']:.3f} ms")
 
 
-def beam_loop_plan(dims, content=False, normalizer="softmax", phase=None):
-    """Phases 3, 20b and 21b: the loop kernel's C shared-memory layout
+def beam_loop_plan(dims, content=False, normalizer="softmax", phase=None,
+                   n_filters=1, post_act=0, maxout=0):
+    """Phases 3, 20b, 21b and 22a: the loop kernel's C shared-memory layout
     against its Python mirror at the main path's shape (``dims`` carries
-    the C struct's ``content`` flag for the content branch)."""
+    the C struct's ``content`` flag for the content branch; ``n_filters``,
+    ``post_act`` and ``maxout`` the struct's filters and activation)."""
     import ctypes
     from attention_lvcsr_torch import _build
     from attention_lvcsr_torch.ops import beam_loop as bl
@@ -693,15 +730,18 @@ def beam_loop_plan(dims, content=False, normalizer="softmax", phase=None):
     lib.beam_loop_smem_bytes.argtypes = [ctypes.POINTER(bl._Args)]
     lib.beam_loop_smem_bytes.restype = ctypes.c_int
     c_bytes = lib.beam_loop_smem_bytes(ctypes.byref(bl._Args(
-        U=1, normalizer=bl.NORMALIZERS.index(normalizer), **dims)))
+        U=1, normalizer=bl.NORMALIZERS.index(normalizer),
+        n_filters=n_filters, post_act=post_act, maxout=maxout, **dims)))
     plan = bl.smem_plan(**{k: v for k, v in dims.items() if k != "content"},
-                        content=content, normalizer=normalizer)
+                        content=content, normalizer=normalizer,
+                        n_filters=n_filters, maxout=maxout)
     if c_bytes != plan["smem_bytes"] or not plan["fits"]:
         fail(f"beam_search_loop: the C layout has {c_bytes} bytes, the "
              f"mirror {plan['smem_bytes']} (fits: {plan['fits']}; content "
              f"{content}, {normalizer})")
     log(f"phase {phase or ('20b' if content else '3')} beam_loop layout "
-        f"({normalizer}): {c_bytes} bytes a block (C equals the mirror)")
+        f"({normalizer}, {n_filters} filters, post_act {post_act}): "
+        f"{c_bytes} bytes a block (C equals the mirror)")
     return {"smem_bytes": c_bytes}
 
 
@@ -844,9 +884,6 @@ def decode_phases(t, dev, results, launches, rates):
             fail(f"{name}: only {finished}/{U} utterances finished: the "
                  f"comparison is too weak")
         if (U, frames, eos_bias) == (64, 800, 0.0):
-            # per hypothesis row and step: the attention step, the
-            # readout, the GRU advance with its feedback fork and
-            # distribute products, and the selection over the symbols
             S, L = rec.net.generator.dim_dec, data["pre"].shape[1]
             M, D = data["pre"].shape[2], data["attended"].shape[2]
             R, V = 250, rec.num_phonemes
@@ -854,9 +891,10 @@ def decode_phases(t, dev, results, launches, rates):
                 K=10, L=L, M=M, D=D, S=S, R=R, V=V,
                 F=tables["embed"].shape[1], Lout=kw["max_len"],
                 n_taps=tables["conv_filters"].shape[-1]))
-            row_ops = (attention_step_ops(S, M, L, 2 * 100 + 1, D)
-                       + readout_ops(D, R, V) + 2 * (D + S) * 3 * S
-                       + gru_step_ops(S) + 3 * V)
+            widths = []             # each step's window, for the bound
+            bl.beam_search_loop_reference(*loop_args, **kw,
+                                          window_widths=widths)
+            ops, window = loop_ops(net_config, 10, D, widths, got["steps"])
             loop_out = bl.beam_search_loop(*loop_args, **kw)
             results["beam_search_loop"] = {
                 "ms": cuda_ms(lambda: bl.beam_search_loop(*loop_args, **kw),
@@ -864,13 +902,14 @@ def decode_phases(t, dev, results, launches, rates):
                 "plain_ms": cuda_ms(
                     lambda: bl.beam_search_loop_reference(*loop_args, **kw),
                     1),
-                **bound(nbytes(*loop_args[:3], tables, *loop_out),
-                        10 * int(got["steps"].sum()) * row_ops),
-                "library_ms": None, **plan}
+                **bound(nbytes(*loop_args[:3], tables, *loop_out), ops),
+                "mean_window": window, "library_ms": None, **plan}
     results["beam_search_loop"]["max_abs_err"] = loop_err
     log(f"  kernel {results['beam_search_loop']['ms']:.3f} ms, plain "
-        f"{results['beam_search_loop']['plain_ms']:.3f} ms (U=64, main "
-        f"path's tables)")
+        f"{results['beam_search_loop']['plain_ms']:.3f} ms, bound "
+        f"{results['beam_search_loop']['bound_ms']:.3f} ms over windows of "
+        f"{results['beam_search_loop']['mean_window']:.1f} frames on average "
+        f"(U=64, main path's tables)")
 
     # ---- 4. full decode through the recognizer -----------------------------
     Bd, Td = 64, 800
@@ -1458,7 +1497,9 @@ def decoder_plans(dev, dims):
                                              ctypes.POINTER(dt._Args)]
     lib.decoder_train_smem_bytes.restype = ctypes.c_int
     checked = 0
-    for kind, content in ((k, c) for k in dt.KINDS for c in (0, 1)):
+    # the conv branch with one filter and with ten, the content branch
+    for kind, content, nf in ((k, c, f) for k in dt.KINDS
+                              for c, f in ((0, 1), (0, 10), (1, 0))):
         for B, L, M, D, S in ((32, 200, 250, 500, 250), (64, 200, 250, 500,
                                                          250),
                               (16, 175, 250, 500, 250),
@@ -1471,6 +1512,7 @@ def decoder_plans(dev, dims):
                         res = dict(zip(("pre", "att", "dpre"), res))
                         args = dt._Args(B=B, L=L, M=M, D=D, S=S, cluster=C,
                                         clusters=n, content=content,
+                                        n_filters=nf,
                                         **{f"res_{k}": v for k, v in
                                            res.items()})
                         got = lib.decoder_train_smem_bytes(
@@ -1478,16 +1520,17 @@ def decoder_plans(dev, dims):
                         if kind == "forward":
                             res["dpre"] = 0
                         want = dt.layout(kind, C, R, L, M, D, S, res,
-                                         conv=not content)["smem_bytes"]
+                                         n_filters=nf)["smem_bytes"]
                         if got != want:
                             fail(f"decoder_scan_train: the C {kind} layout "
                                  f"of B={B} L={L} M={M} D={D} S={S}, {n} "
                                  f"clusters of {C}, resident rows {res}, "
-                                 f"content {content} has {got} bytes, the "
-                                 f"mirror {want}")
+                                 f"content {content}, {nf} filters has "
+                                 f"{got} bytes, the mirror {want}")
                         checked += 1
     log(f"phase 12 decoder_train layout: C equals the mirror in {checked} "
-        f"plans (conv and content branches)")
+        f"plans (the conv branch with 1 and 10 filters, the content "
+        f"branch)")
     plans = {}
     for kind in dt.KINDS:
         active = dt.max_active_clusters(kind, dev)
@@ -3130,7 +3173,7 @@ def timit_kernels(t, dev, results, data):
     fwd_bytes = nbytes(*leaves, *inputs) + nbytes(*got) + 3 * nbytes(got[0])
     bwd_bytes = nbytes(*leaves, *inputs, *cots, *got) \
         + 3 * nbytes(got[0]) + nbytes(*gref)
-    plans = {kind: dt.launch_plan(kind, B, L, M, D, S, dev, conv=False)
+    plans = {kind: dt.launch_plan(kind, B, L, M, D, S, dev, n_filters=0)
              for kind in dt.KINDS}
     results["decoder_scan_train"]["content"] = {
         "B": B, "T": T, "L": L, "max_abs_err": abs_err,
@@ -3150,7 +3193,7 @@ def timit_kernels(t, dev, results, data):
         f"{plain_bwd:.3f} ms; bound {r['bound_ms']:.3f} ms; plans "
         + "; ".join(f"{k}: {p['clusters']} clusters of {p['cluster']}, "
                     f"{p['smem_bytes']} bytes a block, the card holds at "
-                    f"once {dt.max_active_clusters(k, dev, conv=False)}"
+                    f"once {dt.max_active_clusters(k, dev, n_filters=0)}"
                     for k, p in plans.items()))
 
     # ---- b. the whole-loop decode: beam 10 at U=16 and 64, L=175, with
@@ -4102,6 +4145,553 @@ def task_loss_phase(t, dev, results, rates):
     t0 = time.perf_counter()
     wsj_reward_steps(t, dev, rates)
     log(f"phase 21f: {time.perf_counter() - t0:.1f} s")
+    return moved
+
+
+# ---- phase 22: the readout and attention variants of the WSJ recipes ------
+
+MEAN_MAXOUT_PRETRAINING = {"type": "expanding", "initial_begin": 0,
+                           "initial_end": 100, "min_speed": 3,
+                           "max_speed": 5.5}
+
+
+def variant_nets():
+    """The nets of phase 22 over the flagship's (``FLAGSHIP_NET``):
+
+    * ``mean_maxout``, exp/wsj/configs/wsj_mean_maxout.yaml's over
+      wsj_paper.yaml's: a 4x256 encoder, a 512-dim matcher, ten conv
+      filters, the decoder states in a maxout:2 readout, the window around
+      the mean (its pretraining stage the expanding window
+      ``MEAN_MAXOUT_PRETRAINING``);
+    * ``bhd4``, wsj_bhd4.yaml's: the flagship's widths, the decoder states
+      in a rectifier readout, the expanding window;
+    * ``good``, wsj_good.yaml's: one 250-unit BiGRU layer over a 250-unit
+      rectifier bottom, no subsampling, the decoder states in a readout
+      without a post-merge layer, the expanding window."""
+    from __graft_entry__ import FLAGSHIP_NET
+    return {
+        "mean_maxout": dict(
+            FLAGSHIP_NET, dims_bidir=[256] * 4, dim_dec=256, dim_matcher=512,
+            conv_num_filters=10, use_states_for_readout=True,
+            post_merge_dims=[256], post_merge_activation="maxout:2",
+            prior={"type": "window_around_mean", "before": 150,
+                   "after": 150}),
+        "bhd4": dict(FLAGSHIP_NET, use_states_for_readout=True,
+                     post_merge_activation="rectifier",
+                     prior={"type": "expanding", "initial_begin": 0,
+                            "initial_end": 40, "min_speed": 1.2,
+                            "max_speed": 2.2}),
+        "good": dict(FLAGSHIP_NET, dims_bidir=[250], subsample=[1],
+                     bottom={"bottom_class": "speech", "dims": [250],
+                             "activation": "rectifier"},
+                     use_states_for_readout=True, post_merge_dims=None,
+                     prior={"type": "expanding", "initial_begin": 0,
+                            "initial_end": 200, "min_speed": 6,
+                            "max_speed": 11})}
+
+
+# their rule chains: wsj_paper.yaml's for wsj_mean_maxout.yaml, momentum
+# (scale 0.1) then adadelta for wsj_bhd4.yaml and wsj_good.yaml, which
+# max-norms its weights
+MOMENTUM_ADADELTA = {"gradient_threshold": 100.0, "scale": 0.1,
+                     "momentum": 0.0, "rules": ["momentum", "adadelta"],
+                     "decay_rate": 0.95, "epsilon": 1e-8}
+
+
+def loop_row_ops(net, width, D):
+    """Operations of one hypothesis row and step of a conv-attention
+    decode loop (``net``'s widths) whose window spans ``width`` frames: the attention step over the
+    window (each filter's convolution, the taps clipped to the window as
+    ``decode_step.cuh::window_conv_filters`` clips them, and its handler
+    term), the readout (the states' merge, the activation, the post-merge
+    layer of R / k rows under maxout), the GRU advance with its fork and
+    distribute products, and the selection."""
+    from attention_lvcsr_torch.ops.expressions import maxout_pieces
+    S, V = net["dim_dec"], net["num_phonemes"]
+    M = net.get("dim_matcher") or S
+    R = net["post_merge_dims"][0]
+    nf, n = net.get("conv_num_filters") or 1, net["conv_n"]
+    taps = sum(min(width - 1, l + n) - max(0, l - n) + 1
+               for l in range(width))
+    readout = 2 * D * R + R + 2 * (R // (maxout_pieces(
+        net.get("post_merge_activation") or "tanh") or 1)) * V + 3 * V
+    if net.get("use_states_for_readout"):
+        readout += 2 * S * R
+    # attention_step_ops' terms with the conv and handler terms per filter
+    return (2 * S * M + 2 * nf * taps + (4 + 2 * nf) * width * M
+            + 4 * width + 2 * width * D + readout + 2 * (D + S) * 3 * S
+            + gru_step_ops(S) + 3 * V)
+
+
+def loop_ops(net, K, D, widths, steps):
+    """Operations of a conv-attention decode, K rows a step of each
+    utterance for its ``steps``, each step over its window (``widths``, the plain
+    loop's (U,) window widths of each step), and the mean window."""
+    import torch
+    W = torch.stack(widths).cpu().numpy()       # (steps run, U)
+    live = np.concatenate([W[:int(n), u] for u, n in enumerate(steps)])
+    values, counts = np.unique(live, return_counts=True)
+    ops = sum(int(c) * loop_row_ops(net, int(w), D)
+              for w, c in zip(values, counts))
+    return K * ops, float(live.mean()) if live.size else 0.0
+
+
+def variant_loops(t, dev, results):
+    """Phase 22a: beam_loop.cu's new branches against the plain loop at
+    U=64, 800 frames, beam 10, 100 steps: ten filters + maxout:2 + the
+    states readout at wsj_mean_maxout's widths under the mean and the
+    expanding prior, and the rectifier, sigmoid and identity post-merge
+    activations at wsj_bhd4's."""
+    import torch
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    from attention_lvcsr_torch.ops.expressions import maxout_pieces
+    U, frames, K = 64, 800, 10
+    rng = np.random.RandomState(22)
+    feats = t(rng.randn(U, frames, 123))
+    lengths = rng.randint(600, frames + 1, size=U)
+    lengths[0] = frames
+    fmask = t(np.arange(frames)[None] < lengths[:, None])
+    nets = variant_nets()
+    mean_maxout, bhd4 = nets["mean_maxout"], nets["bhd4"]
+    cases = {"maxout10_mean": mean_maxout,
+             "maxout10_expanding": dict(mean_maxout,
+                                        prior=MEAN_MAXOUT_PRETRAINING),
+             "rectifier": bhd4,
+             "sigmoid": dict(bhd4, post_merge_activation="sigmoid"),
+             "identity": dict(bhd4, post_merge_activation="identity")}
+    for name, net in cases.items():
+        net = dict(net, max_decoded_length_scale=8.0)
+        rec = SpeechRecognizer(net, init_config=FLAGSHIP_INIT, seed=1234,
+                               device=dev)
+        with torch.inference_mode():
+            d = rec.net.decode_loop(feats, fmask)
+            tables = dict(rec.net.decode_loop_tables())
+        tables["post_b"] = tables["post_b"].clone()
+        tables["post_b"][rec.eos_label] += 1.5
+        prior = rec.net.generator.attention.prior_config()
+        act = net["post_merge_activation"]
+        kw = dict(beam=K, max_len=frames // 8, eol=rec.eos_label,
+                  ignore_first_eol=True, post_act=act, prior=prior["type"],
+                  **{k: float(v) for k, v in prior.items() if k != "type"})
+        loop_args = (d["pre"], d["attended"], d["attended_mask"], tables)
+
+        def as_out(res):
+            out, meta, steps = (x.cpu().numpy() for x in res)
+            return {"done_out": out, "done_cost": meta[:, :, 0],
+                    "done_adjusted": meta[:, :, 1],
+                    "done_len": meta[:, :, 2].astype(np.int32),
+                    "done_valid": meta[:, :, 1] < bl.INF / 2,
+                    "steps": steps}
+
+        bl.launches.reset()
+        got = as_out(bl.beam_search_loop(*loop_args, **kw))
+        if bl.launches.count != 1:
+            fail(f"beam_search_loop {name}: no launch")
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        ref = as_out(bl.beam_search_loop_reference(*loop_args, **kw))
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        err = compare_outputs(f"beam_search_loop {name}", got, ref)
+        finished = int(got["done_valid"].any(axis=1).sum())
+        if finished < U * 3 // 4:
+            fail(f"beam_search_loop {name}: only {finished}/{U} utterances "
+                 f"finished: the comparison is too weak")
+        widths = []                 # each step's window, for the bound
+        bl.beam_search_loop_reference(*loop_args, **kw, window_widths=widths)
+        again = as_out(bl.beam_search_loop(*loop_args, **kw))
+        if not all(np.array_equal(got[k], again[k]) for k in got):
+            fail(f"beam_search_loop {name}: a second launch differs")
+        ms = cuda_ms(lambda: bl.beam_search_loop(*loop_args, **kw), 3)
+        L, M, D = d["pre"].shape[1], d["pre"].shape[2], d["attended"].shape[2]
+        code, pieces = bl.post_act_code(act)
+        nf = net["conv_num_filters"]
+        plan = beam_loop_plan(dict(
+            K=K, L=L, M=M, D=D, S=net["dim_dec"], R=net["post_merge_dims"][0],
+            V=rec.num_phonemes, F=tables["embed"].shape[1],
+            Lout=kw["max_len"], n_taps=tables["conv_filters"].shape[-1]),
+            phase="22a", n_filters=nf, post_act=code, maxout=pieces)
+        out = bl.beam_search_loop(*loop_args, **kw)
+        ops, window = loop_ops(net, K, D, widths, got["steps"])
+        results["beam_search_loop"][name] = {
+            "U": U, "L": L, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms,
+            **bound(nbytes(*loop_args[:3], tables, *out), ops),
+            "mean_window": window, "library_ms": None, **plan}
+        r = results["beam_search_loop"][name]
+        log(f"phase 22a beam_search_loop {name} ({nf} filters, {act}, "
+            f"{prior['type']}) U={U} L={L}: outputs agree; {finished}/{U} "
+            f"finished, steps {int(got['steps'].min())}.."
+            f"{int(got['steps'].max())}, max abs cost err {err:.3e}, a "
+            f"second launch bit for bit; kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {r['bound_ms']:.3f} ms over windows "
+            f"of {r['mean_window']:.1f} of {L} frames on average "
+            f"({maxout_pieces(act) or 'no'} maxout pieces)")
+
+
+def variant_decoder(t, dev, results):
+    """Phase 22b: decoder_train.cu's ten filters under the mean prior,
+    forward and backward, against the plain scan at wsj_mean_maxout's
+    decoder (T=100 labels, L=200 frames, M=512, D=512, S=256, 201 taps) at
+    B=10 and B=32: states within 1e-5 and every gradient within 1e-4 of
+    its largest value (the taps' and the handler's included), a second
+    call bit for bit; the launch plans, the C layouts against the mirror,
+    the times."""
+    import torch
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    T, L, M, D, S, nf, taps = 100, 200, 512, 512, 256, 10, 201
+    prior = variant_nets()["mean_maxout"]["prior"]
+    for B in (10, 32):
+        rng = np.random.RandomState(22 + B)
+        ops, fixed, cots = decoder_operands(t, dev, rng, T=T, B=B, L=L, M=M,
+                                            D=D, S=S, taps=taps)
+        # the filters' bands, side by side, and their handler rows
+        filters = t(rng.randn(nf, taps) * 0.1)
+        ops["toep"] = torch.cat([dt.toeplitz_band(filters[f], L)
+                                 for f in range(nf)], dim=1)
+        ops["hand"] = t(rng.randn(nf, M) * 0.1)
+        names = list(ops)
+
+        def scan(fn):
+            def call(*xs):
+                d = dict(zip(names, xs))
+                return fn(d["fx"], d["fg"], fixed["mask"], d["pre"],
+                          d["attended"], fixed["att_mask"], d["h0"],
+                          fixed["w0"], d["wa0"], d["toep"], d["st"],
+                          d["hand"], d["v"], d["wss"], d["wsg"], d["dxm"],
+                          d["dgm"], prior=prior, n_filters=nf)
+            return call
+
+        plans = {}
+        for kind in dt.KINDS:
+            p = dt.launch_plan(kind, B, L, M, D, S, dev, n_filters=nf)
+            res = {k: p.get(f"res_{k}", 0) for k in dt.TILES[kind]}
+            check_decoder_layout(kind, B, L, M, D, S, p, res, nf)
+            plans[kind] = p
+            log(f"phase 22b decoder_scan_train {kind} plan B={B}, {nf} "
+                f"filters: {p['clusters']} clusters of {p['cluster']} "
+                f"blocks, {p['rows']} rows a cluster, resident {res}, "
+                f"{p['smem_bytes']} bytes a block (C equals the mirror)")
+        leaves = [ops[n] for n in names]
+        dt.launches.reset()
+        got, ggot = grads_of(scan(dt.decoder_scan_train), leaves, cots)
+        if dt.launches.count != 2:
+            fail(f"decoder_scan_train {nf} filters: {dt.launches.count} "
+                 f"launches, expected a forward and a backward")
+        ref, gref = grads_of(scan(dt.decoder_scan_train_reference), leaves,
+                             cots)
+        outs = ("h", "weights", "wa", "energies")
+        state_errs = relative_errors(dict(zip(outs, got)),
+                                     dict(zip(outs, ref)))
+        grad_errs = relative_errors(
+            {f"d{n}": g for n, g in zip(names, ggot)},
+            {f"d{n}": g for n, g in zip(names, gref)})
+        log(f"phase 22b decoder_scan_train {nf} filters, mean prior, T={T} "
+            f"B={B} L={L}: max abs err over max abs value: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in
+                        {**state_errs, **grad_errs}.items()))
+        if not (max(state_errs.values()) <= 1e-5
+                and max(grad_errs.values()) <= 1e-4):
+            fail(f"decoder_scan_train's {nf}-filter branch disagrees with "
+                 f"its plain version at B={B}")
+        repeat(f"decoder_scan_train ({nf} filters, B={B})", ggot,
+               grads_of(scan(dt.decoder_scan_train), leaves, cots))
+        abs_err = max(float((a - b).abs().max()) for a, b in
+                      zip(list(got) + list(ggot), list(ref) + list(gref)))
+        fwd, plain = scan(dt.decoder_scan_train), scan(
+            dt.decoder_scan_train_reference)
+        fwd_ms = cuda_ms(lambda: fwd(*leaves), 3)
+        bwd_ms = backward_ms(fwd, leaves, cots, 3)
+        plain_fwd = cuda_ms(lambda: plain(*leaves), 1)
+        plain_bwd = backward_ms(plain, leaves, cots, 1)
+        alone = {}
+        with timed_launches(dt, 5, alone):
+            grads_of(fwd, leaves, cots)
+        # one step of one row: the attention step with its ten bands
+        # (2 L^2 each) and handler terms, the distribute products and the
+        # GRU step; the backward recomputes the attention step and does
+        # twice the products
+        row_ops = attention_step_ops(S, M, L, nf * L, D) \
+            + 2 * (nf - 1) * L * M + 2 * D * 3 * S + gru_step_ops(S)
+        n_ops = T * B * row_ops
+        fwd_bytes = nbytes(*leaves, *fixed.values()) + nbytes(*got) \
+            + 3 * nbytes(got[0])
+        bwd_bytes = nbytes(*leaves, *fixed.values(), *cots, *got) \
+            + 3 * nbytes(got[0]) + nbytes(*gref)
+        key = f"filters10_mean_B{B}"
+        results["decoder_scan_train"][key] = {
+            "B": B, "T": T, "L": L, "max_abs_err": abs_err,
+            "max_rel_err_states": max(state_errs.values()),
+            "max_rel_err_grads": max(grad_errs.values()),
+            "ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+            "fwd_kernel_ms": alone["decoder_train_fwd_f32"],
+            "bwd_kernel_ms": alone["decoder_train_bwd_f32"],
+            "plain_ms": plain_fwd + plain_bwd, "plain_fwd_ms": plain_fwd,
+            "plain_bwd_ms": plain_bwd,
+            **bound(fwd_bytes + bwd_bytes, 4 * n_ops), "library_ms": None,
+            **{f"{k}_plan": {x: p[x] for x in ("cluster", "clusters",
+                                                "rows", "smem_bytes")}
+               for k, p in plans.items()}}
+        r = results["decoder_scan_train"][key]
+        log(f"  forward {fwd_ms:.3f} ms (kernel alone "
+            f"{r['fwd_kernel_ms']:.3f}), autograd backward {bwd_ms:.3f} ms "
+            f"(kernel alone {r['bwd_kernel_ms']:.3f}); plain "
+            f"{plain_fwd:.3f} + {plain_bwd:.3f} ms; bound "
+            f"{r['bound_ms']:.3f} ms")
+
+
+def check_decoder_layout(kind, B, L, M, D, S, plan, res, n_filters):
+    """The decoder kernel's C shared-memory layout of a plan against the
+    mirror (``ops/decoder_train.py::layout``)."""
+    import ctypes
+    from attention_lvcsr_torch import _build
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    lib = _build.load().lib
+    lib.decoder_train_smem_bytes.argtypes = [ctypes.c_int,
+                                             ctypes.POINTER(dt._Args)]
+    lib.decoder_train_smem_bytes.restype = ctypes.c_int
+    c_bytes = lib.decoder_train_smem_bytes(dt.KINDS.index(kind), ctypes.byref(
+        dt._Args(B=B, L=L, M=M, D=D, S=S, cluster=plan["cluster"],
+                 clusters=plan["clusters"], n_filters=n_filters,
+                 **{f"res_{k}": v for k, v in res.items()})))
+    want = dt.layout(kind, plan["cluster"], plan["rows"], L, M, D, S, res,
+                     n_filters=n_filters)["smem_bytes"]
+    if c_bytes != want or c_bytes != plan["smem_bytes"]:
+        fail(f"decoder_scan_train {kind}: the C layout has {c_bytes} bytes, "
+             f"the mirror {want}, the plan {plan['smem_bytes']}")
+
+
+def variant_score(t, dev, results):
+    """Phase 22c: decode_score.cu's mean prior against its plain version
+    at U=64, K=10, L=200 on the flagship's widths, from a later step with
+    spread weights (a padded utterance, a row of zero weights): costs,
+    weights, energies and weighted averages within 1e-4, a second call bit
+    for bit, the time."""
+    import torch
+    from attention_lvcsr_torch.ops import decode_score as ds
+    U, K, L, M, D, S, R, V, n = 64, 10, 200, 250, 500, 250, 250, 32, 100
+    rng = np.random.RandomState(22)
+    f = lambda *s, scale=1.0: t(rng.randn(*s) * scale)
+    w = t(np.abs(rng.randn(U * K, L)) ** 4)
+    w = w / w.sum(dim=1, keepdim=True)
+    w[1] = 0.0
+    frames = rng.randint(L // 2, L + 1, size=U)
+    frames[0], frames[-1] = L, 0
+    mask = t(np.arange(L)[None] < frames[:, None])
+    tables = {"state_trans": f(S, M, scale=0.1), "handler": f(M),
+              "v": f(M, scale=0.1), "merge_k": f(D, R, scale=0.05),
+              "merge_b": f(R), "post_k": f(R, V, scale=0.1), "post_b": f(V),
+              "conv_filters": f(1, 2 * n + 1, scale=0.3)}
+    args = (f(U, L, M, scale=0.5), f(U, L, D), mask, w,
+            torch.full((U * K,), 30, dtype=torch.int32, device=dev),
+            f(U * K, S))
+    kw = dict(beam=K, prior="window_around_mean", before=50.0, after=50.0)
+    ds.launches.reset()
+    got = ds.fused_decode_score(*args, tables, **kw)
+    again = ds.fused_decode_score(*args, tables, **kw)
+    if ds.launches.count != 2 or not all(
+            torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"fused_decode_score mean prior: {ds.launches.count} launches "
+             f"or a second call differs")
+    ref = ds.fused_decode_score_reference(*args, tables, **kw)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    if not err <= 1e-4:
+        fail(f"fused_decode_score's mean prior disagrees with its plain "
+             f"version: {err:.3e}")
+    ms = graph_ms(lambda: ds.fused_decode_score(*args, tables, **kw), 50)
+    plain_ms = cuda_ms(
+        lambda: ds.fused_decode_score_reference(*args, tables, **kw), 10)
+    row_ops = attention_step_ops(S, M, L, 2 * n + 1, D) \
+        + readout_ops(D, R, V)
+    results["fused_decode_score"]["mean"] = {
+        "U": U, "K": K, "L": L, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms,
+        **bound(nbytes(*args, tables, *got), U * K * row_ops),
+        "library_ms": None}
+    r = results["fused_decode_score"]["mean"]
+    log(f"phase 22c fused_decode_score mean prior U={U} K={K} L={L}: max "
+        f"abs err {err:.3e}, a second call bit for bit; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms")
+
+
+# the recipes' stages over their nets (batch 10, one epoch each, 2
+# batches an epoch), as Configuration.ordered_stages merges them; the
+# flagship's initialization and char_discount 3.0 (phase 19: the random
+# models' hypotheses are empty below it)
+VARIANT_MONITORING = {"validate_every_epochs": 1, "search_every_epochs": 1,
+                      "search": {"beam_size": 10, "char_discount": 3.0,
+                                 "stop_on": "optimistic_future_cost"}}
+
+
+def variant_recipes():
+    """{recipe: [(stage, config)]}: wsj_mean_maxout.yaml's ``pretraining``
+    (the expanding window) and ``main`` (from ``pretraining_best_ll.zip``,
+    the mean window), one stage each of wsj_bhd4.yaml and wsj_good.yaml."""
+    drop = ("input_dims", "input_num_chars", "eos_label", "num_phonemes")
+    net = lambda n: {k: v for k, v in n.items() if k not in drop}
+    base = lambda n, training, regularization: {
+        "net": net(n), "initialization": FLAGSHIP_INIT,
+        "data": {"batch_size": 10}, "training": dict(training,
+                                                     num_epochs=1),
+        "regularization": regularization,
+        "monitoring": copy.deepcopy(VARIANT_MONITORING)}
+    nets = variant_nets()
+    paper = dict(WSJ_PAPER["training"])
+    pretraining = base(dict(nets["mean_maxout"],
+                            prior=MEAN_MAXOUT_PRETRAINING),
+                       paper, {"max_norm": 1.0})
+    main = base(nets["mean_maxout"], dict(paper, restart_from="_best_ll"),
+                {"max_norm": 1.0})
+    return {
+        "wsj_mean_maxout": [("pretraining", pretraining), ("main", main)],
+        "wsj_bhd4": [("main", base(nets["bhd4"], MOMENTUM_ADADELTA,
+                                   {"max_norm": 1.0}))],
+        "wsj_good": [("main", base(nets["good"], MOMENTUM_ADADELTA, {}))]}
+
+
+def variant_recipes_check(t, dev, rates):
+    """Phase 22d: the recipes' stages through ``run_multistage`` on the
+    kernels and on the plain route, 2 batches of 10 utterances of 300-500
+    frames an epoch, validation and search (beam 10 at U=4) before each
+    stage and after its epoch: train_cost, total_gradient_norm and
+    validation costs within 1e-4 relative, the same hypotheses, more than
+    half of them non-empty; the route of every search (the loop kernel
+    for wsj_mean_maxout and wsj_bhd4, the module route for wsj_good, which
+    has no post-merge layer); utt/s.  Returns the kernel route's
+    launches, per recipe."""
+    from attention_lvcsr_torch.models import attention as attention_mod
+    from attention_lvcsr_torch.models import cells as cells_mod
+    from attention_lvcsr_torch.models import generator as generator_mod
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import attention_energy as ae
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.ops import gru_train as gt
+    from attention_lvcsr_torch.ops import outer_sum as osum
+    from attention_lvcsr_torch.search import beam as beam_mod
+    from attention_lvcsr_torch.train.checkpoint import save_checkpoint
+    counters = {"gru_scan": gs.launches, "beam_search_loop": bl.launches,
+                "beam_attention_energies": ae.launches,
+                "gru_scan_train_bidir": gt.launches_bidir,
+                "decoder_scan_train": dt.launches, "outer_sum": osum.launches}
+    plain = [(cells_mod, "gru_scan", gs.gru_scan_reference),
+             (beam_mod, "beam_search_loop", bl.beam_search_loop_reference),
+             (attention_mod, "beam_attention_energies",
+              ae.beam_attention_energies_reference),
+             (cells_mod, "gru_scan_train", gt.gru_scan_train_reference),
+             (generator_mod, "decoder_scan_train",
+              dt.decoder_scan_train_reference)]
+    data = SmokeData()
+    batches = {10: stage_batches(t, dev, 2, 10, seed=22)}
+    # validation on 4 of the training utterances: the steps lower their
+    # cost, so that pretraining writes the _best_ll main restarts from
+    valid = [{k: v[:4] for k, v in batches[10][0].items()}]
+    moved_all = {}
+    for recipe, stages in variant_recipes().items():
+        t0 = time.perf_counter()
+        tmp = tempfile.mkdtemp()
+        try:
+            start = os.path.join(tmp, "start.zip")
+            net = dict(stages[0][1]["net"], input_dims={"recordings": 123},
+                       eos_label=data.eos_label,
+                       num_phonemes=data.num_labels)
+            rec = SpeechRecognizer(net, init_config=FLAGSHIP_INIT,
+                                   seed=1234, device=dev)
+            readout = rec.net.generator.readout
+            last = (readout.post_merge_0.bias if readout.num_post_merge
+                    else readout.merge_bias)
+            last.data[data.eos_label] += 1.5
+            save_checkpoint(start, rec.param_path_dict())
+            del rec
+            routes = {}
+            for route in ("kernels", "plain"):
+                searches = []
+                for c in counters.values():
+                    c.reset()
+                with swapped(plain if route == "plain" else []):
+                    loops, marks = run_stages(dev, data, stages, batches,
+                                              valid,
+                                              os.path.join(tmp, route),
+                                              start, searches)
+                routes[route] = (loops, marks, searches, counts(counters))
+        finally:
+            shutil.rmtree(tmp)
+        (loops, marks, searches, moved), (ref_loops, _, ref_searches,
+                                          ref_moved) = (routes["kernels"],
+                                                        routes["plain"])
+        loop_route = recipe != "wsj_good"
+        used = {k for k, v in moved.items() if v}
+        want = {"gru_scan", "gru_scan_train_bidir", "decoder_scan_train",
+                "outer_sum",
+                "beam_search_loop" if loop_route
+                else "beam_attention_energies"}
+        if used != want or any(ref_moved.values()):
+            fail(f"phase 22d {recipe}: launches {moved} on the kernels, "
+                 f"{ref_moved} on the plain route (expected {sorted(want)})")
+        for (name, _), lp, lr in zip(stages, loops, ref_loops):
+            for key in ("train_cost", "total_gradient_norm",
+                        "valid_sequence_total_cost"):
+                (tg, g), (tr, r) = lp.log.channel(key), lr.log.channel(key)
+                rel = np.abs(np.subtract(g, r)) / np.abs(r)
+                if tg != tr or not tg or not (np.isfinite(g).all()
+                                              and rel.max() <= 1e-4):
+                    fail(f"phase 22d {recipe} {name}: {key} {g} vs plain "
+                         f"{r}")
+            if lp.log.channel("valid_per") != lr.log.channel("valid_per"):
+                fail(f"phase 22d {recipe} {name}: valid_per differs")
+        if len(searches) != len(ref_searches) or not searches:
+            fail(f"phase 22d {recipe}: {len(searches)} searches vs "
+                 f"{len(ref_searches)} on the plain route")
+        worst = 0.0
+        for i, (got, ref) in enumerate(zip(searches, ref_searches)):
+            for u, ((h, c), (rh, rc)) in enumerate(zip(got, ref)):
+                if h != rh or (c is None) != (rc is None):
+                    fail(f"phase 22d {recipe}: search {i} utterance {u}: "
+                         f"{h} ({c}) vs the plain route's {rh} ({rc})")
+                if c is not None:
+                    worst = max(worst, abs(c - rc) / max(abs(rc), 1e-6))
+        nonempty = sum(bool(h) for got in searches for h, _ in got)
+        searched = sum(len(g) for g in searches)
+        if worst > 1e-4 or nonempty <= searched // 2:
+            fail(f"phase 22d {recipe}: beam costs within {worst:.2e}, "
+                 f"{nonempty} of {searched} hypotheses non-empty")
+        for route, (lps, mks, _, _) in routes.items():
+            for (name, stage), lp, s0, s1 in zip(stages, lps, mks, mks[1:]):
+                steps = lp.log.status["iterations_done"]
+                B = stage["data"]["batch_size"]
+                step_s = float(np.median(
+                    lp.log.channel("time_train_this_batch")[1]))
+                rates[f"{recipe}_{route}_{name}_utt_per_s"] = \
+                    B * steps / (s1 - s0)
+                rates[f"{recipe}_{route}_{name}_step_utt_per_s"] = \
+                    B / step_s
+                log(f"phase 22d {recipe} {route} {name}: {s1 - s0:.2f} s "
+                    f"for {steps} steps of B={B}, "
+                    f"{B * steps / (s1 - s0):.2f} utt/s with validation "
+                    f"and search, {B / step_s:.2f} utt/s in the steps")
+        log(f"phase 22d {recipe}: {len(searches)} searches on the "
+            f"{'loop kernel' if loop_route else 'module route'} with the "
+            f"plain route's hypotheses ({nonempty} of {searched} "
+            f"non-empty), beam costs within {worst:.2e}; launches {moved}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        moved_all[recipe] = moved
+    return moved_all
+
+
+def wsj_variants_phase(t, dev, results, rates):
+    """Phase 22: the readout and attention variants of the WSJ recipes.
+    Returns 22d's kernel-route launches, per recipe."""
+    t0 = time.perf_counter()
+    variant_loops(t, dev, results)
+    variant_decoder(t, dev, results)
+    variant_score(t, dev, results)
+    log(f"phase 22a-c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moved = variant_recipes_check(t, dev, rates)
+    log(f"phase 22d: {time.perf_counter() - t0:.1f} s")
     return moved
 
 

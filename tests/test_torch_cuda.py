@@ -685,8 +685,9 @@ def test_decoder_scan_train_kernel_refuses_other_variants(device):
     with pytest.raises(NotImplementedError, match="relu"):
         dt.decoder_scan_train(*args, prior={"type": "expanding"},
                               normalizer="relu", n_filters=0)
-    with pytest.raises(NotImplementedError, match="window_around_mean"):
-        dt.decoder_scan_train(*args, prior={"type": "window_around_mean"})
+    with pytest.raises(NotImplementedError, match="17 conv filters"):
+        dt.decoder_scan_train(*args, prior={"type": "expanding"},
+                              n_filters=17)
 
 
 def _lstm_operands(rng, device, T, B, D, ndir, masked=True):

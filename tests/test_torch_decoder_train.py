@@ -152,16 +152,16 @@ def test_toeplitz_band_matches_jax_and_reaches_the_taps():
           prior_type="expanding"), None),
     (dict(normalizer="relu", n_filters=0, dec_stack=1,
           prior_type="expanding"), "the 'relu' normalizer"),
-    (dict(normalizer="softmax", n_filters=3, dec_stack=1,
-          prior_type="expanding"), "3 conv filters"),
+    (dict(normalizer="softmax", n_filters=17, dec_stack=1,
+          prior_type="expanding"), "17 conv filters"),
     (dict(normalizer="softmax", n_filters=1, dec_stack=2,
           prior_type="expanding"), "dec_stack=2"),
-    (dict(normalizer="softmax", n_filters=1, dec_stack=1,
-          prior_type="window_around_mean"), "'window_around_mean' prior"),
+    (dict(normalizer="logistic", n_filters=10, dec_stack=1,
+          prior_type="window_around_mean"), None),
 ])
 def test_kernel_variant_gate(kw, piece):
-    """The CUDA route covers the flagship variant (softmax, logistic or
-    relu) and content-only attention (no filter, softmax) and names any
-    other."""
+    """The CUDA route covers conv attention with 1-16 filters (softmax,
+    logistic or relu; any prior) and content-only attention (no filter,
+    softmax) and names any other."""
     got = unported_variant(**kw)
     assert got == piece or (piece is not None and piece in got)

@@ -192,15 +192,14 @@ def test_recognizer_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("override,piece", [
-    ({"conv_num_filters": 3}, "filters"),
+    ({"dims_top": [8]}, "dims_top"),
     ({"energy_normalizer": "softplus"}, "normalizer"),
     ({"dec_stack": 2}, "dec_stack"),
-    ({"post_merge_activation": "maxout:2"}, "post-merge"),
+    ({"embed_outputs": False}, "one-hot"),
     ({"criterion": {"name": "hinge"}}, "criterion"),
     ({"energy_normalizer": "softplus", "lm": {"path": "x.fst"}},
      "normalizer"),
-    ({"prior": {"type": "window_around_mean", "before": 1, "after": 1}},
-     "prior"),
+    ({"bottom": {"bottom_class": "lookup"}}, "lookup"),
     ({"dec_transition": "lstm"}, "GRU"),
     ({"enc_transition": "SimpleRecurrent"}, "SimpleRecurrent"),
 ])

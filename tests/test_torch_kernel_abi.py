@@ -165,3 +165,28 @@ def test_decoder_bias_and_scale_buffers_travel_in_the_struct():
     mirror = dict(cls._fields_)
     assert mirror["e_bias"] is ctypes.c_void_p
     assert mirror["gsc"] is ctypes.c_void_p
+
+
+@pytest.mark.parametrize("struct,fields", [
+    ("BeamLoopArgs", ("n_filters", "post_act", "maxout", "prior_mean")),
+    ("DecoderArgs", ("n_filters", "prior_mean")),
+    ("DecodeScoreArgs", ("prior_mean", "cluster"))])
+def test_filter_activation_and_mean_prior_fields_travel_in_the_structs(
+        struct, fields):
+    """The conv filters (``n_filters``, 0 read as one), the loop's
+    post-merge activation (``post_act``: 0 tanh, 1 relu, 2 sigmoid, 3
+    identity, 4 maxout of ``maxout`` pieces) and the mean prior
+    (``prior_mean``) are ``int`` fields at the end of the structs on both
+    sides (the score kernel's before its launch plan), zero by default: a
+    struct filled without them runs one filter, tanh and the prior
+    ``prior_median`` names, as before them."""
+    cls, source = MIRRORS[struct]
+    c_fields = _c_struct(source, struct)
+    names = [f[0] for f in c_fields]
+    assert tuple(names[-len(fields):]) == fields
+    assert tuple(n for n, _ in cls._fields_[-len(fields):]) == fields
+    by_name = {f[0]: f for f in c_fields}
+    for name in fields:
+        assert by_name[name][1:] == ("int", False, None)
+        assert dict(cls._fields_)[name] is ctypes.c_int
+        assert getattr(cls(), name) == 0

@@ -463,8 +463,10 @@ def test_loop_route_falls_back_from_what_the_kernel_cannot_hold():
                                    100)
     assert not beam_mod.loop_route(dict(cfg, lm={"path": "G.fst"}), 10,
                                    800, 100)
-    assert not beam_mod.loop_route(
-        dict(cfg, prior={"type": "window_around_mean"}), 10, 800, 100)
+    assert not beam_mod.loop_route(dict(cfg, conv_num_filters=17), 10, 800,
+                                   100)
+    assert not beam_mod.loop_route(dict(cfg, post_merge_dims=[]), 10, 800,
+                                   100)
     assert not beam_mod.loop_route(cfg, 513, 8, 4)
     assert beam_mod.loop_route(dict(cfg, energy_normalizer="relu"), 10,
                                800, 100)
@@ -522,8 +524,8 @@ def test_task_loss_configs_are_ported(path):
 
 
 @pytest.mark.parametrize("path,piece", [
-    ("exp/wsj/configs/wsj_jan_bhd01.yaml", "post-merge activation"),
-    ("exp/wsj/configs/wsj_mean_maxout.yaml", "filters"),
+    ("exp/wsj/configs/wsj_jan_debug.yaml", "dec_stack"),
+    ("exp/wsj/configs/wsj_jan_wsj13v2.yaml", "dec_stack"),
 ])
 def test_other_configs_still_refused(path, piece):
     assert any(piece in (unported_piece(s["net"]) or "")
