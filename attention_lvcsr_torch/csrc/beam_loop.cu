@@ -9,7 +9,9 @@
 // or window_around_mean prior, the softmax, logistic or relu normalizer
 // (the last two with the energy bias; under relu a row whose weights are
 // all zero over a live window gets zero weights and its candidates lose
-// the selection), one GRU decoder layer, one post-merge layer after the
+// the selection), one to four GRU decoder layers (dec_stack; :481-511:
+// layer l > 0 adds below @ inter_* of layer l-1's new state), one
+// post-merge layer after the
 // tanh, relu, sigmoid, identity or maxout activation (post_act, maxout;
 // :386-408), the log-likelihood criterion or the task loss's (mse_cost:
 // costs = -logits; one filter), optional states-for-readout, patience or
@@ -29,7 +31,12 @@
 // parameters: each combination a config uses is its own instance, so the
 // routes of earlier slices compile none of the variants' code.  Inside the
 // variant instance the prior and the activation, run once a step over
-// K x L and K x R values, switch at run time.
+// K x L and K x R values, switch at run time.  A stacked decoder takes its
+// own instance (kStack) of the variant's: the layers advance one after
+// another through the per-layer scratch, the states of all layers (K x N*S)
+// the only buffer that grows, and the fork products read the feedback
+// rows from global memory instead of staging them, which keeps two
+// 512-wide layers in a block's shared memory.
 //
 // What bounds it on the card: latency.  A step is a chain of about a
 // dozen dependent phases separated by block barriers, each a small
@@ -64,15 +71,17 @@ struct BeamLoopArgs {
   const float* attended;        // (U, L, D)
   const float* att_mask;        // (U, L)
   const float* conv_taps;       // (n_filters, n_taps) the filters, true conv
-  const float* state_trans;     // (S, M)
+  const float* state_trans;     // (N*S, M), row-stacked over the layers
   const float* handler;         // (n_filters, M)
   const float* v;               // (M,) energy vector
   const float* merge_k;         // (D, R)
   const float* merge_b;         // (R,)
-  const float* merge_states_k;  // (S, R) or null
+  const float* merge_states_k;  // (N*S, R) or null
   const float* post_k;          // (R, V); maxout (R / maxout, V)
   const float* post_b;          // (V,)
   const float* embed;           // (Vf, F)
+  // a stack's per-layer tables layer-major (N, rows, width), each layer's
+  // contiguous; its biases and initial states (N * width,)
   const float* fork_in_w;       // (F, S)
   const float* fork_in_b;       // (S,)
   const float* fork_gate_w;     // (F, 2S)
@@ -98,6 +107,9 @@ struct BeamLoopArgs {
                                 //   4 maxout
   int maxout;                   // maxout's pieces
   int prior_mean;               // 1: window_around_mean
+  const float* inter_in_w;      // (N-1, S, S) interlayer tables, or null
+  const float* inter_gate_w;    // (N-1, S, 2S)
+  int dec_stack;                // GRU decoder layers N (0 read as 1)
 };
 
 namespace {
@@ -120,24 +132,30 @@ struct Layout {
   int conv, sp;
   // readout temporaries
   int act, costs;
-  // gather / GRU temporaries
+  // gather / GRU temporaries (a stack's layers reuse hs, gi, it)
   int hs, was, aout2, dout2, fb, gi, it;
   int total;
 };
 
 __host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
 
-// Whether a launch takes the variant instance (kVariant): more than one
-// conv filter, the mean prior or an activation besides tanh.
+// Whether a launch takes a stacked decoder's instance (kStack, a variant).
+__host__ __device__ inline bool is_stack(const BeamLoopArgs& a) {
+  return a.dec_stack > 1;
+}
+
+// Whether a launch takes a variant instance (kVariant): more than one
+// conv filter, the mean prior, an activation besides tanh or a stack.
 __host__ __device__ inline bool is_variant(const BeamLoopArgs& a) {
-  return (!a.content && a.n_filters > 1) || a.post_act != 0 || a.prior_mean;
+  return (!a.content && a.n_filters > 1) || a.post_act != 0 || a.prior_mean
+         || is_stack(a);
 }
 
 // The layout of an instance; the variant's sizes the taps, handler rows and
 // convolutions by the filters and keeps a maxout readout's grouped units
 // after the merged ones, and equals the other instances' where it runs
-// what they run.
-template <bool kVariant>
+// what they run; a stack's keeps every layer's states and no feedback rows.
+template <bool kVariant, bool kStack = false>
 __host__ __device__ inline Layout make_layout(const BeamLoopArgs& a) {
   Layout o;
   const int K = a.K;
@@ -148,7 +166,7 @@ __host__ __device__ inline Layout make_layout(const BeamLoopArgs& a) {
     p = align4(p + n);
     return at;
   };
-  o.h = take(K * a.S);
+  o.h = take(K * a.S * (kStack ? a.dec_stack : 1));
   o.w = take(K * a.L);
   o.aout = take(K * a.Lout);
   o.dout = take(K * a.Lout);
@@ -190,7 +208,7 @@ __host__ __device__ inline Layout make_layout(const BeamLoopArgs& a) {
   o.was = take(K * a.D);
   o.aout2 = take(K * a.Lout);
   o.dout2 = take(K * a.Lout);
-  o.fb = take(K * a.F);
+  o.fb = take(kStack ? 0 : K * a.F);
   o.gi = take(2 * K * a.S);
   o.it = take(K * a.S);
   const int end_gru = p;
@@ -246,19 +264,83 @@ __device__ void drop_bad_rows(float* COSTS, int K, int V, const float* BAD) {
     if (BAD[idx / V] != 0.f) COSTS[idx] = kBig;
 }
 
+// The GRU advance of a stack of N layers, one after another (JAX
+// beam_loop.py:481-511): layer l gathers its states of the source rows,
+// adds to the fork products of the symbols' feedback rows (read from global
+// memory) and the distribute products the interlayer products of layer
+// l-1's new, unmasked state (H's lanes of layer l-1 after its advance),
+// and writes its new state to H's lanes of layer l.  Each sum is the one
+// of the single-layer advance, k-ordered per product, the products added in
+// the order fork, distribute, interlayer, state.  Out of line: its
+// registers stay out of the rest of the step's.
+__device__ __noinline__ void stack_advance(const BeamLoopArgs& a, float* H,
+                                           float* HS, const float* WAS,
+                                           const int* SYM, const int* SRC,
+                                           float* GI, float* IT, int N,
+                                           int K, int S, int D, int F) {
+  const int tid = threadIdx.x, NS = N * S;
+  for (int ly = 0; ly < N; ++ly) {
+    for (int idx = tid; idx < K * S; idx += blockDim.x)
+      HS[idx] = H[SRC[idx / S] * NS + ly * S + idx % S];
+    __syncthreads();
+    run_product_gathered({a.embed, F, a.fork_gate_w + (size_t)ly * F * 2 * S,
+                          F, 2 * S, a.fork_gate_b + ly * 2 * S, GI, 2 * S,
+                          false}, SYM, K);
+    run_product_gathered({a.embed, F, a.fork_in_w + (size_t)ly * F * S, F, S,
+                          a.fork_in_b + ly * S, IT, S, false}, SYM, K);
+    __syncthreads();
+    run_product({WAS, D, a.dist_gate_w + (size_t)ly * D * 2 * S, D, 2 * S,
+                 nullptr, GI, 2 * S, true}, K);
+    run_product({WAS, D, a.dist_in_w + (size_t)ly * D * S, D, S, nullptr,
+                 IT, S, true}, K);
+    if (ly > 0) {
+      __syncthreads();
+      const float* below = H + (ly - 1) * S;
+      run_product({below, NS, a.inter_gate_w + (size_t)(ly - 1) * S * 2 * S,
+                   S, 2 * S, nullptr, GI, 2 * S, true}, K);
+      run_product({below, NS, a.inter_in_w + (size_t)(ly - 1) * S * S, S, S,
+                   nullptr, IT, S, true}, K);
+    }
+    __syncthreads();
+    run_product({HS, S, a.wsg + (size_t)ly * S * 2 * S, S, 2 * S, nullptr, GI,
+                 2 * S, true}, K);
+    __syncthreads();
+    // gates = sigmoid(.): update in GI[:, :S], reset * h into GI[:, S:]
+    for (int idx = tid; idx < K * 2 * S; idx += blockDim.x) {
+      const int k = idx / (2 * S), c = idx % (2 * S);
+      const float g = 1.f / (1.f + expf(-GI[idx]));
+      GI[idx] = c < S ? g : HS[k * S + c - S] * g;
+    }
+    __syncthreads();
+    run_product({GI + S, 2 * S, a.wss + (size_t)ly * S * S, S, S, nullptr, IT,
+                 S, true}, K);
+    __syncthreads();
+    for (int idx = tid; idx < K * S; idx += blockDim.x) {
+      const int k = idx / S, c = idx % S;
+      const float up = GI[k * 2 * S + c];
+      const float cand = tanhf(IT[idx]);
+      H[k * NS + ly * S + c] = up * cand + (1.f - up) * HS[idx];
+    }
+    // the next layer reads this one's states and gathers its own
+    if (ly + 1 < N) __syncthreads();
+  }
+}
+
 // kNorm: 0 softmax, 1 logistic, 2 relu; kMse: the task loss's costs;
 // kVariant: the WSJ recipes' variants, 1-16 conv filters, the mean prior
 // and the post-merge activations besides tanh (instantiated for the
-// log-likelihood): the other instances compile none of it.
-template <int kNorm, bool kMse, bool kVariant>
+// log-likelihood): the other instances compile none of it; kStack (with
+// kVariant): 2-4 decoder layers (instantiated for softmax).
+template <int kNorm, bool kMse, bool kVariant, bool kStack = false>
 __global__ void __launch_bounds__(kThreads, 1)
 beam_loop_kernel(BeamLoopArgs a) {
   extern __shared__ float sm[];
-  const Layout o = make_layout<kVariant>(a);
+  const Layout o = make_layout<kVariant, kStack>(a);
   const int u = blockIdx.x;
   const int K = a.K, L = a.L, M = a.M, D = a.D, S = a.S, R = a.R, V = a.V,
             F = a.F, Lout = a.Lout, n_taps = a.n_taps;
   const int nf = kVariant ? max(a.n_filters, 1) : 1;
+  const int N = kStack ? a.dec_stack : 1, NS = N * S;   // the stack's lanes
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   float* H = sm + o.h;
@@ -315,7 +397,7 @@ beam_loop_kernel(BeamLoopArgs a) {
   }
   for (int m = M + tid; kVariant && m < nf * M; m += blockDim.x)
     HAND[m] = a.handler[m];
-  for (int i = tid; i < K * S; i += blockDim.x) H[i] = a.h0[i % S];
+  for (int i = tid; i < K * NS; i += blockDim.x) H[i] = a.h0[i % NS];
   for (int i = tid; i < K * L; i += blockDim.x) Wt[i] = (i % L) == 0 ? 1.f : 0.f;
   for (int i = tid; i < K * Lout; i += blockDim.x) {
     AOUT[i] = 0;
@@ -389,7 +471,7 @@ beam_loop_kernel(BeamLoopArgs a) {
     else if (!a.content)
       window_conv(Wt, TAPS, n_taps, K, L, lb, le, CONV);
     // ---- state projection ---------------------------------------------
-    run_product({H, S, a.state_trans, S, M, nullptr, SP, M, false}, K);
+    run_product({H, NS, a.state_trans, NS, M, nullptr, SP, M, false}, K);
     __syncthreads();
 
     // ---- energies inside the window (warp per frame) -------------------
@@ -418,7 +500,8 @@ beam_loop_kernel(BeamLoopArgs a) {
     run_product({WA, D, a.merge_k, D, R, a.merge_b, ACT, R, false}, K);
     if (a.merge_states_k != nullptr) {
       __syncthreads();
-      run_product({H, S, a.merge_states_k, S, R, nullptr, ACT, R, true}, K);
+      run_product({H, NS, a.merge_states_k, NS, R, nullptr, ACT, R, true},
+                  K);
     }
     __syncthreads();
     if (kVariant) {
@@ -458,7 +541,7 @@ beam_loop_kernel(BeamLoopArgs a) {
     }
 
     // ---- gather by source row, record the symbol ------------------------
-    for (int idx = tid; idx < K * S; idx += blockDim.x)
+    for (int idx = tid; !kStack && idx < K * S; idx += blockDim.x)
       HS[idx] = H[SRC[idx / S] * S + idx % S];
     for (int idx = tid; idx < K * L; idx += blockDim.x)
       Wt[idx] = WN[SRC[idx / L] * L + idx % L];
@@ -468,35 +551,39 @@ beam_loop_kernel(BeamLoopArgs a) {
       const int k = idx / Lout, j = idx % Lout;
       AOUT2[idx] = j == i ? SYM[k] : AOUT[SRC[k] * Lout + j];
     }
-    for (int idx = tid; idx < K * F; idx += blockDim.x)
+    for (int idx = tid; !kStack && idx < K * F; idx += blockDim.x)
       FB[idx] = a.embed[(size_t)SYM[idx / F] * F + idx % F];
     __syncthreads();
 
     // ---- GRU advance ------------------------------------------------------
-    run_product({FB, F, a.fork_gate_w, F, 2 * S, a.fork_gate_b, GI, 2 * S,
-                 false}, K);
-    run_product({FB, F, a.fork_in_w, F, S, a.fork_in_b, IT, S, false}, K);
-    __syncthreads();
-    run_product({WAS, D, a.dist_gate_w, D, 2 * S, nullptr, GI, 2 * S, true},
-                K);
-    run_product({WAS, D, a.dist_in_w, D, S, nullptr, IT, S, true}, K);
-    __syncthreads();
-    run_product({HS, S, a.wsg, S, 2 * S, nullptr, GI, 2 * S, true}, K);
-    __syncthreads();
-    // gates = sigmoid(.): update in GI[:, :S], reset * h into GI[:, S:]
-    for (int idx = tid; idx < K * 2 * S; idx += blockDim.x) {
-      const int k = idx / (2 * S), c = idx % (2 * S);
-      const float g = 1.f / (1.f + expf(-GI[idx]));
-      GI[idx] = c < S ? g : HS[k * S + c - S] * g;
-    }
-    __syncthreads();
-    run_product({GI + S, 2 * S, a.wss, S, S, nullptr, IT, S, true}, K);
-    __syncthreads();
-    for (int idx = tid; idx < K * S; idx += blockDim.x) {
-      const int k = idx / S, c = idx % S;
-      const float up = GI[k * 2 * S + c];
-      const float cand = tanhf(IT[idx]);
-      H[idx] = up * cand + (1.f - up) * HS[idx];
+    if (kStack) {
+      stack_advance(a, H, HS, WAS, SYM, SRC, GI, IT, N, K, S, D, F);
+    } else {
+      run_product({FB, F, a.fork_gate_w, F, 2 * S, a.fork_gate_b, GI, 2 * S,
+                   false}, K);
+      run_product({FB, F, a.fork_in_w, F, S, a.fork_in_b, IT, S, false}, K);
+      __syncthreads();
+      run_product({WAS, D, a.dist_gate_w, D, 2 * S, nullptr, GI, 2 * S, true},
+                  K);
+      run_product({WAS, D, a.dist_in_w, D, S, nullptr, IT, S, true}, K);
+      __syncthreads();
+      run_product({HS, S, a.wsg, S, 2 * S, nullptr, GI, 2 * S, true}, K);
+      __syncthreads();
+      // gates = sigmoid(.): update in GI[:, :S], reset * h into GI[:, S:]
+      for (int idx = tid; idx < K * 2 * S; idx += blockDim.x) {
+        const int k = idx / (2 * S), c = idx % (2 * S);
+        const float g = 1.f / (1.f + expf(-GI[idx]));
+        GI[idx] = c < S ? g : HS[k * S + c - S] * g;
+      }
+      __syncthreads();
+      run_product({GI + S, 2 * S, a.wss, S, S, nullptr, IT, S, true}, K);
+      __syncthreads();
+      for (int idx = tid; idx < K * S; idx += blockDim.x) {
+        const int k = idx / S, c = idx % S;
+        const float up = GI[k * 2 * S + c];
+        const float cand = tanhf(IT[idx]);
+        H[idx] = up * cand + (1.f - up) * HS[idx];
+      }
     }
 
     // ---- EOS retirement ---------------------------------------------------
@@ -578,27 +665,34 @@ beam_loop_kernel(BeamLoopArgs a) {
 
 extern "C" int beam_loop_smem_bytes(const BeamLoopArgs* args) {
   const BeamLoopArgs& a = *args;
-  return (is_variant(a) ? make_layout<true>(a) : make_layout<false>(a))
+  return (is_stack(a)     ? make_layout<true, true>(a)
+          : is_variant(a) ? make_layout<true>(a)
+                          : make_layout<false>(a))
              .total * (int)sizeof(float);
 }
 
 namespace {
 
-template <int kNorm, bool kMse, bool kVariant>
+template <int kNorm, bool kMse, bool kVariant, bool kStack = false>
 int launch_loop(const BeamLoopArgs* args, int smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      beam_loop_kernel<kNorm, kMse, kVariant>,
+      beam_loop_kernel<kNorm, kMse, kVariant, kStack>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  beam_loop_kernel<kNorm, kMse, kVariant>
+  beam_loop_kernel<kNorm, kMse, kVariant, kStack>
       <<<args->U, kThreads, smem, stream>>>(*args);
   return (int)cudaGetLastError();
 }
 
-// the instances configs use: the variants under the log-likelihood alone
+// the instances configs use: the variants under the log-likelihood alone,
+// a stack under the log-likelihood and softmax
 // (ops/beam_loop.py::unported_loop)
 template <int kNorm>
 int launch_cost(const BeamLoopArgs* args, int smem, cudaStream_t stream) {
+  if (is_stack(*args))
+    return kNorm != 0 || args->mse_cost || args->dec_stack > 4
+               ? (int)cudaErrorInvalidValue
+               : launch_loop<0, false, true, true>(args, smem, stream);
   if (is_variant(*args))
     return args->mse_cost ? (int)cudaErrorInvalidValue
                           : launch_loop<kNorm, false, true>(args, smem,

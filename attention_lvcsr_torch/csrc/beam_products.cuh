@@ -171,6 +171,78 @@ __device__ __noinline__ void product_rows(Product p, int nrows,
   }
 }
 
+// A product whose row r reads its input at p.in + rows[r] * p.ldi (the
+// feedback embedding's row of each hypothesis's symbol, read from global
+// memory): each element the same k-ordered fmaf sum as product_rows', the
+// inputs loaded as scalars, kBatch weight rows before their FMAs.
+template <int G>
+__device__ __noinline__ void product_rows_gathered(Product p, const int* rows,
+                                                   int nrows, ProductPlan pl) {
+  const int items = pl.units * pl.groups;
+  const int base = nrows / pl.groups, extra = nrows % pl.groups;
+  const bool wp = p.n % 2 == 0 &&
+                  (reinterpret_cast<uintptr_t>(p.w) & 7) == 0;
+  for (int pass = 0; pass < pl.passes; ++pass) {
+    const int item = pass * kProdThreads + (int)threadIdx.x;
+    if (item >= items) continue;
+    const int q = item % pl.groups, c = 2 * (item / pl.groups);
+    const int r0 = q * base + min(q, extra), nr = base + (q < extra ? 1 : 0);
+    const bool second = c + 1 < p.n;
+    const float* x[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+      x[j] = p.in + (size_t)rows[r0 + min(j, nr - 1)] * p.ldi;
+    float acc[G][2];
+#pragma unroll
+    for (int j = 0; j < G; ++j) acc[j][0] = acc[j][1] = 0.f;
+    constexpr int kBatch = 8;
+    int k = 0;
+    for (; k < p.kd; k += kBatch) {
+      const int nk = min(kBatch, p.kd - k);
+      float2 wv[kBatch];
+#pragma unroll
+      for (int s = 0; s < kBatch; ++s)
+        if (s < nk)
+          wv[s] = load_w2(p.w + (size_t)(k + s) * p.n + c, wp, second);
+#pragma unroll
+      for (int s = 0; s < kBatch; ++s)
+        if (s < nk)
+#pragma unroll
+          for (int j = 0; j < G; ++j)
+            if (j < nr) {
+              const float xs = __ldg(x[j] + k + s);
+              acc[j][0] = fmaf(xs, wv[s].x, acc[j][0]);
+              acc[j][1] = fmaf(xs, wv[s].y, acc[j][1]);
+            }
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+      if (j < nr)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc)
+          if (c + cc < p.n) {
+            float v = acc[j][cc];
+            if (p.bias != nullptr) v = v + p.bias[c + cc];
+            float* o = p.out + (r0 + j) * p.ldo + c + cc;
+            *o = p.accumulate ? *o + v : v;
+          }
+  }
+}
+
+__device__ void run_product_gathered(const Product& p, const int* rows,
+                                     int nrows) {
+  const ProductPlan pl = product_plan(nrows, p.n);
+  switch (pl.rows) {
+    case 1: product_rows_gathered<1>(p, rows, nrows, pl); break;
+    case 2: product_rows_gathered<2>(p, rows, nrows, pl); break;
+    case 3: product_rows_gathered<3>(p, rows, nrows, pl); break;
+    case 4: product_rows_gathered<4>(p, rows, nrows, pl); break;
+    case 5: product_rows_gathered<5>(p, rows, nrows, pl); break;
+    case 6: product_rows_gathered<6>(p, rows, nrows, pl); break;
+    default: product_rows_gathered<8>(p, rows, nrows, pl); break;
+  }
+}
+
 // Every thread of the block calls it; the caller separates products that
 // read what another wrote with __syncthreads().
 __device__ void run_product(const Product& p, int nrows) {

@@ -6,7 +6,9 @@
 // :339, custom VJP :601-836) for conv attention with 1-16 filters
 // (n_filters), the softmax, logistic or relu normalizer (normalizer 0, 1, 2;
 // the last two with the energy bias), the expanding, window_around_median or
-// window_around_mean prior, one GRU layer; and for content-only attention
+// window_around_mean prior, one GRU layer (with more than one filter and
+// softmax also two to four layers, dec_stack: :278-300 forward, :445-520
+// backward); and for content-only attention
 // (n_filters = 0 there, content = 1 here): no convolution and no conv[l] *
 // hand[m] term, so the weights do not feed the energies
 // (decoder_train.py:580-582) and the backward forms no band or handler
@@ -86,6 +88,19 @@
 // The forward records each step's [gb, ge) and the backward reads it, so
 // the backward needs no grid barrier and is the exact gradient of its
 // forward.
+//
+// A stack of N layers (kStack, an instance of its own) keeps every layer's
+// states in shared memory (forward hst, backward hp) and runs each step's
+// GRU layer by layer through the single layer's scratch: forward, layer
+// l > 0 reads [below | wan | h] in its gate product and [below | wan] in
+// its candidate's, below the new, unmasked state of layer l-1, exchanged
+// like h; backward, the layers in reverse, each with the single layer's
+// two exchanges, the gradient reaching layer l-1's new state (dbelow =
+// [dca | dgu | dgr] @ [inter_in^T; inter_gate^T]) carried on chip, and one
+// distribute product over every layer's gate gradients.  The interlayer
+// tables' weight gradients are outer_sum jobs over the layer below's new
+// state, which the wrapper recomputes from the residuals (u c + (1 - u)
+// h_prev), never stored.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -119,6 +134,14 @@ struct DecoderArgs {
   const float* p_stT;    // st^T by S slice               (C, M, Sc)
   const float* p_toepT;  // toep^T by frame tile, the F bands' rows
                          //   each padded to L4           (C, F * L4, Lq)
+  // a stack of N layers: fx, fg, h0, h_out, the residuals, dh, dfx, dfg
+  // and dh0 lane-stacked (N * S, N * 2S); p_st's rows each layer's S
+  // padded to Sp (C, N Sp, Mc); p_gate layer 0's (C, Dp + Sp, 2Sc) then
+  // each later layer's [inter_gate; dgm; wsg] (C, Sp + Dp + Sp, 2Sc);
+  // p_dx layer 0's (C, D, Sc) then [inter_in; dxm] (C, Sp + D, Sc); p_ss,
+  // p_ssT and p_sgT layer after layer; p_dxgT every layer's [dca | dgu |
+  // dgr] rows (C, N 3Sp, Dc); p_stT each layer's column slice side by side
+  // (C, M, N Sc)
   float* h_out;        // (T, B, S) mask-mixed states
   float* w_out;        // (T, B, L) mask-mixed weights
   float* wa_out;       // (T, B, D) mask-mixed weighted averages
@@ -159,6 +182,10 @@ struct DecoderArgs {
   float before, after, initial_begin, initial_end, min_speed, max_speed;
   int n_filters;       // conv filters (0 read as 1)
   int prior_mean;      // 1: window_around_mean
+  const float* p_ibT;  // [inter_in^T; inter_gate^T u; inter_gate^T r] of
+                       //   each layer l > 0, by layer l-1's S slice
+                       //   (N - 1, C, 3Sp, Sc)
+  int dec_stack;       // GRU layers N (0 read as 1)
 };
 
 namespace {
@@ -223,11 +250,15 @@ __host__ __device__ inline int part_floats(int K, int width, int R) {
 // conv filters, 0 without the conv term, whose buffers (wgv, conv;
 // backward also dcv, dcvw) then hold nothing and whose band products need
 // no room in `part`.  With nf > 1 the backward's dcvw holds one row's
-// partials and dhg a block's (rows summed).
+// partials and dhg a block's (rows summed).  N: the GRU layers; a stack's
+// rows hold every layer's states and gradients (hst, hp, g1, dh, dhp), a
+// forward gin row the layer below's new state first, and the backward the
+// gradient reaching the layer below (dbl).
 struct Layout {
   int gin, w, wgv, rh, sp, wanp, wa, ek, conv, e, un, comb, xin, gate;
+  int hst;            // a stack's states, every layer's (forward)
   int hp, g1, dwan, dspp, dsp, dcv, wn, dwn, dE, dh, dhp, dw, dwa, dcvw,
-      dspg, dvg, dhg;
+      dspg, dvg, dhg, dbl;
   int pout, rs, red, vh, part, pre, att, dpre, total;
 };
 
@@ -240,16 +271,17 @@ __host__ __device__ inline int take(int& at, int n) {
 __host__ __device__ inline Layout layout(int kind, const Dims& d, int L,
                                          int M, int D, int S, int res_pre,
                                          int res_att, int res_dpre,
-                                         int nf) {
+                                         int nf, int N = 1) {
   Layout o;
   const bool conv = nf > 0;
+  const int below = N > 1 ? d.Sp : 0;
   const int hands = nf > 1 ? nf : 1;
   int* all = &o.gin;
   for (int i = 0; i < (int)(sizeof(Layout) / sizeof(int)); ++i) all[i] = -1;
   const int R = d.R;
   int at = 0, pmax = 0, part = 0;
   if (kind == 0) {
-    o.gin = take(at, R * (d.Dp + d.Sp));   // [wan | h] a row
+    o.gin = take(at, R * (below + d.Dp + d.Sp));   // [below | wan | h]
     o.w = take(at, R * d.L4);
     o.wgv = take(at, conv ? R * d.L4 : 0);
     o.rh = take(at, R * d.Sp);
@@ -263,15 +295,17 @@ __host__ __device__ inline Layout layout(int kind, const Dims& d, int L,
     o.comb = take(at, R * d.Lq);
     o.xin = take(at, R * d.Sc);
     o.gate = take(at, R * 2 * d.Sc);
+    o.hst = take(at, N > 1 ? R * N * d.Sp : 0);
     pmax = max(max(d.Lq, d.Mc), 2 * d.Sc);
     part = max(max(conv ? part_floats(L, nf * d.Lq, R) : 0,
-                   part_floats(S, d.Mc, R)),
-               max(part_floats(d.Dp + d.Sp, 2 * d.Sc, R),
-                   max(part_floats(D, d.Sc, R), part_floats(S, d.Sc, R))));
+                   part_floats(N > 1 ? N * d.Sp : S, d.Mc, R)),
+               max(part_floats(below + d.Dp + d.Sp, 2 * d.Sc, R),
+                   max(part_floats(N > 1 ? d.Sp + D : D, d.Sc, R),
+                       part_floats(S, d.Sc, R))));
   } else {
-    o.hp = take(at, R * d.Sp);
+    o.hp = take(at, R * N * d.Sp);
     o.wgv = take(at, conv ? R * d.L4 : 0);
-    o.g1 = take(at, R * 3 * d.Sp);         // [dca | dga_u | dga_r] a row
+    o.g1 = take(at, R * N * 3 * d.Sp);     // [dca | dga_u | dga_r] a layer
     o.sp = take(at, R * d.Mp);
     o.dwan = take(at, R * d.Dp);
     o.dspp = take(at, R * d.Mp);
@@ -281,8 +315,8 @@ __host__ __device__ inline Layout layout(int kind, const Dims& d, int L,
     o.wn = take(at, R * d.Lq);
     o.dwn = take(at, R * d.Lq);
     o.dE = take(at, R * d.Lq);
-    o.dh = take(at, R * d.Sc);
-    o.dhp = take(at, R * d.Sc);
+    o.dh = take(at, R * N * d.Sc);
+    o.dhp = take(at, R * N * d.Sc);
     o.dw = take(at, R * d.Lq);
     o.dwa = take(at, R * d.Dc);
     // per M chunk: dcv (nf > 1: one row's, filter by filter)
@@ -291,16 +325,18 @@ __host__ __device__ inline Layout layout(int kind, const Dims& d, int L,
     o.dvg = take(at, d.groups * R * d.M4);   //   dv and dhand over the
     // steps (nf > 1: dhand a filter, over the rows too)
     o.dhg = take(at, nf > 1 ? nf * d.groups * d.M4 : d.groups * R * d.M4);
-    pmax = max(max(d.Lq, d.Mc), max(d.Sc, d.Dc));
-    part = max(max(max(part_floats(S, d.Mc, R),
+    o.dbl = take(at, below ? R * d.Sc : 0);
+    pmax = max(max(d.Lq, d.Mc), max(N * d.Sc, d.Dc));
+    part = max(max(max(part_floats(N > 1 ? N * d.Sp : S, d.Mc, R),
                        conv ? max(part_floats(L, nf * d.Lq, R),
                                   part_floats(nf > 1 ? nf * d.L4 : L, d.Lq,
                                               R))
                             : 0),
                    max(part_floats(S, d.Sc, R),
                        part_floats(2 * d.Sp, d.Sc, R))),
-               max(part_floats(3 * d.Sp, d.Dc, R),
-                   part_floats(M, d.Sc, R)));
+               max(part_floats(N * 3 * d.Sp, d.Dc, R),
+                   part_floats(M, N * d.Sc, R)));
+    if (N > 1) part = max(part, part_floats(3 * d.Sp, d.Sc, R));
   }
   o.pout = take(at, R * pmax);
   o.rs = take(at, 8 * R);
@@ -588,10 +624,96 @@ __device__ __noinline__ void mean_bounds(const DecoderArgs& a,
   }
 }
 
+// The forward's GRU over a stack of N layers, one step, after the
+// attention has left the new averages in gin's wan (JAX :278-300): layer l
+// copies its states into gin's h, forms its gates and candidate from [wan |
+// h] (l = 0) or [below | wan | h], where below is layer l-1's new, unmasked
+// state, and writes its masked new state to hst and, for the layer above,
+// its unmasked one to gin's below; each layer's own slices exchanged like
+// the single layer's h.  Every block of the cluster calls it.
+__device__ void stack_forward(const DecoderArgs& a,
+                              cooperative_groups::cluster_group& cluster,
+                              float* gin, float* hst, float* rh, float* xin,
+                              float* gate, float* pout, float* part,
+                              float* w, const float* rs, int t, int N, int S,
+                              int nr, int j, int C, const Dims& d,
+                              size_t row0, bool pull_w) {
+  const int tid = threadIdx.x;
+  const int Sc = d.Sc, Sp = d.Sp, Dp = d.Dp, D = a.D, NS = N * S;
+  const int gp = Sp + Dp + Sp, hsp = N * Sp;
+  const int s0 = j * Sc, ns = max(0, min(S - s0, Sc));
+  float *wan = gin + Sp, *h = wan + Dp;
+  for (int ly = 0; ly < N; ++ly) {
+    for (int i = tid; i < nr * Sp; i += kThreads)
+      h[(i / Sp) * gp + i % Sp] = hst[(i / Sp) * hsp + ly * Sp + i % Sp];
+    __syncthreads();
+    // ---- gates of own units; own slice of r * h
+    const float* xg = ly ? gin : wan;
+    const int kg = ly ? 2 * Sp + Dp : Dp + Sp;
+    const size_t goff =
+        ly ? (size_t)C * (Dp + Sp) * 2 * Sc
+                 + (size_t)(ly - 1) * C * (2 * Sp + Dp) * 2 * Sc
+           : 0;
+    product(xg, gp, nr, kg, a.p_gate + goff + (size_t)j * kg * 2 * Sc,
+            2 * Sc, part, gate, 2 * Sc);
+    for (int i = tid; i < nr * ns; i += kThreads) {
+      const int r = i / ns, c = i % ns;
+      const float* fg = a.fg + (row0 + r) * 2 * NS + ly * 2 * S;
+      const float u = sigmoidf(gate[r * 2 * Sc + c] + fg[s0 + c]);
+      const float rr = sigmoidf(gate[r * 2 * Sc + Sc + c] + fg[S + s0 + c]);
+      gate[r * 2 * Sc + c] = u;
+      gate[r * 2 * Sc + Sc + c] = rr;
+      rh[r * Sp + s0 + c] = rr * h[r * gp + s0 + c];
+    }
+    cluster_arrive();
+    // the averages' (and the layer below's) share of the candidates
+    const int kx = ly ? Sp + D : D;
+    const size_t xoff =
+        ly ? (size_t)C * D * Sc + (size_t)(ly - 1) * C * (Sp + D) * Sc : 0;
+    product(xg, gp, nr, kx, a.p_dx + xoff + (size_t)j * kx * Sc, Sc, part,
+            xin, Sc);
+    cluster_wait();
+    pull4(cluster, rh, Sp, nr, Sc, j, C);
+    // the whole rows of w feed the convolution and the median or mean
+    if (ly == 0 && pull_w) pull1(cluster, w, d.L4, nr, d.Lt, a.L, j, C);
+    __syncthreads();
+    // ---- candidates and the new state of own units
+    product(rh, Sp, nr, S, a.p_ss + (size_t)(ly * C + j) * S * Sc, Sc, part,
+            pout, Sc);
+    for (int i = tid; i < nr * ns; i += kThreads) {
+      const int r = i / ns, c = i % ns;
+      const size_t at = (row0 + r) * NS + ly * S + s0 + c;
+      const float cand = tanhf(pout[r * Sc + c] + (a.fx[at] + xin[r * Sc + c]));
+      const float u = gate[r * 2 * Sc + c];
+      const float hold = h[r * gp + s0 + c];
+      const float hn = u * cand + (1.f - u) * hold;
+      if (rs[r * 8 + 7] > 0.f) hst[r * hsp + ly * Sp + s0 + c] = hn;
+      if (ly + 1 < N) gin[r * gp + s0 + c] = hn;
+      pout[r * Sc + c] = cand;
+    }
+    cluster_arrive();
+    // this layer's stores, issued after the arrive
+    for (int i = tid; i < nr * ns; i += kThreads) {
+      const int r = i / ns, c = i % ns;
+      const size_t at = (row0 + r) * NS + ly * S + s0 + c;
+      a.h_out[at] = hst[r * hsp + ly * Sp + s0 + c];
+      a.u_out[at] = gate[r * 2 * Sc + c];
+      a.r_out[at] = gate[r * 2 * Sc + Sc + c];
+      a.c_out[at] = pout[r * Sc + c];
+    }
+    // ---- wait for the cluster's new states; pull the peers' slices
+    cluster_wait();
+    if (ly + 1 < N) pull4(cluster, gin, gp, nr, Sc, j, C);
+    if (t + 1 < a.T) pull4(cluster, hst + ly * Sp, hsp, nr, Sc, j, C);
+    __syncthreads();
+  }
+}
+
 // kConv: 0 the content branch, 1 one conv filter, 2 more filters; kNorm:
 // 0 softmax, 1 logistic, 2 relu; each compiled apart so that the
-// one-filter softmax route keeps no run-time test of them in its loops
-template <int kConv, int kNorm>
+// one-filter softmax route keeps no run-time test of them in its loops;
+// kStack: 2-4 GRU layers (instantiated with kConv 2 and softmax)
+template <int kConv, int kNorm, bool kStack = false>
 __global__ void __launch_bounds__(kThreads, 1)
     decoder_fwd_kernel(const __grid_constant__ DecoderArgs a) {
   namespace cg = cooperative_groups;
@@ -606,15 +728,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster_rows(B, a.clusters, blockIdx.x / C, b0, nr);
   const Dims d = dims(C, cdiv(B, a.clusters), L, M, D, S);
   const int rp = min(a.res_pre, d.R), ra = min(a.res_att, d.R);
-  const Layout o = layout(0, d, L, M, D, S, rp, ra, 0, nf);
+  const int N = kStack ? a.dec_stack : 1, NS = N * S;
+  const Layout o = layout(0, d, L, M, D, S, rp, ra, 0, nf, N);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int Lt = d.Lt, Lq = d.Lq, L4 = d.L4, Sc = d.Sc, Sp = d.Sp;
   const int Mc = d.Mc, Mp = d.Mp, Dc = d.Dc, Dp = d.Dp;
   const int l0 = j * Lt, nl = max(0, min(L - l0, Lt));
   const int s0 = j * Sc, ns = max(0, min(S - s0, Sc));
   const int e0 = j * Dc, nd = max(0, min(D - e0, Dc));
-  const int gp = Dp + Sp;                    // gin pitch: [wan | h]
-  float *gin = sm + o.gin, *h = gin + Dp, *w = sm + o.w, *wgv = sm + o.wgv;
+  // gin rows: [wan | h], a stack's [below | wan | h]
+  const int bw = kStack ? Sp : 0, gp = bw + Dp + Sp;
+  float *gin = sm + o.gin, *wan = gin + bw, *h = wan + Dp, *w = sm + o.w;
+  float* wgv = sm + o.wgv;
+  // a stack's states, every layer's (one layer: gin's h)
+  float* hst = kStack ? sm + o.hst : h;
+  const int hsp = kStack ? N * Sp : gp;
   float *rh = sm + o.rh, *sp = sm + o.sp, *wanp = sm + o.wanp;
   float *wa = sm + o.wa, *ek = sm + o.ek, *conv = sm + o.conv, *e = sm + o.e;
   float *un = sm + o.un, *comb = sm + o.comb, *xin = sm + o.xin;
@@ -636,8 +764,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   // zero everything (padding stays zero); state, weights, tiles
   for (int i = tid; i < o.total; i += kThreads) sm[i] = 0.f;
   __syncthreads();
-  for (int i = tid; i < nr * S; i += kThreads)
-    h[(i / S) * gp + i % S] = a.h0[(size_t)b0 * S + i];
+  if (kStack) {
+    for (int i = tid; i < nr * NS; i += kThreads)
+      hst[(i / NS) * hsp + (i % NS) / S * Sp + i % S] =
+          a.h0[(size_t)b0 * NS + i];
+  } else {
+    for (int i = tid; i < nr * S; i += kThreads)
+      h[(i / S) * gp + i % S] = a.h0[(size_t)b0 * S + i];
+  }
   for (int i = tid; i < nr * L; i += kThreads)
     w[(i / L) * L4 + i % L] = a.w0[(size_t)b0 * L + i];
   for (int i = tid; i < nr * nd; i += kThreads)
@@ -706,8 +840,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (tid == 0) gen = grid_arrive(a.barrier);
     }
     // ---- the state's keys, own M slice (needs no window)
-    product(h, gp, nr, S, a.p_st + (size_t)j * S * Mc, Mc, part, sp + j * Mc,
-            Mp);
+    if (kStack)
+      product(hst, hsp, nr, N * Sp, a.p_st + (size_t)j * N * Sp * Mc, Mc,
+              part, sp + j * Mc, Mp);
+    else
+      product(h, gp, nr, S, a.p_st + (size_t)j * S * Mc, Mc, part,
+              sp + j * Mc, Mp);
     cluster_arrive();
     float gb, ge;
     if (windowed) {
@@ -839,7 +977,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = tid; i < nr * Dp / 4; i += kThreads) {
       const int r = i / (Dp / 4), c = 4 * (i % (Dp / 4));
       const float4 s = sum_peers4(cluster, wanp + r * Dp + c, C);
-      float* dst = gin + r * gp + c;
+      float* dst = wan + r * gp + c;
       dst[0] = s.x;
       dst[1] = s.y;
       dst[2] = s.z;
@@ -848,7 +986,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     for (int i = tid; i < nr * Dp; i += kThreads) {
       const int r = i / Dp;
-      gin[r * gp + i % Dp] /= rs[r * 8 + 4];
+      wan[r * gp + i % Dp] /= rs[r * 8 + 4];
     }
     // the new weights of own frames, the averages of own columns
     for (int i = tid; i < nr * nl; i += kThreads) {
@@ -867,8 +1005,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     for (int i = tid; i < nr * nd; i += kThreads) {
       const int r = i / nd, c = i % nd;
-      if (rs[r * 8 + 7] > 0.f) wa[r * Dc + c] = gin[r * gp + e0 + c];
+      if (rs[r * 8 + 7] > 0.f) wa[r * Dc + c] = wan[r * gp + e0 + c];
       a.wa_out[(row0 + r) * D + e0 + c] = wa[r * Dc + c];
+    }
+    if (kStack) {
+      stack_forward(a, cluster, gin, hst, rh, xin, gate, pout, part, w, rs,
+                    t, N, S, nr, j, C, d, row0, !kContent || windowed);
+      continue;
     }
     // ---- GRU gates of own units; own slice of r * h
     product(gin, gp, nr, Dp + Sp, a.p_gate + (size_t)j * (Dp + Sp) * 2 * Sc,
@@ -921,7 +1064,97 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster.sync();
 }
 
-template <int kConv, int kNorm>
+// The backward's GRU over a stack of N layers, one step, the layers in
+// reverse (JAX :445-520): layer l's gate gradients from its carried dh (and,
+// below the top, the gradient dbl reaching its new state from layer l+1),
+// the reset and gate paths into its dhp, and for l > 0 the gradient
+// reaching layer l-1's new state, dbl = [dca | dgu | dgr] @ p_ibT.  The top
+// layer's pass also recomputes the state's keys and the convolutions, as
+// the single layer's GRU backward does.  Every block calls it.
+__device__ void stack_backward(const DecoderArgs& a,
+                               cooperative_groups::cluster_group& cluster,
+                               const float* hp, float* g1, float* dh,
+                               float* dhp, float* dbl, float* sp,
+                               float* pout, float* part, const float* wgv,
+                               float* conv, const float* rs, int N, int S,
+                               int nr, int j, int C, const Dims& d, int L,
+                               int cq, size_t row0, bool recompute_conv) {
+  const int tid = threadIdx.x;
+  const int Sc = d.Sc, Sp = d.Sp, Mc = d.Mc, Mp = d.Mp, NS = N * S;
+  const int gp = N * 3 * Sp, hsp = N * Sp, dsc = N * Sc;
+  const int s0 = j * Sc, ns = max(0, min(S - s0, Sc));
+  for (int ly = N - 1; ly >= 0; --ly) {
+    float* gl = g1 + ly * 3 * Sp;           // layer ly's [dca | dgu | dgr]
+    // ---- GRU backward of own units
+    for (int i = tid; i < nr * ns; i += kThreads) {
+      const int r = i / ns, c = i % ns;
+      const size_t at = (row0 + r) * NS + ly * S + s0 + c;
+      const float m = rs[r * 8 + 2];
+      float* dhl = dh + r * dsc + ly * Sc + c;
+      const float g = *dhl + a.dh[at];
+      float dhn = g * m;
+      if (ly + 1 < N) dhn = dhn + dbl[r * Sc + c];
+      *dhl = g * (1.f - m);
+      const float u = a.u_out[at], cc = a.c_out[at];
+      const float du = dhn * (cc - hp[r * hsp + ly * Sp + s0 + c]);
+      const float dcand = dhn * u;
+      dhp[r * dsc + ly * Sc + c] = dhn * (1.f - u);
+      const float dca = dcand * (1.f - cc * cc);
+      const float dgu = du * u * (1.f - u);
+      gl[r * gp + s0 + c] = dca;
+      gl[r * gp + Sp + s0 + c] = dgu;
+      a.dfx[at] = dca;
+      a.dfg[(row0 + r) * 2 * NS + ly * 2 * S + s0 + c] = dgu;
+    }
+    // the recomputed state's keys, own M slice
+    if (ly == N - 1)
+      product(hp, hsp, nr, N * Sp, a.p_st + (size_t)j * N * Sp * Mc, Mc,
+              part, sp + j * Mc, Mp);
+    cluster_arrive();
+    cluster_wait();
+    pull4(cluster, gl, gp, nr, Sc, j, C);
+    pull4(cluster, gl + Sp, gp, nr, Sc, j, C);
+    if (ly == N - 1) pull4(cluster, sp, Mp, nr, Mc, j, C);
+    __syncthreads();
+    // ---- reset path: dca @ wss^T; own slice of the reset gradients
+    product(gl, gp, nr, S, a.p_ssT + (size_t)(ly * C + j) * S * Sc, Sc, part,
+            pout, Sc);
+    for (int i = tid; i < nr * ns; i += kThreads) {
+      const int r = i / ns, c = i % ns;
+      const size_t at = (row0 + r) * NS + ly * S + s0 + c;
+      const float tmp = pout[r * Sc + c];
+      const float rr = a.r_out[at];
+      float* dhpl = dhp + r * dsc + ly * Sc + c;
+      *dhpl = *dhpl + tmp * rr;
+      const float dgr = tmp * hp[r * hsp + ly * Sp + s0 + c] * rr * (1.f - rr);
+      gl[r * gp + 2 * Sp + s0 + c] = dgr;
+      a.dfg[(row0 + r) * 2 * NS + ly * 2 * S + S + s0 + c] = dgr;
+    }
+    cluster_arrive();
+    // the recomputed convolutions of own frames (need no gradient)
+    if (ly == N - 1 && recompute_conv)
+      product(wgv, d.L4, nr, L, a.p_toep + (size_t)j * L * cq, cq, part,
+              conv, cq);
+    cluster_wait();
+    pull4(cluster, gl + 2 * Sp, gp, nr, Sc, j, C);
+    __syncthreads();
+    // ---- gate path
+    product(gl + Sp, gp, nr, 2 * Sp,
+            a.p_sgT + (size_t)(ly * C + j) * 2 * Sp * Sc, Sc, part, pout, Sc);
+    for (int i = tid; i < nr * ns; i += kThreads) {
+      const int r = i / ns, c = i % ns;
+      float* dhpl = dhp + r * dsc + ly * Sc + c;
+      *dhpl = *dhpl + pout[r * Sc + c];
+    }
+    // ---- the gradient reaching the layer below's new state, own slice
+    if (ly > 0)
+      product(gl, gp, nr, 3 * Sp,
+              a.p_ibT + (size_t)((ly - 1) * C + j) * 3 * Sp * Sc, Sc, part,
+              dbl, Sc);
+  }
+}
+
+template <int kConv, int kNorm, bool kStack = false>
 __global__ void __launch_bounds__(kThreads, 1)
     decoder_bwd_kernel(const __grid_constant__ DecoderArgs a) {
   namespace cg = cooperative_groups;
@@ -936,7 +1169,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Dims d = dims(C, cdiv(B, a.clusters), L, M, D, S);
   const int R = d.R, rp = min(a.res_pre, R), ra = min(a.res_att, R);
   const int rd = min(a.res_dpre, R);
-  const Layout o = layout(1, d, L, M, D, S, rp, ra, rd, nf);
+  const int N = kStack ? a.dec_stack : 1, NS = N * S;
+  const Layout o = layout(1, d, L, M, D, S, rp, ra, rd, nf, N);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int Lt = d.Lt, Lq = d.Lq, L4 = d.L4, Sc = d.Sc, Sp = d.Sp;
   const int Mc = d.Mc, Mp = d.Mp, Dc = d.Dc, Dp = d.Dp, M4 = d.M4;
@@ -944,7 +1178,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int s0 = j * Sc, ns = max(0, min(S - s0, Sc));
   const int m0 = j * Mc, nm = max(0, min(M - m0, Mc));
   const int e0 = j * Dc, nd = max(0, min(D - e0, Dc));
-  const int gp = 3 * Sp;                     // g1 pitch: [dca | dga_u | dga_r]
+  // g1 pitch: [dca | dga_u | dga_r] of every layer; hp, dh and dhp
+  // pitches: every layer's
+  const int gp = N * 3 * Sp, hsp = N * Sp, dsc = N * Sc;
   float *hp = sm + o.hp, *wgv = sm + o.wgv, *g1 = sm + o.g1, *sp = sm + o.sp;
   float *dwan = sm + o.dwan, *dspp = sm + o.dspp, *dsp = sm + o.dsp;
   float *dcv = sm + o.dcv, *conv = sm + o.conv, *wn = sm + o.wn;
@@ -953,6 +1189,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float *dspg = sm + o.dspg, *dvg = sm + o.dvg, *dhg = sm + o.dhg;
   float *pout = sm + o.pout, *rs = sm + o.rs;
   float *v = sm + o.vh, *hand = v + M4, *part = sm + o.part;
+  float* dbl = sm + o.dbl;
   const int cq = nf * Lq, cl4 = nf * L4;     // conv, dcv pitches
   auto pre_row = [&](int r) -> const float* {
     return r < rp ? sm + o.pre + r * Lt * d.Mt
@@ -996,10 +1233,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float gb = a.bounds[2 * t], ge = a.bounds[2 * t + 1];
     auto inside = [&](int l) { return (float)l >= gb && (float)l < ge; };
     // ---- step inputs: previous state and weights, this step's weights
-    for (int i = tid; i < nr * S; i += kThreads) {
-      const int r = i / S, k = i % S;
-      hp[r * Sp + k] = t > 0 ? a.h_out[(prev + r) * S + k]
-                             : a.h0[(size_t)(b0 + r) * S + k];
+    if (kStack) {
+      for (int i = tid; i < nr * NS; i += kThreads) {
+        const int r = i / NS, k = i % NS;
+        hp[r * hsp + k / S * Sp + k % S] = t > 0
+            ? a.h_out[(prev + r) * NS + k] : a.h0[(size_t)(b0 + r) * NS + k];
+      }
+    } else {
+      for (int i = tid; i < nr * S; i += kThreads) {
+        const int r = i / S, k = i % S;
+        hp[r * Sp + k] = t > 0 ? a.h_out[(prev + r) * S + k]
+                               : a.h0[(size_t)(b0 + r) * S + k];
+      }
     }
     for (int i = tid; !kContent && i < nr * L; i += kThreads) {
       const int r = i / L, l = i % L;
@@ -1013,6 +1258,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     for (int r = tid; r < nr; r += kThreads) rs[r * 8 + 2] = a.mask[row0 + r];
     __syncthreads();
+    if (kStack) {
+      stack_backward(a, cluster, hp, g1, dh, dhp, dbl, sp, pout, part, wgv,
+                     conv, rs, N, S, nr, j, C, d, L, cq, row0, !kContent);
+    } else {
     // ---- GRU backward of own units
     for (int i = tid; i < nr * ns; i += kThreads) {
       const int r = i / ns, c = i % ns;
@@ -1067,8 +1316,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int r = i / ns, c = i % ns;
       dhp[r * Sc + c] = dhp[r * Sc + c] + pout[r * Sc + c];
     }
-    product(g1, gp, nr, 3 * Sp, a.p_dxgT + (size_t)j * 3 * Sp * Dc, Dc, part,
-            pout, Dc);
+    }
+    // ---- the distribute products' backward, every layer's
+    product(g1, gp, nr, N * 3 * Sp, a.p_dxgT + (size_t)j * N * 3 * Sp * Dc,
+            Dc, part, pout, Dc);
     for (int i = tid; i < nr * nd; i += kThreads) {
       const int r = i / nd, c = i % nd;
       const size_t at = (row0 + r) * D + e0 + c;
@@ -1274,10 +1525,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       a.dsp[(row0 + r) * M + m0 + c] = dsp[r * Mp + m0 + c];
     }
     // ---- state and convolution backward; carry to the step before
-    product(dsp, Mp, nr, M, a.p_stT + (size_t)j * M * Sc, Sc, part, pout, Sc);
-    for (int i = tid; i < nr * ns; i += kThreads) {
-      const int r = i / ns, c = i % ns;
-      dh[r * Sc + c] = (dhp[r * Sc + c] + pout[r * Sc + c]) + dh[r * Sc + c];
+    product(dsp, Mp, nr, M, a.p_stT + (size_t)j * M * dsc, dsc, part, pout,
+            dsc);
+    if (kStack) {
+      for (int i = tid; i < N * nr * ns; i += kThreads) {
+        const int r = i / (N * ns), k = i % (N * ns);
+        const int q = r * dsc + k / ns * Sc + k % ns;
+        dh[q] = (dhp[q] + pout[q]) + dh[q];
+      }
+    } else {
+      for (int i = tid; i < nr * ns; i += kThreads) {
+        const int r = i / ns, c = i % ns;
+        dh[r * Sc + c] = (dhp[r * Sc + c] + pout[r * Sc + c]) + dh[r * Sc + c];
+      }
     }
     if (!kContent) {
       // the F bands' rows each padded to L4 (one band: L rows)
@@ -1294,9 +1554,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   // no block leaves while a peer may still read its shared memory
   cluster.sync();
-  for (int i = tid; i < nr * ns; i += kThreads) {
-    const int r = i / ns, c = i % ns;
-    a.dh0[(size_t)(b0 + r) * S + s0 + c] = dh[r * Sc + c];
+  if (kStack) {
+    for (int i = tid; i < N * nr * ns; i += kThreads) {
+      const int r = i / (N * ns), ly = i % (N * ns) / ns, c = i % ns;
+      a.dh0[(size_t)(b0 + r) * NS + ly * S + s0 + c] =
+          dh[r * dsc + ly * Sc + c];
+    }
+  } else {
+    for (int i = tid; i < nr * ns; i += kThreads) {
+      const int r = i / ns, c = i % ns;
+      a.dh0[(size_t)(b0 + r) * S + s0 + c] = dh[r * Sc + c];
+    }
   }
   for (int i = tid; i < nr * nd; i += kThreads) {
     const int r = i / nd, c = i % nd;
@@ -1356,8 +1624,14 @@ int filters(const DecoderArgs& a) {
 
 // The kernel of a kind (0 forward, 1 backward) and a variant: the content
 // branch (softmax), or the conv branch with one filter or more and
-// normalizer 0, 1 or 2; nullptr for a normalizer out of range.
-const void* kernel_of(int kind, int nf, int normalizer) {
+// normalizer 0, 1 or 2, or a stack of 2-4 layers with more filters and
+// softmax; nullptr for a variant out of range.
+const void* kernel_of(int kind, int nf, int normalizer, int N = 1) {
+  if (N > 1)
+    return N > 4 || nf < 2 || normalizer != 0
+               ? nullptr
+               : kind == 0 ? (const void*)decoder_fwd_kernel<2, 0, true>
+                           : (const void*)decoder_bwd_kernel<2, 0, true>;
   if (nf == 0)
     return kind == 0 ? (const void*)decoder_fwd_kernel<0, 0>
                      : (const void*)decoder_bwd_kernel<0, 0>;
@@ -1369,7 +1643,7 @@ int smem_bytes(int kind, const DecoderArgs& a) {
   const Dims d = dims(a.cluster, cdiv(a.B, a.clusters), a.L, a.M, a.D, a.S);
   return layout(kind, d, a.L, a.M, a.D, a.S, min(a.res_pre, d.R),
                 min(a.res_att, d.R), kind == 1 ? min(a.res_dpre, d.R) : 0,
-                filters(a))
+                filters(a), max(a.dec_stack, 1))
              .total
          * (int)sizeof(float);
 }
@@ -1409,7 +1683,8 @@ int launch(int kind, const DecoderArgs* args, cudaStream_t stream) {
   int err = max_smem_optin(&max_smem);
   if (err != 0) return err;
   if (smem > max_smem) return -1;
-  const void* kernel = kernel_of(kind, filters(*args), args->normalizer);
+  const void* kernel = kernel_of(kind, filters(*args), args->normalizer,
+                                 max(args->dec_stack, 1));
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t e = set_attributes(kernel, args->cluster, smem);
   if (e != cudaSuccess) return (int)e;
@@ -1449,17 +1724,19 @@ extern "C" int decoder_train_smem_bytes(int kind, const DecoderArgs* args) {
 
 // How many `cluster`-block clusters of the kernel (kind 0 forward, 1
 // backward; n_filters 0 the content branch, 1 the conv branch with one
-// filter, more the conv branch with more filters) the current device holds
-// at once at the most shared memory a block may take, into *count; a CUDA
-// error code.
+// filter, more the conv branch with more filters; dec_stack above 1 a
+// stack's instance) the current device holds at once at the most shared
+// memory a block may take, into *count; a CUDA error code.
 extern "C" int decoder_train_max_clusters(int kind, int n_filters,
-                                          int cluster, int* count) {
+                                          int dec_stack, int cluster,
+                                          int* count) {
   int smem = 0;
   int err = max_smem_optin(&smem);
   if (err != 0) return err;
   // every variant of a kind takes the same shared memory and block, so
   // the softmax instance of a branch stands for its three normalizers
-  const void* kernel = kernel_of(kind, n_filters, 0);
+  const void* kernel = kernel_of(kind, n_filters, 0, dec_stack);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t e = set_attributes(kernel, cluster, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};

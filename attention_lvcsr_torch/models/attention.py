@@ -71,21 +71,25 @@ class SequenceContentAttention(nn.Module):
     def preprocess(self, attended):
         return self.preprocessor(attended)
 
+    def state_trans(self):
+        """The state transforms of every state name, row-stacked (N*S,
+        M) in the names' order (JAX ``generator.py:762-767``): the state
+        sum of a stacked decoder is one product over its layers."""
+        return _row_stack(self)
+
     def train_tables(self, length):
         """The tables of ``decoder_scan_train`` with ``n_filters=0``, as the
         JAX package passes them: zero Toeplitz band and handler."""
-        (name,) = self.state_names
         M = self.match_dim
         v = self.energy_comp.kernel
         return {"toep": v.new_zeros(length, length),
-                "st": getattr(self, f"state_trans_{name}").kernel,
+                "st": self.state_trans(),
                 "hand": v.new_zeros(1, M), "v": v[:, 0].contiguous()}
 
     def loop_tables(self):
         """Dense tables of the decode kernel's attention step (no handler,
         no taps)."""
-        (name,) = self.state_names
-        return {"state_trans": getattr(self, f"state_trans_{name}").kernel,
+        return {"state_trans": self.state_trans(),
                 "v": self.energy_comp.kernel[:, 0]}
 
     def initial_glimpses(self, batch_size, attended):
@@ -177,6 +181,10 @@ class SequenceContentAndConvAttention(nn.Module):
     def preprocess(self, attended):
         return self.preprocessor(attended)
 
+    def state_trans(self):
+        """The row-stacked state transforms, as the content attention's."""
+        return _row_stack(self)
+
     def energy_vector(self):
         """(v (M,), bias (1,) or None): the energy projection as the JAX
         tables extract it through identity inputs, ``energy(I) -
@@ -194,7 +202,6 @@ class SequenceContentAndConvAttention(nn.Module):
         ``generator.py:516-523`` stacks them, the state transform, the
         handler rows (F, M), the energy vector and (logistic, relu) the
         energy bias."""
-        (name,) = self.state_names
         v, bias = self.energy_vector()
         filters = self.conv_filters
         toep = (toeplitz_band(filters, length) if len(filters) == 1
@@ -202,7 +209,7 @@ class SequenceContentAndConvAttention(nn.Module):
                                dim=1))
         return {
             "toep": toep,
-            "st": getattr(self, f"state_trans_{name}").kernel,
+            "st": self.state_trans(),
             "hand": self.handler.kernel,
             "v": v.contiguous(), "e_b": bias,
         }
@@ -211,11 +218,10 @@ class SequenceContentAndConvAttention(nn.Module):
         """Dense tables of the decode kernel's attention step: the handler
         row (M,) of one filter or the rows (F, M) of more, the taps (F,
         2n+1); with a biased energy its bias as ``energy_b``."""
-        (name,) = self.state_names
         v, bias = self.energy_vector()
         hand = self.handler.kernel
         t = {
-            "state_trans": getattr(self, f"state_trans_{name}").kernel,
+            "state_trans": self.state_trans(),
             "handler": hand[0] if len(hand) == 1 else hand,
             "v": v,
             "conv_filters": self.conv_filters,
@@ -284,8 +290,10 @@ class SequenceContentAndConvAttention(nn.Module):
         (``attention.py:269-275``).  ``train`` (the teacher-forced module
         scan) computes them in plain differentiable PyTorch, as the JAX
         module does."""
-        (name,) = self.state_names
-        state_sum = getattr(self, f"state_trans_{name}")(states[name])
+        state_sum = 0.0
+        for name in self.state_names:
+            state_sum = state_sum + getattr(self, f"state_trans_{name}")(
+                states[name])
         n, L = self.conv_n, windowed_weights.shape[1]
         conv = conv1d_full(windowed_weights,
                            self.conv_filters)[:, :, n:n + L]     # (B, F, L)
@@ -342,6 +350,12 @@ class SequenceContentAndConvAttention(nn.Module):
             "energies": energies * global_mask,
             "step": step + 1,
         }
+
+
+def _row_stack(attention):
+    kernels = [getattr(attention, f"state_trans_{name}").kernel
+               for name in attention.state_names]
+    return kernels[0] if len(kernels) == 1 else torch.cat(kernels)
 
 
 def make_attention(attention_type, state_names, state_dim, attended_dim,

@@ -1,7 +1,9 @@
 """The attention decoder: parameters, decode tables and the decode step.
 
-Counterpart of ``attention_lvcsr_tpu/models/generator.py`` for one GRU
-decoder layer: the feedback embedding, the readout (merge of the weighted
+Counterpart of ``attention_lvcsr_tpu/models/generator.py`` for a stack
+of ``dec_stack`` GRU decoder layers (``_compute_states`` :350-365: layer
+l > 0 adds the interlayer projections of layer l-1's new state): the
+feedback embedding, the readout (merge of the weighted
 averages and optionally the states, then no post-merge layer or one or
 more with the tanh, rectifier, sigmoid, identity or maxout activation),
 its shallow-fusion
@@ -36,8 +38,9 @@ through a ``feedback`` source; the port's readouts read the weighted
 averages and optionally the states, so no route here reads it.
 
 Parameter names are the flax ones (``feedback/lookup/embedding``,
-``transition_0``, ``fork_0_inputs``, ...); the language model holds only
-buffers, so it adds no parameter.
+``transition_0``, ``fork_0_inputs``, ``interlayer_1_gate_inputs``, ...);
+the language model holds only buffers, so it adds no parameter.  The
+carry's ``states`` are the layers' states lane-stacked, (B, N*S).
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ from torch import nn
 from attention_lvcsr_torch.models.cells import GatedRecurrent
 from attention_lvcsr_torch.models.layers import Dense, Embed
 from attention_lvcsr_torch.ops.decode_score import fused_decode_score
-from attention_lvcsr_torch.ops.decoder_train import (MAX_FILTERS,
+from attention_lvcsr_torch.ops.decoder_train import (MAX_FILTERS, MAX_STACK,
                                                       decoder_scan_train)
 from attention_lvcsr_torch.ops.expressions import (ACTIVATIONS,
                                                    maxout_pieces,
@@ -216,8 +219,15 @@ def _unbiased(dense):
     return (dense.kernel + dense.bias) - dense.bias, dense.bias
 
 
+def state_names(dec_stack):
+    """The decoder's state names (JAX ``generator.py:308-311``)."""
+    if dec_stack == 1:
+        return ("states",)
+    return tuple(f"states_{i}" for i in range(dec_stack))
+
+
 class SequenceGenerator(nn.Module):
-    """One GRU decoder layer + attention + readout (``dec_stack`` 1)."""
+    """``dec_stack`` GRU decoder layers + attention + readout."""
 
     def __init__(self, attention, num_outputs: int, dim_dec: int,
                  feedback_dim: int, post_merge_dims: Optional[Sequence[int]],
@@ -225,7 +235,8 @@ class SequenceGenerator(nn.Module):
                  use_states_for_readout: bool = False,
                  language_model: Optional[nn.Module] = None,
                  fusion: Optional[Mapping] = None,
-                 criterion: str = "log_likelihood", min_reward: float = -1.0):
+                 criterion: str = "log_likelihood", min_reward: float = -1.0,
+                 dec_stack: int = 1):
         """``language_model`` (``models/lm.py``) with ``fusion``, the
         keyword arguments of :class:`ShallowFusionReadout`, selects the
         shallow-fusion readout.  ``criterion``: ``log_likelihood``,
@@ -236,16 +247,24 @@ class SequenceGenerator(nn.Module):
         self.min_reward = float(min_reward)
         self.num_outputs = num_outputs
         self.dim_dec = dim_dec
+        self.dec_stack = int(dec_stack)
+        self.state_names = state_names(self.dec_stack)
         self.use_states_for_readout = use_states_for_readout
         self.attention = attention
         D = attention.attended_dim
         self.feedback = LookupFeedback(num_outputs + 1, feedback_dim)
-        self.transition_0 = GatedRecurrent(dim_dec)
-        for seq, d in self.transition_0.sequence_dims().items():
-            self.add_module(f"fork_0_{seq}", Dense(feedback_dim, d))
-            self.add_module(f"distribute_0_{seq}",
-                            Dense(D, d, use_bias=False))
-        sources = {"states": dim_dec} if use_states_for_readout else {}
+        for layer in range(self.dec_stack):
+            cell = GatedRecurrent(dim_dec)
+            self.add_module(f"transition_{layer}", cell)
+            for seq, d in cell.sequence_dims().items():
+                self.add_module(f"fork_{layer}_{seq}", Dense(feedback_dim, d))
+                self.add_module(f"distribute_{layer}_{seq}",
+                                Dense(D, d, use_bias=False))
+                if layer > 0:
+                    self.add_module(f"interlayer_{layer}_{seq}",
+                                    Dense(dim_dec, d, use_bias=False))
+        sources = ({name: dim_dec for name in self.state_names}
+                   if use_states_for_readout else {})
         sources["weighted_averages"] = D
         self.language_model = language_model
         if language_model is None:
@@ -268,12 +287,40 @@ class SequenceGenerator(nn.Module):
         """Whether the criterion is one of the task loss's."""
         return self.criterion.startswith("mse")
 
+    def _cell(self, layer):
+        return getattr(self, f"transition_{layer}")
+
+    def _lane_stack(self, name, part=None):
+        """A per-layer table ``name.format(layer)`` of every layer,
+        lane-stacked layer-major (one layer: the table itself)."""
+        parts = [self.get_submodule(name.format(layer)) if part
+                 else self.get_parameter(name.format(layer))
+                 for layer in range(self.dec_stack)]
+        if part is not None:
+            parts = [part(x) for x in parts]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+    def _interlayer(self, seq):
+        """(S, (N-1) * width) interlayer kernels of ``seq``, lane-stacked."""
+        return torch.cat([getattr(self, f"interlayer_{layer}_{seq}").kernel
+                          for layer in range(1, self.dec_stack)], dim=1)
+
+    def _att_states(self, states):
+        """The lane-stacked (B, N*S) states keyed by the state names."""
+        S = self.dim_dec
+        return {name: states[..., i * S:(i + 1) * S]
+                for i, name in enumerate(self.state_names)}
+
     def loop_decode_tables(self):
         """Dense weight tables of the whole-loop decode kernel; the same
-        values as the JAX ``loop_decode_tables`` for one decoder layer
-        and one post-merge layer (the Toeplitz band of the TPU kernel is
-        replaced by the filter taps themselves; a maxout readout's
-        ``post_k`` has ``merged_dim / k`` rows)."""
+        values as the JAX ``loop_decode_tables`` (:779-847) for one
+        post-merge layer: the per-layer fork, distribute and GRU tables
+        and ``h0`` lane-stacked layer-major, the interlayer kernels
+        ``inter_in_w`` (S, (N-1)*S) and ``inter_gate_w`` (S, (N-1)*2S) of
+        a stack, ``state_trans`` and ``merge_states_k`` row-stacked over
+        the state names (the Toeplitz band of the TPU kernel is replaced
+        by the filter taps themselves; a maxout readout's ``post_k`` has
+        ``merged_dim / k`` rows)."""
         t = self.attention.loop_tables()
         readout = self.readout
         if readout.num_post_merge != 1:
@@ -281,27 +328,32 @@ class SequenceGenerator(nn.Module):
                 "the decode kernels' tables need exactly one post-merge "
                 f"layer, not {readout.num_post_merge}")
         post_k, post_b = _unbiased(readout.post_merge_0)
-        fin_w, fin_b = _unbiased(self.fork_0_inputs)
-        fgate_w, fgate_b = _unbiased(self.fork_0_gate_inputs)
-        cell = self.transition_0
+        kernel = lambda d: _unbiased(d)[0]
+        bias = lambda d: _unbiased(d)[1]
         t.update({
             "merge_k": readout.merge_weighted_averages.kernel,
             "merge_b": readout.merge_bias,
             "post_k": post_k,
             "post_b": post_b,
             "embed": self.feedback.lookup.embedding,
-            "fork_in_w": fin_w,
-            "fork_in_b": fin_b,
-            "fork_gate_w": fgate_w,
-            "fork_gate_b": fgate_b,
-            "dist_in_w": self.distribute_0_inputs.kernel,
-            "dist_gate_w": self.distribute_0_gate_inputs.kernel,
-            "wsg": cell.state_to_gates,
-            "wss": cell.state_to_state,
-            "h0": cell.initial_state,
+            "fork_in_w": self._lane_stack("fork_{}_inputs", kernel),
+            "fork_in_b": self._lane_stack("fork_{}_inputs", bias),
+            "fork_gate_w": self._lane_stack("fork_{}_gate_inputs", kernel),
+            "fork_gate_b": self._lane_stack("fork_{}_gate_inputs", bias),
+            "dist_in_w": self._lane_stack("distribute_{}_inputs.kernel"),
+            "dist_gate_w": self._lane_stack(
+                "distribute_{}_gate_inputs.kernel"),
+            "wsg": self._lane_stack("transition_{}.state_to_gates"),
+            "wss": self._lane_stack("transition_{}.state_to_state"),
+            "h0": self._lane_stack("transition_{}.initial_state"),
         })
+        if self.dec_stack > 1:
+            t["inter_in_w"] = self._interlayer("inputs")
+            t["inter_gate_w"] = self._interlayer("gate_inputs")
         if self.use_states_for_readout:
-            t["merge_states_k"] = readout.merge_states.kernel
+            t["merge_states_k"] = _row_cat(
+                [getattr(readout, f"merge_{name}").kernel
+                 for name in self.state_names])
         return {k: v.detach().contiguous() for k, v in t.items()}
 
     # -- the module-driven decode step -------------------------------------
@@ -310,12 +362,13 @@ class SequenceGenerator(nn.Module):
         ``fused_score_supported`` (:689-705): conv attention with one
         filter and the softmax normalizer, a readout of the weighted
         averages alone through exactly one post-merge layer after tanh,
-        and no language model."""
+        one decoder layer and no language model."""
         att, readout = self.attention, self.readout
         return (att.conv and att.conv_num_filters == 1
                 and att.energy_normalizer == "softmax"
                 and not self.use_states_for_readout
                 and self.language_model is None
+                and self.dec_stack == 1
                 and readout.num_post_merge == 1
                 and readout.activation == "tanh")
 
@@ -328,10 +381,15 @@ class SequenceGenerator(nn.Module):
                                   "merge_b", "post_k", "post_b",
                                   "conv_filters")}
 
+    def _initial_states(self, batch_size):
+        """(B, N*S) initial states, lane-stacked."""
+        return torch.cat([self._cell(layer).initial_states(batch_size)
+                          for layer in range(self.dec_stack)],
+                         dim=1).contiguous()
+
     def initial_states(self, batch_size, attended):
         carry = {
-            "states": self.transition_0.initial_states(batch_size)
-            .contiguous(),
+            "states": self._initial_states(batch_size),
             "glimpses": self.attention.initial_glimpses(batch_size,
                                                         attended),
         }
@@ -339,16 +397,38 @@ class SequenceGenerator(nn.Module):
             carry["lm"] = self.language_model.initial_states(batch_size)
         return carry
 
-    def _compute_states(self, states, feedback, weighted_averages):
-        seqs = {seq: getattr(self, f"fork_0_{seq}")(feedback)
-                + getattr(self, f"distribute_0_{seq}")(weighted_averages)
-                for seq in self.transition_0.sequence_names}
-        return self.transition_0.one_step(states, seqs)
+    def _compute_states(self, states, forked, weighted_averages):
+        """One transition of the stack (JAX ``_compute_states``): layer l
+        adds to its fork and distribute projections the interlayer
+        projections of layer l-1's new state; ``forked`` is the fork
+        projections of every layer, ``{(layer, seq): (B, width)}``."""
+        S = self.dim_dec
+        new, below = [], None
+        for layer in range(self.dec_stack):
+            cell = self._cell(layer)
+            seqs = {}
+            for seq in cell.sequence_names:
+                val = forked[layer, seq] + getattr(
+                    self, f"distribute_{layer}_{seq}")(weighted_averages)
+                if layer > 0:
+                    val = val + getattr(
+                        self, f"interlayer_{layer}_{seq}")(below)
+                seqs[seq] = val
+            below = cell.one_step(states[..., layer * S:(layer + 1) * S],
+                                  seqs)
+            new.append(below)
+        return new[0] if len(new) == 1 else torch.cat(new, dim=-1)
+
+    def _fork(self, feedback):
+        """The fork projections of every layer, ``{(layer, seq): ...}``."""
+        return {(layer, seq): getattr(self, f"fork_{layer}_{seq}")(feedback)
+                for layer in range(self.dec_stack)
+                for seq in self._cell(layer).sequence_names}
 
     def _readout_sources(self, states, glimpses, lm_state=None):
         sources = {}
         if self.use_states_for_readout:
-            sources["states"] = states
+            sources.update(self._att_states(states))
         sources["weighted_averages"] = glimpses["weighted_averages"]
         if self.language_model is not None and lm_state is not None:
             sources["lm_add"] = lm_state["add"]
@@ -377,7 +457,7 @@ class SequenceGenerator(nn.Module):
         g_new = self.attention.take_glimpses(
             contexts["attended"], contexts["preprocessed"],
             contexts["attended_mask"], carry["glimpses"],
-            {"states": carry["states"]}, beam=beam)
+            self._att_states(carry["states"]), beam=beam)
         readouts = self.readout(self._readout_sources(
             carry["states"], g_new, carry.get("lm")))
         return g_new, readouts
@@ -394,7 +474,7 @@ class SequenceGenerator(nn.Module):
     def advance_states(self, carry, g_new, chosen_outputs):
         """Consume the chosen symbols: GRU transition and LM update."""
         states = self._compute_states(
-            carry["states"], self.feedback(chosen_outputs),
+            carry["states"], self._fork(self.feedback(chosen_outputs)),
             g_new["weighted_averages"])
         new_carry = {"states": states, "glimpses": g_new}
         if self.language_model is not None:
@@ -445,17 +525,11 @@ class SequenceGenerator(nn.Module):
         T, B = outputs.shape
         preprocessed = self.attention.preprocess(attended)
         feedback = self.feedback(outputs)                       # (T, B, E)
-        forked = {seq: getattr(self, f"fork_0_{seq}")(feedback)
-                  for seq in self.transition_0.sequence_names}
+        forked = self._fork(feedback)
         # the port's readouts take no feedback source, so the JAX
         # package's rolled feedback has no reader here
-        # as JAX's ``_train_kernel_mode``: the XLA scan under ``never``
-        # and above the kernels' filters
-        att = self.attention
-        route = (self._evaluate_scan
-                 if use_pallas == "never"
-                 or (att.conv and att.conv_num_filters > MAX_FILTERS)
-                 else self._evaluate_fused)
+        route = (self._evaluate_fused if self.train_kernel_route(use_pallas)
+                 else self._evaluate_scan)
         pre_states, glimpses = route(attended, preprocessed, attended_mask,
                                      forked, mask, T, B)
         lm_add = None
@@ -465,31 +539,45 @@ class SequenceGenerator(nn.Module):
         return self._finish_evaluate(pre_states, glimpses, outputs, mask,
                                      lm_add, groundtruth)
 
+    def train_kernel_route(self, use_pallas="auto"):
+        """Whether ``evaluate`` takes ``decoder_scan_train`` (else the
+        module scan), as JAX's ``_fused_train_mode`` (:435-482) decides
+        without shapes: the module scan under ``use_pallas: never``, above
+        the kernels' filters and above their four layers."""
+        att = self.attention
+        return not (use_pallas == "never"
+                    or (att.conv and att.conv_num_filters > MAX_FILTERS)
+                    or self.dec_stack > MAX_STACK)
+
     def _evaluate_fused(self, attended, preprocessed, attended_mask, forked,
                         mask, T, B):
         """The label loop as one ``decoder_scan_train`` call, its tables
         taken from the parameters so that autograd reaches them."""
         L = attended.shape[1]
         t = self.attention.train_tables(L)
-        cell = self.transition_0
-        h0 = cell.initial_states(B).contiguous()
+        N = self.dec_stack
+        h0 = self._initial_states(B)
         glimpses = self.attention.initial_glimpses(B, attended)
         # content attention: no conv term, and a window over all L frames
         conv = self.attention.conv
         normalizer = self.attention.energy_normalizer if conv else "softmax"
+        lanes = lambda seq: torch.cat([forked[layer, seq]
+                                       for layer in range(N)], dim=-1)
         h, w, wa, e = decoder_scan_train(
-            forked["inputs"].contiguous(),
-            forked["gate_inputs"].contiguous(),
+            lanes("inputs").contiguous(), lanes("gate_inputs").contiguous(),
             mask.contiguous() if mask is not None else None,
             preprocessed.contiguous(), attended.contiguous(),
             attended_mask.contiguous(), h0, glimpses["weights"],
             glimpses["weighted_averages"], t["toep"], t["st"], t["hand"],
-            t["v"], cell.state_to_state, cell.state_to_gates,
-            self.distribute_0_inputs.kernel,
-            self.distribute_0_gate_inputs.kernel,
+            t["v"], self._lane_stack("transition_{}.state_to_state"),
+            self._lane_stack("transition_{}.state_to_gates"),
+            self._lane_stack("distribute_{}_inputs.kernel"),
+            self._lane_stack("distribute_{}_gate_inputs.kernel"),
             prior=self.attention.prior_config(L),
             n_filters=self.attention.conv_num_filters if conv else 0,
-            e_bias=t.get("e_b"), normalizer=normalizer)
+            e_bias=t.get("e_b"), normalizer=normalizer, dec_stack=N,
+            inter_in=self._interlayer("inputs") if N > 1 else None,
+            inter_gate=self._interlayer("gate_inputs") if N > 1 else None)
         pre_states = torch.cat([h0[None], h[:-1]])
         glimpses = {"weights": w, "weighted_averages": wa}
         if conv:
@@ -498,21 +586,19 @@ class SequenceGenerator(nn.Module):
 
     def _evaluate_scan(self, attended, preprocessed, attended_mask, forked,
                        mask, T, B):
-        """The label loop step by step through the modules: glimpse, GRU
-        transition, and the recurrent mask over states and glimpses."""
-        cell = self.transition_0
-        states = cell.initial_states(B)
+        """The label loop step by step through the modules: glimpse, the
+        stack's transition, and the recurrent mask over states and
+        glimpses."""
+        states = self._initial_states(B)
         glimpses = self.attention.initial_glimpses(B, attended)
         pre_states, seq = [], []
         for t in range(T):
             g_new = self.attention.take_glimpses(
                 attended, preprocessed, attended_mask, glimpses,
-                {"states": states}, train=True)
-            seqs = {name: forked[name][t]
-                    + getattr(self, f"distribute_0_{name}")(
-                        g_new["weighted_averages"])
-                    for name in cell.sequence_names}
-            new_states = cell.one_step(states, seqs)
+                self._att_states(states), train=True)
+            new_states = self._compute_states(
+                states, {k: v[t] for k, v in forked.items()},
+                g_new["weighted_averages"])
             if mask is not None:
                 live = mask[t] > 0
                 new_states = _mask_mix(live, new_states, states)
@@ -530,7 +616,7 @@ class SequenceGenerator(nn.Module):
                          groundtruth=None):
         sources = {"weighted_averages": glimpses["weighted_averages"]}
         if self.use_states_for_readout:
-            sources["states"] = pre_states
+            sources.update(self._att_states(pre_states))
         if lm_add is not None:
             sources["lm_add"] = lm_add
         readouts = self.readout(sources)                        # (T, B, V)
@@ -568,6 +654,10 @@ class SequenceGenerator(nn.Module):
                "reward_mse_loss": reward_mse.sum(),
                "gain_matrix": gains, "reward_matrix": rewards}
         return (gain_mse if self.criterion == "mse_gain" else reward_mse), aux
+
+
+def _row_cat(tables):
+    return tables[0] if len(tables) == 1 else torch.cat(tables)
 
 
 def _mask_mix(live, new, old):

@@ -4,8 +4,8 @@ attention GRU decoder.
 Counterpart of ``attention_lvcsr_tpu/models/recognizer.py``:
 
 * :class:`RecognizerNet` — the network from the ``net`` config section
-  (same keys), with ``encode`` (the inference encoder), ``decode_loop``
-  and ``decode_loop_tables`` (what the whole-loop decode consumes), and
+  (same keys; ``dec_stack`` GRU decoder layers), with ``encode`` (the
+  inference encoder), ``decode_loop`` and ``decode_loop_tables`` (what the whole-loop decode consumes), and
   the step interface of the module-driven decode (``decode_contexts``,
   ``decode_init``, ``decode_score``, ``decode_advance``); a ``net.lm``
   section with a ``path`` adds the FST language model and the
@@ -29,7 +29,8 @@ from torch import nn
 from attention_lvcsr_torch.models.attention import make_attention
 from attention_lvcsr_torch.models.bottom import SpeechBottom
 from attention_lvcsr_torch.models.encoder import Encoder
-from attention_lvcsr_torch.models.generator import SequenceGenerator
+from attention_lvcsr_torch.models.generator import (SequenceGenerator,
+                                                    state_names)
 from attention_lvcsr_torch.models.initializers import initialize_params
 from attention_lvcsr_torch.models.params import (NOISE_PREFIX, PREFIX,
                                                  load_parameters,
@@ -64,7 +65,6 @@ def unported_piece(cfg: Mapping[str, Any]) -> Optional[str]:
         ((cfg.get("energy_normalizer") or "softmax")
          in ("softmax", "logistic", "relu"),
          f"the {cfg.get('energy_normalizer')!r} energy normalizer"),
-        ((cfg.get("dec_stack") or 1) == 1, "a stacked decoder (dec_stack > 1)"),
         (criterion.get("name") in ("log_likelihood", "mse_gain",
                                    "mse_reward"),
          f"the {criterion.get('name')!r} criterion"),
@@ -121,7 +121,9 @@ class RecognizerNet(nn.Module):
                                bidir=bidir, transition=enc_transition)
         self.dropout = dropout
         D = self.encoder.dim_encoded
-        attention = make_attention(attention_type, ("states",), dim_dec, D,
+        # the state names of JAX ``recognizer.py:111-112``
+        attention = make_attention(attention_type,
+                                   state_names(dec_stack or 1), dim_dec, D,
                                    dim_matcher or dim_dec, conv_n=conv_n,
                                    conv_num_filters=conv_num_filters,
                                    prior=prior,
@@ -151,7 +153,8 @@ class RecognizerNet(nn.Module):
             use_states_for_readout=use_states_for_readout,
             language_model=language_model, fusion=fusion,
             criterion=criterion["name"],
-            min_reward=float(criterion.get("min_reward", -1.0)))
+            min_reward=float(criterion.get("min_reward", -1.0)),
+            dec_stack=dec_stack or 1)
 
     def encode(self, inputs, inputs_mask, train=False):
         """(B, T, F) features, (B, T) mask -> encoded (B, L, D), mask.

@@ -8,8 +8,10 @@ caller's window spanning every frame; see ``csrc/beam_loop.cu`` for the
 list), with the expanding, ``window_around_median`` or
 ``window_around_mean`` prior, the softmax, logistic or relu normalizer
 (``normalizer``), the tanh, rectifier, sigmoid, identity or maxout
-post-merge activation (``post_act``) and the log-likelihood or the task
-loss's costs (``mse_cost``).
+post-merge activation (``post_act``), the log-likelihood or the task
+loss's costs (``mse_cost``) and one to four GRU decoder layers (the tables'
+``wss`` (S, N*S); a stack's interlayer tables ``inter_in_w`` and
+``inter_gate_w``).
 ``beam_search_loop`` takes the plain PyTorch version for tensors on the
 CPU and launches the kernel for tensors on a CUDA device; any other
 device raises, and so does a configuration the kernel does not cover, on
@@ -35,6 +37,10 @@ Semantics shared by both versions (and by the TPU kernel):
   no ``conv_filters``;
 * a maxout readout keeps the max of each group of k merged units, and its
   ``post_k`` has ``R / k`` rows;
+* a stack advances its layers in order, layer l > 0 adding ``below @
+  inter_*`` of layer l-1's new state (JAX ``beam_loop.py:481-511``); the
+  attention's and the readout's state terms are one product each over
+  the row-stacked ``state_trans`` and ``merge_states_k`` (N*S rows);
 * a fully masked utterance starts retired; an utterance that stops
   commits nothing more, and ``steps`` counts the steps it ran;
 * under relu, a row whose unnormalized weights are all zero over a
@@ -60,6 +66,7 @@ PATIENCE = 30
 
 PRIORS = ("expanding", "window_around_median", "window_around_mean")
 MAX_FILTERS = 16
+MAX_STACK = 4          # decoder layers the kernels take
 STOP_ON = ("patience", "optimistic_future_cost")
 # the attention's energy normalizers, in the order of the kernel's
 # ``normalizer`` field (0, a zeroed field, is softmax)
@@ -72,14 +79,27 @@ _POST_ACT_ALIASES = {"rectifier": "relu", "logistic": "sigmoid"}
 
 launches = _build.LaunchCounter()
 
-# table name -> shape in terms of the dimension letters below
+# table name -> shape in terms of the dimension letters below (S a
+# layer's state, Z = N*S and G = 2*N*S the N layers' lanes)
 _TABLE_SHAPES = {
-    "state_trans": "SM", "v": "M",
+    "state_trans": "ZM", "v": "M",
     "merge_k": "DR", "merge_b": "R", "post_k": "PV", "post_b": "V",
-    "embed": "AF", "fork_in_w": "FS", "fork_in_b": "S",
-    "fork_gate_w": "FG", "fork_gate_b": "G", "dist_in_w": "DS",
-    "dist_gate_w": "DG", "wsg": "SG", "wss": "SS", "h0": "S",
+    "embed": "AF", "fork_in_w": "FZ", "fork_in_b": "Z",
+    "fork_gate_w": "FG", "fork_gate_b": "G", "dist_in_w": "DZ",
+    "dist_gate_w": "DG", "wsg": "SG", "wss": "SZ", "h0": "Z",
 }
+# a stack's interlayer tables (I = (N-1)*S, J = 2*(N-1)*S)
+_STACK_TABLE_SHAPES = {"inter_in_w": "SI", "inter_gate_w": "SJ"}
+# the tables a stacked launch passes layer-major, each layer's (rows,
+# width) contiguous: the kernel's products read one layer's at a time
+_LAYER_MAJOR = ("fork_in_w", "fork_gate_w", "dist_in_w", "dist_gate_w",
+                "wsg", "wss", "inter_in_w", "inter_gate_w")
+
+
+def _layer_major(x, n):
+    """(rows, n * width) lane-stacked -> (n, rows, width) contiguous."""
+    rows, cols = x.shape
+    return x.view(rows, n, cols // n).transpose(0, 1).contiguous()
 # the conv attention's tables besides (N filters, handler rows (N, M); one
 # filter's row (M,))
 _CONV_TABLE_SHAPES = {"handler": "NM", "conv_filters": "NT"}
@@ -97,13 +117,20 @@ def post_act_code(post_act):
 
 
 def unported_loop(prior, n_filters, normalizer, content_attention,
-                  post_act="tanh", mse_cost=False):
+                  post_act="tanh", mse_cost=False, dec_stack=1):
     """The first piece of a decode configuration the loop kernel does not
     cover, or None: the search's router asks it before any launch, and
     :func:`beam_search_loop` refuses what it names.  More than one filter,
     the mean prior and an activation besides tanh run under the
-    log-likelihood alone: the kernel instantiates what the configs under
-    ``exp/`` use."""
+    log-likelihood alone, and a stacked decoder under the log-likelihood
+    and the softmax normalizer: the kernel instantiates what the configs
+    under ``exp/`` use."""
+    if not 1 <= dec_stack <= MAX_STACK:
+        return f"{dec_stack} decoder layers (1-{MAX_STACK} are ported)"
+    if dec_stack > 1 and (mse_cost or normalizer != "softmax"):
+        return ("a stacked decoder with the "
+                + ("task loss's costs" if mse_cost
+                   else f"{normalizer!r} normalizer"))
     if prior not in PRIORS:
         return f"prior {prior!r} (supported: {PRIORS})"
     if normalizer not in NORMALIZERS:
@@ -131,12 +158,19 @@ def _n_filters(tables, content_attention):
     return filters.shape[0] if filters.ndim == 2 else -1
 
 
+def dec_stack_of(tables):
+    """The decoder layers of the tables: ``wss`` is (S, N*S)."""
+    S, NS = tables["wss"].shape
+    return NS // S
+
+
 def _check_config(tables, prior, stop_on, content_attention, normalizer,
                   post_act, mse_cost):
     if stop_on not in STOP_ON:
         raise ValueError(f"unknown stop_on {stop_on!r}")
     piece = unported_loop(prior, _n_filters(tables, content_attention),
-                          normalizer, content_attention, post_act, mse_cost)
+                          normalizer, content_attention, post_act, mse_cost,
+                          dec_stack_of(tables))
     if piece is not None:
         raise NotImplementedError(f"beam_search_loop: {piece} is not ported")
     if normalizer != "softmax" and "energy_b" not in tables:
@@ -175,6 +209,7 @@ def beam_search_loop_reference(pre, attended, att_mask, tables, *, beam,
     Lout = int(max_len)
     t = tables
     S = t["wss"].shape[0]
+    N = dec_stack_of(t)
     V = t["post_k"].shape[1]
     taps = t.get("conv_filters")
 
@@ -185,7 +220,7 @@ def beam_search_loop_reference(pre, attended, att_mask, tables, *, beam,
     dead = att_mask.sum(dim=1) == 0                          # (U,)
     att_rows = att_mask.repeat_interleave(K, dim=0)          # (R, L)
 
-    h = t["h0"].expand(R, S).clone()
+    h = t["h0"].expand(R, N * S).clone()
     w = (pos == 0).to(f32).expand(R, L).clone()
     aout = torch.zeros(R, Lout, dtype=torch.int32, device=dev)
     dout = torch.zeros(R, Lout, dtype=torch.int32, device=dev)
@@ -337,16 +372,29 @@ def beam_search_loop_reference(pre, attended, att_mask, tables, *, beam,
         alive_len = float(i + 1)
         step_costs = chosen - prev_costs
 
-        # ---- GRU advance ---------------------------------------------------
+        # ---- GRU advance: the layers in order, layer l > 0 adding the
+        # interlayer projections of layer l-1's new state ----------------
         fb = t["embed"][symbols]
         gate_in = fb @ t["fork_gate_w"] + t["fork_gate_b"] \
             + wa_src @ t["dist_gate_w"]
         in_tot = fb @ t["fork_in_w"] + t["fork_in_b"] \
             + wa_src @ t["dist_in_w"]
-        gates = torch.sigmoid(h_src @ t["wsg"] + gate_in)
-        update, reset = gates[:, :S], gates[:, S:]
-        cand = torch.tanh((h_src * reset) @ t["wss"] + in_tot)
-        h_new = update * cand + (1.0 - update) * h_src
+        parts, below = [], None
+        for ly in range(N):
+            s1 = slice(ly * S, (ly + 1) * S)
+            s2 = slice(ly * 2 * S, (ly + 1) * 2 * S)
+            h_ly = h_src[:, s1]
+            gi, ii = gate_in[:, s2], in_tot[:, s1]
+            if ly > 0:
+                gi = gi + below @ t["inter_gate_w"][:, (ly - 1) * 2 * S:
+                                                    ly * 2 * S]
+                ii = ii + below @ t["inter_in_w"][:, (ly - 1) * S:ly * S]
+            gates = torch.sigmoid(h_ly @ t["wsg"][:, s2] + gi)
+            update, reset = gates[:, :S], gates[:, S:]
+            cand = torch.tanh((h_ly * reset) @ t["wss"][:, s1] + ii)
+            below = update * cand + (1.0 - update) * h_ly
+            parts.append(below)
+        h_new = parts[0] if N == 1 else torch.cat(parts, dim=1)
 
         # ---- EOS retirement ------------------------------------------------
         is_eos = symbols == eol
@@ -393,13 +441,16 @@ def _align4(n):
 
 
 def smem_plan(K, L, M, D, S, R, V, F, Lout, n_taps, content=False,
-              normalizer="softmax", n_filters=1, maxout=0):
+              normalizer="softmax", n_filters=1, maxout=0, dec_stack=1):
     """``make_layout``: buffer offsets (floats, each 16-byte aligned) and
     the block's bytes, and whether they fit an H100 block.  ``F`` is the
     feedback width; ``n_filters`` conv filters keep their taps, handler
     rows and convolutions, content-only attention none; only the relu
     normalizer keeps its rows' all-zero flags, and only a maxout readout
-    (``maxout`` pieces) its grouped activation."""
+    (``maxout`` pieces) its grouped activation.  A stack of ``dec_stack``
+    layers keeps their states (K, N*S) and stages no feedback rows: its
+    fork products read the embedding rows from global memory."""
+    stack = dec_stack > 1
     if content:
         n_taps = n_filters = 0
     offsets, p = {}, 0
@@ -412,7 +463,8 @@ def smem_plan(K, L, M, D, S, R, V, F, Lout, n_taps, content=False,
     warps = THREADS // 32
     # relu's row flags take no room under the other normalizers
     bad = (("bad", K),) if normalizer == "relu" else ()
-    for name, n in (("h", K * S), ("w", K * L), ("aout", K * Lout),
+    for name, n in (("h", K * S * dec_stack), ("w", K * L),
+                    ("aout", K * Lout),
                     ("dout", K * Lout), ("acost", K), ("dadj", K),
                     ("dcost", K), ("dlen", K), ("newadj", K), ("chosen", K),
                     ("src", K), ("sym", K), ("pick", K), ("mask", L),
@@ -427,7 +479,8 @@ def smem_plan(K, L, M, D, S, R, V, F, Lout, n_taps, content=False,
                   (("act", K * R + (K * R // maxout if maxout else 0)),
                    ("costs", K * V)),
                   (("hs", K * S), ("was", K * D), ("aout2", K * Lout),
-                   ("dout2", K * Lout), ("fb", K * F), ("gi", 2 * K * S),
+                   ("dout2", K * Lout), ("fb", 0 if stack else K * F),
+                   ("gi", 2 * K * S),
                    ("it", K * S))):
         p = scratch
         for name, n in phase:
@@ -465,7 +518,10 @@ class _Args(ctypes.Structure):
             "energy_b", "char_discount", "round_to_inf", "before", "after",
             "initial_begin", "initial_end", "min_speed", "max_speed")]
         + [(name, ctypes.c_int) for name in (
-            "n_filters", "post_act", "maxout", "prior_mean")])
+            "n_filters", "post_act", "maxout", "prior_mean")]
+        + [(name, ctypes.c_void_p) for name in ("inter_in_w",
+                                                 "inter_gate_w")]
+        + [("dec_stack", ctypes.c_int)])
 
 
 def _check_tensor(name, x, shape, device):
@@ -498,27 +554,29 @@ def _launch(pre, attended, att_mask, tables, *, beam, max_len, eol,
     if pieces and R % pieces:
         raise ValueError(f"beam_search_loop: maxout:{pieces} of {R} "
                          "merged units")
+    N = dec_stack_of(tables)
+    S = tables["wss"].shape[0]
     dims = {"U": U, "L": L, "M": M, "D": D, "1": 1, "R": R,
-            "P": R // (pieces or 1), "N": n_filters,
-            "S": tables["wss"].shape[0],
+            "P": R // (pieces or 1), "N": n_filters, "S": S, "Z": N * S,
+            "G": 2 * N * S, "I": (N - 1) * S, "J": 2 * (N - 1) * S,
             "V": tables["post_k"].shape[1], "A": tables["embed"].shape[0],
             "F": tables["embed"].shape[1],
             "T": (0 if content_attention
                   else tables["conv_filters"].shape[-1])}
-    dims["G"] = 2 * dims["S"]
     dev = pre.device
     _check_tensor("pre", pre, (U, L, M), dev)
     _check_tensor("attended", attended, (U, L, D), dev)
     _check_tensor("att_mask", att_mask, (U, L), dev)
     shapes = dict(_TABLE_SHAPES,
-                  **({} if content_attention else _CONV_TABLE_SHAPES))
+                  **({} if content_attention else _CONV_TABLE_SHAPES),
+                  **(_STACK_TABLE_SHAPES if N > 1 else {}))
     for name, letters in shapes.items():
         if name == "handler" and n_filters == 1:
             letters = "M"
         _check_tensor(name, tables[name], [dims[c] for c in letters], dev)
     states_k = tables.get("merge_states_k")
     if states_k is not None:
-        _check_tensor("merge_states_k", states_k, (dims["S"], dims["R"]),
+        _check_tensor("merge_states_k", states_k, (dims["Z"], dims["R"]),
                       dev)
     K, Lout = int(beam), int(max_len)
     done_out = torch.zeros(U, K, Lout, dtype=torch.int32, device=dev)
@@ -526,6 +584,11 @@ def _launch(pre, attended, att_mask, tables, *, beam, max_len, eol,
     steps = torch.zeros(U, dtype=torch.int32, device=dev)
     if U == 0:
         return done_out, done_meta, steps
+    if N > 1:
+        tables = dict(tables, **{
+            name: _layer_major(tables[name],
+                               N - 1 if name.startswith("inter") else N)
+            for name in _LAYER_MAJOR})
     ptr = lambda name: (tables[name].data_ptr() if name in shapes
                         else None)
     args = _Args(
@@ -540,6 +603,8 @@ def _launch(pre, attended, att_mask, tables, *, beam, max_len, eol,
         fork_gate_w=ptr("fork_gate_w"), fork_gate_b=ptr("fork_gate_b"),
         dist_in_w=ptr("dist_in_w"), dist_gate_w=ptr("dist_gate_w"),
         wsg=ptr("wsg"), wss=ptr("wss"), h0=ptr("h0"),
+        inter_in_w=ptr("inter_in_w"), inter_gate_w=ptr("inter_gate_w"),
+        dec_stack=N,
         done_out=done_out.data_ptr(), done_meta=done_meta.data_ptr(),
         steps=steps.data_ptr(),
         U=U, L=L, M=M, D=D, S=dims["S"], R=dims["R"], V=dims["V"],

@@ -16,7 +16,10 @@ average and the GRU transition), same arguments and outputs.
   ``torch.autograd.Function`` over ``csrc/decoder_train.cu`` for conv
   attention (1-16 filters, the softmax, logistic or relu normalizer, the
   expanding, median or mean prior, one GRU layer; logistic and relu with
-  the energy bias ``e_bias``, which gets its gradient) and for
+  the energy bias ``e_bias``, which gets its gradient; with more than one
+  filter and softmax also two to four GRU layers, ``dec_stack``, whose
+  interlayer tables ``inter_in`` and ``inter_gate`` get their gradients)
+  and for
   content-only attention (``n_filters=0``: no
   convolution and no handler term, so the previous weights do not feed
   the energies, and the Toeplitz band and handler get no gradient): a
@@ -57,8 +60,8 @@ import torch
 from attention_lvcsr_torch import _build
 # the normalizers in the order of the kernels' ``normalizer`` field, the
 # priors and the most conv filters the kernels take
-from attention_lvcsr_torch.ops.beam_loop import (MAX_FILTERS, NORMALIZERS,
-                                                 PRIORS)
+from attention_lvcsr_torch.ops.beam_loop import (MAX_FILTERS, MAX_STACK,
+                                                 NORMALIZERS, PRIORS)
 from attention_lvcsr_torch.ops.outer_sum import MAX_JOBS, outer_sum
 
 NEG = -1e30
@@ -249,14 +252,31 @@ def slices(K, width):
     return max(1, min(MAX_SLICES, THREADS // (width // 4), K))
 
 
-def products(kind, d, L, M, D, S, n_filters=1):
+def products(kind, d, L, M, D, S, n_filters=1, dec_stack=1):
     """{name: (K, width)} of a kind's products, each block's packed slice
     of a weight being (K, width); with ``n_filters`` 0 (content-only
     attention) no convolution and no transposed one.  ``n_filters``
     bands side by side widen the convolution, and their transposes, each
-    padded to ``L4`` rows, lengthen the transposed one."""
-    nf = n_filters
-    if kind == "forward":
+    padded to ``L4`` rows, lengthen the transposed one.  A stack of
+    ``dec_stack`` layers reads every layer's states in the state
+    products, the layer below's new state in a layer's gate and
+    candidate products, and every layer's gate gradients in the
+    distribute products' backward, whose interlayer share (``ibT``) is a
+    product of its own."""
+    nf, N = n_filters, dec_stack
+    if N > 1:
+        Sp, Dp, Sc = d["Sp"], d["Dp"], d["Sc"]
+        if kind == "forward":
+            out = {"toep": (L, nf * d["Lq"]), "st": (N * Sp, d["Mc"]),
+                   "gate": (2 * Sp + Dp, 2 * Sc), "dx": (Sp + D, Sc),
+                   "ss": (S, Sc)}
+        else:
+            out = {"st": (N * Sp, d["Mc"]), "toep": (L, nf * d["Lq"]),
+                   "ssT": (S, Sc), "sgT": (2 * Sp, Sc),
+                   "dxgT": (N * 3 * Sp, d["Dc"]), "stT": (M, N * Sc),
+                   "ibT": (3 * Sp, Sc),
+                   "toepT": (nf * d["L4"] if nf > 1 else L, d["Lq"])}
+    elif kind == "forward":
         out = {"toep": (L, nf * d["Lq"]), "st": (S, d["Mc"]),
                "gate": (d["Dp"] + d["Sp"], 2 * d["Sc"]),
                "dx": (D, d["Sc"]), "ss": (S, d["Sc"])}
@@ -276,7 +296,7 @@ CONV_BUFFERS = {"forward": ("wgv", "conv"),
                 "backward": ("wgv", "dcv", "conv", "dcvw")}
 
 
-def layout(kind, C, R, L, M, D, S, res, n_filters=1):
+def layout(kind, C, R, L, M, D, S, res, n_filters=1, dec_stack=1):
     """The kernel's shared memory (``csrc/decoder_train.cu::layout``):
     {buffer: (offset, floats)} in floats, every buffer on 16 bytes, and
     the bytes of a block.  ``res``: {"pre", "att", "dpre"} rows whose tiles
@@ -284,34 +304,43 @@ def layout(kind, C, R, L, M, D, S, res, n_filters=1):
     0 (content-only attention) the buffers of :data:`CONV_BUFFERS` hold
     nothing; ``n_filters`` > 1 widens the convolutions and their
     gradients, and the backward then keeps one row's dconv partials
-    (``dcvw``) and the handler's gradient a block (``dhg``)."""
-    nf = n_filters
+    (``dcvw``) and the handler's gradient a block (``dhg``).  A stack of
+    ``dec_stack`` layers keeps every layer's states (forward ``hst``,
+    backward ``hp``), gate gradients (``g1``) and carried gradients
+    (``dh``, ``dhp``), a row's ``gin`` gains the layer below's new state
+    in front, and the backward keeps the gradient reaching the layer
+    below (``dbl``)."""
+    nf, N = n_filters, dec_stack
     d = dims(C, R, L, M, D, S)
     Lq, L4, Sc, Sp, Mp, Dp = (d[k] for k in ("Lq", "L4", "Sc", "Sp", "Mp",
                                              "Dp"))
+    below = Sp if N > 1 else 0
     if kind == "forward":
-        sizes = [("gin", R * (Dp + Sp)), ("w", R * L4), ("wgv", R * L4),
+        sizes = [("gin", R * (below + Dp + Sp)), ("w", R * L4),
+                 ("wgv", R * L4),
                  ("rh", R * Sp), ("sp", R * Mp), ("wanp", R * Dp),
                  ("wa", R * d["Dc"]), ("ek", R * Lq), ("conv", R * nf * Lq)] \
             + [(n, R * Lq) for n in ("e", "un", "comb")] \
-            + [("xin", R * Sc), ("gate", R * 2 * Sc)]
+            + [("xin", R * Sc), ("gate", R * 2 * Sc),
+               ("hst", R * N * Sp if N > 1 else 0)]
         pmax = max(Lq, d["Mc"], 2 * Sc)
     else:
-        sizes = [("hp", R * Sp), ("wgv", R * L4), ("g1", R * 3 * Sp),
+        sizes = [("hp", R * N * Sp), ("wgv", R * L4), ("g1", R * N * 3 * Sp),
                  ("sp", R * Mp), ("dwan", R * Dp), ("dspp", R * Mp),
                  ("dsp", R * Mp), ("dcv", R * nf * L4),
                  ("conv", R * nf * Lq)] \
             + [(n, R * Lq) for n in ("wn", "dwn", "dE")] \
-            + [("dh", R * Sc), ("dhp", R * Sc), ("dw", R * Lq),
+            + [("dh", R * N * Sc), ("dhp", R * N * Sc), ("dw", R * Lq),
                ("dwa", R * d["Dc"]),
                ("dcvw", nf * d["Mch"] * (Lq if nf > 1 else R * Lq))] \
             + [(n, d["groups"] * R * d["M4"]) for n in ("dspg", "dvg")] \
-            + [("dhg", d["groups"] * d["M4"] * (nf if nf > 1 else R))]
-        pmax = max(Lq, d["Mc"], Sc, d["Dc"])
+            + [("dhg", d["groups"] * d["M4"] * (nf if nf > 1 else R)),
+               ("dbl", below and R * Sc)]
+        pmax = max(Lq, d["Mc"], N * Sc, d["Dc"])
     if not nf:
         sizes = [(n, 0 if n in CONV_BUFFERS[kind] else k) for n, k in sizes]
     part = max(slices(K, w) * min(R, ROW_CHUNK) * w
-               for K, w in products(kind, d, L, M, D, S, nf).values())
+               for K, w in products(kind, d, L, M, D, S, nf, N).values())
     sizes += [("pout", R * pmax), ("rs", 8 * R), ("red", 2 * WARPS),
               ("vh", (1 + max(nf, 1)) * d["M4"]), ("part", part)]
     tiles = {"dpre": d["Lt"] * d["Mt"], "pre": d["Lt"] * d["Mt"],
@@ -333,13 +362,13 @@ def cluster_rows(B, clusters):
     return [(c * q + min(c, rem), q + (c < rem)) for c in range(clusters)]
 
 
-def residency(kind, C, R, L, M, D, S, n_filters=1):
+def residency(kind, C, R, L, M, D, S, n_filters=1, dec_stack=1):
     """{tile: rows kept in shared memory} of a plan: per tile in the kind's
     order (TILES), as many of the R rows as fit beside the tiles before it,
     or None when not even the vectors fit."""
     res = {name: 0 for name in TILES[kind]}
-    fits = lambda: layout(kind, C, R, L, M, D, S, res,
-                          n_filters)["smem_bytes"] <= MAX_SMEM
+    fits = lambda: layout(kind, C, R, L, M, D, S, res, n_filters,
+                          dec_stack)["smem_bytes"] <= MAX_SMEM
     if not fits():
         return None
     for name in TILES[kind]:
@@ -352,7 +381,7 @@ def residency(kind, C, R, L, M, D, S, n_filters=1):
 
 
 def plan(kind, B, L, M, D, S, active, cluster=None, clusters=None,
-         n_filters=1):
+         n_filters=1, dec_stack=1):
     """The launch plan of a kind's kernel over B rows, given how many
     clusters of each size the card holds at once (``active``: {size:
     count}).  Per size: the rows spread over as many clusters as the card
@@ -363,8 +392,9 @@ def plan(kind, B, L, M, D, S, active, cluster=None, clusters=None,
     the one with fewer tile bytes streamed from L2 a step, then the
     larger.  ``cluster`` and ``clusters`` force a size and a number of
     clusters (a timing tool's choice).  ``n_filters``: the conv branch's
-    filters, 0 the content branch, whose layout has no conv buffers.  Raises NotImplementedError naming the shape when no
-    size fits."""
+    filters, 0 the content branch, whose layout has no conv buffers;
+    ``dec_stack`` the GRU layers.  Raises NotImplementedError naming the
+    shape when no size fits."""
     options = []
     for C in (CLUSTERS if cluster is None else (cluster,)):
         count = active.get(C, 0) if clusters is None else clusters
@@ -374,7 +404,7 @@ def plan(kind, B, L, M, D, S, active, cluster=None, clusters=None,
         R = _cdiv(B, n)
         if R > MAX_ROWS:
             continue
-        res = residency(kind, C, R, L, M, D, S, n_filters)
+        res = residency(kind, C, R, L, M, D, S, n_filters, dec_stack)
         if res is None:
             continue
         streamed = sum((R - res[name]) * size for name, size in
@@ -388,6 +418,7 @@ def plan(kind, B, L, M, D, S, active, cluster=None, clusters=None,
             f"decoder_scan_train: no {kind} launch plan covers a batch of "
             f"{B} rows at L={L}, M={M}, D={D}, S={S}"
             + (f", {n_filters} filters" if n_filters > 1 else "")
+            + (f", {dec_stack} layers" if dec_stack > 1 else "")
             + " (clusters of "
             f"{'/'.join(map(str, CLUSTERS))} blocks, the card holding "
             f"{active} at once, at most {MAX_ROWS} rows a cluster, "
@@ -395,7 +426,8 @@ def plan(kind, B, L, M, D, S, active, cluster=None, clusters=None,
     best = min(options, key=lambda o: o[0])[1]
     best["smem_bytes"] = layout(
         kind, best["cluster"], best["rows"], L, M, D, S,
-        {k: best[f"res_{k}"] for k in TILES[kind]}, n_filters)["smem_bytes"]
+        {k: best[f"res_{k}"] for k in TILES[kind]}, n_filters,
+        dec_stack)["smem_bytes"]
     return best
 
 
@@ -438,24 +470,63 @@ def _band_columns(L, d, C, n_filters):
                       for f in range(n_filters)], dim=1).reshape(-1)
 
 
-def pack_forward(d, toep, st, wss, wsg, dxm, dgm):
+def _layers(w, n):
+    """The n layers' column blocks of a lane-stacked table."""
+    return w.chunk(n, dim=1) if n > 1 else (w,)
+
+
+def _flat(tables):
+    """Per-layer packed tables one after another, flat."""
+    return torch.cat([t.reshape(-1) for t in tables])
+
+
+def _state_rows(d, N, S):
+    """Source rows of the states of N layers, each padded to Sp."""
+    return _segments([(ly * S, S, d["Sp"]) for ly in range(N)])
+
+
+def pack_forward(d, toep, st, wss, wsg, dxm, dgm, inter_in=None,
+                 inter_gate=None):
     """The forward kernel's packed weights for the slices ``d``; no
-    Toeplitz band when ``toep`` is None (the content branch)."""
+    Toeplitz band when ``toep`` is None (the content branch).  A stack
+    (``inter_in`` given) packs its layers one after another: layer l > 0
+    reads [below | wan | h] in its gate product ([inter_gate; dgm; wsg])
+    and [below | wan] in its candidate's ([inter_in; dxm]); the state
+    transform's rows are each layer's S padded to Sp."""
     C, S = d["C"], wss.shape[0]
     M, D = st.shape[1], dxm.shape[0]
-    Sc = d["Sc"]
+    N = wss.shape[1] // S
+    Sc, Sp, Dp = d["Sc"], d["Sp"], d["Dp"]
     s_cols = _slice_columns(S, Sc, C, Sc)
     gate_cols = torch.cat([s_cols.reshape(C, Sc),
                            torch.where(s_cols >= 0, s_cols + S, -1)
                            .reshape(C, Sc)], dim=1).reshape(-1)
     ident = lambda n: torch.arange(n)
-    out = {
-        "p_st": pack(st, ident(S), _slice_columns(M, d["Mc"], C, d["Mc"]), C),
-        "p_gate": pack(torch.cat([dgm, wsg]),
-                       _segments([(0, D, d["Dp"]), (D, S, d["Sp"])]),
-                       gate_cols, C),
-        "p_dx": pack(dxm, ident(D), s_cols, C),
-        "p_ss": pack(wss, ident(S), s_cols, C)}
+    m_cols = _slice_columns(M, d["Mc"], C, d["Mc"])
+    if N == 1:
+        out = {
+            "p_st": pack(st, ident(S), m_cols, C),
+            "p_gate": pack(torch.cat([dgm, wsg]),
+                           _segments([(0, D, Dp), (D, S, Sp)]), gate_cols, C),
+            "p_dx": pack(dxm, ident(D), s_cols, C),
+            "p_ss": pack(wss, ident(S), s_cols, C)}
+    else:
+        dgs, wsgs = _layers(dgm, N), _layers(wsg, N)
+        dxs, igs = _layers(dxm, N), _layers(inter_gate, N - 1)
+        iis = _layers(inter_in, N - 1)
+        gates = [pack(torch.cat([dgs[0], wsgs[0]]),
+                      _segments([(0, D, Dp), (D, S, Sp)]), gate_cols, C)]
+        gates += [pack(torch.cat([igs[ly - 1], dgs[ly], wsgs[ly]]),
+                       _segments([(0, S, Sp), (S, D, Dp), (S + D, S, Sp)]),
+                       gate_cols, C) for ly in range(1, N)]
+        dxp = [pack(dxs[0], ident(D), s_cols, C)]
+        dxp += [pack(torch.cat([iis[ly - 1], dxs[ly]]),
+                     _segments([(0, S, Sp), (S, D, D)]), s_cols, C)
+                for ly in range(1, N)]
+        out = {"p_st": pack(st, _state_rows(d, N, S), m_cols, C),
+               "p_gate": _flat(gates), "p_dx": _flat(dxp),
+               "p_ss": _flat([pack(w, ident(S), s_cols, C)
+                              for w in _layers(wss, N)])}
     if toep is not None:
         L = toep.shape[0]
         out["p_toep"] = pack(toep, ident(L),
@@ -463,23 +534,55 @@ def pack_forward(d, toep, st, wss, wsg, dxm, dgm):
     return out
 
 
-def pack_backward(d, toep, st, wss, wsg, dxm, dgm):
+def pack_backward(d, toep, st, wss, wsg, dxm, dgm, inter_in=None,
+                  inter_gate=None):
     """The backward kernel's packed weights (transposes included); no
-    Toeplitz bands when ``toep`` is None (the content branch)."""
+    Toeplitz bands when ``toep`` is None (the content branch).  A stack
+    (``inter_in`` given) packs the per-layer transposes one after another,
+    the distribute products' transposes of every layer as one table over
+    the layers' [dca | dgu | dgr] rows, the state transform's transpose
+    with each layer's column slice side by side, and the interlayer
+    transposes ``p_ibT`` ([inter_in^T; inter_gate^T u; inter_gate^T r] of
+    each layer l > 0, into layer l-1's units)."""
     C, S = d["C"], wss.shape[0]
     M, D = st.shape[1], dxm.shape[0]
+    N = wss.shape[1] // S
     Sc, Sp = d["Sc"], d["Sp"]
     s_cols = _slice_columns(S, Sc, C, Sc)
     ident = lambda n: torch.arange(n)
-    out = {
-        "p_st": pack(st, ident(S), _slice_columns(M, d["Mc"], C, d["Mc"]), C),
-        "p_ssT": pack(wss.t(), ident(S), s_cols, C),
-        "p_sgT": pack(wsg.t(), _segments([(0, S, Sp), (S, S, Sp)]), s_cols,
-                      C),
-        "p_dxgT": pack(torch.cat([dxm.t(), dgm.t()]),
-                       _segments([(0, S, Sp), (S, S, Sp), (2 * S, S, Sp)]),
-                       _slice_columns(D, d["Dc"], C, d["Dc"]), C),
-        "p_stT": pack(st.t(), ident(M), s_cols, C)}
+    g_rows = _segments([(0, S, Sp), (S, S, Sp), (2 * S, S, Sp)])
+    d_cols = _slice_columns(D, d["Dc"], C, d["Dc"])
+    m_cols = _slice_columns(M, d["Mc"], C, d["Mc"])
+    if N == 1:
+        out = {
+            "p_st": pack(st, ident(S), m_cols, C),
+            "p_ssT": pack(wss.t(), ident(S), s_cols, C),
+            "p_sgT": pack(wsg.t(), _segments([(0, S, Sp), (S, S, Sp)]),
+                          s_cols, C),
+            "p_dxgT": pack(torch.cat([dxm.t(), dgm.t()]), g_rows, d_cols, C),
+            "p_stT": pack(st.t(), ident(M), s_cols, C)}
+    else:
+        dxs, dgs = _layers(dxm, N), _layers(dgm, N)
+        # layer l's [dca | dgu | dgr] rows at l * 3S of the stacked table
+        dxg = torch.cat([torch.cat([dxs[ly].t(), dgs[ly].t()])
+                         for ly in range(N)])
+        dxg_rows = _segments([(ly * 3 * S + k * S, S, Sp)
+                              for ly in range(N) for k in range(3)])
+        # block j's columns of every layer's S slice side by side
+        st_cols = torch.cat([torch.where(s_cols >= 0, s_cols + ly * S, -1)
+                             .reshape(C, Sc) for ly in range(N)],
+                            dim=1).reshape(-1)
+        ib = [torch.cat([ii.t(), ig.t()]) for ii, ig in
+              zip(_layers(inter_in, N - 1), _layers(inter_gate, N - 1))]
+        out = {
+            "p_st": pack(st, _state_rows(d, N, S), m_cols, C),
+            "p_ssT": _flat([pack(w.t(), ident(S), s_cols, C)
+                            for w in _layers(wss, N)]),
+            "p_sgT": _flat([pack(w.t(), _segments([(0, S, Sp), (S, S, Sp)]),
+                                 s_cols, C) for w in _layers(wsg, N)]),
+            "p_dxgT": pack(dxg, dxg_rows, d_cols, C),
+            "p_stT": pack(st.t(), ident(M), st_cols, C),
+            "p_ibT": _flat([pack(w, g_rows, s_cols, C) for w in ib])}
     if toep is not None:
         L = toep.shape[0]
         nf = toep.shape[1] // L
@@ -510,19 +613,26 @@ class _Args(ctypes.Structure):
         + [(name, ctypes.c_float) for name in (
             "before", "after", "initial_begin", "initial_end", "min_speed",
             "max_speed")]
-        + [(name, ctypes.c_int) for name in ("n_filters", "prior_mean")])
+        + [(name, ctypes.c_int) for name in ("n_filters", "prior_mean")]
+        + [("p_ibT", ctypes.c_void_p), ("dec_stack", ctypes.c_int)])
 
 
 def unported_variant(normalizer, n_filters, dec_stack, prior_type):
     """The first piece of a decoder variant the CUDA kernel does not cover,
-    or None."""
+    or None.  A stack of two to four layers runs with more than one conv
+    filter and softmax: the instance the configs under ``exp/`` use."""
     for ok, piece in (
             (0 <= int(n_filters) <= MAX_FILTERS, f"{n_filters} conv filters"),
             (normalizer == "softmax" or (int(n_filters) >= 1
                                          and normalizer in NORMALIZERS),
              f"the {normalizer!r} normalizer"
              + (" of content attention" if int(n_filters) == 0 else "")),
-            (int(dec_stack) == 1, f"dec_stack={dec_stack}"),
+            (int(dec_stack) == 1
+             or (2 <= int(dec_stack) <= MAX_STACK and int(n_filters) > 1
+                 and normalizer == "softmax"),
+             f"dec_stack={dec_stack}"
+             + (f" with {n_filters} conv filters and the {normalizer!r} "
+                "normalizer" if int(dec_stack) <= MAX_STACK else "")),
             (prior_type in PRIORS, f"the {prior_type!r} prior")):
         if not ok:
             return piece
@@ -546,17 +656,18 @@ def _check(name, t, shape, device, dtype=torch.float32):
 _active = {}
 
 
-def max_active_clusters(kind, device, n_filters=1):
+def max_active_clusters(kind, device, n_filters=1, dec_stack=1):
     """{cluster size: clusters of the kind's kernel (the conv branch with
-    one filter or more, or the content branch, ``n_filters`` 0) the
-    device holds at once} (``cudaOccupancyMaxActiveClusters`` at a block's
-    most shared memory), queried once per device and branch."""
-    # every filter count above one shares an instance
-    key = (device.index, kind, min(int(n_filters), 2))
+    one filter or more, or the content branch, ``n_filters`` 0; a stack's
+    own instance) the device holds at once}
+    (``cudaOccupancyMaxActiveClusters`` at a block's most shared memory),
+    queried once per device and instance."""
+    # every filter count above one shares an instance, every stack one
+    key = (device.index, kind, min(int(n_filters), 2), min(int(dec_stack), 2))
     if key not in _active:
         lib = _build.load().lib
         lib.decoder_train_max_clusters.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_int)]
         lib.decoder_train_max_clusters.restype = ctypes.c_int
         active = {}
@@ -564,18 +675,19 @@ def max_active_clusters(kind, device, n_filters=1):
             for size in CLUSTERS:
                 count = ctypes.c_int(0)
                 _build.check(lib.decoder_train_max_clusters(
-                    KINDS.index(kind), key[2], size, ctypes.byref(count)),
-                    "decoder_train_max_clusters")
+                    KINDS.index(kind), key[2], key[3], size,
+                    ctypes.byref(count)), "decoder_train_max_clusters")
                 active[size] = count.value
         _active[key] = active
     return _active[key]
 
 
-def launch_plan(kind, B, L, M, D, S, device, n_filters=1, **force):
+def launch_plan(kind, B, L, M, D, S, device, n_filters=1, dec_stack=1,
+                **force):
     """The plan a launch of the kind's kernel takes on ``device``."""
     return plan(kind, B, L, M, D, S,
-                max_active_clusters(kind, device, n_filters),
-                n_filters=n_filters, **force)
+                max_active_clusters(kind, device, n_filters, dec_stack),
+                n_filters=n_filters, dec_stack=dec_stack, **force)
 
 
 def _launch(name, args, stream_of):
@@ -602,8 +714,9 @@ _PRIOR = ("before", "after", "initial_begin", "initial_end", "min_speed",
           "max_speed")
 
 
-def _plan_args(kind, B, L, M, D, S, device, n_filters):
-    p = launch_plan(kind, B, L, M, D, S, device, n_filters=n_filters)
+def _plan_args(kind, B, L, M, D, S, device, n_filters, dec_stack):
+    p = launch_plan(kind, B, L, M, D, S, device, n_filters=n_filters,
+                    dec_stack=dec_stack)
     return p, dims(p["cluster"], p["rows"], L, M, D, S)
 
 
@@ -617,15 +730,18 @@ class _DecoderScanTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cfg, fx, fg, mask, step0, pre, att, amask, h0, w0, wa0,
-                toep, st, hand, v, wss, wsg, dxm, dgm, e_bias):
-        T, B, S = fx.shape
+                toep, st, hand, v, wss, wsg, dxm, dgm, e_bias, inter_in,
+                inter_gate):
+        T, B, NS = fx.shape
+        N = cfg["dec_stack"]
+        S = NS // N
         L, M, D = pre.shape[1], pre.shape[2], att.shape[2]
         new = lambda *s: torch.empty(*s, dtype=fx.dtype, device=fx.device)
         norm = NORMALIZERS.index(cfg["normalizer"])
-        outs = dict(h_out=new(T, B, S), w_out=new(T, B, L),
+        outs = dict(h_out=new(T, B, NS), w_out=new(T, B, L),
                     wa_out=new(T, B, D), e_out=new(T, B, L),
-                    u_out=new(T, B, S), r_out=new(T, B, S),
-                    c_out=new(T, B, S), bounds=new(max(T, 1), 2),
+                    u_out=new(T, B, NS), r_out=new(T, B, NS),
+                    c_out=new(T, B, NS), bounds=new(max(T, 1), 2),
                     exch=new(2, 2 * B),
                     gsc=new(T, B, L) if norm else new(0))
         ins = dict(fx=fx, fg=fg, mask=mask, step0=step0, pre=pre, att=att,
@@ -633,9 +749,9 @@ class _DecoderScanTrain(torch.autograd.Function):
                    e_bias=e_bias)
         nf = cfg["n_filters"]
         if T and B:
-            p, d = _plan_args("forward", B, L, M, D, S, fx.device, nf)
+            p, d = _plan_args("forward", B, L, M, D, S, fx.device, nf, N)
             packed = pack_forward(d, toep if nf else None, st, wss, wsg,
-                                  dxm, dgm)
+                                  dxm, dgm, inter_in, inter_gate)
             barrier = torch.zeros(2, dtype=torch.int32, device=fx.device)
             args = _Args(**{k: _ptr(t) for k, t in
                             {**ins, **outs, **packed}.items()},
@@ -643,47 +759,53 @@ class _DecoderScanTrain(torch.autograd.Function):
                          S=S, content=int(nf == 0), normalizer=norm,
                          n_filters=nf, cluster=p["cluster"],
                          clusters=p["clusters"], res_pre=p["res_pre"],
-                         res_att=p["res_att"], **_prior_fields(cfg))
+                         res_att=p["res_att"], dec_stack=N,
+                         **_prior_fields(cfg))
             _launch("decoder_train_fwd_f32", args, fx)
             launches.count += 1
         ctx.cfg = cfg
         ctx.save_for_backward(fx, fg, mask, step0, pre, att, amask, h0, w0,
                               wa0, toep, st, hand, v, wss, wsg, dxm, dgm,
-                              e_bias, *outs.values())
+                              e_bias, inter_in, inter_gate, *outs.values())
         return (outs["h_out"], outs["w_out"], outs["wa_out"], outs["e_out"])
 
     @staticmethod
     def backward(ctx, dh, dw, dwa, _de):
         saved = ctx.saved_tensors
         (fx, fg, mask, step0, pre, att, amask, h0, w0, wa0, toep, st, hand,
-         v, wss, wsg, dxm, dgm, e_bias) = saved[:19]
+         v, wss, wsg, dxm, dgm, e_bias, inter_in, inter_gate) = saved[:21]
         (h_out, w_out, wa_out, e_out, u_out, r_out, c_out, bounds,
-         exch, gsc) = saved[19:]
+         exch, gsc) = saved[21:]
         cfg = ctx.cfg
         # logistic and relu: dv's rows carry the bias's gradient last
         nb = int(cfg["normalizer"] != "softmax")
-        T, B, S = fx.shape
+        T, B, NS = fx.shape
+        N = cfg["dec_stack"]
+        S = NS // N
         L, M, D = pre.shape[1], pre.shape[2], att.shape[2]
         new = lambda *s: torch.empty(*s, dtype=fx.dtype, device=fx.device)
         zeros = lambda *s: torch.zeros(*s, dtype=fx.dtype, device=fx.device)
         cot = lambda g, *s: g.contiguous() if g is not None else zeros(*s)
-        dh, dw, dwa = cot(dh, T, B, S), cot(dw, T, B, L), cot(dwa, T, B, D)
+        dh, dw, dwa = cot(dh, T, B, NS), cot(dw, T, B, L), cot(dwa, T, B, D)
         nf = cfg["n_filters"]
         nh = max(nf, 1)
-        g = dict(dfx=new(T, B, S), dfg=new(T, B, 2 * S), dh0=new(B, S),
+        g = dict(dfx=new(T, B, NS), dfg=new(T, B, 2 * NS), dh0=new(B, NS),
                  dwa0=new(B, D), dpre=new(B, L, M), dsp=new(T, B, M),
                  dwan=new(T, B, D))
         if nf:
             g.update(wg=new(T, B, L), dconv=new(T, B, nf * L))
         # the content branch: the band and the handler feed nothing, so
         # their gradients stay zero and no outer_sum job forms them
-        w_grads = dict(dtoep=zeros(L, nh * L), dst=zeros(S, M),
-                       dwss=zeros(S, S), dwsg=zeros(S, 2 * S),
-                       ddx=zeros(D, S), ddg=zeros(D, 2 * S),
+        w_grads = dict(dtoep=zeros(L, nh * L), dst=zeros(NS, M),
+                       dwss=[zeros(S, S) for _ in range(N)],
+                       dwsg=[zeros(S, 2 * S) for _ in range(N)],
+                       ddx=zeros(D, NS), ddg=zeros(D, 2 * NS),
                        dhand=zeros(1, nh * M), dv=zeros(1, M + nb),
-                       datt=zeros(B, L, D))
+                       datt=zeros(B, L, D),
+                       dii=[zeros(S, S) for _ in range(N - 1)],
+                       dig=[zeros(S, 2 * S) for _ in range(N - 1)])
         if T and B:
-            p, d = _plan_args("backward", B, L, M, D, S, fx.device, nf)
+            p, d = _plan_args("backward", B, L, M, D, S, fx.device, nf, N)
             C = p["cluster"]
             g.update(dv=new(B * C, M + nb))
             # the handler's partials: a (row, block)'s, or with more
@@ -692,7 +814,7 @@ class _DecoderScanTrain(torch.autograd.Function):
             if nf:
                 g.update(dhand=new(hand_rows, nf * M))
             packed = pack_backward(d, toep if nf else None, st, wss, wsg,
-                                   dxm, dgm)
+                                   dxm, dgm, inter_in, inter_gate)
             ins = dict(fx=fx, fg=fg, mask=mask, step0=step0, pre=pre, att=att,
                        amask=amask, h0=h0, w0=w0, wa0=wa0, hand=hand, v=v,
                        h_out=h_out, w_out=w_out, wa_out=wa_out, e_out=e_out,
@@ -705,23 +827,37 @@ class _DecoderScanTrain(torch.autograd.Function):
                          normalizer=NORMALIZERS.index(cfg["normalizer"]),
                          n_filters=nf, cluster=C, clusters=p["clusters"],
                          res_pre=p["res_pre"], res_att=p["res_att"],
-                         res_dpre=p["res_dpre"], **_prior_fields(cfg))
+                         res_dpre=p["res_dpre"], dec_stack=N,
+                         **_prior_fields(cfg))
             _launch("decoder_train_bwd_f32", args, fx)
             launches.count += 1
             h_prev = torch.cat([h0[None], h_out[:-1]])
             ones = fx.new_ones(B * C, 1)  # the (row, block) dhand, dv sums
-            jobs = [(h_prev, None, g["dsp"], w_grads["dst"]),
-                    (h_prev, r_out, g["dfx"], w_grads["dwss"]),
-                    (h_prev, None, g["dfg"], w_grads["dwsg"]),
-                    (wa_out, None, g["dfx"], w_grads["ddx"]),
-                    (wa_out, None, g["dfg"], w_grads["ddg"]),
-                    (ones, None, g["dv"], w_grads["dv"])]
+            lane = lambda x, ly, w=S: x[..., ly * w:(ly + 1) * w]
+            jobs = [(h_prev, None, g["dsp"], w_grads["dst"])]
+            for ly in range(N):
+                jobs += [(lane(h_prev, ly), lane(r_out, ly),
+                          lane(g["dfx"], ly), w_grads["dwss"][ly]),
+                         (lane(h_prev, ly), None, lane(g["dfg"], ly, 2 * S),
+                          w_grads["dwsg"][ly])]
+            jobs += [(wa_out, None, g["dfx"], w_grads["ddx"]),
+                     (wa_out, None, g["dfg"], w_grads["ddg"])]
+            for ly in range(1, N):
+                # the layer below's unmasked new state, recomputed from
+                # the residuals as the forward formed it
+                u, c = lane(u_out, ly - 1), lane(c_out, ly - 1)
+                below = u * c + (1.0 - u) * lane(h_prev, ly - 1)
+                jobs += [(below, None, lane(g["dfx"], ly),
+                          w_grads["dii"][ly - 1]),
+                         (below, None, lane(g["dfg"], ly, 2 * S),
+                          w_grads["dig"][ly - 1])]
             if nf:
-                jobs = [(g["wg"], None, g["dconv"], w_grads["dtoep"])] \
-                    + jobs[:5] \
-                    + [(fx.new_ones(hand_rows, 1), None, g["dhand"],
-                        w_grads["dhand"]), jobs[5]]
-            outer_sum(jobs, fx)
+                jobs.insert(0, (g["wg"], None, g["dconv"], w_grads["dtoep"]))
+                jobs.append((fx.new_ones(hand_rows, 1), None, g["dhand"],
+                             w_grads["dhand"]))
+            jobs.append((ones, None, g["dv"], w_grads["dv"]))
+            for j0 in range(0, len(jobs), MAX_JOBS):
+                outer_sum(jobs[j0:j0 + MAX_JOBS], fx)
             # datt[b] = sum_t w_t[b]^T dwan_t[b]: one job a batch row
             for b0 in range(0, B, MAX_JOBS):
                 outer_sum([(w_out[:, b], None, g["dwan"][:, b],
@@ -731,13 +867,16 @@ class _DecoderScanTrain(torch.autograd.Function):
             for k in ("dfx", "dfg", "dh0", "dwa0", "dpre"):
                 g[k].zero_()
         dv = w_grads["dv"][0]
+        lanes = lambda ts: ts[0] if len(ts) == 1 else torch.cat(ts, dim=1)
         return (None, g["dfx"], g["dfg"], None, None, g["dpre"],
                 w_grads["datt"], None, g["dh0"], None, g["dwa0"],
                 w_grads["dtoep"], w_grads["dst"],
                 w_grads["dhand"].view(nh, M),
-                dv[:M], w_grads["dwss"], w_grads["dwsg"],
+                dv[:M], lanes(w_grads["dwss"]), lanes(w_grads["dwsg"]),
                 w_grads["ddx"], w_grads["ddg"],
-                dv[M:].reshape(e_bias.shape) if nb else None)
+                dv[M:].reshape(e_bias.shape) if nb else None,
+                lanes(w_grads["dii"]) if N > 1 else None,
+                lanes(w_grads["dig"]) if N > 1 else None)
 
 
 def decoder_scan_train(fx, fg, mask, pre, attended, att_mask, h0, w0, wa0,
@@ -746,17 +885,19 @@ def decoder_scan_train(fx, fg, mask, pre, attended, att_mask, h0, w0, wa0,
                        dec_stack=1, inter_in=None, inter_gate=None):
     """Differentiable attention-decoder scan.
 
-    fx (T, B, S) / fg (T, B, 2S): fork projections of the fed-back labels
-    (bias included); mask (T, B) or None; pre (B, L, M) preprocessed keys;
+    fx (T, B, N*S) / fg (T, B, 2N*S): fork projections of the fed-back
+    labels (bias included), lane-stacked over the N = ``dec_stack``
+    layers; mask (T, B) or None; pre (B, L, M) preprocessed keys;
     attended (B, L, D); att_mask (B, L); h0 / w0 / wa0 initial state,
     alignment and weighted average; toep (L, max(n_filters, 1) * L) the
     Toeplitz bands of the conv taps (filter-major); st (S * dec_stack, M)
     state transform; hand (max(n_filters, 1), M) conv handler rows; v (M,)
     energy vector; e_bias the energy bias of the non-softmax normalizers;
     wss / wsg the GRU matrices and dxm / dgm the distribute matrices, each
-    lane-stacked over the layers; inter_in / inter_gate the interlayer
-    projections of a stacked decoder.  Returns (h, weights, weighted
-    averages, energies), each (T, B, .), mask-mixed by selection."""
+    lane-stacked over the layers; inter_in (S, (N-1)*S) / inter_gate (S,
+    2(N-1)*S) the interlayer projections of a stacked decoder.  Returns
+    (h, weights, weighted averages, energies), each (T, B, .), mask-mixed
+    by selection."""
     device = fx.device
     if device.type == "cpu":
         return decoder_scan_train_reference(
@@ -766,28 +907,36 @@ def decoder_scan_train(fx, fg, mask, pre, attended, att_mask, h0, w0, wa0,
             inter_in=inter_in, inter_gate=inter_gate)
     if device.type != "cuda":
         raise ValueError(f"decoder_scan_train: no kernel for device {device}")
+    N = int(dec_stack)
     cfg = dict(prior_config(prior), n_filters=int(n_filters),
-               normalizer=normalizer)
+               normalizer=normalizer, dec_stack=N)
     piece = unported_variant(normalizer, n_filters, dec_stack, cfg["prior"])
     if piece is not None:
         raise NotImplementedError(
             f"decoder_scan_train: the CUDA kernel does not cover {piece} yet "
             f"(the plain version does, on CPU tensors)")
-    T, B, S = fx.shape
+    T, B, NS = fx.shape
+    S = NS // N
     L, M = pre.shape[1], pre.shape[2]
     D = attended.shape[2]
     nh = max(int(n_filters), 1)
     if mask is None:
         mask = fx.new_ones(T, B)
-    for name, t, shape in (
-            ("fx", fx, (T, B, S)), ("fg", fg, (T, B, 2 * S)),
-            ("mask", mask, (T, B)), ("pre", pre, (B, L, M)),
-            ("attended", attended, (B, L, D)), ("att_mask", att_mask, (B, L)),
-            ("h0", h0, (B, S)), ("w0", w0, (B, L)), ("wa0", wa0, (B, D)),
-            ("toep", toep, (L, nh * L)), ("st", st, (S, M)),
-            ("hand", hand.reshape(nh, -1), (nh, M)), ("v", v, (M,)),
-            ("wss", wss, (S, S)), ("wsg", wsg, (S, 2 * S)),
-            ("dxm", dxm, (D, S)), ("dgm", dgm, (D, 2 * S))):
+    checks = [
+        ("fx", fx, (T, B, NS)), ("fg", fg, (T, B, 2 * NS)),
+        ("mask", mask, (T, B)), ("pre", pre, (B, L, M)),
+        ("attended", attended, (B, L, D)), ("att_mask", att_mask, (B, L)),
+        ("h0", h0, (B, NS)), ("w0", w0, (B, L)), ("wa0", wa0, (B, D)),
+        ("toep", toep, (L, nh * L)), ("st", st, (NS, M)),
+        ("hand", hand.reshape(nh, -1), (nh, M)), ("v", v, (M,)),
+        ("wss", wss, (S, NS)), ("wsg", wsg, (S, 2 * NS)),
+        ("dxm", dxm, (D, NS)), ("dgm", dgm, (D, 2 * NS))]
+    if N > 1:
+        checks += [("inter_in", inter_in, (S, (N - 1) * S)),
+                   ("inter_gate", inter_gate, (S, 2 * (N - 1) * S))]
+    else:
+        inter_in = inter_gate = None
+    for name, t, shape in checks:
         _check(name, t, shape, device)
     if normalizer != "softmax":
         e_bias = e_bias.reshape(1).contiguous()
@@ -796,4 +945,5 @@ def decoder_scan_train(fx, fg, mask, pre, attended, att_mask, h0, w0, wa0,
         e_bias = None
     return _DecoderScanTrain.apply(
         cfg, fx, fg, mask, step_zero(mask), pre, attended, att_mask, h0, w0,
-        wa0, toep, st, hand.reshape(nh, M), v, wss, wsg, dxm, dgm, e_bias)
+        wa0, toep, st, hand.reshape(nh, M), v, wss, wsg, dxm, dgm, e_bias,
+        inter_in, inter_gate)

@@ -13,8 +13,9 @@ as the JAX package does on its accelerator:
   the model's device whose step is the recognizer's ``decode_score`` (the
   attention energies through ``beam_attention_energies``, or the whole
   score step through ``fused_decode_score`` under ``use_pallas:
-  fused``), candidate selection, and ``decode_advance`` (the GRU and the
-  LM).
+  fused``), candidate selection, and ``decode_advance`` (the GRU stack
+  and the LM); the carry's lane-stacked states of every layer are
+  reordered by the chosen source rows with the rest of the carry.
 
 Both return the same arrays (``done_out``, ``done_cost``,
 ``done_adjusted``, ``done_len``, ``done_valid``, ``steps``) with the JAX
@@ -66,8 +67,10 @@ def loop_route(net_config, beam, num_frames, max_len):
     an LM, under ``use_pallas: never``, above ``MAX_LOOP_BEAM``, for a
     readout without exactly one post-merge layer, for a configuration the
     kernel does not cover (``ops/beam_loop.py::unported_loop``: above 16
-    filters, an unknown activation, the task loss's costs with the WSJ
-    variants, which no config runs) and when one utterance's state does
+    filters or four decoder layers, an unknown activation, the task
+    loss's costs with the WSJ variants or a stack, a stack with another
+    normalizer than softmax, which no config runs) and when one
+    utterance's state does
     not fit a block's shared memory (``smem_plan``), the cases where JAX's
     ``_loop_kernel_mode`` (``search/beam.py:283-344``) leaves the
     kernel."""
@@ -83,9 +86,10 @@ def loop_route(net_config, beam, num_frames, max_len):
     act = c.get("post_merge_activation") or "tanh"
     mse = dict(c.get("criterion") or {}).get(
         "name", "log_likelihood").startswith("mse")
+    dec_stack = c.get("dec_stack") or 1
     if unported_loop("expanding" if content else prior, n_filters,
                      "softmax" if content else normalizer, content, act,
-                     mse):
+                     mse, dec_stack):
         return False
     L = int(num_frames)
     for s in c.get("subsample") or [1] * len(c["dims_bidir"]):
@@ -98,7 +102,7 @@ def loop_route(net_config, beam, num_frames, max_len):
         F=c.get("dim_output_embedding") or dim_dec, Lout=max(1, max_len),
         n_taps=0 if content else 2 * c["conv_n"] + 1, content=content,
         normalizer="softmax" if content else normalizer,
-        n_filters=n_filters, maxout=maxout_pieces(act))
+        n_filters=n_filters, maxout=maxout_pieces(act), dec_stack=dec_stack)
     return plan["fits"]
 
 

@@ -14,7 +14,8 @@ decodes and scores the TIMIT recipe's content-attention model with
 adaptive weight noise; and trains the task-loss recipe with greedy
 exploration, its kernel branches held to their plain versions; and
 trains and decodes the WSJ recipes' readout and attention variants (ten
-filters, maxout, the mean window, rectifier and no post-merge layer).
+filters, maxout, the mean window, rectifier and no post-merge layer);
+and trains and decodes the stacked decoders of the wsj_jan_* recipes.
 Phases, each fatal on failure:
 
 1. build the kernels (one nvcc per source, sm_90a) and print the time;
@@ -244,7 +245,29 @@ Phases, each fatal on failure:
     search (beam 10, U=4), on the kernels and on the plain route:
     train_cost, total_gradient_norm and validation costs within 1e-4
     relative, the same hypotheses (more than half non-empty), each
-    recipe's decode route and launches, utt/s.
+    recipe's decode route and launches, utt/s;
+23. stacked GRU decoders (``dec_stack`` 2-4, the wsj_jan_* recipes): (a)
+    ``beam_search_loop``'s stacked instance against the plain loop at
+    wsj_jan_wsj13v2.yaml's widths (two 256-unit layers over a 3x256
+    encoder, ten filters, maxout:2 with the states, M=512) at U=64, 400
+    frames (L=200), beam 10, 100 steps, under the mean and the expanding
+    prior, and at U=32 with wsj_jan_wsj15v2.yaml's two 512-unit layers
+    (800 frames, L=200), three and four 64-unit layers, and
+    wsj_jan_debug.yaml's 19-unit layers, compared as in phase 3, a second
+    launch bit for bit, the C layouts, the times and bounds; (b)
+    ``decoder_scan_train``'s stacked forward and backward against the
+    plain scan (T=100, ten filters, the mean prior) at wsj13v2's decoder
+    with L=400, B=10 and 32, at wsj15v2's with L=200, and with three and
+    four 64-unit layers: states within 1e-5, every gradient (the
+    interlayer tables' included) within 1e-4 of its largest value, a
+    second call bit for bit, plans, C layouts, times; (c)
+    wsj_jan_wsj13v2.yaml's ``pretraining`` and ``main`` (from
+    ``pretraining_best_ll.zip``) on the kernels and on the plain route,
+    2 batches of 10 utterances of 600-800 frames an epoch, validation and
+    search (beam 10) on 4 of them cut to 400 frames, where the loop
+    kernel holds the decode, compared as phase 22d compares; (d) two
+    training steps of wsj_jan_wsj15v2.yaml and of wsj_jan_debug.yaml on
+    the kernels, B=10, 800 frames, their launches.
 
 Nothing of JAX or of the JAX package is imported; the script checks it.
 
@@ -263,7 +286,12 @@ the decoder, phase 21's branches; ``task_loss_launches``, phase 21e's
 kernel route; ``maxout10_mean``, ``maxout10_expanding``, ``rectifier``,
 ``sigmoid`` and ``identity`` for the loop, ``filters10_mean_B10`` and
 ``_B32`` for the decoder and ``mean`` for the score step, phase 22a-c's
-branches; ``variant_launches``, phase 22d's kernel route per recipe);
+branches; ``variant_launches``, phase 22d's kernel route per recipe;
+``stack2_mean``, ``stack2_expanding``, ``stack2_S512``, ``stack3_S64``,
+``stack4_S64`` and ``stack2_debug`` for the loop, ``stack2_B10``,
+``stack2_B32``, ``stack2_S512_B10``, ``stack3_S64_B10`` and
+``stack4_S64_B10`` for the decoder, phase 23a-b's stacked decoders;
+``stacked_launches``, phase 23c-d's kernel route per recipe);
 the line before it holds the rates, phase 21d's reward DP time and
 launches among them; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -631,6 +659,9 @@ def main():
     t0 = time.perf_counter()
     variant_launches = wsj_variants_phase(t, dev, results, rates)
     log(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    stacked_launches = stacked_phase(t, dev, results, rates)
+    log(f"phase 23: {time.perf_counter() - t0:.1f} s")
 
     banned = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "attention_lvcsr_tpu"))
@@ -672,6 +703,10 @@ def main():
         k["variant_launches"] = {recipe: moved.get(k["name"], 0)
                                  for recipe, moved in
                                  variant_launches.items()}
+        # phase 23c-d's kernel route, per recipe: the stacked decoders
+        k["stacked_launches"] = {recipe: moved.get(k["name"], 0)
+                                 for recipe, moved in
+                                 stacked_launches.items()}
     log(json.dumps(dict(rates, build_s=lib.build_seconds)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -718,11 +753,12 @@ def gru_scan_plans(t, dev, rng, T, D, result):
 
 
 def beam_loop_plan(dims, content=False, normalizer="softmax", phase=None,
-                   n_filters=1, post_act=0, maxout=0):
-    """Phases 3, 20b, 21b and 22a: the loop kernel's C shared-memory layout
-    against its Python mirror at the main path's shape (``dims`` carries
-    the C struct's ``content`` flag for the content branch; ``n_filters``,
-    ``post_act`` and ``maxout`` the struct's filters and activation)."""
+                   n_filters=1, post_act=0, maxout=0, dec_stack=1):
+    """Phases 3, 20b, 21b, 22a and 23a: the loop kernel's C shared-memory
+    layout against its Python mirror at the main path's shape (``dims``
+    carries the C struct's ``content`` flag for the content branch;
+    ``n_filters``, ``post_act``, ``maxout`` and ``dec_stack`` the struct's
+    filters, activation and decoder layers)."""
     import ctypes
     from attention_lvcsr_torch import _build
     from attention_lvcsr_torch.ops import beam_loop as bl
@@ -731,17 +767,20 @@ def beam_loop_plan(dims, content=False, normalizer="softmax", phase=None,
     lib.beam_loop_smem_bytes.restype = ctypes.c_int
     c_bytes = lib.beam_loop_smem_bytes(ctypes.byref(bl._Args(
         U=1, normalizer=bl.NORMALIZERS.index(normalizer),
-        n_filters=n_filters, post_act=post_act, maxout=maxout, **dims)))
+        n_filters=n_filters, post_act=post_act, maxout=maxout,
+        dec_stack=dec_stack, **dims)))
     plan = bl.smem_plan(**{k: v for k, v in dims.items() if k != "content"},
                         content=content, normalizer=normalizer,
-                        n_filters=n_filters, maxout=maxout)
+                        n_filters=n_filters, maxout=maxout,
+                        dec_stack=dec_stack)
     if c_bytes != plan["smem_bytes"] or not plan["fits"]:
         fail(f"beam_search_loop: the C layout has {c_bytes} bytes, the "
              f"mirror {plan['smem_bytes']} (fits: {plan['fits']}; content "
              f"{content}, {normalizer})")
     log(f"phase {phase or ('20b' if content else '3')} beam_loop layout "
-        f"({normalizer}, {n_filters} filters, post_act {post_act}): "
-        f"{c_bytes} bytes a block (C equals the mirror)")
+        f"({normalizer}, {n_filters} filters, post_act {post_act}, "
+        f"{dec_stack} layers): {c_bytes} bytes a block (C equals the "
+        f"mirror)")
     return {"smem_bytes": c_bytes}
 
 
@@ -1427,9 +1466,10 @@ def outer_sum_check(t, rng, results, T, B, D):
 
 
 def decoder_operands(t, dev, rng, T=100, B=32, L=200, M=250, D=500, S=250,
-                     taps=201):
+                     taps=201, N=1):
     """Flagship-shaped operands of decoder_scan_train, ragged label and
-    frame masks (row 0 full: the expanding prior counts its steps)."""
+    frame masks (row 0 full: the expanding prior counts its steps); ``N``
+    GRU layers lane-stacked, with the interlayer tables of a stack."""
     import torch
     from attention_lvcsr_torch.ops.decoder_train import toeplitz_band
     f = lambda *s, scale=1.0: t(rng.randn(*s) * scale)
@@ -1439,21 +1479,25 @@ def decoder_operands(t, dev, rng, T=100, B=32, L=200, M=250, D=500, S=250,
     frames[0] = L
     w0 = torch.zeros(B, L, device=dev)
     w0[:, 0] = 1.0
+    NS = N * S
     ops = dict(
-        fx=f(T, B, S), fg=f(T, B, 2 * S), pre=f(B, L, M, scale=0.5),
-        attended=f(B, L, D, scale=0.5), h0=f(B, S, scale=0.1),
+        fx=f(T, B, NS), fg=f(T, B, 2 * NS), pre=f(B, L, M, scale=0.5),
+        attended=f(B, L, D, scale=0.5), h0=f(B, NS, scale=0.1),
         wa0=torch.zeros(B, D, device=dev),
         toep=toeplitz_band(f(1, taps, scale=0.1), L),
-        st=f(S, M, scale=0.1), hand=f(1, M, scale=0.1),
-        v=f(M, scale=0.1), wss=f(S, S, scale=1 / np.sqrt(S)),
-        wsg=f(S, 2 * S, scale=1 / np.sqrt(S)), dxm=f(D, S, scale=0.05),
-        dgm=f(D, 2 * S, scale=0.05))
+        st=f(NS, M, scale=0.1), hand=f(1, M, scale=0.1),
+        v=f(M, scale=0.1), wss=f(S, NS, scale=1 / np.sqrt(S)),
+        wsg=f(S, 2 * NS, scale=1 / np.sqrt(S)), dxm=f(D, NS, scale=0.05),
+        dgm=f(D, 2 * NS, scale=0.05))
+    if N > 1:
+        ops.update(inter_in=f(S, (N - 1) * S, scale=1 / np.sqrt(S)),
+                   inter_gate=f(S, 2 * (N - 1) * S, scale=1 / np.sqrt(S)))
     fixed = dict(
         mask=t((np.arange(T)[:, None] < labels[None]).astype(np.float32)),
         att_mask=t((np.arange(L)[None] < frames[:, None]).astype(
             np.float32)),
         w0=w0)
-    cots = [f(T, B, S), f(T, B, L), f(T, B, D)]
+    cots = [f(T, B, NS), f(T, B, L), f(T, B, D)]
     return ops, fixed, cots
 
 
@@ -2798,23 +2842,24 @@ def paper_stages(net, main_epochs=2, annealing_epochs=1):
     return stages
 
 
-def stage_batches(t, dev, n, B, seed):
-    """``n`` batches of ``B`` utterances of 300-500 frames and 30-60
-    labels (row 0 the longest in both)."""
+def stage_batches(t, dev, n, B, seed, frames=500, labels=60):
+    """``n`` batches of ``B`` utterances of 60-100 % of ``frames`` frames
+    and 50-100 % of ``labels`` labels (row 0 the longest in both)."""
     import torch
     V = len(CHARS)
     rng = np.random.RandomState(seed)
+    T, TL = frames, labels
     batches = []
     for _ in range(n):
-        frames, labels = rng.randint(300, 501, size=B), rng.randint(
-            30, 61, size=B)
-        frames[0], labels[0] = 500, 60
+        frames, labels = rng.randint(T * 3 // 5, T + 1, size=B), \
+            rng.randint(TL // 2, TL + 1, size=B)
+        frames[0], labels[0] = T, TL
         batches.append({
-            "recordings": t(rng.randn(B, 500, 123)),
-            "recordings_mask": t(np.arange(500)[None] < frames[:, None]),
-            "labels": torch.tensor(rng.randint(0, V - 1, size=(B, 60)),
+            "recordings": t(rng.randn(B, T, 123)),
+            "recordings_mask": t(np.arange(T)[None] < frames[:, None]),
+            "labels": torch.tensor(rng.randint(0, V - 1, size=(B, TL)),
                                    device=dev),
-            "labels_mask": t(np.arange(60)[None] < labels[:, None])})
+            "labels_mask": t(np.arange(TL)[None] < labels[:, None])})
     return batches
 
 
@@ -4205,9 +4250,12 @@ def loop_row_ops(net, width, D):
     ``decode_step.cuh::window_conv_filters`` clips them, and its handler
     term), the readout (the states' merge, the activation, the post-merge
     layer of R / k rows under maxout), the GRU advance with its fork and
-    distribute products, and the selection."""
+    distribute products, and the selection; a stack of N layers has N
+    layers' states in the state products and N advances, each layer
+    above the first with its interlayer products (2 * S * 3S)."""
     from attention_lvcsr_torch.ops.expressions import maxout_pieces
     S, V = net["dim_dec"], net["num_phonemes"]
+    N = net.get("dec_stack") or 1
     M = net.get("dim_matcher") or S
     R = net["post_merge_dims"][0]
     nf, n = net.get("conv_num_filters") or 1, net["conv_n"]
@@ -4216,11 +4264,12 @@ def loop_row_ops(net, width, D):
     readout = 2 * D * R + R + 2 * (R // (maxout_pieces(
         net.get("post_merge_activation") or "tanh") or 1)) * V + 3 * V
     if net.get("use_states_for_readout"):
-        readout += 2 * S * R
+        readout += 2 * N * S * R
     # attention_step_ops' terms with the conv and handler terms per filter
-    return (2 * S * M + 2 * nf * taps + (4 + 2 * nf) * width * M
-            + 4 * width + 2 * width * D + readout + 2 * (D + S) * 3 * S
-            + gru_step_ops(S) + 3 * V)
+    return (2 * N * S * M + 2 * nf * taps + (4 + 2 * nf) * width * M
+            + 4 * width + 2 * width * D + readout
+            + N * (2 * (D + S) * 3 * S + gru_step_ops(S))
+            + (N - 1) * 2 * S * 3 * S + 3 * V)
 
 
 def loop_ops(net, K, D, widths, steps):
@@ -4236,16 +4285,94 @@ def loop_ops(net, K, D, widths, steps):
     return K * ops, float(live.mean()) if live.size else 0.0
 
 
+def loop_case(dev, results, phase, name, net, feats, fmask, K, max_len,
+              min_finished):
+    """The loop kernel's decode of ``net`` (random weights from seed 1234,
+    the EOS logit raised by 1.5) against the plain loop on the same card
+    tensors, compared as in phase 3 (at least ``min_finished`` utterances
+    must finish), a second launch bit for bit, the C layout, the times
+    and the bound over each step's window, into ``results``."""
+    import torch
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    from attention_lvcsr_torch.ops.expressions import maxout_pieces
+    U = feats.shape[0]
+    rec = SpeechRecognizer(dict(net, max_decoded_length_scale=8.0),
+                           init_config=FLAGSHIP_INIT, seed=1234, device=dev)
+    with torch.inference_mode():
+        d = rec.net.decode_loop(feats, fmask)
+        tables = dict(rec.net.decode_loop_tables())
+    tables["post_b"] = tables["post_b"].clone()
+    tables["post_b"][rec.eos_label] += 1.5
+    prior = rec.net.generator.attention.prior_config()
+    act = net["post_merge_activation"]
+    N = net.get("dec_stack") or 1
+    kw = dict(beam=K, max_len=max_len, eol=rec.eos_label,
+              ignore_first_eol=True, post_act=act, prior=prior["type"],
+              **{k: float(v) for k, v in prior.items() if k != "type"})
+    loop_args = (d["pre"], d["attended"], d["attended_mask"], tables)
+
+    def as_out(res):
+        out, meta, steps = (x.cpu().numpy() for x in res)
+        return {"done_out": out, "done_cost": meta[:, :, 0],
+                "done_adjusted": meta[:, :, 1],
+                "done_len": meta[:, :, 2].astype(np.int32),
+                "done_valid": meta[:, :, 1] < bl.INF / 2, "steps": steps}
+
+    bl.launches.reset()
+    got = as_out(bl.beam_search_loop(*loop_args, **kw))
+    if bl.launches.count != 1:
+        fail(f"beam_search_loop {name}: no launch")
+    widths = []                 # each step's window, for the bound
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    start.record()
+    ref = as_out(bl.beam_search_loop_reference(*loop_args, **kw,
+                                               window_widths=widths))
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = compare_outputs(f"beam_search_loop {name}", got, ref)
+    finished = int(got["done_valid"].any(axis=1).sum())
+    if finished < min_finished:
+        fail(f"beam_search_loop {name}: only {finished}/{U} utterances "
+             f"finished: the comparison is too weak")
+    again = as_out(bl.beam_search_loop(*loop_args, **kw))
+    if not all(np.array_equal(got[k], again[k]) for k in got):
+        fail(f"beam_search_loop {name}: a second launch differs")
+    ms = cuda_ms(lambda: bl.beam_search_loop(*loop_args, **kw), 3)
+    L, M, D = d["pre"].shape[1], d["pre"].shape[2], d["attended"].shape[2]
+    code, pieces = bl.post_act_code(act)
+    nf = net["conv_num_filters"]
+    plan = beam_loop_plan(dict(
+        K=K, L=L, M=M, D=D, S=net["dim_dec"], R=net["post_merge_dims"][0],
+        V=rec.num_phonemes, F=tables["embed"].shape[1],
+        Lout=kw["max_len"], n_taps=tables["conv_filters"].shape[-1]),
+        phase=phase, n_filters=nf, post_act=code, maxout=pieces,
+        dec_stack=N)
+    out = bl.beam_search_loop(*loop_args, **kw)
+    ops, window = loop_ops(net, K, D, widths, got["steps"])
+    results["beam_search_loop"][name] = {
+        "U": U, "L": L, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        **bound(nbytes(*loop_args[:3], tables, *out), ops),
+        "mean_window": window, "library_ms": None, **plan}
+    r = results["beam_search_loop"][name]
+    log(f"phase {phase} beam_search_loop {name} ({N} layers of "
+        f"{net['dim_dec']}, {nf} filters, {act}, {prior['type']}) U={U} "
+        f"L={L}: outputs agree; {finished}/{U} finished, steps "
+        f"{int(got['steps'].min())}..{int(got['steps'].max())}, max abs "
+        f"cost err {err:.3e}, a second launch bit for bit; kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {r['bound_ms']:.3f} "
+        f"ms over windows of {r['mean_window']:.1f} of {L} frames on "
+        f"average ({maxout_pieces(act) or 'no'} maxout pieces)")
+    return r
+
+
 def variant_loops(t, dev, results):
     """Phase 22a: beam_loop.cu's new branches against the plain loop at
     U=64, 800 frames, beam 10, 100 steps: ten filters + maxout:2 + the
     states readout at wsj_mean_maxout's widths under the mean and the
     expanding prior, and the rectifier, sigmoid and identity post-merge
     activations at wsj_bhd4's."""
-    import torch
-    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
-    from attention_lvcsr_torch.ops import beam_loop as bl
-    from attention_lvcsr_torch.ops.expressions import maxout_pieces
     U, frames, K = 64, 800, 10
     rng = np.random.RandomState(22)
     feats = t(rng.randn(U, frames, 123))
@@ -4261,190 +4388,133 @@ def variant_loops(t, dev, results):
              "sigmoid": dict(bhd4, post_merge_activation="sigmoid"),
              "identity": dict(bhd4, post_merge_activation="identity")}
     for name, net in cases.items():
-        net = dict(net, max_decoded_length_scale=8.0)
-        rec = SpeechRecognizer(net, init_config=FLAGSHIP_INIT, seed=1234,
-                               device=dev)
-        with torch.inference_mode():
-            d = rec.net.decode_loop(feats, fmask)
-            tables = dict(rec.net.decode_loop_tables())
-        tables["post_b"] = tables["post_b"].clone()
-        tables["post_b"][rec.eos_label] += 1.5
-        prior = rec.net.generator.attention.prior_config()
-        act = net["post_merge_activation"]
-        kw = dict(beam=K, max_len=frames // 8, eol=rec.eos_label,
-                  ignore_first_eol=True, post_act=act, prior=prior["type"],
-                  **{k: float(v) for k, v in prior.items() if k != "type"})
-        loop_args = (d["pre"], d["attended"], d["attended_mask"], tables)
+        loop_case(dev, results, "22a", name, net, feats, fmask, K,
+                  frames // 8, U * 3 // 4)
 
-        def as_out(res):
-            out, meta, steps = (x.cpu().numpy() for x in res)
-            return {"done_out": out, "done_cost": meta[:, :, 0],
-                    "done_adjusted": meta[:, :, 1],
-                    "done_len": meta[:, :, 2].astype(np.int32),
-                    "done_valid": meta[:, :, 1] < bl.INF / 2,
-                    "steps": steps}
 
-        bl.launches.reset()
-        got = as_out(bl.beam_search_loop(*loop_args, **kw))
-        if bl.launches.count != 1:
-            fail(f"beam_search_loop {name}: no launch")
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
-        start.record()
-        ref = as_out(bl.beam_search_loop_reference(*loop_args, **kw))
-        end.record()
-        torch.cuda.synchronize()
-        plain_ms = start.elapsed_time(end)
-        err = compare_outputs(f"beam_search_loop {name}", got, ref)
-        finished = int(got["done_valid"].any(axis=1).sum())
-        if finished < U * 3 // 4:
-            fail(f"beam_search_loop {name}: only {finished}/{U} utterances "
-                 f"finished: the comparison is too weak")
-        widths = []                 # each step's window, for the bound
-        bl.beam_search_loop_reference(*loop_args, **kw, window_widths=widths)
-        again = as_out(bl.beam_search_loop(*loop_args, **kw))
-        if not all(np.array_equal(got[k], again[k]) for k in got):
-            fail(f"beam_search_loop {name}: a second launch differs")
-        ms = cuda_ms(lambda: bl.beam_search_loop(*loop_args, **kw), 3)
-        L, M, D = d["pre"].shape[1], d["pre"].shape[2], d["attended"].shape[2]
-        code, pieces = bl.post_act_code(act)
-        nf = net["conv_num_filters"]
-        plan = beam_loop_plan(dict(
-            K=K, L=L, M=M, D=D, S=net["dim_dec"], R=net["post_merge_dims"][0],
-            V=rec.num_phonemes, F=tables["embed"].shape[1],
-            Lout=kw["max_len"], n_taps=tables["conv_filters"].shape[-1]),
-            phase="22a", n_filters=nf, post_act=code, maxout=pieces)
-        out = bl.beam_search_loop(*loop_args, **kw)
-        ops, window = loop_ops(net, K, D, widths, got["steps"])
-        results["beam_search_loop"][name] = {
-            "U": U, "L": L, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms,
-            **bound(nbytes(*loop_args[:3], tables, *out), ops),
-            "mean_window": window, "library_ms": None, **plan}
-        r = results["beam_search_loop"][name]
-        log(f"phase 22a beam_search_loop {name} ({nf} filters, {act}, "
-            f"{prior['type']}) U={U} L={L}: outputs agree; {finished}/{U} "
-            f"finished, steps {int(got['steps'].min())}.."
-            f"{int(got['steps'].max())}, max abs cost err {err:.3e}, a "
-            f"second launch bit for bit; kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {r['bound_ms']:.3f} ms over windows "
-            f"of {r['mean_window']:.1f} of {L} frames on average "
-            f"({maxout_pieces(act) or 'no'} maxout pieces)")
+def decoder_case(t, dev, results, phase, key, prior, T, B, L, M, D, S,
+                 nf=10, taps=201, N=1):
+    """decoder_train.cu's forward and backward with ``nf`` filters and
+    ``N`` GRU layers against the plain scan: states within 1e-5 and every
+    gradient within 1e-4 of its largest value (the taps', the handler's
+    and a stack's interlayer tables' included), a second call bit for
+    bit; the launch plans, the C layouts against the mirror, the times,
+    into ``results["decoder_scan_train"][key]``."""
+    import torch
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    rng = np.random.RandomState(22 + B + 10 * (N - 1))
+    ops, fixed, cots = decoder_operands(t, dev, rng, T=T, B=B, L=L, M=M,
+                                        D=D, S=S, taps=taps, N=N)
+    # the filters' bands, side by side, and their handler rows
+    filters = t(rng.randn(nf, taps) * 0.1)
+    ops["toep"] = torch.cat([dt.toeplitz_band(filters[f], L)
+                             for f in range(nf)], dim=1)
+    ops["hand"] = t(rng.randn(nf, M) * 0.1)
+    names = list(ops)
+
+    def scan(fn):
+        def call(*xs):
+            d = dict(zip(names, xs))
+            return fn(d["fx"], d["fg"], fixed["mask"], d["pre"],
+                      d["attended"], fixed["att_mask"], d["h0"],
+                      fixed["w0"], d["wa0"], d["toep"], d["st"], d["hand"],
+                      d["v"], d["wss"], d["wsg"], d["dxm"], d["dgm"],
+                      prior=prior, n_filters=nf, dec_stack=N,
+                      inter_in=d.get("inter_in"),
+                      inter_gate=d.get("inter_gate"))
+        return call
+
+    plans = {}
+    for kind in dt.KINDS:
+        p = dt.launch_plan(kind, B, L, M, D, S, dev, n_filters=nf,
+                           dec_stack=N)
+        res = {k: p.get(f"res_{k}", 0) for k in dt.TILES[kind]}
+        check_decoder_layout(kind, B, L, M, D, S, p, res, nf, N)
+        plans[kind] = p
+        log(f"phase {phase} decoder_scan_train {kind} plan {key}: "
+            f"{p['clusters']} clusters of {p['cluster']} blocks, "
+            f"{p['rows']} rows a cluster, resident {res}, "
+            f"{p['smem_bytes']} bytes a block (C equals the mirror)")
+    leaves = [ops[n] for n in names]
+    dt.launches.reset()
+    got, ggot = grads_of(scan(dt.decoder_scan_train), leaves, cots)
+    if dt.launches.count != 2:
+        fail(f"decoder_scan_train {key}: {dt.launches.count} launches, "
+             f"expected a forward and a backward")
+    ref, gref = grads_of(scan(dt.decoder_scan_train_reference), leaves, cots)
+    outs = ("h", "weights", "wa", "energies")
+    state_errs = relative_errors(dict(zip(outs, got)), dict(zip(outs, ref)))
+    grad_errs = relative_errors(
+        {f"d{n}": g for n, g in zip(names, ggot)},
+        {f"d{n}": g for n, g in zip(names, gref)})
+    log(f"phase {phase} decoder_scan_train {key} ({nf} filters, {N} "
+        f"layers of {S}, {prior['type']}) T={T} B={B} L={L}: max abs err "
+        f"over max abs value: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in {**state_errs, **grad_errs}.items()))
+    if not (max(state_errs.values()) <= 1e-5
+            and max(grad_errs.values()) <= 1e-4):
+        fail(f"decoder_scan_train {key} disagrees with its plain version")
+    repeat(f"decoder_scan_train ({key})", ggot,
+           grads_of(scan(dt.decoder_scan_train), leaves, cots))
+    abs_err = max(float((a - b).abs().max()) for a, b in
+                  zip(list(got) + list(ggot), list(ref) + list(gref)))
+    fwd, plain = scan(dt.decoder_scan_train), scan(
+        dt.decoder_scan_train_reference)
+    fwd_ms = cuda_ms(lambda: fwd(*leaves), 3)
+    bwd_ms = backward_ms(fwd, leaves, cots, 3)
+    plain_fwd = cuda_ms(lambda: plain(*leaves), 1)
+    plain_bwd = backward_ms(plain, leaves, cots, 1)
+    alone = {}
+    with timed_launches(dt, 5, alone):
+        grads_of(fwd, leaves, cots)
+    # one step of one row: the attention step with its bands (2 L^2 each)
+    # and handler terms, the N layers' distribute products and GRU steps
+    # and the N - 1 interlayer products; the backward recomputes the
+    # attention step and does twice the products
+    row_ops = attention_step_ops(N * S, M, L, nf * L, D) \
+        + 2 * (nf - 1) * L * M + N * (2 * D * 3 * S + gru_step_ops(S)) \
+        + (N - 1) * 2 * S * 3 * S
+    n_ops = T * B * row_ops
+    fwd_bytes = nbytes(*leaves, *fixed.values()) + nbytes(*got) \
+        + 3 * nbytes(got[0])
+    bwd_bytes = nbytes(*leaves, *fixed.values(), *cots, *got) \
+        + 3 * nbytes(got[0]) + nbytes(*gref)
+    results["decoder_scan_train"][key] = {
+        "B": B, "T": T, "L": L, "S": S, "dec_stack": N,
+        "max_abs_err": abs_err,
+        "max_rel_err_states": max(state_errs.values()),
+        "max_rel_err_grads": max(grad_errs.values()),
+        "ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+        "fwd_kernel_ms": alone["decoder_train_fwd_f32"],
+        "bwd_kernel_ms": alone["decoder_train_bwd_f32"],
+        "plain_ms": plain_fwd + plain_bwd, "plain_fwd_ms": plain_fwd,
+        "plain_bwd_ms": plain_bwd,
+        **bound(fwd_bytes + bwd_bytes, 4 * n_ops), "library_ms": None,
+        **{f"{k}_plan": {x: p[x] for x in ("cluster", "clusters", "rows",
+                                            "smem_bytes")}
+           for k, p in plans.items()}}
+    r = results["decoder_scan_train"][key]
+    log(f"  forward {fwd_ms:.3f} ms (kernel alone {r['fwd_kernel_ms']:.3f}), "
+        f"autograd backward {bwd_ms:.3f} ms (kernel alone "
+        f"{r['bwd_kernel_ms']:.3f}); plain {plain_fwd:.3f} + "
+        f"{plain_bwd:.3f} ms; bound {r['bound_ms']:.3f} ms")
+    return r
 
 
 def variant_decoder(t, dev, results):
     """Phase 22b: decoder_train.cu's ten filters under the mean prior,
     forward and backward, against the plain scan at wsj_mean_maxout's
     decoder (T=100 labels, L=200 frames, M=512, D=512, S=256, 201 taps) at
-    B=10 and B=32: states within 1e-5 and every gradient within 1e-4 of
-    its largest value (the taps' and the handler's included), a second
-    call bit for bit; the launch plans, the C layouts against the mirror,
-    the times."""
-    import torch
-    from attention_lvcsr_torch.ops import decoder_train as dt
-    T, L, M, D, S, nf, taps = 100, 200, 512, 512, 256, 10, 201
+    B=10 and B=32 (``decoder_case``)."""
     prior = variant_nets()["mean_maxout"]["prior"]
     for B in (10, 32):
-        rng = np.random.RandomState(22 + B)
-        ops, fixed, cots = decoder_operands(t, dev, rng, T=T, B=B, L=L, M=M,
-                                            D=D, S=S, taps=taps)
-        # the filters' bands, side by side, and their handler rows
-        filters = t(rng.randn(nf, taps) * 0.1)
-        ops["toep"] = torch.cat([dt.toeplitz_band(filters[f], L)
-                                 for f in range(nf)], dim=1)
-        ops["hand"] = t(rng.randn(nf, M) * 0.1)
-        names = list(ops)
-
-        def scan(fn):
-            def call(*xs):
-                d = dict(zip(names, xs))
-                return fn(d["fx"], d["fg"], fixed["mask"], d["pre"],
-                          d["attended"], fixed["att_mask"], d["h0"],
-                          fixed["w0"], d["wa0"], d["toep"], d["st"],
-                          d["hand"], d["v"], d["wss"], d["wsg"], d["dxm"],
-                          d["dgm"], prior=prior, n_filters=nf)
-            return call
-
-        plans = {}
-        for kind in dt.KINDS:
-            p = dt.launch_plan(kind, B, L, M, D, S, dev, n_filters=nf)
-            res = {k: p.get(f"res_{k}", 0) for k in dt.TILES[kind]}
-            check_decoder_layout(kind, B, L, M, D, S, p, res, nf)
-            plans[kind] = p
-            log(f"phase 22b decoder_scan_train {kind} plan B={B}, {nf} "
-                f"filters: {p['clusters']} clusters of {p['cluster']} "
-                f"blocks, {p['rows']} rows a cluster, resident {res}, "
-                f"{p['smem_bytes']} bytes a block (C equals the mirror)")
-        leaves = [ops[n] for n in names]
-        dt.launches.reset()
-        got, ggot = grads_of(scan(dt.decoder_scan_train), leaves, cots)
-        if dt.launches.count != 2:
-            fail(f"decoder_scan_train {nf} filters: {dt.launches.count} "
-                 f"launches, expected a forward and a backward")
-        ref, gref = grads_of(scan(dt.decoder_scan_train_reference), leaves,
-                             cots)
-        outs = ("h", "weights", "wa", "energies")
-        state_errs = relative_errors(dict(zip(outs, got)),
-                                     dict(zip(outs, ref)))
-        grad_errs = relative_errors(
-            {f"d{n}": g for n, g in zip(names, ggot)},
-            {f"d{n}": g for n, g in zip(names, gref)})
-        log(f"phase 22b decoder_scan_train {nf} filters, mean prior, T={T} "
-            f"B={B} L={L}: max abs err over max abs value: "
-            + ", ".join(f"{k} {v:.2e}" for k, v in
-                        {**state_errs, **grad_errs}.items()))
-        if not (max(state_errs.values()) <= 1e-5
-                and max(grad_errs.values()) <= 1e-4):
-            fail(f"decoder_scan_train's {nf}-filter branch disagrees with "
-                 f"its plain version at B={B}")
-        repeat(f"decoder_scan_train ({nf} filters, B={B})", ggot,
-               grads_of(scan(dt.decoder_scan_train), leaves, cots))
-        abs_err = max(float((a - b).abs().max()) for a, b in
-                      zip(list(got) + list(ggot), list(ref) + list(gref)))
-        fwd, plain = scan(dt.decoder_scan_train), scan(
-            dt.decoder_scan_train_reference)
-        fwd_ms = cuda_ms(lambda: fwd(*leaves), 3)
-        bwd_ms = backward_ms(fwd, leaves, cots, 3)
-        plain_fwd = cuda_ms(lambda: plain(*leaves), 1)
-        plain_bwd = backward_ms(plain, leaves, cots, 1)
-        alone = {}
-        with timed_launches(dt, 5, alone):
-            grads_of(fwd, leaves, cots)
-        # one step of one row: the attention step with its ten bands
-        # (2 L^2 each) and handler terms, the distribute products and the
-        # GRU step; the backward recomputes the attention step and does
-        # twice the products
-        row_ops = attention_step_ops(S, M, L, nf * L, D) \
-            + 2 * (nf - 1) * L * M + 2 * D * 3 * S + gru_step_ops(S)
-        n_ops = T * B * row_ops
-        fwd_bytes = nbytes(*leaves, *fixed.values()) + nbytes(*got) \
-            + 3 * nbytes(got[0])
-        bwd_bytes = nbytes(*leaves, *fixed.values(), *cots, *got) \
-            + 3 * nbytes(got[0]) + nbytes(*gref)
-        key = f"filters10_mean_B{B}"
-        results["decoder_scan_train"][key] = {
-            "B": B, "T": T, "L": L, "max_abs_err": abs_err,
-            "max_rel_err_states": max(state_errs.values()),
-            "max_rel_err_grads": max(grad_errs.values()),
-            "ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
-            "fwd_kernel_ms": alone["decoder_train_fwd_f32"],
-            "bwd_kernel_ms": alone["decoder_train_bwd_f32"],
-            "plain_ms": plain_fwd + plain_bwd, "plain_fwd_ms": plain_fwd,
-            "plain_bwd_ms": plain_bwd,
-            **bound(fwd_bytes + bwd_bytes, 4 * n_ops), "library_ms": None,
-            **{f"{k}_plan": {x: p[x] for x in ("cluster", "clusters",
-                                                "rows", "smem_bytes")}
-               for k, p in plans.items()}}
-        r = results["decoder_scan_train"][key]
-        log(f"  forward {fwd_ms:.3f} ms (kernel alone "
-            f"{r['fwd_kernel_ms']:.3f}), autograd backward {bwd_ms:.3f} ms "
-            f"(kernel alone {r['bwd_kernel_ms']:.3f}); plain "
-            f"{plain_fwd:.3f} + {plain_bwd:.3f} ms; bound "
-            f"{r['bound_ms']:.3f} ms")
+        decoder_case(t, dev, results, "22b", f"filters10_mean_B{B}", prior,
+                     T=100, B=B, L=200, M=512, D=512, S=256)
 
 
-def check_decoder_layout(kind, B, L, M, D, S, plan, res, n_filters):
+def check_decoder_layout(kind, B, L, M, D, S, plan, res, n_filters, N=1):
     """The decoder kernel's C shared-memory layout of a plan against the
-    mirror (``ops/decoder_train.py::layout``)."""
+    mirror (``ops/decoder_train.py::layout``); ``N`` GRU layers."""
     import ctypes
     from attention_lvcsr_torch import _build
     from attention_lvcsr_torch.ops import decoder_train as dt
@@ -4455,9 +4525,9 @@ def check_decoder_layout(kind, B, L, M, D, S, plan, res, n_filters):
     c_bytes = lib.decoder_train_smem_bytes(dt.KINDS.index(kind), ctypes.byref(
         dt._Args(B=B, L=L, M=M, D=D, S=S, cluster=plan["cluster"],
                  clusters=plan["clusters"], n_filters=n_filters,
-                 **{f"res_{k}": v for k, v in res.items()})))
+                 dec_stack=N, **{f"res_{k}": v for k, v in res.items()})))
     want = dt.layout(kind, plan["cluster"], plan["rows"], L, M, D, S, res,
-                     n_filters=n_filters)["smem_bytes"]
+                     n_filters=n_filters, dec_stack=N)["smem_bytes"]
     if c_bytes != want or c_bytes != plan["smem_bytes"]:
         fail(f"decoder_scan_train {kind}: the C layout has {c_bytes} bytes, "
              f"the mirror {want}, the plan {plan['smem_bytes']}")
@@ -4554,13 +4624,29 @@ def variant_recipes():
 def variant_recipes_check(t, dev, rates):
     """Phase 22d: the recipes' stages through ``run_multistage`` on the
     kernels and on the plain route, 2 batches of 10 utterances of 300-500
-    frames an epoch, validation and search (beam 10 at U=4) before each
-    stage and after its epoch: train_cost, total_gradient_norm and
-    validation costs within 1e-4 relative, the same hypotheses, more than
-    half of them non-empty; the route of every search (the loop kernel
-    for wsj_mean_maxout and wsj_bhd4, the module route for wsj_good, which
-    has no post-merge layer); utt/s.  Returns the kernel route's
-    launches, per recipe."""
+    frames an epoch, validation and search (beam 10 at U=4, 4 of the
+    training utterances) before each stage and after its epoch
+    (``recipes_check``): the loop kernel for wsj_mean_maxout and
+    wsj_bhd4, the module route for wsj_good, which has no post-merge
+    layer.  Returns the kernel route's launches, per recipe."""
+    batches = {10: stage_batches(t, dev, 2, 10, seed=22)}
+    # validation on 4 of the training utterances: the steps lower their
+    # cost, so that pretraining writes the _best_ll main restarts from
+    valid = [{k: v[:4] for k, v in batches[10][0].items()}]
+    return recipes_check(dev, rates, "22d", variant_recipes(), batches,
+                         valid, {"wsj_mean_maxout": True, "wsj_bhd4": True,
+                                 "wsj_good": False})
+
+
+def recipes_check(dev, rates, phase, recipes, batches, valid, loop_routes):
+    """The recipes' stages through ``run_multistage`` on the kernels and on
+    the plain route over the in-memory ``batches`` ({batch size: batches}
+    of an epoch), validation and search on ``valid`` before each stage
+    and after its epoch: train_cost, total_gradient_norm and validation
+    costs within 1e-4 relative, the same hypotheses, more than half of
+    them non-empty; the route of every search (``loop_routes``: the loop
+    kernel where True, else the module route); utt/s.  Returns the
+    kernel route's launches, per recipe."""
     from attention_lvcsr_torch.models import attention as attention_mod
     from attention_lvcsr_torch.models import cells as cells_mod
     from attention_lvcsr_torch.models import generator as generator_mod
@@ -4585,12 +4671,8 @@ def variant_recipes_check(t, dev, rates):
              (generator_mod, "decoder_scan_train",
               dt.decoder_scan_train_reference)]
     data = SmokeData()
-    batches = {10: stage_batches(t, dev, 2, 10, seed=22)}
-    # validation on 4 of the training utterances: the steps lower their
-    # cost, so that pretraining writes the _best_ll main restarts from
-    valid = [{k: v[:4] for k, v in batches[10][0].items()}]
     moved_all = {}
-    for recipe, stages in variant_recipes().items():
+    for recipe, stages in recipes.items():
         t0 = time.perf_counter()
         tmp = tempfile.mkdtemp()
         try:
@@ -4622,14 +4704,18 @@ def variant_recipes_check(t, dev, rates):
         (loops, marks, searches, moved), (ref_loops, _, ref_searches,
                                           ref_moved) = (routes["kernels"],
                                                         routes["plain"])
-        loop_route = recipe != "wsj_good"
+        loop_route = loop_routes[recipe]
         used = {k for k, v in moved.items() if v}
+        # the module route's energies: one filter's through the energy
+        # kernel, more filters' in plain PyTorch (as JAX computes them)
+        module = ({"beam_attention_energies"}
+                  if (stages[0][1]["net"].get("conv_num_filters") or 1) == 1
+                  else set())
         want = {"gru_scan", "gru_scan_train_bidir", "decoder_scan_train",
-                "outer_sum",
-                "beam_search_loop" if loop_route
-                else "beam_attention_energies"}
+                "outer_sum"} | ({"beam_search_loop"} if loop_route
+                                else module)
         if used != want or any(ref_moved.values()):
-            fail(f"phase 22d {recipe}: launches {moved} on the kernels, "
+            fail(f"phase {phase} {recipe}: launches {moved} on the kernels, "
                  f"{ref_moved} on the plain route (expected {sorted(want)})")
         for (name, _), lp, lr in zip(stages, loops, ref_loops):
             for key in ("train_cost", "total_gradient_norm",
@@ -4638,25 +4724,25 @@ def variant_recipes_check(t, dev, rates):
                 rel = np.abs(np.subtract(g, r)) / np.abs(r)
                 if tg != tr or not tg or not (np.isfinite(g).all()
                                               and rel.max() <= 1e-4):
-                    fail(f"phase 22d {recipe} {name}: {key} {g} vs plain "
+                    fail(f"phase {phase} {recipe} {name}: {key} {g} vs plain "
                          f"{r}")
             if lp.log.channel("valid_per") != lr.log.channel("valid_per"):
-                fail(f"phase 22d {recipe} {name}: valid_per differs")
+                fail(f"phase {phase} {recipe} {name}: valid_per differs")
         if len(searches) != len(ref_searches) or not searches:
-            fail(f"phase 22d {recipe}: {len(searches)} searches vs "
+            fail(f"phase {phase} {recipe}: {len(searches)} searches vs "
                  f"{len(ref_searches)} on the plain route")
         worst = 0.0
         for i, (got, ref) in enumerate(zip(searches, ref_searches)):
             for u, ((h, c), (rh, rc)) in enumerate(zip(got, ref)):
                 if h != rh or (c is None) != (rc is None):
-                    fail(f"phase 22d {recipe}: search {i} utterance {u}: "
+                    fail(f"phase {phase} {recipe}: search {i} utterance {u}: "
                          f"{h} ({c}) vs the plain route's {rh} ({rc})")
                 if c is not None:
                     worst = max(worst, abs(c - rc) / max(abs(rc), 1e-6))
         nonempty = sum(bool(h) for got in searches for h, _ in got)
         searched = sum(len(g) for g in searches)
         if worst > 1e-4 or nonempty <= searched // 2:
-            fail(f"phase 22d {recipe}: beam costs within {worst:.2e}, "
+            fail(f"phase {phase} {recipe}: beam costs within {worst:.2e}, "
                  f"{nonempty} of {searched} hypotheses non-empty")
         for route, (lps, mks, _, _) in routes.items():
             for (name, stage), lp, s0, s1 in zip(stages, lps, mks, mks[1:]):
@@ -4668,11 +4754,11 @@ def variant_recipes_check(t, dev, rates):
                     B * steps / (s1 - s0)
                 rates[f"{recipe}_{route}_{name}_step_utt_per_s"] = \
                     B / step_s
-                log(f"phase 22d {recipe} {route} {name}: {s1 - s0:.2f} s "
+                log(f"phase {phase} {recipe} {route} {name}: {s1 - s0:.2f} s "
                     f"for {steps} steps of B={B}, "
                     f"{B * steps / (s1 - s0):.2f} utt/s with validation "
                     f"and search, {B / step_s:.2f} utt/s in the steps")
-        log(f"phase 22d {recipe}: {len(searches)} searches on the "
+        log(f"phase {phase} {recipe}: {len(searches)} searches on the "
             f"{'loop kernel' if loop_route else 'module route'} with the "
             f"plain route's hypotheses ({nonempty} of {searched} "
             f"non-empty), beam costs within {worst:.2e}; launches {moved}; "
@@ -4692,6 +4778,163 @@ def wsj_variants_phase(t, dev, results, rates):
     t0 = time.perf_counter()
     moved = variant_recipes_check(t, dev, rates)
     log(f"phase 22d: {time.perf_counter() - t0:.1f} s")
+    return moved
+
+
+def stacked_nets():
+    """The nets of phase 23, the stacked decoders of wsj_jan_new.yaml's
+    lineage over phase 22's ``mean_maxout`` (wsj_mean_maxout.yaml, whose
+    ten filters, maxout:2 readout with the decoder states, 512-dim matcher
+    and window around the mean they inherit):
+
+    * ``wsj13v2``, wsj_jan_wsj13v2.yaml's: a 3x256 encoder subsampled 1,
+      1, 2 and two 256-unit decoder layers;
+    * ``wsj15v2``, wsj_jan_wsj15v2.yaml's: the 4x256 encoder subsampled 1,
+      1, 2, 2 and two 512-unit layers (wsj_jan_wsj14v2.yaml has them over
+      wsj13v2's encoder);
+    * ``wsj_jan_debug``, wsj_jan_debug.yaml's: a 3x17 encoder subsampled
+      1, 2, 2, two 19-unit layers, 27-tap filters."""
+    mean_maxout = variant_nets()["mean_maxout"]
+    return {
+        "wsj13v2": dict(mean_maxout, dims_bidir=[256] * 3,
+                        subsample=[1, 1, 2], dec_stack=2),
+        "wsj15v2": dict(mean_maxout, dim_dec=512, dec_stack=2),
+        "wsj_jan_debug": dict(mean_maxout, dims_bidir=[17] * 3,
+                              subsample=[1, 2, 2], dim_dec=19, conv_n=13,
+                              dec_stack=2)}
+
+
+def stacked_loops(t, dev, results):
+    """Phase 23a: beam_loop.cu's stacked instance against the plain loop
+    (``loop_case``), beam 10, a 100-step cap, L=200 encoded frames: the
+    main path's wsj13v2 at U=64 (400 frames) under the mean and the
+    expanding prior, wsj15v2 (S=512, 800 frames), three and four 64-unit
+    layers over wsj13v2's encoder, and wsj_jan_debug's odd widths (800
+    frames), each at U=32."""
+    nets = stacked_nets()
+    wsj13v2 = nets["wsj13v2"]
+    cases = (("stack2_mean", wsj13v2, 64, 400),
+             ("stack2_expanding", dict(wsj13v2,
+                                       prior=MEAN_MAXOUT_PRETRAINING),
+              64, 400),
+             ("stack2_S512", nets["wsj15v2"], 32, 800),
+             ("stack3_S64", dict(wsj13v2, dim_dec=64, dec_stack=3), 32, 400),
+             ("stack4_S64", dict(wsj13v2, dim_dec=64, dec_stack=4), 32, 400),
+             ("stack2_debug", nets["wsj_jan_debug"], 32, 800))
+    for name, net, U, frames in cases:
+        rng = np.random.RandomState(23)
+        feats = t(rng.randn(U, frames, 123))
+        lengths = rng.randint(frames * 3 // 4, frames + 1, size=U)
+        lengths[0] = frames
+        fmask = t(np.arange(frames)[None] < lengths[:, None])
+        loop_case(dev, results, "23a", name, net, feats, fmask, 10, 100,
+                  U * 3 // 4)
+
+
+def stacked_decoder(t, dev, results):
+    """Phase 23b: decoder_train.cu's stacked forward and backward against
+    the plain scan (``decoder_case``, ten filters, the mean prior, T=100
+    labels): wsj13v2's decoder (two 256-unit layers, M=512, D=512, 201
+    taps) at L=400 and B=10 and 32, wsj15v2's (two 512-unit layers) at
+    L=200, B=10, and three and four 64-unit layers at L=100, M=128,
+    D=128, B=10."""
+    prior = variant_nets()["mean_maxout"]["prior"]
+    for key, B, L, M, D, S, N in (
+            ("stack2_B10", 10, 400, 512, 512, 256, 2),
+            ("stack2_B32", 32, 400, 512, 512, 256, 2),
+            ("stack2_S512_B10", 10, 200, 512, 512, 512, 2),
+            ("stack3_S64_B10", 10, 100, 128, 128, 64, 3),
+            ("stack4_S64_B10", 10, 100, 128, 128, 64, 4)):
+        decoder_case(t, dev, results, "23b", key, prior, T=100, B=B, L=L,
+                     M=M, D=D, S=S, N=N)
+
+
+def stacked_recipe():
+    """{recipe: [(stage, config)]}: wsj_jan_wsj13v2.yaml's ``pretraining``
+    (the expanding window) and ``main`` (from ``pretraining_best_ll.zip``,
+    the mean window) over the phase's net, with wsj_paper.yaml's adadelta
+    (as phase 22d's wsj_mean_maxout): under the recipe's momentum-adadelta
+    chain two steps of the random model need not lower the validation
+    cost, and without a lower one no ``_best_ll`` is written."""
+    stages = variant_recipes()["wsj_mean_maxout"]
+    net = {k: v for k, v in stacked_nets()["wsj13v2"].items()
+           if k not in ("input_dims", "input_num_chars", "eos_label",
+                        "num_phonemes")}
+    out = []
+    for name, stage in stages:
+        stage = copy.deepcopy(stage)
+        stage["net"] = dict(net, prior=stage["net"]["prior"])
+        out.append((name, stage))
+    return {"wsj_jan_wsj13v2": out}
+
+
+def stacked_recipe_check(t, dev, rates):
+    """Phase 23c: wsj_jan_wsj13v2.yaml's two stages (``recipes_check``)
+    over 2 batches of 10 utterances of 600-800 frames and 75-100 labels an
+    epoch, validating and searching 4 of them cut to 400 frames: the
+    search takes the loop kernel where ``loop_route`` says its state fits
+    a block at that length, else the module route.  Returns the kernel
+    route's launches."""
+    from attention_lvcsr_torch.search.beam import loop_route
+    batches = {10: stage_batches(t, dev, 2, 10, seed=23, frames=800,
+                                 labels=100)}
+    valid = [{k: (v[:4, :400] if k.startswith("recordings") else v[:4])
+              for k, v in batches[10][0].items()}]
+    recipes = stacked_recipe()
+    net = dict(recipes["wsj_jan_wsj13v2"][0][1]["net"],
+               num_phonemes=len(CHARS))
+    scale = net["max_decoded_length_scale"]
+    route = loop_route(net, 10, 400, int(400 / scale))
+    log(f"phase 23c: the search of 400-frame utterances takes the "
+        f"{'loop kernel' if route else 'module route'} (loop_route), "
+        f"training on 800 frames, whose decode would not fit: "
+        f"{not loop_route(net, 10, 800, int(800 / scale))}")
+    return recipes_check(dev, rates, "23c", recipes, batches, valid,
+                         {"wsj_jan_wsj13v2": route})["wsj_jan_wsj13v2"]
+
+
+def stacked_steps(t, dev, rates):
+    """Phase 23d: two training steps of wsj_jan_wsj15v2.yaml and of
+    wsj_jan_debug.yaml on the kernel route (B=10, 800 frames, 100
+    labels): finite costs and gradient norms, the training kernels'
+    launches.  Returns them, per recipe."""
+    batches = train_batches(t, dev, 2, B=10, T=800, TL=100, seed=23)
+    moved_all = {}
+    for recipe in ("wsj15v2", "wsj_jan_debug"):
+        net = stacked_nets()[recipe]
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            _, _, moved, mon = train_steps(dev, net, batches, 2,
+                                           os.path.join(tmp, "m.zip"))
+        secs = time.perf_counter() - t0
+        if moved["decoder_scan_train"] != 4 or not moved["outer_sum"] \
+                or not np.isfinite(mon["train_cost"]).all() \
+                or not np.isfinite(mon["total_gradient_norm"]).all():
+            fail(f"phase 23d {recipe}: launches {moved}, train_cost "
+                 f"{mon['train_cost']}, norms {mon['total_gradient_norm']}")
+        rates[f"{recipe}_step_utt_per_s"] = 10 / float(
+            np.median(mon["time_train_this_batch"]))
+        log(f"phase 23d {recipe}: 2 steps of B=10, 800 frames on the "
+            f"kernels in {secs:.1f} s, train_cost "
+            f"{mon['train_cost'].tolist()}, gradient norms "
+            f"{mon['total_gradient_norm'].tolist()}; launches {moved}")
+        moved_all[recipe] = {k: v for k, v in moved.items() if v}
+    return moved_all
+
+
+def stacked_phase(t, dev, results, rates):
+    """Phase 23: stacked GRU decoders.  Returns 23c's and 23d's kernel
+    launches, per recipe."""
+    t0 = time.perf_counter()
+    stacked_loops(t, dev, results)
+    stacked_decoder(t, dev, results)
+    log(f"phase 23a-b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moved = {"wsj_jan_wsj13v2": stacked_recipe_check(t, dev, rates)}
+    log(f"phase 23c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moved.update(stacked_steps(t, dev, rates))
+    log(f"phase 23d: {time.perf_counter() - t0:.1f} s")
     return moved
 
 

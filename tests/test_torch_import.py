@@ -194,7 +194,7 @@ def test_recognizer_defaults_to_the_card():
 @pytest.mark.parametrize("override,piece", [
     ({"dims_top": [8]}, "dims_top"),
     ({"energy_normalizer": "softplus"}, "normalizer"),
-    ({"dec_stack": 2}, "dec_stack"),
+    ({"attention_type": "hybrid"}, "attention_type"),
     ({"embed_outputs": False}, "one-hot"),
     ({"criterion": {"name": "hinge"}}, "criterion"),
     ({"energy_normalizer": "softplus", "lm": {"path": "x.fst"}},

@@ -183,10 +183,43 @@ def test_filter_activation_and_mean_prior_fields_travel_in_the_structs(
     cls, source = MIRRORS[struct]
     c_fields = _c_struct(source, struct)
     names = [f[0] for f in c_fields]
-    assert tuple(names[-len(fields):]) == fields
-    assert tuple(n for n, _ in cls._fields_[-len(fields):]) == fields
+    # only a stacked decoder's fields come after them
+    end = len(names) - len(STACK_FIELDS.get(struct, ()))
+    assert tuple(names[end - len(fields):end]) == fields
+    assert tuple(n for n, _ in cls._fields_[end - len(fields):end]) == fields
     by_name = {f[0]: f for f in c_fields}
     for name in fields:
         assert by_name[name][1:] == ("int", False, None)
         assert dict(cls._fields_)[name] is ctypes.c_int
         assert getattr(cls(), name) == 0
+
+
+# the stacked decoder's fields, last in the structs: the interlayer tables
+# (the loop's, layer-major; the training backward's packed transposes)
+# and the number of layers
+STACK_FIELDS = {
+    "BeamLoopArgs": (("inter_in_w", "float*"), ("inter_gate_w", "float*"),
+                     ("dec_stack", "int")),
+    "DecoderArgs": (("p_ibT", "float*"), ("dec_stack", "int"))}
+
+
+@pytest.mark.parametrize("struct", sorted(STACK_FIELDS))
+def test_stack_fields_travel_in_the_structs(struct):
+    """A stacked decoder's interlayer tables and ``dec_stack`` are the
+    last fields of the loop's and the training decoder's structs on both
+    sides, null and zero by default: a struct filled without them runs
+    one decoder layer, as before them."""
+    fields = STACK_FIELDS[struct]
+    cls, source = MIRRORS[struct]
+    c_fields = _c_struct(source, struct)
+    assert [f[0] for f in c_fields[-len(fields):]] == [n for n, _ in fields]
+    assert [n for n, _ in cls._fields_[-len(fields):]] == [
+        n for n, _ in fields]
+    by_name = {f[0]: f for f in c_fields}
+    blank = cls()
+    for name, ctype in fields:
+        pointer = ctype.endswith("*")
+        assert by_name[name][1:] == (ctype.rstrip("*"), pointer, None), name
+        assert dict(cls._fields_)[name] is (ctypes.c_void_p if pointer
+                                            else ctypes.c_int)
+        assert not getattr(blank, name)

@@ -12,10 +12,11 @@ JAX package (CPU, f32 both sides).
 * the plain score step ``fused_decode_score`` with the mean prior against
   JAX's Pallas kernel in interpret mode (1e-5);
 * the routing of every config under ``exp/``: the port's
-  ``loop_route`` and ``fused_score_supported`` give JAX's
-  ``_loop_kernel_mode`` and ``fused_score_supported`` (widths cut to a few
-  units, which keeps each config's shapes of lists and its choices), and
-  ``unported_piece`` refuses the four stacked-decoder configs alone."""
+  ``loop_route``, ``fused_score_supported`` and ``train_kernel_route``
+  give JAX's ``_loop_kernel_mode``, ``fused_score_supported`` and
+  ``_fused_train_mode`` (widths cut to a few units, which keeps each
+  config's shapes of lists and its choices), ``unported_piece`` passes
+  them all, and five decoder layers take both packages' module paths."""
 import glob
 import os
 
@@ -262,32 +263,50 @@ def test_every_config_is_covered():
     assert len(CONFIGS) == 54
 
 
+def _assert_routes_match(net, jnet_config):
+    """The port's loop route (beam 10, 100 frames), fused score step and
+    training route are JAX's choices for the same net config."""
+    jnet = JaxNet(**jnet_config)
+
+    class _Rec:
+        pass
+
+    jrec = _Rec()
+    jrec.net, jrec.num_phonemes = jnet, 5
+    jax_loop = JaxBeamSearch(jrec, 10)._loop_kernel_mode() is not None
+    assert loop_route(net, 10, 100, 33) == jax_loop, net
+    bound = jnet.bind({}, rngs={"params": jax.random.PRNGKey(0)},
+                      mutable=["params"])
+    ours = RecognizerNet(**net).generator
+    assert bool(ours.fused_score_supported()) \
+        == bool(bound.generator.fused_score_supported())
+    assert ours.train_kernel_route(net["use_pallas"]) \
+        == (bound.generator._fused_train_mode() is not None)
+
+
 @pytest.mark.parametrize("path", CONFIGS)
 def test_routing_matches_jax(path):
     """Per stage: ``unported_piece`` and ``unported_training`` pass every
-    config but the stacked decoders; where the port builds the model, its
-    loop route (beam 10, 100 frames) and its fused score step are JAX's
-    choices."""
+    config, the stacked decoders included; the port's loop route, fused
+    score step and training route are JAX's choices."""
     stages = _stages(path, Configuration)
     jstages = _stages(path, JaxConfiguration)
-    refused = [unported_piece(s["net"]) for s in stages]
-    if path in STACKED:
-        assert all("dec_stack" in (p or "") for p in refused)
-        return
-    assert refused == [None] * len(stages)
+    assert [unported_piece(s["net"]) for s in stages] == [None] * len(stages)
     for stage, jstage in zip(stages, jstages):
         assert unported_training(stage) is None
-        net = _small(stage["net"])
-        jnet = JaxNet(**_small(jstage["net"]))
+        _assert_routes_match(_small(stage["net"]), _small(jstage["net"]))
+        if path in STACKED:
+            assert stage["net"]["dec_stack"] == 2
+            assert not RecognizerNet(**_small(stage["net"])) \
+                .generator.fused_score_supported()
 
-        class _Rec:
-            pass
 
-        jrec = _Rec()
-        jrec.net, jrec.num_phonemes = jnet, 5
-        jax_loop = JaxBeamSearch(jrec, 10)._loop_kernel_mode() is not None
-        assert loop_route(net, 10, 100, 33) == jax_loop, stage["net"]
-        bound = jnet.bind({}, rngs={"params": jax.random.PRNGKey(0)},
-                          mutable=["params"])
-        ours = RecognizerNet(**net).generator.fused_score_supported()
-        assert bool(ours) == bool(bound.generator.fused_score_supported())
+def test_routing_of_five_layers_matches_jax():
+    """Five decoder layers, past the kernels' four: both packages take
+    their module paths for the decode and for the training cost."""
+    stage = _stages("exp/wsj/configs/wsj_jan_wsj13v2.yaml",
+                    Configuration)[-1]
+    net = dict(_small(stage["net"]), dec_stack=5)
+    assert not loop_route(net, 10, 100, 33)
+    assert not RecognizerNet(**net).generator.train_kernel_route("auto")
+    _assert_routes_match(net, dict(net))
