@@ -65,12 +65,19 @@
 //   can still read its shared memory.
 //
 // Widths whose weight slices and buffers do not fit in a block's shared
-// memory (D above 448; 256 with 8 blocks) are not covered:
-// gru_scan_supported() says so before a launch.
+// memory (D above 448; 256 with 8 blocks) take the wide instance,
+// gru_wide_kernel, up to D=1024 (gru_wide.cuh): the same cluster, items,
+// exchanges and barriers, with the weight slices streamed from L2 through
+// a ring of tiles every step and a thread finishing up to four gate and two
+// candidate items (eight and four with 8 blocks).  It is a kernel of its
+// own, chosen by width before the launch (ops/gru_scan.py::route), so the
+// resident instance keeps its code.  gru_scan_fits() and
+// gru_scan_wide_fits() say what each covers before a launch.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "gru_pull.cuh"
+#include "gru_wide.cuh"
 #include "sm90_async.cuh"
 
 // Must match the ctypes.Structures in ops/gru_scan.py field for field.
@@ -91,6 +98,16 @@ struct GruArgs {
   GruDir dir[2];
   const float* mask;     // (T, B) or null
   int T, B, D, ldx, ldg, ldo;
+};
+
+// The wide instance's arguments: the resident ones, and per direction the
+// weights packed per block (ops/gru_scan.py::pack_forward): block j's
+// slice at pack[(size_t)j * 3 * Dp * n], the owned [update | reset] gate
+// columns (Dp, 2n) then the owned candidate columns (Dp, n), k-major,
+// zero past D.
+struct GruWideArgs {
+  GruArgs a;
+  const float* pack[2];
 };
 
 namespace {
@@ -242,6 +259,163 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   }
 }
 
+// The wide instance: gru_fwd_kernel's step with the weight slices
+// streamed (stream_partials) and kGI gate and kCI candidate items a thread.
+// The buffer hazards are the resident kernel's; the ring is the block's
+// own, every use of it between two block barriers.
+template <int kC>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    gru_wide_kernel(const __grid_constant__ GruWideArgs wa) {
+  namespace cg = cooperative_groups;
+  constexpr int kGI = wide_gate_items(kC), kCI = wide_cand_items(kC);
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  const GruArgs& a = wa.a;
+  const GruDir& d = a.dir[blockIdx.y];
+  const int T = a.T, B = a.B, D = a.D;
+  const WideLayout o = wide_layout(D, kC);
+  const int n = o.n, n2 = 2 * o.n, Dp = o.Dp;
+  const int j = (int)cluster.block_rank();
+  const int b0 = (blockIdx.x / kC) * kGroupRows;
+  const int nrows = min(kGroupRows, B - b0);
+  const int c0 = j * n;                       // first owned column
+  const float* wg = wa.pack[blockIdx.y] + (size_t)j * 3 * Dp * n;
+  const float* ws = wg + (size_t)Dp * n2;
+  float* hT = smem + o.h;
+  float* rhT = smem + o.rh;
+  float* z = smem + o.z;
+  float* stage_g = smem + o.stage;            // gate items
+  float* stage_x = stage_g + kGroupRows * n2; // candidate items
+  float* stage_m = stage_x + kGroupRows * n;
+  float* part = smem + o.part;
+  float* ring = smem + o.ring;
+  const int tid = threadIdx.x;
+
+  // the initial state of the row group; r * h zero (its padding stays so)
+  for (int i = tid; i < Dp * kGroupRows; i += blockDim.x) {
+    const int k = i / kGroupRows, r = i % kGroupRows;
+    hT[i] = k < D && r < nrows ? d.h0[(size_t)(b0 + r) * D + k] : 0.f;
+    rhT[i] = 0.f;
+  }
+
+  // gate item e is (row, column cc of 2n), candidate item e (row, column
+  // cc of n), each the thread's tid + e * kClusterThreads
+  auto gate_item = [&](int e, int& r, int& cc, int& c) {
+    const int item = tid + e * kClusterThreads;
+    r = item / n2;
+    cc = item % n2;
+    c = c0 + (cc < n ? cc : cc - n);
+    return r < nrows && c < D;
+  };
+  auto cand_item = [&](int e, int& r, int& cc) {
+    const int item = tid + e * kClusterThreads;
+    r = item / n;
+    cc = item % n;
+    return r < nrows && c0 + cc < D;
+  };
+
+  // the step's gate inputs, input projections and mask of this thread's
+  // items into the stage
+  auto prefetch = [&](int step) {
+    const int t = d.reverse ? T - 1 - step : step;
+    const size_t row0 = (size_t)t * B + b0;
+#pragma unroll
+    for (int e = 0; e < kGI; ++e) {
+      int r, cc, c;
+      if (gate_item(e, r, cc, c))
+        cp_async<4>(stage_g + tid + e * kClusterThreads,
+                    d.g + (row0 + r) * a.ldg + (cc < n ? c : D + c), 4);
+    }
+#pragma unroll
+    for (int e = 0; e < kCI; ++e) {
+      int r, cc;
+      if (!cand_item(e, r, cc)) continue;
+      const int slot = tid + e * kClusterThreads;
+      cp_async<4>(stage_x + slot, d.x + (row0 + r) * a.ldx + c0 + cc, 4);
+      if (a.mask != nullptr)
+        cp_async<4>(stage_m + slot, a.mask + row0 + r, 4);
+    }
+    cp_async_commit();
+  };
+  prefetch(0);
+  // state in place, every block of the cluster running
+  cluster.sync();
+
+  for (int step = 0; step < T; ++step) {
+    const int t = d.reverse ? T - 1 - step : step;
+    const size_t row0 = (size_t)t * B + b0;
+    float gv[kGI];
+    // ---- gates of the owned columns; own slice of r * h
+    stream_partials(hT, wg, n2, Dp, o.kt_g, o.slices_g, ring, part);
+    __syncthreads();
+    cp_async_wait<0>();
+#pragma unroll
+    for (int e = 0; e < kGI; ++e) {
+      int r, cc, c;
+      gv[e] = 0.f;
+      if (!gate_item(e, r, cc, c)) continue;
+      gv[e] = sigmoidf(slice_sum(part, o.slices_g, n2, r, cc)
+                       + stage_g[tid + e * kClusterThreads]);
+      if (cc < n)
+        z[r * n + cc] = gv[e];
+      else
+        rhT[c * kGroupRows + r] = gv[e] * hT[c * kGroupRows + r];
+    }
+    cluster_arrive();
+    // this step's update and reset gates, for the training backward
+    if (d.u != nullptr) {
+#pragma unroll
+      for (int e = 0; e < kGI; ++e) {
+        int r, cc, c;
+        if (gate_item(e, r, cc, c))
+          (cc < n ? d.u : d.r)[(row0 + r) * D + c] = gv[e];
+      }
+    }
+    // ---- wait for the cluster's r * h; pull the peers' slices
+    cluster_wait();
+    pull_peers<kC>(cluster, rhT, n, Dp, 1, j);
+    __syncthreads();
+    // ---- candidates of the owned columns; own slice of the new state
+    stream_partials(rhT, ws, n, Dp, o.kt_c, o.slices_c, ring, part);
+    __syncthreads();
+    float cand[kCI], hn[kCI];
+#pragma unroll
+    for (int e = 0; e < kCI; ++e) {
+      int r, cc;
+      cand[e] = hn[e] = 0.f;
+      if (!cand_item(e, r, cc)) continue;
+      const int slot = tid + e * kClusterThreads;
+      const int col = c0 + cc;
+      cand[e] = tanhf(slice_sum(part, o.slices_c, n, r, cc) + stage_x[slot]);
+      const float hold = hT[col * kGroupRows + r];
+      const float up = z[r * n + cc];
+      hn[e] = up * cand[e] + (1.f - up) * hold;
+      if (a.mask != nullptr) {
+        const float m = stage_m[slot];
+        hn[e] = m * hn[e] + (1.f - m) * hold;
+      }
+      hT[col * kGroupRows + r] = hn[e];
+    }
+    cluster_arrive();
+    // the next step's operands, then this step's stores: issued after the
+    // arrive, whose release would otherwise wait for them too
+    if (step + 1 < T) prefetch(step + 1);
+#pragma unroll
+    for (int e = 0; e < kCI; ++e) {
+      int r, cc;
+      if (!cand_item(e, r, cc)) continue;
+      d.out[(row0 + r) * a.ldo + c0 + cc] = hn[e];
+      if (d.c != nullptr) d.c[(row0 + r) * D + c0 + cc] = cand[e];
+    }
+    // ---- wait for the cluster's new state; pull the peers' slices
+    cluster_wait();
+    if (step + 1 < T) {
+      pull_peers<kC>(cluster, hT, n, Dp, 1, j);
+      __syncthreads();
+    }
+  }
+}
+
 template <int kC>
 int max_clusters(int D, int* count) {
   const size_t smem = (size_t)fwd_layout(D, kC).total * sizeof(float);
@@ -278,10 +452,6 @@ extern "C" int gru_scan_fits(int D, int cluster) {
   return (cluster == 8 || cluster == 16) && fwd_fits(D, cluster, max_smem);
 }
 
-// Whether the kernel covers width D on the current device (with 16-block
-// clusters, the widest layout): 1 or 0, or a negative CUDA error code.
-extern "C" int gru_scan_supported(int D) { return gru_scan_fits(D, 16); }
-
 // The layout's dynamic shared memory in bytes, a block of `cluster`.
 extern "C" int gru_scan_smem_bytes(int D, int cluster) {
   return fwd_layout(D, cluster).total * (int)sizeof(float);
@@ -304,4 +474,70 @@ extern "C" int gru_scan_f32(const GruArgs* args, int ndir, int cluster,
   if (fits == 0) return (int)cudaErrorInvalidValue;
   return cluster == 8 ? launch<8>(*args, ndir, (cudaStream_t)stream)
                       : launch<16>(*args, ndir, (cudaStream_t)stream);
+}
+
+// ---- the wide instance (gru_wide.cuh) -------------------------------------
+
+namespace {
+
+template <int kC>
+int wide_max_clusters(int D, int* count) {
+  const size_t smem = (size_t)wide_layout(D, kC).total * sizeof(float);
+  cudaError_t err = prepare_cluster_kernel(gru_wide_kernel<kC>, kC, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_launch(dim3(kC), kC, smem, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(count, gru_wide_kernel<kC>,
+                                             &cfg);
+}
+
+template <int kC>
+int wide_launch(const GruWideArgs& args, int ndir, cudaStream_t stream) {
+  const size_t smem = (size_t)wide_layout(args.a.D, kC).total * sizeof(float);
+  cudaError_t err = prepare_cluster_kernel(gru_wide_kernel<kC>, kC, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int groups = (args.a.B + kGroupRows - 1) / kGroupRows;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_launch(dim3(groups * kC, ndir), kC, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, gru_wide_kernel<kC>, args);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Whether the wide instance covers width D with `cluster` (8 or 16) blocks
+// on the current device: 1 or 0, or a negative CUDA error code.
+extern "C" int gru_scan_wide_fits(int D, int cluster) {
+  int max_smem = 0;
+  const int err = max_smem_optin(&max_smem);
+  if (err != 0) return -err;
+  return wide_fits(D, cluster, max_smem) ? 1 : 0;
+}
+
+// The wide layout's dynamic shared memory in bytes, a block of `cluster`.
+extern "C" int gru_scan_wide_smem_bytes(int D, int cluster) {
+  return wide_layout(D, cluster).total * (int)sizeof(float);
+}
+
+// How many `cluster`-block clusters of the wide instance at width D the
+// current device holds at once into *count; a CUDA error code.
+extern "C" int gru_scan_wide_max_clusters(int D, int cluster, int* count) {
+  if (gru_scan_wide_fits(D, cluster) != 1) return (int)cudaErrorInvalidValue;
+  return cluster == 8 ? wide_max_clusters<8>(D, count)
+                      : wide_max_clusters<16>(D, count);
+}
+
+// Launch the wide instance with clusters of `cluster` (8 or 16) blocks, the
+// weights packed for that size; a CUDA error code.
+extern "C" int gru_scan_wide_f32(const GruWideArgs* args, int ndir,
+                                 int cluster, void* stream) {
+  const int fits = gru_scan_wide_fits(args->a.D, cluster);
+  if (fits < 0) return -fits;
+  if (fits == 0) return (int)cudaErrorInvalidValue;
+  return cluster == 8
+             ? wide_launch<8>(*args, ndir, (cudaStream_t)stream)
+             : wide_launch<16>(*args, ndir, (cudaStream_t)stream);
 }

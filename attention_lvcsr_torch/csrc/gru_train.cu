@@ -57,13 +57,20 @@
 //   bit.
 //
 // Widths whose weight slices and buffers do not fit in a block's shared
-// memory (D above 384; the forward's limit is D=448) are not covered:
-// gru_train_supported() says so before a launch.  The product tiles, the
-// slice sums and the pulls are gru_pull.cuh's, shared with the forward.
+// memory (D above 384; the forward's limit is D=448) take the wide
+// instance, gru_bwd_wide_kernel, up to D=1024 (gru_wide.cuh): the weight
+// slices streamed from L2 through a ring of tiles every step, and the
+// gradients a product reads gathered into one buffer that holds the da
+// slices, then the [du | dr] slices, pulled from small per-block buffers
+// of the block's own slices (the two exchanges do not fit side by side at
+// D=1024).  gru_train_supported() and gru_train_wide_supported() say what
+// each covers before a launch.  The product tiles, the slice sums and the
+// pulls are gru_pull.cuh's, shared with the forward.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "gru_pull.cuh"
+#include "gru_wide.cuh"
 #include "sm90_async.cuh"
 
 // Must match the ctypes.Structures in ops/gru_train.py field for field.
@@ -86,6 +93,16 @@ struct GruBwdArgs {
   GruBwdDir dir[2];
   const float* mask;     // (T, B) or null
   int T, B, D, ld_dout, ld_states, ld_dproj;
+};
+
+// The wide instance's arguments: the resident ones, and per direction the
+// weights packed per block (ops/gru_train.py::pack_backward): block j's
+// slice at pack[(size_t)j * 3 * Dp * n], the owned rows of w_state
+// transposed (Dp, n) then those of w_gates (2Dp, n: update, then reset
+// k), zero past D.
+struct GruBwdWideArgs {
+  GruBwdArgs a;
+  const float* pack[2];
 };
 
 namespace {
@@ -276,7 +293,174 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   cluster.sync();
 }
 
+// The wide instance: gru_bwd_kernel's step with the weight slices
+// streamed (stream_partials).  Buffer hazards (step s; A_s the barrier
+// after the own da slices are written, B_s the one after the own [du | dr]
+// slices):
+// * oa: written at step s+1, after B_s's wait; the peers pull step s's
+//   after A_s and before they arrive at B_s.
+// * og: written at step s after A_s; the peers pull step s-1's after
+//   B_{s-1} and before they arrive at A_s.
+// * big, part, the ring, the stage: the block's own, as in gru_bwd_kernel
+//   (big is filled by this block's pulls and read by its products, a block
+//   barrier between each).
+// * exit: the last remote load is the og pull of step T-1, before the
+//   final cluster barrier.
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    gru_bwd_wide_kernel(const __grid_constant__ GruBwdWideArgs wa) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  const GruBwdArgs& a = wa.a;
+  const GruBwdDir& d = a.dir[blockIdx.y];
+  const int T = a.T, B = a.B, D = a.D;
+  const BwdWideLayout o = bwd_wide_layout(D);
+  const int n = o.n, Dp = o.Dp, slices = o.slices;
+  const int j = (int)cluster.block_rank();
+  const int b0 = (blockIdx.x / kBwdCluster) * kGroupRows;
+  const int nrows = min(kGroupRows, B - b0);
+  const int c0 = j * n;                       // first owned column
+  const float* wsT = wa.pack[blockIdx.y] + (size_t)j * 3 * Dp * n;
+  const float* wgT = wsT + (size_t)Dp * n;
+  float* big = smem + o.big;
+  float* oa = smem + o.oa;
+  float* og = smem + o.og;
+  float* stage = smem + o.stage;
+  float* part = smem + o.part;
+  float* ring = smem + o.ring;
+  const int tid = threadIdx.x;
+  const int items = kGroupRows * n;           // stage stride per operand
+
+  // the own slices zero: a padded column or row is never written
+  for (int i = tid; i < 3 * n * kGroupRows; i += blockDim.x) oa[i] = 0.f;
+
+  // the step's operands of this thread's items into the stage
+  auto prefetch = [&](int step) {
+    const int t = d.reverse ? step : T - 1 - step;
+    const int tp = d.reverse ? t + 1 : t - 1;     // the forward's step before
+    const size_t row0 = (size_t)t * B + b0;
+#pragma unroll
+    for (int e = 0; e < kItems; ++e) {
+      const int item = tid + e * kClusterThreads;
+      const int r = item / n, c = c0 + item % n;
+      if (r >= nrows || c >= D) continue;
+      const size_t idx = (row0 + r) * D + c;
+      float* s = stage + item;
+      cp_async<4>(s, d.u + idx, 4);
+      cp_async<4>(s + items, d.r + idx, 4);
+      cp_async<4>(s + 2 * items, d.c + idx, 4);
+      cp_async<4>(s + 3 * items,
+                  tp < 0 || tp >= T
+                      ? d.h0 + (size_t)(b0 + r) * D + c
+                      : d.states + ((size_t)tp * B + b0 + r) * a.ld_states + c,
+                  4);
+      cp_async<4>(s + 4 * items, d.dout + (row0 + r) * a.ld_dout + c, 4);
+      if (a.mask != nullptr) cp_async<4>(s + 5 * items, a.mask + row0 + r, 4);
+    }
+    cp_async_commit();
+  };
+  prefetch(0);
+  // zeroed slices in place, every block of the cluster running
+  cluster.sync();
+
+  float dh[kItems] = {0.f, 0.f};
+  for (int step = 0; step < T; ++step) {
+    const int t = d.reverse ? step : T - 1 - step;
+    const size_t row0 = (size_t)t * B + b0;
+    float du[kItems], dhp[kItems], rg[kItems], hp[kItems], ug[kItems],
+        dav[kItems], gv[kItems][2];
+    // ---- elementwise: state, update and candidate gradients; own da slice
+    cp_async_wait<0>();
+#pragma unroll
+    for (int e = 0; e < kItems; ++e) {
+      const int item = tid + e * kClusterThreads;
+      const int r = item / n, cc = item % n, c = c0 + cc;
+      du[e] = dhp[e] = rg[e] = hp[e] = ug[e] = dav[e] = 0.f;
+      if (r >= nrows || c >= D) continue;
+      const float* s = stage + item;
+      const float u = s[0], cand = s[2 * items], h_prev = s[3 * items];
+      const float m = a.mask != nullptr ? s[5 * items] : 1.f;
+      const float g = dh[e] + s[4 * items];
+      const float draw = g * m;
+      float dprev = g * (1.f - m);
+      du[e] = draw * (cand - h_prev);
+      const float dcand = draw * u;
+      dprev = dprev + draw * (1.f - u);
+      const float da = dcand * (1.f - cand * cand);
+      oa[cc * kGroupRows + r] = da;
+      dav[e] = da;
+      dhp[e] = dprev;
+      rg[e] = s[items];
+      hp[e] = h_prev;
+      ug[e] = u;
+    }
+    // ---- wait for the cluster's da; gather every block's slice
+    cluster.sync();
+    pull_slices<kBwdCluster>(cluster, oa, big, n, Dp, 1);
+    __syncthreads();
+    // ---- reset path: da @ w_state^T; gate gradients; own dg slices
+    stream_partials(big, wsT, n, Dp, o.kt, slices, ring, part);
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < kItems; ++e) {
+      const int item = tid + e * kClusterThreads;
+      const int r = item / n, cc = item % n, c = c0 + cc;
+      if (r >= nrows || c >= D) continue;
+      const float dhr = slice_sum(part, slices, n, r, cc);
+      dhp[e] = dhp[e] + dhr * rg[e];
+      const float dr = dhr * hp[e];
+      gv[e][0] = du[e] * ug[e] * (1.f - ug[e]);
+      gv[e][1] = dr * rg[e] * (1.f - rg[e]);
+      og[cc * kGroupRows + r] = gv[e][0];
+      og[(n + cc) * kGroupRows + r] = gv[e][1];
+    }
+    cluster_arrive();
+    // the next step's operands, then this step's dx_in and dx_gate rows:
+    // issued after the arrive, whose release would otherwise wait for
+    // these reads and writes too
+    if (step + 1 < T) prefetch(step + 1);
+#pragma unroll
+    for (int e = 0; e < kItems; ++e) {
+      const int item = tid + e * kClusterThreads;
+      const int r = item / n, c = c0 + item % n;
+      if (r >= nrows || c >= D) continue;
+      d.dx[(row0 + r) * a.ld_dproj + c] = dav[e];
+      float* dg_row = d.dg + (row0 + r) * a.ld_dproj;
+      dg_row[c] = gv[e][0];
+      dg_row[D + c] = gv[e][1];
+    }
+    // ---- wait for the cluster's dg; gather every block's slices
+    cluster_wait();
+    pull_slices<kBwdCluster>(cluster, og, big, n, Dp, 2);
+    __syncthreads();
+    // ---- gate path: dg @ w_gates^T finishes the owned state gradients
+    stream_partials(big, wgT, n, 2 * Dp, o.kt, slices, ring, part);
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < kItems; ++e) {
+      const int item = tid + e * kClusterThreads;
+      const int r = item / n, cc = item % n;
+      if (r >= nrows || c0 + cc >= D) continue;
+      dh[e] = dhp[e] + slice_sum(part, slices, n, r, cc);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kItems; ++e) {
+    const int item = tid + e * kClusterThreads;
+    const int r = item / n, c = c0 + item % n;
+    if (r < nrows && c < D)
+      d.dh0[(size_t)(b0 + r) * D + c] = dh[e];
+  }
+  // no block may leave while a peer can still read its shared memory
+  cluster.sync();
+}
+
 }  // namespace
+
+// The resident layout's dynamic shared memory in bytes, a block.
+extern "C" int gru_train_smem_bytes(int D) {
+  return bwd_layout(D).total * (int)sizeof(float);
+}
 
 // Whether the kernel covers width D on the current device: 1 or 0, or a
 // negative CUDA error code.
@@ -301,6 +485,39 @@ extern "C" int gru_train_bwd_f32(const GruBwdArgs* args, int ndir,
       cluster_launch(dim3(groups * kBwdCluster, ndir), kBwdCluster, smem,
                      (cudaStream_t)stream, &attr);
   err = cudaLaunchKernelEx(&cfg, gru_bwd_kernel, *args);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Whether the wide instance covers width D on the current device: 1 or 0,
+// or a negative CUDA error code.
+extern "C" int gru_train_wide_supported(int D) {
+  int max_smem = 0;
+  const int err = max_smem_optin(&max_smem);
+  if (err != 0) return -err;
+  return bwd_wide_fits(D, max_smem) ? 1 : 0;
+}
+
+// The wide layout's dynamic shared memory in bytes, a block.
+extern "C" int gru_train_wide_smem_bytes(int D) {
+  return bwd_wide_layout(D).total * (int)sizeof(float);
+}
+
+extern "C" int gru_train_wide_bwd_f32(const GruBwdWideArgs* args, int ndir,
+                                      void* stream) {
+  const int supported = gru_train_wide_supported(args->a.D);
+  if (supported < 0) return -supported;
+  if (supported == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)bwd_wide_layout(args->a.D).total * sizeof(float);
+  cudaError_t err =
+      prepare_cluster_kernel(gru_bwd_wide_kernel, kBwdCluster, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int groups = (args->a.B + kGroupRows - 1) / kGroupRows;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_launch(dim3(groups * kBwdCluster, ndir), kBwdCluster, smem,
+                     (cudaStream_t)stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, gru_bwd_wide_kernel, *args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,13 @@ The kernel runs each direction's 16-row groups on thread-block clusters of
 holds in the fewest waves, by ``cudaOccupancyMaxActiveClusters``; 16 on a
 tie.  :func:`fwd_layout` mirrors the kernel's shared-memory layout
 (``csrc/gru_pull.cuh::fwd_layout``).
+
+The width picks one of two instances before any launch (:func:`route`):
+the resident one keeps each block's recurrent weight slice in shared
+memory (D <= 448), the wide one (``gru_wide_kernel``, D up to 1024)
+streams it from L2 every step, packed per block by :func:`pack_forward`;
+:func:`wide_layout` mirrors its layout (``csrc/gru_wide.cuh``).  Wider
+layers raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,12 +29,15 @@ import torch
 
 from attention_lvcsr_torch import _build
 
-launches = _build.LaunchCounter()
+launches = _build.LaunchCounter()        # the resident instance
+launches_wide = _build.LaunchCounter()   # the wide instance
 
 # csrc/gru_pull.cuh's constants
 GROUP_ROWS, THREADS, TILE_ROWS, TILE_COLS, MAX_SLICES = 16, 512, 8, 2, 8
 MAX_SMEM = 232448          # the opt-in shared memory of a block on sm_90
 CLUSTERS = (16, 8)
+# csrc/gru_wide.cuh's constants
+WIDE_MAX_D, RING_STAGES, RING_FLOATS = 1024, 4, 2048
 
 
 def owned_columns(D, cluster):
@@ -68,6 +78,85 @@ def fits(D, cluster, max_smem=MAX_SMEM):
     two gate items, and the shared memory."""
     o = fwd_layout(D, cluster)
     return GROUP_ROWS * o["n"] <= THREADS and o["smem_bytes"] <= max_smem
+
+
+def ring_rows(cols, slices):
+    """The k rows of a ring tile of a ``cols``-column product over
+    ``slices`` k slices (``gru_wide.cuh::ring_rows``)."""
+    per = max(1, RING_FLOATS // (cols * slices))
+    if cols % 4 and per * slices % 2:
+        per = per - 1 if per > 1 else 2
+    return per * slices
+
+
+def wide_gate_items(cluster):
+    """Gate items a thread of the wide instance finishes; half as many
+    candidate items (``gru_wide.cuh::wide_gate_items``)."""
+    return GROUP_ROWS * 2 * (WIDE_MAX_D // cluster) // THREADS
+
+
+def wide_layout(D, cluster):
+    """The wide instance's layout at width D with ``cluster`` blocks a
+    cluster: owned columns ``n``, padded width ``Dp``, the products' k
+    slices and ring tiles (k rows) and the shared memory of a block in
+    bytes (``gru_wide.cuh::wide_layout``)."""
+    n = owned_columns(D, cluster)
+    Dp = cluster * n
+    sg, sc = tile_slices(2 * n, MAX_SLICES), tile_slices(n, MAX_SLICES)
+    # state and r * state, update gates, stage, partial sums, the ring
+    total = (2 * Dp * GROUP_ROWS + 5 * GROUP_ROWS * n
+             + max(2 * sg, sc) * GROUP_ROWS * n + RING_STAGES * RING_FLOATS)
+    return {"n": n, "Dp": Dp, "slices_g": sg, "slices_c": sc,
+            "kt_g": ring_rows(2 * n, sg), "kt_c": ring_rows(n, sc),
+            "smem_bytes": 4 * total}
+
+
+def wide_fits(D, cluster, max_smem=MAX_SMEM):
+    """Whether the wide layout covers width D: D <= WIDE_MAX_D, an item
+    for every thread's share, and the shared memory."""
+    if not 1 <= D <= WIDE_MAX_D or cluster not in CLUSTERS:
+        return False
+    o = wide_layout(D, cluster)
+    return (GROUP_ROWS * 2 * o["n"] <= wide_gate_items(cluster) * THREADS
+            and o["smem_bytes"] <= max_smem)
+
+
+def route(D, name="gru_scan"):
+    """The instance that runs width D: "resident" where the weights fit
+    the shared memory of 16-block clusters (D <= 448), "wide" up to
+    WIDE_MAX_D; wider raises (errors name ``name``)."""
+    if fits(D, 16):
+        return "resident"
+    if wide_fits(D, 16):
+        return "wide"
+    raise NotImplementedError(
+        f"{name}: width D={D} is not ported yet (the kernels cover D up to "
+        f"{WIDE_MAX_D}: up to 448 with each direction's recurrent weights "
+        f"in one 16-block cluster's shared memory, above that streamed "
+        f"from L2)")
+
+
+def kernel_name(D):
+    """The C prefix of the instance that runs width D."""
+    return "gru_scan" if route(D) == "resident" else "gru_scan_wide"
+
+
+def pack_forward(w_state, w_gates, cluster):
+    """The wide instance's weights of one direction, packed per block of
+    a ``cluster``-block cluster (``struct GruWideArgs``): (cluster, 3 Dp
+    n), block j's owned [update | reset] gate columns (Dp, 2n) then its
+    owned candidate columns (Dp, n), k-major, zero past D."""
+    D = w_state.shape[0]
+    o = wide_layout(D, cluster)
+    n, Dp = o["n"], o["Dp"]
+    pad = Dp - D
+    gates = torch.nn.functional.pad(w_gates.view(D, 2, D), (0, pad, 0, 0,
+                                                            0, pad))
+    gates = gates.view(Dp, 2, cluster, n).permute(2, 0, 1, 3)
+    state = torch.nn.functional.pad(w_state, (0, pad, 0, pad))
+    state = state.view(Dp, cluster, n).permute(1, 0, 2)
+    return torch.cat([gates.reshape(cluster, Dp * 2 * n),
+                      state.reshape(cluster, Dp * n)], dim=1).contiguous()
 
 
 def choose_cluster(clusters, active, name="gru_scan"):
@@ -115,9 +204,9 @@ def query_active_clusters(kernel, D, device):
 
 
 def max_active_clusters(D, device):
-    """{cluster size: clusters of this kernel the device holds at once}
-    at width D (:func:`query_active_clusters`)."""
-    return query_active_clusters("gru_scan", D, device)
+    """{cluster size: clusters of the instance that runs width D the
+    device holds at once} (:func:`query_active_clusters`)."""
+    return query_active_clusters(kernel_name(D), D, device)
 
 
 def launch_plan(D, B, ndir, device):
@@ -178,6 +267,11 @@ class _Args(ctypes.Structure):
                     "T", "B", "D", "ldx", "ldg", "ldo")])
 
 
+class _WideArgs(ctypes.Structure):
+    """Mirror of ``struct GruWideArgs`` in csrc/gru_scan.cu."""
+    _fields_ = [("a", _Args), ("pack", ctypes.c_void_p * 2)]
+
+
 def _check(name, t, shape, device):
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -209,8 +303,9 @@ def gru_scan(proj, mask, fwd, bwd=None):
     T, B, _ = proj.shape
     out = torch.empty(T, B, fwd[1].shape[0] * len(dirs), dtype=proj.dtype,
                       device=device)
-    if launch(proj, mask, dirs, out):
-        launches.count += 1
+    launched = launch(proj, mask, dirs, out)
+    if launched:
+        (launches_wide if launched == "wide" else launches).count += 1
     return out
 
 
@@ -230,41 +325,41 @@ def check_operands(name, proj, mask, dirs):
 
 def launch(proj, mask, dirs, out, residuals=None, name="gru_scan"):
     """Check the operands (errors name ``name``) and launch
-    ``csrc/gru_scan.cu`` into ``out``; ``residuals``: per direction
-    (update, reset, candidate) tensors (T, B, D) to fill, as the training
-    forward does.  Returns False when there is nothing to run."""
+    ``csrc/gru_scan.cu``'s instance for the width (:func:`route`) into
+    ``out``; ``residuals``: per direction (update, reset, candidate)
+    tensors (T, B, D) to fill, as the training forward does.  Returns the
+    route launched, or None when there is nothing to run."""
     check_operands(name, proj, mask, dirs)
     device = proj.device
     T, B, width = proj.shape
     D = dirs[0][1].shape[0]
+    which = route(D, name)
     if not (T and B):
-        return False
-    lib = _build.load().lib
-    lib.gru_scan_supported.argtypes = [ctypes.c_int]
-    lib.gru_scan_supported.restype = ctypes.c_int
-    lib.gru_scan_f32.argtypes = [ctypes.POINTER(_Args), ctypes.c_int,
-                                 ctypes.c_int, ctypes.c_void_p]
-    lib.gru_scan_f32.restype = ctypes.c_int
+        return None
+    entry = f"{kernel_name(D)}_f32"
+    fn = getattr(_build.load().lib, entry)
+    fn.argtypes = [ctypes.POINTER(_Args if which == "resident"
+                                  else _WideArgs),
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    args = _Args(mask=mask.data_ptr() if mask is not None else None,
+                 T=T, B=B, D=D, ldx=width, ldg=width, ldo=out.shape[-1])
+    for i, (h0, ws, wg) in enumerate(dirs):
+        u, r, c = (t.data_ptr() for t in residuals[i]) \
+            if residuals is not None else (None, None, None)
+        args.dir[i] = _Dir(proj[..., 3 * D * i:].data_ptr(),
+                           proj[..., 3 * D * i + D:].data_ptr(),
+                           h0.data_ptr(), ws.data_ptr(), wg.data_ptr(),
+                           out[..., D * i:].data_ptr(), u, r, c, reverse=i)
     with torch.cuda.device(device):
-        supported = lib.gru_scan_supported(D)
-        _build.check(max(0, -supported), "gru_scan_supported")
-        if supported == 0:
-            raise NotImplementedError(
-                f"gru_scan: width D={D} is not ported yet (the kernel keeps "
-                f"each direction's recurrent weights in one 16-block "
-                f"cluster's shared memory, which holds up to D=448)")
         cluster = launch_plan(D, B, len(dirs), device)["cluster"]
-        args = _Args(mask=mask.data_ptr() if mask is not None else None,
-                     T=T, B=B, D=D, ldx=width, ldg=width, ldo=out.shape[-1])
-        for i, (h0, ws, wg) in enumerate(dirs):
-            u, r, c = (t.data_ptr() for t in residuals[i]) \
-                if residuals is not None else (None, None, None)
-            args.dir[i] = _Dir(proj[..., 3 * D * i:].data_ptr(),
-                               proj[..., 3 * D * i + D:].data_ptr(),
-                               h0.data_ptr(), ws.data_ptr(), wg.data_ptr(),
-                               out[..., D * i:].data_ptr(), u, r, c,
-                               reverse=i)
-        status = lib.gru_scan_f32(ctypes.byref(args), len(dirs), cluster,
-                                  _build.stream_of(proj))
-    _build.check(status, "gru_scan_f32")
-    return True
+        if which == "wide":
+            # freed when this returns: the caching allocator hands their
+            # memory only to work queued after the kernel on this stream
+            packs = [pack_forward(ws, wg, cluster) for _, ws, wg in dirs]
+            args = _WideArgs(a=args, pack=(ctypes.c_void_p * 2)(
+                *[p.data_ptr() for p in packs]))
+        status = fn(ctypes.byref(args), len(dirs), cluster,
+                    _build.stream_of(proj))
+    _build.check(status, entry)
+    return which

@@ -20,6 +20,13 @@ On a CUDA tensor the scan is a ``torch.autograd.Function``:
 On the CPU it is the plain version, the forward scan written with PyTorch
 operations (:func:`gru_scan_reference`), whose gradient autograd takes.
 The mask gets no gradient; a masked step passes the state gradient through.
+
+Each kernel takes the instance of its width before any launch: the
+forward :func:`~attention_lvcsr_torch.ops.gru_scan.route` (resident up to
+D=448), the backward :func:`backward_route` (resident up to D=384, where
+its weight slices fit a block's shared memory, :func:`bwd_layout`; the
+wide instance, which streams them from L2 packed by
+:func:`pack_backward`, up to D=1024, :func:`bwd_wide_layout`).
 """
 from __future__ import annotations
 
@@ -31,9 +38,14 @@ from attention_lvcsr_torch import _build
 from attention_lvcsr_torch.ops import gru_scan as gs
 from attention_lvcsr_torch.ops.outer_sum import outer_sum
 
-# forward + backward kernels (outer_sum counts its own launches)
+# forward + backward kernels (outer_sum counts its own launches), the
+# resident instances and the wide ones
 launches = _build.LaunchCounter()         # one direction
 launches_bidir = _build.LaunchCounter()   # both directions in one launch
+launches_wide = _build.LaunchCounter()
+launches_bidir_wide = _build.LaunchCounter()
+
+BWD_CLUSTER = 16               # csrc/gru_train.cu's kBwdCluster
 
 gru_scan_train_reference = gs.gru_scan_reference
 
@@ -52,35 +64,121 @@ class _BwdArgs(ctypes.Structure):
                     "T", "B", "D", "ld_dout", "ld_states", "ld_dproj")])
 
 
-def _counter(ndir):
+class _BwdWideArgs(ctypes.Structure):
+    """Mirror of ``struct GruBwdWideArgs`` in csrc/gru_train.cu."""
+    _fields_ = [("a", _BwdArgs), ("pack", ctypes.c_void_p * 2)]
+
+
+def _counter(ndir, which):
+    if which == "wide":
+        return launches_wide if ndir == 1 else launches_bidir_wide
     return launches if ndir == 1 else launches_bidir
 
 
-def _supported(lib, D):
-    lib.gru_train_supported.argtypes = [ctypes.c_int]
-    lib.gru_train_supported.restype = ctypes.c_int
-    supported = lib.gru_train_supported(D)
-    _build.check(max(0, -supported), "gru_train_supported")
-    if supported == 0:
-        raise NotImplementedError(
-            f"gru_scan_train: width D={D} is not ported yet (the kernels "
-            f"keep each direction's recurrent weights in one 16-block "
-            f"cluster's shared memory, which holds up to D=448 for the "
-            f"forward and D=384 for the backward)")
+def bwd_layout(D):
+    """The resident backward's layout at width D (``gru_train.cu::
+    bwd_layout``): owned columns ``n``, padded width ``Dp``, k slices and
+    the shared memory of a block in bytes."""
+    n = gs.owned_columns(D, BWD_CLUSTER)
+    Dp = BWD_CLUSTER * n
+    slices = gs.tile_slices(n, gs.MAX_SLICES)
+    # weights (3 Dp n), da and [du | dr] (3 Dp rows), stage, partial sums
+    total = (3 * Dp * n + 3 * Dp * gs.GROUP_ROWS + 6 * gs.GROUP_ROWS * n
+             + slices * gs.GROUP_ROWS * n)
+    return {"n": n, "Dp": Dp, "slices": slices, "smem_bytes": 4 * total}
+
+
+def bwd_fits(D, max_smem=gs.MAX_SMEM):
+    """Whether the resident backward covers width D: two items a thread
+    and the shared memory (``gru_train.cu::bwd_fits``)."""
+    o = bwd_layout(D)
+    return (gs.GROUP_ROWS * o["n"] <= 2 * gs.THREADS
+            and o["smem_bytes"] <= max_smem)
+
+
+def bwd_wide_layout(D):
+    """The wide backward's layout at width D (``gru_wide.cuh::
+    bwd_wide_layout``): the slices halve while it does not fit."""
+    n = gs.owned_columns(D, BWD_CLUSTER)
+    Dp = BWD_CLUSTER * n
+    # the gathered gradients (2 Dp rows), own da and [du | dr] slices,
+    # stage, then partial sums and the ring
+    fixed = 2 * Dp * gs.GROUP_ROWS + 3 * n * gs.GROUP_ROWS \
+        + 6 * gs.GROUP_ROWS * n
+    cap = gs.MAX_SLICES
+    while True:
+        slices = gs.tile_slices(n, cap)
+        total = fixed + slices * gs.GROUP_ROWS * n \
+            + gs.RING_STAGES * gs.RING_FLOATS
+        if total <= gs.MAX_SMEM // 4 or cap == 1:
+            break
+        cap //= 2
+    return {"n": n, "Dp": Dp, "slices": slices,
+            "kt": gs.ring_rows(n, slices), "smem_bytes": 4 * total}
+
+
+def bwd_wide_fits(D, max_smem=gs.MAX_SMEM):
+    """Whether the wide backward covers width D (``gru_wide.cuh::
+    bwd_wide_fits``)."""
+    if not 1 <= D <= gs.WIDE_MAX_D:
+        return False
+    o = bwd_wide_layout(D)
+    return (gs.GROUP_ROWS * o["n"] <= 2 * gs.THREADS
+            and o["smem_bytes"] <= max_smem)
+
+
+def backward_route(D):
+    """The backward instance that runs width D: "resident" up to 384,
+    "wide" up to WIDE_MAX_D; wider raises."""
+    if bwd_fits(D):
+        return "resident"
+    if bwd_wide_fits(D):
+        return "wide"
+    raise NotImplementedError(
+        f"gru_scan_train: width D={D} is not ported yet (the kernels cover "
+        f"D up to {gs.WIDE_MAX_D}: the backward keeps each direction's "
+        f"recurrent weights in one 16-block cluster's shared memory up to "
+        f"384 and streams them from L2 above that)")
+
+
+def pack_backward(w_state, w_gates):
+    """The wide backward's weights of one direction, packed per block of
+    its 16-block cluster (``struct GruBwdWideArgs``): (16, 3 Dp n), block
+    j's owned rows of w_state transposed (Dp, n), then those of w_gates
+    (2 Dp, n: the update k, then the reset k), zero past D."""
+    D = w_state.shape[0]
+    o = bwd_wide_layout(D)
+    n, Dp = o["n"], o["Dp"]
+    pad = Dp - D
+    # state[k, c] = w_state[c, k]; gates[g, k, c] = w_gates[c, g * D + k]
+    state = torch.nn.functional.pad(w_state.T, (0, pad, 0, pad))
+    state = state.view(Dp, BWD_CLUSTER, n).permute(1, 0, 2)
+    gates = torch.nn.functional.pad(w_gates.view(D, 2, D),
+                                    (0, pad, 0, 0, 0, pad))
+    gates = gates.permute(1, 2, 0).reshape(2, Dp, BWD_CLUSTER, n)
+    gates = gates.permute(2, 0, 1, 3)
+    return torch.cat([state.reshape(BWD_CLUSTER, Dp * n),
+                      gates.reshape(BWD_CLUSTER, 2 * Dp * n)],
+                     dim=1).contiguous()
 
 
 def launch_backward(dout, out, mask, dirs, residuals, dproj, dh0s, stream):
-    """Start ``csrc/gru_train.cu`` on ``stream``: from the cotangent
-    ``dout`` and the forward's states ``out`` (T, B, D * ndir) and
-    residuals, write the projections' gradient ``dproj`` (T, B, 3D * ndir)
-    and each direction's ``dh0``."""
+    """Start ``csrc/gru_train.cu``'s instance for the width
+    (:func:`backward_route`) on ``stream``: from the cotangent ``dout`` and
+    the forward's states ``out`` (T, B, D * ndir) and residuals, write the
+    projections' gradient ``dproj`` (T, B, 3D * ndir) and each direction's
+    ``dh0``.  Returns the route."""
     T, B, width = out.shape
     ndir = len(dirs)
     D = width // ndir
-    lib = _build.load().lib
-    lib.gru_train_bwd_f32.argtypes = [ctypes.POINTER(_BwdArgs),
-                                      ctypes.c_int, ctypes.c_void_p]
-    lib.gru_train_bwd_f32.restype = ctypes.c_int
+    which = backward_route(D)
+    entry = "gru_train_bwd_f32" if which == "resident" \
+        else "gru_train_wide_bwd_f32"
+    fn = getattr(_build.load().lib, entry)
+    fn.argtypes = [ctypes.POINTER(_BwdArgs if which == "resident"
+                                  else _BwdWideArgs),
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     args = _BwdArgs(
         mask=mask.data_ptr() if mask is not None else None, T=T, B=B, D=D,
         ld_dout=width, ld_states=width, ld_dproj=3 * D * ndir)
@@ -91,8 +189,12 @@ def launch_backward(dout, out, mask, dirs, residuals, dproj, dh0s, stream):
             h0.data_ptr(), u.data_ptr(), r.data_ptr(), c.data_ptr(),
             ws.data_ptr(), wg.data_ptr(), dproj[..., 3 * D * i:].data_ptr(),
             dproj[..., 3 * D * i + D:].data_ptr(), dh0.data_ptr(), reverse=i)
-    _build.check(lib.gru_train_bwd_f32(ctypes.byref(args), ndir, stream),
-                 "gru_train_bwd_f32")
+    if which == "wide":
+        packs = [pack_backward(ws, wg) for _, ws, wg in dirs]
+        args = _BwdWideArgs(a=args, pack=(ctypes.c_void_p * 2)(
+            *[p.data_ptr() for p in packs]))
+    _build.check(fn(ctypes.byref(args), ndir, stream), entry)
+    return which
 
 
 def _previous_states(states, h0, reverse):
@@ -110,16 +212,16 @@ class _GruScanTrain(torch.autograd.Function):
         dirs = [tuple(weights[3 * i:3 * i + 3]) for i in range(ndir)]
         T, B, _ = proj.shape
         D = dirs[0][1].shape[0]
-        lib = _build.load().lib
-        with torch.cuda.device(proj.device):
-            _supported(lib, D)
+        backward_route(D)        # the width's backward, before any launch
         out = torch.empty(T, B, D * ndir, dtype=proj.dtype,
                           device=proj.device)
         residuals = [tuple(torch.empty(T, B, D, dtype=proj.dtype,
                                        device=proj.device)
                            for _ in range(3)) for _ in range(ndir)]
-        if gs.launch(proj, mask, dirs, out, residuals, "gru_scan_train"):
-            _counter(ndir).count += 1
+        launched = gs.launch(proj, mask, dirs, out, residuals,
+                             "gru_scan_train")
+        if launched:
+            _counter(ndir, launched).count += 1
         ctx.ndir = ndir
         ctx.has_mask = mask is not None
         ctx.save_for_backward(
@@ -146,10 +248,10 @@ class _GruScanTrain(torch.autograd.Function):
                  for _ in range(ndir)]
         if T and B:
             with torch.cuda.device(out.device):
-                launch_backward(dout, out, mask, dirs, residuals, dproj,
-                                [dh0 for dh0, _, _ in grads],
-                                _build.stream_of(out))
-            _counter(ndir).count += 1
+                launched = launch_backward(
+                    dout, out, mask, dirs, residuals, dproj,
+                    [dh0 for dh0, _, _ in grads], _build.stream_of(out))
+            _counter(ndir, launched).count += 1
             jobs = []
             for i, ((h0, _, _), (_, r, _), (_, dws, dwg)) in enumerate(
                     zip(dirs, residuals, grads)):

@@ -15,8 +15,9 @@ adaptive weight noise; and trains the task-loss recipe with greedy
 exploration, its kernel branches held to their plain versions; and
 trains and decodes the WSJ recipes' readout and attention variants (ten
 filters, maxout, the mean window, rectifier and no post-merge layer);
-and trains and decodes the stacked decoders of the wsj_jan_* recipes.
-Phases, each fatal on failure:
+and trains and decodes the stacked decoders of the wsj_jan_* recipes;
+and trains and serves wsj_pyramide.yaml's 250, 500 and 1000-unit encoder
+through the GRU kernels' wide instances.  Phases, each fatal on failure:
 
 1. build the kernels (one nvcc per source, sm_90a) and print the time;
 2. ``gru_scan`` kernel vs its plain PyTorch version at the encoder's
@@ -267,7 +268,27 @@ Phases, each fatal on failure:
     search (beam 10) on 4 of them cut to 400 frames, where the loop
     kernel holds the decode, compared as phase 22d compares; (d) two
     training steps of wsj_jan_wsj15v2.yaml and of wsj_jan_debug.yaml on
-    the kernels, B=10, 800 frames, their launches.
+    the kernels, B=10, 800 frames, their launches;
+24. the GRU kernels' wide instances (D above 448 forward, 384 backward,
+    weights streamed from L2) and wsj_pyramide.yaml: (a) ``gru_scan``'s
+    wide instance against the plain scan at U=64, both directions, a
+    ragged mask, the recipe's layers D=500 over 800 frames and D=1000
+    over 400 (states within 1e-5, a second call bit for bit, the C
+    layouts against the mirror, the cluster chosen, times and bounds);
+    (b) ``gru_scan_train_bidir`` through the wide instances against
+    autograd through the plain scan at B=32 and the same widths, phase
+    11's tolerances and times, and ``decoder_scan_train`` at the
+    recipe's attention (D=2000, L=200) at B=10 and 32 against the plain
+    scan; (c) the recipe's ``pretraining`` and
+    ``main`` at its widths on the kernels and on the plain route, 2
+    batches of 10 utterances of 600-800 frames an epoch, validation and
+    search (the module route) of 4 of them, compared as phase 22d
+    compares; (d) the recipe's decode through
+    ``Transcriber.transcribe_batch`` of 16 utterances of 600-800 frames
+    at once, beam 10, char_discount 3.0: the plain route's hypotheses,
+    most of them non-empty; (e) the resident routes at D=250
+    hash to the bits of the tree before the wide instances
+    (``RESIDENT_BITS``), their times.
 
 Nothing of JAX or of the JAX package is imported; the script checks it.
 
@@ -291,7 +312,10 @@ branches; ``variant_launches``, phase 22d's kernel route per recipe;
 ``stack4_S64`` and ``stack2_debug`` for the loop, ``stack2_B10``,
 ``stack2_B32``, ``stack2_S512_B10``, ``stack3_S64_B10`` and
 ``stack4_S64_B10`` for the decoder, phase 23a-b's stacked decoders;
-``stacked_launches``, phase 23c-d's kernel route per recipe);
+``stacked_launches``, phase 23c-d's kernel route per recipe;
+``gru_scan_wide`` and ``gru_scan_train_bidir_wide``, the wide instances'
+rows at D=1000 with D=500 beside them, phase 24a-b;
+``pyramide_launches``, phase 24c-d's kernel route);
 the line before it holds the rates, phase 21d's reward DP time and
 launches among them; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -662,6 +686,15 @@ def main():
     t0 = time.perf_counter()
     stacked_launches = stacked_phase(t, dev, results, rates)
     log(f"phase 23: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pyramide_launches = pyramide_phase(t, dev, results, rates)
+    log(f"phase 24: {time.perf_counter() - t0:.1f} s")
+    # the wide instances' main paths: the recipe's training (24c) and its
+    # serve decode (24d)
+    launches["gru_scan_wide"] = pyramide_launches["wsj_pyramide serve"][
+        "gru_scan_wide"]
+    launches["gru_scan_train_bidir_wide"] = pyramide_launches[
+        "wsj_pyramide train"]["gru_scan_train_bidir_wide"]
 
     banned = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "attention_lvcsr_tpu"))
@@ -676,6 +709,9 @@ def main():
         "fused_decode_score": ("decode_score.cu", "decode_score.py:168"),
         "gru_scan_train": ("gru_train.cu", "gru_train.py:291"),
         "gru_scan_train_bidir": ("gru_train.cu", "gru_train.py:570"),
+        # the wide instances (D above 448 forward, 384 backward)
+        "gru_scan_wide": ("gru_scan.cu", "gru_scan.py:72"),
+        "gru_scan_train_bidir_wide": ("gru_train.cu", "gru_train.py:570"),
         "decoder_scan_train": ("decoder_train.cu", "decoder_train.py:839"),
         "fbank_deltas": ("frontend.cu", "frontend.py:180"),
         "lstm_scan": ("lstm_scan.cu", "lstm_train.py:324"),
@@ -707,6 +743,11 @@ def main():
         k["stacked_launches"] = {recipe: moved.get(k["name"], 0)
                                  for recipe, moved in
                                  stacked_launches.items()}
+        # phase 24c-d's kernel route: wsj_pyramide.yaml's training and
+        # serve decode
+        k["pyramide_launches"] = {path: moved.get(k["name"], 0)
+                                  for path, moved in
+                                  pyramide_launches.items()}
     log(json.dumps(dict(rates, build_s=lib.build_seconds)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -1306,81 +1347,91 @@ def gru_train_phase(t, dev, results):
     """Phase 11: gru_scan_train's forward and backward kernels vs the plain
     version (autograd through the plain scan), the flagship encoder's
     first layer: T=800, B=32, D=250, ragged mask, random cotangent."""
-    from attention_lvcsr_torch.ops import gru_train as gt
     rng = np.random.RandomState(11)
     T, B, D = 800, 32, 250
     lengths = rng.randint(300, T + 1, size=B)
     lengths[0] = T
     mask = t((np.arange(T)[:, None] < lengths[None, :]).astype(np.float32))
     for ndir, name in ((1, "gru_scan_train"), (2, "gru_scan_train_bidir")):
-        proj = t(rng.randn(T, B, 3 * D * ndir) * 0.5)
-        dirs = [(t(rng.randn(B, D) * 0.1), t(rng.randn(D, D) / np.sqrt(D)),
-                 t(rng.randn(D, 2 * D) / np.sqrt(D))) for _ in range(ndir)]
-        cots = [t(rng.randn(T, B, D * ndir))]
-        leaves = [proj] + [w for d in dirs for w in d]
-
-        def scan(fn):
-            return lambda p, *w: fn(p, mask, tuple(w[:3]),
-                                    tuple(w[3:]) if ndir == 2 else None)
-
-        (got,), ggot = grads_of(scan(gt.gru_scan_train), leaves, cots)
-        (ref,), gref = grads_of(scan(gt.gru_scan_train_reference), leaves,
-                                cots)
-        named = lambda out, g: dict(
-            {"states": out},
-            **{f"{part}[{i}]": g[0][..., 3 * D * i + a:3 * D * i + b]
-               for i in range(ndir)
-               for part, a, b in (("dx_in", 0, D), ("dx_gate", D, 3 * D))},
-            **{f"{part}[{i}]": g[1 + 3 * i + k] for i in range(ndir)
-               for k, part in enumerate(("dh0", "dW_ss", "dW_sg"))})
-        errs = relative_errors(named(got, ggot), named(ref, gref))
-        state_err = float((got - ref).abs().max())
-        log(f"phase 11 {name} T={T} B={B} D={D}: states max abs err "
-            f"{state_err:.3e}; gradients, max abs err over max abs value: "
-            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()
-                        if k != "states"))
-        # states: f32 in another summation order, |h| < 1 (1e-5 absolute);
-        # gradients: sums over the reverse recurrence and, for the weights,
-        # over T*B = 25600 rows in another order (1e-4 of their scale)
-        if not (state_err <= 1e-5
-                and max(v for k, v in errs.items() if k != "states")
-                <= 1e-4):
-            fail(f"{name} disagrees with its plain version")
-        repeat(name, ggot, grads_of(scan(gt.gru_scan_train), leaves, cots))
-        fwd = scan(gt.gru_scan_train)
-        plain = scan(gt.gru_scan_train_reference)
-        fwd_ms = cuda_ms(lambda: fwd(*leaves), 3)
-        bwd_ms = backward_ms(fwd, leaves, cots, 3)
-        plain_fwd = cuda_ms(lambda: plain(*leaves), 1)
-        plain_bwd = backward_ms(plain, leaves, cots, 1)
-        kernel_ms = gru_backward_kernel_ms(proj, mask, dirs, cots[0], 3)
-        # forward: the projections, mask, weights in; states and the three
-        # residuals out.  Backward: cotangent, states, residuals, mask and
-        # weights in; the projections' and weights' gradients out; twice
-        # the forward's products (state gradient, weight gradients)
-        weights = [w for d in dirs for w in d]
-        fwd_bytes = nbytes(proj, mask, *weights) + 4 * nbytes(got)
-        bwd_bytes = 5 * nbytes(got) + nbytes(mask, *weights, proj) \
-            + nbytes(*weights)
-        ops = ndir * T * B * gru_step_ops(D)
-        results[name] = {
-            "max_abs_err": max(state_err, *[
-                float((a - b).abs().max()) for a, b in zip(ggot, gref)]),
-            "ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
-            "bwd_kernel_ms": kernel_ms,
-            "bwd_kernel_us_per_step": kernel_ms * 1e3 / T,
-            "plain_ms": plain_fwd + plain_bwd, "plain_fwd_ms": plain_fwd,
-            "plain_bwd_ms": plain_bwd,
-            **bound(fwd_bytes + bwd_bytes, 3 * ops),
-            "fwd_bound_ms": bound(fwd_bytes, ops)["bound_ms"],
-            "bwd_bound_ms": bound(bwd_bytes, 2 * ops)["bound_ms"],
-            "library_ms": None}
-        log(f"  kernels: forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms "
-            f"(of which gru_train.cu's kernel {kernel_ms:.3f} ms, "
-            f"{kernel_ms * 1e3 / T:.2f} us a step); plain: forward "
-            f"{plain_fwd:.3f} ms, backward {plain_bwd:.3f} ms; bound "
-            f"{results[name]['bound_ms']:.3f} ms")
+        results[name] = gru_train_case(t, rng, mask, D, ndir, "11", name)
     outer_sum_check(t, rng, results, T, B, D)
+
+
+def gru_train_case(t, rng, mask, D, ndir, phase, name):
+    """gru_scan_train's forward and backward kernels at width D over
+    ``ndir`` directions and the (T, B) ``mask`` against the plain version
+    (autograd through the plain scan) under a random cotangent: states
+    within 1e-5, every gradient within 1e-4 of its largest value, a
+    second call bit for bit; the times, the backward kernel's alone, and
+    the bounds.  Returns the result."""
+    from attention_lvcsr_torch.ops import gru_train as gt
+    T, B = mask.shape
+    proj = t(rng.randn(T, B, 3 * D * ndir) * 0.5)
+    dirs = [(t(rng.randn(B, D) * 0.1), t(rng.randn(D, D) / np.sqrt(D)),
+             t(rng.randn(D, 2 * D) / np.sqrt(D))) for _ in range(ndir)]
+    cots = [t(rng.randn(T, B, D * ndir))]
+    leaves = [proj] + [w for d in dirs for w in d]
+
+    def scan(fn):
+        return lambda p, *w: fn(p, mask, tuple(w[:3]),
+                                tuple(w[3:]) if ndir == 2 else None)
+
+    (got,), ggot = grads_of(scan(gt.gru_scan_train), leaves, cots)
+    (ref,), gref = grads_of(scan(gt.gru_scan_train_reference), leaves, cots)
+    named = lambda out, g: dict(
+        {"states": out},
+        **{f"{part}[{i}]": g[0][..., 3 * D * i + a:3 * D * i + b]
+           for i in range(ndir)
+           for part, a, b in (("dx_in", 0, D), ("dx_gate", D, 3 * D))},
+        **{f"{part}[{i}]": g[1 + 3 * i + k] for i in range(ndir)
+           for k, part in enumerate(("dh0", "dW_ss", "dW_sg"))})
+    errs = relative_errors(named(got, ggot), named(ref, gref))
+    state_err = float((got - ref).abs().max())
+    log(f"phase {phase} {name} T={T} B={B} D={D}: states max abs err "
+        f"{state_err:.3e}; gradients, max abs err over max abs value: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()
+                    if k != "states"))
+    # states: f32 in another summation order, |h| < 1 (1e-5 absolute);
+    # gradients: sums over the reverse recurrence and, for the weights,
+    # over T*B rows in another order (1e-4 of their scale)
+    if not (state_err <= 1e-5
+            and max(v for k, v in errs.items() if k != "states") <= 1e-4):
+        fail(f"{name} disagrees with its plain version")
+    repeat(name, ggot, grads_of(scan(gt.gru_scan_train), leaves, cots))
+    fwd = scan(gt.gru_scan_train)
+    plain = scan(gt.gru_scan_train_reference)
+    fwd_ms = cuda_ms(lambda: fwd(*leaves), 3)
+    bwd_ms = backward_ms(fwd, leaves, cots, 3)
+    plain_fwd = cuda_ms(lambda: plain(*leaves), 1)
+    plain_bwd = backward_ms(plain, leaves, cots, 1)
+    kernel_ms = gru_backward_kernel_ms(proj, mask, dirs, cots[0], 3)
+    # forward: the projections, mask, weights in; states and the three
+    # residuals out.  Backward: cotangent, states, residuals, mask and
+    # weights in; the projections' and weights' gradients out; twice
+    # the forward's products (state gradient, weight gradients)
+    weights = [w for d in dirs for w in d]
+    fwd_bytes = nbytes(proj, mask, *weights) + 4 * nbytes(got)
+    bwd_bytes = 5 * nbytes(got) + nbytes(mask, *weights, proj) \
+        + nbytes(*weights)
+    ops = ndir * T * B * gru_step_ops(D)
+    result = {
+        "max_abs_err": max(state_err, *[
+            float((a - b).abs().max()) for a, b in zip(ggot, gref)]),
+        "ms": fwd_ms + bwd_ms, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+        "bwd_kernel_ms": kernel_ms,
+        "bwd_kernel_us_per_step": kernel_ms * 1e3 / T,
+        "plain_ms": plain_fwd + plain_bwd, "plain_fwd_ms": plain_fwd,
+        "plain_bwd_ms": plain_bwd,
+        **bound(fwd_bytes + bwd_bytes, 3 * ops),
+        "fwd_bound_ms": bound(fwd_bytes, ops)["bound_ms"],
+        "bwd_bound_ms": bound(bwd_bytes, 2 * ops)["bound_ms"],
+        "library_ms": None}
+    log(f"  kernels: forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms "
+        f"(of which gru_train.cu's kernel {kernel_ms:.3f} ms, "
+        f"{kernel_ms * 1e3 / T:.2f} us a step); plain: forward "
+        f"{plain_fwd:.3f} ms, backward {plain_bwd:.3f} ms; bound "
+        f"{result['bound_ms']:.3f} ms")
+    return result
 
 
 def gru_backward_kernel_ms(proj, mask, dirs, cot, repeats):
@@ -4662,7 +4713,9 @@ def recipes_check(dev, rates, phase, recipes, batches, valid, loop_routes):
     counters = {"gru_scan": gs.launches, "beam_search_loop": bl.launches,
                 "beam_attention_energies": ae.launches,
                 "gru_scan_train_bidir": gt.launches_bidir,
-                "decoder_scan_train": dt.launches, "outer_sum": osum.launches}
+                "decoder_scan_train": dt.launches, "outer_sum": osum.launches,
+                "gru_scan_wide": gs.launches_wide,
+                "gru_scan_train_bidir_wide": gt.launches_bidir_wide}
     plain = [(cells_mod, "gru_scan", gs.gru_scan_reference),
              (beam_mod, "beam_search_loop", bl.beam_search_loop_reference),
              (attention_mod, "beam_attention_energies",
@@ -4711,9 +4764,15 @@ def recipes_check(dev, rates, phase, recipes, batches, valid, loop_routes):
         module = ({"beam_attention_energies"}
                   if (stages[0][1]["net"].get("conv_num_filters") or 1) == 1
                   else set())
-        want = {"gru_scan", "gru_scan_train_bidir", "decoder_scan_train",
-                "outer_sum"} | ({"beam_search_loop"} if loop_route
-                                else module)
+        # each encoder layer's GRU instances by its width: the resident
+        # ones, or the wide ones (forward above 448, backward above 384)
+        dims = stages[0][1]["net"]["dims_bidir"]
+        wide = lambda name, route: name + ("_wide" if route == "wide" else "")
+        want = {wide("gru_scan", gs.route(d)) for d in dims} | {
+            wide("gru_scan_train_bidir", pick(d)) for d in dims
+            for pick in (gs.route, gt.backward_route)} | {
+            "decoder_scan_train", "outer_sum"} | (
+            {"beam_search_loop"} if loop_route else module)
         if used != want or any(ref_moved.values()):
             fail(f"phase {phase} {recipe}: launches {moved} on the kernels, "
                  f"{ref_moved} on the plain route (expected {sorted(want)})")
@@ -4937,6 +4996,402 @@ def stacked_phase(t, dev, results, rates):
     log(f"phase 23d: {time.perf_counter() - t0:.1f} s")
     return moved
 
+
+def pyramide_net():
+    """exp/wsj/configs/wsj_pyramide.yaml's net over wsj_paper.yaml's (the
+    flagship's, ``FLAGSHIP_NET``): a 250, 500, 1000-unit BiGRU encoder
+    subsampled 1, 2, 2 (an 800-frame utterance's layers run over 800, 800
+    and 400 frames, 200 attended: a stride applies to a layer's output),
+    a relu post-merge layer of 1000, the window around the median +-200
+    (``main``; ``pretraining`` the expanding ``PYRAMIDE_PRETRAINING``)."""
+    from __graft_entry__ import FLAGSHIP_NET
+    return dict(FLAGSHIP_NET, dims_bidir=[250, 500, 1000],
+                subsample=[1, 2, 2], post_merge_dims=[1000],
+                post_merge_activation="relu",
+                prior={"type": "window_around_median", "before": 200,
+                       "after": 200})
+
+
+PYRAMIDE_PRETRAINING = {"type": "expanding", "initial_begin": 0,
+                        "initial_end": 40, "min_speed": 1.2,
+                        "max_speed": 2.1}
+# the main path's wide layers: (D, frames of an 800-frame utterance)
+PYRAMIDE_WIDE = ((500, 800), (1000, 400))
+
+
+def wide_scan_check(t, dev, results):
+    """Phase 24a: gru_scan.cu's wide instance against the plain scan at the
+    serving batch U=64, both directions, a ragged mask, the recipe's wide
+    layers (D=500 over 800 frames, D=1000 over 400): states within 1e-5,
+    a second call bit for bit, the C layout against the mirror at both
+    cluster sizes, the cluster the launcher takes, the times and bounds."""
+    import ctypes
+    import torch
+    from attention_lvcsr_torch import _build
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    lib = _build.load().lib
+    lib.gru_scan_wide_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    U = 64
+    cases = {}
+    for D, T in PYRAMIDE_WIDE:
+        for size in gs.CLUSTERS:
+            mirror = gs.wide_layout(D, size)["smem_bytes"]
+            if lib.gru_scan_wide_smem_bytes(D, size) != mirror:
+                fail(f"gru_scan wide: the C layout of {size}-block clusters "
+                     f"at D={D} has {lib.gru_scan_wide_smem_bytes(D, size)} "
+                     f"bytes, the mirror {mirror}")
+        rng = np.random.RandomState(24 + D)
+        lengths = rng.randint(T * 3 // 8, T + 1, size=U)
+        lengths[0] = T
+        proj = t(rng.randn(T, U, 6 * D) * 0.5)
+        mask = t((np.arange(T)[:, None] < lengths[None, :]).astype(
+            np.float32))
+        weights = [(t(rng.randn(U, D) * 0.1),
+                    t(rng.randn(D, D) / np.sqrt(D)),
+                    t(rng.randn(D, 2 * D) / np.sqrt(D))) for _ in range(2)]
+        args = (proj, mask, *weights)
+        plan = gs.launch_plan(D, U, 2, dev)
+        gs.launches_wide.reset()
+        got = gs.gru_scan(*args)
+        ref = gs.gru_scan_reference(*args)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if gs.launches_wide.count != 1 or not err <= 1e-5:
+            fail(f"gru_scan wide D={D}: max abs err {err}, "
+                 f"{gs.launches_wide.count} wide launches")
+        if not torch.equal(got, gs.gru_scan(*args)):
+            fail(f"gru_scan wide D={D}: a second call gave other bits")
+        smem = gs.wide_layout(D, plan["cluster"])["smem_bytes"]
+        case = {"max_abs_err": err, "ms": cuda_ms(lambda: gs.gru_scan(*args),
+                                                  3),
+                "plain_ms": cuda_ms(lambda: gs.gru_scan_reference(*args), 1),
+                **bound(nbytes(proj, mask, *[w for d in weights for w in d],
+                               got), 2 * T * U * gru_step_ops(D)),
+                "library_ms": None, "T": T, "B": U,
+                "cluster": plan["cluster"], "clusters": plan["clusters"],
+                "active": plan["active"], "smem_bytes": smem}
+        cases[f"D{D}"] = case
+        log(f"phase 24a gru_scan wide T={T} U={U} D={D}, both directions: "
+            f"max abs err {err:.3e}, a second call bit for bit; "
+            f"{plan['clusters']} clusters of {plan['cluster']} blocks (the "
+            f"card holds {plan['active'][16]} of 16 and {plan['active'][8]} "
+            f"of 8), {smem} bytes a block; kernel {case['ms']:.3f} ms, plain "
+            f"{case['plain_ms']:.3f} ms, bound {case['bound_ms']:.3f} ms")
+    # the row: the widest layer, the other beside it
+    results["gru_scan_wide"] = dict(
+        cases["D1000"], D500=cases["D500"],
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()))
+
+
+def wide_train_check(t, dev, results):
+    """Phase 24b: gru_scan_train_bidir through the wide instances (the
+    forward with its residuals, the backward, outer_sum) against autograd
+    through the plain scan at B=32, the recipe's wide layers, phase 11's
+    tolerances (``gru_train_case``), the C layouts against the mirror;
+    and one direction at D=1000."""
+    import ctypes
+    from attention_lvcsr_torch import _build
+    from attention_lvcsr_torch.ops import gru_train as gt
+    lib = _build.load().lib
+    lib.gru_train_wide_smem_bytes.argtypes = [ctypes.c_int]
+    cases = {}
+    B = 32
+    for D, T in PYRAMIDE_WIDE:
+        if lib.gru_train_wide_smem_bytes(D) != \
+                gt.bwd_wide_layout(D)["smem_bytes"]:
+            fail(f"gru_train wide: the C layout at D={D} has "
+                 f"{lib.gru_train_wide_smem_bytes(D)} bytes, the mirror "
+                 f"{gt.bwd_wide_layout(D)['smem_bytes']}")
+        rng = np.random.RandomState(240 + D)
+        lengths = rng.randint(T * 3 // 8, T + 1, size=B)
+        lengths[0] = T
+        mask = t((np.arange(T)[:, None] < lengths[None, :]).astype(
+            np.float32))
+        gt.launches_bidir_wide.reset()
+        case = gru_train_case(t, rng, mask, D, 2, "24b",
+                              "gru_scan_train_bidir wide")
+        if not gt.launches_bidir_wide.count:
+            fail(f"gru_scan_train wide D={D}: no wide launch")
+        cases[f"D{D}"] = dict(
+            case, T=T, B=B,
+            smem_bytes=gt.bwd_wide_layout(D)["smem_bytes"])
+    # one direction (gru_scan_train :291's route; no recipe runs it)
+    D, T = PYRAMIDE_WIDE[-1]
+    rng = np.random.RandomState(241)
+    mask = t((np.arange(T)[:, None] < rng.randint(
+        T * 3 // 8, T + 1, size=B)[None, :]).astype(np.float32))
+    gt.launches_wide.reset()
+    one = gru_train_case(t, rng, mask, D, 1, "24b", "gru_scan_train wide")
+    if not gt.launches_wide.count:
+        fail(f"gru_scan_train wide D={D}, one direction: no wide launch")
+    results["gru_scan_train_bidir_wide"] = dict(
+        cases["D1000"], D500=cases["D500"], one_direction=dict(one, T=T, B=B),
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()))
+
+
+def pyramide_decoder(t, dev, results):
+    """Phase 24b, last: decoder_train.cu at the recipe's attention (the
+    1000-unit layer's both directions: D=2000 attended, L=200, M=250,
+    S=250, one 201-tap filter, the window around the median +-200) and
+    T=100 labels, B=10 and 32, against the plain scan (``decoder_case``):
+    its first run at D=2000."""
+    prior = pyramide_net()["prior"]
+    for key, B in (("pyramide_B10", 10), ("pyramide_B32", 32)):
+        decoder_case(t, dev, results, "24b", key, prior, T=100, B=B, L=200,
+                     M=250, D=2000, S=250, nf=1)
+
+
+def pyramide_batches(t, dev, n, B, seed):
+    """``n`` batches of ``B`` utterances of 600-800 frames and 75-100
+    labels (row 0 the longest in both), each label row ending with the
+    EOS label as the data streams end them."""
+    import torch
+    rng = np.random.RandomState(seed)
+    T, TL, eos = 800, 100, CHAR_MAP["<eol>"]
+    batches = []
+    for _ in range(n):
+        frames, labels = rng.randint(600, T + 1, size=B), \
+            rng.randint(75, TL + 1, size=B)
+        frames[0], labels[0] = T, TL
+        symbols = rng.randint(0, eos, size=(B, TL))
+        symbols[np.arange(B), labels - 1] = eos
+        batches.append({
+            "recordings": t(rng.randn(B, T, 123)),
+            "recordings_mask": t(np.arange(T)[None] < frames[:, None]),
+            "labels": torch.tensor(symbols, device=dev),
+            "labels_mask": t(np.arange(TL)[None] < labels[:, None])})
+    return batches
+
+
+def pyramide_recipe_check(t, dev, rates, batches):
+    """Phase 24c: wsj_pyramide.yaml's ``pretraining`` (the expanding
+    window) and ``main`` (from ``pretraining_best_ll.zip``, the window
+    around the median) at the recipe's widths through ``recipes_check`` on
+    the kernels and on the plain route over ``batches`` ({10: an epoch's
+    batches}), validation and search (beam 10, char_discount 3.0) of 4 of
+    the utterances at full length, which take the module route
+    (``loop_route``: the loop kernel's block would need 282,880 bytes).
+    Returns the kernel route's launches."""
+    from attention_lvcsr_torch.search.beam import loop_route
+    net = {k: v for k, v in pyramide_net().items()
+           if k not in ("input_dims", "input_num_chars", "eos_label",
+                        "num_phonemes")}
+    stage = lambda prior, training: {
+        "net": dict(net, prior=prior), "initialization": FLAGSHIP_INIT,
+        "data": {"batch_size": 10},
+        "training": dict(training, num_epochs=1),
+        "regularization": {"max_norm": 1.0},
+        "monitoring": copy.deepcopy(VARIANT_MONITORING)}
+    paper = dict(WSJ_PAPER["training"])
+    recipes = {"wsj_pyramide": [
+        ("pretraining", stage(PYRAMIDE_PRETRAINING, paper)),
+        ("main", stage(net["prior"], dict(paper, restart_from="_best_ll")))]}
+    # validation on 4 of the training utterances: the steps lower their
+    # cost, so that pretraining writes the _best_ll main restarts from
+    valid = [{k: v[:4] for k, v in batches[10][0].items()}]
+    if loop_route(dict(pyramide_net(), num_phonemes=len(CHARS)), 10, 800,
+                  266):
+        fail("phase 24c: the 800-frame decode would take the loop kernel")
+    return recipes_check(dev, rates, "24c", recipes, batches, valid,
+                         {"wsj_pyramide": False})["wsj_pyramide"]
+
+
+def pyramide_serve(t, dev, rates):
+    """Phase 24d: the recipe's model (random weights from seed 1234, the
+    EOS logit raised by 6) decoding as the server runs it
+    (``Transcriber.transcribe_batch`` with the stage's
+    ``monitoring.search`` options, as ``serve.py::build_server`` takes
+    them): 16 utterances of 600-800 frames at once, beam 10,
+    char_discount 3.0, the optimistic stop, on the kernels and on the
+    plain route: the same hypotheses, costs within 1e-4 relative, more
+    than half of them with a symbol besides EOS (the raised EOS logit
+    lets the random model's hypotheses finish within the 266-step cap);
+    the module route's launches and utt/s.  Returns the kernel route's
+    launches."""
+    import torch
+    from attention_lvcsr_torch.models import attention as attention_mod
+    from attention_lvcsr_torch.models import cells as cells_mod
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import attention_energy as ae
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.serve import Transcriber
+    rec = SpeechRecognizer(pyramide_net(), init_config=FLAGSHIP_INIT,
+                           seed=1234, device=dev)
+    eos = CHAR_MAP["<eol>"]
+    rec.net.generator.readout.post_merge_0.bias.data[eos] += 6.0
+    # the search options as serve.py::build_server takes them from the
+    # stage's monitoring.search
+    search = VARIANT_MONITORING["search"]
+    transcriber = Transcriber(rec, char_map=CHAR_MAP,
+                              beam_size=search["beam_size"], search_kwargs={
+                                  "char_discount": search["char_discount"],
+                                  "round_to_inf": search.get("round_to_inf",
+                                                             1e9),
+                                  "stop_on": search["stop_on"]})
+    rng = np.random.RandomState(241)
+    feats = [rng.randn(int(n), 123).astype(np.float32)
+             for n in rng.randint(600, 801, size=16)]
+    U = len(feats)
+    counters = {"gru_scan": gs.launches, "gru_scan_wide": gs.launches_wide,
+                "beam_attention_energies": ae.launches,
+                "beam_search_loop": bl.launches}
+    plain = [(cells_mod, "gru_scan", gs.gru_scan_reference),
+             (attention_mod, "beam_attention_energies",
+              ae.beam_attention_energies_reference)]
+    answers, moved = {}, {}
+    for route in ("kernels", "plain"):
+        for c in counters.values():
+            c.reset()
+        with swapped(plain if route == "plain" else []):
+            t0 = time.perf_counter()
+            answers[route] = transcriber.transcribe_batch(feats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        moved[route] = counts(counters)
+        rates[f"wsj_pyramide_serve_{route}_utt_per_s"] = U / wall
+    if moved["kernels"]["beam_search_loop"] or not all(
+            moved["kernels"][k] for k in ("gru_scan", "gru_scan_wide",
+                                          "beam_attention_energies")) \
+            or any(moved["plain"].values()):
+        fail(f"phase 24d: launches {moved['kernels']} on the kernels, "
+             f"{moved['plain']} on the plain route")
+    worst = 0.0
+    for u, (got, ref) in enumerate(zip(answers["kernels"],
+                                       answers["plain"])):
+        costs = (got["cost"], ref["cost"])
+        if got["labels"] != ref["labels"] or (None in costs) and \
+                costs[0] != costs[1]:
+            fail(f"phase 24d: utterance {u}: {got} vs the plain route's "
+                 f"{ref}")
+        if None not in costs:
+            worst = max(worst, abs(costs[0] - costs[1])
+                        / max(abs(costs[1]), 1e-6))
+    found = sum(a["cost"] is not None and any(x != eos for x in a["labels"])
+                for a in answers["kernels"])
+    if worst > 1e-4 or found <= U // 2:
+        fail(f"phase 24d: costs within {worst:.2e}, {found} of {U} "
+             f"hypotheses non-empty")
+    log(f"phase 24d serve decode U={U}, 600-800 frames, beam 10, "
+        f"char_discount 3.0: the plain route's hypotheses ({found} of {U} "
+        f"with a symbol besides EOS), costs within {worst:.2e}; "
+        f"{rates['wsj_pyramide_serve_kernels_utt_per_s']:.2f} utt/s on the "
+        f"kernels, {rates['wsj_pyramide_serve_plain_utt_per_s']:.2f} plain; "
+        f"launches {moved['kernels']}")
+    return {k: v for k, v in moved["kernels"].items() if v}
+
+
+def resident_gru_bits(t, dev):
+    """The resident GRU routes at the flagship's D=250, with the cluster
+    sizes their launch plans take on an H100 forced (8 blocks for the
+    decode's B=64, 16 for the training forward's B=32): the sha256 of
+    gru_scan's states (T=800, B=64, both directions, ragged mask) and of
+    gru_scan_train_bidir's states and every gradient (B=32), and the
+    times of gru_scan and of the training scan's forward + backward.
+    Returns ({output: sha256}, {name: ms})."""
+    import hashlib
+    import torch
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.ops import gru_train as gt
+    digest = lambda x: hashlib.sha256(
+        x.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+    rng = np.random.RandomState(242)
+    T, D = 800, 250
+    hashes, times = {}, {}
+    saved = gs.max_active_clusters
+    try:
+        for B, cluster in ((64, 8), (32, 16)):
+            gs.max_active_clusters = lambda D, device, c=cluster: {
+                size: 16 if size == c else 0 for size in gs.CLUSTERS}
+            lengths = rng.randint(300, T + 1, size=B)
+            lengths[0] = T
+            mask = t((np.arange(T)[:, None] < lengths[None, :]).astype(
+                np.float32))
+            proj = t(rng.randn(T, B, 6 * D) * 0.5)
+            dirs = [(t(rng.randn(B, D) * 0.1),
+                     t(rng.randn(D, D) / np.sqrt(D)),
+                     t(rng.randn(D, 2 * D) / np.sqrt(D))) for _ in range(2)]
+            if B == 64:
+                hashes["gru_scan"] = digest(gs.gru_scan(proj, mask, *dirs))
+                times["gru_scan"] = cuda_ms(
+                    lambda: gs.gru_scan(proj, mask, *dirs), 5)
+                continue
+            cot = [t(rng.randn(T, B, 2 * D))]
+            leaves = [proj] + [w for d in dirs for w in d]
+            fn = lambda p, *w: gt.gru_scan_train(p, mask, tuple(w[:3]),
+                                                 tuple(w[3:]))
+            (out,), grads = grads_of(fn, leaves, cot)
+            hashes["gru_scan_train_bidir states"] = digest(out)
+            for name, g in zip(("dproj", "dh0[0]", "dW_ss[0]", "dW_sg[0]",
+                                "dh0[1]", "dW_ss[1]", "dW_sg[1]"), grads):
+                hashes[f"gru_scan_train_bidir {name}"] = digest(g)
+            times["gru_scan_train_bidir fwd"] = cuda_ms(
+                lambda: fn(*leaves), 5)
+            times["gru_scan_train_bidir bwd"] = backward_ms(fn, leaves, cot,
+                                                            5)
+    finally:
+        gs.max_active_clusters = saved
+    return hashes, times
+
+
+# resident_gru_bits' hashes of the tree before the wide instances (commit
+# d77f44a, tools/torch_gru_bits.py on an H100): the resident kernels kept
+# their code, so their outputs keep these bits
+RESIDENT_BITS = {
+    "gru_scan":
+        "74b74651ad2de4b820db904d4e705428146dd4d56377ffa41ae106c13c87e7e4",
+    "gru_scan_train_bidir states":
+        "a4e2dba7c4953bf477c6e7e0d832e6daa59d24f48d0c027e94014fd661f6d5d3",
+    "gru_scan_train_bidir dproj":
+        "d32e7f7c06dba89788e4e2a6a4389dc378cd732d2d52914210fa8a69afacc8a3",
+    "gru_scan_train_bidir dh0[0]":
+        "ce953b3103d79b27bd017ea06c416423d6046b539c5458616931eab6a657cf80",
+    "gru_scan_train_bidir dW_ss[0]":
+        "cab1a2c69ccd5ba58bba66cc715f181caa3a8797a1e3bac2acbfcd91c8193848",
+    "gru_scan_train_bidir dW_sg[0]":
+        "2fc6ed17b1bc88359c94b2d893387997af4357aff4b3f958932407fea3fac163",
+    "gru_scan_train_bidir dh0[1]":
+        "f72654039e39dd19100703c60540bdb71005735157301c1bf3a8a356ce013568",
+    "gru_scan_train_bidir dW_ss[1]":
+        "321ac5225a3370aabf40d032d3b623c3aa41ee27bc80870a902c1849147c329f",
+    "gru_scan_train_bidir dW_sg[1]":
+        "f9d880ca511453ac7f5163339a7e1e37e76fa441f347ac041424dcfb93b5c124"}
+
+
+def resident_check(t, dev, rates):
+    """Phase 24e: the resident routes of gru_scan.cu and gru_train.cu at
+    D=250 (``resident_gru_bits``) hash to the bits of the tree before the
+    wide instances; their times beside it."""
+    hashes, times = resident_gru_bits(t, dev)
+    differ = sorted(k for k, v in hashes.items() if RESIDENT_BITS.get(k) != v)
+    if differ:
+        fail(f"phase 24e: the resident routes changed their bits: {differ}")
+    rates.update({f"resident {k} ms": v for k, v in times.items()})
+    log(f"phase 24e resident routes at D=250: {len(hashes)} outputs hash to "
+        f"the earlier tree's bits; " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in times.items()))
+
+
+def pyramide_phase(t, dev, results, rates):
+    """Phase 24: the wide GRU instances and wsj_pyramide.yaml end to end.
+    Returns 24c's and 24d's kernel-route launches."""
+    t0 = time.perf_counter()
+    wide_scan_check(t, dev, results)
+    wide_train_check(t, dev, results)
+    pyramide_decoder(t, dev, results)
+    log(f"phase 24a-b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    batches = {10: pyramide_batches(t, dev, 2, 10, seed=24)}
+    moved = {"wsj_pyramide train": pyramide_recipe_check(t, dev, rates,
+                                                         batches)}
+    log(f"phase 24c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moved["wsj_pyramide serve"] = pyramide_serve(t, dev, rates)
+    log(f"phase 24d: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    resident_check(t, dev, rates)
+    log(f"phase 24e: {time.perf_counter() - t0:.1f} s")
+    return moved
 
 if __name__ == "__main__":
     main()

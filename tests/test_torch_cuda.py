@@ -114,13 +114,19 @@ def test_gru_scan_layout_edges(device, monkeypatch, T, B, D, ndir, cluster):
 
 
 def test_gru_scan_too_wide_raises(device):
-    """D=600 does not fit the cluster's shared memory: no launch."""
+    """D=1025 is past the wide instance's 1024: no launch of either
+    instance, in the scan and in the training scan."""
+    from attention_lvcsr_torch.ops import gru_train as gt
     rng = np.random.RandomState(0)
-    proj, mask, weights = _gru_operands(rng, device, 3, 2, 600, 2)
-    before = gs.launches.count
-    with pytest.raises(NotImplementedError, match="D=600"):
+    proj, mask, weights = _gru_operands(rng, device, 3, 2, 1025, 2)
+    counters = (gs.launches, gs.launches_wide, gt.launches_bidir,
+                gt.launches_bidir_wide)
+    before = [c.count for c in counters]
+    with pytest.raises(NotImplementedError, match="D=1025"):
         gs.gru_scan(proj, mask, *weights)
-    assert gs.launches.count == before
+    with pytest.raises(NotImplementedError, match="D=1025"):
+        gt.gru_scan_train(proj, mask, *weights)
+    assert [c.count for c in counters] == before
 
 
 @pytest.mark.parametrize("search", [

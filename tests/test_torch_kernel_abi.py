@@ -223,3 +223,17 @@ def test_stack_fields_travel_in_the_structs(struct):
         assert dict(cls._fields_)[name] is (ctypes.c_void_p if pointer
                                             else ctypes.c_int)
         assert not getattr(blank, name)
+
+
+@pytest.mark.parametrize("struct,inner", [("GruWideArgs", "GruArgs"),
+                                          ("GruBwdWideArgs", "GruBwdArgs")])
+def test_wide_gru_structs_wrap_the_resident_ones(struct, inner):
+    """The GRU kernels' wide instances take the resident instance's struct
+    whole, then each direction's packed weights: the wrappers fill the
+    resident struct once for either instance."""
+    cls, source = MIRRORS[struct]
+    assert _c_struct(source, struct) == [("a", inner, False, None),
+                                         ("pack", "float", True, 2)]
+    assert cls._fields_[0][1] is MIRRORS[inner][0]
+    assert issubclass(cls._fields_[1][1], ctypes.Array)
+    assert cls._fields_[1][1]._type_ is ctypes.c_void_p
