@@ -6,16 +6,20 @@ Each source compiles in its own ``nvcc`` process, all started together,
 and one more links them:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o   (each)
+         -Xcompiler -fPIC -Xptxas -v -Xptxas --split-compile=8
+         -c csrc/<name>.cu -o <name>.o                              (each)
     nvcc -shared -o libkernels.so *.o
 
 ``--fmad=false`` keeps nvcc from contracting ``a * b + c`` into one fused
 multiply-add outside the explicit ``fmaf`` dot products, so elementwise
 bookkeeping (costs, gates, blends) rounds like the plain PyTorch version
-it is compared with.  The library lands in ``build/torch_kernels/<hash>/``
-at the repository root, keyed by a hash of the sources and flags, and is
-built at first use — never at import, so the CPU tests import every
-module without a compiler.  Wrappers pass pointers and the stream as
+it is compared with.  ``--split-compile=8`` lets ptxas, which takes most
+of a build's time in the sources with many kernel instances, compile
+their kernels on 8 threads; the SASS is the same as without it.  The
+library lands in ``build/torch_kernels/<hash>/`` at the repository root,
+keyed by a hash of the sources and flags, and is built at first use —
+never at import, so the CPU tests import every module without a
+compiler.  Wrappers pass pointers and the stream as
 ``c_void_p``; every C entry point returns ``cudaGetLastError()``.
 """
 from __future__ import annotations
@@ -34,7 +38,8 @@ BUILD_ROOT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-Xptxas", "--split-compile=8")
 
 
 class LaunchCounter:

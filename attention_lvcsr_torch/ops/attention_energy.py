@@ -15,7 +15,12 @@ package computes it.
 
 The kernel runs a block per utterance and tile of frames; :func:`plan`
 picks the tile so that the blocks spread over the card's SMs in balanced
-waves, and mirrors the kernel's thread and shared-memory layout.
+waves, and mirrors the kernel's thread and shared-memory layout.  A beam
+whose rows do not fit a block's shared memory (above about 220 at M=250,
+as the module path's decodes past the loop kernel's 512 have them) runs
+as the fewest near-equal chunks of rows that do (:func:`row_chunks`), a
+launch each, the wrapper gathering each chunk's rows and scattering its
+energies.
 """
 from __future__ import annotations
 
@@ -67,15 +72,35 @@ def plan(U, K, L, M, sms, max_smem=MAX_SMEM):
     return best[1]
 
 
+def row_chunks(U, K, L, M, sms):
+    """[(k0, k1)]: the beam's rows in the fewest near-equal chunks that
+    :func:`plan` takes (the whole beam where it fits); a row too wide for a
+    block raises :func:`plan`'s error."""
+    for n in range(1, K + 1):
+        size = -(-K // n)
+        try:
+            plan(U, size, L, M, sms)
+        except NotImplementedError:
+            continue
+        return [(k, min(K, k + size)) for k in range(0, K, size)]
+    plan(U, 1, L, M, sms)
+    raise AssertionError("unreachable: plan takes one row or raises")
+
+
 _sms = {}
 
 
-def launch_plan(U, K, L, M, device):
-    """:func:`plan` on the device's SM count (queried once a device)."""
+def _sm_count(device):
+    """The device's SM count, queried once a device."""
     if device.index not in _sms:
         _sms[device.index] = torch.cuda.get_device_properties(
             device).multi_processor_count
-    return plan(U, K, L, M, _sms[device.index])
+    return _sms[device.index]
+
+
+def launch_plan(U, K, L, M, device):
+    """:func:`plan` on the device's SM count."""
+    return plan(U, K, L, M, _sm_count(device))
 
 
 def beam_attention_energies_reference(pre, state_sum, conv, handler, v, bias,
@@ -138,16 +163,28 @@ def _launch(pre, state_sum, conv, handler, v, bias, beam):
     out = torch.empty(U * K, L, dtype=torch.float32, device=device)
     if not (U and K and L):
         return out
-    p = launch_plan(U, K, L, M, device)
+    chunks = row_chunks(U, K, L, M, _sm_count(device))
     fn = _kernel()
-    args = _Args(pre=pre.data_ptr(), state_sum=state_sum.data_ptr(),
-                 conv=conv.data_ptr(), handler=handler.data_ptr(),
-                 v=v.data_ptr(), out=out.data_ptr(), bias=float(bias),
-                 U=U, K=K, L=L, M=M, tile=p["tile"], slices=p["slices"])
-    with torch.cuda.device(device):
-        status = fn(ctypes.byref(args), _build.stream_of(pre))
-    _build.check(status, "attention_energy_f32")
-    launches.count += 1
+    for k0, k1 in chunks:
+        kc = k1 - k0
+        if len(chunks) == 1:
+            part_state, part_conv, part = state_sum, conv, out
+        else:
+            part_state = state_sum.view(U, K, M)[:, k0:k1].reshape(U * kc, M)
+            part_conv = conv.view(U, K, L)[:, k0:k1].reshape(U * kc, L)
+            part = torch.empty(U * kc, L, dtype=torch.float32, device=device)
+        p = launch_plan(U, kc, L, M, device)
+        args = _Args(pre=pre.data_ptr(), state_sum=part_state.data_ptr(),
+                     conv=part_conv.data_ptr(), handler=handler.data_ptr(),
+                     v=v.data_ptr(), out=part.data_ptr(), bias=float(bias),
+                     U=U, K=kc, L=L, M=M, tile=p["tile"],
+                     slices=p["slices"])
+        with torch.cuda.device(device):
+            status = fn(ctypes.byref(args), _build.stream_of(pre))
+        _build.check(status, "attention_energy_f32")
+        launches.count += 1
+        if part is not out:
+            out.view(U, K, L)[:, k0:k1] = part.view(U, kc, L)
     return out
 
 

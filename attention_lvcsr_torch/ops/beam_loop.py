@@ -15,7 +15,11 @@ loss's costs (``mse_cost``) and one to four GRU decoder layers (the tables'
 ``beam_search_loop`` takes the plain PyTorch version for tensors on the
 CPU and launches the kernel for tensors on a CUDA device; any other
 device raises, and so does a configuration the kernel does not cover, on
-either device.
+either device.  On the card a decode whose layout fits a block's shared
+memory takes the resident instance (``csrc/beam_loop.cu``), any other
+the workspace instance (``csrc/beam_loop_ws.cu``: the K-row buffers in
+a global workspace the wrapper allocates), up to ``MAX_BEAM`` rows
+(:func:`route`, decided before the launch).
 
 Semantics shared by both versions (and by the TPU kernel):
 
@@ -77,7 +81,8 @@ NORMALIZERS = ("softmax", "logistic", "relu")
 POST_ACTS = ("tanh", "relu", "sigmoid", "identity", "maxout")
 _POST_ACT_ALIASES = {"rectifier": "relu", "logistic": "sigmoid"}
 
-launches = _build.LaunchCounter()
+launches = _build.LaunchCounter()      # the resident instances
+launches_ws = _build.LaunchCounter()   # the workspace instances
 
 # table name -> shape in terms of the dimension letters below (S a
 # layer's state, Z = N*S and G = 2*N*S the N layers' lanes)
@@ -428,11 +433,12 @@ def beam_search_loop_reference(pre, attended, att_mask, tables, *, beam,
     return dout.view(U, K, Lout), done_meta, steps
 
 
-# ---- mirror of the kernel's shared-memory layout and of its products'
-# split over the block (csrc/beam_loop.cu, csrc/beam_products.cuh), held
-# to the C code on the card by chip_smoke.py
+# ---- mirror of the kernel's layouts and of its products' split over the
+# block (csrc/beam_loop_body.cuh, csrc/beam_products.cuh), held to the C
+# code on the card by chip_smoke.py
 THREADS = 512            # kThreads, kProdThreads
 MAX_GROUP_ROWS = 8       # kMaxGroupRows
+MAX_BEAM = 512           # kMaxBeam: the merge's commit takes a thread a row
 SMEM_LIMIT = 232448      # shared memory an H100 block may use
 
 
@@ -440,55 +446,95 @@ def _align4(n):
     return (n + 3) & ~3
 
 
-def smem_plan(K, L, M, D, S, R, V, F, Lout, n_taps, content=False,
-              normalizer="softmax", n_filters=1, maxout=0, dec_stack=1):
-    """``make_layout``: buffer offsets (floats, each 16-byte aligned) and
-    the block's bytes, and whether they fit an H100 block.  ``F`` is the
-    feedback width; ``n_filters`` conv filters keep their taps, handler
-    rows and convolutions, content-only attention none; only the relu
-    normalizer keeps its rows' all-zero flags, and only a maxout readout
-    (``maxout`` pieces) its grouped activation.  A stack of ``dec_stack``
-    layers keeps their states (K, N*S) and stages no feedback rows: its
-    fork products read the embedding rows from global memory."""
-    stack = dec_stack > 1
-    if content:
-        n_taps = n_filters = 0
-    offsets, p = {}, 0
+def _layout(K, L, M, D, S, R, V, F, Lout, n_taps, n_filters, maxout,
+            dec_stack, bad, workspace):
+    """``make_layout<..., kWorkspace>``: (offsets, shared floats, workspace
+    floats an utterance).  The K-row buffers take their own cursor in the
+    workspace instance, the one cursor of shared memory otherwise."""
+    offsets, cur = {}, {"shared": 0, "rows": 0}
+    rows = "rows" if workspace else "shared"
 
-    def take(name, n):
-        nonlocal p
-        offsets[name] = p
-        p = _align4(p + n)
+    def take(name, n, where):
+        offsets[name] = cur[where]
+        cur[where] = _align4(cur[where] + n)
 
     warps = THREADS // 32
-    # relu's row flags take no room under the other normalizers
-    bad = (("bad", K),) if normalizer == "relu" else ()
-    for name, n in (("h", K * S * dec_stack), ("w", K * L),
-                    ("aout", K * Lout),
-                    ("dout", K * Lout), ("acost", K), ("dadj", K),
-                    ("dcost", K), ("dlen", K), ("newadj", K), ("chosen", K),
-                    ("src", K), ("sym", K), ("pick", K), ("mask", L),
-                    ("taps", n_filters * n_taps), ("handler", n_filters * M),
-                    ("v", M), ("begins", K), ("ends", K), *bad,
-                    ("red_v", warps + 1), ("red_i", warps + 1),
-                    ("wn", K * L), ("wa", K * D)):
-        take(name, n)
-    scratch, ends = p, []
+    for name, n, where in (
+            ("h", K * S * dec_stack, rows), ("w", K * L, rows),
+            ("aout", K * Lout, rows), ("dout", K * Lout, rows),
+            ("acost", K, "shared"), ("dadj", K, "shared"),
+            ("dcost", K, "shared"), ("dlen", K, "shared"),
+            ("newadj", K, "shared"), ("chosen", K, "shared"),
+            ("src", K, "shared"), ("sym", K, "shared"),
+            ("pick", K, "shared"), ("mask", L, "shared"),
+            ("taps", n_filters * n_taps, "shared"),
+            ("handler", n_filters * M, "shared"), ("v", M, "shared"),
+            ("begins", K, "shared"), ("ends", K, "shared"),
+            # relu's row flags take no room under the other normalizers
+            *((("bad", K, "shared"),) if bad else ()),
+            ("red_v", warps + 1, "shared"), ("red_i", warps + 1, "shared"),
+            ("wn", K * L, rows), ("wa", K * D, rows)):
+        take(name, n, where)
+    scratch, ends = cur[rows], []
     for phase in ((("conv", n_filters * K * L), ("sp", K * M)),
                   # a maxout readout's grouped units after the merged
                   (("act", K * R + (K * R // maxout if maxout else 0)),
                    ("costs", K * V)),
                   (("hs", K * S), ("was", K * D), ("aout2", K * Lout),
-                   ("dout2", K * Lout), ("fb", 0 if stack else K * F),
-                   ("gi", 2 * K * S),
-                   ("it", K * S))):
-        p = scratch
+                   ("dout2", K * Lout),
+                   ("fb", 0 if dec_stack > 1 else K * F),
+                   ("gi", 2 * K * S), ("it", K * S))):
+        cur[rows] = scratch
         for name, n in phase:
-            take(name, n)
-        ends.append(p)
-    total = 4 * max(ends)
-    return {"offsets": offsets, "smem_bytes": total,
-            "fits": total <= SMEM_LIMIT}
+            take(name, n, rows)
+        ends.append(cur[rows])
+    if workspace:
+        return offsets, cur["shared"], max(ends)
+    return offsets, max(ends), 0
+
+
+def smem_plan(K, L, M, D, S, R, V, F, Lout, n_taps, content=False,
+              normalizer="softmax", n_filters=1, maxout=0, dec_stack=1):
+    """``make_layout``: buffer offsets (floats, each 16-byte aligned) and
+    the block's bytes, and whether they fit an H100 block; under
+    ``"workspace"`` the workspace instance's (``make_layout<...,
+    kWorkspace>``): its offsets (the K-row buffers' in an utterance's
+    workspace rows, the rest in shared memory), ``stride`` (workspace
+    floats an utterance), its block's ``smem_bytes`` and ``fits``.  ``F``
+    is the feedback width; ``n_filters`` conv filters keep their taps, handler
+    rows and convolutions, content-only attention none; only the relu
+    normalizer keeps its rows' all-zero flags, and only a maxout readout
+    (``maxout`` pieces) its grouped activation.  A stack of ``dec_stack``
+    layers keeps their states (K, N*S) and stages no feedback rows: its
+    fork products read the embedding rows from global memory."""
+    if content:
+        n_taps = n_filters = 0
+    dims = (K, L, M, D, S, R, V, F, Lout, n_taps, n_filters, maxout,
+            dec_stack, normalizer == "relu")
+    offsets, total, _ = _layout(*dims, workspace=False)
+    ws_offsets, ws_total, stride = _layout(*dims, workspace=True)
+    return {"offsets": offsets, "smem_bytes": 4 * total,
+            "fits": 4 * total <= SMEM_LIMIT,
+            "workspace": {"offsets": ws_offsets, "stride": stride,
+                          "smem_bytes": 4 * ws_total,
+                          "fits": 4 * ws_total <= SMEM_LIMIT}}
+
+
+def route(plan, beam):
+    """``"resident"`` where the resident layout of :func:`smem_plan`'s
+    ``plan`` fits a block, else ``"workspace"``; a beam past
+    ``MAX_BEAM`` or a workspace instance whose shared part does not fit
+    raises."""
+    if not 1 <= beam <= MAX_BEAM:
+        raise ValueError(f"beam_search_loop: beam {beam} (the kernel takes "
+                         f"1-{MAX_BEAM})")
+    if plan["fits"]:
+        return "resident"
+    if not plan["workspace"]["fits"]:
+        raise ValueError(
+            "beam_search_loop: the workspace instance's shared part needs "
+            f"{plan['workspace']['smem_bytes']} bytes (limit {SMEM_LIMIT})")
+    return "workspace"
 
 
 def product_plan(nrows, N):
@@ -502,7 +548,7 @@ def product_plan(nrows, N):
 
 
 class _Args(ctypes.Structure):
-    """Mirror of ``struct BeamLoopArgs`` in csrc/beam_loop.cu."""
+    """Mirror of ``struct BeamLoopArgs`` in csrc/beam_loop_body.cuh."""
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
             "pre", "attended", "att_mask", "conv_taps", "state_trans",
@@ -521,7 +567,8 @@ class _Args(ctypes.Structure):
             "n_filters", "post_act", "maxout", "prior_mean")]
         + [(name, ctypes.c_void_p) for name in ("inter_in_w",
                                                  "inter_gate_w")]
-        + [("dec_stack", ctypes.c_int)])
+        + [("dec_stack", ctypes.c_int), ("ws", ctypes.c_void_p),
+           ("ws_stride", ctypes.c_int)])
 
 
 def _check_tensor(name, x, shape, device):
@@ -543,7 +590,7 @@ def _launch(pre, attended, att_mask, tables, *, beam, max_len, eol,
             round_to_inf=1e9, prior="expanding", before=0.0, after=0.0,
             initial_begin=0.0, initial_end=1e4, min_speed=0.0,
             max_speed=0.0, content_attention=False, normalizer="softmax",
-            mse_cost=False, post_act="tanh"):
+            mse_cost=False, post_act="tanh", instance=None):
     _check_config(tables, prior, stop_on, content_attention, normalizer,
                   post_act, mse_cost)
     act, pieces = post_act_code(post_act)
@@ -579,11 +626,29 @@ def _launch(pre, attended, att_mask, tables, *, beam, max_len, eol,
         _check_tensor("merge_states_k", states_k, (dims["Z"], dims["R"]),
                       dev)
     K, Lout = int(beam), int(max_len)
+    # the instance, chosen before anything is allocated or launched
+    plan = smem_plan(K, L, M, D, S, dims["R"], dims["V"], dims["F"], Lout,
+                     dims["T"], content=content_attention,
+                     normalizer=normalizer, n_filters=n_filters,
+                     maxout=pieces, dec_stack=N)
+    which = route(plan, K)
+    if instance is not None:
+        if instance not in ("resident", "workspace") or (
+                instance == "resident" and not plan["fits"]):
+            raise ValueError(f"beam_search_loop: instance {instance!r} "
+                             f"cannot take beam {K} at L={L}, D={D}")
+        which = instance
+    stride = plan["workspace"]["stride"] if which == "workspace" else 0
+    if stride >= 2 ** 31:
+        raise ValueError(f"beam_search_loop: {stride} workspace floats an "
+                         "utterance")
     done_out = torch.zeros(U, K, Lout, dtype=torch.int32, device=dev)
     done_meta = torch.zeros(U, K, 3, dtype=torch.float32, device=dev)
     steps = torch.zeros(U, dtype=torch.int32, device=dev)
     if U == 0:
         return done_out, done_meta, steps
+    ws = (torch.empty(U * stride, dtype=torch.float32, device=dev)
+          if stride else None)
     if N > 1:
         tables = dict(tables, **{
             name: _layer_major(tables[name],
@@ -604,9 +669,9 @@ def _launch(pre, attended, att_mask, tables, *, beam, max_len, eol,
         dist_in_w=ptr("dist_in_w"), dist_gate_w=ptr("dist_gate_w"),
         wsg=ptr("wsg"), wss=ptr("wss"), h0=ptr("h0"),
         inter_in_w=ptr("inter_in_w"), inter_gate_w=ptr("inter_gate_w"),
-        dec_stack=N,
-        done_out=done_out.data_ptr(), done_meta=done_meta.data_ptr(),
-        steps=steps.data_ptr(),
+        dec_stack=N, ws=None if ws is None else ws.data_ptr(),
+        ws_stride=stride, done_out=done_out.data_ptr(),
+        done_meta=done_meta.data_ptr(), steps=steps.data_ptr(),
         U=U, L=L, M=M, D=D, S=dims["S"], R=dims["R"], V=dims["V"],
         F=dims["F"], K=K, Lout=Lout, n_taps=dims["T"], eol=int(eol),
         stop_patience=int(stop_on == "patience"),
@@ -623,30 +688,28 @@ def _launch(pre, attended, att_mask, tables, *, beam, max_len, eol,
         before=before, after=after, initial_begin=initial_begin,
         initial_end=initial_end, min_speed=min_speed, max_speed=max_speed)
     lib = _build.load().lib
-    lib.beam_loop_smem_bytes.argtypes = [ctypes.POINTER(_Args)]
-    lib.beam_loop_smem_bytes.restype = ctypes.c_int
-    lib.beam_loop_f32.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-    lib.beam_loop_f32.restype = ctypes.c_int
-    smem = lib.beam_loop_smem_bytes(ctypes.byref(args))
-    props = torch.cuda.get_device_properties(dev)
-    limit = getattr(props, "shared_memory_per_block_optin", 232448)
-    if smem > limit:
-        raise NotImplementedError(
-            f"beam_search_loop: beam {K} at L={L}, D={D} needs {smem} bytes "
-            f"of shared memory per utterance (limit {limit})")
+    entry, counter = ((lib.beam_loop_f32, launches) if which == "resident"
+                      else (lib.beam_loop_ws_f32, launches_ws))
+    entry.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+    entry.restype = ctypes.c_int
     with torch.cuda.device(dev):
-        status = lib.beam_loop_f32(ctypes.byref(args), _build.stream_of(pre))
-    _build.check(status, "beam_loop_f32")
-    launches.count += 1
+        status = entry(ctypes.byref(args), _build.stream_of(pre))
+    _build.check(status, entry.__name__)
+    counter.count += 1
     return done_out, done_meta, steps
 
 
-def beam_search_loop(pre, attended, att_mask, tables, **kwargs):
-    """Run the full decode loop; same arguments as the plain version."""
+def beam_search_loop(pre, attended, att_mask, tables, *, instance=None,
+                     **kwargs):
+    """Run the full decode loop; same arguments as the plain version.  On
+    the card ``instance="resident"`` or ``"workspace"`` names the kernel
+    instance in place of :func:`route` (tests and ``chip_smoke.py``); the
+    CPU's plain version has one route."""
     device = pre.device.type
     if device == "cpu":
         return beam_search_loop_reference(pre, attended, att_mask, tables,
                                           **kwargs)
     if device == "cuda":
-        return _launch(pre, attended, att_mask, tables, **kwargs)
+        return _launch(pre, attended, att_mask, tables, instance=instance,
+                       **kwargs)
     raise ValueError(f"beam_search_loop: no kernel for device {pre.device}")

@@ -50,60 +50,64 @@ import torch
 
 from attention_lvcsr_torch.ops.beam_loop import INF as LOOP_INF
 from attention_lvcsr_torch.ops.beam_loop import (beam_search_loop,
-                                                 smem_plan, unported_loop)
-from attention_lvcsr_torch.ops.expressions import maxout_pieces
+                                                 unported_loop)
 
 INF = 1e9
 PATIENCE = 30
 NOT_STATE = -1
 MAX_LOOP_BEAM = 512     # JAX BeamSearch.MAX_LOOP_BEAM
+LOOP_VMEM_BUDGET = 64 << 20     # JAX BeamSearch.LOOP_VMEM_BUDGET
 
 
-def loop_route(net_config, beam, num_frames, max_len):
+def loop_bytes(beam, attended_len, n_filters):
+    """JAX ``BeamSearch._loop_bytes``'s (fixed, per-utterance base) bytes
+    of its loop kernel's VMEM budget, its arithmetic copied: the (1 +
+    filters) L x L tables, and an utterance's alignment-sized rows (K x L
+    x (8 + filters)) and K x K permutations."""
+    K, L = beam, attended_len
+    fixed = (1 + n_filters) * L * L * 4
+    per_utt_base = K * L * 4 * (8 + n_filters) + K * K * 4 * 3
+    return fixed, per_utt_base
+
+
+def loop_route(net_config, beam, num_frames):
     """Whether a decode without constraint or validator takes the
     whole-loop kernel: a pure function of the recognizer's net config
-    (``RecognizerNet``'s keyword arguments), the beam, the input frames
-    and the decode cap.  False (the module-driven ``_search_core``) with
-    an LM, under ``use_pallas: never``, above ``MAX_LOOP_BEAM``, for a
-    readout without exactly one post-merge layer, for a configuration the
-    kernel does not cover (``ops/beam_loop.py::unported_loop``: above 16
-    filters or four decoder layers, an unknown activation, the task
-    loss's costs with the WSJ variants or a stack, a stack with another
-    normalizer than softmax, which no config runs) and when one
-    utterance's state does
-    not fit a block's shared memory (``smem_plan``), the cases where JAX's
-    ``_loop_kernel_mode`` (``search/beam.py:283-344``) leaves the
-    kernel."""
+    (``RecognizerNet``'s keyword arguments), the beam and the input
+    frames, JAX's ``_loop_kernel_mode`` (``search/beam.py:283-344``) rule
+    for its decode of ``num_frames``: no LM, not ``use_pallas: never``,
+    at most ``MAX_LOOP_BEAM``, a GRU decoder, exactly one post-merge
+    layer, a configuration the kernel covers (``ops/beam_loop.py::
+    unported_loop``: up to 16 filters and four decoder layers, a known
+    activation, the task loss's costs without the WSJ variants or a
+    stack, a stack under softmax), and one utterance's ``loop_bytes``
+    within 1.5 times JAX's ``LOOP_VMEM_BUDGET``.  Every decode it passes
+    runs on the card: its resident instance where an utterance fits a
+    block's shared memory, else its workspace instance
+    (``ops/beam_loop.py::route``)."""
     c = dict(net_config)
     if (c.get("lm") or {}).get("path") or c.get("use_pallas") == "never" \
             or beam > MAX_LOOP_BEAM \
-            or len(c.get("post_merge_dims") or ()) != 1:
+            or len(c.get("post_merge_dims") or ()) != 1 \
+            or str(c.get("dec_transition") or "gru").rsplit(".", 1)[-1] \
+            not in ("gru", "GatedRecurrent"):
         return False
     content = c.get("attention_type", "content") == "content"
     prior = dict(c.get("prior") or {}).get("type", "expanding")
     normalizer = c.get("energy_normalizer") or "softmax"
-    n_filters = 0 if content else c.get("conv_num_filters") or 1
     act = c.get("post_merge_activation") or "tanh"
     mse = dict(c.get("criterion") or {}).get(
         "name", "log_likelihood").startswith("mse")
-    dec_stack = c.get("dec_stack") or 1
-    if unported_loop("expanding" if content else prior, n_filters,
+    if unported_loop("expanding" if content else prior,
+                     0 if content else c.get("conv_num_filters") or 1,
                      "softmax" if content else normalizer, content, act,
-                     mse, dec_stack):
+                     mse, c.get("dec_stack") or 1):
         return False
-    L = int(num_frames)
-    for s in c.get("subsample") or [1] * len(c["dims_bidir"]):
-        L = -(-L // int(s))
-    dim_dec = c["dim_dec"]
-    plan = smem_plan(
-        K=beam, L=L, M=c.get("dim_matcher") or dim_dec,
-        D=(2 if c.get("bidir", True) else 1) * c["dims_bidir"][-1],
-        S=dim_dec, R=c["post_merge_dims"][0], V=c["num_phonemes"],
-        F=c.get("dim_output_embedding") or dim_dec, Lout=max(1, max_len),
-        n_taps=0 if content else 2 * c["conv_n"] + 1, content=content,
-        normalizer="softmax" if content else normalizer,
-        n_filters=n_filters, maxout=maxout_pieces(act), dec_stack=dec_stack)
-    return plan["fits"]
+    subsample = int(np.prod([int(s) for s in c.get("subsample") or []]))
+    attended_len = -(-int(num_frames) // max(subsample, 1))
+    fixed, per_utt_base = loop_bytes(
+        beam, attended_len, int(c.get("conv_num_filters") or 1))
+    return fixed + per_utt_base <= 1.5 * LOOP_VMEM_BUDGET
 
 
 class CandidateNotFoundError(Exception):
@@ -226,7 +230,7 @@ class BeamSearch:
                   round_to_inf=float(round_to_inf))
         if (constraint is None and post_filter is None
                 and loop_route(self.recognizer.net_config, self.beam_size,
-                               inputs.shape[1], int(max_length))):
+                               inputs.shape[1])):
             out = self._search_loop(inputs, inputs_mask,
                                     max_len=max(1, int(max_length)), **kw)
         else:

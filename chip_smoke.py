@@ -17,7 +17,9 @@ trains and decodes the WSJ recipes' readout and attention variants (ten
 filters, maxout, the mean window, rectifier and no post-merge layer);
 and trains and decodes the stacked decoders of the wsj_jan_* recipes;
 and trains and serves wsj_pyramide.yaml's 250, 500 and 1000-unit encoder
-through the GRU kernels' wide instances.  Phases, each fatal on failure:
+through the GRU kernels' wide instances; and decodes beams 18-512 and
+the long and D-wide decodes through the loop kernel's workspace
+instances.  Phases, each fatal on failure:
 
 1. build the kernels (one nvcc per source, sm_90a) and print the time;
 2. ``gru_scan`` kernel vs its plain PyTorch version at the encoder's
@@ -204,8 +206,8 @@ through the GRU kernels' wide instances.  Phases, each fatal on failure:
 21. the task loss (``exp/timit/configs/iclr_reward.yaml``: nips_smooth's
     conv attention with the logistic normalizer, ``mse_gain``, greedy
     exploration): (a) the flagship at beam 20, U=16, 800 frames, whose
-    loop state does not fit a block: ``search`` takes the module route
-    (no ``beam_search_loop`` launch) and finds the plain loop's best
+    loop state does not fit a block: ``search`` takes the loop kernel's
+    workspace instance (phase 25) and finds the plain loop's best
     hypotheses; (b) ``beam_search_loop``'s ``mse_cost`` + logistic branch
     (the recipe's initialization) and its relu branch against their plain
     versions at U=64, L=175, beam 10, compared as in phase 3, with their
@@ -282,13 +284,36 @@ through the GRU kernels' wide instances.  Phases, each fatal on failure:
     scan; (c) the recipe's ``pretraining`` and
     ``main`` at its widths on the kernels and on the plain route, 2
     batches of 10 utterances of 600-800 frames an epoch, validation and
-    search (the module route) of 4 of them, compared as phase 22d
-    compares; (d) the recipe's decode through
+    search (the loop kernel's workspace instance) of 4 of them, compared
+    as phase 22d compares; (d) the recipe's decode through
     ``Transcriber.transcribe_batch`` of 16 utterances of 600-800 frames
-    at once, beam 10, char_discount 3.0: the plain route's hypotheses,
-    most of them non-empty; (e) the resident routes at D=250
-    hash to the bits of the tree before the wide instances
-    (``RESIDENT_BITS``), their times.
+    at once, beam 10, char_discount 3.0 (the workspace instance): the
+    plain route's hypotheses, most of them non-empty; (e) the resident
+    routes at D=250 hash to the bits of the tree before the wide
+    instances (``RESIDENT_BITS``), their times;
+25. the loop kernel's workspace instances (``csrc/beam_loop_ws.cu``: the
+    K-row buffers in a global workspace, for decodes whose resident
+    layout passes a block): (a) against the plain loop on the flagship's
+    tables, 800 frames, a 100-step cap, EOS logit +1.5, compared as in
+    phase 3 (3/4 of the utterances must finish): U=64 at beam 18, 64 and
+    200, U=8 at beam 512, odd widths (S=251, M=253, R=249, D=502) at beam
+    40, U=16; C layouts against the mirror, times, bounds, workspace
+    bytes; (b) at beam 10 the workspace instance gives the resident
+    instance's bits (``instance=``), both timed; (c)
+    wsj_jan_wsj13v2.yaml's (L=400, a 266-step cap) and wsj_pyramide.yaml's
+    (D=2000) decodes of 16 utterances of 600-800 frames through
+    ``beam_search`` at beam 10: the workspace instance launches (not the
+    resident one nor the energy kernel), the plain loop's outputs, the
+    module route's best hypotheses under ``use_pallas: never``, more than
+    half of them with a symbol besides EOS, the seconds of the three;
+    (d) ``run_search`` on the flagship with decode.sh's no-LM settings
+    (beam 200, char_discount 0.1, the median window's ``before`` 10) over
+    16 utterances in one chunk: the workspace instance launches once, the
+    report agrees with the module route's (``use_pallas: never``), utt/s
+    of both, then beam 513 takes the module route; (e) the resident loop
+    instances on phases 3, 20b, 22a and 23a's main paths hash to the bits
+    of the tree before the workspace instances (``RESIDENT_LOOP_BITS``),
+    their times.
 
 Nothing of JAX or of the JAX package is imported; the script checks it.
 
@@ -315,7 +340,10 @@ branches; ``variant_launches``, phase 22d's kernel route per recipe;
 ``stacked_launches``, phase 23c-d's kernel route per recipe;
 ``gru_scan_wide`` and ``gru_scan_train_bidir_wide``, the wide instances'
 rows at D=1000 with D=500 beside them, phase 24a-b;
-``pyramide_launches``, phase 24c-d's kernel route);
+``pyramide_launches``, phase 24c-d's kernel route;
+``beam_search_loop_ws``, the workspace instance's row at beam 200 with
+phase 25a's other beams and 25b's resident and workspace times at beam
+10 beside it; ``workspace_launches``, phase 25c-d's kernel route);
 the line before it holds the rates, phase 21d's reward DP time and
 launches among them; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -455,30 +483,50 @@ def best_hypotheses(out):
     return best
 
 
-def compare_outputs(name, got, ref):
+def compare_outputs(name, got, ref, reorder=False):
     """Kernel vs plain decode outputs, utterance by utterance: finished
     hypotheses, lengths, validity and step counts identical, costs within
     1e-4 + 1e-5 relative.  At most one utterance may differ, and only as a
     near tie: the costs of the two best hypotheses within 1e-3 relative.
-    ``steps`` is per utterance, or one number for the batch.  Returns the
-    max abs cost error over the finished hypotheses that agree."""
+    With ``reorder`` (phase 25a's wide beams, whose done sets of up to 512
+    entries hold many costs closer than the two routes' rounding), an
+    utterance whose steps, number of finished hypotheses and best
+    hypothesis are the plain version's, and whose finished costs sorted
+    agree within the tolerance entry by entry, differs only in the order
+    or the choice of near-equal entries: counted and logged apart, not as
+    a near tie.  ``steps`` is per utterance, or one number for the batch.
+    Returns the max abs cost error over the finished hypotheses that
+    agree."""
     per_utt_steps = np.ndim(ref["steps"]) == 1
     best_g, best_r = best_hypotheses(got), best_hypotheses(ref)
-    differ, err = [], 0.0
+    differ, reordered, err = [], [], 0.0
+    close = lambda a, b: bool(np.all(np.abs(a - b) <= 1e-4 + 1e-5 * np.abs(b)))
     for u in range(len(best_r)):
         valid = ref["done_valid"][u]
         cost_g = np.stack([got["done_cost"][u], got["done_adjusted"][u]])
         cost_r = np.stack([ref["done_cost"][u], ref["done_adjusted"][u]])
+        same_steps = not per_utt_steps or got["steps"][u] == ref["steps"][u]
         if (np.array_equal(got["done_out"][u], ref["done_out"][u])
                 and np.array_equal(got["done_len"][u], ref["done_len"][u])
                 and np.array_equal(got["done_valid"][u], valid)
-                and (not per_utt_steps or got["steps"][u] == ref["steps"][u])
-                and np.all(np.abs(cost_g - cost_r)
-                           <= 1e-4 + 1e-5 * np.abs(cost_r))):
+                and same_steps and close(cost_g, cost_r)):
             if valid.any():
                 err = max(err, float(np.abs(cost_g - cost_r)[:, valid].max()))
             continue
         (lab_g, c_g), (lab_r, c_r) = best_g[u], best_r[u]
+        valid_g = got["done_valid"][u]
+        if (reorder and same_steps and valid_g.sum() == valid.sum()
+                and lab_g == lab_r and c_g is not None and c_r is not None
+                and close(np.float32(c_g), np.float32(c_r))
+                and close(np.sort(cost_g[:, valid_g], axis=1),
+                          np.sort(cost_r[:, valid], axis=1))):
+            slots = int((~np.all(got["done_out"][u] == ref["done_out"][u],
+                                 axis=1)).sum())
+            reordered.append(u)
+            log(f"{name}: utterance {u}'s done set reorders near-equal "
+                f"entries ({slots} of {valid.sum()} slots differ, the sorted "
+                f"costs within tolerance; best {lab_g} ({c_g}) both)")
+            continue
         if c_g is None or c_r is None or \
                 abs(c_g - c_r) > 1e-3 * max(abs(c_r), 1.0):
             fail(f"{name}: utterance {u} differs: best {lab_g} ({c_g}) vs "
@@ -695,6 +743,13 @@ def main():
         "gru_scan_wide"]
     launches["gru_scan_train_bidir_wide"] = pyramide_launches[
         "wsj_pyramide train"]["gru_scan_train_bidir_wide"]
+    t0 = time.perf_counter()
+    workspace_launches = workspace_phase(t, dev, results, rates)
+    log(f"phase 25: {time.perf_counter() - t0:.1f} s")
+    # the workspace instance's main path: run.py search at decode.sh's
+    # beam 200 (25d)
+    launches["beam_search_loop_ws"] = workspace_launches["wide search"][
+        "beam_search_loop_ws"]
 
     banned = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "attention_lvcsr_tpu"))
@@ -704,6 +759,8 @@ def main():
     sources = {
         "gru_scan": ("gru_scan.cu", "gru_scan.py:72"),
         "beam_search_loop": ("beam_loop.cu", "beam_loop.py:638"),
+        # the workspace instances (beams past a block, long inputs)
+        "beam_search_loop_ws": ("beam_loop_ws.cu", "beam_loop.py:638"),
         "beam_attention_energies": ("attention_energy.cu",
                                     "attention_energy.py:59"),
         "fused_decode_score": ("decode_score.cu", "decode_score.py:168"),
@@ -748,6 +805,11 @@ def main():
         k["pyramide_launches"] = {path: moved.get(k["name"], 0)
                                   for path, moved in
                                   pyramide_launches.items()}
+        # phase 25c-d's kernel route: the long decodes and run_search at
+        # beam 200
+        k["workspace_launches"] = {path: moved.get(k["name"], 0)
+                                   for path, moved in
+                                   workspace_launches.items()}
     log(json.dumps(dict(rates, build_s=lib.build_seconds)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -794,35 +856,50 @@ def gru_scan_plans(t, dev, rng, T, D, result):
 
 
 def beam_loop_plan(dims, content=False, normalizer="softmax", phase=None,
-                   n_filters=1, post_act=0, maxout=0, dec_stack=1):
-    """Phases 3, 20b, 21b, 22a and 23a: the loop kernel's C shared-memory
-    layout against its Python mirror at the main path's shape (``dims``
-    carries the C struct's ``content`` flag for the content branch;
+                   n_filters=1, post_act=0, maxout=0, dec_stack=1,
+                   instance="resident"):
+    """Phases 3, 20b, 21b, 22a, 23a and 25: the loop kernel's C layout
+    against its Python mirror at the main path's shape (``dims`` carries
+    the C struct's ``content`` flag for the content branch;
     ``n_filters``, ``post_act``, ``maxout`` and ``dec_stack`` the struct's
-    filters, activation and decoder layers)."""
+    filters, activation and decoder layers): the resident instance's
+    block bytes, or the workspace instance's block bytes and workspace
+    floats an utterance (``instance="workspace"``)."""
     import ctypes
     from attention_lvcsr_torch import _build
     from attention_lvcsr_torch.ops import beam_loop as bl
     lib = _build.load().lib
-    lib.beam_loop_smem_bytes.argtypes = [ctypes.POINTER(bl._Args)]
-    lib.beam_loop_smem_bytes.restype = ctypes.c_int
-    c_bytes = lib.beam_loop_smem_bytes(ctypes.byref(bl._Args(
-        U=1, normalizer=bl.NORMALIZERS.index(normalizer),
-        n_filters=n_filters, post_act=post_act, maxout=maxout,
-        dec_stack=dec_stack, **dims)))
+    names = (("beam_loop_smem_bytes",) if instance == "resident"
+             else ("beam_loop_ws_smem_bytes", "beam_loop_ws_stride"))
+    args = bl._Args(U=1, normalizer=bl.NORMALIZERS.index(normalizer),
+                    n_filters=n_filters, post_act=post_act, maxout=maxout,
+                    dec_stack=dec_stack, **dims)
+    c_values = []
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(bl._Args)]
+        fn.restype = ctypes.c_int
+        c_values.append(fn(ctypes.byref(args)))
     plan = bl.smem_plan(**{k: v for k, v in dims.items() if k != "content"},
                         content=content, normalizer=normalizer,
                         n_filters=n_filters, maxout=maxout,
                         dec_stack=dec_stack)
-    if c_bytes != plan["smem_bytes"] or not plan["fits"]:
-        fail(f"beam_search_loop: the C layout has {c_bytes} bytes, the "
-             f"mirror {plan['smem_bytes']} (fits: {plan['fits']}; content "
-             f"{content}, {normalizer})")
-    log(f"phase {phase or ('20b' if content else '3')} beam_loop layout "
-        f"({normalizer}, {n_filters} filters, post_act {post_act}, "
-        f"{dec_stack} layers): {c_bytes} bytes a block (C equals the "
-        f"mirror)")
-    return {"smem_bytes": c_bytes}
+    mirror = plan if instance == "resident" else plan["workspace"]
+    want = [mirror["smem_bytes"]] + (
+        [] if instance == "resident" else [mirror["stride"]])
+    if c_values != want or not mirror["fits"]:
+        fail(f"beam_search_loop {instance}: the C layout gives {c_values} "
+             f"(bytes a block, workspace floats), the mirror {want} (fits: "
+             f"{mirror['fits']}; content {content}, {normalizer})")
+    log(f"phase {phase or ('20b' if content else '3')} beam_loop {instance} "
+        f"layout ({normalizer}, {n_filters} filters, post_act {post_act}, "
+        f"{dec_stack} layers): {c_values[0]} bytes a block"
+        + ("" if instance == "resident" else
+           f", {4 * c_values[1]} workspace bytes an utterance")
+        + " (C equals the mirror)")
+    if instance == "resident":
+        return {"smem_bytes": c_values[0]}
+    return {"smem_bytes": c_values[0], "workspace_stride": c_values[1]}
 
 
 def score_layouts(dev):
@@ -3680,9 +3757,9 @@ def iclr_stages(epochs=1):
 
 
 def routing_check(t, dev):
-    """Phase 21a: a no-LM decode the loop kernel cannot hold (the flagship
-    at beam 20) runs the module route, and finds the plain loop's
-    hypotheses."""
+    """Phase 21a: a no-LM decode past a block's shared memory (the
+    flagship at beam 20) runs the loop kernel's workspace instance, and
+    finds the plain loop's hypotheses."""
     import torch
     from __graft_entry__ import FLAGSHIP_NET
     from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
@@ -3694,10 +3771,10 @@ def routing_check(t, dev):
                            init_config=FLAGSHIP_INIT, seed=1234, device=dev)
     rec.net.generator.readout.post_merge_0.bias.data[rec.eos_label] += 1.5
     max_len = int(frames / 8.0)
-    if beam_mod.loop_route(rec.net_config, K, frames, max_len) \
-            or not beam_mod.loop_route(rec.net_config, 10, frames, max_len):
-        fail("phase 21a: the routing predicate does not leave the loop "
-             "kernel at beam 20 and keep it at beam 10")
+    if not (beam_mod.loop_route(rec.net_config, K, frames)
+            and beam_mod.loop_route(rec.net_config, 10, frames)):
+        fail("phase 21a: the routing predicate leaves the loop kernel at "
+             "beam 20 or 10")
     rng = np.random.RandomState(21)
     lengths = rng.randint(600, frames + 1, size=U)
     lengths[0] = frames
@@ -3705,17 +3782,18 @@ def routing_check(t, dev):
     fmask = t(np.arange(frames)[None] < lengths[:, None])
     rec.init_beam_search(K)
     bl.launches.reset()
+    bl.launches_ws.reset()
     ae.launches.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = rec.beam_search(feats, fmask, as_arrays=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if bl.launches.count or not ae.launches.count \
-            or np.ndim(got["steps"]) != 0:
-        fail(f"phase 21a: beam 20 launched beam_search_loop "
-             f"{bl.launches.count} times and beam_attention_energies "
-             f"{ae.launches.count} times: not the module route")
+    if bl.launches.count or bl.launches_ws.count != 1 or ae.launches.count:
+        fail(f"phase 21a: beam 20 launched the loop's resident instance "
+             f"{bl.launches.count} times, its workspace instance "
+             f"{bl.launches_ws.count} times and beam_attention_energies "
+             f"{ae.launches.count} times: not the workspace instance")
     prior = rec.net.generator.attention.prior_config()
     with torch.inference_mode():
         data = rec.net.decode_loop(feats, fmask)
@@ -3738,16 +3816,16 @@ def routing_check(t, dev):
             worst = max(worst, 0.0 if c is None else abs(c - rc))
             continue
         if c is None or rc is None or abs(c - rc) > 1e-3 * max(abs(rc), 1):
-            fail(f"phase 21a: utterance {u}: {h} ({c}) on the module route "
-                 f"vs {rh} ({rc}) on the plain loop")
+            fail(f"phase 21a: utterance {u}: {h} ({c}) on the workspace "
+                 f"instance vs {rh} ({rc}) on the plain loop")
         differ.append(u)
     found = sum(c is not None for _, c in best_r)
     if len(differ) > 1 or found < U * 3 // 4:
         fail(f"phase 21a: {len(differ)} near ties, {found}/{U} utterances "
              f"finished")
-    log(f"phase 21a beam {K} at U={U}, {frames} frames: the module route "
-        f"(no loop launch, {ae.launches.count} energy launches, "
-        f"{int(got['steps'])} steps) in {wall:.2f} s; best hypotheses equal "
+    log(f"phase 21a beam {K} at U={U}, {frames} frames: the loop kernel's "
+        f"workspace instance ({int(got['steps'])} steps) in {wall:.2f} s; "
+        f"best hypotheses equal "
         f"the plain loop's ({found}/{U} finished, near ties {differ}, "
         f"costs within {worst:.2e})")
     return wall
@@ -4337,12 +4415,15 @@ def loop_ops(net, K, D, widths, steps):
 
 
 def loop_case(dev, results, phase, name, net, feats, fmask, K, max_len,
-              min_finished):
+              min_finished, repeats=3):
     """The loop kernel's decode of ``net`` (random weights from seed 1234,
     the EOS logit raised by 1.5) against the plain loop on the same card
     tensors, compared as in phase 3 (at least ``min_finished`` utterances
-    must finish), a second launch bit for bit, the C layout, the times
-    and the bound over each step's window, into ``results``."""
+    must finish), a second launch bit for bit, the C layout of the
+    instance ``ops/beam_loop.py::route`` takes, the times (``repeats``
+    launches) and the bound over each step's window, into ``results``
+    (``beam_search_loop``, or ``beam_search_loop_ws`` for the workspace
+    instance)."""
     import torch
     from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
     from attention_lvcsr_torch.ops import beam_loop as bl
@@ -4356,12 +4437,24 @@ def loop_case(dev, results, phase, name, net, feats, fmask, K, max_len,
     tables["post_b"] = tables["post_b"].clone()
     tables["post_b"][rec.eos_label] += 1.5
     prior = rec.net.generator.attention.prior_config()
-    act = net["post_merge_activation"]
+    act = net.get("post_merge_activation") or "tanh"
     N = net.get("dec_stack") or 1
     kw = dict(beam=K, max_len=max_len, eol=rec.eos_label,
               ignore_first_eol=True, post_act=act, prior=prior["type"],
               **{k: float(v) for k, v in prior.items() if k != "type"})
     loop_args = (d["pre"], d["attended"], d["attended_mask"], tables)
+    L, M, D = d["pre"].shape[1], d["pre"].shape[2], d["attended"].shape[2]
+    code, pieces = bl.post_act_code(act)
+    nf = net.get("conv_num_filters") or 1
+    dims = dict(K=K, L=L, M=M, D=D, S=net["dim_dec"],
+                R=net["post_merge_dims"][0], V=rec.num_phonemes,
+                F=tables["embed"].shape[1], Lout=kw["max_len"],
+                n_taps=tables["conv_filters"].shape[-1])
+    instance = bl.route(bl.smem_plan(**dims, n_filters=nf, maxout=pieces,
+                                     dec_stack=N), K)
+    counter, idle = ((bl.launches, bl.launches_ws) if instance == "resident"
+                     else (bl.launches_ws, bl.launches))
+    key = "beam_search_loop" + ("" if instance == "resident" else "_ws")
 
     def as_out(res):
         out, meta, steps = (x.cpu().numpy() for x in res)
@@ -4370,10 +4463,12 @@ def loop_case(dev, results, phase, name, net, feats, fmask, K, max_len,
                 "done_len": meta[:, :, 2].astype(np.int32),
                 "done_valid": meta[:, :, 1] < bl.INF / 2, "steps": steps}
 
-    bl.launches.reset()
+    counter.reset()
+    idle.reset()
     got = as_out(bl.beam_search_loop(*loop_args, **kw))
-    if bl.launches.count != 1:
-        fail(f"beam_search_loop {name}: no launch")
+    if counter.count != 1 or idle.count:
+        fail(f"beam_search_loop {name}: no launch of the {instance} "
+             f"instance")
     widths = []                 # each step's window, for the bound
     start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
     start.record()
@@ -4382,7 +4477,8 @@ def loop_case(dev, results, phase, name, net, feats, fmask, K, max_len,
     end.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
-    err = compare_outputs(f"beam_search_loop {name}", got, ref)
+    err = compare_outputs(f"beam_search_loop {name}", got, ref,
+                          reorder=phase == "25a")
     finished = int(got["done_valid"].any(axis=1).sum())
     if finished < min_finished:
         fail(f"beam_search_loop {name}: only {finished}/{U} utterances "
@@ -4390,31 +4486,29 @@ def loop_case(dev, results, phase, name, net, feats, fmask, K, max_len,
     again = as_out(bl.beam_search_loop(*loop_args, **kw))
     if not all(np.array_equal(got[k], again[k]) for k in got):
         fail(f"beam_search_loop {name}: a second launch differs")
-    ms = cuda_ms(lambda: bl.beam_search_loop(*loop_args, **kw), 3)
-    L, M, D = d["pre"].shape[1], d["pre"].shape[2], d["attended"].shape[2]
-    code, pieces = bl.post_act_code(act)
-    nf = net["conv_num_filters"]
-    plan = beam_loop_plan(dict(
-        K=K, L=L, M=M, D=D, S=net["dim_dec"], R=net["post_merge_dims"][0],
-        V=rec.num_phonemes, F=tables["embed"].shape[1],
-        Lout=kw["max_len"], n_taps=tables["conv_filters"].shape[-1]),
-        phase=phase, n_filters=nf, post_act=code, maxout=pieces,
-        dec_stack=N)
+    ms = cuda_ms(lambda: bl.beam_search_loop(*loop_args, **kw), repeats)
+    plan = beam_loop_plan(dims, phase=phase, n_filters=nf, post_act=code,
+                          maxout=pieces, dec_stack=N, instance=instance)
     out = bl.beam_search_loop(*loop_args, **kw)
     ops, window = loop_ops(net, K, D, widths, got["steps"])
-    results["beam_search_loop"][name] = {
-        "U": U, "L": L, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    results.setdefault(key, {})[name] = {
+        "U": U, "K": K, "L": L, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms,
         **bound(nbytes(*loop_args[:3], tables, *out), ops),
         "mean_window": window, "library_ms": None, **plan}
-    r = results["beam_search_loop"][name]
-    log(f"phase {phase} beam_search_loop {name} ({N} layers of "
+    r = results[key][name]
+    if instance == "workspace":
+        r["workspace_bytes"] = 4 * U * plan["workspace_stride"]
+    log(f"phase {phase} beam_search_loop {name} ({instance}; {N} layers of "
         f"{net['dim_dec']}, {nf} filters, {act}, {prior['type']}) U={U} "
-        f"L={L}: outputs agree; {finished}/{U} finished, steps "
+        f"K={K} L={L}: outputs agree; {finished}/{U} finished, steps "
         f"{int(got['steps'].min())}..{int(got['steps'].max())}, max abs "
         f"cost err {err:.3e}, a second launch bit for bit; kernel "
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {r['bound_ms']:.3f} "
         f"ms over windows of {r['mean_window']:.1f} of {L} frames on "
-        f"average ({maxout_pieces(act) or 'no'} maxout pieces)")
+        f"average ({maxout_pieces(act) or 'no'} maxout pieces)"
+        + (f"; workspace {r['workspace_bytes']} bytes"
+           if instance == "workspace" else ""))
     return r
 
 
@@ -4685,8 +4779,9 @@ def variant_recipes_check(t, dev, rates):
     # cost, so that pretraining writes the _best_ll main restarts from
     valid = [{k: v[:4] for k, v in batches[10][0].items()}]
     return recipes_check(dev, rates, "22d", variant_recipes(), batches,
-                         valid, {"wsj_mean_maxout": True, "wsj_bhd4": True,
-                                 "wsj_good": False})
+                         valid, {"wsj_mean_maxout": "beam_search_loop",
+                                 "wsj_bhd4": "beam_search_loop",
+                                 "wsj_good": None})
 
 
 def recipes_check(dev, rates, phase, recipes, batches, valid, loop_routes):
@@ -4695,9 +4790,10 @@ def recipes_check(dev, rates, phase, recipes, batches, valid, loop_routes):
     of an epoch), validation and search on ``valid`` before each stage
     and after its epoch: train_cost, total_gradient_norm and validation
     costs within 1e-4 relative, the same hypotheses, more than half of
-    them non-empty; the route of every search (``loop_routes``: the loop
-    kernel where True, else the module route); utt/s.  Returns the
-    kernel route's launches, per recipe."""
+    them non-empty; the route of every search (``loop_routes``: the
+    loop kernel's instance that launches, ``beam_search_loop`` resident
+    or ``beam_search_loop_ws``, or None for the module route); utt/s.
+    Returns the kernel route's launches, per recipe."""
     from attention_lvcsr_torch.models import attention as attention_mod
     from attention_lvcsr_torch.models import cells as cells_mod
     from attention_lvcsr_torch.models import generator as generator_mod
@@ -4711,6 +4807,7 @@ def recipes_check(dev, rates, phase, recipes, batches, valid, loop_routes):
     from attention_lvcsr_torch.search import beam as beam_mod
     from attention_lvcsr_torch.train.checkpoint import save_checkpoint
     counters = {"gru_scan": gs.launches, "beam_search_loop": bl.launches,
+                "beam_search_loop_ws": bl.launches_ws,
                 "beam_attention_energies": ae.launches,
                 "gru_scan_train_bidir": gt.launches_bidir,
                 "decoder_scan_train": dt.launches, "outer_sum": osum.launches,
@@ -4772,7 +4869,7 @@ def recipes_check(dev, rates, phase, recipes, batches, valid, loop_routes):
             wide("gru_scan_train_bidir", pick(d)) for d in dims
             for pick in (gs.route, gt.backward_route)} | {
             "decoder_scan_train", "outer_sum"} | (
-            {"beam_search_loop"} if loop_route else module)
+            {loop_route} if loop_route else module)
         if used != want or any(ref_moved.values()):
             fail(f"phase {phase} {recipe}: launches {moved} on the kernels, "
                  f"{ref_moved} on the plain route (expected {sorted(want)})")
@@ -4818,7 +4915,7 @@ def recipes_check(dev, rates, phase, recipes, batches, valid, loop_routes):
                     f"{B * steps / (s1 - s0):.2f} utt/s with validation "
                     f"and search, {B / step_s:.2f} utt/s in the steps")
         log(f"phase {phase} {recipe}: {len(searches)} searches on the "
-            f"{'loop kernel' if loop_route else 'module route'} with the "
+            f"{loop_route or 'module route'} with the "
             f"plain route's hypotheses ({nonempty} of {searched} "
             f"non-empty), beam costs within {worst:.2e}; launches {moved}; "
             f"{time.perf_counter() - t0:.1f} s")
@@ -4930,26 +5027,21 @@ def stacked_recipe():
 def stacked_recipe_check(t, dev, rates):
     """Phase 23c: wsj_jan_wsj13v2.yaml's two stages (``recipes_check``)
     over 2 batches of 10 utterances of 600-800 frames and 75-100 labels an
-    epoch, validating and searching 4 of them cut to 400 frames: the
-    search takes the loop kernel where ``loop_route`` says its state fits
-    a block at that length, else the module route.  Returns the kernel
-    route's launches."""
+    epoch, validating and searching 4 of them cut to 400 frames, whose
+    decodes fit a block (200,160 bytes: the resident instance; the
+    800-frame decodes take the workspace instance, phase 25c).  Returns
+    the kernel route's launches."""
     from attention_lvcsr_torch.search.beam import loop_route
     batches = {10: stage_batches(t, dev, 2, 10, seed=23, frames=800,
                                  labels=100)}
     valid = [{k: (v[:4, :400] if k.startswith("recordings") else v[:4])
               for k, v in batches[10][0].items()}]
     recipes = stacked_recipe()
-    net = dict(recipes["wsj_jan_wsj13v2"][0][1]["net"],
-               num_phonemes=len(CHARS))
-    scale = net["max_decoded_length_scale"]
-    route = loop_route(net, 10, 400, int(400 / scale))
-    log(f"phase 23c: the search of 400-frame utterances takes the "
-        f"{'loop kernel' if route else 'module route'} (loop_route), "
-        f"training on 800 frames, whose decode would not fit: "
-        f"{not loop_route(net, 10, 800, int(800 / scale))}")
+    if not loop_route(recipes["wsj_jan_wsj13v2"][0][1]["net"], 10, 400):
+        fail("phase 23c: the 400-frame search leaves the loop kernel")
     return recipes_check(dev, rates, "23c", recipes, batches, valid,
-                         {"wsj_jan_wsj13v2": route})["wsj_jan_wsj13v2"]
+                         {"wsj_jan_wsj13v2": "beam_search_loop"})[
+        "wsj_jan_wsj13v2"]
 
 
 def stacked_steps(t, dev, rates):
@@ -5169,9 +5261,9 @@ def pyramide_recipe_check(t, dev, rates, batches):
     around the median) at the recipe's widths through ``recipes_check`` on
     the kernels and on the plain route over ``batches`` ({10: an epoch's
     batches}), validation and search (beam 10, char_discount 3.0) of 4 of
-    the utterances at full length, which take the module route
-    (``loop_route``: the loop kernel's block would need 282,880 bytes).
-    Returns the kernel route's launches."""
+    the utterances at full length, which take the loop kernel's workspace
+    instance (its resident block would need 282,880 bytes).  Returns the
+    kernel route's launches."""
     from attention_lvcsr_torch.search.beam import loop_route
     net = {k: v for k, v in pyramide_net().items()
            if k not in ("input_dims", "input_num_chars", "eos_label",
@@ -5189,11 +5281,11 @@ def pyramide_recipe_check(t, dev, rates, batches):
     # validation on 4 of the training utterances: the steps lower their
     # cost, so that pretraining writes the _best_ll main restarts from
     valid = [{k: v[:4] for k, v in batches[10][0].items()}]
-    if loop_route(dict(pyramide_net(), num_phonemes=len(CHARS)), 10, 800,
-                  266):
-        fail("phase 24c: the 800-frame decode would take the loop kernel")
+    if not loop_route(pyramide_net(), 10, 800):
+        fail("phase 24c: the 800-frame decode leaves the loop kernel")
     return recipes_check(dev, rates, "24c", recipes, batches, valid,
-                         {"wsj_pyramide": False})["wsj_pyramide"]
+                         {"wsj_pyramide": "beam_search_loop_ws"})[
+        "wsj_pyramide"]
 
 
 def pyramide_serve(t, dev, rates):
@@ -5206,15 +5298,15 @@ def pyramide_serve(t, dev, rates):
     plain route: the same hypotheses, costs within 1e-4 relative, more
     than half of them with a symbol besides EOS (the raised EOS logit
     lets the random model's hypotheses finish within the 266-step cap);
-    the module route's launches and utt/s.  Returns the kernel route's
-    launches."""
+    the launches (the loop kernel's workspace instance) and utt/s.
+    Returns the kernel route's launches."""
     import torch
-    from attention_lvcsr_torch.models import attention as attention_mod
     from attention_lvcsr_torch.models import cells as cells_mod
     from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
     from attention_lvcsr_torch.ops import attention_energy as ae
     from attention_lvcsr_torch.ops import beam_loop as bl
     from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.search import beam as beam_mod
     from attention_lvcsr_torch.serve import Transcriber
     rec = SpeechRecognizer(pyramide_net(), init_config=FLAGSHIP_INIT,
                            seed=1234, device=dev)
@@ -5235,10 +5327,10 @@ def pyramide_serve(t, dev, rates):
     U = len(feats)
     counters = {"gru_scan": gs.launches, "gru_scan_wide": gs.launches_wide,
                 "beam_attention_energies": ae.launches,
-                "beam_search_loop": bl.launches}
+                "beam_search_loop": bl.launches,
+                "beam_search_loop_ws": bl.launches_ws}
     plain = [(cells_mod, "gru_scan", gs.gru_scan_reference),
-             (attention_mod, "beam_attention_energies",
-              ae.beam_attention_energies_reference)]
+             (beam_mod, "beam_search_loop", bl.beam_search_loop_reference)]
     answers, moved = {}, {}
     for route in ("kernels", "plain"):
         for c in counters.values():
@@ -5250,9 +5342,10 @@ def pyramide_serve(t, dev, rates):
             wall = time.perf_counter() - t0
         moved[route] = counts(counters)
         rates[f"wsj_pyramide_serve_{route}_utt_per_s"] = U / wall
-    if moved["kernels"]["beam_search_loop"] or not all(
-            moved["kernels"][k] for k in ("gru_scan", "gru_scan_wide",
-                                          "beam_attention_energies")) \
+    if moved["kernels"]["beam_search_loop"] \
+            or moved["kernels"]["beam_attention_energies"] or not all(
+                moved["kernels"][k] for k in ("gru_scan", "gru_scan_wide",
+                                              "beam_search_loop_ws")) \
             or any(moved["plain"].values()):
         fail(f"phase 24d: launches {moved['kernels']} on the kernels, "
              f"{moved['plain']} on the plain route")
@@ -5392,6 +5485,386 @@ def pyramide_phase(t, dev, results, rates):
     resident_check(t, dev, rates)
     log(f"phase 24e: {time.perf_counter() - t0:.1f} s")
     return moved
+
+
+# ---- phase 25: the loop kernel's workspace instances -------------------------
+
+def wide_beam_loops(t, dev, results):
+    """Phase 25a: the workspace instance against the plain loop
+    (``loop_case``) on the flagship's tables, 800 frames, a 100-step cap:
+    U=64 at beam 18, 64 and 200, U=8 at beam 512, and odd widths (S=251,
+    M=253, R=249, D=502) at beam 40, U=16."""
+    from __graft_entry__ import FLAGSHIP_NET
+    U, frames = 64, 800
+    rng = np.random.RandomState(25)
+    feats = t(rng.randn(U, frames, 123))
+    lengths = rng.randint(600, frames + 1, size=U)
+    lengths[0] = frames
+    fmask = t(np.arange(frames)[None] < lengths[:, None])
+    odd = dict(FLAGSHIP_NET, dim_dec=251, dim_matcher=253,
+               post_merge_dims=[249], dims_bidir=[251] * 4)
+    for name, net, K, n in (("beam18", FLAGSHIP_NET, 18, 64),
+                            ("beam64", FLAGSHIP_NET, 64, 64),
+                            ("beam200", FLAGSHIP_NET, 200, 64),
+                            ("beam512_U8", FLAGSHIP_NET, 512, 8),
+                            ("odd_beam40_U16", odd, 40, 16)):
+        loop_case(dev, results, "25a", name, net, feats[:n], fmask[:n], K,
+                  frames // 8, n * 3 // 4, repeats=1 if K >= 200 else 3)
+    # the kernels line's row: decode.sh's beam 200, the other cases beside
+    ws = results["beam_search_loop_ws"]
+    ws.update({k: v for k, v in ws["beam200"].items()
+               if k not in ("U", "K", "L")},
+              max_abs_err=max(c["max_abs_err"] for c in ws.values()))
+
+
+def workspace_bits(t, dev, results):
+    """Phase 25b: at beam 10, where both instances fit, the workspace
+    instance gives the resident instance's bits on phase 3's main path
+    (the flagship's tables, U=64, 800 frames, a 100-step cap); both
+    timed, the workspace instance's C layout against the mirror."""
+    import torch
+    from __graft_entry__ import FLAGSHIP_NET
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    U, frames = 64, 800
+    rec = SpeechRecognizer(dict(FLAGSHIP_NET, max_decoded_length_scale=8.0),
+                           init_config=FLAGSHIP_INIT, seed=1234, device=dev)
+    feats = t(np.random.RandomState(1).randn(U, frames, 123))
+    fmask = torch.ones(U, frames, device=dev)
+    with torch.inference_mode():
+        d = rec.net.decode_loop(feats, fmask)
+        tables = rec.net.decode_loop_tables()
+    prior = rec.net.generator.attention.prior_config()
+    kw = dict(beam=10, max_len=frames // 8, eol=rec.eos_label,
+              ignore_first_eol=rec.data_prepend_eos, prior=prior["type"],
+              before=float(prior["before"]), after=float(prior["after"]))
+    args = (d["pre"], d["attended"], d["attended_mask"], tables)
+    outs, ms = {}, {}
+    for instance in ("resident", "workspace"):
+        bl.launches.reset()
+        bl.launches_ws.reset()
+        outs[instance] = bl.beam_search_loop(*args, instance=instance, **kw)
+        torch.cuda.synchronize()
+        if (bl.launches.count, bl.launches_ws.count) != (
+                (1, 0) if instance == "resident" else (0, 1)):
+            fail(f"phase 25b: the {instance} instance did not launch")
+        ms[instance] = cuda_ms(lambda: bl.beam_search_loop(
+            *args, instance=instance, **kw), 3)
+    if not all(torch.equal(a, b) for a, b in zip(outs["resident"],
+                                                 outs["workspace"])):
+        fail("phase 25b: the workspace instance's bits differ from the "
+             "resident instance's at beam 10")
+    S, L = rec.net.generator.dim_dec, d["pre"].shape[1]
+    plan = beam_loop_plan(dict(
+        K=10, L=L, M=d["pre"].shape[2], D=d["attended"].shape[2], S=S,
+        R=250, V=rec.num_phonemes, F=tables["embed"].shape[1],
+        Lout=kw["max_len"], n_taps=tables["conv_filters"].shape[-1]),
+        phase="25b", instance="workspace")
+    results["beam_search_loop_ws"]["beam10_bits"] = dict(
+        resident_ms=ms["resident"], workspace_ms=ms["workspace"], **plan)
+    log(f"phase 25b beam 10, U={U}, {frames} frames: the workspace "
+        f"instance gives the resident instance's bits; resident "
+        f"{ms['resident']:.3f} ms, workspace {ms['workspace']:.3f} ms")
+
+
+def routed_decode(dev, name, net, feats, fmask, eos_bias, search_kw):
+    """Phase 25c: ``beam_search`` of ``net`` (random weights from seed
+    1234, the EOS logit raised by ``eos_bias``) at beam 10: ``loop_route``
+    holds it, the workspace instance launches and neither the resident
+    instance nor the energy kernel does; the hypotheses are the plain
+    loop's (phase 3's comparison) and the best of each utterance the
+    module route's under ``use_pallas: never`` (at most one near tie,
+    costs within 1e-4 relative).  Returns (launches, seconds on each
+    route)."""
+    import torch
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import attention_energy as ae
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    from attention_lvcsr_torch.search import beam as beam_mod
+    U, frames = feats.shape[:2]
+    recs = {}
+    for route in ("loop", "never"):
+        recs[route] = SpeechRecognizer(
+            dict(net, use_pallas="auto" if route == "loop" else "never"),
+            init_config=FLAGSHIP_INIT, seed=1234, device=dev)
+        readout = recs[route].net.generator.readout
+        readout.post_merge_0.bias.data[recs[route].eos_label] += eos_bias
+        recs[route].init_beam_search(10)
+    cap = int(frames / net["max_decoded_length_scale"])
+    if not beam_mod.loop_route(recs["loop"].net_config, 10, frames):
+        fail(f"phase 25c {name}: loop_route leaves the loop kernel")
+    counters = {"beam_search_loop": bl.launches,
+                "beam_search_loop_ws": bl.launches_ws,
+                "beam_attention_energies": ae.launches}
+    outs, walls, moved = {}, {}, {}
+    plain = [(beam_mod, "beam_search_loop", bl.beam_search_loop_reference)]
+    for route, rec, swap in (("loop", recs["loop"], []),
+                             ("plain", recs["loop"], plain),
+                             ("never", recs["never"], [])):
+        for c in counters.values():
+            c.reset()
+        with swapped(swap):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[route] = rec.beam_search(feats, fmask, as_arrays=True,
+                                          **search_kw)
+            torch.cuda.synchronize()
+            walls[route] = time.perf_counter() - t0
+        moved[route] = counts(counters)
+    if moved["loop"]["beam_search_loop_ws"] != 1 or moved["loop"][
+            "beam_search_loop"] or moved["loop"]["beam_attention_energies"]:
+        fail(f"phase 25c {name}: launches {moved['loop']} on the loop "
+             f"route")
+    if moved["never"]["beam_search_loop"] or moved["never"][
+            "beam_search_loop_ws"]:
+        fail(f"phase 25c {name}: the module route launched the loop "
+             f"kernel: {moved['never']}")
+    err = compare_outputs(f"phase 25c {name}", outs["loop"], outs["plain"])
+    best_g, best_r = (best_hypotheses(outs[r]) for r in ("loop", "never"))
+    differ, worst = [], 0.0
+    for u, ((h, c), (rh, rc)) in enumerate(zip(best_g, best_r)):
+        if h == rh and (c is None) == (rc is None) and (
+                c is None or abs(c - rc) <= 1e-4 * max(abs(rc), 1.0)):
+            worst = max(worst, 0.0 if c is None else abs(c - rc))
+            continue
+        if c is None or rc is None or abs(c - rc) > 1e-3 * max(abs(rc), 1):
+            fail(f"phase 25c {name}: utterance {u}: {h} ({c}) on the loop "
+                 f"route vs {rh} ({rc}) on the module route")
+        differ.append(u)
+    eos = recs["loop"].eos_label
+    found = sum(c is not None and any(x != eos for x in h)
+                for h, c in best_g)
+    if len(differ) > 1 or found <= U // 2:
+        fail(f"phase 25c {name}: {len(differ)} near ties against the module "
+             f"route, {found}/{U} hypotheses with a symbol besides EOS")
+    log(f"phase 25c {name} U={U}, {frames} frames, beam 10, cap {cap}: the "
+        f"workspace instance ({moved['loop']}), the plain loop's outputs "
+        f"(max abs cost err {err:.3e}), the module route's best hypotheses "
+        f"(near ties {differ}, costs within {worst:.2e}; its launches "
+        f"{moved['never']}); {found}/{U} with a symbol besides EOS; "
+        f"{walls['loop']:.3f} s on the loop, {walls['plain']:.3f} s plain, "
+        f"{walls['never']:.3f} s on the module route")
+    return moved["loop"], walls
+
+
+def long_decodes(t, dev, rates):
+    """Phase 25c: wsj_jan_wsj13v2.yaml's decode of 800 frames (L=400, its
+    266-step cap, the window around the mean) and wsj_pyramide.yaml's
+    (D=2000, L=200, the window around the median), 16 utterances each,
+    whose resident layouts pass a block (``routed_decode``).  Returns the
+    launches of each."""
+    rng = np.random.RandomState(251)
+    U, frames = 16, 800
+    feats = t(rng.randn(U, frames, 123))
+    lengths = rng.randint(600, frames + 1, size=U)
+    lengths[0] = frames
+    fmask = t(np.arange(frames)[None] < lengths[:, None])
+    moved = {}
+    for name, net in (
+            ("wsj13v2", dict(stacked_nets()["wsj13v2"],
+                             max_decoded_length_scale=3.0)),
+            ("wsj_pyramide", dict(pyramide_net(),
+                                  max_decoded_length_scale=3.0))):
+        moved[name], walls = routed_decode(
+            dev, name, net, feats, fmask, LONG_EOS_BIAS[name], LONG_SEARCH)
+        for route, wall in walls.items():
+            rates[f"{name}_800_{route}_utt_per_s"] = U / wall
+    return moved
+
+
+# the random models' decodes in 25c: a raised EOS logit lets most
+# hypotheses finish within the 266-step caps with a symbol besides EOS
+LONG_EOS_BIAS = {"wsj13v2": 3.0, "wsj_pyramide": 6.0}
+LONG_SEARCH = {"char_discount": 3.0, "stop_on": "optimistic_future_cost"}
+
+
+def wide_search(t, dev, rates):
+    """Phase 25d: ``run_search`` (what ``run.py search`` runs) on the
+    flagship with decode.sh's no-LM settings (``beam_size`` 200,
+    ``char_discount`` 0.1, ``net.prior.before`` 10; random weights from
+    seed 1234, which finish most hypotheses there with a symbol besides
+    EOS, where a raised EOS logit would end most of them at once) over
+    phase 18's 16 utterances in one chunk: the workspace instance launches once and
+    the resident one not; the report agrees with the module route's under
+    ``net.use_pallas never`` (``reports_agree``); utt/s of both; then
+    beam 513 over two of them: the loop kernel does not launch.  Returns
+    the loop route's launches."""
+    import torch
+    from __graft_entry__ import FLAGSHIP_NET
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import attention_energy as ae
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.train.checkpoint import save_checkpoint
+    from attention_lvcsr_torch.train.driver import create_model, run_search
+    net = {k: v for k, v in FLAGSHIP_NET.items()
+           if k not in ("input_dims", "input_num_chars", "eos_label",
+                        "num_phonemes")}
+    net["prior"] = dict(net["prior"], before=10)      # decode.sh's override
+    data = SmokeData()
+    tmp = tempfile.mkdtemp()
+    try:
+        ckpt = os.path.join(tmp, "flagship.zip")
+        rec = SpeechRecognizer(FLAGSHIP_NET, init_config=FLAGSHIP_INIT,
+                               seed=1234, device=dev)
+        save_checkpoint(ckpt, rec.param_path_dict())
+        models = {route: create_model(
+            {"net": dict(net, use_pallas=route)}, data, ckpt, device=dev)
+            for route in ("auto", "never")}
+    finally:
+        shutil.rmtree(tmp)
+    counters = {"gru_scan": gs.launches, "beam_search_loop": bl.launches,
+                "beam_search_loop_ws": bl.launches_ws,
+                "beam_attention_energies": ae.launches}
+    examples = search_examples()
+
+    def drive(route, beam, n):
+        conf = {"beam_size": beam, "char_discount": 0.1, "decode_batch": n}
+        buf = io.StringIO()
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = run_search(models[route], [dict(ex) for ex in examples[:n]],
+                           data, conf, print_to=buf)
+        torch.cuda.synchronize()
+        return buf.getvalue(), stats, time.perf_counter() - t0, counts(
+            counters)
+
+    report, stats, wall, moved = drive("auto", 200, 16)
+    if moved["beam_search_loop_ws"] != 1 or moved["beam_search_loop"] \
+            or moved["beam_attention_energies"]:
+        fail(f"phase 25d: launches {moved} at beam 200")
+    ref, ref_stats, ref_wall, ref_moved = drive("never", 200, 16)
+    if ref_moved["beam_search_loop_ws"] or ref_moved["beam_search_loop"] \
+            or not ref_moved["beam_attention_energies"]:
+        fail(f"phase 25d: launches {ref_moved} under use_pallas never")
+    err = reports_agree("phase 25d", report, ref, list(range(16)), stats,
+                        ref_stats)
+    nonempty = sum(bool(u.get("Recognized")) for u in parse_report(report))
+    if nonempty <= 8:
+        fail(f"phase 25d: {nonempty} of 16 utterances recognized anything")
+    rates["wide_search_loop_utt_per_s"] = 16 / wall
+    rates["wide_search_module_utt_per_s"] = 16 / ref_wall
+    _, _, wide_wall, wide_moved = drive("auto", 513, 2)
+    if wide_moved["beam_search_loop"] or wide_moved["beam_search_loop_ws"] \
+            or not wide_moved["beam_attention_energies"]:
+        fail(f"phase 25d: launches {wide_moved} at beam 513")
+    log(f"phase 25d run_search, beam 200, char_discount 0.1, prior before "
+        f"10, 16 utterances in one chunk: {nonempty} recognized something, "
+        f"the module route's report (max rel cost err {err:.2e}); "
+        f"{16 / wall:.2f} utt/s on the loop kernel ({moved}), "
+        f"{16 / ref_wall:.2f} on the module route ({ref_moved}); beam 513 "
+        f"over 2: the module route ({wide_moved}), {wide_wall:.2f} s")
+    return moved
+
+
+def resident_loop_bits(t, dev):
+    """The resident loop instances on the main paths of phases 3 (the
+    flagship, median window), 20b (content attention at the TIMIT widths),
+    22a (ten filters + maxout:2 + states, the mean window) and 23a
+    (wsj13v2's two layers, the mean window): U=64, beam 10, a 100-step
+    cap, random weights from seed 1234 and the EOS logit raised by 1.5:
+    the sha256 of each decode's outputs and its time.  Only what every
+    commit since the stacked decoders has: ``beam_search_loop``'s default
+    route.  Returns ({name: sha256}, {name: ms})."""
+    import hashlib
+    import torch
+    from __graft_entry__ import FLAGSHIP_NET
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    digest = lambda xs: hashlib.sha256(b"".join(
+        x.contiguous().cpu().numpy().tobytes() for x in xs)).hexdigest()
+    rng = np.random.RandomState(255)
+    U = 64
+    nets = {"flagship": (FLAGSHIP_NET, 800),
+            "content": (dict(TIMIT_NET, input_dims={"recordings": 123},
+                             eos_label=CHAR_MAP["<eol>"],
+                             num_phonemes=len(CHARS)), 700),
+            "maxout10_mean": (variant_nets()["mean_maxout"], 800),
+            "stack2_mean": (dict(stacked_nets()["wsj13v2"],
+                                 dims_bidir=[256] * 4,
+                                 subsample=[1, 1, 2, 2]), 800)}
+    hashes, times = {}, {}
+    for name, (net, frames) in nets.items():
+        rec = SpeechRecognizer(dict(net, max_decoded_length_scale=8.0),
+                               init_config=FLAGSHIP_INIT, seed=1234,
+                               device=dev)
+        feats = torch.tensor(rng.randn(U, frames, 123).astype(np.float32),
+                             device=dev)
+        lengths = rng.randint(frames * 3 // 4, frames + 1, size=U)
+        lengths[0] = frames
+        fmask = torch.tensor((np.arange(frames)[None] < lengths[:, None])
+                             .astype(np.float32), device=dev)
+        att = rec.net.generator.attention
+        with torch.inference_mode():
+            d = rec.net.decode_loop(feats, fmask)
+            tables = dict(rec.net.decode_loop_tables())
+        tables["post_b"] = tables["post_b"].clone()
+        tables["post_b"][rec.eos_label] += 1.5
+        prior = att.prior_config(d["attended"].shape[1] + 1)
+        kw = dict(beam=10, max_len=100, eol=rec.eos_label,
+                  ignore_first_eol=True, content_attention=not att.conv,
+                  post_act=rec.net.generator.readout.activation,
+                  prior=prior.get("type", "expanding"),
+                  **{k: float(v) for k, v in prior.items() if k != "type"})
+        args = (d["pre"], d["attended"], d["attended_mask"], tables)
+        hashes[name] = digest(bl.beam_search_loop(*args, **kw))
+        times[name] = cuda_ms(lambda: bl.beam_search_loop(*args, **kw), 5)
+    return hashes, times
+
+
+# resident_loop_bits' hashes of the tree before the workspace instances
+# (commit 954c342, tools/torch_gru_bits.py --loop on an H100): the
+# resident instances kept their code, so their outputs keep these bits
+RESIDENT_LOOP_BITS = {
+    "flagship":
+        "2e00a180bf37abdfdfc95d3413900f49fca45914d9915b1beee30e68e3e9f60e",
+    "content":
+        "f739d59100641f6a9cd830ec3399c2377c386789ea6670cfff0989a3f5547424",
+    "maxout10_mean":
+        "3a5aaa691698259a6773e6b493832b493ae349f806a0718eab9e7231a1f2333b",
+    "stack2_mean":
+        "660e9e580c08f3fcd7abc16c0c6b5817710ff432a7f07d62a41910bcf80289e1"}
+
+
+def resident_loop_check(t, dev, rates):
+    """Phase 25e: the resident loop instances (``resident_loop_bits``)
+    hash to the bits of the tree before the workspace instances; their
+    times beside them."""
+    hashes, times = resident_loop_bits(t, dev)
+    differ = sorted(k for k, v in hashes.items()
+                    if RESIDENT_LOOP_BITS.get(k) != v)
+    if differ:
+        fail(f"phase 25e: the resident loop instances changed their bits: "
+             f"{differ} ({hashes})")
+    rates.update({f"resident loop {k} ms": v for k, v in times.items()})
+    log(f"phase 25e resident loop instances: {len(hashes)} decodes hash to "
+        f"the earlier tree's bits; " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in times.items()))
+
+
+def workspace_phase(t, dev, results, rates):
+    """Phase 25: the loop kernel's workspace instances.  Returns 25c's and
+    25d's launches."""
+    results.setdefault("beam_search_loop_ws", {})
+    t0 = time.perf_counter()
+    wide_beam_loops(t, dev, results)
+    log(f"phase 25a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    workspace_bits(t, dev, results)
+    log(f"phase 25b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moved = long_decodes(t, dev, rates)
+    log(f"phase 25c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moved["wide search"] = wide_search(t, dev, rates)
+    log(f"phase 25d: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    resident_loop_check(t, dev, rates)
+    log(f"phase 25e: {time.perf_counter() - t0:.1f} s")
+    return moved
+
 
 if __name__ == "__main__":
     main()

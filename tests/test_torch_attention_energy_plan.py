@@ -41,3 +41,23 @@ def test_small_batches_take_small_tiles():
 def test_too_wide_a_row_is_refused():
     with pytest.raises(NotImplementedError, match="beam 10 at M=8000"):
         ae.plan(64, 10, 200, 8000, 132)
+
+
+@pytest.mark.parametrize("K,sizes", [(10, [10]), (200, [200]),
+                                     (300, [150, 150]),
+                                     (513, [171, 171, 171]),
+                                     (1000, [200] * 5)])
+def test_a_wide_beam_runs_in_row_chunks(K, sizes):
+    """The module path's beams past a block's rows (513 and up, where the
+    loop kernel leaves the decode to it) run as the fewest near-equal row
+    chunks whose launches fit, covering every row once."""
+    chunks = ae.row_chunks(16, K, 200, 250, 132)
+    assert [k1 - k0 for k0, k1 in chunks] == sizes
+    assert [k0 for k0, _ in chunks] == [sum(sizes[:i])
+                                         for i in range(len(sizes))]
+    for k0, k1 in chunks:
+        assert ae.plan(16, k1 - k0, 200, 250, 132)["smem_bytes"] \
+            <= ae.MAX_SMEM
+    if len(chunks) > 1:      # one chunk fewer would not fit
+        with pytest.raises(NotImplementedError):
+            ae.plan(16, -(-K // (len(chunks) - 1)), 200, 250, 132)

@@ -1,6 +1,6 @@
 """The whole-loop decode kernel's plan, on the CPU.
 
-``ops/beam_loop.py`` mirrors ``csrc/beam_loop.cu``'s shared-memory layout
+``ops/beam_loop.py`` mirrors ``csrc/beam_loop_body.cuh``'s shared-memory layout
 (every buffer on a 16-byte boundary, so the products' float2 loads along
 a row of even pitch are aligned) and ``csrc/beam_products.cuh``'s split
 of a product over the block: a thread owns a column pair and a row group
@@ -32,9 +32,10 @@ def _constants(name):
 
 
 def test_mirror_constants_match_the_sources():
-    loop, products = _constants("beam_loop.cu"), _constants(
+    loop, products = _constants("beam_loop_body.cuh"), _constants(
         "beam_products.cuh")
     assert loop["kThreads"] == products["kProdThreads"] == bl.THREADS
+    assert loop["kMaxBeam"] == bl.MAX_BEAM
     assert products["kMaxGroupRows"] == bl.MAX_GROUP_ROWS
     # the kernel dispatches row groups of 1-6 and 8 rows
     text = open(os.path.join(CSRC, "beam_products.cuh")).read()

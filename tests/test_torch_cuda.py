@@ -292,16 +292,95 @@ def test_beam_loop_content_branch_recipe_widths(device):
 
 
 def test_beam_loop_too_large_raises(device):
-    """Beam 32 at the flagship widths does not fit a block's shared memory:
-    no launch."""
+    """Beam 513 is past the widest beam the kernel takes (``MAX_BEAM``, a
+    thread a row in the merge's commit): it raises before any launch."""
     from __graft_entry__ import FLAGSHIP_NET
     config = dict(FLAGSHIP_NET, max_decoded_length_scale=8.0)
-    args, kw = _loop_case(device, config, 1, 64, 32, 0.0, seed=1,
-                          init=FLAGSHIP_INIT)
-    before = bl.launches.count
-    with pytest.raises(NotImplementedError, match="beam 32"):
+    args, kw = _loop_case(device, config, 1, 64, bl.MAX_BEAM + 1, 0.0,
+                          seed=1, init=FLAGSHIP_INIT)
+    before = bl.launches.count, bl.launches_ws.count
+    with pytest.raises(ValueError, match="beam 513"):
         bl.beam_search_loop(*args, **kw)
-    assert bl.launches.count == before
+    assert (bl.launches.count, bl.launches_ws.count) == before
+
+
+def _check_workspace(args, kw):
+    """The workspace instance vs plain, its C layout (block bytes and
+    workspace floats an utterance) vs the mirror, a second call's bits."""
+    import ctypes
+    from attention_lvcsr_torch import _build
+    pre, attended, _, tables = args
+    U, L, M = pre.shape
+    D, S, R, V, F = (attended.shape[-1], tables["wss"].shape[0],
+                     tables["merge_k"].shape[1], tables["post_k"].shape[1],
+                     tables["embed"].shape[1])
+    taps = tables["conv_filters"].shape[-1]
+    lib = _build.load().lib
+    c_args = bl._Args(U=U, L=L, M=M, D=D, S=S, R=R, V=V, F=F, K=kw["beam"],
+                      Lout=kw["max_len"], n_taps=taps)
+    plan = bl.smem_plan(kw["beam"], L, M, D, S, R, V, F, kw["max_len"],
+                        taps)["workspace"]
+    for name, want in (("beam_loop_ws_smem_bytes", plan["smem_bytes"]),
+                       ("beam_loop_ws_stride", plan["stride"])):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(bl._Args)]
+        assert fn(ctypes.byref(c_args)) == want, name
+    before = bl.launches.count, bl.launches_ws.count
+    got = bl.beam_search_loop(*args, **kw)
+    again = bl.beam_search_loop(*args, **kw)
+    assert (bl.launches.count, bl.launches_ws.count) == (before[0],
+                                                         before[1] + 2)
+    ref = bl.beam_search_loop_reference(
+        *args, **{k: v for k, v in kw.items() if k != "instance"})
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    out, meta, steps = got
+    assert (ref[1][:, :, 1] < bl.INF / 2).any()
+    torch.testing.assert_close(out, ref[0], atol=0, rtol=0)
+    torch.testing.assert_close(steps, ref[2], atol=0, rtol=0)
+    torch.testing.assert_close(meta[:, :, 2], ref[1][:, :, 2])
+    torch.testing.assert_close(meta[:, :, :2], ref[1][:, :, :2],
+                               atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("K", [18, 40, 200, 512])
+def test_beam_loop_workspace_odd_widths(device, K):
+    """The workspace instance at beams past a block (named by
+    ``instance``: these widths would fit one): S=33, D=66 and 9 symbols
+    take the products' scalar paths, K=18-512 row groups of up to 8 rows
+    in several passes over the block, and past 9 slots the first steps'
+    dead rows tie at one float32 cost (lowest flat index first)."""
+    config = dict(NET_CONFIG, dim_dec=33, dims_bidir=[33, 33],
+                  post_merge_dims=[17], num_phonemes=9, eos_label=8,
+                  use_states_for_readout=True)
+    args, kw = _loop_case(device, config, 3, 48, K, 1.5, seed=K)
+    _check_workspace(args, dict(kw, instance="workspace"))
+
+
+def test_beam_loop_workspace_flagship_widths(device):
+    """At the flagship's widths and 800 frames (L=200) beam 18 passes a
+    block's shared memory: the wrapper takes the workspace instance by
+    itself (``route``)."""
+    from __graft_entry__ import FLAGSHIP_NET
+    config = dict(FLAGSHIP_NET, max_decoded_length_scale=8.0)
+    args, kw = _loop_case(device, config, 2, 800, 18, 1.5, seed=5,
+                          init=FLAGSHIP_INIT)
+    assert not bl.smem_plan(18, 200, 250, 500, 250, 250, 32, 250, 100,
+                            201)["fits"]
+    _check_workspace(args, kw)
+
+
+def test_beam_loop_instances_agree_at_beam_10(device):
+    """Where both instances fit, the workspace instance gives the resident
+    instance's bits."""
+    from __graft_entry__ import FLAGSHIP_NET
+    config = dict(FLAGSHIP_NET, max_decoded_length_scale=8.0)
+    args, kw = _loop_case(device, config, 3, 400, 10, 1.5, seed=5,
+                          init=FLAGSHIP_INIT)
+    resident = bl.beam_search_loop(*args, instance="resident", **kw)
+    workspace = bl.beam_search_loop(*args, instance="workspace", **kw)
+    for x, y in zip(resident, workspace):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("U,K,L,M", [
@@ -323,6 +402,27 @@ def test_attention_energy_kernel_matches_plain(device, U, K, L, M):
     before = ae.launches.count
     got = ae.beam_attention_energies(*args, 0.5, beam=K)
     assert ae.launches.count == before + 1
+    ref = ae.beam_attention_energies_reference(*args, 0.5, beam=K)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, ae.beam_attention_energies(*args, 0.5, beam=K))
+
+
+@pytest.mark.parametrize("K", [300, 513])
+def test_attention_energy_kernel_chunks_wide_beams(device, K):
+    """Beams whose rows pass a block (the module route's past the loop
+    kernel's 512): one launch a row chunk, the plain version's energies
+    within 1e-5, a second call bit for bit."""
+    U, L, M = 3, 37, 250
+    rng = np.random.RandomState(K)
+    f = lambda *s: torch.tensor(rng.randn(*s).astype(np.float32),
+                                device=device)
+    args = (f(U, L, M), f(U * K, M), f(U * K, L), f(M) * 0.3, f(M) * 0.3)
+    chunks = ae.row_chunks(U, K, L, M, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+    assert len(chunks) > 1
+    before = ae.launches.count
+    got = ae.beam_attention_energies(*args, 0.5, beam=K)
+    assert ae.launches.count == before + len(chunks)
     ref = ae.beam_attention_energies_reference(*args, 0.5, beam=K)
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
     assert torch.equal(got, ae.beam_attention_energies(*args, 0.5, beam=K))

@@ -3,7 +3,8 @@
 Every ``extern "C"`` launcher in ``attention_lvcsr_torch/csrc/*.cu`` takes
 its arguments as one struct, and its wrapper in ``ops/*.py`` fills a
 ``ctypes.Structure`` whose docstring names that struct ("Mirror of
-``struct X`` in csrc/F.cu").  A field left out of step shifts every field
+``struct X`` in csrc/F.cu", or the header that F.cu and its sibling
+sources include).  A field left out of step shifts every field
 after it and corrupts a launch without an error, and only the card would
 show it.  Here, on the CPU, each C struct is parsed and compared with its
 mirror field by field: names, order and C types (a pointer is
@@ -22,7 +23,7 @@ import attention_lvcsr_torch
 
 PKG = os.path.dirname(attention_lvcsr_torch.__file__)
 CSRC = os.path.join(PKG, "csrc")
-MIRROR = re.compile(r"Mirror of ``struct (\w+)`` in csrc/(\w+\.cu)")
+MIRROR = re.compile(r"Mirror of ``struct (\w+)`` in csrc/(\w+\.cuh?)")
 SCALARS = {"int": ctypes.c_int, "float": ctypes.c_float,
            "unsigned": ctypes.c_uint}
 
@@ -183,8 +184,9 @@ def test_filter_activation_and_mean_prior_fields_travel_in_the_structs(
     cls, source = MIRRORS[struct]
     c_fields = _c_struct(source, struct)
     names = [f[0] for f in c_fields]
-    # only a stacked decoder's fields come after them
-    end = len(names) - len(STACK_FIELDS.get(struct, ()))
+    # only a stacked decoder's fields (and TRAILING's) come after them
+    end = len(names) - len(STACK_FIELDS.get(struct, ())) - len(
+        TRAILING.get(struct, ()))
     assert tuple(names[end - len(fields):end]) == fields
     assert tuple(n for n, _ in cls._fields_[end - len(fields):end]) == fields
     by_name = {f[0]: f for f in c_fields}
@@ -194,9 +196,12 @@ def test_filter_activation_and_mean_prior_fields_travel_in_the_structs(
         assert getattr(cls(), name) == 0
 
 
-# the stacked decoder's fields, last in the structs: the interlayer tables
-# (the loop's, layer-major; the training backward's packed transposes)
-# and the number of layers
+# the fields after the stack's: the loop's workspace (its instances past a
+# block's shared memory)
+TRAILING = {"BeamLoopArgs": ("ws", "ws_stride")}
+# the stacked decoder's fields, last in the structs but for TRAILING's:
+# the interlayer tables (the loop's, layer-major; the training backward's
+# packed transposes) and the number of layers
 STACK_FIELDS = {
     "BeamLoopArgs": (("inter_in_w", "float*"), ("inter_gate_w", "float*"),
                      ("dec_stack", "int")),
@@ -207,13 +212,16 @@ STACK_FIELDS = {
 def test_stack_fields_travel_in_the_structs(struct):
     """A stacked decoder's interlayer tables and ``dec_stack`` are the
     last fields of the loop's and the training decoder's structs on both
-    sides, null and zero by default: a struct filled without them runs
-    one decoder layer, as before them."""
+    sides (the loop's workspace fields, ``TRAILING``, after them), null
+    and zero by default: a struct filled without them runs one decoder
+    layer, as before them."""
     fields = STACK_FIELDS[struct]
     cls, source = MIRRORS[struct]
     c_fields = _c_struct(source, struct)
-    assert [f[0] for f in c_fields[-len(fields):]] == [n for n, _ in fields]
-    assert [n for n, _ in cls._fields_[-len(fields):]] == [
+    end = len(c_fields) - len(TRAILING.get(struct, ()))
+    assert [f[0] for f in c_fields[end - len(fields):end]] == [
+        n for n, _ in fields]
+    assert [n for n, _ in cls._fields_[end - len(fields):end]] == [
         n for n, _ in fields]
     by_name = {f[0]: f for f in c_fields}
     blank = cls()
@@ -237,3 +245,20 @@ def test_wide_gru_structs_wrap_the_resident_ones(struct, inner):
     assert cls._fields_[0][1] is MIRRORS[inner][0]
     assert issubclass(cls._fields_[1][1], ctypes.Array)
     assert cls._fields_[1][1]._type_ is ctypes.c_void_p
+
+
+def test_the_loop_workspace_travels_last():
+    """The whole-loop kernel's workspace instances take their global rows
+    as the last fields of ``BeamLoopArgs``, after the stack's, on both
+    sides: the workspace pointer, then its floats an utterance, null and
+    zero by default (the resident instances read neither, and every other
+    field keeps the offset it had before them)."""
+    cls, source = MIRRORS["BeamLoopArgs"]
+    assert source == "beam_loop_body.cuh"
+    c_fields = _c_struct(source, "BeamLoopArgs")
+    assert [f[:3] for f in c_fields[-2:]] == [
+        ("ws", "float", True), ("ws_stride", "int", False)]
+    assert list(cls._fields_[-2:]) == [("ws", ctypes.c_void_p),
+                                       ("ws_stride", ctypes.c_int)]
+    blank = cls()
+    assert blank.ws is None and blank.ws_stride == 0

@@ -13,14 +13,15 @@ path-keyed loader (``models/params.py::load_path_dict``):
 * each encoder layer's own width and frame count reach the GRU scans
   (the strides apply to a layer's output, as in JAX: 24, 24 and 12
   frames into the three layers, 6 out);
-* beam-search hypotheses identical to JAX's, on the module route the
-  recipe's decodes take and on the loop route.
+* beam-search hypotheses identical to JAX's, on the module route and on
+  the loop route the recipe's decodes take.
 
 At the recipe's widths, with no model built: every stage passes
 ``unported_piece`` and ``unported_training``; the GRU widths route to the
-resident and wide instances; an 800-frame decode takes the module route
-(``loop_route``: the loop kernel's block would need 282,880 bytes); the
-training decoder's launch plans fit at B=10 and 32."""
+resident and wide instances; an 800-frame decode takes the loop
+kernel's workspace instance (``loop_route``; its resident block would
+need 282,880 bytes); the training decoder's launch plans fit at B=10 and
+32."""
 import os
 
 import jax
@@ -43,7 +44,7 @@ from attention_lvcsr_torch.models.recognizer import (RecognizerNet,
 from attention_lvcsr_torch.ops import decoder_train as dt
 from attention_lvcsr_torch.ops import gru_scan as gs
 from attention_lvcsr_torch.ops import gru_train as gt
-from attention_lvcsr_torch.ops.beam_loop import smem_plan
+from attention_lvcsr_torch.ops.beam_loop import route, smem_plan
 from attention_lvcsr_torch.search.beam import loop_route
 from attention_lvcsr_torch.train.driver import unported_training
 
@@ -177,15 +178,15 @@ def _pair(use_pallas, seed=8):
                                              ("interpret", True)])
 def test_beam_search_matches_jax(use_pallas, loop):
     """Beam 3 over one 14-frame utterance: the same finished hypotheses,
-    lengths and costs as JAX's, on the module route (the route of the
-    recipe's 800-frame decodes) and on the whole-loop route (the plain
-    loop against JAX's kernel in interpret mode)."""
+    lengths and costs as JAX's, on the module route and on the whole-loop
+    route (the route of the recipe's 800-frame decodes; the plain loop
+    against JAX's kernel in interpret mode)."""
     jrec, rec = _pair(use_pallas)
     x = np.random.RandomState(5).randn(14, 6).astype(np.float32)
     jrec.init_beam_search(3)
     rec.init_beam_search(3)
     assert (jrec._beam_search._loop_kernel_mode() is not None) == loop
-    assert loop_route(rec.net_config, 3, 100, 100) == loop
+    assert loop_route(rec.net_config, 3, 100) == loop
     ref = jrec.beam_search(x, as_arrays=True, char_discount=0.1)
     out = rec.beam_search(x, as_arrays=True, char_discount=0.1)
     valid = ref["done_valid"][0]
@@ -236,12 +237,14 @@ def test_recipe_gru_routes():
 
 def test_recipe_decode_takes_the_module_route():
     """At 800 frames (200 encoded, a 266-step cap) the loop kernel's
-    block would need 282,880 bytes, over a block's 232,448, so the
-    decode takes ``_search_core``, as the stacked recipes' do.  The two K
-    x D glimpse buffers (20,000 floats each at D=2000) fill it: 50 frames
-    of a 200-frame utterance miss as well."""
+    resident block would need 282,880 bytes, over a block's 232,448: the
+    two K x D glimpse buffers (20,000 floats each at D=2000) fill it, and
+    50 frames of a 200-frame utterance miss as well.  JAX's loop kernel
+    takes the decode at any of these lengths, and so does the port's: its
+    workspace instance keeps those buffers in global memory, in a block
+    of 4,320 bytes."""
     net = dict(_recipe_stages()["main"]["net"], num_phonemes=32)
-    assert not loop_route(net, 10, 800, 266)
+    assert loop_route(net, 10, 800)
     widths = dict(K=10, M=250, D=2000, S=250, R=1000, V=32, F=250,
                   n_taps=201)
     plan = smem_plan(L=200, Lout=266, **widths)
@@ -249,9 +252,12 @@ def test_recipe_decode_takes_the_module_route():
     offsets = plan["offsets"]
     assert offsets["conv"] - offsets["wa"] == 10 * 2000
     assert offsets["aout2"] - offsets["was"] == 10 * 2000
+    assert route(plan, 10) == "workspace"
+    assert plan["workspace"]["smem_bytes"] == 4320
+    assert 4 * plan["workspace"]["stride"] == 282880 - 4320
     short = smem_plan(L=50, Lout=66, **widths)
     assert not short["fits"] and short["smem_bytes"] > gs.MAX_SMEM
-    assert not loop_route(net, 10, 200, 66)
+    assert loop_route(net, 10, 200) and route(short, 10) == "workspace"
     # the readout's relu: no fused score step, as in JAX
     small = dict(net, dims_bidir=[6] * 3, dim_dec=6, dim_matcher=6,
                  post_merge_dims=[6], conv_n=2, num_phonemes=5,
@@ -279,3 +285,4 @@ def test_recipe_trains_on_the_kernel_route():
             bytes_[kind, B] = plan["smem_bytes"]
     assert bytes_ == {("forward", 10): 58480, ("forward", 32): 114816,
                       ("backward", 10): 87056, ("backward", 32): 171968}
+

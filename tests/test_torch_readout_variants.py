@@ -274,7 +274,7 @@ def _assert_routes_match(net, jnet_config):
     jrec = _Rec()
     jrec.net, jrec.num_phonemes = jnet, 5
     jax_loop = JaxBeamSearch(jrec, 10)._loop_kernel_mode() is not None
-    assert loop_route(net, 10, 100, 33) == jax_loop, net
+    assert loop_route(net, 10, 100) == jax_loop, net
     bound = jnet.bind({}, rngs={"params": jax.random.PRNGKey(0)},
                       mutable=["params"])
     ours = RecognizerNet(**net).generator
@@ -307,6 +307,6 @@ def test_routing_of_five_layers_matches_jax():
     stage = _stages("exp/wsj/configs/wsj_jan_wsj13v2.yaml",
                     Configuration)[-1]
     net = dict(_small(stage["net"]), dec_stack=5)
-    assert not loop_route(net, 10, 100, 33)
+    assert not loop_route(net, 10, 100)
     assert not RecognizerNet(**net).generator.train_kernel_route("auto")
     _assert_routes_match(net, dict(net))

@@ -284,7 +284,7 @@ def test_plain_loop_matches_jax_interpret(dec_stack, overrides):
         states_readout=bool(net["use_states_for_readout"]),
         maxout=2 if act.startswith("maxout") else 0, post_act=act,
         dec_stack=dec_stack, interpret=True, **kw))
-    assert beam_mod.loop_route(net, 3, x.shape[1], 12)
+    assert beam_mod.loop_route(net, 3, x.shape[1])
     ours = rec.net.decode_loop_tables()
     assert tuple(ours["inter_gate_w"].shape) == (6, 12 * (dec_stack - 1))
     for name in ("fork_in_w", "fork_gate_w", "wsg", "wss", "h0",

@@ -454,33 +454,36 @@ def test_mixed_exploration_is_deterministic():
 # ---- routing and configs -------------------------------------------------
 
 def test_loop_route_falls_back_from_what_the_kernel_cannot_hold():
+    """JAX's rule: beams up to 512 take the loop kernel (past a block's
+    shared memory its workspace instance), inputs whose L x L tables pass
+    JAX's budget do not."""
     cfg = dict(FLAGSHIP_NET, num_phonemes=32, eos_label=31)
-    assert beam_mod.loop_route(cfg, 10, 800, 100)
-    assert not beam_mod.loop_route(cfg, 20, 800, 100)
-    # 3200 frames: L = 800, and the decode cap of their length
-    assert not beam_mod.loop_route(cfg, 10, 3200, 3200)
-    assert not beam_mod.loop_route(dict(cfg, use_pallas="never"), 10, 800,
-                                   100)
+    assert beam_mod.loop_route(cfg, 10, 800)
+    assert beam_mod.loop_route(cfg, 20, 800)
+    # 3200 frames: L = 800
+    assert beam_mod.loop_route(cfg, 10, 3200)
+    # 16000 frames: L = 4000, whose tables pass 1.5 x 64 MB
+    assert not beam_mod.loop_route(cfg, 10, 16000)
+    assert not beam_mod.loop_route(dict(cfg, use_pallas="never"), 10, 800)
     assert not beam_mod.loop_route(dict(cfg, lm={"path": "G.fst"}), 10,
-                                   800, 100)
-    assert not beam_mod.loop_route(dict(cfg, conv_num_filters=17), 10, 800,
-                                   100)
-    assert not beam_mod.loop_route(dict(cfg, post_merge_dims=[]), 10, 800,
-                                   100)
-    assert not beam_mod.loop_route(cfg, 513, 8, 4)
+                                   800)
+    assert not beam_mod.loop_route(dict(cfg, conv_num_filters=17), 10, 800)
+    assert not beam_mod.loop_route(dict(cfg, post_merge_dims=[]), 10, 800)
+    assert not beam_mod.loop_route(cfg, 513, 8)
     assert beam_mod.loop_route(dict(cfg, energy_normalizer="relu"), 10,
-                               800, 100)
+                               800)
 
 
 def test_a_decode_the_loop_cannot_hold_runs_the_module_route(monkeypatch):
-    """A decode whose loop state exceeds a block's shared memory (beam 64
-    over 300 encoded frames at tiny widths) takes ``_search_core`` with no
-    exception, and its hypotheses are the plain loop's."""
-    cfg = dict(NET, max_decoded_length_scale=60.0, subsample=[2])
+    """A decode past the loop kernel's budget (beam 64 over 3,600 encoded
+    frames at tiny widths: JAX's L x L tables alone pass 1.5 x 64 MB)
+    takes ``_search_core`` with no exception, and its hypotheses are the
+    plain loop's."""
+    cfg = dict(NET, max_decoded_length_scale=720.0, subsample=[2])
     rec = SpeechRecognizer(cfg, init_config=INIT, seed=3, device="cpu")
     rec.net.generator.readout.post_merge_0.bias.data[EOS] += 2.0
-    x = np.random.RandomState(0).randn(600, 5).astype(np.float32)
-    assert not beam_mod.loop_route(rec.net_config, 64, 600, 10)
+    x = np.random.RandomState(0).randn(7200, 5).astype(np.float32)
+    assert not beam_mod.loop_route(rec.net_config, 64, 7200)
     launched = []
     real = beam_mod.beam_search_loop
     monkeypatch.setattr(beam_mod, "beam_search_loop",

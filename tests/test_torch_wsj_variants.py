@@ -112,7 +112,7 @@ def test_beam_loop_variant_matches_jax_interpret(variant):
         data["pre"], data["attended"], data["attended_mask"], tables,
         states_readout=bool(net["use_states_for_readout"]),
         maxout=maxout_pieces(act), post_act=act, interpret=True, **kw))
-    assert beam_mod.loop_route(net, 3, x.shape[1], 12)
+    assert beam_mod.loop_route(net, 3, x.shape[1])
     t = lambda a: torch.from_numpy(np.array(a))
     with torch.no_grad():
         out, meta, steps = beam_search_loop(

@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Hashes and times the resident GRU routes on one NVIDIA GPU.
+"""Hashes and times the resident GRU routes, or the resident loop
+instances, on one NVIDIA GPU.
 
-    python3 tools/torch_gru_bits.py [--root DIR] [--out FILE]
+    python3 tools/torch_gru_bits.py [--loop] [--root DIR] [--out FILE]
 
 Run from the repository root on a machine with a CUDA device and nvcc.
 Calls ``chip_smoke.py::resident_gru_bits`` (this checkout's): the
 resident instances of ``csrc/gru_scan.cu`` and ``csrc/gru_train.cu`` at
 the flagship's D=250 with the cluster sizes their launch plans take on an
 H100 forced, the sha256 of every output and gradient, and the times of
-the decode's scan and of the training scan's forward and backward.
+the decode's scan and of the training scan's forward and backward.  With
+``--loop``, ``chip_smoke.py::resident_loop_bits`` instead: the resident
+instances of the whole-loop decode kernel on the main paths of
+``chip_smoke.py`` phases 3, 20b, 22a and 23a, each decode's sha256 and
+time.
 
 ``--root DIR`` imports the ``attention_lvcsr_torch`` package found in DIR
 instead of this checkout's, and builds its kernels there: with DIR an
@@ -39,11 +44,15 @@ def main():
                         help="directory holding the attention_lvcsr_torch "
                              "package to run")
     parser.add_argument("--out", default=None)
+    parser.add_argument("--loop", action="store_true",
+                        help="the resident loop instances, not the GRU "
+                             "routes")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     sys.path.insert(0, os.path.abspath(args.root))
+    sys.path.insert(1, ROOT)        # __graft_entry__'s flagship shapes
     from attention_lvcsr_torch import _build
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
@@ -58,7 +67,8 @@ def main():
     _build.load()
     dev = torch.device("cuda:0")
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
-    hashes, times = smoke.resident_gru_bits(t, dev)
+    hashes, times = (smoke.resident_loop_bits if args.loop
+                     else smoke.resident_gru_bits)(t, dev)
     for name, ms in times.items():
         print(f"{name}: {ms:.3f} ms")
     line = json.dumps({"root": os.path.abspath(args.root), "card": card,

@@ -17,7 +17,8 @@ weights from seed 1234, B=64, 800 frames, beam 10) and reports:
    lstm`` the network has a 4x250 BiLSTM encoder and only the no-LM route
    runs (``chip_smoke.py`` phase 17's decode);
 2. cycles per step inside each CUDA kernel, phase by phase.  The tool
-   copies ``csrc/beam_loop.cu`` and the encoder's scan,
+   copies ``csrc/beam_loop_body.cuh`` (with ``beam_loop.cu``, its
+   resident instances) and the encoder's scan,
    ``csrc/gru_scan.cu`` (or ``csrc/lstm_scan.cu``), into
    ``build/profile/``, puts a ``clock64()`` probe (after a
    ``__syncthreads``) before every ``// ---- <phase>`` comment inside
@@ -33,6 +34,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
+import shutil
 import re
 import subprocess
 import sys
@@ -226,15 +228,21 @@ def main():
     paths, phases = [], {}
     scan_src = "lstm_scan.cu" if lstm else "gru_scan.cu"
     for name, header, tag in (
-            ("beam_loop.cu", "for (int i = 0; i < max_len; ++i) {", "beam"),
+            ("beam_loop_body.cuh", "for (int i = 0; i < max_len; ++i) {",
+             "beam"),
             (scan_src, "for (int step = 0; step < T; ++step) {", "scan"),
             ("decode_score.cu", "decode_score_kernel(DecodeScoreArgs a) {",
              "score")):
         src = open(os.path.join(_build.CSRC, name)).read()
         text, phases[tag] = instrument(src, header, tag, tag == "score")
-        paths.append(os.path.join(ROOT, "build", "profile", name))
-        with open(paths[-1], "w") as f:
+        with open(os.path.join(ROOT, "build", "profile", name), "w") as f:
             f.write(text)
+        # the loop's body is a header: its resident instances' source,
+        # copied beside it, includes the probed copy
+        unit = "beam_loop.cu" if name.endswith(".cuh") else name
+        paths.append(os.path.join(ROOT, "build", "profile", unit))
+        if unit != name:
+            shutil.copy(os.path.join(_build.CSRC, unit), paths[-1])
     lib_path = os.path.join(ROOT, "build", "profile", "libprofile.so")
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
                            "-I", _build.CSRC, "-o", lib_path, *paths],
