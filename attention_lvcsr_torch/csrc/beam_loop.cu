@@ -10,6 +10,6 @@ extern "C" int beam_loop_smem_bytes(const BeamLoopArgs* args) {
 }
 
 extern "C" int beam_loop_f32(const BeamLoopArgs* args, void* stream) {
-  return launch_instance<false>(args, beam_loop_smem_bytes(args),
+  return launch_instance<0>(args, beam_loop_smem_bytes(args),
                                 (cudaStream_t)stream);
 }

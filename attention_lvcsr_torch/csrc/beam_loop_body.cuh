@@ -56,13 +56,19 @@
 // shared memory for the whole decode.  Where that passes a block's 227 KB
 // (beams above 17 at the flagship widths, long inputs, D-wide glimpses),
 // the workspace instances (beam_loop_ws.cu, kWorkspace) keep the K-row
-// buffers in the utterance's rows of a global workspace, from L1 and L2,
-// and the per-row scalars, the mask, taps, handler and energy vector in
-// shared memory; the done-set merge then ranks its 2K entries in parallel
-// (rank_merge) instead of K warp rounds.  One body serves both: only the
-// base of the K-row buffers' pointers differs.  The eleven
-// products of a step run through beam_products.cuh: a thread keeps a
-// column pair of one row group in registers, so all 512 threads have work
+// buffers in the utterance's rows of a global workspace, and the per-row
+// scalars, the mask, taps, handler and energy vector in shared memory
+// beside a ring that the phases reading K-row buffers stage them through
+// past 16 rows (ring_phases): the products (beam_products_ws.cuh: register
+// tiles fed by a cp.async ring), the convolution (window_conv_ws) and the
+// energies (window_energies_ws); their selection then finds the K rounds'
+// picks in one pass (select_k).  Their done-set merge ranks its 2K
+// entries in parallel (rank_merge) instead of K warp rounds.  Each of these computes every element as the
+// resident code does, so both give the same bits.  One body serves both:
+// the base of the K-row buffers' pointers and those phases differ, under
+// kWorkspace only.  The eleven products of a resident step run through
+// beam_products.cuh: a thread keeps a column pair of one row group in
+// registers, so all 512 threads have work
 // at every width, each element the same k-ordered fmaf sum as a plain dot
 // product; weights are read from L2 once per step per block.  Energies
 // are computed only inside the prior's window (outside it the softmax
@@ -75,6 +81,7 @@
 #include <climits>
 
 #include "beam_products.cuh"
+#include "beam_products_ws.cuh"
 #include "decode_step.cuh"
 
 // Must match the ctypes.Structure in ops/beam_loop.py field for field.
@@ -160,9 +167,31 @@ struct Layout {
   int hs, was, aout2, dout2, fb, gi, it;
   int total;    // shared-memory floats
   int stride;   // workspace floats an utterance (0: resident)
+  // the workspace instances' products' ring (beam_products_ws.cuh) and
+  // selection area (select_k); 0 in the resident instances
+  int ring, sel;
 };
 
 __host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
+
+// Whether a workspace launch takes the instances that stage K-row buffers
+// through the ring and select in one pass (kWs 2): past kSmallRows rows.
+// At beams up to kSmallRows the workspace instances (kWs 1) read the
+// workspace rows directly, as the resident code reads its shared-memory
+// rows, select by the rounds and keep no ring: there the staging and the
+// selection's passes cost more than they saved, and one instance with
+// both paths ran slower on both (PERF.md section 6, PR 21).
+__host__ __device__ inline bool ring_phases(const BeamLoopArgs& a) {
+  return a.K > kSmallRows;
+}
+
+// The selection area of the workspace instances (select_k): the winners'
+// 64-bit keys, padded to a power of two, then 4 x kWarps words of counts.
+__host__ __device__ inline int sel_floats(int K) {
+  int P = 1;
+  while (P < K) P <<= 1;
+  return 2 * P + 4 * kWarps;
+}
 
 // Whether a launch takes a stacked decoder's instance (kStack, a variant).
 __host__ __device__ inline bool is_stack(const BeamLoopArgs& a) {
@@ -242,6 +271,8 @@ __host__ __device__ inline Layout make_layout(const BeamLoopArgs& a) {
   const int end_gru = r;
   int end = end_att > end_read ? end_att : end_read;
   end = end > end_gru ? end : end_gru;
+  o.ring = kWorkspace && ring_phases(a) ? take(p, kRingFloats) : 0;
+  o.sel = kWorkspace && ring_phases(a) ? take(p, sel_floats(K)) : 0;
   o.total = kWorkspace ? p : end;
   o.stride = kWorkspace ? end : 0;
   return o;
@@ -319,6 +350,301 @@ __device__ void rank_merge(const float* DADJ, const float* NEWADJ, int K,
   }
 }
 
+// ---- the workspace instances' selection: one pass instead of K rounds --
+//
+// A candidate's key is its cost's order-preserving bits (-0.0 folded into
+// +0.0, which lex_min treats as equal; NaN above every number), and the
+// candidates rank by (key, flat index): the order of the rounds'
+// lex_min.  The rounds take the entries below kBig in that order; when
+// fewer than K lie below kBig (relu's dropped rows, the taken marker),
+// every later round finds only kBig entries and takes flat index 0 again
+// (JAX's sel_round, beam_loop.py:433-442, does the same).
+__device__ __forceinline__ unsigned order_key(float x) {
+  if (x != x) return 0xffffffffu;
+  unsigned u = __float_as_uint(x);
+  if ((u << 1) == 0u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The number of candidates j < n whose (key, j) passes `pred`, in every
+// thread: per-thread counts, warp sums, the warps' sums in RED[par *
+// kWarps ..] (par alternating between calls: one barrier a call).  Exact
+// integer sums, no atomics.
+template <class Pred>
+__device__ int block_count(const float* COSTS, int n, int* RED, int par,
+                           Pred pred) {
+  int c = 0;
+  for (int j = threadIdx.x; j < n; j += blockDim.x)
+    c += pred(order_key(COSTS[j]), j) ? 1 : 0;
+  c = __reduce_add_sync(0xffffffffu, c);
+  if ((threadIdx.x & 31) == 0) RED[par * kWarps + (threadIdx.x >> 5)] = c;
+  __syncthreads();
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) total += RED[par * kWarps + w];
+  return total;
+}
+
+// The K picks of the K*V candidates COSTS (read, not changed), as the K
+// rounds of block_argmin take them: SRC, SYM and CHOSEN of each slot.
+// The K-th lowest (key, index) by bisection over the keys, then over the
+// flat indices of the keys equal to it (exact block counts, about 46
+// passes); the winners compacted by a block scan into KEYS (64-bit (key,
+// index), sel_floats' area) and ordered by a block bitonic sort; slots
+// past the entries below kBig get (kBig, flat index 0).  About 100
+// barriers against the rounds' 3K.
+__device__ __noinline__ void select_k(const float* COSTS, int K, int V,
+                                      unsigned long long* KEYS, int* RED,
+                                      int* SRC, int* SYM, float* CHOSEN) {
+  const int n = K * V, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned big = order_key(kBig);
+  int par = 0;
+  auto count = [&](auto pred) {
+    par ^= 1;
+    return block_count(COSTS, n, RED, par, pred);
+  };
+  const int below = count([=](unsigned k, int) { return k < big; });
+  // the winners: key < kt, or key == kt and index <= it
+  unsigned kt = big;
+  int it = -1;
+  if (below > K) {
+    unsigned lo = 0u, hi = big - 1u;   // the least kt: K keys <= kt
+    while (lo < hi) {
+      const unsigned mid = lo + (hi - lo) / 2u;
+      if (count([=](unsigned k, int) { return k <= mid; }) >= K)
+        hi = mid;
+      else
+        lo = mid + 1u;
+    }
+    kt = lo;
+    int a = 0, b = n - 1;             // the least it among the ties
+    while (a < b) {
+      const int mid = a + (b - a) / 2;
+      if (count([=](unsigned k, int j) {
+            return k < kt || (k == kt && j <= mid);
+          }) >= K)
+        b = mid;
+      else
+        a = mid + 1;
+    }
+    it = a;
+  }
+  const int wins = below > K ? K : below;
+  auto won = [=](unsigned k, int j) {
+    return k < kt || (k == kt && j <= it);
+  };
+  // compaction: a thread's winners after those of the threads before it
+  int c = 0;
+  for (int j = tid; j < n; j += blockDim.x)
+    c += won(order_key(COSTS[j]), j) ? 1 : 0;
+  int incl = c;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) RED[2 * kWarps + warp] = incl;
+  __syncthreads();
+  int at = incl - c;
+  for (int w = 0; w < warp; ++w) at += RED[2 * kWarps + w];
+  for (int j = tid; j < n; j += blockDim.x) {
+    const unsigned k = order_key(COSTS[j]);
+    if (won(k, j))
+      KEYS[at++] = ((unsigned long long)k << 32) | (unsigned)j;
+  }
+  int P = 1;
+  while (P < wins) P <<= 1;
+  for (int i = wins + tid; i < P; i += blockDim.x) KEYS[i] = ~0ull;
+  __syncthreads();
+  for (int size = 2; size <= P; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = tid; t < P / 2; t += blockDim.x) {
+        const int i = 2 * t - (t & (stride - 1)), j = i + stride;
+        const unsigned long long x = KEYS[i], y = KEYS[j];
+        if ((x > y) == ((i & size) == 0)) {
+          KEYS[i] = y;
+          KEYS[j] = x;
+        }
+      }
+      __syncthreads();
+    }
+  for (int s = tid; s < K; s += blockDim.x) {
+    if (s < wins) {
+      const int j = (int)(KEYS[s] & 0xffffffffull);
+      SRC[s] = j / V;
+      SYM[s] = j % V;
+      CHOSEN[s] = COSTS[j];
+    } else {
+      SRC[s] = 0;
+      SYM[s] = 0;
+      CHOSEN[s] = kBig;
+    }
+  }
+  __syncthreads();
+}
+
+// The alignment convolutions of the workspace instances inside the window:
+// element for element window_conv's arithmetic (nf = 1, CONV rows of
+// pitch L) or window_conv_filters' (nf filters, CONV rows (r, f)), the
+// taps in the same order, with the previous weights' window of a chunk of
+// rows staged from the workspace into the ring first (their reads waited
+// on L2, the shared memory leaving little room for L1).
+__device__ __noinline__ void window_conv_ws(const float* W, const float* TAPS,
+                                            int n_taps, int nf, int K, int L,
+                                            int lb, int le, float* CONV,
+                                            float* ring) {
+  extern __shared__ float sm[];
+  float* rs = sm + (ring - sm);   // shared-memory loads
+  const int conv_n = (n_taps - 1) / 2, width = le - lb;
+  if (width <= 0) return;
+  const int wp = align4(width), chunk = min(K, kRingFloats / wp);
+  for (int r0 = 0; r0 < K; r0 += chunk) {
+    const int nr = min(chunk, K - r0);
+    __syncthreads();   // the chunk before is read
+    for (int idx = threadIdx.x; idx < nr * width; idx += blockDim.x) {
+      const int i = idx / width, w = idx - i * width;
+      cp_async<4>(rs + i * wp + w, W + (size_t)(r0 + i) * L + lb + w, 4);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < nr * nf * width; idx += blockDim.x) {
+      const int rf = idx / width, l = lb + idx - rf * width;
+      const float* wr = rs + (rf / nf) * wp - lb;   // wr[j]: frame j
+      const float* taps = TAPS + (rf % nf) * n_taps;
+      const int j0 = max(lb, l - conv_n), j1 = min(le - 1, l + conv_n);
+      float acc = 0.f;
+      for (int j = j0; j <= j1; ++j)
+        acc = fmaf(wr[j], taps[conv_n + l - j], acc);
+      CONV[((size_t)r0 * nf + rf) * L + l] = acc;
+    }
+  }
+}
+
+// The energies of the workspace instances inside the window: element for
+// element window_energies' arithmetic (nf = 1), window_energies_filters'
+// (nf > 1: CONV rows (r, f) of pitch L, HAND nf rows of pitch M) or the
+// content branch's (nf = 0: no conv term), a warp per frame as there.  The
+// rows every frame reads, the state projection's and the window's part of
+// the convolutions, are staged from the workspace into the ring (shared
+// memory) a chunk of rows at a time (the convolutions only where a row's
+// fit beside its state projection four times over: else from L2), and a
+// warp takes four rows at once, their sums reduced together: the
+// workspace instances' energies waited on a load from L2 a row.  kMode: 0
+// content (nf = 0), 1 one filter, 2 more (nf > 1).
+template <int kMode>
+__device__ __noinline__ void window_energies_ws(
+    const float* __restrict__ pre, int M, const float* CONV, const float* SP,
+    const float* HAND, const float* VV, int nf, int K, int L, int lb,
+    int le, float* E, float* ring) {
+  extern __shared__ float sm[];
+  float* rs = sm + (ring - sm);   // shared-memory loads
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int Mp = align4(M), W = le - lb, Wp = align4(W);
+  const bool stage_conv = kMode > 0 && 4 * (Mp + nf * Wp) <= kRingFloats;
+  const int per_row = Mp + (stage_conv ? nf * Wp : 0);
+  const int chunk = min(K, kRingFloats / per_row);
+  for (int r0 = 0; r0 < K; r0 += chunk) {
+    const int nr = min(chunk, K - r0);
+    __syncthreads();   // the chunk before is read
+    for (int idx = threadIdx.x; idx < nr * M; idx += blockDim.x) {
+      const int i = idx / M;
+      cp_async<4>(rs + i * per_row + idx - i * M, SP + (size_t)r0 * M + idx,
+                  4);
+    }
+    for (int idx = threadIdx.x; stage_conv && idx < nr * nf * W;
+         idx += blockDim.x) {
+      const int rf = idx / W, w = idx - rf * W;
+      cp_async<4>(rs + (rf / nf) * per_row + Mp + (rf % nf) * Wp + w,
+                  CONV + ((size_t)r0 * nf + rf) * L + lb + w, 4);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int l = lb + warp; l < le; l += nwarps) {
+      const float* pl = pre + (size_t)l * M;
+      for (int m0 = 0; m0 < M; m0 += 32 * kMq) {
+        float pv[kMq], hv[kMq], vv[kMq];
+#pragma unroll
+        for (int q = 0; q < kMq; ++q) {
+          const int m = m0 + lane + 32 * q;
+          pv[q] = m < M ? __ldg(pl + m) : 0.f;
+          hv[q] = kMode == 1 && m < M ? HAND[m] : 0.f;
+          vv[q] = m < M ? VV[m] : 0.f;
+        }
+        for (int r = 0; r < nr; r += 4) {
+          float part[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            part[j] = 0.f;
+            if (r + j >= nr) continue;
+            const float* sp = rs + (r + j) * per_row;
+            // the row's convolution at frame l, filter f at cr[f * cs]
+            const float* cr = stage_conv ? sp + Mp + (l - lb)
+                                         : CONV + (size_t)(r0 + r + j) * nf
+                                               * L + l;
+            const int cs = stage_conv ? Wp : L;
+            const float c = kMode == 1 ? cr[0] : 0.f;
+#pragma unroll
+            for (int q = 0; q < kMq; ++q) {
+              const int m = m0 + lane + 32 * q;
+              if (m < M) {
+                float x = pv[q] + sp[m];
+                if (kMode == 1) {
+                  x = x + c * hv[q];
+                } else if (kMode == 2) {
+                  float term = cr[0] * HAND[m];
+                  for (int f = 1; f < nf; ++f)
+                    term = term + cr[f * cs] * HAND[f * M + m];
+                  x = x + term;
+                }
+                part[j] = fmaf(vv[q], tanhf(x), part[j]);
+              }
+            }
+          }
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              part[j] += __shfl_xor_sync(0xffffffffu, part[j], off);
+          if (lane == 0)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (r + j < nr) {
+                float* e = E + (size_t)(r0 + r + j) * L + l;
+                *e = m0 == 0 ? part[j] : *e + part[j];
+              }
+        }
+      }
+    }
+  }
+}
+
+// One product of the kernel: beam_products.cuh's split on the K-row
+// buffers (the resident instances' shared memory, the workspace rows up to
+// kSmallRows), or with kStaged the shared-memory ring of
+// beam_products_ws.cuh; product_gathered: row r of the input at rows[r] *
+// ldi (the feedback embedding's rows).
+template <bool kStaged>
+__device__ __forceinline__ void product(const Product& p, int nrows,
+                                        float* ring) {
+  if constexpr (kStaged)
+    run_product_ws(p, nullptr, nrows, ring);
+  else
+    run_product(p, nrows);
+}
+
+template <bool kStaged>
+__device__ __forceinline__ void product_gathered(const Product& p,
+                                                 const int* rows, int nrows,
+                                                 float* ring) {
+  if constexpr (kStaged)
+    run_product_ws(p, rows, nrows, ring);
+  else
+    run_product_gathered(p, rows, nrows);
+}
+
 // The GRU advance of a stack of N layers, one after another (JAX
 // beam_loop.py:481-511): layer l gathers its states of the source rows,
 // adds to the fork products of the symbols' feedback rows (read from global
@@ -328,37 +654,41 @@ __device__ void rank_merge(const float* DADJ, const float* NEWADJ, int K,
 // of the single-layer advance, k-ordered per product, the products added in
 // the order fork, distribute, interlayer, state.  Out of line: its
 // registers stay out of the rest of the step's.
+template <bool kStaged>
 __device__ __noinline__ void stack_advance(const BeamLoopArgs& a, float* H,
                                            float* HS, const float* WAS,
                                            const int* SYM, const int* SRC,
                                            float* GI, float* IT, int N,
-                                           int K, int S, int D, int F) {
+                                           int K, int S, int D, int F,
+                                           float* RING) {
   const int tid = threadIdx.x, NS = N * S;
   for (int ly = 0; ly < N; ++ly) {
     for (int idx = tid; idx < K * S; idx += blockDim.x)
       HS[idx] = H[SRC[idx / S] * NS + ly * S + idx % S];
     __syncthreads();
-    run_product_gathered({a.embed, F, a.fork_gate_w + (size_t)ly * F * 2 * S,
-                          F, 2 * S, a.fork_gate_b + ly * 2 * S, GI, 2 * S,
-                          false}, SYM, K);
-    run_product_gathered({a.embed, F, a.fork_in_w + (size_t)ly * F * S, F, S,
-                          a.fork_in_b + ly * S, IT, S, false}, SYM, K);
+    product_gathered<kStaged>(
+        {a.embed, F, a.fork_gate_w + (size_t)ly * F * 2 * S, F, 2 * S,
+         a.fork_gate_b + ly * 2 * S, GI, 2 * S, false}, SYM, K, RING);
+    product_gathered<kStaged>(
+        {a.embed, F, a.fork_in_w + (size_t)ly * F * S, F, S,
+         a.fork_in_b + ly * S, IT, S, false}, SYM, K, RING);
     __syncthreads();
-    run_product({WAS, D, a.dist_gate_w + (size_t)ly * D * 2 * S, D, 2 * S,
-                 nullptr, GI, 2 * S, true}, K);
-    run_product({WAS, D, a.dist_in_w + (size_t)ly * D * S, D, S, nullptr,
-                 IT, S, true}, K);
+    product<kStaged>({WAS, D, a.dist_gate_w + (size_t)ly * D * 2 * S, D,
+                         2 * S, nullptr, GI, 2 * S, true}, K, RING);
+    product<kStaged>({WAS, D, a.dist_in_w + (size_t)ly * D * S, D, S,
+                         nullptr, IT, S, true}, K, RING);
     if (ly > 0) {
       __syncthreads();
       const float* below = H + (ly - 1) * S;
-      run_product({below, NS, a.inter_gate_w + (size_t)(ly - 1) * S * 2 * S,
-                   S, 2 * S, nullptr, GI, 2 * S, true}, K);
-      run_product({below, NS, a.inter_in_w + (size_t)(ly - 1) * S * S, S, S,
-                   nullptr, IT, S, true}, K);
+      product<kStaged>({below, NS,
+                           a.inter_gate_w + (size_t)(ly - 1) * S * 2 * S, S,
+                           2 * S, nullptr, GI, 2 * S, true}, K, RING);
+      product<kStaged>({below, NS, a.inter_in_w + (size_t)(ly - 1) * S * S,
+                           S, S, nullptr, IT, S, true}, K, RING);
     }
     __syncthreads();
-    run_product({HS, S, a.wsg + (size_t)ly * S * 2 * S, S, 2 * S, nullptr, GI,
-                 2 * S, true}, K);
+    product<kStaged>({HS, S, a.wsg + (size_t)ly * S * 2 * S, S, 2 * S,
+                         nullptr, GI, 2 * S, true}, K, RING);
     __syncthreads();
     // gates = sigmoid(.): update in GI[:, :S], reset * h into GI[:, S:]
     for (int idx = tid; idx < K * 2 * S; idx += blockDim.x) {
@@ -367,8 +697,8 @@ __device__ __noinline__ void stack_advance(const BeamLoopArgs& a, float* H,
       GI[idx] = c < S ? g : HS[k * S + c - S] * g;
     }
     __syncthreads();
-    run_product({GI + S, 2 * S, a.wss + (size_t)ly * S * S, S, S, nullptr, IT,
-                 S, true}, K);
+    product<kStaged>({GI + S, 2 * S, a.wss + (size_t)ly * S * S, S, S,
+                         nullptr, IT, S, true}, K, RING);
     __syncthreads();
     for (int idx = tid; idx < K * S; idx += blockDim.x) {
       const int k = idx / S, c = idx % S;
@@ -385,13 +715,17 @@ __device__ __noinline__ void stack_advance(const BeamLoopArgs& a, float* H,
 // kVariant: the WSJ recipes' variants, 1-16 conv filters, the mean prior
 // and the post-merge activations besides tanh (instantiated for the
 // log-likelihood): the other instances compile none of it; kStack (with
-// kVariant): 2-4 decoder layers (instantiated for softmax); kWorkspace:
+// kVariant): 2-4 decoder layers (instantiated for softmax); kWs 1 and 2:
 // the K-row buffers in the utterance's rows of a.ws (beam_loop_ws.cu),
-// the resident instances' code otherwise (beam_loop.cu).
+// with kWs 2 (past kSmallRows rows) the ring's phases and the one-pass
+// selection, the resident instances' code otherwise (beam_loop.cu).
 template <int kNorm, bool kMse, bool kVariant, bool kStack = false,
-          bool kWorkspace = false>
+          int kWs = 0>
 __global__ void __launch_bounds__(kThreads, 1)
 beam_loop_kernel(BeamLoopArgs a) {
+  // the K-row buffers in the workspace (kWs 1, 2); the ring's phases and
+  // the one-pass selection (kWs 2, launched past kSmallRows rows)
+  constexpr bool kWorkspace = kWs != 0, kStaged = kWs == 2;
   extern __shared__ float sm[];
   const Layout o = make_layout<kVariant, kStack, kWorkspace>(a);
   const int u = blockIdx.x;
@@ -438,6 +772,10 @@ beam_loop_kernel(BeamLoopArgs a) {
   float* FB = rows + o.fb;
   float* GI = rows + o.gi;
   float* IT = rows + o.it;
+  // the staged instances' ring and selection area
+  float* RING = sm + o.ring;
+  unsigned long long* SEL =
+      reinterpret_cast<unsigned long long*>(sm + o.sel);
 
   const float* pre = a.pre + (size_t)u * L * M;
   const float* att = a.attended + (size_t)u * L * D;
@@ -526,16 +864,28 @@ beam_loop_kernel(BeamLoopArgs a) {
     }
 
     // ---- convolution (true convolution, trimmed 'full' mode) ----------
-    if (kVariant && !a.content)
+    if (kStaged && !a.content)
+      window_conv_ws(Wt, TAPS, n_taps, nf, K, L, lb, le, CONV, RING);
+    else if (kVariant && !a.content)
       window_conv_filters(Wt, TAPS, n_taps, nf, K, L, lb, le, CONV);
     else if (!a.content)
       window_conv(Wt, TAPS, n_taps, K, L, lb, le, CONV);
     // ---- state projection ---------------------------------------------
-    run_product({H, NS, a.state_trans, NS, M, nullptr, SP, M, false}, K);
+    product<kStaged>({H, NS, a.state_trans, NS, M, nullptr, SP, M, false},
+                        K, RING);
     __syncthreads();
 
     // ---- energies inside the window (warp per frame) -------------------
-    if (a.content)
+    if (kStaged && a.content)
+      window_energies_ws<0>(pre, M, CONV, SP, HAND, VV, 0, K, L, lb, le, WN,
+                            RING);
+    else if (kStaged && kVariant && nf > 1)
+      window_energies_ws<2>(pre, M, CONV, SP, HAND, VV, nf, K, L, lb, le, WN,
+                            RING);
+    else if (kStaged)
+      window_energies_ws<1>(pre, M, CONV, SP, HAND, VV, 1, K, L, lb, le, WN,
+                            RING);
+    else if (a.content)
       window_energies<false>(pre, M, nullptr, SP, nullptr, VV, K, L, lb, le,
                              WN);
     else if (kVariant)
@@ -552,16 +902,17 @@ beam_loop_kernel(BeamLoopArgs a) {
     __syncthreads();
 
     // ---- weighted average of the encoder outputs ----------------------
-    run_product({WN + lb, L, att + (size_t)lb * D, le - lb, D, nullptr, WA, D,
-                 false}, K);
+    product<kStaged>({WN + lb, L, att + (size_t)lb * D, le - lb, D, nullptr,
+                         WA, D, false}, K, RING);
     __syncthreads();
 
     // ---- readout: merge, activation, post-merge, log-softmax ----------
-    run_product({WA, D, a.merge_k, D, R, a.merge_b, ACT, R, false}, K);
+    product<kStaged>({WA, D, a.merge_k, D, R, a.merge_b, ACT, R, false},
+                        K, RING);
     if (a.merge_states_k != nullptr) {
       __syncthreads();
-      run_product({H, NS, a.merge_states_k, NS, R, nullptr, ACT, R, true},
-                  K);
+      product<kStaged>({H, NS, a.merge_states_k, NS, R, nullptr, ACT, R,
+                           true}, K, RING);
     }
     __syncthreads();
     if (kVariant) {
@@ -569,11 +920,13 @@ beam_loop_kernel(BeamLoopArgs a) {
           post_merge_act(ACT, K, R, a.post_act, a.maxout, ACT + K * R);
       const int Rx = a.post_act == 4 ? R / a.maxout : R;
       __syncthreads();
-      run_product({X, Rx, a.post_k, Rx, V, a.post_b, COSTS, V, false}, K);
+      product<kStaged>({X, Rx, a.post_k, Rx, V, a.post_b, COSTS, V,
+                           false}, K, RING);
     } else {
       tanh_in_place(ACT, K * R);
       __syncthreads();
-      run_product({ACT, R, a.post_k, R, V, a.post_b, COSTS, V, false}, K);
+      product<kStaged>({ACT, R, a.post_k, R, V, a.post_b, COSTS, V,
+                           false}, K, RING);
     }
     __syncthreads();
     if (kMse)
@@ -587,17 +940,24 @@ beam_loop_kernel(BeamLoopArgs a) {
     __syncthreads();
 
     // ---- K selection rounds over the K*V candidates --------------------
-    for (int slot = 0; slot < K; ++slot) {
-      float mv;
-      int mi;
-      block_argmin(COSTS, K * V, RED_V, RED_I, mv, mi);
-      if (tid == 0) {
-        SRC[slot] = mi / V;
-        SYM[slot] = mi % V;
-        CHOSEN[slot] = mv;
-        COSTS[mi] = kBig;
+    if (kStaged) {
+      // the rounds' picks in one pass
+      select_k(COSTS, K, V, SEL,
+               reinterpret_cast<int*>(sm + o.sel + sel_floats(K)
+                                      - 4 * kWarps), SRC, SYM, CHOSEN);
+    } else {
+      for (int slot = 0; slot < K; ++slot) {
+        float mv;
+        int mi;
+        block_argmin(COSTS, K * V, RED_V, RED_I, mv, mi);
+        if (tid == 0) {
+          SRC[slot] = mi / V;
+          SYM[slot] = mi % V;
+          CHOSEN[slot] = mv;
+          COSTS[mi] = kBig;
+        }
+        __syncthreads();
       }
-      __syncthreads();
     }
 
     // ---- gather by source row, record the symbol ------------------------
@@ -617,17 +977,21 @@ beam_loop_kernel(BeamLoopArgs a) {
 
     // ---- GRU advance ------------------------------------------------------
     if (kStack) {
-      stack_advance(a, H, HS, WAS, SYM, SRC, GI, IT, N, K, S, D, F);
+      stack_advance<kStaged>(a, H, HS, WAS, SYM, SRC, GI, IT, N, K, S, D,
+                                F, RING);
     } else {
-      run_product({FB, F, a.fork_gate_w, F, 2 * S, a.fork_gate_b, GI, 2 * S,
-                   false}, K);
-      run_product({FB, F, a.fork_in_w, F, S, a.fork_in_b, IT, S, false}, K);
+      product<kStaged>({FB, F, a.fork_gate_w, F, 2 * S, a.fork_gate_b, GI,
+                           2 * S, false}, K, RING);
+      product<kStaged>({FB, F, a.fork_in_w, F, S, a.fork_in_b, IT, S,
+                           false}, K, RING);
       __syncthreads();
-      run_product({WAS, D, a.dist_gate_w, D, 2 * S, nullptr, GI, 2 * S, true},
-                  K);
-      run_product({WAS, D, a.dist_in_w, D, S, nullptr, IT, S, true}, K);
+      product<kStaged>({WAS, D, a.dist_gate_w, D, 2 * S, nullptr, GI,
+                           2 * S, true}, K, RING);
+      product<kStaged>({WAS, D, a.dist_in_w, D, S, nullptr, IT, S, true},
+                          K, RING);
       __syncthreads();
-      run_product({HS, S, a.wsg, S, 2 * S, nullptr, GI, 2 * S, true}, K);
+      product<kStaged>({HS, S, a.wsg, S, 2 * S, nullptr, GI, 2 * S, true},
+                          K, RING);
       __syncthreads();
       // gates = sigmoid(.): update in GI[:, :S], reset * h into GI[:, S:]
       for (int idx = tid; idx < K * 2 * S; idx += blockDim.x) {
@@ -636,7 +1000,8 @@ beam_loop_kernel(BeamLoopArgs a) {
         GI[idx] = c < S ? g : HS[k * S + c - S] * g;
       }
       __syncthreads();
-      run_product({GI + S, 2 * S, a.wss, S, S, nullptr, IT, S, true}, K);
+      product<kStaged>({GI + S, 2 * S, a.wss, S, S, nullptr, IT, S, true},
+                          K, RING);
       __syncthreads();
       for (int idx = tid; idx < K * S; idx += blockDim.x) {
         const int k = idx / S, c = idx % S;
@@ -727,13 +1092,13 @@ beam_loop_kernel(BeamLoopArgs a) {
 
 namespace {
 
-template <int kNorm, bool kMse, bool kVariant, bool kStack, bool kWorkspace>
+template <int kNorm, bool kMse, bool kVariant, bool kStack, int kWs>
 int launch_loop(const BeamLoopArgs* args, int smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      beam_loop_kernel<kNorm, kMse, kVariant, kStack, kWorkspace>,
+      beam_loop_kernel<kNorm, kMse, kVariant, kStack, kWs>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  beam_loop_kernel<kNorm, kMse, kVariant, kStack, kWorkspace>
+  beam_loop_kernel<kNorm, kMse, kVariant, kStack, kWs>
       <<<args->U, kThreads, smem, stream>>>(*args);
   return (int)cudaGetLastError();
 }
@@ -741,36 +1106,38 @@ int launch_loop(const BeamLoopArgs* args, int smem, cudaStream_t stream) {
 // the instances configs use: the variants under the log-likelihood alone,
 // a stack under the log-likelihood and softmax
 // (ops/beam_loop.py::unported_loop)
-template <int kNorm, bool kWorkspace>
+template <int kNorm, int kWs>
 int launch_cost(const BeamLoopArgs* args, int smem, cudaStream_t stream) {
   if (is_stack(*args))
     return kNorm != 0 || args->mse_cost || args->dec_stack > 4
                ? (int)cudaErrorInvalidValue
-               : launch_loop<0, false, true, true, kWorkspace>(args, smem,
+               : launch_loop<0, false, true, true, kWs>(args, smem,
                                                                stream);
   if (is_variant(*args))
     return args->mse_cost
                ? (int)cudaErrorInvalidValue
-               : launch_loop<kNorm, false, true, false, kWorkspace>(
+               : launch_loop<kNorm, false, true, false, kWs>(
                      args, smem, stream);
   return args->mse_cost
-             ? launch_loop<kNorm, true, false, false, kWorkspace>(args, smem,
+             ? launch_loop<kNorm, true, false, false, kWs>(args, smem,
                                                                   stream)
-             : launch_loop<kNorm, false, false, false, kWorkspace>(
+             : launch_loop<kNorm, false, false, false, kWs>(
                    args, smem, stream);
 }
 
 // One launch of the instance the normalizer, the costs and the variant
 // pieces pick, with `smem` bytes of shared memory a block.
-template <bool kWorkspace>
+// kWs: 0 the resident instances, 1 the workspace instances up to
+// kSmallRows rows, 2 past them (ring_phases).
+template <int kWs>
 int launch_instance(const BeamLoopArgs* args, int smem, cudaStream_t s) {
   switch (args->normalizer) {
     case 0:
-      return launch_cost<0, kWorkspace>(args, smem, s);
+      return launch_cost<0, kWs>(args, smem, s);
     case 1:
-      return launch_cost<1, kWorkspace>(args, smem, s);
+      return launch_cost<1, kWs>(args, smem, s);
     case 2:
-      return launch_cost<2, kWorkspace>(args, smem, s);
+      return launch_cost<2, kWs>(args, smem, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

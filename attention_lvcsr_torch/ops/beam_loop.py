@@ -83,6 +83,7 @@ _POST_ACT_ALIASES = {"rectifier": "relu", "logistic": "sigmoid"}
 
 launches = _build.LaunchCounter()      # the resident instances
 launches_ws = _build.LaunchCounter()   # the workspace instances
+launches_select = _build.LaunchCounter()   # beam_select's test entry
 
 # table name -> shape in terms of the dimension letters below (S a
 # layer's state, Z = N*S and G = 2*N*S the N layers' lanes)
@@ -440,10 +441,41 @@ THREADS = 512            # kThreads, kProdThreads
 MAX_GROUP_ROWS = 8       # kMaxGroupRows
 MAX_BEAM = 512           # kMaxBeam: the merge's commit takes a thread a row
 SMEM_LIMIT = 232448      # shared memory an H100 block may use
+# the workspace instances' products' ring (csrc/beam_products_ws.cuh):
+# kRingStages stages of kRingK k rows, each (BM + pad) + (BN + pad) wide
+RING_K, RING_STAGES, RING_PAD = 16, 3, 4
+RING_FLOATS = RING_STAGES * RING_K * (32 + 512 + 2 * RING_PAD)
+SMALL_ROWS = 16          # kSmallRows: beams with no ring (ring_phases)
 
 
 def _align4(n):
     return (n + 3) & ~3
+
+
+def sel_floats(K):
+    """``sel_floats``: the workspace instances' selection area, the
+    winners' 64-bit keys (K padded to a power of two) and 4 x 16 words of
+    counts."""
+    P = 1
+    while P < K:
+        P <<= 1
+    return 2 * P + 4 * (THREADS // 32)
+
+
+def ring_plan(nrows, N):
+    """``ring_plan``: the tile shape of a workspace product over nrows x N
+    outputs, the fewest tiles, then the fewest floats staged a k:
+    (row threads rg, column threads cg, tile rows bm = 8 rg, tile columns
+    bn = 4 cg, row tiles, column tiles)."""
+    best = None
+    for rg in (4, 8, 16, 32, 64):
+        cg = THREADS // rg
+        bm, bn = 8 * rg, 4 * cg
+        rt, ct = -(-nrows // bm), -(-N // bn)
+        key = (rt * ct, rt * N + ct * nrows)
+        if best is None or key < best[0]:
+            best = (key, (rg, cg, bm, bn, rt, ct))
+    return best[1]
 
 
 def _layout(K, L, M, D, S, R, V, F, Lout, n_taps, n_filters, maxout,
@@ -475,6 +507,10 @@ def _layout(K, L, M, D, S, R, V, F, Lout, n_taps, n_filters, maxout,
             ("red_v", warps + 1, "shared"), ("red_i", warps + 1, "shared"),
             ("wn", K * L, rows), ("wa", K * D, rows)):
         take(name, n, where)
+    if workspace and K > SMALL_ROWS:
+        # the ring of the staged phases and the selection's area
+        take("ring", RING_FLOATS, "shared")
+        take("sel", sel_floats(K), "shared")
     scratch, ends = cur[rows], []
     for phase in ((("conv", n_filters * K * L), ("sp", K * M)),
                   # a maxout readout's grouped units after the merged
@@ -713,3 +749,104 @@ def beam_search_loop(pre, attended, att_mask, tables, *, instance=None,
         return _launch(pre, attended, att_mask, tables, instance=instance,
                        **kwargs)
     raise ValueError(f"beam_search_loop: no kernel for device {pre.device}")
+
+
+# ---- the workspace instances' selection alone (chip_smoke.py phase 25f) --
+
+def beam_select_reference(costs):
+    """Plain version of the kernel's selection over each of G grids of K x
+    V candidates (``costs`` (G, K, V) float32): the K lowest entries by
+    (cost, flat index k*V + v) among those below ``BIG`` (a stable sort;
+    -0.0 and +0.0 equal), then, where fewer than K lie below ``BIG``, flat
+    index 0 at cost ``BIG`` in every slot left (what K rounds of
+    ``lex_min`` that mark their picks ``BIG`` take there).  Returns (src,
+    sym, chosen), each (G, K)."""
+    G, K, V = costs.shape
+    flat = costs.reshape(G, K * V)
+    below = flat < torch.tensor(BIG, dtype=flat.dtype)
+    order = torch.sort(torch.where(below, flat, float("inf")), dim=1,
+                       stable=True).indices[:, :K]
+    live = torch.arange(K, device=costs.device)[None] < below.sum(
+        dim=1, keepdim=True)
+    idx = torch.where(live, order, 0)
+    chosen = torch.where(live, flat.gather(1, idx),
+                         torch.tensor(BIG, dtype=flat.dtype))
+    return ((idx // V).to(torch.int32), (idx % V).to(torch.int32), chosen)
+
+
+class _SelectArgs(ctypes.Structure):
+    """Mirror of ``struct BeamSelectArgs`` in csrc/beam_loop_ws.cu."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in ("costs", "work",
+                                                      "out")]
+                + [(name, ctypes.c_int) for name in ("G", "K", "V")])
+
+
+def beam_select(costs):
+    """The workspace instances' one-pass selection (``select_k``) and the
+    resident instances' K rounds (``block_argmin``) on each of G grids of
+    K x V candidates, ``costs`` (G, K, V) float32, 1 <= K <= ``MAX_BEAM``:
+    {"pass": (src, sym, chosen), "rounds": (...)}, each (G, K).  On the
+    card one launch of ``csrc/beam_loop_ws.cu``'s test entry (a block a
+    grid); on the CPU both from :func:`beam_select_reference`."""
+    G, K, V = costs.shape
+    if costs.device.type == "cpu":
+        picks = beam_select_reference(costs)
+        return {"pass": picks, "rounds": picks}
+    if costs.device.type != "cuda":
+        raise ValueError(f"beam_select: no kernel for device {costs.device}")
+    if costs.dtype != torch.float32 or not costs.is_contiguous():
+        raise ValueError("beam_select: costs must be contiguous float32")
+    if not 1 <= K <= MAX_BEAM or G < 1 or V < 1:
+        raise ValueError(f"beam_select: {G} grids of {K} x {V}")
+    work = torch.empty_like(costs)
+    out = torch.empty(G, 6, K, dtype=torch.int32, device=costs.device)
+    args = _SelectArgs(costs=costs.data_ptr(), work=work.data_ptr(),
+                       out=out.data_ptr(), G=G, K=K, V=V)
+    lib = _build.load().lib
+    entry = lib.beam_select_ws_test
+    entry.argtypes = [ctypes.POINTER(_SelectArgs), ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+    with torch.cuda.device(costs.device):
+        status = entry(ctypes.byref(args), _build.stream_of(costs))
+    _build.check(status, "beam_select_ws_test")
+    launches_select.count += 1
+    picks = lambda a: (out[:, a], out[:, a + 1], out[:, a + 2].view(
+        torch.float32))
+    return {"pass": picks(0), "rounds": picks(3)}
+
+
+def selection_grids(K, V, seed=0):
+    """Adversarial (K, V) float32 grids of candidate costs for the
+    selection (``tests/test_torch_beam_select.py`` and ``chip_smoke.py``
+    phase 25f): exact ties; +-0.0 among small values; the first step's
+    rows (row 0 alive, every other at ``INF`` plus costs that round to
+    one float32 value); relu's dropped rows at ``BIG`` (fewer than K
+    candidates below it where K > V); every candidate at ``BIG``; and a
+    mix of all with +inf entries.  Returns {name: array}."""
+    import numpy as np
+    rng = np.random.RandomState(seed + 1009 * K + V)
+    f32 = np.float32
+    grids = {
+        "ties": rng.choice(np.array([0.5, 1.0, 1.5, 2.0], f32), (K, V)),
+        "zeros": rng.choice(np.array([-0.0, 0.0, -1e-30, 1e-30, 0.25], f32),
+                            (K, V)),
+    }
+    first = (f32(INF) + rng.rand(K, V).astype(f32) * f32(5.0)).astype(f32)
+    first[0] = rng.rand(V).astype(f32) * f32(5.0)
+    grids["inf_rows"] = first
+    dropped = (rng.rand(K, V) * 4.0).astype(f32)
+    keep = rng.rand(K) < 0.3
+    keep[K // 2] = True
+    if K > V:                       # fewer than K below BIG
+        keep[:] = False
+        keep[K // 2] = True
+    dropped[~keep] = f32(BIG)
+    grids["big_rows"] = dropped
+    grids["all_big"] = np.full((K, V), BIG, f32)
+    mixed = np.round(rng.rand(K, V) * 8.0).astype(f32) / f32(4.0)
+    mixed[rng.rand(K, V) < 0.1] = -0.0
+    mixed[rng.rand(K) < 0.2] = f32(BIG)
+    mixed[rng.rand(K) < 0.2] += f32(INF)
+    mixed[rng.rand(K, V) < 0.02] = np.inf
+    grids["mixed"] = mixed.astype(f32)
+    return grids

@@ -313,7 +313,12 @@ instances.  Phases, each fatal on failure:
     of both, then beam 513 takes the module route; (e) the resident loop
     instances on phases 3, 20b, 22a and 23a's main paths hash to the bits
     of the tree before the workspace instances (``RESIDENT_LOOP_BITS``),
-    their times.
+    their times; (f), run first: the workspace instances' one-pass
+    selection against the resident instances' K rounds on adversarial
+    grids (ties, +-0.0, rows at INF and BIG) at K 1-512, bit for bit.
+    25a's comparison lets at most two utterances a case differ by swaps
+    of near-equal done-set entries, each swap logged with both routes'
+    slots, costs and ulps; a swap of bit-equal costs fails.
 
 Nothing of JAX or of the JAX package is imported; the script checks it.
 
@@ -483,6 +488,79 @@ def best_hypotheses(out):
     return best
 
 
+def ulps(a, b):
+    """Distance in float32 units in the last place between a and b."""
+    ia, ib = (int(np.float32(x).view(np.int32)) for x in (a, b))
+    ia, ib = (i if i >= 0 else -(i & 0x7FFFFFFF) for i in (ia, ib))
+    return abs(ia - ib)
+
+
+def swapped_pairs(got, ref, u, close):
+    """The swaps that turn the kernel's done set of utterance ``u`` into
+    the plain version's: each pair of hypotheses that both hold in the
+    other order (slot and adjusted cost on each route), and each
+    hypothesis that only one holds beside the one it displaced (the
+    routes' unmatched entries paired in cost order).  Returns (pairs,
+    faults): a pair is a fault when its two costs are not within the
+    tolerance on either route, or when the order differs though each
+    route computed both costs bit for bit as the other did, or found
+    them bit-equal (a tie, which both order by flat index); so is a
+    hypothesis both hold whose costs differ past the tolerance."""
+    def entries(out):
+        valid = out["done_valid"][u]
+        return [(tuple(int(x) for x in out["done_out"][u, k,
+                                                      :out["done_len"][u, k]]),
+                 int(k), np.float32(out["done_adjusted"][u, k]),
+                 np.float32(out["done_cost"][u, k]))
+                for k in np.nonzero(valid)[0]]
+    g_all, r_all = entries(got), entries(ref)
+    r_by = {}
+    for e in r_all:
+        r_by.setdefault(e[0], []).append(e)
+    common, g_only = [], []
+    for e in g_all:
+        if r_by.get(e[0]):
+            common.append((e, r_by[e[0]].pop(0)))
+        else:
+            g_only.append(e)
+    r_only = [e for es in r_by.values() for e in es]
+    pairs, faults = [], []
+    for ga, ra in common:
+        if not (close(ga[2], ra[2]) and close(ga[3], ra[3])):
+            faults.append({"labels": ga[0], "kernel": (float(ga[2]),
+                                                       float(ga[3])),
+                           "plain": (float(ra[2]), float(ra[3]))})
+    for i, (ga, ra) in enumerate(common):
+        for gb, rb in common[i + 1:]:
+            if (ga[1] < gb[1]) == (ra[1] < rb[1]):
+                continue
+            pair = {"labels": (ga[0], gb[0]), "slots_kernel": (ga[1], gb[1]),
+                    "slots_plain": (ra[1], rb[1]),
+                    "adjusted_kernel": (float(ga[2]), float(gb[2])),
+                    "adjusted_plain": (float(ra[2]), float(rb[2])),
+                    "ulps_kernel": ulps(ga[2], gb[2]),
+                    "ulps_plain": ulps(ra[2], rb[2])}
+            pairs.append(pair)
+            same_bits = ga[2] == ra[2] and gb[2] == rb[2]
+            tied = ga[2] == gb[2] and ra[2] == rb[2]
+            if same_bits or tied or not (close(ga[2], gb[2])
+                                         and close(ra[2], rb[2])):
+                faults.append(pair)
+    for ge, re_ in zip(sorted(g_only, key=lambda e: e[2]),
+                       sorted(r_only, key=lambda e: e[2])):
+        pair = {"labels": (ge[0], re_[0]), "slots_kernel": (ge[1], None),
+                "slots_plain": (None, re_[1]),
+                "adjusted_kernel": (float(ge[2]), None),
+                "adjusted_plain": (None, float(re_[2])),
+                "ulps_across": ulps(ge[2], re_[2])}
+        pairs.append(pair)
+        if not close(ge[2], re_[2]):
+            faults.append(pair)
+    if len(g_only) != len(r_only):
+        faults.append({"unpaired": (len(g_only), len(r_only))})
+    return pairs, faults
+
+
 def compare_outputs(name, got, ref, reorder=False):
     """Kernel vs plain decode outputs, utterance by utterance: finished
     hypotheses, lengths, validity and step counts identical, costs within
@@ -491,12 +569,14 @@ def compare_outputs(name, got, ref, reorder=False):
     With ``reorder`` (phase 25a's wide beams, whose done sets of up to 512
     entries hold many costs closer than the two routes' rounding), an
     utterance whose steps, number of finished hypotheses and best
-    hypothesis are the plain version's, and whose finished costs sorted
-    agree within the tolerance entry by entry, differs only in the order
-    or the choice of near-equal entries: counted and logged apart, not as
-    a near tie.  ``steps`` is per utterance, or one number for the batch.
-    Returns the max abs cost error over the finished hypotheses that
-    agree."""
+    hypothesis are the plain version's, and whose done set differs from it
+    only by swaps of entries within the tolerance of each other
+    (``swapped_pairs``: each pair logged with both routes' slots, adjusted
+    costs and their distance in ulps), counts as reordered, apart from the
+    near ties; a swap of bit-equal costs is a tie-order fault and fails,
+    and so do more than two reordered utterances.  ``steps`` is per
+    utterance, or one number for the batch.  Returns the max abs cost
+    error over the finished hypotheses that agree."""
     per_utt_steps = np.ndim(ref["steps"]) == 1
     best_g, best_r = best_hypotheses(got), best_hypotheses(ref)
     differ, reordered, err = [], [], 0.0
@@ -520,12 +600,16 @@ def compare_outputs(name, got, ref, reorder=False):
                 and close(np.float32(c_g), np.float32(c_r))
                 and close(np.sort(cost_g[:, valid_g], axis=1),
                           np.sort(cost_r[:, valid], axis=1))):
-            slots = int((~np.all(got["done_out"][u] == ref["done_out"][u],
-                                 axis=1)).sum())
+            pairs, faults = swapped_pairs(got, ref, u, close)
+            for pair in pairs:
+                log(f"{name}: utterance {u} swaps {json.dumps(pair)}")
+            if faults:
+                fail(f"{name}: utterance {u}'s done set differs by swaps "
+                     f"that are no rounding: {json.dumps(faults)}")
             reordered.append(u)
             log(f"{name}: utterance {u}'s done set reorders near-equal "
-                f"entries ({slots} of {valid.sum()} slots differ, the sorted "
-                f"costs within tolerance; best {lab_g} ({c_g}) both)")
+                f"entries ({len(pairs)} swaps of {valid.sum()} entries; "
+                f"best {lab_g} ({c_g}) both)")
             continue
         if c_g is None or c_r is None or \
                 abs(c_g - c_r) > 1e-3 * max(abs(c_r), 1.0):
@@ -537,6 +621,9 @@ def compare_outputs(name, got, ref, reorder=False):
     if len(differ) > 1:
         fail(f"{name}: {len(differ)} utterances differ (at most one near tie "
              f"allowed): {differ}")
+    if len(reordered) > 2:
+        fail(f"{name}: {len(reordered)} utterances reorder their done sets "
+             f"(at most two allowed): {reordered}")
     if not per_utt_steps and not differ and got["steps"] != ref["steps"]:
         fail(f"{name}: {got['steps']} steps vs plain {ref['steps']}")
     return err
@@ -5514,7 +5601,8 @@ def wide_beam_loops(t, dev, results):
     ws = results["beam_search_loop_ws"]
     ws.update({k: v for k, v in ws["beam200"].items()
                if k not in ("U", "K", "L")},
-              max_abs_err=max(c["max_abs_err"] for c in ws.values()))
+              max_abs_err=max(c["max_abs_err"] for c in ws.values()
+                              if isinstance(c, dict) and "max_abs_err" in c))
 
 
 def workspace_bits(t, dev, results):
@@ -5844,10 +5932,50 @@ def resident_loop_check(t, dev, rates):
             f"{k} {v:.3f} ms" for k, v in times.items()))
 
 
+def selection_check(t, dev, results):
+    """Phase 25f: the workspace instances' one-pass selection (``select_k``,
+    through ``csrc/beam_loop_ws.cu``'s test entry, ``beam_select``)
+    against the resident instances' K rounds of ``block_argmin`` in the
+    same launch, on ``ops/beam_loop.py::selection_grids`` (the CPU test's
+    grids: ties, +-0.0, rows at INF and at BIG, all at BIG, a mix with
+    +inf) at K in {1, 17, 18, 200, 512} and V in {5, 32}: identical
+    source rows, symbols and cost bits, and the plain version's picks."""
+    import torch
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    bits = lambda x: x.contiguous().cpu().numpy().tobytes()
+    checked = 0
+    for K in (1, 17, 18, 200, 512):
+        for V in (5, 32):
+            grids = bl.selection_grids(K, V)
+            costs = torch.tensor(np.stack(list(grids.values())), device=dev)
+            bl.launches_select.reset()
+            picks = bl.beam_select(costs)
+            torch.cuda.synchronize()
+            if bl.launches_select.count != 1:
+                fail(f"phase 25f: beam_select launched "
+                     f"{bl.launches_select.count} times")
+            plain = bl.beam_select_reference(costs)
+            for i, name in enumerate(grids):
+                for part, a, b, c in zip(("src", "sym", "chosen"),
+                                         picks["pass"], picks["rounds"],
+                                         plain):
+                    if not bits(a[i]) == bits(b[i]) == bits(c[i]):
+                        fail(f"phase 25f: K={K} V={V} grid {name}: the "
+                             f"selection's {part} differs from the rounds' "
+                             f"or the plain version's")
+                checked += 1
+    results["beam_search_loop_ws"]["selection_grids"] = checked
+    log(f"phase 25f: the one-pass selection takes the K rounds' picks, "
+        f"bit for bit, on {checked} grids (K 1-512, V 5 and 32)")
+
+
 def workspace_phase(t, dev, results, rates):
     """Phase 25: the loop kernel's workspace instances.  Returns 25c's and
     25d's launches."""
     results.setdefault("beam_search_loop_ws", {})
+    t0 = time.perf_counter()
+    selection_check(t, dev, results)
+    log(f"phase 25f: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     wide_beam_loops(t, dev, results)
     log(f"phase 25a: {time.perf_counter() - t0:.1f} s")

@@ -15,8 +15,9 @@
   and 1600 frames; no model is built.
 * The workspace instance's layout mirror (``ops/beam_loop.py::
   smem_plan``'s ``"workspace"``): no two buffers live at once overlap,
-  every offset is 16-byte aligned, and the shared part stays within a
-  block at K=512, L=2000."""
+  the products' ring and the selection's area included, every offset is
+  16-byte aligned, and the shared part stays within a block at K=512,
+  L=2000 with 16 filters and at wsj_pyramide.yaml's D=2000."""
 import glob
 import os
 
@@ -209,7 +210,8 @@ def _sizes(K, L, M, D, S, R, V, F, Lout, n_taps, n_filters=1, maxout=0,
         wn=K * L, wa=K * D, conv=nf * K * L, sp=K * M,
         act=K * R + (K * R // maxout if maxout else 0), costs=K * V,
         hs=K * S, was=K * D, aout2=K * Lout, dout2=K * Lout,
-        fb=0 if dec_stack > 1 else K * F, gi=2 * K * S, it=K * S)
+        fb=0 if dec_stack > 1 else K * F, gi=2 * K * S, it=K * S,
+        ring=bl.RING_FLOATS, sel=bl.sel_floats(K))
 
 
 @pytest.mark.parametrize("shape,options", [
@@ -218,6 +220,9 @@ def _sizes(K, L, M, D, S, R, V, F, Lout, n_taps, n_filters=1, maxout=0,
                                                            maxout=2)),
     (dict(FLAGSHIP, K=512, L=2000, Lout=666), dict(normalizer="relu")),
     (dict(FLAGSHIP, K=18, D=2000, R=1000, Lout=266), {}),
+    # wsj_pyramide.yaml's decode: D=2000 glimpses, a 1000-wide readout,
+    # 800 frames (L=200) at beam 10
+    (dict(FLAGSHIP, K=10, D=2000, R=1000, Lout=266), {}),
     (dict(FLAGSHIP, K=40, S=256, M=512, D=512, L=400, Lout=266),
      dict(n_filters=10, maxout=2, dec_stack=2)),
     (dict(FLAGSHIP, K=64, L=175, n_taps=0), dict(content=True)),
@@ -250,13 +255,22 @@ def test_workspace_layout(shape, options):
 
 def test_workspace_shared_part_at_the_widest():
     """K=512, L=2000, 16 filters of 201 taps, M=512: the per-row scalars,
-    mask, taps, handler rows and energy vector take 78,368 bytes of the
-    block's 232,448."""
+    mask, taps, handler rows and energy vector take 78,368 bytes, the
+    relu rows' flags 2,048, the products' ring 105,984 and the
+    selection's area 4,352 of the block's 232,448; at wsj_pyramide's
+    D=2000 the shared part is the flagship's, D-wide buffers being
+    workspace rows."""
     plan = bl.smem_plan(K=512, L=2000, M=512, D=2000, S=512, R=1000, V=32,
                         F=512, Lout=2000, n_taps=201, n_filters=16,
                         maxout=2, normalizer="relu")
-    assert plan["workspace"]["smem_bytes"] == 78368 + 4 * 512
+    assert bl.RING_FLOATS * 4 == 105984 and bl.sel_floats(512) * 4 == 4352
+    assert plan["workspace"]["smem_bytes"] == 78368 + 4 * 512 + 105984 \
+        + 4352
     assert plan["workspace"]["fits"]
+    wide = bl.smem_plan(**dict(FLAGSHIP, K=512, D=2000, R=1000))
+    flagship = bl.smem_plan(**dict(FLAGSHIP, K=512))
+    assert wide["workspace"]["smem_bytes"] == flagship["workspace"][
+        "smem_bytes"] <= bl.SMEM_LIMIT
 
 
 def test_route_refuses_past_the_widest_beam():

@@ -8,6 +8,8 @@ commit's.
                                                 [--only loop|energy|score|
                                                         frontend]
                                                 [--frontend-rows R,R]
+    python3 tools/torch_bench_decode_kernels.py --beams 18,64,200,512
+                                                [--root DIR] [--out F.npz]
     python3 tools/torch_bench_decode_kernels.py --compare A.npz B.npz
 
 Run from the repository root on a machine with a CUDA device and nvcc.
@@ -39,6 +41,18 @@ bits.  ``--only frontend`` times the waveform frontend (``fbank_deltas``,
 launch plan where the package has one, and with ``--frontend-rows`` on
 each tile of output frames listed as well.  ``--only`` takes a
 comma-separated list; ``loop`` is the default.
+
+``--beams K,K`` times the whole-loop kernel's workspace instances
+(``csrc/beam_loop_ws.cu``, named with ``instance="workspace"``, which
+beams from 18 up take anyway) at those beams instead, on
+``chip_smoke.py`` phase 25a's cases: the flagship's tables, U=64
+utterances of 600-800 frames from seed 25 (U=8 at beam 512), the EOS
+logit raised by 1.5, a 100-step cap, with
+``--repeats`` launches (default 3; 1 from beam 200 up), and ``--out``
+keeps each decode's outputs.  Run in turns on this tree and on an
+unpacked copy of the parent commit (``--root``, below): parent, tree,
+tree, parent, in one call; ``--compare`` then says whether the two gave
+the same bits.
 
 ``--root DIR`` imports the ``attention_lvcsr_torch`` package found in DIR
 instead of this checkout's and builds its kernels there: with DIR an
@@ -96,6 +110,9 @@ def main():
                         help="comma-separated tiles (output frames a "
                              "block) to force on the frontend kernel, "
                              "beside its plan's")
+    parser.add_argument("--beams", default=None,
+                        help="comma-separated beams: time phase 25a's "
+                             "wide-beam decodes instead")
     parser.add_argument("--compare", nargs=2, metavar="NPZ")
     args = parser.parse_args()
     if args.compare:
@@ -162,6 +179,11 @@ def main():
                            init_config=INIT, seed=1234, device=dev)
     rec.init_beam_search(10)
     prior = rec.net.generator.attention.prior_config()
+    if args.beams:
+        bench_wide(rec, dev, cuda_ms, [int(k) for k in args.beams.split(",")],
+                   args.repeats, result, args.out)
+        print(json.dumps(result))
+        return
     frames = 800
     kw = dict(beam=10, max_len=frames // 8, eol=rec.eos_label,
               ignore_first_eol=rec.data_prepend_eos, prior=prior["type"],
@@ -217,6 +239,54 @@ def bench_loop(rec, dev, cuda_ms, n_repeats, kw, frames, result, out_path):
                   f"finished" + ("" if repeats is None else
                                  f"; a second call repeats its bits: "
                                  f"{repeats}"))
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        np.savez(out_path, **arrays)
+
+
+def bench_wide(rec, dev, cuda_ms, beams, repeats, result, out_path):
+    """The whole-loop kernel at each beam of ``beams`` on phase 25a's
+    input (``chip_smoke.py::wide_beam_loops``): U=64 (8 at beam 512),
+    600-800 frames from seed 25, the EOS logit raised by 1.5, a 100-step
+    cap; ``repeats`` launches timed (default 3, 1 from beam 200 up)."""
+    import torch
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    frames = 800
+    rng = np.random.RandomState(25)
+    feats = torch.tensor(rng.randn(64, frames, 123).astype(np.float32),
+                         device=dev)
+    lengths = rng.randint(600, frames + 1, size=64)
+    lengths[0] = frames
+    fmask = torch.tensor((np.arange(frames)[None] < lengths[:, None])
+                         .astype(np.float32), device=dev)
+    with torch.inference_mode():
+        data = rec.net.decode_loop(feats, fmask)
+        tables = dict(rec.net.decode_loop_tables())
+    tables["post_b"] = tables["post_b"].clone()
+    tables["post_b"][rec.eos_label] += 1.5
+    prior = rec.net.generator.attention.prior_config()
+    kw = dict(max_len=frames // 8, eol=rec.eos_label, ignore_first_eol=True,
+              prior=prior["type"], instance="workspace",
+              **{k: float(v) for k, v in prior.items() if k != "type"})
+    arrays = {}
+    for K in beams:
+        U = 8 if K >= 512 else 64
+        args = (data["pre"][:U], data["attended"][:U],
+                data["attended_mask"][:U], tables)
+        bl.launches_ws.reset()
+        out = [x.cpu().numpy() for x in bl.beam_search_loop(*args, beam=K,
+                                                            **kw)]
+        if bl.launches_ws.count != 1:
+            sys.exit(f"beam {K}: the workspace instance did not launch")
+        for name, x in zip(("done_out", "done_meta", "steps"), out):
+            arrays[f"beam{K}_U{U}_{name}"] = x
+        n = repeats or (1 if K >= 200 else 3)
+        ms = cuda_ms(lambda: bl.beam_search_loop(*args, beam=K, **kw), n)
+        result[f"beam_search_loop_beam{K}_U{U}_ms"] = ms
+        steps = out[2]
+        print(f"beam_search_loop (workspace) U={U} beam={K}: {ms:.3f} ms "
+              f"(steps {int(steps.min())}..{int(steps.max())}, "
+              f"{ms / max(int(steps.max()), 1):.3f} ms a step)", flush=True)
     if out_path:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
         np.savez(out_path, **arrays)

@@ -3,6 +3,8 @@
 
     python3 tools/torch_profile_decode.py [--net gru|lstm]
         [--out profile_decode.txt]
+    python3 tools/torch_profile_decode.py --beam 200:64 --beam 512:8
+        [--out profile_ws.txt]
 
 Run from the repository root on a machine with a CUDA device and nvcc.
 Drives the decode ``chip_smoke.py`` drives (``FLAGSHIP_NET``, random
@@ -28,13 +30,22 @@ weights from seed 1234, B=64, 800 frames, beam 10) and reports:
    beam_search_loop probe on the decode's own tables.  The probes add
    barriers, so per-phase shares are what they read; the kernels' times
    come from part 1.
+
+``--beam K[:U]`` (repeatable; U defaults to 64) probes the workspace
+instances instead (``csrc/beam_loop_ws.cu``, the decodes whose resident
+layout passes a block) and runs nothing else: the probed copy of the
+body is included by the copies of both instance files, each reading its
+own probes, and the workspace instance decodes phase 25a's input of
+``chip_smoke.py`` (the flagship's tables from seed 1234, U utterances of
+600-800 frames from seed 25, the EOS logit raised by 1.5, a 100-step
+cap) at beam K; the table is its cycles per step and block, phase by
+phase.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import os
-import shutil
 import re
 import subprocess
 import sys
@@ -50,12 +61,26 @@ INIT = {"/recognizer": {"weights_init": ["isotropic_gaussian", 0.1],
                         "rec_weights_init": ["orthogonal"]}}
 
 
-def instrument(src, loop_header, tag, body=False):
+def footer(tag, suffix=""):
+    """The C entry points that read and reset ``tag``'s probes, named
+    ``prof_read_<tag><suffix>`` and ``prof_reset_<tag><suffix>``."""
+    return (
+        f'\nextern "C" int prof_read_{tag}{suffix}(void* host) {{ return '
+        f"(int)cudaMemcpyFromSymbol(host, prof_{tag}, sizeof(prof_{tag})); }}\n"
+        f'extern "C" int prof_reset_{tag}{suffix}() {{ static unsigned long '
+        f"long z[{BLOCKS * SLOTS}]; return (int)cudaMemcpyToSymbol("
+        f"prof_{tag}, z, sizeof(z)); }}\n")
+
+
+def instrument(src, loop_header, tag, body=False, entries=True):
     """``src`` with a probe before each ``// ---- name`` comment inside the
     loop that starts at ``loop_header`` and one after that loop; returns
     (source, phase names).  With ``body``, ``loop_header`` opens a
     kernel's body instead, whose phase comments sit at its top level, and
-    the last probe goes before the body's end."""
+    the last probe goes before the body's end.  The probes are static to
+    the translation unit; without ``entries`` the source gets no reading
+    entry points (a header: each file that includes it appends its own,
+    :func:`footer`)."""
     lines = src.split("\n")
     start = next(i for i, ln in enumerate(lines) if loop_header in ln)
     depth, end = 0, None
@@ -84,21 +109,16 @@ def instrument(src, loop_header, tag, body=False):
         raise RuntimeError(f"no '// ---- ' phase comments in the {tag} loop")
     block = "(blockIdx.y * gridDim.x + blockIdx.x)"
     header = (
-        f"__device__ unsigned long long prof_{tag}[{BLOCKS * SLOTS}];\n"
+        f"static __device__ unsigned long long prof_{tag}"
+        f"[{BLOCKS * SLOTS}];\n"
         f"#define PROF_MARK_{tag}(n) do {{ __syncthreads(); "
         f"if (threadIdx.x == 0 && {block} < {BLOCKS}) {{ "
         f"long long t_ = clock64(); if (prof_cur >= 0) "
         f"prof_{tag}[{block} * {SLOTS} + prof_cur] += t_ - prof_last; "
         f"prof_last = t_; prof_cur = (n); }} }} while (0)\n")
-    footer = (
-        f'\nextern "C" int prof_read_{tag}(void* host) {{ return (int)'
-        f"cudaMemcpyFromSymbol(host, prof_{tag}, sizeof(prof_{tag})); }}\n"
-        f'extern "C" int prof_reset_{tag}() {{ static unsigned long long '
-        f"z[{BLOCKS * SLOTS}]; return (int)cudaMemcpyToSymbol(prof_{tag}, z, "
-        f"sizeof(z)); }}\n")
     text = "\n".join(out).replace("#include <cuda_runtime.h>\n",
                                   "#include <cuda_runtime.h>\n" + header, 1)
-    return text + footer, names
+    return text + (footer(tag) if entries else ""), names
 
 
 def phase_table(lib, tag, names, blocks, steps, out):
@@ -118,16 +138,21 @@ def main():
                         help="the encoder's transition")
     parser.add_argument("--out", default=None,
                         help="also write the report to this file")
+    parser.add_argument("--beam", action="append", default=[],
+                        metavar="K[:U]",
+                        help="probe the workspace instance at beam K over "
+                             "U utterances (default 64) instead; "
+                             "repeatable")
     args = parser.parse_args()
+    beams = [tuple(int(x) for x in (b.split(":") + ["64"])[:2])
+             for b in args.beam]
     import torch
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     sys.path.insert(0, ROOT)
     from __graft_entry__ import FLAGSHIP_NET
-    from attention_lvcsr_torch import _build
     from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
     from attention_lvcsr_torch.ops import beam_loop as bl
-    from attention_lvcsr_torch.ops import decode_score as ds
     from attention_lvcsr_torch.ops import gru_scan as gs
     from attention_lvcsr_torch.ops import lstm_scan as ls
     from torch.profiler import ProfilerActivity, profile
@@ -154,6 +179,16 @@ def main():
     feats = torch.tensor(np.random.RandomState(2).randn(B, T, 123)
                          .astype(np.float32), device=dev)
     mask = torch.ones(B, T, device=dev)
+
+    if beams:
+        # the encoder's outputs on the package's own kernels, then the
+        # loop from the probed library
+        decodes = [workspace_inputs(dev, K, U) for K, U in beams]
+        lib, phases = probe_build(rec, lstm, probe_scans=False)
+        for decode in decodes:
+            workspace_phases(lib, phases["beam"], decode, out)
+        write_report(args.out, lines)
+        return
 
     # ---- 1. torch.profiler over one decode of each route -------------------
     def profile_decode(label, recognizer, **kwargs):
@@ -224,36 +259,7 @@ def main():
     with torch.inference_mode():
         data = rec.net.decode_loop(feats, mask)
         tables = rec.net.decode_loop_tables()
-    os.makedirs(os.path.join(ROOT, "build", "profile"), exist_ok=True)
-    paths, phases = [], {}
-    scan_src = "lstm_scan.cu" if lstm else "gru_scan.cu"
-    for name, header, tag in (
-            ("beam_loop_body.cuh", "for (int i = 0; i < max_len; ++i) {",
-             "beam"),
-            (scan_src, "for (int step = 0; step < T; ++step) {", "scan"),
-            ("decode_score.cu", "decode_score_kernel(DecodeScoreArgs a) {",
-             "score")):
-        src = open(os.path.join(_build.CSRC, name)).read()
-        text, phases[tag] = instrument(src, header, tag, tag == "score")
-        with open(os.path.join(ROOT, "build", "profile", name), "w") as f:
-            f.write(text)
-        # the loop's body is a header: its resident instances' source,
-        # copied beside it, includes the probed copy
-        unit = "beam_loop.cu" if name.endswith(".cuh") else name
-        paths.append(os.path.join(ROOT, "build", "profile", unit))
-        if unit != name:
-            shutil.copy(os.path.join(_build.CSRC, unit), paths[-1])
-    lib_path = os.path.join(ROOT, "build", "profile", "libprofile.so")
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                           "-I", _build.CSRC, "-o", lib_path, *paths],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        sys.exit(f"probe build failed:\n{proc.stderr[-4000:]}")
-    # the wrappers launch from whatever library _build has loaded
-    _build._loaded = _build.KernelLibrary(lib_path, 0.0, proc.stderr)
-    ds._entries = None
-    ds._active.clear()
-    lib = _build._loaded.lib
+    lib, phases = probe_build(rec, lstm, probe_scans=True)
 
     prior = rec.net.generator.attention.prior_config()
     lib.prof_reset_beam()
@@ -297,11 +303,115 @@ def main():
     if not lstm:
         score_phases(rec, dev, lib, phases["score"], T, out)
 
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
+    write_report(args.out, lines)
+
+
+def write_report(path, lines):
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
             f.write("\n".join(lines) + "\n")
+
+
+def probe_build(rec, lstm, probe_scans):
+    """Copies of the loop kernel's body (probed) and of both its instance
+    files (``beam_loop.cu``, ``beam_loop_ws.cu``, each with its own
+    reading entries: ``prof_read_beam`` and ``prof_read_beam_ws``) and,
+    with ``probe_scans``, of the encoder's scan and the score kernel,
+    built into ``build/profile/libprofile.so``, which the wrappers then
+    launch from.  Returns (the ctypes library, {tag: phase names})."""
+    from attention_lvcsr_torch import _build
+    from attention_lvcsr_torch.ops import decode_score as ds
+    out_dir = os.path.join(ROOT, "build", "profile")
+    os.makedirs(out_dir, exist_ok=True)
+    paths, phases = [], {}
+    scan_src = "lstm_scan.cu" if lstm else "gru_scan.cu"
+    probed = [("beam_loop_body.cuh", "for (int i = 0; i < max_len; ++i) {",
+               "beam")]
+    if probe_scans:
+        probed += [
+            (scan_src, "for (int step = 0; step < T; ++step) {", "scan"),
+            ("decode_score.cu", "decode_score_kernel(DecodeScoreArgs a) {",
+             "score")]
+    for name, header, tag in probed:
+        src = open(os.path.join(_build.CSRC, name)).read()
+        text, phases[tag] = instrument(src, header, tag, tag == "score",
+                                       entries=not name.endswith(".cuh"))
+        with open(os.path.join(out_dir, name), "w") as f:
+            f.write(text)
+        if not name.endswith(".cuh"):
+            paths.append(os.path.join(out_dir, name))
+    # the loop's body is a header: the copies of its instance files,
+    # beside it, include the probed copy
+    for unit, suffix in (("beam_loop.cu", ""), ("beam_loop_ws.cu", "_ws")):
+        paths.append(os.path.join(out_dir, unit))
+        with open(os.path.join(_build.CSRC, unit)) as f:
+            text = f.read()
+        with open(paths[-1], "w") as f:
+            f.write(text + footer("beam", suffix))
+    lib_path = os.path.join(out_dir, "libprofile.so")
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                           "-I", _build.CSRC, "-o", lib_path, *paths],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        sys.exit(f"probe build failed:\n{proc.stderr[-4000:]}")
+    # the wrappers launch from whatever library _build has loaded
+    _build._loaded = _build.KernelLibrary(lib_path, 0.0, proc.stderr)
+    ds._entries = None
+    ds._active.clear()
+    return _build._loaded.lib, phases
+
+
+def workspace_inputs(dev, K, U):
+    """The workspace instance's decode at beam ``K`` over ``U``
+    utterances on phase 25a's input (``chip_smoke.py``: the flagship's
+    tables from seed 1234, 600-800 frames from seed 25, the EOS logit
+    raised by 1.5, a 100-step cap): (K, U, loop arguments, keywords)."""
+    import torch
+    from __graft_entry__ import FLAGSHIP_NET
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    frames = 800
+    rng = np.random.RandomState(25)
+    feats = torch.tensor(rng.randn(64, frames, 123).astype(np.float32),
+                         device=dev)[:U]
+    lengths = rng.randint(600, frames + 1, size=64)
+    lengths[0] = frames
+    fmask = torch.tensor((np.arange(frames)[None] < lengths[:, None])
+                         .astype(np.float32), device=dev)[:U]
+    rec = SpeechRecognizer(dict(FLAGSHIP_NET, max_decoded_length_scale=8.0),
+                           init_config=INIT, seed=1234, device=dev)
+    with torch.inference_mode():
+        d = rec.net.decode_loop(feats, fmask)
+        tables = dict(rec.net.decode_loop_tables())
+    tables["post_b"] = tables["post_b"].clone()
+    tables["post_b"][rec.eos_label] += 1.5
+    prior = rec.net.generator.attention.prior_config()
+    kw = dict(beam=K, max_len=frames // 8, eol=rec.eos_label,
+              ignore_first_eol=True, prior=prior["type"],
+              **{k: float(v) for k, v in prior.items() if k != "type"})
+    return K, U, (d["pre"], d["attended"], d["attended_mask"], tables), kw
+
+
+def workspace_phases(lib, names, decode, out):
+    """Cycles of each phase of one workspace-instance decode
+    (``workspace_inputs``) from the probed library, its time beside the
+    table (CUDA events; the probes add barriers)."""
+    import torch
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    K, U, args, kw = decode
+    bl.beam_search_loop(*args, instance="workspace", **kw)
+    torch.cuda.synchronize()
+    lib.prof_reset_beam_ws()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    start.record()
+    _, _, steps = bl.beam_search_loop(*args, instance="workspace", **kw)
+    end.record()
+    torch.cuda.synchronize()
+    n_steps = int(steps.max())
+    out(f"beam_search_loop workspace phases (U={U}, K={K}, L="
+        f"{args[0].shape[1]}, {n_steps} steps; probed launch "
+        f"{start.elapsed_time(end):.3f} ms):")
+    phase_table(lib, "beam_ws", names, U, n_steps, out)
 
 
 def score_phases(rec, dev, lib, names, frames, out):
