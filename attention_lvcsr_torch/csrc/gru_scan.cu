@@ -67,12 +67,14 @@
 // Widths whose weight slices and buffers do not fit in a block's shared
 // memory (D above 448; 256 with 8 blocks) take the wide instance,
 // gru_wide_kernel, up to D=1024 (gru_wide.cuh): the same cluster, items,
-// exchanges and barriers, with the weight slices streamed from L2 through
-// a ring of tiles every step and a thread finishing up to four gate and two
-// candidate items (eight and four with 8 blocks).  It is a kernel of its
-// own, chosen by width before the launch (ops/gru_scan.py::route), so the
-// resident instance keeps its code.  gru_scan_fits() and
-// gru_scan_wide_fits() say what each covers before a launch.
+// exchanges and barriers, with the leading tiles of the weight slices
+// resident and the rest streamed from L2 every step through a TMA ring
+// that runs ahead across products and steps, and a thread finishing up to
+// four gate and two candidate items (eight and four with 8 blocks).  It is
+// a kernel of its own, chosen by width before the launch
+// (ops/gru_scan.py::route), so the resident instance keeps its code.
+// gru_scan_fits() and gru_scan_wide_fits() say what each covers before a
+// launch.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -259,10 +261,12 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   }
 }
 
-// The wide instance: gru_fwd_kernel's step with the weight slices
-// streamed (stream_partials) and kGI gate and kCI candidate items a thread.
-// The buffer hazards are the resident kernel's; the ring is the block's
-// own, every use of it between two block barriers.
+// The wide instance: gru_fwd_kernel's step with the weight slices in a
+// WeightRing (the gate product 0, the candidate product 1) and kGI gate and
+// kCI candidate items a thread.  The buffer hazards are the resident
+// kernel's, the mask staged once a row in two steps' halves; the ring is
+// the block's own, its slots passed between the copies and the readers by
+// its mbarriers.
 template <int kC>
 __global__ void __launch_bounds__(kClusterThreads, 1)
     gru_wide_kernel(const __grid_constant__ GruWideArgs wa) {
@@ -288,8 +292,10 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   float* stage_x = stage_g + kGroupRows * n2; // candidate items
   float* stage_m = stage_x + kGroupRows * n;
   float* part = smem + o.part;
-  float* ring = smem + o.ring;
   const int tid = threadIdx.x;
+  WeightRing ring = ring_start(smem, o.r, RingTiles{wg, nullptr, n2, Dp,
+                                                    o.kt_g, 0},
+                               RingTiles{ws, nullptr, n, Dp, o.kt_c, 0}, T);
 
   // the initial state of the row group; r * h zero (its padding stays so)
   for (int i = tid; i < Dp * kGroupRows; i += blockDim.x) {
@@ -314,8 +320,8 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     return r < nrows && c0 + cc < D;
   };
 
-  // the step's gate inputs, input projections and mask of this thread's
-  // items into the stage
+  // the step's gate inputs and input projections of this thread's items
+  // into the stage
   auto prefetch = [&](int step) {
     const int t = d.reverse ? T - 1 - step : step;
     const size_t row0 = (size_t)t * B + b0;
@@ -332,21 +338,26 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
       if (!cand_item(e, r, cc)) continue;
       const int slot = tid + e * kClusterThreads;
       cp_async<4>(stage_x + slot, d.x + (row0 + r) * a.ldx + c0 + cc, 4);
-      if (a.mask != nullptr)
-        cp_async<4>(stage_m + slot, a.mask + row0 + r, 4);
     }
+    // the rows' mask, one copy a row, in the step parity's half: read
+    // after the block barriers that follow this thread's wait for it, and
+    // overwritten two steps on
+    if (a.mask != nullptr && tid < nrows)
+      cp_async<4>(stage_m + (step & 1) * kGroupRows + tid, a.mask + row0 + tid,
+                  4);
     cp_async_commit();
   };
   prefetch(0);
   // state in place, every block of the cluster running
   cluster.sync();
+  ring.wait_resident();
 
   for (int step = 0; step < T; ++step) {
     const int t = d.reverse ? T - 1 - step : step;
     const size_t row0 = (size_t)t * B + b0;
     float gv[kGI];
     // ---- gates of the owned columns; own slice of r * h
-    stream_partials(hT, wg, n2, Dp, o.kt_g, o.slices_g, ring, part);
+    ring.product(hT, 0, o.slices_g, part);
     __syncthreads();
     cp_async_wait<0>();
 #pragma unroll
@@ -376,7 +387,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     pull_peers<kC>(cluster, rhT, n, Dp, 1, j);
     __syncthreads();
     // ---- candidates of the owned columns; own slice of the new state
-    stream_partials(rhT, ws, n, Dp, o.kt_c, o.slices_c, ring, part);
+    ring.product(rhT, 1, o.slices_c, part);
     __syncthreads();
     float cand[kCI], hn[kCI];
 #pragma unroll
@@ -391,7 +402,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
       const float up = z[r * n + cc];
       hn[e] = up * cand[e] + (1.f - up) * hold;
       if (a.mask != nullptr) {
-        const float m = stage_m[slot];
+        const float m = stage_m[(step & 1) * kGroupRows + r];
         hn[e] = m * hn[e] + (1.f - m) * hold;
       }
       hT[col * kGroupRows + r] = hn[e];
@@ -482,7 +493,7 @@ namespace {
 
 template <int kC>
 int wide_max_clusters(int D, int* count) {
-  const size_t smem = (size_t)wide_layout(D, kC).total * sizeof(float);
+  const size_t smem = (size_t)wide_layout(D, kC).r.total * sizeof(float);
   cudaError_t err = prepare_cluster_kernel(gru_wide_kernel<kC>, kC, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
@@ -494,7 +505,8 @@ int wide_max_clusters(int D, int* count) {
 
 template <int kC>
 int wide_launch(const GruWideArgs& args, int ndir, cudaStream_t stream) {
-  const size_t smem = (size_t)wide_layout(args.a.D, kC).total * sizeof(float);
+  const size_t smem =
+      (size_t)wide_layout(args.a.D, kC).r.total * sizeof(float);
   cudaError_t err = prepare_cluster_kernel(gru_wide_kernel<kC>, kC, smem);
   if (err != cudaSuccess) return (int)err;
   const int groups = (args.a.B + kGroupRows - 1) / kGroupRows;
@@ -519,7 +531,7 @@ extern "C" int gru_scan_wide_fits(int D, int cluster) {
 
 // The wide layout's dynamic shared memory in bytes, a block of `cluster`.
 extern "C" int gru_scan_wide_smem_bytes(int D, int cluster) {
-  return wide_layout(D, cluster).total * (int)sizeof(float);
+  return wide_layout(D, cluster).r.total * (int)sizeof(float);
 }
 
 // How many `cluster`-block clusters of the wide instance at width D the

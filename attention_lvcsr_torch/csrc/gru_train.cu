@@ -58,8 +58,9 @@
 //
 // Widths whose weight slices and buffers do not fit in a block's shared
 // memory (D above 384; the forward's limit is D=448) take the wide
-// instance, gru_bwd_wide_kernel, up to D=1024 (gru_wide.cuh): the weight
-// slices streamed from L2 through a ring of tiles every step, and the
+// instance, gru_bwd_wide_kernel, up to D=1024 (gru_wide.cuh): the leading
+// tiles of the weight slices resident and the rest streamed from L2 every
+// step through a TMA ring that runs ahead across products and steps, and the
 // gradients a product reads gathered into one buffer that holds the da
 // slices, then the [du | dr] slices, pulled from small per-block buffers
 // of the block's own slices (the two exchanges do not fit side by side at
@@ -293,17 +294,18 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   cluster.sync();
 }
 
-// The wide instance: gru_bwd_kernel's step with the weight slices
-// streamed (stream_partials).  Buffer hazards (step s; A_s the barrier
-// after the own da slices are written, B_s the one after the own [du | dr]
-// slices):
+// The wide instance: gru_bwd_kernel's step with the weight slices in a
+// WeightRing (the reset path's product 0, the gate path's product 1).
+// Buffer hazards (step s; A_s the barrier after the own da slices are
+// written, B_s the one after the own [du | dr] slices):
 // * oa: written at step s+1, after B_s's wait; the peers pull step s's
 //   after A_s and before they arrive at B_s.
 // * og: written at step s after A_s; the peers pull step s-1's after
 //   B_{s-1} and before they arrive at A_s.
-// * big, part, the ring, the stage: the block's own, as in gru_bwd_kernel
-//   (big is filled by this block's pulls and read by its products, a block
-//   barrier between each).
+// * big, part, the stage: the block's own, as in gru_bwd_kernel (big is
+//   filled by this block's pulls and read by its products, a block barrier
+//   between each).  The ring's slots pass between the copies and the
+//   readers through its mbarriers.
 // * exit: the last remote load is the og pull of step T-1, before the
 //   final cluster barrier.
 __global__ void __launch_bounds__(kClusterThreads, 1)
@@ -327,9 +329,12 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   float* og = smem + o.og;
   float* stage = smem + o.stage;
   float* part = smem + o.part;
-  float* ring = smem + o.ring;
   const int tid = threadIdx.x;
   const int items = kGroupRows * n;           // stage stride per operand
+  WeightRing ring = ring_start(smem, o.r, RingTiles{wsT, nullptr, n, Dp,
+                                                    o.kt, 0},
+                               RingTiles{wgT, nullptr, n, 2 * Dp, o.kt, 0},
+                               T);
 
   // the own slices zero: a padded column or row is never written
   for (int i = tid; i < 3 * n * kGroupRows; i += blockDim.x) oa[i] = 0.f;
@@ -362,6 +367,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   prefetch(0);
   // zeroed slices in place, every block of the cluster running
   cluster.sync();
+  ring.wait_resident();
 
   float dh[kItems] = {0.f, 0.f};
   for (int step = 0; step < T; ++step) {
@@ -399,7 +405,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     pull_slices<kBwdCluster>(cluster, oa, big, n, Dp, 1);
     __syncthreads();
     // ---- reset path: da @ w_state^T; gate gradients; own dg slices
-    stream_partials(big, wsT, n, Dp, o.kt, slices, ring, part);
+    ring.product(big, 0, slices, part);
     __syncthreads();
 #pragma unroll
     for (int e = 0; e < kItems; ++e) {
@@ -434,7 +440,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     pull_slices<kBwdCluster>(cluster, og, big, n, Dp, 2);
     __syncthreads();
     // ---- gate path: dg @ w_gates^T finishes the owned state gradients
-    stream_partials(big, wgT, n, 2 * Dp, o.kt, slices, ring, part);
+    ring.product(big, 1, slices, part);
     __syncthreads();
 #pragma unroll
     for (int e = 0; e < kItems; ++e) {
@@ -500,7 +506,7 @@ extern "C" int gru_train_wide_supported(int D) {
 
 // The wide layout's dynamic shared memory in bytes, a block.
 extern "C" int gru_train_wide_smem_bytes(int D) {
-  return bwd_wide_layout(D).total * (int)sizeof(float);
+  return bwd_wide_layout(D).r.total * (int)sizeof(float);
 }
 
 extern "C" int gru_train_wide_bwd_f32(const GruBwdWideArgs* args, int ndir,
@@ -508,7 +514,8 @@ extern "C" int gru_train_wide_bwd_f32(const GruBwdWideArgs* args, int ndir,
   const int supported = gru_train_wide_supported(args->a.D);
   if (supported < 0) return -supported;
   if (supported == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)bwd_wide_layout(args->a.D).total * sizeof(float);
+  const size_t smem =
+      (size_t)bwd_wide_layout(args->a.D).r.total * sizeof(float);
   cudaError_t err =
       prepare_cluster_kernel(gru_bwd_wide_kernel, kBwdCluster, smem);
   if (err != cudaSuccess) return (int)err;

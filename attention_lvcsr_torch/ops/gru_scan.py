@@ -17,7 +17,8 @@ tie.  :func:`fwd_layout` mirrors the kernel's shared-memory layout
 The width picks one of two instances before any launch (:func:`route`):
 the resident one keeps each block's recurrent weight slice in shared
 memory (D <= 448), the wide one (``gru_wide_kernel``, D up to 1024)
-streams it from L2 every step, packed per block by :func:`pack_forward`;
+keeps the slice's leading tiles there and streams the rest from L2 every
+step through a TMA ring, packed per block by :func:`pack_forward`;
 :func:`wide_layout` mirrors its layout (``csrc/gru_wide.cuh``).  Wider
 layers raise ``NotImplementedError``.
 """
@@ -37,7 +38,9 @@ GROUP_ROWS, THREADS, TILE_ROWS, TILE_COLS, MAX_SLICES = 16, 512, 8, 2, 8
 MAX_SMEM = 232448          # the opt-in shared memory of a block on sm_90
 CLUSTERS = (16, 8)
 # csrc/gru_wide.cuh's constants
-WIDE_MAX_D, RING_STAGES, RING_FLOATS = 1024, 4, 2048
+WIDE_MAX_D, WIDE_MAX_8 = 1024, 992
+RING_FLOATS, RING_MIN_TILES, RING_MAX_TILES = 2048, 4, 6
+RING_CHUNK, RING_BAR_FLOATS = 2, 64
 
 
 def owned_columns(D, cluster):
@@ -95,29 +98,98 @@ def wide_gate_items(cluster):
     return GROUP_ROWS * 2 * (WIDE_MAX_D // cluster) // THREADS
 
 
+def resident_tiles(room, t0, f0, t1, f1):
+    """The tiles of a step's two products (t0 and t1 tiles of f0 and f1
+    floats) resident in ``room`` floats: one at a time to the product whose
+    resident share is the smaller, the first on a tie, while it fits
+    (``gru_wide.cuh::resident_tiles``)."""
+    r0 = r1 = 0
+    while True:
+        first = r1 == t1 or (r0 < t0 and r0 * t1 <= r1 * t0)
+        if (r0 == t0) if first else (r1 == t1):
+            return r0, r1
+        f = f0 if first else f1
+        if f > room:
+            return r0, r1
+        room -= f
+        if first:
+            r0 += 1
+        else:
+            r1 += 1
+
+
+def ring_layout(end, K0, c0, kt0, K1, c1, kt1):
+    """The weight ring's part of a wide layout after ``end`` floats of
+    other buffers (``gru_wide.cuh::ring_layout``): the stream, mbarriers
+    (``bar``), ``slots`` ring slots of RING_CHUNK tiles (``ring``), then
+    the leading ``res0``
+    tiles of product 0 (K0 rows of c0 floats, tiles of kt0 rows) at
+    ``res`` and ``res1`` of product 1 at ``res2``; offsets in floats,
+    ``total`` the end."""
+    bar = end
+    ring = bar + RING_BAR_FLOATS
+    slots = min(RING_MAX_TILES * RING_FLOATS, MAX_SMEM // 4 - ring) \
+        // (RING_CHUNK * RING_FLOATS)
+    res = ring + max(slots, 0) * RING_CHUNK * RING_FLOATS
+    r0, r1 = resident_tiles(MAX_SMEM // 4 - res, -(-K0 // kt0), kt0 * c0,
+                            -(-K1 // kt1), kt1 * c1)
+    res2 = res + min(r0 * kt0, K0) * c0
+    total = res2 + min(r1 * kt1, K1) * c1
+    return {"slots": slots, "res0": r0, "res1": r1, "bar": bar,
+            "ring": ring, "res": res, "res2": res2, "total": total}
+
+
+def ring_stream(K0, kt0, r0, K1, kt1, r1):
+    """The chunks a wide kernel's weight ring copies a step, in order
+    (``gru_wide.cuh::WeightRing::issue``): (product, first tile, tiles),
+    up to RING_CHUNK tiles of product 0 (K0 rows in tiles of kt0, the
+    first r0 resident), then of product 1."""
+    chunks = []
+    for which, (K, kt, r) in enumerate(((K0, kt0, r0), (K1, kt1, r1))):
+        tiles = -(-K // kt)
+        chunks += [(which, t0, min(RING_CHUNK, tiles - t0))
+                   for t0 in range(r, tiles, RING_CHUNK)]
+    return chunks
+
+
 def wide_layout(D, cluster):
     """The wide instance's layout at width D with ``cluster`` blocks a
-    cluster: owned columns ``n``, padded width ``Dp``, the products' k
-    slices and ring tiles (k rows) and the shared memory of a block in
-    bytes (``gru_wide.cuh::wide_layout``)."""
+    cluster (``gru_wide.cuh::wide_layout``): owned columns ``n``, padded
+    width ``Dp``, the products' k slices and tiles (k rows), the weight
+    ring (:func:`ring_layout`, the gate product 0 and the candidate
+    product 1, under ``"ring"``), the other buffers' offsets in floats
+    (``"offsets"``) and the shared memory of a block in bytes."""
     n = owned_columns(D, cluster)
     Dp = cluster * n
     sg, sc = tile_slices(2 * n, MAX_SLICES), tile_slices(n, MAX_SLICES)
-    # state and r * state, update gates, stage, partial sums, the ring
-    total = (2 * Dp * GROUP_ROWS + 5 * GROUP_ROWS * n
-             + max(2 * sg, sc) * GROUP_ROWS * n + RING_STAGES * RING_FLOATS)
+    kt_g, kt_c = ring_rows(2 * n, sg), ring_rows(n, sc)
+    # state and r * state, update gates, stage (two steps' masks a row),
+    # partial sums, the ring
+    end = (2 * Dp * GROUP_ROWS + 4 * GROUP_ROWS * n + 2 * GROUP_ROWS
+           + max(2 * sg, sc) * GROUP_ROWS * n)
+    ring = ring_layout(end, Dp, 2 * n, kt_g, Dp, n, kt_c)
+    h = 0
+    rh = h + Dp * GROUP_ROWS
+    z = rh + Dp * GROUP_ROWS
+    stage = z + GROUP_ROWS * n
+    part = stage + 3 * GROUP_ROWS * n + 2 * GROUP_ROWS
     return {"n": n, "Dp": Dp, "slices_g": sg, "slices_c": sc,
-            "kt_g": ring_rows(2 * n, sg), "kt_c": ring_rows(n, sc),
-            "smem_bytes": 4 * total}
+            "kt_g": kt_g, "kt_c": kt_c, "ring": ring,
+            "offsets": {"h": h, "rh": rh, "z": z, "stage": stage,
+                        "part": part},
+            "smem_bytes": 4 * ring["total"]}
 
 
 def wide_fits(D, cluster, max_smem=MAX_SMEM):
-    """Whether the wide layout covers width D: D <= WIDE_MAX_D, an item
-    for every thread's share, and the shared memory."""
-    if not 1 <= D <= WIDE_MAX_D or cluster not in CLUSTERS:
+    """Whether the wide layout covers width D: D <= WIDE_MAX_D (WIDE_MAX_8
+    on 8 blocks), an item for every thread's share, and the shared memory
+    with a ring of at least RING_MIN_TILES tiles."""
+    if cluster not in CLUSTERS or not 1 <= D <= (
+            WIDE_MAX_8 if cluster == 8 else WIDE_MAX_D):
         return False
     o = wide_layout(D, cluster)
     return (GROUP_ROWS * 2 * o["n"] <= wide_gate_items(cluster) * THREADS
+            and o["ring"]["slots"] * RING_CHUNK >= RING_MIN_TILES
             and o["smem_bytes"] <= max_smem)
 
 

@@ -25,8 +25,9 @@ Each kernel takes the instance of its width before any launch: the
 forward :func:`~attention_lvcsr_torch.ops.gru_scan.route` (resident up to
 D=448), the backward :func:`backward_route` (resident up to D=384, where
 its weight slices fit a block's shared memory, :func:`bwd_layout`; the
-wide instance, which streams them from L2 packed by
-:func:`pack_backward`, up to D=1024, :func:`bwd_wide_layout`).
+wide instance, which keeps their leading tiles there and streams the
+rest from L2, packed by :func:`pack_backward`, up to D=1024,
+:func:`bwd_wide_layout`).
 """
 from __future__ import annotations
 
@@ -98,7 +99,11 @@ def bwd_fits(D, max_smem=gs.MAX_SMEM):
 
 def bwd_wide_layout(D):
     """The wide backward's layout at width D (``gru_wide.cuh::
-    bwd_wide_layout``): the slices halve while it does not fit."""
+    bwd_wide_layout``): the slices halve while the layout with a ring of
+    RING_MIN_TILES would not fit; the weight ring (the reset path's
+    product 0 over Dp rows, the gate path's product 1 over 2 Dp) under
+    ``"ring"``, the other buffers' offsets in floats under
+    ``"offsets"``."""
     n = gs.owned_columns(D, BWD_CLUSTER)
     Dp = BWD_CLUSTER * n
     # the gathered gradients (2 Dp rows), own da and [du | dr] slices,
@@ -108,13 +113,23 @@ def bwd_wide_layout(D):
     cap = gs.MAX_SLICES
     while True:
         slices = gs.tile_slices(n, cap)
-        total = fixed + slices * gs.GROUP_ROWS * n \
-            + gs.RING_STAGES * gs.RING_FLOATS
-        if total <= gs.MAX_SMEM // 4 or cap == 1:
+        if (fixed + slices * gs.GROUP_ROWS * n
+                + gs.RING_MIN_TILES * gs.RING_FLOATS <= gs.MAX_SMEM // 4
+                or cap == 1):
             break
         cap //= 2
-    return {"n": n, "Dp": Dp, "slices": slices,
-            "kt": gs.ring_rows(n, slices), "smem_bytes": 4 * total}
+    kt = gs.ring_rows(n, slices)
+    ring = gs.ring_layout(fixed + slices * gs.GROUP_ROWS * n, Dp, n, kt,
+                          2 * Dp, n, kt)
+    big = 0
+    oa = big + 2 * Dp * gs.GROUP_ROWS
+    og = oa + n * gs.GROUP_ROWS
+    stage = og + 2 * n * gs.GROUP_ROWS
+    part = stage + 6 * gs.GROUP_ROWS * n
+    return {"n": n, "Dp": Dp, "slices": slices, "kt": kt, "ring": ring,
+            "offsets": {"big": big, "oa": oa, "og": og, "stage": stage,
+                        "part": part},
+            "smem_bytes": 4 * ring["total"]}
 
 
 def bwd_wide_fits(D, max_smem=gs.MAX_SMEM):
@@ -124,6 +139,7 @@ def bwd_wide_fits(D, max_smem=gs.MAX_SMEM):
         return False
     o = bwd_wide_layout(D)
     return (gs.GROUP_ROWS * o["n"] <= 2 * gs.THREADS
+            and o["ring"]["slots"] * gs.RING_CHUNK >= gs.RING_MIN_TILES
             and o["smem_bytes"] <= max_smem)
 
 

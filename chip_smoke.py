@@ -5240,7 +5240,8 @@ def wide_scan_check(t, dev, results):
                  f"{gs.launches_wide.count} wide launches")
         if not torch.equal(got, gs.gru_scan(*args)):
             fail(f"gru_scan wide D={D}: a second call gave other bits")
-        smem = gs.wide_layout(D, plan["cluster"])["smem_bytes"]
+        layout = gs.wide_layout(D, plan["cluster"])
+        smem, ring = layout["smem_bytes"], layout["ring"]
         case = {"max_abs_err": err, "ms": cuda_ms(lambda: gs.gru_scan(*args),
                                                   3),
                 "plain_ms": cuda_ms(lambda: gs.gru_scan_reference(*args), 1),
@@ -5248,13 +5249,18 @@ def wide_scan_check(t, dev, results):
                                got), 2 * T * U * gru_step_ops(D)),
                 "library_ms": None, "T": T, "B": U,
                 "cluster": plan["cluster"], "clusters": plan["clusters"],
-                "active": plan["active"], "smem_bytes": smem}
+                "active": plan["active"], "smem_bytes": smem,
+                "ring_slots": ring["slots"],
+                "resident_tiles": [ring["res0"], ring["res1"]]}
         cases[f"D{D}"] = case
         log(f"phase 24a gru_scan wide T={T} U={U} D={D}, both directions: "
             f"max abs err {err:.3e}, a second call bit for bit; "
             f"{plan['clusters']} clusters of {plan['cluster']} blocks (the "
             f"card holds {plan['active'][16]} of 16 and {plan['active'][8]} "
-            f"of 8), {smem} bytes a block; kernel {case['ms']:.3f} ms, plain "
+            f"of 8), {smem} bytes a block, a ring of {ring['slots']} slots, "
+            f"{ring['res0']} of {-(-layout['Dp'] // layout['kt_g'])} gate "
+            f"and {ring['res1']} of {-(-layout['Dp'] // layout['kt_c'])} "
+            f"candidate tiles resident; kernel {case['ms']:.3f} ms, plain "
             f"{case['plain_ms']:.3f} ms, bound {case['bound_ms']:.3f} ms")
     # the row: the widest layer, the other beside it
     results["gru_scan_wide"] = dict(
@@ -5291,9 +5297,17 @@ def wide_train_check(t, dev, results):
                               "gru_scan_train_bidir wide")
         if not gt.launches_bidir_wide.count:
             fail(f"gru_scan_train wide D={D}: no wide launch")
+        layout = gt.bwd_wide_layout(D)
+        ring = layout["ring"]
         cases[f"D{D}"] = dict(
-            case, T=T, B=B,
-            smem_bytes=gt.bwd_wide_layout(D)["smem_bytes"])
+            case, T=T, B=B, smem_bytes=layout["smem_bytes"],
+            ring_slots=ring["slots"],
+            resident_tiles=[ring["res0"], ring["res1"]])
+        log(f"phase 24b gru_train wide D={D}: {layout['smem_bytes']} bytes "
+            f"a block, a ring of {ring['slots']} slots, {ring['res0']} of "
+            f"{-(-layout['Dp'] // layout['kt'])} reset-path and "
+            f"{ring['res1']} of {-(-2 * layout['Dp'] // layout['kt'])} "
+            f"gate-path tiles resident")
     # one direction (gru_scan_train :291's route; no recipe runs it)
     D, T = PYRAMIDE_WIDE[-1]
     rng = np.random.RandomState(241)
@@ -5514,6 +5528,62 @@ def resident_gru_bits(t, dev):
     return hashes, times
 
 
+def wide_gru_bits(t, dev):
+    """The wide GRU instances at wsj_pyramide.yaml's wide layers
+    (``PYRAMIDE_WIDE``), with the cluster sizes their launch plans take on
+    an H100 forced (8 blocks for the decode's U=64 at D=500, 16 at D=1000
+    and for the training's B=32): the sha256 of gru_scan's states (U=64,
+    both directions, ragged mask) and of gru_scan_train_bidir's states and
+    every gradient (B=32), and the times of gru_scan and of the backward
+    kernel alone.  Returns ({output: sha256}, {name: ms})."""
+    import hashlib
+    import torch
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.ops import gru_train as gt
+    digest = lambda x: hashlib.sha256(
+        x.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+    rng = np.random.RandomState(243)
+    hashes, times = {}, {}
+    saved = gs.max_active_clusters
+    try:
+        for D, T in PYRAMIDE_WIDE:
+            for B in (64, 32):
+                cluster = 8 if (D, B) == (500, 64) else 16
+                gs.max_active_clusters = lambda D, device, c=cluster: {
+                    size: 16 if size == c else 0 for size in gs.CLUSTERS}
+                lengths = rng.randint(T * 3 // 8, T + 1, size=B)
+                lengths[0] = T
+                mask = t((np.arange(T)[:, None] < lengths[None, :]).astype(
+                    np.float32))
+                proj = t(rng.randn(T, B, 6 * D) * 0.5)
+                dirs = [(t(rng.randn(B, D) * 0.1),
+                         t(rng.randn(D, D) / np.sqrt(D)),
+                         t(rng.randn(D, 2 * D) / np.sqrt(D)))
+                        for _ in range(2)]
+                if B == 64:
+                    key = f"gru_scan D{D}"
+                    hashes[key] = digest(gs.gru_scan(proj, mask, *dirs))
+                    times[key] = cuda_ms(
+                        lambda: gs.gru_scan(proj, mask, *dirs), 3)
+                    continue
+                cot = [t(rng.randn(T, B, 2 * D))]
+                leaves = [proj] + [w for d in dirs for w in d]
+                fn = lambda p, *w: gt.gru_scan_train(p, mask, tuple(w[:3]),
+                                                     tuple(w[3:]))
+                (out,), grads = grads_of(fn, leaves, cot)
+                key = f"gru_scan_train_bidir D{D}"
+                hashes[f"{key} states"] = digest(out)
+                for name, g in zip(("dproj", "dh0[0]", "dW_ss[0]",
+                                    "dW_sg[0]", "dh0[1]", "dW_ss[1]",
+                                    "dW_sg[1]"), grads):
+                    hashes[f"{key} {name}"] = digest(g)
+                times[f"{key} bwd kernel"] = gru_backward_kernel_ms(
+                    proj, mask, dirs, cot[0], 3)
+    finally:
+        gs.max_active_clusters = saved
+    return hashes, times
+
+
 # resident_gru_bits' hashes of the tree before the wide instances (commit
 # d77f44a, tools/torch_gru_bits.py on an H100): the resident kernels kept
 # their code, so their outputs keep these bits
@@ -5552,6 +5622,63 @@ def resident_check(t, dev, rates):
             f"{k} {v:.3f} ms" for k, v in times.items()))
 
 
+# wide_gru_bits' hashes of the tree before the redesigned wide instances
+# (commit 2ef63d9, tools/torch_gru_bits.py --wide on an H100): the
+# redesign keeps every output's k-ordered sums, so its outputs keep these
+# bits
+WIDE_BITS = {
+    "gru_scan D500":
+        "d65462bb22fa4f1795cda5f2cb8860052ca6636a0bef8fd77cc911971d766a29",
+    "gru_scan_train_bidir D500 states":
+        "71fdccaedef38e4ba21023956f9c91356961561fe4447bb8e8f0887f5a3377de",
+    "gru_scan_train_bidir D500 dproj":
+        "e8b637f428646dd9d4333fdec307892bda3b35d114deda73c3c494a0ae7209fe",
+    "gru_scan_train_bidir D500 dh0[0]":
+        "b136fcd7e1ade097d0d4edbb081e12fb9c6371dcd037d7c92d653bb99f22fac7",
+    "gru_scan_train_bidir D500 dW_ss[0]":
+        "6b5ed56d28652d84ceacffa28d5900eb477d785971d1b9984aa99c2e43ee51f5",
+    "gru_scan_train_bidir D500 dW_sg[0]":
+        "4c35c19dabea35eaeef01f1b50349a7971bd13f0d6a19ae1e6ca92132f9c39a9",
+    "gru_scan_train_bidir D500 dh0[1]":
+        "26e69e0579f9170dc790515f4c4755d5e5c61d7c6e255808a1930482f20be68c",
+    "gru_scan_train_bidir D500 dW_ss[1]":
+        "b1f8a19cbe0cd867a53b448f60649a88feb94a41277577324a1d77864de9360c",
+    "gru_scan_train_bidir D500 dW_sg[1]":
+        "b976f24c701bf8a25b60beb5c3ebd5a5000044625066521bd81baf46cc59a53d",
+    "gru_scan D1000":
+        "fdf104f20f9ce722bc40eb881e1052507bc054a0ff4c78e7ed11648af01ea732",
+    "gru_scan_train_bidir D1000 states":
+        "0b507fdcc11d56d4dc7178b9dc7deafd0d907d0e4d7bafdac3f0055ec4be663e",
+    "gru_scan_train_bidir D1000 dproj":
+        "b57413edc185fa9a23eb74eee9a553ca057b6ba846132d8f55973cc2e3a709c2",
+    "gru_scan_train_bidir D1000 dh0[0]":
+        "bd790fed69c20087df4b1f9ce2a7643c632bf531c10e678c342669ce54be6e5e",
+    "gru_scan_train_bidir D1000 dW_ss[0]":
+        "e279e4359a3723129df73ab21a6e0cc0772803524e1cbd8cb0195daa1b185612",
+    "gru_scan_train_bidir D1000 dW_sg[0]":
+        "b9ceeeb0b045f03d9a569353725fccc54a813e5ab5d15ef92a69e0cfc02b9170",
+    "gru_scan_train_bidir D1000 dh0[1]":
+        "555dacef312cdceebb5c294eeb5baf2bb1e627baa4a4f703c34332461d9f8f81",
+    "gru_scan_train_bidir D1000 dW_ss[1]":
+        "3d37651462b081fbbc85bc5505a4d7f9e7bd5b9225c258bebfcabdfa991b8f3e",
+    "gru_scan_train_bidir D1000 dW_sg[1]":
+        "7a8bd6fef1385106e5e50c9431647da0ef950dabfc099a4dc06ec40cd223cd50"}
+
+
+def wide_bits_check(t, dev, rates):
+    """Phase 24f: the wide instances at wsj_pyramide.yaml's wide layers
+    (``wide_gru_bits``) hash to the bits of the tree before their
+    redesign; their times beside it."""
+    hashes, times = wide_gru_bits(t, dev)
+    differ = sorted(k for k, v in hashes.items() if WIDE_BITS.get(k) != v)
+    if differ or len(hashes) != len(WIDE_BITS):
+        fail(f"phase 24f: the wide instances changed their bits: {differ}")
+    rates.update({f"wide {k} ms": v for k, v in times.items()})
+    log(f"phase 24f wide instances: {len(hashes)} outputs hash to the "
+        f"earlier tree's bits; " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in times.items()))
+
+
 def pyramide_phase(t, dev, results, rates):
     """Phase 24: the wide GRU instances and wsj_pyramide.yaml end to end.
     Returns 24c's and 24d's kernel-route launches."""
@@ -5571,6 +5698,9 @@ def pyramide_phase(t, dev, results, rates):
     t0 = time.perf_counter()
     resident_check(t, dev, rates)
     log(f"phase 24e: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    wide_bits_check(t, dev, rates)
+    log(f"phase 24f: {time.perf_counter() - t0:.1f} s")
     return moved
 
 

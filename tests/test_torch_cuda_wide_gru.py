@@ -1,7 +1,8 @@
 """The wide instances of the GRU kernels against their plain versions, on
 the card: ``gru_scan.cu``'s ``gru_wide_kernel`` (D above 448) and
-``gru_train.cu``'s ``gru_bwd_wide_kernel`` (D above 384), which stream
-each block's recurrent weight slice from L2 every step, up to D=1024.
+``gru_train.cu``'s ``gru_bwd_wide_kernel`` (D above 384), which keep the
+leading tiles of each block's recurrent weight slice in shared memory and
+stream the rest from L2 every step through a TMA ring, up to D=1024.
 Marked ``cuda``: they skip without a CUDA device, and run there with
 ``python -m pytest -m cuda tests/test_torch_cuda_wide_gru.py
 --noconftest`` (no JAX needed)."""
@@ -117,6 +118,40 @@ def test_wide_backward_matches_plain(device, D, B, ndir):
         assert float((g - r).abs().max() / r.abs().max()) <= 1e-4
     _, again = _grads(gt.gru_scan_train, proj, mask, weights, cot)
     assert all(torch.equal(g, h) for g, h in zip(ggot, again))
+
+
+# T=1 (one step: the ring's first fill is its whole stream); D=600, whose
+# rings are the deepest (three slots) with resident tiles in both
+# products; D=961, whose backward ring is the shallowest (two slots, none
+# resident)
+@pytest.mark.parametrize("D,T", [(500, 1), (1000, 1), (600, 3), (961, 3)])
+def test_wide_ring_depths(device, D, T):
+    """The forward and the backward through the wide instances at one
+    step, and at the deepest and the shallowest rings, against the plain
+    scan (the tolerances of the tests above), a second call bit for
+    bit."""
+    o, b = gs.wide_layout(D, 16)["ring"], gt.bwd_wide_layout(D)["ring"]
+    tiles = lambda r: r["slots"] * gs.RING_CHUNK
+    if D == 600:
+        assert tiles(o) == tiles(b) == gs.RING_MAX_TILES
+        assert min(o["res0"], o["res1"], b["res0"], b["res1"]) > 0
+    if D == 961:
+        assert tiles(b) == gs.RING_MIN_TILES and not b["res0"]
+    rng = np.random.RandomState(7 * D + T)
+    B = 17
+    proj, mask, weights = _operands(rng, device, T, B, D, 2)
+    cot = torch.tensor(rng.randn(T, B, 2 * D).astype(np.float32),
+                       device=device)
+    got, ggot = _grads(gt.gru_scan_train, proj, mask, weights, cot)
+    ref, gref = _grads(gt.gru_scan_train_reference, proj, mask, weights,
+                       cot)
+    assert float((got - ref).abs().max()) <= 1e-5
+    for g, r in zip(ggot, gref):
+        assert float((g - r).abs().max() / r.abs().max()) <= 1e-4
+    _, again = _grads(gt.gru_scan_train, proj, mask, weights, cot)
+    assert all(torch.equal(g, h) for g, h in zip(ggot, again))
+    scan = gs.gru_scan(proj, mask, *weights)
+    assert float((scan - ref).abs().max()) <= 1e-5
 
 
 def test_wide_backward_layout_matches_mirror(device):

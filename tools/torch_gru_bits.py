@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Hashes and times the resident GRU routes, or the resident loop
-instances, on one NVIDIA GPU.
+"""Hashes and times the resident GRU routes, the wide GRU instances, or
+the resident loop instances, on one NVIDIA GPU.
 
-    python3 tools/torch_gru_bits.py [--loop] [--root DIR] [--out FILE]
+    python3 tools/torch_gru_bits.py [--wide | --loop] [--root DIR]
+        [--out FILE]
 
 Run from the repository root on a machine with a CUDA device and nvcc.
 Calls ``chip_smoke.py::resident_gru_bits`` (this checkout's): the
@@ -10,8 +11,13 @@ resident instances of ``csrc/gru_scan.cu`` and ``csrc/gru_train.cu`` at
 the flagship's D=250 with the cluster sizes their launch plans take on an
 H100 forced, the sha256 of every output and gradient, and the times of
 the decode's scan and of the training scan's forward and backward.  With
-``--loop``, ``chip_smoke.py::resident_loop_bits`` instead: the resident
-instances of the whole-loop decode kernel on the main paths of
+``--wide``, ``chip_smoke.py::wide_gru_bits`` instead: the wide instances
+(``csrc/gru_wide.cuh``) at wsj_pyramide.yaml's wide layers, D=500 over
+800 frames and D=1000 over 400, the sha256 of the forward's states at
+U=64 and of the training scan's states and every gradient at B=32, both
+directions, and the times of the forward and of the backward kernel
+alone.  With ``--loop``, ``chip_smoke.py::resident_loop_bits`` instead:
+the resident instances of the whole-loop decode kernel on the main paths of
 ``chip_smoke.py`` phases 3, 20b, 22a and 23a, each decode's sha256 and
 time.
 
@@ -44,9 +50,13 @@ def main():
                         help="directory holding the attention_lvcsr_torch "
                              "package to run")
     parser.add_argument("--out", default=None)
-    parser.add_argument("--loop", action="store_true",
-                        help="the resident loop instances, not the GRU "
-                             "routes")
+    which = parser.add_mutually_exclusive_group()
+    which.add_argument("--wide", action="store_true",
+                       help="the wide GRU instances, not the resident "
+                            "routes")
+    which.add_argument("--loop", action="store_true",
+                       help="the resident loop instances, not the GRU "
+                            "routes")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -68,6 +78,7 @@ def main():
     dev = torch.device("cuda:0")
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
     hashes, times = (smoke.resident_loop_bits if args.loop
+                     else smoke.wide_gru_bits if args.wide
                      else smoke.resident_gru_bits)(t, dev)
     for name, ms in times.items():
         print(f"{name}: {ms:.3f} ms")
