@@ -23,12 +23,15 @@ Layer map (same names as the JAX package):
 
 * ``models``  — initializers, parameter bridge, cells, bottom, encoder,
                 attention, generator, LM, recognizer.
-* ``ops``     — the kernels' wrappers, FST tables, conv1d, edit distance.
+* ``ops``     — the kernels' wrappers, FSTs and the decoding-graph
+                builder, conv1d, edit distance.
 * ``search``  — ``BeamSearch``: the whole-loop kernel or the module loop.
 * ``data``    — datasets, pipeline, the feature frontend.
 * ``train``   — the train step, rule chain, loop, checkpoints.
 * ``serve``   — the HTTP endpoint of the JAX package, over this recognizer.
-* ``cli``     — ``run.py train`` and ``serve``.
+* ``cli``     — ``run.py`` (train, search, serve, ...) and the recipes'
+                tools: ``lm_tools``, ``kaldi2hdf``, ``score``,
+                ``edit_params``, ``print_config``, ``make_toy_dataset``.
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,1 @@
-"""Command-line front end (serve)."""
+"""Command-line front ends: ``run`` and the recipes' tools."""

@@ -1,7 +1,8 @@
-"""Direct h5py access to Fuel-layout speech datasets (reader only).
+"""Direct h5py access to Fuel-layout speech datasets + a writer.
 
-The port's copy of ``attention_lvcsr_tpu/data/h5.py`` without the
-dataset writer; ``h5py`` is imported when a file is opened.
+The port's copy of ``attention_lvcsr_tpu/data/h5.py``; ``h5py`` is
+imported when a file is opened or a split table built, never when the
+module is imported.
 
 Reads the file layout produced by the reference's ``bin/kaldi2fuel.py``
 and consumed by Fuel's ``H5PYDataset`` (``fuel/datasets/hdf5.py:94-160``):
@@ -14,9 +15,47 @@ padding happens in :mod:`attention_lvcsr_torch.data.pipeline`.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+
+def create_split_array(split_dict: Dict[str, Dict[str, tuple]]):
+    """Build the ``split`` attribute array.
+
+    ``split_dict``: {split_name: {source_name: (start, stop) or
+    (-1, -1, indices_ref)}}.
+    """
+    import h5py
+    split_names = sorted(split_dict)
+    source_names = sorted({s for v in split_dict.values() for s in v})
+    split_len = max(len(s) for s in split_names)
+    source_len = max(len(s) for s in source_names)
+    dtype = np.dtype([
+        ("split", f"S{split_len}"),
+        ("source", f"S{source_len}"),
+        ("start", np.int64),
+        ("stop", np.int64),
+        ("indices", h5py.special_dtype(ref=h5py.Reference)),
+        ("available", np.bool_),
+        ("comment", "S1"),
+    ])
+    rows = []
+    for split in split_names:
+        for source in source_names:
+            if source in split_dict[split]:
+                spec = split_dict[split][source]
+                if len(spec) == 3:
+                    start, stop, ref = spec
+                else:
+                    start, stop = spec
+                    ref = h5py.Reference()
+                rows.append((split.encode(), source.encode(), start, stop,
+                             ref, True, b"."))
+            else:
+                rows.append((split.encode(), source.encode(), 0, 0,
+                             h5py.Reference(), False, b"."))
+    return np.array(rows, dtype=dtype)
 
 
 class H5AudioDataset:
@@ -167,3 +206,68 @@ DATASET_REGISTRY = {
     "H5PYAudioDatasetTimit": H5AudioDatasetTimit,
     "H5AudioDatasetTimit": H5AudioDatasetTimit,
 }
+
+
+# ---------------------------------------------------------------------------
+# Writer (the kaldi2fuel 'add'/'add_text'/'split' functionality)
+# ---------------------------------------------------------------------------
+
+class DatasetWriter:
+    """Create Fuel-layout HDF5 files (bin/kaldi2fuel.py:121-197 role)."""
+
+    def __init__(self, path, mode="w"):
+        import h5py
+        self.file = h5py.File(path, mode)
+
+    def add_vector_source(self, name: str, arrays: Sequence[np.ndarray],
+                          value_map: Optional[Dict[str, int]] = None):
+        """Variable-length 2D (T_i, dim) or 1D (T_i,) arrays."""
+        import h5py
+        n = len(arrays)
+        first = np.asarray(arrays[0])
+        ndim = first.ndim
+        dt = h5py.special_dtype(vlen=first.dtype)
+        ds = self.file.create_dataset(name, (n,), dtype=dt)
+        shapes = self.file.create_dataset(
+            f"{name}_shapes", (n, ndim), dtype="int64")
+        labels = self.file.create_dataset(
+            f"{name}_shape_labels", (ndim,),
+            dtype=h5py.special_dtype(vlen=str))
+        labels[...] = (["time", "feature"] if ndim == 2 else ["time"])
+        for i, arr in enumerate(arrays):
+            arr = np.asarray(arr)
+            shapes[i] = arr.shape
+            ds[i] = arr.ravel()
+        ds.dims[0].label = "batch"
+        if value_map is not None:
+            self.set_value_map(name, value_map)
+        return ds
+
+    def add_text_source(self, name: str, texts: Sequence[str]):
+        import h5py
+        dt = h5py.special_dtype(vlen=str)
+        ds = self.file.create_dataset(name, (len(texts),), dtype=dt)
+        ds[...] = list(texts)
+        return ds
+
+    def set_value_map(self, source: str, value_map: Dict[str, int]):
+        klen = max(len(k) for k in value_map)
+        arr = np.array(sorted(value_map.items(), key=lambda kv: kv[1]),
+                       dtype=[("key", f"S{klen}"), ("val", "int32")])
+        self.file[source].attrs["value_map"] = arr
+
+    def set_split(self, split_dict: Dict[str, Dict[str, tuple]]):
+        self.file.attrs["split"] = create_split_array(split_dict)
+
+    def set_splits_by_indices(self, splits: Dict[str, np.ndarray],
+                              sources: Sequence[str]):
+        """Index-list splits, one shared indices dataset per split."""
+        split_dict = {}
+        for name, indices in splits.items():
+            ref_ds = self.file.create_dataset(
+                f"{name}_indices", data=np.asarray(indices, "int64"))
+            split_dict[name] = {s: (-1, -1, ref_ds.ref) for s in sources}
+        self.set_split(split_dict)
+
+    def close(self):
+        self.file.close()

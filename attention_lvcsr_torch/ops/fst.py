@@ -1,14 +1,16 @@
-"""Weighted FSTs for LM shallow fusion: the host core and the packing.
+"""Weighted FSTs for LM shallow fusion: the host core, the writers and the
+packing.
 
-A numpy copy of what the decode runtime needs from
-``attention_lvcsr_tpu/ops/fst.py``: the host FST (text IO, symbol tables,
-epsilon closure), ARPA parsing and ``arpa_to_fst``, the character-trie
-dictionary FST, and the dense and CSR packings with their ``.npz``
-archives.  The code and the archive format are those of the JAX package,
-so both packages pack the same graph into the same tables; it is copied
+A numpy copy of ``attention_lvcsr_tpu/ops/fst.py``: the host FST (text IO,
+symbol tables, epsilon closure, state-set transition, ``explain``), ARPA
+parsing and ``arpa_to_fst``, the character-trie dictionary FST, the dense
+and CSR packings with their ``.npz`` archives, and ``host_costs``, the
+host reference of the per-symbol LM costs.  The code, the text format and
+the archive format are those of the JAX package, so both packages write
+the same bytes and pack the same graph into the same tables; it is copied
 rather than imported because ``attention_lvcsr_tpu/ops/__init__.py``
-imports JAX.  The writers and ``host_costs`` are not needed at run time
-and stay in the JAX package.
+imports JAX.  The graph builders are in :mod:`attention_lvcsr_torch.ops.
+fst_algo` and :mod:`attention_lvcsr_torch.ops.lm_graph`.
 
 Weights are tropical-semiring costs (``-ln p``); combination is
 ``-logsumexp(-costs)``.
@@ -18,7 +20,7 @@ from __future__ import annotations
 import math
 from collections import defaultdict, deque
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -73,7 +75,23 @@ class Fst:
     def state_arcs(self, state) -> List[Arc]:
         return self.arcs.get(state, [])
 
-    def expand(self, states: Dict[int, float]) -> Dict[int, float]:
+    def get_arcs(self, state, ilabel) -> List[Tuple[int, int, int, float]]:
+        return [(state, a.nextstate, a.ilabel, a.weight)
+                for a in self.state_arcs(state) if a.ilabel == ilabel]
+
+    # -- runtime reference semantics (lvsr/ops.py:60-97) -------------------
+    def transition(self, states: Dict[int, float], ilabel: int,
+                   combine=combine_weights) -> Dict[int, float]:
+        """Consume ``ilabel`` from a weighted state set (no closure)."""
+        incoming: Dict[int, List[float]] = defaultdict(list)
+        for state, weight in states.items():
+            for a in self.state_arcs(state):
+                if a.ilabel == ilabel:
+                    incoming[a.nextstate].append(weight + a.weight)
+        return {s: combine(ws) for s, ws in incoming.items()}
+
+    def expand(self, states: Dict[int, float],
+               combine=combine_weights) -> Dict[int, float]:
         """Epsilon closure with log-sum weight combination.
 
         Processes the epsilon DAG in topological order (Kahn); epsilon
@@ -104,7 +122,7 @@ class Fst:
             w = result.get(state)
             for nxt, ew in eps_edges.get(state, []):
                 if w is not None and w < INF_COST:
-                    result[nxt] = combine_weights(
+                    result[nxt] = combine(
                         [x for x in (result.get(nxt), w + ew)
                          if x is not None])
                 indeg[nxt] -= 1
@@ -113,6 +131,26 @@ class Fst:
         if processed != len(seen):
             raise ValueError("epsilon cycle in FST; cannot expand")
         return {s: w for s, w in result.items() if w < INF_COST}
+
+    def explain(self, symbols: Sequence[int], verbose=False,
+                tropical=False) -> float:
+        """Cost of an input symbol sequence (lvsr explain,
+        lvsr/ops.py:99-121).  Log semiring sums over all paths (what the
+        shallow-fusion runtime does); ``tropical=True`` gives the best
+        single path (Viterbi) instead."""
+        combine = (lambda ws: min(ws) if ws else INF_COST) if tropical \
+            else combine_weights
+        states = self.expand({self.start: 0.0}, combine=combine)
+        for sym in symbols:
+            states = self.expand(self.transition(states, sym,
+                                                 combine=combine),
+                                 combine=combine)
+            if verbose:
+                print(f"consumed {sym}: {states}")
+            if not states:
+                return INF_COST
+        return combine([w + self.finals[s] for s, w in states.items()
+                        if s in self.finals])
 
 
 # ---------------------------------------------------------------------------
@@ -132,6 +170,12 @@ def read_symbols(path_or_lines) -> Dict[str, int]:
         if len(parts) >= 2:
             syms[parts[0]] = int(parts[1])
     return syms
+
+
+def write_symbols(path, syms: Dict[str, int]):
+    with open(path, "w") as f:
+        for s, i in sorted(syms.items(), key=lambda kv: kv[1]):
+            f.write(f"{s} {i}\n")
 
 
 def read_fst_text(path_or_lines, isyms=None, osyms=None) -> Fst:
@@ -168,6 +212,21 @@ def read_fst_text(path_or_lines, isyms=None, osyms=None) -> Fst:
                           float(parts[1]) if len(parts) == 2 else 0.0)
     fst.start = start if start is not None else 0
     return fst
+
+
+def write_fst_text(fst: Fst, path, isyms=None, osyms=None):
+    inv_i = {v: k for k, v in (isyms or {}).items()}
+    inv_o = {v: k for k, v in (osyms or {}).items()}
+    with open(path, "w") as f:
+        states = [fst.start] + [s for s in sorted(fst.arcs)
+                                if s != fst.start]
+        for s in states:
+            for a in fst.state_arcs(s):
+                il = inv_i.get(a.ilabel, a.ilabel)
+                ol = inv_o.get(a.olabel, a.olabel)
+                f.write(f"{s}\t{a.nextstate}\t{il}\t{ol}\t{a.weight}\n")
+        for s, w in sorted(fst.finals.items()):
+            f.write(f"{s}\t{w}\n")
 
 
 # ---------------------------------------------------------------------------
@@ -566,3 +625,21 @@ def load_packed(path: str, no_transition_cost: float = 1e12,
         data["next_state"], data["next_weight"], data["total_weight"],
         data["start_states"], data["start_weights"],
         no_transition_cost, max_states)
+
+
+def host_costs(fst: Fst, remap_table: Dict[int, int], num_nn_symbols: int,
+               states: Dict[int, float],
+               no_transition_cost: float = 1e12) -> np.ndarray:
+    """Host reference of FSTCostsOp (lvsr/ops.py:206-225)."""
+    costs = np.full((num_nn_symbols,), no_transition_cost, np.float64)
+    if not states:
+        return costs
+    total = combine_weights(states.values())
+    for v in range(num_nn_symbols):
+        ilabel = remap_table.get(v)
+        if ilabel is None:
+            continue
+        nxt = fst.expand(fst.transition(states, ilabel))
+        if nxt:
+            costs[v] = combine_weights(nxt.values()) - total
+    return costs

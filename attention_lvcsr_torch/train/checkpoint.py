@@ -14,7 +14,9 @@ A checkpoint the JAX package wrote holds its optax state in
 the optax state types (:class:`OptaxStateUnpickler`), importing neither
 ``jax``, ``optax`` nor the JAX package, and flattened to the port's keys
 (:func:`optax_state_arrays`).  Writes go to a temporary file that is
-renamed into place.
+renamed into place.  ``load_parameters`` (the parameters of a checkpoint
+or of a raw npz) is :mod:`attention_lvcsr_torch.models.params`'s, and is
+read from here as from the JAX package's module (``cli/edit_params.py``).
 """
 from __future__ import annotations
 

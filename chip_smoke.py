@@ -19,7 +19,10 @@ and trains and decodes the stacked decoders of the wsj_jan_* recipes;
 and trains and serves wsj_pyramide.yaml's 250, 500 and 1000-unit encoder
 through the GRU kernels' wide instances; and decodes beams 18-512 and
 the long and D-wide decodes through the loop kernel's workspace
-instances.  Phases, each fatal on failure:
+instances; and builds a word trigram's decoding graph with the port's
+LM-graph command line, decodes with it fused in through the search
+driver and scores the decodes with the port's scorer.  Phases, each
+fatal on failure:
 
 1. build the kernels (one nvcc per source, sm_90a) and print the time;
 2. ``gru_scan`` kernel vs its plain PyTorch version at the encoder's
@@ -319,6 +322,31 @@ instances.  Phases, each fatal on failure:
     25a's comparison lets at most two utterances a case differ by swaps
     of near-equal done-set entries, each swap logged with both routes'
     slots, costs and ulps; a swap of bit-equal costs fails.
+26. the recipe tools on the card: (a) a word trigram in ARPA text from a
+    seed (60 words of 2-8 letters, 150 bigrams, 150 trigrams, ``<s>``,
+    ``</s>``, ``<UNK>``) and the network's characters; (b)
+    ``exp/wsj/make_lm_graph.sh``'s steps (``arpa2fst``,
+    ``arpa-to-unigram``, ``arpa-to-dict``, ``create-lexicon``, ``pack``,
+    ``build-lg``) as processes of ``python -m
+    attention_lvcsr_torch.cli.lm_tools``, each step's seconds and
+    LG_pushed's states logged, any nonzero exit fatal, and
+    ``LG_pushed.fst.txt`` with its ``.syms`` packed again to
+    ``LG_pushed.npz``'s tables; (c) ``run_search`` with decode.sh's LM
+    settings on that graph (weight 0.5, no_transition_cost 20,
+    char_discount 1.0, ``net.prior.before`` 10, the graph's ``words.txt``
+    as the vocabulary) at beam 10 over phase 18's 16 recordings, with
+    transcripts of the LM's words, in one chunk, on the kernels and on the
+    plain route (the decode's ``gru_scan`` and energies plain, the
+    analyses on the training kernels on both) on the same random weights
+    (the EOS logit not raised: the graph ends each hypothesis on one of
+    its words): the same hypotheses, beam search costs within phase 8's
+    tolerance, the rest as phase 18 compares reports, ``gru_scan`` and
+    ``beam_attention_energies`` launched and the loop kernel not, at most
+    half of the hypotheses empty; (d) ``python -m
+    attention_lvcsr_torch.cli.score`` on ``decoded_save``'s file (mapped
+    to words by ``tools/decoded_chars_to_words.py``) gives each
+    utterance the report's WER, and the report's average is rebuilt from
+    them; the phase's seconds.
 
 Nothing of JAX or of the JAX package is imported; the script checks it.
 
@@ -348,7 +376,8 @@ rows at D=1000 with D=500 beside them, phase 24a-b;
 ``pyramide_launches``, phase 24c-d's kernel route;
 ``beam_search_loop_ws``, the workspace instance's row at beam 200 with
 phase 25a's other beams and 25b's resident and workspace times at beam
-10 beside it; ``workspace_launches``, phase 25c-d's kernel route);
+10 beside it; ``workspace_launches``, phase 25c-d's kernel route;
+``recipe_launches``, phase 26c's kernel route);
 the line before it holds the rates, phase 21d's reward DP time and
 launches among them; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -446,6 +475,44 @@ FLAGSHIP_INIT = {"/recognizer": {"weights_init": ["isotropic_gaussian", 0.1],
 CHARS = [chr(ord("a") + i) for i in range(26)] + [
     "<spc>", "'", ".", "-", "<bol>", "<eol>"]
 CHAR_MAP = {c: i for i, c in enumerate(CHARS)}
+
+
+def word_trigram_arpa():
+    """A word trigram in ARPA text, made from seed 26: 60 words of 2-8
+    letters of ``CHARS``, 150 bigrams and 150 trigrams over them, ``<s>``,
+    ``</s>`` and ``<UNK>`` (log10 probabilities and backoffs; every
+    trigram's history is a bigram).  Returns (text, words)."""
+    rng = np.random.RandomState(26)
+    letters = CHARS[:26]
+    words = set()
+    while len(words) < 60:
+        words.add("".join(rng.choice(letters, size=rng.randint(2, 9))))
+    words = sorted(words)
+    prob = lambda: round(float(-0.3 - 1.5 * rng.rand()), 4)
+    uni = {("<s>",): (-99.0, prob()), ("</s>",): (prob(), None),
+           ("<UNK>",): (prob(), prob())}
+    for w in words:
+        uni[(w,)] = (prob(), prob())
+    firsts, seconds = ["<s>", "<UNK>"] + words, ["</s>", "<UNK>"] + words
+    bi = {}
+    while len(bi) < 150:
+        gram = (firsts[rng.randint(len(firsts))],
+                seconds[rng.randint(len(seconds))])
+        bi.setdefault(gram, (prob(), prob()))
+    histories = sorted(g for g in bi if g[1] != "</s>")
+    tri = {}
+    while len(tri) < 150:
+        a, b = histories[rng.randint(len(histories))]
+        tri.setdefault((a, b, seconds[rng.randint(len(seconds))]),
+                       (prob(), None))
+    lines = ["\\data\\"] + [f"ngram {n}={len(g)}"
+                            for n, g in ((1, uni), (2, bi), (3, tri))]
+    for n, grams in ((1, uni), (2, bi), (3, tri)):
+        lines += ["", f"\\{n}-grams:"]
+        for gram, (p, bo) in grams.items():
+            lines.append(" ".join([str(p), *gram]
+                                  + ([] if bo is None else [str(bo)])))
+    return "\n".join(lines + ["", "\\end\\", ""]), words
 
 
 def bench_trigram(path):
@@ -837,6 +904,7 @@ def main():
     # beam 200 (25d)
     launches["beam_search_loop_ws"] = workspace_launches["wide search"][
         "beam_search_loop_ws"]
+    recipe_launches = recipe_phase(t, dev, rates)
 
     banned = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "attention_lvcsr_tpu"))
@@ -897,6 +965,9 @@ def main():
         k["workspace_launches"] = {path: moved.get(k["name"], 0)
                                    for path, moved in
                                    workspace_launches.items()}
+        # phase 26c's kernel route: run_search on the graph the port's
+        # command line built
+        k["recipe_launches"] = recipe_launches.get(k["name"], 0)
     log(json.dumps(dict(rates, build_s=lib.build_seconds)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -6121,6 +6192,288 @@ def workspace_phase(t, dev, results, rates):
     t0 = time.perf_counter()
     resident_loop_check(t, dev, rates)
     log(f"phase 25e: {time.perf_counter() - t0:.1f} s")
+    return moved
+
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# exp/wsj/make_lm_graph.sh's steps with its third argument (the network's
+# characters), in its order; create-lexicon writes into the working
+# directory and the script moves its three files into the graph's
+RECIPE_STEPS = (
+    ("arpa2fst", "lm.arpa", "graph/G.fst.txt"),
+    ("arpa-to-unigram", "lm.arpa", "graph/unigram.arpa"),
+    ("arpa-to-dict", "lm.arpa", "graph/dict.arpa"),
+    ("create-lexicon", "lm.arpa"),
+    ("pack", "graph/G.fst.txt", "graph/G.packed.npz"),
+    ("build-lg", "lm.arpa", "net_chars.txt", "graph"))
+# exp/wsj/decode.sh's settings of an LM decode; the graph ends the random
+# model's hypotheses on its words, so the EOS logit is not raised (26c
+# fails where more than half of them are empty)
+RECIPE_LM = {"weight": 0.5, "no_transition_cost": 20.0}
+RECIPE_SEARCH = {"beam_size": 10, "char_discount": 1.0, "decode_batch": 16}
+PACKED = ("next_state", "next_weight", "total_weight", "start_states",
+          "start_weights")
+
+
+def lm_tool(argv, cwd):
+    """One step of the port's LM-graph command line in ``cwd``, in a
+    process of its own: (stdout, seconds).  A nonzero exit fails."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "attention_lvcsr_torch.cli.lm_tools", *argv],
+        cwd=cwd, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    seconds = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f"phase 26b lm_tools {' '.join(argv)}: exit {proc.returncode}"
+             f"\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    return proc.stdout, seconds
+
+
+def recipe_graph(tmp):
+    """Phase 26a-b: a seeded 60-word trigram and the network's characters
+    written into ``tmp``; ``make_lm_graph.sh``'s steps through the port's
+    command line; ``LG_pushed.fst.txt`` with its ``.syms`` packed again
+    (``pack --char-map``) to the tables of ``LG_pushed.npz``.  Returns
+    (the words, the graph's directory)."""
+    text, words = word_trigram_arpa()
+    with open(os.path.join(tmp, "lm.arpa"), "w") as f:
+        f.write(text)
+    with open(os.path.join(tmp, "net_chars.txt"), "w") as f:
+        f.write("".join(f"{c} {i}\n" for c, i in CHAR_MAP.items()))
+    graph = os.path.join(tmp, "graph")
+    os.makedirs(graph)
+    seconds = {}
+    for argv in RECIPE_STEPS:
+        out, seconds[argv[0]] = lm_tool(list(argv), tmp)
+        if argv[0] == "create-lexicon":
+            for name in ("lexicon.txt", "words.txt", "characters.txt"):
+                os.replace(os.path.join(tmp, name),
+                           os.path.join(graph, name))
+        if argv[0] == "build-lg":
+            states = int(out.split("LG_pushed=")[1].split()[0])
+    _, seconds["pack LG_pushed"] = lm_tool(
+        ["pack", "--char-map", "net_chars.txt", "graph/LG_pushed.fst.txt",
+         "graph/LG_repacked.npz"], tmp)
+    with np.load(os.path.join(graph, "LG_pushed.npz")) as a, \
+            np.load(os.path.join(graph, "LG_repacked.npz")) as b:
+        for key in PACKED:
+            if not np.array_equal(a[key], b[key]):
+                fail(f"phase 26b: LG_pushed.fst.txt packs to another "
+                     f"{key} than LG_pushed.npz holds")
+        shape = a["next_state"].shape
+    log(f"phase 26b make_lm_graph.sh's steps on a 60-word trigram (150 "
+        f"bigrams, 150 trigrams), seconds each: "
+        f"{json.dumps({k: round(v, 3) for k, v in seconds.items()})}; "
+        f"LG_pushed {states} states, tables {shape}, its text packs to the "
+        f"same tables")
+    return words, graph
+
+
+def recipe_examples(words):
+    """``search_examples()``'s 16 recordings with transcripts of 2-6 of
+    the LM's words (``<spc>`` between words, BOS before, EOS after), so
+    that the WER counts words of the vocabulary."""
+    rng = np.random.RandomState(26)
+    examples = search_examples()
+    for ex in examples:
+        chosen = [words[i] for i in rng.randint(len(words),
+                                                 size=rng.randint(2, 7))]
+        chars = list("\x00".join(chosen))
+        ex["labels"] = np.asarray(
+            [CHAR_MAP["<bol>"]]
+            + [CHAR_MAP["<spc>" if c == "\x00" else c] for c in chars]
+            + [CHAR_MAP["<eol>"]], np.int64)
+        ex["transcript"] = " ".join(chosen)
+    return examples
+
+
+def recipe_search(dev, graph, examples, tmp):
+    """Phase 26c: ``run_search`` with decode.sh's LM settings (the graph's
+    ``LG_pushed.npz`` and ``words.txt``, weight 0.5, no_transition_cost 20,
+    char_discount 1.0, ``net.prior.before`` 10) at beam 10 over the
+    examples in one chunk, on each route on the same weights (the
+    flagship from seed 1234), each saving its decodes
+    (``decoded_save``).  The plain route swaps the decode's kernels for
+    their plain versions; both routes analyse the groundtruth and the
+    hypotheses on the training kernels (phase 18 holds those to theirs,
+    which here would take most of the phase).  Returns {route: (report,
+    stats, seconds, launches, decoded file)}."""
+    import torch
+    from __graft_entry__ import FLAGSHIP_NET
+    from attention_lvcsr_torch.models import attention as attention_mod
+    from attention_lvcsr_torch.models import cells as cells_mod
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.ops import attention_energy as ae
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.ops import gru_train as gt
+    from attention_lvcsr_torch.train.checkpoint import save_checkpoint
+    from attention_lvcsr_torch.train.driver import (create_model,
+                                                    read_vocabulary,
+                                                    run_search)
+    counters = {"gru_scan": gs.launches, "beam_search_loop": bl.launches,
+                "beam_search_loop_ws": bl.launches_ws,
+                "beam_attention_energies": ae.launches,
+                "gru_scan_train_bidir": gt.launches_bidir,
+                "decoder_scan_train": dt.launches}
+    plain = [(cells_mod, "gru_scan", gs.gru_scan_reference),
+             (attention_mod, "beam_attention_energies",
+              ae.beam_attention_energies_reference)]
+    net = {k: v for k, v in FLAGSHIP_NET.items()
+           if k not in ("input_dims", "input_num_chars", "eos_label",
+                        "num_phonemes")}
+    net["prior"] = dict(net["prior"], before=10)      # decode.sh's override
+    net["lm"] = dict(RECIPE_LM, path=os.path.join(graph, "LG_pushed.npz"))
+    data = SmokeData()
+    ckpt = os.path.join(tmp, "flagship.zip")
+    rec = SpeechRecognizer(FLAGSHIP_NET, init_config=FLAGSHIP_INIT,
+                           seed=1234, device=dev)
+    save_checkpoint(ckpt, rec.param_path_dict())
+    model = create_model({"net": net}, data, ckpt, device=dev)
+    vocabulary = read_vocabulary(os.path.join(graph, "words.txt"))
+    out = {}
+    for route in ("kernels", "plain"):
+        decoded = os.path.join(tmp, f"decoded_{route}.txt")
+        buf = io.StringIO()
+        with swapped(plain if route == "plain" else []):
+            for c in counters.values():
+                c.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = run_search(
+                model, [{k: v for k, v in ex.items() if k != "transcript"}
+                        for ex in examples], data, RECIPE_SEARCH,
+                vocabulary=vocabulary, decoded_save=decoded, print_to=buf)
+            torch.cuda.synchronize()
+            out[route] = (buf.getvalue(), stats, time.perf_counter() - t0,
+                          counts(counters), decoded)
+    return out
+
+
+def recipe_score(examples, report, decoded, graph, tmp):
+    """Phase 26d: the decodes scored as ``decode_and_score.sh`` scores
+    them: ``decoded_save``'s characters mapped to words through the
+    lexicon (``tools/decoded_chars_to_words.py``), then ``python -m
+    attention_lvcsr_torch.cli.score --per-utt`` against the transcripts.
+    Each utterance's errors over its words, capped at 1, must be the WER
+    the report gives it, and the report's average WER (run_search weights
+    each utterance by its characters, as the reference's report does) is
+    rebuilt from them.  Returns (score's last line, the report's average
+    WER)."""
+    refs = os.path.join(tmp, "ref.txt")
+    with open(refs, "w") as f:
+        f.write("".join(f"{ex['uttids']} {ex['transcript']}\n"
+                        for ex in examples))
+    hyps = os.path.join(tmp, "hyp_words.txt")
+    for argv in ([os.path.join(ROOT, "tools", "decoded_chars_to_words.py"),
+                  os.path.join(graph, "lexicon.txt"), decoded, hyps],
+                 ["-m", "attention_lvcsr_torch.cli.score", refs, hyps,
+                  "--per-utt"]):
+        proc = subprocess.run([sys.executable, *argv], cwd=tmp,
+                              capture_output=True, text=True, timeout=120,
+                              env=dict(os.environ, PYTHONPATH=ROOT))
+        if proc.returncode:
+            fail(f"phase 26d {argv[0]}: exit {proc.returncode}\n"
+                 f"{proc.stderr[-2000:]}")
+    per_utt = {}
+    for line in proc.stdout.splitlines()[:-1]:
+        uttid, errors, length, _ = line.split()
+        per_utt[uttid] = (int(errors.split("=")[1]),
+                          int(length.split("=")[1]))
+    utts = parse_report(report)
+    if len(per_utt) != len(examples) or len(utts) != len(examples):
+        fail(f"phase 26d: {len(per_utt)} scored and {len(utts)} reported "
+             f"utterances, {len(examples)} decoded")
+    weighted = total = 0.0
+    for ex, u in zip(examples, utts):
+        errors, length = per_utt[ex["uttids"]]
+        wer_u = min(1.0, errors / length)
+        if abs(wer_u - float(u["WER"])) > 1e-12:
+            fail(f"phase 26d: {ex['uttids']} scored {errors}/{length} "
+                 f"words, the report's WER {u['WER']}")
+        chars = len(ex["labels"]) - 2
+        weighted += chars * wer_u
+        total += chars
+    average = float(utts[-1]["Average WER"])
+    if abs(weighted / total - average) > 1e-12:
+        fail(f"phase 26d: the scored utterances average {weighted / total} "
+             f"over characters, the report {average}")
+    return proc.stdout.splitlines()[-1], average
+
+
+def recipe_phase(t, dev, rates):
+    """Phase 26: the recipe tools on the card.  (a-b) the port's LM-graph
+    command line builds a 60-word trigram's decoding graph as
+    ``make_lm_graph.sh`` builds it; (c) ``run_search`` with decode.sh's LM
+    settings on that graph at beam 10 over 16 utterances in one chunk, on
+    the kernels and on the plain route: the same hypotheses (phase 18's
+    ``reports_agree``, no near tie allowed), beam search costs within
+    phase 8's tolerance, ``gru_scan``, ``beam_attention_energies`` and the
+    analyses' training kernels launched, the loop kernel not, at most half
+    of the hypotheses empty; (d) ``cli.score`` reproduces the report's
+    WER.  Returns the kernel route's launches."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    try:
+        words, graph = recipe_graph(tmp)
+        t_graph = time.perf_counter() - t0
+        examples = recipe_examples(words)
+        runs = recipe_search(dev, graph, examples, tmp)
+        report, stats, wall, moved, decoded = runs["kernels"]
+        ref, ref_stats, ref_wall, ref_moved, _ = runs["plain"]
+        used = ("gru_scan", "beam_attention_energies", "gru_scan_train_bidir",
+                "decoder_scan_train")
+        if min(moved[k] for k in used) < 1 or moved["beam_search_loop"] \
+                or moved["beam_search_loop_ws"]:
+            fail(f"phase 26c: launches {moved}, expected each of {used} "
+                 f"and no loop kernel")
+        if ref_moved["gru_scan"] or ref_moved["beam_attention_energies"]:
+            fail(f"phase 26c: the plain route's decode launched kernels: "
+                 f"{ref_moved}")
+        got_utts, ref_utts = parse_report(report), parse_report(ref)
+        for u, (a, b) in enumerate(zip(got_utts, ref_utts)):
+            if a.get("Recognized") != b.get("Recognized"):
+                fail(f"phase 26c: utterance {u} recognized "
+                     f"{a.get('Recognized')!r} on the kernels, "
+                     f"{b.get('Recognized')!r} on the plain route")
+            x, y = float(a["Beam search cost"]), float(b["Beam search cost"])
+            if np.isfinite(y) and not abs(x - y) <= 1e-4 + 1e-5 * abs(y):
+                fail(f"phase 26c: utterance {u} beam search cost {x} vs "
+                     f"plain {y}")
+        err = reports_agree("phase 26c", report, ref,
+                            list(range(len(examples))), stats, ref_stats)
+        if stats["total_wer_errors"] != ref_stats["total_wer_errors"]:
+            fail(f"phase 26c: WER errors {stats['total_wer_errors']} vs "
+                 f"plain {ref_stats['total_wer_errors']}")
+        nonempty = sum(bool(u.get("Recognized")) for u in got_utts)
+        if 2 * nonempty < len(examples):
+            fail(f"phase 26c: {nonempty} of {len(examples)} hypotheses are "
+                 f"not empty: the comparison is too weak")
+        in_vocab = sum(w in words for u in got_utts
+                       for w in u.get("Recognized", "").split())
+        rates["recipe_search_utt_per_s"] = len(examples) / wall
+        rates["plain_recipe_search_utt_per_s"] = len(examples) / ref_wall
+        log(f"phase 26c run_search with decode.sh's LM settings (weight 0.5,"
+            f" no_transition_cost 20, char_discount 1.0, prior before 10, "
+            f"the graph's words.txt), beam 10, {len(examples)} utterances in "
+            f"one chunk, random weights, the EOS logit not raised: "
+            f"{nonempty} non-empty hypotheses ({in_vocab} words of the "
+            f"vocabulary), the same on the plain route (max rel cost err "
+            f"{err:.2e}); average WER "
+            f"{stats['total_wer_errors'] / stats['total_word_length']:.4f}, "
+            f"CER {stats['total_errors'] / stats['total_length']:.4f}; "
+            f"kernels {len(examples) / wall:.2f} utt/s, plain "
+            f"{len(examples) / ref_wall:.2f} utt/s; launches {moved}")
+        line, average = recipe_score(examples, report, decoded, graph, tmp)
+        log(f"phase 26d cli.score on the decodes: every utterance's WER and "
+            f"the report's average {average:.6f} reproduced (score's own "
+            f"total, over words: {line})")
+    finally:
+        shutil.rmtree(tmp)
+    log(f"phase 26: graph {t_graph:.1f} s, all {time.perf_counter() - t0:.1f}"
+        f" s")
     return moved
 
 

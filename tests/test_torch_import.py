@@ -39,6 +39,8 @@ MODULES = [
     "attention_lvcsr_torch.ops.attention_energy",
     "attention_lvcsr_torch.ops.decode_score",
     "attention_lvcsr_torch.ops.fst",
+    "attention_lvcsr_torch.ops.fst_algo",
+    "attention_lvcsr_torch.ops.lm_graph",
     "attention_lvcsr_torch.ops.expressions",
     "attention_lvcsr_torch.ops.error_rate",
     "attention_lvcsr_torch.ops.gru_train",
@@ -60,6 +62,13 @@ MODULES = [
     "attention_lvcsr_torch.train.driver",
     "attention_lvcsr_torch.utils.plots",
     "attention_lvcsr_torch.cli.run",
+    "attention_lvcsr_torch.cli.lm_tools",
+    "attention_lvcsr_torch.cli.kaldi2hdf",
+    "attention_lvcsr_torch.cli.score",
+    "attention_lvcsr_torch.cli.edit_params",
+    "attention_lvcsr_torch.cli.print_config",
+    "attention_lvcsr_torch.cli.make_toy_dataset",
+    "attention_lvcsr_torch.data.h5",
 ]
 BANNED_ROOTS = ("attention_lvcsr_tpu", "jax", "jaxlib", "flax")
 
