@@ -79,6 +79,26 @@ def unported_piece(cfg: Mapping[str, Any]) -> Optional[str]:
     return None
 
 
+# the bottom dropout's rate (the reference's graph surgery,
+# lvsr/main.py:402-404)
+DROPOUT_RATE = 0.5
+
+
+def draw_dropout_mask(shape, generator, device=None):
+    """A bool mask of ``shape`` keeping each value with probability
+    ``1 - DROPOUT_RATE``: one ``torch.rand`` from ``generator`` on
+    ``device``."""
+    return torch.rand(tuple(shape), generator=generator,
+                      device=device) < 1.0 - DROPOUT_RATE
+
+
+def bottom_dropout(x, mask):
+    """Dropout as flax's ``nn.Dropout``: the kept values divided by the
+    keep probability, the others zero."""
+    keep = 1.0 - DROPOUT_RATE
+    return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
+
+
 class RecognizerNet(nn.Module):
     """Network assembly from the ``net`` config section (JAX field names).
 
@@ -87,8 +107,9 @@ class RecognizerNet(nn.Module):
     package's tests) makes the module-driven decode score each step with
     ``fused_decode_score``; ``"never"`` keeps a decode without LM or
     constraint off the whole-loop kernel and the training cost's decoder
-    on the plain module scan, as in the JAX package.  ``dropout`` is
-    not ported: a training cost with it raises."""
+    on the plain module scan, as in the JAX package.  ``dropout`` drops
+    half of the bottom's output in the training cost (``cost(...,
+    train=True)``), as the JAX package's ``bottom_dropout`` does."""
 
     def __init__(self, input_dims: Mapping[str, int], eos_label: int,
                  num_phonemes: int, dim_dec: int, dims_bidir: Sequence[int],
@@ -162,17 +183,25 @@ class RecognizerNet(nn.Module):
         return self.encoder(self.bottom(inputs), inputs_mask, train=train)
 
     def cost(self, inputs, inputs_mask, labels, labels_mask, prediction=None,
-             prediction_mask=None, train=False):
+             prediction_mask=None, train=False, dropout_mask=None):
         """The teacher-forced cost graph (JAX ``RecognizerNet.cost``):
         batch-major (B, T) labels and masks in, the generator's evaluate
         dict (``costs`` (T, B), ``weights``, ``energies``, ``readouts``,
         the mse criteria's aux outputs) plus ``encoded``, ``encoded_mask``
         and ``bottom_output`` out.  ``prediction`` (B, T') and its mask,
         the exploration's outputs, are fed in place of the labels, which
-        stay the groundtruth of the mse criteria."""
-        if self.dropout and train:
-            raise NotImplementedError("not ported yet: dropout")
+        stay the groundtruth of the mse criteria.  With ``dropout`` and
+        ``train``, the bottom's output goes through :func:`bottom_dropout`
+        with ``dropout_mask``, a bool tensor of its shape that the caller
+        draws (the training step's :func:`regularization_draws`);
+        ``bottom_output`` is then the dropped-out one, as in the JAX
+        package."""
         bottom_output = self.bottom(inputs)
+        if self.dropout and train:
+            if dropout_mask is None:
+                raise ValueError("a training cost with dropout needs its "
+                                 "dropout_mask")
+            bottom_output = bottom_dropout(bottom_output, dropout_mask)
         encoded, encoded_mask = self.encoder(bottom_output, inputs_mask,
                                              train=True)
         fed = prediction if prediction is not None else labels
@@ -314,9 +343,10 @@ class SpeechRecognizer:
         """``fn(inputs, inputs_mask, labels, labels_mask)`` -> the cost
         dict of :meth:`RecognizerNet.cost`, differentiable in the
         parameters (which then need ``requires_grad``)."""
-        def fn(inputs, inputs_mask, labels, labels_mask, train=False):
+        def fn(inputs, inputs_mask, labels, labels_mask, train=False,
+               dropout_mask=None):
             return self.net.cost(inputs, inputs_mask, labels, labels_mask,
-                                 train=train)
+                                 train=train, dropout_mask=dropout_mask)
         return fn
 
     def _tensor(self, x, dtype=torch.float32):

@@ -10,10 +10,11 @@ math); the DP row uses the same prefix-min transform over deletions:
     dist[i][j] = min_k<=j ( base[i][k] + (j - k) )
 
 with ``base`` the insertion/substitution/copy candidates of row ``i - 1``.
-``batch_reward_and_gain`` is the reference ``RewardOp`` over a batch; the
-JAX module's native C++ fast path is left out, the numpy rows give the
-same integers.  ``ops/reward_op.py`` computes the same matrices on the
-tensors' device.
+``batch_reward_and_gain`` is the reference ``RewardOp`` over a batch; it
+takes the native C++ DP (``ops/native.py``) where the JAX module takes
+it, when every groundtruth column holds EOS and the library exists, and
+the numpy rows otherwise, which give the same integers.
+``ops/reward_op.py`` computes the same matrices on the tensors' device.
 """
 from __future__ import annotations
 
@@ -141,12 +142,34 @@ def batch_reward_and_gain(groundtruth, recognized, alphabet_size, eos_label,
     each (T, B) column is cut after its first EOS (included), the matrices
     of the cut pair lose their last row, and the rows past the cut length
     are -1 (rewards) and -1000 (gains).  ``min_reward`` clamps the gains
-    from below.  Returns int64 (T, B, alphabet_size) rewards and gains."""
+    from below.  Returns int64 (T, B, alphabet_size) rewards and gains.
+    When every groundtruth column holds EOS, the native library computes
+    them where it exists (``ops/native.py``)."""
     groundtruth = np.asarray(groundtruth)
     recognized = np.asarray(recognized)
     if groundtruth.ndim != 2 or recognized.ndim != 2 \
             or groundtruth.shape[1] != recognized.shape[1]:
         raise ValueError("expected (T, B) int matrices with equal batch")
+    if (groundtruth == eos_label).any() \
+            and (groundtruth == eos_label).any(axis=0).all():
+        from attention_lvcsr_torch.ops import native
+        result = native.batch_reward_and_gain_native(
+            groundtruth, recognized, alphabet_size, eos_label)
+        if result is not None:
+            rewards, gains = result
+            if min_reward is not None:
+                gains = np.maximum(gains, min_reward)
+            return rewards, gains
+    return batch_reward_and_gain_rows(groundtruth, recognized,
+                                      alphabet_size, eos_label, min_reward)
+
+
+def batch_reward_and_gain_rows(groundtruth, recognized, alphabet_size,
+                               eos_label, min_reward=None):
+    """:func:`batch_reward_and_gain` by the numpy rows, one column at a
+    time, without the native library."""
+    groundtruth = np.asarray(groundtruth)
+    recognized = np.asarray(recognized)
     T, B = recognized.shape
     alphabet = list(range(alphabet_size))
     all_rewards = np.zeros((T, B, alphabet_size), dtype=np.int64)

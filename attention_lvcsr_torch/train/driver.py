@@ -13,7 +13,10 @@ Counterpart of ``attention_lvcsr_tpu/train/driver.py``:
   same monitors, ``total_gradient_norm`` and ``total_step_norm``
   included; with ``training.exploration`` ``greedy`` or ``mixed`` (JAX
   :128-172, the task loss's) the decoder is fed the model's own outputs
-  (:func:`explore`); with ``regularization.adaptive_noise`` it is
+  (:func:`explore`); ``regularization.noise`` adds Gaussian noise to the
+  weights outside the attention for the step's forward and backward (JAX
+  :181-190), ``regularization.dropout`` drops half of the bottom's output
+  (JAX :192-197); with ``regularization.adaptive_noise`` it is
   :func:`make_adaptive_noise_train_step` (JAX :263-380), Graves' adaptive
   weight noise over the recognizer's noise collection.  The parameters
   are updated in place;
@@ -23,17 +26,20 @@ Counterpart of ``attention_lvcsr_tpu/train/driver.py``:
   ``adaptive_noise`` section, even an empty one; ``num_examples``
   defaulting to the training set's size): with a
   checkpoint to resume from, Load (parameters, optimizer state and log)
-  or LoadLog (the log alone); Timing; the averaged train records
-  (``average_*`` of :data:`PRIMARY_OBSERVABLES`, every 10 batches); with a
-  validation stream, the validation cost (``train/monitoring.py``) before
-  the first epoch and every n epochs or batches, with ``monitoring.search``
-  the beam search's error rate (``BeamSearchErrorRate``, ``valid_per``),
-  and TrackTheBest on each; SwitchOffLengthFilter after
-  ``training.stop_filtering`` batches; FinishAfter (batches, epochs, a NaN
-  gradient norm); Checkpoint before the first epoch, after every epoch
-  and every n batches, with its ``_params.npz`` sidecar, the ``_best``
-  copy when ``valid_per`` improves and the ``_best_ll`` copy when the
-  validation cost does; Patience with ``training.patience``; Printing;
+  or LoadLog (the log alone); Timing, CodeVersion and
+  CompilationStatistics (``train/extensions.py``); the averaged train
+  records (``average_*`` of :data:`PRIMARY_OBSERVABLES`, every 10
+  batches); with a validation stream, the validation cost
+  (``train/monitoring.py``) before the first epoch and every n epochs or
+  batches, with ``monitoring.search`` the beam search's error rate
+  (``BeamSearchErrorRate``, ``valid_per``), and TrackTheBest on each;
+  SwitchOffLengthFilter after ``training.stop_filtering`` batches;
+  FinishAfter (batches, epochs, a NaN gradient norm); Checkpoint before
+  the first epoch, after every epoch and every n batches, with its
+  ``_params.npz`` sidecar, the ``_best`` copy when ``valid_per`` improves
+  and the ``_best_ll`` copy when the validation cost does; Patience with
+  ``training.patience``; with ``monitoring.plot``, Plot and PlotServer;
+  Printing;
 * :func:`run_multistage` chains the stages of a multistage config (JAX
   ``train_multistage`` :593-621): each stage builds its model and rule
   chain from its own config and writes ``<stage>.zip`` in a directory, a
@@ -51,9 +57,10 @@ Counterpart of ``attention_lvcsr_tpu/train/driver.py``:
 * :func:`sample`, :func:`show_data`, :func:`init_norm` and :func:`test`
   are the other entries of the JAX ``run.py`` (:829-881).
 
-Not ported, and refused with ``NotImplementedError`` naming the piece:
-additive weight noise, dropout, and a bf16 compute dtype.  Not ported, and named in a ``logging`` warning
-when a config sets them (:data:`UNPORTED_KEYS`): the plot channels.
+Not ported, and refused with ``NotImplementedError`` naming the piece: a
+bf16 compute dtype (and an exploration the JAX package does not know).
+:data:`UNPORTED_KEYS` names the config keys the port would ignore with a
+``logging`` warning: none is left.
 """
 from __future__ import annotations
 
@@ -68,11 +75,15 @@ import numpy as np
 import torch
 
 from attention_lvcsr_torch.models.params import NOISE_PREFIX, PREFIX
-from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+from attention_lvcsr_torch.models.recognizer import (SpeechRecognizer,
+                                                     draw_dropout_mask)
 from attention_lvcsr_torch.ops.error_rate import wer
 from attention_lvcsr_torch.ops.expressions import (entropy,
                                                    monotonicity_penalty,
                                                    weights_std)
+from attention_lvcsr_torch.train.extensions import (CodeVersion,
+                                                    CompilationStatistics,
+                                                    Plot, PlotServer)
 from attention_lvcsr_torch.train.log import TrainingLog
 from attention_lvcsr_torch.train.loop import (Checkpoint, FinishAfter, Load,
                                               LoadLog, MainLoop, Patience,
@@ -91,11 +102,8 @@ from attention_lvcsr_torch.train.rules import (build_optimizer, global_norm,
 logger = logging.getLogger(__name__)
 
 # Keys of a config's monitoring and training sections that the JAX driver
-# honours and the port does not yet: what each stands for, and the
-# ROADMAP item that ports it.
-UNPORTED_KEYS = {
-    "monitoring.plot": "the plot channels (ROADMAP Queue 1 item 9)",
-}
+# honours and the port does not yet, each with what it stands for: none.
+UNPORTED_KEYS = {}
 
 # the train step's monitors averaged into the average_* records
 PRIMARY_OBSERVABLES = (
@@ -110,6 +118,12 @@ _DECAYED_LEAVES = ("kernel", "embedding", "state_to_state", "state_to_gates",
 def weight_leaf(path: str) -> bool:
     """Whether weight decay applies to a parameter (by its leaf name)."""
     return path.rsplit("/", 1)[-1] in _DECAYED_LEAVES
+
+
+def attention_leaf(path: str) -> bool:
+    """Whether a parameter lies under a component named ``attention``
+    (JAX ``_attention_leaf``): the additive weight noise spares it."""
+    return "attention" in path.split("/")
 
 
 def create_model(config, data, load_path=None, device="cuda"):
@@ -137,11 +151,8 @@ def create_model(config, data, load_path=None, device="cuda"):
 
 def unported_training(config) -> Optional[str]:
     """The first part of a training config the port does not cover."""
-    reg = config.get("regularization", {}) or {}
     train_conf = config.get("training", {}) or {}
     checks = [
-        (not float(reg.get("noise", 0.0) or 0.0), "weight noise"),
-        (not reg.get("dropout"), "dropout"),
         (train_conf.get("exploration", "imitative")
          in ("imitative", "greedy", "mixed"),
          f"exploration {train_conf.get('exploration')!r}"),
@@ -188,16 +199,49 @@ def explore(net, exploration, eos_label, inputs, inputs_mask, labels,
     return pred.T.contiguous(), pmask.T.contiguous()
 
 
+def regularization_draws(recognizer, config, inputs_shape, generator):
+    """The draws of a standard step's regularizers, from ``generator`` in
+    this order: with ``regularization.noise``, a standard normal tensor
+    for each parameter outside the attention (:func:`attention_leaf`), in
+    the order of ``recognizer.parameters()``; then, with the net's
+    ``dropout``, the bottom's dropout mask over (B, T, bottom width) of
+    ``inputs_shape``.  Returns (``{path: draw}`` or None, mask or None).
+    A greedy or mixed exploration draws from the same generator after
+    these."""
+    reg = config.get("regularization", {}) or {}
+    dev = recognizer.device
+    noise = None
+    if float(reg.get("noise", 0.0) or 0.0):
+        noise = {k: torch.randn(p.shape, generator=generator, device=dev)
+                 for k, p in recognizer.parameters().items()
+                 if not attention_leaf(k)}
+    mask = None
+    if recognizer.net.dropout:
+        B, T = inputs_shape[:2]
+        mask = draw_dropout_mask((B, T, recognizer.net.bottom.output_dim),
+                                 generator, dev)
+    return noise, mask
+
+
 def make_train_step(recognizer: SpeechRecognizer, optimizer, config):
     """``step(opt_state, inputs, inputs_mask, labels, labels_mask, *,
-    generator=None, coin=None) -> (opt_state, monitors)``: one training
-    step on batch-major tensors, the parameters updated in place;
-    ``monitors`` is a dict of 0-d tensors.  Under ``training.exploration``
-    ``imitative`` the labels are fed (teacher forcing); under ``greedy``
-    and ``mixed`` the outputs of :func:`explore`, ``generator`` (a
-    ``torch.Generator`` on the model's device; a fresh one seeded 0 when
-    None) giving its draws and ``coin`` fixing the mixed one.  A
-    non-empty ``regularization.adaptive_noise`` section gives
+    generator=None, coin=None, weight_noise=None, dropout_mask=None) ->
+    (opt_state, monitors)``: one training step on batch-major tensors, the
+    parameters updated in place; ``monitors`` is a dict of 0-d tensors.
+    Under ``training.exploration`` ``imitative`` the labels are fed
+    (teacher forcing); under ``greedy`` and ``mixed`` the outputs of
+    :func:`explore`, ``coin`` fixing the mixed one.  With
+    ``regularization.noise`` the parameters outside the attention carry
+    ``noise`` times a standard normal draw through the forward and
+    backward, and the gradients go to the parameters without it (weight
+    decay too is of those); with the net's ``dropout`` (the config's
+    ``regularization.dropout``) the bottom's output is dropped out.  The
+    draws come from ``weight_noise`` (``{'/recognizer/...': tensor}``)
+    and ``dropout_mask`` where given (another package's draws), else
+    from ``generator`` (a ``torch.Generator`` on the model's device; a
+    fresh one seeded 0 when None) in :func:`regularization_draws`'
+    order, before the exploration's.  A non-empty
+    ``regularization.adaptive_noise`` section gives
     :func:`make_adaptive_noise_train_step`'s step (an empty one is off
     here, as in the JAX ``make_train_step``; ``run_training`` fills it
     in)."""
@@ -209,41 +253,75 @@ def make_train_step(recognizer: SpeechRecognizer, optimizer, config):
         return make_adaptive_noise_train_step(recognizer, optimizer, config)
     decay = float(reg.get("decay", 0.0) or 0.0)
     penalty_coof = float(reg.get("penalty_coof", 0.0) or 0.0)
+    noise_std = float(reg.get("noise", 0.0) or 0.0)
     exploration = (config.get("training", {}) or {}).get("exploration",
                                                          "imitative")
     net = recognizer.net
     params = recognizer.parameters()
-    decayed = [p for path, p in params.items() if weight_leaf(path)]
+    decayed = [k for k in params if weight_leaf(k)]
+    noised = [k for k in params if not attention_leaf(k)] if noise_std \
+        else []
 
     def step(opt_state, inputs, inputs_mask, labels, labels_mask, *,
-             generator=None, coin=None):
+             generator=None, coin=None, weight_noise=None,
+             dropout_mask=None):
         B, TL = labels.shape
+        if generator is None:
+            generator = torch.Generator(device=labels.device).manual_seed(0)
+        if (noised and weight_noise is None) \
+                or (net.dropout and dropout_mask is None):
+            drawn, mask = regularization_draws(recognizer, config,
+                                               inputs.shape, generator)
+            weight_noise = weight_noise if weight_noise is not None \
+                else drawn
+            dropout_mask = dropout_mask if dropout_mask is not None \
+                else mask
         prediction = prediction_mask = None
         if exploration != "imitative":
-            if generator is None:
-                generator = torch.Generator(
-                    device=labels.device).manual_seed(0)
             prediction, prediction_mask = explore(
                 net, exploration, recognizer.eos_label, inputs, inputs_mask,
                 labels, labels_mask, generator, coin)
+        # the noised parameters hold mean + noise for the forward and
+        # backward and get their means back after it, bit for bit
+        means = {}
+        with torch.no_grad():
+            for k in noised:
+                means[k] = params[k].detach().clone()
+                params[k].copy_(means[k] + noise_std
+                                * weight_noise[k].to(means[k].device))
+        # weight decay is of the means: under noise its leaves are the
+        # means' copies, whose gradients are added to the parameters'
+        decay_leaves = {k: means[k].requires_grad_(True) if k in means
+                        else params[k] for k in decayed} if decay else {}
+        extra = [k for k in decay_leaves if k in means]
         net.requires_grad_(True)
-        out = net.cost(inputs, inputs_mask, labels, labels_mask,
-                       prediction, prediction_mask, train=True)
-        batch_cost = out["costs"].sum()
-        cost = batch_cost / B
-        lm = (prediction_mask if prediction_mask is not None
-              else labels_mask).T
-        w_penalty = monotonicity_penalty(out["weights"], lm)
-        w_entropy = entropy(out["weights"], lm)
-        train_cost = cost
-        if penalty_coof:
-            train_cost = train_cost + penalty_coof * w_penalty / B
-        if decay:
-            train_cost = train_cost + decay * sum(
-                (p ** 2).sum() for p in decayed)
-        grads = dict(zip(params, torch.autograd.grad(
-            train_cost, list(params.values()))))
-        net.requires_grad_(False)
+        try:
+            out = net.cost(inputs, inputs_mask, labels, labels_mask,
+                           prediction, prediction_mask, train=True,
+                           dropout_mask=dropout_mask)
+            batch_cost = out["costs"].sum()
+            cost = batch_cost / B
+            lm = (prediction_mask if prediction_mask is not None
+                  else labels_mask).T
+            w_penalty = monotonicity_penalty(out["weights"], lm)
+            w_entropy = entropy(out["weights"], lm)
+            train_cost = cost
+            if penalty_coof:
+                train_cost = train_cost + penalty_coof * w_penalty / B
+            if decay:
+                train_cost = train_cost + decay * sum(
+                    (p ** 2).sum() for p in decay_leaves.values())
+            got = torch.autograd.grad(
+                train_cost, list(params.values())
+                + [means[k] for k in extra])
+        finally:
+            net.requires_grad_(False)
+            with torch.no_grad():
+                for k in noised:
+                    params[k].copy_(means[k])
+        grads = dict(zip(params, got))
+        for k, g in zip(extra, got[len(params):]):
+            grads[k] = grads[k] + g
         with torch.no_grad():
             current = {k: p.detach() for k, p in params.items()}
             updates, opt_state = optimizer.update(grads, opt_state, current)
@@ -361,8 +439,8 @@ def make_adaptive_noise_train_step(recognizer, optimizer, config):
                 p.copy_(p + sampled[k])
         net.requires_grad_(True)
         try:
-            out = net.cost(inputs, inputs_mask, labels, labels_mask,
-                           train=True)
+            # no dropout here, as in the JAX package's noise step
+            out = net.cost(inputs, inputs_mask, labels, labels_mask)
             task_cost = out["costs"].sum() / B
             g = dict(zip(params, torch.autograd.grad(
                 task_cost, list(params.values()))))
@@ -421,7 +499,16 @@ class GradientDescent:
     gets :func:`noise_generator` of ``seed`` and ``iteration()``, the
     iterations done before it (by default the batches this object has
     processed; ``run_training`` reads the loop's log, which a resumed run
-    restores); a step without noise ignores it."""
+    restores); a step without noise ignores it.
+
+    ``compile_stats`` holds what the JAX package's ``GradientDescent``
+    keeps of its compilations: ``compile_time_s``, the summed wall time of
+    the first step of each new batch shape (ending in the step's host
+    pull of its monitors, which waits for the card), and
+    ``num_compiled_shapes``, the shapes seen.  Nothing is compiled per
+    shape here, but on the card the first step's time includes building
+    and loading the kernels when it is the process's first use of
+    them."""
 
     def __init__(self, recognizer, optimizer, step_fn, seed=1234,
                  iteration: Optional[Callable[[], int]] = None):
@@ -432,16 +519,26 @@ class GradientDescent:
         self.processed = 0
         self.iteration = iteration or (lambda: self.processed)
         self.opt_state = self._init_opt_state()
+        self.compile_stats = {}
+        self._shapes = set()
 
     def process_batch(self, batch: Mapping[str, Any]):
+        t0 = time.time()
         generator = noise_generator(self.recognizer.device, self.seed,
                                     self.iteration())
-        self.opt_state, monitors = self.step_fn(
-            self.opt_state, *batch_tensors(batch, self.recognizer.device),
-            generator=generator)
+        tensors = batch_tensors(batch, self.recognizer.device)
+        shapes = tuple(tuple(x.shape) for x in tensors)
+        first = shapes not in self._shapes
+        self._shapes.add(shapes)
+        self.opt_state, monitors = self.step_fn(self.opt_state, *tensors,
+                                                generator=generator)
         self.processed += 1
         names = sorted(monitors)
         values = torch.stack([monitors[k] for k in names]).tolist()
+        if first:
+            self.compile_stats["compile_time_s"] = self.compile_stats.get(
+                "compile_time_s", 0.0) + time.time() - t0
+            self.compile_stats["num_compiled_shapes"] = len(self._shapes)
         return dict(zip(names, values))
 
     def _init_opt_state(self):
@@ -473,7 +570,8 @@ def run_training(recognizer: SpeechRecognizer, optimizer,
                  valid_stream: Optional[Callable[[], Iterable]] = None,
                  search_data=None, length_filter=None, fast_start=False,
                  load_path=None, use_load_ext=False, load_log=False,
-                 profile=False, printing=True, num_examples=None):
+                 profile=False, printing=True, num_examples=None,
+                 extensions=()):
     """Train ``recognizer`` with ``optimizer`` over ``batch_stream()``
     (called once per epoch; each batch a mapping with ``recordings``,
     ``recordings_mask``, ``labels`` and ``labels_mask``), checkpointing to
@@ -498,7 +596,13 @@ def run_training(recognizer: SpeechRecognizer, optimizer,
     ``load_path`` is a checkpoint of either package to resume from: with
     ``use_load_ext`` its parameters, optimizer state and log (the epochs
     and batches then count on from it), with ``load_log`` its log alone.
-    ``profile`` prints the loop's host times at the end.
+    ``profile`` prints the loop's host times at the end.  The config's
+    ``monitoring.plot`` (``path``, ``every_n_batches`` (100), ``serve``,
+    ``port`` (0), ``channels``) adds the JAX package's ``Plot`` of the
+    channels to ``<path>.json`` (and ``.png``) and its ``PlotServer``.
+    ``extensions`` (such as ``train/extensions.py``'s ``NanGuard``,
+    ``ProgressBar``, ``LogInputs``, ``TorchProfiler`` or ``EmbedShell``)
+    run after all of these.
 
     A ``regularization.adaptive_noise`` section (an empty one too) trains
     with adaptive weight noise: the log-variances are made here, after
@@ -532,9 +636,10 @@ def run_training(recognizer: SpeechRecognizer, optimizer,
         exts.append(Load(load_path))
     if load_log and load_path:
         exts.append(LoadLog(load_path))
-    exts += [Timing(), AveragedTrainMonitoring(PRIMARY_OBSERVABLES,
-                                               every_n_batches=10)]
-    best = best_per = None
+    exts += [Timing(), CodeVersion(), CompilationStatistics(),
+             AveragedTrainMonitoring(PRIMARY_OBSERVABLES,
+                                     every_n_batches=10)]
+    best = best_per = per = None
     if valid_stream is not None:
         validation = DataStreamMonitoring(
             make_eval_fn(recognizer), valid_stream, prefix="valid",
@@ -593,8 +698,10 @@ def run_training(recognizer: SpeechRecognizer, optimizer,
                 t.notification_name for t in (best_per, best)
                 if t is not None]
         exts.append(Patience(**patience_conf))
+    exts += plot_extensions(mon_conf.get("plot"), per)
     if printing:
         exts.append(Printing(every_n_batches=1))
+    exts += list(extensions)
     log = TrainingLog()
     log.status["_config"] = repr(config)
     loop = MainLoop(algorithm, batch_stream, log=log, extensions=exts,
@@ -602,9 +709,35 @@ def run_training(recognizer: SpeechRecognizer, optimizer,
     return loop.run()
 
 
+def plot_extensions(plot_conf, per=None):
+    """``monitoring.plot``'s extensions (JAX ``initialize_all``
+    :537-557): the reference's five channel groups (or the section's
+    ``channels``), the beam search's error rate in the second when
+    ``per`` (``BeamSearchErrorRate``) runs, empty groups dropped; ``Plot``
+    when ``path`` is set (environment variables expanded), ``PlotServer``
+    when ``serve`` is."""
+    if not plot_conf:
+        return []
+    channels = plot_conf.get("channels") or [
+        ["train_cost", "valid_sequence_total_cost"],
+        [per.record_name] if per is not None else [],
+        ["total_gradient_norm", "total_step_norm"],
+        ["max_energy", "min_energy"],
+        ["weights_entropy", "weights_penalty"]]
+    channels = [group for group in channels if group]
+    exts = []
+    if plot_conf.get("path"):
+        exts.append(Plot(os.path.expandvars(plot_conf["path"]), channels,
+                         every_n_batches=plot_conf.get("every_n_batches",
+                                                       100)))
+    if plot_conf.get("serve"):
+        exts.append(PlotServer(channels, port=int(plot_conf.get("port", 0))))
+    return exts
+
+
 def run_stage(config, save_path, make_stage, params_path=None,
               fast_start=False, use_load_ext=False, load_log=False,
-              profile=False, printing=True):
+              profile=False, printing=True, extensions=()):
     """One training run of ``config`` (a dict) to ``save_path``:
     ``make_stage(config, load_path)`` builds the recognizer (with the
     parameters of ``load_path`` when it is not None) and the streams, a
@@ -613,8 +746,9 @@ def run_stage(config, save_path, make_stage, params_path=None,
     ``num_examples``; the rule
     chain comes from the config.  With ``use_load_ext`` the recognizer is
     built without ``params_path``, and ``Load`` restores it with the
-    optimizer state and the log.  Warns once for each config key the
-    port does not honour yet."""
+    optimizer state and the log; ``extensions`` go to
+    :func:`run_training`.  Warns once for each config key the port does
+    not honour yet (:data:`UNPORTED_KEYS`)."""
     piece = unported_training(config)
     if piece is not None:
         raise NotImplementedError(f"not ported yet: {piece}")
@@ -634,7 +768,7 @@ def run_stage(config, save_path, make_stage, params_path=None,
         length_filter=made.get("length_filter"), fast_start=fast_start,
         load_path=params_path, use_load_ext=use_load_ext,
         load_log=load_log, profile=profile, printing=printing,
-        num_examples=made.get("num_examples"))
+        num_examples=made.get("num_examples"), extensions=extensions)
 
 
 def run_multistage(stages, save_path, make_stage, params_path=None,

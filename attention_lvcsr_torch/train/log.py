@@ -1,15 +1,16 @@
 """Columnar training log.
 
 The port's copy of ``attention_lvcsr_tpu/train/log.py`` (which imports no
-JAX), without the pandas and sqlite exports: rows keyed by iteration
-number, per-channel storage (two aligned lists: times and values), and a
-``status`` dict for the loop's state.  The ``state_dict`` is the JAX
-package's, so each package reads the other's ``_log.pkl``.
+JAX): rows keyed by iteration number, per-channel storage (two aligned
+lists: times and values), a ``status`` dict for the loop's state, and the
+row iterator and the pandas (imported inside ``to_dataframe``) and sqlite
+exports.  The ``state_dict`` is the JAX package's, so each package reads
+the other's ``_log.pkl``.
 """
 from __future__ import annotations
 
 import bisect
-from typing import Any, Dict, List
+from typing import Any, Dict, Iterator, List
 
 
 class _Column:
@@ -80,6 +81,10 @@ class TrainingLog:
     def __getitem__(self, time: int) -> _RowView:
         return _RowView(self, time)
 
+    @property
+    def previous_row(self) -> _RowView:
+        return _RowView(self, self.status["iterations_done"] - 1)
+
     def last_value(self, name, default=None):
         col = self.columns.get(name)
         return col.last(default) if col else default
@@ -87,6 +92,50 @@ class TrainingLog:
     def channel(self, name):
         col = self.columns.get(name, _Column())
         return list(col.times), list(col.values)
+
+    def _times(self):
+        return sorted({t for col in self.columns.values() for t in col.times})
+
+    def iter_rows(self) -> Iterator[tuple]:
+        """(iteration, {name: value}) of every row, in time order."""
+        for t in self._times():
+            yield t, {name: v for name in self.columns
+                      if (v := self.columns[name].get(t, _MISSING))
+                      is not _MISSING}
+
+    def to_dataframe(self):
+        """A pandas DataFrame: one row an iteration, one column a channel
+        (None where a channel has no value)."""
+        import pandas
+        times = self._times()
+        data = {}
+        for name, col in self.columns.items():
+            lookup = dict(zip(col.times, col.values))
+            data[name] = [lookup.get(t) for t in times]
+        return pandas.DataFrame(data, index=times)
+
+    def to_sqlite(self, path, table="log"):
+        """The log as a sqlite table of (time, name, JSON value) rows; a
+        value JSON cannot encode is stored as its JSON-encoded repr."""
+        import json
+        import sqlite3
+        conn = sqlite3.connect(path)
+        try:
+            conn.execute(f"DROP TABLE IF EXISTS {table}")
+            conn.execute(f"CREATE TABLE {table} "
+                         "(time INTEGER, name TEXT, value TEXT)")
+            rows = []
+            for name, col in self.columns.items():
+                for t, v in zip(col.times, col.values):
+                    try:
+                        payload = json.dumps(v)
+                    except TypeError:
+                        payload = json.dumps(repr(v))
+                    rows.append((t, name, payload))
+            conn.executemany(f"INSERT INTO {table} VALUES (?,?,?)", rows)
+            conn.commit()
+        finally:
+            conn.close()
 
     def state_dict(self):
         return {

@@ -7,9 +7,11 @@ and of the extensions of ``attention_lvcsr_tpu/train/extensions.py`` that
 training needs: ``SimpleExtension`` with the JAX package's conditions,
 ``FinishAfter`` (batches, epochs, or a predicate such as the NaN
 gradient-norm stop), ``Patience``, ``SwitchOffLengthFilter``, ``Timing``,
-``Printing``, ``TrackTheBest``, ``Checkpoint`` (with the ``_params.npz``
-sidecar and the path argument of the ``_best_ll`` copy), and ``Load`` and
-``LoadLog``, which resume from a checkpoint of either package.
+``Printing`` (with ``hide_regex``), ``TrackTheBest``, ``Checkpoint`` (with
+the ``_params.npz`` sidecar and the path argument of the ``_best_ll``
+copy), and ``Load`` and ``LoadLog``, which resume from a checkpoint of
+either package.  The other extensions are in
+:mod:`attention_lvcsr_torch.train.extensions`.
 
 The loop records each step's monitors as Python floats right after the
 step (one device synchronisation per step); the JAX package converts them
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import math
 import os
+import re
 import signal
 import sys
 import time
@@ -194,12 +197,14 @@ class Timing(TrainingExtension):
 
 
 class Printing(SimpleExtension):
-    """Console dump of the current log row."""
+    """Console dump of the current log row, without the records whose
+    names ``hide_regex`` matches (``re.match``)."""
 
-    def __init__(self, **conditions):
+    def __init__(self, hide_regex=None, **conditions):
         conditions.setdefault("after_epoch", True)
         conditions.setdefault("on_interrupt", True)
         super().__init__(**conditions)
+        self._hide = re.compile(hide_regex) if hide_regex else None
 
     def do(self, which_callback, *args):
         log = self.main_loop.log
@@ -208,6 +213,8 @@ class Printing(SimpleExtension):
               f"epoch {log.status['epochs_done']}:")
         row = log.current_row
         for key in sorted(row):
+            if self._hide and self._hide.match(key):
+                continue
             value = row[key]
             print(f"\t {key}: "
                   f"{f'{value:.6g}' if isinstance(value, float) else value}")

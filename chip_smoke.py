@@ -21,7 +21,10 @@ through the GRU kernels' wide instances; and decodes beams 18-512 and
 the long and D-wide decodes through the loop kernel's workspace
 instances; and builds a word trigram's decoding graph with the port's
 LM-graph command line, decodes with it fused in through the search
-driver and scores the decodes with the port's scorer.  Phases, each
+driver and scores the decodes with the port's scorer; and trains the
+flagship network with dropout and weight noise through the training
+services (plots, their server, the profiler, a data worker, the NaN
+guard) and the native host DP.  Phases, each
 fatal on failure:
 
 1. build the kernels (one nvcc per source, sm_90a) and print the time;
@@ -347,6 +350,32 @@ fatal on failure:
     to words by ``tools/decoded_chars_to_words.py``) gives each
     utterance the report's WER, and the report's average is rebuilt from
     them; the phase's seconds.
+27. the training services on the card, on wsj_paper.yaml's flagship
+    network at full width (random weights from seed 1234; B=32, 800
+    frames, 100 labels, as phase 13) with ``regularization.dropout`` and
+    ``regularization.noise`` 0.01: (a) one step's draws from
+    ``noise_generator``, the noised set the non-attention parameters and
+    the mask keeping 0.5 +- 0.02; the cost and gradients with those draws
+    on the kernels and on the plain route (encoder outputs and attention
+    weights within 1e-5, gradients within 1e-4 of their largest value,
+    the bottom output equal), the step on the kernels whose
+    ``train_cost`` and ``total_gradient_norm`` are within 1e-4 relative
+    of the plain route's; (b) a four-batch ``run_stage`` of the same
+    settings, given through ``make_config_changes``, with
+    ``monitoring.plot`` (``path``, ``serve``, port 0), ``NanGuard``,
+    ``ProgressBar``, ``TorchProfiler`` over batches 2-3 and an
+    extension after the server that fetches ``/data.json``, the batches
+    made in a ``MultiProcessStream`` worker: ``code_version`` and the
+    compile statistics in the status, ``plot.json`` and ``/data.json``
+    holding the log's four ``train_cost`` values, the Chrome trace naming
+    the GRU training and decoder kernels, no "not ported" warning, and
+    the same per-step ``train_cost`` bits as a run on the direct stream;
+    (c) a step with a NaN parameter: ``NanGuard`` raises
+    ``FloatingPointError`` naming the field and iteration 1; (d) the
+    native host DP built from ``csrc/host/lvsr_native.cpp`` into
+    ``build/host/``: ``batch_reward_and_gain`` at B=32, 100 labels, 32
+    symbols gives the numpy rows' integers, both timed; the phase's
+    seconds.
 
 Nothing of JAX or of the JAX package is imported; the script checks it.
 
@@ -377,7 +406,8 @@ rows at D=1000 with D=500 beside them, phase 24a-b;
 ``beam_search_loop_ws``, the workspace instance's row at beam 200 with
 phase 25a's other beams and 25b's resident and workspace times at beam
 10 beside it; ``workspace_launches``, phase 25c-d's kernel route;
-``recipe_launches``, phase 26c's kernel route);
+``recipe_launches``, phase 26c's kernel route; ``services_launches``,
+phase 27b's kernel route);
 the line before it holds the rates, phase 21d's reward DP time and
 launches among them; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -390,6 +420,7 @@ import copy
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -905,6 +936,7 @@ def main():
     launches["beam_search_loop_ws"] = workspace_launches["wide search"][
         "beam_search_loop_ws"]
     recipe_launches = recipe_phase(t, dev, rates)
+    services_launches = services_phase(t, dev, rates)
 
     banned = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "attention_lvcsr_tpu"))
@@ -968,6 +1000,8 @@ def main():
         # phase 26c's kernel route: run_search on the graph the port's
         # command line built
         k["recipe_launches"] = recipe_launches.get(k["name"], 0)
+        # phase 27b's kernel route: a run_stage with the training services
+        k["services_launches"] = services_launches.get(k["name"], 0)
     log(json.dumps(dict(rates, build_s=lib.build_seconds)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -4176,7 +4210,8 @@ def reward_check(dev, rates):
     groundtruths, 85-step hypotheses): equal integers; its time and its
     device launches (torch.profiler)."""
     import torch
-    from attention_lvcsr_torch.ops.error_rate import batch_reward_and_gain
+    from attention_lvcsr_torch.ops.error_rate import \
+        batch_reward_and_gain_rows as batch_reward_and_gain
     from attention_lvcsr_torch.ops.reward_op import reward_and_gain
     rng = np.random.RandomState(21)
     B, T_g, T_r, A = 16, 75, 85, 63
@@ -6474,6 +6509,383 @@ def recipe_phase(t, dev, rates):
         shutil.rmtree(tmp)
     log(f"phase 26: graph {t_graph:.1f} s, all {time.perf_counter() - t0:.1f}"
         f" s")
+    return moved
+
+
+
+# Phase 27: wsj_paper.yaml's network with dropout and additive weight
+# noise, and the training services
+SERVICES_NOISE = 0.01
+SERVICES_SEED = 1234
+SERVICES_SHAPE = (32, 800, 100)         # B, frames, labels: phase 13's
+# the launches phase 27b's trace must name: the GRU training backward and
+# the training decoder's forward and backward (csrc/gru_train.cu,
+# csrc/decoder_train.cu)
+SERVICES_TRACE_KERNELS = ("gru_bwd_kernel", "decoder_fwd_kernel",
+                          "decoder_bwd_kernel")
+
+
+def services_config(net):
+    """wsj_paper.yaml's main stage over ``net`` with the phase's
+    regularizers, changed as ``run.py train``'s trailing pairs change it
+    (values already typed: the card machine has no yaml)."""
+    from attention_lvcsr_torch.config import make_config_changes
+    config = copy.deepcopy(dict(WSJ_PAPER, net=net,
+                                initialization=FLAGSHIP_INIT))
+    make_config_changes(config, [
+        ("regularization.dropout", True),
+        ("regularization.noise", SERVICES_NOISE),
+        ("training.seed", SERVICES_SEED)])
+    return config
+
+
+def services_arrays(n, seed, shape=SERVICES_SHAPE):
+    """``n`` flagship batches of ``shape`` (B, frames, labels) as numpy
+    arrays (a ``MultiProcessStream`` worker makes them): ragged frames and
+    labels, row 0 full, every row's labels ending in EOS."""
+    B, T, TL = shape
+    V = len(CHARS)
+    rng = np.random.RandomState(seed)
+    for _ in range(n):
+        frames = rng.randint(T * 3 // 4, T + 1, size=B)
+        lengths = rng.randint(TL * 3 // 4, TL + 1, size=B)
+        frames[0], lengths[0] = T, TL
+        labels = rng.randint(0, V - 2, size=(B, TL))
+        labels[np.arange(B), lengths - 1] = CHAR_MAP["<eol>"]
+        yield {"recordings": rng.randn(B, T, 123).astype(np.float32),
+               "recordings_mask": (np.arange(T)[None] < frames[:, None])
+               .astype(np.float32),
+               "labels": labels.astype(np.int64),
+               "labels_mask": (np.arange(TL)[None] < lengths[:, None])
+               .astype(np.float32)}
+
+
+def services_step_check(t, dev, rates):
+    """Phase 27a; returns the kernel step's launches."""
+    import torch
+    from __graft_entry__ import FLAGSHIP_NET
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.train import driver
+    from attention_lvcsr_torch.train.monitoring import batch_tensors
+    from attention_lvcsr_torch.train.rules import build_optimizer
+    from attention_lvcsr_torch.models import cells as cells_mod
+    from attention_lvcsr_torch.models import generator as generator_mod
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    from attention_lvcsr_torch.ops import gru_train as gt
+    config = services_config(dict(FLAGSHIP_NET))
+    net = dict(FLAGSHIP_NET, dropout=True)
+    batch = batch_tensors(next(services_arrays(1, 27, SERVICES_SHAPE)), dev)
+    counters = train_counters()
+
+    def model():
+        return SpeechRecognizer(net, init_config=FLAGSHIP_INIT,
+                                seed=SERVICES_SEED, device=dev)
+
+    rec = model()
+    noise, mask = driver.regularization_draws(
+        rec, config, batch[0].shape,
+        driver.noise_generator(dev, SERVICES_SEED, 0))
+    spared = {k for k in rec.parameters() if "/generator/attention/" in k}
+    kept = float(mask.float().mean())
+    if set(noise) != set(rec.parameters()) - spared or not spared \
+            or abs(kept - 0.5) > 0.02 \
+            or tuple(mask.shape) != SERVICES_SHAPE[:2] + (123,):
+        fail(f"phase 27a: noised {len(noise)} of {len(rec.parameters())} "
+             f"parameters ({len(spared)} attention ones spared), mask "
+             f"{tuple(mask.shape)} keeping {kept:.4f}")
+
+    def cost_and_grads(rec):
+        """The step's forward and backward on the noised weights."""
+        params = rec.parameters()
+        means = {k: p.detach().clone() for k, p in params.items()}
+        with torch.no_grad():
+            for k in noise:
+                params[k].copy_(means[k] + SERVICES_NOISE * noise[k])
+        rec.net.requires_grad_(True)
+        try:
+            out = rec.net.cost(*batch, train=True, dropout_mask=mask)
+            cost = out["costs"].sum() / batch[0].shape[0]
+            grads = torch.autograd.grad(cost, list(params.values()))
+        finally:
+            rec.net.requires_grad_(False)
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(means[k])
+        torch.cuda.synchronize()
+        return out, cost.detach(), dict(zip(params, grads))
+
+    plain = [(cells_mod, "gru_scan_train", gt.gru_scan_train_reference),
+             (generator_mod, "decoder_scan_train",
+              dt.decoder_scan_train_reference)]
+    t0 = time.perf_counter()
+    with swapped(plain):
+        for c in counters.values():
+            c.reset()
+        ref, ref_cost, ref_grads = cost_and_grads(model())
+        if any(counters[k].count for k in TRAIN_KERNELS):
+            fail(f"phase 27a: the plain route launched kernels: "
+                 f"{counts(counters)}")
+    plain_s = time.perf_counter() - t0
+    out, cost, grads = cost_and_grads(rec)
+    state_err = max(float((out[k] - ref[k]).detach().abs().max())
+                    for k in ("encoded", "weights"))
+    grad_err = max(float((grads[k] - g).abs().max()) / max(
+        float(g.abs().max()), 1e-30) for k, g in ref_grads.items())
+    if not torch.equal(out["bottom_output"], ref["bottom_output"]) \
+            or state_err > 1e-5 or grad_err > 1e-4:
+        fail(f"phase 27a: the kernels' states within {state_err:.2e}, "
+             f"gradients within {grad_err:.2e} of the largest, of the "
+             f"plain route's")
+    opt = build_optimizer(config["training"], config["regularization"])
+    step = driver.make_train_step(rec, opt, config)
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    _, mon = step(opt.init(rec.optimized()), *batch, weight_noise=noise,
+                  dropout_mask=mask)
+    mon = {k: float(v) for k, v in mon.items()}
+    step_s = time.perf_counter() - t0
+    moved = counts(counters)
+    if min(moved[k] for k in ("gru_scan_train_bidir", "decoder_scan_train",
+                              "outer_sum")) < 1:
+        fail(f"phase 27a: the step did not run through its kernels: "
+             f"{moved}")
+    ref_norm = float(torch.sqrt(sum((g ** 2).sum()
+                                    for g in ref_grads.values())))
+    rel = {"train_cost": abs(mon["train_cost"] - float(ref_cost))
+           / abs(float(ref_cost)),
+           "total_gradient_norm": abs(mon["total_gradient_norm"] - ref_norm)
+           / ref_norm}
+    if not all(np.isfinite(v) and v <= 1e-4 for v in rel.values()):
+        fail(f"phase 27a: the step's monitors {mon} vs the plain route's "
+             f"cost {float(ref_cost)} and gradient norm {ref_norm}")
+    rates["services_step_s"] = step_s
+    log(f"phase 27a one step with dropout and weight noise {SERVICES_NOISE} "
+        f"(wsj_paper.yaml, B, frames, labels {SERVICES_SHAPE}): {len(noise)} "
+        f"parameters noised, {len(spared)} attention ones spared; mask "
+        f"{tuple(mask.shape)} keeps {kept:.4f}; states within "
+        f"{state_err:.2e}, gradients within {grad_err:.2e} of their largest "
+        f"value; train_cost {mon['train_cost']} (rel err "
+        f"{rel['train_cost']:.2e}), total_gradient_norm "
+        f"{mon['total_gradient_norm']} (rel err "
+        f"{rel['total_gradient_norm']:.2e}) against the plain route; step "
+        f"{step_s:.3f} s on the kernels, the plain forward and backward "
+        f"{plain_s:.2f} s; launches {moved}")
+    return moved
+
+
+def services_stage(dev, stream, out_dir, extensions=()):
+    """A four-batch ``run_stage`` of phase 27's config writing to
+    ``out_dir`` (plot ``out_dir/plot``, served on a free port), the
+    batches from ``stream()``.  Returns (loop, warnings logged)."""
+    import logging
+    from __graft_entry__ import FLAGSHIP_NET
+    from attention_lvcsr_torch.config import make_config_changes
+    from attention_lvcsr_torch.train.driver import create_model, run_stage
+    net = {k: v for k, v in FLAGSHIP_NET.items()
+           if k not in ("input_dims", "input_num_chars", "eos_label",
+                        "num_phonemes")}
+    config = services_config(net)
+    make_config_changes(config, [
+        ("training.num_batches", 4),
+        ("monitoring.plot", {"path": os.path.join(out_dir, "plot"),
+                             "serve": True, "port": 0})])
+    data = SmokeData()
+
+    def make_stage(config, load_path):
+        return dict(recognizer=create_model(config, data, load_path,
+                                            device=dev),
+                    batch_stream=stream)
+
+    warned = []
+
+    class Warnings(logging.Handler):
+        def emit(self, record):
+            if record.levelno >= logging.WARNING:
+                warned.append(record.getMessage())
+    handler = Warnings()
+    logger = logging.getLogger("attention_lvcsr_torch")
+    logger.addHandler(handler)
+    try:
+        loop = run_stage(config, os.path.join(out_dir, "model.zip"),
+                         make_stage, printing=False, extensions=extensions)
+    finally:
+        logger.removeHandler(handler)
+    return loop, warned
+
+
+def services_stage_check(dev, rates):
+    """Phase 27b; returns the kernel route's launches."""
+    import functools
+    import torch
+    from attention_lvcsr_torch.data.server import MultiProcessStream
+    from attention_lvcsr_torch.train.extensions import (NanGuard, PlotServer,
+                                                        ProgressBar,
+                                                        TorchProfiler)
+    from attention_lvcsr_torch.train.loop import TrainingExtension
+    fetched = {}
+
+    class Fetch(TrainingExtension):
+        """After the epoch, ``/data.json`` from the live plot server."""
+
+        def after_epoch(self):
+            server = next(e for e in self.main_loop.extensions
+                          if isinstance(e, PlotServer))
+            url = f"http://127.0.0.1:{server.port}/data.json"
+            with urllib.request.urlopen(url, timeout=30) as r:
+                fetched["data"] = json.loads(r.read())
+
+    counters = train_counters()
+    tmp = tempfile.mkdtemp()
+    try:
+        profiler = TorchProfiler(os.path.join(tmp, "trace"), start_batch=1,
+                                 num_batches=2)
+        stream = functools.partial(services_arrays, 4, 28, SERVICES_SHAPE)
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        loop, warned = services_stage(
+            dev, lambda: MultiProcessStream(stream, depth=2),
+            os.path.join(tmp, "spawned"),
+            [NanGuard(), ProgressBar(), profiler, Fetch()])
+        torch.cuda.synchronize()
+        spawned_s = time.perf_counter() - t0
+        moved = counts(counters)
+        t0 = time.perf_counter()
+        direct, _ = services_stage(dev, stream, os.path.join(tmp, "direct"))
+        direct_s = time.perf_counter() - t0
+        status = loop.log.status
+        times, costs = loop.log.channel("train_cost")
+        missing = [k for k in ("code_version", "compile_time_s",
+                               "num_compiled_shapes") if k not in status]
+        if missing or times != [1, 2, 3, 4]:
+            fail(f"phase 27b: status lacks {missing}; train_cost at {times}")
+        if direct.log.channel("train_cost") != (times, costs):
+            fail(f"phase 27b: the MultiProcessStream run's train_cost "
+                 f"{costs} vs the direct stream's "
+                 f"{direct.log.channel('train_cost')[1]}")
+        series = [[t_, c] for t_, c in zip(times, costs)]
+        with open(os.path.join(tmp, "spawned", "plot.json")) as f:
+            plotted = json.load(f)
+        png = os.path.exists(os.path.join(tmp, "spawned", "plot.png"))
+        if plotted.get("train_cost") != series \
+                or fetched.get("data", [{}])[0].get("train_cost") != series:
+            fail(f"phase 27b: the log's train_cost {series}, plot.json "
+                 f"{plotted.get('train_cost')}, /data.json "
+                 f"{fetched.get('data')}")
+        with open(profiler.path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        named = {k: sorted(n for n in names if k in n)[:2]
+                 for k in SERVICES_TRACE_KERNELS}
+        if not all(named.values()):
+            fail(f"phase 27b: the trace of batches 2-3 names {named}")
+        if any("not ported" in w for w in warned):
+            fail(f"phase 27b: warned {warned}")
+        if min(moved[k] for k in ("gru_scan_train_bidir", "decoder_scan_train",
+                                  "outer_sum")) < 1:
+            fail(f"phase 27b: the stage did not run through its kernels: "
+                 f"{moved}")
+        rates["services_stage_s"] = spawned_s
+        log(f"phase 27b run_stage of 4 batches {SERVICES_SHAPE} with "
+            f"dropout, weight noise, monitoring.plot, NanGuard, ProgressBar "
+            f"and TorchProfiler, the batches from a MultiProcessStream "
+            f"worker: {spawned_s:.2f} s (the direct stream's run "
+            f"{direct_s:.2f} s, the same train_cost bits {costs}); "
+            f"code_version {status['code_version']!r}, compile_time_s "
+            f"{status['compile_time_s']:.3f}, num_compiled_shapes "
+            f"{status['num_compiled_shapes']}; plot.json and /data.json "
+            f"hold the log's series, plot.png "
+            f"{'written' if png else 'not written (no matplotlib)'}; the "
+            f"trace of batches 2-3 ({os.path.getsize(profiler.path)} bytes) "
+            f"names {named}; {len(warned)} warnings; launches {moved}")
+    finally:
+        shutil.rmtree(tmp)
+    return moved
+
+
+def services_nan_check(dev):
+    """Phase 27c."""
+    import functools
+    from __graft_entry__ import FLAGSHIP_NET
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    from attention_lvcsr_torch.train.driver import run_training
+    from attention_lvcsr_torch.train.extensions import NanGuard
+    from attention_lvcsr_torch.train.rules import build_optimizer
+    config = services_config(dict(FLAGSHIP_NET))
+    rec = SpeechRecognizer(dict(FLAGSHIP_NET, dropout=True),
+                           init_config=FLAGSHIP_INIT, seed=SERVICES_SEED,
+                           device=dev)
+    rec.net.generator.readout.post_merge_0.bias.data[0] = float("nan")
+    opt = build_optimizer(config["training"], config["regularization"])
+    stream = functools.partial(services_arrays, 2, 29, SERVICES_SHAPE)
+    tmp = tempfile.mkdtemp()
+    try:
+        run_training(rec, opt, lambda: list(stream()),
+                     os.path.join(tmp, "nan.zip"), config, num_batches=2,
+                     fast_start=True, printing=False,
+                     extensions=[NanGuard()])
+    except FloatingPointError as exc:
+        message = str(exc)
+    else:
+        fail("phase 27c: NanGuard let a NaN step pass")
+    finally:
+        shutil.rmtree(tmp)
+    if not re.fullmatch(r"non-finite (train_cost|total_gradient_norm)=nan "
+                        r"at iteration 1", message):
+        fail(f"phase 27c: NanGuard raised {message!r}")
+    log(f"phase 27c a step with a NaN readout bias: NanGuard raised "
+        f"FloatingPointError({message!r})")
+
+
+def services_native_check(rates):
+    """Phase 27d."""
+    from attention_lvcsr_torch.ops import error_rate, native
+    if not native.available():
+        fail(f"phase 27d: the native library is missing: "
+             f"{native.build_info['error']}")
+    rng = np.random.RandomState(30)
+    B, T, A = 32, 100, len(CHARS)
+    eos = CHAR_MAP["<eol>"]
+    gt = rng.randint(0, A - 2, size=(T, B))
+    gt[rng.randint(T // 2, T, size=B), np.arange(B)] = eos
+    rec = rng.randint(0, A, size=(T, B))
+    rec[rng.randint(0, T, size=B // 2), np.arange(B // 2)] = eos
+    t0 = time.perf_counter()
+    got = error_rate.batch_reward_and_gain(gt, rec, A, eos)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref = error_rate.batch_reward_and_gain_rows(gt, rec, A, eos)
+    rows_ms = (time.perf_counter() - t0) * 1e3
+    if not all(np.array_equal(a, b) for a, b in zip(got, ref)):
+        fail("phase 27d: the native DP's rewards or gains differ from the "
+             "numpy rows'")
+    root = os.path.dirname(os.path.abspath(__file__))
+    if not native.build_info["path"].startswith(
+            os.path.join(root, "build", "host")):
+        fail(f"phase 27d: the library is {native.build_info['path']}")
+    rates["native_reward_dp_ms"] = native_ms
+    rates["rows_reward_dp_ms"] = rows_ms
+    log(f"phase 27d batch_reward_and_gain B={B} T={T} A={A}: the native "
+        f"DP ({native.build_info['path']}, built in "
+        f"{native.build_info['build_seconds']:.2f} s) {native_ms:.2f} ms, "
+        f"the numpy rows {rows_ms:.2f} ms, equal integers")
+
+
+def services_phase(t, dev, rates):
+    """Phase 27: the training services, dropout and weight noise on the
+    card.  Returns 27b's kernel-route launches."""
+    t0 = time.perf_counter()
+    step_moved = services_step_check(t, dev, rates)
+    t1 = time.perf_counter()
+    moved = services_stage_check(dev, rates)
+    t2 = time.perf_counter()
+    services_nan_check(dev)
+    t3 = time.perf_counter()
+    services_native_check(rates)
+    t4 = time.perf_counter()
+    log(f"phase 27: a {t1 - t0:.1f} s, b {t2 - t1:.1f} s, c {t3 - t2:.1f} "
+        f"s, d {t4 - t3:.1f} s, all {t4 - t0:.1f} s; launches 27a "
+        f"{step_moved}, 27b {moved}")
     return moved
 
 

@@ -112,9 +112,43 @@ def test_unidirectional_encoder_matches_jax():
 
 
 def test_dropout_is_not_ported():
+    """Once refused, bottom dropout now runs: the training cost with
+    ``dropout`` on JAX's own mask (read from the zeros of its dropped-out
+    bottom output) gives JAX's costs, bottom output and gradients; the
+    cost without ``train`` drops nothing, and a training cost without a
+    mask raises (the step draws it)."""
     cfg = dict(BASE, prior=PRIORS["median"], dropout=True)
-    cfg.pop("input_num_chars")
-    rec = SpeechRecognizer(cfg, device="cpu")
-    data = [torch.from_numpy(a) for a in _data()]
-    with pytest.raises(NotImplementedError, match="dropout"):
-        rec.cost_fn()(data[0], data[1], data[2].long(), data[3], train=True)
+    data = _data()
+    jdata = [jnp.asarray(a) for a in data]
+    net = JaxNet(**dict(cfg, use_pallas="never"))
+    params = net.init(jax.random.PRNGKey(0), *jdata, method=net.cost)
+    rngs = {"dropout": jax.random.PRNGKey(3)}
+
+    def cost(p):
+        out = net.apply(p, *jdata, None, None, True, method=net.cost,
+                        rngs=rngs)
+        return out["costs"].sum(), out
+
+    (_, ref), ref_grads = jax.value_and_grad(cost, has_aux=True)(params)
+    ref_grads = jax_param_path_dict(ref_grads)
+    mask = torch.from_numpy(np.asarray(ref["bottom_output"]) != 0)
+    assert 0.2 < float(mask.float().mean()) < 0.8
+    net_cfg = dict(cfg, use_pallas="never")
+    net_cfg.pop("input_num_chars")
+    rec = SpeechRecognizer(net_cfg, device="cpu")
+    load_path_dict(rec.net, jax_param_path_dict(params))
+    t = [torch.from_numpy(a) for a in data]
+    t[2] = t[2].long()
+    plain = rec.cost_fn()(*t)
+    np.testing.assert_array_equal(plain["bottom_output"].numpy(), data[0])
+    rec.net.requires_grad_(True)
+    with pytest.raises(ValueError, match="dropout_mask"):
+        rec.cost_fn()(*t, train=True)
+    out = rec.cost_fn()(*t, train=True, dropout_mask=mask)
+    for key in ("costs", "bottom_output"):
+        np.testing.assert_allclose(out[key].detach().numpy(),
+                                   np.asarray(ref[key]), err_msg=key, **TOL)
+    out["costs"].sum().backward()
+    for key, p in rec.parameters().items():
+        np.testing.assert_allclose(p.grad.numpy(), ref_grads[key],
+                                   err_msg=key, **TOL)

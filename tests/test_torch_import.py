@@ -69,6 +69,10 @@ MODULES = [
     "attention_lvcsr_torch.cli.print_config",
     "attention_lvcsr_torch.cli.make_toy_dataset",
     "attention_lvcsr_torch.data.h5",
+    "attention_lvcsr_torch.train.extensions",
+    "attention_lvcsr_torch.data.server",
+    "attention_lvcsr_torch.ops.native",
+    "attention_lvcsr_torch.utils.notebook",
 ]
 BANNED_ROOTS = ("attention_lvcsr_tpu", "jax", "jaxlib", "flax")
 

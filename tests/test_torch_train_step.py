@@ -155,13 +155,16 @@ def test_weight_decay_leaves(path, decayed):
 
 
 @pytest.mark.parametrize("reg,train,piece", [
-    ({"noise": 0.1}, {}, "weight noise"),
+    ({"noise": 0.1}, {}, None),                 # ported
     ({"adaptive_noise": {}}, {}, None),        # an empty section is off
     ({"adaptive_noise": {"init_sigma": 1e-6}}, {}, None),   # ported
     ({}, {"exploration": "greedy"}, None),      # ported
     ({}, {"exploration": "sampled"}, "exploration 'sampled'"),
     ({}, {"compute_dtype": "bfloat16"}, "compute_dtype 'bfloat16'"),
-])
+    ({"dropout": True}, {}, None),              # ported
+], ids=["reg0-train0-weight noise", "reg1-train1-None", "reg2-train2-None",
+        "reg3-train3-None", "reg4-train4-exploration 'sampled'",
+        "reg5-train5-compute_dtype 'bfloat16'", "dropout"])
 def test_unported_training_pieces_raise(reg, train, piece):
     rec = SpeechRecognizer(NET, device="cpu")
     config = {"regularization": reg, "training": train}

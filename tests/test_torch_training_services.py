@@ -385,7 +385,7 @@ def test_search_during_training_matches_jax(toy, tmp_path):
     ({"monitoring": {"search": {"beam_size": 3}, "plot": {"path": "p"}},
       "training": {"patience": {"min_epochs": 2}, "stop_filtering": 10,
                    "num_epochs": 3}},
-     ["monitoring.plot"]),
+     []),                   # monitoring.plot is ported: nothing is unported
 ])
 def test_unported_keys_come_from_the_config(sections, keys):
     assert driver.unported_keys(sections) == keys
@@ -395,17 +395,17 @@ def test_cli_warns_once_for_each_unported_key(toy, tmp_path, caplog):
     caplog.set_level(logging.WARNING)
     loop_ = run.main(["train", str(tmp_path / "m.zip"), str(toy)]
                      + [x for pair in WIDTHS for x in pair]
-                     + ["training.num_batches", "2", "--fast-start",
+                     + ["training.num_batches", "2", "monitoring.plot",
+                        f"{{path: {tmp_path / 'plot'}}}", "--fast-start",
                         "--device", "cpu"])
     warned = [r.getMessage() for r in caplog.records
               if r.levelno == logging.WARNING]
-    named = {key: sum(key in msg for msg in warned)
-             for key in driver.UNPORTED_KEYS}
-    # the toy config's monitoring.search is honoured, and so are the
-    # averaged train records, Patience and the length filter's switch: no
-    # warning
-    assert named == {"monitoring.plot": 0}
+    # no key is left unported: the toy config's monitoring.search is
+    # honoured, and so are the averaged train records, Patience, the
+    # length filter's switch and the plot channels: no warning
+    assert driver.UNPORTED_KEYS == {}
     assert not any("not ported" in msg for msg in warned)
+    assert (tmp_path / "plot.json").exists()
     # --fast-start: no validation and no checkpoint before the first epoch
     assert loop_.log.channel("valid_sequence_total_cost") == ([], [])
     assert loop_.log.channel("saved_to")[0] == [2]
