@@ -1,15 +1,22 @@
-"""The recurrent cells: GRU and peephole LSTM, with trainable initial
-states.
+"""The recurrent cells: simple RNN, GRU and peephole LSTM, with trainable
+initial states.
 
 Counterparts of ``attention_lvcsr_tpu/models/cells.py``:
 
+* :class:`SimpleRecurrent` — the Elman RNN ``h' = tanh(h W + x)``
+  (``cells.py:93-115``); JAX has no kernel for it, and neither has the
+  port: its scan (:func:`simple_scan`) is a module scan of PyTorch
+  operations on every device, differentiable;
 * :class:`GatedRecurrent` — blocks' gate layout (update first, then
   reset) and update rule ``h' = z*tanh((r*h) Wss + x) + (1-z)*h`` with
   ``[z, r] = sigmoid(h Wsg + xg)``;
 * :class:`LSTM` — blocks' gate order [in, forget, cell, out] with
   peepholes, the out gate's on the new cell (``cells.py:199-212``).
 
-A masked step (mask 0) keeps the state (and the cell).  Input projections
+A masked step (mask 0) keeps the state (and the cell).  ``has_cells``
+says whether a cell carries memory cells beside its states (the LSTM):
+its ``one_step`` then takes and returns the (states, cells) pair, as the
+decoder's transition drives it.  Input projections
 are computed by the caller for the whole sequence; ``scan`` runs the
 recurrence through ``ops/gru_scan.py`` / ``ops/lstm_scan.py`` (inference)
 or, with ``train``, through the differentiable ``ops/gru_train.py`` /
@@ -28,8 +35,76 @@ from attention_lvcsr_torch.ops.lstm_scan import lstm_scan
 from attention_lvcsr_torch.ops.lstm_train import lstm_scan_train
 
 
+def _keep(mask, new, old):
+    """``new`` on the live rows of a (B,) mask, else ``old``."""
+    if mask is None:
+        return new
+    m = mask[..., None]
+    return m * new + (1.0 - m) * old
+
+
+def _simple_direction(x, mask, h0, w, reverse):
+    """One direction of the simple RNN over time (T, B, D)."""
+    T = x.shape[0]
+    h, out = h0, [None] * T
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        h = _keep(None if mask is None else mask[t],
+                  torch.tanh(h @ w + x[t]), h)
+        out[t] = h
+    return torch.stack(out)
+
+
+def simple_scan(proj, mask, fwd, bwd=None):
+    """The simple RNN over time, one direction or both, as
+    ``ops/gru_scan.py::gru_scan`` lays them out: ``proj`` (T, B, D) or
+    (T, B, 2D) = [inputs_fwd | inputs_bwd], ``fwd`` and ``bwd`` (h0 (B, D),
+    W (D, D)); returns the states (T, B, D) or (T, B, 2D) = [forward |
+    backward], the backward direction run in reverse time."""
+    D = fwd[1].shape[0]
+    states = _simple_direction(proj[..., :D], mask, *fwd, reverse=False)
+    if bwd is None:
+        return states
+    return torch.cat([states, _simple_direction(proj[..., D:], mask, *bwd,
+                                                reverse=True)], dim=-1)
+
+
+class SimpleRecurrent(nn.Module):
+    """Elman RNN: ``h' = tanh(h W + x)`` (blocks ``SimpleRecurrent``)."""
+    sequence_names = ("inputs",)
+    has_cells = False
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+        self.W = nn.Parameter(torch.zeros(dim, dim))
+        self.initial_state = nn.Parameter(torch.zeros(dim))
+
+    def sequence_dims(self):
+        return {"inputs": self.dim}
+
+    def initial_states(self, batch_size):
+        return self.initial_state.expand(batch_size, self.dim)
+
+    def one_step(self, h, seqs, mask=None):
+        return _keep(mask, torch.tanh(h @ self.W + seqs["inputs"]), h)
+
+    def scan_weights(self, batch_size):
+        """(h0, W) as :func:`simple_scan` takes them."""
+        return self.initial_states(batch_size), self.W
+
+    @staticmethod
+    def scan_fn(train):
+        """The module scan, the same for training and inference."""
+        return simple_scan
+
+    def scan(self, seqs, mask=None, train=False):
+        return simple_scan(seqs["inputs"], mask,
+                           self.scan_weights(seqs["inputs"].shape[1]))
+
+
 class GatedRecurrent(nn.Module):
     sequence_names = ("inputs", "gate_inputs")
+    has_cells = False
 
     def __init__(self, dim: int):
         super().__init__()
@@ -51,10 +126,7 @@ class GatedRecurrent(nn.Module):
         candidate = torch.tanh((h * reset) @ self.state_to_state
                                + seqs["inputs"])
         new_h = update * candidate + (1.0 - update) * h
-        if mask is None:
-            return new_h
-        m = mask[..., None]
-        return m * new_h + (1.0 - m) * h
+        return _keep(mask, new_h, h)
 
     def scan_weights(self, batch_size):
         """(h0, state_to_state, state_to_gates) as the scans take them."""
@@ -79,6 +151,7 @@ class GatedRecurrent(nn.Module):
 class LSTM(nn.Module):
     """LSTM with peepholes, blocks' gate order [in, forget, cell, out]."""
     sequence_names = ("inputs",)
+    has_cells = True
 
     def __init__(self, dim: int):
         super().__init__()
@@ -138,16 +211,19 @@ class LSTM(nn.Module):
 
 
 CELL_REGISTRY = {
+    "simple": SimpleRecurrent,
     "gru": GatedRecurrent,
     "lstm": LSTM,
     # blocks' class names, as the reference's YAML names them
+    "SimpleRecurrent": SimpleRecurrent,
     "GatedRecurrent": GatedRecurrent,
     "LSTM": LSTM,
 }
 
 
 def make_cell(kind: str, dim: int) -> nn.Module:
-    """'gru', 'lstm' or a blocks class path ('...recurrent.LSTM')."""
+    """'simple', 'gru', 'lstm' or a blocks class path
+    ('...recurrent.LSTM')."""
     key = kind.rsplit(".", 1)[-1]
     if key not in CELL_REGISTRY:
         raise NotImplementedError(f"not ported yet: the {kind!r} cell")

@@ -1,5 +1,5 @@
-"""Speech encoder: stacked (bi)directional GRUs or LSTMs with temporal
-subsampling.
+"""Encoder: stacked (bi)directional GRUs, LSTMs or simple RNNs with
+temporal subsampling.
 
 Counterpart of ``attention_lvcsr_tpu/models/encoder.py``.  Batch-major
 ``(B, T, F)`` at the API, time-major inside.  Per layer, the input
@@ -14,7 +14,10 @@ as in the JAX encoder.
 
 ``train`` selects the differentiable scans of the training path
 (``ops/gru_train.py``, ``ops/lstm_train.py``); inference takes
-``ops/gru_scan.py`` or ``ops/lstm_scan.py`` (the cell's ``scan_fn``).
+``ops/gru_scan.py`` or ``ops/lstm_scan.py`` (the cell's ``scan_fn``).  A
+simple-RNN layer runs the module scan ``models/cells.py::simple_scan`` on
+both routes, as the JAX encoder runs its XLA scan (``cells.py:55-90``):
+neither package has a kernel for it.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ def _states(out):
 class RecurrentWithFork(nn.Module):
     """A cell with its input forks, ``fork_<sequence>`` for each sequence
     the cell reads (the GRU's inputs and gate inputs, the LSTM's four gate
-    inputs in one)."""
+    inputs in one, the simple RNN's inputs)."""
 
     def __init__(self, in_dim: int, dim: int, transition="gru"):
         super().__init__()
@@ -82,7 +85,7 @@ class Encoder(nn.Module):
     """``dims`` per layer, ``subsample`` strides applied to each layer's
     output and mask (``x[:, ::take_each]``); ``bidir: false`` stacks
     one-directional layers (``with_fork{i}``); ``transition`` names the
-    cell (GRU or LSTM)."""
+    cell (GRU, LSTM or simple RNN)."""
 
     def __init__(self, in_dim: int, dims: Sequence[int],
                  subsample: Sequence[int], bidir: bool = True,

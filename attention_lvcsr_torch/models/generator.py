@@ -1,9 +1,11 @@
 """The attention decoder: parameters, decode tables and the decode step.
 
 Counterpart of ``attention_lvcsr_tpu/models/generator.py`` for a stack
-of ``dec_stack`` GRU decoder layers (``_compute_states`` :350-365: layer
-l > 0 adds the interlayer projections of layer l-1's new state): the
-feedback embedding, the readout (merge of the weighted
+of ``dec_stack`` decoder layers of one cell, GRU, LSTM or simple RNN
+(``_compute_states`` :350-365: layer l > 0 adds the interlayer
+projections of layer l-1's new state): the feedback (the embedding, or
+the one-hot ``OneOfNFeedback`` of ``embed_outputs: false``), the
+readout (merge of the weighted
 averages and optionally the states, then no post-merge layer or one or
 more with the tanh, rectifier, sigmoid, identity or maxout activation),
 its shallow-fusion
@@ -39,8 +41,15 @@ averages and optionally the states, so no route here reads it.
 
 Parameter names are the flax ones (``feedback/lookup/embedding``,
 ``transition_0``, ``fork_0_inputs``, ``interlayer_1_gate_inputs``, ...);
-the language model holds only buffers, so it adds no parameter.  The
-carry's ``states`` are the layers' states lane-stacked, (B, N*S).
+the one-hot feedback and the language model add no parameter.  The
+carry's ``states`` are the layers' states lane-stacked, (B, N*S): what
+the attention, the readout and the kernels read.  An LSTM decoder's
+memory cells ride beside them under ``cells``, lane-stacked the same way.
+
+The kernels of the decoder (the loop kernel, ``decoder_scan_train``) hold
+a GRU: as in the JAX package, an LSTM or simple-RNN decoder takes the
+module routes (``loop_route``, ``train_kernel_route``), while
+``fused_decode_score``, which reads only the states, serves any cell.
 """
 from __future__ import annotations
 
@@ -49,7 +58,7 @@ from typing import Mapping, Optional, Sequence
 import torch
 from torch import nn
 
-from attention_lvcsr_torch.models.cells import GatedRecurrent
+from attention_lvcsr_torch.models.cells import GatedRecurrent, make_cell
 from attention_lvcsr_torch.models.layers import Dense, Embed
 from attention_lvcsr_torch.ops.decode_score import fused_decode_score
 from attention_lvcsr_torch.ops.decoder_train import (MAX_FILTERS, MAX_STACK,
@@ -69,6 +78,20 @@ class LookupFeedback(nn.Module):
 
     def forward(self, outputs):
         return self.lookup(outputs)
+
+
+class OneOfNFeedback(nn.Module):
+    """One-hot feedback over ``num_outputs`` symbols (the initial output's
+    row included), without parameters (JAX ``OneOfNFeedback``,
+    ``generator.py:57-64``)."""
+
+    def __init__(self, num_outputs: int):
+        super().__init__()
+        self.num_outputs = num_outputs
+
+    def forward(self, outputs):
+        return torch.nn.functional.one_hot(
+            outputs.long(), self.num_outputs).to(torch.float32)
 
 
 class Readout(nn.Module):
@@ -227,7 +250,7 @@ def state_names(dec_stack):
 
 
 class SequenceGenerator(nn.Module):
-    """``dec_stack`` GRU decoder layers + attention + readout."""
+    """``dec_stack`` decoder layers + attention + readout."""
 
     def __init__(self, attention, num_outputs: int, dim_dec: int,
                  feedback_dim: int, post_merge_dims: Optional[Sequence[int]],
@@ -236,12 +259,16 @@ class SequenceGenerator(nn.Module):
                  language_model: Optional[nn.Module] = None,
                  fusion: Optional[Mapping] = None,
                  criterion: str = "log_likelihood", min_reward: float = -1.0,
-                 dec_stack: int = 1):
+                 dec_stack: int = 1, transition: str = "gru",
+                 embed_outputs: bool = True):
         """``language_model`` (``models/lm.py``) with ``fusion``, the
         keyword arguments of :class:`ShallowFusionReadout`, selects the
         shallow-fusion readout.  ``criterion``: ``log_likelihood``,
         ``mse_gain`` or ``mse_reward``; ``min_reward`` clamps the gains of
-        the mse criteria from below."""
+        the mse criteria from below.  ``transition`` names the decoder's
+        cell (``models/cells.py::make_cell``); ``embed_outputs: false``
+        feeds the outputs back one-hot, ``num_outputs + 1`` wide, in place
+        of the ``feedback_dim`` embedding."""
         super().__init__()
         self.criterion = criterion
         self.min_reward = float(min_reward)
@@ -252,9 +279,13 @@ class SequenceGenerator(nn.Module):
         self.use_states_for_readout = use_states_for_readout
         self.attention = attention
         D = attention.attended_dim
-        self.feedback = LookupFeedback(num_outputs + 1, feedback_dim)
+        if embed_outputs:
+            self.feedback = LookupFeedback(num_outputs + 1, feedback_dim)
+        else:
+            self.feedback = OneOfNFeedback(num_outputs + 1)
+            feedback_dim = num_outputs + 1
         for layer in range(self.dec_stack):
-            cell = GatedRecurrent(dim_dec)
+            cell = make_cell(transition, dim_dec)
             self.add_module(f"transition_{layer}", cell)
             for seq, d in cell.sequence_dims().items():
                 self.add_module(f"fork_{layer}_{seq}", Dense(feedback_dim, d))
@@ -286,6 +317,16 @@ class SequenceGenerator(nn.Module):
     def mse(self):
         """Whether the criterion is one of the task loss's."""
         return self.criterion.startswith("mse")
+
+    @property
+    def gru(self):
+        """Whether the decoder's cell is the GRU the kernels hold."""
+        return isinstance(self._cell(0), GatedRecurrent)
+
+    @property
+    def has_cells(self):
+        """Whether the decoder's cell carries memory cells (the LSTM)."""
+        return self._cell(0).has_cells
 
     def _cell(self, layer):
         return getattr(self, f"transition_{layer}")
@@ -321,21 +362,20 @@ class SequenceGenerator(nn.Module):
         the state names (the Toeplitz band of the TPU kernel is replaced
         by the filter taps themselves; a maxout readout's ``post_k`` has
         ``merged_dim / k`` rows)."""
-        t = self.attention.loop_tables()
+        t = self._score_tables()
         readout = self.readout
-        if readout.num_post_merge != 1:
+        if not self.gru:
             raise NotImplementedError(
-                "the decode kernels' tables need exactly one post-merge "
-                f"layer, not {readout.num_post_merge}")
-        post_k, post_b = _unbiased(readout.post_merge_0)
+                "the loop kernel's tables need a GRU decoder")
         kernel = lambda d: _unbiased(d)[0]
         bias = lambda d: _unbiased(d)[1]
+        Vf = self.num_outputs + 1
         t.update({
-            "merge_k": readout.merge_weighted_averages.kernel,
-            "merge_b": readout.merge_bias,
-            "post_k": post_k,
-            "post_b": post_b,
-            "embed": self.feedback.lookup.embedding,
+            # the feedback of every symbol (JAX ``feedback(arange(Vf))``):
+            # the one-hot feedback's is the (Vf, Vf) identity
+            "embed": (self.feedback.lookup.embedding
+                      if isinstance(self.feedback, LookupFeedback)
+                      else torch.eye(Vf, device=readout.merge_bias.device)),
             "fork_in_w": self._lane_stack("fork_{}_inputs", kernel),
             "fork_in_b": self._lane_stack("fork_{}_inputs", bias),
             "fork_gate_w": self._lane_stack("fork_{}_gate_inputs", kernel),
@@ -356,6 +396,21 @@ class SequenceGenerator(nn.Module):
                  for name in self.state_names])
         return {k: v.detach().contiguous() for k, v in t.items()}
 
+    def _score_tables(self):
+        """The attention's decode tables and the readout's: what a score
+        step reads, for any decoder cell."""
+        t = self.attention.loop_tables()
+        readout = self.readout
+        if readout.num_post_merge != 1:
+            raise NotImplementedError(
+                "the decode kernels' tables need exactly one post-merge "
+                f"layer, not {readout.num_post_merge}")
+        post_k, post_b = _unbiased(readout.post_merge_0)
+        t.update({"merge_k": readout.merge_weighted_averages.kernel,
+                  "merge_b": readout.merge_bias,
+                  "post_k": post_k, "post_b": post_b})
+        return t
+
     # -- the module-driven decode step -------------------------------------
     def fused_score_supported(self):
         """Whether ``fused_decode_score`` covers this configuration, as JAX
@@ -375,17 +430,21 @@ class SequenceGenerator(nn.Module):
     def fused_score_tables(self):
         """The tables of ``fused_decode_score``: those of the loop kernel
         it needs, the same values as the JAX ``fused_score_tables`` (the
-        filter taps in place of the Toeplitz band)."""
-        t = self.loop_decode_tables()
-        return {k: t[k] for k in ("state_trans", "handler", "v", "merge_k",
-                                  "merge_b", "post_k", "post_b",
-                                  "conv_filters")}
+        filter taps in place of the Toeplitz band); the decoder's cell
+        does not enter them."""
+        t = self._score_tables()
+        return {k: t[k].detach().contiguous()
+                for k in ("state_trans", "handler", "v", "merge_k",
+                          "merge_b", "post_k", "post_b", "conv_filters")}
 
-    def _initial_states(self, batch_size):
-        """(B, N*S) initial states, lane-stacked."""
-        return torch.cat([self._cell(layer).initial_states(batch_size)
-                          for layer in range(self.dec_stack)],
-                         dim=1).contiguous()
+    def _initial_states(self, batch_size, part=0):
+        """(B, N*S) initial states (``part`` 0) or, of an LSTM, initial
+        cells (1), lane-stacked."""
+        inits = [self._cell(layer).initial_states(batch_size)
+                 for layer in range(self.dec_stack)]
+        if self.has_cells:
+            inits = [pair[part] for pair in inits]
+        return torch.cat(inits, dim=1).contiguous()
 
     def initial_states(self, batch_size, attended):
         carry = {
@@ -393,17 +452,23 @@ class SequenceGenerator(nn.Module):
             "glimpses": self.attention.initial_glimpses(batch_size,
                                                         attended),
         }
+        if self.has_cells:
+            carry["cells"] = self._initial_states(batch_size, 1)
         if self.language_model is not None:
             carry["lm"] = self.language_model.initial_states(batch_size)
         return carry
 
-    def _compute_states(self, states, forked, weighted_averages):
+    def _compute_states(self, states, forked, weighted_averages,
+                        cells=None):
         """One transition of the stack (JAX ``_compute_states``): layer l
         adds to its fork and distribute projections the interlayer
         projections of layer l-1's new state; ``forked`` is the fork
-        projections of every layer, ``{(layer, seq): (B, width)}``."""
+        projections of every layer, ``{(layer, seq): (B, width)}``.
+        Returns the new lane-stacked states and, of an LSTM (``cells``
+        its lane-stacked cells), the new cells, else None."""
         S = self.dim_dec
-        new, below = [], None
+        lanes = lambda x, layer: x[..., layer * S:(layer + 1) * S]
+        new, new_cells, below = [], [], None
         for layer in range(self.dec_stack):
             cell = self._cell(layer)
             seqs = {}
@@ -414,10 +479,15 @@ class SequenceGenerator(nn.Module):
                     val = val + getattr(
                         self, f"interlayer_{layer}_{seq}")(below)
                 seqs[seq] = val
-            below = cell.one_step(states[..., layer * S:(layer + 1) * S],
-                                  seqs)
+            if self.has_cells:
+                below, c = cell.one_step(
+                    (lanes(states, layer), lanes(cells, layer)), seqs)
+                new_cells.append(c)
+            else:
+                below = cell.one_step(lanes(states, layer), seqs)
             new.append(below)
-        return new[0] if len(new) == 1 else torch.cat(new, dim=-1)
+        cat = lambda xs: xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1)
+        return cat(new), cat(new_cells) if new_cells else None
 
     def _fork(self, feedback):
         """The fork projections of every layer, ``{(layer, seq): ...}``."""
@@ -472,11 +542,14 @@ class SequenceGenerator(nn.Module):
         return g_new, self.emitter.costs(readouts)
 
     def advance_states(self, carry, g_new, chosen_outputs):
-        """Consume the chosen symbols: GRU transition and LM update."""
-        states = self._compute_states(
+        """Consume the chosen symbols: the decoder's transition (its cells
+        too) and the LM update."""
+        states, cells = self._compute_states(
             carry["states"], self._fork(self.feedback(chosen_outputs)),
-            g_new["weighted_averages"])
+            g_new["weighted_averages"], carry.get("cells"))
         new_carry = {"states": states, "glimpses": g_new}
+        if cells is not None:
+            new_carry["cells"] = cells
         if self.language_model is not None:
             new_carry["lm"] = self.language_model.one_step(carry["lm"],
                                                            chosen_outputs)
@@ -542,10 +615,11 @@ class SequenceGenerator(nn.Module):
     def train_kernel_route(self, use_pallas="auto"):
         """Whether ``evaluate`` takes ``decoder_scan_train`` (else the
         module scan), as JAX's ``_fused_train_mode`` (:435-482) decides
-        without shapes: the module scan under ``use_pallas: never``, above
-        the kernels' filters and above their four layers."""
+        without shapes: the module scan under ``use_pallas: never``, for a
+        decoder cell other than the GRU, above the kernels' filters and
+        above their four layers."""
         att = self.attention
-        return not (use_pallas == "never"
+        return not (use_pallas == "never" or not self.gru
                     or (att.conv and att.conv_num_filters > MAX_FILTERS)
                     or self.dec_stack > MAX_STACK)
 
@@ -590,23 +664,26 @@ class SequenceGenerator(nn.Module):
         stack's transition, and the recurrent mask over states and
         glimpses."""
         states = self._initial_states(B)
+        cells = self._initial_states(B, 1) if self.has_cells else None
         glimpses = self.attention.initial_glimpses(B, attended)
         pre_states, seq = [], []
         for t in range(T):
             g_new = self.attention.take_glimpses(
                 attended, preprocessed, attended_mask, glimpses,
                 self._att_states(states), train=True)
-            new_states = self._compute_states(
+            new_states, new_cells = self._compute_states(
                 states, {k: v[t] for k, v in forked.items()},
-                g_new["weighted_averages"])
+                g_new["weighted_averages"], cells)
             if mask is not None:
                 live = mask[t] > 0
                 new_states = _mask_mix(live, new_states, states)
+                if cells is not None:
+                    new_cells = _mask_mix(live, new_cells, cells)
                 g_new = {k: _mask_mix(live, v, glimpses[k])
                          for k, v in g_new.items()}
             pre_states.append(states)
             seq.append(g_new)
-            states, glimpses = new_states, g_new
+            states, cells, glimpses = new_states, new_cells, g_new
         return torch.stack(pre_states), {
             k: torch.stack([g[k] for g in seq])
             for k in ("weights", "weighted_averages", "energies")

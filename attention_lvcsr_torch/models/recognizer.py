@@ -1,11 +1,13 @@
-"""The recognizer: speech bottom -> (bi)directional GRU or LSTM encoder ->
-attention GRU decoder.
+"""The recognizer: bottom -> (bi)directional encoder -> top MLP ->
+attention decoder.
 
 Counterpart of ``attention_lvcsr_tpu/models/recognizer.py``:
 
 * :class:`RecognizerNet` — the network from the ``net`` config section
-  (same keys; ``dec_stack`` GRU decoder layers), with ``encode`` (the
-  inference encoder), ``decode_loop`` and ``decode_loop_tables`` (what the whole-loop decode consumes), and
+  (same keys: the speech or lookup bottom, a GRU, LSTM or simple-RNN
+  encoder, the optional top MLP ``dims_top``, ``dec_stack`` GRU, LSTM or
+  simple-RNN decoder layers, embedded or one-hot feedback), with
+  ``encode`` (the inference encoder), ``decode_loop`` and ``decode_loop_tables`` (what the whole-loop decode consumes), and
   the step interface of the module-driven decode (``decode_contexts``,
   ``decode_init``, ``decode_score``, ``decode_advance``); a ``net.lm``
   section with a ``path`` adds the FST language model and the
@@ -13,10 +15,11 @@ Counterpart of ``attention_lvcsr_tpu/models/recognizer.py``:
 * :class:`SpeechRecognizer` — parameters, config-driven init, checkpoint
   loading and saving, the training cost (``cost_fn``), ``analyze`` (the
   cost and alignment the search driver prints), ``sample`` and
-  ``beam_search`` with the same frame and batch padding.
+  ``beam_search`` with the same frame and batch padding; a lookup
+  bottom's inputs are (B, T) integer tokens, kept integer throughout.
 
-The port covers the flagship configuration family; anything else raises
-``NotImplementedError`` naming the piece that is not ported yet.
+A configuration the port does not cover raises ``NotImplementedError``
+naming the piece (:func:`unported_piece`).
 """
 from __future__ import annotations
 
@@ -27,11 +30,12 @@ import torch
 from torch import nn
 
 from attention_lvcsr_torch.models.attention import make_attention
-from attention_lvcsr_torch.models.bottom import SpeechBottom
+from attention_lvcsr_torch.models.bottom import make_bottom
 from attention_lvcsr_torch.models.encoder import Encoder
 from attention_lvcsr_torch.models.generator import (SequenceGenerator,
                                                     state_names)
 from attention_lvcsr_torch.models.initializers import initialize_params
+from attention_lvcsr_torch.models.layers import Dense
 from attention_lvcsr_torch.models.params import (NOISE_PREFIX, PREFIX,
                                                  load_parameters,
                                                  load_path_dict,
@@ -47,18 +51,9 @@ def _canon(name):
 
 def unported_piece(cfg: Mapping[str, Any]) -> Optional[str]:
     """The first part of a net config this port does not cover yet."""
-    bottom = dict(cfg.get("bottom") or {"bottom_class": "speech"})
     criterion = dict(cfg.get("criterion") or {"name": "log_likelihood"})
     prior = dict(cfg.get("prior") or {})
     checks = [
-        (_canon(bottom.get("bottom_class", "speech"))
-         in ("speech", "SpeechBottom"), "a non-speech (lookup) bottom"),
-        (_canon(cfg.get("enc_transition", "gru"))
-         in ("gru", "GatedRecurrent", "lstm", "LSTM"),
-         "a simple-RNN encoder transition (SimpleRecurrent)"),
-        (_canon(cfg.get("dec_transition", "gru")) in ("gru", "GatedRecurrent"),
-         "a non-GRU decoder transition (LSTM or simple RNN)"),
-        (not cfg.get("dims_top"), "the top MLP (dims_top)"),
         (cfg.get("attention_type", "content") in ("content",
                                                   "content_and_conv"),
          f"attention_type {cfg.get('attention_type')!r}"),
@@ -68,7 +63,6 @@ def unported_piece(cfg: Mapping[str, Any]) -> Optional[str]:
         (criterion.get("name") in ("log_likelihood", "mse_gain",
                                    "mse_reward"),
          f"the {criterion.get('name')!r} criterion"),
-        (cfg.get("embed_outputs", True), "one-hot (non-embedded) feedback"),
         (prior.get("type", "expanding")
          in ("expanding", "window_around_median", "window_around_mean"),
          f"the {prior.get('type')!r} attention prior"),
@@ -90,6 +84,25 @@ def draw_dropout_mask(shape, generator, device=None):
     ``device``."""
     return torch.rand(tuple(shape), generator=generator,
                       device=device) < 1.0 - DROPOUT_RATE
+
+
+class TopMLP(nn.Module):
+    """The MLP on top of the encoder (JAX ``TopMLP``,
+    ``recognizer.py:44-53``): tanh layers ``top_{i}`` of ``dims``, then the
+    linear ``top_out`` back to ``out_dim``."""
+
+    def __init__(self, in_dim: int, dims: Sequence[int], out_dim: int):
+        super().__init__()
+        self.dims = list(dims)
+        for i, d in enumerate(self.dims):
+            self.add_module(f"top_{i}", Dense(in_dim, d))
+            in_dim = d
+        self.top_out = Dense(in_dim, out_dim)
+
+    def forward(self, x):
+        for i in range(len(self.dims)):
+            x = torch.tanh(getattr(self, f"top_{i}")(x))
+        return self.top_out(x)
 
 
 def bottom_dropout(x, mask):
@@ -126,22 +139,18 @@ class RecognizerNet(nn.Module):
                  use_pallas="auto"):
         super().__init__()
         piece = unported_piece(dict(
-            bottom=bottom, enc_transition=enc_transition,
-            dec_transition=dec_transition, bidir=bidir, dims_top=dims_top,
             attention_type=attention_type,
-            energy_normalizer=energy_normalizer, dec_stack=dec_stack,
-            criterion=criterion, embed_outputs=embed_outputs,
+            energy_normalizer=energy_normalizer, criterion=criterion,
             prior=prior))
         if piece is not None:
             raise NotImplementedError(f"not ported yet: {piece}")
-        bottom = dict(bottom or {})
-        bottom.pop("bottom_class", None)
-        self.bottom = SpeechBottom(input_dims["recordings"], **bottom)
+        self.bottom = make_bottom(bottom, input_dims, input_num_chars or {})
         self.encoder = Encoder(self.bottom.output_dim, dims_bidir,
                                subsample or [1] * len(dims_bidir),
                                bidir=bidir, transition=enc_transition)
         self.dropout = dropout
         D = self.encoder.dim_encoded
+        self.top = TopMLP(D, dims_top, D) if dims_top else None
         # the state names of JAX ``recognizer.py:111-112``
         attention = make_attention(attention_type,
                                    state_names(dec_stack or 1), dim_dec, D,
@@ -175,12 +184,21 @@ class RecognizerNet(nn.Module):
             language_model=language_model, fusion=fusion,
             criterion=criterion["name"],
             min_reward=float(criterion.get("min_reward", -1.0)),
-            dec_stack=dec_stack or 1)
+            dec_stack=dec_stack or 1, transition=dec_transition,
+            embed_outputs=embed_outputs)
 
     def encode(self, inputs, inputs_mask, train=False):
-        """(B, T, F) features, (B, T) mask -> encoded (B, L, D), mask.
-        ``train`` runs the differentiable scans of the training path."""
-        return self.encoder(self.bottom(inputs), inputs_mask, train=train)
+        """(B, T, F) features or (B, T) tokens, (B, T) mask -> encoded (B,
+        L, D) (after the top MLP, where there is one), mask.  ``train``
+        runs the differentiable scans of the training path."""
+        return self._encoded(self.bottom(inputs), inputs_mask, train)
+
+    def _encoded(self, bottom_output, inputs_mask, train):
+        encoded, encoded_mask = self.encoder(bottom_output, inputs_mask,
+                                             train=train)
+        if self.top is not None:
+            encoded = self.top(encoded)
+        return encoded, encoded_mask
 
     def cost(self, inputs, inputs_mask, labels, labels_mask, prediction=None,
              prediction_mask=None, train=False, dropout_mask=None):
@@ -202,8 +220,8 @@ class RecognizerNet(nn.Module):
                 raise ValueError("a training cost with dropout needs its "
                                  "dropout_mask")
             bottom_output = bottom_dropout(bottom_output, dropout_mask)
-        encoded, encoded_mask = self.encoder(bottom_output, inputs_mask,
-                                             train=True)
+        encoded, encoded_mask = self._encoded(bottom_output, inputs_mask,
+                                              True)
         fed = prediction if prediction is not None else labels
         fed_mask = (prediction_mask if prediction_mask is not None
                     else labels_mask)
@@ -355,6 +373,19 @@ class SpeechRecognizer:
         return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
                                dtype=dtype, device=self.device)
 
+    def inputs_tensor(self, x):
+        """Inputs as the bottom reads them (its ``input_dtype``): int64
+        tokens of a lookup bottom, float32 features of the speech
+        bottom."""
+        return self._tensor(x, self.net.bottom.input_dtype)
+
+    @staticmethod
+    def _batched(inputs):
+        """One utterance ((T, F) features or (T,) tokens) as a batch of
+        one; a batch as it is."""
+        return inputs[None] if inputs.ndim == (
+            2 if inputs.is_floating_point() else 1) else inputs
+
     def analyze(self, inputs, inputs_mask, labels, labels_mask):
         """The teacher-forced cost and alignment of batch-major labels
         (JAX ``SpeechRecognizer.analyze``): ``costs`` (T, B), ``weights``
@@ -362,7 +393,7 @@ class SpeechRecognizer:
         none) as numpy, through :meth:`RecognizerNet.cost` under
         ``torch.no_grad()``."""
         with torch.no_grad():
-            out = self.net.cost(self._tensor(inputs),
+            out = self.net.cost(self.inputs_tensor(inputs),
                                 self._tensor(inputs_mask),
                                 self._tensor(labels, torch.long),
                                 self._tensor(labels_mask))
@@ -371,14 +402,13 @@ class SpeechRecognizer:
 
     def sample(self, inputs, inputs_mask=None, n_steps=None, generator=None):
         """Sample from the model (JAX ``SpeechRecognizer.sample``): one
-        (T, F) utterance or a (B, T, F) batch; ``n_steps`` defaults to T
+        (T, F) utterance or a (B, T, F) batch (a lookup bottom's: (T,) or
+        (B, T) tokens); ``n_steps`` defaults to T
         divided by ``max_decoded_length_scale``, ``generator`` to a
         ``torch.Generator`` on the model's device seeded with 0.  Returns
         ``outputs``, ``costs``, ``weights`` and ``readouts`` as numpy,
         time-major (n_steps, B, ...)."""
-        inputs = self._tensor(inputs)
-        if inputs.ndim == 2:
-            inputs = inputs[None]
+        inputs = self._batched(self.inputs_tensor(inputs))
         mask = (torch.ones(inputs.shape[:2], device=self.device)
                 if inputs_mask is None else self._tensor(inputs_mask))
         if n_steps is None:
@@ -403,16 +433,15 @@ class SpeechRecognizer:
 
     def beam_search(self, inputs, inputs_mask=None, pad_frames_multiple=100,
                     pad_batch_multiple=8, **kwargs):
-        """Decode one (T, F) utterance or a (B, T, F) batch.
+        """Decode one (T, F) utterance or a (B, T, F) batch (a lookup
+        bottom's: (T,) or (B, T) tokens).
 
         Time is zero-padded to a multiple of ``pad_frames_multiple`` and
         the batch to a multiple of ``pad_batch_multiple`` (a single
         utterance stays single) with zero mask, like the JAX package; the
         decode-length cap comes from the unpadded T."""
         self.init_beam_search(self.beam_size or 10)
-        inputs = self._tensor(inputs)
-        if inputs.ndim == 2:
-            inputs = inputs[None]
+        inputs = self._batched(self.inputs_tensor(inputs))
         mask = (torch.ones(inputs.shape[:2], device=self.device)
                 if inputs_mask is None else self._tensor(inputs_mask))
         B, T = inputs.shape[:2]

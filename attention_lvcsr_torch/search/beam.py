@@ -13,9 +13,10 @@ as the JAX package does on its accelerator:
   the model's device whose step is the recognizer's ``decode_score`` (the
   attention energies through ``beam_attention_energies``, or the whole
   score step through ``fused_decode_score`` under ``use_pallas:
-  fused``), candidate selection, and ``decode_advance`` (the GRU stack
-  and the LM); the carry's lane-stacked states of every layer are
-  reordered by the chosen source rows with the rest of the carry.
+  fused``), candidate selection, and ``decode_advance`` (the decoder's
+  stack and the LM); the carry's lane-stacked states of every layer (and
+  an LSTM decoder's cells) are reordered by the chosen source rows with
+  the rest of the carry.
 
 Both return the same arrays (``done_out``, ``done_cost``,
 ``done_adjusted``, ``done_len``, ``done_valid``, ``steps``) with the JAX
@@ -37,8 +38,8 @@ decoding hook, taken two ways:
   EOL, no BOS); a rejected one never enters the done set.
 
 Not ported yet, and raising ``NotImplementedError``: the bf16
-``compute_dtype`` and the model variants listed in
-``models/recognizer.py``.
+``compute_dtype`` and the configurations ``models/recognizer.py::
+unported_piece`` names.
 """
 from __future__ import annotations
 
@@ -221,7 +222,7 @@ class BeamSearch:
                 f"compute_dtype {self.compute_dtype!r}: only float32 "
                 "decoding is ported")
         device = self.recognizer.device
-        inputs = torch.as_tensor(inputs, dtype=torch.float32, device=device)
+        inputs = self.recognizer.inputs_tensor(inputs)
         inputs_mask = torch.as_tensor(inputs_mask, dtype=torch.float32,
                                       device=device)
         kw = dict(eol=int(eol_symbol), stop_on=stop_on,

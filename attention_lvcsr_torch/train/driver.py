@@ -74,6 +74,7 @@ from typing import Any, Callable, Iterable, Mapping, Optional
 import numpy as np
 import torch
 
+from attention_lvcsr_torch.models.bottom import SpeechBottom, bottom_class
 from attention_lvcsr_torch.models.params import NOISE_PREFIX, PREFIX
 from attention_lvcsr_torch.models.recognizer import (SpeechRecognizer,
                                                      draw_dropout_mask)
@@ -94,6 +95,7 @@ from attention_lvcsr_torch.train.monitoring import (AveragedTrainMonitoring,
                                                     BeamSearchErrorRate,
                                                     DataStreamMonitoring,
                                                     batch_tensors,
+                                                    input_key,
                                                     make_eval_fn)
 from attention_lvcsr_torch.train.rules import (build_optimizer, global_norm,
                                                load_state_arrays,
@@ -128,15 +130,23 @@ def attention_leaf(path: str) -> bool:
 
 def create_model(config, data, load_path=None, device="cuda"):
     """Build the recognizer from a config and its data manager and load a
-    checkpoint written by either package."""
+    checkpoint written by either package.  The bottom's kind picks its
+    source (JAX ``driver.py:74-81``): the ``recordings`` features of the
+    speech bottom, the ``inputs`` alphabet of the lookup bottom."""
     net_config = dict(config["net"])
     net_config.pop("input_sources", None)
     if config.get("regularization", {}).get("dropout"):
         net_config["dropout"] = True
+    bottom = bottom_class(net_config.get("bottom"))
+    source = bottom.input_source
+    if bottom is SpeechBottom:
+        input_dims, input_num_chars = {source: data.num_features(source)}, {}
+    else:
+        input_dims = {}
+        input_num_chars = {source: len(data.character_map(source))}
     recognizer = SpeechRecognizer(
-        dict(net_config,
-             input_dims={"recordings": data.num_features("recordings")},
-             input_num_chars={},
+        dict(net_config, input_dims=input_dims,
+             input_num_chars=input_num_chars,
              eos_label=data.eos_label,
              num_phonemes=data.num_labels,
              character_map=data.character_map("labels"),
@@ -499,7 +509,9 @@ class GradientDescent:
     gets :func:`noise_generator` of ``seed`` and ``iteration()``, the
     iterations done before it (by default the batches this object has
     processed; ``run_training`` reads the loop's log, which a resumed run
-    restores); a step without noise ignores it.
+    restores); a step without noise ignores it.  A batch's inputs are the
+    recognizer's source (the JAX ``GradientDescent``'s ``batch_keys``):
+    ``recordings``, or a lookup bottom's ``inputs``.
 
     ``compile_stats`` holds what the JAX package's ``GradientDescent``
     keeps of its compilations: ``compile_time_s``, the summed wall time of
@@ -526,7 +538,7 @@ class GradientDescent:
         t0 = time.time()
         generator = noise_generator(self.recognizer.device, self.seed,
                                     self.iteration())
-        tensors = batch_tensors(batch, self.recognizer.device)
+        tensors = batch_tensors(batch, self.recognizer)
         shapes = tuple(tuple(x.shape) for x in tensors)
         first = shapes not in self._shapes
         self._shapes.add(shapes)
@@ -573,8 +585,9 @@ def run_training(recognizer: SpeechRecognizer, optimizer,
                  profile=False, printing=True, num_examples=None,
                  extensions=()):
     """Train ``recognizer`` with ``optimizer`` over ``batch_stream()``
-    (called once per epoch; each batch a mapping with ``recordings``,
-    ``recordings_mask``, ``labels`` and ``labels_mask``), checkpointing to
+    (called once per epoch; each batch a mapping with the recognizer's
+    source, ``recordings`` or a lookup bottom's ``inputs``, its mask,
+    ``labels`` and ``labels_mask``), checkpointing to
     ``save_path`` before the first epoch (unless ``fast_start``), after
     every epoch and every ``save_every_n_batches``.  With
     ``valid_stream`` (a factory like ``batch_stream``), the validation
@@ -848,12 +861,7 @@ def train_multistage(config, save_path, params_path=None, start_stage=None,
                           final_stage, **kwargs)
 
 
-def _input_key(recognizer):
-    return ("recordings" if "recordings" in recognizer.net_config["input_dims"]
-            else "inputs")
-
-
-def _batched_decode_iter(stream, recognizer, input_key, decode_batch,
+def _batched_decode_iter(stream, recognizer, key, decode_batch,
                          search_kwargs, decode_only):
     """Decode the stream's examples in chunks of ``decode_batch``, one
     batched beam search a chunk (zero-padded to its longest utterance);
@@ -866,7 +874,7 @@ def _batched_decode_iter(stream, recognizer, input_key, decode_batch,
         if not chunk:
             return
         B = len(chunk)
-        arrs = [np.asarray(ex[input_key]) for _, ex in chunk]
+        arrs = [np.asarray(ex[key]) for _, ex in chunk]
         max_t = max(len(a) for a in arrs)
         batch = np.zeros((B, max_t) + arrs[0].shape[1:], arrs[0].dtype)
         mask = np.zeros((B, max_t), np.float32)
@@ -935,7 +943,7 @@ def run_search(recognizer, examples, dataset, search_conf, *,
     from attention_lvcsr_torch.search.beam import CandidateNotFoundError
     print_to = print_to or sys.stdout
     recognizer.init_beam_search(search_conf.get("beam_size", 10))
-    input_key = _input_key(recognizer)
+    key = input_key(recognizer)
 
     def to_words(chars):
         return [vocabulary.get(word, vocabulary.get("<UNK>", "<UNK>"))
@@ -960,7 +968,7 @@ def run_search(recognizer, examples, dataset, search_conf, *,
     decode_batch = int(search_conf.get("decode_batch", 1) or 1)
     if decode_batch > 1 and not nll_only:
         example_iter = _batched_decode_iter(
-            examples, recognizer, input_key, decode_batch, search_kwargs,
+            examples, recognizer, key, decode_batch, search_kwargs,
             decode_only)
     else:
         example_iter = ((n, ex, None, None, None)
@@ -970,7 +978,7 @@ def run_search(recognizer, examples, dataset, search_conf, *,
         for number, example, pre_out, pre_costs, pre_took in example_iter:
             uttids = example.pop("uttids", None)
             raw_groundtruth = np.asarray(example["labels"], np.int64)
-            inputs = np.asarray(example[input_key], np.float32)
+            inputs = recognizer.inputs_tensor(example[key])
             print(f"Utterance {number} ({uttids})", file=print_to)
             groundtruth = dataset.decode(raw_groundtruth)
             groundtruth_text = dataset.pretty_print(raw_groundtruth, example)
@@ -1098,15 +1106,14 @@ def sample(config, load_path, part="valid", device="cuda", print_to=None):
     data = Data(**config["data"])
     recognizer = create_model(config, data, load_path, device=device)
     dataset = data.get_dataset(part)
-    input_key = _input_key(recognizer)
+    key = input_key(recognizer)
     for number, example in enumerate(
             data.get_stream(part, batches=False, shuffle=False)):
         raw_groundtruth = example["labels"]
         print(f"Utterance {number}", file=print_to)
         print("Groundtruth:",
               dataset.pretty_print(raw_groundtruth, example), file=print_to)
-        result = recognizer.sample(
-            np.asarray(example[input_key], np.float32))
+        result = recognizer.sample(recognizer.inputs_tensor(example[key]))
         outputs = result["outputs"][:, 0]
         print("Recognized:", dataset.pretty_print(outputs, example),
               file=print_to)

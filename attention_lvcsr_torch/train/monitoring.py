@@ -27,18 +27,25 @@ from attention_lvcsr_torch.ops.expressions import (entropy,
                                                    monotonicity_penalty)
 from attention_lvcsr_torch.train.loop import SimpleExtension
 
-BATCH_KEYS = ("recordings", "recordings_mask", "labels", "labels_mask")
+def input_key(recognizer):
+    """The source a recognizer reads, its bottom's ``input_source`` (JAX
+    ``driver.py:428-430``): ``recordings`` for the speech bottom,
+    ``inputs`` for the lookup bottom."""
+    return recognizer.net.bottom.input_source
 
 
-def batch_tensors(batch, device):
+def batch_tensors(batch, recognizer):
     """(inputs, inputs_mask, labels, labels_mask) of a batch mapping of
-    numpy arrays or tensors, on ``device``, as the cost takes them."""
-    inputs, inputs_mask, labels, labels_mask = (
+    numpy arrays or tensors, on the recognizer's device, as its cost takes
+    them: the inputs are its source (:func:`input_key`) as its bottom
+    reads them (``SpeechRecognizer.inputs_tensor``)."""
+    key = input_key(recognizer)
+    inputs_mask, labels, labels_mask = (
         torch.as_tensor(batch[k] if torch.is_tensor(batch[k])
-                        else np.asarray(batch[k]), device=device)
-        for k in BATCH_KEYS)
-    return (inputs.float(), inputs_mask.float(), labels.long(),
-            labels_mask.float())
+                        else np.asarray(batch[k]), device=recognizer.device)
+        for k in (f"{key}_mask", "labels", "labels_mask"))
+    return (recognizer.inputs_tensor(batch[key]), inputs_mask.float(),
+            labels.long(), labels_mask.float())
 
 
 class AveragedTrainMonitoring(SimpleExtension):
@@ -90,7 +97,7 @@ def make_eval_fn(recognizer):
 
     def eval_fn(batch):
         inputs, inputs_mask, labels, labels_mask = batch_tensors(
-            batch, recognizer.device)
+            batch, recognizer)
         with torch.no_grad():
             out = net.cost(inputs, inputs_mask, labels, labels_mask)
             lm = labels_mask.T
@@ -177,13 +184,11 @@ class BeamSearchErrorRate(SimpleExtension):
         total_errors = total_length = 0.0
         num_examples = 0
         for batch in self.stream_factory():
-            inputs = batch["recordings"] if "recordings" in batch \
-                else batch["inputs"]
-            mask_key = ("recordings_mask" if "recordings_mask" in batch
-                        else "inputs_mask")
+            key = input_key(self.recognizer)
+            inputs = batch[key]
             try:
                 out = self.recognizer.beam_search(
-                    inputs, batch[mask_key], as_arrays=True,
+                    inputs, batch[f"{key}_mask"], as_arrays=True,
                     **self.search_kwargs)
                 best = np.where(out["done_valid"].any(axis=1),
                                 np.argmin(out["done_adjusted"], axis=1), -1)

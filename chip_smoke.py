@@ -24,7 +24,10 @@ LM-graph command line, decodes with it fused in through the search
 driver and scores the decodes with the port's scorer; and trains the
 flagship network with dropout and weight noise through the training
 services (plots, their server, the profiler, a data worker, the NaN
-guard) and the native host DP.  Phases, each
+guard) and the native host DP; and decodes and trains the model
+variants no recipe uses (the top MLP with one-hot feedback, the LSTM
+and simple-RNN decoders, the simple-RNN encoder) and the autoencoder
+prototype's lookup-bottom model.  Phases, each
 fatal on failure:
 
 1. build the kernels (one nvcc per source, sm_90a) and print the time;
@@ -251,10 +254,12 @@ fatal on failure:
     (mean, from ``pretraining_best_ll.zip``) stages and one stage each of
     ``wsj_bhd4.yaml`` and ``wsj_good.yaml`` (no subsampling, no post-merge
     layer: the module route), 2 batches of 10 an epoch with validation and
-    search (beam 10, U=4), on the kernels and on the plain route:
-    train_cost, total_gradient_norm and validation costs within 1e-4
-    relative, the same hypotheses (more than half non-empty), each
-    recipe's decode route and launches, utt/s;
+    search (beam 10, U=4), on the kernels and on the plain route (each
+    recipe's first stage whole; a later stage's start and first step, from
+    the checkpoint the kernel route's stage loaded): train_cost,
+    total_gradient_norm and validation costs within 1e-4 relative, the
+    same hypotheses (more than half of the compared ones non-empty),
+    each recipe's decode route and launches, utt/s;
 23. stacked GRU decoders (``dec_stack`` 2-4, the wsj_jan_* recipes): (a)
     ``beam_search_loop``'s stacked instance against the plain loop at
     wsj_jan_wsj13v2.yaml's widths (two 256-unit layers over a 3x256
@@ -376,6 +381,34 @@ fatal on failure:
     ``build/host/``: ``batch_reward_and_gain`` at B=32, 100 labels, 32
     symbols gives the numpy rows' integers, both timed; the phase's
     seconds.
+28. the model variants no recipe uses, at the flagship's widths (random
+    weights from seed 1234), each on the kernels JAX's route takes and
+    against the plain route: (a) ``dims_top: [500]`` with one-hot
+    feedback (``embed_outputs: false``, the loop kernel's F = A = 33): the
+    loop kernel against the plain loop at U=64, 800 frames, beam 10, a
+    100-step cap, the EOS logit raised (``VARIANT_EOS_BIAS``: a random
+    model's hypotheses must finish), the decode through
+    ``beam_search`` (``gru_scan`` and ``beam_search_loop`` launched, as
+    phase 4 compares), two training steps (the GRU training scans,
+    ``decoder_scan_train``, ``outer_sum``) against one on the plain route
+    (phase 13's tolerance); (b) the LSTM decoder: the module decode at
+    U=16 (``gru_scan`` and ``beam_attention_energies``, not the loop
+    kernel), the energies kernel timed at that decode's operands, a
+    dictionary-constrained decode under ``use_pallas: fused``
+    (``fused_decode_score``), two training steps (no
+    ``decoder_scan_train``) against the plain route; (c) a simple-RNN
+    encoder and decoder: the module decode at U=16
+    (``beam_attention_energies`` only) and one training step (no kernel,
+    as in JAX); (d) ``prototype_autoencoder.yaml``, read through the port's
+    config loader (``autoencoder_config``; a lookup bottom, content
+    attention, the states in the readout) on a seeded copy task: four
+    batches of ten through ``run_stage`` and a search over 16 utterances through ``run_search`` (the EOS logit +1.0,
+    char_discount 4.0), on the kernels and on the plain route: per-batch
+    ``train_cost`` within phase 13's tolerance, the reports as phase 18
+    compares them, at least half the hypotheses non-empty, and
+    ``gru_scan_train_bidir``, ``decoder_scan_train`` (its content branch)
+    and ``gru_scan`` timed at the prototype's shapes; each part's seconds
+    and launches.
 
 Nothing of JAX or of the JAX package is imported; the script checks it.
 
@@ -407,7 +440,11 @@ rows at D=1000 with D=500 beside them, phase 24a-b;
 phase 25a's other beams and 25b's resident and workspace times at beam
 10 beside it; ``workspace_launches``, phase 25c-d's kernel route;
 ``recipe_launches``, phase 26c's kernel route; ``services_launches``,
-phase 27b's kernel route);
+phase 27b's kernel route; ``top_onehot`` for the loop, ``lstm_decoder_U16``
+for the energies and ``autoencoder`` for ``gru_scan``,
+``gru_scan_train_bidir`` and ``decoder_scan_train``, phase 28's shapes;
+``variant_model_launches``, phase 28's kernel routes per variant and
+path);
 the line before it holds the rates, phase 21d's reward DP time and
 launches among them; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -937,6 +974,7 @@ def main():
         "beam_search_loop_ws"]
     recipe_launches = recipe_phase(t, dev, rates)
     services_launches = services_phase(t, dev, rates)
+    variant_model_launches = variants_phase(t, dev, results, rates)
 
     banned = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "attention_lvcsr_tpu"))
@@ -1002,6 +1040,11 @@ def main():
         k["recipe_launches"] = recipe_launches.get(k["name"], 0)
         # phase 27b's kernel route: a run_stage with the training services
         k["services_launches"] = services_launches.get(k["name"], 0)
+        # phase 28's kernel routes, per variant and path: the model
+        # variants no recipe uses
+        k["variant_model_launches"] = {
+            part: moved.get(k["name"], 0)
+            for part, moved in variant_model_launches.items()}
     log(json.dumps(dict(rates, build_s=lib.build_seconds)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -4245,9 +4288,11 @@ def reward_check(dev, rates):
 
 
 def run_stages(dev, data, stages, batches, valid, out_dir, start, searches,
-               **kwargs):
+               started=None, **kwargs):
     """``run_multistage`` over in-memory batches, recording every search's
-    best hypotheses: (loops, stage start and end times)."""
+    best hypotheses (and, into ``started``, each stage's first search's
+    index in ``searches`` and the checkpoint it loaded): (loops, stage
+    start and end times)."""
     import torch
     from attention_lvcsr_torch.train.driver import (create_model,
                                                     run_multistage)
@@ -4256,6 +4301,8 @@ def run_stages(dev, data, stages, batches, valid, out_dir, start, searches,
     def make_stage(config, load_path):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
+        if started is not None:
+            started.append((len(searches), load_path))
         rec = create_model(config, data, load_path, device=dev)
         search = rec.beam_search
 
@@ -4608,9 +4655,9 @@ def loop_ops(net, K, D, widths, steps):
 
 
 def loop_case(dev, results, phase, name, net, feats, fmask, K, max_len,
-              min_finished, repeats=3):
+              min_finished, repeats=3, eos_bias=1.5):
     """The loop kernel's decode of ``net`` (random weights from seed 1234,
-    the EOS logit raised by 1.5) against the plain loop on the same card
+    the EOS logit raised by ``eos_bias``) against the plain loop on the same card
     tensors, compared as in phase 3 (at least ``min_finished`` utterances
     must finish), a second launch bit for bit, the C layout of the
     instance ``ops/beam_loop.py::route`` takes, the times (``repeats``
@@ -4628,7 +4675,7 @@ def loop_case(dev, results, phase, name, net, feats, fmask, K, max_len,
         d = rec.net.decode_loop(feats, fmask)
         tables = dict(rec.net.decode_loop_tables())
     tables["post_b"] = tables["post_b"].clone()
-    tables["post_b"][rec.eos_label] += 1.5
+    tables["post_b"][rec.eos_label] += eos_bias
     prior = rec.net.generator.attention.prior_config()
     act = net.get("post_merge_activation") or "tanh"
     N = net.get("dec_stack") or 1
@@ -4977,13 +5024,29 @@ def variant_recipes_check(t, dev, rates):
                                  "wsj_good": None})
 
 
+def first_step(stage):
+    """A stage cut to its start and first step for the plain route:
+    validation and search before the first batch, one batch, no
+    validation or search after it."""
+    stage = copy.deepcopy(stage)
+    stage["training"]["num_batches"] = 1
+    stage["monitoring"].update(validate_every_epochs=2,
+                               search_every_epochs=2)
+    return stage
+
+
 def recipes_check(dev, rates, phase, recipes, batches, valid, loop_routes):
-    """The recipes' stages through ``run_multistage`` on the kernels and on
-    the plain route over the in-memory ``batches`` ({batch size: batches}
-    of an epoch), validation and search on ``valid`` before each stage
-    and after its epoch: train_cost, total_gradient_norm and validation
-    costs within 1e-4 relative, the same hypotheses, more than half of
-    them non-empty; the route of every search (``loop_routes``: the
+    """The recipes' stages through ``run_multistage`` on the kernels over
+    the in-memory ``batches`` ({batch size: batches} of an epoch),
+    validation and search on ``valid`` before each stage and after its
+    epoch, held against the plain route: each recipe's first stage whole
+    from the same start, each later stage's start (validation and search)
+    and first step from the checkpoint the kernel route's stage loaded
+    (``first_step``).  Where both routes ran, train_cost,
+    total_gradient_norm and validation costs within 1e-4 relative, the
+    same valid_per and hypotheses, more than half of the compared
+    hypotheses non-empty; every stage's costs finite; the route of every
+    search (``loop_routes``: the
     loop kernel's instance that launches, ``beam_search_loop`` resident
     or ``beam_search_loop_ws``, or None for the module route); utt/s.
     Returns the kernel route's launches, per recipe."""
@@ -5031,22 +5094,31 @@ def recipes_check(dev, rates, phase, recipes, batches, valid, loop_routes):
             last.data[data.eos_label] += 1.5
             save_checkpoint(start, rec.param_path_dict())
             del rec
-            routes = {}
-            for route in ("kernels", "plain"):
-                searches = []
-                for c in counters.values():
-                    c.reset()
-                with swapped(plain if route == "plain" else []):
-                    loops, marks = run_stages(dev, data, stages, batches,
-                                              valid,
-                                              os.path.join(tmp, route),
-                                              start, searches)
-                routes[route] = (loops, marks, searches, counts(counters))
+            for c in counters.values():
+                c.reset()
+            searches, started = [], []
+            loops, marks = run_stages(dev, data, stages, batches, valid,
+                                      os.path.join(tmp, "kernels"), start,
+                                      searches, started=started)
+            moved = counts(counters)
+            spans = {"kernels": list(zip(marks, marks[1:]))}
+            ref_loops, ref_searches, spans["plain"] = [], [], []
+            for c in counters.values():
+                c.reset()
+            with swapped(plain):
+                for number, (name, stage) in enumerate(stages):
+                    got = []
+                    lps, mks = run_stages(
+                        dev, data, [(name, first_step(stage) if number
+                                     else stage)], batches, valid,
+                        os.path.join(tmp, f"plain{number}"),
+                        started[number][1], got)
+                    ref_loops += lps
+                    ref_searches.append(got)
+                    spans["plain"].append(tuple(mks))
+            ref_moved = counts(counters)
         finally:
             shutil.rmtree(tmp)
-        (loops, marks, searches, moved), (ref_loops, _, ref_searches,
-                                          ref_moved) = (routes["kernels"],
-                                                        routes["plain"])
         loop_route = loop_routes[recipe]
         used = {k for k, v in moved.items() if v}
         # the module route's energies: one filter's through the energy
@@ -5066,35 +5138,51 @@ def recipes_check(dev, rates, phase, recipes, batches, valid, loop_routes):
         if used != want or any(ref_moved.values()):
             fail(f"phase {phase} {recipe}: launches {moved} on the kernels, "
                  f"{ref_moved} on the plain route (expected {sorted(want)})")
-        for (name, _), lp, lr in zip(stages, loops, ref_loops):
+        worst, nonempty, compared = 0.0, 0, 0
+        firsts = [first for first, _ in started] + [len(searches)]
+        for number, ((name, _), lp, lr, got) in enumerate(
+                zip(stages, loops, ref_loops, ref_searches)):
+            # the kernel route's records up to the plain run's last batch
+            horizon = lr.log.status["iterations_done"]
             for key in ("train_cost", "total_gradient_norm",
-                        "valid_sequence_total_cost"):
-                (tg, g), (tr, r) = lp.log.channel(key), lr.log.channel(key)
+                        "valid_sequence_total_cost", "valid_per"):
+                tg, g = lp.log.channel(key)
+                tr, r = lr.log.channel(key)
+                g = [v for i, v in zip(tg, g) if i <= horizon]
+                tg = [i for i in tg if i <= horizon]
+                if key == "valid_per":
+                    if tg != tr or g != r:
+                        fail(f"phase {phase} {recipe} {name}: valid_per {g} "
+                             f"vs plain {r}")
+                    continue
                 rel = np.abs(np.subtract(g, r)) / np.abs(r)
                 if tg != tr or not tg or not (np.isfinite(g).all()
                                               and rel.max() <= 1e-4):
                     fail(f"phase {phase} {recipe} {name}: {key} {g} vs plain "
                          f"{r}")
-            if lp.log.channel("valid_per") != lr.log.channel("valid_per"):
-                fail(f"phase {phase} {recipe} {name}: valid_per differs")
-        if len(searches) != len(ref_searches) or not searches:
-            fail(f"phase {phase} {recipe}: {len(searches)} searches vs "
-                 f"{len(ref_searches)} on the plain route")
-        worst = 0.0
-        for i, (got, ref) in enumerate(zip(searches, ref_searches)):
-            for u, ((h, c), (rh, rc)) in enumerate(zip(got, ref)):
-                if h != rh or (c is None) != (rc is None):
-                    fail(f"phase {phase} {recipe}: search {i} utterance {u}: "
-                         f"{h} ({c}) vs the plain route's {rh} ({rc})")
-                if c is not None:
-                    worst = max(worst, abs(c - rc) / max(abs(rc), 1e-6))
-        nonempty = sum(bool(h) for got in searches for h, _ in got)
-        searched = sum(len(g) for g in searches)
-        if worst > 1e-4 or nonempty <= searched // 2:
+            if not np.isfinite(lp.log.channel("train_cost")[1]).all():
+                fail(f"phase {phase} {recipe} {name}: train_cost "
+                     f"{lp.log.channel('train_cost')[1]}")
+            ours = searches[firsts[number]:firsts[number + 1]]
+            if not got or len(ours) < len(got):
+                fail(f"phase {phase} {recipe} {name}: {len(ours)} searches "
+                     f"vs {len(got)} on the plain route")
+            for i, (mine, ref) in enumerate(zip(ours, got)):
+                for u, ((h, c), (rh, rc)) in enumerate(zip(mine, ref)):
+                    if h != rh or (c is None) != (rc is None):
+                        fail(f"phase {phase} {recipe} {name}: search {i} "
+                             f"utterance {u}: {h} ({c}) vs the plain "
+                             f"route's {rh} ({rc})")
+                    if c is not None:
+                        worst = max(worst, abs(c - rc) / max(abs(rc), 1e-6))
+                    nonempty += bool(h)
+                    compared += 1
+        if worst > 1e-4 or nonempty <= compared // 2:
             fail(f"phase {phase} {recipe}: beam costs within {worst:.2e}, "
-                 f"{nonempty} of {searched} hypotheses non-empty")
-        for route, (lps, mks, _, _) in routes.items():
-            for (name, stage), lp, s0, s1 in zip(stages, lps, mks, mks[1:]):
+                 f"{nonempty} of {compared} compared hypotheses non-empty")
+        for route, lps in (("kernels", loops), ("plain", ref_loops)):
+            for (name, stage), lp, (s0, s1) in zip(stages, lps,
+                                                   spans[route]):
                 steps = lp.log.status["iterations_done"]
                 B = stage["data"]["batch_size"]
                 step_s = float(np.median(
@@ -5108,9 +5196,10 @@ def recipes_check(dev, rates, phase, recipes, batches, valid, loop_routes):
                     f"{B * steps / (s1 - s0):.2f} utt/s with validation "
                     f"and search, {B / step_s:.2f} utt/s in the steps")
         log(f"phase {phase} {recipe}: {len(searches)} searches on the "
-            f"{loop_route or 'module route'} with the "
-            f"plain route's hypotheses ({nonempty} of {searched} "
-            f"non-empty), beam costs within {worst:.2e}; launches {moved}; "
+            f"{loop_route or 'module route'}, "
+            f"{sum(len(g) for g in ref_searches)} of them with the plain "
+            f"route's hypotheses ({nonempty} of {compared} non-empty), beam "
+            f"costs within {worst:.2e}; launches {moved}; "
             f"{time.perf_counter() - t0:.1f} s")
         moved_all[recipe] = moved
     return moved_all
@@ -6574,7 +6663,6 @@ def services_step_check(t, dev, rates):
     from attention_lvcsr_torch.ops import gru_train as gt
     config = services_config(dict(FLAGSHIP_NET))
     net = dict(FLAGSHIP_NET, dropout=True)
-    batch = batch_tensors(next(services_arrays(1, 27, SERVICES_SHAPE)), dev)
     counters = train_counters()
 
     def model():
@@ -6582,6 +6670,7 @@ def services_step_check(t, dev, rates):
                                 seed=SERVICES_SEED, device=dev)
 
     rec = model()
+    batch = batch_tensors(next(services_arrays(1, 27, SERVICES_SHAPE)), rec)
     noise, mask = driver.regularization_draws(
         rec, config, batch[0].shape,
         driver.noise_generator(dev, SERVICES_SEED, 0))
@@ -6886,6 +6975,480 @@ def services_phase(t, dev, rates):
     log(f"phase 27: a {t1 - t0:.1f} s, b {t2 - t1:.1f} s, c {t3 - t2:.1f} "
         f"s, d {t4 - t3:.1f} s, all {t4 - t0:.1f} s; launches 27a "
         f"{step_moved}, 27b {moved}")
+    return moved
+
+
+
+# ---- 28. the model variants no recipe uses ---------------------------------
+
+# phase 28's EOS logit raise a variant: at least half of its random
+# model's utterances (three quarters on the loop kernel) must finish for
+# the routes' comparison to hold hypotheses
+VARIANT_EOS_BIAS = {"top_onehot": 3.0, "lstm": 1.5, "lstm_fused": 1.5,
+                    "simple_rnn": 1.5}
+
+
+def variant_counters():
+    """Every counter a variant's decode or training step may move."""
+    from attention_lvcsr_torch.ops import attention_energy as ae
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    from attention_lvcsr_torch.ops import decode_score as ds
+    return dict(train_counters(), beam_attention_energies=ae.launches,
+                beam_search_loop=bl.launches,
+                beam_search_loop_ws=bl.launches_ws,
+                fused_decode_score=ds.launches)
+
+
+def plain_decode_swaps():
+    """The decode kernels' wrappers swapped for their plain versions."""
+    from attention_lvcsr_torch.models import attention as attention_mod
+    from attention_lvcsr_torch.models import cells as cells_mod
+    from attention_lvcsr_torch.models import generator as generator_mod
+    from attention_lvcsr_torch.ops import attention_energy as ae
+    from attention_lvcsr_torch.ops import beam_loop as bl
+    from attention_lvcsr_torch.ops import decode_score as ds
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.search import beam as beam_mod
+    return [(cells_mod, "gru_scan", gs.gru_scan_reference),
+            (attention_mod, "beam_attention_energies",
+             ae.beam_attention_energies_reference),
+            (beam_mod, "beam_search_loop", bl.beam_search_loop_reference),
+            (generator_mod, "fused_decode_score",
+             ds.fused_decode_score_reference)]
+
+
+@contextlib.contextmanager
+def first_call(module, name):
+    """``module.name`` records the (args, kwargs) of its first call inside
+    the block, into the yielded list: the operands a kernel gets on a main
+    path, for timing it at those shapes."""
+    calls, fn = [], getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        if not calls:
+            calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+    with swapped([(module, name, wrapper)]):
+        yield calls
+
+
+def kernel_at(name, kernel, plain, calls, ops, repeats=5):
+    """A kernel's time at the operands of its first recorded call against
+    its plain version's (forward only), the largest difference of their
+    outputs and the bound of the work."""
+    import torch
+    args, kwargs = calls[0]
+    with torch.no_grad():
+        got, ref = kernel(*args, **kwargs), plain(*args, **kwargs)
+    outs = lambda x: [y for y in (x if isinstance(x, tuple) else (x,))
+                      if y is not None]
+    err = max(float((a - b).abs().max()) for a, b in zip(outs(got),
+                                                         outs(ref)))
+    if not err <= 1e-3:
+        fail(f"{name} disagrees with its plain version at the variant's "
+             f"shapes: {err}")
+    leaves = [x for a in list(args) + list(kwargs.values())
+              for x in (a if isinstance(a, tuple) else (a,))
+              if torch.is_tensor(x)]
+    with torch.no_grad():
+        return dict({"shapes": [list(x.shape) for x in leaves
+                                if x.dim() >= 2][:3],
+                     "max_abs_err": err,
+                     "ms": cuda_ms(lambda: kernel(*args, **kwargs), repeats),
+                     "plain_ms": cuda_ms(lambda: plain(*args, **kwargs), 1),
+                     "library_ms": None},
+                    **bound(nbytes(*leaves, *outs(got)), ops))
+
+
+def variant_decode(t, dev, phase, name, net, U, frames, launched, idle,
+                   rates, seed, **search_kw):
+    """A beam-10 decode of ``net`` (random weights from seed 1234, the EOS
+    logit raised by ``VARIANT_EOS_BIAS[name]``, a 100-step cap) through
+    ``SpeechRecognizer.beam_search`` on U ragged utterances of up to
+    ``frames`` frames: every counter of ``launched`` moves and none of
+    ``idle``; then the same decode on the plain route, compared as in
+    phase 4.  Returns the kernel route's launches."""
+    import torch
+    from attention_lvcsr_torch.models.recognizer import SpeechRecognizer
+    rec = SpeechRecognizer(dict(net, max_decoded_length_scale=8.0),
+                           init_config=FLAGSHIP_INIT, seed=1234, device=dev)
+    rec.net.generator.readout.post_merge_0.bias.data[rec.eos_label] += \
+        VARIANT_EOS_BIAS[name]
+    rec.init_beam_search(10)
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(frames * 3 // 4, frames + 1, size=U)
+    lengths[0] = frames
+    feats = t(rng.randn(U, frames, 123))
+    fmask = t(np.arange(frames)[None] < lengths[:, None])
+
+    def decode():
+        out = rec.beam_search(feats, fmask, as_arrays=True, **search_kw)
+        torch.cuda.synchronize()
+        return out
+
+    counters = variant_counters()
+    for c in counters.values():
+        c.reset()
+    out = decode()
+    moved = counts(counters)
+    if min(moved[k] for k in launched) < 1 or any(moved[k] for k in idle):
+        fail(f"{name} decode: the kernels {launched} must launch and "
+             f"{idle} must not: {moved}")
+    _, times = timed_decodes(decode, 2)
+    with swapped(plain_decode_swaps()):
+        ref, ptimes = timed_decodes(decode, 1)
+    err = compare_outputs(f"{name} decode", out, ref)
+    finished = int(out["done_valid"].any(axis=1).sum())
+    if finished < U // 2:
+        fail(f"{name} decode: only {finished}/{U} utterances finished: the "
+             f"comparison is too weak")
+    rates[f"{name}_decode_utt_per_s"] = U / min(times)
+    rates[f"plain_{name}_decode_utt_per_s"] = U / ptimes[0]
+    log(f"phase {phase} {name} decode U={U} frames<={frames} beam=10 steps="
+        f"{int(np.max(out['steps']))}: launches {moved}; {finished}/{U} "
+        f"finished; kernel route {rates[f'{name}_decode_utt_per_s']:.2f} "
+        f"utt/s ({[round(x, 3) for x in times]} s), plain route "
+        f"{rates[f'plain_{name}_decode_utt_per_s']:.2f} utt/s; outputs "
+        f"agree (max abs cost err {err:.3e})")
+    return moved, rec
+
+
+def variant_train(t, dev, phase, name, net, launched, idle, rates, seed,
+                  n=2, n_plain=1):
+    """``n`` training steps of ``net`` (phase 13's batches: B=32, 800
+    frames, 100 labels, ragged) through ``run_training``: every counter
+    of ``launched`` moves and none of ``idle``; with ``n_plain``, that
+    many steps on the plain route, per-step monitors within phase 13's
+    tolerance.  Returns the kernel route's launches."""
+    B = 32
+    batches = train_batches(t, dev, n, seed=seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, moved, got = train_steps(dev, net, batches, n,
+                                       os.path.join(tmp, "kernel.zip"))
+        if any(not moved[k] for k in launched) \
+                or any(moved[k] for k in idle):
+            fail(f"{name} training: the kernels {launched} must launch and "
+                 f"{idle} must not: {moved}")
+        if not np.isfinite(got["train_cost"]).all():
+            fail(f"{name} training: non-finite costs {got['train_cost']}")
+        if n_plain:
+            ref = plain_train_steps(dev, net, batches, n_plain,
+                                    os.path.join(tmp, "plain.zip"))
+            steps_agree(phase, name, got, ref)
+    rates[f"{name}_train_step_utt_per_s"] = B / float(
+        np.min(got["time_train_this_batch"]))
+    log(f"phase {phase} {name} training B={B} frames=800 labels=100: "
+        f"launches {moved}; kernel route "
+        f"{rates[f'{name}_train_step_utt_per_s']:.2f} utt/s (fastest of "
+        f"{n} steps, {[round(float(x), 3) for x in got['time_train_this_batch']]}"
+        f" s); train_cost {got['train_cost'].tolist()}")
+    return moved
+
+
+def top_onehot_check(t, dev, results, rates):
+    """Phase 28a: ``dims_top: [500]`` with one-hot feedback at the
+    flagship's widths: the loop kernel (F = A = 33) against the plain loop
+    at U=64, 800 frames, the decode through ``beam_search`` and two
+    training steps against the plain route."""
+    from __graft_entry__ import FLAGSHIP_NET
+    net = dict(FLAGSHIP_NET, dims_top=[500], embed_outputs=False)
+    U, frames = 64, 800
+    rng = np.random.RandomState(28)
+    feats = t(rng.randn(U, frames, 123))
+    lengths = rng.randint(frames * 3 // 4, frames + 1, size=U)
+    lengths[0] = frames
+    fmask = t(np.arange(frames)[None] < lengths[:, None])
+    loop_case(dev, results, "28a", "top_onehot", net, feats, fmask, 10,
+              frames // 8, U * 3 // 4,
+              eos_bias=VARIANT_EOS_BIAS["top_onehot"])
+    decode = variant_decode(t, dev, "28a", "top_onehot", net, U, frames,
+                            ("gru_scan", "beam_search_loop"),
+                            ("beam_attention_energies",
+                             "fused_decode_score"), rates, 281)[0]
+    train = variant_train(t, dev, "28a", "top_onehot", net,
+                          ("gru_scan_train_bidir", "decoder_scan_train",
+                           "outer_sum"), ("gru_scan",), rates, 282)
+    return {"top_onehot decode": decode, "top_onehot train": train}
+
+
+def lstm_decoder_check(t, dev, results, rates):
+    """Phase 28b: the LSTM decoder (S=250) on the flagship: the module
+    decode at U=16 (gru_scan and beam_attention_energies, not the loop
+    kernel), the energies kernel at its operands, a dictionary-constrained
+    decode under ``use_pallas: fused`` (fused_decode_score), two training
+    steps (the encoder's kernels; no decoder_scan_train) against the
+    plain route."""
+    from __graft_entry__ import FLAGSHIP_NET
+    from attention_lvcsr_torch.models import attention as attention_mod
+    from attention_lvcsr_torch.ops import attention_energy as ae
+    from attention_lvcsr_torch.search.beam import DecodeConstraint
+    net = dict(FLAGSHIP_NET, dec_transition="LSTM")
+    U, frames, K = 16, 800, 10
+    with first_call(attention_mod, "beam_attention_energies") as calls:
+        decode, rec = variant_decode(
+            t, dev, "28b", "lstm", net, U, frames,
+            ("gru_scan", "beam_attention_energies"),
+            ("beam_search_loop", "beam_search_loop_ws",
+             "fused_decode_score"), rates, 283)
+    L, M = calls[0][0][0].shape[1:]
+    energy = kernel_at("beam_attention_energies", ae.beam_attention_energies,
+                       ae.beam_attention_energies_reference, calls,
+                       6 * U * K * L * M, repeats=20)
+    results.setdefault("beam_attention_energies", {})[
+        "lstm_decoder_U16"] = energy
+    log(f"phase 28b beam_attention_energies at the LSTM decode's U={U} "
+        f"K={K} L={L} M={M}: kernel {energy['ms']:.4f} ms (host-paced "
+        f"eager launches), plain {energy['plain_ms']:.4f} ms, bound "
+        f"{energy['bound_ms']:.5f} ms, max abs err "
+        f"{energy['max_abs_err']:.2e}")
+    wrng = np.random.RandomState(9)
+    words = sorted({"".join(wrng.choice(CHARS[:26], size=wrng.randint(2, 8)))
+                    for _ in range(300)})
+    constraint = DecodeConstraint.from_words(words, CHAR_MAP, 32)
+    fused = variant_decode(
+        t, dev, "28b", "lstm_fused", dict(net, use_pallas="fused"), U,
+        frames, ("gru_scan", "fused_decode_score"),
+        ("beam_search_loop", "beam_search_loop_ws",
+         "beam_attention_energies"), rates, 284, char_discount=1.0,
+        validate_solution_function=constraint)[0]
+    train = variant_train(t, dev, "28b", "lstm", net,
+                          ("gru_scan_train_bidir", "outer_sum"),
+                          ("decoder_scan_train", "gru_scan"), rates, 285)
+    return {"lstm decode": decode, "lstm fused decode": fused,
+            "lstm train": train}
+
+
+def simple_rnn_check(t, dev, rates):
+    """Phase 28c: a simple-RNN encoder and decoder at the flagship's
+    widths: the module decode at U=16 (beam_attention_energies only: the
+    encoder's scan and the decoder are PyTorch steps, host-paced, as the
+    JAX package has them) against the plain route, one training step
+    (no kernel: module scans under autograd)."""
+    from __graft_entry__ import FLAGSHIP_NET
+    net = dict(FLAGSHIP_NET, enc_transition="SimpleRecurrent",
+               dec_transition="SimpleRecurrent")
+    decode = variant_decode(
+        t, dev, "28c", "simple_rnn", net, 16, 800,
+        ("beam_attention_energies",),
+        ("gru_scan", "beam_search_loop", "beam_search_loop_ws",
+         "fused_decode_score"), rates, 286)[0]
+    train = variant_train(t, dev, "28c", "simple_rnn", net, (),
+                          TRAIN_KERNELS, rates, 287, n=1, n_plain=0)
+    return {"simple_rnn decode": decode, "simple_rnn train": train}
+
+
+class TextData(SmokeData):
+    """A text-only data manager over the flagship's characters, as
+    ``create_model`` and ``run_search`` read one: the inputs are the
+    labels' characters (``character_map("inputs")``), no BOS."""
+    add_bos = 0
+
+
+def text_examples(n, seed):
+    """``n`` copy-task utterances: ``inputs`` a random sentence of 20-60
+    characters of words and spaces, ``labels`` the same followed by EOS
+    (as the data pipeline appends it)."""
+    rng = np.random.RandomState(seed)
+    examples = []
+    for i in range(n):
+        length = rng.randint(20, 61)
+        ids = rng.randint(0, 27, size=length)      # a-z and <spc>
+        examples.append({
+            "inputs": ids.astype(np.int64),
+            "labels": np.concatenate([ids, [CHAR_MAP["<eol>"]]]).astype(
+                np.int64),
+            "uttids": f"text{i:02d}"})
+    return examples
+
+
+# the search's EOS logit raise and discount a character: the prototype's
+# init (uniform, width 0.1) gives every symbol a cost of about log 32 a
+# step, so without the raise no hypothesis ends within the beam (run_search
+# finds none), and a discount above that cost makes the hypotheses run
+# past the first EOS, so that the routes' comparison covers their symbols
+AUTOENCODER_EOS_BIAS = 1.0
+AUTOENCODER_CHAR_DISCOUNT = 4.0
+
+
+def autoencoder_config(directory):
+    """The config of phase 28d, read as ``run.py train`` reads it: a file
+    in ``directory`` whose ``parent:`` names the JAX package's
+    ``prototype_autoencoder.yaml`` (the port's loader resolves it to the
+    port's copy), with four batches.  ``run.py`` itself reads its data
+    from an H5 file through h5py, which the card's Python lacks, so the
+    phase hands the config's stage in-memory batches."""
+    from attention_lvcsr_torch.config import Configuration
+    path = os.path.join(directory, "autoencoder.yaml")
+    with open(path, "w") as f:
+        f.write("parent: $LVSR_TPU/attention_lvcsr_tpu/config/prototypes/"
+                "prototype_autoencoder.yaml\n"
+                "training:\n    num_batches: 4\n")
+    return Configuration(path)
+
+
+def autoencoder_run(dev, config, out_dir, batches, valid, examples, plain):
+    """``config`` (``autoencoder_config``) through ``run_stage`` (run.py
+    train's driver) for its four batches, validating (and searching, as
+    the prototype's monitoring does) before the first, then ``run_search``
+    (run.py search's driver) over ``examples`` from the kernel route's
+    checkpoint, its EOS logit raised (``AUTOENCODER_EOS_BIAS``); with
+    ``plain`` every kernel swapped for its plain version.
+    Returns (loop, report, stats, launches of the training, of the
+    search)."""
+    import io
+
+    import torch
+    from attention_lvcsr_torch.models import cells as cells_mod
+    from attention_lvcsr_torch.models import generator as generator_mod
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    from attention_lvcsr_torch.ops import gru_train as gt
+    from attention_lvcsr_torch.train.driver import (create_model, run_search,
+                                                    run_stage)
+    def make_stage(conf, load_path):
+        return dict(recognizer=create_model(conf, TextData(), load_path,
+                                            device=dev),
+                    batch_stream=lambda: iter(batches),
+                    valid_stream=lambda: iter(valid), search_data=TextData())
+
+    swaps = plain_decode_swaps() + [
+        (cells_mod, "gru_scan_train", gt.gru_scan_train_reference),
+        (generator_mod, "decoder_scan_train",
+         dt.decoder_scan_train_reference)] if plain else []
+    counters = variant_counters()
+    with swapped(swaps):
+        for c in counters.values():
+            c.reset()
+        loop = run_stage(config, os.path.join(out_dir, "model.zip"),
+                         make_stage, printing=False)
+        torch.cuda.synchronize()
+        trained = counts(counters)
+        rec = create_model(config, TextData(),
+                           os.path.join(os.path.dirname(out_dir), "kernel",
+                                        "model.zip"), device=dev)
+        rec.net.generator.readout.merge_bias.data[rec.eos_label] += \
+            AUTOENCODER_EOS_BIAS
+        for c in counters.values():
+            c.reset()
+        buf = io.StringIO()
+        stats = run_search(rec, [dict(ex) for ex in examples], TextData(),
+                           dict(config["monitoring"]["search"],
+                                char_discount=AUTOENCODER_CHAR_DISCOUNT),
+                           print_to=buf)
+        torch.cuda.synchronize()
+        searched = counts(counters)
+    return loop, buf.getvalue(), stats, trained, searched
+
+
+def autoencoder_check(t, dev, results, rates):
+    """Phase 28d: prototype_autoencoder.yaml (lookup bottom, content
+    attention, the states in the readout, no post-merge layer) on a
+    seeded copy task: four batches of ten and a search over 16
+    utterances, on the kernel route and on the plain route; the training
+    kernels and the encoder's scan timed at the prototype's shapes."""
+    from attention_lvcsr_torch.data.pipeline import pad_batch
+    from attention_lvcsr_torch.models import cells as cells_mod
+    from attention_lvcsr_torch.models import generator as generator_mod
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    from attention_lvcsr_torch.ops import gru_scan as gs
+    from attention_lvcsr_torch.ops import gru_train as gt
+    pad = lambda exs: pad_batch(exs, ["inputs", "labels"])
+    train = text_examples(40, 288)
+    batches = [pad(train[i:i + 10]) for i in range(0, 40, 10)]
+    valid = [pad(text_examples(10, 289))]
+    examples = text_examples(16, 290)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "kernel"))
+        os.makedirs(os.path.join(tmp, "plain"))
+        config = autoencoder_config(tmp)
+        with first_call(cells_mod, "gru_scan_train") as train_calls, \
+                first_call(generator_mod, "decoder_scan_train") as dec_calls, \
+                first_call(cells_mod, "gru_scan") as scan_calls:
+            t0 = time.perf_counter()
+            loop, report, stats, trained, searched = autoencoder_run(
+                dev, config, os.path.join(tmp, "kernel"), batches, valid,
+                examples, False)
+            seconds = time.perf_counter() - t0
+        ploop, preport, pstats, ptrained, psearched = autoencoder_run(
+            dev, config, os.path.join(tmp, "plain"), batches, valid,
+            examples, True)
+    if min(trained["gru_scan_train_bidir"], trained["decoder_scan_train"],
+           trained["outer_sum"], searched["gru_scan"]) < 1 \
+            or searched["beam_search_loop"] or searched["beam_search_loop_ws"]:
+        fail(f"autoencoder: the kernel route did not take its kernels: "
+             f"training {trained}, search {searched}")
+    if any(ptrained[k] for k in TRAIN_KERNELS) or any(psearched.values()):
+        fail(f"autoencoder: the plain route launched kernels: {ptrained}, "
+             f"{psearched}")
+    got, ref = (np.array(x.log.channel("train_cost")[1]) for x in (loop,
+                                                                   ploop))
+    rel = np.abs(got - ref) / np.abs(ref)
+    if not (len(got) == len(ref) == 4 and np.isfinite(got).all()
+            and rel.max() <= 1e-4):
+        fail(f"autoencoder: train_cost per batch {got} vs plain {ref}")
+    err = reports_agree("autoencoder search", report, preport,
+                        list(range(len(examples))), stats, pstats)
+    recognized = [u.get("Recognized", "") for u in parse_report(report)]
+    if sum(1 for r in recognized if r) < len(examples) // 2:
+        fail(f"autoencoder search: fewer than half the hypotheses are "
+             f"non-empty ({recognized}): the comparison is too weak")
+    rates["autoencoder_train_and_search_s"] = seconds
+    shapes = {}
+    for key, kernel, plain, calls in (
+            ("gru_scan_train_bidir", gt.gru_scan_train,
+             gt.gru_scan_train_reference, train_calls),
+            ("decoder_scan_train", dt.decoder_scan_train,
+             dt.decoder_scan_train_reference, dec_calls),
+            ("gru_scan", gs.gru_scan, gs.gru_scan_reference, scan_calls)):
+        proj = calls[0][0][0]
+        T, B = proj.shape[:2]
+        if key == "decoder_scan_train":
+            S = calls[0][0][13].shape[0]
+            L, M = calls[0][0][3].shape[1:]
+            D = calls[0][0][4].shape[2]
+            # the fork of the fed-back labels comes in precomputed (fx,
+            # fg): phase 20a's count of the content branch
+            ops = T * B * (attention_step_ops(S, M, L, 0, D)
+                           + 2 * D * 3 * S + gru_step_ops(S))
+            dims = dict(T=T, B=B, L=L, M=M, D=D, S=S)
+        else:
+            D = calls[0][0][2][1].shape[0]
+            ops = T * B * (2 if len(calls[0][0]) > 3 else 1) \
+                * gru_step_ops(D)
+            dims = dict(T=T, B=B, D=D)
+        shapes[key] = dict(kernel_at(key, kernel, plain, calls, ops),
+                           dims=dims)
+        results.setdefault(key, {})["autoencoder"] = shapes[key]
+        log(f"phase 28d {key} at the autoencoder's {dims}"
+            f" (forward): kernel {shapes[key]['ms']:.3f} ms, plain "
+            f"{shapes[key]['plain_ms']:.3f} ms, bound "
+            f"{shapes[key]['bound_ms']:.5f} ms, max abs err "
+            f"{shapes[key]['max_abs_err']:.2e}")
+    log(f"phase 28d autoencoder: train_cost per batch {got.tolist()} vs "
+        f"plain {ref.tolist()} (max rel err {rel.max():.2e}); launches in "
+        f"training {trained}, in the search {searched}; search over "
+        f"{len(examples)} utterances agrees with the plain route (max rel "
+        f"cost err {err:.2e}), {sum(1 for r in recognized if r)} "
+        f"non-empty hypotheses, CER {stats['total_errors'] / stats['total_length']:.3f}; "
+        f"kernel route {seconds:.1f} s for the four batches and the search")
+    return {"autoencoder train": trained, "autoencoder search": searched}
+
+
+def variants_phase(t, dev, results, rates):
+    """Phase 28: the model variants no recipe uses, each on the kernels
+    its route takes.  Returns the kernel routes' launches per part."""
+    moved = {}
+    marks = [time.perf_counter()]
+    for check in (top_onehot_check, lstm_decoder_check):
+        moved.update(check(t, dev, results, rates))
+        marks.append(time.perf_counter())
+    moved.update(simple_rnn_check(t, dev, rates))
+    marks.append(time.perf_counter())
+    moved.update(autoencoder_check(t, dev, results, rates))
+    marks.append(time.perf_counter())
+    parts = "abcd"
+    log("phase 28: " + ", ".join(
+        f"{p} {b - a:.1f} s" for p, a, b in zip(parts, marks, marks[1:]))
+        + f", all {marks[-1] - marks[0]:.1f} s")
     return moved
 
 

@@ -86,6 +86,7 @@ def test_compile_stats_keys_as_in_jax():
     import optax
     from attention_lvcsr_tpu.train.algorithm import \
         GradientDescent as JaxGradientDescent
+    from attention_lvcsr_torch.models.bottom import SpeechBottom
     from attention_lvcsr_torch.train.driver import GradientDescent
 
     jalgo = JaxGradientDescent(
@@ -95,6 +96,10 @@ def test_compile_stats_keys_as_in_jax():
 
     class Rec:
         device = torch.device("cpu")
+        net = types.SimpleNamespace(bottom=SpeechBottom)
+
+        def inputs_tensor(self, x):
+            return torch.as_tensor(x, dtype=torch.float32)
 
         def optimized(self):
             return {}

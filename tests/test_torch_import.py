@@ -205,16 +205,11 @@ def test_recognizer_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("override,piece", [
-    ({"dims_top": [8]}, "dims_top"),
     ({"energy_normalizer": "softplus"}, "normalizer"),
     ({"attention_type": "hybrid"}, "attention_type"),
-    ({"embed_outputs": False}, "one-hot"),
     ({"criterion": {"name": "hinge"}}, "criterion"),
     ({"energy_normalizer": "softplus", "lm": {"path": "x.fst"}},
      "normalizer"),
-    ({"bottom": {"bottom_class": "lookup"}}, "lookup"),
-    ({"dec_transition": "lstm"}, "GRU"),
-    ({"enc_transition": "SimpleRecurrent"}, "SimpleRecurrent"),
 ])
 def test_unported_variants_raise(override, piece):
     with pytest.raises(NotImplementedError, match=piece):

@@ -527,9 +527,10 @@ def test_task_loss_configs_are_ported(path):
 
 
 @pytest.mark.parametrize("path,override,piece", [
-    ("exp/wsj/configs/wsj_jan_debug.yaml", {"dec_transition": "lstm"},
-     "GRU"),
-    ("exp/wsj/configs/wsj_jan_wsj13v2.yaml", {"dims_top": [8]}, "dims_top"),
+    ("exp/wsj/configs/wsj_jan_debug.yaml",
+     {"energy_normalizer": "softplus"}, "normalizer"),
+    ("exp/wsj/configs/wsj_jan_wsj13v2.yaml", {"attention_type": "hybrid"},
+     "attention_type"),
 ])
 def test_other_configs_still_refused(path, override, piece):
     """The stacked recipes pass since their decoder is ported; a piece no
