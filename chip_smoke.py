@@ -27,8 +27,9 @@ services (plots, their server, the profiler, a data worker, the NaN
 guard) and the native host DP; and decodes and trains the model
 variants no recipe uses (the top MLP with one-hot feedback, the LSTM
 and simple-RNN decoders, the simple-RNN encoder) and the autoencoder
-prototype's lookup-bottom model.  Phases, each
-fatal on failure:
+prototype's lookup-bottom model; and trains the quality proxy's model on
+its synthetic language and decodes it with and without that language's
+LM.  Phases, each fatal on failure:
 
 1. build the kernels (one nvcc per source, sm_90a) and print the time;
 2. ``gru_scan`` kernel vs its plain PyTorch version at the encoder's
@@ -175,11 +176,13 @@ fatal on failure:
     hypothesis is empty): 2 in-memory training batches of 16 (300-500
     frames, 30-60 labels) an epoch, validation and search (beam 10) on 4
     of their utterances before each stage and after each epoch; on the
-    kernels and on the plain route: the same files, per-step train_cost
-    and total_gradient_norm and the validation costs within 1e-4
-    relative, the same hypotheses in every search (beam costs within
-    1e-4 relative) and the same ``valid_per``; every kernel of the path
-    launches; each stage's wall time and utt/s; then ``main`` on the
+    kernels, and each stage's start and first step on the plain route
+    from the checkpoint the kernel route's stage loaded: every stage's
+    files, the first step's train_cost and total_gradient_norm and the
+    validation costs before it within 1e-4 relative, the same hypotheses
+    in the start's search (beam costs within 1e-4 relative) and the same
+    ``valid_per``; every kernel of the path launches; each stage's wall
+    time and utt/s; then ``main`` on the
     kernels stopped after its first epoch and resumed from its
     checkpoint (``use_load_ext``) writes the bits of the straight run;
 20. the TIMIT recipe, ``exp/timit/configs/nips_baseline.yaml`` at its
@@ -202,10 +205,12 @@ fatal on failure:
     ``_best_ll``) through ``run_multistage``, 2 in-memory batches of
     300-700 frames and 20-75 labels an epoch, 1 epoch a stage,
     validation and search (beam 10 at U=4) before each stage and after
-    each epoch, on the kernels and on the plain route: the same files
-    (the log-variances in the noisy stages'), per-step train_cost,
-    total_gradient_norm, model_cost and validation costs within 1e-4
-    relative, the same hypotheses and ``valid_per``, at least half the
+    each epoch, on the kernels, and each stage's start and first step on
+    the plain route from the checkpoint the kernel route's stage loaded:
+    the same parameter names (the log-variances in the noisy stages'),
+    the first step's train_cost, total_gradient_norm and model_cost and
+    the validation costs before it within 1e-4 relative, the same
+    hypotheses and ``valid_per`` in the start's search, at least half the
     hypotheses non-empty and one ``valid_per`` below 1; then ``main`` for
     two epochs straight and stopped after one and resumed (no
     validation), bit for bit; (d) ``run_search`` at decode_batch 4 over 8
@@ -229,9 +234,11 @@ fatal on failure:
     (e) the recipe's ``pretraining`` (max-norm, ``min_reward`` -1) and
     ``pretraining2`` (from ``pretraining_best_ll.zip``) stages, one epoch
     of 2 batches of 8 each with validation and search (beam 10, U=4), on
-    the kernels and on the plain route: train_cost, total_gradient_norm
-    and validation costs within 1e-4 relative, the same hypotheses (more
-    than half non-empty), utt/s of the steps and the stages; then
+    the kernels, and each stage's start and first step on the plain route
+    from the checkpoint the kernel route's stage loaded: the first step's
+    train_cost and total_gradient_norm and the validation costs before it
+    within 1e-4 relative, the same hypotheses in the start's search (more
+    than half of all non-empty), utt/s of the steps and the stages; then
     ``pretraining2`` stopped after an epoch and resumed, bit for bit;
     (f) one ``wsj_reward3.yaml`` (greedy) and one
     ``wsj_reward_mixed.yaml`` step at the flagship widths (B=32, 800
@@ -255,8 +262,8 @@ fatal on failure:
     ``wsj_bhd4.yaml`` and ``wsj_good.yaml`` (no subsampling, no post-merge
     layer: the module route), 2 batches of 10 an epoch with validation and
     search (beam 10, U=4), on the kernels and on the plain route (each
-    recipe's first stage whole; a later stage's start and first step, from
-    the checkpoint the kernel route's stage loaded): train_cost,
+    stage's start and first step, from the checkpoint the kernel route's
+    stage loaded): train_cost,
     total_gradient_norm and validation costs within 1e-4 relative, the
     same hypotheses (more than half of the compared ones non-empty),
     each recipe's decode route and launches, utt/s;
@@ -409,6 +416,24 @@ fatal on failure:
     ``gru_scan_train_bidir``, ``decoder_scan_train`` (its content branch)
     and ``gru_scan`` timed at the prototype's shapes; each part's seconds
     and launches.
+29. the quality proxy (``attention_lvcsr_torch/cli/quality_proxy.py``) at
+    its ``fast`` tier from seed 7, the data in memory (``--in-memory``:
+    the tool's ``ArrayDataset`` through ``Data``): the synthetic language,
+    its ARPA and ``LG_pushed``; the model trained through
+    ``train_multistage`` on the kernels for ``QUALITY_EPOCHS``, each
+    stage's first step held against the plain route from the same start
+    (train_cost and total_gradient_norm within 1e-4 relative); the
+    decodes of ``QUALITY_DECODES`` from the trained checkpoint through
+    the tool's ``decode_and_score`` (no LM and LM-fused at beams 10 and
+    20, no LM at beam 200 over one batch of 16, which at these widths
+    takes the loop kernel's workspace instance) on the kernels and on the
+    plain route: each
+    batch's outputs as ``compare_outputs`` compares them (reordered done
+    sets allowed), the same CER, WER and empty count, more than half of
+    the hypotheses non-empty; ``gru_scan_train_bidir``,
+    ``decoder_scan_train``, ``outer_sum``, ``gru_scan``, both loop
+    instances and ``beam_attention_energies`` launched; the seconds of
+    the build, the training, the decodes and the plain route.
 
 Nothing of JAX or of the JAX package is imported; the script checks it.
 
@@ -444,7 +469,7 @@ phase 27b's kernel route; ``top_onehot`` for the loop, ``lstm_decoder_U16``
 for the energies and ``autoencoder`` for ``gru_scan``,
 ``gru_scan_train_bidir`` and ``decoder_scan_train``, phase 28's shapes;
 ``variant_model_launches``, phase 28's kernel routes per variant and
-path);
+path; ``quality_launches``, phase 29's kernel route);
 the line before it holds the rates, phase 21d's reward DP time and
 launches among them; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -909,6 +934,7 @@ def main():
     except ImportError as exc:
         fail(f"{exc}: run this script from the root of the repository")
 
+    run_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -930,14 +956,21 @@ def main():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
 
+    marks = [time.perf_counter()]
     rec = decode_phases(t, dev, results, launches, rates)
+    marks.append(time.perf_counter())
     gru_train_phase(t, dev, results)
     decoder_train_phase(t, dev, results)
     train_step_phase(t, dev, launches, rates)
+    marks.append(time.perf_counter())
     frontend_phase(t, dev, results)
     waveform_serve_phase(dev, rec, launches)
+    marks.append(time.perf_counter())
     lstm_phase(t, dev, results)
     lstm_model_phase(t, dev, launches, rates)
+    marks.append(time.perf_counter())
+    log("phases 2-10 {:.1f} s, 11-13 {:.1f} s, 14-15 {:.1f} s, 16-17 {:.1f} "
+        "s".format(*np.diff(marks)))
     t0 = time.perf_counter()
     search_launches = search_phase(t, dev, launches, rates)
     log(f"phase 18: {time.perf_counter() - t0:.1f} s")
@@ -975,6 +1008,9 @@ def main():
     recipe_launches = recipe_phase(t, dev, rates)
     services_launches = services_phase(t, dev, rates)
     variant_model_launches = variants_phase(t, dev, results, rates)
+    t0 = time.perf_counter()
+    quality_launches = quality_phase(dev, rates)
+    log(f"phase 29: {time.perf_counter() - t0:.1f} s")
 
     banned = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "attention_lvcsr_tpu"))
@@ -1045,6 +1081,9 @@ def main():
         k["variant_model_launches"] = {
             part: moved.get(k["name"], 0)
             for part, moved in variant_model_launches.items()}
+        # phase 29's kernel route: the quality proxy's training and decodes
+        k["quality_launches"] = quality_launches.get(k["name"], 0)
+    log(f"all phases: {time.perf_counter() - run_start:.1f} s")
     log(json.dumps(dict(rates, build_s=lib.build_seconds)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -3228,9 +3267,9 @@ def stage_batches(t, dev, n, B, seed, frames=500, labels=60):
 
 def multistage_phase(t, dev, rates):
     """Phase 19: the three stages of wsj_paper.yaml through
-    ``run_multistage`` on the kernels and on the plain route, then the
-    kernel route's ``main`` resumed after its first epoch.  Returns the
-    kernel route's launches."""
+    ``run_multistage`` on the kernels, each stage's start and first step
+    on the plain route, then the kernel route's ``main`` resumed after its
+    first epoch.  Returns the kernel route's launches."""
     import torch
     from __graft_entry__ import FLAGSHIP_NET
     from attention_lvcsr_torch.models import cells as cells_mod
@@ -3267,15 +3306,19 @@ def multistage_phase(t, dev, rates):
     # one restarts from
     valid = [{k: v[:4] for k, v in train[0].items()}]
 
-    def run(out_dir, start, searches, stage_list=stages, **kwargs):
+    def run(out_dir, start, searches, stage_list=stages, firsts=None,
+            **kwargs):
         """run_multistage into ``out_dir``; each stage's search appends its
-        best hypotheses to ``searches``.  Returns (loops, [(stage, start
+        best hypotheses to ``searches`` (and each stage the index of its
+        first search to ``firsts``).  Returns (loops, [(stage, start
         time)], end time)."""
         marks = []
 
         def make_stage(config, load_path):
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
+            if firsts is not None:
+                firsts.append(len(searches))
             rec = create_model(config, data, load_path, device=dev)
             search = rec.beam_search
 
@@ -3292,8 +3335,6 @@ def multistage_phase(t, dev, rates):
         torch.cuda.synchronize()
         return loops, marks + [time.perf_counter()]
 
-    monitors = ("train_cost", "total_gradient_norm",
-                "valid_sequence_total_cost")
     tmp = tempfile.mkdtemp()
     try:
         start = os.path.join(tmp, "start.zip")
@@ -3303,56 +3344,45 @@ def multistage_phase(t, dev, rates):
             rec.eos_label] += 1.5
         save_checkpoint(start, rec.param_path_dict())
         del rec
-        routes = {}
-        for route in ("kernels", "plain"):
-            searches = []
-            out_dir = os.path.join(tmp, route)
-            for c in counters.values():
-                c.reset()
-            with swapped(plain if route == "plain" else []):
-                loops, marks = run(out_dir, start, searches)
-            routes[route] = (loops, marks, searches, counts(counters),
-                             sorted(os.listdir(out_dir)))
-        (loops, marks, searches, moved, files), (ref_loops, ref_marks,
-                                                 ref_searches, ref_moved,
-                                                 ref_files) = (
-            routes["kernels"], routes["plain"])
+        # the kernel route's stages, then on the plain route each stage's
+        # start and first step from the checkpoint the kernel route's
+        # stage loaded (``first_step``)
+        searches, firsts = [], []
+        for c in counters.values():
+            c.reset()
+        loops, marks = run(os.path.join(tmp, "kernels"), start, searches,
+                           firsts=firsts)
+        moved = counts(counters)
+        files = sorted(os.listdir(os.path.join(tmp, "kernels")))
+        ref_loops, ref_searches, spans = [], [], {
+            "kernels": list(zip(marks, marks[1:])), "plain": []}
+        for c in counters.values():
+            c.reset()
+        with swapped(plain):
+            for number, (name, stage) in enumerate(stages):
+                restart = stage["training"].get("restart_from", "")
+                load = start if not number else os.path.join(
+                    tmp, "kernels", f"{stages[number - 1][0]}{restart}.zip")
+                got = []
+                lps, mks = run(os.path.join(tmp, f"plain{number}"), load,
+                               got, [(name, first_step(stage))])
+                ref_loops += lps
+                ref_searches.append(got)
+                spans["plain"].append(tuple(mks))
+        ref_moved = counts(counters)
         if min(moved.values()) < 1 or any(ref_moved.values()):
             fail(f"phase 19: launches {moved} on the kernels, {ref_moved} "
                  f"on the plain route")
         expected = {f"{name}{suffix}" for name, _ in stages for suffix in (
             ".zip", "_params.npz", "_best_ll.zip", "_best_ll_params.npz")}
-        if files != ref_files or not expected <= set(files):
-            fail(f"phase 19: files {files} vs the plain route's {ref_files}")
-        for (name, _), lp, lr in zip(stages, loops, ref_loops):
-            for key in monitors:
-                (tg, g), (tr, r) = lp.log.channel(key), lr.log.channel(key)
-                rel = np.abs(np.subtract(g, r)) / np.abs(r)
-                if tg != tr or not tg or not (np.isfinite(g).all()
-                                              and rel.max() <= 1e-4):
-                    fail(f"phase 19 {name}: {key} {g} at {tg} vs plain {r} "
-                         f"at {tr}")
-            if lp.log.channel("valid_per") != lr.log.channel("valid_per"):
-                fail(f"phase 19 {name}: valid_per "
-                     f"{lp.log.channel('valid_per')} vs plain "
-                     f"{lr.log.channel('valid_per')}")
-        if len(searches) != len(ref_searches) or not searches:
-            fail(f"phase 19: {len(searches)} searches vs "
-                 f"{len(ref_searches)} on the plain route")
-        worst = 0.0
-        for i, (got, ref) in enumerate(zip(searches, ref_searches)):
-            for u, ((h, c), (rh, rc)) in enumerate(zip(got, ref)):
-                if h != rh or (c is None) != (rc is None):
-                    fail(f"phase 19: search {i} utterance {u}: {h} ({c}) vs "
-                         f"the plain route's {rh} ({rc})")
-                if c is not None:
-                    worst = max(worst, abs(c - rc) / abs(rc))
-        if worst > 1e-4:
-            fail(f"phase 19: beam costs within {worst:.2e} of the plain "
-                 f"route's")
+        if not expected <= set(files):
+            fail(f"phase 19: files {files}, expected {sorted(expected)}")
+        compared, _, worst = first_steps_agree(
+            "phase 19", stages, loops, ref_loops, searches, firsts,
+            ref_searches)
         nonempty = sum(bool(h) for got in searches for h, _ in got)
-        for route, (lps, mks, _, _, _) in routes.items():
-            for (name, _), lp, t0, t1 in zip(stages, lps, mks, mks[1:]):
+        for route, lps in (("kernels", loops), ("plain", ref_loops)):
+            for (name, _), lp, (t0, t1) in zip(stages, lps, spans[route]):
                 steps = lp.log.status["iterations_done"]
                 wall = t1 - t0
                 step_s = float(np.median(
@@ -3367,10 +3397,10 @@ def multistage_phase(t, dev, rates):
                     f"search, {B / step_s:.2f} utt/s in the steps (median "
                     f"{step_s:.4f} s); valid_per "
                     f"{[round(v, 4) for v in lp.log.channel('valid_per')[1]]}")
-        log(f"phase 19 files: {files}, the same on both routes; "
-            f"{len(searches)} searches with the same hypotheses ({nonempty} "
-            f"of {sum(len(g) for g in searches)} non-empty), beam costs "
-            f"within {worst:.2e} relative; launches {moved}")
+        log(f"phase 19 files: {files}; {len(searches)} searches, {compared} "
+            f"hypotheses compared with the plain route's ({nonempty} of "
+            f"{sum(len(g) for g in searches)} non-empty), beam costs within "
+            f"{worst:.2e} relative; launches {moved}")
 
         # main stopped after its first epoch, then resumed
         main = dict(stages)["main"]
@@ -3685,9 +3715,10 @@ def timit_kernels(t, dev, results, data):
 def timit_phase(t, dev, results, rates):
     """Phase 20: the TIMIT recipe (nips_baseline.yaml) at its full widths:
     the content branches of the two kernels (a, b), its three stages
-    through ``run_multistage`` on the kernels and on the plain route and
-    ``main`` resumed after an epoch (c), and ``run_search`` on the result
-    (d).  Returns the kernel route's launches in c and d."""
+    through ``run_multistage`` on the kernels (each stage's start and
+    first step on the plain route) and ``main`` resumed after an epoch
+    (c), and ``run_search`` on the result (d).  Returns the kernel route's
+    launches in c and d."""
     import torch
     from attention_lvcsr_torch.models import cells as cells_mod
     from attention_lvcsr_torch.models import generator as generator_mod
@@ -3726,12 +3757,14 @@ def timit_phase(t, dev, results, rates):
     valid = [{k: v[:4] for k, v in batches[16][0].items()}]
 
     def run(out_dir, start, searches, stage_list=stages, validate=True,
-            **kwargs):
+            firsts=None, **kwargs):
         marks = []
 
         def make_stage(config, load_path):
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
+            if firsts is not None:
+                firsts.append(len(searches))
             rec = create_model(config, data, load_path, device=dev)
             search = rec.beam_search
 
@@ -3763,67 +3796,59 @@ def timit_phase(t, dev, results, rates):
             data.eos_label] += 1.5
         save_checkpoint(start, rec.param_path_dict())
         del rec
-        routes = {}
-        for route in ("kernels", "plain"):
-            searches = []
-            for c in counters.values():
-                c.reset()
-            with swapped(plain if route == "plain" else []):
-                loops, marks = run(os.path.join(tmp, route), start, searches)
-            routes[route] = (loops, marks, searches, counts(counters),
-                             sorted(os.listdir(os.path.join(tmp, route))))
-        (loops, marks, searches, moved, files), (ref_loops, _, ref_searches,
-                                                 ref_moved, ref_files) = (
-            routes["kernels"], routes["plain"])
+        # the kernel route's stages, then on the plain route each stage's
+        # start and first step from the checkpoint the kernel route's
+        # stage loaded (``first_step``)
+        searches, firsts = [], []
+        for c in counters.values():
+            c.reset()
+        loops, marks = run(os.path.join(tmp, "kernels"), start, searches,
+                           firsts=firsts)
+        moved = counts(counters)
+        files = sorted(os.listdir(os.path.join(tmp, "kernels")))
+        ref_loops, ref_searches, spans = [], [], {
+            "kernels": list(zip(marks, marks[1:])), "plain": []}
+        for c in counters.values():
+            c.reset()
+        with swapped(plain):
+            for number, (name, stage) in enumerate(stages):
+                restart = stage["training"].get("restart_from", "")
+                load = start if not number else os.path.join(
+                    tmp, "kernels", f"{stages[number - 1][0]}{restart}.zip")
+                got = []
+                lps, mks = run(os.path.join(tmp, f"plain{number}"), load,
+                               got, [(name, first_step(stage))])
+                ref_loops += lps
+                ref_searches.append(got)
+                spans["plain"].append(tuple(mks))
+        ref_moved = counts(counters)
         if min(moved.values()) < 1 or any(ref_moved.values()):
             fail(f"phase 20c: launches {moved} on the kernels, {ref_moved} "
                  f"on the plain route")
         expected = {f"{name}{suffix}" for name, _ in stages for suffix in (
             ".zip", "_params.npz")}
-        if files != ref_files or not expected <= set(files):
-            fail(f"phase 20c: files {files} vs the plain route's "
-                 f"{ref_files}")
-        for name in files:
-            if not name.endswith(".zip"):
-                continue
-            a, b = (load_checkpoint(os.path.join(tmp, r, name))["parameters"]
-                    for r in ("kernels", "plain"))
-            noisy = any(k.startswith("/adaptive_noise/") for k in b)
-            if set(a) != set(b) or noisy == name.startswith("pretraining"):
+        if not expected <= set(files):
+            fail(f"phase 20c: files {files}, expected {sorted(expected)}")
+        for number, (name, _) in enumerate(stages):
+            keys = [set(load_checkpoint(path)["parameters"]) for path in (
+                os.path.join(tmp, "kernels", f"{name}.zip"),
+                os.path.join(tmp, f"plain{number}", f"{name}.zip"))
+                if os.path.exists(path)]
+            noisy = any(k.startswith("/adaptive_noise/") for k in keys[0])
+            if any(k != keys[0] for k in keys) or \
+                    noisy == (name == "pretraining"):
                 fail(f"phase 20c {name}: keys differ or the noise is "
                      f"{'present' if noisy else 'missing'}")
-        for (name, _), lp, lr in zip(stages, loops, ref_loops):
-            keys = ("train_cost", "total_gradient_norm",
-                    "valid_sequence_total_cost")
-            if name != "pretraining":
-                keys += ("model_cost",)
-            for key in keys:
-                (tg, g), (tr, r) = lp.log.channel(key), lr.log.channel(key)
-                rel = np.abs(np.subtract(g, r)) / np.abs(r)
-                if tg != tr or not tg or not (np.isfinite(g).all()
-                                              and rel.max() <= 1e-4):
-                    fail(f"phase 20c {name}: {key} {g} at {tg} vs plain {r} "
-                         f"at {tr}")
-            if lp.log.channel("valid_per") != lr.log.channel("valid_per"):
-                fail(f"phase 20c {name}: valid_per "
-                     f"{lp.log.channel('valid_per')} vs plain "
-                     f"{lr.log.channel('valid_per')}")
-        if len(searches) != len(ref_searches) or not searches:
-            fail(f"phase 20c: {len(searches)} searches vs "
-                 f"{len(ref_searches)} on the plain route")
-        worst = 0.0
-        for i, (got, ref) in enumerate(zip(searches, ref_searches)):
-            for u, ((h, c), (rh, rc)) in enumerate(zip(got, ref)):
-                if h != rh or (c is None) != (rc is None):
-                    fail(f"phase 20c: search {i} utterance {u}: {h} ({c}) "
-                         f"vs the plain route's {rh} ({rc})")
-                if c is not None:
-                    worst = max(worst, abs(c - rc) / abs(rc))
-        if worst > 1e-4:
-            fail(f"phase 20c: beam costs within {worst:.2e} of the plain "
-                 f"route's")
-        for route, (lps, mks, _, _, _) in routes.items():
-            for (name, _), lp, s0, s1 in zip(stages, lps, mks, mks[1:]):
+        # pretraining has no model_cost, the noisy stages have one
+        worst = max(first_steps_agree(
+            "phase 20c", stages[:1], loops, ref_loops, searches, firsts,
+            ref_searches)[2], first_steps_agree(
+            "phase 20c", stages[1:], loops[1:], ref_loops[1:], searches,
+            firsts[1:], ref_searches[1:],
+            ("train_cost", "total_gradient_norm",
+             "valid_sequence_total_cost", "model_cost"))[2])
+        for route, lps in (("kernels", loops), ("plain", ref_loops)):
+            for (name, _), lp, (s0, s1) in zip(stages, lps, spans[route]):
                 steps, B = lp.log.status["iterations_done"], sizes[name]
                 step_s = float(np.median(
                     lp.log.channel("time_train_this_batch")[1]))
@@ -3844,10 +3869,11 @@ def timit_phase(t, dev, results, rates):
         if nonempty < searched // 2 or min(pers) >= 1.0:
             fail(f"phase 20c: {nonempty} of {searched} hypotheses non-empty, "
                  f"valid_per {pers}: the comparison is too weak")
-        log(f"phase 20c files {files}, the same on both routes; "
-            f"{len(searches)} searches with the same hypotheses ({nonempty} "
-            f"of {searched} non-empty), beam costs within {worst:.2e} "
-            f"relative; launches {moved}")
+        log(f"phase 20c files {files}; {len(searches)} searches, "
+            f"{sum(len(g) for g in ref_searches)} of them "
+            f"with the plain route's hypotheses ({nonempty} of {searched} "
+            f"non-empty), beam costs within {worst:.2e} relative; launches "
+            f"{moved}")
 
         # main straight for two epochs, and stopped after one and resumed
         # (without validation and search, which the stages compared above)
@@ -4325,8 +4351,9 @@ def run_stages(dev, data, stages, batches, valid, out_dir, start, searches,
 
 def iclr_stages_check(t, dev, rates, data):
     """Phase 21e: iclr_reward.yaml's two pretraining stages with greedy
-    exploration on the kernels and on the plain route, then pretraining2
-    resumed after an epoch.  Returns the kernel route's launches."""
+    exploration on the kernels (each stage's start and first step on the
+    plain route), then pretraining2 resumed after an epoch.  Returns the
+    kernel route's launches."""
     from attention_lvcsr_torch.models import attention as attention_mod
     from attention_lvcsr_torch.models import cells as cells_mod
     from attention_lvcsr_torch.models import generator as generator_mod
@@ -4366,56 +4393,45 @@ def iclr_stages_check(t, dev, rates, data):
             data.eos_label] += 1.5
         save_checkpoint(start, rec.param_path_dict())
         del rec
-        routes = {}
-        for route in ("kernels", "plain"):
-            searches = []
-            for c in counters.values():
-                c.reset()
-            with swapped(plain if route == "plain" else []):
-                loops, marks = run_stages(dev, data, stages, batches, valid,
-                                          os.path.join(tmp, route), start,
-                                          searches)
-            routes[route] = (loops, marks, searches, counts(counters))
-        (loops, marks, searches, moved), (ref_loops, _, ref_searches,
-                                          ref_moved) = (routes["kernels"],
-                                                        routes["plain"])
+        # the kernel route's stages, then on the plain route each stage's
+        # start and first step from the checkpoint the kernel route's
+        # stage loaded (``first_step``)
+        searches, started = [], []
+        for c in counters.values():
+            c.reset()
+        loops, marks = run_stages(dev, data, stages, batches, valid,
+                                  os.path.join(tmp, "kernels"), start,
+                                  searches, started=started)
+        moved = counts(counters)
+        ref_loops, ref_searches, spans = [], [], {
+            "kernels": list(zip(marks, marks[1:])), "plain": []}
+        for c in counters.values():
+            c.reset()
+        with swapped(plain):
+            for number, (name, stage) in enumerate(stages):
+                got = []
+                lps, mks = run_stages(
+                    dev, data, [(name, first_step(stage))], batches, valid,
+                    os.path.join(tmp, f"plain{number}"),
+                    started[number][1], got)
+                ref_loops += lps
+                ref_searches.append(got)
+                spans["plain"].append(tuple(mks))
+        ref_moved = counts(counters)
         if min(moved.values()) < 1 or any(ref_moved.values()):
             fail(f"phase 21e: launches {moved} on the kernels, {ref_moved} "
                  f"on the plain route")
-        for (name, _), lp, lr in zip(stages, loops, ref_loops):
-            for key in ("train_cost", "total_gradient_norm",
-                        "valid_sequence_total_cost"):
-                (tg, g), (tr, r) = lp.log.channel(key), lr.log.channel(key)
-                rel = np.abs(np.subtract(g, r)) / np.abs(r)
-                log(f"phase 21e {name}: {key} {g} vs plain {r} (max rel err "
-                    f"{rel.max() if len(r) else 0:.2e})")
-                if tg != tr or not tg or not (np.isfinite(g).all()
-                                              and rel.max() <= 1e-4):
-                    fail(f"phase 21e {name}: {key} disagrees with the plain "
-                         f"route")
-            if lp.log.channel("valid_per") != lr.log.channel("valid_per"):
-                fail(f"phase 21e {name}: valid_per differs")
-        if len(searches) != len(ref_searches) or not searches:
-            fail(f"phase 21e: {len(searches)} searches vs "
-                 f"{len(ref_searches)} on the plain route")
-        worst = 0.0
-        for i, (got, ref) in enumerate(zip(searches, ref_searches)):
-            for u, ((h, c), (rh, rc)) in enumerate(zip(got, ref)):
-                if h != rh or (c is None) != (rc is None):
-                    fail(f"phase 21e: search {i} utterance {u}: {h} ({c}) "
-                         f"vs the plain route's {rh} ({rc})")
-                if c is not None:
-                    worst = max(worst, abs(c - rc) / max(abs(rc), 1e-6))
-        if worst > 1e-4:
-            fail(f"phase 21e: beam costs within {worst:.2e} of the plain "
-                 f"route's")
+        compared, _, worst = first_steps_agree(
+            "phase 21e", stages, loops, ref_loops, searches,
+            [first for first, _ in started], ref_searches)
         nonempty = sum(bool(h) for got in searches for h, _ in got)
         searched = sum(len(g) for g in searches)
         if nonempty <= searched // 2:
             fail(f"phase 21e: {nonempty} of {searched} hypotheses non-empty: "
                  f"the comparison is too weak")
-        for route, (lps, mks, _, _) in routes.items():
-            for (name, stage), lp, s0, s1 in zip(stages, lps, mks, mks[1:]):
+        for route, lps in (("kernels", loops), ("plain", ref_loops)):
+            for (name, stage), lp, (s0, s1) in zip(stages, lps,
+                                                   spans[route]):
                 steps = lp.log.status["iterations_done"]
                 B = stage["data"]["batch_size"]
                 step_s = float(np.median(
@@ -4428,8 +4444,9 @@ def iclr_stages_check(t, dev, rates, data):
                     f"validation and search, {B / step_s:.2f} utt/s in the "
                     f"steps (median {step_s:.4f} s); valid_per "
                     f"{[round(v, 4) for v in lp.log.channel('valid_per')[1]]}")
-        log(f"phase 21e: {len(searches)} searches with the same hypotheses "
-            f"({nonempty} of {searched} non-empty), beam costs within "
+        log(f"phase 21e: {len(searches)} searches ({nonempty} of "
+            f"{searched} hypotheses non-empty), {compared} hypotheses "
+            f"compared with the plain route's, beam costs within "
             f"{worst:.2e} relative; launches {moved}")
 
         # pretraining2 straight for two epochs, and stopped after one and
@@ -5035,14 +5052,66 @@ def first_step(stage):
     return stage
 
 
+def first_steps_agree(name, stages, loops, ref_loops, searches, firsts,
+                      ref_searches, keys=("train_cost",
+                                          "total_gradient_norm",
+                                          "valid_sequence_total_cost")):
+    """Each stage's kernel-route run (``loops``; its searches'
+    hypotheses in ``searches``, the stage's first at ``firsts[number]``)
+    against its ``first_step`` run on the plain route (``ref_loops``,
+    ``ref_searches``): up to the plain run's one batch, the records of
+    ``keys`` within 1e-4 relative and ``valid_per`` equal; every
+    kernel-route train_cost finite; the plain searches' best hypotheses
+    those of the stage's first searches on the kernels, beam costs within
+    1e-4 relative.  Returns (hypotheses compared, non-empty among them,
+    the largest relative cost difference)."""
+    worst, nonempty, compared = 0.0, 0, 0
+    firsts = list(firsts) + [len(searches)]
+    for number, ((stage, _), lp, lr, got) in enumerate(
+            zip(stages, loops, ref_loops, ref_searches)):
+        horizon = lr.log.status["iterations_done"]
+        for key in tuple(keys) + ("valid_per",):
+            tg, g = lp.log.channel(key)
+            tr, r = lr.log.channel(key)
+            g = [v for i, v in zip(tg, g) if i <= horizon]
+            tg = [i for i in tg if i <= horizon]
+            if key == "valid_per":
+                if tg != tr or g != r:
+                    fail(f"{name} {stage}: valid_per {g} vs plain {r}")
+                continue
+            rel = np.abs(np.subtract(g, r)) / np.abs(r)
+            if tg != tr or not tg or not (np.isfinite(g).all()
+                                          and rel.max() <= 1e-4):
+                fail(f"{name} {stage}: {key} {g} at {tg} vs plain {r} at "
+                     f"{tr}")
+        if not np.isfinite(lp.log.channel("train_cost")[1]).all():
+            fail(f"{name} {stage}: train_cost "
+                 f"{lp.log.channel('train_cost')[1]}")
+        ours = searches[firsts[number]:firsts[number + 1]]
+        if not got or len(ours) < len(got):
+            fail(f"{name} {stage}: {len(ours)} searches vs {len(got)} on "
+                 f"the plain route")
+        for i, (mine, ref) in enumerate(zip(ours, got)):
+            for u, ((h, c), (rh, rc)) in enumerate(zip(mine, ref)):
+                if h != rh or (c is None) != (rc is None):
+                    fail(f"{name} {stage}: search {i} utterance {u}: {h} "
+                         f"({c}) vs the plain route's {rh} ({rc})")
+                if c is not None:
+                    worst = max(worst, abs(c - rc) / max(abs(rc), 1e-6))
+                nonempty += bool(h)
+                compared += 1
+    if worst > 1e-4:
+        fail(f"{name}: beam costs within {worst:.2e} of the plain route's")
+    return compared, nonempty, worst
+
+
 def recipes_check(dev, rates, phase, recipes, batches, valid, loop_routes):
     """The recipes' stages through ``run_multistage`` on the kernels over
     the in-memory ``batches`` ({batch size: batches} of an epoch),
     validation and search on ``valid`` before each stage and after its
-    epoch, held against the plain route: each recipe's first stage whole
-    from the same start, each later stage's start (validation and search)
-    and first step from the checkpoint the kernel route's stage loaded
-    (``first_step``).  Where both routes ran, train_cost,
+    epoch, held against the plain route: each stage's start (validation
+    and search) and first step from the checkpoint the kernel route's
+    stage loaded (``first_step``).  Where both routes ran, train_cost,
     total_gradient_norm and validation costs within 1e-4 relative, the
     same valid_per and hypotheses, more than half of the compared
     hypotheses non-empty; every stage's costs finite; the route of every
@@ -5109,9 +5178,8 @@ def recipes_check(dev, rates, phase, recipes, batches, valid, loop_routes):
                 for number, (name, stage) in enumerate(stages):
                     got = []
                     lps, mks = run_stages(
-                        dev, data, [(name, first_step(stage) if number
-                                     else stage)], batches, valid,
-                        os.path.join(tmp, f"plain{number}"),
+                        dev, data, [(name, first_step(stage))], batches,
+                        valid, os.path.join(tmp, f"plain{number}"),
                         started[number][1], got)
                     ref_loops += lps
                     ref_searches.append(got)
@@ -5138,48 +5206,12 @@ def recipes_check(dev, rates, phase, recipes, batches, valid, loop_routes):
         if used != want or any(ref_moved.values()):
             fail(f"phase {phase} {recipe}: launches {moved} on the kernels, "
                  f"{ref_moved} on the plain route (expected {sorted(want)})")
-        worst, nonempty, compared = 0.0, 0, 0
-        firsts = [first for first, _ in started] + [len(searches)]
-        for number, ((name, _), lp, lr, got) in enumerate(
-                zip(stages, loops, ref_loops, ref_searches)):
-            # the kernel route's records up to the plain run's last batch
-            horizon = lr.log.status["iterations_done"]
-            for key in ("train_cost", "total_gradient_norm",
-                        "valid_sequence_total_cost", "valid_per"):
-                tg, g = lp.log.channel(key)
-                tr, r = lr.log.channel(key)
-                g = [v for i, v in zip(tg, g) if i <= horizon]
-                tg = [i for i in tg if i <= horizon]
-                if key == "valid_per":
-                    if tg != tr or g != r:
-                        fail(f"phase {phase} {recipe} {name}: valid_per {g} "
-                             f"vs plain {r}")
-                    continue
-                rel = np.abs(np.subtract(g, r)) / np.abs(r)
-                if tg != tr or not tg or not (np.isfinite(g).all()
-                                              and rel.max() <= 1e-4):
-                    fail(f"phase {phase} {recipe} {name}: {key} {g} vs plain "
-                         f"{r}")
-            if not np.isfinite(lp.log.channel("train_cost")[1]).all():
-                fail(f"phase {phase} {recipe} {name}: train_cost "
-                     f"{lp.log.channel('train_cost')[1]}")
-            ours = searches[firsts[number]:firsts[number + 1]]
-            if not got or len(ours) < len(got):
-                fail(f"phase {phase} {recipe} {name}: {len(ours)} searches "
-                     f"vs {len(got)} on the plain route")
-            for i, (mine, ref) in enumerate(zip(ours, got)):
-                for u, ((h, c), (rh, rc)) in enumerate(zip(mine, ref)):
-                    if h != rh or (c is None) != (rc is None):
-                        fail(f"phase {phase} {recipe} {name}: search {i} "
-                             f"utterance {u}: {h} ({c}) vs the plain "
-                             f"route's {rh} ({rc})")
-                    if c is not None:
-                        worst = max(worst, abs(c - rc) / max(abs(rc), 1e-6))
-                    nonempty += bool(h)
-                    compared += 1
-        if worst > 1e-4 or nonempty <= compared // 2:
-            fail(f"phase {phase} {recipe}: beam costs within {worst:.2e}, "
-                 f"{nonempty} of {compared} compared hypotheses non-empty")
+        compared, nonempty, worst = first_steps_agree(
+            f"phase {phase} {recipe}", stages, loops, ref_loops, searches,
+            [first for first, _ in started], ref_searches)
+        if nonempty <= compared // 2:
+            fail(f"phase {phase} {recipe}: {nonempty} of {compared} "
+                 f"compared hypotheses non-empty")
         for route, lps in (("kernels", loops), ("plain", ref_loops)):
             for (name, stage), lp, (s0, s1) in zip(stages, lps,
                                                    spans[route]):
@@ -7448,6 +7480,154 @@ def variants_phase(t, dev, results, rates):
     parts = "abcd"
     log("phase 28: " + ", ".join(
         f"{p} {b - a:.1f} s" for p, a, b in zip(parts, marks, marks[1:]))
+        + f", all {marks[-1] - marks[0]:.1f} s")
+    return moved
+
+
+
+# Phase 29: the quality proxy's fast tier (attention_lvcsr_torch/cli/
+# quality_proxy.py) from seed 7, its data in memory (the card's Python has
+# no h5py).  QUALITY_EPOCHS (pretraining, main) are the fewest with which
+# the trained model's decodes are mostly non-empty; the tier's default
+# (1, 2) leaves the no-LM decodes at WER 1.0.
+QUALITY_SEED = 7
+QUALITY_EPOCHS = "2,8"
+QUALITY_SEARCH = {"stop_on": "patience", "round_to_inf": 1e9}
+# (condition, beam, char_discount, utterances): the tool's four decodes
+# of the 50 test utterances at exp/wsj/decode.sh's discounts (0.1 without
+# the LM, 1.0 with it), beam 10 and the tier's wide beam 20, and the no-LM
+# decode at the other tiers' beam 200 of one batch of 16, which at the
+# fast tier's widths passes a block (the loop kernel's workspace instance)
+QUALITY_DECODES = (("nolm", 10, 0.1, None), ("lm", 10, 1.0, None),
+                   ("nolm", 20, 0.1, None), ("lm", 20, 1.0, None),
+                   ("nolm", 200, 0.1, 16))
+
+
+def utterance_rows(out, n):
+    """The first ``n`` utterances of a decode's outputs (the rest of the
+    batch is padding)."""
+    return {k: (v[:n] if np.ndim(v) else v) for k, v in out.items()}
+
+
+def quality_phase(dev, rates):
+    """Phase 29: the quality proxy's fast tier trained and decoded on the
+    kernels, each stage's first step and every decode held against the
+    plain route.  Returns the kernel route's launches."""
+    import torch
+    from attention_lvcsr_torch.cli import quality_proxy as qp
+    from attention_lvcsr_torch.data import Data
+    from attention_lvcsr_torch.models import cells as cells_mod
+    from attention_lvcsr_torch.models import generator as generator_mod
+    from attention_lvcsr_torch.ops import decoder_train as dt
+    from attention_lvcsr_torch.ops import gru_train as gt
+    from attention_lvcsr_torch.train import driver
+    plain_train = [(cells_mod, "gru_scan_train", gt.gru_scan_train_reference),
+                   (generator_mod, "decoder_scan_train",
+                    dt.decoder_scan_train_reference)]
+    counters = qp.launch_counters()
+    marks = [time.perf_counter()]
+    tmp = tempfile.mkdtemp()
+    try:
+        built = qp.build(tmp, QUALITY_SEED, "fast", QUALITY_EPOCHS,
+                         in_memory=True)
+        marks.append(time.perf_counter())
+        save_dir = os.path.join(tmp, "kernels")
+        for c in counters.values():
+            c.reset()
+        meta, loops = qp.train(built, save_dir, dev)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        data = Data(**built["config"]["data"])
+        ckpt = os.path.join(save_dir, "main.zip")
+        models = {"nolm": driver.create_model(built["config"], data, ckpt,
+                                              device=dev),
+                  "lm": qp.lm_model(built, data, ckpt, dev)}
+        rows, outputs = {}, {}
+        for cond, beam, cd, limit in QUALITY_DECODES:
+            outputs[cond, beam] = []
+            rows[cond, beam] = qp.decode_and_score(
+                models[cond], data, beam,
+                dict(QUALITY_SEARCH, char_discount=cd), limit=limit,
+                outputs=outputs[cond, beam])
+        torch.cuda.synchronize()
+        moved = counts(counters)
+        marks.append(time.perf_counter())
+
+        # the plain route: each stage's first step from the kernel route's
+        # start (the seed's initialization, then pretraining_best_ll.zip)
+        starts = (None, os.path.join(save_dir, "pretraining_best_ll.zip"))
+        for c in counters.values():
+            c.reset()
+        with swapped(plain_train):
+            for (name, stage), start, loop in zip(
+                    built["config"].ordered_stages.items(), starts, loops):
+                stage = copy.deepcopy(stage)
+                stage["training"]["num_batches"] = 1
+                ref, = driver.run_multistage(
+                    [(name, stage)], os.path.join(tmp, "plain"),
+                    driver.data_stage(dev), start, fast_start=True,
+                    printing=False)
+                agree = []
+                for key in ("train_cost", "total_gradient_norm"):
+                    (tg, g), (tr, r) = (loop.log.channel(key),
+                                        ref.log.channel(key))
+                    rel = abs(g[0] - r[0]) / abs(r[0])
+                    if tg[:1] != tr or not (np.isfinite(g).all()
+                                            and rel <= 1e-4):
+                        fail(f"phase 29 {name}: the first step's {key} "
+                             f"{g[:1]} vs the plain route's {r}")
+                    agree.append(f"{key} {g[0]:.6f} vs {r[0]:.6f}")
+                log(f"phase 29 {name}: {loop.log.status['iterations_done']}"
+                    f" steps on the kernels; the first step's "
+                    + ", ".join(agree) + " on the plain route")
+        # every decode on the plain route
+        with swapped(plain_decode_swaps()):
+            for cond, beam, cd, limit in QUALITY_DECODES:
+                ref_outputs = []
+                ref = qp.decode_and_score(
+                    models[cond], data, beam,
+                    dict(QUALITY_SEARCH, char_discount=cd), limit=limit,
+                    outputs=ref_outputs)
+                got = rows[cond, beam]
+                nonempty = 0
+                for (n, out), (_, ref_out) in zip(outputs[cond, beam],
+                                                  ref_outputs):
+                    got_rows = utterance_rows(out, n)
+                    compare_outputs(f"phase 29 {cond} beam {beam}", got_rows,
+                                    utterance_rows(ref_out, n),
+                                    reorder=True)
+                    nonempty += int(got_rows["done_valid"].any(axis=1).sum())
+                if len(ref_outputs) != len(outputs[cond, beam]) or any(
+                        got[k] != ref[k] for k in ("cer", "wer", "empty")):
+                    fail(f"phase 29 {cond} beam {beam}: {got} vs the plain "
+                         f"route's {ref}")
+                if nonempty <= got["utterances"] // 2:
+                    fail(f"phase 29 {cond} beam {beam}: {nonempty} of "
+                         f"{got['utterances']} hypotheses non-empty: the "
+                         f"comparison is too weak")
+                rates[f"quality_{cond}_beam{beam}_utt_per_s"] = \
+                    got["utt_per_s"]
+                rates[f"plain_quality_{cond}_beam{beam}_utt_per_s"] = \
+                    ref["utt_per_s"]
+                log(f"phase 29 {cond} beam {beam} char_discount {cd}: CER "
+                    f"{got['cer']} WER {got['wer']} on both routes, "
+                    f"{nonempty} of {got['utterances']} non-empty; "
+                    f"{got['utt_per_s']} utt/s, plain {ref['utt_per_s']}; "
+                    f"launches {got['launches']}")
+        if any(counts(counters).values()):
+            fail(f"phase 29: the plain route launched kernels: "
+                 f"{counts(counters)}")
+        marks.append(time.perf_counter())
+    finally:
+        shutil.rmtree(tmp)
+    if min(moved.values()) < 1:
+        fail(f"phase 29: a kernel of the path did not launch: {moved}")
+    rates["quality_train_s"] = meta["train_wall_s"]
+    log(f"phase 29: LG_pushed {built['graph']['LG_pushed'].num_states} "
+        f"states in {built['graph_s']:.2f} s; epochs {QUALITY_EPOCHS}, "
+        f"training {meta['train_wall_s']} s, launches {moved}; "
+        + ", ".join(f"{p} {b - a:.1f} s" for p, a, b in zip(
+            ("build", "train", "decodes", "plain"), marks, marks[1:]))
         + f", all {marks[-1] - marks[0]:.1f} s")
     return moved
 

@@ -68,6 +68,7 @@ MODULES = [
     "attention_lvcsr_torch.cli.edit_params",
     "attention_lvcsr_torch.cli.print_config",
     "attention_lvcsr_torch.cli.make_toy_dataset",
+    "attention_lvcsr_torch.cli.quality_proxy",
     "attention_lvcsr_torch.data.h5",
     "attention_lvcsr_torch.train.extensions",
     "attention_lvcsr_torch.data.server",
